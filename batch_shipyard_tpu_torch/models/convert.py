@@ -1,0 +1,88 @@
+"""Parameters for the port's TransformerLM: from a flax tree, or drawn
+fresh on the card.
+
+``params_from_flax`` carries the reference's trained or initialized
+weights across (the parity tests load the SAME weights into both
+packages; the two frameworks' random generators differ). It takes the
+flax param tree as nested dicts of numpy arrays, so it needs no JAX.
+``init_params`` draws a state dict from an explicit torch.Generator
+with flax's initializers' distributions, for runs without JAX.
+"""
+
+from __future__ import annotations
+
+import math
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from batch_shipyard_tpu_torch.models.transformer import TransformerConfig
+
+# flax's truncated-normal initializers divide the target stddev by the
+# stddev of a unit normal truncated to [-2, 2].
+_TRUNC_STD = 0.87962566103423978
+
+
+def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """flax params (``model.init(...)["params"]`` mapped to numpy) ->
+    the port's state dict. Dense ``kernel [in, out]`` becomes
+    ``weight [out, in]``; ``embed/embedding`` (shared with the tied
+    logits) and RMSNorm ``scale`` carry across under the same path."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, path: tuple) -> None:
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, path + (key,))
+                continue
+            array = np.asarray(value)
+            if key == "kernel":
+                out[".".join(path + ("weight",))] = torch.from_numpy(
+                    np.ascontiguousarray(array.T))
+            else:
+                out[".".join(path + (key,))] = torch.from_numpy(
+                    array.copy())
+
+    walk(tree, ())
+    return out
+
+
+def init_params(config: TransformerConfig,
+                generator: torch.Generator) -> dict[str, torch.Tensor]:
+    """A fresh state dict on ``generator.device``: Dense weights
+    lecun-normal (truncated normal, variance 1/fan_in), the embedding
+    normal with variance 1/d_model (flax's default Embed init,
+    variance_scaling(1, fan_in, normal) over [vocab, d_model]), RMSNorm
+    scales one."""
+    device = generator.device
+    dtype = config.param_dtype
+    state: dict[str, torch.Tensor] = {}
+
+    def dense(name: str, fan_in: int, fan_out: int) -> None:
+        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+        weight = torch.empty(fan_out, fan_in, dtype=dtype, device=device)
+        torch.nn.init.trunc_normal_(weight, std=std, a=-2.0 * std,
+                                    b=2.0 * std, generator=generator)
+        state[name + ".weight"] = weight
+
+    embed = torch.empty(config.vocab_size, config.d_model, dtype=dtype,
+                        device=device)
+    embed.normal_(0.0, math.sqrt(1.0 / config.d_model),
+                  generator=generator)
+    state["embed.embedding"] = embed
+    features = config.n_heads * config.d_head
+    for i in range(config.n_layers):
+        layer = f"layer_{i}"
+        for proj in ("q_proj", "k_proj", "v_proj"):
+            dense(f"{layer}.attn.{proj}", config.d_model, features)
+        dense(f"{layer}.attn.o_proj", features, config.d_model)
+        dense(f"{layer}.mlp.gate_proj", config.d_model, config.d_ff)
+        dense(f"{layer}.mlp.up_proj", config.d_model, config.d_ff)
+        dense(f"{layer}.mlp.down_proj", config.d_ff, config.d_model)
+        for norm in ("attn_norm", "mlp_norm"):
+            state[f"{layer}.{norm}.scale"] = torch.ones(
+                config.d_model, dtype=torch.float32, device=device)
+    state["final_norm.scale"] = torch.ones(
+        config.d_model, dtype=torch.float32, device=device)
+    return state

@@ -1,0 +1,933 @@
+"""Continuous batching: a slot-based serving engine over the KV-cache
+decode path (PyTorch).
+
+Counterpart of batch_shipyard_tpu/models/serving.py
+(``ContinuousBatcher``). A fixed pool of decode SLOTS shares one
+batched KV cache; requests admit into free slots as they arrive (a
+batch-1 prefill scattered into the slot), every engine step decodes ONE
+token for all slots in one batched forward, and finished slots free at
+once. The host bookkeeping is the reference's, line for line: the page
+allocator with its scratch page, reservation or overcommit preemption
+with re-prefill, the blake2b-chained prefix cache with refcounts and an
+LRU, EDF admission, shedding and drain.
+
+What differs: PyTorch runs eagerly, so there is no jit and no compile
+cache; the KV cache is updated in place; the random stream for
+temperature sampling is a torch.Generator seeded with ``seed``. Prompts
+still pad to the reference's power-of-two buckets (``_bucket_length``),
+so prefill shapes match it. Speculative decoding, the goodput warm-up
+phase and AOT precompile come with later slices.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import hashlib
+import time
+import uuid
+from typing import Callable, Optional, Union
+
+import numpy as np
+import torch
+
+from batch_shipyard_tpu_torch.device import resolve_device
+from batch_shipyard_tpu_torch.models import inference as inf
+from batch_shipyard_tpu_torch.models import transformer as tfm
+
+
+def _decode_step(model, sampling, cache, tokens, positions, active,
+                 generator):
+    """One token for every slot in one batched forward. Inactive slots
+    DO write garbage into their cache rows (dense) or the scratch page
+    (paged): a freed row is never read and the next admission's prefill
+    rewrites it. Only the token/position bookkeeping is masked."""
+    logits = model(tokens, positions=positions[:, None], cache=cache)
+    next_tok = inf._sample(logits[:, 0].float(), generator, sampling)
+    next_tok = torch.where(active, next_tok, tokens[:, 0])
+    positions = torch.where(active, positions + 1, positions)
+    return next_tok[:, None], positions, next_tok
+
+
+def _dense_prefill(model, prefill_chunk, prompt, prompt_len, small=None,
+                   start: int = 0):
+    """Batch-1 prefill of ``prompt`` [1, L] (bucket-padded) into a dense
+    batch-1 cache, in ceil(L/chunk) multi-token inserts with GLOBAL
+    positions from ``start``. Rows past the true prompt are garbage,
+    masked-on-read and overwritten by decode. Returns (small cache,
+    fp32 logits [vocab] of the token at ``prompt_len - 1`` — counted
+    from the cache start, so a seeded prefix of ``start`` rows counts).
+    """
+    if small is None:
+        small = inf.init_cache(model, 1)
+    total = prompt.shape[1]
+    chunk = min(prefill_chunk or total, total)
+    hiddens = []
+    for off in range(0, total, chunk):
+        seg = prompt[:, off:off + chunk]
+        positions = torch.arange(start + off, start + off + seg.shape[1],
+                                 dtype=torch.int32, device=prompt.device)
+        hiddens.append(model(seg, positions=positions, cache=small,
+                             return_hidden=True))
+    hidden = torch.cat(hiddens, dim=1)
+    last = inf.last_token_logits(model, hidden[0, prompt_len - start - 1])
+    return small, last
+
+
+@dataclasses.dataclass
+class Request:
+    request_id: str
+    prompt: list[int]
+    max_new_tokens: int
+    eos_id: Optional[int] = None
+    # Admission priority among QUEUED requests (higher first; ties
+    # FIFO, then EDF on the TTFT deadline). Active slots are never
+    # preempted for priority.
+    priority: int = 0
+    # Request-level SLO targets (None = best-effort): EDF ordering,
+    # prefill-stall deferral and, with a shed grace, overload shedding.
+    ttft_target_ms: Optional[float] = None
+    tpot_target_ms: Optional[float] = None
+    slo_class: str = "standard"
+
+
+@dataclasses.dataclass
+class _Slot:
+    request: Optional[Request] = None
+    generated: list[int] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _QueueEntry:
+    """A queued request, plus the tokens it had already generated if it
+    was preempted (overcommit mode): resumption re-prefills
+    prompt + resumed in one pass and continues decoding."""
+    request: Request
+    resumed: list[int] = dataclasses.field(default_factory=list)
+    submitted_at: float = 0.0
+
+
+class ContinuousBatcher:
+    """Slot-based continuous batching engine.
+
+    Usage:
+        engine = ContinuousBatcher(config, state_dict, num_slots=8,
+                                   max_decode_len=512, device="cuda")
+        engine.submit(Request("r1", prompt_ids, max_new_tokens=128))
+        while engine.pending():
+            for request_id, tokens in engine.step():
+                ...  # finished request
+
+    ``params`` is the model's state dict (models/convert.py). The
+    engine runs on ``device`` (default cuda; it raises when no CUDA
+    device exists unless ``device="cpu"`` is passed). One thread must
+    own stepping: submit/step/cancel/drain mutate engine state.
+    """
+
+    def __init__(self, config: tfm.TransformerConfig, params: dict,
+                 num_slots: int, max_decode_len: int,
+                 sampling: inf.SamplingConfig = inf.SamplingConfig(),
+                 seed: int = 0,
+                 kv_page_size: Optional[int] = None,
+                 kv_num_pages: Optional[int] = None,
+                 overcommit: bool = False,
+                 prefill_chunk: Optional[int] = None,
+                 on_token: Optional[
+                     Callable[[str, int, int], None]] = None,
+                 prefix_cache: bool = True,
+                 slo_shed_grace_ms: Optional[float] = None,
+                 tpot_stall_factor: float = 4.0,
+                 device: Optional[Union[str, torch.device]] = None):
+        """kv_page_size enables the PAGED KV cache: K/V live in a shared
+        kv_num_pages-page pool (default: the no-deadlock capacity
+        num_slots * max_decode_len / page) and slots hold block tables
+        over their live tokens. Admission with a smaller pool:
+        overcommit=False RESERVES each request's worst-case pages up
+        front; overcommit=True takes only the prompt's pages (+1) and,
+        when decode runs dry, PREEMPTS the slot with the fewest
+        generated tokens (re-queued, later re-prefilled with what it
+        had generated — the greedy continuation is unchanged).
+
+        prefix_cache (paged only) indexes every full prompt page by a
+        chained content hash; a later request sharing those pages pins
+        them (refcounted) and prefills only its suffix. Unreferenced
+        indexed pages park in an LRU, evicted only when the free list
+        runs dry.
+
+        slo_shed_grace_ms arms overload shedding of queued requests
+        whose TTFT deadline is blown by more than the grace;
+        tpot_stall_factor bounds how long a prefill may stall active
+        decodes (a multiple of their tightest TPOT target).
+
+        prefill_chunk caps the prefill insert length (the score tensor
+        shrinks to O(chunk * max_decode_len)); use a power of two."""
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        self.device = resolve_device(device)
+        self.prefill_chunk = prefill_chunk
+        self.config = inf.decode_config(config, max_decode_len)
+        self.paged = kv_page_size is not None
+        self.overcommit = overcommit
+        # Observers: on_token(request_id, token, index) the moment a
+        # token is generated (index 0 = the prefill-sampled token);
+        # on_admit(request_id) as a queued request wins a slot, before
+        # its prefill; on_shed(request_id, reason) when shedding drops
+        # a queued request. All run on the engine's stepping thread.
+        self.on_token = on_token
+        self.on_admit: Optional[Callable[[str], None]] = None
+        self.on_shed: Optional[Callable[[str, str], None]] = None
+        self.preemptions = 0
+        self.decode_steps = 0
+        if overcommit and not self.paged:
+            raise ValueError("overcommit requires the paged KV cache "
+                             "(kv_page_size)")
+        if self.paged:
+            if max_decode_len % kv_page_size:
+                raise ValueError("max_decode_len must be a multiple "
+                                 "of kv_page_size")
+            if kv_num_pages is None:
+                kv_num_pages = num_slots * (
+                    max_decode_len // kv_page_size)
+            self.page_size = kv_page_size
+            self.max_blocks = max_decode_len // kv_page_size
+            self._free_pages = list(range(kv_num_pages))
+            # Reservation budget (see _admit): worst-case pages per
+            # request, so lazy growth during decode cannot deadlock.
+            self._avail_pages = kv_num_pages
+            self._total_pages = kv_num_pages
+            self._slot_reserved = [0] * num_slots
+            # The decode step runs the full slot batch, so INACTIVE
+            # slots keep writing through their block tables: one extra
+            # SCRATCH page (index kv_num_pages) absorbs those writes,
+            # and freed slots' table rows reset to it.
+            self._scratch_page = kv_num_pages
+            self.config = dataclasses.replace(
+                self.config, kv_page_size=kv_page_size,
+                kv_num_pages=kv_num_pages + 1)
+            self._table = np.full((num_slots, self.max_blocks),
+                                  self._scratch_page, np.int32)
+            self._slot_pages: list[list[int]] = [
+                [] for _ in range(num_slots)]
+            # Prefix-cache state. Page lifecycle: FREE -> OWNED (a
+            # slot's _slot_pages) -> PINNED (indexed, refcount >= 1,
+            # in _slot_shared) -> LRU (indexed, refcount 0) -> FREE.
+            # Invariant: _avail_pages = total - pinned -
+            # sum(_slot_reserved); LRU pages count as available.
+            self._slot_shared: list[list[int]] = [
+                [] for _ in range(num_slots)]
+            self._prefix_index: dict[bytes, int] = {}
+            self._page_key: dict[int, bytes] = {}
+            self._page_ref: dict[int, int] = {}
+            self._lru: "collections.OrderedDict[int, None]" = \
+                collections.OrderedDict()
+        self.prefix_cache = bool(prefix_cache) and self.paged
+        self.prefix_lookups = 0
+        self.prefix_hit_pages = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_total_tokens = 0
+        self.prefix_published = 0
+        self.prefix_evictions = 0
+        self.slo_shed_grace_ms = slo_shed_grace_ms
+        self.tpot_stall_factor = tpot_stall_factor
+        self.slo_sheds = 0
+        self.sheds_by_class: dict[str, int] = {}
+        self.slo_deferrals = 0
+        # Drain mode: _admit refuses new work; active decodes finish.
+        self.draining = False
+        self._prefill_ms_per_token: Optional[float] = None
+        self._step_ms: Optional[float] = None
+        self._timed_buckets: set = set()
+        self._step_samples = 0
+        self.num_slots = num_slots
+        self.max_decode_len = max_decode_len
+        self.sampling = sampling
+        self.model = self._load_model(self.config, params)
+        # Prefill runs on a DENSE batch-1 decode model sharing the
+        # weights; paged mode then scatters its rows into pages.
+        self._dense_model = self._load_model(
+            inf.decode_config(config, max_decode_len),
+            self.model.state_dict())
+        self.cache = inf.init_cache(self.model, num_slots)
+        if self.paged:
+            # Fresh tables are zeros (a REAL page): point every slot at
+            # the scratch page before any step runs.
+            self._push_tables()
+        self._slots = [_Slot() for _ in range(num_slots)]
+        self._queue: list[_QueueEntry] = []
+        self._tokens = torch.zeros((num_slots, 1), dtype=torch.int32,
+                                   device=self.device)
+        self._positions = torch.zeros((num_slots,), dtype=torch.int32,
+                                      device=self.device)
+        self._active = torch.zeros((num_slots,), dtype=torch.bool,
+                                   device=self.device)
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(seed)
+
+    def _load_model(self, config: tfm.TransformerConfig,
+                    params: dict) -> tfm.TransformerLM:
+        """A decode model on the engine's device holding ``params``.
+        Tensors already on the device in the right dtype are shared,
+        not copied (load_state_dict with assign)."""
+        model = tfm.TransformerLM(config, device="meta")
+        state = {name: t.to(self.device) for name, t in params.items()}
+        model.load_state_dict(state, assign=True)
+        model.cast_dense_weights_()
+        return model.requires_grad_(False).eval()
+
+    # ------------------------------ public -----------------------------
+
+    def warmup(self, prompt_len: int = 16,
+               max_new_tokens: int = 2) -> list[int]:
+        """Drive one throwaway request through prefill and decode
+        before real traffic, so the kernel library is built and loaded
+        (and the caching allocator primed) outside any measured
+        request. Leaves the prefix index and its counters empty.
+        Returns the prefill bucket warmed."""
+        length = min(prompt_len, self.max_decode_len - max_new_tokens)
+        self.submit(Request(
+            request_id=f"__warmup__{uuid.uuid4().hex[:8]}",
+            prompt=[(i % 7) + 1 for i in range(length)],
+            max_new_tokens=max_new_tokens))
+        while self.pending():
+            self.step()
+        if self.prefix_cache:
+            self.prefix_cache_clear()
+            self.prefix_lookups = 0
+            self.prefix_hit_pages = 0
+            self.prefix_hit_tokens = 0
+            self.prefix_total_tokens = 0
+            self.prefix_published = 0
+            self.prefix_evictions = 0
+        return [self._bucket_length(length)]
+
+    def submit(self, request: Request) -> None:
+        """Enqueue a request. Refused while draining."""
+        if self.draining:
+            raise ValueError(
+                f"{request.request_id}: engine is draining")
+        if request.max_new_tokens < 1:
+            raise ValueError(
+                f"{request.request_id}: max_new_tokens must be >= 1")
+        if not request.prompt:
+            raise ValueError(
+                f"{request.request_id}: prompt must be non-empty")
+        if self.paged:
+            worst = -(-(len(request.prompt) + request.max_new_tokens)
+                      // self.page_size)
+            if worst > self._total_pages:
+                raise ValueError(
+                    f"{request.request_id}: worst-case page need "
+                    f"{worst} exceeds the pool ({self._total_pages} "
+                    f"pages) — it could never admit")
+        if len(request.prompt) + request.max_new_tokens > \
+                self.max_decode_len:
+            raise ValueError(
+                f"{request.request_id}: prompt+generation "
+                f"{len(request.prompt)}+{request.max_new_tokens} "
+                f"exceeds max_decode_len {self.max_decode_len}")
+        self._enqueue(_QueueEntry(request, submitted_at=time.monotonic()))
+
+    def pending(self) -> int:
+        return len(self._queue) + sum(
+            1 for s in self._slots if s.request is not None)
+
+    def drain(self) -> list[str]:
+        """Enter drain mode: stop seating new work, evict the queue
+        (returning its ids so the caller can fail them over) and let
+        active decodes finish. Idempotent; stepping thread only."""
+        self.draining = True
+        evicted = [e.request.request_id for e in self._queue]
+        self._queue.clear()
+        return evicted
+
+    def active_request_ids(self) -> list[str]:
+        return [s.request.request_id for s in self._slots
+                if s.request is not None]
+
+    def cancel(self, request_id: str) -> bool:
+        """Abort a queued or decoding request; an active slot frees at
+        once (its pages return to the pool). Returns False for unknown
+        (already finished) ids. Stepping thread only."""
+        for k, entry in enumerate(self._queue):
+            if entry.request.request_id == request_id:
+                del self._queue[k]
+                return True
+        for i, slot in enumerate(self._slots):
+            if slot.request is not None and \
+                    slot.request.request_id == request_id:
+                self._free_slot(i)
+                return True
+        return False
+
+    @torch.no_grad()
+    def step(self) -> list[tuple[str, list[int]]]:
+        """Admit queued requests into free slots, decode one token for
+        every active slot, and emit finished requests."""
+        self._admit()
+        # Slots whose prefill-sampled token already satisfied the
+        # request emit without a decode step.
+        emitted: list[tuple[str, list[int]]] = []
+        for i, slot in enumerate(self._slots):
+            req = slot.request
+            if req is None or not slot.generated:
+                continue
+            last = slot.generated[-1]
+            if (len(slot.generated) >= req.max_new_tokens or
+                    (req.eos_id is not None and last == req.eos_id)):
+                emitted.append((req.request_id, list(slot.generated)))
+                self._free_slot(i)
+        if not any(s.request is not None for s in self._slots):
+            return emitted
+        if self.paged:
+            self._grow_pages()
+        t0 = time.monotonic()
+        self._tokens, self._positions, next_tok = _decode_step(
+            self.model, self.sampling, self.cache, self._tokens,
+            self._positions, self._active, self._generator)
+        next_host = next_tok.cpu().tolist()
+        self.decode_steps += 1
+        self._record_step_time(t0)
+        for i, slot in enumerate(self._slots):
+            req = slot.request
+            if req is None:
+                continue
+            token = next_host[i]
+            slot.generated.append(token)
+            if self.on_token is not None:
+                self.on_token(req.request_id, token,
+                              len(slot.generated) - 1)
+            if (len(slot.generated) >= req.max_new_tokens or
+                    (req.eos_id is not None and token == req.eos_id)):
+                emitted.append((req.request_id, list(slot.generated)))
+                self._free_slot(i)
+        return emitted
+
+    def prefix_cache_clear(self) -> int:
+        """Evict every UNREFERENCED indexed page back to the free list
+        (pinned pages stay). Returns the number reclaimed."""
+        dropped = []
+        while self._lru:
+            pid, _ = self._lru.popitem(last=False)
+            key = self._page_key.pop(pid)
+            if self._prefix_index.get(key) == pid:
+                del self._prefix_index[key]
+            del self._page_ref[pid]
+            dropped.append(pid)
+        self._release_pages(pages=dropped)
+        return len(dropped)
+
+    def prefix_stats(self) -> Optional[dict]:
+        """Prefix-cache counters, or None when disabled; hit_rate is
+        cached prompt tokens / prompt tokens seen by paged admission."""
+        if not self.prefix_cache:
+            return None
+        return {
+            "lookups": self.prefix_lookups,
+            "hit_pages": self.prefix_hit_pages,
+            "hit_tokens": self.prefix_hit_tokens,
+            "total_prompt_tokens": self.prefix_total_tokens,
+            "hit_rate": (
+                self.prefix_hit_tokens / self.prefix_total_tokens
+                if self.prefix_total_tokens else 0.0),
+            "indexed_pages": len(self._page_ref),
+            "lru_pages": len(self._lru),
+            "published_pages": self.prefix_published,
+            "evictions": self.prefix_evictions,
+        }
+
+    def slo_stats(self) -> dict:
+        return {
+            "sheds": self.slo_sheds,
+            "sheds_by_class": dict(self.sheds_by_class),
+            "deferrals": self.slo_deferrals,
+            "prefill_ms_per_token": self._prefill_ms_per_token,
+            "step_ms": self._step_ms,
+        }
+
+    # --------------------------- page allocator --------------------------
+
+    def _free_slot(self, i: int) -> None:
+        self._slots[i] = _Slot()
+        self._active[i] = False
+        if self.paged:
+            self._release_pages(slot=i)
+            # The freed slot keeps decoding (masked): its table must
+            # stop referencing returned pages BEFORE reallocation.
+            self._table[i] = self._scratch_page
+            self._push_tables()
+
+    def _alloc_page(self, grow_slot: Optional[int] = None) -> int:
+        """THE single page-allocation path: free list, then LRU-evict
+        an unreferenced indexed page, then (overcommit, decode growth)
+        preempt a victim slot."""
+        while True:
+            if self._free_pages:
+                return self._free_pages.pop()
+            if self._lru:
+                pid, _ = self._lru.popitem(last=False)
+                key = self._page_key.pop(pid)
+                if self._prefix_index.get(key) == pid:
+                    del self._prefix_index[key]
+                del self._page_ref[pid]
+                self.prefix_evictions += 1
+                return pid
+            if not self.overcommit or grow_slot is None:
+                raise RuntimeError(
+                    "paged KV pool exhausted mid-decode; size "
+                    "kv_num_pages >= num_slots * max_decode_len / "
+                    "page_size to rule this out, or enable "
+                    "overcommit=True for preemption")
+            self._preempt(exclude=grow_slot)
+
+    def _release_pages(self, slot: Optional[int] = None,
+                       pages: Optional[list] = None) -> None:
+        """THE single page-release path. slot=i returns slot i's OWNED
+        pages to the free list, drops its SHARED-page references (a
+        refcount reaching zero parks the page in the LRU) and releases
+        its reservation; pages=[...] frees unindexed pages directly."""
+        if pages:
+            self._free_pages.extend(pages)
+        if slot is None:
+            return
+        self._free_pages.extend(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+        for pid in self._slot_shared[slot]:
+            self._page_ref[pid] -= 1
+            if self._page_ref[pid] == 0:
+                self._lru[pid] = None
+                self._avail_pages += 1
+        self._slot_shared[slot] = []
+        self._avail_pages += self._slot_reserved[slot]
+        self._slot_reserved[slot] = 0
+
+    def _grow_pages(self) -> None:
+        """Allocate pages so every active slot's table covers its next
+        write position; growth appends OWNED pages only. In overcommit
+        mode an empty free list preempts a victim instead of raising."""
+        positions = self._positions.cpu().tolist()
+        changed = False
+        for i in range(self.num_slots):
+            req = self._slots[i].request
+            if req is None:
+                continue
+            total = len(req.prompt) + req.max_new_tokens
+            needed = min(positions[i], total - 1) // self.page_size + 1
+            while (len(self._slot_shared[i]) +
+                   len(self._slot_pages[i])) < needed:
+                block = (len(self._slot_shared[i]) +
+                         len(self._slot_pages[i]))
+                pagenum = self._alloc_page(grow_slot=i)
+                self._slot_pages[i].append(pagenum)
+                self._table[i, block] = pagenum
+                changed = True
+        if changed:
+            self._push_tables()
+
+    def _preempt(self, exclude: int) -> int:
+        """Evict the active slot with the fewest generated tokens and
+        re-queue it at the head of its priority class with what it had
+        generated. Returns the victim index."""
+        candidates = [
+            j for j in range(self.num_slots)
+            if j != exclude and self._slots[j].request is not None]
+        if not candidates:
+            raise RuntimeError(
+                "paged KV pool exhausted with no preemptible slot — "
+                "a single request's live context exceeds the pool")
+        victim = min(candidates,
+                     key=lambda j: len(self._slots[j].generated))
+        slot = self._slots[victim]
+        entry = _QueueEntry(slot.request, list(slot.generated))
+        pos = 0
+        while (pos < len(self._queue) and
+               self._queue[pos].request.priority >
+               slot.request.priority):
+            pos += 1
+        self._queue.insert(pos, entry)
+        self.preemptions += 1
+        self._free_slot(victim)
+        return victim
+
+    def _push_tables(self) -> None:
+        """Write the canonical block table into the cache's (shared)
+        table tensor."""
+        self.cache[0]["block_table"].copy_(torch.from_numpy(self._table))
+
+    # ----------------------------- internal ----------------------------
+
+    def _bucket_length(self, n: int) -> int:
+        """Round a prompt length up to its bucket (next power of two,
+        floored at 16, capped at max_decode_len) — the reference's
+        compile buckets, kept so prefill shapes match it."""
+        bucket = 16
+        while bucket < n:
+            bucket *= 2
+        return min(bucket, self.max_decode_len)
+
+    def _enqueue(self, entry: _QueueEntry) -> None:
+        """Keep the queue sorted by descending priority, then earliest
+        TTFT deadline (entries without one sort last, FIFO)."""
+        priority = entry.request.priority
+        deadline = self._ttft_deadline(entry)
+        deadline = float("inf") if deadline is None else deadline
+        for k in range(len(self._queue) - 1, -1, -1):
+            other = self._queue[k]
+            other_deadline = self._ttft_deadline(other)
+            if other_deadline is None:
+                other_deadline = float("inf")
+            if (other.request.priority > priority or
+                    (other.request.priority == priority and
+                     other_deadline <= deadline)):
+                self._queue.insert(k + 1, entry)
+                return
+        self._queue.insert(0, entry)
+
+    def _ttft_deadline(self, entry: _QueueEntry) -> Optional[float]:
+        target = entry.request.ttft_target_ms
+        if target is None:
+            return None
+        return entry.submitted_at + target / 1000.0
+
+    def _shed_expired(self, now: float) -> None:
+        """Drop every queued entry whose TTFT deadline is blown by more
+        than the shed grace, deepest violation first. Preempted entries
+        are exempt (their first token already shipped)."""
+        if self.slo_shed_grace_ms is None or self.draining:
+            return
+        while True:
+            worst_k, worst_over = None, 0.0
+            for k, entry in enumerate(self._queue):
+                if entry.resumed:
+                    continue
+                deadline = self._ttft_deadline(entry)
+                if deadline is None:
+                    continue
+                over = ((now - deadline) * 1000.0 -
+                        self.slo_shed_grace_ms)
+                if over > worst_over:
+                    worst_k, worst_over = k, over
+            if worst_k is None:
+                return
+            entry = self._queue.pop(worst_k)
+            self.slo_sheds += 1
+            cls = entry.request.slo_class
+            self.sheds_by_class[cls] = \
+                self.sheds_by_class.get(cls, 0) + 1
+            if self.on_shed is not None:
+                self.on_shed(entry.request.request_id,
+                             "ttft deadline exceeded")
+
+    def _should_defer(self, entry: _QueueEntry, now: float) -> bool:
+        """Hold a prefill back when its predicted stall exceeds
+        tpot_stall_factor x the tightest active TPOT target — unless
+        its own TTFT deadline would blow while waiting."""
+        if self._prefill_ms_per_token is None:
+            return False
+        targets = [
+            s.request.tpot_target_ms for s in self._slots
+            if s.request is not None and
+            s.request.tpot_target_ms is not None]
+        if not targets:
+            return False
+        tokens = len(entry.request.prompt) + len(entry.resumed)
+        if self.prefix_cache:
+            matched = self._match_prefix(self._page_keys(
+                entry.request.prompt + entry.resumed), tokens)
+            tokens -= len(matched) * self.page_size
+        stall = self._bucket_length(tokens) * \
+            self._prefill_ms_per_token
+        if stall <= min(targets) * self.tpot_stall_factor:
+            return False
+        deadline = self._ttft_deadline(entry)
+        if deadline is not None and \
+                now + stall / 1000.0 >= deadline:
+            return False
+        return True
+
+    def _page_keys(self, tokens: list[int]) -> list[bytes]:
+        """Chained content hash per FULL page: key_b covers tokens
+        [0, (b+1)*page) via H(key_{b-1} || tokens of page b)."""
+        keys: list[bytes] = []
+        prev = b""
+        page = self.page_size
+        for b in range(len(tokens) // page):
+            digest = hashlib.blake2b(
+                prev + np.asarray(tokens[b * page:(b + 1) * page],
+                                  np.int64).tobytes(),
+                digest_size=16).digest()
+            keys.append(digest)
+            prev = digest
+        return keys
+
+    def _match_prefix(self, keys: list[bytes],
+                      num_tokens: int) -> list[int]:
+        """Longest indexed page chain, leaving at least one suffix
+        token (the first sample needs real last-token logits)."""
+        limit = (num_tokens - 1) // self.page_size
+        matched: list[int] = []
+        for b in range(min(len(keys), limit)):
+            pid = self._prefix_index.get(keys[b])
+            if pid is None:
+                break
+            matched.append(pid)
+        return matched
+
+    def _publish_pages(self, i: int, keys: list[bytes], m: int,
+                       row: np.ndarray, num_tokens: int) -> None:
+        """Index this admission's fresh FULL pages under their chain
+        keys; each moves from the slot's OWNED list to its SHARED set
+        with refcount 1. The partial tail page stays owned."""
+        full = num_tokens // self.page_size
+        for b in range(m, full):
+            key = keys[b]
+            if key in self._prefix_index:
+                continue
+            pid = int(row[b])
+            self._slot_pages[i].remove(pid)
+            self._slot_shared[i].append(pid)
+            self._prefix_index[key] = pid
+            self._page_key[pid] = key
+            self._page_ref[pid] = 1
+            if self.overcommit:
+                self._avail_pages -= 1
+            else:
+                self._slot_reserved[i] -= 1
+            self.prefix_published += 1
+
+    def _record_prefill_time(self, key, t0: float,
+                             n_tokens: int) -> None:
+        """EWMA prefill cost per bucket token; the first sample of each
+        bucket is discarded (first-use allocation and, on the card, the
+        kernel library's load)."""
+        dt_ms = (time.monotonic() - t0) * 1000.0
+        if key not in self._timed_buckets:
+            self._timed_buckets.add(key)
+            return
+        per_token = dt_ms / max(1, n_tokens)
+        if self._prefill_ms_per_token is None:
+            self._prefill_ms_per_token = per_token
+        else:
+            self._prefill_ms_per_token = (
+                0.7 * self._prefill_ms_per_token + 0.3 * per_token)
+
+    def _record_step_time(self, t0: float) -> None:
+        """EWMA decode-step wall time; the first sample is discarded."""
+        dt_ms = (time.monotonic() - t0) * 1000.0
+        self._step_samples += 1
+        if self._step_samples == 1:
+            return
+        if self._step_ms is None:
+            self._step_ms = dt_ms
+        else:
+            self._step_ms = 0.7 * self._step_ms + 0.3 * dt_ms
+
+    # ------------------------------ prefill ------------------------------
+
+    def _tensor(self, values) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(values, np.int64),
+                               device=self.device)
+
+    def _prefill_dense(self, slot: int, prompt: torch.Tensor,
+                       prompt_len: int) -> torch.Tensor:
+        """Fill ONE slot's dense cache rows from a padded prompt [1, L]
+        (batch-1 forward, copied into the slot row) and set its index to
+        the true prompt length. Returns the last-token logits."""
+        small, last = _dense_prefill(self._dense_model,
+                                     self.prefill_chunk, prompt,
+                                     prompt_len)
+        for big, sm in zip(self.cache, small):
+            for key, value in sm.items():
+                if key == "index":
+                    big["index"][slot] = prompt_len
+                else:
+                    big[key][slot] = value[0]
+        return last
+
+    def _scatter_pages(self, small: list[dict], src_start: int,
+                       page_ids: np.ndarray) -> None:
+        """Copy page-sized row blocks of the batch-1 dense cache,
+        starting at row ``src_start`` (clamped so each block stays in
+        bounds, like the reference's dynamic slices), into the pool
+        pages ``page_ids`` of every layer. Blocks aimed at the scratch
+        page carry padding garbage."""
+        page = self.page_size
+        length = self.max_decode_len
+        starts = [min(src_start + b * page, length - page)
+                  for b in range(len(page_ids))]
+        rows = self._tensor([s + r for s in starts for r in range(page)])
+        ids = self._tensor(page_ids)
+        pairs = [("k_pages", "k"), ("v_pages", "v")]
+        if "k_page_scales" in self.cache[0]:
+            pairs += [("k_page_scales", "k_scale"),
+                      ("v_page_scales", "v_scale")]
+        for big, sm in zip(self.cache, small):
+            for pool_key, row_key in pairs:
+                block = sm[row_key][0, rows]
+                big[pool_key][ids] = block.reshape(
+                    len(page_ids), page, *block.shape[1:]).to(
+                        big[pool_key].dtype)
+
+    def _install_row(self, slot: int, row: np.ndarray,
+                     prompt_len: int) -> None:
+        self._table[slot] = row
+        self._push_tables()
+        for big in self.cache:
+            big["length"][slot] = prompt_len
+
+    def _prefill_paged(self, slot: int, prompt: torch.Tensor,
+                       row: np.ndarray, prompt_len: int) -> torch.Tensor:
+        """Paged variant: dense batch-1 prefill, rows scattered page by
+        page into the slot's allocated pages (blocks past the
+        allocation hit the scratch page); the block-table row and the
+        true length are installed."""
+        small, last = _dense_prefill(self._dense_model,
+                                     self.prefill_chunk, prompt,
+                                     prompt_len)
+        n_blocks = -(-prompt.shape[1] // self.page_size)
+        self._scatter_pages(small, 0, row[:n_blocks])
+        self._install_row(slot, row, prompt_len)
+        return last
+
+    def _prefill_paged_shared(self, slot: int, suffix: torch.Tensor,
+                              prefix_ids: np.ndarray, row: np.ndarray,
+                              suffix_row: np.ndarray, prefix_len: int,
+                              prompt_len: int) -> torch.Tensor:
+        """Shared-prefix paged prefill: seed a batch-1 dense cache with
+        the matched prefix rows gathered from the pool
+        (transformer.prefix_rows_from_pages), run only the suffix with
+        global positions from prefix_len, and scatter only the suffix
+        rows into the slot's fresh pages."""
+        small = inf.init_cache(self._dense_model, 1)
+        for big, sm in zip(self.cache, small):
+            rows = tfm.prefix_rows_from_pages(big, prefix_ids,
+                                              self.page_size)
+            nrows = rows["k"].shape[0]
+            for key in rows:
+                sm[key][0, :nrows] = rows[key].to(sm[key].dtype)
+            sm["index"].fill_(prefix_len)
+        small, last = _dense_prefill(self._dense_model,
+                                     self.prefill_chunk, suffix,
+                                     prompt_len, small=small,
+                                     start=prefix_len)
+        n_blocks = -(-suffix.shape[1] // self.page_size)
+        self._scatter_pages(small, prefix_len, suffix_row[:n_blocks])
+        self._install_row(slot, row, prompt_len)
+        return last
+
+    def _admit(self) -> None:
+        if self.draining:
+            return
+        now = time.monotonic()
+        self._shed_expired(now)
+        for i, slot in enumerate(self._slots):
+            if slot.request is not None or not self._queue:
+                continue
+            entry = self._queue[0]
+            req = entry.request
+            if self._should_defer(entry, now):
+                self.slo_deferrals += 1
+                break
+            # Resumed (preempted) requests re-prefill prompt + what
+            # they had already generated, in one pass.
+            tokens = req.prompt + entry.resumed
+            bucket = self._bucket_length(len(tokens))
+            prompt = torch.tensor(
+                [tokens + [0] * (bucket - len(tokens))],
+                dtype=torch.int32, device=self.device)
+            t0 = time.monotonic()
+            timed_key = ("dense", bucket)
+            timed_tokens = bucket
+            if self.paged:
+                blocks_needed = -(-len(tokens) // self.page_size)
+                remaining = req.max_new_tokens - len(entry.resumed)
+                worst = -(-(len(tokens) + remaining)
+                          // self.page_size)
+                keys: list[bytes] = []
+                matched: list[int] = []
+                if self.prefix_cache:
+                    keys = self._page_keys(tokens)
+                    matched = self._match_prefix(keys, len(tokens))
+                m = len(matched)
+                lru_m = sum(1 for pid in matched
+                            if self._page_ref[pid] == 0)
+                if self.overcommit:
+                    # Only the prompt's pages (+1 block of headroom);
+                    # exhaustion during decode preempts.
+                    want = min(blocks_needed - m +
+                               (1 if remaining else 0), worst - m)
+                    if (len(self._free_pages) + len(self._lru)
+                            - lru_m) < want:
+                        break
+                else:
+                    if self._avail_pages < (worst - m) + lru_m:
+                        # Wait for frees rather than risk a mid-decode
+                        # exhaustion deadlock between half-grown slots.
+                        break
+                    self._avail_pages -= worst - m
+                    self._slot_reserved[i] = worst - m
+                self._queue.pop(0)
+                if self.on_admit is not None:
+                    self.on_admit(req.request_id)
+                # Pin the matched chain (immutable while referenced).
+                for pid in matched:
+                    if self._page_ref[pid] == 0:
+                        del self._lru[pid]
+                        self._avail_pages -= 1
+                    self._page_ref[pid] += 1
+                self._slot_shared[i] = list(matched)
+                if self.prefix_cache:
+                    self.prefix_lookups += 1
+                    self.prefix_hit_pages += m
+                    self.prefix_hit_tokens += m * self.page_size
+                    self.prefix_total_tokens += len(tokens)
+                fresh = [self._alloc_page()
+                         for _ in range(blocks_needed - m)]
+                self._slot_pages[i] = fresh
+                row = np.full((self.max_blocks,), self._scratch_page,
+                              np.int32)
+                row[:m] = matched
+                row[m:blocks_needed] = fresh
+                if m:
+                    prefix_len = m * self.page_size
+                    suffix_tokens = tokens[prefix_len:]
+                    sbucket = self._bucket_length(len(suffix_tokens))
+                    timed_key = ("shared", sbucket)
+                    timed_tokens = sbucket
+                    suffix = torch.tensor(
+                        [suffix_tokens +
+                         [0] * (sbucket - len(suffix_tokens))],
+                        dtype=torch.int32, device=self.device)
+                    prefix_ids = np.full((self.max_blocks,),
+                                         self._scratch_page, np.int32)
+                    prefix_ids[:m] = matched
+                    suffix_row = np.full((self.max_blocks,),
+                                         self._scratch_page, np.int32)
+                    suffix_row[:blocks_needed - m] = fresh
+                    last_logits = self._prefill_paged_shared(
+                        i, suffix, prefix_ids, row, suffix_row,
+                        prefix_len, len(tokens))
+                else:
+                    timed_key = ("paged", bucket)
+                    last_logits = self._prefill_paged(
+                        i, prompt, row, len(tokens))
+                if self.prefix_cache:
+                    self._publish_pages(i, keys, m, row, len(tokens))
+            else:
+                self._queue.pop(0)
+                if self.on_admit is not None:
+                    self.on_admit(req.request_id)
+                last_logits = self._prefill_dense(i, prompt, len(tokens))
+            first = int(inf._sample(last_logits[None], self._generator,
+                                    self.sampling)[0])
+            # The prefill-sampled token IS the next generated token.
+            self._slots[i] = _Slot(request=req,
+                                   generated=entry.resumed + [first])
+            if self.on_token is not None:
+                self.on_token(req.request_id, first, len(entry.resumed))
+            self._tokens[i, 0] = first
+            self._positions[i] = len(tokens)
+            self._active[i] = True
+            # int(...) above waited for the prefill, so t0..now is a
+            # faithful admission-stall sample.
+            self._record_prefill_time(timed_key, t0, timed_tokens)

@@ -1,0 +1,377 @@
+"""Decoder-only transformer LM, decode mode (PyTorch).
+
+Counterpart of batch_shipyard_tpu/models/transformer.py for the serving
+path: the same ``TransformerConfig`` field names, RoPE, RMSNorm with
+fp32 statistics, SwiGLU MLP and tied logits, and the decode-mode KV
+caches — dense with a per-slot write index, paged through block tables,
+and the int8 variants of both.
+
+Where flax keeps the cache in a mutable ``cache`` collection, the port
+passes an explicit cache: a list with one dict of tensors per layer
+(``inference.init_cache``), under the reference's leaf names. The model
+updates those tensors IN PLACE on every call. In the paged cache, every
+layer's dict holds the same ``block_table`` tensor, so the serving
+engine writes one table for all layers.
+
+Single-token decode steps reach the CUDA kernels: paged caches through
+``ops.paged_attention`` (K6, K7 for int8 pages), the dense int8 cache
+through ``ops.decode_attention`` (K8). Multi-token inserts (prefill)
+are a plain masked softmax, as in the reference. The non-decode
+training forward reaches flash attention (K1) and comes with the
+training port; here it raises NotImplementedError.
+
+Parameters live in ``param_dtype`` and are cast to ``dtype`` at use, as
+flax's Dense/Embed do; ``TransformerLM.cast_dense_weights_`` makes that
+cast once for serving.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from batch_shipyard_tpu_torch.ops import decode_attention as dense_ops
+from batch_shipyard_tpu_torch.ops import paged_attention as paged_ops
+from batch_shipyard_tpu_torch.ops.quantization import (dequantize_int8,
+                                                        quantize_int8_rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """The reference's field names for what the decode path reads. The
+    training-only fields (remat, attention_fn, moe, fused_norm,
+    quantize_matmuls, tp_axis) and the speculative ``spec_window``
+    arrive with the slices that port them."""
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    d_head: int = 64
+    d_ff: int = 1408
+    max_seq_len: int = 2048
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    rope_theta: float = 10000.0
+    decode: bool = False
+    max_decode_len: int = 2048
+    # None (dtype rows) or "int8" (absmax rows + fp32 scales per
+    # (position, head)), for the dense cache and the page pool alike.
+    kv_cache_dtype: Optional[str] = None
+    # Paged KV cache: page size and pool pages; None = dense cache.
+    kv_page_size: Optional[int] = None
+    kv_num_pages: int = 0
+    # "kernel" | "reference" | None (kernel for CUDA tensors, plain
+    # version for CPU tensors): ops/paged_attention, ops/decode_attention.
+    paged_attention_impl: Optional[str] = None
+    decode_attention_impl: Optional[str] = None
+
+
+def rotary_embedding(x, positions, theta: float):
+    """Apply RoPE in fp32, then cast back. x: [B, T, H, D]; positions:
+    [T] shared across the batch, or [B, T] per sequence."""
+    depth = x.shape[-1]
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+    freqs = torch.exp(
+        -log_theta.to(x.device) *
+        torch.arange(0, depth, 2, dtype=torch.float32,
+                     device=x.device) / depth)
+    angles = positions[..., None].float() * freqs
+    if positions.dim() == 1:
+        cos = torch.cos(angles)[None, :, None, :]   # [1, T, 1, D/2]
+        sin = torch.sin(angles)[None, :, None, :]
+    else:
+        cos = torch.cos(angles)[:, :, None, :]      # [B, T, 1, D/2]
+        sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    rotated = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                        dim=-1)
+    return rotated.to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """fp32 statistics, eps 1e-6; the scale multiplies in fp32 before
+    the cast to ``dtype``."""
+
+    def __init__(self, features: int, dtype: torch.dtype,
+                 eps: float = 1e-6, device=None) -> None:
+        super().__init__()
+        self.scale = nn.Parameter(
+            torch.ones(features, dtype=torch.float32, device=device))
+        self.dtype = dtype
+        self.eps = eps
+
+    def forward(self, x):
+        norm = x.float()
+        norm = norm * torch.rsqrt(
+            (norm * norm).mean(dim=-1, keepdim=True) + self.eps)
+        return (norm * self.scale).to(self.dtype)
+
+
+class Dense(nn.Linear):
+    """Bias-free linear layer computing in ``dtype`` (flax nn.Dense
+    with dtype/param_dtype): input and weight cast, then one matmul."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 cfg: TransformerConfig, device=None) -> None:
+        super().__init__(in_features, out_features, bias=False,
+                         device=device, dtype=cfg.param_dtype)
+        self.compute_dtype = cfg.dtype
+
+    def forward(self, x):
+        return F.linear(x.to(self.compute_dtype),
+                        self.weight.to(self.compute_dtype))
+
+
+class Embed(nn.Module):
+    """Token embedding shared with the tied output projection."""
+
+    def __init__(self, cfg: TransformerConfig, device=None) -> None:
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(
+            cfg.vocab_size, cfg.d_model, dtype=cfg.param_dtype,
+            device=device))
+        self.dtype = cfg.dtype
+
+    def forward(self, tokens):
+        return F.embedding(tokens.long(), self.embedding).to(self.dtype)
+
+    def attend(self, query):
+        """Logits in ``dtype`` (flax Embed.attend promotes both
+        operands to the module dtype)."""
+        return F.linear(query.to(self.dtype),
+                        self.embedding.to(self.dtype))
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None) -> None:
+        super().__init__()
+        self.config = cfg
+        features = cfg.n_heads * cfg.d_head
+        self.q_proj = Dense(cfg.d_model, features, cfg, device)
+        self.k_proj = Dense(cfg.d_model, features, cfg, device)
+        self.v_proj = Dense(cfg.d_model, features, cfg, device)
+        self.o_proj = Dense(features, cfg.d_model, cfg, device)
+
+    def forward(self, x, positions, cache: dict):
+        cfg = self.config
+        batch, seq = x.shape[0], x.shape[1]
+        shape = (batch, seq, cfg.n_heads, cfg.d_head)
+        q = rotary_embedding(self.q_proj(x).reshape(shape), positions,
+                             cfg.rope_theta)
+        k = rotary_embedding(self.k_proj(x).reshape(shape), positions,
+                             cfg.rope_theta)
+        v = self.v_proj(x).reshape(shape)
+        attend = (self._decode_attend_paged if cfg.kv_page_size
+                  else self._decode_attend)
+        out = attend(q, k, v, cache)
+        return self.o_proj(out.reshape(batch, seq, -1))
+
+    def _decode_attend(self, q, k, v, cache: dict):
+        """Dense cache [B, L, H, D] with a per-slot write index [B].
+        seq == 1 is the decode step; seq > 1 is the batched prefill /
+        chunked insert, which attends causally over absolute cache
+        positions (query s at idx+s sees keys <= idx+s)."""
+        cfg = self.config
+        int8_kv = cfg.kv_cache_dtype == "int8"
+        batch, seq = q.shape[0], q.shape[1]
+        length = cfg.max_decode_len
+        idx = cache["index"].clone()
+        rows = torch.arange(batch, device=q.device)
+        key_pos = torch.arange(length, device=q.device)
+        k_in, v_in = k, v
+        if int8_kv:
+            k_in, ks = quantize_int8_rows(k)
+            v_in, vs = quantize_int8_rows(v)
+        if seq == 1:
+            # Freed slots keep stepping past the cache end; their
+            # writes clamp onto their own last row, which the next
+            # admission's prefill rewrites (the reference drops them).
+            dst = (rows, idx.clamp(max=length - 1).long())
+
+            def take(t):
+                return t[:, 0]
+            mask = (key_pos[None, :] <= idx[:, None])[:, None, None, :]
+        else:
+            cols = idx[:, None].long() + torch.arange(
+                seq, device=q.device)[None, :]             # [B, S]
+            # Inserts running past the cache end drop those rows (the
+            # reference's out-of-bounds scatter semantics).
+            valid = cols < length
+            dst = (rows[:, None].expand_as(cols)[valid], cols[valid])
+
+            def take(t):
+                return t[valid]
+            mask = (key_pos[None, None, :] <=
+                    cols[:, :, None])[:, None, :, :]       # [B,1,S,T]
+        cache["k"][dst] = take(k_in).to(cache["k"].dtype)
+        cache["v"][dst] = take(v_in).to(cache["v"].dtype)
+        if int8_kv:
+            cache["k_scale"][dst] = take(ks)
+            cache["v_scale"][dst] = take(vs)
+        cache["index"].add_(seq)
+        if int8_kv and seq == 1:
+            lengths = (idx + 1).clamp(max=length)
+            return dense_ops.dense_decode_attention(
+                q, cache["k"], cache["v"], cache["k_scale"],
+                cache["v_scale"], lengths,
+                impl=cfg.decode_attention_impl).to(cfg.dtype)
+        if int8_kv:
+            k_all = dequantize_int8(
+                cache["k"], cache["k_scale"][..., None]).to(cfg.dtype)
+            v_all = dequantize_int8(
+                cache["v"], cache["v_scale"][..., None]).to(cfg.dtype)
+        else:
+            k_all, v_all = cache["k"], cache["v"]
+        return paged_ops.masked_attention(q, k_all, v_all, mask)
+
+    def _decode_attend_paged(self, q, k, v, cache: dict):
+        """Paged cache: K/V in a shared pool [P, page, H, D]; each slot
+        writes at its length through its block-table row, then attends
+        over its live pages (K6/K7). Multi-token paged inserts are the
+        speculative verify pass of the reference, not ported yet."""
+        cfg = self.config
+        int8_kv = cfg.kv_cache_dtype == "int8"
+        if q.shape[1] != 1:
+            raise ValueError(
+                f"paged decode insert of {q.shape[1]} tokens: the paged "
+                f"cache takes one token per call (prefill runs on the "
+                f"dense model and scatters into pages)")
+        page = cfg.kv_page_size
+        table = cache["block_table"]
+        idx = cache["length"].clone()
+        # Freed slots step past their table; clamping keeps their
+        # writes on the scratch page their rows point at.
+        block = (idx // page).clamp(max=table.shape[1] - 1).long()
+        page_idx = table.gather(1, block[:, None])[:, 0].long()
+        offset = (idx % page).long()
+        k_in, v_in = k[:, 0], v[:, 0]
+        if int8_kv:
+            k_in, ks = quantize_int8_rows(k_in)
+            v_in, vs = quantize_int8_rows(v_in)
+            cache["k_page_scales"][page_idx, offset] = ks
+            cache["v_page_scales"][page_idx, offset] = vs
+        cache["k_pages"][page_idx, offset] = k_in.to(
+            cache["k_pages"].dtype)
+        cache["v_pages"][page_idx, offset] = v_in.to(
+            cache["v_pages"].dtype)
+        cache["length"].add_(1)
+        return paged_ops.paged_decode_attention(
+            q, cache["k_pages"], cache["v_pages"], table,
+            cache["length"], impl=cfg.paged_attention_impl,
+            k_scales=cache["k_page_scales"] if int8_kv else None,
+            v_scales=cache["v_page_scales"] if int8_kv else None).to(
+                cfg.dtype)
+
+
+def prefix_rows_from_pages(layer_cache: dict, page_ids,
+                           page: int) -> dict:
+    """Gather a shared-prefix page chain out of ONE layer's paged pool
+    into dense-cache row layout (the engine's shared-prefix prefill).
+    page_ids: [n] page indices (entries past the true prefix may point
+    at the scratch page; their rows are masked-on-read). Returns
+    {"k": [n*page, H, D], "v": ..., ("k_scale": [n*page, H],
+    "v_scale": ...)} in the pool's storage dtype."""
+    ids = torch.as_tensor(page_ids, device=layer_cache["k_pages"].device
+                          ).long()
+    k = layer_cache["k_pages"][ids]                  # [n, page, H, D]
+    rows = k.shape[0] * page
+    out = {"k": k.reshape(rows, *k.shape[2:]),
+           "v": layer_cache["v_pages"][ids].reshape(rows, *k.shape[2:])}
+    if "k_page_scales" in layer_cache:
+        ks = layer_cache["k_page_scales"][ids]
+        out["k_scale"] = ks.reshape(rows, ks.shape[-1])
+        out["v_scale"] = layer_cache["v_page_scales"][ids].reshape(
+            rows, ks.shape[-1])
+    return out
+
+
+class MLP(nn.Module):
+    """SwiGLU: down(silu(gate(x)) * up(x))."""
+
+    def __init__(self, cfg: TransformerConfig, device=None) -> None:
+        super().__init__()
+        self.gate_proj = Dense(cfg.d_model, cfg.d_ff, cfg, device)
+        self.up_proj = Dense(cfg.d_model, cfg.d_ff, cfg, device)
+        self.down_proj = Dense(cfg.d_ff, cfg.d_model, cfg, device)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None) -> None:
+        super().__init__()
+        self.attn_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
+        self.attn = Attention(cfg, device)
+        self.mlp_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
+        self.mlp = MLP(cfg, device)
+
+    def forward(self, x, positions, cache: dict):
+        x = x + self.attn(self.attn_norm(x), positions, cache)
+        return x + self.mlp(self.mlp_norm(x))
+
+
+class TransformerLM(nn.Module):
+    """State-dict names follow the flax tree: ``embed.embedding``,
+    ``layer_{i}.attn.{q,k,v,o}_proj.weight``,
+    ``layer_{i}.mlp.{gate,up,down}_proj.weight``,
+    ``layer_{i}.{attn,mlp}_norm.scale``, ``final_norm.scale``
+    (models/convert.py maps the flax tree onto them)."""
+
+    def __init__(self, config: TransformerConfig, device=None) -> None:
+        super().__init__()
+        if config.kv_cache_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_cache_dtype={config.kv_cache_dtype!r}: only "
+                f"'int8' (or None) is supported")
+        self.config = config
+        self.embed = Embed(config, device)
+        for i in range(config.n_layers):
+            self.add_module(f"layer_{i}", Block(config, device))
+        self.final_norm = RMSNorm(config.d_model, config.dtype,
+                                  device=device)
+
+    def blocks(self) -> list[Block]:
+        return [getattr(self, f"layer_{i}")
+                for i in range(self.config.n_layers)]
+
+    def cast_dense_weights_(self) -> "TransformerLM":
+        """Cast every Dense weight to the compute dtype in place, once.
+        Dense.forward casts to that dtype on every call, so outputs are
+        unchanged; the embedding stays in param_dtype because prefill
+        reads it in fp32."""
+        for module in self.modules():
+            if isinstance(module, Dense):
+                module.weight.data = module.weight.data.to(
+                    module.compute_dtype)
+        return self
+
+    def forward(self, tokens, positions=None, cache=None,
+                return_hidden: bool = False):
+        """tokens [B, T] int -> logits [B, T, vocab] in ``dtype`` (or the
+        final hidden states [B, T, d_model] with return_hidden).
+        positions: [T] or [B, T] absolute positions (default 0..T-1).
+        cache: inference.init_cache's per-layer list, updated in place."""
+        cfg = self.config
+        if not cfg.decode:
+            raise NotImplementedError(
+                "the training forward runs flash attention (K1), which "
+                "the training slice of the port brings; use "
+                "inference.decode_config for serving")
+        if cache is None:
+            raise ValueError("decode mode needs a cache "
+                             "(inference.init_cache)")
+        x = self.embed(tokens)
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                     device=tokens.device)
+        for block, layer_cache in zip(self.blocks(), cache):
+            x = block(x, positions, layer_cache)
+        x = self.final_norm(x)
+        if return_hidden:
+            return x
+        return self.embed.attend(x.float())

@@ -1,0 +1,116 @@
+"""Build and load the port's CUDA kernels (``ops/csrc/*.cu``).
+
+Each source compiles with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes`` — no PyTorch
+headers, so a build takes seconds, not minutes. Libraries land under
+``build/torch_kernels/`` at the repository root, named by a digest of
+the source and the flags, and are built at first use: importing this
+module compiles nothing, so the CPU tests (no ``nvcc``) import it
+freely. A built library is reused by later processes until the source
+changes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+from typing import Optional
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[2]
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = REPO_ROOT / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_vp = ctypes.c_void_p
+_int = ctypes.c_int
+_float = ctypes.c_float
+
+# C signatures of the exported entry points, per source file.
+SIGNATURES = {
+    "decode_attention": {
+        "bs_paged_decode_attention": (
+            [_int] + [_vp] * 8 + [_int] * 7 + [_float, _vp], _int),
+        "bs_dense_decode_attention_int8": (
+            [_int] + [_vp] * 7 + [_int] * 5 + [_float, _vp], _int),
+        "bs_error_string": ([_int], ctypes.c_char_p),
+    },
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin); the "
+                       "port's CUDA kernels are built on the GPU host")
+
+
+def library_path(name: str) -> pathlib.Path:
+    source = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes() +
+                            " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(name: str, force: bool = False) -> tuple[pathlib.Path, float]:
+    """Compile ``csrc/<name>.cu`` unless its library already exists (or
+    ``force``). Returns (library path, seconds spent compiling; 0.0 when
+    reused). The compiler's output (including ``-Xptxas -v`` register
+    and shared-memory reports) is kept beside the library as ``.log``."""
+    target = library_path(name)
+    if target.exists() and not force:
+        return target, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    started = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          check=False)
+    seconds = time.perf_counter() - started
+    target.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr,
+        encoding="utf-8")
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(rc {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, target)  # atomic: concurrent builders agree
+    return target, seconds
+
+
+def library(name: str = "decode_attention") -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use,
+    with argtypes/restype declared for every entry point."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path, _ = build(name)
+            lib = ctypes.CDLL(str(path))
+            for fn, (argtypes, restype) in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _libs[name] = lib
+        return lib
+
+
+def check(rc: int, what: str, lib: Optional[ctypes.CDLL] = None) -> None:
+    """Raise when a C entry point returned a CUDA error code."""
+    if rc != 0:
+        lib = lib or library()
+        msg = lib.bs_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -1,0 +1,136 @@
+"""Where a served decode step's time goes, on the card.
+
+    python -m batch_shipyard_tpu_torch.trace.decode_profile \
+        [--kv-cache paged|paged_int8|dense_int8] [--steps 16]
+
+Builds the serving benchmark engine (``workloads.serve.
+build_bench_engine``: bench.py ``bench_serving``'s vocab 32000, d_model
+1024, 12 layers, 16 heads, d_ff 2816, bf16, 8 slots, max_decode_len
+512, random weights from a fixed seed), fills every slot with a
+96-token prompt, and then times ``--steps`` pure decode steps (no
+admission, no finished request) twice: on the host clock with a
+synchronise, and under ``torch.profiler``. Prints one JSON line: the
+step's wall time, the device's busy time (union of kernel intervals)
+and idle share, the decode-attention kernel's share, and the largest
+device kernels and host operators. Runs on CUDA only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import random
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from batch_shipyard_tpu_torch.models.serving import Request
+from batch_shipyard_tpu_torch.workloads.serve import (
+    BENCH_SERVING_KV_CACHES, build_bench_engine)
+
+PROMPT = 96
+# Substring of the decode-attention kernel's mangled name.
+ATTENTION_KERNEL = "decode_attention_kernel"
+
+
+def busy_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted(intervals):
+        if stop <= end:
+            continue
+        total += stop - max(start, end)
+        end = stop
+    return total
+
+
+def run(kv_cache: str, steps: int) -> dict:
+    engine = build_bench_engine(kv_cache, "cuda")
+    engine.warmup()
+    rng = random.Random(0)
+    slots = engine.num_slots
+    for i in range(slots):
+        engine.submit(Request(
+            f"profile-{i}", [rng.randrange(engine.config.vocab_size)
+                             for _ in range(PROMPT)],
+            max_new_tokens=engine.max_decode_len - PROMPT))
+    while len(engine.active_request_ids()) < slots:
+        engine.step()
+    for _ in range(4):
+        engine.step()
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - started) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+    if len(engine.active_request_ids()) < slots:
+        raise RuntimeError("a request finished inside the window")
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device activity")
+    by_name: dict[str, float] = collections.defaultdict(float)
+    intervals = []
+    for e in kernels:
+        start = e.time_range.start
+        stop = e.time_range.end
+        intervals.append((start, stop))
+        by_name[e.name] += stop - start
+    device_us = sum(by_name.values())
+    busy = busy_us(intervals)
+    window_us = (max(s for _, s in intervals) -
+                 min(s for s, _ in intervals))
+    attention_us = sum(us for name, us in by_name.items()
+                       if ATTENTION_KERNEL in name)
+    host_ops = collections.Counter()
+    for avg in prof.key_averages():
+        if avg.device_type == DeviceType.CPU and avg.key.startswith(
+                "aten::"):
+            host_ops[avg.key] = avg.self_cpu_time_total
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    return {
+        "kv_cache": kv_cache, "card": smi, "steps": steps,
+        "wall_ms_per_step": wall_ms,
+        "profiled_window_ms_per_step": window_us / 1e3 / steps,
+        "device_busy_ms_per_step": busy / 1e3 / steps,
+        "device_idle_share": 1.0 - busy / window_us,
+        "kernel_launches_per_step": len(kernels) / steps,
+        "attention_ms_per_step": attention_us / 1e3 / steps,
+        "attention_share_of_device": attention_us / device_us,
+        "top_kernels_ms_per_step": {
+            name[:80]: us / 1e3 / steps
+            for name, us in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1])[:8]},
+        "top_host_ops_ms_per_step": {
+            name: us / 1e3 / steps
+            for name, us in host_ops.most_common(8)},
+    }
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--kv-cache",
+                        choices=sorted(BENCH_SERVING_KV_CACHES),
+                        default="paged")
+    parser.add_argument("--steps", type=int, default=16)
+    args = parser.parse_args(argv)
+    print(json.dumps(run(args.kv_cache, args.steps)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
