@@ -1,24 +1,28 @@
-"""Decoder-only transformer LM, decode mode (PyTorch).
+"""Decoder-only transformer LM (PyTorch): the training forward and the
+decode mode.
 
-Counterpart of batch_shipyard_tpu/models/transformer.py for the serving
-path: the same ``TransformerConfig`` field names, RoPE, RMSNorm with
-fp32 statistics, SwiGLU MLP and tied logits, and the decode-mode KV
-caches — dense with a per-slot write index, paged through block tables,
-and the int8 variants of both.
+Counterpart of batch_shipyard_tpu/models/transformer.py: the same
+``TransformerConfig`` field names, RoPE, RMSNorm with fp32 statistics,
+SwiGLU MLP and tied logits.
 
-Where flax keeps the cache in a mutable ``cache`` collection, the port
-passes an explicit cache: a list with one dict of tensors per layer
-(``inference.init_cache``), under the reference's leaf names. The model
-updates those tensors IN PLACE on every call. In the paged cache, every
-layer's dict holds the same ``block_table`` tensor, so the serving
-engine writes one table for all layers.
+Training (``decode=False``, no cache): attention goes through
+``cfg.attention_fn`` or ``ops.attention.attention``, which launches the
+flash kernels (K1 forward, K2 backward) for CUDA tensors and runs the
+plain blockwise softmax for CPU tensors. ``remat`` recomputes each block
+in the backward (``torch.utils.checkpoint``, the reference's
+``nn.remat(Block)``). ``lm_loss`` and ``lm_loss_chunked`` are the
+reference's losses.
 
-Single-token decode steps reach the CUDA kernels: paged caches through
-``ops.paged_attention`` (K6, K7 for int8 pages), the dense int8 cache
-through ``ops.decode_attention`` (K8). Multi-token inserts (prefill)
-are a plain masked softmax, as in the reference. The non-decode
-training forward reaches flash attention (K1) and comes with the
-training port; here it raises NotImplementedError.
+Decode: where flax keeps the cache in a mutable ``cache`` collection,
+the port passes an explicit cache: a list with one dict of tensors per
+layer (``inference.init_cache``), under the reference's leaf names. The
+model updates those tensors IN PLACE on every call. In the paged cache,
+every layer's dict holds the same ``block_table`` tensor, so the serving
+engine writes one table for all layers. Single-token decode steps reach
+the CUDA kernels: paged caches through ``ops.paged_attention`` (K6, K7
+for int8 pages), the dense int8 cache through ``ops.decode_attention``
+(K8). Multi-token inserts (prefill) are a plain masked softmax, as in
+the reference.
 
 Parameters live in ``param_dtype`` and are cast to ``dtype`` at use, as
 flax's Dense/Embed do; ``TransformerLM.cast_dense_weights_`` makes that
@@ -28,12 +32,15 @@ cast once for serving.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from batch_shipyard_tpu_torch.ops import attention as attn_ops
+from batch_shipyard_tpu_torch.ops import chunked_loss
 from batch_shipyard_tpu_torch.ops import decode_attention as dense_ops
 from batch_shipyard_tpu_torch.ops import paged_attention as paged_ops
 from batch_shipyard_tpu_torch.ops.quantization import (dequantize_int8,
@@ -42,10 +49,10 @@ from batch_shipyard_tpu_torch.ops.quantization import (dequantize_int8,
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The reference's field names for what the decode path reads. The
-    training-only fields (remat, attention_fn, moe, fused_norm,
-    quantize_matmuls, tp_axis) and the speculative ``spec_window``
-    arrive with the slices that port them."""
+    """The reference's field names for what the dense training forward
+    and the decode path read. The fields of paths not ported yet (moe,
+    fused_norm, quantize_matmuls, tp_axis, the speculative
+    ``spec_window``) arrive with the slices that port them."""
     vocab_size: int = 32000
     d_model: int = 512
     n_layers: int = 4
@@ -55,6 +62,12 @@ class TransformerConfig:
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    # Recompute each block in the backward instead of saving its
+    # activations (the reference's nn.remat(Block)).
+    remat: bool = False
+    # (q, k, v, causal) -> out over [B, T, H, D]; None =
+    # ops.attention.attention (flash kernels on CUDA tensors).
+    attention_fn: Optional[Callable] = None
     rope_theta: float = 10000.0
     decode: bool = False
     max_decode_len: int = 2048
@@ -156,7 +169,9 @@ class Attention(nn.Module):
         self.v_proj = Dense(cfg.d_model, features, cfg, device)
         self.o_proj = Dense(features, cfg.d_model, cfg, device)
 
-    def forward(self, x, positions, cache: dict):
+    def forward(self, x, positions, cache: Optional[dict] = None):
+        """cache None: the training forward (causal attention over the
+        whole sequence); else a decode step against the cache."""
         cfg = self.config
         batch, seq = x.shape[0], x.shape[1]
         shape = (batch, seq, cfg.n_heads, cfg.d_head)
@@ -165,9 +180,13 @@ class Attention(nn.Module):
         k = rotary_embedding(self.k_proj(x).reshape(shape), positions,
                              cfg.rope_theta)
         v = self.v_proj(x).reshape(shape)
-        attend = (self._decode_attend_paged if cfg.kv_page_size
-                  else self._decode_attend)
-        out = attend(q, k, v, cache)
+        if cache is None:
+            attention_fn = cfg.attention_fn or attn_ops.attention
+            out = attention_fn(q, k, v, causal=True)
+        else:
+            attend = (self._decode_attend_paged if cfg.kv_page_size
+                      else self._decode_attend)
+            out = attend(q, k, v, cache)
         return self.o_proj(out.reshape(batch, seq, -1))
 
     def _decode_attend(self, q, k, v, cache: dict):
@@ -310,7 +329,7 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, positions, cache: dict):
+    def forward(self, x, positions, cache: Optional[dict] = None):
         x = x + self.attn(self.attn_norm(x), positions, cache)
         return x + self.mlp(self.mlp_norm(x))
 
@@ -355,23 +374,54 @@ class TransformerLM(nn.Module):
         """tokens [B, T] int -> logits [B, T, vocab] in ``dtype`` (or the
         final hidden states [B, T, d_model] with return_hidden).
         positions: [T] or [B, T] absolute positions (default 0..T-1).
-        cache: inference.init_cache's per-layer list, updated in place."""
+        Without a cache (and ``decode=False``) this is the training
+        forward: causal attention over the whole sequence. In decode
+        mode, cache is inference.init_cache's per-layer list, updated
+        in place."""
         cfg = self.config
-        if not cfg.decode:
-            raise NotImplementedError(
-                "the training forward runs flash attention (K1), which "
-                "the training slice of the port brings; use "
-                "inference.decode_config for serving")
-        if cache is None:
+        if cfg.decode and cache is None:
             raise ValueError("decode mode needs a cache "
                              "(inference.init_cache)")
+        if cache is not None and not cfg.decode:
+            raise ValueError("a cache needs decode=True "
+                             "(inference.decode_config)")
         x = self.embed(tokens)
         if positions is None:
             positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                      device=tokens.device)
-        for block, layer_cache in zip(self.blocks(), cache):
-            x = block(x, positions, layer_cache)
+        if cache is None:
+            remat = cfg.remat and torch.is_grad_enabled()
+            for block in self.blocks():
+                if remat:
+                    x = checkpoint(block, x, positions, use_reentrant=False)
+                else:
+                    x = block(x, positions)
+        else:
+            for block, layer_cache in zip(self.blocks(), cache):
+                x = block(x, positions, layer_cache)
         x = self.final_norm(x)
         if return_hidden:
             return x
         return self.embed.attend(x.float())
+
+
+def lm_loss(logits, targets, ignore_id: int = -1):
+    """Causal LM cross-entropy in logits' dtype, averaged over targets
+    that are not ``ignore_id`` (shifting targets is the caller's job)."""
+    mask = targets != ignore_id
+    logprobs = torch.log_softmax(logits, dim=-1)
+    safe = torch.where(mask, targets, 0).long()
+    nll = -logprobs.gather(-1, safe[..., None])[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp(min=1)
+
+
+def lm_loss_chunked(hidden, embedding, targets, ignore_id: int = -1,
+                    chunk_size: int = 128, impl: str = "plain"):
+    """Tied-embedding cross-entropy without the full [B, T, vocab] fp32
+    logits (ops.chunked_loss). As in the reference, ``chunk_size``
+    counts time steps per batch row, so one slab holds chunk_size * B
+    rows."""
+    rows = chunk_size * (hidden.shape[0] if hidden.dim() == 3 else 1)
+    return chunked_loss.chunked_softmax_xent(
+        hidden, embedding, targets, ignore_id=ignore_id, impl=impl,
+        chunk_size=rows)

@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
 _float = ctypes.c_float
+_i64p = ctypes.POINTER(ctypes.c_longlong)
 
 # C signatures of the exported entry points, per source file.
 SIGNATURES = {
@@ -39,6 +40,15 @@ SIGNATURES = {
             [_int] + [_vp] * 8 + [_int] * 7 + [_float, _vp], _int),
         "bs_dense_decode_attention_int8": (
             [_int] + [_vp] * 7 + [_int] * 5 + [_float, _vp], _int),
+        "bs_error_string": ([_int], ctypes.c_char_p),
+    },
+    "flash_attention": {
+        "bs_flash_attention_fwd": (
+            [_int] + [_vp] * 5 + [_i64p] + [_int] * 6 + [_float, _vp],
+            _int),
+        "bs_flash_attention_bwd": (
+            [_int] + [_vp] * 9 + [_i64p] + [_int] * 6 + [_float, _vp],
+            _int),
         "bs_error_string": ([_int], ctypes.c_char_p),
     },
 }
@@ -66,18 +76,14 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str, force: bool = False) -> tuple[pathlib.Path, float]:
-    """Compile ``csrc/<name>.cu`` unless its library already exists (or
-    ``force``). Returns (library path, seconds spent compiling; 0.0 when
-    reused). The compiler's output (including ``-Xptxas -v`` register
-    and shared-memory reports) is kept beside the library as ``.log``."""
-    target = library_path(name)
-    if target.exists() and not force:
-        return target, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_source(source: pathlib.Path, target: pathlib.Path) -> float:
+    """nvcc ``source`` into the shared library ``target``. Returns the
+    seconds spent. The compiler's output (including ``-Xptxas -v``
+    register and shared-memory reports) is kept beside the library as
+    ``.log``."""
+    target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     started = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           check=False)
@@ -87,24 +93,38 @@ def build(name: str, force: bool = False) -> tuple[pathlib.Path, float]:
         encoding="utf-8")
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu "
+        raise RuntimeError(f"nvcc failed for {source.name} "
                            f"(rc {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, target)  # atomic: concurrent builders agree
-    return target, seconds
+    return seconds
+
+
+def build(name: str, force: bool = False) -> tuple[pathlib.Path, float]:
+    """Compile ``csrc/<name>.cu`` unless its library already exists (or
+    ``force``). Returns (library path, seconds spent compiling; 0.0 when
+    reused)."""
+    target = library_path(name)
+    if target.exists() and not force:
+        return target, 0.0
+    return target, compile_source(CSRC / f"{name}.cu", target)
+
+
+def load(path: pathlib.Path, name: str) -> ctypes.CDLL:
+    """Load a library built from ``csrc/<name>.cu`` (or a copy of it)
+    with argtypes/restype declared for every entry point."""
+    lib = ctypes.CDLL(str(path))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
 
 
 def library(name: str = "decode_attention") -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use,
-    with argtypes/restype declared for every entry point."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            path, _ = build(name)
-            lib = ctypes.CDLL(str(path))
-            for fn, (argtypes, restype) in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = restype
-            _libs[name] = lib
+            lib = _libs[name] = load(build(name)[0], name)
         return lib
 
 

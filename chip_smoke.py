@@ -5,20 +5,38 @@ NVIDIA card.
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build the decode-attention kernels from ops/csrc with nvcc (sm_90a);
-  2. hold each kernel against its plain PyTorch version on the card:
-     ragged lengths (1, a page boundary, a full slot, 0), random block
-     tables and a NaN-poisoned dead table tail or cache tail; then time
-     kernel, plain version and a scaled_dot_product_attention yardstick
-     at the serving shape (8 slots x 16 heads x 64 dims, 512 keys);
-  3. serve the repo's serving benchmark model (bench.py bench_serving:
-     vocab 32000, d_model 1024, 12 layers, 16 heads, d_ff 2816, bf16,
-     8 slots, max_decode_len 512, random weights from a fixed seed)
-     three times through ServingFrontEnd + run_load: paged page 64 (K6),
-     paged int8 with overcommit over 40 pages (K7), dense int8 (K8).
-     Each run must finish every request, must launch its kernel once
-     per layer per decode step and no other kernel, and must agree with
-     the plain attention in a teacher-forced decode of the same tokens.
+  1. build the kernels from ops/csrc with nvcc (sm_90a), one nvcc per
+     source, all started together;
+  2. hold each kernel against its plain PyTorch version on the card.
+     Decode attention (K6-K8): ragged lengths (1, a page boundary, a
+     full slot, 0), random block tables and a NaN-poisoned dead table
+     tail or cache tail. Flash attention (K1 forward, K2 backward): out,
+     lse, dq, dk and dv against an fp32 oracle (mha_reference's
+     arithmetic with the lse exposed, differentiated by autograd), bf16
+     and fp32, causal and full, D 64 and 128, T 128 / 2048 / a ragged
+     1000, with and without an lse cotangent, on strided q/k/v views.
+     The flash check reads each output tile by tile, and at the training
+     shape it must fail on a copy of the source with faults planted in
+     single tiles (FLASH_FAULTS), built beside the kernels;
+  3. time every kernel, its plain version and a library yardstick
+     (scaled_dot_product_attention) at the main path's shapes: decode
+     at 8 slots x 16 heads x 64 dims over 512 keys, flash at the
+     training shape B16 T2048 H16 D64, causal, bf16;
+  4. train the repo's training benchmark model (bench.py
+     bench_transformer: vocab 32000, d_model 1024, 12 layers, 16 heads,
+     d_ff 2816, bf16 over fp32 parameters, no remat, batch 16 x 2048,
+     random weights from seed 0) through TrainHarness for 2 warm-up and
+     5 timed steps on one repeated batch. The loss must be finite and
+     fall, every step must launch K1 and K2 once per layer and no plain
+     attention, and one step's loss and gradients must sit as close to
+     an fp32 model as the plain bf16 model does (at batch 2);
+  5. serve the repo's serving benchmark model (bench.py bench_serving:
+     the same widths, 8 slots, max_decode_len 512) three times through
+     ServingFrontEnd + run_load: paged page 64 (K6), paged int8 with
+     overcommit over 40 pages (K7), dense int8 (K8). Each run must
+     finish every request, must launch its kernel once per layer per
+     decode step and no other kernel, and must agree with the plain
+     attention in a teacher-forced decode of the same tokens.
 
 The last two stdout lines are the {"kernels": [...]} summary and
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -27,10 +45,15 @@ no CUDA device is present.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import functools
 import json
+import math
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -42,9 +65,14 @@ from batch_shipyard_tpu_torch.models.loadgen import run_load
 from batch_shipyard_tpu_torch.models.server import ServingFrontEnd
 from batch_shipyard_tpu_torch.models.serving import ContinuousBatcher
 from batch_shipyard_tpu_torch.ops import _build
+from batch_shipyard_tpu_torch.ops import attention as attn_ops
 from batch_shipyard_tpu_torch.ops import decode_attention as dense_ops
 from batch_shipyard_tpu_torch.ops import paged_attention as paged_ops
 from batch_shipyard_tpu_torch.ops.quantization import quantize_int8_rows
+from batch_shipyard_tpu_torch.parallel import mfu
+from batch_shipyard_tpu_torch.parallel import train as train_mod
+from batch_shipyard_tpu_torch.trace import train_profile
+from batch_shipyard_tpu_torch.workloads import train_transformer as train_wl
 from batch_shipyard_tpu_torch.workloads.serve import (
     BENCH_SERVING_KV_CACHES, BENCH_SERVING_MAX_LEN as MAX_LEN,
     BENCH_SERVING_MODEL as MODEL, BENCH_SERVING_SLOTS as SLOTS,
@@ -69,7 +97,69 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BF16_FLOOR_MAX = 0.1
 FP32_SLACK = 1.25
 
+# Flash kernels against the fp32 oracle (and, at the training shape,
+# against their plain versions), tile by tile: the largest
+# ||got - want|| / ||want|| over blocks of FLASH_TILE consecutive rows
+# of one (batch, head) in out, dq, dk and dv (the kernels' row block),
+# where a block's norm counts as at least TILE_FLOOR of the RMS block
+# norm. A causal tensor's early rows are far larger than its late ones,
+# so a reading against the largest element would not see a fault
+# confined to late q- or kv-tiles; a per-block one does. Single rows
+# are too fine: a dQ row whose terms cancel (row 1 of a causal head)
+# carries the bf16 rounding of O through delta at several percent of
+# its own size. fp32 inputs differ only in summation order; bf16 inputs
+# round p before P.V and dS before dK/dQ, and every output to bf16
+# (2^-9 relative), where the oracle stays in fp32. The bf16 limit sits
+# between the sound kernels' reading and the planted faults' (below).
+# lse is fp32 in both and held absolutely.
+FLASH_TILE = 64
+TILE_FLOOR = 0.1
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+LSE_TOL = 1e-4
+# Faults planted in a copy of flash_attention.cu, each confined to one
+# tile, and the outputs each breaks: the check must fail on every one
+# at the training shape. (kernel, loop as written, loop with the fault,
+# outputs.)
+FLASH_FAULTS = (
+    # K1: the last q-tile skips its diagonal kv-tile.
+    ("flash_fwd_kernel", "for (int j = 0; j < n_iter; ++j) {",
+     "for (int j = 0; j < n_iter - (blockIdx.x == 0); ++j) {", ("out",)),
+    # K2, dQ kernel: the same.
+    ("flash_bwd_dq_kernel", "for (int j = 0; j < n_iter; ++j) {",
+     "for (int j = 0; j < n_iter - (blockIdx.x == 0); ++j) {", ("dq",)),
+    # K2, dK/dV kernel: the middle kv-tile never sees the last q-tile.
+    ("flash_bwd_dkdv_kernel", "i < n_q; ++i) {",
+     "i < n_q - (blockIdx.x == gridDim.x / 2); ++i) {", ("dk", "dv")),
+)
+# The training step against an fp32 model with the same weights, as the
+# relative L2 distance of the flattened gradients (and the loss's
+# relative difference): the plain bf16 model's distance is the floor,
+# which must stay below TRAIN_FLOOR_MAX (so a broken fp32 reference
+# cannot pass); the kernel model may sit TRAIN_SLACK times the floor
+# from the fp32 model and from the plain model. K2 rounds dS to bf16
+# before its products where the plain model's autograd keeps it in
+# fp32, hence a wider slack than the serving check's. A single loss is
+# noise of either sign, so its floor is at least LOSS_FLOOR_MIN of the
+# loss.
+TRAIN_FLOOR_MAX = 0.25
+TRAIN_SLACK = 1.5
+LOSS_FLOOR_MIN = 1e-4
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+# The flash kernels' shape on the training path: bench_transformer's
+# batch, sequence, heads and head depth.
+FLASH_TRAIN_SHAPE = dict(batch=train_wl.BENCH_TRANSFORMER_BATCH,
+                         seq=train_wl.BENCH_TRANSFORMER_SEQ,
+                         heads=train_wl.BENCH_TRANSFORMER_MODEL["n_heads"],
+                         depth=train_wl.BENCH_TRANSFORMER_MODEL["d_head"])
+FLASH_SOURCE = "batch_shipyard_tpu_torch/ops/csrc/flash_attention.cu"
+
 KERNELS = {
+    "flash_fwd": dict(
+        label="K1", route="cuda", source=FLASH_SOURCE,
+        replaces="batch_shipyard_tpu/ops/attention.py:165"),
+    "flash_bwd": dict(
+        label="K2", route="cuda", source=FLASH_SOURCE,
+        replaces="batch_shipyard_tpu/ops/attention.py:277"),
     "paged_decode": dict(
         label="K6", route="cuda",
         source="batch_shipyard_tpu_torch/ops/csrc/decode_attention.cu",
@@ -95,11 +185,12 @@ def require(ok: bool, what: str) -> None:
 
 
 def launch_counts() -> dict:
-    return {**paged_ops.launches, **dense_ops.launches}
+    return {**attn_ops.launches, **paged_ops.launches, **dense_ops.launches}
 
 
 def reset_launch_counts() -> None:
-    for counts in (paged_ops.launches, dense_ops.launches):
+    for counts in (attn_ops.launches, attn_ops.plain_calls,
+                   paged_ops.launches, dense_ops.launches):
         for key in counts:
             counts[key] = 0
 
@@ -349,6 +440,368 @@ def time_kernels(device) -> dict:
     return out
 
 
+# --------------------------- flash attention --------------------------
+
+
+def flash_oracle(q, k, v, g, g_lse, causal):
+    """fp32 (out [B, T, H, D], lse [B*H, T, 1], (dq, dk, dv)) of
+    mha_reference's arithmetic on q, k, v upcast to fp32, with the lse
+    exposed, differentiated by autograd against cotangents g, g_lse."""
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) / math.sqrt(
+        q.shape[-1])
+    if causal:
+        seq = q.shape[1]
+        allowed = torch.ones(seq, seq, dtype=torch.bool,
+                             device=q.device).tril()
+        scores = scores.masked_fill(~allowed, float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1)                 # [B, H, T]
+    out = torch.einsum("bhqk,bkhd->bqhd",
+                       torch.exp(scores - lse[..., None]), vf)
+    lse = lse.reshape(-1, q.shape[1], 1)
+    grads = torch.autograd.grad(
+        (out * g.float()).sum() + (lse * g_lse).sum(), (qf, kf, vf))
+    with torch.no_grad():
+        ref = attn_ops.mha_reference(qf, kf, vf, causal)
+    require(float((ref - out.detach()).abs().max()) <= 1e-5,
+            "flash oracle disagrees with mha_reference")
+    return out.detach(), lse.detach(), grads
+
+
+def tile_err(got, want) -> float:
+    """max over blocks of FLASH_TILE rows (of one batch and head) of
+    ||got - want|| / ||want||, with ||want|| taken as at least
+    TILE_FLOOR of the RMS block norm. got, want: [B, T, H, D]."""
+    got, want = got.detach().float(), want.detach().float()
+    batch, seq, heads, depth = want.shape
+    pad = -seq % FLASH_TILE
+    shape = (batch, (seq + pad) // FLASH_TILE, FLASH_TILE, heads, depth)
+
+    def block_norms(x):
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        return x.reshape(shape).square().sum(dim=(2, 4)).sqrt()
+    norms = block_norms(want)
+    floor = TILE_FLOOR * float(norms.square().mean().sqrt())
+    return float((block_norms(got - want) / norms.clamp_min(floor)).max())
+
+
+def check_flash(device) -> None:
+    """Phase 2b: K1 and K2 through flash_attention(_with_lse) against
+    the fp32 oracle. q, k, v are strided views of one fused [B, T, 3, H,
+    D] tensor, as a fused projection would give them. Every case is
+    read and printed before the first failure is raised."""
+    rng = np.random.default_rng(3)
+    batch, heads = 2, 2
+    failed = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for depth in (64, 128):
+            for seq in (128, 2048, 1000):
+                for causal in (True, False):
+                    def randn(*shape):
+                        return torch.from_numpy(rng.standard_normal(
+                            shape, dtype=np.float32)).to(device)
+                    fused = randn(batch, seq, 3, heads, depth).to(dtype)
+                    q, k, v = (fused[:, :, i].detach().requires_grad_()
+                               for i in range(3))
+                    g = randn(batch, seq, heads, depth).to(dtype)
+                    g_lse = randn(batch * heads, seq, 1)
+                    worst, worst_lse = 0.0, 0.0
+                    for with_lse in (True, False):
+                        cot = g_lse if with_lse else torch.zeros_like(g_lse)
+                        want_out, want_lse, want_grads = flash_oracle(
+                            q, k, v, g, cot, causal)
+                        if with_lse:
+                            out, lse = attn_ops.flash_attention_with_lse(
+                                q, k, v, causal)
+                            grads = torch.autograd.grad(
+                                (out, lse), (q, k, v), (g, g_lse))
+                            require(lse.dtype == torch.float32,
+                                    "flash: lse dtype")
+                            worst_lse = float(
+                                (lse.detach() - want_lse).abs().max())
+                        else:
+                            out = attn_ops.flash_attention(q, k, v, causal)
+                            grads = torch.autograd.grad(out, (q, k, v), g)
+                        torch.cuda.synchronize()
+                        require(all(t.dtype == dtype for t in (out, *grads)),
+                                "flash: output dtype")
+                        for got, want in [(out, want_out),
+                                          *zip(grads, want_grads)]:
+                            require(bool(torch.isfinite(got).all()),
+                                    "flash: non-finite output")
+                            worst = max(worst, tile_err(got, want))
+                    name = (f"flash {str(dtype)[6:]} D={depth} T={seq} "
+                            f"{'causal' if causal else 'full'}")
+                    print(f"check {name}: max tile err (out, dq, dk, dv; "
+                          f"with and without g_lse) {worst:.3g} (tol "
+                          f"{FLASH_TOL[dtype]}), lse max abs err "
+                          f"{worst_lse:.3g} (tol {LSE_TOL})", flush=True)
+                    if worst > FLASH_TOL[dtype] or worst_lse > LSE_TOL:
+                        failed.append(name)
+    require(not failed, f"flash: outside tolerance: {failed}")
+
+
+def build_fault_library(workdir: pathlib.Path):
+    """flash_attention.cu with FLASH_FAULTS planted, built in workdir.
+    Returns (library path, seconds)."""
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    for kernel, line, fault, _ in FLASH_FAULTS:
+        start = text.index(f"{kernel}(Args a)")
+        end = text.find("__global__", start)
+        at = text.index(line, start, end if end > 0 else len(text))
+        text = text[:at] + fault + text[at + len(line):]
+    source = workdir / "flash_attention_faults.cu"
+    source.write_text(text)
+    target = workdir / "libflash_attention_faults.so"
+    return target, _build.compile_source(source, target)
+
+
+def flash_bound(batch, seq, heads, depth, causal, backward) -> dict:
+    """Least time for the function at bf16: each input read once, each
+    output written once; 2 FLOPs per multiply-add over the (query, key)
+    pairs the mask keeps, two products in the forward (QK^T, PV), five
+    in the backward (QK^T, dO V^T, P^T dO, dS^T Q, dS K)."""
+    pairs = seq * (seq + 1) // 2 if causal else seq * seq
+    ops = 2 * (5 if backward else 2) * batch * heads * pairs * depth
+    tensor = batch * seq * heads * depth * 2
+    vector = batch * heads * seq * 4
+    nbytes = 7 * tensor + 2 * vector if backward else 4 * tensor + vector
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS[torch.bfloat16] * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms}
+
+
+def check_flash_faults(sound, faulty, want) -> dict:
+    """Each output of the sound kernels, and of the planted-fault build,
+    against the plain versions: the sound ones must sit within
+    FLASH_TOL, each output a fault breaks must fall outside it. Prints
+    the per-tile reading and, beside it, max |error| / max |plain|."""
+    tol = FLASH_TOL[torch.bfloat16]
+    broken = {name for *_, outs in FLASH_FAULTS for name in outs}
+    readings, failed = {}, []
+    for name in ("out", "dq", "dk", "dv"):
+        row = {"sound": tile_err(sound[name], want[name]),
+               "fault": tile_err(faulty[name], want[name]),
+               "fault_max_over_max": _rel(faulty[name].float(),
+                                          want[name].float(), torch.amax)}
+        readings[name] = row
+        print(f"check training-shape {name}: max tile err "
+              f"{row['sound']:.3g}"
+              f" sound, {row['fault']:.3g} with the planted fault (tol "
+              f"{tol}); the fault's max|err|/max|plain| "
+              f"{row['fault_max_over_max']:.3g}", flush=True)
+        if row["sound"] > tol:
+            failed.append(f"{name} sound")
+        if name in broken and row["fault"] <= tol:
+            failed.append(f"{name} planted fault passed")
+    require(not failed, f"flash at the training shape: {failed}")
+    return readings
+
+
+def time_flash(device, fault_lib) -> dict:
+    """Phase 3b: K1 and K2 at the training shape against their plain
+    versions (and the planted-fault build against the same) and the
+    SDPA yardstick (forward; backward alone, from a retained graph; and
+    forward plus backward)."""
+    batch, seq, heads, depth = (FLASH_TRAIN_SHAPE[k] for k in
+                                ("batch", "seq", "heads", "depth"))
+    gen = torch.Generator(device=device).manual_seed(4)
+
+    def randn():
+        return torch.randn(batch, seq, heads, depth, generator=gen,
+                           device=device, dtype=torch.bfloat16)
+    q, k, v, dout = randn(), randn(), randn(), randn()
+    out, lse = attn_ops.flash_forward_kernel(q, k, v, True)
+    want_out, want_lse = attn_ops.flash_forward_reference(q, k, v, True)
+    lse_err = float((lse - want_lse).abs().max())
+    require(lse_err <= LSE_TOL,
+            f"K1 lse at the training shape: max abs err {lse_err}")
+    delta = attn_ops.flash_delta(out, dout)
+    bwd_args = (q, k, v, lse, dout, delta, True)
+    got = attn_ops.flash_backward_kernel(*bwd_args)
+    want = attn_ops.flash_backward_reference(*bwd_args)
+    # The fault build's K2 gets the sound lse and delta, so each
+    # kernel's fault shows in its own outputs only.
+    faulty = dict(zip(("dq", "dk", "dv"), attn_ops.flash_backward_kernel(
+        *bwd_args, library=fault_lib)))
+    faulty["out"] = attn_ops.flash_forward_kernel(q, k, v, True,
+                                                  library=fault_lib)[0]
+    names = ("dq", "dk", "dv")
+    fault_check = check_flash_faults(
+        {"out": out, **dict(zip(names, got))}, faulty,
+        {"out": want_out, **dict(zip(names, want))})
+    fwd_err = float((out.float() - want_out.float()).abs().max())
+    bwd_err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+    tile_errs = {"flash_fwd": fault_check["out"]["sound"],
+                "flash_bwd": max(fault_check[n]["sound"] for n in names)}
+    del want_out, want_lse, got, want, faulty
+    torch.cuda.empty_cache()
+    rows = {
+        "flash_fwd": dict(
+            max_abs_err=fwd_err, max_tile_err=tile_errs["flash_fwd"],
+            ms=device_ms(attn_ops.flash_forward_kernel, [(q, k, v, True)],
+                         48),
+            plain_ms=device_ms(attn_ops.flash_forward_reference,
+                               [(q, k, v, True)], 4),
+            **flash_bound(batch, seq, heads, depth, True, False)),
+        "flash_bwd": dict(
+            max_abs_err=bwd_err, max_tile_err=tile_errs["flash_bwd"],
+            ms=device_ms(attn_ops.flash_backward_kernel, [bwd_args], 24),
+            plain_ms=device_ms(attn_ops.flash_backward_reference,
+                               [bwd_args], 4),
+            **flash_bound(batch, seq, heads, depth, True, True)),
+    }
+    torch.cuda.empty_cache()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs, gs = (x.transpose(1, 2).contiguous()
+                      for x in (q, k, v, dout))
+    lib_fwd = device_ms(functools.partial(sdpa, is_causal=True),
+                        [(qs, ks, vs)], 48)
+    leaves = [x.requires_grad_() for x in (qs, ks, vs)]
+    graph_out = sdpa(*leaves, is_causal=True)
+    lib_bwd = device_ms(
+        lambda: torch.autograd.grad(graph_out, leaves, gs,
+                                    retain_graph=True), [()], 24)
+    lib_both = device_ms(
+        lambda: torch.autograd.grad(sdpa(*leaves, is_causal=True), leaves,
+                                    gs), [()], 24)
+    rows["flash_fwd"]["library_ms"] = lib_fwd
+    rows["flash_bwd"]["library_ms"] = lib_bwd
+    rows["flash_bwd"]["library_fwd_bwd_ms"] = lib_both
+    for key, row in rows.items():
+        print(f"time {KERNELS[key]['label']} {key}: kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}; ops {row['ops_ms']:.4f} ms, bytes "
+              f"{row['bytes_ms']:.4f} ms)")
+    print(f"time sdpa forward+backward {lib_both:.4f} ms; K1+K2 "
+          f"{rows['flash_fwd']['ms'] + rows['flash_bwd']['ms']:.4f} ms")
+    del graph_out, leaves
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------ training ------------------------------
+
+
+def _flat_grads(harness, batch) -> tuple[float, torch.Tensor]:
+    """(loss, every parameter's gradient flattened to fp32) of one
+    step's forward and backward, leaving the parameters untouched."""
+    loss = harness.loss_fn(batch["tokens"], batch["targets"])
+    params = list(harness.model.parameters())
+    grads = torch.autograd.grad(loss, params)
+    return float(loss.detach()), torch.cat(
+        [g.float().reshape(-1) for g in grads])
+
+
+def train_numerics(harness, batch) -> dict:
+    """One step of the kernel model against a plain bf16 model (the
+    attention's blockwise plain version) and an fp32 plain model, all
+    with the harness's current weights, on the first two rows of the
+    batch."""
+    small = {name: t[:2] for name, t in batch.items()}
+    plain_fn = functools.partial(attn_ops.attention, impl="blockwise")
+    cfg = harness.model.config
+    params = harness.model.state_dict()
+    loss_k, grad_k = _flat_grads(harness, small)
+    results = {}
+    for name, dtype in (("plain", cfg.dtype), ("fp32", torch.float32)):
+        other = train_mod.build_transformer_train(
+            dataclasses.replace(cfg, dtype=dtype, attention_fn=plain_fn),
+            batch_size=2, seq_len=small["tokens"].shape[1],
+            device=harness.device, params=params)
+        results[name] = _flat_grads(other, small)
+        del other
+    torch.cuda.empty_cache()
+    (loss_p, grad_p), (loss_f, grad_f) = results["plain"], results["fp32"]
+
+    def rel(a, b):
+        return _rel(a, b, torch.linalg.vector_norm)
+    floor = rel(grad_p, grad_f)
+    loss_floor = max(abs(loss_p - loss_f), LOSS_FLOOR_MIN * abs(loss_f))
+    row = {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_fp32": loss_f,
+           "grad_kernel_vs_fp32": rel(grad_k, grad_f),
+           "grad_kernel_vs_plain": rel(grad_k, grad_p),
+           "grad_plain_vs_fp32": floor}
+    require(all(math.isfinite(x) for x in row.values()),
+            f"train numerics: non-finite {row}")
+    require(floor <= TRAIN_FLOOR_MAX,
+            f"train numerics: plain bf16 vs fp32 gradients {row}")
+    require(row["grad_kernel_vs_fp32"] <= TRAIN_SLACK * floor and
+            row["grad_kernel_vs_plain"] <= TRAIN_SLACK * floor,
+            f"train numerics: kernel gradients off by more than bf16 "
+            f"rounding: {row}")
+    require(abs(loss_k - loss_f) <= TRAIN_SLACK * loss_floor,
+            f"train numerics: kernel loss off by more than bf16 "
+            f"rounding: {row}")
+    return row
+
+
+def train(device) -> dict:
+    """Phase 4: the main training path, end to end."""
+    model = train_wl.BENCH_TRANSFORMER_MODEL
+    batch_size = train_wl.BENCH_TRANSFORMER_BATCH
+    seq = train_wl.BENCH_TRANSFORMER_SEQ
+    started = time.perf_counter()
+    harness = train_wl.build_bench_harness(device, seed=0,
+                                           batch_size=batch_size,
+                                           seq_len=seq)
+    batch = train_wl.random_batch(model["vocab_size"], batch_size, seq, 0,
+                                  device)
+    numerics = train_numerics(harness, batch)
+    print("train numerics " + json.dumps(numerics), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses = [harness.step(batch)["loss"] for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [harness.step(batch)["loss"] for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = launch_counts()
+    plain = dict(attn_ops.plain_calls)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    require(all(math.isfinite(x) for x in losses),
+            f"train: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"train: loss did not fall {losses}")
+    for key in ("flash_fwd", "flash_bwd"):
+        require(counts[key] == model["n_layers"] * steps,
+                f"train: {counts[key]} {key} launches in {steps} steps")
+    others = {k: n for k, n in counts.items()
+              if k not in ("flash_fwd", "flash_bwd") and n}
+    require(not others, f"train: unexpected launches {others}")
+    require(not any(plain.values()), f"train: plain attention ran {plain}")
+    tokens_per_s = batch_size * seq * TRAIN_STEPS / elapsed
+    flops = mfu.transformer_train_flops_per_token(harness.model.config, seq)
+    profile = train_profile.profile_steps(harness, batch, 2)
+    row = {
+        "model": model, "batch": batch_size, "seq_len": seq,
+        "steps": steps, "timed_steps": TRAIN_STEPS,
+        "launches": {k: counts[k] for k in ("flash_fwd", "flash_bwd")},
+        "launches_per_step": {k: counts[k] / steps
+                              for k in ("flash_fwd", "flash_bwd")},
+        "ms_per_step": elapsed / TRAIN_STEPS * 1e3,
+        "tokens_per_s": tokens_per_s,
+        "tflop_per_step": flops * batch_size * seq / 1e12,
+        "mfu_pct": mfu.mfu_pct(tokens_per_s, flops,
+                               mfu.peak_bf16_tflops()),
+        "peak_mem_gb": peak_gb, "losses": losses,
+        "numerics": numerics, "profile": profile,
+        "phase_s": time.perf_counter() - started,
+    }
+    print("train " + json.dumps(row), flush=True)
+    del harness, batch
+    torch.cuda.empty_cache()
+    return row
+
+
 # ------------------------------ serving ------------------------------
 
 
@@ -492,15 +945,31 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    path, seconds = _build.build("decode_attention", force=True)
-    print(f"build {path.name}: {seconds:.1f} s", flush=True)
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas " + line.strip())
+    sources = ("flash_attention", "decode_attention")
+    workdir = tempfile.TemporaryDirectory()
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+        started = [pool.submit(_build.build, name, force=True)
+                   for name in sources]
+        faults = pool.submit(build_fault_library, pathlib.Path(workdir.name))
+        builds = [f.result() for f in started]
+        fault_path, fault_s = faults.result()
+    fault_lib = _build.load(fault_path, "flash_attention")
+    print(f"build {fault_path.name} (planted faults): {fault_s:.1f} s",
+          flush=True)
+    for path, seconds in builds:
+        print(f"build {path.name}: {seconds:.1f} s", flush=True)
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or \
+                    "Compiling entry" in line:
+                print("ptxas " + line.strip())
 
     check_kernels(device)
+    check_flash(device)
     timing = time_kernels(device)
+    timing.update(time_flash(device, fault_lib))
+    workdir.cleanup()
 
+    trained = train(device)
     served = {}
     for name, kernel in SERVED:
         served[kernel] = serve(name, kernel, device)
@@ -508,16 +977,20 @@ def main() -> int:
     kernels = []
     for key, meta in KERNELS.items():
         t = timing[key]
-        kernels.append({
-            "name": f"{meta['label']} {key}", "route": meta["route"],
-            "source": meta["source"], "replaces": meta["replaces"],
-            "launches": served[key]["launches"],
-            "launches_per_decode_step":
-                served[key]["launches_per_decode_step"],
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        })
+        row = {"name": f"{meta['label']} {key}", "route": meta["route"],
+               "source": meta["source"], "replaces": meta["replaces"]}
+        if key in trained["launches"]:
+            row["launches"] = trained["launches"][key]
+            row["launches_per_train_step"] = \
+                trained["launches_per_step"][key]
+        else:
+            row["launches"] = served[key]["launches"]
+            row["launches_per_decode_step"] = \
+                served[key]["launches_per_decode_step"]
+        row.update({k: t[k] for k in ("max_abs_err", "max_tile_err", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms") if k in t})
+        kernels.append(row)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

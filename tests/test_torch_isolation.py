@@ -77,9 +77,9 @@ def test_port_sources_import_nothing_of_jax_or_the_reference():
 
 
 def test_entry_points_refuse_cpu_unless_named(monkeypatch):
-    """ContinuousBatcher and resolve_device raise without CUDA unless
-    device='cpu' is passed; serve.py (default --device cuda) exits
-    nonzero with that error."""
+    """ContinuousBatcher, build_transformer_train and resolve_device
+    raise without CUDA unless device='cpu' is passed; the CLIs (default
+    --device cuda) exit nonzero with that error."""
     from batch_shipyard_tpu_torch.device import resolve_device
     from batch_shipyard_tpu_torch.models import convert, serving
     from batch_shipyard_tpu_torch.models import transformer as tfm
@@ -94,6 +94,10 @@ def test_entry_points_refuse_cpu_unless_named(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serving.ContinuousBatcher(cfg, params, num_slots=1,
                                   max_decode_len=16)
+    from batch_shipyard_tpu_torch.parallel import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.build_transformer_train(cfg, batch_size=1, seq_len=4,
+                                      params=params)
 
 
 def test_serve_cli_refuses_without_cuda():
@@ -104,6 +108,21 @@ def test_serve_cli_refuses_without_cuda():
          "--d-model", "16", "--n-layers", "1", "--n-heads", "2",
          "--d-ff", "32", "--vocab", "16", "--loadgen", "1", "--port",
          "0", "--report", os.devnull],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr
+
+
+def test_train_cli_refuses_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the refusal needs a CPU host")
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "batch_shipyard_tpu_torch.workloads.train_transformer",
+         "--d-model", "16", "--n-layers", "1", "--n-heads", "2",
+         "--d-ff", "32", "--vocab", "16", "--seq-len", "8", "--batch",
+         "1", "--steps", "1"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
         env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert proc.returncode != 0

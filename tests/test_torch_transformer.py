@@ -18,6 +18,7 @@ from batch_shipyard_tpu.models import transformer as jtfm
 from batch_shipyard_tpu_torch.models import convert
 from batch_shipyard_tpu_torch.models import inference as tinf
 from batch_shipyard_tpu_torch.models import transformer as ttfm
+from batch_shipyard_tpu_torch.parallel import train as ttrain
 
 VOCAB, D_MODEL, LAYERS, HEADS, D_HEAD, D_FF = 128, 64, 2, 2, 32, 128
 MAX_LEN, PAGE, BATCH = 32, 8, 3
@@ -123,10 +124,27 @@ def test_init_params_matches_flax_distribution(flax_params):
 
 
 def test_training_forward_not_ported():
+    """The part of the training forward not ported yet, sequence
+    parallelism (ring attention), raises rather than running something
+    else."""
+    with pytest.raises(NotImplementedError, match="sp > 1"):
+        ttrain.make_transformer_config(sp=2)
+
+
+def test_training_forward_and_cache_contract():
+    """The training forward (decode=False, no cache) runs the flash
+    path and returns logits; a cache still needs decode=True and
+    decode mode still needs a cache. tests/test_torch_train.py holds
+    the training forward against the reference."""
     _, tcfg = _configs("float32")
     model = ttfm.TransformerLM(dataclasses.replace(tcfg, decode=False))
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros((1, 4), dtype=torch.int32))
+    logits = model(torch.zeros((1, 4), dtype=torch.int32))
+    assert logits.shape == (1, 4, VOCAB)
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match="decode=True"):
+        model(torch.zeros((1, 4), dtype=torch.int32), cache=[{}] * LAYERS)
+    with pytest.raises(ValueError, match="needs a cache"):
+        ttfm.TransformerLM(tcfg)(torch.zeros((1, 1), dtype=torch.int32))
 
 
 def _assign_tables(cache, table):
