@@ -54,17 +54,25 @@ def init_params(config: TransformerConfig,
     lecun-normal (truncated normal, variance 1/fan_in), the embedding
     normal with variance 1/d_model (flax's default Embed init,
     variance_scaling(1, fan_in, normal) over [vocab, d_model]), RMSNorm
-    scales one."""
+    scales one. With ``fused_norm``, ``qkv_kernel [d, 3F]`` and
+    ``gate_up_kernel [d, 2*d_ff]`` are lecun-normal over fan-in d in the
+    reference's [in, out] layout, and their ``norm_scale`` one."""
     device = generator.device
     dtype = config.param_dtype
     state: dict[str, torch.Tensor] = {}
 
-    def dense(name: str, fan_in: int, fan_out: int) -> None:
+    def lecun(shape: tuple, fan_in: int) -> torch.Tensor:
         std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-        weight = torch.empty(fan_out, fan_in, dtype=dtype, device=device)
+        weight = torch.empty(shape, dtype=dtype, device=device)
         torch.nn.init.trunc_normal_(weight, std=std, a=-2.0 * std,
                                     b=2.0 * std, generator=generator)
-        state[name + ".weight"] = weight
+        return weight
+
+    def dense(name: str, fan_in: int, fan_out: int) -> None:
+        state[name + ".weight"] = lecun((fan_out, fan_in), fan_in)
+
+    def ones() -> torch.Tensor:
+        return torch.ones(config.d_model, dtype=torch.float32, device=device)
 
     embed = torch.empty(config.vocab_size, config.d_model, dtype=dtype,
                         device=device)
@@ -74,15 +82,23 @@ def init_params(config: TransformerConfig,
     features = config.n_heads * config.d_head
     for i in range(config.n_layers):
         layer = f"layer_{i}"
-        for proj in ("q_proj", "k_proj", "v_proj"):
-            dense(f"{layer}.attn.{proj}", config.d_model, features)
+        if config.fused_norm:
+            state[f"{layer}.attn.norm_scale"] = ones()
+            state[f"{layer}.attn.qkv_kernel"] = lecun(
+                (config.d_model, 3 * features), config.d_model)
+        else:
+            for proj in ("q_proj", "k_proj", "v_proj"):
+                dense(f"{layer}.attn.{proj}", config.d_model, features)
         dense(f"{layer}.attn.o_proj", features, config.d_model)
-        dense(f"{layer}.mlp.gate_proj", config.d_model, config.d_ff)
-        dense(f"{layer}.mlp.up_proj", config.d_model, config.d_ff)
+        if config.fused_norm:
+            state[f"{layer}.mlp.norm_scale"] = ones()
+            state[f"{layer}.mlp.gate_up_kernel"] = lecun(
+                (config.d_model, 2 * config.d_ff), config.d_model)
+        else:
+            dense(f"{layer}.mlp.gate_proj", config.d_model, config.d_ff)
+            dense(f"{layer}.mlp.up_proj", config.d_model, config.d_ff)
+            for norm in ("attn_norm", "mlp_norm"):
+                state[f"{layer}.{norm}.scale"] = ones()
         dense(f"{layer}.mlp.down_proj", config.d_ff, config.d_model)
-        for norm in ("attn_norm", "mlp_norm"):
-            state[f"{layer}.{norm}.scale"] = torch.ones(
-                config.d_model, dtype=torch.float32, device=device)
-    state["final_norm.scale"] = torch.ones(
-        config.d_model, dtype=torch.float32, device=device)
+    state["final_norm.scale"] = ones()
     return state

@@ -10,8 +10,13 @@ Training (``decode=False``, no cache): attention goes through
 flash kernels (K1 forward, K2 backward) for CUDA tensors and runs the
 plain blockwise softmax for CPU tensors. ``remat`` recomputes each block
 in the backward (``torch.utils.checkpoint``, the reference's
-``nn.remat(Block)``). ``lm_loss`` and ``lm_loss_chunked`` are the
-reference's losses.
+``nn.remat(Block)``). With ``fused_norm`` each block feeds its raw
+residual stream into ``ops.fused_norm.rmsnorm_matmul`` twice: one
+[d, 3F] qkv projection and one [d, 2*d_ff] gate/up projection, whose
+forward is the K9 kernel for CUDA tensors. ``lm_loss`` and
+``lm_loss_chunked`` are the reference's losses; the latter's ``auto``
+picks the fused cross-entropy kernels (K3-K5) on a card whose validation
+marker records them.
 
 Decode: where flax keeps the cache in a mutable ``cache`` collection,
 the port passes an explicit cache: a list with one dict of tensors per
@@ -42,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from batch_shipyard_tpu_torch.ops import attention as attn_ops
 from batch_shipyard_tpu_torch.ops import chunked_loss
 from batch_shipyard_tpu_torch.ops import decode_attention as dense_ops
+from batch_shipyard_tpu_torch.ops import fused_norm as fn_ops
 from batch_shipyard_tpu_torch.ops import paged_attention as paged_ops
 from batch_shipyard_tpu_torch.ops.quantization import (dequantize_int8,
                                                         quantize_int8_rows)
@@ -51,8 +57,8 @@ from batch_shipyard_tpu_torch.ops.quantization import (dequantize_int8,
 class TransformerConfig:
     """The reference's field names for what the dense training forward
     and the decode path read. The fields of paths not ported yet (moe,
-    fused_norm, quantize_matmuls, tp_axis, the speculative
-    ``spec_window``) arrive with the slices that port them."""
+    quantize_matmuls, tp_axis, the speculative ``spec_window``) arrive
+    with the slices that port them."""
     vocab_size: int = 32000
     d_model: int = 512
     n_layers: int = 4
@@ -69,6 +75,12 @@ class TransformerConfig:
     # ops.attention.attention (flash kernels on CUDA tensors).
     attention_fn: Optional[Callable] = None
     rope_theta: float = 10000.0
+    # Fuse each block's two RMSNorms into its first projections
+    # (ops/fused_norm.rmsnorm_matmul); training only.
+    fused_norm: bool = False
+    # rmsnorm_matmul's impl: None (K9 for CUDA tensors), "kernel" or
+    # "plain".
+    fused_norm_impl: Optional[str] = None
     decode: bool = False
     max_decode_len: int = 2048
     # None (dtype rows) or "int8" (absmax rows + fp32 scales per
@@ -159,14 +171,43 @@ class Embed(nn.Module):
                         self.embedding.to(self.dtype))
 
 
+def _norm_scale(cfg: TransformerConfig, device) -> nn.Parameter:
+    return nn.Parameter(torch.ones(cfg.d_model, dtype=torch.float32,
+                                   device=device))
+
+
+def _fused_kernel(cfg: TransformerConfig, width: int,
+                  device) -> nn.Parameter:
+    """A fused projection's weight in the reference's [in, out] layout."""
+    return nn.Parameter(torch.empty(cfg.d_model, width,
+                                    dtype=cfg.param_dtype, device=device))
+
+
+def _fused_projection(cfg: TransformerConfig, x, scale, kernel):
+    """rmsnorm(x) * scale @ kernel over [B, T, d] -> [B, T, width], the
+    weight cast to ``dtype`` at each call."""
+    batch, seq = x.shape[0], x.shape[1]
+    out = fn_ops.rmsnorm_matmul(x.reshape(batch * seq, -1), scale,
+                                kernel.to(cfg.dtype),
+                                impl=cfg.fused_norm_impl)
+    return out.reshape(batch, seq, -1)
+
+
 class Attention(nn.Module):
+    """With ``fused_norm``: ``norm_scale [d]`` and ``qkv_kernel [d, 3F]``
+    take the place of the block's attn_norm and q/k/v projections."""
+
     def __init__(self, cfg: TransformerConfig, device=None) -> None:
         super().__init__()
         self.config = cfg
         features = cfg.n_heads * cfg.d_head
-        self.q_proj = Dense(cfg.d_model, features, cfg, device)
-        self.k_proj = Dense(cfg.d_model, features, cfg, device)
-        self.v_proj = Dense(cfg.d_model, features, cfg, device)
+        if cfg.fused_norm:
+            self.norm_scale = _norm_scale(cfg, device)
+            self.qkv_kernel = _fused_kernel(cfg, 3 * features, device)
+        else:
+            self.q_proj = Dense(cfg.d_model, features, cfg, device)
+            self.k_proj = Dense(cfg.d_model, features, cfg, device)
+            self.v_proj = Dense(cfg.d_model, features, cfg, device)
         self.o_proj = Dense(features, cfg.d_model, cfg, device)
 
     def forward(self, x, positions, cache: Optional[dict] = None):
@@ -175,11 +216,16 @@ class Attention(nn.Module):
         cfg = self.config
         batch, seq = x.shape[0], x.shape[1]
         shape = (batch, seq, cfg.n_heads, cfg.d_head)
-        q = rotary_embedding(self.q_proj(x).reshape(shape), positions,
-                             cfg.rope_theta)
-        k = rotary_embedding(self.k_proj(x).reshape(shape), positions,
-                             cfg.rope_theta)
-        v = self.v_proj(x).reshape(shape)
+        if cfg.fused_norm:
+            # x is the raw residual stream; v stays a strided view of
+            # the [q | k | v] output, which K1 reads through its strides.
+            q, k, v = _fused_projection(cfg, x, self.norm_scale,
+                                        self.qkv_kernel).chunk(3, dim=-1)
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        q = rotary_embedding(q.reshape(shape), positions, cfg.rope_theta)
+        k = rotary_embedding(k.reshape(shape), positions, cfg.rope_theta)
+        v = v.reshape(shape)
         if cache is None:
             attention_fn = cfg.attention_fn or attn_ops.attention
             out = attention_fn(q, k, v, causal=True)
@@ -309,27 +355,50 @@ def prefix_rows_from_pages(layer_cache: dict, page_ids,
 
 
 class MLP(nn.Module):
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
+    """SwiGLU: down(silu(gate(x)) * up(x)). With ``fused_norm``:
+    ``norm_scale [d]`` and ``gate_up_kernel [d, 2*d_ff]`` take the place
+    of the block's mlp_norm and gate/up projections."""
 
     def __init__(self, cfg: TransformerConfig, device=None) -> None:
         super().__init__()
-        self.gate_proj = Dense(cfg.d_model, cfg.d_ff, cfg, device)
-        self.up_proj = Dense(cfg.d_model, cfg.d_ff, cfg, device)
+        self.config = cfg
+        if cfg.fused_norm:
+            self.norm_scale = _norm_scale(cfg, device)
+            self.gate_up_kernel = _fused_kernel(cfg, 2 * cfg.d_ff, device)
+        else:
+            self.gate_proj = Dense(cfg.d_model, cfg.d_ff, cfg, device)
+            self.up_proj = Dense(cfg.d_model, cfg.d_ff, cfg, device)
         self.down_proj = Dense(cfg.d_ff, cfg.d_model, cfg, device)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.config.fused_norm:
+            gate, up = _fused_projection(self.config, x, self.norm_scale,
+                                         self.gate_up_kernel).chunk(2, dim=-1)
+        else:
+            gate, up = self.gate_proj(x), self.up_proj(x)
+        return self.down_proj(F.silu(gate) * up)
 
 
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None) -> None:
         super().__init__()
-        self.attn_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
+        if cfg.fused_norm and cfg.decode:
+            raise NotImplementedError(
+                "fused_norm composes only with the dense training path "
+                "(no decode), as in the reference")
+        self.fused_norm = cfg.fused_norm
+        if not cfg.fused_norm:
+            self.attn_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
+            self.mlp_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
         self.attn = Attention(cfg, device)
-        self.mlp_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
         self.mlp = MLP(cfg, device)
 
     def forward(self, x, positions, cache: Optional[dict] = None):
+        if self.fused_norm:
+            # The norms live inside Attention and MLP: pass the raw
+            # residual stream.
+            x = x + self.attn(x, positions, cache)
+            return x + self.mlp(x)
         x = x + self.attn(self.attn_norm(x), positions, cache)
         return x + self.mlp(self.mlp_norm(x))
 
@@ -338,8 +407,11 @@ class TransformerLM(nn.Module):
     """State-dict names follow the flax tree: ``embed.embedding``,
     ``layer_{i}.attn.{q,k,v,o}_proj.weight``,
     ``layer_{i}.mlp.{gate,up,down}_proj.weight``,
-    ``layer_{i}.{attn,mlp}_norm.scale``, ``final_norm.scale``
-    (models/convert.py maps the flax tree onto them)."""
+    ``layer_{i}.{attn,mlp}_norm.scale``, ``final_norm.scale``; with
+    ``fused_norm``, ``layer_{i}.attn.{norm_scale,qkv_kernel}`` and
+    ``layer_{i}.mlp.{norm_scale,gate_up_kernel}`` in place of the norms
+    and the q/k/v and gate/up projections (models/convert.py maps the
+    flax tree onto them)."""
 
     def __init__(self, config: TransformerConfig, device=None) -> None:
         super().__init__()
@@ -416,11 +488,11 @@ def lm_loss(logits, targets, ignore_id: int = -1):
 
 
 def lm_loss_chunked(hidden, embedding, targets, ignore_id: int = -1,
-                    chunk_size: int = 128, impl: str = "plain"):
+                    chunk_size: int = 128, impl: str = "auto"):
     """Tied-embedding cross-entropy without the full [B, T, vocab] fp32
-    logits (ops.chunked_loss). As in the reference, ``chunk_size``
-    counts time steps per batch row, so one slab holds chunk_size * B
-    rows."""
+    logits (ops.chunked_loss; impl 'auto' | 'kernel' | 'plain'). As in
+    the reference, ``chunk_size`` counts time steps per batch row, so one
+    plain slab holds chunk_size * B rows."""
     rows = chunk_size * (hidden.shape[0] if hidden.dim() == 3 else 1)
     return chunked_loss.chunked_softmax_xent(
         hidden, embedding, targets, ignore_id=ignore_id, impl=impl,

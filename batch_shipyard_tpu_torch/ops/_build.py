@@ -51,6 +51,17 @@ SIGNATURES = {
             _int),
         "bs_error_string": ([_int], ctypes.c_char_p),
     },
+    "chunked_loss": {
+        "bs_xent_fwd": ([_int] + [_vp] * 5 + [_int] * 5 + [_vp], _int),
+        "bs_xent_bwd": ([_int, _int] + [_vp] * 6 + [_int] * 5 + [_vp],
+                        _int),
+        "bs_error_string": ([_int], ctypes.c_char_p),
+    },
+    "fused_norm": {
+        "bs_rmsnorm_matmul": ([_int] + [_vp] * 4 + [_int] * 4 + [_float, _vp],
+                              _int),
+        "bs_error_string": ([_int], ctypes.c_char_p),
+    },
 }
 
 _lock = threading.Lock()

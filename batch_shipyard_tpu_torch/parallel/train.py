@@ -13,8 +13,10 @@ The optimizer matches ``optax.adamw(3e-4, weight_decay=0.01)``: one
 parameter group, so every leaf decays (the RMSNorm scales and the
 embedding included), with the decay applied to the pre-update
 parameter. On a CUDA device the model's attention is the flash kernels
-K1 (forward) and K2 (backward). Meshes (dp/fsdp/tp/sp/ep), MoE and AOT
-precompilation are not ported yet.
+K1 (forward) and K2 (backward); with ``fused_norm`` its norm-projections
+are K9; the loss's ``auto`` takes the fused cross-entropy kernels K3-K5
+where the validation marker records them (ops/kernel_select). Meshes
+(dp/fsdp/tp/sp/ep), MoE and AOT precompilation are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,17 +38,18 @@ class TrainHarness:
 
     def __init__(self, model: tfm.TransformerLM,
                  optimizer: torch.optim.Optimizer, batch_size: int,
-                 seq_len: int) -> None:
+                 seq_len: int, loss_impl: str = "auto") -> None:
         self.model = model
         self.optimizer = optimizer
         self.batch_size = batch_size
         self.seq_len = seq_len
+        self.loss_impl = loss_impl
         self.device = model.embed.embedding.device
 
     def loss_fn(self, tokens, targets):
         hidden = self.model(tokens, return_hidden=True)
         return tfm.lm_loss_chunked(hidden, self.model.embed.embedding,
-                                   targets)
+                                   targets, impl=self.loss_impl)
 
     def step(self, batch: Mapping) -> dict:
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
@@ -66,9 +69,9 @@ class TrainHarness:
 
 def make_transformer_config(sp: int = 1,
                             **overrides) -> tfm.TransformerConfig:
-    """A TransformerConfig for single-device training. ``sp > 1``
-    (ring attention over a sequence-parallel mesh axis) is not ported
-    yet."""
+    """A TransformerConfig for single-device training; ``overrides``
+    (``fused_norm`` among them) pass through. ``sp > 1`` (ring attention
+    over a sequence-parallel mesh axis) is not ported yet."""
     if sp > 1:
         raise NotImplementedError(
             "sp > 1 runs ring attention over a sequence-parallel mesh, "
@@ -80,11 +83,13 @@ def build_transformer_train(config: tfm.TransformerConfig,
                             batch_size: int, seq_len: int,
                             learning_rate: float = 3e-4, seed: int = 0,
                             device=None,
-                            params: Optional[Mapping] = None
-                            ) -> TrainHarness:
+                            params: Optional[Mapping] = None,
+                            loss_impl: str = "auto") -> TrainHarness:
     """The model on ``device`` (cuda unless "cpu" is named) with
     ``params`` (a state dict, e.g. models.convert.params_from_flax) or
-    weights drawn from ``seed`` (convert.init_params), and AdamW."""
+    weights drawn from ``seed`` (convert.init_params), and AdamW.
+    ``loss_impl``: lm_loss_chunked's impl ('auto', 'kernel' or
+    'plain')."""
     if config.decode:
         raise ValueError("training needs decode=False")
     device = resolve_device(device)
@@ -98,4 +103,5 @@ def build_transformer_train(config: tfm.TransformerConfig,
     optimizer = torch.optim.AdamW(
         model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
         eps=1e-8, weight_decay=0.01)
-    return TrainHarness(model.train(), optimizer, batch_size, seq_len)
+    return TrainHarness(model.train(), optimizer, batch_size, seq_len,
+                        loss_impl)

@@ -3,9 +3,10 @@
 ``profile_steps(harness, batch, steps)`` times ``steps`` train steps on
 the host clock with a synchronise, then ``steps`` more under
 ``torch.profiler``, and returns the step's wall time, the device's busy
-time (union of kernel intervals) and idle share, the flash kernels'
-(K1, K2) time and share of device time, and the largest device
-kernels. chip_smoke.py runs it on bench.py ``bench_transformer``'s
+time (union of kernel intervals) and idle share, each hand-written
+kernel's time and share of device time (flash K1, K2; the fused
+cross-entropy K3, K4, K5; the fused RMSNorm+matmul K9), and the largest
+device kernels. chip_smoke.py runs it on bench.py ``bench_transformer``'s
 model after its counted training steps. CUDA only.
 """
 
@@ -20,9 +21,19 @@ from torch.profiler import ProfilerActivity, profile
 
 from batch_shipyard_tpu_torch.trace.decode_profile import busy_us
 
-# Substrings of the flash kernels' mangled names (csrc/flash_attention.cu).
+# Substrings of the kernels' mangled names: csrc/flash_attention.cu,
+# csrc/chunked_loss.cu and csrc/fused_norm.cu.
 FLASH_FWD = "flash_fwd_kernel"
 FLASH_BWD = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+XENT_FWD = "xent_fwd_kernel"
+XENT_BWD_H = "xent_bwd_h_kernel"
+XENT_BWD_E = "xent_bwd_e_kernel"
+RMSNORM_MATMUL = "rmsnorm_matmul_kernel"
+KERNEL_SYMBOLS = {
+    "flash_fwd": (FLASH_FWD,), "flash_bwd": FLASH_BWD,
+    "xent_fwd": (XENT_FWD,), "xent_bwd_h": (XENT_BWD_H,),
+    "xent_bwd_e": (XENT_BWD_E,), "rmsnorm_matmul": (RMSNORM_MATMUL,),
+}
 
 
 def profile_steps(harness, batch: dict, steps: int) -> dict:
@@ -50,9 +61,10 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
     device_us = sum(by_name.values())
     busy = busy_us(intervals)
     window_us = max(s for _, s in intervals) - min(s for s, _ in intervals)
-    fwd_us = sum(us for name, us in by_name.items() if FLASH_FWD in name)
-    bwd_us = sum(us for name, us in by_name.items()
-                 if any(k in name for k in FLASH_BWD))
+    per_kernel = {
+        key: sum(us for name, us in by_name.items()
+                 if any(symbol in name for symbol in symbols))
+        for key, symbols in KERNEL_SYMBOLS.items()}
     return {
         "steps": steps,
         "wall_ms_per_step": wall_ms,
@@ -60,9 +72,10 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
         "device_busy_ms_per_step": busy / 1e3 / steps,
         "device_idle_share": 1.0 - busy / window_us,
         "kernel_launches_per_step": len(kernels) / steps,
-        "flash_fwd_ms_per_step": fwd_us / 1e3 / steps,
-        "flash_bwd_ms_per_step": bwd_us / 1e3 / steps,
-        "flash_share_of_device": (fwd_us + bwd_us) / device_us,
+        "kernel_ms_per_step": {key: us / 1e3 / steps
+                               for key, us in per_kernel.items()},
+        "kernel_share_of_device": {key: us / device_us
+                                   for key, us in per_kernel.items()},
         "top_kernels_ms_per_step": {
             name[:80]: us / 1e3 / steps
             for name, us in sorted(by_name.items(),

@@ -40,12 +40,14 @@ BENCH_TRANSFORMER_BATCH, BENCH_TRANSFORMER_SEQ = 16, 2048
 
 def build_bench_harness(device, seed: int = 0,
                         batch_size: int = BENCH_TRANSFORMER_BATCH,
-                        seq_len: int = BENCH_TRANSFORMER_SEQ
+                        seq_len: int = BENCH_TRANSFORMER_SEQ,
+                        fused_norm: bool = False
                         ) -> train_mod.TrainHarness:
-    """bench_transformer's model with weights drawn from ``seed``."""
+    """bench_transformer's model with weights drawn from ``seed``;
+    ``fused_norm`` as bench_transformer(fused_norm=...)."""
     config = train_mod.make_transformer_config(
         **BENCH_TRANSFORMER_MODEL, max_seq_len=seq_len,
-        dtype=torch.bfloat16, remat=False)
+        dtype=torch.bfloat16, remat=False, fused_norm=fused_norm)
     return train_mod.build_transformer_train(
         config, batch_size=batch_size, seq_len=seq_len, seed=seed,
         device=device)

@@ -17,11 +17,22 @@ Phases, each fatal on failure:
      1000, with and without an lse cotangent, on strided q/k/v views.
      The flash check reads each output tile by tile, and at the training
      shape it must fail on a copy of the source with faults planted in
-     single tiles (FLASH_FAULTS), built beside the kernels;
+     single tiles (FLASH_FAULTS), built beside the kernels. The fused
+     cross-entropy (K3 forward, K4 grad_hidden, K5 grad_embedding) against
+     its plain versions at the training shape (N 32768, D 1024, V 32000,
+     bf16 h, fp32 E, 5% of targets ignored), at ragged shapes (N 1000,
+     V 700, D 128 and 256, fp32 and bf16) and with every target ignored;
+     the fused RMSNorm+matmul (K9) at both training shapes and a ragged
+     M 1000 K 128 N 384 in bf16 and fp32. Both are read row by row (lse,
+     gold) or tile by tile, and each must fail on its planted faults
+     (LOSS_FAULTS, NORM_FAULTS) at the training shape;
   3. time every kernel, its plain version and a library yardstick
-     (scaled_dot_product_attention) at the main path's shapes: decode
-     at 8 slots x 16 heads x 64 dims over 512 keys, flash at the
-     training shape B16 T2048 H16 D64, causal, bf16;
+     (scaled_dot_product_attention; for K3-K5 and K9 the same products
+     alone through torch.matmul at the kernel's precision) at the main
+     path's shapes: decode at 8 slots x 16 heads x 64 dims over 512 keys,
+     flash at the training shape B16 T2048 H16 D64, causal, bf16, the
+     loss at N 32768 D 1024 V 32000, K9 at M 32768 K 1024 N 3072 and
+     5632;
   4. train the repo's training benchmark model (bench.py
      bench_transformer: vocab 32000, d_model 1024, 12 layers, 16 heads,
      d_ff 2816, bf16 over fp32 parameters, no remat, batch 16 x 2048,
@@ -29,7 +40,13 @@ Phases, each fatal on failure:
      5 timed steps on one repeated batch. The loss must be finite and
      fall, every step must launch K1 and K2 once per layer and no plain
      attention, and one step's loss and gradients must sit as close to
-     an fp32 model as the plain bf16 model does (at batch 2);
+     an fp32 model as the plain bf16 model does (at batch 2). No
+     validation marker is read here, so the loss is the plain slab path
+     and K3-K5 and K9 must not launch. Then the same model with
+     bench_transformer(fused_norm=True)'s configuration and a marker
+     (written to a temp dir after the K3-K5 check passed) that selects
+     the fused loss: every step must launch K9 twice per layer, K1 and
+     K2 once per layer, K3, K4 and K5 once, and no plain version;
   5. serve the repo's serving benchmark model (bench.py bench_serving:
      the same widths, 8 slots, max_decode_len 512) three times through
      ServingFrontEnd + run_load: paged page 64 (K6), paged int8 with
@@ -50,6 +67,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -66,7 +84,10 @@ from batch_shipyard_tpu_torch.models.server import ServingFrontEnd
 from batch_shipyard_tpu_torch.models.serving import ContinuousBatcher
 from batch_shipyard_tpu_torch.ops import _build
 from batch_shipyard_tpu_torch.ops import attention as attn_ops
+from batch_shipyard_tpu_torch.ops import chunked_loss as loss_ops
 from batch_shipyard_tpu_torch.ops import decode_attention as dense_ops
+from batch_shipyard_tpu_torch.ops import fused_norm as norm_ops
+from batch_shipyard_tpu_torch.ops import kernel_select
 from batch_shipyard_tpu_torch.ops import paged_attention as paged_ops
 from batch_shipyard_tpu_torch.ops.quantization import quantize_int8_rows
 from batch_shipyard_tpu_torch.parallel import mfu
@@ -83,7 +104,7 @@ PAGE = BENCH_SERVING_KV_CACHES["paged"][1]["kv_page_size"]
 # the operation rate for each input type.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
-            torch.int8: 1979e12}
+            torch.int8: 1979e12, "tf32": 494.7e12}
 # Kernel vs plain version: fp32 differs only in summation order; bf16
 # rounds p (and the output) at other points; int8 with bf16 queries:
 # the kernel dequantizes to fp32, the plain version to bf16.
@@ -153,6 +174,72 @@ FLASH_TRAIN_SHAPE = dict(batch=train_wl.BENCH_TRANSFORMER_BATCH,
                          depth=train_wl.BENCH_TRANSFORMER_MODEL["d_head"])
 FLASH_SOURCE = "batch_shipyard_tpu_torch/ops/csrc/flash_attention.cu"
 
+# Fused cross-entropy (K3-K5) against its plain versions (fp32 products).
+# The kernels run their products in TF32: E (and dl) round to 10
+# mantissa bits, so a logit carries ~3e-4 of noise at unit scale, the
+# gold logit (one logit) as much, lse (a softmax-weighted mean over 32000
+# logits) far less. fp32 hidden rows round to TF32 too, bf16 rows do not.
+# lse and gold are held per row, absolutely; grad_h and grad_E per
+# LOSS_TILE rows, with the TILE_FLOOR rule of tile_err. Each limit sits
+# between the sound kernels' reading and the planted faults' (below).
+LOSS_TILE = 64
+LOSS_LSE_TOL = {torch.bfloat16: 2e-4, torch.float32: 1e-3}
+GOLD_TOL = 3e-3
+LOSS_GRAD_TOL = 5e-3
+LOSS_SOURCE = "batch_shipyard_tpu_torch/ops/csrc/chunked_loss.cu"
+LOSS_TRAIN_SHAPE = dict(
+    rows=train_wl.BENCH_TRANSFORMER_BATCH * train_wl.BENCH_TRANSFORMER_SEQ,
+    vocab=train_wl.BENCH_TRANSFORMER_MODEL["vocab_size"],
+    depth=train_wl.BENCH_TRANSFORMER_MODEL["d_model"])
+# Faults planted in a copy of chunked_loss.cu, each confined to one (row
+# tile, vocab tile) pair. At unit-scale logits the softmax is flat, so a
+# pair without a target carries ~1e-4 of its row's grad_h (or its vocab
+# row's grad_E), under the TF32 noise; the K4 and K5 faults therefore
+# drop the pair that holds a target (row 0's, and the last row's, whose
+# targets the check keeps live). K3's fault moves lse by ~1e-3.
+LOSS_FAULTS = (
+    # K3: row tile 0 skips the last vocab tile.
+    ("xent_fwd_kernel", "for (int j = 0; j < n_v; ++j) {",
+     "for (int j = 0; j < n_v - (blockIdx.x == 0); ++j) {", ("lse",)),
+    # K4: row tile 0 drops the vocab tile holding row 0's target.
+    ("xent_bwd_h_kernel",
+     "grad_product<D>(acc, sm.dl, e_s, lde, col0, lane);",
+     "if (blockIdx.x != 0 || j != tgt_s[0] / kStream) "
+     "grad_product<D>(acc, sm.dl, e_s, lde, col0, lane);", ("gh",)),
+    # K5: the vocab tile holding the last row's target skips the last
+    # row tile.
+    ("xent_bwd_e_kernel",
+     "grad_product<D>(acc, sm.dl, h_s, ldh, col0, lane);",
+     "if (blockIdx.x != a.tgt[a.n - 1] / kHold || i != n_t - 1) "
+     "grad_product<D>(acc, sm.dl, h_s, ldh, col0, lane);", ("ge",)),
+)
+
+# Fused RMSNorm+matmul (K9) against its plain version, per NORM_TILE
+# output block (the kernel's 128 columns by 64 rows). bf16: both round
+# the normalized rows to bf16 (r may differ in its last bit, rsqrtf
+# against torch.rsqrt, flipping a rare rounding) and the output to bf16
+# after fp32 sums in other orders; fp32 differs only in summation order.
+NORM_TILE = (64, 128)
+NORM_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-5}
+NORM_SOURCE = "batch_shipyard_tpu_torch/ops/csrc/fused_norm.cu"
+_D_MODEL = train_wl.BENCH_TRANSFORMER_MODEL["d_model"]
+NORM_TRAIN_SHAPES = {
+    "qkv": (LOSS_TRAIN_SHAPE["rows"], _D_MODEL,
+            3 * train_wl.BENCH_TRANSFORMER_MODEL["n_heads"] *
+            train_wl.BENCH_TRANSFORMER_MODEL["d_head"]),
+    "gate_up": (LOSS_TRAIN_SHAPE["rows"], _D_MODEL,
+                2 * train_wl.BENCH_TRANSFORMER_MODEL["d_ff"]),
+}
+# K9: output tile (0, 0) skips the product of its first K slice.
+NORM_FAULTS = (
+    ("rmsnorm_matmul_kernel",
+     "Warp<T>::product(acc, x_s, w_s, wm, wn, lane);",
+     "if (k0 != 0 || blockIdx.x != 0 || blockIdx.y != 0) "
+     "Warp<T>::product(acc, x_s, w_s, wm, wn, lane);", ("out",)),
+)
+FAULTS = {"flash_attention": FLASH_FAULTS, "chunked_loss": LOSS_FAULTS,
+          "fused_norm": NORM_FAULTS}
+
 KERNELS = {
     "flash_fwd": dict(
         label="K1", route="cuda", source=FLASH_SOURCE,
@@ -160,6 +247,15 @@ KERNELS = {
     "flash_bwd": dict(
         label="K2", route="cuda", source=FLASH_SOURCE,
         replaces="batch_shipyard_tpu/ops/attention.py:277"),
+    "xent_fwd": dict(
+        label="K3", route="cuda", source=LOSS_SOURCE,
+        replaces="batch_shipyard_tpu/ops/chunked_loss.py:57"),
+    "xent_bwd_h": dict(
+        label="K4", route="cuda", source=LOSS_SOURCE,
+        replaces="batch_shipyard_tpu/ops/chunked_loss.py:108"),
+    "xent_bwd_e": dict(
+        label="K5", route="cuda", source=LOSS_SOURCE,
+        replaces="batch_shipyard_tpu/ops/chunked_loss.py:128"),
     "paged_decode": dict(
         label="K6", route="cuda",
         source="batch_shipyard_tpu_torch/ops/csrc/decode_attention.cu",
@@ -172,7 +268,11 @@ KERNELS = {
         label="K8", route="cuda",
         source="batch_shipyard_tpu_torch/ops/csrc/decode_attention.cu",
         replaces="batch_shipyard_tpu/ops/decode_attention.py:46"),
+    "rmsnorm_matmul": dict(
+        label="K9", route="cuda", source=NORM_SOURCE,
+        replaces="batch_shipyard_tpu/ops/fused_norm.py:48"),
 }
+LOSS_KERNELS = ("xent_fwd", "xent_bwd_h", "xent_bwd_e")
 
 
 class SmokeFailure(Exception):
@@ -185,12 +285,24 @@ def require(ok: bool, what: str) -> None:
 
 
 def launch_counts() -> dict:
-    return {**attn_ops.launches, **paged_ops.launches, **dense_ops.launches}
+    return {**attn_ops.launches, **paged_ops.launches, **dense_ops.launches,
+            **loss_ops.launches, **norm_ops.launches}
+
+
+def plain_counts() -> dict:
+    """Calls of the plain versions on the training path, by module."""
+    return {f"{prefix}.{key}": n
+            for prefix, counts in (("attention", attn_ops.plain_calls),
+                                   ("loss", loss_ops.plain_calls),
+                                   ("norm", norm_ops.plain_calls))
+            for key, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
     for counts in (attn_ops.launches, attn_ops.plain_calls,
-                   paged_ops.launches, dense_ops.launches):
+                   paged_ops.launches, dense_ops.launches,
+                   loss_ops.launches, loss_ops.plain_calls,
+                   norm_ops.launches, norm_ops.plain_calls):
         for key in counts:
             counts[key] = 0
 
@@ -341,6 +453,17 @@ def device_ms(fn, sets, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def roofline(nbytes: int, ops: int, peak) -> dict:
+    """The least time for ``nbytes`` moved at the HBM rate and ``ops``
+    done at PEAK_OPS[peak]: the larger of the two, and which it is."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS[peak] * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms}
+
+
 def bound(lengths, heads, depth, kv_dtype, q_dtype, page=None) -> dict:
     """Least time for the work these inputs need: each live K/V row (and
     int8 scale) read once, q read and the output written once, the live
@@ -357,11 +480,7 @@ def bound(lengths, heads, depth, kv_dtype, q_dtype, page=None) -> dict:
     if page:
         nbytes += sum(-(-n // page) for n in lengths) * 4
     ops = keys * heads * depth * 4
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_OPS[kv_dtype] * 1e3
-    return {"bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "ops": ops}
+    return roofline(nbytes, ops, kv_dtype)
 
 
 def sdpa_view(rows, scales=None):
@@ -541,18 +660,20 @@ def check_flash(device) -> None:
     require(not failed, f"flash: outside tolerance: {failed}")
 
 
-def build_fault_library(workdir: pathlib.Path):
-    """flash_attention.cu with FLASH_FAULTS planted, built in workdir.
-    Returns (library path, seconds)."""
-    text = (_build.CSRC / "flash_attention.cu").read_text()
-    for kernel, line, fault, _ in FLASH_FAULTS:
+def build_fault_library(workdir: pathlib.Path,
+                        name: str = "flash_attention"):
+    """csrc/<name>.cu with FAULTS[name] planted, built in workdir.
+    Returns (library path, seconds). Raises if a quoted loop is no longer
+    in its kernel."""
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    for kernel, line, fault, _ in FAULTS[name]:
         start = text.index(f"{kernel}(Args a)")
         end = text.find("__global__", start)
         at = text.index(line, start, end if end > 0 else len(text))
         text = text[:at] + fault + text[at + len(line):]
-    source = workdir / "flash_attention_faults.cu"
+    source = workdir / f"{name}_faults.cu"
     source.write_text(text)
-    target = workdir / "libflash_attention_faults.so"
+    target = workdir / f"lib{name}_faults.so"
     return target, _build.compile_source(source, target)
 
 
@@ -566,12 +687,7 @@ def flash_bound(batch, seq, heads, depth, causal, backward) -> dict:
     tensor = batch * seq * heads * depth * 2
     vector = batch * heads * seq * 4
     nbytes = 7 * tensor + 2 * vector if backward else 4 * tensor + vector
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_OPS[torch.bfloat16] * 1e3
-    return {"bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
-            "ops_ms": ops_ms}
+    return roofline(nbytes, ops, torch.bfloat16)
 
 
 def check_flash_faults(sound, faulty, want) -> dict:
@@ -685,6 +801,298 @@ def time_flash(device, fault_lib) -> dict:
     return rows
 
 
+# ------------------- fused cross-entropy (K3-K5) ---------------------
+
+
+def block_err(got, want, rows: int, cols: int) -> float:
+    """max over blocks of rows x cols of a 2-D tensor of ||got - want|| /
+    ||want||, with ||want|| taken as at least TILE_FLOOR of the RMS
+    block norm (the rule of tile_err)."""
+    got, want = got.detach().float(), want.detach().float()
+    pad_r, pad_c = -want.shape[0] % rows, -want.shape[1] % cols
+    shape = ((want.shape[0] + pad_r) // rows, rows,
+             (want.shape[1] + pad_c) // cols, cols)
+
+    def block_norms(x):
+        x = torch.nn.functional.pad(x, (0, pad_c, 0, pad_r))
+        return x.reshape(shape).square().sum(dim=(1, 3)).sqrt()
+    norms = block_norms(want)
+    floor = TILE_FLOOR * float(norms.square().mean().sqrt())
+    return float((block_norms(got - want) / norms.clamp_min(floor)).max())
+
+
+def loss_case(gen, rows, vocab, depth, dtype, ignore_frac, device):
+    """Unit-scale hidden rows (as RMSNorm leaves them), an embedding at
+    bench_transformer's init scale (std 1/sqrt(D)), targets with
+    ``ignore_frac`` ignored (-1) but the first and last kept live (the K4
+    and K5 faults sit on their targets), and ds = mask / count.
+    Returns (h, e, tgt, ds)."""
+    h = torch.randn(rows, depth, generator=gen, device=device).to(dtype)
+    e = torch.randn(vocab, depth, generator=gen, device=device) / math.sqrt(
+        depth)
+    tgt = torch.randint(0, vocab, (rows,), generator=gen, device=device,
+                        dtype=torch.int32)
+    ignored = torch.rand(rows, generator=gen, device=device) < ignore_frac
+    if ignore_frac < 1.0:
+        ignored[0] = ignored[-1] = False
+    tgt[ignored] = -1
+    mask = (tgt != -1).float()
+    return h, e, tgt, mask / mask.sum().clamp_min(1.0)
+
+
+def loss_outputs(h, e, tgt, ds, library=None, plain=False) -> dict:
+    """lse, gold, gh, ge from the kernels (or their plain versions)."""
+    if plain:
+        lse, gold = loss_ops.xent_forward_reference(h, e, tgt)
+        args = (h, e, tgt, lse, ds)
+        return {"lse": lse, "gold": gold,
+                "gh": loss_ops.xent_backward_h_reference(*args),
+                "ge": loss_ops.xent_backward_e_reference(*args)}
+    lse, gold = loss_ops.xent_forward_kernel(h, e, tgt, library=library)
+    args = (h, e, tgt, lse, ds)
+    return {"lse": lse, "gold": gold,
+            "gh": loss_ops.xent_backward_h_kernel(*args, library=library),
+            "ge": loss_ops.xent_backward_e_kernel(*args, library=library)}
+
+
+def loss_errors(got, want) -> dict:
+    torch.cuda.synchronize()
+    for name, t in got.items():
+        require(t.dtype == torch.float32 and bool(torch.isfinite(t).all()),
+                f"loss kernels: {name} not finite fp32")
+    return {"lse": float((got["lse"] - want["lse"]).abs().max()),
+            "gold": float((got["gold"] - want["gold"]).abs().max()),
+            "gh": block_err(got["gh"], want["gh"], LOSS_TILE,
+                            want["gh"].shape[1]),
+            "ge": block_err(got["ge"], want["ge"], LOSS_TILE,
+                            want["ge"].shape[1])}
+
+
+def loss_failures(err: dict, dtype) -> list:
+    limits = {"lse": LOSS_LSE_TOL[dtype], "gold": GOLD_TOL,
+              "gh": LOSS_GRAD_TOL, "ge": LOSS_GRAD_TOL}
+    return [name for name, limit in limits.items() if err[name] > limit]
+
+
+def _fmt(err: dict) -> str:
+    return ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+
+
+def check_loss(device, fault_lib) -> dict:
+    """Phase 2c: K3, K4 and K5 against their plain versions: ragged
+    shapes, every target ignored, then the training shape, where the
+    planted-fault build must fail. Every case is read and printed before
+    the first failure is raised. Returns the training-shape readings."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    failed = []
+    for depth in (128, 256):
+        for dtype in (torch.float32, torch.bfloat16):
+            case = loss_case(gen, 1000, 700, depth, dtype, 0.05, device)
+            err = loss_errors(loss_outputs(*case),
+                              loss_outputs(*case, plain=True))
+            name = f"loss N=1000 V=700 D={depth} h={str(dtype)[6:]}"
+            print(f"check {name}: {_fmt(err)} (lse tol {LOSS_LSE_TOL[dtype]}, "
+                  f"gold tol {GOLD_TOL}, tile tol {LOSS_GRAD_TOL})",
+                  flush=True)
+            failed += [f"{name} {k}" for k in loss_failures(err, dtype)]
+    h, e, tgt, ds = loss_case(gen, 1000, 700, 128, torch.bfloat16, 1.0,
+                              device)
+    got = loss_outputs(h, e, tgt, ds)
+    want = loss_outputs(h, e, tgt, ds, plain=True)
+    torch.cuda.synchronize()
+    lse_err = float((got["lse"] - want["lse"]).abs().max())
+    print(f"check loss every target ignored: lse {lse_err:.3g}; gold, gh "
+          f"and ge must be exactly zero", flush=True)
+    if lse_err > LOSS_LSE_TOL[torch.bfloat16] or any(
+            bool(got[k].any()) for k in ("gold", "gh", "ge")):
+        failed.append("every target ignored")
+
+    shape = LOSS_TRAIN_SHAPE
+    case = loss_case(gen, shape["rows"], shape["vocab"], shape["depth"],
+                     torch.bfloat16, 0.05, device)
+    want = loss_outputs(*case, plain=True)
+    sound = loss_errors(loss_outputs(*case), want)
+    fault = loss_errors(loss_outputs(*case, library=fault_lib), want)
+    del want
+    torch.cuda.empty_cache()
+    print(f"check loss training shape: sound {_fmt(sound)}; planted faults "
+          f"{_fmt(fault)}", flush=True)
+    failed += [f"training shape {k}"
+               for k in loss_failures(sound, torch.bfloat16)]
+    caught = set(loss_failures(fault, torch.bfloat16))
+    failed += [f"planted fault in {name} passed"
+               for *_, outs in LOSS_FAULTS for name in outs
+               if name not in caught]
+    require(not failed, f"loss kernels: {failed}")
+    return {"sound": sound, "fault": fault}
+
+
+def loss_bound(rows, vocab, depth, h_dtype, products, out_rows) -> dict:
+    """Least time at the kernels' TF32 rate: ``products`` products of
+    2*N*V*D operations; each input read once (h, E, targets, and for the
+    backward lse and ds), each output written once (lse and gold, or the
+    fp32 [out_rows, D] gradient)."""
+    ops = products * 2 * rows * vocab * depth
+    h_bytes = rows * depth * torch.empty((), dtype=h_dtype).element_size()
+    nbytes = h_bytes + vocab * depth * 4 + 3 * rows * 4
+    if out_rows is not None:
+        nbytes += out_rows * depth * 4
+    return roofline(nbytes, ops, "tf32")
+
+
+def time_loss(device, readings: dict) -> dict:
+    """Phase 3c: K3, K4 and K5 at the training shape against their plain
+    versions and the library yardstick: the same products alone through
+    torch.matmul with TF32 allowed (K3: h E^T; K4: (h E^T) E; K5:
+    (h E^T)^T h), on h already in fp32."""
+    shape = LOSS_TRAIN_SHAPE
+    rows, vocab, depth = shape["rows"], shape["vocab"], shape["depth"]
+    gen = torch.Generator(device=device).manual_seed(7)
+    h, e, tgt, ds = loss_case(gen, rows, vocab, depth, torch.bfloat16, 0.05,
+                              device)
+    lse, _ = loss_ops.xent_forward_kernel(h, e, tgt)
+    fwd, bwd = [(h, e, tgt)], [(h, e, tgt, lse, ds)]
+    sound = readings["sound"]
+    out = {
+        "xent_fwd": dict(
+            max_abs_err=max(sound["lse"], sound["gold"]),
+            ms=device_ms(loss_ops.xent_forward_kernel, fwd, 5),
+            plain_ms=device_ms(loss_ops.xent_forward_reference, fwd, 2),
+            **loss_bound(rows, vocab, depth, h.dtype, 1, None)),
+        "xent_bwd_h": dict(
+            max_tile_err=sound["gh"],
+            ms=device_ms(loss_ops.xent_backward_h_kernel, bwd, 3),
+            plain_ms=device_ms(loss_ops.xent_backward_h_reference, bwd, 2),
+            **loss_bound(rows, vocab, depth, h.dtype, 2, rows)),
+        "xent_bwd_e": dict(
+            max_tile_err=sound["ge"],
+            ms=device_ms(loss_ops.xent_backward_e_kernel, bwd, 3),
+            plain_ms=device_ms(loss_ops.xent_backward_e_reference, bwd, 2),
+            **loss_bound(rows, vocab, depth, h.dtype, 2, vocab)),
+    }
+    # max |kernel - plain| of the gradients at the training shape.
+    for key, kernel, plain in (
+            ("xent_bwd_h", loss_ops.xent_backward_h_kernel,
+             loss_ops.xent_backward_h_reference),
+            ("xent_bwd_e", loss_ops.xent_backward_e_kernel,
+             loss_ops.xent_backward_e_reference)):
+        out[key]["max_abs_err"] = float(
+            (kernel(*bwd[0]) - plain(*bwd[0])).abs().max())
+        torch.cuda.empty_cache()
+    hf = h.float()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out["xent_fwd"]["library_ms"] = device_ms(
+            lambda: hf @ e.t(), [()], 5)
+        out["xent_bwd_h"]["library_ms"] = device_ms(
+            lambda: (hf @ e.t()) @ e, [()], 3)
+        out["xent_bwd_e"]["library_ms"] = device_ms(
+            lambda: (hf @ e.t()).t() @ hf, [()], 3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    del hf, h, e, lse
+    torch.cuda.empty_cache()
+    for key, row in out.items():
+        print(f"time {KERNELS[key]['label']} {key}: kernel {row['ms']:.4f} "
+              f"ms, plain {row['plain_ms']:.4f} ms, torch.matmul tf32 "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}; ops {row['ops_ms']:.4f} ms, bytes "
+              f"{row['bytes_ms']:.4f} ms)", flush=True)
+    return out
+
+
+# -------------------- fused RMSNorm+matmul (K9) -----------------------
+
+
+def norm_case(gen, m, k, n, dtype, device):
+    """x at unit scale, a scale near one, w at lecun scale, in dtype."""
+    x = torch.randn(m, k, generator=gen, device=device).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(k, generator=gen, device=device)
+    w = (torch.randn(k, n, generator=gen, device=device) /
+         math.sqrt(k)).to(dtype)
+    return x, scale, w
+
+
+def check_norm(device, fault_lib) -> dict:
+    """Phase 2d: K9 against its plain version at the ragged shape (bf16
+    and fp32) and both training shapes (bf16), per NORM_TILE block; at
+    the training shapes the planted-fault build must fail. Returns the
+    training-shape readings."""
+    gen = torch.Generator(device=device).manual_seed(8)
+    failed, readings = [], {}
+    cases = [("ragged", (1000, 128, 384), torch.float32),
+             ("ragged", (1000, 128, 384), torch.bfloat16)]
+    cases += [(name, dims, torch.bfloat16)
+              for name, dims in NORM_TRAIN_SHAPES.items()]
+    for name, (m, k, n), dtype in cases:
+        args = norm_case(gen, m, k, n, dtype, device)
+        got = norm_ops.rmsnorm_matmul_kernel(*args)
+        want = norm_ops.rmsnorm_matmul_reference(*args)
+        torch.cuda.synchronize()
+        require(got.dtype == dtype and bool(torch.isfinite(got).all()),
+                f"K9 {name}: output dtype or non-finite")
+        err = block_err(got, want, *NORM_TILE)
+        row = {"tile_err": err,
+               "max_abs_err": float((got.float() - want.float()).abs().max())}
+        line = (f"check K9 {name} M={m} K={k} N={n} {str(dtype)[6:]}: max "
+                f"tile err {err:.3g} (tol {NORM_TOL[dtype]})")
+        if err > NORM_TOL[dtype]:
+            failed.append(f"{name} {dtype}")
+        if name in NORM_TRAIN_SHAPES:
+            bad = norm_ops.rmsnorm_matmul_kernel(*args, library=fault_lib)
+            row["fault_tile_err"] = block_err(bad, want, *NORM_TILE)
+            line += f"; planted fault {row['fault_tile_err']:.3g}"
+            if row["fault_tile_err"] <= NORM_TOL[dtype]:
+                failed.append(f"{name} planted fault passed")
+            readings[name] = row
+        print(line, flush=True)
+    require(not failed, f"K9: {failed}")
+    return readings
+
+
+def norm_bound(m, k, n) -> dict:
+    """Least time in bf16: 2*M*K*N operations; x, scale and w read once,
+    the output written once."""
+    ops = 2 * m * k * n
+    nbytes = m * k * 2 + k * 4 + k * n * 2 + m * n * 2
+    return roofline(nbytes, ops, torch.bfloat16)
+
+
+def time_norm(device, readings: dict) -> dict:
+    """Phase 3d: K9 at both training shapes against its plain version and
+    the library yardstick (the pre-normalized x @ w in bf16). The row's
+    times are one qkv call plus one gate/up call (one layer's pair);
+    ``shapes`` keeps each."""
+    gen = torch.Generator(device=device).manual_seed(9)
+    shapes = {}
+    for name, (m, k, n) in NORM_TRAIN_SHAPES.items():
+        args = norm_case(gen, m, k, n, torch.bfloat16, device)
+        shapes[name] = dict(
+            ms=device_ms(norm_ops.rmsnorm_matmul_kernel, [args], 20),
+            plain_ms=device_ms(norm_ops.rmsnorm_matmul_reference, [args], 3),
+            library_ms=device_ms(torch.matmul, [(args[0], args[2])], 20),
+            max_abs_err=readings[name]["max_abs_err"],
+            max_tile_err=readings[name]["tile_err"], **norm_bound(m, k, n))
+        del args
+        torch.cuda.empty_cache()
+        row = shapes[name]
+        print(f"time K9 rmsnorm_matmul {name} M={m} K={k} N={n}: kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"torch.matmul bf16 {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    row = {key: sum(s[key] for s in shapes.values())
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ops",
+                       "bytes")}
+    row["bound_by"] = ("operations" if all(s["bound_by"] == "operations"
+                                           for s in shapes.values())
+                       else "bytes")
+    row["max_abs_err"] = max(s["max_abs_err"] for s in shapes.values())
+    row["max_tile_err"] = max(s["max_tile_err"] for s in shapes.values())
+    row["per"] = "one qkv call plus one gate/up call"
+    row["shapes"] = shapes
+    return {"rmsnorm_matmul": row}
+
+
 # ------------------------------ training ------------------------------
 
 
@@ -700,7 +1108,8 @@ def _flat_grads(harness, batch) -> tuple[float, torch.Tensor]:
 
 def train_numerics(harness, batch) -> dict:
     """One step of the kernel model against a plain bf16 model (the
-    attention's blockwise plain version) and an fp32 plain model, all
+    attention's blockwise plain version, the plain slab loss and, with
+    fused_norm, the plain norm-matmul) and an fp32 plain model, all
     with the harness's current weights, on the first two rows of the
     batch."""
     small = {name: t[:2] for name, t in batch.items()}
@@ -711,9 +1120,10 @@ def train_numerics(harness, batch) -> dict:
     results = {}
     for name, dtype in (("plain", cfg.dtype), ("fp32", torch.float32)):
         other = train_mod.build_transformer_train(
-            dataclasses.replace(cfg, dtype=dtype, attention_fn=plain_fn),
+            dataclasses.replace(cfg, dtype=dtype, attention_fn=plain_fn,
+                                fused_norm_impl="plain"),
             batch_size=2, seq_len=small["tokens"].shape[1],
-            device=harness.device, params=params)
+            device=harness.device, params=params, loss_impl="plain")
         results[name] = _flat_grads(other, small)
         del other
     torch.cuda.empty_cache()
@@ -741,15 +1151,27 @@ def train_numerics(harness, batch) -> dict:
     return row
 
 
-def train(device) -> dict:
-    """Phase 4: the main training path, end to end."""
+def train(device, fused: bool = False) -> dict:
+    """Phase 4: a training path, end to end: bench_transformer's model
+    (``fused``: with fused_norm, and the fused loss that the validation
+    marker in force selects)."""
     model = train_wl.BENCH_TRANSFORMER_MODEL
     batch_size = train_wl.BENCH_TRANSFORMER_BATCH
     seq = train_wl.BENCH_TRANSFORMER_SEQ
+    loss_path = kernel_select.resolve_auto(loss_ops.VALIDATION_NAME, device)
+    require(loss_path == ("kernel" if fused else "plain"),
+            f"train: the loss resolves to {loss_path!r}")
+    layers = model["n_layers"]
+    per_step = {"flash_fwd": layers, "flash_bwd": layers}
+    allowed_plain = {"loss.chunked"}
+    if fused:
+        per_step.update({key: 1 for key in LOSS_KERNELS})
+        per_step["rmsnorm_matmul"] = 2 * layers
+        allowed_plain = set()
     started = time.perf_counter()
     harness = train_wl.build_bench_harness(device, seed=0,
                                            batch_size=batch_size,
-                                           seq_len=seq)
+                                           seq_len=seq, fused_norm=fused)
     batch = train_wl.random_batch(model["vocab_size"], batch_size, seq, 0,
                                   device)
     numerics = train_numerics(harness, batch)
@@ -764,29 +1186,30 @@ def train(device) -> dict:
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = launch_counts()
-    plain = dict(attn_ops.plain_calls)
+    plain = plain_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(x) for x in losses]
     steps = TRAIN_WARMUP + TRAIN_STEPS
     require(all(math.isfinite(x) for x in losses),
             f"train: non-finite loss {losses}")
     require(losses[-1] < losses[0], f"train: loss did not fall {losses}")
-    for key in ("flash_fwd", "flash_bwd"):
-        require(counts[key] == model["n_layers"] * steps,
+    for key, n in per_step.items():
+        require(counts[key] == n * steps,
                 f"train: {counts[key]} {key} launches in {steps} steps")
-    others = {k: n for k, n in counts.items()
-              if k not in ("flash_fwd", "flash_bwd") and n}
+    others = {k: n for k, n in counts.items() if k not in per_step and n}
     require(not others, f"train: unexpected launches {others}")
-    require(not any(plain.values()), f"train: plain attention ran {plain}")
+    ran = {k: n for k, n in plain.items() if n and k not in allowed_plain}
+    require(not ran, f"train: plain versions ran {ran}")
     tokens_per_s = batch_size * seq * TRAIN_STEPS / elapsed
     flops = mfu.transformer_train_flops_per_token(harness.model.config, seq)
     profile = train_profile.profile_steps(harness, batch, 2)
     row = {
-        "model": model, "batch": batch_size, "seq_len": seq,
+        "model": model, "fused_norm": fused, "loss": loss_path,
+        "batch": batch_size, "seq_len": seq,
         "steps": steps, "timed_steps": TRAIN_STEPS,
-        "launches": {k: counts[k] for k in ("flash_fwd", "flash_bwd")},
-        "launches_per_step": {k: counts[k] / steps
-                              for k in ("flash_fwd", "flash_bwd")},
+        "launches": {k: counts[k] for k in per_step},
+        "launches_per_step": {k: counts[k] / steps for k in per_step},
+        "plain_calls": {k: n for k, n in plain.items() if n},
         "ms_per_step": elapsed / TRAIN_STEPS * 1e3,
         "tokens_per_s": tokens_per_s,
         "tflop_per_step": flops * batch_size * seq / 1e12,
@@ -796,7 +1219,7 @@ def train(device) -> dict:
         "numerics": numerics, "profile": profile,
         "phase_s": time.perf_counter() - started,
     }
-    print("train " + json.dumps(row), flush=True)
+    print(f"train{' fused' if fused else ''} " + json.dumps(row), flush=True)
     del harness, batch
     torch.cuda.empty_cache()
     return row
@@ -945,17 +1368,23 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    sources = ("flash_attention", "decode_attention")
+    sources = ("flash_attention", "decode_attention", "chunked_loss",
+               "fused_norm")
     workdir = tempfile.TemporaryDirectory()
-    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+    tmp = pathlib.Path(workdir.name)
+    with concurrent.futures.ThreadPoolExecutor(
+            len(sources) + len(FAULTS)) as pool:
         started = [pool.submit(_build.build, name, force=True)
                    for name in sources]
-        faults = pool.submit(build_fault_library, pathlib.Path(workdir.name))
+        faulty = {name: pool.submit(build_fault_library, tmp, name)
+                  for name in FAULTS}
         builds = [f.result() for f in started]
-        fault_path, fault_s = faults.result()
-    fault_lib = _build.load(fault_path, "flash_attention")
-    print(f"build {fault_path.name} (planted faults): {fault_s:.1f} s",
-          flush=True)
+        faulty = {name: f.result() for name, f in faulty.items()}
+    fault_libs = {}
+    for name, (path, seconds) in faulty.items():
+        fault_libs[name] = _build.load(path, name)
+        print(f"build {path.name} (planted faults): {seconds:.1f} s",
+              flush=True)
     for path, seconds in builds:
         print(f"build {path.name}: {seconds:.1f} s", flush=True)
         for line in path.with_suffix(".log").read_text().splitlines():
@@ -965,11 +1394,26 @@ def main() -> int:
 
     check_kernels(device)
     check_flash(device)
+    loss_readings = check_loss(device, fault_libs["chunked_loss"])
+    norm_readings = check_norm(device, fault_libs["fused_norm"])
     timing = time_kernels(device)
-    timing.update(time_flash(device, fault_lib))
-    workdir.cleanup()
+    timing.update(time_flash(device, fault_libs["flash_attention"]))
+    timing.update(time_loss(device, loss_readings))
+    timing.update(time_norm(device, norm_readings))
 
+    # The unfused training phase reads no marker (the loss is the plain
+    # slab path); the fused phase reads one that records the K3-K5 check.
+    os.environ[kernel_select.MARKER_ENV] = str(tmp / "no_marker.json")
     trained = train(device)
+    marker = tmp / "KERNEL_VALIDATION.json"
+    marker.write_text(json.dumps({loss_ops.VALIDATION_NAME: {
+        "ok": True, "backend": kernel_select.BACKEND}}))
+    os.environ[kernel_select.MARKER_ENV] = str(marker)
+    try:
+        fused = train(device, fused=True)
+    finally:
+        os.environ.pop(kernel_select.MARKER_ENV)
+        workdir.cleanup()
     served = {}
     for name, kernel in SERVED:
         served[kernel] = serve(name, kernel, device)
@@ -983,13 +1427,18 @@ def main() -> int:
             row["launches"] = trained["launches"][key]
             row["launches_per_train_step"] = \
                 trained["launches_per_step"][key]
+            row["launches_fused_train"] = fused["launches"][key]
+        elif key in fused["launches"]:
+            row["launches"] = fused["launches"][key]
+            row["launches_per_train_step"] = \
+                fused["launches_per_step"][key]
         else:
             row["launches"] = served[key]["launches"]
             row["launches_per_decode_step"] = \
                 served[key]["launches_per_decode_step"]
         row.update({k: t[k] for k in ("max_abs_err", "max_tile_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms") if k in t})
+                                      "library_ms", "per") if k in t})
         kernels.append(row)
     print(smi)
     print(json.dumps({"kernels": kernels}))

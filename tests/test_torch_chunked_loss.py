@@ -1,8 +1,15 @@
 """The port's chunked tied-embedding cross-entropy (ops/chunked_loss.py
 and models/transformer.lm_loss_chunked / lm_loss) against the JAX
-reference's scan-chunked XLA path (impl="xla") on the CPU: the same
-numpy-seeded hidden states, embedding and targets through both, loss
-and both gradients in fp32 within 1e-5 (summation order only)."""
+reference on the CPU: the plain slab path against the reference's
+scan-chunked XLA path (impl="xla"), and the kernel path (its autograd
+Function on the plain versions of K3-K5) against the reference's fused
+Pallas kernels in interpret mode (impl="interpret"). The same
+numpy-seeded hidden states, embedding and targets go through both; loss
+and both gradients in fp32 within 1e-5 (summation order only). Then
+impl dispatch: 'auto' takes the kernel only for a CUDA device with a
+'cuda' validation marker."""
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +21,7 @@ from batch_shipyard_tpu.models import transformer as jtfm
 from batch_shipyard_tpu.ops import chunked_loss as jcl
 from batch_shipyard_tpu_torch.models import transformer as ttfm
 from batch_shipyard_tpu_torch.ops import chunked_loss as tcl
+from batch_shipyard_tpu_torch.ops import kernel_select
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 VOCAB, D = 96, 32
@@ -29,11 +37,11 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _inputs(seed, lead, ignore_frac=0.0):
+def _inputs(seed, lead, ignore_frac=0.0, vocab=VOCAB, depth=D):
     rng = np.random.RandomState(seed)
-    hidden = rng.randn(*lead, D).astype(np.float32)
-    embedding = (rng.randn(VOCAB, D) * 0.2).astype(np.float32)
-    targets = rng.randint(0, VOCAB, lead).astype(np.int32)
+    hidden = rng.randn(*lead, depth).astype(np.float32)
+    embedding = (rng.randn(vocab, depth) * 0.2).astype(np.float32)
+    targets = rng.randint(0, vocab, lead).astype(np.int32)
     targets[rng.rand(*lead) < ignore_frac] = -1
     return hidden, embedding, targets
 
@@ -96,11 +104,143 @@ def test_lm_loss_chunked_matches_reference(ignore_frac):
     _check(full, want)
 
 
-def test_pallas_impl_is_not_ported():
-    hidden, embedding, targets = _inputs(0, (8,))
-    args = (torch.from_numpy(hidden), torch.from_numpy(embedding),
+# (rows, vocab, depth, fraction of targets ignored): D 128 and 256;
+# ragged rows (2 x 96: not a multiple of the reference's 128-row tile);
+# ragged vocab (700: not a multiple of its 512-wide vocab tile); an
+# ignore_id mask; every target ignored (loss and gradients zero).
+KERNEL_CASES = [(128, 512, 128, 0.0), (128, 512, 256, 0.0),
+                ((2, 96), 512, 128, 0.0), (128, 700, 128, 0.0),
+                (256, 700, 256, 0.2), (128, 512, 128, 1.0)]
+
+
+@pytest.mark.parametrize("rows,vocab,depth,ignore_frac", KERNEL_CASES)
+def test_kernel_impl_matches_reference_pallas_interpret(rows, vocab, depth,
+                                                        ignore_frac):
+    lead = rows if isinstance(rows, tuple) else (rows,)
+    hidden, embedding, targets = _inputs(depth + vocab, lead, ignore_frac,
+                                         vocab=vocab, depth=depth)
+    want = _jax(lambda h, e, t: jcl.chunked_softmax_xent(
+        h, e, t, impl="interpret"), hidden, embedding, targets)
+    calls = dict(tcl.plain_calls)
+    got = _torch(lambda h, e, t: tcl.chunked_softmax_xent(
+        h, e, t, impl="kernel"), hidden, embedding, targets)
+    _check(got, want)
+    # CPU tensors run the kernels' plain versions, once each.
+    for key in ("xent_fwd", "xent_bwd_h", "xent_bwd_e"):
+        assert tcl.plain_calls[key] == calls[key] + 1
+    assert tcl.plain_calls["chunked"] == calls["chunked"]
+    if ignore_frac == 1.0:
+        assert got[0] == 0.0
+        assert not got[1][0].any() and not got[1][1].any()
+
+
+def test_plain_versions_match_the_slab_path():
+    """K3's (lse, gold) and K4/K5's gradients against autograd through
+    the plain slab path, on bf16 hidden rows (the training input)."""
+    hidden, embedding, targets = _inputs(7, (160,), 0.1, vocab=300,
+                                         depth=128)
+    h = torch.from_numpy(hidden).to(torch.bfloat16)
+    e = torch.from_numpy(embedding)
+    t = torch.from_numpy(targets)
+    lse, gold = tcl.xent_forward_reference(h, e, t)
+    logits = h.float() @ e.t()
+    np.testing.assert_allclose(lse.numpy(),
+                               torch.logsumexp(logits, -1).numpy(), **TOL)
+    live = t != -1
+    np.testing.assert_allclose(
+        gold[live].numpy(),
+        logits[live].gather(1, t[live].long()[:, None])[:, 0].numpy(),
+        **TOL)
+    assert not gold[~live].any()
+    hp = h.float().requires_grad_()
+    ep = e.clone().requires_grad_()
+    loss = tcl.chunked_softmax_xent(hp, ep, t, impl="plain", chunk_size=64)
+    loss.backward()
+    mask = live.float()
+    ds = mask / mask.sum()
+    np.testing.assert_allclose(
+        tcl.xent_backward_h_reference(h, e, t, lse, ds).numpy(),
+        hp.grad.numpy(), **TOL)
+    np.testing.assert_allclose(
+        tcl.xent_backward_e_reference(h, e, t, lse, ds).numpy(),
+        ep.grad.numpy(), **TOL)
+
+
+def _args(depth=128):
+    hidden, embedding, targets = _inputs(0, (8,), depth=depth)
+    return (torch.from_numpy(hidden), torch.from_numpy(embedding),
             torch.from_numpy(targets))
-    with pytest.raises(NotImplementedError, match="K3-K5"):
-        tcl.chunked_softmax_xent(*args, impl="pallas")
+
+
+def _dispatched(monkeypatch, impl, depth=128, device="cpu"):
+    """The path chunked_softmax_xent takes ('kernel' or 'plain'), read
+    from the plain-version counters; ``device`` is what kernel_select
+    is told the hidden rows live on."""
+    real = kernel_select.resolve_auto
+    monkeypatch.setattr(kernel_select, "resolve_auto",
+                        lambda name, _dev, *a, **k: real(name, device, *a,
+                                                         **k))
+    before = dict(tcl.plain_calls)
+    tcl.chunked_softmax_xent(*_args(depth), impl=impl)
+    if tcl.plain_calls["xent_fwd"] > before["xent_fwd"]:
+        return "kernel"
+    assert tcl.plain_calls["chunked"] == before["chunked"] + 1
+    return "plain"
+
+
+@pytest.mark.parametrize("marker", [None, "tpu", "cuda"])
+def test_auto_is_plain_on_cpu_tensors(monkeypatch, tmp_path, marker):
+    """With no marker, a 'tpu' marker or a 'cuda' marker, CPU tensors
+    take the plain slab path under 'auto'."""
+    path = tmp_path / "KERNEL_VALIDATION.json"
+    if marker:
+        path.write_text(json.dumps({tcl.VALIDATION_NAME: {
+            "ok": True, "backend": marker}}))
+    monkeypatch.setenv(kernel_select.MARKER_ENV, str(path))
+    assert _dispatched(monkeypatch, "auto") == "plain"
+
+
+@pytest.mark.parametrize("marker,ok,want", [
+    (None, True, "plain"), ("tpu", True, "plain"), ("cuda", False, "plain"),
+    ("cuda", True, "kernel")])
+def test_auto_on_a_cuda_device_follows_the_marker(monkeypatch, tmp_path,
+                                                  marker, ok, want):
+    """kernel_select is told the rows live on a CUDA device: only an ok
+    'cuda' record picks the kernel (the tensors stay on the CPU, so the
+    kernel path runs its plain versions and is seen by their counters)."""
+    path = tmp_path / "KERNEL_VALIDATION.json"
+    if marker:
+        path.write_text(json.dumps({tcl.VALIDATION_NAME: {
+            "ok": ok, "backend": marker}}))
+    monkeypatch.setenv(kernel_select.MARKER_ENV, str(path))
+    assert _dispatched(monkeypatch, "auto", device="cuda") == want
+
+
+def test_misaligned_width_and_unknown_impl(monkeypatch, tmp_path):
+    """d % 128 != 0 resolves to plain before any launch, for 'kernel' and
+    for a validated 'auto'; an unknown impl raises; a corrupt marker
+    reads as no marker."""
+    path = tmp_path / "KERNEL_VALIDATION.json"
+    path.write_text(json.dumps({tcl.VALIDATION_NAME: {
+        "ok": True, "backend": "cuda"}}))
+    monkeypatch.setenv(kernel_select.MARKER_ENV, str(path))
+    assert _dispatched(monkeypatch, "kernel", depth=96) == "plain"
+    assert _dispatched(monkeypatch, "auto", depth=96,
+                       device="cuda") == "plain"
+    assert _dispatched(monkeypatch, "kernel", depth=128) == "kernel"
     with pytest.raises(ValueError, match="unknown impl"):
-        tcl.chunked_softmax_xent(*args, impl="bogus")
+        tcl.chunked_softmax_xent(*_args(), impl="pallas")
+    path.write_text("{not json")
+    assert kernel_select.kernel_validation() == {}
+    assert not kernel_select.kernel_validated(tcl.VALIDATION_NAME)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    h, e, t = _args()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tcl.xent_forward_kernel(h, e, t)
+    lse = torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tcl.xent_backward_h_kernel(h, e, t, lse, lse)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tcl.xent_backward_e_kernel(h, e, t, lse, lse)

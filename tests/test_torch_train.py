@@ -31,6 +31,8 @@ from batch_shipyard_tpu.parallel import train as jtrain
 from batch_shipyard_tpu_torch.models import convert
 from batch_shipyard_tpu_torch.models import transformer as ttfm
 from batch_shipyard_tpu_torch.ops import attention as tattn
+from batch_shipyard_tpu_torch.ops import chunked_loss as tcl
+from batch_shipyard_tpu_torch.ops import fused_norm as tfn
 from batch_shipyard_tpu_torch.parallel import mfu as tmfu
 from batch_shipyard_tpu_torch.parallel import train as ttrain
 from batch_shipyard_tpu_torch.workloads import train_transformer
@@ -124,6 +126,68 @@ def test_two_adamw_steps_match_reference_flash_step():
     _assert_params_close(harness.model, p)
     assert tattn.plain_calls["flash_fwd"] == plain_fwd + 2 * MODEL["n_layers"]
     assert tattn.launches == launches  # CPU tensors never reach a kernel
+
+
+FUSED_MODEL = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=4,
+                   d_head=32, d_ff=128)
+
+
+def test_two_adamw_steps_fused_norm_and_fused_loss_match_reference():
+    """bench_transformer's fused configuration at a small width (d_model
+    128, so the fused loss is not sent to the slab path by the d % 128
+    rule): the reference step built by hand from flax fused_norm,
+    lm_loss_chunked(impl="interpret") (K3-K5 in interpret mode) and
+    optax.adamw, against the port's harness with lm_loss_chunked(
+    impl="kernel") (its Function on the kernels' plain versions) and
+    rmsnorm_matmul (K9's plain version). The same flax weights go into
+    both."""
+    seq, batch = 64, 2
+    # Seeds whose smallest gradient element (7.8e-8) sits above Adam's
+    # eps, so the two frameworks' ~1e-8 gradient differences cannot flip
+    # an update (see the module doc).
+    rng = np.random.RandomState(7)
+    tokens, targets = (rng.randint(0, FUSED_MODEL["vocab_size"],
+                                   (batch, seq)).astype(np.int32)
+                       for _ in range(2))
+    jcfg = jtfm.TransformerConfig(dtype=jnp.float32, max_seq_len=seq,
+                                  fused_norm=True, **FUSED_MODEL)
+    model = jtfm.TransformerLM(jcfg)
+    params = jax.tree_util.tree_map(np.asarray, model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, seq), jnp.int32))["params"])
+    optimizer = optax.adamw(3e-4, weight_decay=0.01)
+
+    def loss_fn(p, tok, tgt):
+        hidden = model.apply({"params": p}, tok, return_hidden=True)
+        return jtfm.lm_loss_chunked(hidden, p["embed"]["embedding"], tgt,
+                                    impl="interpret")
+
+    @jax.jit
+    def step(p, state, tok, tgt):
+        loss, grads = jax.value_and_grad(loss_fn)(p, tok, tgt)
+        updates, state = optimizer.update(grads, state, p)
+        return optax.apply_updates(p, updates), state, loss
+
+    config = ttrain.make_transformer_config(
+        dtype=torch.float32, max_seq_len=seq, fused_norm=True, **FUSED_MODEL)
+    harness = ttrain.build_transformer_train(
+        config, batch_size=batch, seq_len=seq, device="cpu",
+        params=convert.params_from_flax(params), loss_impl="kernel")
+    p, state = params, optimizer.init(params)
+    calls = dict(tcl.plain_calls)
+    norm_calls = tfn.plain_calls["rmsnorm_matmul"]
+    for _ in range(2):
+        p, state, want = step(p, state, jnp.asarray(tokens),
+                              jnp.asarray(targets))
+        got = harness.step({"tokens": tokens, "targets": targets})
+        np.testing.assert_allclose(float(got["loss"]), float(want),
+                                   rtol=LOSS_RTOL)
+    _assert_params_close(harness.model, p)
+    assert "layer_0.attn.qkv_kernel" in harness.model.state_dict()
+    for key in ("xent_fwd", "xent_bwd_h", "xent_bwd_e"):
+        assert tcl.plain_calls[key] == calls[key] + 2
+    assert tcl.plain_calls["chunked"] == calls["chunked"]
+    assert tfn.plain_calls["rmsnorm_matmul"] == \
+        norm_calls + 2 * 2 * FUSED_MODEL["n_layers"]
 
 
 def test_matches_reference_build_transformer_train_on_cpu_mesh():
