@@ -26,9 +26,10 @@ _TRUNC_STD = 0.87962566103423978
 
 def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     """flax params (``model.init(...)["params"]`` mapped to numpy) ->
-    the port's state dict. Dense ``kernel [in, out]`` becomes
-    ``weight [out, in]``; ``embed/embedding`` (shared with the tied
-    logits) and RMSNorm ``scale`` carry across under the same path."""
+    the port's state dict. Dense (and QuantDense) ``kernel [in, out]``
+    becomes ``weight [out, in]``; ``embed/embedding`` (shared with the
+    tied logits) and RMSNorm ``scale`` carry across under the same
+    path."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, path: tuple) -> None:
@@ -51,8 +52,9 @@ def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
 def init_params(config: TransformerConfig,
                 generator: torch.Generator) -> dict[str, torch.Tensor]:
     """A fresh state dict on ``generator.device``: Dense weights
-    lecun-normal (truncated normal, variance 1/fan_in), the embedding
-    normal with variance 1/d_model (flax's default Embed init,
+    (QuantDense ones alike, under the same names) lecun-normal
+    (truncated normal, variance 1/fan_in), the embedding normal with
+    variance 1/d_model (flax's default Embed init,
     variance_scaling(1, fan_in, normal) over [vocab, d_model]), RMSNorm
     scales one. With ``fused_norm``, ``qkv_kernel [d, 3F]`` and
     ``gate_up_kernel [d, 2*d_ff]`` are lecun-normal over fan-in d in the

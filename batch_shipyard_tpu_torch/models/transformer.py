@@ -16,7 +16,9 @@ residual stream into ``ops.fused_norm.rmsnorm_matmul`` twice: one
 forward is the K9 kernel for CUDA tensors. ``lm_loss`` and
 ``lm_loss_chunked`` are the reference's losses; the latter's ``auto``
 picks the fused cross-entropy kernels (K3-K5) on a card whose validation
-marker records them.
+marker records them. With ``quantize_matmuls`` every q/k/v/o and
+gate/up/down projection is a ``QuantDense`` (training and decode), whose
+int8 forward is the K10 quantize and K11 int8 matmul for CUDA tensors.
 
 Decode: where flax keeps the cache in a mutable ``cache`` collection,
 the port passes an explicit cache: a list with one dict of tensors per
@@ -50,15 +52,16 @@ from batch_shipyard_tpu_torch.ops import decode_attention as dense_ops
 from batch_shipyard_tpu_torch.ops import fused_norm as fn_ops
 from batch_shipyard_tpu_torch.ops import paged_attention as paged_ops
 from batch_shipyard_tpu_torch.ops.quantization import (dequantize_int8,
-                                                        quantize_int8_rows)
+                                                        quantize_int8_rows,
+                                                        quantized_linear)
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The reference's field names for what the dense training forward
     and the decode path read. The fields of paths not ported yet (moe,
-    quantize_matmuls, tp_axis, the speculative ``spec_window``) arrive
-    with the slices that port them."""
+    tp_axis, the speculative ``spec_window``) arrive with the slices that
+    port them."""
     vocab_size: int = 32000
     d_model: int = 512
     n_layers: int = 4
@@ -81,6 +84,14 @@ class TransformerConfig:
     # rmsnorm_matmul's impl: None (K9 for CUDA tensors), "kernel" or
     # "plain".
     fused_norm_impl: Optional[str] = None
+    # Every q/k/v/o and gate/up/down projection through QuantDense: int8
+    # operands quantized on the fly (ops/quantization.quantized_linear,
+    # K10 and K11 on CUDA tensors), full-precision backward. Not with
+    # fused_norm, as in the reference.
+    quantize_matmuls: bool = False
+    # quantized_linear's impl: None (K10/K11 for CUDA tensors), "kernel"
+    # or "plain".
+    quantize_impl: Optional[str] = None
     decode: bool = False
     max_decode_len: int = 2048
     # None (dtype rows) or "int8" (absmax rows + fp32 scales per
@@ -151,6 +162,30 @@ class Dense(nn.Linear):
                         self.weight.to(self.compute_dtype))
 
 
+class QuantDense(Dense):
+    """The reference's QuantDense: the same ``weight [out, in]`` as
+    Dense, the product through ``ops.quantization.quantized_linear``.
+    x is not cast (the reference quantizes it as it comes); the weight is
+    cast to ``dtype`` before it is quantized, and the fp32 output is cast
+    to ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 cfg: TransformerConfig, device=None) -> None:
+        super().__init__(in_features, out_features, cfg, device)
+        self.impl = cfg.quantize_impl
+
+    def forward(self, x):
+        out = quantized_linear(
+            x.reshape(-1, x.shape[-1]), self.weight.to(self.compute_dtype),
+            impl=self.impl)
+        return out.reshape(*x.shape[:-1], -1).to(self.compute_dtype)
+
+
+def _dense(cfg: TransformerConfig) -> type:
+    """The projection class (the reference's functools_partial_dense)."""
+    return QuantDense if cfg.quantize_matmuls else Dense
+
+
 class Embed(nn.Module):
     """Token embedding shared with the tied output projection."""
 
@@ -201,14 +236,15 @@ class Attention(nn.Module):
         super().__init__()
         self.config = cfg
         features = cfg.n_heads * cfg.d_head
+        dense = _dense(cfg)
         if cfg.fused_norm:
             self.norm_scale = _norm_scale(cfg, device)
             self.qkv_kernel = _fused_kernel(cfg, 3 * features, device)
         else:
-            self.q_proj = Dense(cfg.d_model, features, cfg, device)
-            self.k_proj = Dense(cfg.d_model, features, cfg, device)
-            self.v_proj = Dense(cfg.d_model, features, cfg, device)
-        self.o_proj = Dense(features, cfg.d_model, cfg, device)
+            self.q_proj = dense(cfg.d_model, features, cfg, device)
+            self.k_proj = dense(cfg.d_model, features, cfg, device)
+            self.v_proj = dense(cfg.d_model, features, cfg, device)
+        self.o_proj = dense(features, cfg.d_model, cfg, device)
 
     def forward(self, x, positions, cache: Optional[dict] = None):
         """cache None: the training forward (causal attention over the
@@ -362,13 +398,14 @@ class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None) -> None:
         super().__init__()
         self.config = cfg
+        dense = _dense(cfg)
         if cfg.fused_norm:
             self.norm_scale = _norm_scale(cfg, device)
             self.gate_up_kernel = _fused_kernel(cfg, 2 * cfg.d_ff, device)
         else:
-            self.gate_proj = Dense(cfg.d_model, cfg.d_ff, cfg, device)
-            self.up_proj = Dense(cfg.d_model, cfg.d_ff, cfg, device)
-        self.down_proj = Dense(cfg.d_ff, cfg.d_model, cfg, device)
+            self.gate_proj = dense(cfg.d_model, cfg.d_ff, cfg, device)
+            self.up_proj = dense(cfg.d_model, cfg.d_ff, cfg, device)
+        self.down_proj = dense(cfg.d_ff, cfg.d_model, cfg, device)
 
     def forward(self, x):
         if self.config.fused_norm:
@@ -382,10 +419,10 @@ class MLP(nn.Module):
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None) -> None:
         super().__init__()
-        if cfg.fused_norm and cfg.decode:
+        if cfg.fused_norm and (cfg.decode or cfg.quantize_matmuls):
             raise NotImplementedError(
                 "fused_norm composes only with the dense training path "
-                "(no decode), as in the reference")
+                "(no decode / quantize_matmuls), as in the reference")
         self.fused_norm = cfg.fused_norm
         if not cfg.fused_norm:
             self.attn_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)

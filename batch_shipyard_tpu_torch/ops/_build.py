@@ -62,6 +62,11 @@ SIGNATURES = {
                               _int),
         "bs_error_string": ([_int], ctypes.c_char_p),
     },
+    "quantization": {
+        "bs_quantize_int8": ([_int] + [_vp] * 4 + [_int] * 3 + [_vp], _int),
+        "bs_int8_matmul": ([_int] + [_vp] * 5 + [_int] * 3 + [_vp], _int),
+        "bs_error_string": ([_int], ctypes.c_char_p),
+    },
 }
 
 _lock = threading.Lock()

@@ -14,9 +14,12 @@ parameter group, so every leaf decays (the RMSNorm scales and the
 embedding included), with the decay applied to the pre-update
 parameter. On a CUDA device the model's attention is the flash kernels
 K1 (forward) and K2 (backward); with ``fused_norm`` its norm-projections
-are K9; the loss's ``auto`` takes the fused cross-entropy kernels K3-K5
-where the validation marker records them (ops/kernel_select). Meshes
-(dp/fsdp/tp/sp/ep), MoE and AOT precompilation are not ported yet.
+are K9; with ``quantize_matmuls`` its projections quantize both operands
+to int8 (K10) and multiply them on the int8 tensor cores (K11), with a
+full-precision fp32 backward; the loss's ``auto`` takes the fused
+cross-entropy kernels K3-K5 where the validation marker records them
+(ops/kernel_select). Meshes (dp/fsdp/tp/sp/ep), MoE and AOT
+precompilation are not ported yet.
 """
 
 from __future__ import annotations
@@ -70,8 +73,9 @@ class TrainHarness:
 def make_transformer_config(sp: int = 1,
                             **overrides) -> tfm.TransformerConfig:
     """A TransformerConfig for single-device training; ``overrides``
-    (``fused_norm`` among them) pass through. ``sp > 1`` (ring attention
-    over a sequence-parallel mesh axis) is not ported yet."""
+    (``fused_norm`` and ``quantize_matmuls`` among them) pass through.
+    ``sp > 1`` (ring attention over a sequence-parallel mesh axis) is not
+    ported yet."""
     if sp > 1:
         raise NotImplementedError(
             "sp > 1 runs ring attention over a sequence-parallel mesh, "

@@ -5,9 +5,12 @@ the host clock with a synchronise, then ``steps`` more under
 ``torch.profiler``, and returns the step's wall time, the device's busy
 time (union of kernel intervals) and idle share, each hand-written
 kernel's time and share of device time (flash K1, K2; the fused
-cross-entropy K3, K4, K5; the fused RMSNorm+matmul K9), and the largest
-device kernels. chip_smoke.py runs it on bench.py ``bench_transformer``'s
-model after its counted training steps. CUDA only.
+cross-entropy K3, K4, K5; the fused RMSNorm+matmul K9; the int8 quantize
+K10 and matmul K11), the library GEMMs' time and share (cuBLAS's
+kernels: the int8 step's fp32 backward products, the other steps'
+projections and slab-loss products), and the largest device kernels.
+chip_smoke.py runs it on bench.py ``bench_transformer``'s model after
+its counted training steps. CUDA only.
 """
 
 from __future__ import annotations
@@ -22,18 +25,23 @@ from torch.profiler import ProfilerActivity, profile
 from batch_shipyard_tpu_torch.trace.decode_profile import busy_us
 
 # Substrings of the kernels' mangled names: csrc/flash_attention.cu,
-# csrc/chunked_loss.cu and csrc/fused_norm.cu.
+# csrc/chunked_loss.cu, csrc/fused_norm.cu and csrc/quantization.cu.
 FLASH_FWD = "flash_fwd_kernel"
 FLASH_BWD = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 XENT_FWD = "xent_fwd_kernel"
 XENT_BWD_H = "xent_bwd_h_kernel"
 XENT_BWD_E = "xent_bwd_e_kernel"
 RMSNORM_MATMUL = "rmsnorm_matmul_kernel"
+QUANTIZE_INT8 = "quantize_int8_kernel"
+INT8_MATMUL = "int8_matmul_kernel"
 KERNEL_SYMBOLS = {
     "flash_fwd": (FLASH_FWD,), "flash_bwd": FLASH_BWD,
     "xent_fwd": (XENT_FWD,), "xent_bwd_h": (XENT_BWD_H,),
     "xent_bwd_e": (XENT_BWD_E,), "rmsnorm_matmul": (RMSNORM_MATMUL,),
+    "quantize_int8": (QUANTIZE_INT8,), "int8_matmul": (INT8_MATMUL,),
 }
+# cuBLAS's GEMM kernels: cutlass / xmma "...gemm..." and its JIT "nvjet_".
+LIBRARY_GEMM = ("gemm", "nvjet")
 
 
 def profile_steps(harness, batch: dict, steps: int) -> dict:
@@ -65,6 +73,8 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
         key: sum(us for name, us in by_name.items()
                  if any(symbol in name for symbol in symbols))
         for key, symbols in KERNEL_SYMBOLS.items()}
+    gemm_us = sum(us for name, us in by_name.items()
+                  if any(symbol in name.lower() for symbol in LIBRARY_GEMM))
     return {
         "steps": steps,
         "wall_ms_per_step": wall_ms,
@@ -76,6 +86,8 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
                                for key, us in per_kernel.items()},
         "kernel_share_of_device": {key: us / device_us
                                    for key, us in per_kernel.items()},
+        "library_gemm_ms_per_step": gemm_us / 1e3 / steps,
+        "library_gemm_share_of_device": gemm_us / device_us,
         "top_kernels_ms_per_step": {
             name[:80]: us / 1e3 / steps
             for name, us in sorted(by_name.items(),

@@ -1,7 +1,8 @@
 """Transformer LM training payload on one device.
 
 Counterpart of batch_shipyard_tpu/workloads/train_transformer.py for
-the dense single-device path, with its flags and defaults plus
+the dense single-device path, with its flags and defaults (``--int8``:
+int8 matmuls for every projection, a full-precision backward) plus
 ``--device {cuda,cpu}`` and ``--seed``:
 
     python -m batch_shipyard_tpu_torch.workloads.train_transformer \
@@ -13,8 +14,8 @@ is repeated every step, as in the reference. Prints the reference's
 summary line, then one JSON line with tokens/s, ms/step, MFU (None off
 a card in parallel/mfu's table) and peak device memory.
 
-Not offered yet (ROADMAP): --tp/--sp/--fsdp/--ep, --moe-experts,
---int8 and the checkpoint and compile-cache flags.
+Not offered yet (ROADMAP): --tp/--sp/--fsdp/--ep, --moe-experts and the
+checkpoint and compile-cache flags.
 """
 
 from __future__ import annotations
@@ -41,13 +42,15 @@ BENCH_TRANSFORMER_BATCH, BENCH_TRANSFORMER_SEQ = 16, 2048
 def build_bench_harness(device, seed: int = 0,
                         batch_size: int = BENCH_TRANSFORMER_BATCH,
                         seq_len: int = BENCH_TRANSFORMER_SEQ,
-                        fused_norm: bool = False
+                        fused_norm: bool = False, quantize: bool = False
                         ) -> train_mod.TrainHarness:
     """bench_transformer's model with weights drawn from ``seed``;
-    ``fused_norm`` as bench_transformer(fused_norm=...)."""
+    ``fused_norm`` and ``quantize`` as bench_transformer(fused_norm=...,
+    quantize=...)."""
     config = train_mod.make_transformer_config(
         **BENCH_TRANSFORMER_MODEL, max_seq_len=seq_len,
-        dtype=torch.bfloat16, remat=False, fused_norm=fused_norm)
+        dtype=torch.bfloat16, remat=False, fused_norm=fused_norm,
+        quantize_matmuls=quantize)
     return train_mod.build_transformer_train(
         config, batch_size=batch_size, seq_len=seq_len, seed=seed,
         device=device)
@@ -74,6 +77,9 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--warmup", type=int, default=2)
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 matmuls for projections/MLP "
+                             "(QAT straight-through backward)")
     parser.add_argument("--no-remat", action="store_true")
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
@@ -86,7 +92,7 @@ def main(argv=None) -> int:
         n_layers=args.n_layers, n_heads=args.n_heads,
         d_head=args.d_model // args.n_heads, d_ff=args.d_ff,
         max_seq_len=args.seq_len, dtype=torch.bfloat16,
-        remat=not args.no_remat)
+        quantize_matmuls=args.int8, remat=not args.no_remat)
     harness = train_mod.build_transformer_train(
         config, batch_size=args.batch, seq_len=args.seq_len,
         seed=args.seed, device=device)

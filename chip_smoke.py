@@ -25,14 +25,22 @@ Phases, each fatal on failure:
      the fused RMSNorm+matmul (K9) at both training shapes and a ragged
      M 1000 K 128 N 384 in bf16 and fp32. Both are read row by row (lse,
      gold) or tile by tile, and each must fail on its planted faults
-     (LOSS_FAULTS, NORM_FAULTS) at the training shape;
+     (LOSS_FAULTS, NORM_FAULTS) at the training shape. The int8 quantize
+     (K10) and int8 matmul (K11) against their plain versions on the same
+     bits, bit for bit (0 differing int8 values, scales or outputs), at
+     every training shape (x [32768, 1024] and [32768, 2816] bf16, the
+     [1024, 1024], [2816, 1024] and [1024, 2816] weights) and at ragged
+     ones (M 300, K 128 and 2816, N 48 and 384, fp32 and bf16, a zero
+     row); each planted fault (QUANT_FAULTS) must fail at every training
+     shape;
   3. time every kernel, its plain version and a library yardstick
      (scaled_dot_product_attention; for K3-K5 and K9 the same products
      alone through torch.matmul at the kernel's precision) at the main
      path's shapes: decode at 8 slots x 16 heads x 64 dims over 512 keys,
      flash at the training shape B16 T2048 H16 D64, causal, bf16, the
      loss at N 32768 D 1024 V 32000, K9 at M 32768 K 1024 N 3072 and
-     5632;
+     5632, K10 and K11 at one layer's seven projections (K11's yardstick:
+     torch._int_mm and the two scale multiplies);
   4. train the repo's training benchmark model (bench.py
      bench_transformer: vocab 32000, d_model 1024, 12 layers, 16 heads,
      d_ff 2816, bf16 over fp32 parameters, no remat, batch 16 x 2048,
@@ -46,7 +54,13 @@ Phases, each fatal on failure:
      bench_transformer(fused_norm=True)'s configuration and a marker
      (written to a temp dir after the K3-K5 check passed) that selects
      the fused loss: every step must launch K9 twice per layer, K1 and
-     K2 once per layer, K3, K4 and K5 once, and no plain version;
+     K2 once per layer, K3, K4 and K5 once, and no plain version. Then,
+     under the same marker, bench_transformer(quantize=True): every step
+     must launch K10 14 times per layer (168), K11 7 times (84), K1 and
+     K2 once per layer, K3-K5 once, no K9 and no plain version, and draw
+     random bits once per K10 call; its numerics check runs the plain and
+     fp32 models on the plain quantize and int8 matmul. All three
+     training phases run at full depth;
   5. serve the repo's serving benchmark model (bench.py bench_serving:
      the same widths, 8 slots, max_decode_len 512) three times through
      ServingFrontEnd + run_load: paged page 64 (K6), paged int8 with
@@ -89,6 +103,7 @@ from batch_shipyard_tpu_torch.ops import decode_attention as dense_ops
 from batch_shipyard_tpu_torch.ops import fused_norm as norm_ops
 from batch_shipyard_tpu_torch.ops import kernel_select
 from batch_shipyard_tpu_torch.ops import paged_attention as paged_ops
+from batch_shipyard_tpu_torch.ops import quantization as quant_ops
 from batch_shipyard_tpu_torch.ops.quantization import quantize_int8_rows
 from batch_shipyard_tpu_torch.parallel import mfu
 from batch_shipyard_tpu_torch.parallel import train as train_mod
@@ -237,8 +252,34 @@ NORM_FAULTS = (
      "if (k0 != 0 || blockIdx.x != 0 || blockIdx.y != 0) "
      "Warp<T>::product(acc, x_s, w_s, wm, wn, lane);", ("out",)),
 )
+
+# Int8 quantize (K10) and int8 matmul (K11) against their plain versions,
+# bit for bit: each does the plain version's fp32 operations in the same
+# order (K10: the reciprocal-multiply scale, an IEEE division, floor(s +
+# u); K11: the exact int32 sum, then (acc * x_scale) * w_scale), so one
+# differing int8 value, scale or output element fails the check.
+QUANT_SOURCE = "batch_shipyard_tpu_torch/ops/csrc/quantization.cu"
+_D_FF = train_wl.BENCH_TRANSFORMER_MODEL["d_ff"]
+_ROWS = LOSS_TRAIN_SHAPE["rows"]
+# One layer's QuantDense projections on the training path: (rows of x, in
+# features, out features) and how many of the layer's seven run at it.
+QUANT_TRAIN_SHAPES = {
+    "qkvo": ((_ROWS, _D_MODEL, _D_MODEL), 4),
+    "gate_up": ((_ROWS, _D_MODEL, _D_FF), 2),
+    "down": ((_ROWS, _D_FF, _D_MODEL), 1),
+}
+QUANT_FAULTS = (
+    # K10: row 0 rounds to nearest instead of floor(x / scale + u).
+    ("quantize_int8_kernel", "const float r = floorf(__fadd_rn(s, u));",
+     "const float r = blockIdx.x == 0 ? rintf(s) : floorf(__fadd_rn(s, u));",
+     ("values",)),
+    # K11: output tile (0, 0) drops its first k-slice.
+    ("int8_matmul_kernel", "product(acc, x_s, x_s + kTile, wm, wn, lane);",
+     "if (kt != 0 || blockIdx.x != 0 || blockIdx.y != 0) "
+     "product(acc, x_s, x_s + kTile, wm, wn, lane);", ("out",)),
+)
 FAULTS = {"flash_attention": FLASH_FAULTS, "chunked_loss": LOSS_FAULTS,
-          "fused_norm": NORM_FAULTS}
+          "fused_norm": NORM_FAULTS, "quantization": QUANT_FAULTS}
 
 KERNELS = {
     "flash_fwd": dict(
@@ -271,6 +312,12 @@ KERNELS = {
     "rmsnorm_matmul": dict(
         label="K9", route="cuda", source=NORM_SOURCE,
         replaces="batch_shipyard_tpu/ops/fused_norm.py:48"),
+    "quantize_int8": dict(
+        label="K10", route="cuda", source=QUANT_SOURCE,
+        replaces="batch_shipyard_tpu/ops/quantization.py:41"),
+    "int8_matmul": dict(
+        label="K11", route="cuda", source=QUANT_SOURCE,
+        replaces="batch_shipyard_tpu/ops/quantization.py:105"),
 }
 LOSS_KERNELS = ("xent_fwd", "xent_bwd_h", "xent_bwd_e")
 
@@ -286,7 +333,7 @@ def require(ok: bool, what: str) -> None:
 
 def launch_counts() -> dict:
     return {**attn_ops.launches, **paged_ops.launches, **dense_ops.launches,
-            **loss_ops.launches, **norm_ops.launches}
+            **loss_ops.launches, **norm_ops.launches, **quant_ops.launches}
 
 
 def plain_counts() -> dict:
@@ -294,7 +341,8 @@ def plain_counts() -> dict:
     return {f"{prefix}.{key}": n
             for prefix, counts in (("attention", attn_ops.plain_calls),
                                    ("loss", loss_ops.plain_calls),
-                                   ("norm", norm_ops.plain_calls))
+                                   ("norm", norm_ops.plain_calls),
+                                   ("quant", quant_ops.plain_calls))
             for key, n in counts.items()}
 
 
@@ -302,7 +350,9 @@ def reset_launch_counts() -> None:
     for counts in (attn_ops.launches, attn_ops.plain_calls,
                    paged_ops.launches, dense_ops.launches,
                    loss_ops.launches, loss_ops.plain_calls,
-                   norm_ops.launches, norm_ops.plain_calls):
+                   norm_ops.launches, norm_ops.plain_calls,
+                   quant_ops.launches, quant_ops.plain_calls,
+                   quant_ops.bit_draws):
         for key in counts:
             counts[key] = 0
 
@@ -442,15 +492,20 @@ def device_ms(fn, sets, iters: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     # 3e9 cycles a second of host time: at least 1.5 s of spin per
-    # second of queueing at the H100's clocks.
-    torch.cuda._sleep(int(3e9 * host_s) + 1_000_000)
-    start.record()
-    for i in range(iters):
-        fn(*sets[i % len(sets)])
-    end.record()
-    require(not start.query(), "timing: the host fell behind the card")
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    # second of queueing at the H100's clocks. A host that queues slower
+    # than it did untimed (the machine's other load) gets a spin four
+    # times as long, twice, before the reading is refused.
+    for attempt in range(3):
+        torch.cuda._sleep(int(3e9 * host_s * 4 ** attempt) + 1_000_000)
+        start.record()
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+        end.record()
+        behind = start.query()
+        end.synchronize()
+        if not behind:
+            return start.elapsed_time(end) / iters
+    raise SmokeFailure("timing: the host fell behind the card")
 
 
 def roofline(nbytes: int, ops: int, peak) -> dict:
@@ -1093,6 +1148,216 @@ def time_norm(device, readings: dict) -> dict:
     return {"rmsnorm_matmul": row}
 
 
+# ---------------- int8 quantize (K10) and matmul (K11) ----------------
+
+
+def quant_case(gen, rows, cols, dtype, device, weight=False,
+               zero_row=False):
+    """x with a spread of row scales (or a weight at lecun scale) in
+    dtype, and its rounding bits."""
+    if weight:
+        x = torch.randn(rows, cols, generator=gen, device=device) / \
+            math.sqrt(cols)
+    else:
+        x = torch.randn(rows, cols, generator=gen, device=device) * (
+            0.25 + 4 * torch.rand(rows, 1, generator=gen, device=device))
+    if zero_row:
+        x[rows // 2] = 0.0
+    bits = torch.randint(-2 ** 31, 2 ** 31, (rows, cols), generator=gen,
+                         device=device, dtype=torch.int32)
+    return x.to(dtype), bits
+
+
+def quant_diff(got, want) -> dict:
+    """Differing int8 values and scales (bitwise), and the largest
+    difference of either."""
+    torch.cuda.synchronize()
+    (gv, gs), (wv, ws) = got, want
+    require(gv.dtype == torch.int8 and gs.dtype == torch.float32,
+            "K10: output dtypes")
+    return {"values": int((gv != wv).sum()),
+            "scales": int((gs.view(torch.int32) != ws.view(torch.int32))
+                          .sum()),
+            "max_abs_err": max(float((gv.int() - wv.int()).abs().max()),
+                               float((gs - ws).abs().max()))}
+
+
+def matmul_diff(got, want) -> dict:
+    """Output elements that differ bitwise, and the largest difference."""
+    torch.cuda.synchronize()
+    require(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+            "K11: output dtype or non-finite")
+    return {"out": int((got.view(torch.int32) != want.view(torch.int32))
+                       .sum()),
+            "max_abs_err": float((got - want).abs().max())}
+
+
+def check_quant(device, fault_lib) -> dict:
+    """Phase 2e: K10 and K11 against their plain versions on the same
+    bits, bit for bit: ragged shapes (M 300, K 128 and 2816, N 48 and 384,
+    fp32 and bf16, a zero row), then every training shape, where each
+    planted fault must fail. Every case is read and printed before the
+    first failure is raised. Returns the training-shape readings."""
+    gen = torch.Generator(device=device).manual_seed(10)
+    failed, readings = [], {}
+    kernel_q, plain_q = (quant_ops.quantize_int8_kernel,
+                         quant_ops.quantize_int8_reference)
+    for k in (128, 2816):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = quant_case(gen, 300, k, dtype, device, zero_row=True)
+            xq = kernel_q(*x)
+            q_err = quant_diff(xq, plain_q(*x))
+            require(not bool(xq[0][150].any()), "K10: a zero row")
+            line = (f"check K10 M=300 K={k} {str(dtype)[6:]} (a zero row): "
+                    f"{q_err['values']} values, {q_err['scales']} scales "
+                    f"differ")
+            if q_err["values"] or q_err["scales"]:
+                failed.append(f"K10 ragged K={k} {dtype}")
+            for n in (48, 384):
+                w = kernel_q(*quant_case(gen, n, k, dtype, device,
+                                         weight=True))
+                mm = matmul_diff(quant_ops.int8_matmul_kernel(*xq, *w),
+                                 quant_ops.int8_matmul_reference(*xq, *w))
+                line += f"; K11 N={n}: {mm['out']} outputs differ"
+                if mm["out"]:
+                    failed.append(f"K11 ragged K={k} N={n} {dtype}")
+            print(line, flush=True)
+
+    for name, (shape, _) in QUANT_TRAIN_SHAPES.items():
+        rows, k, n = shape
+        # One projection's bf16 x [rows, in] and weight [out, in].
+        sides = (quant_case(gen, rows, k, torch.bfloat16, device),
+                 quant_case(gen, n, k, torch.bfloat16, device, weight=True))
+        quantized, row = [], {}
+        for side, (x, bits) in zip(("x", "w"), sides):
+            want = plain_q(x, bits)
+            row[f"K10 {side}"] = quant_diff(kernel_q(x, bits), want)
+            fault = quant_diff(kernel_q(x, bits, library=fault_lib), want)
+            row[f"K10 {side} fault"] = fault
+            if row[f"K10 {side}"]["values"] or row[f"K10 {side}"]["scales"]:
+                failed.append(f"K10 {name} {side}")
+            if not fault["values"]:
+                failed.append(f"K10 {name} {side}: planted fault passed")
+            quantized.append(want)
+            del x, bits
+        want = quant_ops.int8_matmul_reference(*quantized[0], *quantized[1])
+        row["K11"] = matmul_diff(
+            quant_ops.int8_matmul_kernel(*quantized[0], *quantized[1]), want)
+        row["K11 fault"] = matmul_diff(quant_ops.int8_matmul_kernel(
+            *quantized[0], *quantized[1], library=fault_lib), want)
+        if row["K11"]["out"]:
+            failed.append(f"K11 {name}")
+        if not row["K11 fault"]["out"]:
+            failed.append(f"K11 {name}: planted fault passed")
+        del want, quantized, sides
+        torch.cuda.empty_cache()
+        readings[name] = row
+        print(f"check K10/K11 {name} M={rows} K={k} N={n} bf16: " +
+              "; ".join(f"{key} {json.dumps(v)}" for key, v in row.items()),
+              flush=True)
+    require(not failed, f"K10/K11: {failed}")
+    return readings
+
+
+def quantize_bound(rows, cols, dtype) -> dict:
+    """K10's least time: x and the int32 bits read once, the int8 values
+    and fp32 scales written once; ~5 fp32 operations an element (absmax,
+    divide, add, floor, clip) at the fp32 rate."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    nbytes = rows * cols * (elt + 4 + 1) + rows * 4
+    return roofline(nbytes, 5 * rows * cols, torch.float32)
+
+
+def int8_matmul_bound(rows, k, n) -> dict:
+    """K11's least time: 2*M*K*N int8 operations; x_q, w_q and the
+    scales read once, the fp32 output written once."""
+    nbytes = rows * k + n * k + 4 * rows + 4 * n + 4 * rows * n
+    return roofline(nbytes, 2 * rows * k * n, torch.int8)
+
+
+def _int_mm_yardstick(x_q, x_s, w_q, w_s):
+    """One PyTorch call for K11's product: torch._int_mm (cuBLASLt int8
+    GEMM with int32 output), then the two scale multiplies."""
+    return torch._int_mm(x_q, w_q.t()).float() * x_s * w_s.t()
+
+
+def _layer_row(shapes: dict, per: str) -> dict:
+    """Sum one layer's calls (each shape times its count) into a row."""
+    row = {key: sum(s["count"] * s[key] for s in shapes.values())
+           for key in ("ms", "plain_ms", "bound_ms", "ops", "bytes")}
+    libs = [s["library_ms"] for s in shapes.values()]
+    row["library_ms"] = (None if None in libs else
+                         sum(s["count"] * s["library_ms"]
+                             for s in shapes.values()))
+    row["bound_by"] = ("operations" if all(s["bound_by"] == "operations"
+                                           for s in shapes.values())
+                       else "bytes")
+    row["max_abs_err"] = max(s["max_abs_err"] for s in shapes.values())
+    row["per"] = per
+    row["shapes"] = shapes
+    return row
+
+
+def time_quant(device, readings: dict) -> dict:
+    """Phase 3e: K10 and K11 at one layer's training shapes against their
+    plain versions, and K11 against the torch._int_mm yardstick (K10 has
+    no single PyTorch call). Each row sums one layer's calls: K10 its 14
+    (x and the weight of seven projections), K11 its 7; ``shapes`` keeps
+    each. Weight-sized inputs cycle through n_layers sets, and x-sized
+    ones through two, so the 50 MB L2 does not hold them across calls."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    layers = train_wl.BENCH_TRANSFORMER_MODEL["n_layers"]
+    k10, k11 = {}, {}
+    for name, (shape, count) in QUANT_TRAIN_SHAPES.items():
+        rows, k, n = shape
+        x_sets = [quant_case(gen, rows, k, torch.bfloat16, device)
+                  for _ in range(2)]
+        w_sets = [quant_case(gen, n, k, torch.bfloat16, device, weight=True)
+                  for _ in range(layers)]
+        for side, sets, dims in (("x", x_sets, (rows, k)),
+                                 ("w", w_sets, (n, k))):
+            key = f"{side} {dims[0]}x{dims[1]}"
+            if key not in k10:
+                k10[key] = dict(
+                    count=0,
+                    ms=device_ms(quant_ops.quantize_int8_kernel, sets, 24),
+                    plain_ms=device_ms(quant_ops.quantize_int8_reference,
+                                       sets[:2], 4),
+                    library_ms=None,
+                    max_abs_err=readings[name][f"K10 {side}"]["max_abs_err"],
+                    **quantize_bound(*dims, torch.bfloat16))
+            k10[key]["count"] += count
+        x_q = [quant_ops.quantize_int8_kernel(*s) for s in x_sets]
+        w_q = quant_ops.quantize_int8_kernel(*w_sets[0])
+        del x_sets, w_sets
+        sets = [(*xq, *w_q) for xq in x_q]
+        try:
+            library_ms = device_ms(_int_mm_yardstick, sets, 24)
+        except RuntimeError as err:  # torch._int_mm refuses the shape
+            print(f"time K11 {name}: torch._int_mm yardstick: {err}")
+            library_ms = None
+        k11[name] = dict(
+            count=count,
+            ms=device_ms(quant_ops.int8_matmul_kernel, sets, 24),
+            plain_ms=device_ms(quant_ops.int8_matmul_reference, sets, 4),
+            library_ms=library_ms,
+            max_abs_err=readings[name]["K11"]["max_abs_err"],
+            **int8_matmul_bound(rows, k, n))
+        del sets, x_q, w_q
+        torch.cuda.empty_cache()
+    for label, shapes in (("K10 quantize_int8", k10),
+                          ("K11 int8_matmul", k11)):
+        for key, s in shapes.items():
+            lib = ("—" if s["library_ms"] is None
+                   else f"{s['library_ms']:.4f} ms")
+            print(f"time {label} {key} (x{s['count']} a layer): kernel "
+                  f"{s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, library "
+                  f"{lib}, bound {s['bound_ms']:.4f} ms ({s['bound_by']})",
+                  flush=True)
+    return {"quantize_int8": _layer_row(k10, "one layer's 14 calls"),
+            "int8_matmul": _layer_row(k11, "one layer's 7 calls")}
+
+
 # ------------------------------ training ------------------------------
 
 
@@ -1109,8 +1374,9 @@ def _flat_grads(harness, batch) -> tuple[float, torch.Tensor]:
 def train_numerics(harness, batch) -> dict:
     """One step of the kernel model against a plain bf16 model (the
     attention's blockwise plain version, the plain slab loss and, with
-    fused_norm, the plain norm-matmul) and an fp32 plain model, all
-    with the harness's current weights, on the first two rows of the
+    fused_norm, the plain norm-matmul; with quantize_matmuls, the plain
+    quantize and int8 matmul on the same bits) and an fp32 plain model,
+    all with the harness's current weights, on the first two rows of the
     batch."""
     small = {name: t[:2] for name, t in batch.items()}
     plain_fn = functools.partial(attn_ops.attention, impl="blockwise")
@@ -1121,7 +1387,8 @@ def train_numerics(harness, batch) -> dict:
     for name, dtype in (("plain", cfg.dtype), ("fp32", torch.float32)):
         other = train_mod.build_transformer_train(
             dataclasses.replace(cfg, dtype=dtype, attention_fn=plain_fn,
-                                fused_norm_impl="plain"),
+                                fused_norm_impl="plain",
+                                quantize_impl="plain"),
             batch_size=2, seq_len=small["tokens"].shape[1],
             device=harness.device, params=params, loss_impl="plain")
         results[name] = _flat_grads(other, small)
@@ -1151,27 +1418,35 @@ def train_numerics(harness, batch) -> dict:
     return row
 
 
-def train(device, fused: bool = False) -> dict:
+def train(device, fused: bool = False, quantize: bool = False) -> dict:
     """Phase 4: a training path, end to end: bench_transformer's model
-    (``fused``: with fused_norm, and the fused loss that the validation
-    marker in force selects)."""
+    (``fused``: with fused_norm; ``quantize``: with quantize_matmuls;
+    either with the fused loss that the validation marker in force
+    selects)."""
     model = train_wl.BENCH_TRANSFORMER_MODEL
     batch_size = train_wl.BENCH_TRANSFORMER_BATCH
     seq = train_wl.BENCH_TRANSFORMER_SEQ
     loss_path = kernel_select.resolve_auto(loss_ops.VALIDATION_NAME, device)
-    require(loss_path == ("kernel" if fused else "plain"),
+    require(loss_path == ("kernel" if fused or quantize else "plain"),
             f"train: the loss resolves to {loss_path!r}")
     layers = model["n_layers"]
     per_step = {"flash_fwd": layers, "flash_bwd": layers}
     allowed_plain = {"loss.chunked"}
-    if fused:
+    if fused or quantize:
         per_step.update({key: 1 for key in LOSS_KERNELS})
-        per_step["rmsnorm_matmul"] = 2 * layers
         allowed_plain = set()
+    if fused:
+        per_step["rmsnorm_matmul"] = 2 * layers
+    if quantize:
+        # Seven QuantDense projections a layer: K10 for x and for the
+        # weight, K11 once; each K10 call's bits are one draw.
+        per_step["quantize_int8"] = 14 * layers
+        per_step["int8_matmul"] = 7 * layers
     started = time.perf_counter()
     harness = train_wl.build_bench_harness(device, seed=0,
                                            batch_size=batch_size,
-                                           seq_len=seq, fused_norm=fused)
+                                           seq_len=seq, fused_norm=fused,
+                                           quantize=quantize)
     batch = train_wl.random_batch(model["vocab_size"], batch_size, seq, 0,
                                   device)
     numerics = train_numerics(harness, batch)
@@ -1200,16 +1475,21 @@ def train(device, fused: bool = False) -> dict:
     require(not others, f"train: unexpected launches {others}")
     ran = {k: n for k, n in plain.items() if n and k not in allowed_plain}
     require(not ran, f"train: plain versions ran {ran}")
+    draws = quant_ops.bit_draws["random_bits"]
+    require(draws == per_step.get("quantize_int8", 0) * steps,
+            f"train: {draws} draws of random bits in {steps} steps")
     tokens_per_s = batch_size * seq * TRAIN_STEPS / elapsed
     flops = mfu.transformer_train_flops_per_token(harness.model.config, seq)
     profile = train_profile.profile_steps(harness, batch, 2)
     row = {
-        "model": model, "fused_norm": fused, "loss": loss_path,
+        "model": model, "fused_norm": fused, "quantize_matmuls": quantize,
+        "loss": loss_path,
         "batch": batch_size, "seq_len": seq,
         "steps": steps, "timed_steps": TRAIN_STEPS,
         "launches": {k: counts[k] for k in per_step},
         "launches_per_step": {k: counts[k] / steps for k in per_step},
         "plain_calls": {k: n for k, n in plain.items() if n},
+        "bit_draws_per_step": draws / steps,
         "ms_per_step": elapsed / TRAIN_STEPS * 1e3,
         "tokens_per_s": tokens_per_s,
         "tflop_per_step": flops * batch_size * seq / 1e12,
@@ -1219,7 +1499,8 @@ def train(device, fused: bool = False) -> dict:
         "numerics": numerics, "profile": profile,
         "phase_s": time.perf_counter() - started,
     }
-    print(f"train{' fused' if fused else ''} " + json.dumps(row), flush=True)
+    label = " fused" if fused else " int8" if quantize else ""
+    print(f"train{label} " + json.dumps(row), flush=True)
     del harness, batch
     torch.cuda.empty_cache()
     return row
@@ -1369,7 +1650,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     sources = ("flash_attention", "decode_attention", "chunked_loss",
-               "fused_norm")
+               "fused_norm", "quantization")
     workdir = tempfile.TemporaryDirectory()
     tmp = pathlib.Path(workdir.name)
     with concurrent.futures.ThreadPoolExecutor(
@@ -1396,13 +1677,16 @@ def main() -> int:
     check_flash(device)
     loss_readings = check_loss(device, fault_libs["chunked_loss"])
     norm_readings = check_norm(device, fault_libs["fused_norm"])
+    quant_readings = check_quant(device, fault_libs["quantization"])
     timing = time_kernels(device)
     timing.update(time_flash(device, fault_libs["flash_attention"]))
     timing.update(time_loss(device, loss_readings))
     timing.update(time_norm(device, norm_readings))
+    timing.update(time_quant(device, quant_readings))
 
     # The unfused training phase reads no marker (the loss is the plain
-    # slab path); the fused phase reads one that records the K3-K5 check.
+    # slab path); the fused and int8 phases read one that records the
+    # K3-K5 check, as one bench run resolves ``auto`` alike for each.
     os.environ[kernel_select.MARKER_ENV] = str(tmp / "no_marker.json")
     trained = train(device)
     marker = tmp / "KERNEL_VALIDATION.json"
@@ -1411,6 +1695,7 @@ def main() -> int:
     os.environ[kernel_select.MARKER_ENV] = str(marker)
     try:
         fused = train(device, fused=True)
+        int8 = train(device, quantize=True)
     finally:
         os.environ.pop(kernel_select.MARKER_ENV)
         workdir.cleanup()
@@ -1423,15 +1708,15 @@ def main() -> int:
         t = timing[key]
         row = {"name": f"{meta['label']} {key}", "route": meta["route"],
                "source": meta["source"], "replaces": meta["replaces"]}
-        if key in trained["launches"]:
-            row["launches"] = trained["launches"][key]
+        main_run = next((run for run in (trained, fused, int8)
+                         if key in run["launches"]), None)
+        if main_run is not None:
+            row["launches"] = main_run["launches"][key]
             row["launches_per_train_step"] = \
-                trained["launches_per_step"][key]
-            row["launches_fused_train"] = fused["launches"][key]
-        elif key in fused["launches"]:
-            row["launches"] = fused["launches"][key]
-            row["launches_per_train_step"] = \
-                fused["launches_per_step"][key]
+                main_run["launches_per_step"][key]
+            for name, run in (("fused", fused), ("int8", int8)):
+                if run is not main_run and key in run["launches"]:
+                    row[f"launches_{name}_train"] = run["launches"][key]
         else:
             row["launches"] = served[key]["launches"]
             row["launches_per_decode_step"] = \
