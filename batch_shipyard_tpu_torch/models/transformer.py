@@ -10,7 +10,9 @@ Training (``decode=False``, no cache): attention goes through
 flash kernels (K1 forward, K2 backward) for CUDA tensors and runs the
 plain blockwise softmax for CPU tensors. ``remat`` recomputes each block
 in the backward (``torch.utils.checkpoint``, the reference's
-``nn.remat(Block)``). With ``fused_norm`` each block feeds its raw
+``nn.remat(Block)``); with sequence parallelism ``attention_fn`` is
+ring attention over the ranks' shards, and ``positions`` carry each
+shard's global offsets. With ``fused_norm`` each block feeds its raw
 residual stream into ``ops.fused_norm.rmsnorm_matmul`` twice: one
 [d, 3F] qkv projection and one [d, 2*d_ff] gate/up projection, whose
 forward is the K9 kernel for CUDA tensors. ``lm_loss`` and
@@ -44,7 +46,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from batch_shipyard_tpu_torch.ops import attention as attn_ops
 from batch_shipyard_tpu_torch.ops import chunked_loss
@@ -502,7 +504,13 @@ class TransformerLM(nn.Module):
             remat = cfg.remat and torch.is_grad_enabled()
             for block in self.blocks():
                 if remat:
-                    x = checkpoint(block, x, positions, use_reentrant=False)
+                    # Early stop off: the recompute runs the whole block,
+                    # so a ring attention_fn rotates as often on every
+                    # rank (ops/ring_attention.py), whichever saved
+                    # tensors that rank needs.
+                    with set_checkpoint_early_stop(False):
+                        x = checkpoint(block, x, positions,
+                                       use_reentrant=False)
                 else:
                     x = block(x, positions)
         else:

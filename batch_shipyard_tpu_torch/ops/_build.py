@@ -32,6 +32,9 @@ _vp = ctypes.c_void_p
 _int = ctypes.c_int
 _float = ctypes.c_float
 _i64p = ctypes.POINTER(ctypes.c_longlong)
+_ll = ctypes.c_longlong
+_ull = ctypes.c_ulonglong
+_intp = ctypes.POINTER(ctypes.c_int)
 
 # C signatures of the exported entry points, per source file.
 SIGNATURES = {
@@ -65,6 +68,30 @@ SIGNATURES = {
     "quantization": {
         "bs_quantize_int8": ([_int] + [_vp] * 4 + [_int] * 3 + [_vp], _int),
         "bs_int8_matmul": ([_int] + [_vp] * 5 + [_int] * 3 + [_vp], _int),
+        "bs_error_string": ([_int], ctypes.c_char_p),
+    },
+    "ring_collectives": {
+        "bs_ring_alloc": ([_int, _ll, ctypes.POINTER(_vp)], _int),
+        "bs_ring_free": ([_int, _vp], _int),
+        "bs_ring_export": ([_int, _vp, _vp], _int),
+        "bs_ring_import": ([_int, _vp, ctypes.POINTER(_vp)], _int),
+        "bs_ring_close": ([_int, _vp], _int),
+        "bs_ring_flag_alloc": ([_int, ctypes.POINTER(_intp)], _int),
+        "bs_ring_flag_free": ([_intp], _int),
+        "bs_ring_read_pad": ([_int, _vp, ctypes.POINTER(_ull)], _int),
+        "bs_ring_permute": (
+            [_int] + [_vp] * 6 + [_ll] * 3 + [_ull, _int, _intp, _ll, _vp],
+            _int),
+        "bs_ring_all_gather": (
+            [_int] + [_vp] * 4 + [_ll] * 2 + [_int] * 2 +
+            [_ull, _int, _intp, _ll, _vp], _int),
+        "bs_ring_reduce_scatter": (
+            [_int] + [_vp] * 4 + [_ll] * 2 + [_int] * 2 +
+            [_ull, _int, _int, _intp, _ll, _vp], _int),
+        "bs_virtual_all_gather": (
+            [_int] + [_vp] * 3 + [_ll, _int, _int, _vp], _int),
+        "bs_virtual_reduce_scatter": (
+            [_int] + [_vp] * 3 + [_ll, _int, _int, _int, _vp], _int),
         "bs_error_string": ([_int], ctypes.c_char_p),
     },
 }

@@ -20,8 +20,9 @@ v are [B, T, H, D]; the logsumexp rows are fp32 [B*H, T, 1].
 - ``attention``: the kernel for CUDA tensors, ``blockwise_mha`` for CPU
   tensors (the reference's choice off the TPU).
 
-``merge_attention_blocks`` and ``masked_attention_block`` serve ring
-attention only and come with it.
+- ``merge_attention_blocks`` / ``masked_attention_block``: ring
+  attention's merge of partials in logsumexp space (ops/ring_attention.py),
+  and ``flash_shapes_ok``, which shard lengths K1/K2 take.
 """
 
 from __future__ import annotations
@@ -347,6 +348,48 @@ def flash_attention_with_lse(q, k, v, causal: bool = True):
     """flash_attention that also returns the logsumexp rows ([B*H, T, 1]
     fp32), differentiable: the ring-attention building block."""
     return _FlashAttention.apply(q, k, v, causal, True)
+
+
+def flash_shapes_ok(t_q: int, t_kv: int, depth: int) -> bool:
+    """Does K1/K2 take these shapes? Its tiles mask the ragged tail, so
+    any length works; it needs q and kv of one length and a head depth in
+    SUPPORTED_DEPTHS. (The reference's check, attention.py:43-51, encodes
+    TPU blocks of 512/1024 that do not apply here.)"""
+    return t_q == t_kv and t_q >= 1 and depth in SUPPORTED_DEPTHS
+
+
+# ------------------ ring attention's merge of partials ------------------
+
+
+def merge_attention_blocks(o1, lse1, o2, lse2):
+    """Merge two normalized attention partials in logsumexp space.
+
+    o_i: [B, T, H, D]; lse_i: [B*H, T, 1] fp32 with _NEG_INF marking rows
+    that see no key. Returns (o, lse) of the attention over the union of
+    the two key sets, o in o1's dtype."""
+    batch, t_len, heads, _ = o1.shape
+    l1 = lse1.reshape(batch, heads, t_len).transpose(1, 2)
+    l2 = lse2.reshape(batch, heads, t_len).transpose(1, 2)
+    m = torch.maximum(l1, l2)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    w1 = torch.where(l1 > _NEG_INF / 2, torch.exp(l1 - m_safe), 0.0)
+    w2 = torch.where(l2 > _NEG_INF / 2, torch.exp(l2 - m_safe), 0.0)
+    denom = w1 + w2
+    denom_safe = torch.where(denom == 0.0, 1.0, denom)
+    o = (o1.float() * (w1 / denom_safe)[..., None] +
+         o2.float() * (w2 / denom_safe)[..., None])
+    lse = torch.where(denom > 0.0, m_safe + torch.log(denom_safe), _NEG_INF)
+    lse = lse.transpose(1, 2).reshape(batch * heads, t_len, 1)
+    return o.to(o1.dtype), lse
+
+
+def masked_attention_block(q):
+    """The identity of merge_attention_blocks: zero output, _NEG_INF
+    logsumexp (no key visible)."""
+    batch, t_len, heads, _ = q.shape
+    return (torch.zeros_like(q),
+            torch.full((batch * heads, t_len, 1), _NEG_INF,
+                       dtype=torch.float32, device=q.device))
 
 
 def attention(q, k, v, causal: bool = True, impl: Optional[str] = None,

@@ -1,0 +1,462 @@
+"""Ring collectives: the ring permute of ring attention (K12), the ring
+all-gather (K13) and reduce-scatter (K14), and their one-device schedules
+(K15, K16).
+
+Counterpart of batch_shipyard_tpu/ops/ring_collectives.py. The kernels are
+``csrc/ring_collectives.cu`` (its head note gives the design: persistent
+symmetric buffers mapped by CUDA IPC, a pull protocol on growing epoch
+counters, bounded spins that turn a missing rank into an error). Each has
+a plain version beside it, which CPU tensors take:
+
+- ``ring_permute`` (K12): one +-1 ring rotation of a (K, V) pair over the
+  group. ``ring_permute_pair`` is its autograd Function: the backward is
+  the opposite shift, as the reference's custom_vjp.
+- ``ring_all_gather`` (K13): a chunk [c, ...] from every rank ->
+  [ring * c, ...] in rank order, the reference's ``lax.all_gather(tiled)``.
+- ``ring_reduce_scatter`` (K14): [ring * c, ...] from every rank -> this
+  rank's reduced chunk [c, ...], ``psum_scatter(tiled)``; the partials add
+  in ring order (rs_chunk_index), in the kernel and the plain version alike.
+- ``ring_all_gather_virtual`` / ``ring_reduce_scatter_virtual`` (K15,
+  K16): the same slot schedules over ring members held on one device,
+  pure functions of one tensor.
+
+The reference's sequence-parallel path calls only K12; XLA inserts its
+gradient collectives. The port has no XLA, so its gradient all-reduce over
+the sp ranks is K14 followed by K13 on one flat fp32 bucket
+(parallel/train.py).
+
+K12-K14 take a ring group (parallel/mesh.RingGroup): its rank, size, gloo
+process group and, on the card, its symmetric buffers and error word
+(a wait longer than the group's timeout sets it; ``group.check()``, before
+each launch and after a synchronise, raises). The plain versions run the same schedule over the
+gloo process group with isend/irecv (gloo takes CPU tensors only). On a CUDA
+tensor a wrapper launches its kernel or raises; nothing falls back.
+
+What bounds them: bytes. Per call and rank, K12 reads its (K, V) pair and
+writes the pair it receives; K13 reads its chunk and writes ring chunks;
+K14 reads ring chunks and writes one. On one card that is those bytes over
+the memory rate; across cards, the (ring - 1) chunks (K12: the pair) a
+rank sends over NVLink. The staging slot doubles a rank's own writes
+(pull design, see the .cu note); four ranks time-sliced on one card wait
+for each other's timeslices, which no bound counts.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.distributed as dist
+
+from batch_shipyard_tpu_torch.ops import _build
+from batch_shipyard_tpu_torch.ops.paged_attention import stream_handle
+from batch_shipyard_tpu_torch.parallel.mesh import SLOT_ALIGN, _round_up
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Kernel launches (one per wrapper call; K15/K16 launch once per ring step
+# inside one call). chip_smoke.py zeroes and reads these.
+launches = {"ring_permute": 0, "ring_all_gather": 0,
+            "ring_reduce_scatter": 0, "virtual_all_gather": 0,
+            "virtual_reduce_scatter": 0}
+plain_calls = dict.fromkeys(launches, 0)
+
+
+# ---------------------------- schedule arithmetic -------------------------
+
+
+def ag_source_shard(my_idx: int, step: int, ring: int) -> int:
+    """All-gather: the shard that reaches ring member ``my_idx`` at step
+    ``step`` (0-based) is the one member (my_idx - step - 1) % ring holds."""
+    return (my_idx - step - 1) % ring
+
+
+def rs_chunk_index(my_idx: int, step: int, ring: int) -> int:
+    """Reduce-scatter: the chunk whose partial reaches ``my_idx`` at step
+    ``step``; step -1 is the member's first send, (my_idx - 1) % ring. After
+    ring - 1 steps member i holds chunk i reduced (psum_scatter's tiled
+    layout)."""
+    return (my_idx - step - 2) % ring
+
+
+def copy_unit(*values: int) -> int:
+    """The widest access (16, 8, 4, 2 or 1 bytes) that divides every size,
+    offset and address given."""
+    for unit in (16, 8, 4, 2, 1):
+        if all(v % unit == 0 for v in values):
+            return unit
+    return 1
+
+
+def permute_slot_bytes(nbytes: int) -> int:
+    """K12's slot: K, then V at the next SLOT_ALIGN boundary."""
+    return _round_up(nbytes, SLOT_ALIGN) + nbytes
+
+
+def _vector(chunk_elems: int, dtype: torch.dtype, *tensors) -> int:
+    """1 when 16-byte lanes of ``dtype`` fit every chunk and address."""
+    lane = 16 // torch.empty((), dtype=dtype).element_size()
+    return int(chunk_elems % lane == 0 and
+               all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _lib(library):
+    return library or _build.library("ring_collectives")
+
+
+def _check_cuda(name: str, t: torch.Tensor, group) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors; CPU "
+                         f"tensors go to the plain version")
+    if t.device != group.device:
+        raise ValueError(f"{name} is on {t.device}, the group on "
+                         f"{group.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+# ---------------------- one-device schedules (K15, K16) -------------------
+
+
+def _check_virtual(x: torch.Tensor, what: str) -> int:
+    ring = x.shape[0]
+    if ring < 2:
+        raise ValueError(f"virtual ring needs >= 2 members, got {ring}")
+    if x.dim() < 2:
+        raise ValueError(f"{what} must be [ring, rows, ...], got "
+                         f"{tuple(x.shape)}")
+    return ring
+
+
+def ring_all_gather_virtual_reference(x_shards: torch.Tensor
+                                      ) -> torch.Tensor:
+    """Plain version of K15: [ring, chunk, ...] -> [ring, ring * chunk, ...],
+    row i what member i holds after the ring all-gather schedule, with
+    members' [ring, 2, chunk, ...] slots as in the reference kernel."""
+    plain_calls["virtual_all_gather"] += 1
+    ring = _check_virtual(x_shards, "x_shards")
+    chunk = x_shards.shape[1]
+    out = x_shards.new_empty((ring, ring * chunk) + x_shards.shape[2:])
+    comm = x_shards.new_empty((ring, 2) + x_shards.shape[1:])
+    for i in range(ring):
+        out[i, i * chunk:(i + 1) * chunk] = x_shards[i]
+        comm[i, 0] = x_shards[i]
+    for step in range(ring - 1):
+        slot, nxt = step % 2, (step + 1) % 2
+        for i in range(ring):
+            comm[(i + 1) % ring, nxt] = comm[i, slot]
+        if step > 0:
+            for i in range(ring):
+                src = ag_source_shard(i, step - 1, ring)
+                out[i, src * chunk:(src + 1) * chunk] = comm[i, slot]
+    for i in range(ring):
+        src = ag_source_shard(i, ring - 2, ring)
+        out[i, src * chunk:(src + 1) * chunk] = comm[i, (ring - 1) % 2]
+    return out
+
+
+def ring_reduce_scatter_virtual_reference(x_rows: torch.Tensor
+                                          ) -> torch.Tensor:
+    """Plain version of K16: [ring, ring * chunk, ...] -> [ring, chunk,
+    ...], row i member i's chunk reduced in ring order: at each step a
+    member adds its own part to the partial that arrived, in fp32, rounded
+    to the input's type."""
+    plain_calls["virtual_reduce_scatter"] += 1
+    ring = _check_virtual(x_rows, "x_rows")
+    if x_rows.shape[1] % ring:
+        raise ValueError(f"row length {x_rows.shape[1]} must be divisible "
+                         f"by the ring size {ring}")
+    chunk = x_rows.shape[1] // ring
+
+    def part(i, c):
+        return x_rows[i, c * chunk:(c + 1) * chunk]
+    comm = x_rows.new_empty((ring, 2, chunk) + x_rows.shape[2:])
+    for i in range(ring):
+        comm[i, 0] = part(i, rs_chunk_index(i, -1, ring))
+    for step in range(ring - 1):
+        slot, nxt = step % 2, (step + 1) % 2
+        for i in range(ring):
+            comm[(i + 1) % ring, nxt] = comm[i, slot]
+        for i in range(ring):
+            local = part(i, rs_chunk_index(i, step, ring))
+            comm[i, nxt] = (comm[i, nxt].float() + local.float()).to(
+                x_rows.dtype)
+    return comm[:, (ring - 1) % 2].clone()
+
+
+def ring_all_gather_virtual_kernel(x_shards: torch.Tensor,
+                                   library=None) -> torch.Tensor:
+    """K15 on the card (any dtype: it copies bytes)."""
+    ring = _check_virtual(x_shards, "x_shards")
+    if not x_shards.is_cuda or not x_shards.is_contiguous():
+        raise ValueError("K15 takes a contiguous CUDA tensor")
+    chunk = x_shards.shape[1]
+    nbytes = x_shards[0].numel() * x_shards.element_size()
+    out = x_shards.new_empty((ring, ring * chunk) + x_shards.shape[2:])
+    comm = x_shards.new_empty((ring, 2) + x_shards.shape[1:])
+    lib = _lib(library)
+    dev = x_shards.device
+    unit = copy_unit(nbytes, x_shards.data_ptr(), out.data_ptr(),
+                     comm.data_ptr())
+    rc = lib.bs_virtual_all_gather(dev.index or 0, x_shards.data_ptr(),
+                                   out.data_ptr(), comm.data_ptr(), nbytes,
+                                   ring, unit, stream_handle(dev))
+    _build.check(rc, "virtual ring all-gather", lib)
+    launches["virtual_all_gather"] += 1
+    return out
+
+
+def ring_reduce_scatter_virtual_kernel(x_rows: torch.Tensor,
+                                       library=None) -> torch.Tensor:
+    """K16 on the card (fp32 or bf16)."""
+    ring = _check_virtual(x_rows, "x_rows")
+    if not x_rows.is_cuda or not x_rows.is_contiguous():
+        raise ValueError("K16 takes a contiguous CUDA tensor")
+    if x_rows.dtype not in DTYPE_CODES:
+        raise ValueError(f"dtype {x_rows.dtype} not in {tuple(DTYPE_CODES)}")
+    if x_rows.shape[1] % ring:
+        raise ValueError(f"row length {x_rows.shape[1]} must be divisible "
+                         f"by the ring size {ring}")
+    chunk = x_rows.shape[1] // ring
+    elems = chunk * math.prod(x_rows.shape[2:])
+    out = x_rows.new_empty((ring, chunk) + x_rows.shape[2:])
+    comm = x_rows.new_empty((ring, 2, chunk) + x_rows.shape[2:])
+    lib = _lib(library)
+    dev = x_rows.device
+    rc = lib.bs_virtual_reduce_scatter(
+        dev.index or 0, x_rows.data_ptr(), out.data_ptr(), comm.data_ptr(),
+        elems, ring, DTYPE_CODES[x_rows.dtype],
+        _vector(elems, x_rows.dtype, x_rows, out, comm), stream_handle(dev))
+    _build.check(rc, "virtual ring reduce-scatter", lib)
+    launches["virtual_reduce_scatter"] += 1
+    return out
+
+
+def ring_all_gather_virtual(x_shards: torch.Tensor) -> torch.Tensor:
+    """The all-gather schedule over ``ring`` members on one device: K15
+    for a CUDA tensor, its plain version for a CPU tensor."""
+    if x_shards.is_cuda:
+        return ring_all_gather_virtual_kernel(x_shards)
+    return ring_all_gather_virtual_reference(x_shards)
+
+
+def ring_reduce_scatter_virtual(x_rows: torch.Tensor) -> torch.Tensor:
+    """The reduce-scatter schedule over ``ring`` members on one device:
+    K16 for a CUDA tensor, its plain version for a CPU tensor."""
+    if x_rows.is_cuda:
+        return ring_reduce_scatter_virtual_kernel(x_rows)
+    return ring_reduce_scatter_virtual_reference(x_rows)
+
+
+# ------------------------- across ranks (K12-K14) -------------------------
+
+
+def _exchange(send: torch.Tensor, dst: int, recv: torch.Tensor, src: int,
+              tag: int = 0) -> list:
+    """Post one send and one receive over the gloo process group; returns
+    the requests."""
+    return [dist.isend(send, dst, tag=tag), dist.irecv(recv, src, tag=tag)]
+
+
+def _check_plain(name: str, t: torch.Tensor) -> None:
+    if t.is_cuda:
+        raise ValueError(f"{name}: the plain version runs over gloo and "
+                         f"takes CPU tensors; CUDA tensors launch the kernel")
+
+
+def ring_permute_reference(k: torch.Tensor, v: torch.Tensor, group,
+                           shift: int = 1):
+    """Plain version of K12: rank r sends (k, v) to rank r + shift and
+    returns what rank r - shift sent."""
+    _check_plain("ring_permute", k)
+    plain_calls["ring_permute"] += 1
+    ring, me = group.size, group.rank
+    dst, src = (me + shift) % ring, (me - shift) % ring
+    k, v = k.contiguous(), v.contiguous()
+    k_out, v_out = torch.empty_like(k), torch.empty_like(v)
+    reqs = (_exchange(k, dst, k_out, src, tag=0) +
+            _exchange(v, dst, v_out, src, tag=1))
+    for req in reqs:
+        req.wait()
+    return k_out, v_out
+
+
+def ring_all_gather_reference(x: torch.Tensor, group) -> torch.Tensor:
+    """Plain version of K13: the ring schedule over gloo. Step t forwards
+    to the right what arrived from the left at step t - 1 (the own chunk
+    first) and files what arrives under ag_source_shard."""
+    _check_plain("ring_all_gather", x)
+    plain_calls["ring_all_gather"] += 1
+    ring, me = group.size, group.rank
+    chunk = x.shape[0]
+    out = x.new_empty((ring * chunk,) + x.shape[1:])
+    out[me * chunk:(me + 1) * chunk] = x
+    cur = x.contiguous()
+    for step in range(ring - 1):
+        nxt = torch.empty_like(cur)
+        for req in _exchange(cur, group.right, nxt, group.left):
+            req.wait()
+        src = ag_source_shard(me, step, ring)
+        out[src * chunk:(src + 1) * chunk] = nxt
+        cur = nxt
+    return out
+
+
+def ring_reduce_scatter_reference(x: torch.Tensor, group) -> torch.Tensor:
+    """Plain version of K14: each step sends the partial to the right and
+    adds this rank's part of the chunk rs_chunk_index names to the partial
+    that arrived from the left (fp32 sum rounded to x's type, K14's order
+    of additions)."""
+    _check_plain("ring_reduce_scatter", x)
+    plain_calls["ring_reduce_scatter"] += 1
+    ring, me = group.size, group.rank
+    if x.shape[0] % ring:
+        raise ValueError(f"reduce-scatter dim 0 ({x.shape[0]}) must be "
+                         f"divisible by the ring size {ring}")
+    chunk = x.shape[0] // ring
+
+    def part(c):
+        return x[c * chunk:(c + 1) * chunk]
+    cur = part(rs_chunk_index(me, -1, ring)).contiguous()
+    for step in range(ring - 1):
+        arrived = torch.empty_like(cur)
+        for req in _exchange(cur, group.right, arrived, group.left):
+            req.wait()
+        local = part(rs_chunk_index(me, step, ring))
+        cur = (arrived.float() + local.float()).to(x.dtype)
+    return cur
+
+
+def ring_permute_kernel(k: torch.Tensor, v: torch.Tensor, group,
+                        shift: int = 1, library=None):
+    """K12 on the card: k, v (contiguous, one shape and dtype) to rank
+    r + shift; returns (k, v) of rank r - shift. ``library``: a loaded
+    build of csrc/ring_collectives.cu (default: the group's)."""
+    _check_cuda("k", k, group)
+    _check_cuda("v", v, group)
+    if k.shape != v.shape or k.dtype != v.dtype:
+        raise ValueError("ring_permute takes k and v of one shape and dtype")
+    group.check()
+    ring, me = group.size, group.rank
+    nbytes = k.numel() * k.element_size()
+    v_offset = _round_up(nbytes, SLOT_ALIGN)
+    buf = group.buffer("permute", permute_slot_bytes(nbytes))
+    k_out, v_out = torch.empty_like(k), torch.empty_like(v)
+    epoch = buf.calls + 1
+    unit = copy_unit(nbytes, v_offset, k.data_ptr(), v.data_ptr(),
+                     k_out.data_ptr(), v_out.data_ptr())
+    lib = library or group.library
+    dev = k.device
+    rc = lib.bs_ring_permute(
+        dev.index or 0, k.data_ptr(), v.data_ptr(), k_out.data_ptr(),
+        v_out.data_ptr(), buf.ptr, buf.peer((me - shift) % ring), nbytes,
+        v_offset, buf.slot_stride, epoch, unit, group.error,
+        group.timeout_ns, stream_handle(dev))
+    _build.check(rc, "ring permute", lib)
+    buf.calls = epoch
+    launches["ring_permute"] += 1
+    return k_out, v_out
+
+
+def ring_all_gather_kernel(x: torch.Tensor, group,
+                           library=None) -> torch.Tensor:
+    """K13 on the card: x [c, ...] -> [ring * c, ...] (any dtype)."""
+    _check_cuda("x", x, group)
+    group.check()
+    ring, me = group.size, group.rank
+    nbytes = x.numel() * x.element_size()
+    buf = group.buffer("all_gather", nbytes)
+    out = x.new_empty((ring * x.shape[0],) + x.shape[1:])
+    unit = copy_unit(nbytes, x.data_ptr(), out.data_ptr())
+    lib = library or group.library
+    dev = x.device
+    rc = lib.bs_ring_all_gather(
+        dev.index or 0, x.data_ptr(), out.data_ptr(), buf.ptr,
+        buf.peer(group.left), nbytes, buf.slot_stride, me, ring,
+        buf.writes, unit, group.error, group.timeout_ns, stream_handle(dev))
+    _build.check(rc, "ring all-gather", lib)
+    buf.writes += ring - 1
+    launches["ring_all_gather"] += 1
+    return out
+
+
+def ring_reduce_scatter_kernel(x: torch.Tensor, group,
+                               library=None) -> torch.Tensor:
+    """K14 on the card: x [ring * c, ...] (fp32 or bf16) -> [c, ...]."""
+    _check_cuda("x", x, group)
+    if x.dtype not in DTYPE_CODES:
+        raise ValueError(f"dtype {x.dtype} not in {tuple(DTYPE_CODES)}")
+    ring, me = group.size, group.rank
+    if x.shape[0] % ring:
+        raise ValueError(f"reduce-scatter dim 0 ({x.shape[0]}) must be "
+                         f"divisible by the ring size {ring}")
+    group.check()
+    chunk_rows = x.shape[0] // ring
+    chunk = x.numel() // ring
+    buf = group.buffer("reduce_scatter", chunk * x.element_size())
+    out = x.new_empty((chunk_rows,) + x.shape[1:])
+    lib = library or group.library
+    dev = x.device
+    rc = lib.bs_ring_reduce_scatter(
+        dev.index or 0, x.data_ptr(), out.data_ptr(), buf.ptr,
+        buf.peer(group.left), chunk, buf.slot_stride, me, ring,
+        buf.writes, DTYPE_CODES[x.dtype], _vector(chunk, x.dtype, x, out),
+        group.error, group.timeout_ns, stream_handle(dev))
+    _build.check(rc, "ring reduce-scatter", lib)
+    buf.writes += ring - 1
+    launches["ring_reduce_scatter"] += 1
+    return out
+
+
+def ring_permute(k, v, group, shift: int = 1, impl=None):
+    """One ring rotation of (k, v): impl None picks K12 for CUDA tensors and
+    the plain version for CPU tensors; "kernel" or "plain" insist."""
+    if impl is None:
+        impl = "kernel" if k.is_cuda else "plain"
+    if impl == "kernel":
+        return ring_permute_kernel(k, v, group, shift)
+    if impl == "plain":
+        return ring_permute_reference(k, v, group, shift)
+    raise ValueError(f"unknown ring permute impl {impl!r}")
+
+
+def ring_all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """[c, ...] from every rank -> [ring * c, ...] in rank order: K13 for a
+    CUDA tensor, its plain version for a CPU tensor."""
+    if x.is_cuda:
+        return ring_all_gather_kernel(x, group)
+    return ring_all_gather_reference(x, group)
+
+
+def ring_reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """[ring * c, ...] from every rank -> the sum over ranks of chunk
+    ``group.rank``: K14 for a CUDA tensor, its plain version for a CPU
+    tensor."""
+    if x.is_cuda:
+        return ring_reduce_scatter_kernel(x, group)
+    return ring_reduce_scatter_reference(x, group)
+
+
+class _RingPermute(torch.autograd.Function):
+    """+1 rotation forward; the transpose of a +1 shift is the -1 shift
+    (y_i = x_{i-1} => dx_j = dy_{j+1}), so the backward rotates the
+    cotangents the other way."""
+
+    @staticmethod
+    def forward(ctx, k, v, group, impl):
+        ctx.group, ctx.impl = group, impl
+        return ring_permute(k, v, group, 1, impl)
+
+    @staticmethod
+    def backward(ctx, g_k, g_v):
+        g_k, g_v = ring_permute(g_k.contiguous(), g_v.contiguous(),
+                                ctx.group, -1, ctx.impl)
+        return g_k, g_v, None, None
+
+
+def ring_permute_pair(k, v, group, impl=None):
+    """One +1 ring rotation of the (K, V) pair, differentiable. A ring of
+    one returns its input."""
+    if group.size == 1:
+        return k, v
+    return _RingPermute.apply(k, v, group, impl)

@@ -6,11 +6,16 @@ the host clock with a synchronise, then ``steps`` more under
 time (union of kernel intervals) and idle share, each hand-written
 kernel's time and share of device time (flash K1, K2; the fused
 cross-entropy K3, K4, K5; the fused RMSNorm+matmul K9; the int8 quantize
-K10 and matmul K11), the library GEMMs' time and share (cuBLAS's
-kernels: the int8 step's fp32 backward products, the other steps'
-projections and slab-loss products), and the largest device kernels.
-chip_smoke.py runs it on bench.py ``bench_transformer``'s model after
-its counted training steps. CUDA only.
+K10 and matmul K11; on a sequence-parallel ring the permute K12 and the
+gradient all-reduce K13 + K14), the library GEMMs' time and share
+(cuBLAS's kernels: the int8 step's fp32 backward products, the other
+steps' projections and slab-loss products), and the largest device
+kernels. On a ring it also splits the ring kernels' time into ring wait
+(what block 0 of each ring kernel spent waiting on a neighbour, from the
+group's pads) and the rest (copies, adds and launch). chip_smoke.py runs
+it on bench.py ``bench_transformer``'s model after its counted training
+steps, and ``workloads/train_transformer.py --profile-steps`` on every
+rank. CUDA only.
 """
 
 from __future__ import annotations
@@ -34,12 +39,19 @@ XENT_BWD_E = "xent_bwd_e_kernel"
 RMSNORM_MATMUL = "rmsnorm_matmul_kernel"
 QUANTIZE_INT8 = "quantize_int8_kernel"
 INT8_MATMUL = "int8_matmul_kernel"
+# csrc/ring_collectives.cu (the virtual_* kernels do not match these).
+RING_PERMUTE = "ring_permute_kernel"
+RING_ALL_GATHER = "ring_all_gather_kernel"
+RING_REDUCE_SCATTER = "ring_reduce_scatter_kernel"
 KERNEL_SYMBOLS = {
     "flash_fwd": (FLASH_FWD,), "flash_bwd": FLASH_BWD,
     "xent_fwd": (XENT_FWD,), "xent_bwd_h": (XENT_BWD_H,),
     "xent_bwd_e": (XENT_BWD_E,), "rmsnorm_matmul": (RMSNORM_MATMUL,),
     "quantize_int8": (QUANTIZE_INT8,), "int8_matmul": (INT8_MATMUL,),
+    "ring_permute": (RING_PERMUTE,), "ring_all_gather": (RING_ALL_GATHER,),
+    "ring_reduce_scatter": (RING_REDUCE_SCATTER,),
 }
+RING_KERNELS = ("ring_permute", "ring_all_gather", "ring_reduce_scatter")
 # cuBLAS's GEMM kernels: cutlass / xmma "...gemm..." and its JIT "nvjet_".
 LIBRARY_GEMM = ("gemm", "nvjet")
 
@@ -53,11 +65,16 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
         harness.step(batch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - started) * 1e3 / steps
+    group = getattr(harness, "group", None)
+    wait_ns = group.wait_ns() if group is not None else 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             harness.step(batch)
         torch.cuda.synchronize()
+    if group is not None:
+        group.check()
+        wait_ns = group.wait_ns() - wait_ns
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
@@ -75,7 +92,20 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
         for key, symbols in KERNEL_SYMBOLS.items()}
     gemm_us = sum(us for name, us in by_name.items()
                   if any(symbol in name.lower() for symbol in LIBRARY_GEMM))
+    ring = {}
+    if group is not None:
+        ring_us = sum(per_kernel[key] for key in RING_KERNELS)
+        ring = {
+            "ring_ms_per_step": ring_us / 1e3 / steps,
+            "ring_share_of_device": ring_us / device_us,
+            "ring_all_reduce_ms_per_step": (
+                per_kernel["ring_all_gather"] +
+                per_kernel["ring_reduce_scatter"]) / 1e3 / steps,
+            "ring_wait_ms_per_step": wait_ns / 1e6 / steps,
+            "ring_rest_ms_per_step": (ring_us - wait_ns / 1e3) / 1e3 / steps,
+        }
     return {
+        **ring,
         "steps": steps,
         "wall_ms_per_step": wall_ms,
         "profiled_window_ms_per_step": window_us / 1e3 / steps,

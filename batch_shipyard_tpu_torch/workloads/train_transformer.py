@@ -1,21 +1,30 @@
-"""Transformer LM training payload on one device.
+"""Transformer LM training payload: one device, or a sequence-parallel
+ring of ranks.
 
 Counterpart of batch_shipyard_tpu/workloads/train_transformer.py for
-the dense single-device path, with its flags and defaults (``--int8``:
-int8 matmuls for every projection, a full-precision backward) plus
-``--device {cuda,cpu}`` and ``--seed``:
+the dense path, with its flags and defaults (``--int8``: int8 matmuls for
+every projection, a full-precision backward; ``--sp N``: ring attention
+over N ranks) plus ``--device {cuda,cpu}``, ``--seed`` and
+``--profile-steps``:
 
     python -m batch_shipyard_tpu_torch.workloads.train_transformer \
         --seq-len 2048 --batch 8 --steps 20
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m batch_shipyard_tpu_torch.workloads.train_transformer \
+        --seq-len 8192 --sp 4 --steps 20
 
 Weights are drawn from ``--seed`` (models/convert.init_params); one
 random batch of tokens and targets from ``np.random.RandomState(seed)``
-is repeated every step, as in the reference. Prints the reference's
-summary line, then one JSON line with tokens/s, ms/step, MFU (None off
-a card in parallel/mfu's table) and peak device memory.
+is repeated every step, as in the reference; with ``--sp`` every rank
+draws the same global batch and trains its sequence shard
+(parallel/train.py). Rank 0 prints the reference's summary line (with
+``mesh=``), then one JSON line with tokens/s of the global batch, ms/step,
+MFU (None off a card in parallel/mfu's table), peak device memory and,
+per rank, its kernel launches (and, with ``--profile-steps``,
+trace/train_profile's device breakdown and ring wait).
 
-Not offered yet (ROADMAP): --tp/--sp/--fsdp/--ep, --moe-experts and the
-checkpoint and compile-cache flags.
+Not offered yet (ROADMAP): --tp/--fsdp/--ep, dp > 1, --moe-experts and
+the checkpoint and compile-cache flags.
 """
 
 from __future__ import annotations
@@ -26,10 +35,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from batch_shipyard_tpu_torch.device import resolve_device
+from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
 from batch_shipyard_tpu_torch.parallel import mfu
 from batch_shipyard_tpu_torch.parallel import train as train_mod
+from batch_shipyard_tpu_torch.workloads import distributed
 
 # bench.py ``bench_transformer``'s model and batch (the repo's training
 # benchmark): bf16 compute over fp32 parameters, no layer remat.
@@ -42,18 +53,21 @@ BENCH_TRANSFORMER_BATCH, BENCH_TRANSFORMER_SEQ = 16, 2048
 def build_bench_harness(device, seed: int = 0,
                         batch_size: int = BENCH_TRANSFORMER_BATCH,
                         seq_len: int = BENCH_TRANSFORMER_SEQ,
-                        fused_norm: bool = False, quantize: bool = False
+                        fused_norm: bool = False, quantize: bool = False,
+                        group=None, remat: bool = False
                         ) -> train_mod.TrainHarness:
     """bench_transformer's model with weights drawn from ``seed``;
     ``fused_norm`` and ``quantize`` as bench_transformer(fused_norm=...,
-    quantize=...)."""
+    quantize=...); ``group``: a sequence-parallel RingGroup (ring
+    attention over its ranks); ``remat`` as the workload's default."""
     config = train_mod.make_transformer_config(
+        sp=group.size if group is not None else 1, group=group,
         **BENCH_TRANSFORMER_MODEL, max_seq_len=seq_len,
-        dtype=torch.bfloat16, remat=False, fused_norm=fused_norm,
+        dtype=torch.bfloat16, remat=remat, fused_norm=fused_norm,
         quantize_matmuls=quantize)
     return train_mod.build_transformer_train(
         config, batch_size=batch_size, seq_len=seq_len, seed=seed,
-        device=device)
+        device=device, group=group)
 
 
 def random_batch(vocab: int, batch: int, seq_len: int, seed: int,
@@ -64,6 +78,28 @@ def random_batch(vocab: int, batch: int, seq_len: int, seed: int,
     return {name: torch.from_numpy(np.asarray(
         rng.randint(0, vocab, (batch, seq_len)), np.int32)).to(device)
         for name in ("tokens", "targets")}
+
+
+def _training_ops():
+    from batch_shipyard_tpu_torch.ops import (attention, chunked_loss,
+                                              fused_norm, quantization,
+                                              ring_collectives)
+    return (attention, chunked_loss, fused_norm, quantization,
+            ring_collectives)
+
+
+def launch_counts() -> dict:
+    """Every training kernel wrapper's launch count so far, by kernel."""
+    return {key: n for module in _training_ops()
+            for key, n in module.launches.items()}
+
+
+def plain_counts() -> dict:
+    """Calls of the training path's plain versions so far, as
+    ``module.version`` (``chunked_loss.chunked``, ...)."""
+    return {f"{module.__name__.rsplit('.', 1)[-1]}.{key}": n
+            for module in _training_ops()
+            for key, n in module.plain_calls.items()}
 
 
 def main(argv=None) -> int:
@@ -77,6 +113,9 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--warmup", type=int, default=2)
+    parser.add_argument("--sp", type=int, default=1,
+                        help="sequence-parallel ranks (ring attention); "
+                             "run under torch.distributed.run")
     parser.add_argument("--int8", action="store_true",
                         help="int8 matmuls for projections/MLP "
                              "(QAT straight-through backward)")
@@ -84,47 +123,88 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--profile-steps", type=int, default=0,
+                        help="then profile this many steps on the card "
+                             "(trace/train_profile)")
     args = parser.parse_args(argv)
 
-    device = resolve_device(args.device)
+    ctx = distributed.setup(args.device)
+    device = ctx["device"]
+    group = train_mod.sequence_parallel_group(args.sp, device)
     config = train_mod.make_transformer_config(
-        vocab_size=args.vocab, d_model=args.d_model,
-        n_layers=args.n_layers, n_heads=args.n_heads,
-        d_head=args.d_model // args.n_heads, d_ff=args.d_ff,
-        max_seq_len=args.seq_len, dtype=torch.bfloat16,
+        sp=args.sp, group=group, vocab_size=args.vocab,
+        d_model=args.d_model, n_layers=args.n_layers,
+        n_heads=args.n_heads, d_head=args.d_model // args.n_heads,
+        d_ff=args.d_ff, max_seq_len=args.seq_len, dtype=torch.bfloat16,
         quantize_matmuls=args.int8, remat=not args.no_remat)
     harness = train_mod.build_transformer_train(
         config, batch_size=args.batch, seq_len=args.seq_len,
-        seed=args.seed, device=device)
+        seed=args.seed, device=device, group=group)
     batch = random_batch(args.vocab, args.batch, args.seq_len, args.seed,
                          device)
-    if device.type == "cuda":
+    on_card = device.type == "cuda"
+    if on_card:
         torch.cuda.reset_peak_memory_stats(device)
-    for _ in range(args.warmup):
-        float(harness.step(batch)["loss"])  # hard sync
+    if group is not None:
+        dist.barrier()
+    losses = [harness.step(batch)["loss"] for _ in range(args.warmup)]
+    if losses:
+        float(losses[-1])  # hard sync
+    if group is not None:
+        group.check()
+    counts = launch_counts()
     start = time.perf_counter()
     for _ in range(args.steps):
-        metrics = harness.step(batch)
-    loss = float(metrics["loss"])  # hard sync
+        losses.append(harness.step(batch)["loss"])
+    loss = float(losses[-1])  # hard sync
     elapsed = time.perf_counter() - start
+    if group is not None:
+        group.check()  # a ring timeout in the last step
+    rank = {
+        "rank": ctx["process_index"],
+        "launches": {key: n for key, n in launch_counts().items() if n},
+        "launches_per_step": {
+            key: (n - counts[key]) / args.steps
+            for key, n in launch_counts().items() if n - counts[key]},
+        "plain_calls": {key: n for key, n in plain_counts().items() if n},
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                        if on_card else None),
+    }
+    if args.profile_steps:
+        from batch_shipyard_tpu_torch.trace import train_profile
+        rank["profile"] = train_profile.profile_steps(
+            harness, batch, args.profile_steps)
+    ranks = [rank]
+    if group is not None:
+        ranks = [None] * group.size
+        dist.all_gather_object(ranks, rank)
+    if group is not None:
+        group.close()
+    if ctx["process_index"] != 0:
+        return 0
     tokens_per_sec = args.batch * args.seq_len * args.steps / elapsed
     ms_per_step = elapsed / args.steps * 1000
-    print(f"transformer: device={device} {tokens_per_sec:.0f} tok/s, "
-          f"loss={loss:.4f}, {ms_per_step:.1f} ms/step", flush=True)
-    on_card = device.type == "cuda"
+    sizes = mesh_mod.auto_axis_sizes(ctx["process_count"], sp=args.sp)
+    distributed.log(ctx, (
+        f"transformer: mesh={sizes} device={device} "
+        f"{tokens_per_sec:.0f} tok/s, loss={loss:.4f}, "
+        f"{ms_per_step:.1f} ms/step"))
     peak = mfu.peak_bf16_tflops(torch.cuda.get_device_name(device)
                                 if on_card else "cpu")
     print(json.dumps({
         "device": torch.cuda.get_device_name(device) if on_card
         else "cpu",
+        "mesh": sizes, "ranks_per_card": (
+            args.sp // max(torch.cuda.device_count(), 1) if on_card
+            else None),
         "tokens_per_sec": tokens_per_sec, "ms_per_step": ms_per_step,
-        "loss": loss,
+        "loss": loss, "losses": [float(x) for x in losses],
         "mfu_pct": mfu.mfu_pct(
             tokens_per_sec,
             mfu.transformer_train_flops_per_token(config, args.seq_len),
             peak),
-        "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
-                        if on_card else None),
+        "peak_mem_gb": ranks[0]["peak_mem_gb"],
+        "per_rank": ranks,
     }), flush=True)
     return 0
 

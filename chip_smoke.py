@@ -32,7 +32,13 @@ Phases, each fatal on failure:
      [1024, 1024], [2816, 1024] and [1024, 2816] weights) and at ragged
      ones (M 300, K 128 and 2816, N 48 and 384, fp32 and bf16, a zero
      row); each planted fault (QUANT_FAULTS) must fail at every training
-     shape;
+     shape. The one-device ring schedules (K15 all-gather, K16
+     reduce-scatter) bit for bit against their plain versions and against
+     the definition (the concatenation; the sum over members within the
+     reference test's 1e-4 / 1e-6 relative): rings 2, 4 and 8, chunks 16
+     and a ragged 13, fp32 and bf16, random and identity-valued shards
+     (member i filled with i + 1); their planted slot faults
+     (RING_FAULTS) must fail at ring 4;
   3. time every kernel, its plain version and a library yardstick
      (scaled_dot_product_attention; for K3-K5 and K9 the same products
      alone through torch.matmul at the kernel's precision) at the main
@@ -61,7 +67,27 @@ Phases, each fatal on failure:
      random bits once per K10 call; its numerics check runs the plain and
      fp32 models on the plain quantize and int8 matmul. All three
      training phases run at full depth;
-  5. serve the repo's serving benchmark model (bench.py bench_serving:
+  5. four sequence-parallel ranks on this one card (``sp_collectives``:
+     SP local processes, gloo, the ring kernels' buffers mapped by CUDA
+     IPC): K12 (+1 and -1 shifts and its backward through autograd), K13
+     and K14 against their definitions on seeded inputs every rank can
+     draw, at the sp path's shapes (the (K, V) pair B8 x 2048 x 16 x 64
+     bf16; the 187 M-element fp32 gradient bucket), a ragged shape and
+     identity-valued shards, K14 bit for bit against the ring order of
+     adds; a build with a wrong source slot (RING_FAULTS) must fail K13
+     and K14; each rank times K12-K14 (CUDA events, the ranks
+     time-sliced on the card), their plain versions over gloo and K12's
+     copy_ yardstick from the peer's mapped slot; one step's loss and
+     gradients of the sp = 4 kernel path at batch 2 x 2048 must sit as
+     close to a single-process fp32 model as train_numerics requires;
+     and when rank 3 skips one K12 call every rank must raise within
+     SKIP_RAISE_LIMIT_S. Then ``--seq-len 8192 --sp 4`` training at
+     bench_transformer's widths (batch 8, remat, the fused loss under the
+     marker) through ``python -m torch.distributed.run`` and the
+     workload's entry point, 2 + 3 steps and one profiled: the loss must
+     be finite and fall, and each rank must launch exactly
+     sp_launches_per_step(rank) a step and no plain version;
+  6. serve the repo's serving benchmark model (bench.py bench_serving:
      the same widths, 8 slots, max_decode_len 512) three times through
      ServingFrontEnd + run_load: paged page 64 (K6), paged int8 with
      overcommit over 40 pages (K7), dense int8 (K8). Each run must
@@ -69,7 +95,8 @@ Phases, each fatal on failure:
      decode step and no other kernel, and must agree with the plain
      attention in a teacher-forced decode of the same tokens.
 
-The last two stdout lines are the {"kernels": [...]} summary and
+All phases run at full depth. The last two stdout lines are the
+{"kernels": [...]} summary (K1-K16) and
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
 no CUDA device is present.
 """
@@ -104,10 +131,13 @@ from batch_shipyard_tpu_torch.ops import fused_norm as norm_ops
 from batch_shipyard_tpu_torch.ops import kernel_select
 from batch_shipyard_tpu_torch.ops import paged_attention as paged_ops
 from batch_shipyard_tpu_torch.ops import quantization as quant_ops
+from batch_shipyard_tpu_torch.ops import ring_collectives as rc
 from batch_shipyard_tpu_torch.ops.quantization import quantize_int8_rows
+from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
 from batch_shipyard_tpu_torch.parallel import mfu
 from batch_shipyard_tpu_torch.parallel import train as train_mod
 from batch_shipyard_tpu_torch.trace import train_profile
+from batch_shipyard_tpu_torch.workloads import distributed
 from batch_shipyard_tpu_torch.workloads import train_transformer as train_wl
 from batch_shipyard_tpu_torch.workloads.serve import (
     BENCH_SERVING_KV_CACHES, BENCH_SERVING_MAX_LEN as MAX_LEN,
@@ -332,18 +362,12 @@ def require(ok: bool, what: str) -> None:
 
 
 def launch_counts() -> dict:
-    return {**attn_ops.launches, **paged_ops.launches, **dense_ops.launches,
-            **loss_ops.launches, **norm_ops.launches, **quant_ops.launches}
+    """The training path's launch counts and the serving kernels'."""
+    return {**train_wl.launch_counts(), **paged_ops.launches,
+            **dense_ops.launches}
 
 
-def plain_counts() -> dict:
-    """Calls of the plain versions on the training path, by module."""
-    return {f"{prefix}.{key}": n
-            for prefix, counts in (("attention", attn_ops.plain_calls),
-                                   ("loss", loss_ops.plain_calls),
-                                   ("norm", norm_ops.plain_calls),
-                                   ("quant", quant_ops.plain_calls))
-            for key, n in counts.items()}
+plain_counts = train_wl.plain_counts
 
 
 def reset_launch_counts() -> None:
@@ -352,7 +376,7 @@ def reset_launch_counts() -> None:
                    loss_ops.launches, loss_ops.plain_calls,
                    norm_ops.launches, norm_ops.plain_calls,
                    quant_ops.launches, quant_ops.plain_calls,
-                   quant_ops.bit_draws):
+                   quant_ops.bit_draws, rc.launches, rc.plain_calls):
         for key in counts:
             counts[key] = 0
 
@@ -1358,6 +1382,537 @@ def time_quant(device, readings: dict) -> dict:
             "int8_matmul": _layer_row(k11, "one layer's 7 calls")}
 
 
+# ------------- ring collectives (K12-K14) and their schedules (K15, K16) -------------
+
+
+RING_SOURCE = "batch_shipyard_tpu_torch/ops/csrc/ring_collectives.cu"
+# Faults planted in a copy of ring_collectives.cu, each a wrong slot in one
+# step of one kernel; the check must fail on each at ring 4.
+RING_FAULTS = (
+    # K13: the chunk received at step 1 is filed under step 2's source.
+    ("ring_all_gather_kernel",
+     "const int src = ag_source(a.rank, t, a.ring);",
+     "const int src = ag_source(a.rank, t + (t == 1), a.ring);",
+     ("all_gather",)),
+    # K14: at step 0 every rank adds its part of the wrong chunk.
+    ("ring_reduce_scatter_kernel",
+     "const int c = rs_chunk(a.rank, t, a.ring);",
+     "const int c = rs_chunk(a.rank, t + (t == 0), a.ring);",
+     ("reduce_scatter",)),
+    # K15: member 0 files the chunk of step 1 under the wrong source row.
+    ("virtual_all_gather_kernel",
+     "const int src = ag_source(i, a.step - 1, ring);",
+     "const int src = ag_source(i, a.step - 1 + (a.step == 2 && i == 0), "
+     "ring);", ("virtual_all_gather",)),
+    # K16: member 0 adds its part of the wrong chunk at step 0.
+    ("virtual_reduce_scatter_kernel",
+     "const int c = rs_chunk(j, a.step, ring);",
+     "const int c = rs_chunk(j, a.step + (a.step == 0 && j == 0), ring);",
+     ("virtual_reduce_scatter",)),
+)
+FAULTS["ring_collectives"] = RING_FAULTS
+NVLINK_BYTES_PER_S = 450e9  # one direction of one H100's NVLink
+SP = 4
+# The ring kernels' wait bound in the four-rank checks, and the shorter
+# one of the missing-rank check: each rank must raise within
+# SKIP_RAISE_LIMIT_S of the skipped call.
+RING_TIMEOUT_S = 60.0
+SKIP_TIMEOUT_S = 3.0
+SKIP_RAISE_LIMIT_S = 4 * SKIP_TIMEOUT_S + 6.0
+SP_RANKS_TIMEOUT_S = 420.0
+# K16 against a plain sum over members (another order of fp32 adds): the
+# reference test's limits (tests/test_ring_collectives.py:86-90).
+RS_ATOL, RS_REL = 1e-4, 1e-6
+_MODEL = train_wl.BENCH_TRANSFORMER_MODEL
+# K12's shape on the sp path: one rank's K (and V) shard of
+# bench_transformer's widths at --seq-len 8192 --sp 4, batch 8.
+SP_BATCH, SP_SEQ = 8, 8192
+PERMUTE_SHAPE = (SP_BATCH, SP_SEQ // SP, _MODEL["n_heads"], _MODEL["d_head"])
+
+
+def bucket_elems(ring: int = SP) -> int:
+    """The gradient all-reduce bucket of bench_transformer's model on the
+    sp path: every parameter and the loss, padded as parallel/train pads
+    it."""
+    cfg = tfm.TransformerConfig(**_MODEL)
+    return train_mod.bucket_size(mfu.transformer_param_count(cfg), ring)
+
+
+RING_KEYS = ("ring_permute", "ring_all_gather", "ring_reduce_scatter")
+KERNELS.update({
+    "ring_permute": dict(
+        label="K12", route="cuda", source=RING_SOURCE,
+        replaces="batch_shipyard_tpu/ops/ring_collectives.py:105"),
+    "ring_all_gather": dict(
+        label="K13", route="cuda", source=RING_SOURCE,
+        replaces="batch_shipyard_tpu/ops/ring_collectives.py:185"),
+    "ring_reduce_scatter": dict(
+        label="K14", route="cuda", source=RING_SOURCE,
+        replaces="batch_shipyard_tpu/ops/ring_collectives.py:285"),
+    "virtual_all_gather": dict(
+        label="K15", route="cuda", source=RING_SOURCE,
+        replaces="batch_shipyard_tpu/ops/ring_collectives.py:399"),
+    "virtual_reduce_scatter": dict(
+        label="K16", route="cuda", source=RING_SOURCE,
+        replaces="batch_shipyard_tpu/ops/ring_collectives.py:450"),
+})
+
+
+def ring_bound(read: int, written: int, sent) -> dict:
+    """Least time for a ring call: ``read`` bytes read and ``written``
+    written once at the HBM rate (one card), and, across cards, ``sent``
+    bytes over one direction of NVLink (None: a one-device schedule)."""
+    row = roofline(read + written, 0, torch.float32)
+    row["bound_nvlink_ms"] = (None if sent is None
+                              else sent / NVLINK_BYTES_PER_S * 1e3)
+    return row
+
+
+def identity_shards(ring, rows, feat, dtype, device):
+    """[ring, rows, feat]: member i's shard filled with i + 1."""
+    return (torch.arange(1, ring + 1, device=device, dtype=torch.float32)
+            .reshape(ring, 1, 1).expand(ring, rows, feat).to(dtype)
+            .contiguous())
+
+
+def check_virtual(device, fault_lib) -> dict:
+    """Phase 2f: K15 and K16 against their plain versions, bit for bit,
+    and against the definition (every row of K15 the concatenation of the
+    shards; K16 the sum over members, within RS_ATOL / RS_REL for fp32):
+    ring 2, 4 and 8, chunk 16 and a ragged 13, fp32 and bf16, random and
+    identity-valued shards. At ring 4 each planted slot fault must fail."""
+    gen = torch.Generator(device=device).manual_seed(12)
+    failed, worst_rel = [], 0.0
+    worst = {"virtual_all_gather": 0.0, "virtual_reduce_scatter": 0.0}
+
+    def err(got, want):
+        return float((got.float() - want.float()).abs().max())
+    for ring in (2, 4, 8):
+        for chunk in (16, 13):
+            for dtype in (torch.float32, torch.bfloat16):
+                for identity in (False, True):
+                    name = (f"ring {ring} chunk {chunk} {str(dtype)[6:]}"
+                            f"{' identity' if identity else ''}")
+                    x = (identity_shards(ring, chunk, 128, dtype, device)
+                         if identity else torch.randn(
+                             ring, chunk, 128, generator=gen,
+                             device=device).to(dtype))
+                    got = rc.ring_all_gather_virtual_kernel(x)
+                    want = rc.ring_all_gather_virtual_reference(x)
+                    worst["virtual_all_gather"] = max(
+                        worst["virtual_all_gather"], err(got, want))
+                    full = x.reshape(ring * chunk, 128)
+                    if not (torch.equal(got, want) and
+                            all(torch.equal(got[i], full)
+                                for i in range(ring))):
+                        failed.append(f"K15 {name}")
+                    rows = (identity_shards(ring, ring * chunk, 128, dtype,
+                                            device) if identity else
+                            torch.randn(ring, ring * chunk, 128,
+                                        generator=gen,
+                                        device=device).to(dtype))
+                    got = rc.ring_reduce_scatter_virtual_kernel(rows)
+                    want = rc.ring_reduce_scatter_virtual_reference(rows)
+                    worst["virtual_reduce_scatter"] = max(
+                        worst["virtual_reduce_scatter"], err(got, want))
+                    total = rows.float().sum(dim=0).reshape(ring, chunk, 128)
+                    if not torch.equal(got, want):
+                        failed.append(f"K16 {name} vs plain")
+                    if dtype == torch.float32:
+                        rel = float(torch.linalg.vector_norm(got - total) /
+                                    torch.linalg.vector_norm(total))
+                        worst_rel = max(worst_rel, rel)
+                        if err(got, total) > RS_ATOL or rel > RS_REL:
+                            failed.append(f"K16 {name} vs sum")
+                    elif identity and not torch.equal(got.float(), total):
+                        failed.append(f"K16 {name} vs sum")
+    x = torch.randn(4, 16, 128, generator=gen, device=device)
+    rows = torch.randn(4, 64, 128, generator=gen, device=device)
+    fault_ag = not torch.equal(
+        rc.ring_all_gather_virtual_kernel(x, library=fault_lib),
+        rc.ring_all_gather_virtual_reference(x))
+    fault_rs = not torch.equal(
+        rc.ring_reduce_scatter_virtual_kernel(rows, library=fault_lib),
+        rc.ring_reduce_scatter_virtual_reference(rows))
+    torch.cuda.synchronize()
+    print(f"check K15/K16 (rings 2, 4, 8; chunks 16, 13; fp32, bf16; "
+          f"random and identity shards): {len(failed)} cases failed; max "
+          f"|kernel - plain| K15 {worst['virtual_all_gather']:.3g}, K16 "
+          f"{worst['virtual_reduce_scatter']:.3g}; K16 vs the plain sum: "
+          f"worst relative L2 {worst_rel:.3g} (tol {RS_REL}); planted "
+          f"faults caught: K15 {fault_ag}, K16 {fault_rs}", flush=True)
+    failed += [f"planted fault in {k} passed" for k, caught in
+               (("K15", fault_ag), ("K16", fault_rs)) if not caught]
+    require(not failed, f"K15/K16: {failed}")
+    return {"virtual_all_gather": {
+                "max_abs_err": worst["virtual_all_gather"]},
+            "virtual_reduce_scatter": {
+                "max_abs_err": worst["virtual_reduce_scatter"],
+                "rel_l2_vs_sum": worst_rel}}
+
+
+def time_virtual(device, readings: dict) -> dict:
+    """Phase 3f: K15 and K16 at ring 4 at the sp path's all-reduce bytes
+    (each member's chunk is K13's per-rank chunk of the gradient bucket),
+    against their plain versions and one PyTorch call each that computes
+    the same function: ``repeat`` of the concatenated shards for K15, a
+    ``sum`` over members for K16 (another order of fp32 adds)."""
+    chunk = bucket_elems() // SP
+    gen = torch.Generator(device=device).manual_seed(13)
+    out = {}
+    x = torch.randn(SP, chunk, 1, generator=gen, device=device)
+    out["virtual_all_gather"] = dict(
+        ms=device_ms(rc.ring_all_gather_virtual_kernel, [(x,)], 8),
+        plain_ms=device_ms(rc.ring_all_gather_virtual_reference, [(x,)], 2),
+        library_ms=device_ms(
+            lambda t: t.reshape(1, -1, t.shape[2]).repeat(SP, 1, 1),
+            [(x,)], 8),
+        **ring_bound(x.numel() * 4, SP * x.numel() * 4, None),
+        **readings["virtual_all_gather"])
+    del x
+    rows = torch.randn(SP, SP * chunk, 1, generator=gen, device=device)
+    out["virtual_reduce_scatter"] = dict(
+        ms=device_ms(rc.ring_reduce_scatter_virtual_kernel, [(rows,)], 8),
+        plain_ms=device_ms(rc.ring_reduce_scatter_virtual_reference,
+                           [(rows,)], 2),
+        library_ms=device_ms(
+            lambda t: t.view(SP, SP, chunk, t.shape[2]).sum(dim=0),
+            [(rows,)], 8),
+        **ring_bound(rows.numel() * 4, rows.numel() // SP * 4, None),
+        **readings["virtual_reduce_scatter"])
+    del rows
+    torch.cuda.empty_cache()
+    for key, row in out.items():
+        print(f"time {KERNELS[key]['label']} {key} (ring 4, {chunk} fp32 a "
+              f"member): kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+              f"ms, bound {row['bound_ms']:.4f} ms (bytes)", flush=True)
+    return out
+
+
+class _PeerBytes:
+    """A device address as a uint8 tensor (``__cuda_array_interface__``):
+    the peer's mapped slot, for K12's copy_ yardstick."""
+
+    def __init__(self, ptr: int, nbytes: int) -> None:
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "data": (ptr, False),
+            "version": 2}
+
+
+def _draw(device, seed: int, rank: int, shape, dtype):
+    """Inputs every rank can draw for every other: seeded by (seed, rank)."""
+    gen = torch.Generator(device=device).manual_seed(seed * 1009 + rank)
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def _rs_in_ring_order(parts):
+    """Chunk c's sum as K14 forms it: the partial starts at rank c + 1 and
+    every later rank adds its part (parts: rank c+1's first)."""
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = (acc.float() + part.float()).to(acc.dtype)
+    return acc
+
+
+def rank_check_collectives(group, fault_group, device) -> dict:
+    """On every rank: K12 (+1 and -1 shifts, and its backward through
+    autograd), K13 and K14 against their definitions, at the sp path's
+    shapes, a ragged shape and identity-valued shards; the planted-fault
+    build must fail K13 and K14. Returns this rank's findings."""
+    me, ring = group.rank, group.size
+    failed = []
+    worst = dict.fromkeys(RING_KEYS, 0.0)
+
+    def note(key, got, want):
+        worst[key] = max(worst[key],
+                         float((got.float() - want.float()).abs().max()))
+        return torch.equal(got, want)
+    permute_cases = [("path", PERMUTE_SHAPE, torch.bfloat16, False),
+                     ("ragged", (3, 77, 5, 64), torch.float32, False),
+                     ("identity", (2, 64, 4, 64), torch.bfloat16, True)]
+    for seed, (name, shape, dtype, identity) in enumerate(permute_cases):
+        def kv(rank):
+            if identity:
+                value = torch.full(shape, float(rank + 1), device=device)
+                return value.to(dtype), (-value).to(dtype)
+            return (_draw(device, 2 * seed, rank, shape, dtype),
+                    _draw(device, 2 * seed + 1, rank, shape, dtype))
+        k, v = kv(me)
+        for shift in (1, -1):
+            got = rc.ring_permute_kernel(k, v, group, shift)
+            want = kv((me - shift) % ring)
+            if not all([note("ring_permute", a, b)
+                        for a, b in zip(got, want)]):
+                failed.append(f"K12 {name} shift {shift}")
+        del got, want
+    # The backward: the transpose of the +1 rotation is the -1 rotation.
+    shape = (2, 128, 4, 64)
+    k = _draw(device, 10, me, shape, torch.float32).requires_grad_()
+    v = _draw(device, 11, me, shape, torch.float32).requires_grad_()
+    k_out, v_out = rc.ring_permute_pair(k, v, group)
+    g_k, g_v = (_draw(device, s, me, shape, torch.float32) for s in (12, 13))
+    torch.autograd.backward((k_out, v_out), (g_k, g_v))
+    right = (me + 1) % ring
+    if not all([note("ring_permute", grad,
+                     _draw(device, seed, right, shape, torch.float32))
+                for grad, seed in ((k.grad, 12), (v.grad, 13))]):
+        failed.append("K12 backward")
+    bucket = bucket_elems()
+    gather_cases = [("path", (bucket // ring,), torch.float32, False),
+                    ("ragged", (37, 3), torch.bfloat16, False),
+                    ("identity", (64, 128), torch.float32, True)]
+    for seed, (name, shape, dtype, identity) in enumerate(gather_cases):
+        def chunk_of(rank):
+            if identity:
+                return torch.full(shape, float(rank + 1), device=device,
+                                  dtype=dtype)
+            return _draw(device, 20 + seed, rank, shape, dtype)
+        got = rc.ring_all_gather_kernel(chunk_of(me), group)
+        for rank in range(ring):
+            rows = slice(rank * shape[0], (rank + 1) * shape[0])
+            if not note("ring_all_gather", got[rows], chunk_of(rank)):
+                failed.append(f"K13 {name} rank {rank}'s chunk")
+        del got
+    scatter_cases = [("path", (bucket,), torch.float32, False),
+                     ("ragged", (ring * 37, 3), torch.bfloat16, False),
+                     ("identity", (ring * 64, 128), torch.float32, True)]
+    worst_rel = 0.0
+    for seed, (name, shape, dtype, identity) in enumerate(scatter_cases):
+        rows = shape[0] // ring
+
+        def part_of(rank):
+            if identity:
+                return torch.full((rows,) + shape[1:], float(rank + 1),
+                                  device=device, dtype=dtype)
+            x = _draw(device, 30 + seed, rank, shape, dtype)
+            return x[me * rows:(me + 1) * rows].clone()
+        if identity:
+            x = torch.cat([torch.full((rows,) + shape[1:], float(me + 1),
+                                      device=device, dtype=dtype)] * ring)
+        else:
+            x = _draw(device, 30 + seed, me, shape, dtype)
+        got = rc.ring_reduce_scatter_kernel(x, group)
+        del x
+        parts = [part_of(rank) for rank in range(ring)]
+        if not note("ring_reduce_scatter", got, _rs_in_ring_order(
+                [parts[(me + 1 + j) % ring] for j in range(ring)])):
+            failed.append(f"K14 {name} vs ring order")
+        # The plain sum in rank order: another order of fp32 adds.
+        total = torch.stack([p.float() for p in parts]).sum(dim=0)
+        rel = float(torch.linalg.vector_norm(got.float() - total) /
+                    torch.linalg.vector_norm(total))
+        if dtype == torch.float32:
+            worst_rel = max(worst_rel, rel)
+            if float((got - total).abs().max()) > RS_ATOL or rel > RS_REL:
+                failed.append(f"K14 {name} vs sum")
+        del got, parts, total
+    torch.cuda.empty_cache()
+    # The planted faults: fresh random inputs, so a stale output row
+    # cannot pass for the right one.
+    x = _draw(device, 40, me, (64, 128), torch.float32)
+    got = rc.ring_all_gather_kernel(x, fault_group)
+    want = torch.cat([_draw(device, 40, r, (64, 128), torch.float32)
+                      for r in range(ring)])
+    fault_ag = not torch.equal(got, want)
+    x = _draw(device, 41, me, (ring * 64, 128), torch.float32)
+    got = rc.ring_reduce_scatter_kernel(x, fault_group)
+    parts = [_draw(device, 41, (me + 1 + j) % ring, (ring * 64, 128),
+                   torch.float32)[me * 64:(me + 1) * 64] for j in range(ring)]
+    fault_rs = not torch.equal(got, _rs_in_ring_order(parts))
+    torch.cuda.synchronize()
+    group.check()
+    fault_group.check()
+    return {"failed": failed, "max_abs_err": worst,
+            "k14_rel_l2_vs_sum": worst_rel,
+            "fault_caught": {"all_gather": fault_ag,
+                             "reduce_scatter": fault_rs}}
+
+
+def rank_missing_peer(device) -> dict:
+    """Steps shaped like a train step's ring calls (four K12 rotations,
+    then a K13) on a group with a SKIP_TIMEOUT_S bound; rank SP - 1 skips
+    the second K12 call of the first step. The epochs pair each rank's
+    i-th call of a buffer, so the skip is silent until the calls part:
+    rank 0's last K12 of the step waits for a call rank SP - 1 makes only
+    next step, while the others wait in K13 for rank 0. Every rank calls
+    on until its group raises. Returns the seconds from the skipped call
+    to this rank's error."""
+    group = mesh_mod.RingGroup(device=device, timeout_s=SKIP_TIMEOUT_S)
+    k = torch.zeros(2, 64, 4, 64, device=device, dtype=torch.bfloat16)
+    chunk = torch.zeros(64, 128, device=device)
+    torch.distributed.barrier()
+    started, error = time.perf_counter(), None
+    try:
+        for step in range(4):
+            for call in range(4):
+                if (step, call, group.rank) == (0, 1, group.size - 1):
+                    continue
+                rc.ring_permute_kernel(k, k, group)
+            rc.ring_all_gather_kernel(chunk, group)
+            torch.cuda.synchronize()
+            group.check()
+    except RuntimeError as err:
+        error = str(err)
+    return {"raised": error is not None, "error": error,
+            "seconds": time.perf_counter() - started}
+
+
+def rank_time_collectives(group, device) -> dict:
+    """K12 on the (K, V) pair at the sp path's shape, K13 and K14 on the
+    gradient bucket: CUDA events around ``n`` calls after a barrier (the
+    four ranks share one card, so each rank's time holds the others'
+    time slices), the plain versions over gloo on host copies (host
+    clock), and K12's yardstick: one copy_ of the peer's mapped slot."""
+    me, ring = group.rank, group.size
+    out = {}
+
+    def events(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        group.check()
+        return start.elapsed_time(end) / n
+
+    def host(fn):
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    k = _draw(device, 50, me, PERMUTE_SHAPE, torch.bfloat16)
+    v = _draw(device, 51, me, PERMUTE_SHAPE, torch.bfloat16)
+    pair = k.numel() * k.element_size() * 2
+    out["ring_permute"] = dict(
+        ms=events(lambda: rc.ring_permute_kernel(k, v, group), 20),
+        **ring_bound(pair, pair, pair))
+    nbytes = k.numel() * k.element_size()
+    span = rc.permute_slot_bytes(nbytes)
+    permute = group.buffer("permute", span)  # K12's, mapped already
+    slot = (permute.peer((me - 1) % ring) + mesh_mod.PAD_BYTES +
+            (permute.calls % 2) * permute.slot_stride)
+    peer = torch.as_tensor(_PeerBytes(slot, span), device=device)
+    local = torch.empty(span, dtype=torch.uint8, device=device)
+    out["ring_permute"]["library_ms"] = events(lambda: local.copy_(peer), 20)
+    del peer, local
+    k_cpu, v_cpu = k.cpu(), v.cpu()
+    out["ring_permute"]["plain_ms"] = host(
+        lambda: rc.ring_permute_reference(k_cpu, v_cpu, group))
+    del k, v, k_cpu, v_cpu
+    bucket = bucket_elems()
+    x = _draw(device, 52, me, (bucket,), torch.float32)
+    out["ring_reduce_scatter"] = dict(
+        ms=events(lambda: rc.ring_reduce_scatter_kernel(x, group), 5),
+        library_ms=None,
+        **ring_bound(bucket * 4, bucket // ring * 4,
+                     (ring - 1) * bucket // ring * 4))
+    x_cpu = x.cpu()
+    out["ring_reduce_scatter"]["plain_ms"] = host(
+        lambda: rc.ring_reduce_scatter_reference(x_cpu, group))
+    chunk = x[:bucket // ring].clone()
+    del x, x_cpu
+    out["ring_all_gather"] = dict(
+        ms=events(lambda: rc.ring_all_gather_kernel(chunk, group), 5),
+        library_ms=None,
+        **ring_bound(bucket // ring * 4, bucket * 4,
+                     (ring - 1) * bucket // ring * 4))
+    chunk_cpu = chunk.cpu()
+    out["ring_all_gather"]["plain_ms"] = host(
+        lambda: rc.ring_all_gather_reference(chunk_cpu, group))
+    del chunk, chunk_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_rank_main() -> None:
+    """One rank of the four-rank ring phase (``sp_collectives`` launches
+    SP of them on the one card): the checks, the timing, the missing-rank
+    check, then (if asked) one numerics step of the sp training path.
+    Prints this rank's findings as one JSON line."""
+    spec = json.loads(os.environ["CHIP_SMOKE_SP"])
+    ctx = distributed.setup()
+    device = ctx["device"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = mesh_mod.RingGroup(device=device, timeout_s=RING_TIMEOUT_S)
+    fault_group = mesh_mod.RingGroup(
+        device=device, timeout_s=RING_TIMEOUT_S,
+        library=_build.load(pathlib.Path(spec["fault_library"]),
+                            "ring_collectives"))
+    result = {"rank": group.rank}
+    result["check"] = rank_check_collectives(group, fault_group, device)
+    result["time"] = rank_time_collectives(group, device)
+    fault_group.close()
+    group.close()
+    if spec.get("numerics_dir"):
+        result["numerics"] = rank_numerics(device, spec["numerics_dir"])
+    result["missing_peer"] = rank_missing_peer(device)
+    print("SP_RANK " + json.dumps(result), flush=True)
+
+
+def sp_collectives(device, fault_path, numerics_dir=None) -> dict:
+    """Phases 2g/3g: SP ranks on this one card (``distributed.launch_local``
+    of sp_rank_main), each running the checks and timings above. Fails
+    unless every rank passed, caught both planted faults and raised within
+    SKIP_RAISE_LIMIT_S of a missing peer's skipped call."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CHIP_SMOKE_SP=json.dumps({
+        "fault_library": str(fault_path),
+        "numerics_dir": str(numerics_dir) if numerics_dir else None}))
+    started = time.perf_counter()
+    runs = distributed.launch_local(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.sp_rank_main()"],
+        SP, SP_RANKS_TIMEOUT_S, env=env,
+        cwd=pathlib.Path(__file__).resolve().parent)
+    results = []
+    for run in runs:
+        line = next((ln for ln in run["stdout"].splitlines()[::-1]
+                     if ln.startswith("SP_RANK ")), None)
+        if run["returncode"] != 0 or line is None:
+            raise SmokeFailure(
+                f"sp rank {run['rank']}: rc {run['returncode']} (timed out: "
+                f"{run['timed_out']}): {run['stderr'][-3000:]}")
+        results.append(json.loads(line[len("SP_RANK "):]))
+    for r in results:
+        check, skip = r["check"], r["missing_peer"]
+        print(f"check sp rank {r['rank']}: K12-K14 failed cases "
+              f"{check['failed']}, K14 vs sum rel L2 "
+              f"{check['k14_rel_l2_vs_sum']:.3g}; planted faults caught "
+              f"{check['fault_caught']}; missing peer: raised "
+              f"{skip['raised']} after {skip['seconds']:.2f} s (limit "
+              f"{SKIP_RAISE_LIMIT_S} s)", flush=True)
+        require(not check["failed"], f"sp rank {r['rank']}: {check}")
+        require(all(check["fault_caught"].values()),
+                f"sp rank {r['rank']}: a planted fault passed {check}")
+        require(skip["raised"] and skip["seconds"] <= SKIP_RAISE_LIMIT_S,
+                f"sp rank {r['rank']}: missing peer {skip}")
+    timing = {}
+    for key in ("ring_permute", "ring_all_gather", "ring_reduce_scatter"):
+        row = dict(results[0]["time"][key])
+        row["ms_per_rank"] = [r["time"][key]["ms"] for r in results]
+        row["max_abs_err"] = max(r["check"]["max_abs_err"][key]
+                                 for r in results)
+        row["note"] = (f"{SP} ranks time-sliced on one card (CUDA IPC "
+                       f"mappings of one card's memory, not NVLink)")
+        timing[key] = row
+        lib = ("—" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f} ms")
+        print(f"time {KERNELS[key]['label']} {key}: kernel {row['ms']:.4f} "
+              f"ms (ranks {[round(x, 4) for x in row['ms_per_rank']]}), "
+              f"plain {row['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{row['bound_ms']:.4f} ms one card, "
+              f"{row['bound_nvlink_ms']:.4f} ms NVLink", flush=True)
+    return {"timing": timing, "ranks": results,
+            "seconds": time.perf_counter() - started}
+
+
 # ------------------------------ training ------------------------------
 
 
@@ -1371,18 +1926,19 @@ def _flat_grads(harness, batch) -> tuple[float, torch.Tensor]:
         [g.float().reshape(-1) for g in grads])
 
 
-def train_numerics(harness, batch) -> dict:
+def train_numerics(harness, batch, kernel=None) -> dict:
     """One step of the kernel model against a plain bf16 model (the
     attention's blockwise plain version, the plain slab loss and, with
     fused_norm, the plain norm-matmul; with quantize_matmuls, the plain
     quantize and int8 matmul on the same bits) and an fp32 plain model,
     all with the harness's current weights, on the first two rows of the
-    batch."""
+    batch. ``kernel``: the kernel path's (loss, flat gradients) when it
+    ran elsewhere (the sp ranks), else the harness's own."""
     small = {name: t[:2] for name, t in batch.items()}
     plain_fn = functools.partial(attn_ops.attention, impl="blockwise")
     cfg = harness.model.config
     params = harness.model.state_dict()
-    loss_k, grad_k = _flat_grads(harness, small)
+    loss_k, grad_k = kernel or _flat_grads(harness, small)
     results = {}
     for name, dtype in (("plain", cfg.dtype), ("fp32", torch.float32)):
         other = train_mod.build_transformer_train(
@@ -1431,7 +1987,7 @@ def train(device, fused: bool = False, quantize: bool = False) -> dict:
             f"train: the loss resolves to {loss_path!r}")
     layers = model["n_layers"]
     per_step = {"flash_fwd": layers, "flash_bwd": layers}
-    allowed_plain = {"loss.chunked"}
+    allowed_plain = {"chunked_loss.chunked"}
     if fused or quantize:
         per_step.update({key: 1 for key in LOSS_KERNELS})
         allowed_plain = set()
@@ -1503,6 +2059,149 @@ def train(device, fused: bool = False, quantize: bool = False) -> dict:
     print(f"train{label} " + json.dumps(row), flush=True)
     del harness, batch
     torch.cuda.empty_cache()
+    return row
+
+
+# ----------------- sequence-parallel training (--sp 4) -----------------
+
+
+# The sp phase: the reference workload's long-context recipe
+# (workloads/train_transformer.py:8-10, --seq-len 8192 --sp 4; its --tp 2
+# is not ported) at bench_transformer's widths, batch 8, remat on.
+SP_WARMUP, SP_STEPS, SP_PROFILE_STEPS = 2, 3, 1
+SP_TRAIN_TIMEOUT_S = 600.0
+# One step's numerics at batch 2, T 2048 (where the fp32 plain model
+# fits): the sp kernel path against single-process plain models.
+SP_NUMERICS_BATCH, SP_NUMERICS_SEQ = 2, 2048
+
+
+def sp_launches_per_step(rank: int) -> dict:
+    """What rank ``rank`` of the sp path launches each step (causal,
+    remat on, the fused loss): sp - 1 forward rotations per layer, as
+    many again in remat's recompute and in the backward (K12); the
+    diagonal and ``rank`` full flash blocks per layer, forward and
+    recompute (K1) and backward (K2); the loss once (K3-K5); one
+    reduce-scatter and one all-gather (K14, K13)."""
+    layers, blocks = _MODEL["n_layers"], 1 + rank
+    return {"ring_permute": 3 * (SP - 1) * layers,
+            "flash_fwd": 2 * blocks * layers, "flash_bwd": blocks * layers,
+            "xent_fwd": 1, "xent_bwd_h": 1, "xent_bwd_e": 1,
+            "ring_reduce_scatter": 1, "ring_all_gather": 1}
+
+
+def rank_numerics(device, out_dir) -> dict:
+    """One step's loss and gradients (no update) of the sp kernel path at
+    SP_NUMERICS_BATCH x SP_NUMERICS_SEQ, weights and batch from seed 0;
+    rank 0 saves them for sp_numerics."""
+    group = mesh_mod.RingGroup(device=device, timeout_s=RING_TIMEOUT_S)
+    harness = train_wl.build_bench_harness(
+        device, seed=0, batch_size=SP_NUMERICS_BATCH,
+        seq_len=SP_NUMERICS_SEQ, group=group, remat=True)
+    batch = train_wl.random_batch(_MODEL["vocab_size"], SP_NUMERICS_BATCH,
+                                  SP_NUMERICS_SEQ, 0, device)
+    tokens, targets, positions, share = harness.shard(batch["tokens"],
+                                                      batch["targets"])
+    loss = harness.loss_fn(tokens, targets, positions) * share
+    loss.backward()
+    loss = harness.all_reduce_grads(loss)
+    grads = torch.cat([p.grad.reshape(-1) for p in harness.params])
+    torch.cuda.synchronize()
+    group.check()
+    if group.rank == 0:
+        torch.save({"loss": float(loss), "grads": grads.cpu()},
+                   pathlib.Path(out_dir) / "sp_numerics.pt")
+    del harness, grads
+    group.close()
+    torch.cuda.empty_cache()
+    return {"loss": float(loss)}
+
+
+def sp_numerics(device, out_dir) -> dict:
+    """The sp kernel path's loss and gradients (rank 0's, summed over the
+    ring) against single-process plain bf16 and fp32 models with the same
+    weights and batch: train_numerics' criterion."""
+    saved = torch.load(pathlib.Path(out_dir) / "sp_numerics.pt")
+    harness = train_wl.build_bench_harness(
+        device, seed=0, batch_size=SP_NUMERICS_BATCH,
+        seq_len=SP_NUMERICS_SEQ)
+    batch = train_wl.random_batch(_MODEL["vocab_size"], SP_NUMERICS_BATCH,
+                                  SP_NUMERICS_SEQ, 0, device)
+    row = train_numerics(harness, batch,
+                         kernel=(saved["loss"], saved["grads"].to(device)))
+    del harness, saved
+    torch.cuda.empty_cache()
+    print("sp numerics " + json.dumps(row), flush=True)
+    return row
+
+
+def train_sp(device, marker_env: dict) -> dict:
+    """Phase 5: ``--sp 4`` training at full width through the workload's
+    entry point under ``python -m torch.distributed.run``, four ranks on
+    this one card. The loss must be finite and fall; every rank must
+    launch exactly sp_launches_per_step(rank) a step and no plain
+    version."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc-per-node", str(SP), "--master-port",
+           str(distributed.free_port()), "-m",
+           "batch_shipyard_tpu_torch.workloads.train_transformer",
+           "--sp", str(SP), "--seq-len", str(SP_SEQ), "--batch",
+           str(SP_BATCH), "--warmup", str(SP_WARMUP), "--steps",
+           str(SP_STEPS), "--profile-steps", str(SP_PROFILE_STEPS)]
+    started = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=SP_TRAIN_TIMEOUT_S,
+                          env=dict(os.environ, **marker_env),
+                          cwd=pathlib.Path(__file__).resolve().parent)
+    seconds = time.perf_counter() - started
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0 and len(lines) >= 2,
+            f"train --sp {SP}: rc {proc.returncode}: "
+            f"{proc.stderr[-4000:]}")
+    print(lines[-2], flush=True)
+    report = json.loads(lines[-1])
+    losses = report["losses"]
+    require(all(math.isfinite(x) for x in losses),
+            f"train --sp: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"train --sp: loss did not fall {losses}")
+    steps = SP_WARMUP + SP_STEPS
+    for r in report["per_rank"]:
+        want = sp_launches_per_step(r["rank"])
+        require(r["launches"] == {k: n * steps for k, n in want.items()},
+                f"train --sp rank {r['rank']}: launches {r['launches']} in "
+                f"{steps} steps, want {want} a step")
+        require(not r["plain_calls"],
+                f"train --sp rank {r['rank']}: plain versions ran "
+                f"{r['plain_calls']}")
+    profile = [r["profile"] for r in report["per_rank"]]
+    row = {
+        "config": f"bench_transformer widths, --seq-len {SP_SEQ} --sp {SP}, "
+                  f"batch {SP_BATCH}, remat, fused loss",
+        "ranks": f"{SP} ranks time-sliced on one card",
+        "steps": steps, "timed_steps": SP_STEPS,
+        "tokens_per_s": report["tokens_per_sec"],
+        "ms_per_step": report["ms_per_step"], "losses": losses,
+        "mfu_pct_of_one_card": report["mfu_pct"],
+        "launches_rank0": report["per_rank"][0]["launches"],
+        "launches_per_step": {r["rank"]: r["launches_per_step"]
+                              for r in report["per_rank"]},
+        "peak_mem_gb": [r["peak_mem_gb"] for r in report["per_rank"]],
+        "ring_wait_ms_per_step": [p["ring_wait_ms_per_step"]
+                                  for p in profile],
+        "ring_share_of_device": [p["ring_share_of_device"] for p in profile],
+        "ring_ms_per_step": [p["ring_ms_per_step"] for p in profile],
+        "k12_ms_per_step": [p["kernel_ms_per_step"]["ring_permute"]
+                            for p in profile],
+        "k13_k14_ms_per_step": [p["ring_all_reduce_ms_per_step"]
+                                for p in profile],
+        "profile": profile, "phase_s": seconds,
+    }
+    print(f"train --sp {SP} ({row['ranks']}): {row['tokens_per_s']:.0f} "
+          f"tokens/s of the global batch, {row['ms_per_step']:.1f} ms/step, "
+          f"peak GB per rank {row['peak_mem_gb']}, ring share of device "
+          f"time per rank {row['ring_share_of_device']}", flush=True)
+    print("train sp " + json.dumps(row), flush=True)
     return row
 
 
@@ -1650,7 +2349,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     sources = ("flash_attention", "decode_attention", "chunked_loss",
-               "fused_norm", "quantization")
+               "fused_norm", "quantization", "ring_collectives")
     workdir = tempfile.TemporaryDirectory()
     tmp = pathlib.Path(workdir.name)
     with concurrent.futures.ThreadPoolExecutor(
@@ -1678,7 +2377,12 @@ def main() -> int:
     loss_readings = check_loss(device, fault_libs["chunked_loss"])
     norm_readings = check_norm(device, fault_libs["fused_norm"])
     quant_readings = check_quant(device, fault_libs["quantization"])
-    timing = time_kernels(device)
+    reset_launch_counts()
+    virtual_readings = check_virtual(device, fault_libs["ring_collectives"])
+    timing = time_virtual(device, virtual_readings)
+    virtual_launches = {key: rc.launches[key] for key in
+                        ("virtual_all_gather", "virtual_reduce_scatter")}
+    timing.update(time_kernels(device))
     timing.update(time_flash(device, fault_libs["flash_attention"]))
     timing.update(time_loss(device, loss_readings))
     timing.update(time_norm(device, norm_readings))
@@ -1696,6 +2400,13 @@ def main() -> int:
     try:
         fused = train(device, fused=True)
         int8 = train(device, quantize=True)
+        # The sp ranks: the ring checks and timings, one numerics step,
+        # then --sp 4 training, all under the same marker.
+        sp_checks = sp_collectives(device, faulty["ring_collectives"][0],
+                                   numerics_dir=tmp)
+        timing.update(sp_checks["timing"])
+        sp_numerics(device, tmp)
+        sp_trained = train_sp(device, {kernel_select.MARKER_ENV: str(marker)})
     finally:
         os.environ.pop(kernel_select.MARKER_ENV)
         workdir.cleanup()
@@ -1710,20 +2421,38 @@ def main() -> int:
                "source": meta["source"], "replaces": meta["replaces"]}
         main_run = next((run for run in (trained, fused, int8)
                          if key in run["launches"]), None)
-        if main_run is not None:
+        if key in RING_KEYS:
+            # K12-K14: rank 0's launches over the sp run's counted steps
+            # (every rank's per-step counts are in the train sp row).
+            row["launches"] = sp_trained["launches_rank0"][key]
+            row["launches_per_train_step"] = \
+                sp_trained["launches_per_step"][0][key]
+            row["launches_per_step_by_rank"] = {
+                rank: counts[key] for rank, counts in
+                sp_trained["launches_per_step"].items()}
+        elif key in virtual_launches:
+            # K15/K16 run on no training or serving path: their launches
+            # in their own check and timing phase.
+            row["launches"] = virtual_launches[key]
+            row["launches_phase"] = "one-device check and timing"
+        elif main_run is not None:
             row["launches"] = main_run["launches"][key]
             row["launches_per_train_step"] = \
                 main_run["launches_per_step"][key]
             for name, run in (("fused", fused), ("int8", int8)):
                 if run is not main_run and key in run["launches"]:
                     row[f"launches_{name}_train"] = run["launches"][key]
+            if key in sp_trained["launches_rank0"]:
+                row["launches_sp_train_rank0"] = \
+                    sp_trained["launches_rank0"][key]
         else:
             row["launches"] = served[key]["launches"]
             row["launches_per_decode_step"] = \
                 served[key]["launches_per_decode_step"]
         row.update({k: t[k] for k in ("max_abs_err", "max_tile_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms", "per") if k in t})
+                                      "library_ms", "per", "bound_nvlink_ms",
+                                      "ms_per_rank", "note") if k in t})
         kernels.append(row)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -268,7 +268,8 @@ def test_train_cli_int8_on_cpu(capsys):
         "16", "--batch", "2", "--steps", "2", "--warmup", "1"])
     assert rc == 0
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-2].startswith("transformer: device=cpu ")
+    assert lines[-2].startswith("[proc 0/1] transformer: mesh=")
+    assert " device=cpu " in lines[-2]
     report = json.loads(lines[-1])
     assert report["device"] == "cpu" and np.isfinite(report["loss"])
     # 3 steps of 7 projections, each run twice: the CLI's default remat

@@ -14,6 +14,8 @@ sign.
 
 import dataclasses
 import json
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -35,8 +37,11 @@ from batch_shipyard_tpu_torch.ops import chunked_loss as tcl
 from batch_shipyard_tpu_torch.ops import fused_norm as tfn
 from batch_shipyard_tpu_torch.parallel import mfu as tmfu
 from batch_shipyard_tpu_torch.parallel import train as ttrain
+from batch_shipyard_tpu_torch.workloads import distributed
 from batch_shipyard_tpu_torch.workloads import train_transformer
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RANKS_TIMEOUT_S = 120
 MODEL = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, d_head=16,
              d_ff=128)
 LOSS_RTOL, PARAM_ATOL = 1e-5, 1e-5
@@ -361,8 +366,121 @@ def test_train_cli_on_cpu(capsys):
         "16", "--batch", "2", "--steps", "2", "--warmup", "1"])
     assert rc == 0
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-2].startswith("transformer: device=cpu ")
+    assert lines[-2].startswith("[proc 0/1] transformer: mesh=")
+    assert " device=cpu " in lines[-2]
     assert "tok/s, loss=" in lines[-2] and lines[-2].endswith("ms/step")
     report = json.loads(lines[-1])
     assert report["device"] == "cpu" and report["mfu_pct"] is None
     assert report["tokens_per_sec"] > 0 and np.isfinite(report["loss"])
+    assert report["mesh"]["sp"] == 1 and len(report["per_rank"]) == 1
+
+
+def _run_ranks(argv, nprocs=4):
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    runs = distributed.launch_local(argv, nprocs, RANKS_TIMEOUT_S, env=env,
+                                    cwd=REPO)
+    bad = [r for r in runs if r["returncode"] != 0 or r["timed_out"]]
+    assert not bad, [(r["rank"], r["returncode"], r["stderr"][-2000:])
+                     for r in bad]
+    return runs
+
+
+def test_train_cli_sp4_on_cpu():
+    """`torch.distributed.run --nproc-per-node 4 ... --sp 4 --device cpu`
+    as four local ranks: rank 0 prints the summary line with the mesh,
+    then the JSON line with the global batch's tokens/s and every rank's
+    launches (none: CPU tensors take the plain versions)."""
+    runs = _run_ranks([
+        sys.executable, "-m",
+        "batch_shipyard_tpu_torch.workloads.train_transformer", "--sp", "4",
+        "--device", "cpu", "--d-model", "32", "--n-layers", "1",
+        "--n-heads", "2", "--d-ff", "64", "--vocab", "64", "--seq-len",
+        "32", "--batch", "2", "--steps", "2", "--warmup", "1"])
+    lines = runs[0]["stdout"].strip().splitlines()
+    assert lines[-2].startswith("[proc 0/4] transformer: mesh={'dp': 1, "
+                                "'fsdp': 1, 'ep': 1, 'sp': 4, 'tp': 1}")
+    report = json.loads(lines[-1])
+    assert report["mesh"]["sp"] == 4 and np.isfinite(report["loss"])
+    assert [r["rank"] for r in report["per_rank"]] == [0, 1, 2, 3]
+    assert all(not r["launches_per_step"] for r in report["per_rank"])
+    assert all(not run["stdout"].strip() for run in runs[1:])
+
+
+def test_dp_over_sp_rings_is_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
+        ttrain.sequence_parallel_group(2, "cpu", world=4)
+    assert ttrain.sequence_parallel_group(1, "cpu", world=1) is None
+    with pytest.raises(ValueError, match="RingGroup of 4"):
+        ttrain.make_transformer_config(sp=4)
+
+
+# A rank of the sp = 4 two-step check: the same flax weights and global
+# batch on every rank, two AdamW steps, the losses and weights saved.
+SP_WORKER = r"""
+import os, sys
+import numpy as np, torch
+torch.set_num_threads(1)
+from batch_shipyard_tpu_torch.ops import ring_collectives
+from batch_shipyard_tpu_torch.parallel import train
+from batch_shipyard_tpu_torch.workloads import distributed
+out = sys.argv[1]
+model = eval(sys.argv[2])
+distributed.setup("cpu")
+group = train.sequence_parallel_group(4, "cpu")
+data = np.load(os.path.join(out, "batch.npz"))
+seq, batch = data["tokens"].shape[1], data["tokens"].shape[0]
+config = train.make_transformer_config(
+    sp=4, group=group, dtype=torch.float32, max_seq_len=seq, **model)
+harness = train.build_transformer_train(
+    config, batch_size=batch, seq_len=seq, device="cpu",
+    params=torch.load(os.path.join(out, "params.pt")), group=group)
+losses = [float(harness.step({"tokens": data["tokens"],
+                              "targets": data["targets"]})["loss"])
+          for _ in range(2)]
+torch.save({"losses": losses, "state": harness.model.state_dict(),
+            "plain_calls": dict(ring_collectives.plain_calls)},
+           os.path.join(out, f"rank{group.rank}.pt"))
+"""
+
+
+def test_two_adamw_steps_sp4_match_reference_build_transformer_train(
+        tmp_path):
+    """The reference's build_transformer_train on a mesh with sp=4 over
+    jax.devices()[:4] (its CPU ring attention: impl "xla") against four
+    gloo ranks of the port's sp harness (ring attention's plain tier;
+    the gradient all-reduce K14 + K13's plain versions) on the same flax
+    weights and batch."""
+    seq, batch = 64, 2
+    # A batch seed whose smallest gradient element stays clear of Adam's
+    # eps (ROADMAP queue 3).
+    tokens, targets = _batch(8, batch, seq)
+    mesh = jmesh.make_mesh(jmesh.auto_axis_sizes(4, sp=4),
+                           devices=jax.devices()[:4])
+    jcfg = jtrain.make_transformer_config(mesh, dtype=jnp.float32,
+                                          max_seq_len=seq, **MODEL)
+    ref = jtrain.build_transformer_train(mesh, jcfg, batch_size=batch,
+                                         seq_len=seq)
+    params = jax.tree_util.tree_map(np.asarray, ref.params)
+    torch.save(convert.params_from_flax(params), tmp_path / "params.pt")
+    np.savez(tmp_path / "batch.npz", tokens=tokens, targets=targets)
+    _run_ranks([sys.executable, "-c", SP_WORKER, str(tmp_path),
+                repr(MODEL)])
+    p, state = ref.params, ref.opt_state
+    jbatch = {"tokens": jnp.asarray(tokens), "targets": jnp.asarray(targets)}
+    want = []
+    for _ in range(2):
+        p, state, metrics = ref.step(p, state, jbatch)
+        want.append(float(metrics["loss"]))
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(4)]
+    for got in ranks:
+        np.testing.assert_allclose(got["losses"], want, rtol=LOSS_RTOL)
+        # Forward 3 rotations a layer, backward 3, over 2 steps; one
+        # reduce-scatter and one all-gather a step.
+        assert got["plain_calls"]["ring_permute"] == 2 * 6 * MODEL["n_layers"]
+        assert got["plain_calls"]["ring_reduce_scatter"] == 2
+        assert got["plain_calls"]["ring_all_gather"] == 2
+        for name, value in got["state"].items():  # one step on every rank
+            assert torch.equal(value, ranks[0]["state"][name]), name
+    harness = _port_harness(seq, batch, params)
+    harness.model.load_state_dict(ranks[0]["state"])
+    _assert_params_close(harness.model, p)

@@ -124,10 +124,19 @@ def test_init_params_matches_flax_distribution(flax_params):
 
 
 def test_training_forward_not_ported():
-    """The part of the training forward not ported yet, sequence
-    parallelism (ring attention), raises rather than running something
-    else."""
-    with pytest.raises(NotImplementedError, match="sp > 1"):
+    """Sequence parallelism in the training forward:
+    make_transformer_config(sp=2, group=...) wires attention_fn to ring
+    attention over the group, and sp > 1 without a ring of that size
+    raises rather than running something else."""
+    from batch_shipyard_tpu_torch.ops import ring_attention
+
+    class Ring:
+        rank, size = 1, 2
+    cfg = ttrain.make_transformer_config(sp=2, group=Ring(), n_layers=1)
+    assert cfg.attention_fn.func is ring_attention.ring_attention
+    assert isinstance(cfg.attention_fn.keywords["group"], Ring)
+    assert ttrain.make_transformer_config(n_layers=1).attention_fn is None
+    with pytest.raises(ValueError, match="RingGroup of 2"):
         ttrain.make_transformer_config(sp=2)
 
 
