@@ -11,17 +11,13 @@ with flax's initializers' distributions, for runs without JAX.
 
 from __future__ import annotations
 
-import math
 from collections.abc import Mapping
 
 import numpy as np
 import torch
 
-from batch_shipyard_tpu_torch.models.transformer import TransformerConfig
-
-# flax's truncated-normal initializers divide the target stddev by the
-# stddev of a unit normal truncated to [-2, 2].
-_TRUNC_STD = 0.87962566103423978
+from batch_shipyard_tpu_torch.models.transformer import (
+    TransformerConfig, embedding_normal_, lecun_normal_)
 
 
 def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
@@ -64,11 +60,8 @@ def init_params(config: TransformerConfig,
     state: dict[str, torch.Tensor] = {}
 
     def lecun(shape: tuple, fan_in: int) -> torch.Tensor:
-        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
         weight = torch.empty(shape, dtype=dtype, device=device)
-        torch.nn.init.trunc_normal_(weight, std=std, a=-2.0 * std,
-                                    b=2.0 * std, generator=generator)
-        return weight
+        return lecun_normal_(weight, fan_in, generator)
 
     def dense(name: str, fan_in: int, fan_out: int) -> None:
         state[name + ".weight"] = lecun((fan_out, fan_in), fan_in)
@@ -76,11 +69,9 @@ def init_params(config: TransformerConfig,
     def ones() -> torch.Tensor:
         return torch.ones(config.d_model, dtype=torch.float32, device=device)
 
-    embed = torch.empty(config.vocab_size, config.d_model, dtype=dtype,
-                        device=device)
-    embed.normal_(0.0, math.sqrt(1.0 / config.d_model),
-                  generator=generator)
-    state["embed.embedding"] = embed
+    state["embed.embedding"] = embedding_normal_(
+        torch.empty(config.vocab_size, config.d_model, dtype=dtype,
+                    device=device), generator)
     features = config.n_heads * config.d_head
     for i in range(config.n_layers):
         layer = f"layer_{i}"

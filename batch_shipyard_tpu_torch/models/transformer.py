@@ -41,6 +41,7 @@ cast once for serving.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -206,6 +207,25 @@ class Embed(nn.Module):
         operands to the module dtype)."""
         return F.linear(query.to(self.dtype),
                         self.embedding.to(self.dtype))
+
+
+# Standard deviation of a unit normal truncated to [-2, 2]: flax's
+# truncated lecun_normal divides by it so the drawn variance is 1/fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight, fan_in: int, generator: torch.Generator):
+    """flax's lecun_normal in place: a normal truncated to two standard
+    deviations, variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return nn.init.trunc_normal_(weight, std=std, a=-2.0 * std,
+                                 b=2.0 * std, generator=generator)
+
+
+def embedding_normal_(weight, generator: torch.Generator):
+    """flax's Embed init in place: normal, variance 1/d_model."""
+    return weight.normal_(0.0, math.sqrt(1.0 / weight.shape[1]),
+                          generator=generator)
 
 
 def _norm_scale(cfg: TransformerConfig, device) -> nn.Parameter:
@@ -452,7 +472,12 @@ class TransformerLM(nn.Module):
     and the q/k/v and gate/up projections (models/convert.py maps the
     flax tree onto them)."""
 
-    def __init__(self, config: TransformerConfig, device=None) -> None:
+    def __init__(self, config: TransformerConfig, device=None,
+                 generator: Optional[torch.Generator] = None) -> None:
+        """``generator`` draws the embedding and the fused kernels (flax's
+        spread, as convert.init_params); without one, a generator on the
+        model's device seeded from the global one. On ``device="meta"``
+        nothing is drawn or allocated."""
         super().__init__()
         if config.kv_cache_dtype not in (None, "int8"):
             raise ValueError(
@@ -464,6 +489,23 @@ class TransformerLM(nn.Module):
             self.add_module(f"layer_{i}", Block(config, device))
         self.final_norm = RMSNorm(config.d_model, config.dtype,
                                   device=device)
+        if self.embed.embedding.device.type != "meta":
+            self._draw_empty_weights(generator)
+
+    @torch.no_grad()
+    def _draw_empty_weights(self, generator) -> None:
+        """Fill the weights made with torch.empty (Dense layers draw
+        their own in nn.Linear's constructor)."""
+        device = self.embed.embedding.device
+        if generator is None:
+            seed = int(torch.randint(0, 2 ** 62, ()))
+            generator = torch.Generator(device=device).manual_seed(seed)
+        embedding_normal_(self.embed.embedding, generator)
+        if self.config.fused_norm:
+            for block in self.blocks():
+                for kernel in (block.attn.qkv_kernel,
+                               block.mlp.gate_up_kernel):
+                    lecun_normal_(kernel, self.config.d_model, generator)
 
     def blocks(self) -> list[Block]:
         return [getattr(self, f"layer_{i}")

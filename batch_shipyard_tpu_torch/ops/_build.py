@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``ops/csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``ops/csrc/*.cu``, with the
+shared headers ``ops/csrc/*.cuh``).
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes`` — no PyTorch
@@ -55,13 +56,13 @@ SIGNATURES = {
         "bs_error_string": ([_int], ctypes.c_char_p),
     },
     "chunked_loss": {
-        "bs_xent_fwd": ([_int] + [_vp] * 5 + [_int] * 5 + [_vp], _int),
+        "bs_xent_fwd": ([_int] + [_vp] * 7 + [_int] * 5 + [_vp], _int),
         "bs_xent_bwd": ([_int, _int] + [_vp] * 6 + [_int] * 5 + [_vp],
                         _int),
         "bs_error_string": ([_int], ctypes.c_char_p),
     },
     "fused_norm": {
-        "bs_rmsnorm_matmul": ([_int] + [_vp] * 4 + [_int] * 4 + [_float, _vp],
+        "bs_rmsnorm_matmul": ([_int] + [_vp] * 5 + [_int] * 4 + [_float, _vp],
                               _int),
         "bs_error_string": ([_int], ctypes.c_char_p),
     },
@@ -114,7 +115,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() +
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers +
                             " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -126,7 +128,8 @@ def compile_source(source: pathlib.Path, target: pathlib.Path) -> float:
     ``.log``."""
     target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(source)]
     started = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           check=False)

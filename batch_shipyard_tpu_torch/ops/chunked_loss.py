@@ -172,10 +172,13 @@ def xent_forward_kernel(h, e, tgt, ignore_id: int = -1, library=None):
     lib = library or _build.library("chunked_loss")
     lse = torch.empty(n, dtype=torch.float32, device=dev)
     gold = torch.empty(n, dtype=torch.float32, device=dev)
+    # The kernel's operands: h and e rounded to TF32 in fp32 (its pre-pass).
+    h32 = torch.empty((n, d), dtype=torch.float32, device=dev)
+    e32 = torch.empty((v, d), dtype=torch.float32, device=dev)
     rc = lib.bs_xent_fwd(dev.index or 0, h.data_ptr(), e.data_ptr(),
-                         tgt.data_ptr(), lse.data_ptr(), gold.data_ptr(), n,
-                         v, d, DTYPE_CODES[h.dtype], ignore_id,
-                         stream_handle(dev))
+                         tgt.data_ptr(), lse.data_ptr(), gold.data_ptr(),
+                         h32.data_ptr(), e32.data_ptr(), n, v, d,
+                         DTYPE_CODES[h.dtype], ignore_id, stream_handle(dev))
     _build.check(rc, "cross-entropy forward (K3)", lib)
     launches["xent_fwd"] += 1
     return lse, gold

@@ -12,25 +12,47 @@
 // What bounds it. At the training shapes (M 32768, K 1024, N 3072 for
 // the qkv projection and 5632 for gate/up) a call is 0.21 or 0.38 TFLOP
 // against 0.27 or 0.44 GB moved: bound by tensor-core operations (0.21 /
-// 0.38 ms at the 989 TFLOP/s bf16 peak). So the product runs on mma.sync
-// m16n8k16 (bf16 in, fp32 accumulate), and the norm is recomputed per
-// output tile: each block reads its 128 rows of x twice (statistics, then
-// the K loop), which costs L2 traffic, not device-memory bytes.
+// 0.38 ms at the 989 TFLOP/s bf16 peak).
 //
-// Design. One block of eight warps per (128 x 128) output tile, tiles
-// walked n fastest so that consecutive blocks share their rows of x. A
-// first pass computes r = rsqrt(mean(x^2) + eps) per row in fp32 (one
-// warp per 16 rows, four rows' loads in flight at once). The K loop (32
-// deep, two stages) then applies x * r * scale in fp32 to the x slice
-// held in registers, casts it to W's type into shared memory, and runs
-// the warp products (64 x 32 per warp) while the next x slice comes into
-// registers and the next W slice [32, 128] comes by cp.async, as it
-// lies. Fragments come by ldmatrix, B's transposed (.trans), since W's
-// rows run along k. The fp32 instantiation runs the same tiles through
-// plain FMAs in the accumulator layout of mma.sync.
-// Rows past M and columns past N are masked. Launches on the caller's stream,
-// allocates nothing and does not synchronise; TMA and wgmma are later
-// work.
+// Design. Two kernels a call, on the caller's stream:
+//   rms_stats_kernel: r = rsqrt(mean(x^2) + eps) per row in fp32, one
+//     warp a row, into the caller's scratch [M] (x read once more, M
+//     floats written). Every output tile then reads its rows' r instead of
+//     recomputing it.
+//   bf16, rmsnorm_matmul_wgmma_kernel: a persistent block per SM walks
+//     the 128 x 256 output tiles, n fastest, so the blocks in flight share
+//     their x rows in L2 and all of W stays there. Warp-specialised:
+//     warpgroup 0 gives up registers (setmaxnreg) and one of its threads
+//     keeps a three-stage ring full by TMA, across tiles (per 64-deep
+//     k-slice: the x box [128, 64] and four W boxes [64 k, 64 n], all
+//     128-byte swizzled, 48 KB, completing on the stage's full mbarrier).
+//     Warpgroups 1 and 2 own 64 rows each: per k-slice each thread
+//     applies r * scale in fp32 to 32 of its x values and rounds them to
+//     bf16 (the reference's rounding point) in place in the stage; then
+//     four wgmma m64n256k16 read A (K-major) and W as it lies (MN-major,
+//     transposed mode) from the stage. wgmma.wait_group 1 retires the
+//     previous slice, whose stage the eight consumer warps release on its
+//     empty mbarrier. The 64 x 256 fp32 accumulator per warpgroup (128
+//     registers a thread) is rounded to bf16 into the warpgroup's output
+//     buffer and stored by TMA while the next tile's products run. TMA
+//     zero-fills rows past M, k past K and W columns past N, and clips the
+//     stores.
+//     What bounds it now: shared memory. A slice moves ~160 KB through
+//     it (TMA writes 48, the wgmma operand reads of both warpgroups 80,
+//     the normalization 32) for 4.2 MFLOP. Tried and dropped: A from
+//     registers (a second register set to overlap the normalization with
+//     the products made ptxas serialize the wgmmas at its 168-register
+//     budget); an A tile beside the ring (more shared-memory traffic);
+//     the normalization in three producer warps (too few threads to keep
+//     up); one block per tile (each tile paid its ring fill and its
+//     store). A zeroed accumulator also makes ptxas serialize the wgmmas,
+//     so the first slice's products overwrite it instead.
+//   fp32, rmsnorm_matmul_fma_kernel: the exact-math check's route. TF32
+//     wgmma would not hold its 1e-5 tolerance, so it keeps plain FMAs:
+//     one block of eight warps per 128 x 128 tile, two stages of 32-deep
+//     slices (x normalized through registers into shared memory, W by
+//     cp.async), each warp 64 x 32 outputs.
+// Nothing is allocated here and nothing synchronises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,12 +60,9 @@
 #include <cstdint>
 #include <cstring>
 
-namespace {
+#include "hopper.cuh"
 
-constexpr int kThreads = 256;  // eight warps
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 32;
+namespace {
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -52,52 +71,14 @@ struct Args {
   const float* scale;
   const void* w;
   void* out;
+  float* rstd;  // [m], written by rms_stats_kernel
   int m, n, k;
   float eps;
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// Two stages of x and W tiles (double buffering).
-template <typename T>
-struct Layout {
-  static constexpr int kPad = 16 / sizeof(T);
-  static constexpr int kLDX = kBK + kPad;
-  static constexpr int kLDW = kBN + kPad;
-  static constexpr int kStage = kBM * kLDX + kBK * kLDW;
-  static constexpr size_t kSmem = kBM * sizeof(float) + 2 * kStage * sizeof(T);
-};
-
-// Four 8 x 8 bf16 matrices from shared memory, one register each; lane l
-// gives the address of row l % 8 of matrix l / 8. With kTrans each
-// matrix arrives transposed (the B operand from W's [k][n] rows).
-template <bool kTrans>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  if constexpr (kTrans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(s));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Element type helpers: 16-byte vectors of x and W, and the cast of the
-// normalized values to W's type.
+// 16-byte vectors of x as floats.
 template <typename T>
 struct Vec;
 
@@ -114,14 +95,6 @@ struct Vec<__nv_bfloat16> {
       f[2 * i + 1] = x.y;
     }
   }
-  static __device__ __forceinline__ uint4 from_float(const float (&f)[8]) {
-    uint4 v;
-    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    return v;
-  }
 };
 
 template <>
@@ -131,235 +104,359 @@ struct Vec<float> {
                                                   float (&f)[4]) {
     memcpy(f, &v, 16);
   }
-  static __device__ __forceinline__ uint4 from_float(const float (&f)[4]) {
-    uint4 v;
-    memcpy(&v, f, 16);
-    return v;
+};
+
+// r = rsqrt(mean(x^2) + eps) of each row, one warp a row.
+template <typename T>
+__global__ void __launch_bounds__(256) rms_stats_kernel(Args a) {
+  using V = Vec<T>;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * 8 + threadIdx.x / 32;
+  if (row >= a.m) return;
+  const T* x = static_cast<const T*>(a.x) + static_cast<long long>(row) * a.k;
+  float ss = 0.f;
+  for (int c = lane * V::kN; c < a.k; c += 32 * V::kN) {
+    float f[V::kN];
+    V::to_float(__ldg(reinterpret_cast<const uint4*>(x + c)), f);
+#pragma unroll
+    for (int i = 0; i < V::kN; ++i) ss = fmaf(f[i], f[i], ss);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  if (lane == 0)
+    a.rstd[row] = rsqrtf(ss / static_cast<float>(a.k) + a.eps);
+}
+
+// ------------------------- bf16: wgmma + TMA --------------------------
+
+namespace k9 {
+constexpr int kBM = 128;  // two consumer warpgroups of 64 rows
+constexpr int kBN = 256;  // one wgmma's N
+constexpr int kBK = 64;   // 64 bf16 = one 128-byte swizzled box row
+constexpr int kStages = 3;
+constexpr int kThreads = 384;  // producer warpgroup + two consumers
+constexpr int kXTile = kBM * kBK * 2;  // [128 rows][64 k]
+constexpr int kWBox = kBK * 64 * 2;    // [64 k][64 n]
+constexpr int kWTile = 4 * kWBox;      // [64 k][256 n] as four boxes
+constexpr int kStageBytes = kXTile + kWTile;
+constexpr int kOutBox = 64 * 64 * 2;   // [64 rows][64 n] of the output
+constexpr int kOutTile = 4 * kOutBox;  // a consumer warpgroup's rows
+constexpr int kRing = kStages * kStageBytes;
+constexpr size_t kSmem = kRing + 2 * kOutTile + 2 * kStages * 8 + 1024;
+}  // namespace k9
+
+// bf16(float(x) * r * scale) of eight bf16 values, fp32 in between.
+__device__ __forceinline__ uint4 norm8(uint4 x, float r, const float (&s)[8]) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    const __nv_bfloat162 y = __floats2bfloat162_rn(
+        __fmul_rn(f.x * r, s[2 * i]), __fmul_rn(f.y * r, s[2 * i + 1]));
+    w[i] = *reinterpret_cast<const uint32_t*>(&y);
+  }
+  return x;
+}
+
+// x * r * scale in fp32, rounded to bf16 (the reference's rounding
+// point), in place over the 16-byte chunk `chunk` of rows row + 16 q of a
+// warpgroup's [64][64] x rows (chunk c of row r holds the eight columns
+// from 8 (c ^ (r % 8)), col here); rr holds those rows' r.
+__device__ __forceinline__ void normalize(unsigned char* x_rows, const Args& a,
+                                          int col, const float (&rr)[4],
+                                          int row, int chunk) {
+  float sc[8] = {};
+  if (col < a.k) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(a.scale + col));
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(a.scale + col + 4));
+    sc[0] = lo.x, sc[1] = lo.y, sc[2] = lo.z, sc[3] = lo.w;
+    sc[4] = hi.x, sc[5] = hi.y, sc[6] = hi.z, sc[7] = hi.w;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint4* p =
+        reinterpret_cast<uint4*>(x_rows + (row + 16 * q) * 128 + 16 * chunk);
+    *p = norm8(*p, rr[q], sc);
+  }
+}
+
+// The output tile (m0, n0) of the persistent schedule's tile index.
+struct Tile {
+  int m0, n0;
+  __device__ __forceinline__ Tile(int tile, int n) {
+    const int per_row = cdiv(n, k9::kBN);
+    m0 = (tile / per_row) * k9::kBM;
+    n0 = (tile % per_row) * k9::kBN;
   }
 };
 
-// Warp products over one kBK slice: acc[4][4][4] (four m16 by four n8
-// tiles, rows wm.., columns wn..) += A[64 x kBK] . B[kBK x 32], A = x_s
-// row-major [m][k], B = w_s row-major [k][n].
-template <typename T>
-struct Warp;
+// K9, bf16: a persistent block per SM walks the output tiles (n fastest,
+// so the blocks in flight share their x rows in L2). One thread brings
+// each 64-deep k-slice by TMA (full barrier); the consumer warpgroups
+// normalize their x rows in place, multiply and release it (empty
+// barrier). The ring runs on across tiles.
+__global__ void __launch_bounds__(k9::kThreads, 1)
+    rmsnorm_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                                const __grid_constant__ CUtensorMap w_map,
+                                const __grid_constant__ CUtensorMap y_map,
+                                const Args a) {
+  using namespace k9;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRing + 2 * kOutTile);
+  uint64_t* empty = full + kStages;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int n_k = cdiv(a.k, kBK);
+  const int n_tiles = cdiv(a.m, kBM) * cdiv(a.n, kBN);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-template <>
-struct Warp<__nv_bfloat16> {
-  using T = __nv_bfloat16;
-  static __device__ __forceinline__ void product(float (&acc)[4][4][4],
-                                                 const T* x_s, const T* w_s,
-                                                 int wm, int wn, int lane) {
-    constexpr int ldx = Layout<T>::kLDX, ldw = Layout<T>::kLDW;
-    // Matrix l / 8 of an x4 load: its row and column offsets (8 each).
-    const int mat = lane >> 3, r8 = lane & 7;
-    const int off_lo = 8 * (mat & 1), off_hi = 8 * (mat >> 1);
-#pragma unroll
-    for (int k0 = 0; k0 < kBK; k0 += 16) {
-      // B for n-tiles j, j + 1: (k0, j), (k0 + 8, j), (k0, j + 1),
-      // (k0 + 8, j + 1), each transposed into the mma's col layout.
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        uint32_t r[4];
-        ldmatrix_x4<true>(r, w_s + (k0 + off_lo + r8) * ldw + wn + 8 * j +
-                                 off_hi);
-        bf[j][0] = r[0];
-        bf[j][1] = r[1];
-        bf[j + 1][0] = r[2];
-        bf[j + 1][1] = r[3];
-      }
-      // A for m-tile i: rows 0-7 / 8-15 by depths 0-7 / 8-15.
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        uint32_t af[4];
-        ldmatrix_x4<false>(af, x_s + (wm + 16 * i + off_lo + r8) * ldx + k0 +
-                                   off_hi);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af, bf[j]);
+  if (wg == 0) {
+    hopper::set_max_regs_dec<40>();
+    if (threadIdx.x != 0) return;
+    hopper::prefetch_map(&x_map);
+    hopper::prefetch_map(&w_map);
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const Tile at(tile, a.n);
+      const int boxes = min(4, cdiv(a.n - at.n0, 64));  // W boxes inside N
+      for (int kt = 0; kt < n_k; ++kt, ++it) {
+        const int s = it % kStages;
+        hopper::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        unsigned char* stage = smem + s * kStageBytes;
+        hopper::mbar_expect_tx(&full[s], kXTile + boxes * kWBox);
+        hopper::tma_load(stage, &x_map, &full[s], kt * kBK, at.m0);
+        for (int q = 0; q < boxes; ++q)
+          hopper::tma_load(stage + kXTile + q * kWBox, &w_map, &full[s],
+                           at.n0 + 64 * q, kt * kBK);
       }
     }
+    return;
   }
-};
 
-template <>
-struct Warp<float> {
-  using T = float;
-  static __device__ __forceinline__ void product(float (&acc)[4][4][4],
-                                                 const T* x_s, const T* w_s,
-                                                 int wm, int wn, int lane) {
-    constexpr int ldx = Layout<T>::kLDX, ldw = Layout<T>::kLDW;
-    const int g = lane >> 2, t = lane & 3;
+  // Consumers: warpgroup wg owns rows 64 (wg - 1).. of each tile.
+  hopper::set_max_regs_inc<232>();
+  const int g = lane >> 2, t = lane & 3, leader = threadIdx.x % 128 == 0;
+  // Each thread normalizes chunk norm_chunk of rows norm_row + 16 q.
+  const int norm_row = threadIdx.x % 128 / 8, norm_chunk = threadIdx.x % 8;
+  unsigned char* out_tile = smem + kRing + (wg - 1) * kOutTile;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const Tile at(tile, a.n);
+    // The first slice's products overwrite the accumulator. Zeroing it
+    // instead makes ptxas serialize the wgmmas.
+    float acc[128];
+    float rr[4];  // r of the rows this thread normalizes
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = at.m0 + 64 * (wg - 1) + norm_row + 16 * q;
+      rr[q] = row < a.m ? a.rstd[row] : 0.f;
+    }
+    for (int kt = 0; kt < n_k; ++kt, ++it) {
+      const uint32_t accumulate = kt > 0;
+      const int s = it % kStages;
+      hopper::mbar_wait(&full[s], (it / kStages) & 1);
+      unsigned char* stage = smem + s * kStageBytes;
+      unsigned char* x_rows = stage + 64 * (wg - 1) * 128;
+      normalize(x_rows, a, kt * kBK + 8 * (norm_chunk ^ (norm_row % 8)), rr,
+                norm_row, norm_chunk);
+      hopper::fence_proxy_async();
+      hopper::named_barrier(wg, 128);  // the A rows are complete
+      // A: this warpgroup's normalized x rows, K-major, 8-row groups 1024
+      // bytes apart, k16 steps 32 bytes. W: four [64 k][64 n] boxes 8 KB
+      // apart (the leading offset), 8-deep row groups 1024 bytes apart
+      // (the stride offset), k16 steps 2 KB.
+      const uint64_t ad = hopper::desc(x_rows, 16, 1024);
+      const uint64_t wd = hopper::desc(stage + kXTile, kWBox, 1024);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        hopper::wgmma_bf16_m64n256k16(acc, ad + 2 * ks, wd + ks * (2048 >> 4),
+                                      accumulate | ks);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      if (kt > 0 && lane == 0) hopper::mbar_arrive(&empty[(it - 1) % kStages]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (lane == 0) hopper::mbar_arrive(&empty[(it - 1) % kStages]);
+
+    // The output rows through shared memory: the previous tile's stores
+    // must have read it; then the fragment (rows g and g + 8 of the
+    // warp's 16, columns 8j + 2t and 8j + 2t + 1) goes in as four
+    // 128-byte-swizzled [64][64] boxes, which one thread stores by TMA
+    // while the next tile's products run. TMA clips rows past M and
+    // columns past N.
+    if (leader) hopper::tma_store_wait_read();
+    hopper::named_barrier(wg, 128);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * warp + g + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(
+            out_tile + (j / 8) * kOutBox + row * 128 +
+            (((j % 8) ^ g) << 4) + 4 * t) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+    hopper::fence_proxy_async();
+    hopper::named_barrier(wg, 128);
+    const int row0 = at.m0 + 64 * (wg - 1);
+    if (leader && row0 < a.m) {
+      for (int q = 0; q < 4 && at.n0 + 64 * q < a.n; ++q)
+        hopper::tma_store(&y_map, out_tile + q * kOutBox, at.n0 + 64 * q,
+                          row0);
+      hopper::tma_store_commit();
+    }
+  }
+  if (leader) hopper::tma_store_wait_read();
+}
+
+// ------------------------- fp32: plain FMAs ---------------------------
+
+namespace k9f {
+constexpr int kThreads = 256;  // eight warps
+constexpr int kBM = 128;
+constexpr int kBN = 128;
+constexpr int kBK = 32;
+constexpr int kLDX = kBK + 4;
+constexpr int kLDW = kBN + 4;
+constexpr int kStage = kBM * kLDX + kBK * kLDW;
+constexpr size_t kSmem = (kBM + 2 * kStage) * sizeof(float);
+}  // namespace k9f
+
+// The warp's 64 x 32 outputs (rows wm.., columns wn..) += x_s . w_s over
+// one slice, in the accumulator layout of mma.sync m16n8.
+__device__ __forceinline__ void fma_product(float (&acc)[4][4][4],
+                                            const float* x_s, const float* w_s,
+                                            int wm, int wn, int lane) {
+  using namespace k9f;
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll 4
-    for (int k = 0; k < kBK; ++k) {
-      float b[4][2];
+  for (int k = 0; k < kBK; ++k) {
+    float b[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      b[j][0] = w_s[k * kLDW + wn + 8 * j + 2 * t];
+      b[j][1] = w_s[k * kLDW + wn + 8 * j + 2 * t + 1];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a0 = x_s[(wm + 16 * i + g) * kLDX + k];
+      const float a1 = x_s[(wm + 16 * i + g + 8) * kLDX + k];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        b[j][0] = w_s[k * ldw + wn + 8 * j + 2 * t];
-        b[j][1] = w_s[k * ldw + wn + 8 * j + 2 * t + 1];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a0 = x_s[(wm + 16 * i + g) * ldx + k];
-        const float a1 = x_s[(wm + 16 * i + g + 8) * ldx + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][j][0] = fmaf(a0, b[j][0], acc[i][j][0]);
-          acc[i][j][1] = fmaf(a0, b[j][1], acc[i][j][1]);
-          acc[i][j][2] = fmaf(a1, b[j][0], acc[i][j][2]);
-          acc[i][j][3] = fmaf(a1, b[j][1], acc[i][j][3]);
-        }
+        acc[i][j][0] = fmaf(a0, b[j][0], acc[i][j][0]);
+        acc[i][j][1] = fmaf(a0, b[j][1], acc[i][j][1]);
+        acc[i][j][2] = fmaf(a1, b[j][0], acc[i][j][2]);
+        acc[i][j][3] = fmaf(a1, b[j][1], acc[i][j][3]);
       }
     }
   }
-};
-
-__device__ __forceinline__ void store2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-// The x slice [kBM, kBK] at k0: each thread's kXPer 16-byte vectors, read
-// into registers (rows past M read as zeros).
-template <typename T>
+// The x slice [kBM, kBK] at k0, four floats a vector, in registers
+// (rows past M read as zeros).
 struct XSlice {
-  using V = Vec<T>;
-  static constexpr int kChunks = kBK / V::kN;
-  static constexpr int kPer = kBM * kChunks / kThreads;
-  uint4 v[kPer];
+  static constexpr int kChunks = k9f::kBK / 4;
+  static constexpr int kPer = k9f::kBM * kChunks / k9f::kThreads;
+  float4 v[kPer];
 
-  __device__ __forceinline__ void load(const T* x, int m0, int k0,
+  __device__ __forceinline__ void load(const float* x, int m0, int k0,
                                        const Args& a) {
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      const int r = i / kChunks, c = (i % kChunks) * V::kN;
+      const int i = threadIdx.x + j * k9f::kThreads;
+      const int r = i / kChunks, c = (i % kChunks) * 4;
       v[j] = m0 + r < a.m
-                 ? __ldg(reinterpret_cast<const uint4*>(
+                 ? __ldg(reinterpret_cast<const float4*>(
                        x + static_cast<long long>(m0 + r) * a.k + k0 + c))
-                 : make_uint4(0u, 0u, 0u, 0u);
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 
-  // x * r * scale in fp32, cast to T, into the stage's x tile.
-  __device__ __forceinline__ void store(T* x_s, const float* r_s, int k0,
+  // x * r * scale into the stage's x tile.
+  __device__ __forceinline__ void store(float* x_s, const float* r_s, int k0,
                                         const Args& a) const {
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      const int r = i / kChunks, c = (i % kChunks) * V::kN;
-      float f[V::kN], sc[V::kN];
-      V::to_float(v[j], f);
-#pragma unroll
-      for (int q = 0; q < V::kN; q += 4)
-        *reinterpret_cast<float4*>(sc + q) =
-            __ldg(reinterpret_cast<const float4*>(a.scale + k0 + c + q));
-#pragma unroll
-      for (int q = 0; q < V::kN; ++q) f[q] = f[q] * r_s[r] * sc[q];
-      *reinterpret_cast<uint4*>(x_s + r * Layout<T>::kLDX + c) =
-          V::from_float(f);
+      const int i = threadIdx.x + j * k9f::kThreads;
+      const int r = i / kChunks, c = (i % kChunks) * 4;
+      const float4 sc =
+          __ldg(reinterpret_cast<const float4*>(a.scale + k0 + c));
+      *reinterpret_cast<float4*>(x_s + r * k9f::kLDX + c) =
+          make_float4(v[j].x * r_s[r] * sc.x, v[j].y * r_s[r] * sc.y,
+                      v[j].z * r_s[r] * sc.z, v[j].w * r_s[r] * sc.w);
     }
   }
 };
 
-// The W slice [kBK, kBN] at k0 into the stage's W tile as cp.async copies;
+// The W slice [kBK, kBN] at k0 into the stage's W tile by cp.async;
 // columns past N become zeros.
-template <typename T>
-__device__ __forceinline__ void copy_w(T* w_s, const T* w, int n0, int k0,
-                                       const Args& a) {
-  constexpr int kChunks = kBN / Vec<T>::kN;
+__device__ __forceinline__ void copy_w(float* w_s, const float* w, int n0,
+                                       int k0, const Args& a) {
+  using namespace k9f;
+  constexpr int kChunks = kBN / 4;
 #pragma unroll
   for (int i = threadIdx.x; i < kBK * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * Vec<T>::kN;
-    T* to = w_s + r * Layout<T>::kLDW + c;
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    float* to = w_s + r * kLDW + c;
     if (n0 + c < a.n) {
-      const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(to));
+      const uint32_t s = hopper::smem_addr(to);
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                    "l"(w + static_cast<long long>(k0 + r) * a.n + n0 + c));
     } else {
-      *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<float4*>(to) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 }
 
-// K9: one block per (n-tile, m-tile).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) rmsnorm_matmul_kernel(Args a) {
-  using V = Vec<T>;
-  constexpr int kStage = Layout<T>::kStage;
+// K9, fp32: one block per (n-tile, m-tile); slice i is normalized into
+// stage i % 2 while slice i + 1 is on its way.
+__global__ void __launch_bounds__(k9f::kThreads)
+    rmsnorm_matmul_fma_kernel(const Args a) {
+  using namespace k9f;
   extern __shared__ __align__(16) unsigned char smem[];
   float* r_s = reinterpret_cast<float*>(smem);
-  T* stages = reinterpret_cast<T*>(r_s + kBM);  // [2][x tile | W tile]
+  float* stages = r_s + kBM;  // [2][x tile | W tile]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const T* x = static_cast<const T*>(a.x);
-  const T* w = static_cast<const T*>(a.w);
-
-  // The first slices start on their way, then the row statistics over
-  // the full K in fp32, the loads of all of a warp's 16 rows in flight
-  // together; rows past M get 0.
-  XSlice<T> next;
+  const float* x = static_cast<const float*>(a.x);
+  const float* w = static_cast<const float*>(a.w);
+  if (threadIdx.x < kBM)
+    r_s[threadIdx.x] = m0 + threadIdx.x < a.m ? a.rstd[m0 + threadIdx.x] : 0.f;
+  XSlice next;
   next.load(x, m0, 0, a);
-  copy_w(stages + kBM * Layout<T>::kLDX, w, n0, 0, a);
-  constexpr int kRows = kBM / 8, kGroup = kRows;
-  for (int rr = 0; rr < kRows; rr += kGroup) {
-    float ss[kGroup] = {};
-    for (int c = lane * V::kN; c < a.k; c += 32 * V::kN) {
-      uint4 raw[kGroup];
-#pragma unroll
-      for (int q = 0; q < kGroup; ++q) {
-        const int row = m0 + warp * kRows + rr + q;
-        raw[q] = row < a.m
-                     ? __ldg(reinterpret_cast<const uint4*>(
-                           x + static_cast<long long>(row) * a.k + c))
-                     : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int q = 0; q < kGroup; ++q) {
-        float f[V::kN];
-        V::to_float(raw[q], f);
-#pragma unroll
-        for (int i = 0; i < V::kN; ++i) ss[q] = fmaf(f[i], f[i], ss[q]);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kGroup; ++q) {
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        ss[q] += __shfl_xor_sync(0xffffffffu, ss[q], o);
-      const int rl = warp * kRows + rr + q;
-      if (lane == 0)
-        r_s[rl] = m0 + rl < a.m
-                      ? rsqrtf(ss[q] / static_cast<float>(a.k) + a.eps)
-                      : 0.f;
-    }
-  }
+  copy_w(stages + kBM * kLDX, w, n0, 0, a);
   __syncthreads();  // r_s is complete
 
-  // Two stages: slice i is normalized into stage i % 2 while slice i + 1
-  // is on its way (x into registers, W by cp.async into the other stage).
   const int wm = 64 * (warp & 1), wn = 32 * (warp >> 1);
   float acc[4][4][4] = {};
   int stage = 0;
   for (int k0 = 0; k0 < a.k; k0 += kBK) {
-    T* x_s = stages + stage * kStage;
-    T* w_s = x_s + kBM * Layout<T>::kLDX;
+    float* x_s = stages + stage * kStage;
+    float* w_s = x_s + kBM * kLDX;
     next.store(x_s, r_s, k0, a);
     asm volatile("cp.async.wait_all;\n" ::);
     __syncthreads();  // this stage is complete; the other one is free
     if (k0 + kBK < a.k) {
       next.load(x, m0, k0 + kBK, a);
-      copy_w(stages + (stage ^ 1) * kStage + kBM * Layout<T>::kLDX, w, n0,
-             k0 + kBK, a);
+      copy_w(stages + (stage ^ 1) * kStage + kBM * kLDX, w, n0, k0 + kBK, a);
     }
-    Warp<T>::product(acc, x_s, w_s, wm, wn, lane);
+    fma_product(acc, x_s, w_s, wm, wn, lane);
     stage ^= 1;
   }
 
   const int g = lane >> 2, t = lane & 3;
-  T* out = static_cast<T*>(a.out);
+  float* out = static_cast<float*>(a.out);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -370,22 +467,54 @@ __global__ void __launch_bounds__(kThreads) rmsnorm_matmul_kernel(Args a) {
       for (int j = 0; j < 4; ++j) {
         const int col = n0 + wn + 8 * j + 2 * t;
         if (col < a.n)
-          store2(out + static_cast<long long>(row) * a.n + col,
-                 acc[i][j][2 * r], acc[i][j][2 * r + 1]);
+          *reinterpret_cast<float2*>(out + static_cast<long long>(row) * a.n +
+                                     col) =
+              make_float2(acc[i][j][2 * r], acc[i][j][2 * r + 1]);
       }
     }
   }
 }
 
-template <typename T>
-cudaError_t run(const Args& a, cudaStream_t stream) {
-  auto kernel = rmsnorm_matmul_kernel<T>;
-  const size_t smem = Layout<T>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// ------------------------------- host ---------------------------------
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+cudaError_t run_bf16(const Args& a, cudaStream_t stream) {
+  using namespace k9;
+  CUtensorMap x_map, w_map, y_map;
+  cudaError_t err = hopper::tensor_map(
+      &x_map, a.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.m, a.k, kBM, kBK);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(cdiv(a.n, kBN), cdiv(a.m, kBM)), kThreads, smem, stream>>>(a);
+  err = hopper::tensor_map(&w_map, a.w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                           a.k, a.n, kBK, 64);
+  if (err != cudaSuccess) return err;
+  err = hopper::tensor_map(&y_map, a.out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                           a.m, a.n, 64, 64);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(rmsnorm_matmul_wgmma_kernel, kSmem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int tiles = cdiv(a.m, kBM) * cdiv(a.n, kBN);
+  rmsnorm_matmul_wgmma_kernel<<<min(tiles, sms), kThreads, kSmem, stream>>>(
+      x_map, w_map, y_map, a);
+  return cudaGetLastError();
+}
+
+cudaError_t run_fp32(const Args& a, cudaStream_t stream) {
+  using namespace k9f;
+  const cudaError_t err = allow_smem(rmsnorm_matmul_fma_kernel, kSmem);
+  if (err != cudaSuccess) return err;
+  rmsnorm_matmul_fma_kernel<<<dim3(cdiv(a.n, kBN), cdiv(a.m, kBM)), kThreads,
+                              kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -394,27 +523,34 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // K9. x [m, k] and w [k, n] of one type (dtype 0 fp32, 1 bf16), scale fp32
-// [k] -> out [m, n] in that type. k % 32 == 0, n % 8 == 0.
+// [k] -> out [m, n] in that type; rstd is fp32 scratch [m]. k % 32 == 0,
+// n % 8 == 0.
 int bs_rmsnorm_matmul(int device, const void* x, const float* scale,
-                      const void* w, void* out, int m, int n, int k,
-                      int dtype, float eps, void* stream) {
+                      const void* w, void* out, float* rstd, int m, int n,
+                      int k, int dtype, float eps, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (k % kBK != 0 || n % 8 != 0) return cudaErrorInvalidValue;
+  if (k % 32 != 0 || n % 8 != 0 || (dtype != kBF16 && dtype != kF32))
+    return cudaErrorInvalidValue;
   if (m <= 0 || n <= 0) return cudaSuccess;
   Args a{};
   a.x = x;
   a.scale = scale;
   a.w = w;
   a.out = out;
+  a.rstd = rstd;
   a.m = m;
   a.n = n;
   a.k = k;
   a.eps = eps;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return run<__nv_bfloat16>(a, s);
-  if (dtype == kF32) return run<float>(a, s);
-  return cudaErrorInvalidValue;
+  if (dtype == kBF16)
+    rms_stats_kernel<__nv_bfloat16><<<cdiv(m, 8), 256, 0, s>>>(a);
+  else
+    rms_stats_kernel<float><<<cdiv(m, 8), 256, 0, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return dtype == kBF16 ? run_bf16(a, s) : run_fp32(a, s);
 }
 
 const char* bs_error_string(int code) {

@@ -83,10 +83,11 @@ def rmsnorm_matmul_kernel(x, scale, w, eps: float = 1e-6, library=None):
     dev = x.device
     lib = library or _build.library("fused_norm")
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
+    rstd = torch.empty(m, dtype=torch.float32, device=dev)  # per-row 1/rms
     rc = lib.bs_rmsnorm_matmul(dev.index or 0, x.data_ptr(),
                                scale.data_ptr(), w.data_ptr(),
-                               out.data_ptr(), m, n, k, DTYPE_CODES[x.dtype],
-                               eps, stream_handle(dev))
+                               out.data_ptr(), rstd.data_ptr(), m, n, k,
+                               DTYPE_CODES[x.dtype], eps, stream_handle(dev))
     _build.check(rc, "rmsnorm matmul (K9)", lib)
     launches["rmsnorm_matmul"] += 1
     return out

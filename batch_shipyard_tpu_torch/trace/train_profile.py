@@ -33,10 +33,13 @@ from batch_shipyard_tpu_torch.trace.decode_profile import busy_us
 # csrc/chunked_loss.cu, csrc/fused_norm.cu and csrc/quantization.cu.
 FLASH_FWD = "flash_fwd_kernel"
 FLASH_BWD = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
-XENT_FWD = "xent_fwd_kernel"
+# K3 and K9 count their pre-passes (the TF32 rounding of h and E; the
+# row statistics) with their main kernels.
+XENT_FWD = ("xent_fwd_wgmma_kernel", "tf32_round_kernel")
 XENT_BWD_H = "xent_bwd_h_kernel"
 XENT_BWD_E = "xent_bwd_e_kernel"
-RMSNORM_MATMUL = "rmsnorm_matmul_kernel"
+RMSNORM_MATMUL = ("rmsnorm_matmul_wgmma_kernel", "rmsnorm_matmul_fma_kernel",
+                  "rms_stats_kernel")
 QUANTIZE_INT8 = "quantize_int8_kernel"
 INT8_MATMUL = "int8_matmul_kernel"
 # csrc/ring_collectives.cu (the virtual_* kernels do not match these).
@@ -45,8 +48,8 @@ RING_ALL_GATHER = "ring_all_gather_kernel"
 RING_REDUCE_SCATTER = "ring_reduce_scatter_kernel"
 KERNEL_SYMBOLS = {
     "flash_fwd": (FLASH_FWD,), "flash_bwd": FLASH_BWD,
-    "xent_fwd": (XENT_FWD,), "xent_bwd_h": (XENT_BWD_H,),
-    "xent_bwd_e": (XENT_BWD_E,), "rmsnorm_matmul": (RMSNORM_MATMUL,),
+    "xent_fwd": XENT_FWD, "xent_bwd_h": (XENT_BWD_H,),
+    "xent_bwd_e": (XENT_BWD_E,), "rmsnorm_matmul": RMSNORM_MATMUL,
     "quantize_int8": (QUANTIZE_INT8,), "int8_matmul": (INT8_MATMUL,),
     "ring_permute": (RING_PERMUTE,), "ring_all_gather": (RING_ALL_GATHER,),
     "ring_reduce_scatter": (RING_REDUCE_SCATTER,),

@@ -1,0 +1,47 @@
+"""chip_smoke.py's planted kernel faults against the CUDA sources, on the
+CPU (no nvcc): each anchor occurs exactly once in its source and inside
+the body of the ``__global__`` function it names, and its substitution
+changes the text, so an edit of a kernel cannot leave a fault that
+silently patches nothing."""
+
+import pytest
+
+import chip_smoke
+from batch_shipyard_tpu_torch.ops import _build
+
+CASES = [(name, i) for name, faults in chip_smoke.FAULTS.items()
+         for i in range(len(faults))]
+
+
+@pytest.mark.parametrize("name,index", CASES)
+def test_fault_anchor_sits_once_in_its_kernel(name, index):
+    kernel, anchor, fault, outputs = chip_smoke.FAULTS[name][index]
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    assert text.count(anchor) == 1, (kernel, anchor)
+    start, end = chip_smoke.kernel_body(text, kernel)
+    at = text.index(anchor)
+    assert start <= at and at + len(anchor) <= end, (kernel, anchor)
+    assert fault != anchor and outputs
+    planted = chip_smoke.plant_faults(name)
+    assert planted.count(fault) >= 1 and planted != text
+
+
+def test_kernel_body_matches_braces():
+    """The body ends at the kernel's own closing brace, past braces in
+    nested blocks, comments and string literals."""
+    text = ('__global__ void __launch_bounds__(32) k(int a) {\n'
+            '  if (a) { asm("{ .reg .pred p; }"); }  // } stray\n'
+            '}\n__global__ void other() {}\n')
+    start, end = chip_smoke.kernel_body(text, "k")
+    assert text[start] == "{" and text[end - 1] == "}"
+    assert text[end:].startswith("\n__global__ void other")
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.kernel_body(text, "missing")
+
+
+def test_plant_faults_refuses_a_missing_anchor(monkeypatch):
+    kernel, anchor, fault, outs = chip_smoke.FAULTS["fused_norm"][0]
+    monkeypatch.setitem(chip_smoke.FAULTS, "fused_norm",
+                        ((kernel, anchor + " /* gone */", fault, outs),))
+    with pytest.raises(chip_smoke.SmokeFailure, match="not once"):
+        chip_smoke.plant_faults("fused_norm")

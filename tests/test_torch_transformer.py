@@ -146,14 +146,53 @@ def test_training_forward_and_cache_contract():
     decode mode still needs a cache. tests/test_torch_train.py holds
     the training forward against the reference."""
     _, tcfg = _configs("float32")
-    model = ttfm.TransformerLM(dataclasses.replace(tcfg, decode=False))
+    tcfg = dataclasses.replace(tcfg, decode=False)
+    model = ttfm.TransformerLM(tcfg, device="meta").to_empty(device="cpu")
+    model.load_state_dict(
+        convert.init_params(tcfg, torch.Generator().manual_seed(0)))
     logits = model(torch.zeros((1, 4), dtype=torch.int32))
     assert logits.shape == (1, 4, VOCAB)
     assert bool(torch.isfinite(logits).all())
     with pytest.raises(ValueError, match="decode=True"):
         model(torch.zeros((1, 4), dtype=torch.int32), cache=[{}] * LAYERS)
     with pytest.raises(ValueError, match="needs a cache"):
-        ttfm.TransformerLM(tcfg)(torch.zeros((1, 1), dtype=torch.int32))
+        ttfm.TransformerLM(dataclasses.replace(tcfg, decode=True))(
+            torch.zeros((1, 1), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("fused_norm", [False, True])
+def test_fresh_model_draws_every_weight(fused_norm):
+    """A model built on the CPU right after NaN blocks of its weights'
+    sizes were freed holds finite weights and logits: nothing it keeps
+    was left as torch.empty. Two builds from generators of one seed
+    agree; the embedding and fused kernels have flax's spread. On the
+    meta device nothing is drawn."""
+    _, tcfg = _configs("float32")
+    tcfg = dataclasses.replace(tcfg, decode=False, fused_norm=fused_norm)
+    sizes = [p.numel() for p in
+             ttfm.TransformerLM(tcfg, device="meta").parameters()]
+    models = []
+    for _ in range(2):
+        for numel in sorted(set(sizes), reverse=True):
+            poison = torch.full((numel,), float("nan"))
+            del poison
+        models.append(ttfm.TransformerLM(
+            tcfg, generator=torch.Generator().manual_seed(3)))
+    model = models[0]
+    for name, param in model.named_parameters():
+        assert bool(torch.isfinite(param).all()), name
+    logits = model(torch.zeros((2, 4), dtype=torch.int32))
+    assert bool(torch.isfinite(logits).all())
+    drawn = ["embed.embedding"] + [
+        f"layer_{i}.{leaf}" for i in range(LAYERS) if fused_norm
+        for leaf in ("attn.qkv_kernel", "mlp.gate_up_kernel")]
+    state, twin = model.state_dict(), models[1].state_dict()
+    for name in drawn:
+        assert torch.equal(state[name], twin[name]), name
+        ratio = float(state[name].std()) * D_MODEL ** 0.5
+        assert 0.85 < ratio < 1.15, (name, ratio)
+    meta = ttfm.TransformerLM(tcfg, device="meta")
+    assert all(p.is_meta for p in meta.parameters())
 
 
 def _assign_tables(cache, table):
