@@ -57,8 +57,7 @@ SIGNATURES = {
     },
     "chunked_loss": {
         "bs_xent_fwd": ([_int] + [_vp] * 7 + [_int] * 5 + [_vp], _int),
-        "bs_xent_bwd": ([_int, _int] + [_vp] * 6 + [_int] * 5 + [_vp],
-                        _int),
+        "bs_xent_bwd": ([_int] + [_vp] * 13 + [_int] * 6 + [_vp], _int),
         "bs_error_string": ([_int], ctypes.c_char_p),
     },
     "fused_norm": {

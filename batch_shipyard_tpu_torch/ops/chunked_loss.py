@@ -12,12 +12,17 @@ Counterpart of batch_shipyard_tpu/ops/chunked_loss.py. Two paths:
 - ``impl="kernel"`` ports the fused Pallas path: one
   ``torch.autograd.Function`` whose forward is K3 (per-row lse and gold
   logit) and whose backward is K4 (grad_hidden) and K5 (grad_embedding),
-  in ``csrc/chunked_loss.cu``, for CUDA tensors. The logits never leave
-  the kernels. For CPU tensors it runs the kernels' plain versions
-  (``xent_forward_reference``, ``xent_backward_h_reference``,
-  ``xent_backward_e_reference``: tile-free fp32). The kernels compute
-  their products in TF32 with fp32 accumulation (the TPU kernel casts to
-  f32 and runs its dots at DEFAULT precision).
+  in ``csrc/chunked_loss.cu``, for CUDA tensors. With both gradients
+  wanted (every training step with tied embeddings) the backward is one
+  joint call: one dl pass a vocab chunk feeding both products. The full
+  [N, V] logits never exist; one [N, BWD_CHUNK] chunk of dlogits (and
+  its transpose) does, in scratch the wrapper allocates. For CPU
+  tensors it runs the kernels' plain versions (``xent_forward_reference``
+  and ``xent_backward_reference``, the joint backward's chunk schedule in
+  fp32; ``xent_backward_h_reference`` and ``xent_backward_e_reference``
+  are K4's and K5's alone). The kernels compute their products in TF32
+  with fp32 accumulation (the TPU kernel casts to f32 and runs its dots
+  at DEFAULT precision).
 
 ``impl="auto"`` (the default, as in the reference) takes the kernel only
 on a CUDA device whose validation marker records a pass for
@@ -39,9 +44,10 @@ from batch_shipyard_tpu_torch.ops.paged_attention import stream_handle
 VALIDATION_NAME = "chunked_cross_entropy"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_DEPTHS = (128, 256, 512, 1024)
-# fp32 hidden rows and the fp32 embedding tile do not both fit in shared
-# memory past this depth; bf16 rows do up to 1024.
-FP32_MAX_DEPTH = 512
+# Vocab columns of dlogits the backward holds at once (a multiple of
+# 256): its scratch is 2 * 4 * N * BWD_CHUNK bytes for the joint call,
+# 1.07 GB at bench_transformer's 32768 rows.
+BWD_CHUNK = 4096
 
 # Kernel launches, and calls of the plain versions (``chunked`` counts
 # calls of the plain slab path). chip_smoke.py zeroes and reads these.
@@ -120,6 +126,38 @@ def xent_backward_e_reference(h, e, tgt, lse, ds, ignore_id: int = -1):
     return _dlogits(h, e, tgt, lse, ds, ignore_id).t() @ h.float()
 
 
+def xent_backward_reference(h, e, tgt, lse, ds, ignore_id: int = -1,
+                            need_h: bool = True, need_e: bool = True,
+                            chunk: int = BWD_CHUNK):
+    """Plain version of the joint backward: (grad_hidden fp32 [N, D] or
+    None, grad_embedding fp32 [V, D] or None), on the kernels' schedule:
+    per ``chunk`` vocab columns, dlogits once, then grad_hidden += dl @
+    e_chunk (chunks added in order) and grad_embedding[chunk] = dl.T @ h."""
+    hf, ef = h.float(), e.float()
+    live = tgt != ignore_id
+    safe = torch.where(live, tgt, 0).long()
+    gh = torch.zeros_like(hf) if need_h else None
+    ge = torch.empty_like(ef) if need_e else None
+    for v0 in range(0, ef.shape[0], chunk):
+        ec = ef[v0:v0 + chunk]
+        dl = torch.exp(hf @ ec.t() - lse[:, None])
+        # - onehot: -1 at each live target in this chunk, -0 elsewhere
+        # (no host sync, unlike indexing by the hits).
+        hit = live & (safe >= v0) & (safe < v0 + ec.shape[0])
+        col = (safe - v0).clamp(0, ec.shape[0] - 1)
+        dl.scatter_add_(1, col[:, None], -hit[:, None].float())
+        dl *= ds[:, None]
+        if need_h:
+            gh += dl @ ec
+        if need_e:
+            ge[v0:v0 + chunk] = dl.t() @ hf
+    if need_h:
+        plain_calls["xent_bwd_h"] += 1
+    if need_e:
+        plain_calls["xent_bwd_e"] += 1
+    return gh, ge
+
+
 # --------------------------- K3-K5: kernels -----------------------------
 
 
@@ -137,10 +175,6 @@ def _check_inputs(h, e, tgt) -> tuple[int, int, int]:
         raise ValueError(f"h dtype {h.dtype} not in {tuple(DTYPE_CODES)}")
     if d not in KERNEL_DEPTHS:
         raise ValueError(f"depth {d} not in {KERNEL_DEPTHS}")
-    if h.dtype == torch.float32 and d > FP32_MAX_DEPTH:
-        raise ValueError(f"fp32 hidden rows of depth {d} do not fit the "
-                         f"kernel's shared memory (at most "
-                         f"{FP32_MAX_DEPTH}); bf16 rows do")
     if e.dtype != torch.float32:
         raise ValueError(f"e must be fp32, got {e.dtype}")
     if tgt.dtype != torch.int32 or tuple(tgt.shape) != (n,):
@@ -184,36 +218,79 @@ def xent_forward_kernel(h, e, tgt, ignore_id: int = -1, library=None):
     return lse, gold
 
 
-def _backward_kernel(which: int, key: str, h, e, tgt, lse, ds,
-                     ignore_id: int, library):
+def _round_up(x: int, to: int) -> int:
+    return -(-x // to) * to
+
+
+def backward_scratch(n: int, v: int, d: int, need_h: bool = True,
+                     need_e: bool = True) -> tuple[dict, int]:
+    """The backward kernels' fp32 scratch: ({name: shape}, chunk). h and
+    E rounded to TF32 (h32, e32); for grad_hidden E^T [dp, vp] (et) and
+    one chunk of dlogits [np, chunk] (dl); for grad_embedding h^T [dp,
+    np] (ht) and the chunk transposed [chunk, np] (dlt). Rows pad to 128
+    (np), vocab and depth to 256 (vp, dp). The last four lie in K-panels,
+    [K / 32, rows, 32] for a [rows, K] operand contracted over K, so a
+    kernel's 32-deep tile of rows is contiguous."""
+    np_, vp, dp = _round_up(n, 128), _round_up(v, 256), _round_up(d, 256)
+    chunk = min(BWD_CHUNK, vp)
+    shapes = {"h32": (n, d), "e32": (v, d)}
+    if need_h:
+        shapes.update(et=(vp // 32, dp, 32), dl=(chunk // 32, np_, 32))
+    if need_e:
+        shapes.update(ht=(np_ // 32, dp, 32), dlt=(np_ // 32, chunk, 32))
+    return shapes, chunk
+
+
+def xent_backward_kernel(h, e, tgt, lse, ds, ignore_id: int = -1,
+                         need_h: bool = True, need_e: bool = True,
+                         library=None):
+    """K4 and/or K5 on the card: (grad_hidden fp32 [N, D] or None,
+    grad_embedding fp32 [V, D] or None). With both, one dl pass a chunk
+    feeds both products; each wanted gradient counts one launch of its
+    kernel."""
+    if not (need_h or need_e):
+        raise ValueError("the backward needs grad_hidden or grad_embedding")
     n, d, v = _check_inputs(h, e, tgt)
     dev = h.device
     _row_vector("lse", lse, n, dev)
     _row_vector("ds", ds, n, dev)
     lib = library or _build.library("chunked_loss")
-    out = torch.empty((n if which == 1 else v, d), dtype=torch.float32,
-                      device=dev)
-    rc = lib.bs_xent_bwd(which, dev.index or 0, h.data_ptr(), e.data_ptr(),
-                         tgt.data_ptr(), lse.data_ptr(), ds.data_ptr(),
-                         out.data_ptr(), n, v, d, DTYPE_CODES[h.dtype],
-                         ignore_id, stream_handle(dev))
-    _build.check(rc, f"cross-entropy backward ({key})", lib)
-    launches[key] += 1
-    return out
+
+    def empty(shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    gh = empty((n, d)) if need_h else None
+    ge = empty((v, d)) if need_e else None
+    shapes, chunk = backward_scratch(n, v, d, need_h, need_e)
+    scratch = {name: empty(shape) for name, shape in shapes.items()}
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    rc = lib.bs_xent_bwd(
+        dev.index or 0, h.data_ptr(), e.data_ptr(), tgt.data_ptr(),
+        lse.data_ptr(), ds.data_ptr(), ptr(gh), ptr(ge),
+        *(ptr(scratch.get(name)) for name in
+          ("h32", "e32", "et", "ht", "dl", "dlt")),
+        n, v, d, DTYPE_CODES[h.dtype], ignore_id, chunk, stream_handle(dev))
+    _build.check(rc, "cross-entropy backward (K4/K5)", lib)
+    if need_h:
+        launches["xent_bwd_h"] += 1
+    if need_e:
+        launches["xent_bwd_e"] += 1
+    return gh, ge
 
 
 def xent_backward_h_kernel(h, e, tgt, lse, ds, ignore_id: int = -1,
                            library=None):
     """K4 on the card: grad_hidden fp32 [N, D]."""
-    return _backward_kernel(1, "xent_bwd_h", h, e, tgt, lse, ds, ignore_id,
-                            library)
+    return xent_backward_kernel(h, e, tgt, lse, ds, ignore_id,
+                                need_e=False, library=library)[0]
 
 
 def xent_backward_e_kernel(h, e, tgt, lse, ds, ignore_id: int = -1,
                            library=None):
     """K5 on the card: grad_embedding fp32 [V, D]."""
-    return _backward_kernel(2, "xent_bwd_e", h, e, tgt, lse, ds, ignore_id,
-                            library)
+    return xent_backward_kernel(h, e, tgt, lse, ds, ignore_id,
+                                need_h=False, library=library)[1]
 
 
 def xent_forward(h, e, tgt, ignore_id: int = -1):
@@ -222,16 +299,13 @@ def xent_forward(h, e, tgt, ignore_id: int = -1):
     return xent_forward_reference(h, e, tgt, ignore_id)
 
 
-def xent_backward_h(h, e, tgt, lse, ds, ignore_id: int = -1):
+def xent_backward(h, e, tgt, lse, ds, ignore_id: int = -1,
+                  need_h: bool = True, need_e: bool = True):
     if h.is_cuda:
-        return xent_backward_h_kernel(h, e, tgt, lse, ds, ignore_id)
-    return xent_backward_h_reference(h, e, tgt, lse, ds, ignore_id)
-
-
-def xent_backward_e(h, e, tgt, lse, ds, ignore_id: int = -1):
-    if h.is_cuda:
-        return xent_backward_e_kernel(h, e, tgt, lse, ds, ignore_id)
-    return xent_backward_e_reference(h, e, tgt, lse, ds, ignore_id)
+        return xent_backward_kernel(h, e, tgt, lse, ds, ignore_id, need_h,
+                                    need_e)
+    return xent_backward_reference(h, e, tgt, lse, ds, ignore_id, need_h,
+                                   need_e)
 
 
 class _FusedXent(torch.autograd.Function):
@@ -253,11 +327,15 @@ class _FusedXent(torch.autograd.Function):
     def backward(ctx, g):
         h, e, tgt, lse, mask, count = ctx.saved_tensors
         ds = (g * mask / count).float().contiguous()
+        need_h, need_e = ctx.needs_input_grad[:2]
         gh = ge = None
-        if ctx.needs_input_grad[0]:
-            gh = xent_backward_h(h, e, tgt, lse, ds, ctx.ignore_id).to(h.dtype)
-        if ctx.needs_input_grad[1]:
-            ge = xent_backward_e(h, e, tgt, lse, ds, ctx.ignore_id).to(e.dtype)
+        if need_h or need_e:
+            gh, ge = xent_backward(h, e, tgt, lse, ds, ctx.ignore_id, need_h,
+                                   need_e)
+        if gh is not None:
+            gh = gh.to(h.dtype)
+        if ge is not None:
+            ge = ge.to(e.dtype)
         return gh, ge, None, None
 
 

@@ -1,6 +1,6 @@
 // Fused tied-embedding cross-entropy for Hopper (sm_90a): the loss of
-// h @ E^T against targets, and its two gradients, with the [N, V] logits
-// never stored.
+// h @ E^T against targets, and its two gradients, with the full [N, V]
+// logits never stored.
 //
 // Replaces three Pallas TPU kernels of batch_shipyard_tpu:
 //   K3 ops/chunked_loss.py:_fwd_kernel    (per-row lse and gold logit)
@@ -9,22 +9,29 @@
 // h is [N, D] (bf16 for training, fp32 for the exact-math checks), E is
 // fp32 [V, D], targets int32 [N]; lse, gold and ds (the per-row scale of
 // the loss cotangent) are fp32 [N]; grad_h is fp32 [N, D] and grad_E fp32
-// [V, D]. All rows contiguous. K3 takes any D that is a multiple of 32
-// with either type of h; K4 and K5 take D of 128, 256, 512 or 1024 (1024
-// only with bf16 h: fp32 h and E tiles would not fit in shared memory).
+// [V, D]. All rows contiguous; D a multiple of 32, either type of h.
 //
 // What bounds it. At the training shape (N 32768, D 1024, V 32000) each
 // product h.E^T (or its partner) is 2*N*V*D = 2.15 TFLOP, and the
-// kernels execute five: one in K3, two in K4 (recompute, dl.E), two in
-// K5 (recompute, dl^T.h). Inputs are ~0.2 GB a call, so all three are
-// bound by tensor-core operations (4.34 ms a product at the 495 TFLOP/s
-// TF32 peak). The TPU kernel casts h and E to f32; here the products run
-// in TF32 with fp32 accumulation (operands rounded to TF32 with cvt.rna;
-// bf16 h converts exactly). Plain fp32 FMAs would cost ~7x the TF32
-// bound.
+// kernels execute three for the pair of gradients: K3's logits, then in
+// the backward the logits once more (the dl pass) and dl.E and dl^T.h.
+// Inputs are ~0.2 GB a call, so the loss is bound by tensor-core
+// operations (4.34 ms a product at the 495 TFLOP/s TF32 peak). The TPU
+// kernel casts h and E to f32; here the products run in TF32 with fp32
+// accumulation (operands rounded to TF32 with cvt.rna; bf16 h converts
+// exactly). Plain fp32 FMAs would cost ~7x the TF32 bound.
 //
-// K3 design (wgmma + TMA). Blocks here run in no order, so the TPU grid's
-// carried (m, s, gold) becomes a loop over the vocab inside one block:
+// All products run on one mainloop, K3's: per block two consumer
+// warpgroups of 64 rows on wgmma m64n256k8 .tf32 (A and B K-major in
+// shared memory), fed by a four-stage TMA ring of 32-deep slices ([128,
+// 32] A box and [256, 32] B box, 128-byte swizzled, 48 KB a stage) that
+// one producer thread keeps full; wgmma.wait_group 1 retires the previous
+// slice and releases its stage. TF32 wgmma reads only K-major operands
+// (its transpose bits are for 16-bit types), so every operand is laid out
+// with its contracted axis contiguous before it is read.
+//
+// K3 design. Blocks here run in no order, so the TPU grid's carried (m,
+// s, gold) becomes a loop over the vocab inside one block:
 //   - A pre-pass (tf32_round_kernel) writes h and E rounded to TF32 into
 //     the caller's fp32 scratch: wgmma reads its operands from shared
 //     memory, where they cannot be rounded on the way, and the tensor
@@ -32,16 +39,8 @@
 //     would shrink every logit by ~2^-11 and move lse by ~5e-4. It moves
 //     ~0.46 GB at the training shape (~0.15 ms).
 //   - One block per 128 rows of h (256 blocks at N 32768: two waves of
-//     132 SMs at 97%; 128 blocks at an sp rank's 16384: one wave), so no
-//     vocab split and no merge pass. Warpgroup 0 gives up registers
-//     (setmaxnreg) and one of its threads keeps a four-stage ring full by
-//     TMA: per 32-deep slice the [128, 32] h box and the [256, 32] E box,
-//     both 128-byte swizzled and K-major (48 KB), completing on the
-//     stage's full mbarrier. Warpgroups 1 and 2 own 64 rows each and run
-//     four wgmma m64n256k8 .tf32 a slice, A and B from shared memory;
-//     wgmma.wait_group 1 retires the previous slice and its stage (the
-//     eight consumer warps arrive on its empty mbarrier), so the ring stays
-//     ahead of the tensor cores.
+//     132 SMs at 97%; 128 blocks at an sp rank's 16384: one wave) walks
+//     the vocab in 256-row E tiles, so no vocab split and no merge pass.
 //   - A [64, 256] logits tile (128 fp32 registers a thread) is folded in
 //     registers: row max and sum of exp2 across the thread's 64 columns and
 //     a quad shuffle, one online rescale per 256-wide tile, the gold logit
@@ -52,45 +51,65 @@
 //   What bounds it now: the TF32 tensor cores, and the L2 reads that
 //   feed them. Each block re-reads its h rows once per vocab tile, and
 //   every block reads all of E: ~50 GB of L2 traffic a call at the
-//   training shape (the earlier 32-row design read ~134 GB). The fold
-//   runs while no products of its warpgroup are in flight, and ptxas
-//   keeps the consumers at 168 registers (setmaxnreg notwithstanding),
-//   so the fold spills a few hundred bytes a thread. A two-block cluster
-//   multicasting E would halve the E share of the L2 traffic; a second
-//   accumulator set would overlap the fold, but does not fit.
+//   training shape. The fold runs while no products of its warpgroup are
+//   in flight, and ptxas keeps the consumers at 168 registers
+//   (setmaxnreg notwithstanding), so the fold spills a few hundred bytes
+//   a thread. A two-block cluster multicasting E would halve the E share
+//   of the L2 traffic; a second accumulator set would overlap the fold,
+//   but does not fit.
 //
-// K4 and K5 design. The TPU grid carries a [bt, D] accumulator across
-// V-chunks in K4 and a [bv, D] one across T-chunks in K5, in VMEM; here
-// each carried axis is a loop inside one block, and nothing is
-// accumulated across blocks (no atomics: results are the same on every
-// run).
-//   A block keeps a 32-row tile over the full depth D (h rows in K4, E
-//   rows in K5) and streams the other operand in 16-row tiles through
-//   two shared-memory stages: tile j + 1 arrives by cp.async while tile j
-//   is used (K5's per-row inputs of tile j + 1 come into registers). A
-//   [32, D] fp32 gradient accumulator is 128 KB at D = 1024: it lives in
-//   registers, 128 a thread across eight warps (warp w owns columns
-//   w * D/8). Shared memory then holds 32 E rows (128 KB) and 32 h rows
-//   (bf16, 64 KB), so every streamed tile is read from L2 once per block
-//   and serves both the logits product and the gradient product. One
-//   block fits an SM. The products are TF32 mma.sync m16n8k8, E and fp32
-//   h rounded as fragments are read, dl as it is stored.
-//   The [32, 16] (or [16, 32]) logits tile is split over the depth: each
-//   warp computes all of it over one eighth of D, so every fragment serves
-//   two or four products, and the eight partials are summed in a fixed
-//   order through shared memory. Within each 8-deep step lane t takes
-//   depths 2t and 2t + 1 for the mma's k = t and t + 4 (the same
-//   permutation on both operands leaves the sum unchanged), so each
-//   operand pair is one 32- or 64-bit load.
-//   K4: one block per 32 rows of h walks the vocab; recomputes the logits
-//     tile, forms dl = (exp(logit - lse) - onehot) * ds, and adds
-//     dl @ E_tile into its [32, D] accumulator.
-//   K5: one block per 32 rows of E walks the rows of h: recomputes dl,
-//     adds dl^T @ h_tile into its [32, D] accumulator.
-//   The ragged row and vocab tails are masked in the kernels (zero rows
-//   in shared memory, ds = 0 past N, p = 0 past V): nothing is padded in
-//   device memory. Each row tile of K4 re-reads all of E from L2 (each
-//   vocab tile of K5 all of h).
+// K4 and K5 design. The TPU grid carries a [bt, D] gradient accumulator
+// across vocab chunks (K4) or row chunks (K5) in VMEM. On this card it
+// cannot stay on chip: a 128-row fp32 tile at D 1024 is 512 KB, more
+// than the register file or shared memory, and a warpgroup's wgmma
+// accumulator holds a quarter of D. So dl = (exp(logit - lse) - onehot)
+// * ds is written to device memory once per vocab chunk and read back by
+// two plain GEMM-shaped passes, all three on the mainloop above:
+//   - Pre-pass (xent_bwd_round_kernel): h and E rounded to TF32 as K3's,
+//     and the transposed copies the products read as B: E^T [D, V] for
+//     grad_h (contracted over V), h^T [D, N] for grad_E (contracted over
+//     rows), zero-padded to whole tiles.
+//   - dl pass (xent_dl_kernel), per chunk of vocab columns (the caller's
+//     width, a multiple of 256; 4096 from ops/chunked_loss.py): one
+//     block per 128 rows walks the chunk's 256-wide E tiles as K3 does;
+//     its epilogue forms dl in place in the accumulator (0 past V, and
+//     past N where ds is 0), rounds it to TF32 and stores it twice, as dl
+//     [rows, chunk] (vocab contiguous, grad_h's A) and dl^T [chunk, rows]
+//     (rows contiguous, grad_E's A). Each stored warp instruction fills
+//     whole 32-byte sectors.
+//   - grad_h (xent_bwd_h_kernel): gh[128 x 256 tile] (+)= dl_chunk .
+//     E^T_chunk, over the chunk's vocab; the first chunk writes, later
+//     ones add in chunk order, so results are the same on every run (no
+//     atomics). The grid runs D tiles fastest, so the blocks that share
+//     a dl row tile run together and dl is read from HBM once.
+//   - grad_E (xent_bwd_e_kernel): ge[chunk rows] = dl^T_chunk . h, over
+//     all rows; each chunk owns its rows of ge outright.
+//   dl, dl^T, E^T and h^T lie in K-panels, [K / 32][rows][32], so every
+//   32-deep TMA box is one contiguous block; rows a whole contraction
+//   apart (128 KB at 32768 rows) alias in L2.
+//   K4 alone runs the pre-pass, and per chunk the dl pass (dl only) and
+//   grad_h; K5 alone the dl pass (dl^T only) and grad_E; the joint call
+//   one dl pass per chunk for both products: three products in all,
+//   where computing K4 and K5 apart takes four (each recomputes the
+//   logits). Scratch (the caller's): h and E rounded and transposed
+//   (~0.54 GB at the training shape), dl and dl^T of one chunk: 2 * 4 *
+//   N * chunk bytes, 1.07 GB at N 32768 (0.54 GB at an sp rank's 16384
+//   rows; half for K4 or K5 alone).
+//   What bounds it now (training shape, H100 80GB HBM3 at 700 W; the
+//   numbers in PERF.md): grad_E runs near the TF32 peak (~1.1x its 4.34
+//   ms product); grad_h ~1.4x, its read-add-write of grad_h once a chunk
+//   (the loads go four pairs ahead of their stores; chunks twice as wide
+//   save little); the dl pass ~2x, paying its two stores: the
+//   epilogue's stores run from the consumer warps, which issue no
+//   products meanwhile, and each warp store touches 4 to 8 lines.
+//   Staging dl in shared memory for TMA stores needs room the four-stage
+//   ring holds; two consumer warpgroups on alternate tiles (one storing
+//   while the other multiplies) are the next step. Designs not taken:
+//   splitting D across blocks keeps dl on chip but recomputes the logits
+//   once more per split (+4.34 ms each); a four-block cluster trading
+//   partial logits through distributed shared memory keeps dl off HBM
+//   but needs two cluster barriers per vocab tile and E in both layouts
+//   in every stage.
 // Kernels launch on the caller's stream, allocate nothing and do not
 // synchronise.
 
@@ -103,296 +122,27 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // eight warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kHold = 32;      // rows a block keeps (h in K4, E in K5)
-constexpr int kStream = 16;    // rows of a streamed tile (E in K4, h in K5)
-constexpr int kLDL = 20;       // row stride of the dl tile [32][16]
-constexpr int kPartFloats = kHold * (kStream + 4);  // one warp's partial
 constexpr float kNeg = -1e30f;
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
+// K3's arguments.
 struct Args {
   const void* h;
   const float* e;
   const int* tgt;
   float* lse;
   float* gold;
-  const float* ds;
-  float* gh;
-  float* ge;
   int n, v, ignore_id;
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int pad_to(int a, int b) { return cdiv(a, b) * b; }
 
 __device__ __forceinline__ float to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return __uint_as_float(r);
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One operand element as TF32 bits: fp32 values (E, fp32 h) round to
-// TF32 as they are read (dl is stored rounded, and rounding is
-// idempotent); bf16 -> fp32 is exact, and an fp32 with a bf16 mantissa is
-// a TF32 value.
-__device__ __forceinline__ uint32_t bits(const float* p) {
-  return __float_as_uint(to_tf32(*p));
-}
-__device__ __forceinline__ uint32_t bits(const __nv_bfloat16* p) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p)) << 16;
-}
-
-// Two depth-adjacent elements (depths k, k + 1) as TF32 bits.
-__device__ __forceinline__ void pair(const float* p, uint32_t& lo,
-                                     uint32_t& hi) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  lo = __float_as_uint(to_tf32(v.x));
-  hi = __float_as_uint(to_tf32(v.y));
-}
-__device__ __forceinline__ void pair(const __nv_bfloat16* p, uint32_t& lo,
-                                     uint32_t& hi) {
-  const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
-  lo = v << 16;
-  hi = v & 0xffff0000u;
-}
-
-// Shared memory: 32 rows of E and 32 of h (in K4 the E rows are two
-// 16-row stages and the h rows the kept tile; in K5 the reverse), the
-// eight warps' partial logits, the dl tile and the per-row inputs. Row
-// strides are padded so that fragment loads fall in distinct banks.
-template <typename TH, int D>
-struct Layout {
-  static constexpr int kLDH = D + 8;
-  static constexpr int kLDE = D + 8;
-  static constexpr size_t kSmem =
-      kHold * kLDE * sizeof(float) + kHold * kLDH * sizeof(TH) +
-      (kWarps * kPartFloats + kHold * kLDL + 3 * kHold) * sizeof(float);
-};
-
-struct Smem {
-  float* e;
-  void* h;
-  float* part;
-  float* dl;
-  float* lse;
-  float* ds;
-  int* tgt;
-};
-
-template <typename TH, int D>
-__device__ __forceinline__ Smem carve(unsigned char* smem) {
-  Smem s;
-  s.e = reinterpret_cast<float*>(smem);
-  TH* h = reinterpret_cast<TH*>(s.e + kHold * Layout<TH, D>::kLDE);
-  s.h = h;
-  s.part = reinterpret_cast<float*>(h + kHold * Layout<TH, D>::kLDH);
-  s.dl = s.part + kWarps * kPartFloats;
-  s.lse = s.dl + kHold * kLDL;
-  s.ds = s.lse + kHold;
-  s.tgt = reinterpret_cast<int*>(s.ds + kHold);
-  return s;
-}
-
-// Rows [r0, r0 + kRows) of a contiguous [rows, D] tensor into shared
-// memory with row stride ld, as 16-byte cp.async copies that are all in
-// flight at once; rows past `rows` become zeros.
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void copy_rows(T* dst, const T* src, int r0,
-                                          int rows, int ld) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / kVec;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * kVec;
-    T* to = dst + r * ld + c;
-    if (r0 + r < rows) {
-      const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(to));
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                   "l"(src + static_cast<long long>(r0 + r) * D + c));
-    } else {
-      *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-}
-
-__device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-// The per-row inputs of one row: its target (-1 where ignored or past N),
-// lse and ds (0 past N, so dl is 0 there). fetch() reads them into
-// registers, put() stores them, so a caller can overlap the two.
-struct RowIn {
-  int tgt = -1;
-  float lse = 0.f, ds = 0.f;
-
-  __device__ __forceinline__ void fetch(const Args& a, int row) {
-    if (row >= a.n) return;
-    const int t = a.tgt[row];
-    tgt = t == a.ignore_id ? -1 : t;
-    lse = a.lse[row];
-    ds = a.ds[row];
-  }
-  __device__ __forceinline__ void put(const Smem& sm, int at) const {
-    sm.tgt[at] = tgt;
-    sm.lse[at] = lse;
-    sm.ds[at] = ds;
-  }
-};
-
-// Per-row inputs of rows [r0, r0 + count) into sm at [0, count).
-__device__ __forceinline__ void load_rows(const Args& a, const Smem& sm,
-                                          int r0, int count) {
-  if (threadIdx.x < count) {
-    RowIn in;
-    in.fetch(a, r0 + threadIdx.x);
-    in.put(sm, threadIdx.x);
-  }
-}
-
-// This warp's partial of the [R, C] logits tile h_s . e_s^T (R h rows, C
-// E rows), over depths [warp * D/8, (warp + 1) * D/8), into its slot of
-// `part` ([R][C + 4]). Each fragment serves R/16 or C/8 products. Within
-// each 8-deep step lane t takes depths 2t and 2t + 1 for the mma's k = t
-// and t + 4: the same permutation on both operands leaves the sum
-// unchanged, and each operand pair is one 32- or 64-bit load.
-template <typename TH, int D, int R, int C>
-__device__ __forceinline__ void logits_partial(float* part, const TH* h_s,
-                                               const float* e_s, int warp,
-                                               int lane) {
-  constexpr int ldh = Layout<TH, D>::kLDH, lde = Layout<TH, D>::kLDE;
-  constexpr int kMT = R / 16, kNT = C / 8, ldp = C + 4;
-  const int g = lane >> 2, t = lane & 3;
-  const int k_begin = warp * (D / kWarps);
-  float acc[kMT][kNT][4] = {};
-#pragma unroll 4
-  for (int k0 = k_begin; k0 < k_begin + D / kWarps; k0 += 8) {
-    uint32_t a[kMT][4], b[kNT][2];
-#pragma unroll
-    for (int i = 0; i < kMT; ++i) {
-      const TH* row = h_s + (16 * i + g) * ldh + k0 + 2 * t;
-      pair(row, a[i][0], a[i][2]);
-      pair(row + 8 * ldh, a[i][1], a[i][3]);
-    }
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-      pair(e_s + (8 * j + g) * lde + k0 + 2 * t, b[j][0], b[j][1]);
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], a[i], b[j][0], b[j][1]);
-  }
-  float* out = part + warp * kPartFloats;
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<float2*>(out + (16 * i + g + 8 * r) * ldp + 8 * j +
-                                   2 * t) =
-            make_float2(acc[i][j][2 * r], acc[i][j][2 * r + 1]);
-}
-
-// Logits (row, col) and (row, col + 1) of the [R, C] tile: the eight
-// partials summed in order. The softmax and dl passes give each row
-// 256 / R threads, two columns each.
-template <int C>
-__device__ __forceinline__ void gather_logits(float (&x)[2], const float* part,
-                                              int row, int col) {
-  const float* p = part + row * (C + 4) + col;
-  x[0] = p[0];
-  x[1] = p[1];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) {
-    x[0] += p[w * kPartFloats];
-    x[1] += p[w * kPartFloats + 1];
-  }
-}
-
-// dl = (p - onehot) * ds for logits (hrow, vcol), (hrow, vcol + 1) of the
-// tile, rounded to TF32, into dl_s at [hrow][vcol] (K4) or [vcol][hrow]
-// (K5, kTransposed). vocab0 is the tile's first vocab row; the row
-// inputs are indexed by hrow.
-template <bool kTransposed>
-__device__ __forceinline__ void write_dl(float* dl_s, const float (&x)[2],
-                                         const float* lse_s,
-                                         const float* ds_s, const int* tgt_s,
-                                         int vocab0, int v, int hrow,
-                                         int vcol) {
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int cl = vcol + c;
-    const int col = vocab0 + cl;
-    const float p = col < v ? expf(x[c] - lse_s[hrow]) : 0.f;
-    const float onehot = col == tgt_s[hrow] ? 1.f : 0.f;
-    dl_s[kTransposed ? cl * kLDL + hrow : hrow * kLDL + cl] =
-        to_tf32((p - onehot) * ds_s[hrow]);
-  }
-}
-
-// acc[2][D/64][4] += A[32 x 16] . B[16 x D/8]: A = a_s (row stride kLDL,
-// TF32 values), B = b_s[k][col0 + ...] (row stride ldb). The warp's block
-// is all 32 rows, columns col0 .. col0 + D/8.
-template <int D, typename TB>
-__device__ __forceinline__ void grad_product(float (&acc)[2][D / 64][4],
-                                             const float* a_s, const TB* b_s,
-                                             int ldb, int col0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int k0 = 0; k0 < kStream; k0 += 8) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float* p = a_s + (16 * i + g) * kLDL + k0 + t;
-      a[i][0] = bits(p);
-      a[i][1] = bits(p + 8 * kLDL);
-      a[i][2] = bits(p + 4);
-      a[i][3] = bits(p + 8 * kLDL + 4);
-    }
-    const TB* b = b_s + (k0 + t) * ldb + col0 + g;
-#pragma unroll
-    for (int j = 0; j < D / 64; ++j) {
-      const uint32_t b0 = bits(b + 8 * j), b1 = bits(b + 4 * ldb + 8 * j);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) mma_tf32(acc[i][j], a[i], b0, b1);
-    }
-  }
-}
-
-// Writes this warp's [32, D/8] accumulator block into rows row0.. of a
-// contiguous fp32 [rows, D] tensor; rows at or past `rows` are dropped.
-template <int D>
-__device__ __forceinline__ void store_block(float* out,
-                                            const float (&acc)[2][D / 64][4],
-                                            int row0, int rows, int col0,
-                                            int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 16 * i + g + 8 * r;
-      if (row >= rows) continue;
-      float* dst = out + static_cast<long long>(row) * D + col0 + 2 * t;
-#pragma unroll
-      for (int j = 0; j < D / 64; ++j)
-        *reinterpret_cast<float2*>(dst + 8 * j) =
-            make_float2(acc[i][j][2 * r], acc[i][j][2 * r + 1]);
-    }
-  }
 }
 
 // ------------------------- K3: wgmma + TMA ----------------------------
@@ -614,105 +364,348 @@ __global__ void __launch_bounds__(k3::kThreads, 1)
   }
 }
 
-// K4: one block per 32-row tile of h walks the vocab in 16-row E tiles
-// (two stages: tile j + 1 is copied while tile j is used) and accumulates
-// dl @ E_tile into [32, D]; warp w owns columns w * D/8 of it.
-template <typename TH, int D>
-__global__ void __launch_bounds__(kThreads, 1) xent_bwd_h_kernel(Args a) {
-  constexpr int ldh = Layout<TH, D>::kLDH, lde = Layout<TH, D>::kLDE;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Smem sm = carve<TH, D>(smem);
-  TH* h_s = static_cast<TH*>(sm.h);
-  const int* tgt_s = sm.tgt;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = threadIdx.x >> 3, col = 2 * (threadIdx.x & 7);
-  const int r0 = blockIdx.x * kHold;
-  const int col0 = warp * (D / kWarps);
-  copy_rows<TH, D, kHold>(h_s, static_cast<const TH*>(a.h), r0, a.n, ldh);
-  wait_copies();
-  load_rows(a, sm, r0, kHold);
-  copy_rows<float, D, kStream>(sm.e, a.e, 0, a.v, lde);
-  float acc[2][D / 64][4] = {};
-  const int n_v = cdiv(a.v, kStream);
-  for (int j = 0; j < n_v; ++j) {
-    const int v0 = j * kStream;
-    const float* e_s = sm.e + (j & 1) * kStream * lde;
-    wait_copies();
-    __syncthreads();  // tile j is in place; tile j - 1's readers are done
-    if (j + 1 < n_v)
-      copy_rows<float, D, kStream>(sm.e + ((j + 1) & 1) * kStream * lde, a.e,
-                                   v0 + kStream, a.v, lde);
-    logits_partial<TH, D, kHold, kStream>(sm.part, h_s, e_s, warp, lane);
-    __syncthreads();
-    float x[2];
-    gather_logits<kStream>(x, sm.part, row, col);
-    write_dl<false>(sm.dl, x, sm.lse, sm.ds, tgt_s, v0, a.v, row, col);
-    __syncthreads();
-    grad_product<D>(acc, sm.dl, e_s, lde, col0, lane);
-  }
-  store_block<D>(a.gh, acc, r0, a.n, col0, lane);
-}
+// --------------- K4 and K5: one dl pass, two TF32 GEMMs ---------------
 
-// K5: one block per 32-row tile of E keeps it and walks the rows of h in
-// 16-row tiles (two stages, with their targets, lse and ds), accumulating
-// dl^T @ h_tile into [32, D] as K4 does.
-template <typename TH, int D>
-__global__ void __launch_bounds__(kThreads, 1) xent_bwd_e_kernel(Args a) {
-  constexpr int ldh = Layout<TH, D>::kLDH, lde = Layout<TH, D>::kLDE;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Smem sm = carve<TH, D>(smem);
-  TH* h_base = static_cast<TH*>(sm.h);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = threadIdx.x >> 4, col = 2 * (threadIdx.x & 15);
-  const int v0 = blockIdx.x * kHold;
-  const int col0 = warp * (D / kWarps);
-  copy_rows<float, D, kHold>(sm.e, a.e, v0, a.v, lde);
-  wait_copies();
-  copy_rows<TH, D, kStream>(h_base, static_cast<const TH*>(a.h), 0, a.n, ldh);
-  load_rows(a, sm, 0, kStream);
-  float acc[2][D / 64][4] = {};
-  const int n_t = cdiv(a.n, kStream);
-  for (int i = 0; i < n_t; ++i) {
-    const int r0 = i * kStream, stage = i & 1, next = stage ^ 1;
-    const TH* h_s = h_base + stage * kStream * ldh;
-    wait_copies();
-    __syncthreads();  // tile i is in place; tile i - 1's readers are done
-    // The next tile's rows: h by cp.async, the per-row inputs into
-    // registers now and into their stage after this tile's product.
-    RowIn in;
-    const bool more = i + 1 < n_t;
-    if (more) {
-      copy_rows<TH, D, kStream>(h_base + next * kStream * ldh,
-                                static_cast<const TH*>(a.h), r0 + kStream,
-                                a.n, ldh);
-      if (threadIdx.x < kStream) in.fetch(a, r0 + kStream + threadIdx.x);
+// One pass of the backward: C = A . B^T over K-major fp32 (TF32-valued)
+// operands behind TMA maps, and what its epilogue needs. dl, dl^T, E^T
+// and h^T lie in K-panels: a [rows, K] operand as [K / 32][rows][32], so
+// that the 32-deep box of 128 or 256 rows is one contiguous block (rows a
+// whole contraction apart, 128 KB at 32768 rows, alias in L2).
+struct Pass {
+  const int* tgt;
+  const float* lse;
+  const float* ds;
+  float* dl;   // [chunk / 32][np][32] (null when grad_h is not wanted)
+  float* dlt;  // [np / 32][chunk][32] (null when grad_E is not wanted)
+  float* out;  // grad_h [n, d] or grad_E [v, d]
+  int n, v, d, ignore_id;
+  int np, chunk;  // rows padded to 128; the chunk's vocab columns
+  int v0;         // the chunk's first vocab row
+  int n_tiles;    // 256-wide B tiles a block walks
+  int k_slices;   // 32-deep slices of the contraction
+  int accumulate;  // grad_h: add into out (every chunk but the first)
+};
+
+// The ring's shared memory: kStages stages of [A tile | B tile], then the
+// full and empty barriers, initialised here (call before any role split).
+struct Ring {
+  unsigned char* smem;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+__device__ __forceinline__ Ring ring_init(unsigned char* smem_raw) {
+  using namespace k3;
+  Ring r;
+  r.smem = hopper::align_1024(smem_raw);
+  r.full = reinterpret_cast<uint64_t*>(r.smem + kStages * kStageBytes);
+  r.empty = r.full + kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&r.full[s], 1);
+      hopper::mbar_init(&r.empty[s], 8);  // one arrival per consumer warp
     }
-    logits_partial<TH, D, kStream, kHold>(sm.part, h_s, sm.e, warp, lane);
-    if (more && threadIdx.x < kStream) in.put(sm, next * kStream + threadIdx.x);
-    __syncthreads();
-    float x[2];
-    gather_logits<kHold>(x, sm.part, row, col);
-    write_dl<true>(sm.dl, x, sm.lse + stage * kStream,
-                   sm.ds + stage * kStream, sm.tgt + stage * kStream, v0,
-                   a.v, row, col);
-    __syncthreads();
-    grad_product<D>(acc, sm.dl, h_s, ldh, col0, lane);
+    hopper::fence_barrier_init();
   }
-  store_block<D>(a.ge, acc, v0, a.v, col0, lane);
+  __syncthreads();
+  return r;
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, int blocks, const Args& a,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<blocks, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+// Where an operand's 32-deep slice kk lies in its map. A row-major
+// [rows, K] map: the box at column 32 kk of row `row` (panel_rows 0).
+// K-panels viewed as a [K / 32 * panel_rows, 32] map: the box at column
+// 0 of row row + (k0 + kk) * panel_rows.
+struct Coord {
+  int row, panel_rows, k0;
+  __device__ __forceinline__ int col_at(int kk) const {
+    return panel_rows ? 0 : kk * k3::kBK;
+  }
+  __device__ __forceinline__ int row_at(int kk) const {
+    return row + (k0 + kk) * panel_rows;
+  }
+};
+
+// The producer warpgroup: gives up registers, and its first thread loads,
+// for each of n_tiles B tiles (the j-th 256 rows further on) and each
+// 32-deep slice kk, the A box and the B box.
+__device__ __forceinline__ void produce(const CUtensorMap* a_map,
+                                        const CUtensorMap* b_map,
+                                        const Ring& r, Coord a, Coord b,
+                                        int n_tiles, int k_slices) {
+  using namespace k3;
+  hopper::set_max_regs_dec<40>();
+  if (threadIdx.x != 0) return;
+  hopper::prefetch_map(a_map);
+  hopper::prefetch_map(b_map);
+  int it = 0;
+  for (int j = 0; j < n_tiles; ++j)
+    for (int kk = 0; kk < k_slices; ++kk, ++it) {
+      const int s = it % kStages;
+      hopper::mbar_wait(&r.empty[s], ((it / kStages) & 1) ^ 1);
+      unsigned char* stage = r.smem + s * kStageBytes;
+      hopper::mbar_expect_tx(&r.full[s], kStageBytes);
+      hopper::tma_load(stage, a_map, &r.full[s], a.col_at(kk), a.row_at(kk));
+      hopper::tma_load(stage + kATile, b_map, &r.full[s], b.col_at(kk),
+                       b.row_at(kk) + j * kBN);
+    }
 }
 
-enum Which : int { kFwd = 0, kBwdH = 1, kBwdE = 2 };
+// One [64, 256] tile of this consumer warpgroup over k_slices slices
+// (ring position `it` advances), retired into acc and its last stage
+// released. The fence first orders any writes to acc (the dl pass forms
+// dl in place) before the products that overwrite it; without it ptxas
+// serializes the wgmmas.
+__device__ __forceinline__ void consume_tile(float (&acc)[128], const Ring& r,
+                                             int& it, int k_slices,
+                                             int wg_row) {
+  hopper::fence_regs(acc);
+  for (int kk = 0; kk < k_slices; ++kk, ++it)
+    k3_slice(acc, r.smem, r.full, r.empty, it, kk == 0, wg_row);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  if (threadIdx.x % 32 == 0)
+    hopper::mbar_arrive(&r.empty[(it - 1) % k3::kStages]);
+}
+
+// The two accumulator rows this thread holds: rows g and g + 8 of its
+// warp's 16 in the warpgroup's 64 (columns 8j + 2t and 8j + 2t + 1).
+struct Frag {
+  int warp, g, t, wg_row;
+  __device__ __forceinline__ Frag() {
+    const int lane = threadIdx.x % 32;
+    warp = threadIdx.x / 32 % 4;
+    g = lane >> 2;
+    t = lane & 3;
+    wg_row = 64 * (threadIdx.x / 128 - 1);
+  }
+  __device__ __forceinline__ int row(int m0, int h) const {
+    return m0 + wg_row + 16 * warp + g + 8 * h;
+  }
+};
+
+// dl = (exp(logit - lse) - onehot) * ds over one [64, 256] logits tile in
+// place, rounded to TF32. v0 is column 0's vocab row; columns at or past
+// v are 0. tgt is -1 for an ignored row; lse2 is lse * log2(e).
+__device__ __forceinline__ void dl_tile(float (&acc)[128], int v0, int v,
+                                        const int (&tgt)[2],
+                                        const float (&lse2)[2],
+                                        const float (&ds)[2], int t) {
+  const int lim = v - v0 - 2 * t;  // columns 8j + c at or past lim are past v
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = 8 * j + c;
+        float& x = acc[4 * j + 2 * h + c];
+        const float p =
+            col < lim ? ex2(fmaf(x, k3::kLog2e, -lse2[h])) : 0.f;
+        const float onehot = v0 + 2 * t + col == tgt[h] ? 1.f : 0.f;
+        x = to_tf32((p - onehot) * ds[h]);
+      }
+}
+
+// This thread's dl values (times `scale`) into dl's K-panels [chunk /
+// 32][np][32] at chunk column c0 (a multiple of 256): column c of row r
+// at ((c / 32) * np + r) * 32 + c % 32, one 8-byte store a row and
+// column pair.
+__device__ __forceinline__ void store_dl(float* dl, const float (&acc)[128],
+                                         float scale, const int (&row)[2],
+                                         int c0, int np, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const long long panel = c0 / 32 + j / 4;
+      *reinterpret_cast<float2*>(dl + (panel * np + row[h]) * 32 +
+                                 8 * (j % 4) + 2 * t) =
+          make_float2(acc[4 * j + 2 * h] * scale,
+                      acc[4 * j + 2 * h + 1] * scale);
+    }
+}
+
+// The same values into dl^T's K-panels [np / 32][chunk][32]: row r of
+// column c at ((r / 32) * chunk + c) * 32 + r % 32, so the eight lanes of
+// a quad column write 32 contiguous bytes.
+__device__ __forceinline__ void store_dlt(float* dlt, const float (&acc)[128],
+                                          float scale, const int (&row)[2],
+                                          int c0, int chunk, int t) {
+  float* dst[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    dst[h] = dlt + static_cast<long long>(row[h] / 32) * chunk * 32 +
+             row[h] % 32;
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        dst[h][(c0 + 8 * j + 2 * t + c) * 32] = acc[4 * j + 2 * h + c] * scale;
+}
+
+// The dl pass of one vocab chunk: one block per 128 rows of h (grid.y)
+// walks the chunk's n_tiles E tiles (h_map over the TF32 copy of h, e_map
+// over that of E) and stores each tile's dl into dl and/or dl^T.
+__global__ void __launch_bounds__(k3::kThreads, 1)
+    xent_dl_kernel(const __grid_constant__ CUtensorMap h_map,
+                   const __grid_constant__ CUtensorMap e_map, const Pass p) {
+  using namespace k3;
+  extern __shared__ unsigned char smem_raw[];
+  const Ring r = ring_init(smem_raw);
+  const int m0 = blockIdx.y * kBM;
+  if (threadIdx.x < 128) {
+    produce(&h_map, &e_map, r, {m0, 0, 0}, {p.v0, 0, 0}, p.n_tiles,
+            p.k_slices);
+    return;
+  }
+  hopper::set_max_regs_inc<232>();
+  const Frag f;
+  const int rows[2] = {f.row(m0, 0), f.row(m0, 1)};
+  int tgt[2];
+  float lse2[2], ds[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool live = rows[h] < p.n;
+    const int target = live ? p.tgt[rows[h]] : p.ignore_id;
+    tgt[h] = target == p.ignore_id ? -1 : target;
+    lse2[h] = live ? p.lse[rows[h]] * kLog2e : 0.f;
+    ds[h] = live ? p.ds[rows[h]] : 0.f;  // dl is 0 past N
+  }
+  float acc[128];  // each tile's first slice overwrites it
+  int it = 0;
+  for (int j = 0; j < p.n_tiles; ++j) {
+    consume_tile(acc, r, it, p.k_slices, f.wg_row);
+    const int v0 = p.v0 + j * kBN, c0 = j * kBN;
+    dl_tile(acc, v0, p.v, tgt, lse2, ds, f.t);
+    if (p.dl != nullptr) store_dl(p.dl, acc, 1.f, rows, c0, p.np, f.t);
+    if (p.dlt != nullptr) store_dlt(p.dlt, acc, 1.f, rows, c0, p.chunk, f.t);
+  }
+}
+
+// This consumer warpgroup's [64, 256] product tile into out [rows, d] at
+// row0 (the tile's first row) and column n0: written, or added to when
+// `accumulate`; rows at or past `rows` and columns at or past d are
+// dropped. The adds load four pairs ahead of their stores, so the
+// read-add-write waits on a load round trip eight times a row, not 32.
+__device__ __forceinline__ void store_tile(float* out,
+                                           const float (&acc)[128],
+                                           const Frag& f, int row0, int rows,
+                                           int n0, int d, int accumulate) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = f.row(row0, h);
+    if (row >= rows) continue;
+    float2* dst = reinterpret_cast<float2*>(
+        out + static_cast<long long>(row) * d + n0 + 2 * f.t);
+#pragma unroll
+    for (int j0 = 0; j0 < 32; j0 += 4) {
+      if (n0 + 8 * j0 >= d) break;  // d - n0 is a multiple of 32
+      float2 old[4] = {};
+      if (accumulate)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) old[q] = dst[4 * (j0 + q)];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = j0 + q;
+        dst[4 * j] = make_float2(acc[4 * j + 2 * h] + old[q].x,
+                                 acc[4 * j + 2 * h + 1] + old[q].y);
+      }
+    }
+  }
+}
+
+// K4's product over one chunk: the [128, 256] grad_h tile (row tile
+// grid.y, depth tile grid.x) of dl_chunk . E^T_chunk (dl_map over dl's
+// K-panels, et_map over E^T's from the chunk's first), written on the
+// first chunk and added to on the later ones.
+__global__ void __launch_bounds__(k3::kThreads, 1)
+    xent_bwd_h_kernel(const __grid_constant__ CUtensorMap dl_map,
+                      const __grid_constant__ CUtensorMap et_map,
+                      const Pass p) {
+  using namespace k3;
+  extern __shared__ unsigned char smem_raw[];
+  const Ring r = ring_init(smem_raw);
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  if (threadIdx.x < 128) {
+    const int dp = gridDim.x * kBN;  // E^T's panel rows
+    produce(&dl_map, &et_map, r, {m0, p.np, 0}, {n0, dp, p.v0 / kBK}, 1,
+            p.k_slices);
+    return;
+  }
+  hopper::set_max_regs_inc<232>();
+  const Frag f;
+  float acc[128];
+  int it = 0;
+  consume_tile(acc, r, it, p.k_slices, f.wg_row);
+  store_tile(p.out, acc, f, m0, p.n, n0, p.d, p.accumulate);
+}
+
+// K5's product over one chunk: the [128, 256] grad_E tile (chunk row
+// tile grid.y, depth tile grid.x) of dl^T_chunk . h over all rows
+// (dlt_map and ht_map over the K-blocks of dl^T and h^T); each chunk
+// owns its rows of grad_E.
+__global__ void __launch_bounds__(k3::kThreads, 1)
+    xent_bwd_e_kernel(const __grid_constant__ CUtensorMap dlt_map,
+                      const __grid_constant__ CUtensorMap ht_map,
+                      const Pass p) {
+  using namespace k3;
+  extern __shared__ unsigned char smem_raw[];
+  const Ring r = ring_init(smem_raw);
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  if (threadIdx.x < 128) {
+    const int dp = gridDim.x * kBN;  // h^T's panel rows
+    produce(&dlt_map, &ht_map, r, {m0, p.chunk, 0}, {n0, dp, 0}, 1,
+            p.k_slices);
+    return;
+  }
+  hopper::set_max_regs_inc<232>();
+  const Frag f;
+  float acc[128];
+  int it = 0;
+  consume_tile(acc, r, it, p.k_slices, f.wg_row);
+  store_tile(p.out, acc, f, p.v0 + m0, p.v, n0, p.d, 0);
+}
+
+// The backward's pre-pass over one [rows, cols] operand (fp32 or bf16):
+// its TF32 rounding into dst [rows, cols] (if dst), and the rounding
+// transposed into dst_t (if dst_t): [cols_t, rows_t] in K-panels
+// [rows_t / 32][cols_t][32], zero past the operand. One block per 32 x
+// 32 tile of the padded extent; a tile's transpose is 4 KB contiguous.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    xent_bwd_round_kernel(const T* src, int rows, int cols, float* dst,
+                          float* dst_t, int rows_t, int cols_t) {
+  __shared__ float tile[32][33];
+  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+#pragma unroll
+  for (int i = ty; i < 32; i += 8) {
+    const int r = r0 + i, c = c0 + tx;
+    float x = 0.f;
+    if (r < rows && c < cols) {
+      const long long at = static_cast<long long>(r) * cols + c;
+      if constexpr (sizeof(T) == 4)
+        x = to_tf32(src[at]);
+      else
+        x = __bfloat162float(src[at]);  // exact, and a TF32 value
+      if (dst != nullptr) dst[at] = x;
+    }
+    tile[i][tx] = x;
+  }
+  if (dst_t == nullptr) return;
+  __syncthreads();
+#pragma unroll
+  for (int i = ty; i < 32; i += 8) {
+    const int c = c0 + i;  // dst_t row c, column r0 + tx
+    if (c < cols_t)
+      dst_t[(static_cast<long long>(blockIdx.y) * cols_t + c) * 32 + tx] =
+          tile[tx][i];
+  }
+}
+
+// ------------------------------- host ---------------------------------
 
 template <typename T>
 cudaError_t round_tf32(const T* src, float* dst, long long count,
@@ -755,35 +748,100 @@ cudaError_t run_fwd(const Args& a, int dtype, int depth, float* h32,
   return cudaGetLastError();
 }
 
-template <typename TH, int D>
-cudaError_t run(Which which, const Args& a, cudaStream_t stream) {
-  const size_t smem = Layout<TH, D>::kSmem;
-  if (which == kBwdH)
-    return launch(xent_bwd_h_kernel<TH, D>, smem, cdiv(a.n, kHold), a,
-                  stream);
-  return launch(xent_bwd_e_kernel<TH, D>, smem, cdiv(a.v, kHold), a, stream);
+// The backward's pre-pass over one operand: src [rows, cols] rounded into
+// dst, and transposed into dst_t's K-panels [rows_t / 32][cols_t][32]
+// (either may be null; rows_t a multiple of 32).
+template <typename T>
+cudaError_t round_operand(const T* src, int rows, int cols, float* dst,
+                          float* dst_t, int rows_t, int cols_t,
+                          cudaStream_t stream) {
+  if (dst_t == nullptr) rows_t = rows, cols_t = cols;
+  const dim3 grid(cdiv(cols_t, 32), cdiv(rows_t, 32));
+  xent_bwd_round_kernel<T><<<grid, 256, 0, stream>>>(src, rows, cols, dst,
+                                                     dst_t, rows_t, cols_t);
+  return cudaGetLastError();
 }
 
-cudaError_t dispatch(Which which, int dtype, int depth, const Args& a,
-                     cudaStream_t stream) {
-#define BS_CASE(TYPE, DEPTH) return run<TYPE, DEPTH>(which, a, stream)
-  if (dtype == kBF16 && depth == 128) BS_CASE(__nv_bfloat16, 128);
-  if (dtype == kBF16 && depth == 256) BS_CASE(__nv_bfloat16, 256);
-  if (dtype == kBF16 && depth == 512) BS_CASE(__nv_bfloat16, 512);
-  if (dtype == kBF16 && depth == 1024) BS_CASE(__nv_bfloat16, 1024);
-  if (dtype == kF32 && depth == 128) BS_CASE(float, 128);
-  if (dtype == kF32 && depth == 256) BS_CASE(float, 256);
-  if (dtype == kF32 && depth == 512) BS_CASE(float, 512);
-#undef BS_CASE
-  return cudaErrorInvalidValue;
-}
+// The backward's buffers: the operands rounded (h32 [n, d], e32 [v, d])
+// and transposed (E^T [dp, vp] when grad_h is wanted, h^T [dp, np] when
+// grad_E is), and one chunk of dl [np, chunk] (grad_h) and dl^T [chunk,
+// np] (grad_E), where np = n rounded up to 128, vp = v and dp = d to
+// 256. These four lie in K-panels: et [vp / 32][dp][32], ht [np / 32][dp]
+// [32], dl [chunk / 32][np][32], dlt [np / 32][chunk][32].
+struct Scratch {
+  float *h32, *e32, *et, *ht, *dl, *dlt;
+};
 
-int entry(Which which, int device, const Args& a, int depth, int dtype,
-          void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+cudaError_t run_bwd(const void* h, int dtype, const float* e, Pass p,
+                    float* gh, float* ge, const Scratch& s,
+                    cudaStream_t stream) {
+  using namespace k3;
+  const int vp = pad_to(p.v, kBN), dp = pad_to(p.d, kBN);
+  cudaError_t err =
+      dtype == kBF16
+          ? round_operand(static_cast<const __nv_bfloat16*>(h), p.n, p.d,
+                          s.h32, ge ? s.ht : nullptr, p.np, dp, stream)
+          : round_operand(static_cast<const float*>(h), p.n, p.d, s.h32,
+                          ge ? s.ht : nullptr, p.np, dp, stream);
   if (err != cudaSuccess) return err;
-  if (a.n <= 0 || a.v <= 0) return cudaSuccess;
-  return dispatch(which, dtype, depth, a, static_cast<cudaStream_t>(stream));
+  err = round_operand(e, p.v, p.d, s.e32, gh ? s.et : nullptr, vp, dp,
+                      stream);
+  if (err != cudaSuccess) return err;
+  constexpr CUtensorMapDataType kF = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap h_map, e_map, dl_map, et_map, dlt_map, ht_map;
+  err = hopper::tensor_map(&h_map, s.h32, kF, 4, p.n, p.d, kBM, kBK);
+  if (err == cudaSuccess)
+    err = hopper::tensor_map(&e_map, s.e32, kF, 4, p.v, p.d, kBN, kBK);
+  // K-panels as [K / 32 * rows, 32] maps: every box lies in one panel.
+  const long long dl_rows = static_cast<long long>(p.chunk) * p.np / kBK;
+  if (err == cudaSuccess && gh != nullptr)
+    err = hopper::tensor_map(&dl_map, s.dl, kF, 4, dl_rows, kBK, kBM, kBK);
+  if (err == cudaSuccess && gh != nullptr)
+    err = hopper::tensor_map(&et_map, s.et, kF, 4,
+                             static_cast<long long>(vp) / kBK * dp, kBK, kBN,
+                             kBK);
+  if (err == cudaSuccess && ge != nullptr)
+    err = hopper::tensor_map(&dlt_map, s.dlt, kF, 4, dl_rows, kBK, kBM, kBK);
+  if (err == cudaSuccess && ge != nullptr)
+    err = hopper::tensor_map(&ht_map, s.ht, kF, 4,
+                             static_cast<long long>(p.np) / kBK * dp, kBK,
+                             kBN, kBK);
+  for (const void* kernel : {reinterpret_cast<const void*>(xent_dl_kernel),
+                             reinterpret_cast<const void*>(xent_bwd_h_kernel),
+                             reinterpret_cast<const void*>(xent_bwd_e_kernel)})
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kSmem));
+  if (err != cudaSuccess) return err;
+  p.dl = gh != nullptr ? s.dl : nullptr;
+  p.dlt = ge != nullptr ? s.dlt : nullptr;
+  for (int v0 = 0; v0 < p.v; v0 += p.chunk) {
+    p.v0 = v0;
+    p.n_tiles = cdiv(min(p.chunk, p.v - v0), kBN);
+    p.k_slices = p.d / kBK;
+    xent_dl_kernel<<<dim3(1, p.np / kBM), kThreads, kSmem, stream>>>(
+        h_map, e_map, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (gh != nullptr) {
+      Pass q = p;
+      q.out = gh;
+      q.k_slices = p.n_tiles * (kBN / kBK);
+      q.accumulate = v0 > 0;
+      xent_bwd_h_kernel<<<dim3(dp / kBN, p.np / kBM), kThreads, kSmem,
+                          stream>>>(dl_map, et_map, q);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    if (ge != nullptr) {
+      Pass q = p;
+      q.out = ge;
+      q.k_slices = p.np / kBK;
+      xent_bwd_e_kernel<<<dim3(dp / kBN, cdiv(p.n_tiles * kBN, kBM)),
+                          kThreads, kSmem, stream>>>(dlt_map, ht_map, q);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -813,24 +871,36 @@ int bs_xent_fwd(int device, const void* h, const float* e, const int* tgt,
   return run_fwd(a, dtype, d, h32, e32, static_cast<cudaStream_t>(stream));
 }
 
-// K4 (which 1) -> out = grad_h fp32 [n, d]; K5 (which 2) -> out = grad_E
-// fp32 [v, d]. lse from K3; ds fp32 [n] is g * mask / count.
-int bs_xent_bwd(int which, int device, const void* h, const float* e,
-                const int* tgt, const float* lse, const float* ds, float* out,
-                int n, int v, int d, int dtype, int ignore_id, void* stream) {
-  if (which != kBwdH && which != kBwdE) return cudaErrorInvalidValue;
-  Args a{};
-  a.h = h;
-  a.e = e;
-  a.tgt = tgt;
-  a.lse = const_cast<float*>(lse);
-  a.ds = ds;
-  a.gh = out;
-  a.ge = out;
-  a.n = n;
-  a.v = v;
-  a.ignore_id = ignore_id;
-  return entry(static_cast<Which>(which), device, a, d, dtype, stream);
+// K4 and K5. lse from K3; ds fp32 [n] is g * mask / count. gh (grad_h,
+// fp32 [n, d]) and ge (grad_E, fp32 [v, d]) are each computed when not
+// null: gh alone is K4, ge alone K5, both the joint backward (one dl pass
+// a chunk). Scratch (Scratch above, fp32): h32 [n, d], e32 [v, d]; with gh
+// et and dl; with ge ht and dlt, in K-panels. chunk is a multiple of
+// 256, at most vp; d a multiple of 32.
+int bs_xent_bwd(int device, const void* h, const float* e, const int* tgt,
+                const float* lse, const float* ds, float* gh, float* ge,
+                float* h32, float* e32, float* et, float* ht, float* dl,
+                float* dlt, int n, int v, int d, int dtype, int ignore_id,
+                int chunk, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (d <= 0 || d % k3::kBK != 0 || (dtype != kF32 && dtype != kBF16) ||
+      chunk <= 0 || chunk % k3::kBN != 0 ||
+      (gh == nullptr && ge == nullptr))
+    return cudaErrorInvalidValue;
+  if (n <= 0 || v <= 0) return cudaSuccess;
+  Pass p{};
+  p.tgt = tgt;
+  p.lse = lse;
+  p.ds = ds;
+  p.n = n;
+  p.v = v;
+  p.d = d;
+  p.ignore_id = ignore_id;
+  p.np = pad_to(n, k3::kBM);
+  p.chunk = chunk;
+  const Scratch s{h32, e32, et, ht, dl, dlt};
+  return run_bwd(h, dtype, e, p, gh, ge, s, static_cast<cudaStream_t>(stream));
 }
 
 const char* bs_error_string(int code) {

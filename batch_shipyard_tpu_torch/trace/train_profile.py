@@ -5,9 +5,10 @@ the host clock with a synchronise, then ``steps`` more under
 ``torch.profiler``, and returns the step's wall time, the device's busy
 time (union of kernel intervals) and idle share, each hand-written
 kernel's time and share of device time (flash K1, K2; the fused
-cross-entropy K3, K4, K5; the fused RMSNorm+matmul K9; the int8 quantize
-K10 and matmul K11; on a sequence-parallel ring the permute K12 and the
-gradient all-reduce K13 + K14), the library GEMMs' time and share
+cross-entropy K3, the backward's shared pre-pass and dl pass, K4 and
+K5; the fused RMSNorm+matmul K9; the int8 quantize K10 and matmul K11;
+on a sequence-parallel ring the permute K12 and the gradient all-reduce
+K13 + K14), the library GEMMs' time and share
 (cuBLAS's kernels: the int8 step's fp32 backward products, the other
 steps' projections and slab-loss products), and the largest device
 kernels. On a ring it also splits the ring kernels' time into ring wait
@@ -34,8 +35,13 @@ from batch_shipyard_tpu_torch.trace.decode_profile import busy_us
 FLASH_FWD = "flash_fwd_kernel"
 FLASH_BWD = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 # K3 and K9 count their pre-passes (the TF32 rounding of h and E; the
-# row statistics) with their main kernels.
+# row statistics) with their main kernels. The backward's own pre-pass
+# (h and E rounded and transposed) and its dl pass, which K4 and K5
+# share, have a row of their own (xent_bwd_dl); K4's and K5's rows are
+# their products alone.
 XENT_FWD = ("xent_fwd_wgmma_kernel", "tf32_round_kernel")
+XENT_BWD_PREPASS = "xent_bwd_round_kernel"
+XENT_DL_PASS = "xent_dl_kernel"
 XENT_BWD_H = "xent_bwd_h_kernel"
 XENT_BWD_E = "xent_bwd_e_kernel"
 RMSNORM_MATMUL = ("rmsnorm_matmul_wgmma_kernel", "rmsnorm_matmul_fma_kernel",
@@ -48,8 +54,9 @@ RING_ALL_GATHER = "ring_all_gather_kernel"
 RING_REDUCE_SCATTER = "ring_reduce_scatter_kernel"
 KERNEL_SYMBOLS = {
     "flash_fwd": (FLASH_FWD,), "flash_bwd": FLASH_BWD,
-    "xent_fwd": XENT_FWD, "xent_bwd_h": (XENT_BWD_H,),
-    "xent_bwd_e": (XENT_BWD_E,), "rmsnorm_matmul": RMSNORM_MATMUL,
+    "xent_fwd": XENT_FWD, "xent_bwd_dl": (XENT_BWD_PREPASS, XENT_DL_PASS),
+    "xent_bwd_h": (XENT_BWD_H,), "xent_bwd_e": (XENT_BWD_E,),
+    "rmsnorm_matmul": RMSNORM_MATMUL,
     "quantize_int8": (QUANTIZE_INT8,), "int8_matmul": (INT8_MATMUL,),
     "ring_permute": (RING_PERMUTE,), "ring_all_gather": (RING_ALL_GATHER,),
     "ring_reduce_scatter": (RING_REDUCE_SCATTER,),

@@ -18,12 +18,13 @@ Phases, each fatal on failure:
      The flash check reads each output tile by tile, and at the training
      shape it must fail on a copy of the source with faults planted in
      single tiles (FLASH_FAULTS), built beside the kernels. The fused
-     cross-entropy (K3 forward, K4 grad_hidden, K5 grad_embedding) against
-     its plain versions at the training shape (N 32768, D 1024, V 32000,
+     cross-entropy (K3 forward, K4 grad_hidden, K5 grad_embedding, alone
+     and as the joint backward the training step calls) against its
+     plain versions at the training shape (N 32768, D 1024, V 32000,
      bf16 h, fp32 E, 5% of targets ignored), at ragged shapes (N 1000,
-     V 700, D 128 and 256, fp32 and bf16) and with every target ignored;
-     the fused RMSNorm+matmul (K9) at both training shapes and a ragged
-     M 1000 K 128 N 384 in bf16 and fp32. Both are read row by row (lse,
+     V 700, D 128 and 256, fp32 and bf16; D 1024 fp32) and with every
+     target ignored; the fused RMSNorm+matmul (K9) at both training
+     shapes and a ragged M 1000 K 128 N 384 in bf16 and fp32. Both are read row by row (lse,
      gold) or tile by tile, and each must fail on its planted faults
      (LOSS_FAULTS, NORM_FAULTS) at the training shape. The int8 quantize
      (K10) and int8 matmul (K11) against their plain versions on the same
@@ -44,8 +45,9 @@ Phases, each fatal on failure:
      alone through torch.matmul at the kernel's precision) at the main
      path's shapes: decode at 8 slots x 16 heads x 64 dims over 512 keys,
      flash at the training shape B16 T2048 H16 D64, causal, bf16, the
-     loss at N 32768 D 1024 V 32000, K9 at M 32768 K 1024 N 3072 and
-     5632, K10 and K11 at one layer's seven projections (K11's yardstick:
+     loss at N 32768 D 1024 V 32000 (the joint backward with its passes
+     and its scratch, and again with chunks twice as wide), K9 at M
+     32768 K 1024 N 3072 and 5632, K10 and K11 at one layer's seven projections (K11's yardstick:
      torch._int_mm and the two scale multiplies);
   4. train the repo's training benchmark model (bench.py
      bench_transformer: vocab 32000, d_model 1024, 12 layers, 16 heads,
@@ -249,25 +251,33 @@ LOSS_TRAIN_SHAPE = dict(
 # pair without a target carries ~1e-4 of its row's grad_h (or its vocab
 # row's grad_E), under the TF32 noise; the K4 and K5 faults therefore
 # drop the pair that holds a target (row 0's, and the last row's, whose
-# targets the check keeps live). K3's fault leaves 256 of 32000 logits
-# out of the first 128 rows' lse, ~8e-3. Each keeps the kernel's
-# producer and consumers in step (K3 still reads every tile it loads).
+# targets the check keeps live). They sit in the dl pass's two stores:
+# dl (vocab contiguous) is K4's operand alone, dl^T (rows contiguous)
+# K5's alone, so each breaks its gradient in K4 (or K5) alone and in the
+# joint backward, and nothing else. K3's fault leaves 256 of 32000
+# logits out of the first 128 rows' lse, ~8e-3. Each keeps the kernel's
+# producer and consumers in step (every tile loaded is still read).
 LOSS_FAULTS = (
     # K3: row tile 0 folds every vocab tile but the last into its rows.
     ("xent_fwd_wgmma_kernel", "    fold(st, acc, j * kBN, a.v, tgt, t);",
      "    if (blockIdx.x != 0 || j != n_v - 1) "
      "fold(st, acc, j * kBN, a.v, tgt, t);", ("lse",)),
-    # K4: row tile 0 drops the vocab tile holding row 0's target.
-    ("xent_bwd_h_kernel",
-     "grad_product<D>(acc, sm.dl, e_s, lde, col0, lane);",
-     "if (blockIdx.x != 0 || j != tgt_s[0] / kStream) "
-     "grad_product<D>(acc, sm.dl, e_s, lde, col0, lane);", ("gh",)),
-    # K5: the vocab tile holding the last row's target skips the last
-    # row tile.
-    ("xent_bwd_e_kernel",
-     "grad_product<D>(acc, sm.dl, h_s, ldh, col0, lane);",
-     "if (blockIdx.x != a.tgt[a.n - 1] / kHold || i != n_t - 1) "
-     "grad_product<D>(acc, sm.dl, h_s, ldh, col0, lane);", ("ge",)),
+    # K4: row tile 0 stores zeros as the dl of the vocab tile holding
+    # row 0's target.
+    ("xent_dl_kernel",
+     "    if (p.dl != nullptr) store_dl(p.dl, acc, 1.f, rows, c0, p.np, "
+     "f.t);",
+     "    if (p.dl != nullptr) store_dl(p.dl, acc, blockIdx.y == 0 && "
+     "v0 <= p.tgt[0] && p.tgt[0] < v0 + kBN ? 0.f : 1.f, rows, c0, "
+     "p.np, f.t);", ("gh", "gh_joint")),
+    # K5: the last row tile stores zeros as the dl^T of the vocab tile
+    # holding the last row's target.
+    ("xent_dl_kernel",
+     "    if (p.dlt != nullptr) store_dlt(p.dlt, acc, 1.f, rows, c0, "
+     "p.chunk, f.t);",
+     "    if (p.dlt != nullptr) store_dlt(p.dlt, acc, blockIdx.y == "
+     "gridDim.y - 1 && v0 <= p.tgt[p.n - 1] && p.tgt[p.n - 1] < v0 + kBN "
+     "? 0.f : 1.f, rows, c0, p.chunk, f.t);", ("ge", "ge_joint")),
 )
 
 # Fused RMSNorm+matmul (K9) against its plain version, per NORM_TILE
@@ -969,18 +979,27 @@ def loss_case(gen, rows, vocab, depth, dtype, ignore_frac, device):
 
 
 def loss_outputs(h, e, tgt, ds, library=None, plain=False) -> dict:
-    """lse, gold, gh, ge from the kernels (or their plain versions)."""
+    """lse and gold (K3), gh (K4 alone), ge (K5 alone), gh_joint and
+    ge_joint (the joint backward) from the kernels, or their plain
+    versions."""
     if plain:
         lse, gold = loss_ops.xent_forward_reference(h, e, tgt)
         args = (h, e, tgt, lse, ds)
+        joint = loss_ops.xent_backward_reference(*args)
         return {"lse": lse, "gold": gold,
                 "gh": loss_ops.xent_backward_h_reference(*args),
-                "ge": loss_ops.xent_backward_e_reference(*args)}
+                "ge": loss_ops.xent_backward_e_reference(*args),
+                "gh_joint": joint[0], "ge_joint": joint[1]}
     lse, gold = loss_ops.xent_forward_kernel(h, e, tgt, library=library)
     args = (h, e, tgt, lse, ds)
+    joint = loss_ops.xent_backward_kernel(*args, library=library)
     return {"lse": lse, "gold": gold,
             "gh": loss_ops.xent_backward_h_kernel(*args, library=library),
-            "ge": loss_ops.xent_backward_e_kernel(*args, library=library)}
+            "ge": loss_ops.xent_backward_e_kernel(*args, library=library),
+            "gh_joint": joint[0], "ge_joint": joint[1]}
+
+
+LOSS_GRADS = ("gh", "ge", "gh_joint", "ge_joint")
 
 
 def loss_errors(got, want) -> dict:
@@ -988,17 +1007,17 @@ def loss_errors(got, want) -> dict:
     for name, t in got.items():
         require(t.dtype == torch.float32 and bool(torch.isfinite(t).all()),
                 f"loss kernels: {name} not finite fp32")
-    return {"lse": float((got["lse"] - want["lse"]).abs().max()),
-            "gold": float((got["gold"] - want["gold"]).abs().max()),
-            "gh": block_err(got["gh"], want["gh"], LOSS_TILE,
-                            want["gh"].shape[1]),
-            "ge": block_err(got["ge"], want["ge"], LOSS_TILE,
-                            want["ge"].shape[1])}
+    err = {"lse": float((got["lse"] - want["lse"]).abs().max()),
+           "gold": float((got["gold"] - want["gold"]).abs().max())}
+    for name in LOSS_GRADS:
+        err[name] = block_err(got[name], want[name], LOSS_TILE,
+                              want[name].shape[1])
+    return err
 
 
 def loss_failures(err: dict, dtype) -> list:
     limits = {"lse": LOSS_LSE_TOL[dtype], "gold": GOLD_TOL,
-              "gh": LOSS_GRAD_TOL, "ge": LOSS_GRAD_TOL}
+              **dict.fromkeys(LOSS_GRADS, LOSS_GRAD_TOL)}
     return [name for name, limit in limits.items() if err[name] > limit]
 
 
@@ -1007,32 +1026,34 @@ def _fmt(err: dict) -> str:
 
 
 def check_loss(device, fault_lib) -> dict:
-    """Phase 2c: K3, K4 and K5 against their plain versions: ragged
-    shapes, every target ignored, then the training shape, where the
+    """Phase 2c: K3, K4 and K5 (alone and as the joint backward) against
+    their plain versions: ragged shapes (fp32 h up to D 1024), every
+    target ignored, then the training shape, where the
     planted-fault build must fail. Every case is read and printed before
     the first failure is raised. Returns the training-shape readings."""
     gen = torch.Generator(device=device).manual_seed(6)
     failed = []
-    for depth in (128, 256):
-        for dtype in (torch.float32, torch.bfloat16):
-            case = loss_case(gen, 1000, 700, depth, dtype, 0.05, device)
-            err = loss_errors(loss_outputs(*case),
-                              loss_outputs(*case, plain=True))
-            name = f"loss N=1000 V=700 D={depth} h={str(dtype)[6:]}"
-            print(f"check {name}: {_fmt(err)} (lse tol {LOSS_LSE_TOL[dtype]}, "
-                  f"gold tol {GOLD_TOL}, tile tol {LOSS_GRAD_TOL})",
-                  flush=True)
-            failed += [f"{name} {k}" for k in loss_failures(err, dtype)]
+    ragged = [(depth, dtype) for depth in (128, 256)
+              for dtype in (torch.float32, torch.bfloat16)]
+    for depth, dtype in ragged + [(1024, torch.float32)]:
+        case = loss_case(gen, 1000, 700, depth, dtype, 0.05, device)
+        err = loss_errors(loss_outputs(*case),
+                          loss_outputs(*case, plain=True))
+        name = f"loss N=1000 V=700 D={depth} h={str(dtype)[6:]}"
+        print(f"check {name}: {_fmt(err)} (lse tol {LOSS_LSE_TOL[dtype]}, "
+              f"gold tol {GOLD_TOL}, tile tol {LOSS_GRAD_TOL})",
+              flush=True)
+        failed += [f"{name} {k}" for k in loss_failures(err, dtype)]
     h, e, tgt, ds = loss_case(gen, 1000, 700, 128, torch.bfloat16, 1.0,
                               device)
     got = loss_outputs(h, e, tgt, ds)
     want = loss_outputs(h, e, tgt, ds, plain=True)
     torch.cuda.synchronize()
     lse_err = float((got["lse"] - want["lse"]).abs().max())
-    print(f"check loss every target ignored: lse {lse_err:.3g}; gold, gh "
-          f"and ge must be exactly zero", flush=True)
+    print(f"check loss every target ignored: lse {lse_err:.3g}; gold and "
+          f"every gradient must be exactly zero", flush=True)
     if lse_err > LOSS_LSE_TOL[torch.bfloat16] or any(
-            bool(got[k].any()) for k in ("gold", "gh", "ge")):
+            bool(got[k].any()) for k in ("gold",) + LOSS_GRADS):
         failed.append("every target ignored")
 
     shape = LOSS_TRAIN_SHAPE
@@ -1068,11 +1089,42 @@ def loss_bound(rows, vocab, depth, h_dtype, products, out_rows) -> dict:
     return roofline(nbytes, ops, "tf32")
 
 
+# The joint backward's passes, by the kernel names torch.profiler reports.
+LOSS_PASSES = {"pre_pass": train_profile.XENT_BWD_PREPASS,
+               "dl_pass": train_profile.XENT_DL_PASS,
+               "grad_h": train_profile.XENT_BWD_H,
+               "grad_e": train_profile.XENT_BWD_E}
+
+
+def loss_pass_ms(args, calls: int = 3) -> dict:
+    """Device ms of each pass of one joint backward call, summed over its
+    launches from torch.profiler's kernel records of ``calls`` calls."""
+    loss_ops.xent_backward_kernel(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            loss_ops.xent_backward_kernel(*args)
+        torch.cuda.synchronize()
+    us = dict.fromkeys(LOSS_PASSES, 0.0)
+    for event in prof.events():
+        if event.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for key, symbol in LOSS_PASSES.items():
+            if symbol in event.name:
+                us[key] += event.time_range.end - event.time_range.start
+    require(all(us.values()), f"loss passes: a pass left no record {us}")
+    return {key: t / 1e3 / calls for key, t in us.items()}
+
+
 def time_loss(device, readings: dict) -> dict:
-    """Phase 3c: K3, K4 and K5 at the training shape against their plain
-    versions and the library yardstick: the same products alone through
+    """Phase 3c: K3, K4 and K5 (alone, and the joint backward with its
+    pass breakdown) at the training shape against their plain versions
+    and the library yardstick: the same products alone through
     torch.matmul with TF32 allowed (K3: h E^T; K4: (h E^T) E; K5:
-    (h E^T)^T h), on h already in fp32."""
+    (h E^T)^T h; joint: l = h E^T, then l E and l^T h), on h already in
+    fp32."""
     shape = LOSS_TRAIN_SHAPE
     rows, vocab, depth = shape["rows"], shape["vocab"], shape["depth"]
     gen = torch.Generator(device=device).manual_seed(7)
@@ -1081,6 +1133,15 @@ def time_loss(device, readings: dict) -> dict:
     lse, _ = loss_ops.xent_forward_kernel(h, e, tgt)
     fwd, bwd = [(h, e, tgt)], [(h, e, tgt, lse, ds)]
     sound = readings["sound"]
+    shapes, _ = loss_ops.backward_scratch(rows, vocab, depth)
+    joint = dict(
+        max_tile_err=max(sound["gh_joint"], sound["ge_joint"]),
+        ms=device_ms(loss_ops.xent_backward_kernel, bwd, 3),
+        plain_ms=device_ms(loss_ops.xent_backward_reference, bwd, 2),
+        passes_ms=loss_pass_ms(bwd[0]),
+        dl_scratch_bytes=4 * sum(math.prod(shapes[k]) for k in ("dl", "dlt")),
+        scratch_bytes=4 * sum(math.prod(t) for t in shapes.values()),
+        **loss_bound(rows, vocab, depth, h.dtype, 3, rows + vocab))
     out = {
         "xent_fwd": dict(
             max_abs_err=max(sound["lse"], sound["gold"]),
@@ -1107,7 +1168,29 @@ def time_loss(device, readings: dict) -> dict:
         out[key]["max_abs_err"] = float(
             (kernel(*bwd[0]) - plain(*bwd[0])).abs().max())
         torch.cuda.empty_cache()
+    joint["max_abs_err"] = max(
+        float((got - want).abs().max()) for got, want in zip(
+            loss_ops.xent_backward_kernel(*bwd[0]),
+            loss_ops.xent_backward_reference(*bwd[0])))
+    torch.cuda.empty_cache()
+    # The scratch trade-off: the joint backward with chunks twice as wide.
+    chunk = loss_ops.BWD_CHUNK
+    loss_ops.BWD_CHUNK = 2 * chunk
+    try:
+        wide, _ = loss_ops.backward_scratch(rows, vocab, depth)
+        joint["wide_chunk"] = dict(
+            chunk=loss_ops.BWD_CHUNK,
+            ms=device_ms(loss_ops.xent_backward_kernel, bwd, 3),
+            dl_scratch_bytes=4 * sum(math.prod(wide[k])
+                                     for k in ("dl", "dlt")))
+    finally:
+        loss_ops.BWD_CHUNK = chunk
+    torch.cuda.empty_cache()
     hf = h.float()
+
+    def three_matmuls():
+        logits = hf @ e.t()
+        return logits @ e, logits.t() @ hf
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         out["xent_fwd"]["library_ms"] = device_ms(
@@ -1116,6 +1199,7 @@ def time_loss(device, readings: dict) -> dict:
             lambda: (hf @ e.t()) @ e, [()], 3)
         out["xent_bwd_e"]["library_ms"] = device_ms(
             lambda: (hf @ e.t()).t() @ hf, [()], 3)
+        joint["library_ms"] = device_ms(three_matmuls, [()], 3)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     del hf, h, e, lse
@@ -1126,6 +1210,16 @@ def time_loss(device, readings: dict) -> dict:
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}; ops {row['ops_ms']:.4f} ms, bytes "
               f"{row['bytes_ms']:.4f} ms)", flush=True)
+    print(f"time K4+K5 joint backward: kernel {joint['ms']:.4f} ms (passes "
+          f"{_fmt(joint['passes_ms'])} ms), plain {joint['plain_ms']:.4f} "
+          f"ms, three torch.matmul tf32 {joint['library_ms']:.4f} ms, bound "
+          f"{joint['bound_ms']:.4f} ms ({joint['bound_by']}); dl scratch "
+          f"{joint['dl_scratch_bytes']} bytes of {joint['scratch_bytes']}; "
+          f"at chunk {joint['wide_chunk']['chunk']} "
+          f"{joint['wide_chunk']['ms']:.4f} ms with "
+          f"{joint['wide_chunk']['dl_scratch_bytes']} bytes of dl scratch",
+          flush=True)
+    out["xent_bwd_h"]["joint"] = out["xent_bwd_e"]["joint"] = joint
     return out
 
 
@@ -2501,7 +2595,8 @@ def main() -> int:
         row.update({k: t[k] for k in ("max_abs_err", "max_tile_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
                                       "library_ms", "per", "bound_nvlink_ms",
-                                      "ms_per_rank", "note") if k in t})
+                                      "ms_per_rank", "note", "joint")
+                    if k in t})
         kernels.append(row)
     print(smi)
     print(json.dumps({"kernels": kernels}))

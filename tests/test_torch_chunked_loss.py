@@ -166,6 +166,111 @@ def test_plain_versions_match_the_slab_path():
         ep.grad.numpy(), **TOL)
 
 
+
+def _backward_inputs(rows, vocab, depth, ignore_frac):
+    """h (bf16 rows, as training feeds them), e, targets, lse and ds =
+    mask / count for the backward's plain versions."""
+    lead = rows if isinstance(rows, tuple) else (rows,)
+    hidden, embedding, targets = _inputs(depth + vocab, lead, ignore_frac,
+                                         vocab=vocab, depth=depth)
+    h = torch.from_numpy(hidden.reshape(-1, depth)).to(torch.bfloat16)
+    e = torch.from_numpy(embedding)
+    t = torch.from_numpy(targets.reshape(-1))
+    lse, _ = tcl.xent_forward_reference(h, e, t)
+    mask = (t != -1).float()
+    return h, e, t, lse, mask / mask.sum().clamp(min=1.0)
+
+
+@pytest.mark.parametrize("chunk", [tcl.BWD_CHUNK, 256])
+@pytest.mark.parametrize("rows,vocab,depth,ignore_frac", KERNEL_CASES)
+def test_joint_backward_reference_matches_separate(rows, vocab, depth,
+                                                   ignore_frac, chunk):
+    """The joint plain version (one dlogits chunk feeding both products,
+    chunk 256 not dividing V 700) against K4's and K5's plain versions;
+    every target ignored gives exact zeros; need_h / need_e alone give
+    the same gradient and count one plain call of their kernel."""
+    args = _backward_inputs(rows, vocab, depth, ignore_frac)
+    gh, ge = tcl.xent_backward_reference(*args, chunk=chunk)
+    np.testing.assert_allclose(
+        gh.numpy(), tcl.xent_backward_h_reference(*args).numpy(), **TOL)
+    np.testing.assert_allclose(
+        ge.numpy(), tcl.xent_backward_e_reference(*args).numpy(), **TOL)
+    if ignore_frac == 1.0:
+        assert not gh.any() and not ge.any()
+    calls = dict(tcl.plain_calls)
+    only_h = tcl.xent_backward_reference(*args, need_e=False, chunk=chunk)
+    assert only_h[1] is None and torch.equal(only_h[0], gh)
+    only_e = tcl.xent_backward_reference(*args, need_h=False, chunk=chunk)
+    assert only_e[0] is None and torch.equal(only_e[1], ge)
+    assert tcl.plain_calls["xent_bwd_h"] == calls["xent_bwd_h"] + 1
+    assert tcl.plain_calls["xent_bwd_e"] == calls["xent_bwd_e"] + 1
+
+
+def test_joint_backward_chunk_schedule():
+    """Chunks of 256 over V 700 (two whole, one ragged of 188): grad_h is
+    the in-order sum of the chunks' dl @ E_chunk, bit for bit, and each
+    chunk writes its own rows of grad_E."""
+    h, e, t, lse, ds = _backward_inputs(96, 700, 128, 0.2)
+    gh, ge = tcl.xent_backward_reference(h, e, t, lse, ds, chunk=256)
+    hf = h.float()
+    want_h = torch.zeros_like(hf)
+    for v0 in (0, 256, 512):
+        ec = e[v0:v0 + 256]
+        dl = torch.exp(hf @ ec.t() - lse[:, None])
+        for r in range(len(t)):
+            if t[r] != -1 and v0 <= t[r] < v0 + len(ec):
+                dl[r, t[r] - v0] -= 1.0
+        dl *= ds[:, None]
+        want_h += dl @ ec
+        assert torch.equal(ge[v0:v0 + len(ec)], dl.t() @ hf)
+    assert torch.equal(gh, want_h)
+
+
+@pytest.mark.parametrize("rows,vocab,depth", [
+    (32768, 32000, 1024), (16384, 32000, 1024), (1000, 700, 128)])
+def test_backward_scratch_is_bounded(rows, vocab, depth):
+    """The kernels' scratch: the dlogits chunk and its transpose are
+    2 * 4 * N * BWD_CHUNK bytes at most (1.07 GB at bench_transformer's
+    32768 rows), each padded to whole tiles; K4 or K5 alone holds one of
+    the two."""
+    shapes, chunk = tcl.backward_scratch(rows, vocab, depth)
+    np_ = -(-rows // 128) * 128
+    assert chunk % 256 == 0 and chunk <= max(tcl.BWD_CHUNK, 256)
+    # K-panels [K / 32, rows, 32] of dl [np, chunk], dl^T [chunk, np],
+    # E^T [dp, vp] and h^T [dp, np].
+    assert shapes["dl"] == (chunk // 32, np_, 32)
+    assert shapes["dlt"] == (np_ // 32, chunk, 32)
+    assert shapes["h32"] == (rows, depth) and shapes["e32"] == (vocab, depth)
+    dp = max(depth, 256)
+    assert shapes["et"] == (-(-vocab // 256) * 8, dp, 32)
+    assert shapes["ht"] == (np_ // 32, dp, 32)
+    dl_bytes = 4 * (np.prod(shapes["dl"]) + np.prod(shapes["dlt"]))
+    assert dl_bytes <= 2 * 4 * np_ * tcl.BWD_CHUNK
+    if rows == 32768:
+        assert dl_bytes == 1073741824
+    only_h, _ = tcl.backward_scratch(rows, vocab, depth, need_e=False)
+    only_e, _ = tcl.backward_scratch(rows, vocab, depth, need_h=False)
+    assert set(only_h) == {"h32", "e32", "et", "dl"}
+    assert set(only_e) == {"h32", "e32", "ht", "dlt"}
+
+
+@pytest.mark.parametrize("wanted", ["hidden", "embedding"])
+def test_fused_backward_computes_only_what_is_wanted(wanted):
+    """The autograd Function asks the backward for the gradients autograd
+    needs: one plain call of that kernel's version, none of the other."""
+    h, e, t = (torch.from_numpy(x) for x in _inputs(3, (40,), 0.1,
+                                                    depth=128))
+    leaf = h if wanted == "hidden" else e
+    leaf.requires_grad_()
+    calls = dict(tcl.plain_calls)
+    tcl.chunked_softmax_xent(h, e, t, impl="kernel").backward()
+    key, other = (("xent_bwd_h", "xent_bwd_e") if wanted == "hidden"
+                  else ("xent_bwd_e", "xent_bwd_h"))
+    assert tcl.plain_calls[key] == calls[key] + 1
+    assert tcl.plain_calls[other] == calls[other]
+    assert leaf.grad is not None and bool(leaf.grad.any())
+
+
 def _args(depth=128):
     hidden, embedding, targets = _inputs(0, (8,), depth=depth)
     return (torch.from_numpy(hidden), torch.from_numpy(embedding),
@@ -244,3 +349,5 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tcl.xent_backward_h_kernel(h, e, t, lse, lse)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tcl.xent_backward_e_kernel(h, e, t, lse, lse)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tcl.xent_backward_kernel(h, e, t, lse, lse)
