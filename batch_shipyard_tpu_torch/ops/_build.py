@@ -53,6 +53,7 @@ SIGNATURES = {
         "bs_flash_attention_bwd": (
             [_int] + [_vp] * 9 + [_i64p] + [_int] * 6 + [_float, _vp],
             _int),
+        "bs_flash_attention_smem": ([_int, _i64p], _int),
         "bs_error_string": ([_int], ctypes.c_char_p),
     },
     "chunked_loss": {

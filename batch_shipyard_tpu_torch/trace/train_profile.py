@@ -32,8 +32,10 @@ from batch_shipyard_tpu_torch.trace.decode_profile import busy_us
 
 # Substrings of the kernels' mangled names: csrc/flash_attention.cu,
 # csrc/chunked_loss.cu, csrc/fused_norm.cu and csrc/quantization.cu.
-FLASH_FWD = "flash_fwd_kernel"
-FLASH_BWD = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+# Flash: the bf16 wgmma kernels (training) and the fp32 FMA kernels.
+FLASH_FWD = ("flash_fwd_wgmma_kernel", "flash_fwd_fma_kernel")
+FLASH_BWD = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+             "flash_bwd_dkdv_fma_kernel", "flash_bwd_dq_fma_kernel")
 # K3 and K9 count their pre-passes (the TF32 rounding of h and E; the
 # row statistics) with their main kernels. The backward's own pre-pass
 # (h and E rounded and transposed) and its dl pass, which K4 and K5
@@ -53,7 +55,7 @@ RING_PERMUTE = "ring_permute_kernel"
 RING_ALL_GATHER = "ring_all_gather_kernel"
 RING_REDUCE_SCATTER = "ring_reduce_scatter_kernel"
 KERNEL_SYMBOLS = {
-    "flash_fwd": (FLASH_FWD,), "flash_bwd": FLASH_BWD,
+    "flash_fwd": FLASH_FWD, "flash_bwd": FLASH_BWD,
     "xent_fwd": XENT_FWD, "xent_bwd_dl": (XENT_BWD_PREPASS, XENT_DL_PASS),
     "xent_bwd_h": (XENT_BWD_H,), "xent_bwd_e": (XENT_BWD_E,),
     "rmsnorm_matmul": RMSNORM_MATMUL,

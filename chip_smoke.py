@@ -6,7 +6,9 @@ NVIDIA card.
 
 Phases, each fatal on failure:
   1. build the kernels from ops/csrc with nvcc (sm_90a), one nvcc per
-     source, all started together;
+     source, all started together, and print each kernel's registers a
+     thread, static shared memory and spills (the -Xptxas -v report)
+     and K1/K2's dynamic shared memory a block;
   2. hold each kernel against its plain PyTorch version on the card.
      Decode attention (K6-K8): ragged lengths (1, a page boundary, a
      full slot, 0), random block tables and a NaN-poisoned dead table
@@ -44,7 +46,8 @@ Phases, each fatal on failure:
      (scaled_dot_product_attention; for K3-K5 and K9 the same products
      alone through torch.matmul at the kernel's precision) at the main
      path's shapes: decode at 8 slots x 16 heads x 64 dims over 512 keys,
-     flash at the training shape B16 T2048 H16 D64, causal, bf16, the
+     flash at the training shape B16 T2048 H16 D64, causal, bf16 (with
+     TFLOP/s, and K2 run twice must give the same bits), the
      loss at N 32768 D 1024 V 32000 (the joint backward with its passes
      and its scratch, and again with chunks twice as wide), K9 at M
      32768 K 1024 N 3072 and 5632, K10 and K11 at one layer's seven projections (K11's yardstick:
@@ -106,6 +109,7 @@ no CUDA device is present.
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import dataclasses
 import functools
 import json
@@ -187,25 +191,26 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 LSE_TOL = 1e-4
 # Faults planted in a copy of flash_attention.cu, each confined to one
 # tile, and the outputs each breaks: the check must fail on every one
-# at the training shape. (kernel, loop as written, loop with the fault,
-# outputs.)
-# Both kernels walk their kv-tiles with the same loop; the line before it
-# tells them apart.
-_KV_LOOP = ("  const int n_kv = cdiv(seq, BN);\n"
-            "  const int n_iter = a.causal ? min(n_kv, cdiv(q0 + kBM, BN)) : "
-            "n_kv;\n  for (int j = 0; j < n_iter")
+# at the training shape. (kernel, line as written, line with the fault,
+# outputs.) Each changes a tile count that the kernel's TMA producer and
+# its consumers share, so the ring stays in step.
 FLASH_FAULTS = (
-    # K1: the last q-tile skips its diagonal kv-tile.
-    ("flash_fwd_kernel", "float l[2] = {0.f, 0.f};\n" + _KV_LOOP + "; ++j) {",
-     "float l[2] = {0.f, 0.f};\n" + _KV_LOOP +
-     " - (blockIdx.x == 0); ++j) {", ("out",)),
-    # K2, dQ kernel: the same.
-    ("flash_bwd_dq_kernel", "float dq[NTD][4] = {};\n" + _KV_LOOP +
-     "; ++j) {", "float dq[NTD][4] = {};\n" + _KV_LOOP +
-     " - (blockIdx.x == 0); ++j) {", ("dq",)),
-    # K2, dK/dV kernel: the middle kv-tile never sees the last q-tile.
-    ("flash_bwd_dkdv_kernel", "i < n_q; ++i) {",
-     "i < n_q - (blockIdx.x == gridDim.x / 2); ++i) {", ("dk", "dv")),
+    # K1: the last q tile (128 rows) skips its diagonal kv tile.
+    ("flash_fwd_wgmma_kernel",
+     "    return kv_tiles(a, q0 + P::kBM, P::kBN);",
+     "    return kv_tiles(a, q0 + P::kBM, P::kBN) - "
+     "(q0 == (n_tiles - 1) * P::kBM);", ("out",)),
+    # K2, dQ kernel: the same (its last 64 keys, the second warpgroup's
+    # diagonal).
+    ("flash_bwd_dq_wgmma_kernel",
+     "    return kv_tiles(a, q0 + Q::kBM, Q::kBN);",
+     "    return kv_tiles(a, q0 + Q::kBM, Q::kBN) - "
+     "(q0 == (n_tiles - 1) * Q::kBM);", ("dq",)),
+    # K2, dK/dV kernel: the middle kv tile never sees the last q tile.
+    ("flash_bwd_dkdv_wgmma_kernel",
+     "    const int n_q = cdiv(a.seq, P::kBN);",
+     "    const int n_q = cdiv(a.seq, P::kBN) - "
+     "(k0 == n_tiles / 2 * P::kBM);", ("dk", "dv")),
 )
 # The training step against an fp32 model with the same weights, as the
 # relative L2 distance of the flattened gradients (and the loss's
@@ -828,6 +833,76 @@ def flash_bound(batch, seq, heads, depth, causal, backward) -> dict:
     return roofline(nbytes, ops, torch.bfloat16)
 
 
+def ptxas_report(log: str) -> dict:
+    """Each entry function of a build's ``-Xptxas -v`` report: registers a
+    thread, static shared memory and spill bytes, by short name
+    (``flash_fwd_wgmma_kernel<64>``)."""
+    report, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            name = kernel_short_name(found.group(1))
+            report.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            report[name]["registers"] = int(used.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[name]["smem"] = int(smem.group(1)) if smem else 0
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            report[name]["spill_stores"] = int(spill.group(1))
+            report[name]["spill_loads"] = int(spill.group(2))
+    return report
+
+
+def kernel_short_name(mangled: str) -> str:
+    """``_ZN...22flash_fwd_wgmma_kernelILi64EEEv...`` ->
+    ``flash_fwd_wgmma_kernel<64>``: the first length-prefixed name in the
+    mangled one that ends in ``kernel``, with its integer template
+    argument (the mangled name where there is none)."""
+    for run in re.finditer(r"\d+", mangled):
+        digits = run.group()
+        for i in range(len(digits)):  # the length is a suffix of the run
+            size = int(digits[i:])
+            name = mangled[run.end():run.end() + size]
+            if size > 6 and name.endswith("kernel") and \
+                    re.fullmatch(r"[A-Za-z_]\w*", name):
+                arg = re.match(r"ILi(\d+)E", mangled[run.end() + size:])
+                return name + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
+
+
+def flash_resources(report: dict) -> dict:
+    """K1's and K2's bf16 kernels at D 64 and 128: registers a thread and
+    spills (ptxas) and dynamic shared memory a block (the library's own
+    sizes), keyed as the kernels line is."""
+    lib = _build.library("flash_attention")
+    out = {"flash_fwd": {}, "flash_bwd": {}}
+    for depth in attn_ops.SUPPORTED_DEPTHS:
+        smem = (ctypes.c_longlong * 3)()
+        _build.check(lib.bs_flash_attention_smem(depth, smem),
+                     "flash shared memory sizes", lib)
+        for i, kernel in enumerate(("flash_fwd_wgmma_kernel",
+                                    "flash_bwd_dkdv_wgmma_kernel",
+                                    "flash_bwd_dq_wgmma_kernel")):
+            name = f"{kernel}<{depth}>"
+            usage = report.get(name, {})
+            row = {"registers": usage.get("registers"),
+                   "spill_bytes": usage.get("spill_stores", 0) +
+                   usage.get("spill_loads", 0),
+                   "dynamic_smem_bytes": smem[i]}
+            out["flash_fwd" if i == 0 else "flash_bwd"][name] = row
+            print(f"resources {name}: {row['registers']} registers a "
+                  f"thread, {row['spill_bytes']} bytes spilled, "
+                  f"{row['dynamic_smem_bytes']} bytes of shared memory a "
+                  f"block", flush=True)
+    return out
+
+
 def check_flash_faults(sound, faulty, want) -> dict:
     """Each output of the sound kernels, and of the planted-fault build,
     against the plain versions: the sound ones must sit within
@@ -876,6 +951,14 @@ def time_flash(device, fault_lib) -> dict:
     delta = attn_ops.flash_delta(out, dout)
     bwd_args = (q, k, v, lse, dout, delta, True)
     got = attn_ops.flash_backward_kernel(*bwd_args)
+    # The split backward owns every output and sums in one order: a
+    # second run on the same inputs gives the same bits.
+    again = attn_ops.flash_backward_kernel(*bwd_args)
+    require(all(torch.equal(x, y) for x, y in zip(got, again)),
+            "K2: two runs on the same inputs differ")
+    print("check K2 determinism: dq, dk, dv bit-identical over two runs",
+          flush=True)
+    del again
     want = attn_ops.flash_backward_reference(*bwd_args)
     # The fault build's K2 gets the sound lse and delta, so each
     # kernel's fault shows in its own outputs only.
@@ -925,15 +1008,24 @@ def time_flash(device, fault_lib) -> dict:
                                     gs), [()], 24)
     rows["flash_fwd"]["library_ms"] = lib_fwd
     rows["flash_bwd"]["library_ms"] = lib_bwd
-    rows["flash_bwd"]["library_fwd_bwd_ms"] = lib_both
+    both = rows["flash_fwd"]["ms"] + rows["flash_bwd"]["ms"]
+    for row in rows.values():
+        row["library_fwd_bwd_ms"] = lib_both
+        row["fwd_bwd_ms"] = both
+        # Achieved rate on the function's operations (flash_bound's count).
+        row["tflops"] = row["ops"] / (row["ms"] * 1e-3) / 1e12
+    # K2 runs seven products where the function needs five (the split).
+    rows["flash_bwd"]["ceiling_ms"] = rows["flash_bwd"]["ops_ms"] * 7 / 5
     for key, row in rows.items():
         print(f"time {KERNELS[key]['label']} {key}: kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
-              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}; ops {row['ops_ms']:.4f} ms, bytes "
-              f"{row['bytes_ms']:.4f} ms)")
-    print(f"time sdpa forward+backward {lib_both:.4f} ms; K1+K2 "
-          f"{rows['flash_fwd']['ms'] + rows['flash_bwd']['ms']:.4f} ms")
+              f"{row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s), plain "
+              f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; ops "
+              f"{row['ops_ms']:.4f} ms, bytes {row['bytes_ms']:.4f} ms"
+              + (f"; the split's seven products {row['ceiling_ms']:.4f} ms"
+                 if "ceiling_ms" in row else "") +
+              f"); K1+K2 {both:.4f} ms, sdpa forward+backward "
+              f"{lib_both:.4f} ms")
     del graph_out, leaves
     torch.cuda.empty_cache()
     return rows
@@ -2508,12 +2600,17 @@ def main() -> int:
         fault_libs[name] = _build.load(path, name)
         print(f"build {path.name} (planted faults): {seconds:.1f} s",
               flush=True)
-    for path, seconds in builds:
+    reports = {}
+    for name, (path, seconds) in zip(sources, builds):
         print(f"build {path.name}: {seconds:.1f} s", flush=True)
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or \
-                    "Compiling entry" in line:
-                print("ptxas " + line.strip())
+        reports[name] = ptxas_report(path.with_suffix(".log").read_text())
+        for kernel, usage in reports[name].items():
+            print(f"ptxas {name} {kernel}: {usage.get('registers')} "
+                  f"registers a thread, {usage.get('smem', 0)} bytes static "
+                  f"shared memory, spill stores/loads "
+                  f"{usage.get('spill_stores', 0)}/"
+                  f"{usage.get('spill_loads', 0)} bytes")
+    resources = flash_resources(reports["flash_attention"])
 
     check_kernels(device)
     check_flash(device)
@@ -2527,6 +2624,8 @@ def main() -> int:
                         ("virtual_all_gather", "virtual_reduce_scatter")}
     timing.update(time_kernels(device))
     timing.update(time_flash(device, fault_libs["flash_attention"]))
+    for key, usage in resources.items():
+        timing[key]["resources"] = usage
     timing.update(time_loss(device, loss_readings))
     timing.update(time_norm(device, norm_readings))
     timing.update(time_quant(device, quant_readings))
@@ -2595,7 +2694,10 @@ def main() -> int:
         row.update({k: t[k] for k in ("max_abs_err", "max_tile_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
                                       "library_ms", "per", "bound_nvlink_ms",
-                                      "ms_per_rank", "note", "joint")
+                                      "ms_per_rank", "note", "joint",
+                                      "tflops", "ceiling_ms",
+                                      "fwd_bwd_ms", "library_fwd_bwd_ms",
+                                      "resources")
                     if k in t})
         kernels.append(row)
     print(smi)
