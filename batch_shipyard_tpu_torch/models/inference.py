@@ -87,8 +87,12 @@ def _sample(logits: torch.Tensor, generator: torch.Generator,
         cutoff = torch.topk(logits, sampling.top_k, dim=-1).values[:, -1:]
         logits = torch.where(logits < cutoff, -1e30, logits)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    # torch.multinomial's one-sample draw, argmax(p / q) with q ~ Exp(1)
+    # (the same numbers from the same generator), written out because
+    # multinomial checks its input on the host, which a captured CUDA
+    # graph cannot do.
+    noise = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / noise, dim=-1).to(torch.int32)
 
 
 def last_token_logits(model: tfm.TransformerLM,

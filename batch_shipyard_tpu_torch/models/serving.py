@@ -11,12 +11,22 @@ allocator with its scratch page, reservation or overcommit preemption
 with re-prefill, the blake2b-chained prefix cache with refcounts and an
 LRU, EDF admission, shedding and drain.
 
-What differs: PyTorch runs eagerly, so there is no jit and no compile
-cache; the KV cache is updated in place; the random stream for
-temperature sampling is a torch.Generator seeded with ``seed``. Prompts
-still pad to the reference's power-of-two buckets (``_bucket_length``),
-so prefill shapes match it. Speculative decoding, the goodput warm-up
-phase and AOT precompile come with later slices.
+What differs: the reference jits its decode step into one compiled
+call; here, on a CUDA device, the engine captures ``_decode_step`` once
+into a CUDA graph (after its first eager decode step, which builds and
+loads the kernels) and replays it on every later step, so a step costs
+one graph launch instead of ~900 kernel launches. The graph reads and
+writes the addresses it captured, so every write to engine state
+between replays stays in place: the token, position and active
+tensors, the KV cache (its per-layer length / index and the shared
+block table) are only ever updated with ``copy_``, indexed assignment
+or in-place arithmetic, never rebound. On the CPU the step runs
+eagerly. Prefill stays eager (its bucket lengths vary). The random
+stream for temperature sampling is a torch.Generator seeded with
+``seed``, registered with the graph so that every replay draws afresh.
+Prompts still pad to the reference's power-of-two buckets
+(``_bucket_length``), so prefill shapes match it. Speculative decoding,
+the goodput warm-up phase and AOT precompile come with later slices.
 """
 
 from __future__ import annotations
@@ -38,15 +48,20 @@ from batch_shipyard_tpu_torch.models import transformer as tfm
 
 def _decode_step(model, sampling, cache, tokens, positions, active,
                  generator):
-    """One token for every slot in one batched forward. Inactive slots
-    DO write garbage into their cache rows (dense) or the scratch page
-    (paged): a freed row is never read and the next admission's prefill
-    rewrites it. Only the token/position bookkeeping is masked."""
+    """One token for every slot in one batched forward, written in
+    place: ``tokens`` [B, 1] takes the sampled token and ``positions``
+    [B] advances where ``active`` holds (a captured graph replays this
+    against the same tensors). Inactive slots DO write garbage into
+    their cache rows (dense) or the scratch page (paged): a freed row is
+    never read and the next admission's prefill rewrites it. Only the
+    token/position bookkeeping is masked. Returns the sampled tokens
+    [B]."""
     logits = model(tokens, positions=positions[:, None], cache=cache)
     next_tok = inf._sample(logits[:, 0].float(), generator, sampling)
     next_tok = torch.where(active, next_tok, tokens[:, 0])
-    positions = torch.where(active, positions + 1, positions)
-    return next_tok[:, None], positions, next_tok
+    tokens.copy_(next_tok[:, None])
+    positions.add_(active.to(positions.dtype))
+    return next_tok
 
 
 def _dense_prefill(model, prefill_chunk, prompt, prompt_len, small=None,
@@ -261,8 +276,14 @@ class ContinuousBatcher:
                                       device=self.device)
         self._active = torch.zeros((num_slots,), dtype=torch.bool,
                                    device=self.device)
+        # Host mirror of _positions, so page growth needs no device read.
+        self._positions_host = [0] * num_slots
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
+        # The captured decode step (CUDA only): the graph and its
+        # sampled tokens [B].
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_tokens: Optional[torch.Tensor] = None
 
     def _load_model(self, config: tfm.TransformerConfig,
                     params: dict) -> tfm.TransformerLM:
@@ -282,8 +303,10 @@ class ContinuousBatcher:
         """Drive one throwaway request through prefill and decode
         before real traffic, so the kernel library is built and loaded
         (and the caching allocator primed) outside any measured
-        request. Leaves the prefix index and its counters empty.
-        Returns the prefill bucket warmed."""
+        request; on a CUDA device its first decode step also captures
+        the decode graph that every later step replays. Leaves the
+        prefix index and its counters empty. Returns the prefill bucket
+        warmed."""
         length = min(prompt_len, self.max_decode_len - max_new_tokens)
         self.submit(Request(
             request_id=f"__warmup__{uuid.uuid4().hex[:8]}",
@@ -382,9 +405,12 @@ class ContinuousBatcher:
         if self.paged:
             self._grow_pages()
         t0 = time.monotonic()
-        self._tokens, self._positions, next_tok = _decode_step(
-            self.model, self.sampling, self.cache, self._tokens,
-            self._positions, self._active, self._generator)
+        if self._graph is not None:
+            next_tok = self._replay_decode()
+        else:
+            next_tok = self._eager_decode()
+            if self.device.type == "cuda":
+                self.capture_decode()
         next_host = next_tok.cpu().tolist()
         self.decode_steps += 1
         self._record_step_time(t0)
@@ -392,6 +418,7 @@ class ContinuousBatcher:
             req = slot.request
             if req is None:
                 continue
+            self._positions_host[i] += 1
             token = next_host[i]
             slot.generated.append(token)
             if self.on_token is not None:
@@ -402,6 +429,42 @@ class ContinuousBatcher:
                 emitted.append((req.request_id, list(slot.generated)))
                 self._free_slot(i)
         return emitted
+
+    def capture_decode(self) -> None:
+        """Capture one decode step (``_decode_step`` over the engine's
+        model, cache, token, position and active tensors) into a CUDA
+        graph on a side stream; ``step`` replays it from then on. The
+        kernel libraries must be loaded first (one eager step does it).
+        Capturing records the step without running it, so no state
+        moves. The kernel wrappers count their launches here, once: a
+        replay relaunches the captured kernels without calling the
+        wrappers (``trace/decode_profile.py`` counts a replay's kernels
+        from the device trace). Raises on a CPU engine, and where
+        capture fails: there is no eager fallback on the card."""
+        if self.device.type != "cuda":
+            raise RuntimeError(
+                "decode-step capture needs a CUDA device; the CPU "
+                "engine steps eagerly")
+        graph = torch.cuda.CUDAGraph()
+        if self.sampling.temperature > 0.0:
+            # Each replay advances the generator's offset, as an eager
+            # draw does.
+            graph.register_generator_state(self._generator)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            tokens = _decode_step(
+                self.model, self.sampling, self.cache, self._tokens,
+                self._positions, self._active, self._generator)
+        self._graph, self._graph_tokens = graph, tokens
+
+    def _eager_decode(self) -> torch.Tensor:
+        return _decode_step(self.model, self.sampling, self.cache,
+                            self._tokens, self._positions, self._active,
+                            self._generator)
+
+    def _replay_decode(self) -> torch.Tensor:
+        """One decode step through the captured graph."""
+        self._graph.replay()
+        return self._graph_tokens
 
     def prefix_cache_clear(self) -> int:
         """Evict every UNREFERENCED indexed page back to the free list
@@ -505,7 +568,7 @@ class ContinuousBatcher:
         """Allocate pages so every active slot's table covers its next
         write position; growth appends OWNED pages only. In overcommit
         mode an empty free list preempts a victim instead of raising."""
-        positions = self._positions.cpu().tolist()
+        positions = self._positions_host
         changed = False
         for i in range(self.num_slots):
             req = self._slots[i].request
@@ -927,6 +990,7 @@ class ContinuousBatcher:
                 self.on_token(req.request_id, first, len(entry.resumed))
             self._tokens[i, 0] = first
             self._positions[i] = len(tokens)
+            self._positions_host[i] = len(tokens)
             self._active[i] = True
             # int(...) above waited for the prefill, so t0..now is a
             # faithful admission-stall sample.

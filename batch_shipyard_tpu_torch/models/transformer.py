@@ -113,9 +113,11 @@ def rotary_embedding(x, positions, theta: float):
     """Apply RoPE in fp32, then cast back. x: [B, T, H, D]; positions:
     [T] shared across the batch, or [B, T] per sequence."""
     depth = x.shape[-1]
-    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+    # log(theta) in fp32 on the host, then a scalar: no host-to-device
+    # copy, which a captured decode graph could not hold.
+    log_theta = float(torch.log(torch.tensor(theta, dtype=torch.float32)))
     freqs = torch.exp(
-        -log_theta.to(x.device) *
+        -log_theta *
         torch.arange(0, depth, 2, dtype=torch.float32,
                      device=x.device) / depth)
     angles = positions[..., None].float() * freqs

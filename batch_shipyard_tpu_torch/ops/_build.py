@@ -41,7 +41,8 @@ _intp = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "decode_attention": {
         "bs_paged_decode_attention": (
-            [_int] + [_vp] * 8 + [_int] * 7 + [_float, _vp], _int),
+            [_int] + [_vp] * 8 + [_int] * 9 + [_float, _vp], _int),
+        "bs_paged_decode_plan": ([_int] * 5 + [_intp], _int),
         "bs_dense_decode_attention_int8": (
             [_int] + [_vp] * 7 + [_int] * 5 + [_float, _vp], _int),
         "bs_error_string": ([_int], ctypes.c_char_p),

@@ -4,36 +4,70 @@
 //   K6 ops/paged_attention.py:_paged_decode_kernel       (paged, fp32/bf16)
 //   K7 ops/paged_attention.py:_paged_decode_kernel_int8  (paged, int8 + scales)
 //   K8 ops/decode_attention.py:_dense_decode_kernel_int8 (dense, int8 + scales)
-// One templated kernel serves all three: templated on the query/output
-// type, the cache storage type (float, __nv_bfloat16, int8_t with fp32
-// per-(position, head) scales) and the addressing (paged through a block
-// table, or dense [B, L, H, D]).
+// K6 and K7 are one split-sequence cluster kernel
+// (paged_decode_cluster_kernel), K8 a one-block-per-(slot, head) kernel
+// (dense_decode_kernel).
 //
-// What bounds it: device-memory bytes. One query row meets every live
+// What bounds them: device-memory bytes. One query row meets every live
 // cached row once, so the work is ~4*D flops per 2*D*elt bytes read.
 // HBM bytes = sum_b len_b*H*D*2*elt (+ sum_b len_b*H*2*4 for the int8
 // scales). With 8 slots at length 512, H=16, D=64 that is 16.8 MB (bf16)
 // or 8.9 MB (int8) per layer-step: about 5.0 us and 2.7 us at 3.35 TB/s.
-// The serving step launches it once per layer.
+// The serving step launches the kernel of its cache once per layer.
 //
-// Design. The TPU kernel walks a sequential grid axis over pages with
-// the online-softmax state in VMEM scratch. Here that axis becomes a loop
-// inside one thread block per (slot, head): the block reads only the
-// slot's live rows (ceil(len/page) table entries, loaded by the block
-// itself, so stale ids in the dead tail of a table row are never read).
-// A row of D values is split across D/8 lanes (8 values each, a 16-byte
-// load for bf16); the block's lanes form groups that take rows
-// round-robin, two rows per group in flight, and q.k is a shuffle
-// reduction inside the group. Each group keeps its own running max,
-// denominator and fp32 output slice; the groups merge through shared
-// memory at the end. Numerics follow the TPU kernel: fp32 scores and
-// sums; for bf16 pages p is rounded to bf16 before P.V; for int8 pages
-// q, K and V are dequantized to fp32 and the recurrence stays fp32.
-// Masked scores are never formed: only rows t < length are visited, and
-// a length-0 slot writes zeros. The kernel launches on the caller's
-// stream, allocates nothing and does not synchronise; wgmma, TMA and
-// split-K over the sequence are left for later work.
+// The paged cluster kernel (K6, K7). At the served shape a one-block-per-
+// (slot, head) design has 128 blocks, one per SM, each keeping a few rows
+// in flight and looking up the block table before every row: the card
+// waits on latency, not bandwidth. Here:
+//   1. Each (slot, head) is split over a thread-block cluster of S blocks
+//      (S = 4 at max_blocks 8: two pages a block, 512 blocks in all). The
+//      slot's live pages are cut into S contiguous runs of ceil(pages / S);
+//      a block whose run is empty contributes (m = -inf, l = 0, acc = 0).
+//   2. A block reads its run's block-table entries once (one lane per
+//      page), then one thread issues every page's K and V tiles at once as
+//      4-D TMA boxes {D, rows, 1, 1} over the [P, page, H, D] pool
+//      (coordinate 3 is the page id), each completing on its stage's
+//      mbarrier. Where the run's tiles do not all fit in shared memory
+//      (fp32 pages, D 128/256, long runs) they stream through a ring of
+//      stages, each refilled as soon as the block has read it. The int8
+//      scales are 4 bytes a row at a stride of H*4, below TMA's 16-byte
+//      minimum: the block's threads load them once per (row, head) into
+//      shared memory while the tiles fly.
+//   3. Compute stays on CUDA cores, from shared memory: one query row per
+//      (slot, head) leaves no tensor-core shape to fill (wgmma's M is at
+//      least 64, so 63 of 64 rows would be padding). q.k: D/8 lanes a row,
+//      8 values a lane, a shuffle reduction; the block then takes one max
+//      and one sum over its scores; P.V: each warp takes every fourth row,
+//      each lane D/32 output values. The tiles land unswizzled: every read
+//      is of whole rows by consecutive lanes, so the 8 lanes of a
+//      quarter-warp (or the 32 of a warp, for narrower loads) read one
+//      contiguous span and hit distinct banks without a swizzle.
+//   4. The blocks merge through distributed shared memory: each block
+//      writes its (acc[D], m, l) into its own row of rank 0's shared memory
+//      (map_shared_rank); after one cluster barrier, rank 0 merges the rows
+//      in rank order and writes the output. The push waits on a cluster
+//      barrier whose relaxed arrive each block makes at entry, so every
+//      block of the cluster is known to have started before any reaches
+//      another's shared memory. (Rank 0 reading every rank's shared memory
+//      instead needs a second barrier, to keep the others' alive, and
+//      measured 0.7-1.0 us slower.) The result is deterministic, with no
+//      workspace and no second launch. A slot of at most kSoloPages live
+//      pages is rank 0's alone: the other ranks leave at once and rank 0
+//      writes the output with no barrier and no merge (the same numbers:
+//      the merge of one non-empty run is that run).
+// Numerics follow the TPU kernel: fp32 scores and sums; for bf16 pages p
+// is rounded to bf16 before P.V; for int8 pages K and V are dequantized to
+// fp32 (the scale applied to the dot and to p). Rows t >= length are never
+// used, table entries past the slot's live pages are never read, and a
+// length-0 slot writes zeros. One launch, on the caller's stream; no
+// allocation and no synchronisation, so a CUDA graph can capture it.
+//
+// The dense kernel (K8) walks the slot's rows in one block per (slot,
+// head): D/8 lanes a row, the block's lane groups taking rows round-robin,
+// two in flight each, with a running max, denominator and fp32 output
+// slice per group, merged through shared memory at the end.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -41,12 +75,26 @@
 #include <cstring>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // threads per (slot, head) block
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 256;  // threads per (slot, head) block (K8)
 constexpr int kVec = 8;        // row elements per lane
-constexpr int kUnroll = 2;     // rows per group in flight
+constexpr int kUnroll = 2;     // rows per group in flight (K8)
 constexpr float kNegInf = -1e30f;
+
+// The paged cluster kernel (K6, K7).
+constexpr int kPagedThreads = 128;
+constexpr int kPagedWarps = kPagedThreads / 32;
+constexpr int kMaxSplits = 8;    // the portable cluster size
+constexpr int kSoloPages = 1;    // a slot this short is rank 0's alone
+constexpr int kMaxStages = 8;    // mbarriers of the tile ring
+constexpr int kTileRows = 64;    // rows of one page in one TMA box, at most
+constexpr int kStageBudget = 128 * 1024;  // shared memory of the ring
+constexpr int kSmemLimit = 232448;        // a block's, on an H100
 
 enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
@@ -98,20 +146,447 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// q [B, 1, H, D]; out [B, 1, H, D]; lengths [B].
-// Paged: k/v [P, page, H, D], scales [P, page, H], table [B, max_blocks].
-// Dense: k/v [B, rows, H, D], scales [B, rows, H]; table unused.
-template <typename TQ, typename TKV, int D, bool kPaged>
-__global__ void __launch_bounds__(kThreads) decode_attention_kernel(
-    const TQ* __restrict__ q, const TKV* __restrict__ k,
-    const TKV* __restrict__ v, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ table,
-    const int* __restrict__ lengths, TQ* __restrict__ out, int heads,
-    int page, int max_blocks, int rows, float scale) {
-  constexpr int kLanes = D / kVec;            // lanes per cached row
-  constexpr int kGroups = kThreads / kLanes;  // rows in flight per pass
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+
+template <int kBytes>
+struct Raw;
+template <>
+struct Raw<1> { using type = uint8_t; };
+template <>
+struct Raw<2> { using type = uint16_t; };
+template <>
+struct Raw<4> { using type = uint32_t; };
+template <>
+struct Raw<8> { using type = uint2; };
+template <>
+struct Raw<16> { using type = uint4; };
+
+// C consecutive elements at p (aligned to their C * sizeof(T) bytes), in
+// one load, as floats.
+template <typename T, int C>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
+  using R = typename Raw<C * sizeof(T)>::type;
+  const R raw = *reinterpret_cast<const R*>(p);
+  T vals[C];
+  memcpy(vals, &raw, sizeof(raw));
+#pragma unroll
+  for (int e = 0; e < C; ++e) out[e] = to_float(vals[e]);
+}
+
+// The block's max (kMax) or sum of x, every thread's; s_warp holds one
+// float a warp.
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float x, float* s_warp) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, off);
+    x = kMax ? fmaxf(x, y) : x + y;
+  }
+  if (threadIdx.x % 32 == 0) s_warp[threadIdx.x / 32] = x;
+  __syncthreads();
+  float r = s_warp[0];
+#pragma unroll
+  for (int w = 1; w < kPagedWarps; ++w)
+    r = kMax ? fmaxf(r, s_warp[w]) : r + s_warp[w];
+  __syncthreads();
+  return r;
+}
+
+// ------------------------- K6, K7: paged cluster -------------------------
+
+struct PagedArgs {
+  const void* q;           // [B, 1, H, D]
+  const float* k_scale;    // [P, page, H] (int8 pages)
+  const float* v_scale;
+  const int* table;        // [B, max_blocks]
+  const int* lengths;      // [B]
+  void* out;               // [B, 1, H, D]
+  int heads;
+  int page;
+  int max_blocks;
+  int tile_rows;           // rows of a TMA box (<= page)
+  int stages;              // ring stages
+  int stage_stride;        // bytes between stages
+  float scale;
+};
+
+// The split plan shared by the launch and paged_decode_plan.
+struct Plan {
+  int tile_rows, stages, stage_stride, smem;
+};
+
+Plan plan_for(int depth, int elt, int page, int max_blocks, int splits,
+              bool int8) {
+  Plan p;
+  p.tile_rows = page < kTileRows ? page : kTileRows;
+  const int tiles_per_page = (page + p.tile_rows - 1) / p.tile_rows;
+  const int max_pages = (max_blocks + splits - 1) / splits;
+  p.stage_stride = (p.tile_rows * depth * elt + 127) / 128 * 128;
+  int stages = 2 * max_pages * tiles_per_page;
+  const int fit = kStageBudget / p.stage_stride;
+  stages = stages < fit ? stages : fit;
+  stages = stages < kMaxStages ? stages : kMaxStages;
+  p.stages = stages > 1 ? stages : 1;
+  p.smem = 1024 + p.stages * p.stage_stride +
+           4 * max_pages * page * (int8 ? 3 : 1) + 4 * max_pages;
+  return p;
+}
+
+// Grid: B * H * S blocks in clusters of S (blockIdx.x = (b * H + h) * S +
+// rank). Dynamic shared memory: the tile ring (1024-aligned), then the
+// run's scores / probabilities, int8 K and V scales, and page ids.
+template <typename TQ, typename TKV, int D>
+__global__ void __launch_bounds__(kPagedThreads) paged_decode_cluster_kernel(
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const PagedArgs a) {
   constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
   constexpr bool kRoundP = std::is_same<TKV, __nv_bfloat16>::value;
+  constexpr int kElt = sizeof(TKV);
+  // q.k: a row's D values over kLanes lanes, 8 a lane, in chunks of kChunk
+  // consecutive values (16 bytes; 8 bytes for int8): chunk c of lane l
+  // starts at value (c * kLanes + l) * kChunk.
+  constexpr int kLanes = D / kVec;
+  constexpr int kGroups = kPagedThreads / kLanes;
+  constexpr int kChunk = 16 / kElt < kVec ? 16 / kElt : kVec;
+  constexpr int kChunks = kVec / kChunk;
+  // P.V: warp w takes rows w, w + 4, ...; lane l owns kDims output values,
+  // in chunks of kVChunk starting at (c * 32 + l) * kVChunk.
+  constexpr int kDims = D / 32;
+  constexpr int kVChunk = 16 / kElt < kDims ? 16 / kElt : kDims;
+  constexpr int kVChunks = kDims / kVChunk;
+  static_assert(kLanes <= 32 && (kLanes & (kLanes - 1)) == 0 && kDims >= 1,
+                "D must be 32, 64, 128 or 256");
+
+  __shared__ uint64_t bars[kMaxStages];
+  __shared__ float s_part[kPagedWarps][D];
+  __shared__ float s_warp[kPagedWarps];
+  __shared__ float s_all[kMaxSplits][D + 2];  // rank 0's: each rank's row
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bh = blockIdx.x / splits;
+  const int b = bh / a.heads;
+  const int h = bh % a.heads;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  // This block's run: pages [p0, p1) of the slot's live ones, rows
+  // [0, rows) of the run. A slot of at most kSoloPages live pages is rank
+  // 0's alone (solo, the same for every rank of the cluster): the others
+  // leave at once, and rank 0 writes its output with no cluster barrier
+  // and no merge.
+  const int page = a.page;
+  const int len = min(max(a.lengths[b], 0), a.max_blocks * page);
+  const int np = (len + page - 1) / page;
+  const int max_pages = (a.max_blocks + splits - 1) / splits;
+  const bool solo = np <= min(kSoloPages, max_pages);
+  if (solo && rank != 0) return;
+  const int per = solo ? np : (np + splits - 1) / splits;
+  const int p0 = min(np, rank * per);
+  const int p1 = min(np, p0 + per);
+  const int rows = max(0, min(len, p1 * page) - p0 * page);
+  const int tiles_per_page = (page + a.tile_rows - 1) / a.tile_rows;
+  const int k_tiles = (p1 - p0) * tiles_per_page;
+  const int n_tiles = 2 * k_tiles;
+
+  unsigned char* ring = hopper::align_1024(smem_raw);
+  float* s_p = reinterpret_cast<float*>(ring + a.stages * a.stage_stride);
+  float* s_ks = s_p + max_pages * page;
+  float* s_vs = s_ks + max_pages * page;
+  int* s_pid = reinterpret_cast<int*>(s_p + (kInt8 ? 3 : 1) * max_pages * page);
+
+  if (warp == 0) {
+    for (int i = lane; i < p1 - p0; i += 32)
+      s_pid[i] = a.table[static_cast<size_t>(b) * a.max_blocks + p0 + i];
+  }
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) hopper::mbar_init(&bars[s], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  // Half of the barrier that must precede any access to another rank's
+  // shared memory; the wait comes just before the push.
+  if (!solo) hopper::cluster_arrive_relaxed();
+
+  // Tile j < k_tiles is K, then V, in (page, row block) order.
+  auto issue = [&](int j) {
+    const int stage = j % a.stages;
+    const int idx = j < k_tiles ? j : j - k_tiles;
+    const int row0 = (idx % tiles_per_page) * a.tile_rows;
+    hopper::mbar_expect_tx(&bars[stage], a.tile_rows * D * kElt);
+    hopper::tma_load_4d(ring + stage * a.stage_stride,
+                        j < k_tiles ? &k_map : &v_map, &bars[stage], 0, row0,
+                        h, s_pid[idx / tiles_per_page]);
+  };
+  if (tid == 0) {
+    for (int j = 0; j < min(a.stages, n_tiles); ++j) issue(j);
+  }
+  if constexpr (kInt8) {
+    for (int r = tid; r < rows; r += kPagedThreads) {
+      const size_t at =
+          (static_cast<size_t>(s_pid[r / page]) * page + r % page) * a.heads +
+          h;
+      s_ks[r] = a.k_scale[at];
+      s_vs[r] = a.v_scale[at];
+    }
+  }
+
+  const TQ* qrow = static_cast<const TQ*>(a.q) + static_cast<size_t>(bh) * D;
+  const int group = tid / kLanes;
+  const int gl = tid % kLanes;
+  float qf[kVec];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e)
+      qf[c * kChunk + e] = to_float(qrow[(c * kLanes + gl) * kChunk + e]);
+
+  // The first row of tile idx in the run, and how many of its rows count.
+  auto tile_span = [&](int idx, int* r0) {
+    const int within = (idx % tiles_per_page) * a.tile_rows;
+    *r0 = (idx / tiles_per_page) * page + within;
+    return min(min(a.tile_rows, page - within), rows - *r0);
+  };
+
+  // Scores. The trip count is the same for every lane of a warp (the
+  // shuffles need all 32); rows past the tile's count are masked.
+  for (int j = 0; j < k_tiles; ++j) {
+    const int stage = j % a.stages;
+    hopper::mbar_wait(&bars[stage], (j / a.stages) & 1);
+    const TKV* tile =
+        reinterpret_cast<const TKV*>(ring + stage * a.stage_stride);
+    int r0;
+    const int valid = tile_span(j, &r0);
+    for (int t0 = 0; t0 < valid; t0 += kGroups) {
+      const int t = t0 + group;
+      float kf[kVec];
+      if (t < valid) {
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c)
+          load_vec<TKV, kChunk>(tile + t * D + (c * kLanes + gl) * kChunk,
+                                kf + c * kChunk);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) kf[e] = 0.f;
+      }
+      float dot = 0.f;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) dot += qf[e] * kf[e];
+#pragma unroll
+      for (int off = kLanes / 2; off > 0; off /= 2)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (t < valid && gl == 0) s_p[r0 + t] = dot;
+    }
+    if (j + a.stages < n_tiles) {  // the stage is read: refill it
+      __syncthreads();
+      if (tid == 0) issue(j + a.stages);
+    }
+  }
+  __syncthreads();
+
+  // One softmax over the run: m, l and p (what P.V multiplies: p rounded
+  // to bf16 for bf16 pages, p times the V scale for int8 pages).
+  float mx = -INFINITY;
+  for (int r = tid; r < rows; r += kPagedThreads) {
+    float s = s_p[r] * a.scale;
+    if constexpr (kInt8) s *= s_ks[r];
+    s_p[r] = s;
+    mx = fmaxf(mx, s);
+  }
+  const float m = block_reduce<true>(mx, s_warp);
+  float lsum = 0.f;
+  for (int r = tid; r < rows; r += kPagedThreads) {
+    const float p = expf(s_p[r] - m);
+    lsum += p;
+    if constexpr (kInt8) {
+      s_p[r] = p * s_vs[r];
+    } else {
+      s_p[r] = kRoundP ? __bfloat162float(__float2bfloat16(p)) : p;
+    }
+  }
+  const float l = block_reduce<false>(lsum, s_warp);
+
+  float acc[kDims];
+#pragma unroll
+  for (int e = 0; e < kDims; ++e) acc[e] = 0.f;
+  for (int j = k_tiles; j < n_tiles; ++j) {
+    const int stage = j % a.stages;
+    hopper::mbar_wait(&bars[stage], (j / a.stages) & 1);
+    const TKV* tile =
+        reinterpret_cast<const TKV*>(ring + stage * a.stage_stride);
+    int r0;
+    const int valid = tile_span(j - k_tiles, &r0);
+    for (int t = warp; t < valid; t += kPagedWarps) {
+      const float p = s_p[r0 + t];
+#pragma unroll
+      for (int c = 0; c < kVChunks; ++c) {
+        float vf[kVChunk];
+        load_vec<TKV, kVChunk>(tile + t * D + (c * 32 + lane) * kVChunk, vf);
+#pragma unroll
+        for (int e = 0; e < kVChunk; ++e) acc[c * kVChunk + e] += p * vf[e];
+      }
+    }
+    if (j + a.stages < n_tiles) {
+      __syncthreads();
+      if (tid == 0) issue(j + a.stages);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kVChunks; ++c)
+#pragma unroll
+    for (int e = 0; e < kVChunk; ++e)
+      s_part[warp][(c * 32 + lane) * kVChunk + e] = acc[c * kVChunk + e];
+  __syncthreads();
+  if (solo) {  // rank 0 holds the whole slot
+    TQ* o = static_cast<TQ*>(a.out) + static_cast<size_t>(bh) * D;
+    for (int d = tid; d < D; d += kPagedThreads) {
+      float x = s_part[0][d];
+#pragma unroll
+      for (int w = 1; w < kPagedWarps; ++w) x += s_part[w][d];
+      store(o + d, len > 0 ? x / l : 0.f);
+    }
+    return;
+  }
+  // Every rank has started (the arrive at entry), so rank 0's shared
+  // memory is live: push this rank's (acc, m, l) into its row there.
+  hopper::cluster_wait();
+  float* row = cluster.map_shared_rank(&s_all[0][0], 0) + rank * (D + 2);
+  for (int d = tid; d < D; d += kPagedThreads) {
+    float x = s_part[0][d];
+#pragma unroll
+    for (int w = 1; w < kPagedWarps; ++w) x += s_part[w][d];
+    row[d] = x;
+  }
+  if (tid == 0) {
+    row[D] = m;
+    row[D + 1] = l;
+  }
+  cluster.sync();  // every rank's row is in rank 0's shared memory
+
+  // Merge the rows in rank order on rank 0.
+  if (rank == 0) {
+    TQ* o = static_cast<TQ*>(a.out) + static_cast<size_t>(bh) * D;
+    for (int d = tid; d < D; d += kPagedThreads) {
+      float big = -INFINITY;
+      for (int j = 0; j < splits; ++j) big = fmaxf(big, s_all[j][D]);
+      float num = 0.f;
+      float den = 0.f;
+      for (int j = 0; j < splits; ++j) {
+        const float* ml = s_all[j] + D;
+        const float w = expf(ml[0] - big);
+        den += w * ml[1];
+        num += w * s_all[j][d];
+      }
+      store(o + d, len > 0 ? num / den : 0.f);
+    }
+  }
+}
+
+template <typename TQ, typename TKV, int D>
+cudaError_t launch_paged(const void* q, const void* k, const void* v,
+                         const void* k_scale, const void* v_scale,
+                         const void* table, const void* lengths, void* out,
+                         int batch, int heads, int page, int max_blocks,
+                         int num_pages, int splits, float scale,
+                         cudaStream_t stream) {
+  constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
+  const Plan plan =
+      plan_for(D, sizeof(TKV), page, max_blocks, splits, kInt8);
+  if (plan.smem > kSmemLimit) return cudaErrorInvalidValue;
+  const CUtensorMapDataType type =
+      kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+            : (std::is_same<TKV, float>::value
+                   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+  const long long elt = sizeof(TKV);
+  const long long dims[4] = {D, page, heads, num_pages};
+  const long long strides[3] = {heads * D * elt, D * elt,
+                                static_cast<long long>(page) * heads * D * elt};
+  const int box[4] = {D, plan.tile_rows, 1, 1};
+  CUtensorMap k_map, v_map;
+  cudaError_t err = hopper::tensor_map_4d(&k_map, k, type, dims, strides, box,
+                                          CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  err = hopper::tensor_map_4d(&v_map, v, type, dims, strides, box,
+                              CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+
+  auto* kernel = paged_decode_cluster_kernel<TQ, TKV, D>;
+  // Raised once, outside any graph capture (the first launch is eager).
+  static int smem_allowed = 48 * 1024;
+  if (plan.smem > smem_allowed) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+    if (err != cudaSuccess) return err;
+    smem_allowed = plan.smem;
+  }
+  PagedArgs args{q,     static_cast<const float*>(k_scale),
+                 static_cast<const float*>(v_scale),
+                 static_cast<const int*>(table),
+                 static_cast<const int*>(lengths),
+                 out,   heads, page, max_blocks, plan.tile_rows,
+                 plan.stages, plan.stage_stride, scale};
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(batch * heads * splits);
+  config.blockDim = dim3(kPagedThreads);
+  config.dynamicSmemBytes = plan.smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  void* params[] = {&k_map, &v_map, &args};
+  err = cudaLaunchKernelExC(&config, reinterpret_cast<const void*>(kernel),
+                            params);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV>
+cudaError_t paged_depth(int depth, const void* q, const void* k,
+                        const void* v, const void* k_scale,
+                        const void* v_scale, const void* table,
+                        const void* lengths, void* out, int batch, int heads,
+                        int page, int max_blocks, int num_pages, int splits,
+                        float scale, cudaStream_t stream) {
+#define BS_PAGED(DEPTH)                                                     \
+  launch_paged<TQ, TKV, DEPTH>(q, k, v, k_scale, v_scale, table, lengths, \
+                               out, batch, heads, page, max_blocks,        \
+                               num_pages, splits, scale, stream)
+  switch (depth) {
+    case 32: return BS_PAGED(32);
+    case 64: return BS_PAGED(64);
+    case 128: return BS_PAGED(128);
+    case 256: return BS_PAGED(256);
+    default: return cudaErrorInvalidValue;
+  }
+#undef BS_PAGED
+}
+
+// ---------------------------- K8: dense int8 -----------------------------
+
+// q [B, 1, H, D]; out [B, 1, H, D]; lengths [B]; k/v [B, rows, H, D] int8,
+// scales [B, rows, H].
+template <typename TQ, int D>
+__global__ void __launch_bounds__(kThreads) dense_decode_kernel(
+    const TQ* __restrict__ q, const int8_t* __restrict__ k,
+    const int8_t* __restrict__ v, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ lengths,
+    TQ* __restrict__ out, int heads, int rows, float scale) {
+  constexpr int kLanes = D / kVec;            // lanes per cached row
+  constexpr int kGroups = kThreads / kLanes;  // rows in flight per pass
   static_assert(D % kVec == 0 && kLanes <= 32 && (kLanes & (kLanes - 1)) == 0,
                 "D must be 8 times a power of two, at most 256");
   __shared__ float s_m[kGroups];
@@ -123,8 +598,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   const int tid = threadIdx.x;
   const int group = tid / kLanes;
   const int lane = tid % kLanes;
-  const int cap = kPaged ? max_blocks * page : rows;
-  const int n = min(max(lengths[b], 0), cap);
+  const int n = min(max(lengths[b], 0), rows);
   TQ* o = out + (static_cast<size_t>(b) * heads + h) * D;
   if (n == 0) {
     for (int d = tid; d < D; d += kThreads) store(o + d, 0.f);
@@ -134,15 +608,6 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   float qf[kVec];
   Load<TQ>::row(q + (static_cast<size_t>(b) * heads + h) * D + lane * kVec,
                 qf);
-
-  // Index of (token t, head h) in the [rows, H] row space of k/v.
-  auto row_of = [&](int t) -> size_t {
-    if (kPaged) {
-      const int pid = table[static_cast<size_t>(b) * max_blocks + t / page];
-      return (static_cast<size_t>(pid) * page + t % page) * heads + h;
-    }
-    return (static_cast<size_t>(b) * rows + t) * heads + h;
-  };
 
   float m = kNegInf;
   float l = 0.f;
@@ -162,17 +627,15 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
       const int t = base + group + u * kGroups;
       valid[u] = t < n;
       if (valid[u]) {
-        const size_t r = row_of(t);
-        Load<TKV>::row(k + r * D + lane * kVec, kf[u]);
-        Load<TKV>::row(v + r * D + lane * kVec, vf[u]);
-        if (kInt8) {
-          const float ks = k_scale[r];
-          const float vs = v_scale[r];
+        const size_t r = (static_cast<size_t>(b) * rows + t) * heads + h;
+        Load<int8_t>::row(k + r * D + lane * kVec, kf[u]);
+        Load<int8_t>::row(v + r * D + lane * kVec, vf[u]);
+        const float ks = k_scale[r];
+        const float vs = v_scale[r];
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) {
-            kf[u][e] *= ks;
-            vf[u][e] *= vs;
-          }
+        for (int e = 0; e < kVec; ++e) {
+          kf[u][e] *= ks;
+          vf[u][e] *= vs;
         }
       } else {
 #pragma unroll
@@ -201,9 +664,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
       if (!valid[u]) continue;
       const float p = expf(s[u] - m_new);
       l += p;
-      const float pv = kRoundP ? __bfloat162float(__float2bfloat16(p)) : p;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[e] += pv * vf[u][e];
+      for (int e = 0; e < kVec; ++e) acc[e] += p * vf[u][e];
     }
     m = m_new;
   }
@@ -229,79 +691,88 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   }
 }
 
-template <typename TQ, typename TKV, bool kPaged>
-cudaError_t launch(int depth, const void* q, const void* k, const void* v,
-                   const void* k_scale, const void* v_scale,
-                   const void* table, const void* lengths, void* out,
-                   int batch, int heads, int page, int max_blocks, int rows,
-                   float scale, cudaStream_t stream) {
+template <typename TQ>
+cudaError_t launch_dense(int depth, const void* q, const void* k,
+                         const void* v, const void* k_scale,
+                         const void* v_scale, const void* lengths, void* out,
+                         int batch, int rows, int heads, float scale,
+                         cudaStream_t stream) {
   const dim3 grid(batch * heads);
   const auto* q_ = static_cast<const TQ*>(q);
-  const auto* k_ = static_cast<const TKV*>(k);
-  const auto* v_ = static_cast<const TKV*>(v);
+  const auto* k_ = static_cast<const int8_t*>(k);
+  const auto* v_ = static_cast<const int8_t*>(v);
   const auto* ks = static_cast<const float*>(k_scale);
   const auto* vs = static_cast<const float*>(v_scale);
-  const auto* tbl = static_cast<const int*>(table);
   const auto* len = static_cast<const int*>(lengths);
   auto* o = static_cast<TQ*>(out);
-#define BS_LAUNCH(DEPTH)                                                   \
-  decode_attention_kernel<TQ, TKV, DEPTH, kPaged>                          \
-      <<<grid, kThreads, 0, stream>>>(q_, k_, v_, ks, vs, tbl, len, o,     \
-                                      heads, page, max_blocks, rows, scale)
+#define BS_DENSE(DEPTH)                                                     \
+  dense_decode_kernel<TQ, DEPTH><<<grid, kThreads, 0, stream>>>(            \
+      q_, k_, v_, ks, vs, len, o, heads, rows, scale)
   switch (depth) {
-    case 32: BS_LAUNCH(32); break;
-    case 64: BS_LAUNCH(64); break;
-    case 128: BS_LAUNCH(128); break;
-    case 256: BS_LAUNCH(256); break;
+    case 32: BS_DENSE(32); break;
+    case 64: BS_DENSE(64); break;
+    case 128: BS_DENSE(128); break;
+    case 256: BS_DENSE(256); break;
     default: return cudaErrorInvalidValue;
   }
-#undef BS_LAUNCH
+#undef BS_DENSE
   return cudaGetLastError();
 }
 
-template <bool kPaged>
-cudaError_t dispatch(int q_dtype, int kv_dtype, int depth, const void* q,
-                     const void* k, const void* v, const void* k_scale,
-                     const void* v_scale, const void* table,
-                     const void* lengths, void* out, int batch, int heads,
-                     int page, int max_blocks, int rows, float scale,
-                     cudaStream_t stream) {
-#define BS_ARGS                                                           \
-  depth, q, k, v, k_scale, v_scale, table, lengths, out, batch, heads,    \
-      page, max_blocks, rows, scale, stream
-  if constexpr (kPaged) {  // the dense cache is int8 only (K8)
-    if (q_dtype == kF32 && kv_dtype == kF32)
-      return launch<float, float, kPaged>(BS_ARGS);
-    if (q_dtype == kBF16 && kv_dtype == kBF16)
-      return launch<__nv_bfloat16, __nv_bfloat16, kPaged>(BS_ARGS);
-  }
-  if (q_dtype == kF32 && kv_dtype == kI8)
-    return launch<float, int8_t, kPaged>(BS_ARGS);
-  if (q_dtype == kBF16 && kv_dtype == kI8)
-    return launch<__nv_bfloat16, int8_t, kPaged>(BS_ARGS);
-#undef BS_ARGS
-  return cudaErrorInvalidValue;
+bool valid_splits(int splits) {
+  return splits == 1 || splits == 2 || splits == 4 || splits == kMaxSplits;
 }
 
 }  // namespace
 
 extern "C" {
 
-// K6 (kv_dtype fp32/bf16, scales null) and K7 (kv_dtype int8).
-// Returns the launch's cudaError_t (0 = launched).
+// K6 (kv_dtype fp32/bf16, the page type equal to q's; scales null) and K7
+// (kv_dtype int8, fp32 scales): the cluster kernel over `splits` blocks a
+// (slot, head). Returns the launch's cudaError_t (0 = launched).
 int bs_paged_decode_attention(int device, const void* q, const void* k_pages,
                               const void* v_pages, const void* k_scales,
                               const void* v_scales, const void* block_table,
                               const void* lengths, void* out, int batch,
                               int heads, int depth, int page, int max_blocks,
-                              int q_dtype, int kv_dtype, float scale,
-                              void* stream) {
+                              int num_pages, int splits, int q_dtype,
+                              int kv_dtype, float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  return dispatch<true>(q_dtype, kv_dtype, depth, q, k_pages, v_pages,
-                        k_scales, v_scales, block_table, lengths, out, batch,
-                        heads, page, max_blocks, 0, scale,
-                        static_cast<cudaStream_t>(stream));
+  if (!valid_splits(splits) || page < 1 || max_blocks < 1)
+    return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+#define BS_ARGS                                                             \
+  depth, q, k_pages, v_pages, k_scales, v_scales, block_table, lengths,     \
+      out, batch, heads, page, max_blocks, num_pages, splits, scale, s
+  if (q_dtype == kF32 && kv_dtype == kF32)
+    return paged_depth<float, float>(BS_ARGS);
+  if (q_dtype == kBF16 && kv_dtype == kBF16)
+    return paged_depth<__nv_bfloat16, __nv_bfloat16>(BS_ARGS);
+  if (q_dtype == kF32 && kv_dtype == kI8)
+    return paged_depth<float, int8_t>(BS_ARGS);
+  if (q_dtype == kBF16 && kv_dtype == kI8)
+    return paged_depth<__nv_bfloat16, int8_t>(BS_ARGS);
+#undef BS_ARGS
+  return cudaErrorInvalidValue;
+}
+
+// The cluster kernel's plan for these shapes: out[0] ring stages, out[1]
+// bytes between stages, out[2] dynamic shared memory a block, out[3] rows
+// of a TMA box. Returns cudaErrorInvalidValue where it would not launch.
+int bs_paged_decode_plan(int depth, int page, int max_blocks, int splits,
+                         int kv_dtype, int* out) {
+  if (!valid_splits(splits) || page < 1 || max_blocks < 1 ||
+      kv_dtype < kF32 || kv_dtype > kI8)
+    return cudaErrorInvalidValue;
+  const int elt = kv_dtype == kF32 ? 4 : (kv_dtype == kBF16 ? 2 : 1);
+  const Plan plan =
+      plan_for(depth, elt, page, max_blocks, splits, kv_dtype == kI8);
+  out[0] = plan.stages;
+  out[1] = plan.stage_stride;
+  out[2] = plan.smem;
+  out[3] = plan.tile_rows;
+  return plan.smem > kSmemLimit ? cudaErrorInvalidValue : cudaSuccess;
 }
 
 // K8: dense int8 cache [B, rows, H, D] with [B, rows, H] scales.
@@ -313,9 +784,16 @@ int bs_dense_decode_attention_int8(int device, const void* q,
                                    int q_dtype, float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  return dispatch<false>(q_dtype, kI8, depth, q, cache_k, cache_v, k_scales,
-                         v_scales, nullptr, lengths, out, batch, heads, 1, 0,
-                         rows, scale, static_cast<cudaStream_t>(stream));
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == kF32)
+    return launch_dense<float>(depth, q, cache_k, cache_v, k_scales,
+                               v_scales, lengths, out, batch, rows, heads,
+                               scale, s);
+  if (q_dtype == kBF16)
+    return launch_dense<__nv_bfloat16>(depth, q, cache_k, cache_v, k_scales,
+                                       v_scales, lengths, out, batch, rows,
+                                       heads, scale, s);
+  return cudaErrorInvalidValue;
 }
 
 const char* bs_error_string(int code) {

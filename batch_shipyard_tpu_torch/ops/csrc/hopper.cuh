@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the wgmma/TMA kernels of
-// chunked_loss.cu (K3-K5), fused_norm.cu (K9) and flash_attention.cu (K1,
-// K2): TMA descriptors encoded on the host through cudaGetDriverEntryPoint
-// (no -lcuda), mbarrier rings, 2-D and 4-D TMA loads, wgmma descriptors,
-// the wgmma group fences and the wgmma shapes the kernels issue.
+// chunked_loss.cu (K3-K5), fused_norm.cu (K9), flash_attention.cu (K1,
+// K2) and the paged cluster kernel of decode_attention.cu (K6, K7): TMA
+// descriptors encoded on the host through cudaGetDriverEntryPoint (no
+// -lcuda), mbarrier rings, 2-D and 4-D TMA loads, wgmma descriptors, the
+// wgmma group fences and the wgmma shapes the kernels issue.
 //
-// Tiles in shared memory are written by TMA with the 128-byte swizzle:
+// Tiles that wgmma reads are written by TMA with the 128-byte swizzle:
 // each box row is 128 bytes, and the 16-byte chunk c of row r lands at
 // chunk c ^ (r % 8). A tile starts on a 1024-byte boundary, so the
 // pattern repeats every eight rows and wgmma descriptors can step through
@@ -65,17 +66,18 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* base,
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A 4-D tensor of 16-bit elements whose innermost dimension (dims[0]
-// elements, 128 bytes of them a box row) is contiguous, e.g. a strided
-// [B, T, H, D] view as dims {D, T, H, B} with the byte strides {T, H, B}
-// of the three outer dimensions (multiples of 16, in any order), seen as
-// boxes {64, box[1], box[2], box[3]} with the 128-byte swizzle. Elements
-// outside the tensor read as zeros.
-inline cudaError_t tensor_map_4d(CUtensorMap* map, const void* base,
-                                 CUtensorMapDataType type,
-                                 const long long (&dims)[4],
-                                 const long long (&strides)[3],
-                                 const int (&box)[4]) {
+// A 4-D tensor whose innermost dimension (dims[0] elements) is contiguous,
+// e.g. a strided [B, T, H, D] view as dims {D, T, H, B} with the byte
+// strides {T, H, B} of the three outer dimensions (multiples of 16, in any
+// order), seen as boxes {box[0], box[1], box[2], box[3]}. With the 128-byte
+// swizzle (the default) a box row is 128 bytes (64 16-bit elements); with
+// CU_TENSOR_MAP_SWIZZLE_NONE it is any multiple of 16 bytes up to 256
+// elements and lands densely. Elements outside the tensor read as zeros.
+inline cudaError_t tensor_map_4d(
+    CUtensorMap* map, const void* base, CUtensorMapDataType type,
+    const long long (&dims)[4], const long long (&strides)[3],
+    const int (&box)[4],
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   cuuint64_t d[4], st[3];
@@ -88,7 +90,7 @@ inline cudaError_t tensor_map_4d(CUtensorMap* map, const void* base,
   for (int i = 0; i < 3; ++i) st[i] = static_cast<cuuint64_t>(strides[i]);
   const CUresult rc = encode(
       map, type, 4, const_cast<void*>(base), d, st, b, steps,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -230,6 +232,18 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Barrier `id` (1-15) over `threads` threads, e.g. one warpgroup.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The two halves of a cluster barrier, every thread of the block. A block
+// that arrives (relaxed: it publishes no memory) and later waits knows
+// that every block of its cluster has started, so their shared memory may
+// be accessed; the arrive's latency hides under the work between them.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_commit() {

@@ -4,10 +4,17 @@ and its plain PyTorch version.
 Counterpart of batch_shipyard_tpu/ops/paged_attention.py. The Pallas
 kernels there (``_paged_decode_kernel``, K6, and
 ``_paged_decode_kernel_int8``, K7) become one hand-written CUDA kernel
-for Hopper (``csrc/decode_attention.cu``) that reads only each slot's
-live pages through its block table. ``paged_decode_attention_reference``
-ports the XLA gather formulation (``paged_decode_attention_xla``): it
-materializes each slot's full logical view, then one masked softmax.
+for Hopper (``paged_decode_cluster_kernel`` in
+``csrc/decode_attention.cu``): each (slot, head) is split over a
+cluster of ``paged_splits(max_blocks)`` blocks, each block reads one
+contiguous run of the slot's live pages through TMA, and the blocks
+merge their (max, denominator, numerator) through distributed shared
+memory. ``paged_decode_attention_reference`` ports the XLA gather
+formulation (``paged_decode_attention_xla``): it materializes each
+slot's full logical view, then one masked softmax.
+``paged_decode_attention_split`` is the cluster's math in plain
+PyTorch (per-split softmax over contiguous page runs, merged in rank
+order), held against the JAX package by the CPU tests.
 
 Contract (both versions): q [B, 1, H, D]; k_pages/v_pages
 [P, page, H, D]; block_table [B, max_blocks] int32; lengths [B] int32
@@ -34,6 +41,19 @@ SUPPORTED_DEPTHS = (32, 64, 128, 256)
 # Kernel launches by kernel name: each wrapper adds one where it
 # launches, and nowhere else (chip_smoke.py zeroes and reads these).
 launches = {"paged_decode": 0, "paged_decode_int8": 0}
+# Blocks a (slot, head) at most: the portable thread-block cluster size.
+MAX_SPLITS = 8
+
+
+def paged_splits(max_blocks: int) -> int:
+    """Blocks the cluster kernel splits each (slot, head) over: the
+    smallest power of two that leaves at most two of the table's
+    ``max_blocks`` pages to a block, capped at MAX_SPLITS (4 at the
+    served 512 keys over pages of 64)."""
+    splits = 1
+    while splits < MAX_SPLITS and 2 * splits < max_blocks:
+        splits *= 2
+    return splits
 
 
 def check_operand(name: str, t: torch.Tensor, device: torch.device,
@@ -74,10 +94,27 @@ def stream_handle(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def paged_decode_plan(depth: int, page: int, max_blocks: int,
+                      kv_dtype: torch.dtype) -> dict:
+    """The cluster kernel's launch plan for these shapes (from the
+    library): splits a (slot, head), ring stages, bytes a stage, dynamic
+    shared memory a block and rows of a TMA box."""
+    lib = _build.library()
+    splits = paged_splits(max_blocks)
+    plan = (ctypes.c_int * 4)()
+    _build.check(lib.bs_paged_decode_plan(depth, page, max_blocks, splits,
+                                          DTYPE_CODES[kv_dtype], plan),
+                 "paged decode plan", lib)
+    return {"splits": splits, "stages": plan[0], "stage_bytes": plan[1],
+            "dynamic_smem_bytes": plan[2], "tile_rows": plan[3]}
+
+
 def paged_decode_attention_kernel(q, k_pages, v_pages, block_table,
                                   lengths, k_scales=None,
-                                  v_scales=None):
-    """CUDA path (K6, or K7 when the pages are int8 with scales)."""
+                                  v_scales=None, library=None):
+    """CUDA path (K6, or K7 when the pages are int8 with scales).
+    ``library`` swaps in another build of csrc/decode_attention.cu
+    (chip_smoke's planted faults)."""
     batch, heads, depth = check_query(q)
     int8_pages = k_scales is not None
     num_pages, page = k_pages.shape[0], k_pages.shape[1]
@@ -94,7 +131,7 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_table,
     check_operand("block_table", block_table, dev, (torch.int32,),
                   (batch, max_blocks))
     check_operand("lengths", lengths, dev, (torch.int32,), (batch,))
-    lib = _build.library()
+    lib = library or _build.library()
     out = torch.empty_like(q)
     rc = lib.bs_paged_decode_attention(
         dev.index or 0, q.data_ptr(), k_pages.data_ptr(),
@@ -102,7 +139,8 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, block_table,
         k_scales.data_ptr() if int8_pages else None,
         v_scales.data_ptr() if int8_pages else None,
         block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        batch, heads, depth, page, max_blocks, DTYPE_CODES[q.dtype],
+        batch, heads, depth, page, max_blocks, num_pages,
+        paged_splits(max_blocks), DTYPE_CODES[q.dtype],
         DTYPE_CODES[k_pages.dtype], 1.0 / depth ** 0.5,
         stream_handle(dev))
     _build.check(rc, "paged decode attention", lib)
@@ -131,6 +169,63 @@ def paged_decode_attention_reference(q, k_pages, v_pages, block_table,
         k_all = (k_all.float() * ks[..., None]).to(q.dtype)
         v_all = (v_all.float() * vs[..., None]).to(q.dtype)
     return masked_decode_softmax(q, k_all, v_all, lengths)
+
+
+def paged_decode_attention_split(q, k_pages, v_pages, block_table,
+                                 lengths, splits: int, k_scales=None,
+                                 v_scales=None):
+    """The cluster kernel's math in plain PyTorch: each slot's live
+    pages cut into ``splits`` contiguous runs of ceil(pages / splits),
+    one softmax per run giving (m, l, acc) (fp32 scores and sums; p
+    rounded to bf16 before P.V for bf16 pages; int8 pages dequantized to
+    fp32, the scales applied to the score and to p), the runs merged in
+    rank order. Empty runs contribute nothing; a length-0 slot yields
+    zeros. Reads lengths on the host: a plain version, not a path."""
+    batch, seq, heads, depth = q.shape
+    if seq != 1:
+        raise ValueError("decode consumes one token per call")
+    page = k_pages.shape[1]
+    cap = block_table.shape[1] * page
+    scale = 1.0 / depth ** 0.5
+    round_p = k_pages.dtype == torch.bfloat16
+    out = torch.zeros((batch, 1, heads, depth), dtype=torch.float32,
+                      device=q.device)
+    for b in range(batch):
+        n = min(max(int(lengths[b]), 0), cap)
+        pages = -(-n // page)
+        per = -(-pages // splits)
+        parts = []
+        for rank in range(splits):
+            p0 = min(pages, rank * per)
+            p1 = min(pages, p0 + per)
+            rows = max(0, min(n, p1 * page) - p0 * page)
+            if rows == 0:
+                continue
+            ids = block_table[b, p0:p1].long()
+            k = k_pages[ids].reshape(-1, heads, depth)[:rows].float()
+            v = v_pages[ids].reshape(-1, heads, depth)[:rows].float()
+            s = torch.einsum("hd,thd->ht", q[b, 0].float(), k) * scale
+            if k_scales is not None:
+                s = s * k_scales[ids].reshape(-1, heads)[:rows].T
+            m = s.amax(dim=-1)
+            p = torch.exp(s - m[:, None])
+            l = p.sum(dim=-1)
+            if k_scales is not None:
+                p = p * v_scales[ids].reshape(-1, heads)[:rows].T
+            elif round_p:
+                p = p.to(torch.bfloat16).float()
+            parts.append((m, l, torch.einsum("ht,thd->hd", p, v)))
+        if not parts:
+            continue
+        big = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        num = torch.zeros((heads, depth), device=q.device)
+        den = torch.zeros((heads,), device=q.device)
+        for m, l, acc in parts:
+            w = torch.exp(m - big)
+            den = den + w * l
+            num = num + w[:, None] * acc
+        out[b, 0] = num / den[:, None]
+    return out.to(q.dtype)
 
 
 def masked_attention(q, k_all, v_all, mask):

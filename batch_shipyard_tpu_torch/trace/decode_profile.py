@@ -9,10 +9,16 @@ build_bench_engine``: bench.py ``bench_serving``'s vocab 32000, d_model
 512, random weights from a fixed seed), fills every slot with a
 96-token prompt, and then times ``--steps`` pure decode steps (no
 admission, no finished request) twice: on the host clock with a
-synchronise, and under ``torch.profiler``. Prints one JSON line: the
-step's wall time, the device's busy time (union of kernel intervals)
-and idle share, the decode-attention kernel's share, and the largest
-device kernels and host operators. Runs on CUDA only.
+synchronise, and under ``torch.profiler``. The steps are replays of the
+decode graph the engine's warm-up captured (``graph`` in the output);
+the profiler still sees each kernel of a replay, so the kernels a step
+launches are counted from the trace (``launches_per_step_by_kernel``),
+not from the wrappers' counters (which count once, at capture). Prints
+one JSON line: the step's wall time, the device's busy time (union of
+kernel intervals) and idle share (of the profiled window, and of the
+unprofiled wall time), the decode-attention kernel's launches and
+share, and the largest device kernels and host operators. Runs on CUDA
+only.
 """
 
 from __future__ import annotations
@@ -34,8 +40,11 @@ from batch_shipyard_tpu_torch.workloads.serve import (
     BENCH_SERVING_KV_CACHES, build_bench_engine)
 
 PROMPT = 96
-# Substring of the decode-attention kernel's mangled name.
-ATTENTION_KERNEL = "decode_attention_kernel"
+# The decode-attention kernel of each cache, as its mangled name starts
+# (ops/csrc/decode_attention.cu): K6/K7's cluster kernel, K8's.
+ATTENTION_KERNEL = {"paged": "paged_decode_cluster_kernel",
+                    "paged_int8": "paged_decode_cluster_kernel",
+                    "dense_int8": "dense_decode_kernel"}
 
 
 def busy_us(intervals: list[tuple[float, float]]) -> float:
@@ -49,9 +58,9 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def run(kv_cache: str, steps: int) -> dict:
-    engine = build_bench_engine(kv_cache, "cuda")
-    engine.warmup()
+def fill_slots(engine) -> None:
+    """Admit one 96-token prompt into every slot of an idle engine and
+    step past admission, so the next steps are pure decode steps."""
     rng = random.Random(0)
     slots = engine.num_slots
     for i in range(slots):
@@ -63,6 +72,13 @@ def run(kv_cache: str, steps: int) -> dict:
         engine.step()
     for _ in range(4):
         engine.step()
+
+
+def profile_engine(engine, kv_cache: str, steps: int) -> dict:
+    """The reading of ``steps`` pure decode steps of a warmed-up engine
+    with every slot free (``kv_cache`` names its cache)."""
+    slots = engine.num_slots
+    fill_slots(engine)
     torch.cuda.synchronize()
     started = time.perf_counter()
     for _ in range(steps):
@@ -81,18 +97,21 @@ def run(kv_cache: str, steps: int) -> dict:
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
     by_name: dict[str, float] = collections.defaultdict(float)
+    launches: collections.Counter = collections.Counter()
     intervals = []
     for e in kernels:
         start = e.time_range.start
         stop = e.time_range.end
         intervals.append((start, stop))
         by_name[e.name] += stop - start
+        launches[e.name] += 1
     device_us = sum(by_name.values())
     busy = busy_us(intervals)
     window_us = (max(s for _, s in intervals) -
                  min(s for s, _ in intervals))
-    attention_us = sum(us for name, us in by_name.items()
-                       if ATTENTION_KERNEL in name)
+    attention = [name for name in by_name
+                 if ATTENTION_KERNEL[kv_cache] in name]
+    attention_us = sum(by_name[name] for name in attention)
     host_ops = collections.Counter()
     for avg in prof.key_averages():
         if avg.device_type == DeviceType.CPU and avg.key.startswith(
@@ -102,13 +121,21 @@ def run(kv_cache: str, steps: int) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+    busy_ms = busy / 1e3 / steps
     return {
         "kv_cache": kv_cache, "card": smi, "steps": steps,
+        "graph": engine._graph is not None,
         "wall_ms_per_step": wall_ms,
         "profiled_window_ms_per_step": window_us / 1e3 / steps,
-        "device_busy_ms_per_step": busy / 1e3 / steps,
+        "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy / window_us,
+        # The profiled busy time over the unprofiled wall time.
+        "device_idle_share_of_wall": 1.0 - busy_ms / wall_ms,
         "kernel_launches_per_step": len(kernels) / steps,
+        "launches_per_step_by_kernel": {
+            name: n / steps for name, n in launches.items()},
+        "attention_launches_per_step": sum(
+            launches[name] for name in attention) / steps,
         "attention_ms_per_step": attention_us / 1e3 / steps,
         "attention_share_of_device": attention_us / device_us,
         "top_kernels_ms_per_step": {
@@ -119,6 +146,12 @@ def run(kv_cache: str, steps: int) -> dict:
             name: us / 1e3 / steps
             for name, us in host_ops.most_common(8)},
     }
+
+
+def run(kv_cache: str, steps: int) -> dict:
+    engine = build_bench_engine(kv_cache, "cuda")
+    engine.warmup()
+    return profile_engine(engine, kv_cache, steps)
 
 
 def main(argv=None) -> int:

@@ -8,11 +8,17 @@ Phases, each fatal on failure:
   1. build the kernels from ops/csrc with nvcc (sm_90a), one nvcc per
      source, all started together, and print each kernel's registers a
      thread, static shared memory and spills (the -Xptxas -v report)
-     and K1/K2's dynamic shared memory a block;
+     and K1/K2's dynamic shared memory a block (K6/K7's cluster kernel:
+     its plan's dynamic shared memory, cluster size and stages);
   2. hold each kernel against its plain PyTorch version on the card.
-     Decode attention (K6-K8): ragged lengths (1, a page boundary, a
-     full slot, 0), random block tables and a NaN-poisoned dead table
-     tail or cache tail. Flash attention (K1 forward, K2 backward): out,
+     Decode attention (K6-K8): ragged lengths (DECODE_LENGTHS: at the
+     cluster kernel's 4 splits some slots keep every split busy, some
+     leave splits empty, one is 0), random block tables and a
+     NaN-poisoned dead table tail or cache tail, fp32 / bf16 / int8
+     pages at D 64 and 128; each planted fault of DECODE_FAULTS (one
+     split drops a page, the merge drops a split's denominator, int8
+     applies the K scale to V), built alone, must fail it. Flash
+     attention (K1 forward, K2 backward): out,
      lse, dq, dk and dv against an fp32 oracle (mha_reference's
      arithmetic with the lse exposed, differentiated by autograd), bf16
      and fp32, causal and full, D 64 and 128, T 128 / 2048 / a ragged
@@ -92,13 +98,28 @@ Phases, each fatal on failure:
      workload's entry point, 2 + 3 steps and one profiled: the loss must
      be finite and fall, and each rank must launch exactly
      sp_launches_per_step(rank) a step and no plain version;
-  6. serve the repo's serving benchmark model (bench.py bench_serving:
+  6. the served decode step as a CUDA graph (decode_graph), for each
+     bench_serving cache (paged, paged_int8, dense_int8): one request
+     schedule (admissions mid-stream, pages growing past the prompts',
+     overcommit preemption with re-prefill on paged_int8) through an
+     engine replaying its graph and one held eager must stream
+     identical greedy tokens (stream_check); then, on the replaying
+     engine, 16 decode steps from one state replayed and eager must
+     give identical tokens and state, greedy and with temperature
+     (replays repeat under one seed and draw afresh without it;
+     graph_check);
+  7. serve the repo's serving benchmark model (bench.py bench_serving:
      the same widths, 8 slots, max_decode_len 512) three times through
      ServingFrontEnd + run_load: paged page 64 (K6), paged int8 with
-     overcommit over 40 pages (K7), dense int8 (K8). Each run must
-     finish every request, must launch its kernel once per layer per
-     decode step and no other kernel, and must agree with the plain
-     attention in a teacher-forced decode of the same tokens.
+     overcommit over 40 pages (K7), dense int8 (K8), every decode step a
+     replay of the graph the warm-up captured. Each run must finish
+     every request, its kernel wrappers must have launched its kernel
+     (the warm-up's eager step and the capture) and no other, the
+     trace of its replayed steps (trace/decode_profile.py's reading of
+     the same engine: wall and device-busy ms, idle share, the kernel's
+     share) must show its kernel, and no other decode-attention kernel,
+     launched exactly once per layer a step, and it must agree with
+     the plain attention in a teacher-forced decode of the same tokens.
 
 All phases run at full depth. The last two stdout lines are the
 {"kernels": [...]} summary (K1-K16) and
@@ -121,6 +142,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -129,7 +151,8 @@ from batch_shipyard_tpu_torch.models import inference as inf
 from batch_shipyard_tpu_torch.models import transformer as tfm
 from batch_shipyard_tpu_torch.models.loadgen import run_load
 from batch_shipyard_tpu_torch.models.server import ServingFrontEnd
-from batch_shipyard_tpu_torch.models.serving import ContinuousBatcher
+from batch_shipyard_tpu_torch.models.serving import (ContinuousBatcher,
+                                                     Request)
 from batch_shipyard_tpu_torch.ops import _build
 from batch_shipyard_tpu_torch.ops import attention as attn_ops
 from batch_shipyard_tpu_torch.ops import chunked_loss as loss_ops
@@ -143,7 +166,7 @@ from batch_shipyard_tpu_torch.ops.quantization import quantize_int8_rows
 from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
 from batch_shipyard_tpu_torch.parallel import mfu
 from batch_shipyard_tpu_torch.parallel import train as train_mod
-from batch_shipyard_tpu_torch.trace import train_profile
+from batch_shipyard_tpu_torch.trace import decode_profile, train_profile
 from batch_shipyard_tpu_torch.workloads import distributed
 from batch_shipyard_tpu_torch.workloads import train_transformer as train_wl
 from batch_shipyard_tpu_torch.workloads.serve import (
@@ -336,8 +359,33 @@ QUANT_FAULTS = (
      "if (kt != 0 || blockIdx.x != 0 || blockIdx.y != 0) "
      "product(acc, x_s, x_s + kTile, wm, wn, lane);", ("out",)),
 )
+# Decode attention (K6-K8). The ragged lengths of check_kernels: at the
+# cluster kernel's 4 splits over pages of 64, some slots keep every split
+# busy (200, 333, 511, 512), some leave splits empty (1, 63, 64, 65,
+# 129), and one is empty (0).
+DECODE_SOURCE = "batch_shipyard_tpu_torch/ops/csrc/decode_attention.cu"
+DECODE_LENGTHS = [1, 63, 64, 65, 129, 200, 333, 511, 512, 0]
+# Faults planted in copies of decode_attention.cu, one build each, each
+# confined to one split of the cluster kernel: check_kernels must fail on
+# every one. (kernel, line as written, line with the fault, cases.)
+DECODE_FAULTS = (
+    # A rank other than 0 drops its last page.
+    ("paged_decode_cluster_kernel", "const int p1 = min(np, p0 + per);",
+     "const int p1 = max(p0, min(np, p0 + per) - (rank == 1 ? 1 : 0));",
+     ("paged", "paged_int8")),
+    # The merge drops one rank's denominator.
+    ("paged_decode_cluster_kernel", "den += w * ml[1];",
+     "den += j == 1 ? 0.f : w * ml[1];", ("paged", "paged_int8")),
+    # The int8 path applies the K scale to V on one rank.
+    ("paged_decode_cluster_kernel", "s_p[r] = p * s_vs[r];",
+     "s_p[r] = p * (rank == 1 ? s_ks : s_vs)[r];", ("paged_int8",)),
+)
 FAULTS = {"flash_attention": FLASH_FAULTS, "chunked_loss": LOSS_FAULTS,
-          "fused_norm": NORM_FAULTS, "quantization": QUANT_FAULTS}
+          "fused_norm": NORM_FAULTS, "quantization": QUANT_FAULTS,
+          "decode_attention": DECODE_FAULTS}
+# Sources whose faults are built one library each (check_kernels reads
+# each fault alone); the others plant all of theirs in one build.
+FAULTS_ONE_BY_ONE = ("decode_attention",)
 
 KERNELS = {
     "flash_fwd": dict(
@@ -356,16 +404,13 @@ KERNELS = {
         label="K5", route="cuda", source=LOSS_SOURCE,
         replaces="batch_shipyard_tpu/ops/chunked_loss.py:128"),
     "paged_decode": dict(
-        label="K6", route="cuda",
-        source="batch_shipyard_tpu_torch/ops/csrc/decode_attention.cu",
+        label="K6", route="cuda", source=DECODE_SOURCE,
         replaces="batch_shipyard_tpu/ops/paged_attention.py:78"),
     "paged_decode_int8": dict(
-        label="K7", route="cuda",
-        source="batch_shipyard_tpu_torch/ops/csrc/decode_attention.cu",
+        label="K7", route="cuda", source=DECODE_SOURCE,
         replaces="batch_shipyard_tpu/ops/paged_attention.py:104"),
     "dense_decode_int8": dict(
-        label="K8", route="cuda",
-        source="batch_shipyard_tpu_torch/ops/csrc/decode_attention.cu",
+        label="K8", route="cuda", source=DECODE_SOURCE,
         replaces="batch_shipyard_tpu/ops/decode_attention.py:46"),
     "rmsnorm_matmul": dict(
         label="K9", route="cuda", source=NORM_SOURCE,
@@ -487,12 +532,26 @@ def check_result(name, got, want, poisoned, lengths, tol) -> float:
     return err
 
 
-def check_kernels(device) -> None:
-    """Phase 2a: every kernel against its plain version on ragged cases,
-    at D=64 (the served model) and D=128."""
+def fault_err(got, want, lengths) -> float:
+    """max |got - want| over the live slots; inf where got is not
+    finite there."""
+    live = lengths > 0
+    got, want = got[live].float(), want[live].float()
+    if not bool(torch.isfinite(got).all()):
+        return math.inf
+    return float((got - want).abs().max())
+
+
+def check_kernels(device, fault_libs=()) -> dict:
+    """Phase 2a: every kernel against its plain version on ragged cases
+    (DECODE_LENGTHS), at D=64 (the served model) and D=128. Each build
+    of ``fault_libs`` (DECODE_FAULTS, one fault each, in order) runs the
+    same paged cases and must miss the tolerance on at least one.
+    Returns each fault's worst error over tolerance."""
     rng = np.random.default_rng(0)
-    lengths = [1, PAGE, PAGE + 1, MAX_LEN, 0, 200, 333, 17]
+    lengths = DECODE_LENGTHS
     max_blocks = MAX_LEN // PAGE
+    worst = [0.0] * len(fault_libs)
     for depth in (64, 128):
         for q_dtype in (torch.float32, torch.bfloat16):
             for int8 in (False, True):
@@ -511,6 +570,12 @@ def check_kernels(device) -> None:
                                    TOL[q_dtype])
                 print(f"check {name}: max_abs_err {err:.3g} "
                       f"(tol {TOL[q_dtype]})")
+                for i, lib in enumerate(fault_libs):
+                    faulty = paged_ops.paged_decode_attention_kernel(
+                        *args, table, lens, library=lib, **kw)
+                    torch.cuda.synchronize()
+                    worst[i] = max(worst[i], fault_err(faulty, want, lens)
+                                   / TOL[q_dtype])
             name = f"dense_int8 D={depth} q={str(q_dtype)[6:]}"
             q, k, v, ks, vs, ks_p, vs_p, lens = dense_case(
                 rng, lengths, 4, depth, MAX_LEN, q_dtype, device)
@@ -523,6 +588,11 @@ def check_kernels(device) -> None:
             err = check_result(name, got, want, bad, lens, TOL[q_dtype])
             print(f"check {name}: max_abs_err {err:.3g} "
                   f"(tol {TOL[q_dtype]})")
+    for (kernel, line, _, _), ratio in zip(DECODE_FAULTS, worst):
+        print(f"check planted decode fault ({line!r}): worst error "
+              f"{ratio:.3g} x the tolerance", flush=True)
+        require(ratio > 1.0, f"decode fault {line!r} passed the check")
+    return {"fault_err_over_tol": worst}
 
 
 # ------------------------------ timing -------------------------------
@@ -612,9 +682,48 @@ def measure(kernel, plain, sets, lib_sets, **bound_kwargs) -> dict:
                 **bound(**bound_kwargs))
 
 
+# The serve load's ragged lengths (prompts of 64-128 tokens, 64-128 new
+# ones): 8 slots spread evenly over 64-256 keys, every layer alike.
+SERVED_LENGTHS = np.linspace(64, 256, SLOTS).round().astype(int).tolist()
+
+
+def time_paged(rng, lengths, int8, device) -> dict:
+    """measure() for the paged kernel at these lengths over n_layers
+    input sets; SDPA reads the gathered rows up to the longest slot,
+    masked past each slot's length where they differ."""
+    batch, heads, depth = SLOTS, MODEL["n_heads"], MODEL["d_head"]
+    keys = max(lengths)
+    mask = None
+    if min(lengths) < keys:
+        mask = (torch.arange(keys, device=device)[None, :] <
+                torch.tensor(lengths, device=device)[:, None])[:, None, None]
+    sets, lib_sets = [], []
+    for _ in range(MODEL["n_layers"]):
+        (q, kp, vp), lens, kw, table, _ = paged_case(
+            rng, lengths, heads, depth, PAGE, MAX_LEN // PAGE,
+            torch.bfloat16, int8, device)
+        ks, vs = kw.get("k_scales"), kw.get("v_scales")
+        sets.append((q, kp, vp, table, lens, ks, vs))
+        flat = table.long()
+
+        def gathered(pages, scales):
+            rows = pages[flat].reshape(batch, MAX_LEN, heads, depth)[:, :keys]
+            if scales is not None:
+                scales = scales[flat].reshape(batch, MAX_LEN, heads)[:, :keys]
+            return sdpa_view(rows, scales)
+        lib_sets.append((sdpa_view(q), gathered(kp, ks), gathered(vp, vs),
+                         mask))
+    return measure(
+        paged_ops.paged_decode_attention_kernel,
+        paged_ops.paged_decode_attention_reference, sets, lib_sets,
+        lengths=lengths, heads=heads, depth=depth, q_dtype=torch.bfloat16,
+        kv_dtype=torch.int8 if int8 else torch.bfloat16, page=PAGE)
+
+
 def time_kernels(device) -> dict:
     """Phase 2b: kernel, plain version and the SDPA yardstick at the
-    serving shape, all slots full (512 keys). Inputs cycle through
+    serving shape, all slots full (512 keys), and for K6/K7 again at the
+    serve load's ragged lengths (SERVED_LENGTHS). Inputs cycle through
     n_layers distinct sets, as a decode step does, so the 50 MB L2
     cannot hold them across calls."""
     batch, heads, depth = SLOTS, MODEL["n_heads"], MODEL["d_head"]
@@ -625,28 +734,13 @@ def time_kernels(device) -> dict:
     out = {}
     for key, int8 in (("paged_decode", False),
                       ("paged_decode_int8", True)):
-        sets, lib_sets = [], []
-        for _ in range(MODEL["n_layers"]):
-            (q, kp, vp), lens, kw, table, _ = paged_case(
-                rng, lengths, heads, depth, PAGE, MAX_LEN // PAGE,
-                torch.bfloat16, int8, device)
-            ks, vs = kw.get("k_scales"), kw.get("v_scales")
-            sets.append((q, kp, vp, table, lens, ks, vs))
-            flat = table.long()
-
-            def gathered(pages, scales):
-                rows = pages[flat].reshape(batch, MAX_LEN, heads, depth)
-                if scales is not None:
-                    scales = scales[flat].reshape(batch, MAX_LEN, heads)
-                return sdpa_view(rows, scales)
-            lib_sets.append((sdpa_view(q), gathered(kp, ks),
-                             gathered(vp, vs)))
-        out[key] = measure(
-            paged_ops.paged_decode_attention_kernel,
-            paged_ops.paged_decode_attention_reference, sets, lib_sets,
-            kv_dtype=torch.int8 if int8 else torch.bfloat16, page=PAGE,
-            **shape)
-        del sets, lib_sets
+        out[key] = time_paged(rng, lengths, int8, device)
+        served = time_paged(rng, SERVED_LENGTHS, int8, device)
+        out[key]["served_lengths"] = {
+            "lengths": SERVED_LENGTHS,
+            **{k: served[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "library_ms", "bound_ms",
+                                      "bound_by")}}
     sets, lib_sets = [], []
     for _ in range(MODEL["n_layers"]):
         q, k, v, ks, vs, _, _, lens = dense_case(
@@ -663,6 +757,14 @@ def time_kernels(device) -> dict:
               f" us, sdpa {row['library_ms'] * 1e3:.2f} us, bound "
               f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, "
               f"{row['bytes']} B)")
+        served = row.get("served_lengths")
+        if served:
+            print(f"time {KERNELS[key]['label']} {key} at the served "
+                  f"lengths {served['lengths']}: kernel "
+                  f"{served['ms'] * 1e3:.2f} us, plain "
+                  f"{served['plain_ms'] * 1e3:.2f} us, sdpa (masked) "
+                  f"{served['library_ms'] * 1e3:.2f} us, bound "
+                  f"{served['bound_ms'] * 1e3:.2f} us")
     return out
 
 
@@ -793,12 +895,14 @@ def kernel_body(text: str, kernel: str) -> tuple[int, int]:
     raise SmokeFailure(f"unbalanced braces in {kernel}")
 
 
-def plant_faults(name: str) -> str:
-    """csrc/<name>.cu with FAULTS[name] planted. Raises unless each
-    anchor occurs exactly once in the source, inside the body of its
-    named kernel, and its fault changes it."""
+def plant_faults(name: str, only: Optional[int] = None) -> str:
+    """csrc/<name>.cu with FAULTS[name] planted (or only its entry
+    ``only``). Raises unless each anchor occurs exactly once in the
+    source, inside the body of its named kernel, and its fault changes
+    it."""
     text = (_build.CSRC / f"{name}.cu").read_text()
-    for kernel, line, fault, _ in FAULTS[name]:
+    faults = FAULTS[name] if only is None else (FAULTS[name][only],)
+    for kernel, line, fault, _ in faults:
         start, end = kernel_body(text, kernel)
         require(text.count(line) == 1 and start <= text.find(line) and
                 text.find(line) + len(line) <= end and fault != line,
@@ -810,13 +914,15 @@ def plant_faults(name: str) -> str:
 
 
 def build_fault_library(workdir: pathlib.Path,
-                        name: str = "flash_attention"):
-    """csrc/<name>.cu with FAULTS[name] planted (plant_faults), built in
-    workdir. Returns (library path, seconds)."""
-    text = plant_faults(name)
-    source = workdir / f"{name}_faults.cu"
+                        name: str = "flash_attention",
+                        only: Optional[int] = None):
+    """csrc/<name>.cu with FAULTS[name] (or its entry ``only``) planted
+    (plant_faults), built in workdir. Returns (library path, seconds)."""
+    text = plant_faults(name, only)
+    tag = "" if only is None else str(only)
+    source = workdir / f"{name}_faults{tag}.cu"
     source.write_text(text)
-    target = workdir / f"lib{name}_faults.so"
+    target = workdir / f"lib{name}_faults{tag}.so"
     return target, _build.compile_source(source, target)
 
 
@@ -833,15 +939,17 @@ def flash_bound(batch, seq, heads, depth, causal, backward) -> dict:
     return roofline(nbytes, ops, torch.bfloat16)
 
 
-def ptxas_report(log: str) -> dict:
+def ptxas_report(log: str, namer=None) -> dict:
     """Each entry function of a build's ``-Xptxas -v`` report: registers a
     thread, static shared memory and spill bytes, by short name
-    (``flash_fwd_wgmma_kernel<64>``)."""
+    (``namer``; by default kernel_short_name, as in
+    ``flash_fwd_wgmma_kernel<64>``)."""
+    namer = namer or kernel_short_name
     report, name = {}, None
     for line in log.splitlines():
         found = re.search(r"Compiling entry function '([^']+)'", line)
         if found:
-            name = kernel_short_name(found.group(1))
+            name = namer(found.group(1))
             report.setdefault(name, {})
             continue
         if name is None:
@@ -874,6 +982,59 @@ def kernel_short_name(mangled: str) -> str:
                 arg = re.match(r"ILi(\d+)E", mangled[run.end() + size:])
                 return name + (f"<{arg.group(1)}>" if arg else "")
     return mangled
+
+
+# Template arguments of the paged cluster kernel as mangled: float,
+# __nv_bfloat16 (its later uses a substitution, S<n>_) and int8_t.
+_MANGLED_TYPES = {"f": "fp32", "13__nv_bfloat16": "bf16", "a": "int8"}
+
+
+def paged_kernel_name(mangled: str) -> str:
+    """``...paged_decode_cluster_kernelI13__nv_bfloat16aLi64EE...`` ->
+    ``paged_decode_cluster_kernel<bf16, int8, 64>`` (the page type that
+    repeats the query's is a substitution); other kernels as
+    kernel_short_name names them."""
+    found = re.search(r"paged_decode_cluster_kernelI(f|13__nv_bfloat16)"
+                      r"(f|a|S\d*_)Li(\d+)E", mangled)
+    if found is None:
+        return kernel_short_name(mangled)
+    q = _MANGLED_TYPES[found.group(1)]
+    kv = _MANGLED_TYPES.get(found.group(2), q)
+    return f"paged_decode_cluster_kernel<{q}, {kv}, {found.group(3)}>"
+
+
+def decode_resources(log: str) -> dict:
+    """K6's and K7's cluster kernel at the served shape (bf16 queries,
+    bf16 or int8 pages, D 64, page 64, max_blocks 8): registers a thread
+    and spills (ptxas), static and dynamic shared memory a block, threads,
+    cluster size and ring stages (the library's plan), keyed as the
+    kernels line is."""
+    report = ptxas_report(log, paged_kernel_name)
+    out = {}
+    for key, kv_dtype, kv in (("paged_decode", torch.bfloat16, "bf16"),
+                              ("paged_decode_int8", torch.int8, "int8")):
+        name = f"paged_decode_cluster_kernel<bf16, {kv}, {MODEL['d_head']}>"
+        usage = report.get(name, {})
+        plan = paged_ops.paged_decode_plan(MODEL["d_head"], PAGE,
+                                           MAX_LEN // PAGE, kv_dtype)
+        row = {"kernel": name, "registers": usage.get("registers"),
+               "spill_bytes": usage.get("spill_stores", 0) +
+               usage.get("spill_loads", 0),
+               "static_smem_bytes": usage.get("smem"),
+               "threads": 128, "cluster_size": plan["splits"],
+               "blocks": SLOTS * MODEL["n_heads"] * plan["splits"],
+               **{k: plan[k] for k in ("dynamic_smem_bytes", "stages",
+                                       "stage_bytes", "tile_rows")}}
+        out[key] = row
+        print(f"resources {name}: {row['registers']} registers a thread, "
+              f"{row['spill_bytes']} bytes spilled, "
+              f"{row['static_smem_bytes']} + {row['dynamic_smem_bytes']} "
+              f"bytes of static + dynamic shared memory a block, "
+              f"{row['threads']} threads, clusters of "
+              f"{row['cluster_size']} ({row['blocks']} blocks), "
+              f"{row['stages']} stages of {row['stage_bytes']} bytes",
+              flush=True)
+    return out
 
 
 def flash_resources(report: dict) -> dict:
@@ -2514,12 +2675,187 @@ def teacher_forced(engine: ContinuousBatcher, steps: int = 96) -> dict:
     }
 
 
+# The graph check: decode steps from one state, replayed and eager.
+GRAPH_STEPS, GRAPH_PROMPT, GRAPH_SEED = 16, 96, 5
+# The stream check: STREAM_REQUESTS greedy requests, the first
+# STREAM_FIRST at once and one more every STREAM_GAP steps, prompts and
+# new tokens drawn from STREAM_PROMPT and STREAM_NEW (up to 8 pages a
+# slot, so the 40-page paged_int8 cache must preempt).
+STREAM_REQUESTS, STREAM_FIRST, STREAM_GAP = 12, 4, 12
+STREAM_PROMPT, STREAM_NEW = (100, 300), (100, 200)
+
+
+def _decode_state(engine: ContinuousBatcher) -> list:
+    """The tensors a decode step writes: tokens, positions and every
+    cache tensor (the block table too, which it only reads)."""
+    tensors = [engine._tokens, engine._positions]
+    for layer in engine.cache:
+        tensors += [layer[key] for key in sorted(layer)]
+    return tensors
+
+
+def _stream(engine: ContinuousBatcher, schedule) -> dict:
+    """Drive ``schedule`` ([(step, request)]) through engine.step();
+    returns each request's streamed tokens."""
+    out, pending = {}, list(schedule)
+    for step in range(16 * MAX_LEN):
+        while pending and pending[0][0] <= step:
+            engine.submit(pending.pop(0)[1])
+        for rid, tokens in engine.step():
+            out[rid] = tokens
+        if not pending and not engine.pending():
+            return out
+    raise SmokeFailure("stream check: the engine did not drain")
+
+
+def _stream_schedule() -> list:
+    """[(step, request)]: STREAM_FIRST requests at step 0, then one
+    every STREAM_GAP steps, drawn from one seed."""
+    rng = np.random.default_rng(4)
+    plan = []
+    for i in range(STREAM_REQUESTS):
+        prompt = rng.integers(0, MODEL["vocab_size"],
+                              int(rng.integers(*STREAM_PROMPT)))
+        plan.append((max(0, i - STREAM_FIRST + 1) * STREAM_GAP,
+                     Request(f"stream-{i}", prompt.tolist(),
+                             max_new_tokens=int(rng.integers(*STREAM_NEW)))))
+    return plan
+
+
+def stream_check(name, device) -> tuple[dict, ContinuousBatcher]:
+    """One request schedule (admissions mid-stream, pages growing past
+    the prompts', and for paged_int8 overcommit preemption with
+    re-prefill) through an engine that replays its decode graph and
+    through one held eager (its capture skipped): every request must
+    stream identical greedy tokens, with as many decode steps and
+    preemptions. Returns the row and the replaying engine, drained."""
+    runs = {}
+    for mode in ("replayed", "eager"):
+        engine = build_bench_engine(name, device)
+        if mode == "eager":
+            engine.capture_decode = lambda: None  # hold this one eager
+        engine.warmup()
+        require((engine._graph is not None) == (mode == "replayed"),
+                f"{name} stream check: the {mode} engine's graph")
+        runs[mode] = (_stream(engine, _stream_schedule()), engine)
+    (got, replayed), (want, eager) = runs["replayed"], runs["eager"]
+    row = {"requests": len(want), "decode_steps": replayed.decode_steps,
+           "preemptions": replayed.preemptions,
+           "tokens": sum(len(t) for t in want.values()),
+           "identical": got == want,
+           "same_steps": replayed.decode_steps == eager.decode_steps,
+           "same_preemptions": replayed.preemptions == eager.preemptions}
+    require(len(want) == STREAM_REQUESTS and row["identical"] and
+            row["same_steps"] and row["same_preemptions"],
+            f"{name} stream check, replayed vs eager: {row}")
+    require(name != "paged_int8" or row["preemptions"] > 0,
+            f"{name} stream check: no preemption fired: {row}")
+    del eager, runs
+    return row, replayed
+
+
+def graph_check(name, engine: ContinuousBatcher,
+                steps: int = GRAPH_STEPS) -> dict:
+    """A replaying engine's captured decode step against the eager one,
+    from one state (8 live slots after 96-token prompts). Greedy:
+    ``steps`` steps replayed and ``steps`` eager must give identical
+    tokens and leave identical state (every tensor the step writes).
+    Temperature 0.8 / top-k 50 (recaptured): two replayed runs from the
+    same state and seed must agree, with each other and with an eager
+    run from that seed, and a third without reseeding must draw other
+    tokens (each replay draws afresh). The steps stay inside the slots'
+    allocated pages (positions 97-112 of 128), as step() would keep
+    them by growing pages first."""
+    require(engine._graph is not None, f"{name}: warmup captured no graph")
+    rng = np.random.default_rng(3)
+    for i in range(engine.num_slots):
+        engine.submit(Request(
+            f"graph-{i}", rng.integers(0, MODEL["vocab_size"],
+                                       GRAPH_PROMPT).tolist(),
+            max_new_tokens=MAX_LEN - GRAPH_PROMPT))
+    engine.step()
+    require(len(engine.active_request_ids()) == engine.num_slots,
+            f"{name} graph check: not every slot admitted")
+    start = [t.clone() for t in _decode_state(engine)]
+
+    def run(fn, reseed=True):
+        for t, t0 in zip(_decode_state(engine), start):
+            t.copy_(t0)
+        if reseed:
+            engine._generator.manual_seed(GRAPH_SEED)
+        tokens = torch.stack([fn().clone() for _ in range(steps)])
+        return tokens, [t.clone() for t in _decode_state(engine)]
+
+    def same_state(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    replay, eager = run(engine._replay_decode), run(engine._eager_decode)
+    rows = {"greedy": {
+        "steps": steps, "tokens_identical": torch.equal(replay[0], eager[0]),
+        "state_identical": same_state(replay[1], eager[1])}}
+    require(rows["greedy"]["tokens_identical"] and
+            rows["greedy"]["state_identical"],
+            f"{name} graph vs eager, greedy: {rows['greedy']}")
+    engine.sampling = inf.SamplingConfig(temperature=0.8, top_k=50)
+    engine.capture_decode()
+    first, again = run(engine._replay_decode), run(engine._replay_decode)
+    fresh = run(engine._replay_decode, reseed=False)
+    eager = run(engine._eager_decode)
+    rows["temperature"] = {
+        "steps": steps,
+        "replays_repeat_with_seed": torch.equal(first[0], again[0]) and
+        same_state(first[1], again[1]),
+        "fresh_draws_differ_share": float(
+            (fresh[0] != first[0]).float().mean()),
+        "eager_same_token_share": float(
+            (eager[0] == first[0]).float().mean())}
+    require(rows["temperature"]["replays_repeat_with_seed"] and
+            rows["temperature"]["fresh_draws_differ_share"] > 0.5 and
+            rows["temperature"]["eager_same_token_share"] == 1.0,
+            f"{name} graph, temperature: {rows['temperature']}")
+    return rows
+
+
+def decode_graph(name, device) -> dict:
+    """Phase 6 for one cache: stream_check, then graph_check on the
+    drained replaying engine."""
+    stream, engine = stream_check(name, device)
+    rows = {"stream": stream, **graph_check(name, engine)}
+    print(f"graph {name} " + json.dumps(rows), flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return rows
+
+
+# The decode-attention kernels' names as the profiler reports them.
+DECODE_KERNEL_NAMES = tuple(sorted(set(
+    decode_profile.ATTENTION_KERNEL.values())))
+
+
+def replayed_step_launches(name, reading: dict) -> dict:
+    """The decode-attention kernels the traced replays launched a step,
+    by kernel name: there must be exactly one, the cache's own, at one
+    launch a layer (a layer on any other path would leave it short)."""
+    found = {kernel: n for kernel, n in
+             reading["launches_per_step_by_kernel"].items()
+             if any(k in kernel for k in DECODE_KERNEL_NAMES)}
+    own = decode_profile.ATTENTION_KERNEL[name]
+    require(len(found) == 1 and own in next(iter(found)) and
+            next(iter(found.values())) == MODEL["n_layers"],
+            f"{name}: decode-attention launches a replayed step {found}")
+    return found
+
+
 def serve(name, kernel, device) -> dict:
-    """Phase 3: one served configuration, end to end."""
+    """Phase 7: one served configuration, end to end, its decode steps
+    replayed from the graph the warm-up captured; then
+    trace/decode_profile.py's reading of the same engine's replayed
+    step."""
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     engine = build_bench_engine(name, device)
     engine.warmup()
+    require(engine._graph is not None, f"{name}: no decode graph")
     front = ServingFrontEnd(engine, port=0).start()
     try:
         front.generate({"prompt": [1, 2, 3], "max_new_tokens": 2})
@@ -2530,15 +2866,21 @@ def serve(name, kernel, device) -> dict:
     finally:
         front.shutdown()
     torch.cuda.synchronize()
+    # The wrappers count where they launch: the warm-up's eager decode
+    # step and the capture. Replays relaunch the captured kernels
+    # without the wrappers; the trace below counts those.
     counts = launch_counts()
     require(report["completed"] == 8 and report["failed"] == 0,
             f"{name}: {report['failed']} failed: {report.get('errors')}")
     require(counts[kernel] > 0, f"{name}: {kernel} never launched")
     others = {k: n for k, n in counts.items() if k != kernel and n}
     require(not others, f"{name}: unexpected launches {others}")
-    per_step = counts[kernel] / engine.decode_steps
-    require(per_step == MODEL["n_layers"],
-            f"{name}: {per_step} launches per decode step")
+    steps = engine.decode_steps
+    slo = engine.slo_stats()
+    preemptions = engine.preemptions
+    reading = decode_profile.profile_engine(engine, name, GRAPH_STEPS)
+    require(reading["graph"], f"{name} decode profile: not replayed")
+    found = replayed_step_launches(name, reading)
     forced = teacher_forced(engine)
     floor = forced["plain_vs_fp32_rms"]
     require(floor <= BF16_FLOOR_MAX,
@@ -2549,18 +2891,30 @@ def serve(name, kernel, device) -> dict:
             f"rounding: {forced}")
     row = {
         "config": name, "kernel": kernel, "launches": counts[kernel],
-        "decode_steps": engine.decode_steps,
-        "launches_per_decode_step": per_step,
+        "launches_counted": "wrapper calls: the eager warm-up step and "
+                            "the graph capture",
+        "decode_steps": steps,
+        "launches_per_replayed_step": next(iter(found.values())),
+        "replayed_kernel": next(iter(found))[:120],
         "completed": report["completed"], "failed": report["failed"],
-        "preemptions": engine.preemptions,
+        "preemptions": preemptions,
         "ttft_ms": report["ttft_exact_ms"],
         "tpot_ms": report["tpot_exact_ms"],
         "tokens_per_second": report["tokens_per_second"],
-        "step_ms": engine.slo_stats()["step_ms"],
+        "step_ms": slo["step_ms"],
         "teacher_forced": forced,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "decode_profile": {
+            k: reading[k] for k in (
+                "steps", "wall_ms_per_step", "device_busy_ms_per_step",
+                "device_idle_share", "device_idle_share_of_wall",
+                "kernel_launches_per_step", "attention_launches_per_step",
+                "attention_ms_per_step", "attention_share_of_device",
+                "top_kernels_ms_per_step")},
     }
     print("serve " + json.dumps(row), flush=True)
+    del engine
+    torch.cuda.empty_cache()
     return row
 
 
@@ -2587,17 +2941,25 @@ def main() -> int:
                "fused_norm", "quantization", "ring_collectives")
     workdir = tempfile.TemporaryDirectory()
     tmp = pathlib.Path(workdir.name)
+    # One fault build per source, or per fault (FAULTS_ONE_BY_ONE,
+    # keyed (source, index)).
+    fault_builds = [(name, None) for name in FAULTS
+                    if name not in FAULTS_ONE_BY_ONE]
+    fault_builds += [(name, i) for name in FAULTS_ONE_BY_ONE
+                     for i in range(len(FAULTS[name]))]
     with concurrent.futures.ThreadPoolExecutor(
-            len(sources) + len(FAULTS)) as pool:
+            len(sources) + len(fault_builds)) as pool:
         started = [pool.submit(_build.build, name, force=True)
                    for name in sources]
-        faulty = {name: pool.submit(build_fault_library, tmp, name)
-                  for name in FAULTS}
+        faulty = {name if i is None else (name, i):
+                  pool.submit(build_fault_library, tmp, name, i)
+                  for name, i in fault_builds}
         builds = [f.result() for f in started]
-        faulty = {name: f.result() for name, f in faulty.items()}
+        faulty = {key: f.result() for key, f in faulty.items()}
     fault_libs = {}
-    for name, (path, seconds) in faulty.items():
-        fault_libs[name] = _build.load(path, name)
+    for key, (path, seconds) in faulty.items():
+        fault_libs[key] = _build.load(
+            path, key if isinstance(key, str) else key[0])
         print(f"build {path.name} (planted faults): {seconds:.1f} s",
               flush=True)
     reports = {}
@@ -2611,8 +2973,13 @@ def main() -> int:
                   f"{usage.get('spill_stores', 0)}/"
                   f"{usage.get('spill_loads', 0)} bytes")
     resources = flash_resources(reports["flash_attention"])
+    resources.update(decode_resources(
+        builds[sources.index("decode_attention")][0].with_suffix(
+            ".log").read_text()))
 
-    check_kernels(device)
+    decode_faults = check_kernels(device, [
+        fault_libs[("decode_attention", i)]
+        for i in range(len(DECODE_FAULTS))])
     check_flash(device)
     loss_readings = check_loss(device, fault_libs["chunked_loss"])
     norm_readings = check_norm(device, fault_libs["fused_norm"])
@@ -2652,9 +3019,11 @@ def main() -> int:
     finally:
         os.environ.pop(kernel_select.MARKER_ENV)
         workdir.cleanup()
+    graphs = {name: decode_graph(name, device) for name, _ in SERVED}
     served = {}
     for name, kernel in SERVED:
         served[kernel] = serve(name, kernel, device)
+        served[kernel]["graph_check"] = graphs[name]
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -2688,16 +3057,22 @@ def main() -> int:
                 row["launches_sp_train_rank0"] = \
                     sp_trained["launches_rank0"][key]
         else:
+            # The wrappers' count (the eager warm-up step and the
+            # capture), and the traced replays' count a decode step.
             row["launches"] = served[key]["launches"]
-            row["launches_per_decode_step"] = \
-                served[key]["launches_per_decode_step"]
+            row["launches_counted"] = served[key]["launches_counted"]
+            row["launches_per_replayed_step"] = \
+                served[key]["launches_per_replayed_step"]
+            if key in ("paged_decode", "paged_decode_int8"):
+                row["planted_fault_err_over_tol"] = \
+                    decode_faults["fault_err_over_tol"]
         row.update({k: t[k] for k in ("max_abs_err", "max_tile_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
                                       "library_ms", "per", "bound_nvlink_ms",
                                       "ms_per_rank", "note", "joint",
                                       "tflops", "ceiling_ms",
                                       "fwd_bwd_ms", "library_fwd_bwd_ms",
-                                      "resources")
+                                      "served_lengths", "resources")
                     if k in t})
         kernels.append(row)
     print(smi)

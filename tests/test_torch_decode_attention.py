@@ -185,3 +185,101 @@ def test_dispatch_uses_reference_on_cpu_and_kernel_refuses_cpu():
             lengths)
     with pytest.raises(ValueError, match="impl"):
         tpa.paged_decode_attention(q, k, v, table, lengths, impl="xla")
+
+
+# The cluster kernel's split schedule (paged_decode_attention_split): the
+# slot's live pages cut into `splits` contiguous runs, one softmax each,
+# merged in rank order. Lengths: empty, 1, a page, a page + 1, full (6
+# pages of 8), and two ragged ones; splits 1-8 leave some runs empty.
+SPLIT_LENGTHS = [0, 1, 8, 9, 48, 30, 17]
+
+
+def _split_case(dtype, int8):
+    rng = np.random.RandomState(11)
+    batch, heads, depth, page, max_blocks = len(SPLIT_LENGTHS), 4, 32, 8, 6
+    num_pages = batch * max_blocks + 3
+    q = rng.randn(batch, 1, heads, depth).astype(np.float32)
+    k = rng.randn(num_pages, page, heads, depth).astype(np.float32)
+    v = rng.randn(num_pages, page, heads, depth).astype(np.float32)
+    table = rng.permutation(num_pages)[:batch * max_blocks].reshape(
+        batch, max_blocks).astype(np.int32)
+    if dtype == "bfloat16":
+        q, k, v = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+                   for a in (q, k, v))
+    lengths = np.asarray(SPLIT_LENGTHS, np.int32)
+    targs = [_torch(q, dtype), _torch(k, dtype), _torch(v, dtype),
+             torch.from_numpy(table), torch.from_numpy(lengths)]
+    jargs = [_jax(q, dtype), _jax(k, dtype), _jax(v, dtype),
+             jnp.asarray(table), jnp.asarray(lengths)]
+    tkw, jkw = {}, {}
+    if int8:
+        kq, vq, ks, vs = _int8(k, v)
+        targs[1:3] = kq, vq
+        jargs[1:3] = jnp.asarray(kq.numpy()), jnp.asarray(vq.numpy())
+        tkw = dict(k_scales=ks, v_scales=vs)
+        jkw = dict(k_scales=jnp.asarray(ks.numpy()),
+                   v_scales=jnp.asarray(vs.numpy()))
+    return targs, tkw, jargs, jkw, lengths > 0
+
+
+_JAX_SPLIT_WANT = {}
+
+
+def _jax_split_want(dtype, int8):
+    """The JAX package's XLA path and Pallas kernel (interpret mode) on
+    the split case, computed once per (dtype, int8)."""
+    key = (dtype, int8)
+    if key not in _JAX_SPLIT_WANT:
+        _, _, jargs, jkw, _ = _split_case(dtype, int8)
+        with pltpu.force_tpu_interpret_mode():
+            kernel = jpa.paged_decode_attention_kernel(*jargs, **jkw)
+        _JAX_SPLIT_WANT[key] = (
+            _as_np(jpa.paged_decode_attention_xla(*jargs, **jkw)),
+            _as_np(kernel))
+    return _JAX_SPLIT_WANT[key]
+
+
+@pytest.mark.parametrize("pages", ["fp", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_split_schedule_matches_xla_and_kernel(splits, dtype, pages):
+    """fp32 pages 1e-5, bf16 pages 2e-2; int8 pages with fp32 queries
+    2e-5 (the XLA path dequantizes to fp32 too), bf16 queries 2e-2."""
+    int8 = pages == "int8"
+    targs, tkw, _, _, live = _split_case(dtype, int8)
+    got = tpa.paged_decode_attention_split(*targs, splits, **tkw)
+    assert got.dtype == getattr(torch, dtype)
+    xla, kernel = _jax_split_want(dtype, int8)
+    tol = (2e-5 if dtype == "float32" else 2e-2) if int8 else TOL[dtype]
+    _close(got, xla, tol, live)
+    _close(got, kernel, tol, slice(None))
+    assert not _as_np(got)[~live].any()
+
+
+@pytest.mark.parametrize("splits", [2, 4, 8])
+def test_split_schedule_matches_one_split_and_reference(splits):
+    """In fp32 the split merge is exact up to summation order: every
+    split count agrees with one split and with the gather reference,
+    and stale table entries past the live pages change nothing."""
+    targs, _, _, _, live = _split_case("float32", False)
+    one = tpa.paged_decode_attention_split(*targs, 1)
+    got = tpa.paged_decode_attention_split(*targs, splits)
+    np.testing.assert_allclose(got.numpy(), one.numpy(), atol=1e-6,
+                               rtol=1e-6)
+    ref = tpa.paged_decode_attention_reference(*targs)
+    _close(got, ref, 1e-6, live)
+    poisoned = targs[3].clone()
+    for b, n in enumerate(SPLIT_LENGTHS):
+        poisoned[b, -(-n // 8):] = -1
+    again = tpa.paged_decode_attention_split(
+        *targs[:3], poisoned, targs[4], splits)
+    np.testing.assert_array_equal(again.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("max_blocks,splits", [
+    (1, 1), (2, 1), (3, 2), (4, 2), (6, 4), (8, 4), (9, 8), (64, 8)])
+def test_paged_splits_leaves_two_pages_a_block(max_blocks, splits):
+    """The kernel's cluster size: a power of two at most 8, two pages a
+    block where that fits (4 at the served 512 keys over pages of 64)."""
+    assert tpa.paged_splits(max_blocks) == splits
+    assert -(-max_blocks // splits) <= 2 or splits == tpa.MAX_SPLITS

@@ -45,3 +45,17 @@ def test_plant_faults_refuses_a_missing_anchor(monkeypatch):
                         ((kernel, anchor + " /* gone */", fault, outs),))
     with pytest.raises(chip_smoke.SmokeFailure, match="not once"):
         chip_smoke.plant_faults("fused_norm")
+
+
+@pytest.mark.parametrize("index", range(len(chip_smoke.DECODE_FAULTS)))
+def test_one_fault_build_plants_only_its_fault(index):
+    """check_kernels reads each decode fault from a build of its own:
+    plant_faults(name, only=i) changes that anchor and no other."""
+    text = (_build.CSRC / "decode_attention.cu").read_text()
+    planted = chip_smoke.plant_faults("decode_attention", only=index)
+    for i, (_, anchor, fault, _) in enumerate(chip_smoke.DECODE_FAULTS):
+        assert (anchor in planted) == (i != index)
+        assert (fault in planted) == (i == index)
+    assert len(planted) - len(text) == (
+        len(chip_smoke.DECODE_FAULTS[index][2]) -
+        len(chip_smoke.DECODE_FAULTS[index][1]))

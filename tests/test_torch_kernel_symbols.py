@@ -11,7 +11,7 @@ import pytest
 
 import chip_smoke
 from batch_shipyard_tpu_torch.ops import _build
-from batch_shipyard_tpu_torch.trace import train_profile
+from batch_shipyard_tpu_torch.trace import decode_profile, train_profile
 
 # Profile rows that are passes of a kernel of chip_smoke.KERNELS rather
 # than a kernel of their own: the source they come from.
@@ -88,3 +88,30 @@ def test_ptxas_report_reads_registers_smem_and_spills():
                                        "spill_loads": 12},
         "tf32_round_kernel": {"registers": 20, "smem": 16},
     }
+
+
+@pytest.mark.parametrize("kv_cache", sorted(decode_profile.ATTENTION_KERNEL))
+def test_decode_profile_attention_kernel_names_a_kernel(kv_cache):
+    """trace/decode_profile.py's attention share reads the kernel named
+    here; it must be a ``__global__`` function of decode_attention.cu, so
+    a rename cannot leave that share reading 0."""
+    names = global_names(chip_smoke.DECODE_SOURCE)
+    symbol = decode_profile.ATTENTION_KERNEL[kv_cache]
+    assert any(name.startswith(symbol) for name in names), (symbol, names)
+
+
+@pytest.mark.parametrize("mangled,short", [
+    ("_ZN12_GLOBAL__N_127paged_decode_cluster_kernelI13__nv_bfloat16aLi64E"
+     "EEv14CUtensorMap_stS1_NS_9PagedArgsE",
+     "paged_decode_cluster_kernel<bf16, int8, 64>"),
+    ("_ZN12_GLOBAL__N_127paged_decode_cluster_kernelI13__nv_bfloat16S1_Li6"
+     "4EEEv14CUtensorMap_stS2_NS_9PagedArgsE",
+     "paged_decode_cluster_kernel<bf16, bf16, 64>"),
+    ("_ZN12_GLOBAL__N_127paged_decode_cluster_kernelIffLi128EEEv14CUtensor"
+     "Map_stS1_NS_9PagedArgsE",
+     "paged_decode_cluster_kernel<fp32, fp32, 128>"),
+    ("_ZN12_GLOBAL__N_119dense_decode_kernelIfLi64EEEvPKT_PKaS5_PKfS7_PKiPS1_"
+     "iif", "dense_decode_kernel"),
+])
+def test_paged_kernel_name(mangled, short):
+    assert chip_smoke.paged_kernel_name(mangled) == short

@@ -123,3 +123,123 @@ def test_shared_prefix_hits_identical(params):
     assert teng.prefix_stats() == jeng.prefix_stats()
     _check_page_partition(teng)
 
+
+
+# The CUDA graph's preconditions, checked on the CPU: the captured decode
+# step reads and writes fixed addresses, so no engine state may be rebound
+# between steps, and page growth reads the host mirror of the positions.
+
+
+def _state_addresses(engine) -> dict:
+    tensors = {"tokens": engine._tokens, "positions": engine._positions,
+               "active": engine._active}
+    for i, layer in enumerate(engine.cache):
+        for key, t in layer.items():
+            tensors[f"{i}.{key}"] = t
+    return {name: t.data_ptr() for name, t in tensors.items()}
+
+
+def _run_watched(engine, schedule, max_steps=600):
+    """_run, asserting after every step that no state tensor moved and
+    that the host mirror of the positions equals the device positions."""
+    addresses = _state_addresses(engine)
+    results = {}
+    pending = sorted(schedule, key=lambda s: s[0])
+    for step in range(max_steps):
+        while pending and pending[0][0] <= step:
+            _, rid, prompt, max_new = pending.pop(0)
+            engine.submit(tserving.Request(rid, list(prompt), max_new))
+        for rid, toks in engine.step():
+            results[rid] = [int(t) for t in toks]
+        assert _state_addresses(engine) == addresses
+        assert engine._positions_host == engine._positions.tolist()
+        if not pending and not engine.pending():
+            break
+    assert not engine.pending(), "engine failed to drain"
+    return results
+
+
+def _prefix_schedule():
+    rng = np.random.RandomState(0)
+    base = list(rng.randint(0, 97, (24,)))
+    schedule = [(0, "pilot", base, 5)]
+    for i in range(3):
+        suffix = list(rng.randint(0, 97, (3 + 2 * i,)))
+        schedule.append((8 + i, f"fan{i}", base + suffix, 4 + i))
+    return schedule
+
+
+WATCHED = {
+    # admission and finish, dense cache
+    "dense": (dict(num_slots=2, max_decode_len=64), None,
+              lambda: _random_schedule(0, 5, [3, 9, 4, 17, 6],
+                                       [4, 6, 5, 3, 7])),
+    # paged-int8 overcommit: preemption and re-prefill
+    "paged_int8_overcommit": (
+        dict(num_slots=2, max_decode_len=32, kv_page_size=8,
+             kv_num_pages=5, overcommit=True), "int8",
+        lambda: _random_schedule(5, 4, [6] * 4, [18] * 4, gap=0)),
+    # prefix hits: shared-prefix prefill into pinned pages
+    "prefix_hits": (dict(num_slots=2, max_decode_len=64, kv_page_size=8),
+                    None, _prefix_schedule),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WATCHED))
+def test_state_stays_in_place_and_mirror_tracks_positions(params, case):
+    kwargs, kv_dtype, schedule = WATCHED[case]
+    tcfg = dataclasses.replace(TCFG, kv_cache_dtype=kv_dtype)
+    engine = tserving.ContinuousBatcher(tcfg, params[1], device="cpu",
+                                        **kwargs)
+    results = _run_watched(engine, schedule())
+    assert len(results) == len(schedule())
+    if case == "paged_int8_overcommit":
+        assert engine.preemptions > 0
+    if case == "prefix_hits":
+        assert engine.prefix_hit_pages > 0
+    assert engine._graph is None        # the CPU engine steps eagerly
+
+
+def test_capture_decode_raises_on_cpu(params):
+    engine = tserving.ContinuousBatcher(TCFG, params[1], num_slots=2,
+                                        max_decode_len=64, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.capture_decode()
+    assert engine._graph is None
+
+
+class _EagerGraph:
+    """Stands in for the captured graph on the CPU: each replay runs the
+    step eagerly into one fixed output tensor, as a replay writes the
+    captured one, and is counted."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.tokens = torch.zeros((engine.num_slots,), dtype=torch.int32)
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+        self.tokens.copy_(
+            tserving.ContinuousBatcher._eager_decode(self.engine))
+
+
+def test_replayed_steps_stream_like_eager_and_count_launches(params):
+    """step() through the replay path (fixed output tensor) streams the
+    same greedy tokens as the eager engine, launching the graph exactly
+    once per decode step and stepping eagerly never."""
+    schedule = _random_schedule(1, 5, [3, 9, 4, 17, 6], [4, 6, 5, 3, 7])
+    kwargs = dict(num_slots=3, max_decode_len=64, kv_page_size=8)
+    eager = tserving.ContinuousBatcher(TCFG, params[1], device="cpu",
+                                       **kwargs)
+    want = _run(eager, tserving.Request, schedule)
+    replayed = tserving.ContinuousBatcher(TCFG, params[1], device="cpu",
+                                          **kwargs)
+    graph = _EagerGraph(replayed)
+    replayed._graph, replayed._graph_tokens = graph, graph.tokens
+    eager_steps = []   # step() must not step eagerly once captured
+    replayed._eager_decode = lambda: eager_steps.append(1)
+    assert _run_watched(replayed, schedule) == want
+    assert replayed.decode_steps == eager.decode_steps > 0
+    assert graph.replays == replayed.decode_steps
+    assert not eager_steps

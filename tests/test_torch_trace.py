@@ -1,12 +1,14 @@
 """The port's trace utilities on the CPU: its own copy of the latency
 histogram against the reference's (same edges, percentiles, wire shape
-and Prometheus lines on the same samples), and the interval union the
-decode profile uses for device busy time."""
+and Prometheus lines on the same samples), the interval union the
+decode profile uses for device busy time, and the card-only measuring
+scripts refusing a machine without a card."""
 
 import numpy as np
 import pytest
 
 from batch_shipyard_tpu.trace import histogram as jhist
+from batch_shipyard_tpu_torch.trace import decode_sweep, serve_compare
 from batch_shipyard_tpu_torch.trace import histogram as thist
 from batch_shipyard_tpu_torch.trace.decode_profile import busy_us
 
@@ -31,3 +33,12 @@ def test_busy_us_is_the_union_of_intervals():
     assert busy_us([(0.0, 2.0), (1.0, 3.0), (5.0, 6.0),
                     (5.5, 5.7)]) == pytest.approx(4.0)
     assert busy_us([(4.0, 5.0), (0.0, 1.0)]) == pytest.approx(2.0)
+
+
+@pytest.mark.parametrize("script, argv", [(decode_sweep, []),
+                                          (serve_compare, ["."])])
+def test_card_only_scripts_refuse_without_cuda(monkeypatch, capsys,
+                                               script, argv):
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    assert script.main(argv) == 1
+    assert "no CUDA device" in capsys.readouterr().err
