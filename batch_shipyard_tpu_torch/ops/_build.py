@@ -44,7 +44,8 @@ SIGNATURES = {
             [_int] + [_vp] * 8 + [_int] * 9 + [_float, _vp], _int),
         "bs_paged_decode_plan": ([_int] * 5 + [_intp], _int),
         "bs_dense_decode_attention_int8": (
-            [_int] + [_vp] * 7 + [_int] * 5 + [_float, _vp], _int),
+            [_int] + [_vp] * 7 + [_int] * 7 + [_float, _vp], _int),
+        "bs_dense_decode_plan": ([_int] * 4 + [_intp], _int),
         "bs_error_string": ([_int], ctypes.c_char_p),
     },
     "flash_attention": {
@@ -158,11 +159,13 @@ def build(name: str, force: bool = False) -> tuple[pathlib.Path, float]:
 
 def load(path: pathlib.Path, name: str) -> ctypes.CDLL:
     """Load a library built from ``csrc/<name>.cu`` (or a copy of it)
-    with argtypes/restype declared for every entry point."""
+    with argtypes/restype declared for every entry point it exports (an
+    older build may lack a newer one; calling that raises)."""
     lib = ctypes.CDLL(str(path))
     for fn, (argtypes, restype) in SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
     return lib
 
 

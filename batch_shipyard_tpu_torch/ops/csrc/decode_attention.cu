@@ -4,9 +4,10 @@
 //   K6 ops/paged_attention.py:_paged_decode_kernel       (paged, fp32/bf16)
 //   K7 ops/paged_attention.py:_paged_decode_kernel_int8  (paged, int8 + scales)
 //   K8 ops/decode_attention.py:_dense_decode_kernel_int8 (dense, int8 + scales)
-// K6 and K7 are one split-sequence cluster kernel
-// (paged_decode_cluster_kernel), K8 a one-block-per-(slot, head) kernel
-// (dense_decode_kernel).
+// All three are one split-sequence cluster design (decode_cluster), entered
+// through two kernels: paged_decode_cluster_kernel (K6, K7) over the paged
+// pool and dense_decode_cluster_kernel (K8) over the dense cache. They
+// differ only in how a run of rows is addressed (the kDense branches).
 //
 // What bounds them: device-memory bytes. One query row meets every live
 // cached row once, so the work is ~4*D flops per 2*D*elt bytes read.
@@ -15,24 +16,35 @@
 // or 8.9 MB (int8) per layer-step: about 5.0 us and 2.7 us at 3.35 TB/s.
 // The serving step launches the kernel of its cache once per layer.
 //
-// The paged cluster kernel (K6, K7). At the served shape a one-block-per-
-// (slot, head) design has 128 blocks, one per SM, each keeping a few rows
-// in flight and looking up the block table before every row: the card
-// waits on latency, not bandwidth. Here:
-//   1. Each (slot, head) is split over a thread-block cluster of S blocks
-//      (S = 4 at max_blocks 8: two pages a block, 512 blocks in all). The
-//      slot's live pages are cut into S contiguous runs of ceil(pages / S);
-//      a block whose run is empty contributes (m = -inf, l = 0, acc = 0).
-//   2. A block reads its run's block-table entries once (one lane per
-//      page), then one thread issues every page's K and V tiles at once as
-//      4-D TMA boxes {D, rows, 1, 1} over the [P, page, H, D] pool
-//      (coordinate 3 is the page id), each completing on its stage's
-//      mbarrier. Where the run's tiles do not all fit in shared memory
-//      (fp32 pages, D 128/256, long runs) they stream through a ring of
-//      stages, each refilled as soon as the block has read it. The int8
-//      scales are 4 bytes a row at a stride of H*4, below TMA's 16-byte
-//      minimum: the block's threads load them once per (row, head) into
-//      shared memory while the tiles fly.
+// At the served shape a one-block-per-(slot, head) design has 128 blocks,
+// one per SM, each keeping a few rows in flight (and, paged, looking up
+// the block table before every row): the card waits on latency, not
+// bandwidth. Here:
+//   1. Each (slot, head) is split over a thread-block cluster of S blocks,
+//      two units a block at the cache's full length: a unit is a page of
+//      the paged pool (S = 4 at 512 keys in pages of 64, 512 blocks), or a
+//      box of tile_rows rows of the dense cache (S = 2 at 512 keys in
+//      units of 128, 256 blocks). The slot's live units are cut into S
+//      contiguous runs of ceil(units / S); a block whose run is empty
+//      contributes (m = -inf, l = 0, acc = 0).
+//   2. Paged, a block reads its run's block-table entries once (one lane
+//      per page); dense, a run is rows [p0 * tile_rows, ...) of the slot
+//      and needs no table, so the chain before the first load is length ->
+//      TMA, and rank 0's run starts at row 0 whatever the length, so its
+//      first K and V boxes are issued before the length has arrived (each
+//      took 0.2-0.45 us off every length, trace/decode_sweep.py on one
+//      H100). Then one thread issues every unit's K and V tiles at once as
+//      4-D TMA boxes {D, rows, 1, 1}: over the [P, page, H, D] pool
+//      (coordinate 3 the page id) or over the [B, L, H, D] cache
+//      (coordinate 1 the row, coordinate 3 the slot), each completing on
+//      its stage's mbarrier. Where a run's tiles all fit in shared memory
+//      K tile i has stage i and V tile i a stage at a fixed offset past
+//      the K tiles; where they do not (fp32 pages, D 128/256, long runs)
+//      they stream through a ring of stages, each refilled as soon as the
+//      block has read it. Boxes reaching past L read zeros and those rows
+//      are never used. The int8 scales are 4 bytes a row at a stride of
+//      H*4, below TMA's 16-byte minimum: the block's threads load them once
+//      per (row, head) into shared memory while the tiles fly.
 //   3. Compute stays on CUDA cores, from shared memory: one query row per
 //      (slot, head) leaves no tensor-core shape to fill (wgmma's M is at
 //      least 64, so 63 of 64 rows would be padding). q.k: D/8 lanes a row,
@@ -52,20 +64,17 @@
 //      instead needs a second barrier, to keep the others' alive, and
 //      measured 0.7-1.0 us slower.) The result is deterministic, with no
 //      workspace and no second launch. A slot of at most kSoloPages live
-//      pages is rank 0's alone: the other ranks leave at once and rank 0
+//      units is rank 0's alone: the other ranks leave at once and rank 0
 //      writes the output with no barrier and no merge (the same numbers:
 //      the merge of one non-empty run is that run).
-// Numerics follow the TPU kernel: fp32 scores and sums; for bf16 pages p
-// is rounded to bf16 before P.V; for int8 pages K and V are dequantized to
+// Numerics follow the TPU kernels: fp32 scores and sums; for bf16 pages p
+// is rounded to bf16 before P.V; for int8 rows K and V are dequantized to
 // fp32 (the scale applied to the dot and to p). Rows t >= length are never
 // used, table entries past the slot's live pages are never read, and a
 // length-0 slot writes zeros. One launch, on the caller's stream; no
-// allocation and no synchronisation, so a CUDA graph can capture it.
-//
-// The dense kernel (K8) walks the slot's rows in one block per (slot,
-// head): D/8 lanes a row, the block's lane groups taking rows round-robin,
-// two in flight each, with a running max, denominator and fp32 output
-// slice per group, merged through shared memory at the end.
+// allocation and no synchronisation, so a CUDA graph can capture it (the
+// tensor maps are built from the cache's own pointers, which the serving
+// engine never moves, and baked into the graph at capture).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -81,65 +90,18 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kThreads = 256;  // threads per (slot, head) block (K8)
 constexpr int kVec = 8;        // row elements per lane
-constexpr int kUnroll = 2;     // rows per group in flight (K8)
-constexpr float kNegInf = -1e30f;
-
-// The paged cluster kernel (K6, K7).
 constexpr int kPagedThreads = 128;
 constexpr int kPagedWarps = kPagedThreads / 32;
 constexpr int kMaxSplits = 8;    // the portable cluster size
-constexpr int kSoloPages = 1;    // a slot this short is rank 0's alone
+constexpr int kSoloPages = 1;    // a slot of this many units is rank 0's alone
 constexpr int kMaxStages = 8;    // mbarriers of the tile ring
 constexpr int kTileRows = 64;    // rows of one page in one TMA box, at most
+constexpr int kMaxBoxRows = 256; // TMA's largest box dimension
 constexpr int kStageBudget = 128 * 1024;  // shared memory of the ring
 constexpr int kSmemLimit = 232448;        // a block's, on an H100
 
 enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
-
-template <typename T>
-struct Load;
-
-template <>
-struct Load<float> {
-  static __device__ __forceinline__ void row(const float* p, float* out) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-  }
-};
-
-template <>
-struct Load<__nv_bfloat16> {
-  static __device__ __forceinline__ void row(const __nv_bfloat16* p,
-                                             float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      __nv_bfloat162 pair;
-      memcpy(&pair, &words[i], sizeof(pair));
-      const float2 f = __bfloat1622float2(pair);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
-template <>
-struct Load<int8_t> {
-  static __device__ __forceinline__ void row(const int8_t* p, float* out) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const uint32_t words[2] = {raw.x, raw.y};
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) {
-      const uint32_t byte = (words[i / 4] >> (8 * (i % 4))) & 0xffu;
-      out[i] = static_cast<float>(static_cast<int8_t>(byte));
-    }
-  }
-};
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
@@ -198,33 +160,35 @@ __device__ __forceinline__ float block_reduce(float x, float* s_warp) {
   return r;
 }
 
-// ------------------------- K6, K7: paged cluster -------------------------
+// --------------------- K6, K7, K8: the split cluster ---------------------
 
-struct PagedArgs {
+struct ClusterArgs {
   const void* q;           // [B, 1, H, D]
-  const float* k_scale;    // [P, page, H] (int8 pages)
+  const float* k_scale;    // int8: [P, page, H] (paged) or [B, L, H] (dense)
   const float* v_scale;
-  const int* table;        // [B, max_blocks]
+  const int* table;        // paged: [B, max_blocks]; dense: unused
   const int* lengths;      // [B]
   void* out;               // [B, 1, H, D]
   int heads;
-  int page;
-  int max_blocks;
+  int page;                // rows of a unit: a page, or a dense box
+  int max_blocks;          // units a slot holds
+  int cap;                 // rows a slot holds: max_blocks * page, or L
   int tile_rows;           // rows of a TMA box (<= page)
   int stages;              // ring stages
   int stage_stride;        // bytes between stages
   float scale;
 };
 
-// The split plan shared by the launch and paged_decode_plan.
+// The split plan shared by the launches and the *_decode_plan entry
+// points: a TMA box is at most box_cap rows of a unit of `page` rows.
 struct Plan {
   int tile_rows, stages, stage_stride, smem;
 };
 
 Plan plan_for(int depth, int elt, int page, int max_blocks, int splits,
-              bool int8) {
+              bool int8, int box_cap) {
   Plan p;
-  p.tile_rows = page < kTileRows ? page : kTileRows;
+  p.tile_rows = page < box_cap ? page : box_cap;
   const int tiles_per_page = (page + p.tile_rows - 1) / p.tile_rows;
   const int max_pages = (max_blocks + splits - 1) / splits;
   p.stage_stride = (p.tile_rows * depth * elt + 127) / 128 * 128;
@@ -238,13 +202,16 @@ Plan plan_for(int depth, int elt, int page, int max_blocks, int splits,
   return p;
 }
 
-// Grid: B * H * S blocks in clusters of S (blockIdx.x = (b * H + h) * S +
-// rank). Dynamic shared memory: the tile ring (1024-aligned), then the
-// run's scores / probabilities, int8 K and V scales, and page ids.
-template <typename TQ, typename TKV, int D>
-__global__ void __launch_bounds__(kPagedThreads) paged_decode_cluster_kernel(
-    const __grid_constant__ CUtensorMap k_map,
-    const __grid_constant__ CUtensorMap v_map, const PagedArgs a) {
+// One block of the cluster of its (slot, head), paged (kDense false: units
+// are pages found through the block table) or dense (units are boxes of
+// rows of the slot's own [L, H, D] rows). Grid: B * H * S blocks in
+// clusters of S (blockIdx.x = (b * H + h) * S + rank). Dynamic shared
+// memory: the tile ring (1024-aligned), then the run's scores /
+// probabilities, int8 K and V scales, and page ids.
+template <typename TQ, typename TKV, int D, bool kDense>
+__device__ __forceinline__ void decode_cluster(const CUtensorMap* k_map,
+                                               const CUtensorMap* v_map,
+                                               const ClusterArgs& a) {
   constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
   constexpr bool kRoundP = std::is_same<TKV, __nv_bfloat16>::value;
   constexpr int kElt = sizeof(TKV);
@@ -279,62 +246,95 @@ __global__ void __launch_bounds__(kPagedThreads) paged_decode_cluster_kernel(
   const int warp = tid / 32;
   const int lane = tid % 32;
 
-  // This block's run: pages [p0, p1) of the slot's live ones, rows
-  // [0, rows) of the run. A slot of at most kSoloPages live pages is rank
-  // 0's alone (solo, the same for every rank of the cluster): the others
-  // leave at once, and rank 0 writes its output with no cluster barrier
-  // and no merge.
-  const int page = a.page;
-  const int len = min(max(a.lengths[b], 0), a.max_blocks * page);
-  const int np = (len + page - 1) / page;
+  // Where the ring holds every tile of any run (whole), K tile i has stage
+  // i and V tile i stage v_base + i, each stage used once; otherwise the
+  // tiles stream through the ring in issue order. Dense, rank 0's run
+  // starts at row 0 of the slot whatever its length: with a whole ring its
+  // first K and V boxes are on their way before the length is.
+  unsigned char* ring = hopper::align_1024(smem_raw);
   const int max_pages = (a.max_blocks + splits - 1) / splits;
-  const bool solo = np <= min(kSoloPages, max_pages);
+  const int tiles_per_page = (a.page + a.tile_rows - 1) / a.tile_rows;
+  const int v_base = max_pages * tiles_per_page;
+  const bool whole = a.stages >= 2 * v_base;
+  const bool early = kDense && rank == 0 && whole;
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) hopper::mbar_init(&bars[s], 1);
+    hopper::fence_barrier_init();
+    if (early) {
+      hopper::mbar_expect_tx(&bars[0], a.tile_rows * D * kElt);
+      hopper::tma_load_4d(ring, k_map, &bars[0], 0, 0, h, b);
+      hopper::mbar_expect_tx(&bars[v_base], a.tile_rows * D * kElt);
+      hopper::tma_load_4d(ring + v_base * a.stage_stride, v_map,
+                          &bars[v_base], 0, 0, h, b);
+    }
+  }
+
+  // This block's run: units [p0, p1) of the slot's live ones, rows
+  // [0, rows) of the run. A slot of at most kSoloPages live units, or any
+  // slot of a one-block cluster, is rank 0's alone (solo, the same for
+  // every rank of the cluster): the others leave at once, and rank 0
+  // writes its output with no cluster barrier and no merge.
+  const int page = a.page;
+  const int len = min(max(a.lengths[b], 0), a.cap);
+  const int np = (len + page - 1) / page;
+  const bool solo = splits == 1 || np <= min(kSoloPages, max_pages);
   if (solo && rank != 0) return;
   const int per = solo ? np : (np + splits - 1) / splits;
   const int p0 = min(np, rank * per);
   const int p1 = min(np, p0 + per);
   const int rows = max(0, min(len, p1 * page) - p0 * page);
-  const int tiles_per_page = (page + a.tile_rows - 1) / a.tile_rows;
   const int k_tiles = (p1 - p0) * tiles_per_page;
   const int n_tiles = 2 * k_tiles;
 
-  unsigned char* ring = hopper::align_1024(smem_raw);
   float* s_p = reinterpret_cast<float*>(ring + a.stages * a.stage_stride);
   float* s_ks = s_p + max_pages * page;
   float* s_vs = s_ks + max_pages * page;
   int* s_pid = reinterpret_cast<int*>(s_p + (kInt8 ? 3 : 1) * max_pages * page);
 
-  if (warp == 0) {
+  if (!kDense && warp == 0) {
     for (int i = lane; i < p1 - p0; i += 32)
       s_pid[i] = a.table[static_cast<size_t>(b) * a.max_blocks + p0 + i];
-  }
-  if (tid == 0) {
-    for (int s = 0; s < a.stages; ++s) hopper::mbar_init(&bars[s], 1);
-    hopper::fence_barrier_init();
   }
   __syncthreads();
   // Half of the barrier that must precede any access to another rank's
   // shared memory; the wait comes just before the push.
   if (!solo) hopper::cluster_arrive_relaxed();
 
-  // Tile j < k_tiles is K, then V, in (page, row block) order.
+  // Tile j < k_tiles is K, then V, in (unit, row block) order: its stage
+  // and the parity of its phase there.
+  auto stage_of = [&](int j) {
+    return whole ? (j < k_tiles ? j : v_base + j - k_tiles) : j % a.stages;
+  };
+  auto phase_of = [&](int j) {
+    return whole ? 0u : static_cast<uint32_t>(j / a.stages) & 1u;
+  };
+  // Paged: rows of page s_pid[unit]; dense: rows of slot b from the run's
+  // first row.
   auto issue = [&](int j) {
-    const int stage = j % a.stages;
+    const int stage = stage_of(j);
     const int idx = j < k_tiles ? j : j - k_tiles;
+    const int unit = idx / tiles_per_page;
     const int row0 = (idx % tiles_per_page) * a.tile_rows;
     hopper::mbar_expect_tx(&bars[stage], a.tile_rows * D * kElt);
     hopper::tma_load_4d(ring + stage * a.stage_stride,
-                        j < k_tiles ? &k_map : &v_map, &bars[stage], 0, row0,
-                        h, s_pid[idx / tiles_per_page]);
+                        j < k_tiles ? k_map : v_map, &bars[stage], 0,
+                        kDense ? (p0 + unit) * page + row0 : row0, h,
+                        kDense ? b : s_pid[unit]);
   };
   if (tid == 0) {
-    for (int j = 0; j < min(a.stages, n_tiles); ++j) issue(j);
+    for (int j = 0; j < min(a.stages, n_tiles); ++j)
+      if (!early || (j != 0 && j != k_tiles)) issue(j);
+    if (early && n_tiles == 0) {  // the slot is empty: let them land
+      hopper::mbar_wait(&bars[0], 0);
+      hopper::mbar_wait(&bars[v_base], 0);
+    }
   }
   if constexpr (kInt8) {
     for (int r = tid; r < rows; r += kPagedThreads) {
-      const size_t at =
-          (static_cast<size_t>(s_pid[r / page]) * page + r % page) * a.heads +
-          h;
+      const size_t row =
+          kDense ? static_cast<size_t>(b) * a.cap + p0 * page + r
+                 : static_cast<size_t>(s_pid[r / page]) * page + r % page;
+      const size_t at = row * a.heads + h;
       s_ks[r] = a.k_scale[at];
       s_vs[r] = a.v_scale[at];
     }
@@ -360,8 +360,8 @@ __global__ void __launch_bounds__(kPagedThreads) paged_decode_cluster_kernel(
   // Scores. The trip count is the same for every lane of a warp (the
   // shuffles need all 32); rows past the tile's count are masked.
   for (int j = 0; j < k_tiles; ++j) {
-    const int stage = j % a.stages;
-    hopper::mbar_wait(&bars[stage], (j / a.stages) & 1);
+    const int stage = stage_of(j);
+    hopper::mbar_wait(&bars[stage], phase_of(j));
     const TKV* tile =
         reinterpret_cast<const TKV*>(ring + stage * a.stage_stride);
     int r0;
@@ -419,8 +419,8 @@ __global__ void __launch_bounds__(kPagedThreads) paged_decode_cluster_kernel(
 #pragma unroll
   for (int e = 0; e < kDims; ++e) acc[e] = 0.f;
   for (int j = k_tiles; j < n_tiles; ++j) {
-    const int stage = j % a.stages;
-    hopper::mbar_wait(&bars[stage], (j / a.stages) & 1);
+    const int stage = stage_of(j);
+    hopper::mbar_wait(&bars[stage], phase_of(j));
     const TKV* tile =
         reinterpret_cast<const TKV*>(ring + stage * a.stage_stride);
     int r0;
@@ -492,26 +492,31 @@ __global__ void __launch_bounds__(kPagedThreads) paged_decode_cluster_kernel(
 }
 
 template <typename TQ, typename TKV, int D>
-cudaError_t launch_paged(const void* q, const void* k, const void* v,
-                         const void* k_scale, const void* v_scale,
-                         const void* table, const void* lengths, void* out,
-                         int batch, int heads, int page, int max_blocks,
-                         int num_pages, int splits, float scale,
-                         cudaStream_t stream) {
-  constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
-  const Plan plan =
-      plan_for(D, sizeof(TKV), page, max_blocks, splits, kInt8);
+__global__ void __launch_bounds__(kPagedThreads) paged_decode_cluster_kernel(
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const ClusterArgs a) {
+  decode_cluster<TQ, TKV, D, false>(&k_map, &v_map, a);
+}
+
+template <typename TQ, int D>
+__global__ void __launch_bounds__(kPagedThreads) dense_decode_cluster_kernel(
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const ClusterArgs a) {
+  decode_cluster<TQ, int8_t, D, true>(&k_map, &v_map, a);
+}
+
+// Encodes the K and V maps (4-D, unswizzled boxes {D, tile_rows, 1, 1}),
+// raises the kernel's dynamic shared memory where the plan needs it and
+// launches B * H * splits blocks in clusters of `splits`.
+template <typename Kernel>
+cudaError_t launch_cluster(Kernel* kernel, const void* k, const void* v,
+                           CUtensorMapDataType type,
+                           const long long (&dims)[4],
+                           const long long (&strides)[3], const Plan& plan,
+                           int* smem_allowed, const ClusterArgs& args,
+                           int batch, int splits, cudaStream_t stream) {
   if (plan.smem > kSmemLimit) return cudaErrorInvalidValue;
-  const CUtensorMapDataType type =
-      kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-            : (std::is_same<TKV, float>::value
-                   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
-  const long long elt = sizeof(TKV);
-  const long long dims[4] = {D, page, heads, num_pages};
-  const long long strides[3] = {heads * D * elt, D * elt,
-                                static_cast<long long>(page) * heads * D * elt};
-  const int box[4] = {D, plan.tile_rows, 1, 1};
+  const int box[4] = {static_cast<int>(dims[0]), plan.tile_rows, 1, 1};
   CUtensorMap k_map, v_map;
   cudaError_t err = hopper::tensor_map_4d(&k_map, k, type, dims, strides, box,
                                           CU_TENSOR_MAP_SWIZZLE_NONE);
@@ -519,24 +524,19 @@ cudaError_t launch_paged(const void* q, const void* k, const void* v,
   err = hopper::tensor_map_4d(&v_map, v, type, dims, strides, box,
                               CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != cudaSuccess) return err;
-
-  auto* kernel = paged_decode_cluster_kernel<TQ, TKV, D>;
   // Raised once, outside any graph capture (the first launch is eager).
-  static int smem_allowed = 48 * 1024;
-  if (plan.smem > smem_allowed) {
+  if (plan.smem > *smem_allowed) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
     if (err != cudaSuccess) return err;
-    smem_allowed = plan.smem;
+    *smem_allowed = plan.smem;
   }
-  PagedArgs args{q,     static_cast<const float*>(k_scale),
-                 static_cast<const float*>(v_scale),
-                 static_cast<const int*>(table),
-                 static_cast<const int*>(lengths),
-                 out,   heads, page, max_blocks, plan.tile_rows,
-                 plan.stages, plan.stage_stride, scale};
+  ClusterArgs a = args;
+  a.tile_rows = plan.tile_rows;
+  a.stages = plan.stages;
+  a.stage_stride = plan.stage_stride;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(batch * heads * splits);
+  config.gridDim = dim3(batch * a.heads * splits);
   config.blockDim = dim3(kPagedThreads);
   config.dynamicSmemBytes = plan.smem;
   config.stream = stream;
@@ -547,11 +547,41 @@ cudaError_t launch_paged(const void* q, const void* k, const void* v,
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  void* params[] = {&k_map, &v_map, &args};
+  void* params[] = {&k_map, &v_map, &a};
   err = cudaLaunchKernelExC(&config, reinterpret_cast<const void*>(kernel),
                             params);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV, int D>
+cudaError_t launch_paged(const void* q, const void* k, const void* v,
+                         const void* k_scale, const void* v_scale,
+                         const void* table, const void* lengths, void* out,
+                         int batch, int heads, int page, int max_blocks,
+                         int num_pages, int splits, float scale,
+                         cudaStream_t stream) {
+  constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
+  const CUtensorMapDataType type =
+      kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+            : (std::is_same<TKV, float>::value
+                   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+  const long long elt = sizeof(TKV);
+  const long long dims[4] = {D, page, heads, num_pages};
+  const long long strides[3] = {heads * D * elt, D * elt,
+                                static_cast<long long>(page) * heads * D * elt};
+  static int smem_allowed = 48 * 1024;
+  const ClusterArgs args{q,       static_cast<const float*>(k_scale),
+                         static_cast<const float*>(v_scale),
+                         static_cast<const int*>(table),
+                         static_cast<const int*>(lengths),
+                         out,     heads, page, max_blocks, max_blocks * page,
+                         0,       0,     0,    scale};
+  return launch_cluster(
+      paged_decode_cluster_kernel<TQ, TKV, D>, k, v, type, dims, strides,
+      plan_for(D, sizeof(TKV), page, max_blocks, splits, kInt8, kTileRows),
+      &smem_allowed, args, batch, splits, stream);
 }
 
 template <typename TQ, typename TKV>
@@ -575,152 +605,58 @@ cudaError_t paged_depth(int depth, const void* q, const void* k,
 #undef BS_PAGED
 }
 
-// ---------------------------- K8: dense int8 -----------------------------
-
-// q [B, 1, H, D]; out [B, 1, H, D]; lengths [B]; k/v [B, rows, H, D] int8,
-// scales [B, rows, H].
+// K8: the dense int8 cache [B, L, H, D] (k, v) with [B, L, H] scales, in
+// units of tile_rows rows, each one TMA box: a box at (0, row, h, b).
 template <typename TQ, int D>
-__global__ void __launch_bounds__(kThreads) dense_decode_kernel(
-    const TQ* __restrict__ q, const int8_t* __restrict__ k,
-    const int8_t* __restrict__ v, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ lengths,
-    TQ* __restrict__ out, int heads, int rows, float scale) {
-  constexpr int kLanes = D / kVec;            // lanes per cached row
-  constexpr int kGroups = kThreads / kLanes;  // rows in flight per pass
-  static_assert(D % kVec == 0 && kLanes <= 32 && (kLanes & (kLanes - 1)) == 0,
-                "D must be 8 times a power of two, at most 256");
-  __shared__ float s_m[kGroups];
-  __shared__ float s_l[kGroups];
-  __shared__ float s_acc[kGroups * D];
-
-  const int b = blockIdx.x / heads;
-  const int h = blockIdx.x % heads;
-  const int tid = threadIdx.x;
-  const int group = tid / kLanes;
-  const int lane = tid % kLanes;
-  const int n = min(max(lengths[b], 0), rows);
-  TQ* o = out + (static_cast<size_t>(b) * heads + h) * D;
-  if (n == 0) {
-    for (int d = tid; d < D; d += kThreads) store(o + d, 0.f);
-    return;
-  }
-
-  float qf[kVec];
-  Load<TQ>::row(q + (static_cast<size_t>(b) * heads + h) * D + lane * kVec,
-                qf);
-
-  float m = kNegInf;
-  float l = 0.f;
-  float acc[kVec];
-#pragma unroll
-  for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
-
-  // The trip count is the same for every thread (the shuffles below need
-  // all 32 lanes of each warp); rows past the length are masked per group.
-  for (int base = 0; base < n; base += kGroups * kUnroll) {
-    float kf[kUnroll][kVec];
-    float vf[kUnroll][kVec];
-    float s[kUnroll];
-    bool valid[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = base + group + u * kGroups;
-      valid[u] = t < n;
-      if (valid[u]) {
-        const size_t r = (static_cast<size_t>(b) * rows + t) * heads + h;
-        Load<int8_t>::row(k + r * D + lane * kVec, kf[u]);
-        Load<int8_t>::row(v + r * D + lane * kVec, vf[u]);
-        const float ks = k_scale[r];
-        const float vs = v_scale[r];
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          kf[u][e] *= ks;
-          vf[u][e] *= vs;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) kf[u][e] = vf[u][e] = 0.f;
-      }
-    }
-    float m_new = m;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float dot = 0.f;
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) dot += qf[e] * kf[u][e];
-      // Every lane shuffles; groups of one warp may differ in validity.
-#pragma unroll
-      for (int off = kLanes / 2; off > 0; off /= 2)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      s[u] = dot * scale;
-      if (valid[u]) m_new = fmaxf(m_new, s[u]);
-    }
-    const float corr = expf(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[e] *= corr;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (!valid[u]) continue;
-      const float p = expf(s[u] - m_new);
-      l += p;
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[e] += p * vf[u][e];
-    }
-    m = m_new;
-  }
-
-  if (lane == 0) {
-    s_m[group] = m;
-    s_l[group] = l;
-  }
-#pragma unroll
-  for (int e = 0; e < kVec; ++e) s_acc[group * D + lane * kVec + e] = acc[e];
-  __syncthreads();
-  for (int d = tid; d < D; d += kThreads) {
-    float big = kNegInf;
-    for (int g = 0; g < kGroups; ++g) big = fmaxf(big, s_m[g]);
-    float denom = 0.f;
-    float num = 0.f;
-    for (int g = 0; g < kGroups; ++g) {
-      const float w = expf(s_m[g] - big);
-      denom += s_l[g] * w;
-      num += s_acc[g * D + d] * w;
-    }
-    store(o + d, num / denom);
-  }
+cudaError_t launch_dense(const void* q, const void* k, const void* v,
+                         const void* k_scale, const void* v_scale,
+                         const void* lengths, void* out, int batch, int rows,
+                         int heads, int splits, int tile_rows, float scale,
+                         cudaStream_t stream) {
+  const int units = (rows + tile_rows - 1) / tile_rows;
+  const long long dims[4] = {D, rows, heads, batch};
+  const long long strides[3] = {static_cast<long long>(heads) * D, D,
+                                static_cast<long long>(rows) * heads * D};
+  static int smem_allowed = 48 * 1024;
+  const ClusterArgs args{q,   static_cast<const float*>(k_scale),
+                         static_cast<const float*>(v_scale),
+                         nullptr,
+                         static_cast<const int*>(lengths),
+                         out, heads, tile_rows, units, rows,
+                         0,   0,     0,         scale};
+  return launch_cluster(
+      dense_decode_cluster_kernel<TQ, D>, k, v, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      dims, strides,
+      plan_for(D, 1, tile_rows, units, splits, true, kMaxBoxRows),
+      &smem_allowed, args, batch, splits, stream);
 }
 
 template <typename TQ>
-cudaError_t launch_dense(int depth, const void* q, const void* k,
-                         const void* v, const void* k_scale,
-                         const void* v_scale, const void* lengths, void* out,
-                         int batch, int rows, int heads, float scale,
-                         cudaStream_t stream) {
-  const dim3 grid(batch * heads);
-  const auto* q_ = static_cast<const TQ*>(q);
-  const auto* k_ = static_cast<const int8_t*>(k);
-  const auto* v_ = static_cast<const int8_t*>(v);
-  const auto* ks = static_cast<const float*>(k_scale);
-  const auto* vs = static_cast<const float*>(v_scale);
-  const auto* len = static_cast<const int*>(lengths);
-  auto* o = static_cast<TQ*>(out);
+cudaError_t dense_depth(int depth, const void* q, const void* k,
+                        const void* v, const void* k_scale,
+                        const void* v_scale, const void* lengths, void* out,
+                        int batch, int rows, int heads, int splits,
+                        int tile_rows, float scale, cudaStream_t stream) {
 #define BS_DENSE(DEPTH)                                                     \
-  dense_decode_kernel<TQ, DEPTH><<<grid, kThreads, 0, stream>>>(            \
-      q_, k_, v_, ks, vs, len, o, heads, rows, scale)
+  launch_dense<TQ, DEPTH>(q, k, v, k_scale, v_scale, lengths, out, batch,  \
+                          rows, heads, splits, tile_rows, scale, stream)
   switch (depth) {
-    case 32: BS_DENSE(32); break;
-    case 64: BS_DENSE(64); break;
-    case 128: BS_DENSE(128); break;
-    case 256: BS_DENSE(256); break;
+    case 32: return BS_DENSE(32);
+    case 64: return BS_DENSE(64);
+    case 128: return BS_DENSE(128);
+    case 256: return BS_DENSE(256);
     default: return cudaErrorInvalidValue;
   }
 #undef BS_DENSE
-  return cudaGetLastError();
 }
 
 bool valid_splits(int splits) {
   return splits == 1 || splits == 2 || splits == 4 || splits == kMaxSplits;
+}
+
+bool valid_dense(int rows, int tile_rows, int splits) {
+  return valid_splits(splits) && tile_rows >= 1 && tile_rows <= rows &&
+         tile_rows <= kMaxBoxRows;
 }
 
 }  // namespace
@@ -766,8 +702,8 @@ int bs_paged_decode_plan(int depth, int page, int max_blocks, int splits,
       kv_dtype < kF32 || kv_dtype > kI8)
     return cudaErrorInvalidValue;
   const int elt = kv_dtype == kF32 ? 4 : (kv_dtype == kBF16 ? 2 : 1);
-  const Plan plan =
-      plan_for(depth, elt, page, max_blocks, splits, kv_dtype == kI8);
+  const Plan plan = plan_for(depth, elt, page, max_blocks, splits,
+                             kv_dtype == kI8, kTileRows);
   out[0] = plan.stages;
   out[1] = plan.stage_stride;
   out[2] = plan.smem;
@@ -775,25 +711,41 @@ int bs_paged_decode_plan(int depth, int page, int max_blocks, int splits,
   return plan.smem > kSmemLimit ? cudaErrorInvalidValue : cudaSuccess;
 }
 
-// K8: dense int8 cache [B, rows, H, D] with [B, rows, H] scales.
+// K8: the cluster kernel over the dense int8 cache [B, rows, H, D] with
+// [B, rows, H] scales, `splits` blocks a (slot, head), in units of
+// tile_rows rows (one TMA box each).
 int bs_dense_decode_attention_int8(int device, const void* q,
                                    const void* cache_k, const void* cache_v,
                                    const void* k_scales, const void* v_scales,
                                    const void* lengths, void* out, int batch,
-                                   int rows, int heads, int depth,
-                                   int q_dtype, float scale, void* stream) {
+                                   int rows, int heads, int depth, int splits,
+                                   int tile_rows, int q_dtype, float scale,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (!valid_dense(rows, tile_rows, splits)) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == kF32)
-    return launch_dense<float>(depth, q, cache_k, cache_v, k_scales,
-                               v_scales, lengths, out, batch, rows, heads,
-                               scale, s);
-  if (q_dtype == kBF16)
-    return launch_dense<__nv_bfloat16>(depth, q, cache_k, cache_v, k_scales,
-                                       v_scales, lengths, out, batch, rows,
-                                       heads, scale, s);
+#define BS_ARGS                                                             \
+  depth, q, cache_k, cache_v, k_scales, v_scales, lengths, out, batch,      \
+      rows, heads, splits, tile_rows, scale, s
+  if (q_dtype == kF32) return dense_depth<float>(BS_ARGS);
+  if (q_dtype == kBF16) return dense_depth<__nv_bfloat16>(BS_ARGS);
+#undef BS_ARGS
   return cudaErrorInvalidValue;
+}
+
+// The dense kernel's plan, as bs_paged_decode_plan gives the paged one's.
+int bs_dense_decode_plan(int depth, int rows, int tile_rows, int splits,
+                         int* out) {
+  if (!valid_dense(rows, tile_rows, splits)) return cudaErrorInvalidValue;
+  const Plan plan = plan_for(depth, 1, tile_rows,
+                             (rows + tile_rows - 1) / tile_rows, splits, true,
+                             kMaxBoxRows);
+  out[0] = plan.stages;
+  out[1] = plan.stage_stride;
+  out[2] = plan.smem;
+  out[3] = plan.tile_rows;
+  return plan.smem > kSmemLimit ? cudaErrorInvalidValue : cudaSuccess;
 }
 
 const char* bs_error_string(int code) {

@@ -21,16 +21,37 @@
 // int8 values as one vector. K % 16 == 0 keeps every row 16-byte aligned.
 //
 // K11. x_q [M, K] int8 and w_q [N, K] int8 (the weight's own [out, in]
-// rows, which is mma's .col B operand as it lies), fp32 x_scales [M] and
-// w_scales [N] -> out [M, N] fp32 = (float(acc) * x_scale[row]) *
-// w_scale[col], acc the exact int32 sum, in the reference's order. What
-// bounds it: at the training shapes the fp32 output's bytes (M 32768, K
-// 1024: 0.05 ms for N 1024) or the int8 operations (K 2816: 0.096 ms at
-// 1979 TOP/s). Design: one block of eight warps per 128 x 128 output tile;
-// K in 64-byte slices through a three-stage cp.async ring (zero-filled
-// past M, N and K); fragments by ldmatrix (an int8 pair is one b16) into
-// mma.sync m16n8k32 s8 with int32 accumulators, 64 x 32 per warp. K % 16
-// == 0. Any M and N. wgmma and TMA are later work.
+// rows), fp32 x_scales [M] and w_scales [N] -> out [M, N] fp32 =
+// (float(acc) * x_scale[row]) * w_scale[col], acc the exact int32 sum, in
+// the reference's order. What bounds it: at the training shapes the fp32
+// output's bytes (M 32768, K 1024, N 1024: 128 of the 161 MB, 0.048 ms) or
+// the int8 operations (K 2816: 0.096 ms at 1979 TOP/s). So the epilogue's
+// stores are the largest stream, and only wgmma reaches the int8 peak.
+// Design (int8_matmul_wgmma_kernel): a persistent block per SM walks the
+// 128 x 256 output tiles, n fastest, so the blocks in flight share their
+// x rows in L2 and all of w stays there. Warp-specialised: warpgroup 0
+// gives up registers (setmaxnreg) and one of its threads keeps a
+// three-stage ring full by TMA across tiles (per 128-byte k-slice the x
+// box [128 rows][128 k] and the w box [256 rows][128 k], both 128-byte
+// swizzled, 48 KB, on the stage's full mbarrier; TMA zero-fills rows past
+// M and N and k past K). Warpgroups 1 and 2 own 64 rows each: four
+// wgmma m64n256k32 s8 a slice read both operands K-major as they lie
+// (8-bit wgmma takes no transposed operand; w's [N, K] rows are B's
+// K-major layout), into 128 s32 registers a thread; wgmma.wait_group 1
+// retires the previous slice, whose stage the eight consumer warps release
+// on its empty mbarrier. The epilogue scales the accumulator in fp32 into
+// the warpgroup's 32 KB staging buffer (four 128-byte-swizzled [64][32]
+// boxes), half the tile's columns at a time, and one thread stores each
+// half by TMA, which clips rows past M and columns past N; it waits for a
+// half's stores to have read the buffer only before the buffer is written
+// again, so the tile's second half stores under the next tile's loads and
+// products. Where TMA cannot address the output (N % 4 != 0: a row is not
+// a multiple of 16 bytes) the same kernel stores from registers instead.
+// K % 16 == 0, any M and N. Measured on one H100 at the training shapes
+// (trace/int8_matmul_sweep.py with edited copies): stores from registers
+// instead of TMA were 1.5-2.3x as long, and 128 x 128 tiles (four stages,
+// 64 KB of staging) 1.09-1.18x; the products alone, without stores, take
+// 1.35-1.8x their operation bound, every tile's operands read from L2.
 //
 // Both launch on the caller's stream, allocate nothing and do not
 // synchronise.
@@ -40,6 +61,8 @@
 
 #include <cstdint>
 #include <cstring>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -167,168 +190,199 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
 
 namespace mm {
 
-constexpr int kThreads = 256;  // eight warps
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 64;  // bytes (int8 values) of k per slice
+constexpr int kBM = 128;  // two consumer warpgroups of 64 rows
+constexpr int kBN = 256;  // one wgmma's N
+constexpr int kBK = 128;  // bytes (int8 values) of k a slice: one swizzled row
 constexpr int kStages = 3;
-constexpr int kLD = kBK + 16;  // padded row: ldmatrix rows hit distinct banks
-constexpr int kTile = kBM * kLD;  // one operand's slice (kBM == kBN)
-constexpr int kSmem = kStages * 2 * kTile;
+constexpr int kThreads = 384;  // producer warpgroup + two consumers
+constexpr int kXTile = kBM * kBK;  // [128 rows][128 k]
+constexpr int kWTile = kBN * kBK;  // [256 rows][128 k]
+constexpr int kStageBytes = kXTile + kWTile;
+constexpr int kOutBox = 64 * 32 * 4;   // [64 rows][32 n] fp32
+constexpr int kOutTile = 4 * kOutBox;  // a consumer warpgroup's rows, 128 n
+constexpr int kRing = kStages * kStageBytes;
+constexpr int kScales = 2 * kBN * 4;   // each consumer's copy of w_scales
+constexpr size_t kSmem =
+    kRing + 2 * kOutTile + kScales + 2 * kStages * 8 + 1024;
 
 struct Args {
-  const int8_t* x;   // [m, k]
   const float* xs;   // [m]
-  const int8_t* w;   // [n, k]
   const float* ws;   // [n]
   float* out;        // [m, n]
   int m, n, k;
+  int direct;        // 1: store from registers (N % 4 != 0)
 };
 
-// Four 8 x 8 b16 matrices (8 rows of 16 int8 values) from shared memory;
-// lane l gives the address of row l % 8 of matrix l / 8, and receives
-// from each matrix row l / 4, bytes 4 (l % 4) .. + 3: mma's s8 fragment.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Rows row0 .. row0 + 127 of an [rows, k] int8 operand, bytes k0 .. k0 +
-// 63, into a stage by cp.async; rows past `rows` and bytes past k become
-// zeros (src-size 0 reads nothing).
-__device__ __forceinline__ void copy_slice(int8_t* s, const int8_t* g,
-                                           int row0, int rows, int k0,
-                                           int k) {
-  constexpr int kChunks = kBK / 16;
-#pragma unroll
-  for (int j = 0; j < kBM * kChunks / kThreads; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = i / kChunks, c = (i % kChunks) * 16;
-    const bool ok = row0 + r < rows && k0 + c < k;
-    const int8_t* src = ok ? g + static_cast<long long>(row0 + r) * k + k0 + c
-                           : g;
-    const uint32_t dst =
-        static_cast<uint32_t>(__cvta_generic_to_shared(s + r * kLD + c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(ok ? 16 : 0));
-  }
-}
-
-// Warp products over one slice: acc[4][4][4] (four m16 by four n8 tiles,
-// rows wm.., columns wn..) += x_s[64 rows, kBK] . w_s[32 rows, kBK]^T.
-__device__ __forceinline__ void product(int (&acc)[4][4][4], const int8_t* x_s,
-                                        const int8_t* w_s, int wm, int wn,
-                                        int lane) {
-  const int mat = lane >> 3, r8 = lane & 7;
-#pragma unroll
-  for (int k0 = 0; k0 < kBK; k0 += 32) {
-    // B for n-tiles j, j + 1: (j, k 0-15), (j, k 16-31), (j + 1, ...).
-    uint32_t bf[4][2];
-#pragma unroll
-    for (int j = 0; j < 4; j += 2) {
-      uint32_t r[4];
-      ldmatrix_x4(r, w_s + (wn + 8 * j + 8 * (mat >> 1) + r8) * kLD + k0 +
-                         16 * (mat & 1));
-      bf[j][0] = r[0];
-      bf[j][1] = r[1];
-      bf[j + 1][0] = r[2];
-      bf[j + 1][1] = r[3];
-    }
-    // A for m-tile i: rows 0-7 / 8-15 by k 0-15 / 16-31.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint32_t af[4];
-      ldmatrix_x4(af, x_s + (wm + 16 * i + 8 * (mat & 1) + r8) * kLD + k0 +
-                          16 * (mat >> 1));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af, bf[j]);
-    }
-  }
-}
-
-// K11: one block per (n-tile, m-tile).
-__global__ void __launch_bounds__(kThreads) int8_matmul_kernel(Args a) {
-  extern __shared__ __align__(16) int8_t smem[];  // [stage][x slice | w slice]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+// K11: a persistent block per SM walks the output tiles (n fastest). One
+// thread brings each 128-byte k-slice by TMA (full barrier); the consumer
+// warpgroups multiply and release it (empty barrier). The ring runs on
+// across tiles, and each tile's TMA stores under the next tile's work.
+__global__ void __launch_bounds__(kThreads, 1)
+    int8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                             const __grid_constant__ CUtensorMap w_map,
+                             const __grid_constant__ CUtensorMap y_map,
+                             const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align_1024(smem_raw);
+  float* s_ws = reinterpret_cast<float*>(smem + kRing + 2 * kOutTile);
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_ws + 2 * kBN);
+  uint64_t* empty = full + kStages;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
   const int n_k = cdiv(a.k, kBK);
-
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_k) {
-      copy_slice(smem + s * 2 * kTile, a.x, m0, a.m, s * kBK, a.k);
-      copy_slice(smem + s * 2 * kTile + kTile, a.w, n0, a.n, s * kBK, a.k);
+  const int per_row = cdiv(a.n, kBN);
+  const int n_tiles = cdiv(a.m, kBM) * per_row;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::set_max_regs_dec<40>();
+    if (threadIdx.x != 0) return;
+    hopper::prefetch_map(&x_map);
+    hopper::prefetch_map(&w_map);
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int m0 = tile / per_row * kBM, n0 = tile % per_row * kBN;
+      for (int kt = 0; kt < n_k; ++kt, ++it) {
+        const int s = it % kStages;
+        hopper::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        unsigned char* stage = smem + s * kStageBytes;
+        hopper::mbar_expect_tx(&full[s], kStageBytes);
+        hopper::tma_load(stage, &x_map, &full[s], kt * kBK, m0);
+        hopper::tma_load(stage + kXTile, &w_map, &full[s], kt * kBK, n0);
+      }
+    }
+    return;
   }
 
-  const int wm = 64 * (warp & 1), wn = 32 * (warp >> 1);
-  int acc[4][4][4] = {};
-  for (int kt = 0; kt < n_k; ++kt) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
-    __syncthreads();  // slice kt has landed; slice kt - 1's stage is free
-    const int next = kt + kStages - 1;
-    if (next < n_k) {
-      int8_t* s = smem + (next % kStages) * 2 * kTile;
-      copy_slice(s, a.x, m0, a.m, next * kBK, a.k);
-      copy_slice(s + kTile, a.w, n0, a.n, next * kBK, a.k);
+  // Consumers: warpgroup wg owns rows 64 (wg - 1).. of each tile; thread
+  // (warp, g, t) holds rows 16 warp + g + 8 h and columns 8 j + 2 t + c
+  // of them in acc[4 j + 2 h + c].
+  hopper::set_max_regs_inc<232>();
+  const int g = lane >> 2, t = lane & 3, leader = threadIdx.x % 128 == 0;
+  const int tid = threadIdx.x % 128;
+  unsigned char* out_tile = smem + kRing + (wg - 1) * kOutTile;
+  float* ws = s_ws + (wg - 1) * kBN;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int m0 = tile / per_row * kBM, n0 = tile % per_row * kBN;
+    const int row0 = m0 + 64 * (wg - 1) + 16 * warp + g;
+    // The tile's scales, read while the products run (the warpgroup's
+    // previous epilogue has read its w_scales copy: its last barrier).
+    float xs[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      xs[h] = row0 + 8 * h < a.m ? a.xs[row0 + 8 * h] : 0.f;
+    for (int c = tid; c < kBN; c += 128)
+      ws[c] = n0 + c < a.n ? a.ws[n0 + c] : 0.f;
+    // The first slice's products overwrite the accumulator. Zeroing it
+    // instead makes ptxas serialize the wgmmas.
+    int acc[128];
+    for (int kt = 0; kt < n_k; ++kt, ++it) {
+      const uint32_t accumulate = kt > 0;
+      const int s = it % kStages;
+      hopper::mbar_wait(&full[s], (it / kStages) & 1);
+      unsigned char* stage = smem + s * kStageBytes;
+      // A: this warpgroup's 64 x rows, B: the tile's 256 w rows, both
+      // K-major, 8-row groups 1024 bytes apart, k32 steps 32 bytes.
+      const uint64_t ad = hopper::desc(stage + 64 * (wg - 1) * kBK, 16, 1024);
+      const uint64_t bd = hopper::desc(stage + kXTile, 16, 1024);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        hopper::wgmma_s8_m64n256k32(acc, ad + 2 * ks, bd + 2 * ks,
+                                    accumulate | ks);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      if (kt > 0 && lane == 0) hopper::mbar_arrive(&empty[(it - 1) % kStages]);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
-    const int8_t* x_s = smem + (kt % kStages) * 2 * kTile;
-    product(acc, x_s, x_s + kTile, wm, wn, lane);
-  }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (lane == 0) hopper::mbar_arrive(&empty[(it - 1) % kStages]);
 
-  // (float(acc) * x_scale) * w_scale, the reference's order.
-  const int g = lane >> 2, t = lane & 3;
-  const bool pairs = (a.n & 1) == 0;
+    // (float(acc) * x_scale) * w_scale, the reference's order, in two
+    // halves of 128 columns. Each half waits for the stores that last read
+    // the staging buffer, goes in as four 128-byte-swizzled [64][32]
+    // boxes (16-byte chunk q of row r at chunk q ^ (r % 8)), and one
+    // thread stores it by TMA.
+    const int rows0 = m0 + 64 * (wg - 1);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int half = 0; half < 2; ++half) {
+      if (leader && !a.direct) hopper::tma_store_wait_read();
+      hopper::named_barrier(wg, 128);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = m0 + wm + 16 * i + g + 8 * r;
-      if (row >= a.m) continue;
-      const float xs = a.xs[row];
-      float* out = a.out + static_cast<long long>(row) * a.n;
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * warp + g + 8 * h;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + wn + 8 * j + 2 * t;
-        float y[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          y[c] = col + c < a.n
-                     ? __fmul_rn(
-                           __fmul_rn(__int2float_rn(acc[i][j][2 * r + c]), xs),
-                           a.ws[col + c])
-                     : 0.f;
-        if (pairs && col + 1 < a.n) {
-          *reinterpret_cast<float2*>(out + col) = make_float2(y[0], y[1]);
-        } else {
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            if (col + c < a.n) out[col + c] = y[c];
+        for (int jj = 0; jj < 16; ++jj) {
+          const int j = 16 * half + jj, col = 8 * j + 2 * t;
+          const float y0 = __fmul_rn(
+              __fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), xs[h]), ws[col]);
+          const float y1 = __fmul_rn(
+              __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), xs[h]),
+              ws[col + 1]);
+          if (a.direct) {
+            float* out = a.out + static_cast<long long>(rows0 + row) * a.n;
+            if (rows0 + row < a.m && n0 + col < a.n) out[n0 + col] = y0;
+            if (rows0 + row < a.m && n0 + col + 1 < a.n)
+              out[n0 + col + 1] = y1;
+          } else {
+            *reinterpret_cast<float2*>(
+                out_tile + (jj / 4) * kOutBox + row * 128 +
+                (((2 * (jj % 4) + (t >> 1)) ^ g) << 4) + 8 * (t & 1)) =
+                make_float2(y0, y1);
+          }
         }
+      }
+      hopper::fence_proxy_async();
+      hopper::named_barrier(wg, 128);
+      if (leader && !a.direct && rows0 < a.m) {
+        for (int q = 0; q < 4 && n0 + 128 * half + 32 * q < a.n; ++q)
+          hopper::tma_store(&y_map, out_tile + q * kOutBox,
+                            n0 + 128 * half + 32 * q, rows0);
+        hopper::tma_store_commit();
       }
     }
   }
+  if (leader) hopper::tma_store_wait_read();
 }
 
-cudaError_t run(const Args& a, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+cudaError_t run(const int8_t* x, const int8_t* w, const Args& a,
+                cudaStream_t stream) {
+  CUtensorMap x_map, w_map, y_map = {};
+  cudaError_t err = hopper::tensor_map(&x_map, x, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                                       1, a.m, a.k, kBM, kBK);
   if (err != cudaSuccess) return err;
-  int8_matmul_kernel<<<dim3(cdiv(a.n, kBN), cdiv(a.m, kBM)), kThreads, kSmem,
-                       stream>>>(a);
+  err = hopper::tensor_map(&w_map, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.n,
+                           a.k, kBN, kBK);
+  if (err != cudaSuccess) return err;
+  if (!a.direct) {
+    err = hopper::tensor_map(&y_map, a.out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                             4, a.m, a.n, 64, 32);
+    if (err != cudaSuccess) return err;
+  }
+  static int sms = 0;
+  if (sms == 0) {
+    int device = 0;
+    err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(int8_matmul_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmem));
+    if (err != cudaSuccess) return err;
+  }
+  const int tiles = cdiv(a.m, kBM) * cdiv(a.n, kBN);
+  int8_matmul_wgmma_kernel<<<tiles < sms ? tiles : sms, kThreads, kSmem,
+                             stream>>>(x_map, w_map, y_map, a);
   return cudaGetLastError();
 }
 
@@ -368,15 +422,14 @@ int bs_int8_matmul(int device, const int8_t* x, const float* xs,
   if (k <= 0 || k % 16 != 0) return cudaErrorInvalidValue;
   if (m <= 0 || n <= 0) return cudaSuccess;
   mm::Args a{};
-  a.x = x;
   a.xs = xs;
-  a.w = w;
   a.ws = ws;
   a.out = out;
   a.m = m;
   a.n = n;
   a.k = k;
-  return mm::run(a, static_cast<cudaStream_t>(stream));
+  a.direct = n % 4 != 0;
+  return mm::run(x, w, a, static_cast<cudaStream_t>(stream));
 }
 
 const char* bs_error_string(int code) {

@@ -44,7 +44,7 @@ PROMPT = 96
 # (ops/csrc/decode_attention.cu): K6/K7's cluster kernel, K8's.
 ATTENTION_KERNEL = {"paged": "paged_decode_cluster_kernel",
                     "paged_int8": "paged_decode_cluster_kernel",
-                    "dense_int8": "dense_decode_kernel"}
+                    "dense_int8": "dense_decode_cluster_kernel"}
 
 
 def busy_us(intervals: list[tuple[float, float]]) -> float:

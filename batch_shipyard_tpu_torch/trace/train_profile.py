@@ -49,7 +49,7 @@ XENT_BWD_E = "xent_bwd_e_kernel"
 RMSNORM_MATMUL = ("rmsnorm_matmul_wgmma_kernel", "rmsnorm_matmul_fma_kernel",
                   "rms_stats_kernel")
 QUANTIZE_INT8 = "quantize_int8_kernel"
-INT8_MATMUL = "int8_matmul_kernel"
+INT8_MATMUL = "int8_matmul_wgmma_kernel"
 # csrc/ring_collectives.cu (the virtual_* kernels do not match these).
 RING_PERMUTE = "ring_permute_kernel"
 RING_ALL_GATHER = "ring_all_gather_kernel"

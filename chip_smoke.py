@@ -8,16 +8,17 @@ Phases, each fatal on failure:
   1. build the kernels from ops/csrc with nvcc (sm_90a), one nvcc per
      source, all started together, and print each kernel's registers a
      thread, static shared memory and spills (the -Xptxas -v report)
-     and K1/K2's dynamic shared memory a block (K6/K7's cluster kernel:
-     its plan's dynamic shared memory, cluster size and stages);
+     and K1/K2's dynamic shared memory a block (K6-K8's cluster kernels:
+     their plans' dynamic shared memory, cluster size and stages);
   2. hold each kernel against its plain PyTorch version on the card.
      Decode attention (K6-K8): ragged lengths (DECODE_LENGTHS: at the
      cluster kernel's 4 splits some slots keep every split busy, some
      leave splits empty, one is 0), random block tables and a
      NaN-poisoned dead table tail or cache tail, fp32 / bf16 / int8
-     pages at D 64 and 128; each planted fault of DECODE_FAULTS (one
-     split drops a page, the merge drops a split's denominator, int8
-     applies the K scale to V), built alone, must fail it. Flash
+     pages and the dense int8 cache at D 64 and 128; each planted fault
+     of DECODE_FAULTS (paged and dense alike: one split drops a page or
+     a tile, the merge drops a split's denominator, int8 applies the K
+     scale to V), built alone, must fail it. Flash
      attention (K1 forward, K2 backward): out,
      lse, dq, dk and dv against an fp32 oracle (mha_reference's
      arithmetic with the lse exposed, differentiated by autograd), bf16
@@ -40,7 +41,8 @@ Phases, each fatal on failure:
      every training shape (x [32768, 1024] and [32768, 2816] bf16, the
      [1024, 1024], [2816, 1024] and [1024, 2816] weights) and at ragged
      ones (M 300, K 128 and 2816, N 48 and 384, fp32 and bf16, a zero
-     row); each planted fault (QUANT_FAULTS) must fail at every training
+     row; N 50, where the output is stored from registers); each
+     planted fault (QUANT_FAULTS) must fail at every training
      shape. The one-device ring schedules (K15 all-gather, K16
      reduce-scatter) bit for bit against their plain versions and against
      the definition (the concatenation; the sum over members within the
@@ -56,8 +58,10 @@ Phases, each fatal on failure:
      TFLOP/s, and K2 run twice must give the same bits), the
      loss at N 32768 D 1024 V 32000 (the joint backward with its passes
      and its scratch, and again with chunks twice as wide), K9 at M
-     32768 K 1024 N 3072 and 5632, K10 and K11 at one layer's seven projections (K11's yardstick:
-     torch._int_mm and the two scale multiplies);
+     32768 K 1024 N 3072 and 5632, K10 and K11 at one layer's seven
+     projections (K11's yardstick: torch._int_mm and the two scale
+     multiplies; torch._int_mm alone beside it); K6-K8 also at the serve
+     load's ragged lengths;
   4. train the repo's training benchmark model (bench.py
      bench_transformer: vocab 32000, d_model 1024, 12 layers, 16 heads,
      d_ff 2816, bf16 over fp32 parameters, no remat, batch 16 x 2048,
@@ -354,31 +358,49 @@ QUANT_FAULTS = (
     ("quantize_int8_kernel", "const float r = floorf(__fadd_rn(s, u));",
      "const float r = blockIdx.x == 0 ? rintf(s) : floorf(__fadd_rn(s, u));",
      ("values",)),
-    # K11: output tile (0, 0) drops its first k-slice.
-    ("int8_matmul_kernel", "product(acc, x_s, x_s + kTile, wm, wn, lane);",
-     "if (kt != 0 || blockIdx.x != 0 || blockIdx.y != 0) "
-     "product(acc, x_s, x_s + kTile, wm, wn, lane);", ("out",)),
+    # K11: output tile 0 drops the product of its first k-slice (its
+    # second slice overwrites the accumulator instead of adding to it).
+    ("int8_matmul_wgmma_kernel",
+     "      const uint32_t accumulate = kt > 0;",
+     "      const uint32_t accumulate = kt > 0 && (kt != 1 || tile != 0);",
+     ("out",)),
 )
 # Decode attention (K6-K8). The ragged lengths of check_kernels: at the
-# cluster kernel's 4 splits over pages of 64, some slots keep every split
-# busy (200, 333, 511, 512), some leave splits empty (1, 63, 64, 65,
+# paged kernel's 4 splits over pages of 64 (the dense kernel's 2 over
+# units of 128), some slots keep every split busy (200, 333, 511, 512 for
+# both), some leave splits empty or are rank 0's alone (1, 63, 64, 65,
 # 129), and one is empty (0).
 DECODE_SOURCE = "batch_shipyard_tpu_torch/ops/csrc/decode_attention.cu"
 DECODE_LENGTHS = [1, 63, 64, 65, 129, 200, 333, 511, 512, 0]
 # Faults planted in copies of decode_attention.cu, one build each, each
-# confined to one split of the cluster kernel: check_kernels must fail on
-# every one. (kernel, line as written, line with the fault, cases.)
+# confined to one split of the cluster (decode_cluster, the body both
+# cluster kernels run; the dense ones to dense_decode_cluster_kernel):
+# check_kernels must fail on every one in the cases it names. (function,
+# line as written, line with the fault, cases.)
 DECODE_FAULTS = (
     # A rank other than 0 drops its last page.
-    ("paged_decode_cluster_kernel", "const int p1 = min(np, p0 + per);",
+    ("decode_cluster", "const int p1 = min(np, p0 + per);",
      "const int p1 = max(p0, min(np, p0 + per) - (rank == 1 ? 1 : 0));",
      ("paged", "paged_int8")),
     # The merge drops one rank's denominator.
-    ("paged_decode_cluster_kernel", "den += w * ml[1];",
+    ("decode_cluster", "den += w * ml[1];",
      "den += j == 1 ? 0.f : w * ml[1];", ("paged", "paged_int8")),
     # The int8 path applies the K scale to V on one rank.
-    ("paged_decode_cluster_kernel", "s_p[r] = p * s_vs[r];",
+    ("decode_cluster", "s_p[r] = p * s_vs[r];",
      "s_p[r] = p * (rank == 1 ? s_ks : s_vs)[r];", ("paged_int8",)),
+    # Dense: rank 1 drops its last tile.
+    ("decode_cluster",
+     "const int rows = max(0, min(len, p1 * page) - p0 * page);",
+     "const int rows = max(0, min(len, p1 * page) - p0 * page - "
+     "(kDense && rank == 1 ? page : 0));", ("dense_int8",)),
+    # Dense: the merge drops rank 1's denominator (its numerator stays).
+    ("decode_cluster", "const float* ml = s_all[j] + D;",
+     "const float ml_[2] = {s_all[j][D], kDense && j == 1 ? 0.f : "
+     "s_all[j][D + 1]}; const float* ml = ml_;", ("dense_int8",)),
+    # Dense: rank 1 loads the K scales as its V scales.
+    ("decode_cluster", "s_vs[r] = a.v_scale[at];",
+     "s_vs[r] = (kDense && rank == 1 ? a.k_scale : a.v_scale)[at];",
+     ("dense_int8",)),
 )
 FAULTS = {"flash_attention": FLASH_FAULTS, "chunked_loss": LOSS_FAULTS,
           "fused_norm": NORM_FAULTS, "quantization": QUANT_FAULTS,
@@ -546,12 +568,16 @@ def check_kernels(device, fault_libs=()) -> dict:
     """Phase 2a: every kernel against its plain version on ragged cases
     (DECODE_LENGTHS), at D=64 (the served model) and D=128. Each build
     of ``fault_libs`` (DECODE_FAULTS, one fault each, in order) runs the
-    same paged cases and must miss the tolerance on at least one.
+    cases its fault names and must miss the tolerance on at least one.
     Returns each fault's worst error over tolerance."""
     rng = np.random.default_rng(0)
     lengths = DECODE_LENGTHS
     max_blocks = MAX_LEN // PAGE
     worst = [0.0] * len(fault_libs)
+
+    def faults_of(case: str):
+        return [(i, lib) for i, lib in enumerate(fault_libs)
+                if case in DECODE_FAULTS[i][3]]
     for depth in (64, 128):
         for q_dtype in (torch.float32, torch.bfloat16):
             for int8 in (False, True):
@@ -570,7 +596,7 @@ def check_kernels(device, fault_libs=()) -> dict:
                                    TOL[q_dtype])
                 print(f"check {name}: max_abs_err {err:.3g} "
                       f"(tol {TOL[q_dtype]})")
-                for i, lib in enumerate(fault_libs):
+                for i, lib in faults_of("paged_int8" if int8 else "paged"):
                     faulty = paged_ops.paged_decode_attention_kernel(
                         *args, table, lens, library=lib, **kw)
                     torch.cuda.synchronize()
@@ -588,6 +614,12 @@ def check_kernels(device, fault_libs=()) -> dict:
             err = check_result(name, got, want, bad, lens, TOL[q_dtype])
             print(f"check {name}: max_abs_err {err:.3g} "
                   f"(tol {TOL[q_dtype]})")
+            for i, lib in faults_of("dense_int8"):
+                faulty = dense_ops.dense_decode_attention_kernel(
+                    q, k, v, ks, vs, lens, library=lib)
+                torch.cuda.synchronize()
+                worst[i] = max(worst[i], fault_err(faulty, want, lens)
+                               / TOL[q_dtype])
     for (kernel, line, _, _), ratio in zip(DECODE_FAULTS, worst):
         print(f"check planted decode fault ({line!r}): worst error "
               f"{ratio:.3g} x the tolerance", flush=True)
@@ -720,37 +752,50 @@ def time_paged(rng, lengths, int8, device) -> dict:
         kv_dtype=torch.int8 if int8 else torch.bfloat16, page=PAGE)
 
 
-def time_kernels(device) -> dict:
-    """Phase 2b: kernel, plain version and the SDPA yardstick at the
-    serving shape, all slots full (512 keys), and for K6/K7 again at the
-    serve load's ragged lengths (SERVED_LENGTHS). Inputs cycle through
-    n_layers distinct sets, as a decode step does, so the 50 MB L2
-    cannot hold them across calls."""
-    batch, heads, depth = SLOTS, MODEL["n_heads"], MODEL["d_head"]
-    lengths = [MAX_LEN] * batch
-    shape = dict(lengths=lengths, heads=heads, depth=depth,
-                 q_dtype=torch.bfloat16)
-    rng = np.random.default_rng(1)
-    out = {}
-    for key, int8 in (("paged_decode", False),
-                      ("paged_decode_int8", True)):
-        out[key] = time_paged(rng, lengths, int8, device)
-        served = time_paged(rng, SERVED_LENGTHS, int8, device)
-        out[key]["served_lengths"] = {
-            "lengths": SERVED_LENGTHS,
-            **{k: served[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "library_ms", "bound_ms",
-                                      "bound_by")}}
+def time_dense(rng, lengths, device) -> dict:
+    """measure() for the dense kernel at these lengths over n_layers
+    input sets; SDPA reads the cache up to the longest slot, masked past
+    each slot's length where they differ."""
+    heads, depth = MODEL["n_heads"], MODEL["d_head"]
+    keys = max(lengths)
+    mask = None
+    if min(lengths) < keys:
+        mask = (torch.arange(keys, device=device)[None, :] <
+                torch.tensor(lengths, device=device)[:, None])[:, None, None]
     sets, lib_sets = [], []
     for _ in range(MODEL["n_layers"]):
         q, k, v, ks, vs, _, _, lens = dense_case(
             rng, lengths, heads, depth, MAX_LEN, torch.bfloat16, device)
         sets.append((q, k, v, ks, vs, lens))
-        lib_sets.append((sdpa_view(q), sdpa_view(k, ks), sdpa_view(v, vs)))
-    out["dense_decode_int8"] = measure(
+        lib_sets.append((sdpa_view(q), sdpa_view(k[:, :keys], ks[:, :keys]),
+                         sdpa_view(v[:, :keys], vs[:, :keys]), mask))
+    return measure(
         dense_ops.dense_decode_attention_kernel,
         dense_ops.dense_decode_attention_reference, sets, lib_sets,
-        kv_dtype=torch.int8, **shape)
+        lengths=lengths, heads=heads, depth=depth, q_dtype=torch.bfloat16,
+        kv_dtype=torch.int8)
+
+
+def time_kernels(device) -> dict:
+    """Phase 2b: kernel, plain version and the SDPA yardstick at the
+    serving shape, all slots full (512 keys), and again at the serve
+    load's ragged lengths (SERVED_LENGTHS). Inputs cycle through
+    n_layers distinct sets, as a decode step does, so the 50 MB L2
+    cannot hold them across calls."""
+    lengths = [MAX_LEN] * SLOTS
+    rng = np.random.default_rng(1)
+    timers = {"paged_decode": functools.partial(time_paged, int8=False),
+              "paged_decode_int8": functools.partial(time_paged, int8=True),
+              "dense_decode_int8": time_dense}
+    out = {}
+    for key, timer in timers.items():
+        out[key] = timer(rng, lengths, device=device)
+        served = timer(rng, SERVED_LENGTHS, device=device)
+        out[key]["served_lengths"] = {
+            "lengths": SERVED_LENGTHS,
+            **{k: served[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "library_ms", "bound_ms",
+                                      "bound_by")}}
     for key, row in out.items():
         print(f"time {KERNELS[key]['label']} {key}: kernel "
               f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f}"
@@ -870,12 +915,14 @@ def check_flash(device) -> None:
 
 
 def kernel_body(text: str, kernel: str) -> tuple[int, int]:
-    """[start, end) of the body of ``__global__ ... kernel(...) {...}`` in
-    a CUDA source: braces matched, string literals and comments skipped."""
-    found = re.search(r"__global__[^;{]*?\b" + re.escape(kernel) + r"\(",
-                      text)
+    """[start, end) of the body of ``__global__ ... kernel(...) {...}`` (or
+    of a ``__device__`` function a kernel runs) in a CUDA source: braces
+    matched, string literals and comments skipped."""
+    found = re.search(r"__(?:global|device)__[^;{]*?\b" + re.escape(kernel) +
+                      r"\(", text)
     if found is None:
-        raise SmokeFailure(f"no __global__ {kernel} in the source")
+        raise SmokeFailure(f"no __global__ or __device__ {kernel} in the "
+                           f"source")
     start = text.index("{", found.end())
     depth, i = 0, start
     while i < len(text):
@@ -984,7 +1031,7 @@ def kernel_short_name(mangled: str) -> str:
     return mangled
 
 
-# Template arguments of the paged cluster kernel as mangled: float,
+# Template arguments of the cluster kernels as mangled: float,
 # __nv_bfloat16 (its later uses a substitution, S<n>_) and int8_t.
 _MANGLED_TYPES = {"f": "fp32", "13__nv_bfloat16": "bf16", "a": "int8"}
 
@@ -992,31 +1039,48 @@ _MANGLED_TYPES = {"f": "fp32", "13__nv_bfloat16": "bf16", "a": "int8"}
 def paged_kernel_name(mangled: str) -> str:
     """``...paged_decode_cluster_kernelI13__nv_bfloat16aLi64EE...`` ->
     ``paged_decode_cluster_kernel<bf16, int8, 64>`` (the page type that
-    repeats the query's is a substitution); other kernels as
+    repeats the query's is a substitution) and
+    ``...dense_decode_cluster_kernelI13__nv_bfloat16Li64EE...`` ->
+    ``dense_decode_cluster_kernel<bf16, 64>``; other kernels as
     kernel_short_name names them."""
     found = re.search(r"paged_decode_cluster_kernelI(f|13__nv_bfloat16)"
                       r"(f|a|S\d*_)Li(\d+)E", mangled)
-    if found is None:
-        return kernel_short_name(mangled)
-    q = _MANGLED_TYPES[found.group(1)]
-    kv = _MANGLED_TYPES.get(found.group(2), q)
-    return f"paged_decode_cluster_kernel<{q}, {kv}, {found.group(3)}>"
+    if found is not None:
+        q = _MANGLED_TYPES[found.group(1)]
+        kv = _MANGLED_TYPES.get(found.group(2), q)
+        return f"paged_decode_cluster_kernel<{q}, {kv}, {found.group(3)}>"
+    found = re.search(r"dense_decode_cluster_kernelI(f|13__nv_bfloat16)"
+                      r"Li(\d+)E", mangled)
+    if found is not None:
+        return (f"dense_decode_cluster_kernel<"
+                f"{_MANGLED_TYPES[found.group(1)]}, {found.group(2)}>")
+    return kernel_short_name(mangled)
 
 
 def decode_resources(log: str) -> dict:
-    """K6's and K7's cluster kernel at the served shape (bf16 queries,
-    bf16 or int8 pages, D 64, page 64, max_blocks 8): registers a thread
-    and spills (ptxas), static and dynamic shared memory a block, threads,
-    cluster size and ring stages (the library's plan), keyed as the
-    kernels line is."""
+    """K6's, K7's and K8's cluster kernels at the served shape (bf16
+    queries, bf16 or int8 pages or the dense int8 cache, D 64, 512 keys
+    in pages or units of 64): registers a thread and spills (ptxas),
+    static and dynamic shared memory a block, threads, cluster size and
+    ring stages (the library's plan), keyed as the kernels line is."""
     report = ptxas_report(log, paged_kernel_name)
+    depth = MODEL["d_head"]
+    plans = {
+        "paged_decode": (
+            f"paged_decode_cluster_kernel<bf16, bf16, {depth}>",
+            paged_ops.paged_decode_plan(depth, PAGE, MAX_LEN // PAGE,
+                                        torch.bfloat16)),
+        "paged_decode_int8": (
+            f"paged_decode_cluster_kernel<bf16, int8, {depth}>",
+            paged_ops.paged_decode_plan(depth, PAGE, MAX_LEN // PAGE,
+                                        torch.int8)),
+        "dense_decode_int8": (
+            f"dense_decode_cluster_kernel<bf16, {depth}>",
+            dense_ops.dense_decode_plan(depth, MAX_LEN)),
+    }
     out = {}
-    for key, kv_dtype, kv in (("paged_decode", torch.bfloat16, "bf16"),
-                              ("paged_decode_int8", torch.int8, "int8")):
-        name = f"paged_decode_cluster_kernel<bf16, {kv}, {MODEL['d_head']}>"
+    for key, (name, plan) in plans.items():
         usage = report.get(name, {})
-        plan = paged_ops.paged_decode_plan(MODEL["d_head"], PAGE,
-                                           MAX_LEN // PAGE, kv_dtype)
         row = {"kernel": name, "registers": usage.get("registers"),
                "spill_bytes": usage.get("spill_stores", 0) +
                usage.get("spill_loads", 0),
@@ -1035,6 +1099,22 @@ def decode_resources(log: str) -> dict:
               f"{row['stages']} stages of {row['stage_bytes']} bytes",
               flush=True)
     return out
+
+
+def quant_resources(report: dict) -> dict:
+    """K11's kernel: registers a thread, static shared memory and spills
+    (ptxas; its ring and staging, mm::kSmem, are dynamic)."""
+    name = "int8_matmul_wgmma_kernel"
+    usage = report.get(name, {})
+    row = {"kernel": name, "registers": usage.get("registers"),
+           "spill_bytes": usage.get("spill_stores", 0) +
+           usage.get("spill_loads", 0),
+           "static_smem_bytes": usage.get("smem"), "threads": 384}
+    print(f"resources {name}: {row['registers']} registers a thread, "
+          f"{row['spill_bytes']} bytes spilled, {row['static_smem_bytes']} "
+          f"bytes of static shared memory, {row['threads']} threads",
+          flush=True)
+    return row
 
 
 def flash_resources(report: dict) -> dict:
@@ -1615,7 +1695,8 @@ def matmul_diff(got, want) -> dict:
 def check_quant(device, fault_lib) -> dict:
     """Phase 2e: K10 and K11 against their plain versions on the same
     bits, bit for bit: ragged shapes (M 300, K 128 and 2816, N 48 and 384,
-    fp32 and bf16, a zero row), then every training shape, where each
+    and N 50, whose rows TMA cannot store, fp32 and bf16, a zero row),
+    then every training shape, where each
     planted fault must fail. Every case is read and printed before the
     first failure is raised. Returns the training-shape readings."""
     gen = torch.Generator(device=device).manual_seed(10)
@@ -1633,7 +1714,7 @@ def check_quant(device, fault_lib) -> dict:
                     f"differ")
             if q_err["values"] or q_err["scales"]:
                 failed.append(f"K10 ragged K={k} {dtype}")
-            for n in (48, 384):
+            for n in (48, 50, 384):
                 w = kernel_q(*quant_case(gen, n, k, dtype, device,
                                          weight=True))
                 mm = matmul_diff(quant_ops.int8_matmul_kernel(*xq, *w),
@@ -1701,14 +1782,20 @@ def _int_mm_yardstick(x_q, x_s, w_q, w_s):
     return torch._int_mm(x_q, w_q.t()).float() * x_s * w_s.t()
 
 
+def _int_mm_alone(x_q, x_s, w_q, w_s):
+    """torch._int_mm alone: the int32 product without K11's epilogue."""
+    return torch._int_mm(x_q, w_q.t())
+
+
 def _layer_row(shapes: dict, per: str) -> dict:
     """Sum one layer's calls (each shape times its count) into a row."""
     row = {key: sum(s["count"] * s[key] for s in shapes.values())
            for key in ("ms", "plain_ms", "bound_ms", "ops", "bytes")}
-    libs = [s["library_ms"] for s in shapes.values()]
-    row["library_ms"] = (None if None in libs else
-                         sum(s["count"] * s["library_ms"]
-                             for s in shapes.values()))
+    for key in ("library_ms", "int_mm_ms"):
+        libs = [s.get(key) for s in shapes.values()]
+        if key in next(iter(shapes.values())):
+            row[key] = (None if None in libs else
+                        sum(s["count"] * s[key] for s in shapes.values()))
     row["bound_by"] = ("operations" if all(s["bound_by"] == "operations"
                                            for s in shapes.values())
                        else "bytes")
@@ -1720,8 +1807,9 @@ def _layer_row(shapes: dict, per: str) -> dict:
 
 def time_quant(device, readings: dict) -> dict:
     """Phase 3e: K10 and K11 at one layer's training shapes against their
-    plain versions, and K11 against the torch._int_mm yardstick (K10 has
-    no single PyTorch call). Each row sums one layer's calls: K10 its 14
+    plain versions, and K11 against the torch._int_mm yardstick (with
+    the two scale passes; also torch._int_mm alone; K10 has no single
+    PyTorch call). Each row sums one layer's calls: K10 its 14
     (x and the weight of seven projections), K11 its 7; ``shapes`` keeps
     each. Weight-sized inputs cycle through n_layers sets, and x-sized
     ones through two, so the 50 MB L2 does not hold them across calls."""
@@ -1751,29 +1839,35 @@ def time_quant(device, readings: dict) -> dict:
         w_q = quant_ops.quantize_int8_kernel(*w_sets[0])
         del x_sets, w_sets
         sets = [(*xq, *w_q) for xq in x_q]
-        try:
-            library_ms = device_ms(_int_mm_yardstick, sets, 24)
-        except RuntimeError as err:  # torch._int_mm refuses the shape
-            print(f"time K11 {name}: torch._int_mm yardstick: {err}")
-            library_ms = None
+        library = {}
+        for key, call in (("library_ms", _int_mm_yardstick),
+                          ("int_mm_ms", _int_mm_alone)):
+            try:
+                library[key] = device_ms(call, sets, 24)
+            except RuntimeError as err:  # torch._int_mm refuses the shape
+                print(f"time K11 {name}: {call.__name__}: {err}")
+                library[key] = None
         k11[name] = dict(
             count=count,
             ms=device_ms(quant_ops.int8_matmul_kernel, sets, 24),
             plain_ms=device_ms(quant_ops.int8_matmul_reference, sets, 4),
-            library_ms=library_ms,
+            **library,
             max_abs_err=readings[name]["K11"]["max_abs_err"],
             **int8_matmul_bound(rows, k, n))
         del sets, x_q, w_q
         torch.cuda.empty_cache()
+    def fmt(ms):
+        return "—" if ms is None else f"{ms:.4f} ms"
     for label, shapes in (("K10 quantize_int8", k10),
                           ("K11 int8_matmul", k11)):
         for key, s in shapes.items():
-            lib = ("—" if s["library_ms"] is None
-                   else f"{s['library_ms']:.4f} ms")
+            alone = ("" if "int_mm_ms" not in s else
+                     f" (torch._int_mm alone {fmt(s['int_mm_ms'])})")
             print(f"time {label} {key} (x{s['count']} a layer): kernel "
                   f"{s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, library "
-                  f"{lib}, bound {s['bound_ms']:.4f} ms ({s['bound_by']})",
-                  flush=True)
+                  f"{fmt(s['library_ms'])}{alone}, bound "
+                  f"{s['bound_ms']:.4f} ms ({s['bound_by']}), kernel / bound "
+                  f"{s['ms'] / s['bound_ms']:.2f}", flush=True)
     return {"quantize_int8": _layer_row(k10, "one layer's 14 calls"),
             "int8_matmul": _layer_row(k11, "one layer's 7 calls")}
 
@@ -2976,6 +3070,7 @@ def main() -> int:
     resources.update(decode_resources(
         builds[sources.index("decode_attention")][0].with_suffix(
             ".log").read_text()))
+    resources["int8_matmul"] = quant_resources(reports["quantization"])
 
     decode_faults = check_kernels(device, [
         fault_libs[("decode_attention", i)]
@@ -2991,11 +3086,11 @@ def main() -> int:
                         ("virtual_all_gather", "virtual_reduce_scatter")}
     timing.update(time_kernels(device))
     timing.update(time_flash(device, fault_libs["flash_attention"]))
-    for key, usage in resources.items():
-        timing[key]["resources"] = usage
     timing.update(time_loss(device, loss_readings))
     timing.update(time_norm(device, norm_readings))
     timing.update(time_quant(device, quant_readings))
+    for key, usage in resources.items():
+        timing[key]["resources"] = usage
 
     # The unfused training phase reads no marker (the loss is the plain
     # slab path); the fused and int8 phases read one that records the
@@ -3068,7 +3163,8 @@ def main() -> int:
                     decode_faults["fault_err_over_tol"]
         row.update({k: t[k] for k in ("max_abs_err", "max_tile_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
-                                      "library_ms", "per", "bound_nvlink_ms",
+                                      "library_ms", "int_mm_ms", "per",
+                                      "bound_nvlink_ms",
                                       "ms_per_rank", "note", "joint",
                                       "tflops", "ceiling_ms",
                                       "fwd_bwd_ms", "library_fwd_bwd_ms",

@@ -283,3 +283,87 @@ def test_paged_splits_leaves_two_pages_a_block(max_blocks, splits):
     block where that fits (4 at the served 512 keys over pages of 64)."""
     assert tpa.paged_splits(max_blocks) == splits
     assert -(-max_blocks // splits) <= 2 or splits == tpa.MAX_SPLITS
+
+
+# The dense cluster kernel's split schedule (dense_decode_attention_split):
+# each slot's live rows cut into units of DENSE_TILE rows, the units into
+# `splits` contiguous runs, one softmax each, merged in rank order. The
+# lengths of SPLIT_LENGTHS over a 48-row cache: empty, 1, one unit, one
+# unit + 1, full (6 units of 8), and two ragged ones.
+DENSE_TILE = 8
+
+
+def _dense_split_case(dtype):
+    q, k, v, _ = _dense_case(12, dtype)
+    q, k, v = (np.concatenate([a, a[:2]]) for a in (q, k, v))
+    kq, vq, ks, vs = _int8(k, v)
+    lengths = np.asarray(SPLIT_LENGTHS, np.int32)
+    return [_torch(q, dtype), kq, vq, ks, vs, torch.from_numpy(lengths)]
+
+
+_JAX_DENSE_WANT = {}
+
+
+def _jax_dense_want(dtype):
+    """The JAX package's XLA path and Pallas kernel (interpret mode) on
+    the dense split case, computed once per dtype."""
+    if dtype not in _JAX_DENSE_WANT:
+        targs = _dense_split_case(dtype)
+        jargs = [_jax(targs[0].float().numpy(), dtype)] + [
+            jnp.asarray(t.numpy()) for t in targs[1:]]
+        _JAX_DENSE_WANT[dtype] = (
+            _as_np(jdd.dense_decode_attention_xla(*jargs)),
+            _as_np(jdd.dense_decode_attention_kernel(*jargs,
+                                                     interpret=True)))
+    return _JAX_DENSE_WANT[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_dense_split_schedule_matches_xla_and_kernel(splits, dtype):
+    """fp32 queries 2e-5 (the XLA path dequantizes to fp32 too), bf16
+    queries 2e-2 (it dequantizes to bf16, the split to fp32)."""
+    targs = _dense_split_case(dtype)
+    live = targs[5].numpy() > 0
+    got = tdd.dense_decode_attention_split(*targs, splits,
+                                           tile_rows=DENSE_TILE)
+    assert got.dtype == getattr(torch, dtype)
+    xla, kernel = _jax_dense_want(dtype)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    _close(got, xla, tol, live)
+    _close(got, kernel, tol, slice(None))
+    assert not _as_np(got)[~live].any()
+
+
+@pytest.mark.parametrize("splits", [2, 4, 8])
+def test_dense_split_schedule_matches_one_split(splits):
+    """In fp32 the split merge is exact up to summation order: every
+    split count agrees with one split, and NaN scales at or past each
+    slot's length change nothing."""
+    targs = _dense_split_case("float32")
+    one = tdd.dense_decode_attention_split(*targs, 1, tile_rows=DENSE_TILE)
+    got = tdd.dense_decode_attention_split(*targs, splits,
+                                           tile_rows=DENSE_TILE)
+    np.testing.assert_allclose(got.numpy(), one.numpy(), atol=1e-6,
+                               rtol=1e-6)
+    ks, vs = targs[3].clone(), targs[4].clone()
+    for b, n in enumerate(SPLIT_LENGTHS):
+        ks[b, n:] = float("nan")
+        vs[b, n:] = float("nan")
+    again = tdd.dense_decode_attention_split(
+        *targs[:3], ks, vs, targs[5], splits, tile_rows=DENSE_TILE)
+    np.testing.assert_array_equal(again.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("rows,splits,tile", [
+    (1, 1, 1), (48, 1, 48), (128, 1, 128), (256, 1, 128), (257, 2, 128),
+    (512, 2, 128), (513, 4, 128), (1024, 4, 128), (1025, 8, 128),
+    (8192, 8, 128)])
+def test_dense_splits_leaves_two_units_a_block(rows, splits, tile):
+    """The dense kernel's cluster size: paged_splits' rule over units of
+    DENSE_TILE_ROWS rows (a box never longer than the cache), so 2 at the
+    served 512 keys."""
+    assert tdd.dense_tile_rows(rows) == tile
+    assert tdd.dense_splits(rows) == splits
+    units = -(-rows // tile)
+    assert -(-units // splits) <= 2 or splits == tpa.MAX_SPLITS

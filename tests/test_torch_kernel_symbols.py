@@ -102,16 +102,21 @@ def test_decode_profile_attention_kernel_names_a_kernel(kv_cache):
 
 @pytest.mark.parametrize("mangled,short", [
     ("_ZN12_GLOBAL__N_127paged_decode_cluster_kernelI13__nv_bfloat16aLi64E"
-     "EEv14CUtensorMap_stS1_NS_9PagedArgsE",
+     "EEv14CUtensorMap_stS1_NS_11ClusterArgsE",
      "paged_decode_cluster_kernel<bf16, int8, 64>"),
     ("_ZN12_GLOBAL__N_127paged_decode_cluster_kernelI13__nv_bfloat16S1_Li6"
-     "4EEEv14CUtensorMap_stS2_NS_9PagedArgsE",
+     "4EEEv14CUtensorMap_stS2_NS_11ClusterArgsE",
      "paged_decode_cluster_kernel<bf16, bf16, 64>"),
     ("_ZN12_GLOBAL__N_127paged_decode_cluster_kernelIffLi128EEEv14CUtensor"
-     "Map_stS1_NS_9PagedArgsE",
+     "Map_stS1_NS_11ClusterArgsE",
      "paged_decode_cluster_kernel<fp32, fp32, 128>"),
-    ("_ZN12_GLOBAL__N_119dense_decode_kernelIfLi64EEEvPKT_PKaS5_PKfS7_PKiPS1_"
-     "iif", "dense_decode_kernel"),
+    ("_ZN12_GLOBAL__N_127dense_decode_cluster_kernelI13__nv_bfloat16Li64EE"
+     "Ev14CUtensorMap_stS2_NS_11ClusterArgsE",
+     "dense_decode_cluster_kernel<bf16, 64>"),
+    ("_ZN12_GLOBAL__N_127dense_decode_cluster_kernelIfLi128EEEv14CUtensorMap"
+     "_stS1_NS_11ClusterArgsE", "dense_decode_cluster_kernel<fp32, 128>"),
+    ("_ZN2mm24int8_matmul_wgmma_kernelE14CUtensorMap_stS0_S0_NS_4ArgsE",
+     "int8_matmul_wgmma_kernel"),
 ])
 def test_paged_kernel_name(mangled, short):
     assert chip_smoke.paged_kernel_name(mangled) == short
