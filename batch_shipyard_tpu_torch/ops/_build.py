@@ -82,12 +82,9 @@ SIGNATURES = {
         "bs_ring_flag_alloc": ([_int, ctypes.POINTER(_intp)], _int),
         "bs_ring_flag_free": ([_intp], _int),
         "bs_ring_read_pad": ([_int, _vp, ctypes.POINTER(_ull)], _int),
-        "bs_ring_permute": (
-            [_int] + [_vp] * 6 + [_ll] * 3 + [_ull, _int, _intp, _ll, _vp],
-            _int),
-        "bs_ring_all_gather": (
-            [_int] + [_vp] * 4 + [_ll] * 2 + [_int] * 2 +
-            [_ull, _int, _intp, _ll, _vp], _int),
+        "bs_ring_copy": (
+            [_int, _int] + [_vp] * 5 + [_ll, _int, _vp, _ull, _vp, _ull,
+                                        _intp, _vp, _int, _vp], _int),
         "bs_ring_reduce_scatter": (
             [_int] + [_vp] * 4 + [_ll] * 2 + [_int] * 2 +
             [_ull, _int, _int, _intp, _ll, _vp], _int),
@@ -95,6 +92,12 @@ SIGNATURES = {
             [_int] + [_vp] * 3 + [_ll, _int, _int, _vp], _int),
         "bs_virtual_reduce_scatter": (
             [_int] + [_vp] * 3 + [_ll, _int, _int, _int, _vp], _int),
+        "bs_stream_mem_ops": ([_int, _intp], _int),
+        "bs_ring_stream_create": ([_int, ctypes.POINTER(_vp)], _int),
+        "bs_ring_stream_destroy": ([_int, _vp], _int),
+        "bs_stream_wait": ([_int, _vp, _ull, _vp], _int),
+        "bs_stream_write": ([_int, _vp, _ull, _vp], _int),
+        "bs_ring_spin_wait": ([_int, _vp, _ull, _intp, _ll, _vp, _vp], _int),
         "bs_error_string": ([_int], ctypes.c_char_p),
     },
 }

@@ -33,24 +33,49 @@
 // waits until consumed[W % 2] >= W - 2 (the slot's previous content has
 // been read): the double buffering and capacity handshake of the TPU
 // kernels, where a slot goes back upstream only after it was copied out and
-// forwarded. ready/consumed are stored with st.release.sys and read with
-// ld.acquire.sys; data in peer slots is read with ld.global.cg (L2, never a
-// stale L1 line). Within one rank, the blocks of a grid count their
-// arrivals on a per-slot counter; the last block raises the signal.
+// forwarded. Data in peer slots is read with ld.global.cg (L2, never a
+// stale L1 line).
 //
-// Progress and the grid. Ranks wait on each other, and the blocks of one
-// rank never wait on each other, so a rank's grid must be resident at once:
-// every collective launches one block per SM (one wave). Four processes on
-// one card have one context each and the card time-slices them (no MPS):
-// a block spinning on a neighbour keeps its context on the card until the
-// timeslice ends, so progress is sure but a wait costs timeslices.
+// K12 and K13: waits off the SMs. The TPU kernels wait on DMA semaphores;
+// here every wait and signal of K12 and K13 is a stream-ordered memory
+// operation of the CUDA driver API: cuStreamWaitValue64(GEQ) on the epoch
+// word (own or a peer's, mapped by IPC), cuStreamWriteValue64 of the
+// epoch with the default flag, whose memory barrier makes the preceding copy's stores
+// visible before the signal. The plans (which waits, copies and writes a
+// call makes, in order) are ops/ring_collectives.py's permute_plan and
+// all_gather_plan; this file gives their copy kernels, one launch per copy
+// (K12: two a call, into the own slot and out of the peer's; K13: ring a
+// call). No block of K12 or K13 ever waits on another rank, so a copy is a
+// small grid sized to its bytes. A rank whose stream stands at a wait has
+// no work on the card, and the card's time-slicer runs the other contexts:
+// four ranks on one card no longer pay their neighbours' waits in
+// timeslices.
 //
-// A hang becomes an error. Every spin is bounded by %globaltimer: after
-// timeout_ns a block writes an error word into host-mapped memory and
-// returns; every later wait that reads the word returns within 64 spins,
-// and RingGroup.check raises: before the wrapper's next launch, after the
-// train workload's synchronise, and in RingGroup.close. A rank that never
-// arrives fails the run within the group's timeout (RingGroup.timeout_s).
+// K14: waits inside the kernel. K14 keeps its in-kernel protocol: ranks
+// wait on each other and the blocks of one rank never wait on each other,
+// so its grid must be resident at once, one block per SM (one wave);
+// thread 0 of each block spins (wait_at_least) on ld.acquire.sys of the
+// epoch words, which the owner's blocks raise with st.release.sys when the
+// last of them has arrived (arrive). Such a spinning grid keeps its
+// context's timeslices on a shared card.
+//
+// A hang becomes an error. K14's spins are bounded by %globaltimer: after
+// timeout_ns a block writes the group's error word (host-mapped memory)
+// and returns; every later wait that reads the word returns within 64
+// spins. A stream wait has no bound of its own: the ring group
+// (parallel/mesh.py RingGroup) times each with an event pair, and its
+// watchdog, once a wait has stood longer than the timeout or the error
+// word is set, sets the word and writes a poison epoch (2^63) into every
+// word its streams stand waiting on, from a private stream, after the
+// same error into the group's device-side abort word. The copy kernels
+// read the abort word first and copy nothing once it is set, so the rank
+// drains. A copy also marks the slot it fills (written[s] = W) and checks
+// the mark of the peer slot it reads: a slot whose write was skipped (its
+// signal released by a poisoned wait) sets both words (kUnfilled) instead
+// of being read, so a failed rank's neighbours fail too rather than read
+// stale data. RingGroup.check raises on the word:
+// before each ring call, after the train workload's synchronise, and in
+// RingGroup.close.
 //
 // K14/K16 add in ring order. Chunk c's partial starts at rank c+1 and each
 // later rank adds its own contribution to what arrived: ((x_{c+1} + x_{c+2})
@@ -64,6 +89,7 @@
 //
 // Everything launches on the caller's stream and does not synchronise.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -75,7 +101,7 @@ namespace {
 constexpr int kThreads = 512;
 constexpr long long kPadBytes = 256;
 enum DType : int { kF32 = 0, kBF16 = 1 };
-enum RingError : int { kOk = 0, kTimeout = 1 };
+enum RingError : int { kOk = 0, kTimeout = 1, kUnfilled = 2 };
 
 using u64 = unsigned long long;
 
@@ -85,7 +111,8 @@ struct Pad {
   u64 consumed[2];  // write consumed[s] of slot s was read (set by reader)
   u64 arrive_w[2];  // the owner's blocks that finished writing slot s
   u64 arrive_r[2];  // the owner's blocks that finished reading a peer slot
-  u64 wait_ns;      // ns block 0 of the owner's kernels spent waiting
+  u64 wait_ns;      // ns block 0 of the owner's K14 kernels spent waiting
+  u64 written[2];   // the write a K12/K13 copy last put into slot s
 };
 static_assert(sizeof(Pad) <= kPadBytes, "pad");
 
@@ -214,58 +241,59 @@ int sm_count(int device) {
   return n;
 }
 
-}  // namespace
+// ----------------------- stream memory operations -------------------------
 
-// ------------------------------ K12 ---------------------------------------
+// The CUDA driver API's 64-bit stream wait and write, taken from the
+// library the runtime already loaded (cudaGetDriverEntryPoint), so this
+// library needs no link against libcuda.
+using StreamValue64 = CUresult (*)(CUstream, CUdeviceptr, cuuint64_t,
+                                   unsigned int);
+using DeviceAttribute = CUresult (*)(int*, CUdevice_attribute, CUdevice);
+using ErrorString = CUresult (*)(CUresult, const char**);
 
-namespace permute {
+void* entry_point(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  if (cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found) !=
+          cudaSuccess ||
+      found != cudaDriverEntryPointSuccess)
+    return nullptr;
+  return p;
+}
 
-struct Args {
-  const char* k;
-  const char* v;
-  char* k_out;
-  char* v_out;
-  char* self;  // this rank's symmetric buffer
-  char* src;   // the buffer of the rank this one receives from
-  long long nbytes;     // bytes of k (and of v)
-  long long v_offset;   // v's offset inside a slot
-  long long slot_stride;
-  u64 epoch;  // this buffer's call number, from 1
-  Ctl ctl;
+struct CuApi {
+  StreamValue64 wait, write;
+  DeviceAttribute attribute;
+  ErrorString error_string;
 };
 
-// Send this rank's (K, V) ``shift`` hops round the ring: copy them into
-// slot epoch % 2, raise ready, then pull the source rank's slot into the
-// outputs and raise consumed on its pad.
-template <int U>
-__global__ void __launch_bounds__(kThreads, 1) ring_permute_kernel(Args a) {
-  Pad* me = pad_of(a.self);
-  Pad* src_pad = pad_of(a.src);
-  const int s = static_cast<int>(a.epoch % 2);
-  const u64 prior = a.epoch >= 2 ? a.epoch - 2 : 0;
-  if (!wait_at_least(&me->consumed[s], prior, a.ctl, &me->wait_ns)) return;
-  char* mine = slot_ptr(a.self, a.slot_stride, s);
-  copy_units<U>(mine, nullptr, a.k, a.nbytes);
-  copy_units<U>(mine + a.v_offset, nullptr, a.v, a.nbytes);
-  arrive(&me->arrive_w[s], slot_round(a.epoch), &me->ready[s], a.epoch);
-  if (!wait_at_least(&src_pad->ready[s], a.epoch, a.ctl, &me->wait_ns))
-    return;
-  const char* from = slot_ptr(a.src, a.slot_stride, s);
-  copy_units<U>(a.k_out, nullptr, from, a.nbytes);
-  copy_units<U>(a.v_out, nullptr, from + a.v_offset, a.nbytes);
-  arrive(&me->arrive_r[s], slot_round(a.epoch), &src_pad->consumed[s],
-         a.epoch);
+const CuApi& cu() {
+  static const CuApi d{
+      reinterpret_cast<StreamValue64>(entry_point("cuStreamWaitValue64")),
+      reinterpret_cast<StreamValue64>(entry_point("cuStreamWriteValue64")),
+      reinterpret_cast<DeviceAttribute>(entry_point("cuDeviceGetAttribute")),
+      reinterpret_cast<ErrorString>(entry_point("cuGetErrorString"))};
+  return d;
 }
 
-template <int U>
-cudaError_t run(const Args& a, int blocks, cudaStream_t stream) {
-  ring_permute_kernel<U><<<blocks, kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
+// A failed CUDA driver API call returns kCuError + its CUresult.
+constexpr int kCuError = 100000;
+
+int cu_rc(CUresult r) {
+  return r == CUDA_SUCCESS ? 0 : kCuError + static_cast<int>(r);
 }
 
-}  // namespace permute
+}  // namespace
 
-// ------------------------------ K13 ---------------------------------------
+// The in-kernel wait K14 makes: a grid of one block per SM whose thread
+// 0 spins on ``word`` (trace/ring_wait_probe.py times it against the
+// stream-ordered wait).
+__global__ void __launch_bounds__(kThreads, 1)
+    spin_wait_kernel(const u64* word, u64 value, Ctl ctl, u64* wait_ns) {
+  wait_at_least(word, value, ctl, wait_ns);
+}
+
+// ----------------------------- K12, K13 -----------------------------------
 
 __device__ __forceinline__ int ag_source(int me, int step, int ring) {
   return ((me - step - 1) % ring + ring) % ring;
@@ -275,65 +303,123 @@ __device__ __forceinline__ int rs_chunk(int me, int step, int ring) {
   return ((me - step - 2) % ring + ring) % ring;
 }
 
-namespace gather {
+namespace ringcopy {
 
-struct Args {
-  const char* x;  // this rank's chunk, nbytes
-  char* out;      // [ring * nbytes]
-  char* self;
-  char* left;
+// One copy of a K12 or K13 plan: segment i moves nbytes from src[i] to
+// dst[i] and, if dst2[i] is set, to dst2[i] too (K13 files a chunk and
+// forwards it in one pass).
+struct Copy {
+  const char* src[2];
+  char* dst[2];
+  char* dst2[2];
+  int segments;
   long long nbytes;
-  long long slot_stride;
-  int rank, ring;
-  u64 base;  // writes into this buffer before this call
-  Ctl ctl;
+  u64* mark;          // written[s] of the own slot this copy fills, or null
+  u64 mark_value;     // the write number it puts there
+  const u64* filled;  // written[s] of the peer slot this copy reads, or null
+  u64 filled_value;   // the write that must be in that slot
+  int* error;         // the group's host-mapped error word
+  u64* abort;         // its device-side copy, which the copies read
 };
 
-// The own chunk goes to its output row and to the first slot; at step t the
-// chunk the left neighbour holds (source ag_source(rank, t)) is pulled into
-// its output row and, except at the last step, into this rank's next slot
-// for the right neighbour to pull.
-template <int U>
-__global__ void __launch_bounds__(kThreads, 1) ring_all_gather_kernel(Args a) {
-  Pad* me = pad_of(a.self);
-  Pad* left = pad_of(a.left);
-  const long long n = a.nbytes;
-  u64 w = a.base + 1;
-  int s = static_cast<int>(w % 2);
-  if (!wait_at_least(&me->consumed[s], w >= 2 ? w - 2 : 0, a.ctl,
-                     &me->wait_ns))
-    return;
-  copy_units<U>(a.out + a.rank * n, slot_ptr(a.self, a.slot_stride, s), a.x,
-                n);
-  arrive(&me->arrive_w[s], slot_round(w), &me->ready[s], w);
-  for (int t = 0; t < a.ring - 1; ++t) {
-    const u64 r = a.base + 1 + t;  // the left neighbour's write for step t
-    const int rs = static_cast<int>(r % 2);
-    if (!wait_at_least(&left->ready[rs], r, a.ctl, &me->wait_ns)) return;
-    const int src = ag_source(a.rank, t, a.ring);
-    const char* from = slot_ptr(a.left, a.slot_stride, rs);
-    char* fwd = nullptr;
-    if (t < a.ring - 2) {
-      w = r + 1;
-      s = static_cast<int>(w % 2);
-      if (!wait_at_least(&me->consumed[s], w - 2, a.ctl, &me->wait_ns))
-        return;
-      fwd = slot_ptr(a.self, a.slot_stride, s);
+// Block-wide, before any byte moves: false once the group's abort word is
+// set, and when the peer slot to read does not hold the write the plan
+// waited for (its copy was skipped), which sets the abort word and the
+// error word. Otherwise block 0 marks the own slot this copy fills; the
+// stream write after the kernel publishes the mark with the data. The
+// copies read the device-side abort word, not the host-mapped error word:
+// a read of host memory crosses PCIe, and one per block costs ~1 us each,
+// one after another.
+__device__ bool copy_may_run(const Copy& c) {
+  __shared__ int go;
+  if (threadIdx.x == 0) {
+    int ok = *reinterpret_cast<volatile u64*>(c.abort) == kOk;
+    if (ok && c.filled != nullptr && ld_acquire(c.filled) != c.filled_value) {
+      st_release(c.abort, kUnfilled);
+      *reinterpret_cast<volatile int*>(c.error) = kUnfilled;
+      __threadfence_system();
+      ok = 0;
     }
-    copy_units<U>(a.out + src * n, fwd, from, n);
-    if (fwd != nullptr)
-      arrive(&me->arrive_w[s], slot_round(w), &me->ready[s], w);
-    arrive(&me->arrive_r[rs], slot_round(r), &left->consumed[rs], r);
+    if (ok && c.mark != nullptr && blockIdx.x == 0) *c.mark = c.mark_value;
+    go = ok;
+  }
+  __syncthreads();
+  return go != 0;
+}
+
+constexpr int kUnroll = 4;
+
+// Units of U bytes, grid-strided, kUnroll loads in flight per thread before
+// their stores; ``dst2`` (if not null) gets a second copy. Peer data is
+// read through L2 only.
+template <int U>
+__device__ __forceinline__ void copy_lanes(char* dst, char* dst2,
+                                           const char* src,
+                                           long long nbytes) {
+  using T = typename Unit<U>::T;
+  const long long n = nbytes / U;
+  const T* s = reinterpret_cast<const T*>(src);
+  T* d = reinterpret_cast<T*>(dst);
+  T* d2 = reinterpret_cast<T*>(dst2);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (; i + (kUnroll - 1) * stride < n; i += kUnroll * stride) {
+    T v[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) v[j] = __ldcg(s + i + j * stride);
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      __stcg(d + i + j * stride, v[j]);
+      if (d2 != nullptr) __stcg(d2 + i + j * stride, v[j]);
+    }
+  }
+  for (; i < n; i += stride) {
+    const T v = __ldcg(s + i);
+    __stcg(d + i, v);
+    if (d2 != nullptr) __stcg(d2 + i, v);
   }
 }
 
+// K12's copies: (K, V) into the own slot, or out of the source rank's slot
+// into the outputs, one segment each.
 template <int U>
-cudaError_t run(const Args& a, int blocks, cudaStream_t stream) {
-  ring_all_gather_kernel<U><<<blocks, kThreads, 0, stream>>>(a);
+__global__ void __launch_bounds__(kThreads) ring_permute_kernel(Copy c) {
+  if (!copy_may_run(c)) return;
+  for (int i = 0; i < c.segments; ++i)
+    copy_lanes<U>(c.dst[i], c.dst2[i], c.src[i], c.nbytes);
+}
+
+// K13's copies: the own chunk into its output row and the first slot, then
+// at each step the left neighbour's slot into its output row and (but at
+// the last step) the own next slot.
+template <int U>
+__global__ void __launch_bounds__(kThreads) ring_all_gather_kernel(Copy c) {
+  if (!copy_may_run(c)) return;
+  copy_lanes<U>(c.dst[0], c.dst2[0], c.src[0], c.nbytes);
+}
+
+// Blocks for ``bytes``: one per kBytesPerBlock, at most kMaxBlocks. From
+// trace/ring_copy_sweep.py on an H100: K12's 2 x 32 MiB copy takes 0.1050
+// ms on 16 blocks, 0.0661 on 33, 0.0568 on 66, 0.0531 on 132 (copy_:
+// 0.0518) and slower on more; K13's chunk copy is flat from 66 blocks.
+constexpr long long kBytesPerBlock = 256ll << 10;
+constexpr int kMaxBlocks = 132;
+
+int blocks_for(long long bytes) {
+  const long long b = (bytes + kBytesPerBlock - 1) / kBytesPerBlock;
+  return static_cast<int>(b < 1 ? 1 : b > kMaxBlocks ? kMaxBlocks : b);
+}
+
+template <int U>
+cudaError_t run(int kernel, const Copy& c, int blocks, cudaStream_t stream) {
+  if (kernel == 0)
+    ring_permute_kernel<U><<<blocks, kThreads, 0, stream>>>(c);
+  else
+    ring_all_gather_kernel<U><<<blocks, kThreads, 0, stream>>>(c);
   return cudaGetLastError();
 }
 
-}  // namespace gather
+}  // namespace ringcopy
 
 // ------------------------------ K14 ---------------------------------------
 
@@ -661,7 +747,7 @@ int bs_ring_flag_alloc(int device, int** ptr) {
 
 int bs_ring_flag_free(int* ptr) { return cudaFreeHost(ptr); }
 
-// The pad of this rank's buffer (5 x 2 + 1 counters) into ``out``;
+// The pad of this rank's buffer (its 12 counters) into ``out``;
 // synchronises the device.
 int bs_ring_read_pad(int device, const void* ptr, unsigned long long* out) {
   cudaError_t err = cudaSetDevice(device);
@@ -671,71 +757,46 @@ int bs_ring_read_pad(int device, const void* ptr, unsigned long long* out) {
   return cudaMemcpy(out, ptr, sizeof(Pad), cudaMemcpyDeviceToHost);
 }
 
-// K12. k, v -> k_out, v_out (nbytes each) from the source rank's slot.
-int bs_ring_permute(int device, const void* k, const void* v, void* k_out,
-                    void* v_out, void* self, void* src, long long nbytes,
-                    long long v_offset, long long slot_stride,
-                    unsigned long long epoch, int unit, int* error,
-                    long long timeout_ns, void* stream) {
+// One copy of a K12 (kernel 0) or K13 (kernel 1) plan on ``stream``:
+// src0 -> dst0 (and dst2_0 if not null), and src1 -> dst1 if src1 is not
+// null, nbytes each, in units of ``unit`` bytes. ``mark``/``mark_value``:
+// the own slot's written word and the write this copy puts there (null:
+// none); ``filled``/``filled_value``: the peer slot's written word and the
+// write it must hold (null: the source is not a peer slot). ``error``: the
+// group's host-mapped error word; ``abort``: its device-side word (a
+// zeroed device u64). ``blocks`` 0 sizes the grid to the bytes.
+int bs_ring_copy(int device, int kernel, const void* src0, void* dst0,
+                 void* dst2_0, const void* src1, void* dst1, long long nbytes,
+                 int unit, void* mark, unsigned long long mark_value,
+                 const void* filled, unsigned long long filled_value,
+                 int* error, void* abort, int blocks, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (nbytes <= 0 || epoch == 0) return cudaErrorInvalidValue;
-  permute::Args a{};
-  a.k = static_cast<const char*>(k);
-  a.v = static_cast<const char*>(v);
-  a.k_out = static_cast<char*>(k_out);
-  a.v_out = static_cast<char*>(v_out);
-  a.self = static_cast<char*>(self);
-  a.src = static_cast<char*>(src);
-  a.nbytes = nbytes;
-  a.v_offset = v_offset;
-  a.slot_stride = slot_stride;
-  a.epoch = epoch;
-  a.ctl.error = error;
-  a.ctl.timeout_ns = timeout_ns;
-  const int blocks = sm_count(device);
-  if (blocks <= 0) return cudaErrorInvalidDevice;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (unit) {
-    case 16: return permute::run<16>(a, blocks, s);
-    case 8: return permute::run<8>(a, blocks, s);
-    case 4: return permute::run<4>(a, blocks, s);
-    case 2: return permute::run<2>(a, blocks, s);
-    case 1: return permute::run<1>(a, blocks, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// K13. x (nbytes) -> out (ring * nbytes).
-int bs_ring_all_gather(int device, const void* x, void* out, void* self,
-                       void* left, long long nbytes, long long slot_stride,
-                       int rank, int ring, unsigned long long base, int unit,
-                       int* error, long long timeout_ns, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (nbytes <= 0 || ring < 2 || rank < 0 || rank >= ring)
+  if (nbytes <= 0 || (kernel != 0 && kernel != 1) || error == nullptr ||
+      abort == nullptr)
     return cudaErrorInvalidValue;
-  gather::Args a{};
-  a.x = static_cast<const char*>(x);
-  a.out = static_cast<char*>(out);
-  a.self = static_cast<char*>(self);
-  a.left = static_cast<char*>(left);
-  a.nbytes = nbytes;
-  a.slot_stride = slot_stride;
-  a.rank = rank;
-  a.ring = ring;
-  a.base = base;
-  a.ctl.error = error;
-  a.ctl.timeout_ns = timeout_ns;
-  const int blocks = sm_count(device);
-  if (blocks <= 0) return cudaErrorInvalidDevice;
+  ringcopy::Copy c{};
+  c.src[0] = static_cast<const char*>(src0);
+  c.dst[0] = static_cast<char*>(dst0);
+  c.dst2[0] = static_cast<char*>(dst2_0);
+  c.src[1] = static_cast<const char*>(src1);
+  c.dst[1] = static_cast<char*>(dst1);
+  c.segments = src1 == nullptr ? 1 : 2;
+  c.nbytes = nbytes;
+  c.mark = static_cast<u64*>(mark);
+  c.mark_value = mark_value;
+  c.filled = static_cast<const u64*>(filled);
+  c.filled_value = filled_value;
+  c.error = error;
+  c.abort = static_cast<u64*>(abort);
+  if (blocks <= 0) blocks = ringcopy::blocks_for(nbytes * c.segments);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (unit) {
-    case 16: return gather::run<16>(a, blocks, s);
-    case 8: return gather::run<8>(a, blocks, s);
-    case 4: return gather::run<4>(a, blocks, s);
-    case 2: return gather::run<2>(a, blocks, s);
-    case 1: return gather::run<1>(a, blocks, s);
+    case 16: return ringcopy::run<16>(kernel, c, blocks, s);
+    case 8: return ringcopy::run<8>(kernel, c, blocks, s);
+    case 4: return ringcopy::run<4>(kernel, c, blocks, s);
+    case 2: return ringcopy::run<2>(kernel, c, blocks, s);
+    case 1: return ringcopy::run<1>(kernel, c, blocks, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -829,7 +890,86 @@ int bs_virtual_reduce_scatter(int device, const void* x, void* out,
   return cudaErrorInvalidValue;
 }
 
+// 1 in *supported when the CUDA driver offers 64-bit stream waits and
+// writes on ``device`` (CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS
+// and the two entry points), else 0.
+int bs_stream_mem_ops(int device, int* supported) {
+  *supported = 0;
+  const CuApi& d = cu();
+  if (d.attribute == nullptr || d.wait == nullptr || d.write == nullptr)
+    return cudaSuccess;
+  return cu_rc(d.attribute(
+      supported, CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS,
+      static_cast<CUdevice>(device)));
+}
+
+// A stream of its own for the ring group's watchdog (non-blocking: it
+// never waits for the legacy default stream).
+int bs_ring_stream_create(int device, void** stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return cudaStreamCreateWithFlags(reinterpret_cast<cudaStream_t*>(stream),
+                                   cudaStreamNonBlocking);
+}
+
+int bs_ring_stream_destroy(int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return cudaStreamDestroy(static_cast<cudaStream_t>(stream));
+}
+
+// Stream-ordered: ``stream`` waits until the 64-bit word at ``addr`` (this
+// rank's or a mapped peer's) is >= value.
+int bs_stream_wait(int device, void* addr, unsigned long long value,
+                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const CuApi& d = cu();
+  if (d.wait == nullptr) return cudaErrorNotSupported;
+  return cu_rc(d.wait(static_cast<CUstream>(stream),
+                          reinterpret_cast<CUdeviceptr>(addr), value,
+                          CU_STREAM_WAIT_VALUE_GEQ));
+}
+
+// Stream-ordered: write ``value`` to the 64-bit word at ``addr`` once the
+// work before it on ``stream`` is done. The default flag keeps the memory
+// barrier, so the preceding kernels' stores are visible first.
+int bs_stream_write(int device, void* addr, unsigned long long value,
+                    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const CuApi& d = cu();
+  if (d.write == nullptr) return cudaErrorNotSupported;
+  return cu_rc(d.write(static_cast<CUstream>(stream),
+                           reinterpret_cast<CUdeviceptr>(addr), value,
+                           CU_STREAM_WRITE_VALUE_DEFAULT));
+}
+
+// spin_wait_kernel on ``stream``: one block per SM until *word >= value.
+int bs_ring_spin_wait(int device, const void* word, unsigned long long value,
+                      int* error, long long timeout_ns, void* wait_ns,
+                      void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int blocks = sm_count(device);
+  if (blocks <= 0) return cudaErrorInvalidDevice;
+  Ctl ctl{error, timeout_ns};
+  spin_wait_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u64*>(word), value, ctl, static_cast<u64*>(wait_ns));
+  return cudaGetLastError();
+}
+
 const char* bs_error_string(int code) {
+  if (code >= kCuError) {
+    const char* msg = nullptr;
+    const CuApi& d = cu();
+    if (d.error_string == nullptr ||
+        d.error_string(static_cast<CUresult>(code - kCuError), &msg) !=
+            CUDA_SUCCESS ||
+        msg == nullptr)
+      return "CUDA driver error";
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

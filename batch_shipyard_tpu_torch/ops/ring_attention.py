@@ -24,6 +24,12 @@ reference's), else ``"kernel"`` for CUDA tensors and ``"plain"`` for CPU
 tensors. Nothing falls back: on a CUDA tensor the permute launches K12
 or raises.
 
+The rotation stays on the current stream, after the rotation's flash.
+The reference lets XLA overlap each rotation with the block's attention;
+with four ranks sharing one card, issuing each K12 on a side stream
+beside the flash made the step slower than rotating in order (PERF.md
+§6), so the port rotates in order.
+
 Every rank issues the same sequence of rotations, forward and backward,
 or the ring deadlocks. The reference's scan rotates sp times and drops
 the last K/V; the port rotates sp - 1 times. A causal rank r computes 1

@@ -5,8 +5,8 @@ all-gather (K13) and reduce-scatter (K14), and their one-device schedules
 Counterpart of batch_shipyard_tpu/ops/ring_collectives.py. The kernels are
 ``csrc/ring_collectives.cu`` (its head note gives the design: persistent
 symmetric buffers mapped by CUDA IPC, a pull protocol on growing epoch
-counters, bounded spins that turn a missing rank into an error). Each has
-a plain version beside it, which CPU tensors take:
+counters, a missing rank turned into an error). Each has a plain version
+beside it, which CPU tensors take:
 
 - ``ring_permute`` (K12): one +-1 ring rotation of a (K, V) pair over the
   group. ``ring_permute_pair`` is its autograd Function: the backward is
@@ -25,24 +25,35 @@ gradient collectives. The port has no XLA, so its gradient all-reduce over
 the sp ranks is K14 followed by K13 on one flat fp32 bucket
 (parallel/train.py).
 
+K12 and K13 are plans. ``permute_plan`` and ``all_gather_plan`` list a
+call's stream operations in order: ``Wait`` (the stream waits until a pad
+word reaches a value), ``Copy`` (one launch of the call's copy kernel) and
+``Write`` (the stream writes a pad word once the copy is done). The
+wrappers issue them on the current stream (``_enqueue``); the CPU tests run
+the same plans over a model of four ranks' pads. A rank that waits holds
+no SM: on a card that time-slices several ranks, the waiting rank's
+slices go to the ranks that have work. K14 keeps its one kernel a call,
+whose blocks spin on the pad.
+
 K12-K14 take a ring group (parallel/mesh.RingGroup): its rank, size, gloo
-process group and, on the card, its symmetric buffers and error word
-(a wait longer than the group's timeout sets it; ``group.check()``, before
-each launch and after a synchronise, raises). The plain versions run the same schedule over the
-gloo process group with isend/irecv (gloo takes CPU tensors only). On a CUDA
-tensor a wrapper launches its kernel or raises; nothing falls back.
+process group and, on the card, its symmetric buffers, error word and
+watchdog (a wait longer than the group's timeout sets the word;
+``group.check()``, before each call and after a synchronise, raises). The
+plain versions run the same schedule over the gloo process group with
+isend/irecv (gloo takes CPU tensors only). On a CUDA tensor a wrapper
+launches its kernel or raises; nothing falls back.
 
 What bounds them: bytes. Per call and rank, K12 reads its (K, V) pair and
 writes the pair it receives; K13 reads its chunk and writes ring chunks;
 K14 reads ring chunks and writes one. On one card that is those bytes over
 the memory rate; across cards, the (ring - 1) chunks (K12: the pair) a
 rank sends over NVLink. The staging slot doubles a rank's own writes
-(pull design, see the .cu note); four ranks time-sliced on one card wait
-for each other's timeslices, which no bound counts.
+(pull design, see the .cu note).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -54,8 +65,9 @@ from batch_shipyard_tpu_torch.parallel.mesh import SLOT_ALIGN, _round_up
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches (one per wrapper call; K15/K16 launch once per ring step
-# inside one call). chip_smoke.py zeroes and reads these.
+# Kernel launches (one per wrapper call; K12/K13 launch a copy kernel per
+# Copy of their plan and K15/K16 once per ring step inside one call).
+# chip_smoke.py zeroes and reads these.
 launches = {"ring_permute": 0, "ring_all_gather": 0,
             "ring_reduce_scatter": 0, "virtual_all_gather": 0,
             "virtual_reduce_scatter": 0}
@@ -102,6 +114,128 @@ def _vector(chunk_elems: int, dtype: torch.dtype, *tensors) -> int:
 
 def _lib(library):
     return library or _build.library("ring_collectives")
+
+
+# ------------------------- K12 and K13 as plans ---------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Wait:
+    """The stream waits until ``word`` (a pad field, e.g. "ready1") of
+    ``rank``'s pad is >= ``value``."""
+    rank: int
+    word: str
+    value: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Write:
+    """The stream writes ``value`` into ``word`` of ``rank``'s pad once
+    the work before it is done."""
+    rank: int
+    word: str
+    value: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Copy:
+    """One copy kernel from ``src`` to each of ``dsts``. An end is
+    ("in",) the call's input, ("out", i) chunk i of its output (K12: the
+    output pair) or ("slot", rank, s) slot s of ``rank``'s buffer.
+    ``write``: the write number this copy puts into its own slot (0:
+    none); ``read``: the write the peer slot it reads must hold."""
+    src: tuple
+    dsts: tuple
+    write: int = 0
+    read: int = 0
+
+
+def permute_plan(rank: int, ring: int, shift: int, epoch: int) -> list:
+    """K12's call number ``epoch`` (from 1) of its buffer on ``rank``: the
+    (K, V) pair into slot epoch % 2 once its previous content was read,
+    raise ready; once the source rank r - shift raised its ready, pull
+    its slot into the outputs and raise consumed on its pad."""
+    s = epoch % 2
+    src = (rank - shift) % ring
+    plan = [Wait(rank, f"consumed{s}", epoch - 2)] if epoch > 2 else []
+    return plan + [
+        Copy(("in",), (("slot", rank, s),), write=epoch),
+        Write(rank, f"ready{s}", epoch),
+        Wait(src, f"ready{s}", epoch),
+        Copy(("slot", src, s), (("out", 0),), read=epoch),
+        Write(src, f"consumed{s}", epoch),
+    ]
+
+
+def all_gather_plan(rank: int, ring: int, base: int) -> list:
+    """K13 on ``rank`` after ``base`` writes into its buffer: the own chunk
+    to its output row and write base + 1's slot; at step t the left
+    neighbour's write base + 1 + t (chunk ag_source_shard(rank, t)) is
+    pulled into its output row and, but at the last step, forwarded as
+    the own next write."""
+    left = (rank - 1) % ring
+    w = base + 1
+    s = w % 2
+    plan = [Wait(rank, f"consumed{s}", w - 2)] if w > 2 else []
+    plan += [Copy(("in",), (("out", rank), ("slot", rank, s)), write=w),
+             Write(rank, f"ready{s}", w)]
+    for t in range(ring - 1):
+        r = base + 1 + t
+        rs = r % 2
+        plan.append(Wait(left, f"ready{rs}", r))
+        dsts = (("out", ag_source_shard(rank, t, ring)),)
+        w = 0
+        if t < ring - 2:
+            w = r + 1
+            s = w % 2
+            if w > 2:
+                plan.append(Wait(rank, f"consumed{s}", w - 2))
+            dsts += (("slot", rank, s),)
+        plan.append(Copy(("slot", left, rs), dsts, write=w, read=r))
+        if w:
+            plan.append(Write(rank, f"ready{s}", w))
+        plan.append(Write(left, f"consumed{rs}", r))
+    return plan
+
+
+# bs_ring_copy's kernel argument: which __global__ a plan's copies launch
+# (the profiler tells K12's time from K13's by it).
+COPY_KERNELS = {"ring_permute": 0, "ring_all_gather": 1}
+
+
+def _enqueue(plan: list, group, buf, ends, nbytes: int, unit: int,
+           kernel: str, lib) -> None:
+    """Enqueue ``plan`` on the current stream. ``ends(end)``: the
+    addresses of one copy end, one per segment (K12: K and V)."""
+    dev = group.device
+    stream = torch.cuda.current_stream(dev)
+
+    def at(end):
+        if end[0] == "slot":
+            return ends(end, buf.slot(end[1], end[2]))
+        return ends(end, None)
+    for op in plan:
+        if isinstance(op, Wait):
+            group.stream_wait(buf.word(op.rank, op.word), op.value, stream)
+        elif isinstance(op, Write):
+            group.stream_write(buf.word(op.rank, op.word), op.value, stream)
+        else:
+            src = at(op.src)
+            dst = at(op.dsts[0])
+            dst2 = at(op.dsts[1]) if len(op.dsts) > 1 else (None,)
+            own = next((d for d in op.dsts if d[0] == "slot"), None)
+            mark = buf.word(own[1], f"written{own[2]}") if own else None
+            filled = (buf.word(op.src[1], f"written{op.src[2]}")
+                      if op.read else None)
+            rc = lib.bs_ring_copy(
+                dev.index or 0, COPY_KERNELS[kernel], src[0], dst[0],
+                dst2[0], src[1] if len(src) > 1 else None,
+                dst[1] if len(dst) > 1 else None, nbytes, unit, mark,
+                op.write, filled, op.read, group.error, group.abort, 0,
+                stream.cuda_stream)
+            _build.check(rc, kernel.replace("_", " "), lib)
+
+
 
 
 def _check_cuda(name: str, t: torch.Tensor, group) -> None:
@@ -345,14 +479,13 @@ def ring_permute_kernel(k: torch.Tensor, v: torch.Tensor, group,
     epoch = buf.calls + 1
     unit = copy_unit(nbytes, v_offset, k.data_ptr(), v.data_ptr(),
                      k_out.data_ptr(), v_out.data_ptr())
-    lib = library or group.library
-    dev = k.device
-    rc = lib.bs_ring_permute(
-        dev.index or 0, k.data_ptr(), v.data_ptr(), k_out.data_ptr(),
-        v_out.data_ptr(), buf.ptr, buf.peer((me - shift) % ring), nbytes,
-        v_offset, buf.slot_stride, epoch, unit, group.error,
-        group.timeout_ns, stream_handle(dev))
-    _build.check(rc, "ring permute", lib)
+    pairs = {"in": (k.data_ptr(), v.data_ptr()),
+             "out": (k_out.data_ptr(), v_out.data_ptr())}
+
+    def ends(end, slot):
+        return pairs[end[0]] if slot is None else (slot, slot + v_offset)
+    _enqueue(permute_plan(me, ring, shift, epoch), group, buf, ends, nbytes,
+           unit, "ring_permute", library or group.library)
     buf.calls = epoch
     launches["ring_permute"] += 1
     return k_out, v_out
@@ -368,13 +501,15 @@ def ring_all_gather_kernel(x: torch.Tensor, group,
     buf = group.buffer("all_gather", nbytes)
     out = x.new_empty((ring * x.shape[0],) + x.shape[1:])
     unit = copy_unit(nbytes, x.data_ptr(), out.data_ptr())
-    lib = library or group.library
-    dev = x.device
-    rc = lib.bs_ring_all_gather(
-        dev.index or 0, x.data_ptr(), out.data_ptr(), buf.ptr,
-        buf.peer(group.left), nbytes, buf.slot_stride, me, ring,
-        buf.writes, unit, group.error, group.timeout_ns, stream_handle(dev))
-    _build.check(rc, "ring all-gather", lib)
+
+    def ends(end, slot):
+        if slot is not None:
+            return (slot,)
+        if end[0] == "in":
+            return (x.data_ptr(),)
+        return (out.data_ptr() + end[1] * nbytes,)
+    _enqueue(all_gather_plan(me, ring, buf.writes), group, buf, ends, nbytes,
+           unit, "ring_all_gather", library or group.library)
     buf.writes += ring - 1
     launches["ring_all_gather"] += 1
     return out

@@ -16,23 +16,43 @@ device buffer per (kind, slot size): a 256-byte signal pad and two data
 slots, allocated once with ``cudaMalloc`` (outside PyTorch's caching
 allocator, whose blocks sit at offsets inside larger segments) and mapped
 into every other rank of the group once, by CUDA IPC handles exchanged
-over the gloo process group. The kernels count calls with epoch
-counters in the pad, so a buffer is reused call after call with no reset.
+over the gloo process group. The ring calls count with epoch counters in
+the pad, so a buffer is reused call after call with no reset.
 
-A hang becomes an error: every wait in the kernels is bounded by
-``timeout_s`` (default ``DEFAULT_TIMEOUT_S``); a wait that outlives it
-writes an error word in host-mapped memory, and ``RingGroup.check``
-raises. The wrappers call it before every launch, which sees the kernels
-that have finished; the train workload calls it after each synchronise,
-and ``RingGroup.close`` after its own, so a timeout in the last step
-raises too. A rank that never arrives makes its neighbours' waits time
-out, and each rank waiting on one that stopped raises in turn:
-chip_smoke.py's check sees every rank raise within twice the timeout.
+Two kinds of wait. K12 and K13 wait in the stream: ``stream_wait`` and
+``stream_write`` enqueue the CUDA driver's 64-bit stream memory operations on a
+pad word (the group raises at construction if the device does not offer
+them; nothing falls back), so a rank that waits holds no SM and the card
+runs the ranks that have work. K14 waits inside its kernel, spinning on
+the pad (csrc/ring_collectives.cu's head note).
+
+A hang becomes an error. K14's spins are bounded by ``timeout_s``
+(default ``DEFAULT_TIMEOUT_S``): one that outlives it writes the group's
+error word in host-mapped memory. Each stream wait is timed by a pair of
+CUDA events around it; a watchdog thread treats a wait as expired once
+its "before" event has been seen complete for ``timeout_s`` while its
+"after" event is still open. On expiry, or once the error word is set (a
+K14 timeout, or a copy that found a neighbour's slot unfilled), it sets
+the word, then from a private stream writes it into the group's
+device-side abort word and a poison epoch (``POISON``, 2^63) into every
+pad word this rank's streams stand waiting on; the copy kernels read the
+abort word and copy nothing, so the rank drains instead of hanging in its
+next synchronise. ``RingGroup.check`` raises on the word:
+the wrappers call it before every ring call, the train workload after
+each synchronise, and ``RingGroup.close`` after its own, so a timeout in
+the last step raises too. A rank that never arrives makes its
+neighbours' waits expire, and each rank waiting on one that stopped
+raises in turn: chip_smoke.py's check sees every rank raise within twice
+the timeout. The same event pairs give ``wait_ns``: the nanoseconds this
+rank's ring calls spent waiting on a neighbour (the stream waits, plus
+K14's in-kernel waits from its pad).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
+import time
 
 import torch
 import torch.distributed as dist
@@ -45,7 +65,13 @@ SLOT_ALIGN = 256
 IPC_HANDLE_BYTES = 64
 # The counters of a pad, in csrc/ring_collectives.cu's struct Pad order.
 PAD_FIELDS = ("ready0", "ready1", "consumed0", "consumed1", "arrive_w0",
-              "arrive_w1", "arrive_r0", "arrive_r1", "wait_ns")
+              "arrive_w1", "arrive_r0", "arrive_r1", "wait_ns", "written0",
+              "written1")
+# The epoch the watchdog writes into a word to release every wait on it.
+POISON = 1 << 63
+# The error word's codes (csrc/ring_collectives.cu RingError).
+TIMED_OUT, UNFILLED = 1, 2
+STREAM_MEM_OPS = "CU_DEVICE_ATTRIBUTE_CAN_USE_64_BIT_STREAM_MEM_OPS"
 
 
 def auto_axis_sizes(n_devices: int, tp: int = 1, sp: int = 1,
@@ -101,6 +127,14 @@ class SymmetricBuffer:
         """The address of ``rank``'s buffer in this process."""
         return self.ptr if rank == self.rank else self._peers[rank]
 
+    def word(self, rank: int, field: str) -> int:
+        """The address of ``field`` (a PAD_FIELDS name) of ``rank``'s pad."""
+        return self.peer(rank) + 8 * PAD_FIELDS.index(field)
+
+    def slot(self, rank: int, s: int) -> int:
+        """The address of ``rank``'s slot ``s``."""
+        return self.peer(rank) + PAD_BYTES + s * self.slot_stride
+
     def close(self, group: "RingGroup") -> None:
         dev = group.device.index or 0
         for mapped in self._peers.values():
@@ -117,8 +151,9 @@ class RingGroup:
     ``left`` and ``right`` its neighbours (rank - 1, rank + 1 mod size),
     the ranks it receives from and sends to on a +1 rotation. On a CUDA
     ``device`` the group loads csrc/ring_collectives.cu and owns the
-    symmetric buffers and the error word of the ring kernels; on the CPU
-    it carries only the ranks (the plain versions run over gloo)."""
+    symmetric buffers, the error word and the stream waits' watchdog; on
+    the CPU it carries only the ranks (the plain versions run over
+    gloo)."""
 
     def __init__(self, device="cpu", timeout_s: float = DEFAULT_TIMEOUT_S,
                  library=None) -> None:
@@ -133,11 +168,40 @@ class RingGroup:
         self._buffers: dict = {}
         self._library = library
         self.error = None
+        self._watchdog = None
         if self.device.type == "cuda":
+            dev = self.device.index or 0
+            supported = ctypes.c_int()
+            self.check_rc(self.library.bs_stream_mem_ops(
+                dev, ctypes.byref(supported)), STREAM_MEM_OPS)
+            if not supported.value:
+                raise RuntimeError(
+                    f"ring group on {self.device}: the CUDA driver offers no "
+                    f"64-bit stream memory operations ({STREAM_MEM_OPS} "
+                    f"is 0), which the ring kernels wait and signal with")
             flag = ctypes.POINTER(ctypes.c_int)()
             self.check_rc(self.library.bs_ring_flag_alloc(
-                self.device.index or 0, ctypes.byref(flag)), "ring flag")
+                dev, ctypes.byref(flag)), "ring flag")
             self.error = flag
+            # The error word's device-side copy, which the K12/K13 copies
+            # read (a zeroed device word).
+            abort = ctypes.c_void_p()
+            self.check_rc(self.library.bs_ring_alloc(
+                dev, PAD_BYTES, ctypes.byref(abort)), "ring abort word")
+            self.abort = abort.value
+            self._waits: list = []  # [before, after, word, seen] per wait
+            self._spare: list = []  # timing events whose wait has ended
+            self._waited_ns = 0
+            self._lock = threading.Lock()
+            poison = ctypes.c_void_p()
+            self.check_rc(self.library.bs_ring_stream_create(
+                dev, ctypes.byref(poison)), "ring stream")
+            self._poison_stream = poison.value
+            self._stop = threading.Event()
+            self._watchdog = threading.Thread(
+                target=self._watch, name=f"ring-watchdog-{self.rank}",
+                daemon=True)
+            self._watchdog.start()
 
     @property
     def library(self):
@@ -160,14 +224,83 @@ class RingGroup:
             raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
     def check(self) -> None:
-        """Raise if a ring kernel of this group timed out waiting on a
-        neighbour (reads the host-mapped error word; no synchronise)."""
-        if self.error is not None and self.error[0] != 0:
-            raise RuntimeError(
-                f"ring group rank {self.rank}/{self.size}: a ring kernel "
-                f"waited longer than {self.timeout_s} s on a neighbour "
-                f"(a rank is missing or issued a different sequence of "
-                f"ring calls)")
+        """Raise if a ring call of this group waited longer than the
+        timeout on a neighbour, or found a neighbour's slot unfilled
+        (reads the host-mapped error word; no synchronise)."""
+        if self.error is None or self.error[0] == 0:
+            return
+        what = ("found a neighbour's slot unfilled (the neighbour's ring "
+                "call failed)" if self.error[0] == UNFILLED else
+                f"waited longer than {self.timeout_s} s on a neighbour")
+        raise RuntimeError(
+            f"ring group rank {self.rank}/{self.size}: a ring call {what} "
+            f"(a rank is missing or issued a different sequence of ring "
+            f"calls)")
+
+    # ------------------- stream-ordered waits and signals -----------------
+
+    def _event(self) -> torch.cuda.Event:
+        return (self._spare.pop() if self._spare else
+                torch.cuda.Event(enable_timing=True))
+
+    def stream_wait(self, word: int, value: int, stream) -> None:
+        """Enqueue on ``stream``: wait until the pad word at ``word`` is
+        >= ``value``, between two timing events the watchdog reads."""
+        with self._lock:
+            before, after = self._event(), self._event()
+        before.record(stream)
+        self.check_rc(self.library.bs_stream_wait(
+            self.device.index or 0, word, value, stream.cuda_stream),
+            f"stream wait ({STREAM_MEM_OPS})")
+        after.record(stream)
+        with self._lock:
+            self._waits.append([before, after, word, None])
+
+    def stream_write(self, word: int, value: int, stream) -> None:
+        """Enqueue on ``stream``: write ``value`` to the pad word at
+        ``word`` once the work before it is done (its stores visible
+        first)."""
+        self.check_rc(self.library.bs_stream_write(
+            self.device.index or 0, word, value, stream.cuda_stream),
+            f"stream write ({STREAM_MEM_OPS})")
+
+    def _sweep(self) -> None:
+        """Fold the waits that ended into the wait time; note when a wait
+        is first seen reached; on expiry (or a set error word) set the
+        word and poison the words of every wait a stream stands at."""
+        now = time.monotonic()
+        with self._lock:
+            pending = []
+            for entry in self._waits:
+                before, after, _, seen = entry
+                if after.query():
+                    self._waited_ns += int(before.elapsed_time(after) * 1e6)
+                    self._spare += (before, after)
+                    continue
+                if seen is None and before.query():
+                    entry[3] = now
+                pending.append(entry)
+            self._waits = pending
+            if self.error[0] == 0 and any(
+                    seen is not None and now - seen > self.timeout_s
+                    for *_, seen in pending):
+                self.error[0] = TIMED_OUT
+            reached = [word for _, _, word, seen in pending
+                       if seen is not None]
+            if self.error[0] != 0 and reached:
+                # The abort word first: a copy behind a released wait must
+                # find it set (one stream, in order).
+                for word, value in ([(self.abort, self.error[0])] +
+                                    [(word, POISON) for word in reached]):
+                    self.library.bs_stream_write(self.device.index or 0, word,
+                                                 value, self._poison_stream)
+
+    def _watch(self) -> None:
+        poll = min(1.0, self.timeout_s / 8)
+        while not self._stop.wait(poll):
+            self._sweep()
+
+    # ------------------------------ buffers -------------------------------
 
     def buffer(self, kind: str, slot_bytes: int) -> SymmetricBuffer:
         """The symmetric buffer for ``kind`` with slots of at least
@@ -184,8 +317,8 @@ class RingGroup:
 
     def pads(self) -> dict:
         """Each buffer's pad counters (synchronises the device): the
-        epochs and ``wait_ns``, the nanoseconds block 0 of this rank's
-        ring kernels spent waiting on neighbours."""
+        epochs and ``wait_ns``, the nanoseconds block 0 of this rank's K14
+        kernels spent waiting on neighbours."""
         out = {}
         for (kind, stride), buf in self._buffers.items():
             raw = (ctypes.c_ulonglong * len(PAD_FIELDS))()
@@ -194,17 +327,33 @@ class RingGroup:
             out[f"{kind}/{stride}"] = dict(zip(PAD_FIELDS, raw))
         return out
 
+    def stream_wait_ns(self) -> int:
+        """Total time of this rank's stream waits (K12, K13) so far, from
+        their event pairs (synchronises the device)."""
+        torch.cuda.synchronize(self.device)
+        self._sweep()
+        return self._waited_ns
+
     def wait_ns(self) -> int:
-        """Total wait of this rank's ring kernels so far (see pads)."""
-        return sum(pad["wait_ns"] for pad in self.pads().values())
+        """Total wait of this rank's ring calls on neighbours so far: the
+        stream waits, plus K14's in-kernel waits (see pads)."""
+        return self.stream_wait_ns() + sum(
+            pad["wait_ns"] for pad in self.pads().values())
 
     def close(self) -> None:
-        """Unmap the peers' buffers and free this rank's, then raise if a
-        ring kernel of this group timed out. Call on every rank after its
-        last ring call (a barrier keeps a peer from freeing a buffer
-        another rank still reads)."""
-        if self._buffers:
+        """Unmap the peers' buffers and free this rank's, stop the
+        watchdog, then raise if a ring call of this group failed. Call on
+        every rank after its last ring call (a barrier keeps a peer from
+        freeing a buffer another rank still reads)."""
+        if self._watchdog is not None:
             torch.cuda.synchronize(self.device)
+            self._stop.set()
+            self._watchdog.join()
+            self._watchdog = None
+            self.library.bs_ring_stream_destroy(self.device.index or 0,
+                                                self._poison_stream)
+            self.library.bs_ring_free(self.device.index or 0, self.abort)
+        if self._buffers:
             dist.barrier()
             for buf in self._buffers.values():
                 buf.close(self)

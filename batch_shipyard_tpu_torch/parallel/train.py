@@ -155,7 +155,7 @@ def sequence_parallel_group(sp: int, device, world: Optional[int] = None
         raise NotImplementedError(
             f"{world} ranks at sp={sp} leave dp={dp}: data parallelism "
             f"across sequence-parallel rings is not ported yet (ROADMAP "
-            f"queue 1, item 2)")
+            f"queue 1: the rest of the training mesh)")
     return mesh_mod.RingGroup(device=device) if sp > 1 else None
 
 

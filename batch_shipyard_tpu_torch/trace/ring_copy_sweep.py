@@ -1,0 +1,112 @@
+"""K12's and K13's copy kernel over grid sizes, on one card.
+
+    python -m batch_shipyard_tpu_torch.trace.ring_copy_sweep \
+        [--blocks 8,16,33,66,132,264,528,0]
+
+Times one copy of each kind the ring plans launch
+(ops/ring_collectives.py ``_enqueue`` -> ``bs_ring_copy``), in one process
+on local memory: no ring, so no waits, the copy alone. At the sp training
+path's shapes (chip_smoke.py): K12's copy of a (K, V) pair
+``PERMUTE_SHAPE`` bf16 (two segments), and K13's copy of one rank's chunk
+of the fp32 gradient bucket into its output row and its slot. For each
+grid (``0``: the grid the kernels size to the bytes): ms a copy (CUDA
+events over ``--iters`` launches after a warm-up), GB/s of the bytes
+read and written, and the same bytes moved by ``copy_`` (K12: two calls;
+K13: two) as the yardstick. Prints the card's name and power limit, then
+one JSON line. CUDA only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import sys
+
+import torch
+
+from batch_shipyard_tpu_torch.ops import _build
+
+
+def _ms(fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--blocks", default="8,16,33,66,132,264,528,0")
+    parser.add_argument("--iters", type=int, default=20)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("ring_copy_sweep: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from batch_shipyard_tpu_torch.trace.decode_sweep import card
+    print(card(), flush=True)
+    device = torch.device("cuda")
+    lib = _build.library("ring_collectives")
+    flag = ctypes.POINTER(ctypes.c_int)()
+    _build.check(lib.bs_ring_flag_alloc(0, ctypes.byref(flag)), "flag", lib)
+    abort = torch.zeros(1, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream().cuda_stream
+    k = torch.randn(chip_smoke.PERMUTE_SHAPE, device=device).to(torch.bfloat16)
+    v = torch.randn_like(k)
+    nbytes = k.numel() * k.element_size()
+    slot = torch.empty(2 * nbytes, dtype=torch.uint8, device=device)
+    chunk = torch.randn(chip_smoke.bucket_elems() // chip_smoke.SP,
+                        device=device)
+    cbytes = chunk.numel() * 4
+    row = torch.empty_like(chunk)
+    cslot = torch.empty_like(chunk)
+
+    def permute(blocks):
+        return lambda: _build.check(lib.bs_ring_copy(
+            0, 0, k.data_ptr(), slot.data_ptr(), None, v.data_ptr(),
+            slot.data_ptr() + nbytes, nbytes, 16, None, 0, None, 0, flag,
+            abort.data_ptr(), blocks, stream), "copy", lib)
+
+    def gather(blocks):
+        return lambda: _build.check(lib.bs_ring_copy(
+            0, 1, chunk.data_ptr(), row.data_ptr(), cslot.data_ptr(), None,
+            None, cbytes, 16, None, 0, None, 0, flag, abort.data_ptr(),
+            blocks, stream), "copy", lib)
+    k_out, v_out = torch.empty_like(k), torch.empty_like(v)
+
+    def permute_copy_():
+        k_out.copy_(k)
+        v_out.copy_(v)
+
+    def gather_copy_():
+        row.copy_(chunk)
+        cslot.copy_(chunk)
+    rows = {"ring_permute": {"bytes": 4 * nbytes,
+                             "copy_ms": _ms(permute_copy_, args.iters)},
+            "ring_all_gather": {"bytes": 3 * cbytes,
+                                "copy_ms": _ms(gather_copy_, args.iters)}}
+    for blocks in (int(b) for b in args.blocks.split(",")):
+        for key, fn in (("ring_permute", permute), ("ring_all_gather",
+                                                    gather)):
+            ms = _ms(fn(blocks), args.iters)
+            rows[key][f"blocks {blocks}"] = {
+                "ms": ms, "gb_per_s": rows[key]["bytes"] / ms / 1e6}
+    torch.cuda.synchronize()
+    assert torch.equal(slot[:nbytes].view(torch.bfloat16).view_as(k), k)
+    assert torch.equal(slot[nbytes:].view(torch.bfloat16).view_as(v), v)
+    assert torch.equal(row, chunk) and torch.equal(cslot, chunk)
+    assert flag[0] == 0 and int(abort) == 0
+    lib.bs_ring_flag_free(flag)
+    print(json.dumps(rows), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

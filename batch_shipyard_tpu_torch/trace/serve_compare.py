@@ -1,8 +1,8 @@
-"""The serving phase (or the int8 training phase) of two checkouts, in
-turns, on one card.
+"""The serving phase (or the int8 or the sequence-parallel training
+phase) of two checkouts, in turns, on one card.
 
     python -m batch_shipyard_tpu_torch.trace.serve_compare \
-        [--phase serve|train_int8] TREE [TREE ...]
+        [--phase serve|train_int8|train_sp] TREE [TREE ...]
 
 For each TREE in the order given (a checkout of this repo; name one
 twice, as in ``parent change change parent``, to see the spread between
@@ -16,7 +16,11 @@ device-busy ms of a pure decode step, idle share, the attention
 kernel's share). ``train_int8``: its ``chip_smoke.train(quantize=True)``
 (bench_transformer(quantize=True) with the fused loss selected by a
 validation marker in a temp dir: ms a step, the kernels' launches and
-the step's profile). Every line the child prints goes to stdout after a
+the step's profile). ``train_sp``: its ``chip_smoke.train_sp`` (the
+``--sp 4`` workload, four ranks on the card, under the same marker: ms a
+step, every rank's launches, K12 ms and ring wait a step), after building
+the kernels it runs once, so the four ranks do not each compile them.
+Every line the child prints goes to stdout after a
 ``TREE <path> <card>`` header. Both trees must offer these names (the
 port's chip_smoke.py has, since the decode kernels and the int8 kernels
 came in). Runs on CUDA only.
@@ -53,6 +57,16 @@ marker.write_text(json.dumps({chunked_loss.VALIDATION_NAME: {
     "ok": True, "backend": kernel_select.BACKEND}}))
 os.environ[kernel_select.MARKER_ENV] = str(marker)
 smoke.train(torch.device("cuda"), quantize=True)
+""", "train_sp": """
+import json, pathlib, tempfile, torch
+import chip_smoke as smoke
+from batch_shipyard_tpu_torch.ops import _build, chunked_loss, kernel_select
+for name in ("flash_attention", "chunked_loss", "ring_collectives"):
+    _build.build(name)
+marker = pathlib.Path(tempfile.mkdtemp()) / "KERNEL_VALIDATION.json"
+marker.write_text(json.dumps({chunked_loss.VALIDATION_NAME: {
+    "ok": True, "backend": kernel_select.BACKEND}}))
+smoke.train_sp(torch.device("cuda"), {kernel_select.MARKER_ENV: str(marker)})
 """}
 
 

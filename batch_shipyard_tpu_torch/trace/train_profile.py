@@ -11,9 +11,12 @@ on a sequence-parallel ring the permute K12 and the gradient all-reduce
 K13 + K14), the library GEMMs' time and share
 (cuBLAS's kernels: the int8 step's fp32 backward products, the other
 steps' projections and slab-loss products), and the largest device
-kernels. On a ring it also splits the ring kernels' time into ring wait
-(what block 0 of each ring kernel spent waiting on a neighbour, from the
-group's pads) and the rest (copies, adds and launch). chip_smoke.py runs
+kernels. On a ring it also gives ring wait (the time this rank's ring
+calls spent waiting on a neighbour: K12's and K13's stream waits from the
+group's event pairs, and K14's in-kernel wait from its pad), the rest
+(the ring kernels' device time less K14's in-kernel wait: copies, adds
+and launch) and the device kernels each ring call makes (K12: two
+copies; K13: ring copies; K14: one). chip_smoke.py runs
 it on bench.py ``bench_transformer``'s model after its counted training
 steps, and ``workloads/train_transformer.py --profile-steps`` on every
 rank. CUDA only.
@@ -78,7 +81,8 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - started) * 1e3 / steps
     group = getattr(harness, "group", None)
-    wait_ns = group.wait_ns() if group is not None else 0
+    if group is not None:
+        wait_ns, stream_ns = group.wait_ns(), group.stream_wait_ns()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -87,6 +91,7 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
     if group is not None:
         group.check()
         wait_ns = group.wait_ns() - wait_ns
+        in_kernel_ns = wait_ns - (group.stream_wait_ns() - stream_ns)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
@@ -107,14 +112,20 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
     ring = {}
     if group is not None:
         ring_us = sum(per_kernel[key] for key in RING_KERNELS)
+        calls = {key: sum(1 for e in kernels if any(
+                     symbol in e.name for symbol in KERNEL_SYMBOLS[key]))
+                 for key in RING_KERNELS}
         ring = {
+            "ring_kernel_calls_per_step": {key: n / steps
+                                           for key, n in calls.items()},
             "ring_ms_per_step": ring_us / 1e3 / steps,
             "ring_share_of_device": ring_us / device_us,
             "ring_all_reduce_ms_per_step": (
                 per_kernel["ring_all_gather"] +
                 per_kernel["ring_reduce_scatter"]) / 1e3 / steps,
             "ring_wait_ms_per_step": wait_ns / 1e6 / steps,
-            "ring_rest_ms_per_step": (ring_us - wait_ns / 1e3) / 1e3 / steps,
+            "ring_rest_ms_per_step": (
+                ring_us - in_kernel_ns / 1e3) / 1e3 / steps,
         }
     return {
         **ring,

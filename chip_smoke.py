@@ -1876,13 +1876,21 @@ def time_quant(device, readings: dict) -> dict:
 
 
 RING_SOURCE = "batch_shipyard_tpu_torch/ops/csrc/ring_collectives.cu"
-# Faults planted in a copy of ring_collectives.cu, each a wrong slot in one
-# step of one kernel; the check must fail on each at ring 4.
+# Faults planted in a copy of ring_collectives.cu, each wrong bytes in one
+# kind of copy or a wrong slot in one step of one kernel; the check must
+# fail on each at ring 4.
 RING_FAULTS = (
-    # K13: the chunk received at step 1 is filed under step 2's source.
+    # K12: the copy out of the source rank's slot moves K and not V.
+    ("ring_permute_kernel",
+     "for (int i = 0; i < c.segments; ++i)",
+     "for (int i = 0; i < c.segments - (c.filled != nullptr); ++i)",
+     ("permute",)),
+    # K13: every copy that also fills the own slot (the own chunk, and each
+    # forward) drops its last unit, in the output row and in the slot.
     ("ring_all_gather_kernel",
-     "const int src = ag_source(a.rank, t, a.ring);",
-     "const int src = ag_source(a.rank, t + (t == 1), a.ring);",
+     "copy_lanes<U>(c.dst[0], c.dst2[0], c.src[0], c.nbytes);",
+     "copy_lanes<U>(c.dst[0], c.dst2[0], c.src[0], "
+     "c.nbytes - (c.dst2[0] != nullptr ? U : 0));",
      ("all_gather",)),
     # K14: at step 0 every rank adds its part of the wrong chunk.
     ("ring_reduce_scatter_kernel",
@@ -2109,7 +2117,7 @@ def rank_check_collectives(group, fault_group, device) -> dict:
     """On every rank: K12 (+1 and -1 shifts, and its backward through
     autograd), K13 and K14 against their definitions, at the sp path's
     shapes, a ragged shape and identity-valued shards; the planted-fault
-    build must fail K13 and K14. Returns this rank's findings."""
+    build must fail K12, K13 and K14. Returns this rank's findings."""
     me, ring = group.rank, group.size
     failed = []
     worst = dict.fromkeys(RING_KEYS, 0.0)
@@ -2200,6 +2208,14 @@ def rank_check_collectives(group, fault_group, device) -> dict:
     torch.cuda.empty_cache()
     # The planted faults: fresh random inputs, so a stale output row
     # cannot pass for the right one.
+    shape = (2, 64, 4, 64)
+    got = rc.ring_permute_kernel(
+        _draw(device, 42, me, shape, torch.bfloat16),
+        _draw(device, 43, me, shape, torch.bfloat16), fault_group)
+    src = (me - 1) % ring
+    fault_permute = not all(
+        torch.equal(g, _draw(device, seed, src, shape, torch.bfloat16))
+        for g, seed in zip(got, (42, 43)))
     x = _draw(device, 40, me, (64, 128), torch.float32)
     got = rc.ring_all_gather_kernel(x, fault_group)
     want = torch.cat([_draw(device, 40, r, (64, 128), torch.float32)
@@ -2215,7 +2231,8 @@ def rank_check_collectives(group, fault_group, device) -> dict:
     fault_group.check()
     return {"failed": failed, "max_abs_err": worst,
             "k14_rel_l2_vs_sum": worst_rel,
-            "fault_caught": {"all_gather": fault_ag,
+            "fault_caught": {"permute": fault_permute,
+                             "all_gather": fault_ag,
                              "reduce_scatter": fault_rs}}
 
 

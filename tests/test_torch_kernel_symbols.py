@@ -120,3 +120,16 @@ def test_decode_profile_attention_kernel_names_a_kernel(kv_cache):
 ])
 def test_paged_kernel_name(mangled, short):
     assert chip_smoke.paged_kernel_name(mangled) == short
+
+
+def test_ring_copy_kernels_keep_the_profile_names():
+    """K12 and K13 launch one copy kernel per Copy of their plans
+    (ops/ring_collectives.py COPY_KERNELS picks the __global__): the
+    profile's K12 and K13 rows must still find those kernels by name."""
+    from batch_shipyard_tpu_torch.ops import ring_collectives
+    names = global_names(chip_smoke.RING_SOURCE)
+    for key in ("ring_permute", "ring_all_gather"):
+        (symbol,) = train_profile.KERNEL_SYMBOLS[key]
+        assert symbol in names, (key, names)
+        assert key in ring_collectives.COPY_KERNELS
+    assert sorted(ring_collectives.COPY_KERNELS.values()) == [0, 1]

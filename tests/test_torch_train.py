@@ -407,7 +407,7 @@ def test_train_cli_sp4_on_cpu():
 
 
 def test_dp_over_sp_rings_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: the rest of the training mesh"):
         ttrain.sequence_parallel_group(2, "cpu", world=4)
     assert ttrain.sequence_parallel_group(1, "cpu", world=1) is None
     with pytest.raises(ValueError, match="RingGroup of 4"):
