@@ -81,15 +81,12 @@ SIGNATURES = {
         "bs_ring_close": ([_int, _vp], _int),
         "bs_ring_flag_alloc": ([_int, ctypes.POINTER(_intp)], _int),
         "bs_ring_flag_free": ([_intp], _int),
-        "bs_ring_read_pad": ([_int, _vp, ctypes.POINTER(_ull)], _int),
         "bs_ring_copy": (
-            [_int, _int] + [_vp] * 5 + [_ll, _int, _vp, _ull, _vp, _ull,
-                                        _intp, _vp, _int, _vp], _int),
-        "bs_ring_reduce_scatter": (
-            [_int] + [_vp] * 4 + [_ll] * 2 + [_int] * 2 +
-            [_ull, _int, _int, _intp, _ll, _vp], _int),
+            [_int, _int] + [_vp] * 6 + [_ll, _int, _int, _vp, _ull, _vp,
+                                        _ull, _intp, _vp, _int, _vp], _int),
         "bs_virtual_all_gather": (
-            [_int] + [_vp] * 3 + [_ll, _int, _int, _vp], _int),
+            [_int] + [_vp] * 2 + [_ll] + [_int] * 3 + [_vp], _int),
+        "bs_virtual_gather_tile_units": ([], _ll),
         "bs_virtual_reduce_scatter": (
             [_int] + [_vp] * 3 + [_ll, _int, _int, _int, _vp], _int),
         "bs_stream_mem_ops": ([_int, _intp], _int),

@@ -36,35 +36,26 @@
 // forwarded. Data in peer slots is read with ld.global.cg (L2, never a
 // stale L1 line).
 //
-// K12 and K13: waits off the SMs. The TPU kernels wait on DMA semaphores;
-// here every wait and signal of K12 and K13 is a stream-ordered memory
-// operation of the CUDA driver API: cuStreamWaitValue64(GEQ) on the epoch
-// word (own or a peer's, mapped by IPC), cuStreamWriteValue64 of the
-// epoch with the default flag, whose memory barrier makes the preceding copy's stores
+// Waits off the SMs. The TPU kernels wait on DMA semaphores; here every
+// wait and signal of K12-K14 is a stream-ordered memory operation of the
+// CUDA driver API: cuStreamWaitValue64(GEQ) on the epoch word (own or a
+// peer's, mapped by IPC), cuStreamWriteValue64 of the epoch with the
+// default flag, whose memory barrier makes the preceding kernel's stores
 // visible before the signal. The plans (which waits, copies and writes a
-// call makes, in order) are ops/ring_collectives.py's permute_plan and
-// all_gather_plan; this file gives their copy kernels, one launch per copy
-// (K12: two a call, into the own slot and out of the peer's; K13: ring a
-// call). No block of K12 or K13 ever waits on another rank, so a copy is a
-// small grid sized to its bytes. A rank whose stream stands at a wait has
-// no work on the card, and the card's time-slicer runs the other contexts:
-// four ranks on one card no longer pay their neighbours' waits in
-// timeslices.
+// call makes, in order) are ops/ring_collectives.py's permute_plan,
+// all_gather_plan and reduce_scatter_plan; this file gives their copy
+// kernels, one launch per copy (K12: two a call, into the own slot and out
+// of the peer's; K13 and K14: ring a call). K14's copies add: each step's
+// kernel writes the left neighbour's partial plus this rank's part of the
+// step's chunk into the own next slot (the last step: the output). No
+// block ever waits on another rank or another block, so a copy is a small
+// grid sized to its bytes. A rank whose stream stands at a wait has no
+// work on the card, and the card's time-slicer runs the other contexts:
+// four ranks on one card do not pay their neighbours' waits in timeslices.
 //
-// K14: waits inside the kernel. K14 keeps its in-kernel protocol: ranks
-// wait on each other and the blocks of one rank never wait on each other,
-// so its grid must be resident at once, one block per SM (one wave);
-// thread 0 of each block spins (wait_at_least) on ld.acquire.sys of the
-// epoch words, which the owner's blocks raise with st.release.sys when the
-// last of them has arrived (arrive). Such a spinning grid keeps its
-// context's timeslices on a shared card.
-//
-// A hang becomes an error. K14's spins are bounded by %globaltimer: after
-// timeout_ns a block writes the group's error word (host-mapped memory)
-// and returns; every later wait that reads the word returns within 64
-// spins. A stream wait has no bound of its own: the ring group
-// (parallel/mesh.py RingGroup) times each with an event pair, and its
-// watchdog, once a wait has stood longer than the timeout or the error
+// A hang becomes an error. A stream wait has no bound of its own: the ring
+// group (parallel/mesh.py RingGroup) times each with an event pair, and
+// its watchdog, once a wait has stood longer than the timeout or the error
 // word is set, sets the word and writes a poison epoch (2^63) into every
 // word its streams stand waiting on, from a private stream, after the
 // same error into the group's device-side abort word. The copy kernels
@@ -73,19 +64,37 @@
 // the mark of the peer slot it reads: a slot whose write was skipped (its
 // signal released by a poisoned wait) sets both words (kUnfilled) instead
 // of being read, so a failed rank's neighbours fail too rather than read
-// stale data. RingGroup.check raises on the word:
-// before each ring call, after the train workload's synchronise, and in
-// RingGroup.close.
+// stale data. RingGroup.check raises on the word: before each ring call,
+// after the train workload's synchronise, and in RingGroup.close.
+// spin_wait_kernel keeps the in-kernel wait the ring kernels used to make
+// (thread 0 of one block per SM spinning on the pad, bounded by
+// %globaltimer), for trace/ring_wait_probe.py to time against the stream
+// wait.
 //
 // K14/K16 add in ring order. Chunk c's partial starts at rank c+1 and each
 // later rank adds its own contribution to what arrived: ((x_{c+1} + x_{c+2})
-// + ...) + x_c, the schedule of rs_chunk_index. The plain versions add in
-// the same order, so kernel and plain version agree bit for bit; against a
-// plain sum over ranks the difference is fp32 rounding.
+// + ...) + x_c, the schedule of rs_chunk_index, each add T(float + float).
+// The plain versions add in the same order, so kernel and plain version
+// agree bit for bit; against a plain sum over ranks the difference is fp32
+// rounding.
 //
-// K15/K16 run K13's and K14's slot schedule over ring members held on one
-// device, one launch per ring step (so no block ever waits for another):
-// members [ring, 2, chunk] slots in a scratch buffer the wrapper allocates.
+// K15: one pass. Every output row of the one-device all-gather is the
+// concatenation of the shards, so K15 reads the shards once, as one run
+// of ring * nbytes bytes in tiles, and stores each tile at the same offset
+// of every output row; no slot, no scratch, one launch. The unit picks
+// the design. Where the shards' bytes and addresses allow 16-byte units,
+// the bulk design: one thread a block moves 32 KB tiles by cp.async.bulk
+// into a ring of shared-memory stages and out by ring bulk stores. In
+// narrower units, the register design: each thread loads its units once
+// (ld.global.nc) and stores them ring times with streaming stores
+// (st.global.cs), so the ring-fold output does not evict L2. Both were
+// built in 16-byte units: at chip_smoke.py's timing shape (ring 4, 187 MB
+// a shard) the bulk design took 1.3160 ms and the register design 1.4562
+// (bound 1.1160; trace/ring_copy_sweep.py, H100), so 16-byte units run
+// the bulk design alone.
+// K16 still runs K14's slot schedule over members held on one device, one
+// launch per ring step, members' [ring, 2, chunk] slots in a scratch
+// buffer the wrapper allocates.
 //
 // Everything launches on the caller's stream and does not synchronise.
 
@@ -95,6 +104,8 @@
 
 #include <cstdint>
 #include <cstring>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -109,10 +120,8 @@ using u64 = unsigned long long;
 struct Pad {
   u64 ready[2];     // slot s holds write ready[s] (set by the owner)
   u64 consumed[2];  // write consumed[s] of slot s was read (set by reader)
-  u64 arrive_w[2];  // the owner's blocks that finished writing slot s
-  u64 arrive_r[2];  // the owner's blocks that finished reading a peer slot
-  u64 wait_ns;      // ns block 0 of the owner's K14 kernels spent waiting
-  u64 written[2];   // the write a K12/K13 copy last put into slot s
+  u64 wait_ns;      // ns block 0 of spin_wait_kernel spent waiting
+  u64 written[2];   // the write a copy last put into slot s
 };
 static_assert(sizeof(Pad) <= kPadBytes, "pad");
 
@@ -120,15 +129,6 @@ struct Ctl {
   int* error;        // host-mapped error word
   long long timeout_ns;
 };
-
-__device__ __forceinline__ Pad* pad_of(char* base) {
-  return reinterpret_cast<Pad*>(base);
-}
-
-__device__ __forceinline__ char* slot_ptr(char* base, long long stride,
-                                          int s) {
-  return base + kPadBytes + s * stride;
-}
 
 __device__ __forceinline__ u64 ld_acquire(const u64* p) {
   u64 v;
@@ -183,25 +183,7 @@ __device__ bool wait_at_least(const u64* p, u64 want, const Ctl& c,
   return ok != 0;
 }
 
-// Block-wide: count this block in; the block that completes the
-// ``arrivals``-th full grid raises *signal = value.
-__device__ void arrive(u64* counter, u64 arrivals, u64* signal, u64 value) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    const u64 old = atomicAdd(counter, 1ull);
-    if (old + 1 == arrivals * gridDim.x) {
-      __threadfence_system();
-      st_release(signal, value);
-    }
-  }
-}
-
-// Arrivals of a full grid at slot W % 2 up to and including write W.
-__device__ __forceinline__ u64 slot_round(u64 w) { return (w + 1) / 2; }
-
-// Copy units of U bytes, grid-strided; ``dst2`` (if not null) gets a second
-// copy. Peer data is read through L2 only.
+// A copy unit of U bytes.
 template <int U>
 struct Unit;
 template <>
@@ -215,22 +197,70 @@ struct Unit<2> { using T = unsigned short; };
 template <>
 struct Unit<1> { using T = unsigned char; };
 
-template <int U>
-__device__ void copy_units(char* dst, char* dst2, const char* src,
-                           long long nbytes) {
-  using T = typename Unit<U>::T;
-  const long long n = nbytes / U;
-  const T* s = reinterpret_cast<const T*>(src);
-  T* d = reinterpret_cast<T*>(dst);
-  T* d2 = reinterpret_cast<T*>(dst2);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const T v = __ldcg(s + i);
-    __stcg(d + i, v);
-    if (d2 != nullptr) __stcg(d2 + i, v);
+// V consecutive elements of T as one 16-byte (V > 1) or scalar access.
+template <typename T, int V>
+struct Lanes {
+  T v[V];
+};
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ Lanes<T, V> load_cg(const T* p) {
+  Lanes<T, V> r;
+  if constexpr (sizeof(T) * V == 16) {
+    const uint4 u = __ldcg(reinterpret_cast<const uint4*>(p));
+    memcpy(&r, &u, 16);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        const unsigned int u =
+            __ldcg(reinterpret_cast<const unsigned int*>(p + i));
+        memcpy(&r.v[i], &u, 4);
+      } else {
+        const unsigned short u =
+            __ldcg(reinterpret_cast<const unsigned short*>(p + i));
+        memcpy(&r.v[i], &u, 2);
+      }
+    }
   }
+  return r;
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_cg(T* p, const Lanes<T, V>& r) {
+  if constexpr (sizeof(T) * V == 16) {
+    uint4 u;
+    memcpy(&u, &r, 16);
+    __stcg(reinterpret_cast<uint4*>(p), u);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = r.v[i];
+  }
+}
+
+// a = T(float(a) + float(b)), lane by lane: the add of K14 and K16.
+template <typename T, int V>
+__device__ __forceinline__ void add_into(Lanes<T, V>& a,
+                                         const Lanes<T, V>& b) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) a.v[j] = from_f<T>(to_f(a.v[j]) + to_f(b.v[j]));
 }
 
 int sm_count(int device) {
@@ -285,19 +315,15 @@ int cu_rc(CUresult r) {
 
 }  // namespace
 
-// The in-kernel wait K14 makes: a grid of one block per SM whose thread
-// 0 spins on ``word`` (trace/ring_wait_probe.py times it against the
-// stream-ordered wait).
+// The in-kernel wait the ring kernels used to make: a grid of one block
+// per SM whose thread 0 spins on ``word`` (trace/ring_wait_probe.py times
+// it against the stream-ordered wait).
 __global__ void __launch_bounds__(kThreads, 1)
     spin_wait_kernel(const u64* word, u64 value, Ctl ctl, u64* wait_ns) {
   wait_at_least(word, value, ctl, wait_ns);
 }
 
-// ----------------------------- K12, K13 -----------------------------------
-
-__device__ __forceinline__ int ag_source(int me, int step, int ring) {
-  return ((me - step - 1) % ring + ring) % ring;
-}
+// --------------------------- K12, K13, K14 --------------------------------
 
 __device__ __forceinline__ int rs_chunk(int me, int step, int ring) {
   return ((me - step - 2) % ring + ring) % ring;
@@ -305,13 +331,14 @@ __device__ __forceinline__ int rs_chunk(int me, int step, int ring) {
 
 namespace ringcopy {
 
-// One copy of a K12 or K13 plan: segment i moves nbytes from src[i] to
-// dst[i] and, if dst2[i] is set, to dst2[i] too (K13 files a chunk and
-// forwards it in one pass).
+// One copy of a K12, K13 or K14 plan: segment i moves nbytes from src[i]
+// to dst[i] and, if dst2[i] is set, to dst2[i] too (K13 files a chunk and
+// forwards it in one pass); K14 adds ``local`` (if set) on the way.
 struct Copy {
   const char* src[2];
   char* dst[2];
   char* dst2[2];
+  const char* local;  // K14: this rank's part of the step's chunk, or null
   int segments;
   long long nbytes;
   u64* mark;          // written[s] of the own slot this copy fills, or null
@@ -398,6 +425,48 @@ __global__ void __launch_bounds__(kThreads) ring_all_gather_kernel(Copy c) {
   copy_lanes<U>(c.dst[0], c.dst2[0], c.src[0], c.nbytes);
 }
 
+// dst = src, plus ``local`` in lanes [0, added): lanes of V elements of T,
+// grid-strided, kUnroll lanes in flight per thread. src is a peer's slot
+// (or this rank's input), read through L2 only.
+template <typename T, int V>
+__device__ __forceinline__ void add_lanes(T* dst, const T* src,
+                                          const T* local, long long lanes,
+                                          long long added) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < lanes; i += kUnroll * stride) {
+    Lanes<T, V> a[kUnroll], b[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const long long k = i + j * stride;
+      if (k < lanes) a[j] = load_cg<T, V>(src + k * V);
+      if (k < added) b[j] = load_cg<T, V>(local + k * V);
+    }
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const long long k = i + j * stride;
+      if (k < added) add_into(a[j], b[j]);
+      if (k < lanes) store_cg<T, V>(dst + k * V, a[j]);
+    }
+  }
+}
+
+// K14's copies: this rank's part of its first chunk into the own slot (no
+// local part), then at each step the left neighbour's partial plus this
+// rank's part of the step's chunk into the own next slot or, at the last
+// step, the output.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    ring_reduce_scatter_kernel(Copy c) {
+  if (!copy_may_run(c)) return;
+  const long long lanes = c.nbytes / static_cast<long long>(sizeof(T) * V);
+  const long long added = c.local != nullptr ? lanes : 0;
+  add_lanes<T, V>(reinterpret_cast<T*>(c.dst[0]),
+                  reinterpret_cast<const T*>(c.src[0]),
+                  reinterpret_cast<const T*>(c.local), lanes, added);
+}
+
 // Blocks for ``bytes``: one per kBytesPerBlock, at most kMaxBlocks. From
 // trace/ring_copy_sweep.py on an H100: K12's 2 x 32 MiB copy takes 0.1050
 // ms on 16 blocks, 0.0661 on 33, 0.0568 on 66, 0.0531 on 132 (copy_:
@@ -419,67 +488,156 @@ cudaError_t run(int kernel, const Copy& c, int blocks, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T, int V>
+cudaError_t run_add(const Copy& c, int blocks, cudaStream_t stream) {
+  ring_reduce_scatter_kernel<T, V><<<blocks, kThreads, 0, stream>>>(c);
+  return cudaGetLastError();
+}
+
 }  // namespace ringcopy
 
-// ------------------------------ K14 ---------------------------------------
+// ------------------------------ K15 ---------------------------------------
 
-// V consecutive elements of T as one 16-byte (V > 1) or scalar access.
-template <typename T, int V>
-struct Lanes {
-  T v[V];
-};
+namespace vgather {
 
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+// A tile: kTileUnits units of the shards' run, kUnroll a thread (the
+// stage of the bulk design is one 16-byte tile, 32 KB). The wrapper's
+// ring_collectives.VIRTUAL_TILE_UNITS mirrors kTileUnits;
+// bs_virtual_gather_tile_units reports it.
+constexpr int kUnroll = 4;
+constexpr long long kTileUnits = static_cast<long long>(kThreads) * kUnroll;
+constexpr int kStages = 4;
+constexpr int kStageBytes = static_cast<int>(kTileUnits * 16);
 
-template <typename T, int V>
-__device__ __forceinline__ Lanes<T, V> load_cg(const T* p) {
-  Lanes<T, V> r;
-  if constexpr (sizeof(T) * V == 16) {
-    const uint4 u = __ldcg(reinterpret_cast<const uint4*>(p));
-    memcpy(&r, &u, 16);
-  } else {
+// The register design (units of 1, 2, 4 or 8 bytes): x [ring, n] units
+// read as one run of ring * n; tile t holds units [t * kTileUnits,
+// (t + 1) * kTileUnits), thread i its units i + j * kThreads. Each is
+// loaded once and stored at the same offset of every output row (row r
+// starts at unit r * ring * n): row r's columns of shard s are shard s.
+template <int U>
+__global__ void __launch_bounds__(kThreads)
+    virtual_all_gather_kernel(const char* x, char* out, long long nbytes,
+                              int ring) {
+  using T = typename Unit<U>::T;
+  const long long n = nbytes / U;
+  const long long total = n * ring;
+  const T* src = reinterpret_cast<const T*>(x);
+  T* dst = reinterpret_cast<T*>(out);
+  const long long tiles = (total + kTileUnits - 1) / kTileUnits;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long first = t * kTileUnits + threadIdx.x;
+    T v[kUnroll];
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      if constexpr (sizeof(T) == 4) {
-        const unsigned int u =
-            __ldcg(reinterpret_cast<const unsigned int*>(p + i));
-        memcpy(&r.v[i], &u, 4);
-      } else {
-        const unsigned short u =
-            __ldcg(reinterpret_cast<const unsigned short*>(p + i));
-        memcpy(&r.v[i], &u, 2);
+    for (int j = 0; j < kUnroll; ++j) {
+      const long long u = first + j * kThreads;
+      if (u < total) v[j] = __ldg(src + u);
+    }
+    for (int r = 0; r < ring; ++r) {
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        const long long u = first + j * kThreads;
+        const long long at = r * total + u;
+        if (u < total) __stcs(dst + at, v[j]);
       }
     }
   }
-  return r;
 }
 
-template <typename T, int V>
-__device__ __forceinline__ void store_cg(T* p, const Lanes<T, V>& r) {
-  if constexpr (sizeof(T) * V == 16) {
-    uint4 u;
-    memcpy(&u, &r, 16);
-    __stcg(reinterpret_cast<uint4*>(p), u);
-  } else {
-#pragma unroll
-    for (int i = 0; i < V; ++i) p[i] = r.v[i];
-  }
+__device__ __forceinline__ void bulk_load(void* smem, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(hopper::smem_addr(smem)),
+      "l"(src), "r"(bytes), "r"(hopper::smem_addr(bar))
+      : "memory");
 }
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* smem,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(hopper::smem_addr(smem)), "r"(bytes)
+      : "memory");
+}
+
+// At most one bulk group of stores still reading its shared memory.
+__device__ __forceinline__ void bulk_wait_read_1() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+
+// The bulk design (16-byte units): thread 0 of each block
+// loads its tiles of the run (kStageBytes, the last one ragged) into a
+// ring of kStages shared-memory stages with cp.async.bulk, kStages - 1
+// ahead, completed on an mbarrier, and stores each stage into every
+// output row with ring bulk stores in one bulk group; a stage is loaded
+// again once the group before the newest has read it.
+__global__ void __launch_bounds__(32)
+    virtual_all_gather_bulk_kernel(const char* x, char* out,
+                                   long long nbytes, int ring) {
+  extern __shared__ __align__(128) unsigned char stage[];
+  __shared__ __align__(8) uint64_t full[kStages];
+  if (threadIdx.x != 0) return;
+  const long long total = nbytes * ring;
+  const long long tiles = (total + kStageBytes - 1) / kStageBytes;
+  if (blockIdx.x >= tiles) return;
+  const long long mine = (tiles - 1 - blockIdx.x) / gridDim.x + 1;
+  for (int s = 0; s < kStages; ++s) hopper::mbar_init(&full[s], 1);
+  hopper::fence_barrier_init();
+  auto start_of = [&](long long it) {
+    return (blockIdx.x + it * gridDim.x) * static_cast<long long>(kStageBytes);
+  };
+  auto bytes_of = [&](long long start) {
+    const long long left = total - start;
+    return static_cast<uint32_t>(left < kStageBytes ? left : kStageBytes);
+  };
+  auto load = [&](long long it) {
+    const int s = static_cast<int>(it % kStages);
+    const long long start = start_of(it);
+    const uint32_t bytes = bytes_of(start);
+    hopper::mbar_expect_tx(&full[s], bytes);
+    bulk_load(stage + s * kStageBytes, x + start, bytes, &full[s]);
+  };
+  for (long long it = 0; it < kStages - 1 && it < mine; ++it) load(it);
+  for (long long it = 0; it < mine; ++it) {
+    const int s = static_cast<int>(it % kStages);
+    hopper::mbar_wait(&full[s], static_cast<uint32_t>((it / kStages) & 1));
+    const long long start = start_of(it);
+    const uint32_t bytes = bytes_of(start);
+    for (int r = 0; r < ring; ++r)
+      bulk_store(out + r * total + start, stage + s * kStageBytes, bytes);
+    hopper::tma_store_commit();
+    if (it + kStages - 1 < mine) {
+      bulk_wait_read_1();
+      load(it + kStages - 1);
+    }
+  }
+  hopper::tma_store_wait_read();
+}
+
+template <int U>
+cudaError_t run(const char* x, char* out, long long nbytes, int ring,
+                int blocks, cudaStream_t stream) {
+  virtual_all_gather_kernel<U><<<blocks, kThreads, 0, stream>>>(
+      x, out, nbytes, ring);
+  return cudaGetLastError();
+}
+
+cudaError_t run_bulk(const char* x, char* out, long long nbytes, int ring,
+                     int blocks, cudaStream_t stream) {
+  constexpr int smem = kStages * kStageBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      virtual_all_gather_bulk_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  virtual_all_gather_bulk_kernel<<<blocks, 32, smem, stream>>>(x, out, nbytes,
+                                                                ring);
+  return cudaGetLastError();
+}
+
+}  // namespace vgather
+
+// ------------------------------ K16 ---------------------------------------
 
 // dst[i] = T(float(received[i]) + float(local[i])), grid-strided in lanes
 // of V: the arriving partial plus this member's own contribution.
@@ -491,12 +649,9 @@ __device__ void add_chunk(T* dst, const T* received, const T* local,
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < lanes; i += stride) {
-    const Lanes<T, V> a = load_cg<T, V>(received + i * V);
-    const Lanes<T, V> b = load_cg<T, V>(local + i * V);
-    Lanes<T, V> c;
-#pragma unroll
-    for (int j = 0; j < V; ++j) c.v[j] = from_f<T>(to_f(a.v[j]) + to_f(b.v[j]));
-    store_cg<T, V>(dst + i * V, c);
+    Lanes<T, V> a = load_cg<T, V>(received + i * V);
+    add_into(a, load_cg<T, V>(local + i * V));
+    store_cg<T, V>(dst + i * V, a);
   }
 }
 
@@ -509,130 +664,6 @@ __device__ void copy_chunk(T* dst, const T* src, long long n) {
        i < lanes; i += stride)
     store_cg<T, V>(dst + i * V, load_cg<T, V>(src + i * V));
 }
-
-namespace reduce {
-
-struct Args {
-  const void* x;  // [ring * chunk] elements
-  void* out;      // [chunk]
-  char* self;
-  char* left;
-  long long chunk;  // elements
-  long long slot_stride;
-  int rank, ring;
-  u64 base;
-  Ctl ctl;
-};
-
-// The first slot holds this rank's part of chunk rs_chunk(rank, -1); at
-// step t the left neighbour's partial of chunk rs_chunk(rank, t) is pulled,
-// this rank's part added, and the sum goes to the next slot (or, at the
-// last step, where the chunk is this rank's own, to the output).
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads, 1)
-    ring_reduce_scatter_kernel(Args a) {
-  Pad* me = pad_of(a.self);
-  Pad* left = pad_of(a.left);
-  const T* x = static_cast<const T*>(a.x);
-  u64 w = a.base + 1;
-  int s = static_cast<int>(w % 2);
-  if (!wait_at_least(&me->consumed[s], w >= 2 ? w - 2 : 0, a.ctl,
-                     &me->wait_ns))
-    return;
-  const int c0 = rs_chunk(a.rank, -1, a.ring);
-  copy_chunk<T, V>(reinterpret_cast<T*>(slot_ptr(a.self, a.slot_stride, s)),
-                   x + c0 * a.chunk, a.chunk);
-  arrive(&me->arrive_w[s], slot_round(w), &me->ready[s], w);
-  for (int t = 0; t < a.ring - 1; ++t) {
-    const u64 r = a.base + 1 + t;
-    const int rs = static_cast<int>(r % 2);
-    if (!wait_at_least(&left->ready[rs], r, a.ctl, &me->wait_ns)) return;
-    const int c = rs_chunk(a.rank, t, a.ring);
-    const T* from =
-        reinterpret_cast<const T*>(slot_ptr(a.left, a.slot_stride, rs));
-    T* dst = static_cast<T*>(a.out);
-    const bool last = t == a.ring - 2;
-    if (!last) {
-      w = r + 1;
-      s = static_cast<int>(w % 2);
-      if (!wait_at_least(&me->consumed[s], w - 2, a.ctl, &me->wait_ns))
-        return;
-      dst = reinterpret_cast<T*>(slot_ptr(a.self, a.slot_stride, s));
-    }
-    add_chunk<T, V>(dst, from, x + c * a.chunk, a.chunk);
-    if (!last) arrive(&me->arrive_w[s], slot_round(w), &me->ready[s], w);
-    arrive(&me->arrive_r[rs], slot_round(r), &left->consumed[rs], r);
-  }
-}
-
-template <typename T, int V>
-cudaError_t run(const Args& a, int blocks, cudaStream_t stream) {
-  ring_reduce_scatter_kernel<T, V><<<blocks, kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
-}  // namespace reduce
-
-// ------------------------------ K15 ---------------------------------------
-
-namespace vgather {
-
-struct Args {
-  const char* x;  // [ring, nbytes]
-  char* out;      // [ring, ring * nbytes]
-  char* comm;     // [ring, 2, nbytes]
-  long long nbytes;
-  int ring;
-  int step;  // -1 seeds, 0 .. ring-2 moves, ring-1 copies out the last
-};
-
-__device__ __forceinline__ char* comm_slot(const Args& a, int member,
-                                           int s) {
-  return a.comm + (static_cast<long long>(member) * 2 + s) * a.nbytes;
-}
-
-// blockIdx.y is the ring member i. Seed: own shard to its output row and
-// slot 0. Step t: slot t % 2 moves to member i+1's other slot while (from
-// step 1) the chunk that arrived at step t-1 is copied out. Last launch:
-// the chunk of the last step is copied out.
-template <int U>
-__global__ void __launch_bounds__(kThreads) virtual_all_gather_kernel(Args a) {
-  const int i = blockIdx.y;
-  const int ring = a.ring;
-  const long long n = a.nbytes;
-  char* row = a.out + static_cast<long long>(i) * ring * n;
-  if (a.step < 0) {
-    copy_units<U>(row + i * n, comm_slot(a, i, 0),
-                  a.x + static_cast<long long>(i) * n, n);
-    return;
-  }
-  const int slot = a.step % 2;
-  if (a.step < ring - 1) {
-    copy_units<U>(comm_slot(a, (i + 1) % ring, 1 - slot), nullptr,
-                  comm_slot(a, i, slot), n);
-  }
-  if (a.step > 0) {
-    const int src = ag_source(i, a.step - 1, ring);
-    copy_units<U>(row + src * n, nullptr, comm_slot(a, i, slot), n);
-  }
-}
-
-template <int U>
-cudaError_t run(const Args& base, int blocks, cudaStream_t stream) {
-  Args a = base;
-  const dim3 grid(blocks, a.ring);
-  for (int step = -1; step < a.ring; ++step) {
-    a.step = step;
-    virtual_all_gather_kernel<U><<<grid, kThreads, 0, stream>>>(a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
-}  // namespace vgather
-
-// ------------------------------ K16 ---------------------------------------
 
 namespace vreduce {
 
@@ -747,33 +778,29 @@ int bs_ring_flag_alloc(int device, int** ptr) {
 
 int bs_ring_flag_free(int* ptr) { return cudaFreeHost(ptr); }
 
-// The pad of this rank's buffer (its 12 counters) into ``out``;
-// synchronises the device.
-int bs_ring_read_pad(int device, const void* ptr, unsigned long long* out) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceSynchronize();
-  if (err != cudaSuccess) return err;
-  return cudaMemcpy(out, ptr, sizeof(Pad), cudaMemcpyDeviceToHost);
-}
-
-// One copy of a K12 (kernel 0) or K13 (kernel 1) plan on ``stream``:
-// src0 -> dst0 (and dst2_0 if not null), and src1 -> dst1 if src1 is not
-// null, nbytes each, in units of ``unit`` bytes. ``mark``/``mark_value``:
-// the own slot's written word and the write this copy puts there (null:
-// none); ``filled``/``filled_value``: the peer slot's written word and the
-// write it must hold (null: the source is not a peer slot). ``error``: the
+// One copy of a K12 (kernel 0), K13 (kernel 1) or K14 (kernel 2) plan on
+// ``stream``: src0 -> dst0 (and dst2_0 if not null), and src1 -> dst1 if
+// src1 is not null, nbytes each, in units of ``unit`` bytes. Kernel 2
+// adds ``local`` (if not null) on the way, in elements of ``dtype`` (0
+// fp32, 1 bf16), 16-byte lanes where ``unit`` is 16, else one element at
+// a time (``unit`` the element's size). ``mark``/``mark_value``: the own
+// slot's written word and the write this copy puts there (null: none);
+// ``filled``/``filled_value``: the peer slot's written word and the write
+// it must hold (null: the source is not a peer slot). ``error``: the
 // group's host-mapped error word; ``abort``: its device-side word (a
 // zeroed device u64). ``blocks`` 0 sizes the grid to the bytes.
 int bs_ring_copy(int device, int kernel, const void* src0, void* dst0,
-                 void* dst2_0, const void* src1, void* dst1, long long nbytes,
-                 int unit, void* mark, unsigned long long mark_value,
+                 void* dst2_0, const void* src1, void* dst1,
+                 const void* local, long long nbytes, int unit, int dtype,
+                 void* mark, unsigned long long mark_value,
                  const void* filled, unsigned long long filled_value,
                  int* error, void* abort, int blocks, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (nbytes <= 0 || (kernel != 0 && kernel != 1) || error == nullptr ||
-      abort == nullptr)
+  if (nbytes <= 0 || unit <= 0 || kernel < 0 || kernel > 2 ||
+      error == nullptr || abort == nullptr ||
+      (local != nullptr && kernel != 2) ||
+      (kernel == 2 && (src1 != nullptr || dst2_0 != nullptr)))
     return cudaErrorInvalidValue;
   ringcopy::Copy c{};
   c.src[0] = static_cast<const char*>(src0);
@@ -781,6 +808,7 @@ int bs_ring_copy(int device, int kernel, const void* src0, void* dst0,
   c.dst2[0] = static_cast<char*>(dst2_0);
   c.src[1] = static_cast<const char*>(src1);
   c.dst[1] = static_cast<char*>(dst1);
+  c.local = static_cast<const char*>(local);
   c.segments = src1 == nullptr ? 1 : 2;
   c.nbytes = nbytes;
   c.mark = static_cast<u64*>(mark);
@@ -791,6 +819,18 @@ int bs_ring_copy(int device, int kernel, const void* src0, void* dst0,
   c.abort = static_cast<u64*>(abort);
   if (blocks <= 0) blocks = ringcopy::blocks_for(nbytes * c.segments);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == 2) {
+    if (nbytes % unit != 0) return cudaErrorInvalidValue;
+    if (dtype == kF32 && unit == 16)
+      return ringcopy::run_add<float, 4>(c, blocks, s);
+    if (dtype == kF32 && unit == 4)
+      return ringcopy::run_add<float, 1>(c, blocks, s);
+    if (dtype == kBF16 && unit == 16)
+      return ringcopy::run_add<__nv_bfloat16, 8>(c, blocks, s);
+    if (dtype == kBF16 && unit == 2)
+      return ringcopy::run_add<__nv_bfloat16, 1>(c, blocks, s);
+    return cudaErrorInvalidValue;
+  }
   switch (unit) {
     case 16: return ringcopy::run<16>(kernel, c, blocks, s);
     case 8: return ringcopy::run<8>(kernel, c, blocks, s);
@@ -801,67 +841,40 @@ int bs_ring_copy(int device, int kernel, const void* src0, void* dst0,
   return cudaErrorInvalidValue;
 }
 
-// K14. x (ring * chunk elements, dtype 0 fp32 / 1 bf16) -> out (chunk).
-// ``vector``: 16-byte lanes (chunk and addresses allow them).
-int bs_ring_reduce_scatter(int device, const void* x, void* out, void* self,
-                           void* left, long long chunk, long long slot_stride,
-                           int rank, int ring, unsigned long long base,
-                           int dtype, int vector, int* error,
-                           long long timeout_ns, void* stream) {
+// K15. x [ring, nbytes] -> out [ring, ring * nbytes], one launch, in
+// units of ``unit`` bytes: the TMA bulk-copy design in 16-byte units, the
+// register design in narrower ones. ``blocks`` 0: one block per SM (bulk)
+// or two (registers), at most one per tile.
+int bs_virtual_all_gather(int device, const void* x, void* out,
+                          long long nbytes, int ring, int unit, int blocks,
+                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (chunk <= 0 || ring < 2 || rank < 0 || rank >= ring)
+  if (nbytes <= 0 || ring < 2 || unit <= 0 || nbytes % unit != 0)
     return cudaErrorInvalidValue;
-  reduce::Args a{};
-  a.x = x;
-  a.out = out;
-  a.self = static_cast<char*>(self);
-  a.left = static_cast<char*>(left);
-  a.chunk = chunk;
-  a.slot_stride = slot_stride;
-  a.rank = rank;
-  a.ring = ring;
-  a.base = base;
-  a.ctl.error = error;
-  a.ctl.timeout_ns = timeout_ns;
-  const int blocks = sm_count(device);
-  if (blocks <= 0) return cudaErrorInvalidDevice;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return vector ? reduce::run<float, 4>(a, blocks, s)
-                  : reduce::run<float, 1>(a, blocks, s);
-  if (dtype == kBF16)
-    return vector ? reduce::run<__nv_bfloat16, 8>(a, blocks, s)
-                  : reduce::run<__nv_bfloat16, 1>(a, blocks, s);
-  return cudaErrorInvalidValue;
-}
-
-// K15. x [ring, nbytes] -> out [ring, ring * nbytes]; comm: scratch of
-// ring * 2 * nbytes.
-int bs_virtual_all_gather(int device, const void* x, void* out, void* comm,
-                          long long nbytes, int ring, int unit, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (nbytes <= 0 || ring < 2 || ring > 65535) return cudaErrorInvalidValue;
-  vgather::Args a{};
-  a.x = static_cast<const char*>(x);
-  a.out = static_cast<char*>(out);
-  a.comm = static_cast<char*>(comm);
-  a.nbytes = nbytes;
-  a.ring = ring;
-  const int sms = sm_count(device);
-  if (sms <= 0) return cudaErrorInvalidDevice;
-  const int blocks = (sms + ring - 1) / ring * 2;
+  if (blocks <= 0) {
+    const int sms = sm_count(device);
+    if (sms <= 0) return cudaErrorInvalidDevice;
+    const long long tile = vgather::kTileUnits * unit;
+    const long long tiles = (nbytes * ring + tile - 1) / tile;
+    const long long want = unit == 16 ? sms : 2ll * sms;
+    blocks = static_cast<int>(tiles < want ? tiles : want);
+  }
+  const char* src = static_cast<const char*>(x);
+  char* dst = static_cast<char*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (unit) {
-    case 16: return vgather::run<16>(a, blocks, s);
-    case 8: return vgather::run<8>(a, blocks, s);
-    case 4: return vgather::run<4>(a, blocks, s);
-    case 2: return vgather::run<2>(a, blocks, s);
-    case 1: return vgather::run<1>(a, blocks, s);
+    case 16: return vgather::run_bulk(src, dst, nbytes, ring, blocks, s);
+    case 8: return vgather::run<8>(src, dst, nbytes, ring, blocks, s);
+    case 4: return vgather::run<4>(src, dst, nbytes, ring, blocks, s);
+    case 2: return vgather::run<2>(src, dst, nbytes, ring, blocks, s);
+    case 1: return vgather::run<1>(src, dst, nbytes, ring, blocks, s);
   }
   return cudaErrorInvalidValue;
 }
+
+// K15's tile in copy units (a tile is kTileUnits * unit bytes).
+long long bs_virtual_gather_tile_units() { return vgather::kTileUnits; }
 
 // K16. x [ring, ring * chunk] -> out [ring, chunk] (dtype 0 fp32 / 1 bf16);
 // comm: scratch of ring * 2 * chunk elements.

@@ -17,23 +17,25 @@ beside it, which CPU tensors take:
   rank's reduced chunk [c, ...], ``psum_scatter(tiled)``; the partials add
   in ring order (rs_chunk_index), in the kernel and the plain version alike.
 - ``ring_all_gather_virtual`` / ``ring_reduce_scatter_virtual`` (K15,
-  K16): the same slot schedules over ring members held on one device,
-  pure functions of one tensor.
+  K16): the all-gather and reduce-scatter over ring members held on one
+  device, pure functions of one tensor. Their plain versions run the
+  reference's slot schedules; K15 is one pass over the shards
+  (``virtual_gather_tiles``), K16 the slot schedule, a launch a step.
 
 The reference's sequence-parallel path calls only K12; XLA inserts its
 gradient collectives. The port has no XLA, so its gradient all-reduce over
 the sp ranks is K14 followed by K13 on one flat fp32 bucket
 (parallel/train.py).
 
-K12 and K13 are plans. ``permute_plan`` and ``all_gather_plan`` list a
-call's stream operations in order: ``Wait`` (the stream waits until a pad
-word reaches a value), ``Copy`` (one launch of the call's copy kernel) and
-``Write`` (the stream writes a pad word once the copy is done). The
-wrappers issue them on the current stream (``_enqueue``); the CPU tests run
-the same plans over a model of four ranks' pads. A rank that waits holds
-no SM: on a card that time-slices several ranks, the waiting rank's
-slices go to the ranks that have work. K14 keeps its one kernel a call,
-whose blocks spin on the pad.
+K12-K14 are plans. ``permute_plan``, ``all_gather_plan`` and
+``reduce_scatter_plan`` list a call's stream operations in order:
+``Wait`` (the stream waits until a pad word reaches a value), ``Copy``
+(one launch of the call's copy kernel; K14's adds this rank's part of a
+chunk on the way) and ``Write`` (the stream writes a pad word once the
+copy is done). The wrappers issue them on the current stream
+(``_enqueue``); the CPU tests run the same plans over a model of four
+ranks' pads. A rank that waits holds no SM: on a card that time-slices
+several ranks, the waiting rank's slices go to the ranks that have work.
 
 K12-K14 take a ring group (parallel/mesh.RingGroup): its rank, size, gloo
 process group and, on the card, its symmetric buffers, error word and
@@ -65,8 +67,8 @@ from batch_shipyard_tpu_torch.parallel.mesh import SLOT_ALIGN, _round_up
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches (one per wrapper call; K12/K13 launch a copy kernel per
-# Copy of their plan and K15/K16 once per ring step inside one call).
+# Kernel launches (one per wrapper call; K12-K14 launch a copy kernel per
+# Copy of their plan and K16 once per ring step inside one call).
 # chip_smoke.py zeroes and reads these.
 launches = {"ring_permute": 0, "ring_all_gather": 0,
             "ring_reduce_scatter": 0, "virtual_all_gather": 0,
@@ -140,14 +142,17 @@ class Write:
 @dataclasses.dataclass(frozen=True)
 class Copy:
     """One copy kernel from ``src`` to each of ``dsts``. An end is
-    ("in",) the call's input, ("out", i) chunk i of its output (K12: the
-    output pair) or ("slot", rank, s) slot s of ``rank``'s buffer.
-    ``write``: the write number this copy puts into its own slot (0:
-    none); ``read``: the write the peer slot it reads must hold."""
+    ("in",) the call's input, ("in", c) chunk c of it (K14), ("out", i)
+    chunk i of the output (K12: the output pair) or ("slot", rank, s)
+    slot s of ``rank``'s buffer. ``write``: the write number this copy
+    puts into its own slot (0: none); ``read``: the write the peer slot it
+    reads must hold. ``local`` (K14): an end added to ``src`` on the way,
+    T(float(src) + float(local))."""
     src: tuple
     dsts: tuple
     write: int = 0
     read: int = 0
+    local: tuple = None
 
 
 def permute_plan(rank: int, ring: int, shift: int, epoch: int) -> list:
@@ -198,15 +203,49 @@ def all_gather_plan(rank: int, ring: int, base: int) -> list:
     return plan
 
 
+def reduce_scatter_plan(rank: int, ring: int, base: int) -> list:
+    """K14 on ``rank`` after ``base`` writes into its buffer: this rank's
+    part of chunk rs_chunk_index(rank, -1) into write base + 1's slot; at
+    step t the left neighbour's write base + 1 + t (its partial of chunk
+    rs_chunk_index(rank, t)) plus this rank's part of that chunk goes to
+    the own next write or, at the last step, to the output."""
+    left = (rank - 1) % ring
+    w = base + 1
+    s = w % 2
+    plan = [Wait(rank, f"consumed{s}", w - 2)] if w > 2 else []
+    plan += [Copy(("in", rs_chunk_index(rank, -1, ring)),
+                  (("slot", rank, s),), write=w),
+             Write(rank, f"ready{s}", w)]
+    for t in range(ring - 1):
+        r = base + 1 + t
+        rs = r % 2
+        plan.append(Wait(left, f"ready{rs}", r))
+        dst, w = ("out", 0), 0
+        if t < ring - 2:
+            w = r + 1
+            s = w % 2
+            if w > 2:
+                plan.append(Wait(rank, f"consumed{s}", w - 2))
+            dst = ("slot", rank, s)
+        plan.append(Copy(("slot", left, rs), (dst,), write=w, read=r,
+                         local=("in", rs_chunk_index(rank, t, ring))))
+        if w:
+            plan.append(Write(rank, f"ready{s}", w))
+        plan.append(Write(left, f"consumed{rs}", r))
+    return plan
+
+
 # bs_ring_copy's kernel argument: which __global__ a plan's copies launch
-# (the profiler tells K12's time from K13's by it).
-COPY_KERNELS = {"ring_permute": 0, "ring_all_gather": 1}
+# (the profiler tells K12's, K13's and K14's time apart by it).
+COPY_KERNELS = {"ring_permute": 0, "ring_all_gather": 1,
+                "ring_reduce_scatter": 2}
 
 
 def _enqueue(plan: list, group, buf, ends, nbytes: int, unit: int,
-           kernel: str, lib) -> None:
+           kernel: str, lib, dtype: int = 0) -> None:
     """Enqueue ``plan`` on the current stream. ``ends(end)``: the
-    addresses of one copy end, one per segment (K12: K and V)."""
+    addresses of one copy end, one per segment (K12: K and V). K14's adds
+    are in elements of ``dtype`` (a DTYPE_CODES value)."""
     dev = group.device
     stream = torch.cuda.current_stream(dev)
 
@@ -227,15 +266,14 @@ def _enqueue(plan: list, group, buf, ends, nbytes: int, unit: int,
             mark = buf.word(own[1], f"written{own[2]}") if own else None
             filled = (buf.word(op.src[1], f"written{op.src[2]}")
                       if op.read else None)
+            local = at(op.local)[0] if op.local else None
             rc = lib.bs_ring_copy(
                 dev.index or 0, COPY_KERNELS[kernel], src[0], dst[0],
                 dst2[0], src[1] if len(src) > 1 else None,
-                dst[1] if len(dst) > 1 else None, nbytes, unit, mark,
-                op.write, filled, op.read, group.error, group.abort, 0,
-                stream.cuda_stream)
+                dst[1] if len(dst) > 1 else None, local, nbytes, unit,
+                dtype, mark, op.write, filled, op.read, group.error,
+                group.abort, 0, stream.cuda_stream)
             _build.check(rc, kernel.replace("_", " "), lib)
-
-
 
 
 def _check_cuda(name: str, t: torch.Tensor, group) -> None:
@@ -318,23 +356,45 @@ def ring_reduce_scatter_virtual_reference(x_rows: torch.Tensor
     return comm[:, (ring - 1) % 2].clone()
 
 
+# K15's tile in copy units: csrc vgather::kTileUnits (kThreads x kUnroll),
+# which the library reports (bs_virtual_gather_tile_units). A tile is
+# VIRTUAL_TILE_UNITS x unit bytes: in 16-byte units, one 32 KB stage of
+# the bulk design.
+VIRTUAL_TILE_UNITS = 2048
+
+
+def virtual_gather_tiles(nbytes: int, ring: int, tile: int):
+    """K15's launch arithmetic: the ring shards of ``nbytes`` each, read as
+    one run of ring * nbytes bytes in tiles of ``tile`` bytes (the last one
+    ragged). Yields each tile's (source offset, bytes, output offsets): it
+    is read once and stored at the same offset of every output row, row r
+    starting at r * ring * nbytes, so row r's columns of shard s hold
+    shard s."""
+    total = ring * nbytes
+    for start in range(0, total, tile):
+        yield (start, min(tile, total - start),
+               tuple(r * total + start for r in range(ring)))
+
+
 def ring_all_gather_virtual_kernel(x_shards: torch.Tensor,
                                    library=None) -> torch.Tensor:
-    """K15 on the card (any dtype: it copies bytes)."""
+    """K15 on the card (any dtype: it copies bytes), one launch. The unit
+    picks the design: the TMA bulk-copy design where shard bytes and
+    addresses allow 16-byte units, the register design in narrower units
+    (in 16-byte units the bulk design was the faster, 1.3160 against
+    1.4562 ms at chip_smoke's timing shape, PERF.md)."""
     ring = _check_virtual(x_shards, "x_shards")
     if not x_shards.is_cuda or not x_shards.is_contiguous():
         raise ValueError("K15 takes a contiguous CUDA tensor")
     chunk = x_shards.shape[1]
     nbytes = x_shards[0].numel() * x_shards.element_size()
     out = x_shards.new_empty((ring, ring * chunk) + x_shards.shape[2:])
-    comm = x_shards.new_empty((ring, 2) + x_shards.shape[1:])
     lib = _lib(library)
     dev = x_shards.device
-    unit = copy_unit(nbytes, x_shards.data_ptr(), out.data_ptr(),
-                     comm.data_ptr())
+    unit = copy_unit(nbytes, x_shards.data_ptr(), out.data_ptr())
     rc = lib.bs_virtual_all_gather(dev.index or 0, x_shards.data_ptr(),
-                                   out.data_ptr(), comm.data_ptr(), nbytes,
-                                   ring, unit, stream_handle(dev))
+                                   out.data_ptr(), nbytes, ring, unit, 0,
+                                   stream_handle(dev))
     _build.check(rc, "virtual ring all-gather", lib)
     launches["virtual_all_gather"] += 1
     return out
@@ -526,18 +586,21 @@ def ring_reduce_scatter_kernel(x: torch.Tensor, group,
         raise ValueError(f"reduce-scatter dim 0 ({x.shape[0]}) must be "
                          f"divisible by the ring size {ring}")
     group.check()
-    chunk_rows = x.shape[0] // ring
     chunk = x.numel() // ring
-    buf = group.buffer("reduce_scatter", chunk * x.element_size())
-    out = x.new_empty((chunk_rows,) + x.shape[1:])
-    lib = library or group.library
-    dev = x.device
-    rc = lib.bs_ring_reduce_scatter(
-        dev.index or 0, x.data_ptr(), out.data_ptr(), buf.ptr,
-        buf.peer(group.left), chunk, buf.slot_stride, me, ring,
-        buf.writes, DTYPE_CODES[x.dtype], _vector(chunk, x.dtype, x, out),
-        group.error, group.timeout_ns, stream_handle(dev))
-    _build.check(rc, "ring reduce-scatter", lib)
+    nbytes = chunk * x.element_size()
+    buf = group.buffer("reduce_scatter", nbytes)
+    out = x.new_empty((x.shape[0] // ring,) + x.shape[1:])
+    unit = 16 if _vector(chunk, x.dtype, x, out) else x.element_size()
+
+    def ends(end, slot):
+        if slot is not None:
+            return (slot,)
+        if end[0] == "in":
+            return (x.data_ptr() + end[1] * nbytes,)
+        return (out.data_ptr(),)
+    _enqueue(reduce_scatter_plan(me, ring, buf.writes), group, buf, ends,
+           nbytes, unit, "ring_reduce_scatter", library or group.library,
+           DTYPE_CODES[x.dtype])
     buf.writes += ring - 1
     launches["ring_reduce_scatter"] += 1
     return out

@@ -19,33 +19,31 @@ into every other rank of the group once, by CUDA IPC handles exchanged
 over the gloo process group. The ring calls count with epoch counters in
 the pad, so a buffer is reused call after call with no reset.
 
-Two kinds of wait. K12 and K13 wait in the stream: ``stream_wait`` and
-``stream_write`` enqueue the CUDA driver's 64-bit stream memory operations on a
-pad word (the group raises at construction if the device does not offer
-them; nothing falls back), so a rank that waits holds no SM and the card
-runs the ranks that have work. K14 waits inside its kernel, spinning on
-the pad (csrc/ring_collectives.cu's head note).
+Waits in the stream. K12-K14 wait and signal with ``stream_wait`` and
+``stream_write``, which enqueue the CUDA driver's 64-bit stream memory
+operations on a pad word (the group raises at construction if the device
+does not offer them; nothing falls back), so a rank that waits holds no
+SM and the card runs the ranks that have work (csrc/ring_collectives.cu's
+head note). No ring kernel spins.
 
-A hang becomes an error. K14's spins are bounded by ``timeout_s``
-(default ``DEFAULT_TIMEOUT_S``): one that outlives it writes the group's
-error word in host-mapped memory. Each stream wait is timed by a pair of
-CUDA events around it; a watchdog thread treats a wait as expired once
-its "before" event has been seen complete for ``timeout_s`` while its
-"after" event is still open. On expiry, or once the error word is set (a
-K14 timeout, or a copy that found a neighbour's slot unfilled), it sets
-the word, then from a private stream writes it into the group's
-device-side abort word and a poison epoch (``POISON``, 2^63) into every
-pad word this rank's streams stand waiting on; the copy kernels read the
-abort word and copy nothing, so the rank drains instead of hanging in its
-next synchronise. ``RingGroup.check`` raises on the word:
-the wrappers call it before every ring call, the train workload after
-each synchronise, and ``RingGroup.close`` after its own, so a timeout in
-the last step raises too. A rank that never arrives makes its
-neighbours' waits expire, and each rank waiting on one that stopped
-raises in turn: chip_smoke.py's check sees every rank raise within twice
-the timeout. The same event pairs give ``wait_ns``: the nanoseconds this
-rank's ring calls spent waiting on a neighbour (the stream waits, plus
-K14's in-kernel waits from its pad).
+A hang becomes an error. Each stream wait is timed by a pair of CUDA
+events around it; a watchdog thread treats a wait as expired once its
+"before" event has been seen complete for ``timeout_s`` (default
+``DEFAULT_TIMEOUT_S``) while its "after" event is still open. On expiry,
+or once the group's error word (host-mapped memory) is set (a copy that
+found a neighbour's slot unfilled), it sets the word, then from a private
+stream writes it into the group's device-side abort word and a poison
+epoch (``POISON``, 2^63) into every pad word this rank's streams stand
+waiting on; the copy kernels read the abort word and copy nothing, so
+the rank drains instead of hanging in its next synchronise.
+``RingGroup.check`` raises on the word: the wrappers call it before
+every ring call, the train workload after each synchronise, and
+``RingGroup.close`` after its own, so a timeout in the last step raises
+too. A rank that never arrives makes its neighbours' waits expire, and
+each rank waiting on one that stopped raises in turn: chip_smoke.py's
+check sees every rank raise within twice the timeout. The same event
+pairs give ``wait_ns``: the nanoseconds this rank's ring calls spent
+waiting on a neighbour.
 """
 
 from __future__ import annotations
@@ -64,9 +62,8 @@ PAD_BYTES = 256
 SLOT_ALIGN = 256
 IPC_HANDLE_BYTES = 64
 # The counters of a pad, in csrc/ring_collectives.cu's struct Pad order.
-PAD_FIELDS = ("ready0", "ready1", "consumed0", "consumed1", "arrive_w0",
-              "arrive_w1", "arrive_r0", "arrive_r1", "wait_ns", "written0",
-              "written1")
+PAD_FIELDS = ("ready0", "ready1", "consumed0", "consumed1", "wait_ns",
+              "written0", "written1")
 # The epoch the watchdog writes into a word to release every wait on it.
 POISON = 1 << 63
 # The error word's codes (csrc/ring_collectives.cu RingError).
@@ -92,8 +89,8 @@ def _round_up(n: int, to: int) -> int:
 class SymmetricBuffer:
     """One rank's pad + two slots of ``slot_stride`` bytes, and the same
     buffer of every other rank mapped into this process. ``calls`` and
-    ``writes`` are the epoch counters the wrappers pass to the kernels
-    (K12 counts calls; K13/K14 count slot writes)."""
+    ``writes`` are the epoch counters of the wrappers' plans (K12 counts
+    calls; K13/K14 count slot writes)."""
 
     def __init__(self, group: "RingGroup", slot_bytes: int) -> None:
         lib = group.library
@@ -315,30 +312,13 @@ class RingGroup:
             buf = self._buffers[key] = SymmetricBuffer(self, slot_bytes)
         return buf
 
-    def pads(self) -> dict:
-        """Each buffer's pad counters (synchronises the device): the
-        epochs and ``wait_ns``, the nanoseconds block 0 of this rank's K14
-        kernels spent waiting on neighbours."""
-        out = {}
-        for (kind, stride), buf in self._buffers.items():
-            raw = (ctypes.c_ulonglong * len(PAD_FIELDS))()
-            self.check_rc(self.library.bs_ring_read_pad(
-                self.device.index or 0, buf.ptr, raw), "ring read pad")
-            out[f"{kind}/{stride}"] = dict(zip(PAD_FIELDS, raw))
-        return out
-
-    def stream_wait_ns(self) -> int:
-        """Total time of this rank's stream waits (K12, K13) so far, from
-        their event pairs (synchronises the device)."""
+    def wait_ns(self) -> int:
+        """Total wait of this rank's ring calls on neighbours so far: their
+        stream waits' time, from the event pairs (synchronises the
+        device)."""
         torch.cuda.synchronize(self.device)
         self._sweep()
         return self._waited_ns
-
-    def wait_ns(self) -> int:
-        """Total wait of this rank's ring calls on neighbours so far: the
-        stream waits, plus K14's in-kernel waits (see pads)."""
-        return self.stream_wait_ns() + sum(
-            pad["wait_ns"] for pad in self.pads().values())
 
     def close(self) -> None:
         """Unmap the peers' buffers and free this rank's, stop the

@@ -1,4 +1,5 @@
-"""K12's and K13's copy kernel over grid sizes, on one card.
+"""K12's, K13's and K14's copy kernels, and K15, over grid sizes, on one
+card.
 
     python -m batch_shipyard_tpu_torch.trace.ring_copy_sweep \
         [--blocks 8,16,33,66,132,264,528,0]
@@ -7,13 +8,17 @@ Times one copy of each kind the ring plans launch
 (ops/ring_collectives.py ``_enqueue`` -> ``bs_ring_copy``), in one process
 on local memory: no ring, so no waits, the copy alone. At the sp training
 path's shapes (chip_smoke.py): K12's copy of a (K, V) pair
-``PERMUTE_SHAPE`` bf16 (two segments), and K13's copy of one rank's chunk
-of the fp32 gradient bucket into its output row and its slot. For each
-grid (``0``: the grid the kernels size to the bytes): ms a copy (CUDA
+``PERMUTE_SHAPE`` bf16 (two segments), K13's copy of one rank's chunk
+of the fp32 gradient bucket into its output row and its slot, and K14's
+add of a partial and this rank's part of a chunk into a slot. Then K15
+(``bs_virtual_all_gather``) at chip_smoke's timing shape, ring 4 of one
+rank's chunk each (16-byte units: its bulk, TMA, design). For each
+grid (``0``: the grid the kernels size themselves): ms a call (CUDA
 events over ``--iters`` launches after a warm-up), GB/s of the bytes
-read and written, and the same bytes moved by ``copy_`` (K12: two calls;
-K13: two) as the yardstick. Prints the card's name and power limit, then
-one JSON line. CUDA only.
+read and written, and the same bytes moved by PyTorch as the yardstick
+(K12, K13: two ``copy_``; K14: ``torch.add`` into the slot; K15:
+``repeat``). Prints the card's name and power limit, then one JSON line.
+CUDA only.
 """
 
 from __future__ import annotations
@@ -68,17 +73,34 @@ def main(argv=None) -> int:
     row = torch.empty_like(chunk)
     cslot = torch.empty_like(chunk)
 
+    part = torch.randn_like(chunk)
+    aslot = torch.empty_like(chunk)
+
     def permute(blocks):
         return lambda: _build.check(lib.bs_ring_copy(
             0, 0, k.data_ptr(), slot.data_ptr(), None, v.data_ptr(),
-            slot.data_ptr() + nbytes, nbytes, 16, None, 0, None, 0, flag,
-            abort.data_ptr(), blocks, stream), "copy", lib)
+            slot.data_ptr() + nbytes, None, nbytes, 16, 0, None, 0, None, 0,
+            flag, abort.data_ptr(), blocks, stream), "copy", lib)
 
     def gather(blocks):
         return lambda: _build.check(lib.bs_ring_copy(
             0, 1, chunk.data_ptr(), row.data_ptr(), cslot.data_ptr(), None,
-            None, cbytes, 16, None, 0, None, 0, flag, abort.data_ptr(),
-            blocks, stream), "copy", lib)
+            None, None, cbytes, 16, 0, None, 0, None, 0, flag,
+            abort.data_ptr(), blocks, stream), "copy", lib)
+
+    def add(blocks):
+        return lambda: _build.check(lib.bs_ring_copy(
+            0, 2, chunk.data_ptr(), aslot.data_ptr(), None, None, None,
+            part.data_ptr(), cbytes, 16, 0, None, 0, None, 0, flag,
+            abort.data_ptr(), blocks, stream), "add", lib)
+    shards = torch.randn(chip_smoke.SP, chunk.numel(), device=device)
+    gathered = shards.new_empty(chip_smoke.SP, shards.numel())
+    sbytes = chunk.numel() * 4
+
+    def virtual(blocks):
+        return lambda: _build.check(lib.bs_virtual_all_gather(
+            0, shards.data_ptr(), gathered.data_ptr(), sbytes,
+            chip_smoke.SP, 16, blocks, stream), "K15", lib)
     k_out, v_out = torch.empty_like(k), torch.empty_like(v)
 
     def permute_copy_():
@@ -88,13 +110,24 @@ def main(argv=None) -> int:
     def gather_copy_():
         row.copy_(chunk)
         cslot.copy_(chunk)
+
+    def repeat():
+        return shards.reshape(1, -1).repeat(chip_smoke.SP, 1)
     rows = {"ring_permute": {"bytes": 4 * nbytes,
                              "copy_ms": _ms(permute_copy_, args.iters)},
             "ring_all_gather": {"bytes": 3 * cbytes,
-                                "copy_ms": _ms(gather_copy_, args.iters)}}
+                                "copy_ms": _ms(gather_copy_, args.iters)},
+            "ring_reduce_scatter": {
+                "bytes": 3 * cbytes,
+                "copy_ms": _ms(lambda: torch.add(chunk, part, out=aslot),
+                               args.iters)},
+            "virtual_all_gather": {
+                "bytes": (1 + chip_smoke.SP) * shards.numel() * 4,
+                "copy_ms": _ms(repeat, args.iters)}}
+    kinds = (("ring_permute", permute), ("ring_all_gather", gather),
+             ("ring_reduce_scatter", add), ("virtual_all_gather", virtual))
     for blocks in (int(b) for b in args.blocks.split(",")):
-        for key, fn in (("ring_permute", permute), ("ring_all_gather",
-                                                    gather)):
+        for key, fn in kinds:
             ms = _ms(fn(blocks), args.iters)
             rows[key][f"blocks {blocks}"] = {
                 "ms": ms, "gb_per_s": rows[key]["bytes"] / ms / 1e6}
@@ -102,6 +135,8 @@ def main(argv=None) -> int:
     assert torch.equal(slot[:nbytes].view(torch.bfloat16).view_as(k), k)
     assert torch.equal(slot[nbytes:].view(torch.bfloat16).view_as(v), v)
     assert torch.equal(row, chunk) and torch.equal(cslot, chunk)
+    assert torch.equal(aslot, chunk + part)
+    assert torch.equal(gathered, repeat())
     assert flag[0] == 0 and int(abort) == 0
     lib.bs_ring_flag_free(flag)
     print(json.dumps(rows), flush=True)

@@ -11,8 +11,8 @@ CUDA events. Process B meanwhile waits for a word in A's ring pad (a
 ``RingGroup`` buffer that B maps by CUDA IPC), which A raises with a
 stream-ordered write after its loop, in turn:
 
-- ``spin``: the in-kernel wait the ring kernels used to make and K14 still
-  makes, one 512-thread block per SM spinning with ``__nanosleep``
+- ``spin``: the in-kernel wait the ring kernels used to make, one
+  512-thread block per SM spinning with ``__nanosleep``
   (``spin_wait_kernel``);
 - ``stream``: a stream-ordered ``cuStreamWaitValue64(..., GEQ)`` on the
   IPC-mapped word, so B's only pending work is a wait in its stream's

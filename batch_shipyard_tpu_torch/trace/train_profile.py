@@ -12,11 +12,9 @@ K13 + K14), the library GEMMs' time and share
 (cuBLAS's kernels: the int8 step's fp32 backward products, the other
 steps' projections and slab-loss products), and the largest device
 kernels. On a ring it also gives ring wait (the time this rank's ring
-calls spent waiting on a neighbour: K12's and K13's stream waits from the
-group's event pairs, and K14's in-kernel wait from its pad), the rest
-(the ring kernels' device time less K14's in-kernel wait: copies, adds
-and launch) and the device kernels each ring call makes (K12: two
-copies; K13: ring copies; K14: one). chip_smoke.py runs
+calls spent waiting on a neighbour: their stream waits, from the group's
+event pairs) and the device kernels each ring call makes (K12: two
+copies; K13 and K14: ring copies, K14's adding). chip_smoke.py runs
 it on bench.py ``bench_transformer``'s model after its counted training
 steps, and ``workloads/train_transformer.py --profile-steps`` on every
 rank. CUDA only.
@@ -82,7 +80,7 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
     wall_ms = (time.perf_counter() - started) * 1e3 / steps
     group = getattr(harness, "group", None)
     if group is not None:
-        wait_ns, stream_ns = group.wait_ns(), group.stream_wait_ns()
+        wait_ns = group.wait_ns()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -91,7 +89,6 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
     if group is not None:
         group.check()
         wait_ns = group.wait_ns() - wait_ns
-        in_kernel_ns = wait_ns - (group.stream_wait_ns() - stream_ns)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
@@ -124,8 +121,6 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
                 per_kernel["ring_all_gather"] +
                 per_kernel["ring_reduce_scatter"]) / 1e3 / steps,
             "ring_wait_ms_per_step": wait_ns / 1e6 / steps,
-            "ring_rest_ms_per_step": (
-                ring_us - in_kernel_ns / 1e3) / 1e3 / steps,
         }
     return {
         **ring,

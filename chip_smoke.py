@@ -47,9 +47,10 @@ Phases, each fatal on failure:
      reduce-scatter) bit for bit against their plain versions and against
      the definition (the concatenation; the sum over members within the
      reference test's 1e-4 / 1e-6 relative): rings 2, 4 and 8, chunks 16
-     and a ragged 13, fp32 and bf16, random and identity-valued shards
-     (member i filled with i + 1); their planted slot faults
-     (RING_FAULTS) must fail at ring 4;
+     and a ragged 13, 128 features and 3 (K15 in narrower units than 16
+     bytes), fp32 and bf16, random and identity-valued shards (member i
+     filled with i + 1), K15 in both its designs where its unit is 16
+     bytes; their planted faults (RING_FAULTS) must fail at ring 4;
   3. time every kernel, its plain version and a library yardstick
      (scaled_dot_product_attention; for K3-K5 and K9 the same products
      alone through torch.matmul at the kernel's precision) at the main
@@ -89,18 +90,19 @@ Phases, each fatal on failure:
      draw, at the sp path's shapes (the (K, V) pair B8 x 2048 x 16 x 64
      bf16; the 187 M-element fp32 gradient bucket), a ragged shape and
      identity-valued shards, K14 bit for bit against the ring order of
-     adds; a build with a wrong source slot (RING_FAULTS) must fail K13
-     and K14; each rank times K12-K14 (CUDA events, the ranks
+     adds; a build with planted copy faults (RING_FAULTS) must fail K12,
+     K13 and K14; each rank times K12-K14 (CUDA events, the ranks
      time-sliced on the card), their plain versions over gloo and K12's
      copy_ yardstick from the peer's mapped slot; one step's loss and
      gradients of the sp = 4 kernel path at batch 2 x 2048 must sit as
      close to a single-process fp32 model as train_numerics requires;
-     and when rank 3 skips one K12 call every rank must raise within
-     SKIP_RAISE_LIMIT_S. Then ``--seq-len 8192 --sp 4`` training at
-     bench_transformer's widths (batch 8, remat, the fused loss under the
-     marker) through ``python -m torch.distributed.run`` and the
-     workload's entry point, 2 + 3 steps and one profiled: the loss must
-     be finite and fall, and each rank must launch exactly
+     and when rank 3 skips one K12 call of a step shaped like a train
+     step's ring calls (four K12, then K14, then K13) every rank must
+     raise within SKIP_RAISE_LIMIT_S. Then ``--seq-len 8192 --sp 4``
+     training at bench_transformer's widths (batch 8, remat, the fused
+     loss under the marker) through ``python -m torch.distributed.run``
+     and the workload's entry point, 2 + 3 steps and one profiled: the
+     loss must be finite and fall, and each rank must launch exactly
      sp_launches_per_step(rank) a step and no plain version;
   6. the served decode step as a CUDA graph (decode_graph), for each
      bench_serving cache (paged, paged_int8, dense_int8): one request
@@ -137,6 +139,7 @@ import concurrent.futures
 import ctypes
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -1892,16 +1895,22 @@ RING_FAULTS = (
      "copy_lanes<U>(c.dst[0], c.dst2[0], c.src[0], "
      "c.nbytes - (c.dst2[0] != nullptr ? U : 0));",
      ("all_gather",)),
-    # K14: at step 0 every rank adds its part of the wrong chunk.
+    # K14: each add drops this rank's part of its last lane.
     ("ring_reduce_scatter_kernel",
-     "const int c = rs_chunk(a.rank, t, a.ring);",
-     "const int c = rs_chunk(a.rank, t + (t == 0), a.ring);",
+     "const long long added = c.local != nullptr ? lanes : 0;",
+     "const long long added = c.local != nullptr ? lanes - 1 : 0;",
      ("reduce_scatter",)),
-    # K15: member 0 files the chunk of step 1 under the wrong source row.
+    # K15, both designs: output row 0 files shard 1 under shard 2's
+    # columns (the bulk design: a tile that starts in shard 1).
+    ("virtual_all_gather_bulk_kernel",
+     "bulk_store(out + r * total + start, stage + s * kStageBytes, bytes);",
+     "bulk_store(out + r * total + start + (r == 0 && start / nbytes == 1 "
+     "? nbytes : 0), stage + s * kStageBytes, bytes);",
+     ("virtual_all_gather",)),
     ("virtual_all_gather_kernel",
-     "const int src = ag_source(i, a.step - 1, ring);",
-     "const int src = ag_source(i, a.step - 1 + (a.step == 2 && i == 0), "
-     "ring);", ("virtual_all_gather",)),
+     "const long long at = r * total + u;",
+     "const long long at = r * total + u + (r == 0 && u / n == 1 ? n : 0);",
+     ("virtual_all_gather",)),
     # K16: member 0 adds its part of the wrong chunk at step 0.
     ("virtual_reduce_scatter_kernel",
      "const int c = rs_chunk(j, a.step, ring);",
@@ -1977,64 +1986,94 @@ def check_virtual(device, fault_lib) -> dict:
     """Phase 2f: K15 and K16 against their plain versions, bit for bit,
     and against the definition (every row of K15 the concatenation of the
     shards; K16 the sum over members, within RS_ATOL / RS_REL for fp32):
-    ring 2, 4 and 8, chunk 16 and a ragged 13, fp32 and bf16, random and
-    identity-valued shards. At ring 4 each planted slot fault must fail."""
+    ring 2, 4 and 8, chunk 16 and a ragged 13, 128 features and 3 (K15's
+    narrower units), fp32 and bf16, random and identity-valued shards.
+    Then K15 on shards of several MB, where each block moves several
+    tiles and the last one is ragged: the bulk design (16-byte units)
+    refills its stages and flips their mbarrier parity, the register
+    design (2-byte units) strides its grid. The library's tile must be
+    rc.VIRTUAL_TILE_UNITS. At ring 4 each planted fault must fail, on
+    one tile a block and on the large shards."""
     gen = torch.Generator(device=device).manual_seed(12)
     failed, worst_rel = [], 0.0
     worst = {"virtual_all_gather": 0.0, "virtual_reduce_scatter": 0.0}
 
     def err(got, want):
         return float((got.float() - want.float()).abs().max())
-    for ring in (2, 4, 8):
-        for chunk in (16, 13):
-            for dtype in (torch.float32, torch.bfloat16):
-                for identity in (False, True):
-                    name = (f"ring {ring} chunk {chunk} {str(dtype)[6:]}"
-                            f"{' identity' if identity else ''}")
-                    x = (identity_shards(ring, chunk, 128, dtype, device)
-                         if identity else torch.randn(
-                             ring, chunk, 128, generator=gen,
-                             device=device).to(dtype))
-                    got = rc.ring_all_gather_virtual_kernel(x)
-                    want = rc.ring_all_gather_virtual_reference(x)
-                    worst["virtual_all_gather"] = max(
-                        worst["virtual_all_gather"], err(got, want))
-                    full = x.reshape(ring * chunk, 128)
-                    if not (torch.equal(got, want) and
-                            all(torch.equal(got[i], full)
-                                for i in range(ring))):
-                        failed.append(f"K15 {name}")
-                    rows = (identity_shards(ring, ring * chunk, 128, dtype,
-                                            device) if identity else
-                            torch.randn(ring, ring * chunk, 128,
-                                        generator=gen,
-                                        device=device).to(dtype))
-                    got = rc.ring_reduce_scatter_virtual_kernel(rows)
-                    want = rc.ring_reduce_scatter_virtual_reference(rows)
-                    worst["virtual_reduce_scatter"] = max(
-                        worst["virtual_reduce_scatter"], err(got, want))
-                    total = rows.float().sum(dim=0).reshape(ring, chunk, 128)
-                    if not torch.equal(got, want):
-                        failed.append(f"K16 {name} vs plain")
-                    if dtype == torch.float32:
-                        rel = float(torch.linalg.vector_norm(got - total) /
-                                    torch.linalg.vector_norm(total))
-                        worst_rel = max(worst_rel, rel)
-                        if err(got, total) > RS_ATOL or rel > RS_REL:
-                            failed.append(f"K16 {name} vs sum")
-                    elif identity and not torch.equal(got.float(), total):
-                        failed.append(f"K16 {name} vs sum")
-    x = torch.randn(4, 16, 128, generator=gen, device=device)
+
+    def gather(x, name):
+        got = rc.ring_all_gather_virtual_kernel(x)
+        want = rc.ring_all_gather_virtual_reference(x)
+        worst["virtual_all_gather"] = max(worst["virtual_all_gather"],
+                                          err(got, want))
+        full = x.reshape((1, -1) + x.shape[2:])
+        if not (torch.equal(got, want) and torch.equal(
+                got, full.expand_as(got))):
+            failed.append(f"K15 {name}")
+    tile_units = _build.library("ring_collectives") \
+        .bs_virtual_gather_tile_units()
+    if tile_units != rc.VIRTUAL_TILE_UNITS:
+        failed.append(f"K15's tile is {tile_units} units, "
+                      f"VIRTUAL_TILE_UNITS {rc.VIRTUAL_TILE_UNITS}")
+    cases = itertools.product((2, 4, 8), (16, 13), (128, 3),
+                              (torch.float32, torch.bfloat16), (False, True))
+    for ring, chunk, feat, dtype, identity in cases:
+        name = (f"ring {ring} chunk {chunk} x {feat} {str(dtype)[6:]}"
+                f"{' identity' if identity else ''}")
+        x = (identity_shards(ring, chunk, feat, dtype, device) if identity
+             else torch.randn(ring, chunk, feat, generator=gen,
+                              device=device).to(dtype))
+        gather(x, name)
+        rows = (identity_shards(ring, ring * chunk, feat, dtype, device)
+                if identity else torch.randn(ring, ring * chunk, feat,
+                                             generator=gen,
+                                             device=device).to(dtype))
+        got = rc.ring_reduce_scatter_virtual_kernel(rows)
+        want = rc.ring_reduce_scatter_virtual_reference(rows)
+        worst["virtual_reduce_scatter"] = max(
+            worst["virtual_reduce_scatter"], err(got, want))
+        total = rows.float().sum(dim=0).reshape(ring, chunk, feat)
+        if not torch.equal(got, want):
+            failed.append(f"K16 {name} vs plain")
+        if dtype == torch.float32:
+            rel = float(torch.linalg.vector_norm(got - total) /
+                        torch.linalg.vector_norm(total))
+            worst_rel = max(worst_rel, rel)
+            if err(got, total) > RS_ATOL or rel > RS_REL:
+                failed.append(f"K16 {name} vs sum")
+        elif identity and not torch.equal(got.float(), total):
+            failed.append(f"K16 {name} vs sum")
+    # Large shards (MB): 977 and 1465 32 KB tiles in 16-byte units, 7.4
+    # and 11.1 a block of 132, the last one ragged; 5860 4 KB tiles in
+    # 2-byte units, 22.2 a block of 264.
+    large = (torch.randn(4, 2_000_004, 1, generator=gen, device=device),
+             torch.randn(8, 1_000_008, 3, generator=gen,
+                         device=device).to(torch.bfloat16),
+             torch.randn(4, 1_000_001, 3, generator=gen,
+                         device=device).to(torch.bfloat16))
+    for x in large:
+        unit = rc.copy_unit(x[0].numel() * x.element_size())
+        gather(x, f"ring {x.shape[0]} chunk {x.shape[1]} x {x.shape[2]} "
+                  f"{str(x.dtype)[6:]} in {unit}-byte units")
+    # K15's faults: the bulk design on 32 KB shards (one tile a block) and
+    # on the large fp32 shards, the register design in 2-byte units.
+    xs = (torch.randn(4, 64, 128, generator=gen, device=device), large[0],
+          torch.randn(4, 13, 3, generator=gen,
+                      device=device).to(torch.bfloat16))
     rows = torch.randn(4, 64, 128, generator=gen, device=device)
-    fault_ag = not torch.equal(
+    fault_ag = all(not torch.equal(
         rc.ring_all_gather_virtual_kernel(x, library=fault_lib),
-        rc.ring_all_gather_virtual_reference(x))
+        rc.ring_all_gather_virtual_reference(x)) for x in xs)
     fault_rs = not torch.equal(
         rc.ring_reduce_scatter_virtual_kernel(rows, library=fault_lib),
         rc.ring_reduce_scatter_virtual_reference(rows))
     torch.cuda.synchronize()
-    print(f"check K15/K16 (rings 2, 4, 8; chunks 16, 13; fp32, bf16; "
-          f"random and identity shards): {len(failed)} cases failed; max "
+    del large, xs
+    torch.cuda.empty_cache()
+    print(f"check K15/K16 (rings 2, 4, 8; chunks 16, 13 x 128, 3; fp32, "
+          f"bf16; random and identity shards; K15 also on three large "
+          f"shard sets, tile {tile_units} units): "
+          f"{len(failed)} cases failed; max "
           f"|kernel - plain| K15 {worst['virtual_all_gather']:.3g}, K16 "
           f"{worst['virtual_reduce_scatter']:.3g}; K16 vs the plain sum: "
           f"worst relative L2 {worst_rel:.3g} (tol {RS_REL}); planted "
@@ -2049,42 +2088,82 @@ def check_virtual(device, fault_lib) -> dict:
                 "rel_l2_vs_sum": worst_rel}}
 
 
+def device_kernels_per_call(fn, *args) -> int:
+    """The device kernels one call of fn(*args) launches (torch.profiler),
+    after a warm-up call."""
+    fn(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def time_virtual(device, readings: dict) -> dict:
     """Phase 3f: K15 and K16 at ring 4 at the sp path's all-reduce bytes
     (each member's chunk is K13's per-rank chunk of the gradient bucket),
     against their plain versions and one PyTorch call each that computes
     the same function: ``repeat`` of the concatenated shards for K15, a
-    ``sum`` over members for K16 (another order of fp32 adds)."""
+    ``sum`` over members for K16 (another order of fp32 adds). Each
+    kernel's device kernels a call are counted, and its output at this
+    shape must equal its plain version's bit for bit (K15's also the
+    ``repeat``)."""
     chunk = bucket_elems() // SP
     gen = torch.Generator(device=device).manual_seed(13)
     out = {}
+    failed = []
+
+    def same(key, kernel, plain, library, x):
+        got = kernel(x)
+        equal = torch.equal(got, plain(x)) and (
+            library is None or torch.equal(got, library(x)))
+        if not equal:
+            failed.append(key)
+        return {"timing_shape_equal": equal}
     x = torch.randn(SP, chunk, 1, generator=gen, device=device)
+
+    def repeat(t):
+        return t.reshape(1, -1, t.shape[2]).repeat(SP, 1, 1)
     out["virtual_all_gather"] = dict(
         ms=device_ms(rc.ring_all_gather_virtual_kernel, [(x,)], 8),
+        device_kernels_per_call=device_kernels_per_call(
+            rc.ring_all_gather_virtual_kernel, x),
         plain_ms=device_ms(rc.ring_all_gather_virtual_reference, [(x,)], 2),
-        library_ms=device_ms(
-            lambda t: t.reshape(1, -1, t.shape[2]).repeat(SP, 1, 1),
-            [(x,)], 8),
+        library_ms=device_ms(repeat, [(x,)], 8),
         **ring_bound(x.numel() * 4, SP * x.numel() * 4, None),
-        **readings["virtual_all_gather"])
+        **readings["virtual_all_gather"],
+        **same("K15", rc.ring_all_gather_virtual_kernel,
+               rc.ring_all_gather_virtual_reference, repeat, x))
     del x
+    torch.cuda.empty_cache()
     rows = torch.randn(SP, SP * chunk, 1, generator=gen, device=device)
     out["virtual_reduce_scatter"] = dict(
         ms=device_ms(rc.ring_reduce_scatter_virtual_kernel, [(rows,)], 8),
+        device_kernels_per_call=device_kernels_per_call(
+            rc.ring_reduce_scatter_virtual_kernel, rows),
         plain_ms=device_ms(rc.ring_reduce_scatter_virtual_reference,
                            [(rows,)], 2),
         library_ms=device_ms(
             lambda t: t.view(SP, SP, chunk, t.shape[2]).sum(dim=0),
             [(rows,)], 8),
         **ring_bound(rows.numel() * 4, rows.numel() // SP * 4, None),
-        **readings["virtual_reduce_scatter"])
+        **readings["virtual_reduce_scatter"],
+        **same("K16", rc.ring_reduce_scatter_virtual_kernel,
+               rc.ring_reduce_scatter_virtual_reference, None, rows))
     del rows
     torch.cuda.empty_cache()
     for key, row in out.items():
         print(f"time {KERNELS[key]['label']} {key} (ring 4, {chunk} fp32 a "
-              f"member): kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
-              f"ms, bound {row['bound_ms']:.4f} ms (bytes)", flush=True)
+              f"member): kernel {row['ms']:.4f} ms, "
+              f"{row['device_kernels_per_call']} device kernels a call, "
+              f"plain {row['plain_ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"(bytes); equal to the plain version at this shape: "
+              f"{row['timing_shape_equal']}", flush=True)
+    require(not failed, f"{failed} differ from their plain versions at "
+                        f"the timing shape")
     return out
 
 
@@ -2238,16 +2317,16 @@ def rank_check_collectives(group, fault_group, device) -> dict:
 
 def rank_missing_peer(device) -> dict:
     """Steps shaped like a train step's ring calls (four K12 rotations,
-    then a K13) on a group with a SKIP_TIMEOUT_S bound; rank SP - 1 skips
-    the second K12 call of the first step. The epochs pair each rank's
-    i-th call of a buffer, so the skip is silent until the calls part:
-    rank 0's last K12 of the step waits for a call rank SP - 1 makes only
-    next step, while the others wait in K13 for rank 0. Every rank calls
-    on until its group raises. Returns the seconds from the skipped call
-    to this rank's error."""
+    then a K14 and a K13) on a group with a SKIP_TIMEOUT_S bound; rank
+    SP - 1 skips the second K12 call of the first step. The epochs pair
+    each rank's i-th call of a buffer, so the skip is silent until the
+    calls part: rank 0's last K12 of the step waits for a call rank SP - 1
+    makes only next step, while the others wait in K14 for rank 0. Every
+    rank calls on until its group raises. Returns the seconds from the
+    skipped call to this rank's error."""
     group = mesh_mod.RingGroup(device=device, timeout_s=SKIP_TIMEOUT_S)
     k = torch.zeros(2, 64, 4, 64, device=device, dtype=torch.bfloat16)
-    chunk = torch.zeros(64, 128, device=device)
+    bucket = torch.zeros(SP * 64, 128, device=device)
     torch.distributed.barrier()
     started, error = time.perf_counter(), None
     try:
@@ -2256,7 +2335,8 @@ def rank_missing_peer(device) -> dict:
                 if (step, call, group.rank) == (0, 1, group.size - 1):
                     continue
                 rc.ring_permute_kernel(k, k, group)
-            rc.ring_all_gather_kernel(chunk, group)
+            rc.ring_all_gather_kernel(
+                rc.ring_reduce_scatter_kernel(bucket, group), group)
             torch.cuda.synchronize()
             group.check()
     except RuntimeError as err:
@@ -3153,6 +3233,11 @@ def main() -> int:
             row["launches_per_step_by_rank"] = {
                 rank: counts[key] for rank, counts in
                 sp_trained["launches_per_step"].items()}
+            # Device kernels a wrapper call: K12 two copies, K13 and K14
+            # ring (rank 0's profiled step).
+            row["device_kernels_per_call"] = (
+                sp_trained["profile"][0]["ring_kernel_calls_per_step"][key] /
+                sp_trained["launches_per_step"][0][key])
         elif key in virtual_launches:
             # K15/K16 run on no training or serving path: their launches
             # in their own check and timing phase.
@@ -3181,6 +3266,8 @@ def main() -> int:
         row.update({k: t[k] for k in ("max_abs_err", "max_tile_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
                                       "library_ms", "int_mm_ms", "per",
+                                      "timing_shape_equal",
+                                      "device_kernels_per_call",
                                       "bound_nvlink_ms",
                                       "ms_per_rank", "note", "joint",
                                       "tflops", "ceiling_ms",

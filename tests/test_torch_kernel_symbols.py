@@ -123,13 +123,14 @@ def test_paged_kernel_name(mangled, short):
 
 
 def test_ring_copy_kernels_keep_the_profile_names():
-    """K12 and K13 launch one copy kernel per Copy of their plans
+    """K12, K13 and K14 launch one copy kernel per Copy of their plans
     (ops/ring_collectives.py COPY_KERNELS picks the __global__): the
-    profile's K12 and K13 rows must still find those kernels by name."""
+    profile's K12, K13 and K14 rows must still find those kernels by
+    name."""
     from batch_shipyard_tpu_torch.ops import ring_collectives
     names = global_names(chip_smoke.RING_SOURCE)
-    for key in ("ring_permute", "ring_all_gather"):
+    for key in ("ring_permute", "ring_all_gather", "ring_reduce_scatter"):
         (symbol,) = train_profile.KERNEL_SYMBOLS[key]
         assert symbol in names, (key, names)
         assert key in ring_collectives.COPY_KERNELS
-    assert sorted(ring_collectives.COPY_KERNELS.values()) == [0, 1]
+    assert sorted(ring_collectives.COPY_KERNELS.values()) == [0, 1, 2]

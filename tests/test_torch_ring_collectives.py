@@ -7,6 +7,9 @@ reference on the CPU.
   against the definition): all-gather exactly, reduce-scatter within
   1e-6 relative (the reference test's bound: the ring order of fp32 adds
   is the same, XLA's own adds may fuse).
+- K15's tiling (``virtual_gather_tiles``) stores every output byte once,
+  from the right shard, at rings 2, 4 and 8, in every copy unit and at
+  ragged sizes.
 - The plain K12 (both shifts and its gradient), K13 and K14 over four
   gloo processes equal lax.ppermute / all_gather / psum_scatter over the
   four-device CPU mesh, computed in this process (exactly; K14 within
@@ -17,6 +20,7 @@ chip_smoke.py.
 """
 
 import os
+import re
 import sys
 
 import jax
@@ -29,6 +33,7 @@ from jax.sharding import PartitionSpec as P
 from batch_shipyard_tpu.ops import ring_collectives as jrc
 from batch_shipyard_tpu.parallel import mesh as jmesh
 from batch_shipyard_tpu.utils.compat import shard_map
+from batch_shipyard_tpu_torch.ops import _build
 from batch_shipyard_tpu_torch.ops import ring_collectives as rc
 from batch_shipyard_tpu_torch.workloads import distributed
 
@@ -117,6 +122,65 @@ def test_virtual_schedules_reject_bad_rings():
         rc.ring_all_gather_virtual_kernel(torch.zeros(2, 16, 128))
     with pytest.raises(ValueError, match="CUDA"):
         rc.ring_reduce_scatter_virtual_kernel(torch.zeros(2, 16, 128))
+
+
+# Shard sizes: units 1, 2, 4 and 16, one tile or several with a ragged
+# last one (VIRTUAL_TILE_UNITS 16-byte units is one tile).
+TILED_BYTES = [7, 78, 156, 6656, 3 * 16 * rc.VIRTUAL_TILE_UNITS + 48,
+               2 * rc.VIRTUAL_TILE_UNITS + 6]
+
+
+@pytest.mark.parametrize("nbytes", TILED_BYTES)
+@pytest.mark.parametrize("ring", [2, 4, 8])
+def test_virtual_gather_tiles_cover_every_output_byte_once(ring, nbytes):
+    """K15 tiles at VIRTUAL_TILE_UNITS copy units: in 16-byte units (the
+    bulk design) a 32 KB stage, in narrower ones the register design's
+    tile."""
+    unit = rc.copy_unit(nbytes)
+    tiles = {unit * rc.VIRTUAL_TILE_UNITS}
+    shards = np.random.RandomState(ring).randint(
+        0, 256, (ring, nbytes)).astype(np.uint8)
+    run = shards.reshape(-1)
+    for tile in tiles:
+        out = np.zeros(ring * ring * nbytes, np.uint8)
+        hits = np.zeros(out.shape, np.int64)
+        spans = list(rc.virtual_gather_tiles(nbytes, ring, tile))
+        assert len(spans) == -(-ring * nbytes // tile)
+        for start, size, dsts in spans:
+            assert start % unit == 0 and size % unit == 0 and 0 < size <= tile
+            assert len(dsts) == ring
+            for at in dsts:
+                out[at:at + size] = run[start:start + size]
+                hits[at:at + size] += 1
+        assert (hits == 1).all(), tile
+        want = np.asarray(jrc.ring_all_gather_virtual(
+            jnp.asarray(shards[:, None, :]), interpret=True)) \
+            if ring == 2 and nbytes < 200 else np.tile(run, (ring, 1))
+        np.testing.assert_array_equal(out.reshape(ring, ring * nbytes),
+                                      want.reshape(ring, ring * nbytes))
+
+
+def test_virtual_tile_units_match_the_kernel_source():
+    """VIRTUAL_TILE_UNITS is csrc vgather::kTileUnits (kThreads x kUnroll),
+    and a bulk stage is that many 16-byte units; on the card chip_smoke
+    also reads the library's bs_virtual_gather_tile_units."""
+    source = (_build.CSRC / "ring_collectives.cu").read_text()
+    vgather = source[source.index("namespace vgather {"):
+                     source.index("}  // namespace vgather")]
+
+    def constant(name, text=vgather):
+        found = re.findall(rf"constexpr \w+(?: \w+)? {name} = (.+?);",
+                           text)
+        assert len(found) == 1, (name, found)
+        return found[0]
+    threads = int(constant("kThreads", source))
+    unroll = int(constant("kUnroll"))
+    assert threads * unroll == rc.VIRTUAL_TILE_UNITS
+    assert constant("kTileUnits") == \
+        "static_cast<long long>(kThreads) * kUnroll"
+    assert constant("kStageBytes") == \
+        "static_cast<int>(kTileUnits * 16)"
+    assert "return vgather::kTileUnits;" in source
 
 
 def test_copy_unit_and_slot_sizes():

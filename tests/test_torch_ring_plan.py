@@ -1,21 +1,26 @@
-"""K12's and K13's stream plans (ops/ring_collectives.py ``permute_plan``
-and ``all_gather_plan``, the sequences of waits, copies and writes the
-wrappers enqueue) over a model of four ranks' pads and slots, on the CPU.
+"""K12's, K13's and K14's stream plans (ops/ring_collectives.py
+``permute_plan``, ``all_gather_plan`` and ``reduce_scatter_plan``, the
+sequences of waits, copies and writes the wrappers enqueue) over a model
+of four ranks' pads and slots, on the CPU.
 
 Each rank runs its calls' plans in order on one stream, or on two (K12 on
-one, K13 on the other: the buffers are separate, so no order between the
-two kinds is needed), and a seed drawn by hypothesis picks which enabled
-stream moves next. The model follows the kernels' rules: a wait
-blocks until the word reaches its value; a copy does nothing once the
-rank's error word is set, and sets it (unfilled) instead of reading a
-peer slot that does not hold the write the plan waited for; a copy into
-the own slot marks it with its write number. Checked:
+one, K13 and K14 on the other: the buffers are separate, so no order
+between K12 and the others is needed), and a seed drawn by hypothesis
+picks which enabled stream moves next. The model follows the kernels'
+rules: a wait blocks until the word reaches its value; a copy does
+nothing once the rank's error word is set, and sets it (unfilled) instead
+of reading a peer slot that does not hold the write the plan waited for;
+a copy into the own slot marks it with its write number; K14's copies add
+this rank's part of a chunk, and the model carries a partial as the
+ordered tuple of the ranks whose parts it holds. Checked:
 
-- no deadlock over five consecutive calls, with a +1 then -1 shift pair;
+- no deadlock over five or six consecutive calls, with a +1 then -1 shift
+  pair, reduce-scatters and all-gathers;
 - no slot is written before its previous write was consumed;
 - every rank's outputs equal what ``ring_permute_reference`` /
-  ``ring_all_gather_reference`` compute (rank r - shift's pair; every
-  rank's chunk in rank order);
+  ``ring_all_gather_reference`` / ``ring_reduce_scatter_reference``
+  compute (rank r - shift's pair; every rank's chunk in rank order; chunk
+  r's parts added in ring order, rank r + 1's first);
 - with a rank that skips one call, the watchdog's rule (an expired wait,
   or any wait once the error word is set, gets the poison epoch) releases
   every pending wait: every rank drains, and in chip_smoke.py's
@@ -41,14 +46,19 @@ from batch_shipyard_tpu_torch.ops import ring_collectives as rc
 from batch_shipyard_tpu_torch.parallel import mesh
 
 RING = 4
-# Sequences of five consecutive ring calls: ("permute", shift) of K12,
-# ("gather",) of K13.
+# Sequences of consecutive ring calls: ("permute", shift) of K12,
+# ("gather",) of K13, ("reduce",) of K14.
 SEQUENCES = {
     "permute pair then gather": [("permute", 1), ("permute", -1),
                                  ("gather",), ("permute", 1), ("gather",)],
     "permutes": [("permute", 1), ("permute", 1), ("permute", -1),
                  ("permute", -1), ("permute", 1)],
     "gathers": [("gather",), ("gather",), ("permute", 1), ("permute", -1),
+                ("gather",)],
+    # Two train steps' ring calls: rotations, then the gradient all-reduce.
+    "train steps": [("permute", 1), ("permute", -1), ("reduce",),
+                    ("gather",), ("permute", 1), ("reduce",), ("gather",)],
+    "reduces": [("reduce",), ("reduce",), ("permute", 1), ("reduce",),
                 ("gather",)],
 }
 
@@ -59,7 +69,10 @@ def _programs(sequence, streams: int, skip=None):
     index) a rank leaves out."""
     programs = []
     for rank in range(RING):
-        calls, writes = 0, 0
+        calls = 0
+        writes = {"gather": 0, "reduce": 0}
+        plans = {"gather": rc.all_gather_plan,
+                 "reduce": rc.reduce_scatter_plan}
         lanes = [[] for _ in range(streams)]
         for i, call in enumerate(sequence):
             if (rank, i) == skip:
@@ -69,8 +82,8 @@ def _programs(sequence, streams: int, skip=None):
                 plan = rc.permute_plan(rank, RING, call[1], calls)
                 lane = 0
             else:
-                plan = rc.all_gather_plan(rank, RING, writes)
-                writes += RING - 1
+                plan = plans[call[0]](rank, RING, writes[call[0]])
+                writes[call[0]] += RING - 1
                 lane = streams - 1
             lanes[lane] += [(i, op) for op in plan]
         programs.append(lanes)
@@ -135,13 +148,23 @@ class Model:
             self.copy(rank, call, kind, op)
 
     def copy(self, rank, call, kind, op) -> None:
-        if op.src[0] == "in":
+        """Data: (kind, rank, call) of an input; K14's partials (kind,
+        call, chunk, ranks added in order), chunk None once a part of
+        another chunk was added."""
+        if op.src == ("in",):
             data = (kind, rank, call)
+        elif op.src[0] == "in":
+            data = (kind, call, op.src[1], (rank,))
         else:
-            data, write = self.slots[(kind,) + op.src[1:]]
+            # A slot never filled holds the pad's initial mark, 0.
+            data, write = self.slots.get((kind,) + op.src[1:], (None, 0))
             if write != op.read:  # the kernel's unfilled check
                 self.error[rank] = mesh.UNFILLED
                 return
+        if op.local is not None:
+            _, partial_call, chunk, ranks = data
+            data = (kind, partial_call,
+                    chunk if chunk == op.local[1] else None, ranks + (rank,))
         for dst in op.dsts:
             if dst[0] == "out":
                 self.out.setdefault((rank, call), {})[dst[1]] = data
@@ -169,6 +192,9 @@ def _expected(sequence, rank: int, call: int) -> dict:
     kind = sequence[call][0]
     if kind == "permute":
         return {0: (kind, (rank - sequence[call][1]) % RING, call)}
+    if kind == "reduce":
+        return {0: (kind, call, rank,
+                    tuple((rank + 1 + j) % RING for j in range(RING)))}
     return {j: (kind, j, call) for j in range(RING)}
 
 
@@ -203,9 +229,25 @@ def test_poison_releases_every_wait_after_a_skipped_call(skip, streams,
     assert any(model.error), model.error
 
 
-# chip_smoke.py rank_missing_peer's first step: four +1 rotations, then an
-# all-gather, on one stream; rank 3 skips the second rotation.
-MISSING_PEER_STEP = [("permute", 1)] * 4 + [("gather",)]
+@pytest.mark.parametrize("streams", [1, 2])
+@pytest.mark.parametrize("skip", [(3, 2), (0, 3), (1, 5), (2, 0)])
+@settings(max_examples=40, deadline=None)
+@given(seed=st.integers(0, 2 ** 32 - 1))
+def test_poison_releases_every_wait_after_a_skipped_call_of_a_train_step(
+        skip, streams, seed):
+    """The same with K14 in the sequence: a skipped reduce-scatter, an
+    all-gather after it, or a rotation before it."""
+    model = Model(SEQUENCES["train steps"], streams, skip=skip)
+    model.run(random.Random(seed), watchdog=True)
+    assert any(model.error), model.error
+
+
+# chip_smoke.py rank_missing_peer's first step, shaped like a train step's
+# ring calls: four +1 rotations, then a reduce-scatter and an all-gather,
+# on one stream; rank 3 skips the second rotation.
+MISSING_PEER_STEP = [("permute", 1)] * 4 + [("reduce",), ("gather",)]
+# The same step without the reduce-scatter.
+MISSING_PEER_STEP_NO_K14 = [("permute", 1)] * 4 + [("gather",)]
 
 
 @settings(max_examples=100, deadline=None)
@@ -215,6 +257,14 @@ def test_missing_peer_step_fails_every_rank(seed):
     whose copy a failed rank skipped: after the poison every rank's error
     word is set, so each raises at its check after the step."""
     model = Model(MISSING_PEER_STEP, 1, skip=(RING - 1, 1))
+    model.run(random.Random(seed), watchdog=True)
+    assert all(model.error), model.error
+
+
+@settings(max_examples=100, deadline=None)
+@given(seed=st.integers(0, 2 ** 32 - 1))
+def test_missing_peer_step_without_k14_fails_every_rank(seed):
+    model = Model(MISSING_PEER_STEP_NO_K14, 1, skip=(RING - 1, 1))
     model.run(random.Random(seed), watchdog=True)
     assert all(model.error), model.error
 
@@ -244,6 +294,34 @@ def test_plans_keep_the_kernels_epoch_rule():
     assert waits == [rc.Wait(2, "consumed1", 5), rc.Wait(1, "ready1", 7),
                      rc.Wait(2, "consumed0", 6), rc.Wait(1, "ready0", 8),
                      rc.Wait(2, "consumed1", 7), rc.Wait(1, "ready1", 9)]
+
+
+def test_reduce_scatter_plan_keeps_the_kernels_epoch_rule():
+    """K14's plan has K13's epochs and waits; its first copy takes this
+    rank's part of chunk rs_chunk_index(rank, -1), and step t's adds its
+    part of chunk rs_chunk_index(rank, t) to the left neighbour's partial,
+    into the own next slot or, at the last step, the output."""
+    plan = rc.reduce_scatter_plan(2, RING, 6)
+    copies = [op for op in plan if isinstance(op, rc.Copy)]
+    assert [op.write for op in copies] == [7, 8, 9, 0]
+    assert [op.read for op in copies] == [0, 7, 8, 9]
+    assert [op.src for op in copies] == [
+        ("in", rc.rs_chunk_index(2, -1, RING)), ("slot", 1, 1),
+        ("slot", 1, 0), ("slot", 1, 1)]
+    assert [op.local for op in copies] == [None] + [
+        ("in", rc.rs_chunk_index(2, t, RING)) for t in range(RING - 1)]
+    assert [op.dsts for op in copies] == [
+        (("slot", 2, 1),), (("slot", 2, 0),), (("slot", 2, 1),),
+        (("out", 0),)]
+    assert rc.rs_chunk_index(2, RING - 2, RING) == 2  # its own chunk last
+    waits = [op for op in plan if isinstance(op, rc.Wait)]
+    assert waits == [op for op in rc.all_gather_plan(2, RING, 6)
+                     if isinstance(op, rc.Wait)]
+    writes = [op for op in plan if isinstance(op, rc.Write)]
+    assert writes == [op for op in rc.all_gather_plan(2, RING, 6)
+                      if isinstance(op, rc.Write)]
+    assert rc.reduce_scatter_plan(0, RING, 0)[0] == rc.Copy(
+        ("in", rc.rs_chunk_index(0, -1, RING)), (("slot", 0, 1),), write=1)
 
 
 # ------------------- the ring group's watchdog (mesh.py) -------------------
