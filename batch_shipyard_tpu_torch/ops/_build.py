@@ -88,7 +88,8 @@ SIGNATURES = {
             [_int] + [_vp] * 2 + [_ll] + [_int] * 3 + [_vp], _int),
         "bs_virtual_gather_tile_units": ([], _ll),
         "bs_virtual_reduce_scatter": (
-            [_int] + [_vp] * 3 + [_ll, _int, _int, _int, _vp], _int),
+            [_int] + [_vp] * 2 + [_ll] + [_int] * 4 + [_vp], _int),
+        "bs_virtual_reduce_tile_units": ([_int, _int], _ll),
         "bs_stream_mem_ops": ([_int, _intp], _int),
         "bs_ring_stream_create": ([_int, ctypes.POINTER(_vp)], _int),
         "bs_ring_stream_destroy": ([_int, _vp], _int),

@@ -92,9 +92,25 @@
 // a shard) the bulk design took 1.3160 ms and the register design 1.4562
 // (bound 1.1160; trace/ring_copy_sweep.py, H100), so 16-byte units run
 // the bulk design alone.
-// K16 still runs K14's slot schedule over members held on one device, one
-// launch per ring step, members' [ring, 2, chunk] slots in a scratch
-// buffer the wrapper allocates.
+//
+// K16: one pass. The reference's slot schedule moves partials between
+// members' slots because a TPU member's DMA semaphores need them; one
+// device does not. Each element of output row j (member j's reduced
+// chunk j) is read from the ring members once, added in the schedule's
+// order (so the result keeps its bits) and stored once: no slot, no
+// scratch, one launch. At ring 4 the slot schedule read 7 chunks and
+// wrote 4 for each output chunk, 2.2 times one pass's 4 and 1. The unit
+// picks the design. In 16-byte units, the bulk design: a persistent
+// block an SM, whose producer thread loads each tile's ring member parts
+// with cp.async.bulk into one of three 64 KB shared-memory stages and
+// whose 256 consumer threads add them and store with st.global.cs. In
+// narrower units, the register design: two 256-thread blocks an SM, each
+// thread loading the parts of 4 members for its 4 units (16 loads in
+// flight, ld.global.nc.L1::no_allocate) before their adds. Both were
+// built in 16-byte units: at chip_smoke.py's timing shape (ring 4, 187
+// MB a member's chunk) the bulk design took 1.2584-1.2600 ms on 132-528
+// blocks, the register design 1.4632-1.5485 (bound 1.1160;
+// trace/ring_copy_sweep.py, H100), so 16-byte units run the bulk design.
 //
 // Everything launches on the caller's stream and does not synchronise.
 
@@ -639,81 +655,230 @@ cudaError_t run_bulk(const char* x, char* out, long long nbytes, int ring,
 
 // ------------------------------ K16 ---------------------------------------
 
-// dst[i] = T(float(received[i]) + float(local[i])), grid-strided in lanes
-// of V: the arriving partial plus this member's own contribution.
-template <typename T, int V>
-__device__ void add_chunk(T* dst, const T* received, const T* local,
-                          long long n) {
-  const long long lanes = n / V;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < lanes; i += stride) {
-    Lanes<T, V> a = load_cg<T, V>(received + i * V);
-    add_into(a, load_cg<T, V>(local + i * V));
-    store_cg<T, V>(dst + i * V, a);
-  }
-}
-
-template <typename T, int V>
-__device__ void copy_chunk(T* dst, const T* src, long long n) {
-  const long long lanes = n / V;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < lanes; i += stride)
-    store_cg<T, V>(dst + i * V, load_cg<T, V>(src + i * V));
-}
-
 namespace vreduce {
 
-struct Args {
-  const void* x;  // [ring, ring * chunk]
-  void* out;      // [ring, chunk]
-  void* comm;     // [ring, 2, chunk]
-  long long chunk;
-  int ring;
-  int step;  // -1 seeds, 0 .. ring-2 moves and adds
-};
+// The bulk design (16-byte units): a stage of kStageBytes holds one tile
+// of every member, so its tile is kStageBytes / (16 * ring) units; the
+// register design (narrower units) tiles by kTileUnits, kUnroll units a
+// thread. tile_units() gives both; the wrapper's
+// ring_collectives.virtual_reduce_tile_units mirrors it, and
+// bs_virtual_reduce_tile_units reports it.
+constexpr int kBlock = 256;
+constexpr int kUnroll = 4;
+constexpr long long kTileUnits = static_cast<long long>(kBlock) * kUnroll;
+constexpr int kStages = 3;
+constexpr int kStageBytes = 65536;
+// Members a thread of the register design loads before their adds.
+constexpr int kBatch = 4;
 
-// blockIdx.y is the ring member j. Seed: slot 0 holds the member's part of
-// chunk rs_chunk(j, -1). Step t: member j receives member j-1's slot t % 2
-// and adds its own part of chunk rs_chunk(j, t) into its other slot, or at
-// the last step into its output row.
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-    virtual_reduce_scatter_kernel(Args a) {
-  const int j = blockIdx.y;
-  const int ring = a.ring;
-  const long long n = a.chunk;
-  const T* x = static_cast<const T*>(a.x) + static_cast<long long>(j) * ring * n;
-  T* comm = static_cast<T*>(a.comm);
-  if (a.step < 0) {
-    const int c0 = rs_chunk(j, -1, ring);
-    copy_chunk<T, V>(comm + static_cast<long long>(j) * 2 * n, x + c0 * n, n);
-    return;
-  }
-  const int slot = a.step % 2;
-  const int prev = (j - 1 + ring) % ring;
-  const int c = rs_chunk(j, a.step, ring);
-  T* dst = a.step == ring - 2
-               ? static_cast<T*>(a.out) + static_cast<long long>(j) * n
-               : comm + (static_cast<long long>(j) * 2 + 1 - slot) * n;
-  add_chunk<T, V>(dst, comm + (static_cast<long long>(prev) * 2 + slot) * n,
-                  x + c * n, n);
+__host__ __device__ inline bool bulk(int ring, int unit) {
+  return unit == 16 && ring <= kStageBytes / 16;
 }
 
-template <typename T, int V>
-cudaError_t run(const Args& base, int blocks, cudaStream_t stream) {
-  Args a = base;
-  const dim3 grid(blocks, a.ring);
-  for (int step = -1; step < a.ring - 1; ++step) {
-    a.step = step;
-    virtual_reduce_scatter_kernel<T, V><<<grid, kThreads, 0, stream>>>(a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+__host__ __device__ inline long long tile_units(int ring, int unit) {
+  return bulk(ring, unit) ? kStageBytes / (16 * ring) : kTileUnits;
+}
+
+// Out row j's term k: the part of chunk j that member j + 1 + k (mod ring)
+// holds. Member j + 1 seeds the chain (rs_chunk_index(j + 1, -1) is j),
+// then j + 2, ..., j add in turn, as the slot schedule adds them.
+__device__ __forceinline__ int chain_member(int j, int k, int ring) {
+  return (j + 1 + k) % ring;
+}
+
+// Where member m's part of chunk j starts in x [ring, ring * n], in units.
+__device__ __forceinline__ long long part_at(int m, int j, int ring,
+                                             long long n) {
+  return (static_cast<long long>(m) * ring + j) * n;
+}
+
+// One unit read once: ld.global.nc that allocates no L1 line.
+__device__ __forceinline__ uint4 load_once(const uint4* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint2 load_once(const uint2* p) {
+  uint2 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v2.u32 {%0, %1}, [%2];"
+      : "=r"(v.x), "=r"(v.y)
+      : "l"(p));
+  return v;
+}
+__device__ __forceinline__ unsigned int load_once(const unsigned int* p) {
+  unsigned int v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.u32 %0, [%1];"
+      : "=r"(v)
+      : "l"(p));
+  return v;
+}
+__device__ __forceinline__ unsigned short load_once(const unsigned short* p) {
+  unsigned short v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.u16 %0, [%1];"
+      : "=h"(v)
+      : "l"(p));
+  return v;
+}
+
+// Both designs: x [ring, ring * n] -> out [ring, n] in units (n units a
+// chunk); out row j is chunk j summed over the members in the chain's
+// order, each add T(float + float), as the plain version adds. Row j's
+// units are cut into tiles; grid tile t is tile t % per_row of row
+// t / per_row.
+
+// The bulk design (16-byte units, V elements of T each): thread kBlock
+// (the producer) loads a tile's ring member parts with cp.async.bulk into
+// a stage, slot k holding term k, completed on full[s]; kBlock consumer
+// threads add the slots in order, store with st.global.cs, and release
+// the stage on empty[s] (one arrival a warp).
+template <typename T>
+__global__ void __launch_bounds__(kBlock + 32, 1)
+    virtual_reduce_scatter_bulk_kernel(const char* x, char* out,
+                                       long long nbytes, int ring) {
+  extern __shared__ __align__(128) unsigned char stage[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const long long n = nbytes / 16;
+  const long long tile = tile_units(ring, 16);
+  const long long per_row = (n + tile - 1) / tile;
+  const long long tiles = per_row * ring;
+  if (blockIdx.x >= tiles) return;
+  const long long mine = (tiles - 1 - blockIdx.x) / gridDim.x + 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kBlock / 32);
+    }
+    hopper::fence_barrier_init();
   }
-  return cudaSuccess;
+  __syncthreads();
+  if (threadIdx.x >= kBlock) {
+    if (threadIdx.x != kBlock) return;
+    for (long long it = 0; it < mine; ++it) {
+      const int s = static_cast<int>(it % kStages);
+      if (it >= kStages)
+        hopper::mbar_wait(&empty[s],
+                          static_cast<uint32_t>((it / kStages - 1) & 1));
+      const long long t = blockIdx.x + it * gridDim.x;
+      const int j = static_cast<int>(t / per_row);
+      const long long start = (t - j * per_row) * tile;
+      const long long left = n - start;
+      const uint32_t bytes =
+          static_cast<uint32_t>((left < tile ? left : tile) * 16);
+      hopper::mbar_expect_tx(&full[s], bytes * ring);
+      for (int k = 0; k < ring; ++k)
+        vgather::bulk_load(
+            stage + s * kStageBytes + k * tile * 16,
+            x + (part_at(chain_member(j, k, ring), j, ring, n) + start) * 16,
+            bytes, &full[s]);
+    }
+    return;
+  }
+  uint4* dst = reinterpret_cast<uint4*>(out);
+  for (long long it = 0; it < mine; ++it) {
+    const int s = static_cast<int>(it % kStages);
+    hopper::mbar_wait(&full[s], static_cast<uint32_t>((it / kStages) & 1));
+    const long long t = blockIdx.x + it * gridDim.x;
+    const int j = static_cast<int>(t / per_row);
+    const long long start = (t - j * per_row) * tile;
+    const long long left = n - start;
+    const int units = static_cast<int>(left < tile ? left : tile);
+    const uint4* slots =
+        reinterpret_cast<const uint4*>(stage + s * kStageBytes);
+    for (int u = threadIdx.x; u < units; u += kBlock) {
+      Lanes<T, V> acc, part;
+      uint4 w = slots[u];
+      memcpy(&acc, &w, 16);
+      for (int k = 1; k < ring; ++k) {
+        w = slots[k * tile + u];
+        memcpy(&part, &w, 16);
+        add_into(acc, part);
+      }
+      memcpy(&w, &acc, 16);
+      __stcs(dst + j * n + start + u, w);
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(&empty[s]);
+  }
+}
+
+// The register design (units of U bytes, V elements of T each): thread i
+// adds units i + q * kBlock of its tile, q < kUnroll. For each batch of
+// kBatch members it loads their parts of its kUnroll units (16 loads in
+// flight) before the batch's adds; each unit is stored once, with a
+// streaming store.
+template <typename T, int U>
+__global__ void __launch_bounds__(kBlock, 2)
+    virtual_reduce_scatter_kernel(const char* x, char* out, long long nbytes,
+                                  int ring) {
+  using W = typename Unit<U>::T;
+  constexpr int V = U / static_cast<int>(sizeof(T));
+  const long long n = nbytes / U;
+  const long long per_row = (n + kTileUnits - 1) / kTileUnits;
+  const long long tiles = per_row * ring;
+  const W* src = reinterpret_cast<const W*>(x);
+  W* dst = reinterpret_cast<W*>(out);
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int j = static_cast<int>(t / per_row);
+    const long long first = (t - j * per_row) * kTileUnits + threadIdx.x;
+    Lanes<T, V> acc[kUnroll];
+    for (int b = 0; b < ring; b += kBatch) {
+      W part[kBatch][kUnroll];
+#pragma unroll
+      for (int g = 0; g < kBatch; ++g) {
+        const int k = b + g;
+        const W* s = src + part_at(chain_member(j, k, ring), j, ring, n);
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q) {
+          const long long u = first + q * kBlock;
+          if (k < ring && u < n) part[g][q] = load_once(s + u);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < kBatch; ++g) {
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q) {
+          Lanes<T, V> v;
+          memcpy(&v, &part[g][q], U);
+          if (b + g == 0)
+            acc[q] = v;
+          else if (b + g < ring)
+            add_into(acc[q], v);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      const long long u = first + q * kBlock;
+      if (u < n) {
+        W w;
+        memcpy(&w, &acc[q], U);
+        __stcs(dst + j * n + u, w);
+      }
+    }
+  }
+}
+
+// The unit picks the design: 16-byte units (while a stage holds a unit of
+// every member) the bulk one, narrower units the register one.
+template <typename T, int U>
+cudaError_t run(const char* x, char* out, long long nbytes, int ring,
+                int blocks, cudaStream_t stream) {
+  if (!bulk(ring, U)) {
+    virtual_reduce_scatter_kernel<T, U>
+        <<<blocks, kBlock, 0, stream>>>(x, out, nbytes, ring);
+    return cudaGetLastError();
+  }
+  constexpr int smem = kStages * kStageBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      virtual_reduce_scatter_bulk_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  virtual_reduce_scatter_bulk_kernel<T>
+      <<<blocks, kBlock + 32, smem, stream>>>(x, out, nbytes, ring);
+  return cudaGetLastError();
 }
 
 }  // namespace vreduce
@@ -876,31 +1041,54 @@ int bs_virtual_all_gather(int device, const void* x, void* out,
 // K15's tile in copy units (a tile is kTileUnits * unit bytes).
 long long bs_virtual_gather_tile_units() { return vgather::kTileUnits; }
 
-// K16. x [ring, ring * chunk] -> out [ring, chunk] (dtype 0 fp32 / 1 bf16);
-// comm: scratch of ring * 2 * chunk elements.
+// K16. x [ring, ring * nbytes] -> out [ring, nbytes] (dtype 0 fp32, 1
+// bf16), one launch, no scratch, in units of ``unit`` bytes (16, 8, 4, or
+// bf16's 2): the bulk design in 16-byte units, the register design in
+// narrower ones. ``blocks`` 0: one block per SM (bulk) or two (registers),
+// at most one per tile.
 int bs_virtual_reduce_scatter(int device, const void* x, void* out,
-                              void* comm, long long chunk, int ring,
-                              int dtype, int vector, void* stream) {
+                              long long nbytes, int ring, int dtype, int unit,
+                              int blocks, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (chunk <= 0 || ring < 2 || ring > 65535) return cudaErrorInvalidValue;
-  vreduce::Args a{};
-  a.x = x;
-  a.out = out;
-  a.comm = comm;
-  a.chunk = chunk;
-  a.ring = ring;
-  const int sms = sm_count(device);
-  if (sms <= 0) return cudaErrorInvalidDevice;
-  const int blocks = (sms + ring - 1) / ring * 2;
+  if (nbytes <= 0 || ring < 2 || unit <= 0 || nbytes % unit != 0)
+    return cudaErrorInvalidValue;
+  if (blocks <= 0) {
+    const int sms = sm_count(device);
+    if (sms <= 0) return cudaErrorInvalidDevice;
+    const long long tile = vreduce::tile_units(ring, unit);
+    const long long tiles = (nbytes / unit + tile - 1) / tile * ring;
+    const long long want = vreduce::bulk(ring, unit) ? sms : 2ll * sms;
+    blocks = static_cast<int>(tiles < want ? tiles : want);
+  }
+  const char* src = static_cast<const char*>(x);
+  char* dst = static_cast<char*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return vector ? vreduce::run<float, 4>(a, blocks, s)
-                  : vreduce::run<float, 1>(a, blocks, s);
-  if (dtype == kBF16)
-    return vector ? vreduce::run<__nv_bfloat16, 8>(a, blocks, s)
-                  : vreduce::run<__nv_bfloat16, 1>(a, blocks, s);
+  if (dtype == kF32) {
+    switch (unit) {
+      case 16: return vreduce::run<float, 16>(src, dst, nbytes, ring,
+                                              blocks, s);
+      case 8: return vreduce::run<float, 8>(src, dst, nbytes, ring, blocks,
+                                            s);
+      case 4: return vreduce::run<float, 4>(src, dst, nbytes, ring, blocks,
+                                            s);
+    }
+  } else if (dtype == kBF16) {
+    using B = __nv_bfloat16;
+    switch (unit) {
+      case 16: return vreduce::run<B, 16>(src, dst, nbytes, ring, blocks, s);
+      case 8: return vreduce::run<B, 8>(src, dst, nbytes, ring, blocks, s);
+      case 4: return vreduce::run<B, 4>(src, dst, nbytes, ring, blocks, s);
+      case 2: return vreduce::run<B, 2>(src, dst, nbytes, ring, blocks, s);
+    }
+  }
   return cudaErrorInvalidValue;
+}
+
+// K16's tile in units of ``unit`` bytes at this ring (a tile is that many
+// units of one output row).
+long long bs_virtual_reduce_tile_units(int ring, int unit) {
+  return vreduce::tile_units(ring, unit);
 }
 
 // 1 in *supported when the CUDA driver offers 64-bit stream waits and

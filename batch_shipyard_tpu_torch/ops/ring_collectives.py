@@ -20,7 +20,8 @@ beside it, which CPU tensors take:
   K16): the all-gather and reduce-scatter over ring members held on one
   device, pure functions of one tensor. Their plain versions run the
   reference's slot schedules; K15 is one pass over the shards
-  (``virtual_gather_tiles``), K16 the slot schedule, a launch a step.
+  (``virtual_gather_tiles``), K16 one pass over the members, adding in
+  the schedule's order (``virtual_reduce_tiles``).
 
 The reference's sequence-parallel path calls only K12; XLA inserts its
 gradient collectives. The port has no XLA, so its gradient all-reduce over
@@ -68,7 +69,7 @@ from batch_shipyard_tpu_torch.parallel.mesh import SLOT_ALIGN, _round_up
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches (one per wrapper call; K12-K14 launch a copy kernel per
-# Copy of their plan and K16 once per ring step inside one call).
+# Copy of their plan inside one call).
 # chip_smoke.py zeroes and reads these.
 launches = {"ring_permute": 0, "ring_all_gather": 0,
             "ring_reduce_scatter": 0, "virtual_all_gather": 0,
@@ -376,6 +377,40 @@ def virtual_gather_tiles(nbytes: int, ring: int, tile: int):
                tuple(r * total + start for r in range(ring)))
 
 
+# K16's tiles (csrc vreduce): the bulk design (16-byte units) stages one
+# tile of every member in VIRTUAL_REDUCE_STAGE_BYTES of shared memory
+# (kStageBytes), the register design tiles by VIRTUAL_REDUCE_TILE_UNITS
+# (kTileUnits, kBlock x kUnroll).
+VIRTUAL_REDUCE_STAGE_BYTES = 65536
+VIRTUAL_REDUCE_TILE_UNITS = 1024
+
+
+def virtual_reduce_tile_units(ring: int, unit: int) -> int:
+    """K16's tile, in copy units of ``unit`` bytes, at ``ring`` members
+    (csrc vreduce::tile_units; the library's
+    bs_virtual_reduce_tile_units)."""
+    if unit == 16 and ring <= VIRTUAL_REDUCE_STAGE_BYTES // 16:
+        return VIRTUAL_REDUCE_STAGE_BYTES // (16 * ring)
+    return VIRTUAL_REDUCE_TILE_UNITS
+
+
+def virtual_reduce_tiles(elems: int, ring: int, tile: int):
+    """K16's launch arithmetic: each output row j (member j's reduced
+    chunk, ``elems`` elements) in tiles of ``tile`` elements (the
+    virtual_reduce_tile_units of the unit, in elements), the last one of a
+    row ragged; grid tile t is tile t % per_row of row t // per_row.
+    Yields each tile's (row, offset, length, members): the tile's elements
+    of chunk j are read once from each member and added in the order
+    ``members`` lists, member j + 1 first (rs_chunk_index(j + 1, -1) is
+    j), then j + 2, ..., j, as the slot schedule adds them."""
+    per_row = -(-elems // tile)
+    for t in range(ring * per_row):
+        row, start = divmod(t, per_row)
+        start *= tile
+        yield (row, start, min(tile, elems - start),
+               tuple((row + 1 + k) % ring for k in range(ring)))
+
+
 def ring_all_gather_virtual_kernel(x_shards: torch.Tensor,
                                    library=None) -> torch.Tensor:
     """K15 on the card (any dtype: it copies bytes), one launch. The unit
@@ -402,7 +437,14 @@ def ring_all_gather_virtual_kernel(x_shards: torch.Tensor,
 
 def ring_reduce_scatter_virtual_kernel(x_rows: torch.Tensor,
                                        library=None) -> torch.Tensor:
-    """K16 on the card (fp32 or bf16)."""
+    """K16 on the card (fp32 or bf16), one launch and no scratch: each
+    output unit read from the ring members once, added in the plain
+    version's order and stored once (``virtual_reduce_tiles`` mirrors the
+    tiling). The unit picks the design: the TMA bulk-copy design where
+    the chunk's bytes and the addresses allow 16-byte units, the register
+    design in 8-, 4- or bf16's 2-byte units (in 16-byte units the bulk
+    design was the faster, 1.2596 against 1.5485 ms on the default grid
+    at chip_smoke's timing shape, PERF.md)."""
     ring = _check_virtual(x_rows, "x_rows")
     if not x_rows.is_cuda or not x_rows.is_contiguous():
         raise ValueError("K16 takes a contiguous CUDA tensor")
@@ -412,15 +454,14 @@ def ring_reduce_scatter_virtual_kernel(x_rows: torch.Tensor,
         raise ValueError(f"row length {x_rows.shape[1]} must be divisible "
                          f"by the ring size {ring}")
     chunk = x_rows.shape[1] // ring
-    elems = chunk * math.prod(x_rows.shape[2:])
+    nbytes = chunk * math.prod(x_rows.shape[2:]) * x_rows.element_size()
     out = x_rows.new_empty((ring, chunk) + x_rows.shape[2:])
-    comm = x_rows.new_empty((ring, 2, chunk) + x_rows.shape[2:])
     lib = _lib(library)
     dev = x_rows.device
+    unit = copy_unit(nbytes, x_rows.data_ptr(), out.data_ptr())
     rc = lib.bs_virtual_reduce_scatter(
-        dev.index or 0, x_rows.data_ptr(), out.data_ptr(), comm.data_ptr(),
-        elems, ring, DTYPE_CODES[x_rows.dtype],
-        _vector(elems, x_rows.dtype, x_rows, out, comm), stream_handle(dev))
+        dev.index or 0, x_rows.data_ptr(), out.data_ptr(), nbytes, ring,
+        DTYPE_CODES[x_rows.dtype], unit, 0, stream_handle(dev))
     _build.check(rc, "virtual ring reduce-scatter", lib)
     launches["virtual_reduce_scatter"] += 1
     return out

@@ -50,7 +50,10 @@ Phases, each fatal on failure:
      and a ragged 13, 128 features and 3 (K15 in narrower units than 16
      bytes), fp32 and bf16, random and identity-valued shards (member i
      filled with i + 1), K15 in both its designs where its unit is 16
-     bytes; their planted faults (RING_FAULTS) must fail at ring 4;
+     bytes; then each on large shapes (several tiles a block, the last
+     one ragged; K16 also in units narrower than 16 bytes and on a
+     misaligned view); their planted faults (RING_FAULTS; K16's two
+     each in a build of its own) must fail at ring 4;
   3. time every kernel, its plain version and a library yardstick
      (scaled_dot_product_attention; for K3-K5 and K9 the same products
      alone through torch.matmul at the kernel's precision) at the main
@@ -408,9 +411,11 @@ DECODE_FAULTS = (
 FAULTS = {"flash_attention": FLASH_FAULTS, "chunked_loss": LOSS_FAULTS,
           "fused_norm": NORM_FAULTS, "quantization": QUANT_FAULTS,
           "decode_attention": DECODE_FAULTS}
-# Sources whose faults are built one library each (check_kernels reads
-# each fault alone); the others plant all of theirs in one build.
-FAULTS_ONE_BY_ONE = ("decode_attention",)
+# Faults built one library each, by source: their indices in FAULTS
+# (check_kernels reads each decode fault alone, check_virtual each of
+# K16's). Every source also gets one build with all its faults planted,
+# unless all of them are built alone.
+FAULTS_ONE_BY_ONE = {"decode_attention": tuple(range(len(DECODE_FAULTS)))}
 
 KERNELS = {
     "flash_fwd": dict(
@@ -1911,13 +1916,25 @@ RING_FAULTS = (
      "const long long at = r * total + u;",
      "const long long at = r * total + u + (r == 0 && u / n == 1 ? n : 0);",
      ("virtual_all_gather",)),
-    # K16: member 0 adds its part of the wrong chunk at step 0.
-    ("virtual_reduce_scatter_kernel",
-     "const int c = rs_chunk(j, a.step, ring);",
-     "const int c = rs_chunk(j, a.step + (a.step == 0 && j == 0), ring);",
+    # K16, both designs (the helpers each kernel's addresses and chain run
+    # through): (a) output row 0 reads member 2's term from chunk 1;
+    ("part_at",
+     "return (static_cast<long long>(m) * ring + j) * n;",
+     "return (static_cast<long long>(m) * ring + j + (j == 0 && m == 2)) * "
+     "n;",
+     ("virtual_reduce_scatter",)),
+    # (b) output row 0 adds its second and third terms the other way
+    # round, (x1 + x3) + x2 at ring 4: the same terms, not the ring order.
+    ("chain_member",
+     "return (j + 1 + k) % ring;",
+     "return (j + 1 + (j == 0 && (k == 1 || k == 2) ? 3 - k : k)) % ring;",
      ("virtual_reduce_scatter",)),
 )
 FAULTS["ring_collectives"] = RING_FAULTS
+# K16's faults are read each from a build of its own, so that one cannot
+# hide the other.
+VREDUCE_FAULTS = (len(RING_FAULTS) - 2, len(RING_FAULTS) - 1)
+FAULTS_ONE_BY_ONE["ring_collectives"] = VREDUCE_FAULTS
 NVLINK_BYTES_PER_S = 450e9  # one direction of one H100's NVLink
 SP = 4
 # The ring kernels' wait bound in the four-rank checks, and the shorter
@@ -1982,7 +1999,7 @@ def identity_shards(ring, rows, feat, dtype, device):
             .contiguous())
 
 
-def check_virtual(device, fault_lib) -> dict:
+def check_virtual(device, fault_lib, vreduce_fault_libs) -> dict:
     """Phase 2f: K15 and K16 against their plain versions, bit for bit,
     and against the definition (every row of K15 the concatenation of the
     shards; K16 the sum over members, within RS_ATOL / RS_REL for fp32):
@@ -1991,9 +2008,16 @@ def check_virtual(device, fault_lib) -> dict:
     Then K15 on shards of several MB, where each block moves several
     tiles and the last one is ragged: the bulk design (16-byte units)
     refills its stages and flips their mbarrier parity, the register
-    design (2-byte units) strides its grid. The library's tile must be
-    rc.VIRTUAL_TILE_UNITS. At ring 4 each planted fault must fail, on
-    one tile a block and on the large shards."""
+    design (2-byte units) strides its grid. Then K16 on rows of 16-256
+    MB in every unit of each dtype: several tiles a block with the last
+    tile of a row ragged (the bulk design at rings 3, 4 and 8), chunks
+    whose bytes are not a multiple of 16, and views that start 1, 2 or 4
+    elements into their storage (the register design). The library's
+    tiles must be rc.VIRTUAL_TILE_UNITS and K16's
+    rc.virtual_reduce_tile_units. At ring 4 each planted fault must
+    fail, on one tile a block and on the large shards, in each design:
+    fault_lib holds K15's, vreduce_fault_libs one build each of K16's
+    (VREDUCE_FAULTS)."""
     gen = torch.Generator(device=device).manual_seed(12)
     failed, worst_rel = [], 0.0
     worst = {"virtual_all_gather": 0.0, "virtual_reduce_scatter": 0.0}
@@ -2010,11 +2034,20 @@ def check_virtual(device, fault_lib) -> dict:
         if not (torch.equal(got, want) and torch.equal(
                 got, full.expand_as(got))):
             failed.append(f"K15 {name}")
-    tile_units = _build.library("ring_collectives") \
-        .bs_virtual_gather_tile_units()
+    lib = _build.library("ring_collectives")
+    tile_units = lib.bs_virtual_gather_tile_units()
     if tile_units != rc.VIRTUAL_TILE_UNITS:
         failed.append(f"K15's tile is {tile_units} units, "
                       f"VIRTUAL_TILE_UNITS {rc.VIRTUAL_TILE_UNITS}")
+    reduce_units = {(ring, unit): lib.bs_virtual_reduce_tile_units(ring,
+                                                                   unit)
+                    for ring in (2, 3, 4, 8, 4096, 4097)
+                    for unit in (16, 8, 4, 2)}
+    wrong = {key: got for key, got in reduce_units.items()
+             if got != rc.virtual_reduce_tile_units(*key)}
+    if wrong:
+        failed.append(f"K16's tiles (ring, unit): {wrong} differ from "
+                      f"virtual_reduce_tile_units")
     cases = itertools.product((2, 4, 8), (16, 13), (128, 3),
                               (torch.float32, torch.bfloat16), (False, True))
     for ring, chunk, feat, dtype, identity in cases:
@@ -2055,31 +2088,79 @@ def check_virtual(device, fault_lib) -> dict:
         unit = rc.copy_unit(x[0].numel() * x.element_size())
         gather(x, f"ring {x.shape[0]} chunk {x.shape[1]} x {x.shape[2]} "
                   f"{str(x.dtype)[6:]} in {unit}-byte units")
+    # K16's large rows (ring, chunk, feat, dtype, elements the view starts
+    # into its storage): in 16-byte units (the bulk design) 489, 489 and
+    # 513 tiles a row at rings 4, 8 and 3 (14.8, 29.6 and 11.7 a block of
+    # 132, the last one of each row ragged); chunks of 999,999 fp32 and
+    # 300,003 bf16 (the register design in 4- and 2-byte units, 977 and
+    # 293 tiles a row); views 2, 1, 4, 2 and 1 elements in (8-, 4-, 8-,
+    # 4- and 2-byte units).
+    units, large_rows = set(), {}
+    for ring, chunk, feat, dtype, shift in (
+            (4, 1_000_004, 2, torch.float32, 0),
+            (8, 250_001, 8, torch.bfloat16, 0),
+            (3, 700_001, 4, torch.float32, 0),
+            (4, 333_333, 3, torch.float32, 0),
+            (8, 100_001, 3, torch.bfloat16, 0),
+            (4, 250_000, 2, torch.float32, 2),
+            (8, 125_000, 2, torch.float32, 1),
+            (4, 250_000, 4, torch.bfloat16, 4),
+            (8, 125_000, 4, torch.bfloat16, 2),
+            (4, 250_000, 4, torch.bfloat16, 1)):
+        shape = (ring, ring * chunk, feat)
+        storage = torch.randn(shift + math.prod(shape), generator=gen,
+                              device=device).to(dtype)
+        rows = storage[shift:].view(shape)
+        unit = rc.copy_unit(chunk * feat * rows.element_size(),
+                            rows.data_ptr())
+        units.add((str(dtype)[6:], unit))
+        got = rc.ring_reduce_scatter_virtual_kernel(rows)
+        want = rc.ring_reduce_scatter_virtual_reference(rows)
+        worst["virtual_reduce_scatter"] = max(
+            worst["virtual_reduce_scatter"], err(got, want))
+        if not torch.equal(got, want):
+            failed.append(f"K16 ring {ring} chunk {chunk} x {feat} "
+                          f"{str(dtype)[6:]} {shift} elements in, "
+                          f"{unit}-byte units, vs plain")
+        if (ring, dtype) == (4, torch.float32) and unit in (16, 4):
+            large_rows[unit] = rows
+        del storage, rows, got, want
+    if len(units) != 7:
+        failed.append(f"K16's large cases took units {sorted(units)}")
     # K15's faults: the bulk design on 32 KB shards (one tile a block) and
-    # on the large fp32 shards, the register design in 2-byte units.
+    # on the large fp32 shards, the register design in 2-byte units. K16's
+    # (a wrong chunk read; two adds swapped), each in both designs: fp32
+    # rows of one tile a row and the large ones, in 16- and 4-byte units.
     xs = (torch.randn(4, 64, 128, generator=gen, device=device), large[0],
           torch.randn(4, 13, 3, generator=gen,
                       device=device).to(torch.bfloat16))
-    rows = torch.randn(4, 64, 128, generator=gen, device=device)
     fault_ag = all(not torch.equal(
         rc.ring_all_gather_virtual_kernel(x, library=fault_lib),
         rc.ring_all_gather_virtual_reference(x)) for x in xs)
-    fault_rs = not torch.equal(
-        rc.ring_reduce_scatter_virtual_kernel(rows, library=fault_lib),
-        rc.ring_reduce_scatter_virtual_reference(rows))
+    rows = (torch.randn(4, 64, 128, generator=gen, device=device),
+            torch.randn(4, 52, 3, generator=gen, device=device),
+            large_rows[16], large_rows[4])
+    fault_rs = [all(not torch.equal(
+        rc.ring_reduce_scatter_virtual_kernel(r, library=bad),
+        rc.ring_reduce_scatter_virtual_reference(r)) for r in rows)
+        for bad in vreduce_fault_libs]
     torch.cuda.synchronize()
-    del large, xs
+    del large, xs, rows, large_rows
     torch.cuda.empty_cache()
     print(f"check K15/K16 (rings 2, 4, 8; chunks 16, 13 x 128, 3; fp32, "
           f"bf16; random and identity shards; K15 also on three large "
-          f"shard sets, tile {tile_units} units): "
+          f"shard sets, tile {tile_units} units; K16 on ten large row "
+          f"sets in units {sorted(units)}, tiles at rings 2, 3, 4, 8 in "
+          f"16-byte units {[reduce_units[r, 16] for r in (2, 3, 4, 8)]}): "
           f"{len(failed)} cases failed; max "
           f"|kernel - plain| K15 {worst['virtual_all_gather']:.3g}, K16 "
           f"{worst['virtual_reduce_scatter']:.3g}; K16 vs the plain sum: "
           f"worst relative L2 {worst_rel:.3g} (tol {RS_REL}); planted "
-          f"faults caught: K15 {fault_ag}, K16 {fault_rs}", flush=True)
-    failed += [f"planted fault in {k} passed" for k, caught in
-               (("K15", fault_ag), ("K16", fault_rs)) if not caught]
+          f"faults caught: K15 {fault_ag}, K16 wrong chunk "
+          f"{fault_rs[0]}, K16 swapped adds {fault_rs[1]}", flush=True)
+    failed += [f"planted fault {k} passed" for k, caught in
+               (("in K15", fault_ag), ("K16 wrong chunk", fault_rs[0]),
+                ("K16 swapped adds", fault_rs[1])) if not caught]
     require(not failed, f"K15/K16: {failed}")
     return {"virtual_all_gather": {
                 "max_abs_err": worst["virtual_all_gather"]},
@@ -2107,9 +2188,9 @@ def time_virtual(device, readings: dict) -> dict:
     against their plain versions and one PyTorch call each that computes
     the same function: ``repeat`` of the concatenated shards for K15, a
     ``sum`` over members for K16 (another order of fp32 adds). Each
-    kernel's device kernels a call are counted, and its output at this
-    shape must equal its plain version's bit for bit (K15's also the
-    ``repeat``)."""
+    kernel's device kernels a call are counted (each is one launch, no
+    scratch), and its output at this shape must equal its plain version's
+    bit for bit (K15's also the ``repeat``)."""
     chunk = bucket_elems() // SP
     gen = torch.Generator(device=device).manual_seed(13)
     out = {}
@@ -2120,7 +2201,7 @@ def time_virtual(device, readings: dict) -> dict:
         equal = torch.equal(got, plain(x)) and (
             library is None or torch.equal(got, library(x)))
         if not equal:
-            failed.append(key)
+            failed.append(f"{key} differs from its plain version")
         return {"timing_shape_equal": equal}
     x = torch.randn(SP, chunk, 1, generator=gen, device=device)
 
@@ -2154,6 +2235,10 @@ def time_virtual(device, readings: dict) -> dict:
                rc.ring_reduce_scatter_virtual_reference, None, rows))
     del rows
     torch.cuda.empty_cache()
+    failed += [f"{KERNELS[key]['label']} launched "
+               f"{row['device_kernels_per_call']} device kernels a call"
+               for key, row in out.items()
+               if row["device_kernels_per_call"] != 1]
     for key, row in out.items():
         print(f"time {KERNELS[key]['label']} {key} (ring 4, {chunk} fp32 a "
               f"member): kernel {row['ms']:.4f} ms, "
@@ -2162,8 +2247,7 @@ def time_virtual(device, readings: dict) -> dict:
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"(bytes); equal to the plain version at this shape: "
               f"{row['timing_shape_equal']}", flush=True)
-    require(not failed, f"{failed} differ from their plain versions at "
-                        f"the timing shape")
+    require(not failed, f"at the timing shape: {failed}")
     return out
 
 
@@ -3132,12 +3216,13 @@ def main() -> int:
                "fused_norm", "quantization", "ring_collectives")
     workdir = tempfile.TemporaryDirectory()
     tmp = pathlib.Path(workdir.name)
-    # One fault build per source, or per fault (FAULTS_ONE_BY_ONE,
-    # keyed (source, index)).
+    # One fault build per source, and one per fault of FAULTS_ONE_BY_ONE
+    # (keyed (source, index)).
     fault_builds = [(name, None) for name in FAULTS
-                    if name not in FAULTS_ONE_BY_ONE]
-    fault_builds += [(name, i) for name in FAULTS_ONE_BY_ONE
-                     for i in range(len(FAULTS[name]))]
+                    if len(FAULTS_ONE_BY_ONE.get(name, ())) <
+                    len(FAULTS[name])]
+    fault_builds += [(name, i) for name, indices in FAULTS_ONE_BY_ONE.items()
+                     for i in indices]
     with concurrent.futures.ThreadPoolExecutor(
             len(sources) + len(fault_builds)) as pool:
         started = [pool.submit(_build.build, name, force=True)
@@ -3177,7 +3262,9 @@ def main() -> int:
     norm_readings = check_norm(device, fault_libs["fused_norm"])
     quant_readings = check_quant(device, fault_libs["quantization"])
     reset_launch_counts()
-    virtual_readings = check_virtual(device, fault_libs["ring_collectives"])
+    virtual_readings = check_virtual(
+        device, fault_libs["ring_collectives"],
+        [fault_libs[("ring_collectives", i)] for i in VREDUCE_FAULTS])
     timing = time_virtual(device, virtual_readings)
     virtual_launches = {key: rc.launches[key] for key in
                         ("virtual_all_gather", "virtual_reduce_scatter")}

@@ -59,3 +59,37 @@ def test_one_fault_build_plants_only_its_fault(index):
     assert len(planted) - len(text) == (
         len(chip_smoke.DECODE_FAULTS[index][2]) -
         len(chip_smoke.DECODE_FAULTS[index][1]))
+
+
+@pytest.mark.parametrize("index", chip_smoke.VREDUCE_FAULTS)
+def test_each_k16_fault_build_plants_only_its_fault(index):
+    """check_virtual reads K16's two faults (a wrong chunk read; two adds
+    swapped) each from a build of its own, so that one cannot hide the
+    other: plant_faults(name, only=i) changes that anchor and no other,
+    and each sits in a helper that both K16 designs run."""
+    faults = chip_smoke.FAULTS["ring_collectives"]
+    text = (_build.CSRC / "ring_collectives.cu").read_text()
+    planted = chip_smoke.plant_faults("ring_collectives", only=index)
+    for i, (_, anchor, fault, _) in enumerate(faults):
+        assert (anchor in planted) == (i != index)
+        assert (fault in planted) == (i == index)
+    kernel = faults[index][0]
+    for design in ("virtual_reduce_scatter_kernel",
+                   "virtual_reduce_scatter_bulk_kernel"):
+        start, end = chip_smoke.kernel_body(text, design)
+        assert f"{kernel}(" in text[start:end], (kernel, design)
+    assert len(planted) - len(text) == len(faults[index][2]) - len(
+        faults[index][1])
+
+
+def test_one_by_one_faults_name_real_faults():
+    """main() builds one library for each (source, index) of
+    FAULTS_ONE_BY_ONE, and a shared one for the sources with others."""
+    for name, indices in chip_smoke.FAULTS_ONE_BY_ONE.items():
+        assert indices and len(set(indices)) == len(indices)
+        assert all(0 <= i < len(chip_smoke.FAULTS[name]) for i in indices)
+    assert chip_smoke.FAULTS_ONE_BY_ONE["decode_attention"] == tuple(
+        range(len(chip_smoke.DECODE_FAULTS)))
+    assert [chip_smoke.FAULTS["ring_collectives"][i][0]
+            for i in chip_smoke.FAULTS_ONE_BY_ONE["ring_collectives"]] == \
+        ["part_at", "chain_member"]

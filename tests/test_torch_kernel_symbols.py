@@ -5,6 +5,7 @@ source that chip_smoke.py names for that kernel, so a rename in ops/csrc
 cannot leave a profile column reading 0 without an error. On the CPU:
 the sources are only read."""
 
+import ctypes
 import re
 
 import pytest
@@ -134,3 +135,59 @@ def test_ring_copy_kernels_keep_the_profile_names():
         assert symbol in names, (key, names)
         assert key in ring_collectives.COPY_KERNELS
     assert sorted(ring_collectives.COPY_KERNELS.values()) == [0, 1, 2]
+
+
+# C parameter types of the ``extern "C"`` entry points and the ctypes
+# types that may stand for them: a data pointer may pass as c_void_p.
+_C_SCALARS = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+              "unsigned long long": ctypes.c_ulonglong,
+              "float": ctypes.c_float}
+_C_ENTRY = re.compile(r"^(int|long long|const char\*) (bs_\w+)\(([^)]*)\)\s*\{",
+                      re.M)
+
+
+def _ctypes_for(param: str) -> tuple:
+    """The ctypes types a C parameter declaration may be bound as."""
+    decl = re.sub(r"\bconst\b", "", param).replace("*", " * ").split()
+    stars = decl.count("*")
+    base = " ".join(w for w in decl[:-1] if w != "*")
+    if stars == 0:
+        return (_C_SCALARS[base],)
+    # void* is c_void_p itself; any other T* is POINTER(T).
+    typed = ctypes.c_void_p if base == "void" else _C_SCALARS.get(base)
+    for _ in range(stars - (base == "void")):
+        typed = None if typed is None else ctypes.POINTER(typed)
+    return (ctypes.c_void_p, typed) if stars == 1 else (typed,)
+
+
+def c_entry_points(name: str) -> dict:
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    text = text[text.index('extern "C" {'):]
+    return {fn: (ret, [p for p in params.split(",") if p.strip()])
+            for ret, fn, params in _C_ENTRY.findall(text)}
+
+
+SIGNATURE_CASES = [(name, fn) for name, fns in _build.SIGNATURES.items()
+                   for fn in fns]
+
+
+@pytest.mark.parametrize("name,fn", SIGNATURE_CASES)
+def test_ctypes_signature_matches_the_c_entry_point(name, fn):
+    """Each entry of _build.SIGNATURES binds the C function of that name
+    argument by argument: a parameter added to or dropped from the source
+    (K16 lost its scratch pointer) must change the ctypes list too, or the
+    later arguments would arrive in the wrong places."""
+    entries = c_entry_points(name)
+    assert fn in entries, (name, fn, sorted(entries))
+    ret, params = entries[fn]
+    argtypes, restype = _build.SIGNATURES[name][fn]
+    assert len(argtypes) == len(params), (fn, params)
+    for param, bound in zip(params, argtypes):
+        assert bound in _ctypes_for(param), (fn, param, bound)
+    assert restype == {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+                       "const char*": ctypes.c_char_p}[ret]
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_every_c_entry_point_has_a_signature(name):
+    assert sorted(c_entry_points(name)) == sorted(_build.SIGNATURES[name])

@@ -10,6 +10,12 @@ reference on the CPU.
 - K15's tiling (``virtual_gather_tiles``) stores every output byte once,
   from the right shard, at rings 2, 4 and 8, in every copy unit and at
   ragged sizes.
+- K16's tiling (``virtual_reduce_tiles``) writes every output element
+  once, adding the members in the chain rs_chunk_index gives, at rings
+  2, 3, 4 and 8, in every copy unit and at ragged sizes; a one-pass fold
+  over those tiles equals the plain slot schedule bit for bit (fp32 and
+  bf16) and the reference's kernel in interpret mode within 1e-6
+  relative.
 - The plain K12 (both shifts and its gradient), K13 and K14 over four
   gloo processes equal lax.ppermute / all_gather / psum_scatter over the
   four-device CPU mesh, computed in this process (exactly; K14 within
@@ -181,6 +187,127 @@ def test_virtual_tile_units_match_the_kernel_source():
     assert constant("kStageBytes") == \
         "static_cast<int>(kTileUnits * 16)"
     assert "return vgather::kTileUnits;" in source
+
+
+# (dtype, elements in a member's chunk): every copy unit of each dtype
+# (fp32 16, 8, 4; bf16 16, 8, 4, 2), one tile a row or several with a
+# ragged last one (the bulk design's tile at ring 2 is 2048 16-byte units,
+# the register design's VIRTUAL_REDUCE_TILE_UNITS).
+REDUCE_SIZES = [(torch.float32, 39), (torch.float32, 38),
+                (torch.float32, 2048), (torch.float32, 2053),
+                (torch.float32, 3 * 8192 + 12),
+                (torch.bfloat16, 39), (torch.bfloat16, 38),
+                (torch.bfloat16, 52), (torch.bfloat16, 3079),
+                (torch.bfloat16, 16384 + 40)]
+
+
+def _reduce_tile(dtype, elems, ring):
+    """The copy unit (bytes) K16 takes for a chunk of ``elems`` (aligned
+    addresses) at ``ring`` members, and its tile in elements."""
+    size = torch.empty((), dtype=dtype).element_size()
+    unit = rc.copy_unit(elems * size)
+    return unit, rc.virtual_reduce_tile_units(ring, unit) * unit // size
+
+
+def _ring_chain(row, ring):
+    """The members whose parts of chunk ``row`` the slot schedule adds, in
+    its order: at step s (-1 seeds) the one member m whose
+    rs_chunk_index(m, s) is ``row``."""
+    chain = []
+    for step in range(-1, ring - 1):
+        (member,) = [m for m in range(ring)
+                     if rc.rs_chunk_index(m, step, ring) == row]
+        chain.append(member)
+    return tuple(chain)
+
+
+@pytest.mark.parametrize("dtype,elems", REDUCE_SIZES)
+@pytest.mark.parametrize("ring", [2, 3, 4, 8])
+def test_virtual_reduce_tiles_cover_every_output_element_once(ring, dtype,
+                                                              elems):
+    unit, tile = _reduce_tile(dtype, elems, ring)
+    size = torch.empty((), dtype=dtype).element_size()
+    hits = np.zeros((ring, elems), np.int64)
+    spans = list(rc.virtual_reduce_tiles(elems, ring, tile))
+    assert len(spans) == ring * -(-elems // tile)
+    for row, start, length, members in spans:
+        assert start % tile == 0 and 0 < length <= tile
+        assert start * size % unit == 0 and length * size % unit == 0
+        assert members == _ring_chain(row, ring)
+        hits[row, start:start + length] += 1
+    assert (hits == 1).all()
+
+
+def _one_pass_fold(x_rows: torch.Tensor) -> torch.Tensor:
+    """K16's arithmetic in plain PyTorch: over virtual_reduce_tiles' tiles,
+    each tile's parts read once per member and added in the tile's member
+    order, T(float + float) at each add."""
+    ring = x_rows.shape[0]
+    chunk = x_rows.shape[1] // ring
+    flat = x_rows.reshape(ring, ring, -1)  # [member, chunk, elements]
+    elems = flat.shape[2]
+    _, tile = _reduce_tile(x_rows.dtype, elems, ring)
+    out = torch.empty((ring, elems), dtype=x_rows.dtype)
+    for row, start, length, members in rc.virtual_reduce_tiles(elems, ring,
+                                                               tile):
+        acc = flat[members[0], row, start:start + length]
+        for m in members[1:]:
+            acc = (acc.float() + flat[m, row, start:start + length].float()
+                   ).to(x_rows.dtype)
+        out[row, start:start + length] = acc
+    return out.reshape((ring, chunk) + x_rows.shape[2:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ring", [2, 3, 4, 8])
+def test_one_pass_fold_equals_the_slot_schedule_bit_for_bit(ring, dtype):
+    """Several 16-byte tiles a row, the last ragged, and a narrow unit:
+    the fold rounds where the slot schedule rounds, so the bits agree."""
+    for chunk, feat, seed in ((4, 4100, ring), (13, 3, ring + 1)):
+        x = torch.from_numpy(_shards(ring, ring * chunk, feat,
+                                     seed=seed)).to(dtype)
+        got = _one_pass_fold(x)
+        assert torch.equal(got, rc.ring_reduce_scatter_virtual_reference(x))
+
+
+@pytest.mark.parametrize("ring", [2, 4])
+def test_one_pass_fold_matches_reference_kernel(ring):
+    x = _shards(ring, ring * 16, 128, seed=11)
+    got = _one_pass_fold(torch.from_numpy(x)).numpy()
+    want = np.asarray(jrc.ring_reduce_scatter_virtual(jnp.asarray(x),
+                                                      interpret=True))
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel < 1e-6, rel
+
+
+def test_virtual_reduce_tile_units_match_the_kernel_source():
+    """VIRTUAL_REDUCE_TILE_UNITS is csrc vreduce::kTileUnits (kBlock x
+    kUnroll), VIRTUAL_REDUCE_STAGE_BYTES its kStageBytes, and
+    virtual_reduce_tile_units its tile_units(); on the card chip_smoke
+    also reads the library's bs_virtual_reduce_tile_units."""
+    source = (_build.CSRC / "ring_collectives.cu").read_text()
+    vreduce = source[source.index("namespace vreduce {"):
+                     source.index("}  // namespace vreduce")]
+
+    def constant(name):
+        found = re.findall(rf"constexpr \w+(?: \w+)? {name} = (.+?);",
+                           vreduce)
+        assert len(found) == 1, (name, found)
+        return found[0]
+    assert int(constant("kBlock")) * int(constant("kUnroll")) == \
+        rc.VIRTUAL_REDUCE_TILE_UNITS
+    assert constant("kTileUnits") == \
+        "static_cast<long long>(kBlock) * kUnroll"
+    assert int(constant("kStageBytes")) == rc.VIRTUAL_REDUCE_STAGE_BYTES
+    assert "return unit == 16 && ring <= kStageBytes / 16;" in vreduce
+    assert ("return bulk(ring, unit) ? kStageBytes / (16 * ring) : "
+            "kTileUnits;") in vreduce
+    assert "return vreduce::tile_units(ring, unit);" in source
+    for ring in (2, 3, 4, 8, 4096, 4097):
+        assert rc.virtual_reduce_tile_units(ring, 16) == (
+            65536 // (16 * ring) if ring <= 4096 else 1024)
+        for unit in (8, 4, 2):
+            assert rc.virtual_reduce_tile_units(ring, unit) == 1024
 
 
 def test_copy_unit_and_slot_sizes():
