@@ -33,6 +33,19 @@ for int8 pages), the dense int8 cache through ``ops.decode_attention``
 (K8). Multi-token inserts (prefill) are a plain masked softmax, as in
 the reference.
 
+Tensor parallelism (``tp_group``, the reference's ``tp_axis``): a
+RingGroup of tp ranks. Each rank builds its local n_heads / tp heads and
+d_ff / tp ff units (the q/k/v/gate/up weights' rows and the o/down
+weights' columns of parallel/sharding.py), and the block places
+Megatron's operators where the reference does: ``tp_region_input``
+("f": identity forward, all-reduce backward) where the replicated
+activation enters the attention and the MLP, ``tp_region_output`` ("g":
+all-reduce forward, identity backward) on their row-split outputs. The
+all-reduce is ops/ring_collectives.ring_all_reduce (K14 then K13 on CUDA
+tensors), bit-identical on every tp rank, so the replicated activations
+and parameters stay identical across tp. Remat's recompute runs g's
+forward again, so every tp rank makes the same ring calls.
+
 Parameters live in ``param_dtype`` and are cast to ``dtype`` at use, as
 flax's Dense/Embed do; ``TransformerLM.cast_dense_weights_`` makes that
 cast once for serving.
@@ -54,6 +67,7 @@ from batch_shipyard_tpu_torch.ops import chunked_loss
 from batch_shipyard_tpu_torch.ops import decode_attention as dense_ops
 from batch_shipyard_tpu_torch.ops import fused_norm as fn_ops
 from batch_shipyard_tpu_torch.ops import paged_attention as paged_ops
+from batch_shipyard_tpu_torch.ops import ring_collectives
 from batch_shipyard_tpu_torch.ops.quantization import (dequantize_int8,
                                                         quantize_int8_rows,
                                                         quantized_linear)
@@ -62,9 +76,9 @@ from batch_shipyard_tpu_torch.ops.quantization import (dequantize_int8,
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The reference's field names for what the dense training forward
-    and the decode path read. The fields of paths not ported yet (moe,
-    tp_axis, the speculative ``spec_window``) arrive with the slices that
-    port them."""
+    and the decode path read (``tp_group`` in place of ``tp_axis``). The
+    fields of paths not ported yet (moe, the speculative ``spec_window``)
+    arrive with the slices that port them."""
     vocab_size: int = 32000
     d_model: int = 512
     n_layers: int = 4
@@ -107,6 +121,65 @@ class TransformerConfig:
     # version for CPU tensors): ops/paged_attention, ops/decode_attention.
     paged_attention_impl: Optional[str] = None
     decode_attention_impl: Optional[str] = None
+    # Megatron tensor parallelism over this RingGroup (parallel/mesh):
+    # local heads and ff units, f and g around attention and the MLP.
+    # None: the whole model on this rank. Training only.
+    tp_group: Optional[object] = None
+
+    @property
+    def tp(self) -> int:
+        return 1 if self.tp_group is None else self.tp_group.size
+
+
+class _TPRegionInput(torch.autograd.Function):
+    """Megatron's "f": identity forward; the backward sums each tp rank's
+    partial cotangent over the tp ring."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_collectives.ring_all_reduce(g.contiguous(),
+                                                ctx.group), None
+
+
+class _TPRegionOutput(torch.autograd.Function):
+    """Megatron's "g": the forward sums the tp ranks' partial outputs over
+    the tp ring; the backward passes the replicated cotangent through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return ring_collectives.ring_all_reduce(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_region_input(x, group):
+    """The reference's tp_region_input over a tp RingGroup (None or a
+    ring of one: x)."""
+    if group is None or group.size == 1:
+        return x
+    return _TPRegionInput.apply(x, group)
+
+
+def tp_region_output(x, group):
+    """The reference's tp_region_output over a tp RingGroup (None or a
+    ring of one: x)."""
+    if group is None or group.size == 1:
+        return x
+    return _TPRegionOutput.apply(x, group)
+
+
+def _tp_local(cfg: TransformerConfig, what: str, count: int) -> int:
+    """``count`` (heads or ff units) over the tp ranks."""
+    if count % cfg.tp:
+        raise ValueError(f"{what}={count} is not divisible by tp={cfg.tp}")
+    return count // cfg.tp
 
 
 def rotary_embedding(x, positions, theta: float):
@@ -259,7 +332,8 @@ class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None) -> None:
         super().__init__()
         self.config = cfg
-        features = cfg.n_heads * cfg.d_head
+        self.n_heads = _tp_local(cfg, "n_heads", cfg.n_heads)
+        features = self.n_heads * cfg.d_head
         dense = _dense(cfg)
         if cfg.fused_norm:
             self.norm_scale = _norm_scale(cfg, device)
@@ -275,13 +349,14 @@ class Attention(nn.Module):
         whole sequence); else a decode step against the cache."""
         cfg = self.config
         batch, seq = x.shape[0], x.shape[1]
-        shape = (batch, seq, cfg.n_heads, cfg.d_head)
+        shape = (batch, seq, self.n_heads, cfg.d_head)
         if cfg.fused_norm:
             # x is the raw residual stream; v stays a strided view of
             # the [q | k | v] output, which K1 reads through its strides.
             q, k, v = _fused_projection(cfg, x, self.norm_scale,
                                         self.qkv_kernel).chunk(3, dim=-1)
         else:
+            x = tp_region_input(x, cfg.tp_group)
             q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         q = rotary_embedding(q.reshape(shape), positions, cfg.rope_theta)
         k = rotary_embedding(k.reshape(shape), positions, cfg.rope_theta)
@@ -293,7 +368,8 @@ class Attention(nn.Module):
             attend = (self._decode_attend_paged if cfg.kv_page_size
                       else self._decode_attend)
             out = attend(q, k, v, cache)
-        return self.o_proj(out.reshape(batch, seq, -1))
+        return tp_region_output(self.o_proj(out.reshape(batch, seq, -1)),
+                                cfg.tp_group)
 
     def _decode_attend(self, q, k, v, cache: dict):
         """Dense cache [B, L, H, D] with a per-slot write index [B].
@@ -423,21 +499,25 @@ class MLP(nn.Module):
         super().__init__()
         self.config = cfg
         dense = _dense(cfg)
+        d_ff = _tp_local(cfg, "d_ff", cfg.d_ff)
         if cfg.fused_norm:
             self.norm_scale = _norm_scale(cfg, device)
-            self.gate_up_kernel = _fused_kernel(cfg, 2 * cfg.d_ff, device)
+            self.gate_up_kernel = _fused_kernel(cfg, 2 * d_ff, device)
         else:
-            self.gate_proj = dense(cfg.d_model, cfg.d_ff, cfg, device)
-            self.up_proj = dense(cfg.d_model, cfg.d_ff, cfg, device)
-        self.down_proj = dense(cfg.d_ff, cfg.d_model, cfg, device)
+            self.gate_proj = dense(cfg.d_model, d_ff, cfg, device)
+            self.up_proj = dense(cfg.d_model, d_ff, cfg, device)
+        self.down_proj = dense(d_ff, cfg.d_model, cfg, device)
 
     def forward(self, x):
-        if self.config.fused_norm:
-            gate, up = _fused_projection(self.config, x, self.norm_scale,
+        cfg = self.config
+        if cfg.fused_norm:
+            gate, up = _fused_projection(cfg, x, self.norm_scale,
                                          self.gate_up_kernel).chunk(2, dim=-1)
         else:
+            x = tp_region_input(x, cfg.tp_group)
             gate, up = self.gate_proj(x), self.up_proj(x)
-        return self.down_proj(F.silu(gate) * up)
+        return tp_region_output(self.down_proj(F.silu(gate) * up),
+                                cfg.tp_group)
 
 
 class Block(nn.Module):
@@ -447,6 +527,16 @@ class Block(nn.Module):
             raise NotImplementedError(
                 "fused_norm composes only with the dense training path "
                 "(no decode / quantize_matmuls), as in the reference")
+        if cfg.tp > 1 and cfg.decode:
+            raise NotImplementedError(
+                "tp_group is a training-path feature; the decode path "
+                "would return un-reduced o_proj partial sums")
+        if cfg.tp > 1 and (cfg.fused_norm or cfg.quantize_matmuls):
+            raise NotImplementedError(
+                "tp with fused_norm or quantize_matmuls is not ported: the "
+                "fused [q|k|v] / [gate|up] kernels need a head-wise "
+                "regrouping (ROADMAP queue 1: fused_norm and int8 under "
+                "tp)")
         self.fused_norm = cfg.fused_norm
         if not cfg.fused_norm:
             self.attn_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)

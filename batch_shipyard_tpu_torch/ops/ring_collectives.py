@@ -24,9 +24,13 @@ beside it, which CPU tensors take:
   the schedule's order (``virtual_reduce_tiles``).
 
 The reference's sequence-parallel path calls only K12; XLA inserts its
-gradient collectives. The port has no XLA, so its gradient all-reduce over
-the sp ranks is K14 followed by K13 on one flat fp32 bucket
-(parallel/train.py).
+gradient and tensor-parallel collectives. The port has no XLA, so it
+makes them from K13 and K14: ``ring_all_reduce`` is K14 then K13 (each
+element summed once, in ring order, by the member that owns its chunk,
+then copied to every member, so the result is bit-identical on every
+member), which the Megatron operators of models/transformer.py run over
+the tp ring and parallel/train.py over the data ring; with fsdp, the
+gradient bucket's K14 and the parameters' K13 run over the fsdp ring.
 
 K12-K14 are plans. ``permute_plan``, ``all_gather_plan`` and
 ``reduce_scatter_plan`` list a call's stream operations in order:
@@ -39,12 +43,13 @@ ranks' pads. A rank that waits holds no SM: on a card that time-slices
 several ranks, the waiting rank's slices go to the ranks that have work.
 
 K12-K14 take a ring group (parallel/mesh.RingGroup): its rank, size, gloo
-process group and, on the card, its symmetric buffers, error word and
+subgroup and, on the card, its symmetric buffers, error word and
 watchdog (a wait longer than the group's timeout sets the word;
 ``group.check()``, before each call and after a synchronise, raises). The
-plain versions run the same schedule over the gloo process group with
-isend/irecv (gloo takes CPU tensors only). On a CUDA tensor a wrapper
-launches its kernel or raises; nothing falls back.
+plain versions run the same schedule over the group's gloo subgroup with
+isend/irecv to the global ranks of its members (gloo takes CPU tensors
+only). On a CUDA tensor a wrapper launches its kernel or raises; nothing
+falls back, and no NCCL or torch.distributed collective touches it.
 
 What bounds them: bytes. Per call and rank, K12 reads its (K, V) pair and
 writes the pair it receives; K13 reads its chunk and writes ring chunks;
@@ -75,6 +80,20 @@ launches = {"ring_permute": 0, "ring_all_gather": 0,
             "ring_reduce_scatter": 0, "virtual_all_gather": 0,
             "virtual_reduce_scatter": 0}
 plain_calls = dict.fromkeys(launches, 0)
+# The ring calls that launched their kernels, as "call.axis", the axis
+# being the group's label (RingGroup.axis): each K12, K13 and K14 launch
+# under its own name, and each ring_all_reduce, once its K14 and K13 are
+# enqueued, under "ring_all_reduce" besides (e.g. "ring_all_reduce.tp").
+axis_launches: dict = {}
+# While a list (trace/train_profile sets one), every copy kernel a plan
+# launches appends (kernel, axis): the device's ring kernels in stream
+# order, for the profiler's per-axis times.
+copy_log = None
+
+
+def _count_axis(call: str, axis: str) -> None:
+    key = f"{call}.{axis}"
+    axis_launches[key] = axis_launches.get(key, 0) + 1
 
 
 # ---------------------------- schedule arithmetic -------------------------
@@ -275,6 +294,8 @@ def _enqueue(plan: list, group, buf, ends, nbytes: int, unit: int,
                 dtype, mark, op.write, filled, op.read, group.error,
                 group.abort, 0, stream.cuda_stream)
             _build.check(rc, kernel.replace("_", " "), lib)
+            if copy_log is not None:
+                copy_log.append((kernel, group.axis))
 
 
 def _check_cuda(name: str, t: torch.Tensor, group) -> None:
@@ -486,11 +507,14 @@ def ring_reduce_scatter_virtual(x_rows: torch.Tensor) -> torch.Tensor:
 # ------------------------- across ranks (K12-K14) -------------------------
 
 
-def _exchange(send: torch.Tensor, dst: int, recv: torch.Tensor, src: int,
-              tag: int = 0) -> list:
-    """Post one send and one receive over the gloo process group; returns
-    the requests."""
-    return [dist.isend(send, dst, tag=tag), dist.irecv(recv, src, tag=tag)]
+def _exchange(group, send: torch.Tensor, dst: int, recv: torch.Tensor,
+              src: int, tag: int = 0) -> list:
+    """Post one send to member ``dst`` and one receive from member ``src``
+    over the group's gloo subgroup (torch.distributed addresses them by
+    global rank); returns the requests."""
+    pg = group.process_group
+    return [dist.isend(send, group.global_rank(dst), group=pg, tag=tag),
+            dist.irecv(recv, group.global_rank(src), group=pg, tag=tag)]
 
 
 def _check_plain(name: str, t: torch.Tensor) -> None:
@@ -509,27 +533,42 @@ def ring_permute_reference(k: torch.Tensor, v: torch.Tensor, group,
     dst, src = (me + shift) % ring, (me - shift) % ring
     k, v = k.contiguous(), v.contiguous()
     k_out, v_out = torch.empty_like(k), torch.empty_like(v)
-    reqs = (_exchange(k, dst, k_out, src, tag=0) +
-            _exchange(v, dst, v_out, src, tag=1))
+    reqs = (_exchange(group, k, dst, k_out, src, tag=0) +
+            _exchange(group, v, dst, v_out, src, tag=1))
     for req in reqs:
         req.wait()
     return k_out, v_out
 
 
-def ring_all_gather_reference(x: torch.Tensor, group) -> torch.Tensor:
+def _gather_out(x: torch.Tensor, ring: int, out) -> torch.Tensor:
+    """K13's output: ``out`` (checked) or a new [ring * c, ...]."""
+    shape = (ring * x.shape[0],) + x.shape[1:]
+    if out is None:
+        return x.new_empty(shape)
+    if (tuple(out.shape) != shape or out.dtype != x.dtype or
+            out.device != x.device or not out.is_contiguous()):
+        raise ValueError(f"all-gather out {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device}: want a contiguous {shape} "
+                         f"{x.dtype} on {x.device}")
+    return out
+
+
+def ring_all_gather_reference(x: torch.Tensor, group,
+                              out: torch.Tensor = None) -> torch.Tensor:
     """Plain version of K13: the ring schedule over gloo. Step t forwards
     to the right what arrived from the left at step t - 1 (the own chunk
-    first) and files what arrives under ag_source_shard."""
+    first) and files what arrives under ag_source_shard. ``out``: the
+    [ring * c, ...] tensor to fill (x may be its own row)."""
     _check_plain("ring_all_gather", x)
     plain_calls["ring_all_gather"] += 1
     ring, me = group.size, group.rank
     chunk = x.shape[0]
-    out = x.new_empty((ring * chunk,) + x.shape[1:])
+    out = _gather_out(x, ring, out)
     out[me * chunk:(me + 1) * chunk] = x
     cur = x.contiguous()
     for step in range(ring - 1):
         nxt = torch.empty_like(cur)
-        for req in _exchange(cur, group.right, nxt, group.left):
+        for req in _exchange(group, cur, group.right, nxt, group.left):
             req.wait()
         src = ag_source_shard(me, step, ring)
         out[src * chunk:(src + 1) * chunk] = nxt
@@ -555,7 +594,7 @@ def ring_reduce_scatter_reference(x: torch.Tensor, group) -> torch.Tensor:
     cur = part(rs_chunk_index(me, -1, ring)).contiguous()
     for step in range(ring - 1):
         arrived = torch.empty_like(cur)
-        for req in _exchange(cur, group.right, arrived, group.left):
+        for req in _exchange(group, cur, group.right, arrived, group.left):
             req.wait()
         local = part(rs_chunk_index(me, step, ring))
         cur = (arrived.float() + local.float()).to(x.dtype)
@@ -589,18 +628,20 @@ def ring_permute_kernel(k: torch.Tensor, v: torch.Tensor, group,
            unit, "ring_permute", library or group.library)
     buf.calls = epoch
     launches["ring_permute"] += 1
+    _count_axis("ring_permute", group.axis)
     return k_out, v_out
 
 
-def ring_all_gather_kernel(x: torch.Tensor, group,
-                           library=None) -> torch.Tensor:
-    """K13 on the card: x [c, ...] -> [ring * c, ...] (any dtype)."""
+def ring_all_gather_kernel(x: torch.Tensor, group, library=None,
+                           out: torch.Tensor = None) -> torch.Tensor:
+    """K13 on the card: x [c, ...] -> [ring * c, ...] (any dtype), into
+    ``out`` if given (x may be its own row: that copy is onto itself)."""
     _check_cuda("x", x, group)
     group.check()
     ring, me = group.size, group.rank
     nbytes = x.numel() * x.element_size()
     buf = group.buffer("all_gather", nbytes)
-    out = x.new_empty((ring * x.shape[0],) + x.shape[1:])
+    out = _gather_out(x, ring, out)
     unit = copy_unit(nbytes, x.data_ptr(), out.data_ptr())
 
     def ends(end, slot):
@@ -613,6 +654,7 @@ def ring_all_gather_kernel(x: torch.Tensor, group,
            unit, "ring_all_gather", library or group.library)
     buf.writes += ring - 1
     launches["ring_all_gather"] += 1
+    _count_axis("ring_all_gather", group.axis)
     return out
 
 
@@ -644,6 +686,7 @@ def ring_reduce_scatter_kernel(x: torch.Tensor, group,
            DTYPE_CODES[x.dtype])
     buf.writes += ring - 1
     launches["ring_reduce_scatter"] += 1
+    _count_axis("ring_reduce_scatter", group.axis)
     return out
 
 
@@ -659,12 +702,14 @@ def ring_permute(k, v, group, shift: int = 1, impl=None):
     raise ValueError(f"unknown ring permute impl {impl!r}")
 
 
-def ring_all_gather(x: torch.Tensor, group) -> torch.Tensor:
-    """[c, ...] from every rank -> [ring * c, ...] in rank order: K13 for a
-    CUDA tensor, its plain version for a CPU tensor."""
+def ring_all_gather(x: torch.Tensor, group,
+                    out: torch.Tensor = None) -> torch.Tensor:
+    """[c, ...] from every rank -> [ring * c, ...] in rank order (into
+    ``out`` if given): K13 for a CUDA tensor, its plain version for a CPU
+    tensor."""
     if x.is_cuda:
-        return ring_all_gather_kernel(x, group)
-    return ring_all_gather_reference(x, group)
+        return ring_all_gather_kernel(x, group, out=out)
+    return ring_all_gather_reference(x, group, out)
 
 
 def ring_reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
@@ -674,6 +719,38 @@ def ring_reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     if x.is_cuda:
         return ring_reduce_scatter_kernel(x, group)
     return ring_reduce_scatter_reference(x, group)
+
+
+def all_reduce_lanes(n: int, dtype: torch.dtype, ring: int) -> int:
+    """``ring_all_reduce``'s padded length: n elements rounded up to ring
+    chunks of whole 16-byte lanes of ``dtype`` (K14's vector adds)."""
+    lane = 16 // torch.empty((), dtype=dtype).element_size()
+    return _round_up(n, lane * ring)
+
+
+def ring_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x (fp32 or bf16, any shape) over the group's members, on
+    every member: x flattened and zero-padded to all_reduce_lanes, K14 then
+    K13 (their plain versions for a CPU tensor), unpadded. Each element is
+    summed once, in ring order, by the member whose chunk holds it, then
+    copied, so every member gets the same bits. A ring of one returns x."""
+    if group is None or group.size == 1:
+        return x
+    if x.dtype not in DTYPE_CODES:
+        raise ValueError(f"dtype {x.dtype} not in {tuple(DTYPE_CODES)}")
+    flat = x.reshape(-1)
+    n = flat.numel()
+    padded = all_reduce_lanes(n, x.dtype, group.size)
+    if padded != n:
+        flat = torch.cat([flat, flat.new_zeros(padded - n)])
+    if x.is_cuda:
+        out = ring_all_gather_kernel(ring_reduce_scatter_kernel(flat, group),
+                                     group)
+        _count_axis("ring_all_reduce", group.axis)
+    else:
+        out = ring_all_gather_reference(
+            ring_reduce_scatter_reference(flat, group), group)
+    return out[:n].view(x.shape)
 
 
 class _RingPermute(torch.autograd.Function):

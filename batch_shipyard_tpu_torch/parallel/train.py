@@ -1,5 +1,5 @@
 """Transformer training: model + AdamW -> a train step, on one card or
-over a sequence-parallel ring of ranks.
+over a mesh of ranks.
 
 Counterpart of batch_shipyard_tpu/parallel/train.py's
 ``build_transformer_train``. The reference jit-compiles a global-view
@@ -20,17 +20,39 @@ full-precision fp32 backward; the loss's ``auto`` takes the fused
 cross-entropy kernels K3-K5 where the validation marker records them
 (ops/kernel_select).
 
-Sequence parallelism (``sp > 1``, the reference's batch sharding
-``P(("dp", "fsdp"), "sp")`` with dp = fsdp = 1): every rank holds the
-whole model and draws the same global batch; rank r trains on sequence
-shard r with its global RoPE positions, through ring attention over a
-``parallel.mesh.RingGroup``. Each rank's loss is its shard's loss sum
-over the global count of targets, so the ranks' losses and gradients sum
-to the global mean's. The reference leaves that sum to XLA; the port
-sums the gradients (and the loss) in one flat fp32 bucket with its own
-ring all-reduce, reduce-scatter K14 then all-gather K13, before AdamW,
-so every rank takes the same step. dp > 1, tp, fsdp, MoE and AOT
-precompilation are not ported yet.
+Over a mesh (parallel.mesh.RankMesh: dp, fsdp, sp and tp ranks, the
+reference's axes): every rank draws the same global batch and trains
+its block, rows ``data_index`` of the (dp, fsdp) blocks and columns of
+its sp shard with their global RoPE positions (the reference's batch
+sharding ``P(("dp", "fsdp"), "sp")``), on its tp shard of the model
+(parallel/sharding.py; the Megatron all-reduces in models/transformer).
+Its loss share is its block's target count over the global one, so the
+sum over the data ranks (every rank with this rank's tp index) is the
+global mean, which every rank reports. The reference leaves the sums to
+XLA; the port's step, after the backward:
+
+1. builds one flat fp32 gradient bucket of fsdp rows, each a 1/fsdp
+   chunk of the parameters followed by a loss slot that holds this
+   rank's loss share (every row: the loss needs a place on every fsdp
+   rank);
+2. reduce-scatters it over the fsdp ring (K14), leaving this rank its
+   row summed over fsdp (nothing with fsdp = 1);
+3. all-reduces that row over the data ring, the dp x sp ranks with
+   this rank's fsdp and tp indices (ring_all_reduce: K14 then K13;
+   nothing when the ring has one rank);
+4. runs AdamW on its chunk: this rank holds the AdamW state of its
+   1/fsdp of the parameters only, and its fp32 parameters are a chunk
+   of one flat buffer whose views are the model's parameters;
+5. all-gathers the updated chunks over the fsdp ring (K13) into that
+   flat buffer (nothing with fsdp = 1).
+
+Gradients are never summed over tp: a tp shard's gradient is whole on
+its rank, and a replicated parameter's is the same on every tp rank
+(f's backward sums the activation gradient before it reaches them).
+Every rank holds the whole (tp-sharded) parameters during the step;
+gathering them layer by layer is not ported yet (ROADMAP). Weights are
+drawn once at full shape from the seed (models/convert.init_params) and
+then sharded, so every mesh starts from the same model.
 """
 
 from __future__ import annotations
@@ -39,7 +61,6 @@ import functools
 from typing import Mapping, Optional
 
 import torch
-import torch.distributed as dist
 
 from batch_shipyard_tpu_torch.device import resolve_device
 from batch_shipyard_tpu_torch.models import convert
@@ -47,32 +68,76 @@ from batch_shipyard_tpu_torch.models import transformer as tfm
 from batch_shipyard_tpu_torch.ops import ring_attention as ring
 from batch_shipyard_tpu_torch.ops import ring_collectives
 from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
+from batch_shipyard_tpu_torch.parallel import sharding
+
+
+def bucket_layout(n_params: int, fsdp: int = 1, data: int = 1
+                  ) -> tuple[int, int]:
+    """(chunk, row): each of the fsdp rows of the gradient bucket holds
+    ``chunk`` parameters (1/fsdp of them, in 16-byte lanes) and the loss
+    slot, padded to ``row``, a multiple of 4 * data fp32 elements (K14's
+    lanes over the data ring, so its all-reduce needs no padding)."""
+    chunk = -(-n_params // (4 * fsdp)) * 4
+    return chunk, -(-(chunk + 1) // (4 * data)) * (4 * data)
 
 
 class TrainHarness:
-    """A model and its AdamW state on one device. ``step(batch)`` runs
-    one forward, backward and optimizer update on the global batch and
-    returns ``{"loss": 0-d tensor}`` (the global mean loss) without
-    waiting for the device (``float`` of the loss syncs). With a ring
-    ``group`` of sp ranks, the step trains this rank's sequence shard and
-    all-reduces the gradients over the ring; a ring timeout raises at the
-    next ring launch, or at ``group.check()`` after a synchronise."""
+    """A model and its AdamW state on one device, or this rank's share
+    of them over a ``mesh``. ``step(batch)`` runs one forward, backward
+    and optimizer update on the global batch and returns ``{"loss": 0-d
+    tensor}`` (the global mean loss) without waiting for the device
+    (``float`` of the loss syncs). A ring timeout raises at the next ring
+    launch, or at ``mesh.check()`` after a synchronise."""
 
-    def __init__(self, model: tfm.TransformerLM,
-                 optimizer: torch.optim.Optimizer, batch_size: int,
-                 seq_len: int, loss_impl: str = "auto",
-                 group: Optional[mesh_mod.RingGroup] = None) -> None:
+    def __init__(self, model: tfm.TransformerLM, batch_size: int,
+                 seq_len: int, learning_rate: float = 3e-4,
+                 loss_impl: str = "auto",
+                 mesh: Optional[mesh_mod.RankMesh] = None) -> None:
         self.model = model
-        self.optimizer = optimizer
         self.batch_size = batch_size
         self.seq_len = seq_len
         self.loss_impl = loss_impl
         self.device = model.embed.embedding.device
-        self.group = group
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
         self.params = list(model.parameters())
-        if group is not None and seq_len % group.size:
-            raise ValueError(f"seq_len {seq_len} is not divisible by the "
-                             f"sp ring of {group.size}")
+        if self.mesh is None:
+            trained = self.params
+        else:
+            sizes = self.mesh.sizes
+            if seq_len % sizes["sp"]:
+                raise ValueError(f"seq_len {seq_len} is not divisible by "
+                                 f"sp={sizes['sp']}")
+            if batch_size % self.mesh.data_size:
+                raise ValueError(
+                    f"batch {batch_size} is not divisible by dp * fsdp = "
+                    f"{self.mesh.data_size}")
+            trained = [self._flatten()]
+        self.optimizer = torch.optim.AdamW(
+            trained, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=0.01)
+
+    def _flatten(self) -> torch.Tensor:
+        """Move every parameter into one flat fp32 buffer of fsdp chunks
+        (the parameters become views of it); returns this rank's chunk,
+        the tensor AdamW updates."""
+        dtypes = {p.dtype for p in self.params}
+        if dtypes != {torch.float32}:
+            raise ValueError(f"the mesh step keeps fp32 parameters, got "
+                             f"{dtypes}")
+        fsdp = self.mesh.sizes["fsdp"]
+        data = self.mesh.groups["data"]
+        self.n_params = sum(p.numel() for p in self.params)
+        self.chunk, self.row = bucket_layout(
+            self.n_params, fsdp, 1 if data is None else data.size)
+        self.flat = torch.zeros(fsdp * self.chunk, device=self.device)
+        offset = 0
+        for p in self.params:
+            view = self.flat[offset:offset + p.numel()].view_as(p)
+            view.copy_(p.detach())
+            p.data = view
+            offset += p.numel()
+        start = self.mesh.coords["fsdp"] * self.chunk
+        return self.flat[start:start + self.chunk]
 
     def loss_fn(self, tokens, targets, positions=None):
         hidden = self.model(tokens, positions=positions, return_hidden=True)
@@ -80,39 +145,60 @@ class TrainHarness:
                                    targets, impl=self.loss_impl)
 
     def shard(self, tokens, targets):
-        """This rank's sequence shard of the global batch: (tokens,
-        targets, positions, its share of the loss), the share being the
-        shard's target count over the global one."""
-        sp, rank = self.group.size, self.group.rank
-        width = self.seq_len // sp
-        cols = slice(rank * width, (rank + 1) * width)
-        positions = torch.arange(rank * width, (rank + 1) * width,
-                                 dtype=torch.int32, device=self.device)
-        local = targets[:, cols]
+        """This rank's block of the global batch: (tokens, targets,
+        positions, its share of the loss), the share being the block's
+        target count over the global one."""
+        sizes, coords = self.mesh.sizes, self.mesh.coords
+        rows = self.batch_size // self.mesh.data_size
+        width = self.seq_len // sizes["sp"]
+        r0, c0 = self.mesh.data_index * rows, coords["sp"] * width
+        block = (slice(r0, r0 + rows), slice(c0, c0 + width))
+        positions = torch.arange(c0, c0 + width, dtype=torch.int32,
+                                 device=self.device)
+        local = targets[block]
         share = ((local != -1).sum().clamp(min=1).float() /
                  (targets != -1).sum().clamp(min=1).float())
-        return tokens[:, cols], local, positions, share
+        return tokens[block], local, positions, share
 
-    def all_reduce_grads(self, loss) -> torch.Tensor:
-        """Sum every parameter's gradient and ``loss`` over the ring in one
-        fp32 bucket: reduce-scatter (K14) then all-gather (K13). The
-        gradients become views of the summed bucket; returns the summed
-        loss."""
-        grads = [(p.grad if p.grad is not None else torch.zeros_like(p))
-                 .reshape(-1).float() for p in self.params]
-        n = sum(g.numel() for g in grads)
-        pad = bucket_size(n, self.group.size) - n - 1
-        bucket = torch.cat(grads + [loss.detach().reshape(1).float(),
-                                    loss.new_zeros(pad, dtype=torch.float32)])
-        del grads
-        summed = ring_collectives.ring_all_gather(
-            ring_collectives.ring_reduce_scatter(bucket, self.group),
-            self.group)
-        offset = 0
+    def _bucket(self, loss) -> torch.Tensor:
+        """The flat gradient bucket (step 1 of the module doc): fsdp rows
+        of ``chunk`` gradients, each followed by this rank's ``loss`` and
+        zeros to ``row``, in one copy. Drops the parameters' .grad."""
+        fsdp = self.mesh.sizes["fsdp"]
+        tail = torch.cat([loss.detach().reshape(1).float(),
+                          loss.new_zeros(self.row - self.chunk - 1,
+                                         dtype=torch.float32)])
+        pieces, end, offset = [], self.chunk, 0
         for p in self.params:
-            p.grad = summed[offset:offset + p.numel()].view_as(p)
-            offset += p.numel()
-        return summed[n]
+            g = (p.grad if p.grad is not None else
+                 torch.zeros_like(p)).reshape(-1)
+            start = 0
+            while start < g.numel():
+                take = min(g.numel() - start, end - offset)
+                pieces.append(g[start:start + take])
+                start += take
+                offset += take
+                if offset == end:
+                    pieces.append(tail)
+                    end += self.chunk
+        if offset < fsdp * self.chunk:
+            pieces += [tail.new_zeros(fsdp * self.chunk - offset), tail]
+        bucket = torch.cat(pieces)
+        for p in self.params:
+            p.grad = None
+        return bucket
+
+    def sum_grads(self, loss) -> tuple[torch.Tensor, torch.Tensor]:
+        """Steps 1-3 of the module doc: this rank's chunk of the gradients
+        and the loss, each summed over the data ranks (the loss a copy: a
+        view would keep the whole row alive as long as the caller keeps
+        the loss)."""
+        groups = self.mesh.groups
+        row = self._bucket(loss)
+        if groups["fsdp"] is not None:
+            row = ring_collectives.ring_reduce_scatter(row, groups["fsdp"])
+        row = ring_collectives.ring_all_reduce(row, groups["data"])
+        return row[:self.chunk], row[self.chunk].clone()
 
     def step(self, batch: Mapping) -> dict:
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
@@ -124,49 +210,50 @@ class TrainHarness:
                 f"{tuple(targets.shape)} targets; the harness was built "
                 f"for {want}")
         self.optimizer.zero_grad(set_to_none=True)
-        if self.group is None:
+        if self.mesh is None:
             loss = self.loss_fn(tokens, targets)
             loss.backward()
-        else:
-            tokens, targets, positions, share = self.shard(tokens, targets)
-            loss = self.loss_fn(tokens, targets, positions) * share
-            loss.backward()
-            loss = self.all_reduce_grads(loss)
+            self.optimizer.step()
+            return {"loss": loss.detach()}
+        tokens, targets, positions, share = self.shard(tokens, targets)
+        loss = self.loss_fn(tokens, targets, positions) * share
+        loss.backward()
+        owned, = self.optimizer.param_groups[0]["params"]
+        owned.grad, loss = self.sum_grads(loss)
         self.optimizer.step()
-        return {"loss": loss.detach()}
-
-
-def bucket_size(n_params: int, ring: int) -> int:
-    """Elements of the sp gradient all-reduce bucket: every parameter and
-    the loss, padded to a multiple of 4 * ring (K14's chunk in 16-byte
-    lanes)."""
-    return -(-(n_params + 1) // (4 * ring)) * (4 * ring)
+        fsdp = self.mesh.groups["fsdp"]
+        if fsdp is not None:
+            ring_collectives.ring_all_gather(owned, fsdp, out=self.flat)
+        return {"loss": loss}
 
 
 def sequence_parallel_group(sp: int, device, world: Optional[int] = None
                             ) -> Optional[mesh_mod.RingGroup]:
-    """The ring of ``sp`` ranks over the default process group, or None
-    for sp == 1. ``world`` (default: the process group's size) must equal
-    sp: dp = world / sp > 1 is not ported yet."""
-    if world is None:
-        world = dist.get_world_size() if dist.is_initialized() else 1
-    dp = mesh_mod.auto_axis_sizes(world, sp=sp)["dp"]
-    if dp > 1:
-        raise NotImplementedError(
-            f"{world} ranks at sp={sp} leave dp={dp}: data parallelism "
-            f"across sequence-parallel rings is not ported yet (ROADMAP "
-            f"queue 1: the rest of the training mesh)")
-    return mesh_mod.RingGroup(device=device) if sp > 1 else None
+    """This rank's ring of ``sp`` ranks, or None for sp == 1. With world
+    / sp = dp > 1 it is one of dp such rings (the sp role of
+    mesh.RankMesh.build); a step over them needs the whole mesh, so pass
+    that to build_transformer_train."""
+    if sp == 1:
+        return None
+    return mesh_mod.RankMesh.build(device, sp=sp, world=world,
+                                   roles=("sp",)).groups["sp"]
 
 
 def make_transformer_config(sp: int = 1,
                             group: Optional[mesh_mod.RingGroup] = None,
+                            mesh: Optional[mesh_mod.RankMesh] = None,
                             **overrides) -> tfm.TransformerConfig:
-    """A TransformerConfig whose attention matches the sp ring: with
-    ``sp > 1``, ring attention (ops/ring_attention, its ``auto`` tier)
-    over ``group``, a RingGroup of sp ranks; ``overrides``
-    (``fused_norm`` and ``quantize_matmuls`` among them) pass through."""
+    """A TransformerConfig whose attention and tensor parallelism match
+    the mesh: with ``sp > 1``, ring attention (ops/ring_attention, its
+    ``auto`` tier) over ``group`` (a RingGroup of sp ranks, by default
+    the mesh's sp ring); with the mesh's tp > 1, Megatron tp over its tp
+    ring. ``overrides`` (``fused_norm`` and ``quantize_matmuls`` among
+    them) pass through."""
     attention_fn = overrides.pop("attention_fn", None)
+    if mesh is not None:
+        sp = mesh.sizes["sp"]
+        group = group or mesh.groups["sp"]
+        overrides.setdefault("tp_group", mesh.groups["tp"])
     if sp > 1:
         if group is None or group.size != sp:
             raise ValueError(f"sp={sp} needs a RingGroup of {sp} ranks "
@@ -183,26 +270,34 @@ def build_transformer_train(config: tfm.TransformerConfig,
                             device=None,
                             params: Optional[Mapping] = None,
                             loss_impl: str = "auto",
-                            group: Optional[mesh_mod.RingGroup] = None
+                            group: Optional[mesh_mod.RingGroup] = None,
+                            mesh: Optional[mesh_mod.RankMesh] = None
                             ) -> TrainHarness:
     """The model on ``device`` (cuda unless "cpu" is named) with
-    ``params`` (a state dict, e.g. models.convert.params_from_flax) or
-    weights drawn from ``seed`` (convert.init_params; the same on every
-    rank), and AdamW. ``loss_impl``: lm_loss_chunked's impl ('auto',
-    'kernel' or 'plain'). ``group``: the sp ring the config's attention
-    runs over (make_transformer_config), None on one device."""
+    ``params`` (a full state dict, e.g. models.convert.params_from_flax)
+    or weights drawn from ``seed`` (convert.init_params, the same on every
+    rank), this rank's tp shard of them (parallel/sharding), and AdamW.
+    ``loss_impl``: lm_loss_chunked's impl ('auto', 'kernel' or 'plain').
+    ``mesh``: the RankMesh the config was made for
+    (make_transformer_config); ``group``: an sp ring over the whole world
+    instead (RankMesh.of_sp_group). Neither: one device."""
     if config.decode:
         raise ValueError("training needs decode=False")
     device = resolve_device(device)
+    if mesh is None and group is not None:
+        mesh = mesh_mod.RankMesh.of_sp_group(group)
     if params is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
         params = convert.init_params(config, generator)
+    if mesh is not None:
+        if mesh.groups["tp"] is not config.tp_group:
+            raise ValueError("the config's tp_group is not the mesh's tp "
+                             "ring (make_transformer_config(mesh=...))")
+        params = sharding.shard_state_dict(params, mesh)
     model = tfm.TransformerLM(config, device="meta")
     model.load_state_dict({name: t.to(device, copy=True)
                            for name, t in params.items()}, assign=True)
-    optimizer = torch.optim.AdamW(
-        model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
-        eps=1e-8, weight_decay=0.01)
-    return TrainHarness(model.train(), optimizer, batch_size, seq_len,
-                        loss_impl, group)
+    return TrainHarness(model.train(), batch_size, seq_len, learning_rate,
+                        loss_impl, mesh)
+

@@ -1,8 +1,8 @@
-"""The serving phase (or the int8 or the sequence-parallel training
-phase) of two checkouts, in turns, on one card.
+"""The serving phase (or the int8, the sequence-parallel or the mesh
+training phase) of two checkouts, in turns, on one card.
 
     python -m batch_shipyard_tpu_torch.trace.serve_compare \
-        [--phase serve|train_int8|train_sp] TREE [TREE ...]
+        [--phase serve|train_int8|train_sp|train_mesh] TREE [TREE ...]
 
 For each TREE in the order given (a checkout of this repo; name one
 twice, as in ``parent change change parent``, to see the spread between
@@ -20,6 +20,11 @@ the step's profile). ``train_sp``: its ``chip_smoke.train_sp`` (the
 ``--sp 4`` workload, four ranks on the card, under the same marker: ms a
 step, every rank's launches, K12 ms and ring wait a step), after building
 the kernels it runs once, so the four ranks do not each compile them.
+``train_mesh``: the same, then its ``chip_smoke.train_mesh`` (the mesh
+paths' ring calls against their plain versions, with a planted-fault
+build of the ring kernels; the eight-rank recipe ``--sp 4 --tp 2`` held
+against that train_sp run's losses, the dp x fsdp x sp run and the
+killed-rank check).
 Every line the child prints goes to stdout after a
 ``TREE <path> <card>`` header. Both trees must offer these names (the
 port's chip_smoke.py has, since the decode kernels and the int8 kernels
@@ -67,6 +72,20 @@ marker = pathlib.Path(tempfile.mkdtemp()) / "KERNEL_VALIDATION.json"
 marker.write_text(json.dumps({chunked_loss.VALIDATION_NAME: {
     "ok": True, "backend": kernel_select.BACKEND}}))
 smoke.train_sp(torch.device("cuda"), {kernel_select.MARKER_ENV: str(marker)})
+""", "train_mesh": """
+import json, pathlib, tempfile, torch
+import chip_smoke as smoke
+from batch_shipyard_tpu_torch.ops import _build, chunked_loss, kernel_select
+for name in ("flash_attention", "chunked_loss", "ring_collectives"):
+    _build.build(name)
+marker = pathlib.Path(tempfile.mkdtemp()) / "KERNEL_VALIDATION.json"
+marker.write_text(json.dumps({chunked_loss.VALIDATION_NAME: {
+    "ok": True, "backend": kernel_select.BACKEND}}))
+env = {kernel_select.MARKER_ENV: str(marker)}
+sp = smoke.train_sp(torch.device("cuda"), env)
+faults, _ = smoke.build_fault_library(pathlib.Path(tempfile.mkdtemp()),
+                                      "ring_collectives")
+smoke.train_mesh(torch.device("cuda"), env, sp["losses"], faults)
 """}
 
 

@@ -11,13 +11,17 @@ on a sequence-parallel ring the permute K12 and the gradient all-reduce
 K13 + K14), the library GEMMs' time and share
 (cuBLAS's kernels: the int8 step's fp32 backward products, the other
 steps' projections and slab-loss products), and the largest device
-kernels. On a ring it also gives ring wait (the time this rank's ring
-calls spent waiting on a neighbour: their stream waits, from the group's
-event pairs) and the device kernels each ring call makes (K12: two
-copies; K13 and K14: ring copies, K14's adding). chip_smoke.py runs
-it on bench.py ``bench_transformer``'s model after its counted training
-steps, and ``workloads/train_transformer.py --profile-steps`` on every
-rank. CUDA only.
+kernels. Over a mesh it also gives each axis's ring kernels' ms a step
+(``ring_ms_per_step_by_axis``: the copy kernels of the sp rotations, the
+tp all-reduces, the data all-reduce and the fsdp scatter and gather,
+told apart by the order in which their calls launched them on the one
+stream), each ring group's wait (the time its calls spent waiting on a
+neighbour: their stream waits, from the group's event pairs) and the
+device kernels each ring call makes (K12: two copies; K13 and K14: ring
+copies, K14's adding). chip_smoke.py runs it on bench.py
+``bench_transformer``'s model after its counted training steps, and
+``workloads/train_transformer.py --profile-steps`` on every rank. CUDA
+only.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from batch_shipyard_tpu_torch.ops import ring_collectives
 from batch_shipyard_tpu_torch.trace.decode_profile import busy_us
 
 # Substrings of the kernels' mangled names: csrc/flash_attention.cu,
@@ -78,17 +83,21 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
         harness.step(batch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - started) * 1e3 / steps
-    group = getattr(harness, "group", None)
-    if group is not None:
-        wait_ns = group.wait_ns()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            harness.step(batch)
-        torch.cuda.synchronize()
-    if group is not None:
-        group.check()
-        wait_ns = group.wait_ns() - wait_ns
+    mesh = getattr(harness, "mesh", None)
+    groups = [] if mesh is None else mesh.distinct_groups()
+    waited = [group.wait_ns() for group in groups]
+    ring_collectives.copy_log = log = []
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                harness.step(batch)
+            torch.cuda.synchronize()
+    finally:
+        ring_collectives.copy_log = None
+    if mesh is not None:
+        mesh.check()
+        waited = [group.wait_ns() - ns for group, ns in zip(groups, waited)]
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
@@ -107,11 +116,13 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
     gemm_us = sum(us for name, us in by_name.items()
                   if any(symbol in name.lower() for symbol in LIBRARY_GEMM))
     ring = {}
-    if group is not None:
+    if groups:
         ring_us = sum(per_kernel[key] for key in RING_KERNELS)
         calls = {key: sum(1 for e in kernels if any(
                      symbol in e.name for symbol in KERNEL_SYMBOLS[key]))
                  for key in RING_KERNELS}
+        wait_by_group = {group.axis: ns / 1e6 / steps
+                         for group, ns in zip(groups, waited)}
         ring = {
             "ring_kernel_calls_per_step": {key: n / steps
                                            for key, n in calls.items()},
@@ -120,7 +131,11 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
             "ring_all_reduce_ms_per_step": (
                 per_kernel["ring_all_gather"] +
                 per_kernel["ring_reduce_scatter"]) / 1e3 / steps,
-            "ring_wait_ms_per_step": wait_ns / 1e6 / steps,
+            "ring_ms_per_step_by_axis": {
+                axis: us / 1e3 / steps
+                for axis, us in ring_us_by_axis(kernels, log).items()},
+            "ring_wait_ms_per_step": sum(wait_by_group.values()),
+            "ring_wait_ms_per_step_by_group": wait_by_group,
         }
     return {
         **ring,
@@ -142,3 +157,24 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
                                    key=lambda kv: -kv[1])[:10]},
     }
 
+
+
+def ring_us_by_axis(kernels, log: list) -> dict:
+    """Device µs of the ring copy kernels by the axis of the call that
+    launched them: the ring kernels (one stream, so in launch order by
+    start time) matched one to one with ``log``, the (kernel, axis) the
+    wrappers appended as they launched them."""
+    ring = sorted((e for e in kernels
+                   if any(symbol in e.name for key in RING_KERNELS
+                          for symbol in KERNEL_SYMBOLS[key])),
+                  key=lambda e: e.time_range.start)
+    if len(ring) != len(log):
+        raise RuntimeError(f"the profiler saw {len(ring)} ring kernels, the "
+                           f"wrappers launched {len(log)}")
+    by_axis: dict = collections.defaultdict(float)
+    for event, (kernel, axis) in zip(ring, log):
+        if not any(symbol in event.name for symbol in KERNEL_SYMBOLS[kernel]):
+            raise RuntimeError(f"ring kernel {event.name} ran where the "
+                               f"wrappers launched {kernel}")
+        by_axis[axis] += event.time_range.end - event.time_range.start
+    return dict(by_axis)

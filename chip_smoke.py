@@ -107,6 +107,20 @@ Phases, each fatal on failure:
      and the workload's entry point, 2 + 3 steps and one profiled: the
      loss must be finite and fall, and each rank must launch exactly
      sp_launches_per_step(rank) a step and no plain version;
+  5b. the training mesh (``train_mesh``), eight ranks on this card
+     through the workload under ``torch.distributed.run``: (a) the
+     reference recipe ``--seq-len 8192 --sp 4 --tp 2`` at full width and
+     depth (batch 8, remat, the fused loss), (b) ``--sp 2 --fsdp 2``
+     (dp 2) at 2 layers, each 2 + 3 steps and one profiled. Each must
+     give finite falling losses, every rank exactly
+     mesh_launches_per_step(rank) a step by kernel and by ring axis (K12
+     on sp rings; K14 + K13 as tp all-reduces, the data all-reduce and
+     the fsdp scatter and gather) and no plain version, and one digest of
+     the replicated parameters on all eight ranks and of each tp shard on
+     the ranks of its tp index; (a)'s loss at every step within
+     MESH_LOSS_RTOL of the sp phase's on the same weights and batch. Then
+     a rank of a small recipe-shaped mesh kills itself mid-step and every
+     other rank must raise within KILL_RAISE_LIMIT_S;
   6. the served decode step as a CUDA graph (decode_graph), for each
      bench_serving cache (paged, paged_int8, dense_int8): one request
      schedule (admissions mid-stream, pages growing past the prompts',
@@ -138,6 +152,7 @@ no CUDA device is present.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import ctypes
 import dataclasses
@@ -479,7 +494,8 @@ def reset_launch_counts() -> None:
                    loss_ops.launches, loss_ops.plain_calls,
                    norm_ops.launches, norm_ops.plain_calls,
                    quant_ops.launches, quant_ops.plain_calls,
-                   quant_ops.bit_draws, rc.launches, rc.plain_calls):
+                   quant_ops.bit_draws, rc.launches, rc.plain_calls,
+                   rc.axis_launches):
         for key in counts:
             counts[key] = 0
 
@@ -1959,7 +1975,8 @@ def bucket_elems(ring: int = SP) -> int:
     sp path: every parameter and the loss, padded as parallel/train pads
     it."""
     cfg = tfm.TransformerConfig(**_MODEL)
-    return train_mod.bucket_size(mfu.transformer_param_count(cfg), ring)
+    return train_mod.bucket_layout(mfu.transformer_param_count(cfg),
+                                   data=ring)[1]
 
 
 RING_KEYS = ("ring_permute", "ring_all_gather", "ring_reduce_scatter")
@@ -2746,18 +2763,49 @@ SP_TRAIN_TIMEOUT_S = 600.0
 SP_NUMERICS_BATCH, SP_NUMERICS_SEQ = 2, 2048
 
 
+def mesh_launches_per_step(rank: int, sizes: dict,
+                           layers: int = _MODEL["n_layers"]) -> dict:
+    """What rank ``rank`` of a mesh of ``sizes`` (auto_axis_sizes)
+    launches each step of the workload (causal, remat on, the fused loss,
+    ``layers`` layers), by kernel and by ring call and axis (the
+    workload's ``launches``). Per layer: sp - 1 ring rotations forward,
+    as many again in remat's recompute and in the backward (K12); the
+    diagonal and sp_index full flash blocks, forward and recompute (K1)
+    and backward (K2); with tp, two all-reduces (g) forward, the same two
+    in the recompute and two (f) in the backward, each one K14 and one
+    K13. Per step: the loss once (K3-K5); with fsdp, the gradient
+    reduce-scatter (K14) and the parameter all-gather (K13) over the
+    fsdp ring; with dp x sp > 1, one all-reduce (K14 + K13) over the data
+    ring. Each K12-K14 launch counts under its ring's label too, and each
+    all-reduce under "ring_all_reduce.<label>"; with dp = 1 the sp ring
+    is the data ring, labelled "sp+data"."""
+    coords = mesh_mod.RankMesh(sizes, rank).coords
+    blocks = 1 + coords["sp"]
+    rotations = 3 * (sizes["sp"] - 1) * layers
+    tp = 6 * layers if sizes["tp"] > 1 else 0
+    data = int(sizes["dp"] * sizes["sp"] > 1)
+    fsdp = int(sizes["fsdp"] > 1)
+    shared = "sp+data" if sizes["dp"] == 1 else None
+    want = collections.Counter({
+        "ring_permute": rotations, f"ring_permute.{shared or 'sp'}":
+        rotations, "flash_fwd": 2 * blocks * layers,
+        "flash_bwd": blocks * layers, "xent_fwd": 1, "xent_bwd_h": 1,
+        "xent_bwd_e": 1, "ring_reduce_scatter": tp + data + fsdp,
+        "ring_all_gather": tp + data + fsdp})
+    for label, n in (("tp", tp), (shared or "data", data)):
+        for call in ("ring_reduce_scatter", "ring_all_gather",
+                     "ring_all_reduce"):
+            want[f"{call}.{label}"] += n
+    want["ring_reduce_scatter.fsdp"] += fsdp
+    want["ring_all_gather.fsdp"] += fsdp
+    return {key: n for key, n in want.items() if n}
+
+
 def sp_launches_per_step(rank: int) -> dict:
-    """What rank ``rank`` of the sp path launches each step (causal,
-    remat on, the fused loss): sp - 1 forward rotations per layer, as
-    many again in remat's recompute and in the backward (K12); the
-    diagonal and ``rank`` full flash blocks per layer, forward and
-    recompute (K1) and backward (K2); the loss once (K3-K5); one
-    reduce-scatter and one all-gather (K14, K13)."""
-    layers, blocks = _MODEL["n_layers"], 1 + rank
-    return {"ring_permute": 3 * (SP - 1) * layers,
-            "flash_fwd": 2 * blocks * layers, "flash_bwd": blocks * layers,
-            "xent_fwd": 1, "xent_bwd_h": 1, "xent_bwd_e": 1,
-            "ring_reduce_scatter": 1, "ring_all_gather": 1}
+    """What rank ``rank`` of the sp path (--sp 4 on four ranks) launches
+    each step: mesh_launches_per_step of the sp-only mesh, whose data
+    ring is the sp ring (one all-reduce, K14 + K13)."""
+    return mesh_launches_per_step(rank, mesh_mod.auto_axis_sizes(SP, sp=SP))
 
 
 def rank_numerics(device, out_dir) -> dict:
@@ -2774,8 +2822,8 @@ def rank_numerics(device, out_dir) -> dict:
                                                       batch["targets"])
     loss = harness.loss_fn(tokens, targets, positions) * share
     loss.backward()
-    loss = harness.all_reduce_grads(loss)
-    grads = torch.cat([p.grad.reshape(-1) for p in harness.params])
+    grads, loss = harness.sum_grads(loss)
+    grads = grads[:harness.n_params]
     torch.cuda.synchronize()
     group.check()
     if group.rank == 0:
@@ -2874,6 +2922,438 @@ def train_sp(device, marker_env: dict) -> dict:
           f"time per rank {row['ring_share_of_device']}", flush=True)
     print("train sp " + json.dumps(row), flush=True)
     return row
+
+
+# --------------------- the training mesh (8 ranks) ---------------------
+
+
+# The mesh phase: eight ranks on this one card through the workload under
+# torch.distributed.run. (a) the reference workload's recipe in full,
+# --seq-len 8192 --sp 4 --tp 2 (workloads/train_transformer.py:8-10), at
+# bench_transformer's widths and depth, batch 8, remat, the fused loss;
+# (b) dp and fsdp across sp rings, --sp 2 --fsdp 2 (dp 2), the same
+# widths and batch, depth cut to 2 layers.
+MESH_RANKS = 8
+MESH_RUNS = {
+    "recipe": dict(tp=2, sp=4, fsdp=1, n_layers=_MODEL["n_layers"]),
+    "dp_fsdp": dict(tp=1, sp=2, fsdp=2, n_layers=2),
+}
+MESH_TRAIN_TIMEOUT_S = 600.0
+# (a)'s loss at every step against train_sp's on the same weights and
+# batch: the two differ only in the order of bf16 sums (tp splits the
+# o/down products and adds the halves in bf16, K14's ring order), so each
+# loss must sit within one bf16 unit roundoff (2^-8) of train_sp's,
+# relative. Set before the first run; not tuned after.
+MESH_LOSS_RTOL = 2.0 ** -8
+# The killed-rank check: a small mesh of the recipe's axes (2 layers,
+# batch 2 x 2048) whose groups wait KILL_TIMEOUT_S; rank KILLED_RANK
+# kills itself in the second step's forward, and every other rank must
+# raise within twice the timeout.
+KILL_TIMEOUT_S = 5.0
+KILL_RAISE_LIMIT_S = 2 * KILL_TIMEOUT_S
+KILLED_RANK = 5
+KILL_RANKS_TIMEOUT_S = 150.0
+
+
+def mesh_kill_main() -> None:
+    """One rank of the killed-rank check (``mesh_kill`` launches
+    MESH_RANKS of them): steps of a small recipe-shaped mesh, each ending
+    in a synchronise and a check; rank KILLED_RANK writes the time and
+    SIGKILLs itself as layer 1's forward starts in step 1. Prints when
+    this rank raised, as one JSON line, and exits at once (a peer's
+    mapped buffers may be gone)."""
+    import faulthandler
+    import signal
+    # A rank that hangs prints every thread's stack before it is killed.
+    faulthandler.dump_traceback_later(KILL_RANKS_TIMEOUT_S - 60, exit=True)
+    spec = json.loads(os.environ["CHIP_SMOKE_KILL"])
+    ctx = distributed.setup()
+    device, me = ctx["device"], ctx["process_index"]
+    mesh = mesh_mod.RankMesh.build(device, tp=2, sp=4,
+                                   timeout_s=KILL_TIMEOUT_S)
+    harness = train_wl.build_bench_harness(
+        device, seed=0, batch_size=2, seq_len=2048, mesh=mesh, remat=True,
+        n_layers=2)
+    batch = train_wl.random_batch(_MODEL["vocab_size"], 2, 2048, 0, device)
+    step = [0]
+
+    def die(*_):
+        if step[0] == 1 and me == KILLED_RANK:
+            with open(spec["killed_file"], "w") as f:
+                f.write(json.dumps({"killed_at": time.time()}))
+                f.flush()
+                os.fsync(f.fileno())
+            os.kill(os.getpid(), signal.SIGKILL)
+    harness.model.layer_1.register_forward_pre_hook(die)
+    torch.distributed.barrier()
+    error = None
+    try:
+        for step[0] in range(8):
+            harness.step(batch)
+            torch.cuda.synchronize()
+            mesh.check()
+    except RuntimeError as err:
+        error = str(err)
+    print("KILL_RANK " + json.dumps({"rank": me, "raised": error is not None,
+                                     "error": error,
+                                     "raised_at": time.time()}), flush=True)
+    os._exit(0)
+
+
+def mesh_kill(device) -> dict:
+    """The killed-rank check: every rank but KILLED_RANK must raise within
+    KILL_RAISE_LIMIT_S of the kill."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    workdir = tempfile.TemporaryDirectory()
+    killed_file = pathlib.Path(workdir.name) / "killed.json"
+    env = dict(os.environ, CHIP_SMOKE_KILL=json.dumps({
+        "killed_file": str(killed_file)}))
+    started = time.perf_counter()
+    try:
+        runs = distributed.launch_local(
+            [sys.executable, "-c",
+             "import chip_smoke; chip_smoke.mesh_kill_main()"],
+            MESH_RANKS, KILL_RANKS_TIMEOUT_S, env=env,
+            cwd=pathlib.Path(__file__).resolve().parent)
+        require(killed_file.exists(),
+                f"mesh kill: rank {KILLED_RANK} never reached its kill: "
+                f"{runs[KILLED_RANK]['stderr'][-3000:]}")
+        killed_at = json.loads(killed_file.read_text())["killed_at"]
+    finally:
+        workdir.cleanup()
+    seconds, failed = {}, []
+    for run in runs:
+        if run["rank"] == KILLED_RANK:
+            continue
+        line = next((ln for ln in run["stdout"].splitlines()[::-1]
+                     if ln.startswith("KILL_RANK ")), None)
+        result = json.loads(line[len("KILL_RANK "):]) if line else {}
+        if not result.get("raised") or run["timed_out"]:
+            failed.append(f"rank {run['rank']}: rc {run['returncode']} "
+                          f"(timed out: {run['timed_out']}) {result}: "
+                          f"{run['stderr'][-6000:]}")
+        else:
+            seconds[run["rank"]] = result["raised_at"] - killed_at
+    require(not failed, "mesh kill: " + "\n".join(failed))
+    print(f"check mesh kill: rank {KILLED_RANK} killed mid-step; the other "
+          f"ranks raised after {[round(x, 2) for x in seconds.values()]} s "
+          f"(limit {KILL_RAISE_LIMIT_S} s, ring timeout {KILL_TIMEOUT_S} s)",
+          flush=True)
+    require(all(x <= KILL_RAISE_LIMIT_S for x in seconds.values()),
+            f"mesh kill: a rank raised too late {seconds}")
+    return {"raise_s": seconds, "limit_s": KILL_RAISE_LIMIT_S,
+            "phase_s": time.perf_counter() - started}
+
+
+MESH_CHECK_RANKS_TIMEOUT_S = 300.0
+# Ring calls of the mesh paths' own kind at a ragged size (the
+# all-reduce's pad and unpad; 37 x 3 bf16 is 111 elements).
+MESH_RAGGED = {"tp": ((37, 3), torch.bfloat16),
+               "data": ((37,), torch.float32)}
+
+
+def _against_plain(note, key, got, plain) -> bool:
+    """The card's result against its plain version's (a CPU tensor): bit
+    for bit, the largest difference noted under ``key``."""
+    got = got.cpu()
+    note[key] = max(note.get(key, 0.0),
+                    float((got.float() - plain.float()).abs().max()))
+    return got.dtype == plain.dtype and torch.equal(got, plain)
+
+
+def rank_check_mesh(name: str, mesh, device) -> dict:
+    """On every rank of a MESH_RUNS mesh: each ring call of its path on
+    card tensors at the shapes the path gives it, against the plain
+    version on CPU copies of the same inputs over the same group's gloo
+    subgroup, bit for bit. The tp all-reduce of an activation [batch /
+    (dp fsdp), seq / sp, d_model] bf16; the fsdp reduce-scatter of the
+    gradient bucket (fsdp rows) and all-gather of the parameter chunk into
+    the flat buffer; the data ring's all-reduce of a bucket row; K12's
+    rotations of the (K, V) shard over the sp ring; and the all-reduce at
+    a ragged size (MESH_RAGGED) over the tp and data rings."""
+    cfg = MESH_RUNS[name]
+    groups, sizes = mesh.groups, mesh.sizes
+    model = tfm.TransformerLM(train_mod.make_transformer_config(
+        mesh=mesh, **dict(_MODEL, n_layers=cfg["n_layers"])), device="meta")
+    n_params = sum(p.numel() for p in model.parameters())
+    data = groups["data"]
+    chunk, row = train_mod.bucket_layout(n_params, sizes["fsdp"],
+                                         1 if data is None else data.size)
+    rows, width = SP_BATCH // mesh.data_size, SP_SEQ // sizes["sp"]
+    failed, worst, cases = [], {}, []
+    seed = itertools.count(100)
+
+    def case(label, ok):
+        cases.append(label)
+        if not ok:
+            failed.append(label)
+    if groups["tp"] is not None:
+        shape = (rows, width, _MODEL["d_model"])
+        x = _draw(device, next(seed), mesh.rank, shape, torch.bfloat16)
+        case(f"tp all-reduce {shape} bf16", _against_plain(
+            worst, "ring_all_reduce", rc.ring_all_reduce(x, groups["tp"]),
+            rc.ring_all_reduce(x.cpu(), groups["tp"])))
+        del x
+    if groups["fsdp"] is not None:
+        bucket = _draw(device, next(seed), mesh.rank,
+                       (sizes["fsdp"] * row,), torch.float32)
+        case(f"fsdp reduce-scatter ({sizes['fsdp'] * row},) fp32",
+             _against_plain(worst, "ring_reduce_scatter",
+                            rc.ring_reduce_scatter(bucket, groups["fsdp"]),
+                            rc.ring_reduce_scatter(bucket.cpu(),
+                                                   groups["fsdp"])))
+        del bucket
+        flat = torch.zeros(sizes["fsdp"] * chunk, device=device)
+        start = mesh.coords["fsdp"] * chunk
+        flat[start:start + chunk] = _draw(device, next(seed), mesh.rank,
+                                          (chunk,), torch.float32)
+        flat_cpu = flat.cpu()
+        owned = flat[start:start + chunk]
+        rc.ring_all_gather(owned, groups["fsdp"], out=flat)
+        rc.ring_all_gather(flat_cpu[start:start + chunk], groups["fsdp"],
+                           out=flat_cpu)
+        case(f"fsdp all-gather ({chunk},) fp32 into the flat buffer",
+             _against_plain(worst, "ring_all_gather", flat, flat_cpu))
+        del flat, flat_cpu, owned
+    if data is not None:
+        x = _draw(device, next(seed), mesh.rank, (row,), torch.float32)
+        case(f"data all-reduce ({row},) fp32 over {data.axis}",
+             _against_plain(worst, "ring_all_reduce",
+                            rc.ring_all_reduce(x, data),
+                            rc.ring_all_reduce(x.cpu(), data)))
+        del x
+    if groups["sp"] is not None:
+        shape = (rows, width, _MODEL["n_heads"], _MODEL["d_head"])
+        k = _draw(device, next(seed), mesh.rank, shape, torch.bfloat16)
+        v = _draw(device, next(seed), mesh.rank, shape, torch.bfloat16)
+        for shift in (1, -1):
+            got = rc.ring_permute(k, v, groups["sp"], shift)
+            want = rc.ring_permute(k.cpu(), v.cpu(), groups["sp"], shift)
+            case(f"sp rotation {shift:+d} {shape} bf16", all(
+                [_against_plain(worst, "ring_permute", a, b)
+                 for a, b in zip(got, want)]))
+        del k, v, got, want
+    for role, (shape, dtype) in MESH_RAGGED.items():
+        if groups[role] is not None:
+            x = _draw(device, next(seed), mesh.rank, shape, dtype)
+            case(f"{role} all-reduce {shape} {str(dtype)[6:]}",
+                 _against_plain(worst, "ring_all_reduce",
+                                rc.ring_all_reduce(x, groups[role]),
+                                rc.ring_all_reduce(x.cpu(), groups[role])))
+    torch.cuda.synchronize()
+    mesh.check()
+    torch.cuda.empty_cache()
+    return {"failed": failed, "cases": cases, "max_abs_err": worst,
+            "bucket": {"params": n_params, "chunk": chunk, "row": row}}
+
+
+def rank_check_mesh_faults(mesh, device) -> dict:
+    """The planted-fault build's K12, K13 and K14 on a ring of two (the
+    recipe's tp ring, built with that library): each must disagree with
+    its plain version."""
+    group = mesh.groups["tp"]
+    x = _draw(device, 60, mesh.rank, (2 * 64, 128), torch.float32)
+    scatter = not torch.equal(rc.ring_reduce_scatter_kernel(x, group).cpu(),
+                              rc.ring_reduce_scatter(x.cpu(), group))
+    x = x[:64].contiguous()
+    gather = not torch.equal(rc.ring_all_gather_kernel(x, group).cpu(),
+                             rc.ring_all_gather(x.cpu(), group))
+    k = _draw(device, 61, mesh.rank, (2, 64, 4, 64), torch.bfloat16)
+    got = rc.ring_permute_kernel(k, k, group)
+    want = rc.ring_permute(k.cpu(), k.cpu(), group)
+    permute = not all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+    mesh.check()
+    return {"permute": permute, "all_gather": gather,
+            "reduce_scatter": scatter}
+
+
+def mesh_check_main() -> None:
+    """One rank of the mesh collectives check (``mesh_collectives``
+    launches MESH_RANKS of them): rank_check_mesh on each MESH_RUNS mesh,
+    then the planted faults on a ring of two. Prints this rank's findings
+    as one JSON line."""
+    spec = json.loads(os.environ["CHIP_SMOKE_MESH_CHECK"])
+    device = distributed.setup()["device"]
+    result = {"rank": torch.distributed.get_rank(), "meshes": {}}
+    for name, cfg in MESH_RUNS.items():
+        mesh = mesh_mod.RankMesh.build(device, tp=cfg["tp"], sp=cfg["sp"],
+                                       fsdp=cfg["fsdp"],
+                                       timeout_s=RING_TIMEOUT_S)
+        try:
+            result["meshes"][name] = rank_check_mesh(name, mesh, device)
+        finally:
+            mesh.close()
+    recipe = MESH_RUNS["recipe"]
+    mesh = mesh_mod.RankMesh.build(
+        device, tp=recipe["tp"], sp=recipe["sp"], fsdp=recipe["fsdp"],
+        timeout_s=RING_TIMEOUT_S, roles=("tp",),
+        library=_build.load(pathlib.Path(spec["fault_library"]),
+                            "ring_collectives"))
+    try:
+        result["fault_caught"] = rank_check_mesh_faults(mesh, device)
+    finally:
+        mesh.close()
+    print("MESH_CHECK " + json.dumps(result), flush=True)
+
+
+def mesh_collectives(fault_path) -> dict:
+    """The mesh paths' ring calls against their plain versions on every
+    one of MESH_RANKS ranks on this card (mesh_check_main). Fails unless
+    every case agreed bit for bit and the planted faults were caught."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, CHIP_SMOKE_MESH_CHECK=json.dumps({
+        "fault_library": str(fault_path)}))
+    started = time.perf_counter()
+    runs = distributed.launch_local(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.mesh_check_main()"],
+        MESH_RANKS, MESH_CHECK_RANKS_TIMEOUT_S, env=env,
+        cwd=pathlib.Path(__file__).resolve().parent)
+    results = []
+    for run in runs:
+        line = next((ln for ln in run["stdout"].splitlines()[::-1]
+                     if ln.startswith("MESH_CHECK ")), None)
+        require(run["returncode"] == 0 and line is not None,
+                f"mesh check rank {run['rank']}: rc {run['returncode']} "
+                f"(timed out: {run['timed_out']}): {run['stderr'][-3000:]}")
+        results.append(json.loads(line[len("MESH_CHECK "):]))
+    worst = {}
+    for r in results:
+        for name, check in r["meshes"].items():
+            print(f"check mesh {name} rank {r['rank']}: {len(check['cases'])}"
+                  f" ring calls against their plain versions "
+                  f"{check['cases']}, failed {check['failed']}, max abs err "
+                  f"{check['max_abs_err']}", flush=True)
+            require(check["cases"] and not check["failed"],
+                    f"mesh {name} rank {r['rank']}: {check}")
+            for key, err in check["max_abs_err"].items():
+                worst[key] = max(worst.get(key, 0.0), err)
+        print(f"check mesh planted faults rank {r['rank']} (ring of 2): "
+              f"caught {r['fault_caught']}", flush=True)
+        require(all(r["fault_caught"].values()),
+                f"mesh rank {r['rank']}: a planted fault passed "
+                f"{r['fault_caught']}")
+    return {"max_abs_err": worst, "ranks": results,
+            "seconds": time.perf_counter() - started}
+
+
+def train_mesh_run(name: str, marker_env: dict) -> dict:
+    """One MESH_RUNS configuration through the workload's entry point
+    under torch.distributed.run, MESH_RANKS ranks on this card, gated:
+    finite falling losses; every rank's launches exactly
+    mesh_launches_per_step a step, by kernel and by axis, and no plain
+    version; the replicated parameters' digest equal on every rank and
+    each tp shard's on the ranks of its tp index."""
+    cfg = MESH_RUNS[name]
+    sizes = mesh_mod.auto_axis_sizes(MESH_RANKS, tp=cfg["tp"], sp=cfg["sp"],
+                                     fsdp=cfg["fsdp"])
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc-per-node", str(MESH_RANKS), "--master-port",
+           str(distributed.free_port()), "-m",
+           "batch_shipyard_tpu_torch.workloads.train_transformer",
+           "--tp", str(cfg["tp"]), "--sp", str(cfg["sp"]), "--fsdp",
+           str(cfg["fsdp"]), "--n-layers", str(cfg["n_layers"]),
+           "--seq-len", str(SP_SEQ), "--batch", str(SP_BATCH), "--warmup",
+           str(SP_WARMUP), "--steps", str(SP_STEPS), "--profile-steps",
+           str(SP_PROFILE_STEPS)]
+    started = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=MESH_TRAIN_TIMEOUT_S,
+                          env=dict(os.environ, **marker_env),
+                          cwd=pathlib.Path(__file__).resolve().parent)
+    seconds = time.perf_counter() - started
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0 and len(lines) >= 2,
+            f"train mesh {name}: rc {proc.returncode}: "
+            f"{proc.stderr[-4000:]}")
+    print(lines[-2], flush=True)
+    report = json.loads(lines[-1])
+    require(report["mesh"] == sizes, f"train mesh {name}: {report['mesh']}")
+    losses = report["losses"]
+    require(all(math.isfinite(x) for x in losses),
+            f"train mesh {name}: non-finite loss {losses}")
+    require(losses[-1] < losses[0],
+            f"train mesh {name}: loss did not fall {losses}")
+    steps = SP_WARMUP + SP_STEPS
+    for r in report["per_rank"]:
+        want = mesh_launches_per_step(r["rank"], sizes, cfg["n_layers"])
+        require(r["launches"] == {k: n * steps for k, n in want.items()},
+                f"train mesh {name} rank {r['rank']}: launches "
+                f"{r['launches']} in {steps} steps, want {want} a step")
+        require(not r["plain_calls"],
+                f"train mesh {name} rank {r['rank']}: plain versions ran "
+                f"{r['plain_calls']}")
+        require(r["coords"] == mesh_mod.RankMesh(sizes, r["rank"]).coords,
+                f"train mesh {name} rank {r['rank']}: coords {r['coords']}")
+    digests = {(kind, r["coords"]["tp"] if kind == "tp_shard" else 0):
+               set() for r in report["per_rank"]
+               for kind in r["params_sha256"]}
+    for r in report["per_rank"]:
+        for kind, digest in r["params_sha256"].items():
+            digests[kind, r["coords"]["tp"] if kind == "tp_shard" else 0
+                    ].add(digest)
+    require(all(len(d) == 1 for d in digests.values()),
+            f"train mesh {name}: parameters that must match differ "
+            f"{digests}")
+    profile = [r["profile"] for r in report["per_rank"]]
+    return {
+        "config": (f"bench_transformer widths, {cfg['n_layers']} layers, "
+                   f"--seq-len {SP_SEQ} --tp {cfg['tp']} --sp {cfg['sp']} "
+                   f"--fsdp {cfg['fsdp']} (mesh {sizes}), batch {SP_BATCH}, "
+                   f"remat, fused loss"),
+        "ranks": f"{MESH_RANKS} ranks time-sliced on one card",
+        "steps": steps, "timed_steps": SP_STEPS,
+        "tokens_per_s": report["tokens_per_sec"],
+        "ms_per_step": report["ms_per_step"], "losses": losses,
+        "mfu_pct_of_one_card": report["mfu_pct"],
+        "launches_rank0": report["per_rank"][0]["launches"],
+        "launches_per_step": {r["rank"]: r["launches_per_step"]
+                              for r in report["per_rank"]},
+        "peak_mem_gb": [r["peak_mem_gb"] for r in report["per_rank"]],
+        "ring_ms_per_step_by_axis": [p["ring_ms_per_step_by_axis"]
+                                     for p in profile],
+        "ring_wait_ms_per_step_by_group": [
+            p["ring_wait_ms_per_step_by_group"] for p in profile],
+        "device_idle_share": [p["device_idle_share"] for p in profile],
+        "params_sha256": report["per_rank"][0]["params_sha256"],
+        "profile": profile, "phase_s": seconds,
+    }
+
+
+def train_mesh(device, marker_env: dict, sp_losses: list,
+               fault_path) -> dict:
+    """Phase 5b: the mesh paths' ring calls against their plain versions
+    (mesh_collectives), the two MESH_RUNS through the workload, (a)'s
+    losses within MESH_LOSS_RTOL of train_sp's step by step, then the
+    killed-rank check."""
+    started = time.perf_counter()
+    rows = {"collectives": mesh_collectives(fault_path)}
+    for name in MESH_RUNS:
+        rows[name] = row = train_mesh_run(name, marker_env)
+        print(f"train mesh {name} ({row['config']}; {row['ranks']}): "
+              f"{row['tokens_per_s']:.0f} tokens/s of the global batch, "
+              f"{row['ms_per_step']:.1f} ms/step, peak GB per rank "
+              f"{row['peak_mem_gb']}, ring kernels' ms a step by axis per "
+              f"rank {row['ring_ms_per_step_by_axis']}, ring wait ms a step "
+              f"by group per rank {row['ring_wait_ms_per_step_by_group']}, "
+              f"{row['phase_s']:.1f} s", flush=True)
+        print(f"train mesh {name} " + json.dumps(row), flush=True)
+    recipe = rows["recipe"]["losses"]
+    off = [abs(a - b) / abs(b) for a, b in zip(recipe, sp_losses)]
+    print(f"check mesh recipe vs train sp losses: {recipe} vs {sp_losses}, "
+          f"relative {off} (limit {MESH_LOSS_RTOL})", flush=True)
+    require(len(recipe) == len(sp_losses) and
+            all(x <= MESH_LOSS_RTOL for x in off),
+            f"train mesh recipe: losses {recipe} off train_sp's "
+            f"{sp_losses} by {off}")
+    rows["loss_rel_vs_sp"] = off
+    rows["kill"] = mesh_kill(device)
+    rows["phase_s"] = time.perf_counter() - started
+    print(f"train mesh phase: {rows['phase_s']:.1f} s", flush=True)
+    return rows
 
 
 # ------------------------------ serving ------------------------------
@@ -3295,6 +3775,21 @@ def main() -> int:
         timing.update(sp_checks["timing"])
         sp_numerics(device, tmp)
         sp_trained = train_sp(device, {kernel_select.MARKER_ENV: str(marker)})
+        meshed = train_mesh(device, {kernel_select.MARKER_ENV: str(marker)},
+                            sp_trained["losses"],
+                            faulty["ring_collectives"][0])
+        # K12-K14's worst error over the sp ring's checks and the mesh's
+        # (the all-reduce's under both K13 and K14).
+        mesh_err = meshed["collectives"]["max_abs_err"]
+        for key, parts in (("ring_permute", ("ring_permute",)),
+                           ("ring_all_gather", ("ring_all_gather",
+                                                "ring_all_reduce")),
+                           ("ring_reduce_scatter", ("ring_reduce_scatter",
+                                                    "ring_all_reduce"))):
+            timing[key]["max_abs_err_mesh"] = max(
+                mesh_err.get(part, 0.0) for part in parts)
+            timing[key]["max_abs_err"] = max(
+                timing[key]["max_abs_err"], timing[key]["max_abs_err_mesh"])
     finally:
         os.environ.pop(kernel_select.MARKER_ENV)
         workdir.cleanup()
@@ -3325,6 +3820,9 @@ def main() -> int:
             row["device_kernels_per_call"] = (
                 sp_trained["profile"][0]["ring_kernel_calls_per_step"][key] /
                 sp_trained["launches_per_step"][0][key])
+            for name in MESH_RUNS:
+                row[f"launches_mesh_{name}_rank0"] = \
+                    meshed[name]["launches_rank0"].get(key, 0)
         elif key in virtual_launches:
             # K15/K16 run on no training or serving path: their launches
             # in their own check and timing phase.
@@ -3340,6 +3838,10 @@ def main() -> int:
             if key in sp_trained["launches_rank0"]:
                 row["launches_sp_train_rank0"] = \
                     sp_trained["launches_rank0"][key]
+            for name in MESH_RUNS:
+                if key in meshed[name]["launches_rank0"]:
+                    row[f"launches_mesh_{name}_rank0"] = \
+                        meshed[name]["launches_rank0"][key]
         else:
             # The wrappers' count (the eager warm-up step and the
             # capture), and the traced replays' count a decode step.
@@ -3357,7 +3859,8 @@ def main() -> int:
                                       "device_kernels_per_call",
                                       "bound_nvlink_ms",
                                       "ms_per_rank", "note", "joint",
-                                      "tflops", "ceiling_ms",
+                                      "max_abs_err_mesh", "tflops",
+                                      "ceiling_ms",
                                       "fwd_bwd_ms", "library_fwd_bwd_ms",
                                       "served_lengths", "resources")
                     if k in t})

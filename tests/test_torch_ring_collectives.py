@@ -467,7 +467,8 @@ class Harness:
 
 
 group = group_with_word(0)
-train_mod.sequence_parallel_group = lambda sp, device: group
+mesh.RankMesh.build = (
+    lambda device, **axes: mesh.RankMesh.of_sp_group(group))
 train_mod.build_transformer_train = lambda *args, **kwargs: Harness()
 try:
     wl.main(["--device", "cpu", "--sp", "2", "--warmup", "1", "--steps",

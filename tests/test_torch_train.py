@@ -35,6 +35,7 @@ from batch_shipyard_tpu_torch.models import transformer as ttfm
 from batch_shipyard_tpu_torch.ops import attention as tattn
 from batch_shipyard_tpu_torch.ops import chunked_loss as tcl
 from batch_shipyard_tpu_torch.ops import fused_norm as tfn
+from batch_shipyard_tpu_torch.parallel import mesh as tmesh
 from batch_shipyard_tpu_torch.parallel import mfu as tmfu
 from batch_shipyard_tpu_torch.parallel import train as ttrain
 from batch_shipyard_tpu_torch.workloads import distributed
@@ -406,12 +407,43 @@ def test_train_cli_sp4_on_cpu():
     assert all(not run["stdout"].strip() for run in runs[1:])
 
 
-def test_dp_over_sp_rings_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: the rest of the training mesh"):
-        ttrain.sequence_parallel_group(2, "cpu", world=4)
+# A rank of a world of 4 at sp = 2: its ring.
+DP_SP_WORKER = r"""
+import json
+from batch_shipyard_tpu_torch.parallel import mesh, train
+from batch_shipyard_tpu_torch.workloads import distributed
+distributed.setup("cpu")
+group = train.sequence_parallel_group(2, "cpu", world=4)
+try:
+    mesh.RankMesh.of_sp_group(group)
+    refused = None
+except ValueError as err:
+    refused = str(err)
+print(json.dumps({"ranks": group.ranks, "rank": group.rank,
+                  "axis": group.axis, "refused": refused}))
+group.close()
+"""
+
+
+def test_sequence_parallel_group_over_dp():
+    """A world of 4 at sp = 2 is dp = 2 sp rings: each rank gets the ring
+    of its dp index, at its sp index (no longer NotImplementedError)."""
     assert ttrain.sequence_parallel_group(1, "cpu", world=1) is None
     with pytest.raises(ValueError, match="RingGroup of 4"):
         ttrain.make_transformer_config(sp=4)
+    runs = _run_ranks([sys.executable, "-c", DP_SP_WORKER])
+    got = [json.loads(run["stdout"].strip().splitlines()[-1])
+           for run in runs]
+    sizes = tmesh.auto_axis_sizes(4, sp=2)
+    assert sizes == {"dp": 2, "fsdp": 1, "ep": 1, "sp": 2, "tp": 1}
+    for rank, ring in enumerate(got):
+        coords = tmesh.RankMesh(sizes, rank).coords
+        assert ring["ranks"] == ([0, 1] if rank < 2 else [2, 3])
+        assert ring["rank"] == rank % 2 == coords["sp"]
+        assert coords["dp"] == rank // 2
+        assert ring["axis"] == "sp"
+        # Half the world is no sp-only mesh: a step needs RankMesh.build.
+        assert "pass the mesh (RankMesh.build)" in ring["refused"]
 
 
 # A rank of the sp = 4 two-step check: the same flax weights and global
