@@ -7,6 +7,11 @@ packages; the two frameworks' random generators differ). It takes the
 flax param tree as nested dicts of numpy arrays, so it needs no JAX.
 ``init_params`` draws a state dict from an explicit torch.Generator
 with flax's initializers' distributions, for runs without JAX.
+``opt_state_from_optax`` carries optax.adamw's moments and count across
+under the same names and transposes, so a run can continue the
+reference's training mid-run, optimizer included. ``unfused_params``
+re-lays a fused_norm state dict out as the per-projection one the
+decode model takes (the same weights).
 """
 
 from __future__ import annotations
@@ -42,6 +47,42 @@ def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
                     array.copy())
 
     walk(tree, ())
+    return out
+
+
+def opt_state_from_optax(mu: Mapping, nu: Mapping, count) -> dict:
+    """optax.adamw's state (``ScaleByAdamState``: ``mu`` and ``nu``, trees
+    shaped like the params, and ``count``) -> the port's AdamW state:
+    {"step": count, "exp_avg": state dict of mu, "exp_avg_sq": state dict
+    of nu}, under params_from_flax's names and transposes."""
+    return {"step": int(np.asarray(count)),
+            "exp_avg": params_from_flax(mu),
+            "exp_avg_sq": params_from_flax(nu)}
+
+
+def unfused_params(state: Mapping[str, torch.Tensor]
+                   ) -> dict[str, torch.Tensor]:
+    """A fused_norm state dict -> the unfused one of the same model:
+    ``attn.norm_scale`` / ``mlp.norm_scale`` become ``attn_norm.scale`` /
+    ``mlp_norm.scale``; ``qkv_kernel [d, 3F]`` (columns [q | k | v]) the
+    q/k/v ``weight [F, d]``s and ``gate_up_kernel [d, 2 d_ff]`` ([gate |
+    up]) the gate/up ones. Other tensors pass through."""
+    out: dict[str, torch.Tensor] = {}
+    for name, tensor in state.items():
+        layer, _, leaf = name.rpartition(".")
+        block, _, sub = layer.rpartition(".")
+        if leaf == "norm_scale":
+            out[f"{block}.{sub}_norm.scale"] = tensor
+        elif leaf == "qkv_kernel":
+            for proj, part in zip(("q_proj", "k_proj", "v_proj"),
+                                  tensor.chunk(3, dim=1)):
+                out[f"{layer}.{proj}.weight"] = part.t().contiguous()
+        elif leaf == "gate_up_kernel":
+            for proj, part in zip(("gate_proj", "up_proj"),
+                                  tensor.chunk(2, dim=1)):
+                out[f"{layer}.{proj}.weight"] = part.t().contiguous()
+        else:
+            out[name] = tensor
     return out
 
 

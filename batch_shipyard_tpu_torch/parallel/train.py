@@ -46,6 +46,18 @@ XLA; the port's step, after the backward:
 5. all-gathers the updated chunks over the fsdp ring (K13) into that
    flat buffer (nothing with fsdp = 1).
 
+State export and import (workloads/checkpoint.py): ``state_pieces``
+gives this rank's share of the global state as parallel/sharding.py
+``Piece``s keyed by the state-dict names: its tp shard of every fp32
+parameter whole, and of AdamW's ``exp_avg`` and ``exp_avg_sq`` the
+per-tensor flat ranges of its fsdp chunk (views of the optimizer state
+of the chunk; one device: of each parameter's state), with AdamW's step
+count. ``load_state_pieces`` copies such pieces back into the existing
+tensors, so the parameters stay views of the flat buffer, and creates
+AdamW's per-tensor state when no step has run yet (torch creates it
+lazily). Every ``step`` beats the task's progress file
+(agent/progress.py), as the reference's step wrappers do.
+
 Gradients are never summed over tp: a tp shard's gradient is whole on
 its rank, and a replicated parameter's is the same on every tp rank
 (f's backward sums the activation gradient before it reaches them).
@@ -62,6 +74,7 @@ from typing import Mapping, Optional
 
 import torch
 
+from batch_shipyard_tpu_torch.agent import progress
 from batch_shipyard_tpu_torch.device import resolve_device
 from batch_shipyard_tpu_torch.models import convert
 from batch_shipyard_tpu_torch.models import transformer as tfm
@@ -77,7 +90,7 @@ def bucket_layout(n_params: int, fsdp: int = 1, data: int = 1
     ``chunk`` parameters (1/fsdp of them, in 16-byte lanes) and the loss
     slot, padded to ``row``, a multiple of 4 * data fp32 elements (K14's
     lanes over the data ring, so its all-reduce needs no padding)."""
-    chunk = -(-n_params // (4 * fsdp)) * 4
+    chunk = sharding.fsdp_chunk(n_params, fsdp)
     return chunk, -(-(chunk + 1) // (4 * data)) * (4 * data)
 
 
@@ -214,6 +227,7 @@ class TrainHarness:
             loss = self.loss_fn(tokens, targets)
             loss.backward()
             self.optimizer.step()
+            progress.beat()
             return {"loss": loss.detach()}
         tokens, targets, positions, share = self.shard(tokens, targets)
         loss = self.loss_fn(tokens, targets, positions) * share
@@ -224,7 +238,105 @@ class TrainHarness:
         fsdp = self.mesh.groups["fsdp"]
         if fsdp is not None:
             ring_collectives.ring_all_gather(owned, fsdp, out=self.flat)
+        progress.beat()
         return {"loss": loss}
+
+    # ---------------------------- checkpoints ----------------------------
+
+    @property
+    def layout(self) -> tuple[dict, dict]:
+        """(sizes, coords) of this rank's place on the mesh; one device
+        is the mesh of one rank."""
+        if self.mesh is None:
+            sizes = mesh_mod.auto_axis_sizes(1)
+            return sizes, mesh_mod.RankMesh(sizes, 0).coords
+        return self.mesh.sizes, self.mesh.coords
+
+    def state_tensors(self) -> dict[str, tuple[tuple, torch.dtype]]:
+        """Every parameter's global shape and dtype, in parameter order
+        (the flat bucket's)."""
+        tp = self.layout[0]["tp"]
+        return {name: (sharding.global_shape(name, p.shape, tp), p.dtype)
+                for name, p in self.model.named_parameters()}
+
+    @property
+    def optimizer_step(self) -> int:
+        """AdamW's step count (0 before the first update)."""
+        for state in self.optimizer.state.values():
+            return int(state["step"])
+        return 0
+
+    def _piece_view(self, piece) -> torch.Tensor:
+        """The live tensor elements a held piece names (a view)."""
+        param = self._named[piece.key]
+        if piece.kind == "param":
+            return param.detach().view(-1)[piece.lo:piece.hi]
+        if self.mesh is None:
+            state = self.optimizer.state[param]
+            return state[piece.kind].view(-1)[piece.lo:piece.hi]
+        owned, = self.optimizer.param_groups[0]["params"]
+        at = self._offsets[piece.key] - self.mesh.coords["fsdp"] * self.chunk
+        return self.optimizer.state[owned][piece.kind][
+            at + piece.lo:at + piece.hi]
+
+    @functools.cached_property
+    def _named(self) -> dict:
+        return dict(self.model.named_parameters())
+
+    @functools.cached_property
+    def _offsets(self) -> dict:
+        offsets, at = {}, 0
+        for name, p in self._named.items():
+            offsets[name] = at
+            at += p.numel()
+        return offsets
+
+    def held_pieces(self) -> list:
+        """The parallel/sharding.py pieces of the global state this rank
+        holds."""
+        sizes, coords = self.layout
+        shapes = {name: shape
+                  for name, (shape, _) in self.state_tensors().items()}
+        return sharding.held_pieces(shapes, sizes, coords)
+
+    def state_pieces(self) -> dict:
+        """{"step": AdamW's step count, "pieces": {Piece: a view of the
+        live tensor}} for every piece this rank holds; the moments are
+        zeros before the first update."""
+        self._ensure_state()
+        return {"step": self.optimizer_step,
+                "pieces": {piece: self._piece_view(piece)
+                           for piece in self.held_pieces()}}
+
+    def _ensure_state(self) -> None:
+        """AdamW's state as torch creates it at the first update: zero
+        moments and a 0-d step count on the host."""
+        group = self.optimizer.param_groups[0]
+        for p in group["params"]:
+            state = self.optimizer.state[p]
+            if not state:
+                state["step"] = torch.tensor(0.0)
+                state["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+
+    @torch.no_grad()
+    def load_state_pieces(self, pieces: Mapping, step: int) -> None:
+        """Copy every held piece (``pieces``: Piece -> tensor, anywhere)
+        into the live parameters and AdamW state, and set AdamW's step
+        count. Raises unless ``pieces`` holds exactly this rank's
+        pieces."""
+        held = self.held_pieces()
+        if set(pieces) != set(held):
+            missing = sorted(set(held) - set(pieces))[:3]
+            raise ValueError(f"state pieces do not match this rank's: "
+                             f"missing {missing}")
+        self._ensure_state()
+        for piece in held:
+            self._piece_view(piece).copy_(pieces[piece])
+        for state in self.optimizer.state.values():
+            state["step"].fill_(float(step))
 
 
 def sequence_parallel_group(sp: int, device, world: Optional[int] = None

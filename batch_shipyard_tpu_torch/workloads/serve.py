@@ -10,8 +10,15 @@ flags for what the port carries, plus ``--device {cuda,cpu}``:
         --loadgen 48 --rate 16 --prompt-len 64 128 --gen-tokens 64 128 \
         --report latency_report.json
 
-Weights are drawn from ``--seed`` (models/convert.init_params). Without
---loadgen the server runs until terminated; with it, the benchmark runs
+Weights are drawn from ``--seed`` (models/convert.init_params), or,
+with ``--checkpoint-dir D``, restored from the latest committed step of
+a train_transformer checkpoint saved on any mesh
+(workloads/checkpoint.restore_params, the parameters only), cast to the
+model's dtypes and checked against the model flags: a checkpoint whose
+tensor names or shapes differ exits with the reference's message (a
+fused_norm save is first re-laid out per projection,
+models/convert.unfused_params). It prints ``serving checkpoint step N
+from D``. Without --loadgen the server runs until terminated; with it, the benchmark runs
 against the in-process server, writes the JSON report, prints it as
 the last stdout line and exits nonzero if any request failed.
 """
@@ -28,7 +35,8 @@ from batch_shipyard_tpu_torch.device import resolve_device
 from batch_shipyard_tpu_torch.models import inference as inf
 from batch_shipyard_tpu_torch.models import serving
 from batch_shipyard_tpu_torch.models import transformer as tfm
-from batch_shipyard_tpu_torch.models.convert import init_params
+from batch_shipyard_tpu_torch.models.convert import (init_params,
+                                                    unfused_params)
 from batch_shipyard_tpu_torch.models.loadgen import run_load
 from batch_shipyard_tpu_torch.models.server import ServingFrontEnd
 
@@ -73,13 +81,49 @@ def build_config(args) -> tfm.TransformerConfig:
         kv_cache_dtype=args.kv_cache_dtype)
 
 
+def restored_params(checkpoint_dir: str,
+                    config: tfm.TransformerConfig) -> dict:
+    """The parameters of the latest committed step in ``checkpoint_dir``,
+    checked against ``config``'s names and shapes and cast to its
+    dtypes; SystemExit with the reference's messages otherwise."""
+    from batch_shipyard_tpu_torch.workloads import checkpoint
+    restored = checkpoint.restore_params(checkpoint_dir)
+    if restored is None:
+        raise SystemExit(f"no checkpoint found in {checkpoint_dir}")
+    params, step = restored
+    want = tfm.TransformerLM(config, device="meta").state_dict()
+    if set(params) != set(want):
+        params = unfused_params(params)
+    if set(params) != set(want):
+        raise SystemExit("checkpoint params do not match the model "
+                         "architecture flags (tree structure differs)")
+    mismatched = [f"{name}: {tuple(t.shape)} != {tuple(params[name].shape)}"
+                  for name, t in want.items()
+                  if tuple(t.shape) != tuple(params[name].shape)]
+    if mismatched:
+        raise SystemExit("checkpoint params do not match the model "
+                         "architecture flags (shape mismatch): "
+                         + "; ".join(mismatched[:4]))
+    print(f"serving checkpoint step {step} from {checkpoint_dir}",
+          flush=True)
+    return {name: params[name].to(t.dtype) for name, t in want.items()}
+
+
+def build_params(args, config: tfm.TransformerConfig, device) -> dict:
+    """``--checkpoint-dir``'s parameters, else weights drawn from
+    ``--seed``."""
+    if args.checkpoint_dir:
+        return restored_params(args.checkpoint_dir, config)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(args.seed)
+    return init_params(config, generator)
+
+
 def build_engine(args) -> serving.ContinuousBatcher:
     device = resolve_device(args.device)
     config = build_config(args)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(args.seed)
     return serving.ContinuousBatcher(
-        config, init_params(config, generator),
+        config, build_params(args, config, device),
         num_slots=args.num_slots, max_decode_len=args.max_decode_len,
         sampling=inf.SamplingConfig(temperature=args.temperature,
                                     top_k=args.top_k),
@@ -137,6 +181,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--gen-tokens", type=int, nargs=2,
                         default=(8, 32), metavar=("MIN", "MAX"))
     parser.add_argument("--report", default="latency_report.json")
+    parser.add_argument("--checkpoint-dir", default=None,
+                        help="serve the parameters of the latest committed "
+                        "step of a train_transformer checkpoint dir")
     return parser.parse_args(argv)
 
 

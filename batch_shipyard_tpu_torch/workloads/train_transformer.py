@@ -5,14 +5,46 @@ the dense path, with its flags and defaults (``--int8``: int8 matmuls for
 every projection, a full-precision backward; ``--sp N``: ring attention
 over N ranks; ``--tp N``: Megatron tensor parallelism; ``--fsdp N``: the
 optimizer state and parameter updates sharded N ways; dp fills the rest
-of the world, as the reference's auto_axis_sizes) plus ``--device
-{cuda,cpu}``, ``--seed`` and ``--profile-steps``:
+of the world, as the reference's auto_axis_sizes; the checkpoint flags
+of workloads/checkpoint.py) plus ``--device {cuda,cpu}``, ``--seed``,
+``--profile-steps`` and ``--fused-norm`` (bench_transformer's
+``fused_norm=True`` lever: K9 for the norm-projections):
 
     python -m batch_shipyard_tpu_torch.workloads.train_transformer \
         --seq-len 2048 --batch 8 --steps 20
     python -m torch.distributed.run --nproc-per-node 8 \
         -m batch_shipyard_tpu_torch.workloads.train_transformer \
         --seq-len 8192 --sp 4 --tp 2 --steps 20
+
+Checkpoints and the pool's hooks, as in the reference's loop: the run
+restores the latest COMMITTED step of ``--checkpoint-dir`` before the
+warm-up (``resumed from step N``; on another mesh the state is
+resharded), saves every ``--checkpoint-every`` steps (blocking, or
+``--async-checkpoint``: only the snapshot blocks) and at the end, keeps
+``--keep-last`` steps, and on a preempt request
+(``$SHIPYARD_PREEMPT_REQUEST_FILE``; every rank agrees at the same step
+boundary) forces a committed save and exits 75
+(agent/preemption.EXIT_PREEMPTED). ``--steps`` counts this attempt's
+steps from the restored one. It writes goodput events
+(``$SHIPYARD_GOODPUT_FILE``: the warm-up as ``compile``, ``step_window``
+flushed at every save and at exit, the checkpoint phases) and spans
+(``$SHIPYARD_TRACE_FILE``), beats ``$SHIPYARD_PROGRESS_FILE`` every
+step, and captures a torch.profiler trace when
+``$SHIPYARD_PROFILE_REQUEST_FILE`` asks (trace/profiling.py). Resume
+after a preemption or on a resized mesh:
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m batch_shipyard_tpu_torch.workloads.train_transformer \
+        --sp 2 --fsdp 2 --checkpoint-dir ckpt --checkpoint-every 50 \
+        --steps 1000          # preempted: exit 75 at a committed step
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m batch_shipyard_tpu_torch.workloads.train_transformer \
+        --sp 2 --tp 2 --checkpoint-dir ckpt --checkpoint-every 50 \
+        --steps 1000          # resumes there, resharded onto tp 2
+
+As in the reference, the warm-up steps run after the restore and update
+the state without being counted as steps: compare a resumed run with an
+uninterrupted one at ``--warmup 0``.
 
 Weights are drawn from ``--seed`` (models/convert.init_params) at full
 shape and sharded; one random batch of tokens and targets from
@@ -26,10 +58,14 @@ launches and its ring calls by axis (``ring_all_reduce.tp``,
 ``ring_permute.sp``, ...), sha256 digests of its replicated parameters
 and of its tp shard (equal across the ranks that must hold the same
 bits) and, with ``--profile-steps``, trace/train_profile's device
-breakdown, per-axis collective time and ring wait.
+breakdown, per-axis collective time and ring wait. With a checkpoint dir
+the JSON line and each rank's entry carry ``checkpoint``: the restored
+step, its ms and read fraction, and per save its step, blocking,
+snapshot and persist ms and the bytes this rank wrote; a preempted run
+adds ``"exit": "preempted"``.
 
-Not offered yet (ROADMAP): --ep, --moe-experts and the checkpoint and
-compile-cache flags.
+Not offered yet (ROADMAP): --ep, --moe-experts and the compile-cache
+flags.
 """
 
 from __future__ import annotations
@@ -43,10 +79,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from batch_shipyard_tpu_torch.agent import preemption
+from batch_shipyard_tpu_torch.goodput import events as goodput_events
 from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
 from batch_shipyard_tpu_torch.parallel import mfu
 from batch_shipyard_tpu_torch.parallel import sharding
 from batch_shipyard_tpu_torch.parallel import train as train_mod
+from batch_shipyard_tpu_torch.trace.profiling import StepProfiler
+from batch_shipyard_tpu_torch.workloads import checkpoint
 from batch_shipyard_tpu_torch.workloads import distributed
 
 # bench.py ``bench_transformer``'s model and batch (the repo's training
@@ -124,9 +164,12 @@ def check_mesh_sizes(args, world: int) -> None:
         if value % by:
             raise SystemExit(f"{what} {value} is not divisible by {axes} "
                              f"= {by}")
-    if args.tp > 1 and args.int8:
-        raise SystemExit("--int8 with --tp is not ported (ROADMAP queue 1: "
-                         "fused_norm and int8 under tp)")
+    if args.tp > 1 and (args.int8 or args.fused_norm):
+        raise SystemExit("--int8 or --fused-norm with --tp is not ported "
+                         "(ROADMAP queue 1: fused_norm and int8 under tp)")
+    if args.int8 and args.fused_norm:
+        raise SystemExit("--fused-norm composes only with the dense path, "
+                         "not --int8")
 
 
 def param_digests(harness) -> dict:
@@ -173,6 +216,9 @@ def main(argv=None) -> int:
     parser.add_argument("--int8", action="store_true",
                         help="int8 matmuls for projections/MLP "
                              "(QAT straight-through backward)")
+    parser.add_argument("--fused-norm", action="store_true",
+                        help="fuse each RMSNorm into the projection after "
+                             "it (bench_transformer's fused_norm)")
     parser.add_argument("--no-remat", action="store_true")
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
@@ -180,6 +226,7 @@ def main(argv=None) -> int:
     parser.add_argument("--profile-steps", type=int, default=0,
                         help="then profile this many steps on the card "
                              "(trace/train_profile)")
+    checkpoint.add_checkpoint_args(parser)
     args = parser.parse_args(argv)
 
     ctx = distributed.setup(args.device)
@@ -193,33 +240,68 @@ def main(argv=None) -> int:
         n_layers=args.n_layers, n_heads=args.n_heads,
         d_head=args.d_model // args.n_heads, d_ff=args.d_ff,
         max_seq_len=args.seq_len, dtype=torch.bfloat16,
-        quantize_matmuls=args.int8, remat=not args.no_remat)
+        quantize_matmuls=args.int8, fused_norm=args.fused_norm,
+        remat=not args.no_remat)
     harness = train_mod.build_transformer_train(
         config, batch_size=args.batch, seq_len=args.seq_len,
         seed=args.seed, device=device, mesh=mesh)
     batch = random_batch(args.vocab, args.batch, args.seq_len, args.seed,
                          device)
     on_card = device.type == "cuda"
+    ckpt = checkpoint.TrainCheckpointer.from_args(args)
+    start_step = ckpt.restore(harness)
+    if start_step:
+        distributed.log(ctx, f"resumed from step {start_step}")
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     if multi:
         dist.barrier()
-    losses = [harness.step(batch)["loss"] for _ in range(args.warmup)]
-    if losses:
-        float(losses[-1])  # hard sync
+    with goodput_events.phase(goodput_events.PROGRAM_COMPILE,
+                              what="warmup", steps=args.warmup):
+        losses = [harness.step(batch)["loss"] for _ in range(args.warmup)]
+        if losses:
+            float(losses[-1])  # hard sync
     mesh.check()
     counts = launch_counts()
     start = time.perf_counter()
-    for _ in range(args.steps):
+    # Step windows are flushed at every save and at exit, so a preempted
+    # attempt's finished steps survive; a save's time lies outside them.
+    window = {"step": start_step, "time": time.time()}
+
+    def flush_window(end_step: int) -> None:
+        if end_step > window["step"]:
+            goodput_events.record(
+                goodput_events.PROGRAM_STEP_WINDOW, window["time"],
+                time.time(), step_start=window["step"], step_end=end_step,
+                tokens=args.batch * args.seq_len * (end_step -
+                                                    window["step"]))
+        window["step"], window["time"] = end_step, time.time()
+
+    profiler = StepProfiler()
+    end_step, preempted = start_step + args.steps, False
+    for step_num in range(start_step, start_step + args.steps):
+        profiler.tick(step_num)
         losses.append(harness.step(batch)["loss"])
+        if ckpt.maybe_preempt(step_num + 1, harness):
+            end_step, preempted = step_num + 1, True
+            break
+        if ckpt.due(step_num + 1):
+            flush_window(step_num + 1)
+            ckpt.step_save(step_num + 1, harness)
+            window["time"] = time.time()  # the save is not steps
+    steps = end_step - start_step
     loss = float(losses[-1])  # hard sync
+    profiler.close()
+    flush_window(end_step)
     elapsed = time.perf_counter() - start
     mesh.check()  # a ring timeout in the last step
+    if not preempted:
+        ckpt.finalize(end_step, harness)
     rank = {
         "rank": ctx["process_index"], "coords": mesh.coords,
         "launches": {key: n for key, n in launch_counts().items() if n},
         "launches_per_step": {
-            key: (n - counts.get(key, 0)) / args.steps
+            key: (n - counts.get(key, 0)) / steps
             for key, n in launch_counts().items()
             if n - counts.get(key, 0)},
         "plain_calls": {key: n for key, n in plain_counts().items() if n},
@@ -227,6 +309,9 @@ def main(argv=None) -> int:
                         if on_card else None),
         "params_sha256": param_digests(harness),
     }
+    if ckpt.enabled:
+        rank["checkpoint"] = {"restored": ckpt.restored,
+                              "saves": ckpt.saves}
     if args.profile_steps:
         from batch_shipyard_tpu_torch.trace import train_profile
         rank["profile"] = train_profile.profile_steps(
@@ -236,17 +321,18 @@ def main(argv=None) -> int:
         ranks = [None] * mesh.world
         dist.all_gather_object(ranks, rank)
     mesh.close()
+    status = preemption.EXIT_PREEMPTED if preempted else 0
     if ctx["process_index"] != 0:
-        return 0
-    tokens_per_sec = args.batch * args.seq_len * args.steps / elapsed
-    ms_per_step = elapsed / args.steps * 1000
+        return status
+    tokens_per_sec = args.batch * args.seq_len * steps / elapsed
+    ms_per_step = elapsed / steps * 1000
     distributed.log(ctx, (
         f"transformer: mesh={mesh.sizes} device={device} "
         f"{tokens_per_sec:.0f} tok/s, loss={loss:.4f}, "
         f"{ms_per_step:.1f} ms/step"))
     peak = mfu.peak_bf16_tflops(torch.cuda.get_device_name(device)
                                 if on_card else "cpu")
-    print(json.dumps({
+    report = {
         "device": torch.cuda.get_device_name(device) if on_card
         else "cpu",
         "mesh": mesh.sizes, "ranks_per_card": (
@@ -259,9 +345,22 @@ def main(argv=None) -> int:
             mfu.transformer_train_flops_per_token(config, args.seq_len),
             peak),
         "peak_mem_gb": ranks[0]["peak_mem_gb"],
+        "start_step": start_step, "end_step": end_step,
         "per_rank": ranks,
-    }), flush=True)
-    return 0
+    }
+    if ckpt.enabled:
+        restored = ckpt.restored or {}
+        report["checkpoint"] = {
+            "dir": args.checkpoint_dir,
+            "restored_step": restored.get("step"),
+            "restore_ms": restored.get("restore_ms"),
+            "read_fraction": restored.get("read_fraction"),
+            "saves": ckpt.saves}
+        report["read_fraction"] = restored.get("read_fraction")
+    if preempted:
+        report["exit"] = "preempted"
+    print(json.dumps(report), flush=True)
+    return status
 
 
 if __name__ == "__main__":

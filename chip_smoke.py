@@ -121,6 +121,30 @@ Phases, each fatal on failure:
      MESH_LOSS_RTOL of the sp phase's on the same weights and batch. Then
      a rank of a small recipe-shaped mesh kills itself mid-step and every
      other rank must raise within KILL_RAISE_LIMIT_S;
+  5c. checkpoints (``checkpoint``; workloads/checkpoint.py, the loop's
+     pool hooks), all dirs in a temp dir the phase removes. (a) One card,
+     bench_transformer's fused configuration under the marker through the
+     workload's entry point (``--fused-norm --no-remat``, batch 16 x
+     2048, ``--warmup 0``): U, 6 uninterrupted steps; P, ``--checkpoint-
+     every 2 --keep-last 1`` with a preempt request written first, which
+     must exit 75 after step 1 with step 1 committed by a blocking save;
+     R, ``--steps 5 --async-checkpoint`` on the same dir, which must
+     resume at 1, save 2, 4 and 6 (the final save deduplicated) and
+     leave only step 6. R's losses must equal U's steps 2-6 bit for bit,
+     every run must launch exactly the fused train phase's kernels a step
+     and no plain version, step 6's parameters read back through
+     restore_params must have U's final digest, and serve.py
+     ``--checkpoint-dir`` must serve them at bench_serving (paged, page
+     64, K6, 8 requests) to the last request. It prints the checkpoint's
+     bytes, the blocking save's ms, the async snapshot's blocking and
+     persist ms, the restore ms and each one's GB/s beside its bound (the
+     host link's and the disk's rates, measured here). (b) Four ranks on
+     the card through torch.distributed.run, ``--sp 2 --fsdp 2`` at
+     --seq-len 8192, batch 8 and 2 layers: 4 uninterrupted steps; 2
+     steps and a save; a resume of 2 steps on the same mesh, whose losses
+     must be the uninterrupted ones bit for bit; a resume of the same
+     step on ``--sp 2 --tp 2``, within MESH_LOSS_RTOL of them. It prints
+     each rank's read fraction and restore ms;
   6. the served decode step as a CUDA graph (decode_graph), for each
      bench_serving cache (paged, paged_int8, dense_int8): one request
      schedule (admissions mid-stream, pages growing past the prompts',
@@ -154,9 +178,13 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
 import functools
+import gc
+import hashlib
+import io
 import itertools
 import json
 import math
@@ -3356,6 +3384,292 @@ def train_mesh(device, marker_env: dict, sp_losses: list,
     return rows
 
 
+# ----------------------------- checkpoints -----------------------------
+
+
+# (a): bench_transformer's fused configuration through the workload (its
+# widths are the workload's defaults), as the fused train phase runs it.
+CKPT_ARGS = ["--fused-norm", "--no-remat", "--batch",
+             str(train_wl.BENCH_TRANSFORMER_BATCH), "--seq-len",
+             str(train_wl.BENCH_TRANSFORMER_SEQ), "--warmup", "0"]
+CKPT_STEPS = 6
+# (b): the mesh phase's (b) on four ranks: --sp 2 --fsdp 2 (dp 1), then
+# the resume resized onto --sp 2 --tp 2.
+CKPT_MESH = ["--n-layers", "2", "--seq-len", str(SP_SEQ), "--batch",
+             str(SP_BATCH), "--warmup", "0"]
+CKPT_MESH_RANKS = 4
+CKPT_PROBE_BYTES = 1 << 30
+
+
+def run_workload(argv, env=None) -> tuple[int, dict, list]:
+    """train_transformer.main in this process (launch counts reset just
+    before): (exit code, its JSON line, its stdout lines)."""
+    reset_launch_counts()
+    out = io.StringIO()
+    saved = {key: os.environ.get(key) for key in (env or {})}
+    os.environ.update(env or {})
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = train_wl.main(argv)
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines = out.getvalue().strip().splitlines()
+    return rc, json.loads(lines[-1]), lines
+
+
+def io_rates(workdir: pathlib.Path) -> dict:
+    """The host link's device->host rate into pinned memory and the disk's
+    write rate (fsynced), each the best of three 1 GiB transfers: the
+    bounds of a snapshot and of a persist."""
+    device_buf = torch.empty(CKPT_PROBE_BYTES, dtype=torch.uint8,
+                             device="cuda")
+    host = torch.empty(CKPT_PROBE_BYTES, dtype=torch.uint8, pin_memory=True)
+    link = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host.copy_(device_buf, non_blocking=True)
+        torch.cuda.synchronize()
+        link.append(time.perf_counter() - t0)
+    disk = []
+    path = workdir / "disk_probe.bin"
+    for _ in range(3):
+        t0 = time.perf_counter()
+        with open(path, "wb") as fh:
+            fh.write(host.numpy().data)
+            fh.flush()
+            os.fsync(fh.fileno())
+        disk.append(time.perf_counter() - t0)
+        path.unlink()
+    del device_buf, host
+    torch.cuda.empty_cache()
+    return {"host_link_gb_s": CKPT_PROBE_BYTES / min(link) / 1e9,
+            "disk_write_gb_s": CKPT_PROBE_BYTES / min(disk) / 1e9}
+
+
+def _fused_per_step() -> dict:
+    layers = train_wl.BENCH_TRANSFORMER_MODEL["n_layers"]
+    return {"flash_fwd": layers, "flash_bwd": layers, "xent_fwd": 1,
+            "xent_bwd_h": 1, "xent_bwd_e": 1, "rmsnorm_matmul": 2 * layers}
+
+
+def _require_fused_launches(name: str, report: dict, steps: int) -> None:
+    rank, = report["per_rank"]
+    want = {key: n * steps for key, n in _fused_per_step().items()}
+    require(rank["launches"] == want,
+            f"checkpoint {name}: launches {rank['launches']} in {steps} "
+            f"steps, want {want}")
+    require(not rank["plain_calls"],
+            f"checkpoint {name}: plain versions ran {rank['plain_calls']}")
+
+
+def checkpoint_one_card(device, workdir: pathlib.Path) -> dict:
+    """(a) of the checkpoint phase (the module doc's 5c)."""
+    from batch_shipyard_tpu_torch.agent import preemption
+    from batch_shipyard_tpu_torch.workloads import checkpoint as ckpt_mod
+    from batch_shipyard_tpu_torch.workloads import serve as serve_wl
+    rates = io_rates(workdir)
+    ckpt = str(workdir / "one_card")
+    flags = ["--checkpoint-dir", ckpt, "--checkpoint-every", "2",
+             "--keep-last", "1"]
+    rc, whole, _ = run_workload(CKPT_ARGS + ["--steps", str(CKPT_STEPS)])
+    require(rc == 0, f"checkpoint U: rc {rc}")
+    _require_fused_launches("U", whole, CKPT_STEPS)
+    request = workdir / "preempt.json"
+    preemption.write_request(str(request), reason="chip smoke")
+    rc, cut, _ = run_workload(
+        CKPT_ARGS + ["--steps", str(CKPT_STEPS)] + flags,
+        env={preemption.PREEMPT_REQUEST_FILE_ENV: str(request)})
+    require(rc == preemption.EXIT_PREEMPTED and cut.get("exit") ==
+            "preempted" and cut["end_step"] == 1,
+            f"checkpoint P: rc {rc}, {cut.get('exit')} at {cut['end_step']}")
+    require(ckpt_mod._committed_steps(ckpt) == [1],
+            f"checkpoint P: committed {ckpt_mod._committed_steps(ckpt)}")
+    _require_fused_launches("P", cut, 1)
+    rc, resumed, lines = run_workload(
+        CKPT_ARGS + ["--steps", str(CKPT_STEPS - 1), "--async-checkpoint"]
+        + flags)
+    require(rc == 0 and "[proc 0/1] resumed from step 1" in lines,
+            f"checkpoint R: rc {rc}, {lines[:3]}")
+    saves = resumed["checkpoint"]["saves"]
+    require([s["step"] for s in saves] == [2, 4, 6],
+            f"checkpoint R: saves {[s['step'] for s in saves]}")
+    require(ckpt_mod._committed_steps(ckpt) == [CKPT_STEPS] and
+            sorted(os.listdir(ckpt)) == [
+                f"step_{CKPT_STEPS:08d}", f"step_{CKPT_STEPS:08d}.COMMITTED",
+                f"step_{CKPT_STEPS:08d}.MESH"],
+            f"checkpoint R: left {sorted(os.listdir(ckpt))}")
+    _require_fused_launches("R", resumed, CKPT_STEPS - 1)
+    print(f"check checkpoint resume: U losses {whole['losses']}, P "
+          f"{cut['losses']}, R {resumed['losses']}", flush=True)
+    require(cut["losses"] == whole["losses"][:1] and
+            resumed["losses"] == whole["losses"][1:],
+            "checkpoint: the resumed losses are not U's bit for bit")
+    restored = ckpt_mod.restore_params(ckpt)
+    require(restored is not None and restored[1] == CKPT_STEPS,
+            f"checkpoint: restore_params gave {restored and restored[1]}")
+    digest = hashlib.sha256()
+    for tensor in restored[0].values():
+        digest.update(tensor.numpy().tobytes())
+    want = whole["per_rank"][0]["params_sha256"]["replicated"]
+    require(digest.hexdigest() == want,
+            f"checkpoint: step {CKPT_STEPS}'s digest {digest.hexdigest()} "
+            f"is not U's {want}")
+    del restored
+    reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve_wl.main([
+            "--d-model", str(MODEL["d_model"]), "--n-layers",
+            str(MODEL["n_layers"]), "--n-heads", str(MODEL["n_heads"]),
+            "--d-ff", str(MODEL["d_ff"]), "--vocab",
+            str(MODEL["vocab_size"]), "--num-slots", str(SLOTS),
+            "--max-decode-len", str(MAX_LEN), "--kv-page-size", str(PAGE),
+            "--loadgen", "8", "--rate", "16", "--prompt-len", "64", "128",
+            "--gen-tokens", "64", "128", "--port", "0", "--report",
+            str(workdir / "serve_report.json"), "--checkpoint-dir", ckpt])
+    served = out.getvalue().strip().splitlines()
+    report = json.loads(served[-1])
+    counts = launch_counts()
+    require(rc == 0 and report["completed"] == 8 and report["failed"] == 0,
+            f"checkpoint serve: rc {rc}, {report.get('errors')}")
+    require(f"serving checkpoint step {CKPT_STEPS} from {ckpt}" in served,
+            f"checkpoint serve: {served[:2]}")
+    require(counts["paged_decode"] > 0 and not {
+        k: n for k, n in counts.items() if n and k != "paged_decode"},
+        f"checkpoint serve: launches {counts}")
+    torch.cuda.empty_cache()
+    sync = cut["checkpoint"]["saves"][0]
+    nbytes = sync["bytes"]
+
+    def gb_s(ms):
+        return nbytes / (ms / 1e3) / 1e9
+
+    row = {
+        "config": "bench_transformer(fused_norm=True), fused loss, batch 16 "
+                  "x 2048, no remat, through the workload",
+        "checkpoint_bytes": nbytes, "rates": rates,
+        "snapshot_bound_ms": nbytes / (rates["host_link_gb_s"] * 1e9) * 1e3,
+        "persist_bound_ms": nbytes / (rates["disk_write_gb_s"] * 1e9) * 1e3,
+        "sync_save": dict(sync, gb_s=gb_s(sync["blocking_ms"])),
+        "async_saves": [dict(s, snapshot_gb_s=gb_s(s["snapshot_ms"]),
+                             persist_gb_s=gb_s(s["persist_ms"]))
+                        for s in saves],
+        "restore_ms": resumed["checkpoint"]["restore_ms"],
+        "restore_gb_s": gb_s(resumed["checkpoint"]["restore_ms"]),
+        "losses": whole["losses"], "ms_per_step": {
+            "U": whole["ms_per_step"], "R": resumed["ms_per_step"]},
+        "serve": {k: report[k] for k in ("completed", "failed",
+                                         "tokens_per_second")},
+        "paged_decode_launches": counts["paged_decode"],
+    }
+    print(f"checkpoint (a): {nbytes} bytes; blocking save "
+          f"{sync['blocking_ms']:.1f} ms ({row['sync_save']['gb_s']:.2f} "
+          f"GB/s; its copy {sync['snapshot_ms']:.1f} ms); async saves "
+          f"blocked {[round(s['blocking_ms'], 1) for s in saves]} ms: "
+          f"drains {[round(s['drain_ms'], 1) for s in saves]} ms, copies "
+          f"{[round(s['snapshot_ms'], 1) for s in saves]} ms (bound "
+          f"{row['snapshot_bound_ms']:.1f}), persists "
+          f"{[round(s['persist_ms'], 1) for s in saves]} ms (bound "
+          f"{row['persist_bound_ms']:.1f}); restore "
+          f"{row['restore_ms']:.1f} ms ({row['restore_gb_s']:.2f} GB/s); "
+          f"host link {rates['host_link_gb_s']:.2f} GB/s, disk "
+          f"{rates['disk_write_gb_s']:.2f} GB/s", flush=True)
+    return row
+
+
+def _mesh_workload(axes: list, steps: int, flags=(), marker_env=None
+                   ) -> dict:
+    """The workload under torch.distributed.run, CKPT_MESH_RANKS ranks on
+    this card: its JSON line."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           str(CKPT_MESH_RANKS), "--master-port",
+           str(distributed.free_port()), "-m",
+           "batch_shipyard_tpu_torch.workloads.train_transformer", *axes,
+           *CKPT_MESH, "--steps", str(steps), *flags]
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=MESH_TRAIN_TIMEOUT_S,
+                          env=dict(os.environ, **(marker_env or {})),
+                          cwd=pathlib.Path(__file__).resolve().parent)
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0 and lines,
+            f"checkpoint mesh {axes} {list(flags)}: rc {proc.returncode}: "
+            f"{proc.stderr[-4000:]}")
+    report = json.loads(lines[-1])
+    for r in report["per_rank"]:
+        want = mesh_launches_per_step(r["rank"], report["mesh"], 2)
+        require(r["launches"] == {k: n * steps for k, n in want.items()},
+                f"checkpoint mesh {axes}: rank {r['rank']} launched "
+                f"{r['launches']} in {steps} steps, want {want} a step")
+        require(not r["plain_calls"],
+                f"checkpoint mesh {axes}: rank {r['rank']} ran plain "
+                f"versions {r['plain_calls']}")
+    return report
+
+
+def checkpoint_mesh(workdir: pathlib.Path, marker_env: dict) -> dict:
+    """(b) of the checkpoint phase (the module doc's 5c)."""
+    import shutil
+    a, b = ["--sp", "2", "--fsdp", "2"], ["--sp", "2", "--tp", "2"]
+    same, resized = str(workdir / "mesh"), str(workdir / "mesh_resized")
+    whole = _mesh_workload(a, 4, marker_env=marker_env)
+    _mesh_workload(a, 2, ["--checkpoint-dir", same, "--checkpoint-every",
+                          "2"], marker_env)
+    shutil.copytree(same, resized)
+    back = _mesh_workload(a, 2, ["--checkpoint-dir", same], marker_env)
+    moved = _mesh_workload(b, 2, ["--checkpoint-dir", resized], marker_env)
+    want = whole["losses"][2:]
+    off = [abs(x - y) / abs(y) for x, y in zip(moved["losses"], want)]
+    print(f"check checkpoint mesh: uninterrupted {whole['losses']}, same "
+          f"mesh resumed {back['losses']}, --sp 2 --tp 2 resumed "
+          f"{moved['losses']} (relative {off}, limit {MESH_LOSS_RTOL})",
+          flush=True)
+    require(back["losses"] == want,
+            "checkpoint mesh: the same-mesh resume is not bit for bit")
+    require(len(off) == 2 and all(x <= MESH_LOSS_RTOL for x in off),
+            f"checkpoint mesh: the resized resume is off by {off}")
+    readings = {}
+    for name, report in (("same", back), ("resized", moved)):
+        readings[name] = [{
+            "rank": r["rank"], "coords": r["coords"],
+            "read_fraction": r["checkpoint"]["restored"]["read_fraction"],
+            "read_fraction_by_kind":
+                r["checkpoint"]["restored"]["read_fraction_by_kind"],
+            "restore_ms": r["checkpoint"]["restored"]["restore_ms"]}
+            for r in report["per_rank"]]
+        require(all(r["checkpoint"]["restored"]["step"] == 2
+                    for r in report["per_rank"]),
+                f"checkpoint mesh {name}: not restored at step 2")
+    print("checkpoint (b) restores " + json.dumps(readings), flush=True)
+    return {"config": f"bench_transformer widths, 2 layers, {CKPT_MESH}, "
+                      f"{CKPT_MESH_RANKS} ranks on one card",
+            "losses": {"whole": whole["losses"], "same": back["losses"],
+                       "resized": moved["losses"]},
+            "loss_rel_resized": off, "restores": readings,
+            "ms_per_step": {"whole": whole["ms_per_step"],
+                            "same": back["ms_per_step"],
+                            "resized": moved["ms_per_step"]}}
+
+
+def checkpoint_phase(device, marker_env: dict) -> dict:
+    """Phase 5c: (a) and (b), in a temp dir removed after."""
+    started = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = pathlib.Path(tmp)
+        row = {"one_card": checkpoint_one_card(device, workdir),
+               "mesh": checkpoint_mesh(workdir, marker_env)}
+    row["phase_s"] = time.perf_counter() - started
+    print(f"checkpoint phase: {row['phase_s']:.1f} s", flush=True)
+    print("checkpoint " + json.dumps(row), flush=True)
+    return row
+
+
 # ------------------------------ serving ------------------------------
 
 
@@ -3778,6 +4092,7 @@ def main() -> int:
         meshed = train_mesh(device, {kernel_select.MARKER_ENV: str(marker)},
                             sp_trained["losses"],
                             faulty["ring_collectives"][0])
+        checkpoint_phase(device, {kernel_select.MARKER_ENV: str(marker)})
         # K12-K14's worst error over the sp ring's checks and the mesh's
         # (the all-reduce's under both K13 and K14).
         mesh_err = meshed["collectives"]["max_abs_err"]

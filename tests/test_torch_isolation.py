@@ -16,6 +16,18 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "batch_shipyard_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
+# The port's own copies of the process-side pool hooks and its checkpoint
+# layer: each must be scanned and imported like the rest.
+HOOK_MODULES = (
+    "batch_shipyard_tpu_torch.agent.preemption",
+    "batch_shipyard_tpu_torch.agent.progress",
+    "batch_shipyard_tpu_torch.goodput.events",
+    "batch_shipyard_tpu_torch.trace.context",
+    "batch_shipyard_tpu_torch.trace.spans",
+    "batch_shipyard_tpu_torch.trace.profiling",
+    "batch_shipyard_tpu_torch.parallel.restore_plan",
+    "batch_shipyard_tpu_torch.workloads.checkpoint",
+)
 
 
 def _port_modules():
@@ -50,6 +62,7 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     assert proc.returncode == 0, proc.stderr[-2000:]
     loaded = proc.stdout.split()
     assert "batch_shipyard_tpu_torch.models.server" in loaded
+    assert set(HOOK_MODULES) <= set(loaded)
     bad = [m for m in loaded
            if _is_reference(m) or m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -73,7 +86,8 @@ def test_port_sources_import_nothing_of_jax_or_the_reference():
                         _is_reference(target):
                     offenders.append((name, target))
     assert not offenders, offenders
-    assert len(list(_port_modules())) >= 14
+    scanned = {name for name, _ in _port_modules()}
+    assert len(scanned) >= 14 and set(HOOK_MODULES) <= scanned
 
 
 def test_entry_points_refuse_cpu_unless_named(monkeypatch):
