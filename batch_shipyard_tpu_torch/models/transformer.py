@@ -44,7 +44,21 @@ all-reduce forward, identity backward) on their row-split outputs. The
 all-reduce is ops/ring_collectives.ring_all_reduce (K14 then K13 on CUDA
 tensors), bit-identical on every tp rank, so the replicated activations
 and parameters stay identical across tp. Remat's recompute runs g's
-forward again, so every tp rank makes the same ring calls.
+forward again, so every tp rank makes the same ring calls. Under tp:
+
+- the embedding is vocab-parallel (``Embed``): rank r holds rows [r V/tp,
+  (r + 1) V/tp), looks up the tokens in its range, zeros the rest and
+  sums over the ring (g), so the lookup is the one-card one bit for bit;
+  the loss over those rows is ``lm_loss_chunked(tp_group=...)``;
+- with ``fused_norm`` each rank's qkv_kernel / gate_up_kernel is its
+  head-wise regrouped shard [q_r|k_r|v_r] / [gate_r|up_r]
+  (parallel/sharding.take_shard); f sums the residual stream's gradient,
+  and the norm scales' gradients are partial sums over the rank's
+  columns, which parallel/train.py sums over the tp ring once a step;
+- with ``quantize_matmuls`` the column-parallel projections
+  (q/k/v/gate/up) quantize as on one card, and the row-parallel ones
+  (o/down), whose rows of x and w span the ranks, take their absmax over
+  the ring first (ops/quantization.quantized_linear's ``tp_group``).
 
 Parameters live in ``param_dtype`` and are cast to ``dtype`` at use, as
 flax's Dense/Embed do; ``TransformerLM.cast_dense_weights_`` makes that
@@ -54,6 +68,7 @@ cast once for serving.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional
 
@@ -67,7 +82,9 @@ from batch_shipyard_tpu_torch.ops import chunked_loss
 from batch_shipyard_tpu_torch.ops import decode_attention as dense_ops
 from batch_shipyard_tpu_torch.ops import fused_norm as fn_ops
 from batch_shipyard_tpu_torch.ops import paged_attention as paged_ops
-from batch_shipyard_tpu_torch.ops import ring_collectives
+# Megatron's f and g (the reference's tp_region_input / tp_region_output).
+from batch_shipyard_tpu_torch.ops.ring_collectives import (tp_region_input,
+                                                           tp_region_output)
 from batch_shipyard_tpu_torch.ops.quantization import (dequantize_int8,
                                                         quantize_int8_rows,
                                                         quantized_linear)
@@ -131,52 +148,9 @@ class TransformerConfig:
         return 1 if self.tp_group is None else self.tp_group.size
 
 
-class _TPRegionInput(torch.autograd.Function):
-    """Megatron's "f": identity forward; the backward sums each tp rank's
-    partial cotangent over the tp ring."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return ring_collectives.ring_all_reduce(g.contiguous(),
-                                                ctx.group), None
-
-
-class _TPRegionOutput(torch.autograd.Function):
-    """Megatron's "g": the forward sums the tp ranks' partial outputs over
-    the tp ring; the backward passes the replicated cotangent through."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        return ring_collectives.ring_all_reduce(x.contiguous(), group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-def tp_region_input(x, group):
-    """The reference's tp_region_input over a tp RingGroup (None or a
-    ring of one: x)."""
-    if group is None or group.size == 1:
-        return x
-    return _TPRegionInput.apply(x, group)
-
-
-def tp_region_output(x, group):
-    """The reference's tp_region_output over a tp RingGroup (None or a
-    ring of one: x)."""
-    if group is None or group.size == 1:
-        return x
-    return _TPRegionOutput.apply(x, group)
-
-
 def _tp_local(cfg: TransformerConfig, what: str, count: int) -> int:
-    """``count`` (heads or ff units) over the tp ranks."""
+    """``count`` (heads, ff units or vocabulary rows) over the tp
+    ranks."""
     if count % cfg.tp:
         raise ValueError(f"{what}={count} is not divisible by tp={cfg.tp}")
     return count // cfg.tp
@@ -245,41 +219,64 @@ class QuantDense(Dense):
     Dense, the product through ``ops.quantization.quantized_linear``.
     x is not cast (the reference quantizes it as it comes); the weight is
     cast to ``dtype`` before it is quantized, and the fp32 output is cast
-    to ``dtype``."""
+    to ``dtype``. ``split``: which side tp splits, "column" (the output
+    features) or "row" (the input features); it matters under tp only."""
 
     def __init__(self, in_features: int, out_features: int,
-                 cfg: TransformerConfig, device=None) -> None:
+                 cfg: TransformerConfig, device=None,
+                 split: Optional[str] = None) -> None:
         super().__init__(in_features, out_features, cfg, device)
         self.impl = cfg.quantize_impl
+        self.tp_group = cfg.tp_group if cfg.tp > 1 else None
+        self.split = split
 
     def forward(self, x):
         out = quantized_linear(
             x.reshape(-1, x.shape[-1]), self.weight.to(self.compute_dtype),
-            impl=self.impl)
+            impl=self.impl, tp_group=self.tp_group, split=self.split)
         return out.reshape(*x.shape[:-1], -1).to(self.compute_dtype)
 
 
-def _dense(cfg: TransformerConfig) -> type:
-    """The projection class (the reference's functools_partial_dense)."""
-    return QuantDense if cfg.quantize_matmuls else Dense
+def _dense(cfg: TransformerConfig, split: str):
+    """The projection class (the reference's functools_partial_dense); a
+    QuantDense is told which side tp splits (QuantDense's ``split``)."""
+    if cfg.quantize_matmuls:
+        return functools.partial(QuantDense, split=split)
+    return Dense
 
 
 class Embed(nn.Module):
-    """Token embedding shared with the tied output projection."""
+    """Token embedding shared with the tied output projection. Under tp
+    it is vocab-parallel: this rank holds rows [r V/tp, (r + 1) V/tp) of
+    the table (the module doc)."""
 
     def __init__(self, cfg: TransformerConfig, device=None) -> None:
         super().__init__()
         self.embedding = nn.Parameter(torch.empty(
-            cfg.vocab_size, cfg.d_model, dtype=cfg.param_dtype,
-            device=device))
+            _tp_local(cfg, "vocab_size", cfg.vocab_size), cfg.d_model,
+            dtype=cfg.param_dtype, device=device))
         self.dtype = cfg.dtype
+        self.tp_group = cfg.tp_group if cfg.tp > 1 else None
 
     def forward(self, tokens):
-        return F.embedding(tokens.long(), self.embedding).to(self.dtype)
+        tokens = tokens.long()
+        if self.tp_group is None:
+            return F.embedding(tokens, self.embedding).to(self.dtype)
+        rows = self.embedding.shape[0]
+        local = tokens - self.tp_group.rank * rows
+        mine = (local >= 0) & (local < rows)
+        x = F.embedding(local.clamp(0, rows - 1), self.embedding)
+        x = torch.where(mine[..., None], x, 0.0).to(self.dtype)
+        return tp_region_output(x, self.tp_group)
 
     def attend(self, query):
         """Logits in ``dtype`` (flax Embed.attend promotes both
-        operands to the module dtype)."""
+        operands to the module dtype). One rank's whole vocabulary only:
+        under tp the loss takes the hidden states (lm_loss_chunked)."""
+        if self.tp_group is not None:
+            raise NotImplementedError(
+                "logits of a vocab-parallel embedding: train through "
+                "lm_loss_chunked(tp_group=...) on the hidden states")
         return F.linear(query.to(self.dtype),
                         self.embedding.to(self.dtype))
 
@@ -334,7 +331,7 @@ class Attention(nn.Module):
         self.config = cfg
         self.n_heads = _tp_local(cfg, "n_heads", cfg.n_heads)
         features = self.n_heads * cfg.d_head
-        dense = _dense(cfg)
+        dense = _dense(cfg, "column")
         if cfg.fused_norm:
             self.norm_scale = _norm_scale(cfg, device)
             self.qkv_kernel = _fused_kernel(cfg, 3 * features, device)
@@ -342,7 +339,7 @@ class Attention(nn.Module):
             self.q_proj = dense(cfg.d_model, features, cfg, device)
             self.k_proj = dense(cfg.d_model, features, cfg, device)
             self.v_proj = dense(cfg.d_model, features, cfg, device)
-        self.o_proj = dense(features, cfg.d_model, cfg, device)
+        self.o_proj = _dense(cfg, "row")(features, cfg.d_model, cfg, device)
 
     def forward(self, x, positions, cache: Optional[dict] = None):
         """cache None: the training forward (causal attention over the
@@ -350,13 +347,13 @@ class Attention(nn.Module):
         cfg = self.config
         batch, seq = x.shape[0], x.shape[1]
         shape = (batch, seq, self.n_heads, cfg.d_head)
+        x = tp_region_input(x, cfg.tp_group)
         if cfg.fused_norm:
             # x is the raw residual stream; v stays a strided view of
             # the [q | k | v] output, which K1 reads through its strides.
             q, k, v = _fused_projection(cfg, x, self.norm_scale,
                                         self.qkv_kernel).chunk(3, dim=-1)
         else:
-            x = tp_region_input(x, cfg.tp_group)
             q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         q = rotary_embedding(q.reshape(shape), positions, cfg.rope_theta)
         k = rotary_embedding(k.reshape(shape), positions, cfg.rope_theta)
@@ -498,7 +495,7 @@ class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None) -> None:
         super().__init__()
         self.config = cfg
-        dense = _dense(cfg)
+        dense = _dense(cfg, "column")
         d_ff = _tp_local(cfg, "d_ff", cfg.d_ff)
         if cfg.fused_norm:
             self.norm_scale = _norm_scale(cfg, device)
@@ -506,15 +503,15 @@ class MLP(nn.Module):
         else:
             self.gate_proj = dense(cfg.d_model, d_ff, cfg, device)
             self.up_proj = dense(cfg.d_model, d_ff, cfg, device)
-        self.down_proj = dense(d_ff, cfg.d_model, cfg, device)
+        self.down_proj = _dense(cfg, "row")(d_ff, cfg.d_model, cfg, device)
 
     def forward(self, x):
         cfg = self.config
+        x = tp_region_input(x, cfg.tp_group)
         if cfg.fused_norm:
             gate, up = _fused_projection(cfg, x, self.norm_scale,
                                          self.gate_up_kernel).chunk(2, dim=-1)
         else:
-            x = tp_region_input(x, cfg.tp_group)
             gate, up = self.gate_proj(x), self.up_proj(x)
         return tp_region_output(self.down_proj(F.silu(gate) * up),
                                 cfg.tp_group)
@@ -531,12 +528,6 @@ class Block(nn.Module):
             raise NotImplementedError(
                 "tp_group is a training-path feature; the decode path "
                 "would return un-reduced o_proj partial sums")
-        if cfg.tp > 1 and (cfg.fused_norm or cfg.quantize_matmuls):
-            raise NotImplementedError(
-                "tp with fused_norm or quantize_matmuls is not ported: the "
-                "fused [q|k|v] / [gate|up] kernels need a head-wise "
-                "regrouping (ROADMAP queue 1: fused_norm and int8 under "
-                "tp)")
         self.fused_norm = cfg.fused_norm
         if not cfg.fused_norm:
             self.attn_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
@@ -667,12 +658,14 @@ def lm_loss(logits, targets, ignore_id: int = -1):
 
 
 def lm_loss_chunked(hidden, embedding, targets, ignore_id: int = -1,
-                    chunk_size: int = 128, impl: str = "auto"):
+                    chunk_size: int = 128, impl: str = "auto",
+                    tp_group=None):
     """Tied-embedding cross-entropy without the full [B, T, vocab] fp32
     logits (ops.chunked_loss; impl 'auto' | 'kernel' | 'plain'). As in
     the reference, ``chunk_size`` counts time steps per batch row, so one
-    plain slab holds chunk_size * B rows."""
+    plain slab holds chunk_size * B rows. ``tp_group``: the vocab-parallel
+    loss over this rank's rows of the embedding (a tp RingGroup)."""
     rows = chunk_size * (hidden.shape[0] if hidden.dim() == 3 else 1)
     return chunked_loss.chunked_softmax_xent(
         hidden, embedding, targets, ignore_id=ignore_id, impl=impl,
-        chunk_size=rows)
+        chunk_size=rows, tp_group=tp_group)

@@ -71,6 +71,9 @@ SIGNATURES = {
     "quantization": {
         "bs_quantize_int8": ([_int] + [_vp] * 4 + [_int] * 3 + [_vp], _int),
         "bs_int8_matmul": ([_int] + [_vp] * 5 + [_int] * 3 + [_vp], _int),
+        "bs_row_absmax": ([_int] + [_vp] * 2 + [_int] * 3 + [_vp], _int),
+        "bs_quantize_scaled": ([_int] + [_vp] * 4 + [_int] * 3 + [_vp],
+                               _int),
         "bs_error_string": ([_int], ctypes.c_char_p),
     },
     "ring_collectives": {

@@ -31,6 +31,23 @@ otherwise. A model width that is not a multiple of 128 resolves to the
 plain path before any launch, as the reference does
 (``chunked_loss.py:309-312``). On a CUDA tensor the kernel path launches
 its kernels or raises: there is no fallback after that decision.
+
+The vocab-parallel loss (``tp_group``: a tp RingGroup, and ``embedding``
+this rank's rows [r V/tp, (r + 1) V/tp) of the table, the reference's
+``P("tp", "fsdp")``), on both paths:
+
+- each rank computes its rows' (lse_r, gold_r) for every hidden row,
+  the targets mapped to ``target - r V/tp`` inside its rows and to
+  ``ignore_id`` outside them (K3 on the shard, or the plain slabs);
+- one K13 all-gathers the stacked [2, N] (lse_r, gold_r) over the ring;
+  lse = logsumexp over the ranks and gold = their sum (exactly one rank
+  holds each live target), the same bits on every rank;
+- the mask and the count of live rows come from the global targets: an
+  out-of-shard row is live, only its one-hot lies elsewhere;
+- the backward is K4/K5 on the shard with the global lse and ds: grad_E
+  is this rank's rows' gradient, grad_h this rank's partial sum over its
+  vocab, summed over the ring (ring_all_reduce, in fp32) before it is
+  cast to h's dtype.
 """
 
 from __future__ import annotations
@@ -39,6 +56,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from batch_shipyard_tpu_torch.ops import _build, kernel_select
+from batch_shipyard_tpu_torch.ops import ring_collectives
 from batch_shipyard_tpu_torch.ops.paged_attention import stream_handle
 
 VALIDATION_NAME = "chunked_cross_entropy"
@@ -56,32 +74,85 @@ plain_calls = {"xent_fwd": 0, "xent_bwd_h": 0, "xent_bwd_e": 0,
                "chunked": 0}
 
 
-# ------------------------------ plain slabs -----------------------------
+# ------------------- the vocab-parallel pieces, plain slabs -------------------
 
 
-def _chunk_nll(h_chunk, e, t_chunk, ignore_id: int):
+def shard_targets(targets, rows: int, group, ignore_id: int):
+    """The targets as this tp rank's shard of ``rows`` embedding rows
+    sees them: ``target - rank * rows`` inside the shard, ``ignore_id``
+    elsewhere (and where the target is ignore_id)."""
+    if 0 <= ignore_id < rows:
+        raise ValueError(f"ignore_id {ignore_id} is a row of the shard: "
+                         f"the vocab-parallel loss needs one outside "
+                         f"[0, {rows})")
+    local = targets - group.rank * rows
+    mine = (targets != ignore_id) & (local >= 0) & (local < rows)
+    return torch.where(mine, local, ignore_id).to(targets.dtype)
+
+
+class _GatherShards(torch.autograd.Function):
+    """merge_shards' all-gather, differentiable: every tp rank computes
+    the same loss from the gathered values, so the gradient of this
+    rank's part is its slice of the (replicated) cotangent."""
+
+    @staticmethod
+    def forward(ctx, parts, group):
+        ctx.group = group
+        with ring_collectives.call_site("loss"):
+            return ring_collectives.ring_all_gather(parts.contiguous(),
+                                                    group)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows = g.shape[0] // ctx.group.size
+        return g[ctx.group.rank * rows:(ctx.group.rank + 1) * rows], None
+
+
+def merge_shards(lse, gold, group):
+    """(lse, gold) [N] over the whole vocabulary from this rank's shard's:
+    one all-gather of the stacked [2, N] over the tp ring, then
+    logsumexp and sum over the ranks."""
+    both = _GatherShards.apply(torch.stack([lse, gold]), group).view(
+        group.size, 2, -1)
+    return torch.logsumexp(both[:, 0], dim=0), both[:, 1].sum(dim=0)
+
+
+def _chunk_stats(h_chunk, e, t_chunk, ignore_id: int):
+    """(lse, gold) of one slab's fp32 logits (gold 0 where the target is
+    ignore_id: ignored, or under tp outside this rank's rows)."""
     logits = h_chunk.float() @ e.float().t()
-    lse = torch.logsumexp(logits, dim=-1)
-    safe = torch.where(t_chunk == ignore_id, 0, t_chunk).long()
-    gold = logits.gather(1, safe[:, None])[:, 0]
-    mask = (t_chunk != ignore_id).float()
-    return ((lse - gold) * mask).sum(), mask.sum()
+    live = t_chunk != ignore_id
+    safe = torch.where(live, t_chunk, 0).long()
+    gold = torch.where(live, logits.gather(1, safe[:, None])[:, 0], 0.0)
+    return torch.logsumexp(logits, dim=-1), gold
 
 
-def _xent_plain(hidden, embedding, targets, ignore_id: int, chunk_size: int):
+def _xent_plain(hidden, embedding, targets, ignore_id: int, chunk_size: int,
+                tp_group=None):
+    """The plain slabs: per slab (lse, gold), recomputed in the backward;
+    with a tp group on this rank's rows, merged by one gather, f on
+    hidden summing its gradient over the ring in fp32 (module doc)."""
     plain_calls["chunked"] += 1
-    total = hidden.new_zeros((), dtype=torch.float32)
-    count = hidden.new_zeros((), dtype=torch.float32)
+    local = targets
+    if tp_group is not None:
+        local = shard_targets(targets, embedding.shape[0], tp_group,
+                              ignore_id)
+        hidden = ring_collectives.tp_region_input(hidden.float(), tp_group)
+    lse, gold = [], []
     for start in range(0, hidden.shape[0], chunk_size):
         args = (hidden[start:start + chunk_size], embedding,
-                targets[start:start + chunk_size], ignore_id)
+                local[start:start + chunk_size], ignore_id)
         if torch.is_grad_enabled():
-            nll, n = checkpoint(_chunk_nll, *args, use_reentrant=False)
+            stats = checkpoint(_chunk_stats, *args, use_reentrant=False)
         else:
-            nll, n = _chunk_nll(*args)
-        total = total + nll
-        count = count + n
-    return total / torch.clamp(count, min=1.0)
+            stats = _chunk_stats(*args)
+        lse.append(stats[0])
+        gold.append(stats[1])
+    lse, gold = torch.cat(lse), torch.cat(gold)
+    if tp_group is not None:
+        lse, gold = merge_shards(lse, gold, tp_group)
+    mask = (targets != ignore_id).float()
+    return ((lse - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ------------------------ K3-K5: plain versions -------------------------
@@ -310,17 +381,23 @@ def xent_backward(h, e, tgt, lse, ds, ignore_id: int = -1,
 
 class _FusedXent(torch.autograd.Function):
     """Mean masked cross-entropy over [N, D] rows: K3 forward, K4 and K5
-    backward (the reference's ``_xent_pallas`` custom_vjp)."""
+    backward (the reference's ``_xent_pallas`` custom_vjp); with a tp
+    ``group``, vocab-parallel over this rank's rows of ``e`` (module
+    doc)."""
 
     @staticmethod
-    def forward(ctx, h, e, tgt, ignore_id: int):
+    def forward(ctx, h, e, tgt, ignore_id: int, group):
         if h.is_cuda:
             tgt = tgt.to(torch.int32).contiguous()
-        lse, gold = xent_forward(h, e, tgt, ignore_id)
         mask = (tgt != ignore_id).float()
+        if group is not None:
+            tgt = shard_targets(tgt, e.shape[0], group, ignore_id)
+        lse, gold = xent_forward(h, e, tgt, ignore_id)
+        if group is not None:
+            lse, gold = merge_shards(lse, gold, group)
         count = torch.clamp(mask.sum(), min=1.0)
         ctx.save_for_backward(h, e, tgt, lse, mask, count)
-        ctx.ignore_id = ignore_id
+        ctx.ignore_id, ctx.group = ignore_id, group
         return ((lse - gold) * mask).sum() / count
 
     @staticmethod
@@ -333,19 +410,28 @@ class _FusedXent(torch.autograd.Function):
             gh, ge = xent_backward(h, e, tgt, lse, ds, ctx.ignore_id, need_h,
                                    need_e)
         if gh is not None:
+            if ctx.group is not None:
+                with ring_collectives.call_site("loss"):
+                    gh = ring_collectives.ring_all_reduce(gh, ctx.group)
             gh = gh.to(h.dtype)
         if ge is not None:
             ge = ge.to(e.dtype)
-        return gh, ge, None, None
+        return gh, ge, None, None, None
 
 
 def chunked_softmax_xent(hidden, embedding, targets, ignore_id: int = -1,
-                         impl: str = "auto", chunk_size: int = 128):
+                         impl: str = "auto", chunk_size: int = 128,
+                         tp_group=None):
     """Mean cross-entropy of hidden @ embedding.T against targets, in
     fp32, over rows whose target is not ``ignore_id`` (0 when every row
     is ignored). hidden: [B, T, D] or [N, D]; embedding: [V, D]; targets
     matches hidden's leading shape; chunk_size counts rows of a plain
-    slab. impl: 'auto' | 'kernel' | 'plain' (module doc)."""
+    slab. impl: 'auto' | 'kernel' | 'plain' (module doc). ``tp_group``: a
+    tp RingGroup over which the loss is vocab-parallel, ``embedding``
+    being this rank's rows (module doc); None or a ring of one: the whole
+    vocabulary here."""
+    if tp_group is not None and tp_group.size == 1:
+        tp_group = None
     if hidden.dim() == 3:
         hidden = hidden.reshape(-1, hidden.shape[-1])
         targets = targets.reshape(-1)
@@ -353,8 +439,10 @@ def chunked_softmax_xent(hidden, embedding, targets, ignore_id: int = -1,
         impl = kernel_select.resolve_auto(VALIDATION_NAME, hidden.device)
     if impl == "kernel":
         if hidden.shape[1] % 128 == 0:
-            return _FusedXent.apply(hidden, embedding, targets, ignore_id)
+            return _FusedXent.apply(hidden, embedding, targets, ignore_id,
+                                    tp_group)
         impl = "plain"  # lane-misaligned width: the reference's own rule
     if impl != "plain":
         raise ValueError(f"unknown impl {impl!r}")
-    return _xent_plain(hidden, embedding, targets, ignore_id, chunk_size)
+    return _xent_plain(hidden, embedding, targets, ignore_id, chunk_size,
+                       tp_group)

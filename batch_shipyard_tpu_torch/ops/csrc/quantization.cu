@@ -53,7 +53,23 @@
 // 64 KB of staging) 1.09-1.18x; the products alone, without stores, take
 // 1.35-1.8x their operation bound, every tile's operands read from L2.
 //
-// Both launch on the caller's stream, allocate nothing and do not
+// K10's two halves, for rows whose elements lie on several tp ranks (a
+// row-parallel product: x [M, K/tp], w [N, K/tp]; they replace no TPU
+// kernel: the reference's K10 sees the global rows under GSPMD, and the
+// port makes the max over the ranks itself, with a ring all-gather
+// between the halves, ops/quantization.py quantize_split_rows):
+//   bs_row_absmax: x [M, K] -> fp32 [M], each row's largest |x|;
+//   bs_quantize_scaled: x [M, K], bits int32 [M, K] and fp32 scales [M]
+//     -> int8 [M, K], K10's rounding (the same intrinsics, in the same
+//     order) against the given scales.
+// What bounds them: bytes, like K10 (absmax reads x; the quantize reads x
+// and the bits and writes int8), so together they read x twice where K10
+// reads it once. Design: K10's, one block of 128 threads per row, 16-byte
+// vectors; a thread walks its vectors in a loop rather than holding the
+// row in registers, since nothing is reused across the halves, so any
+// K % 16 == 0 is taken.
+//
+// All launch on the caller's stream, allocate nothing and do not
 // synchronise.
 
 #include <cuda_bf16.h>
@@ -184,6 +200,98 @@ cudaError_t run(const Args& a, cudaStream_t stream) {
   if (a.k > kMaxVec * kThreads * Vec<T>::kN) return cudaErrorInvalidValue;
   quantize_int8_kernel<T><<<a.m, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+struct SplitArgs {
+  const void* x;
+  const int32_t* bits;   // bs_quantize_scaled's inputs
+  const float* scales;
+  int8_t* values;        // bs_quantize_scaled's output
+  float* absmax;         // bs_row_absmax's output
+  int k;
+};
+
+// bs_row_absmax: one block per row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) row_absmax_kernel(SplitArgs a) {
+  using V = Vec<T>;
+  __shared__ float part_max[kThreads / 32];
+  const int row = blockIdx.x;
+  const int vectors = a.k / V::kN;
+  const uint4* x = reinterpret_cast<const uint4*>(
+      static_cast<const T*>(a.x) + static_cast<long long>(row) * a.k);
+  float top = 0.f;
+  for (int v = threadIdx.x; v < vectors; v += kThreads) {
+    float f[V::kN];
+    V::to_float(__ldg(x + v), f);
+#pragma unroll
+    for (int q = 0; q < V::kN; ++q) top = fmaxf(top, fabsf(f[q]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, o));
+  if (threadIdx.x % 32 == 0) part_max[threadIdx.x / 32] = top;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float row_max = part_max[0];
+#pragma unroll
+    for (int w = 1; w < kThreads / 32; ++w)
+      row_max = fmaxf(row_max, part_max[w]);
+    a.absmax[row] = row_max;
+  }
+}
+
+// bs_quantize_scaled: one block per row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    quantize_scaled_kernel(SplitArgs a) {
+  using V = Vec<T>;
+  const int row = blockIdx.x;
+  const int vectors = a.k / V::kN;
+  const long long at = static_cast<long long>(row) * a.k;
+  const uint4* x = reinterpret_cast<const uint4*>(static_cast<const T*>(a.x) +
+                                                  at);
+  const float row_scale = __ldg(a.scales + row);
+  for (int v = threadIdx.x; v < vectors; v += kThreads) {
+    float f[V::kN];
+    V::to_float(__ldg(x + v), f);
+    int4 bv[V::kN / 4];
+#pragma unroll
+    for (int q = 0; q < V::kN / 4; ++q)
+      bv[q] = __ldg(reinterpret_cast<const int4*>(a.bits + at + v * V::kN) + q);
+    const int32_t* b = reinterpret_cast<const int32_t*>(bv);
+    int8_t out[V::kN];
+#pragma unroll
+    for (int q = 0; q < V::kN; ++q) {
+      const float scaled = __fdiv_rn(f[q], row_scale);
+      const float noise = __fmul_rn(__int2float_rn(b[q] & 0xFFFFFF),
+                                    1.0f / 16777216.0f);
+      const float down = floorf(__fadd_rn(scaled, noise));
+      out[q] = static_cast<int8_t>(fminf(fmaxf(down, -127.f), 127.f));
+    }
+    typename V::Packed packed;
+    memcpy(&packed, out, sizeof(packed));
+    *reinterpret_cast<typename V::Packed*>(a.values + at + v * V::kN) = packed;
+  }
+}
+
+template <typename T>
+cudaError_t run_split(const SplitArgs& a, int m, bool absmax,
+                      cudaStream_t stream) {
+  if (absmax)
+    row_absmax_kernel<T><<<m, kThreads, 0, stream>>>(a);
+  else
+    quantize_scaled_kernel<T><<<m, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t split(const SplitArgs& a, int m, int dtype, bool absmax,
+                  cudaStream_t stream) {
+  if (a.k <= 0 || a.k % 16 != 0) return cudaErrorInvalidValue;
+  if (m <= 0) return cudaSuccess;
+  if (dtype == kBF16) return run_split<__nv_bfloat16>(a, m, absmax, stream);
+  if (dtype == kF32) return run_split<float>(a, m, absmax, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace quant
@@ -410,6 +518,35 @@ int bs_quantize_int8(int device, const void* x, const int32_t* bits,
   if (dtype == kBF16) return quant::run<__nv_bfloat16>(a, s);
   if (dtype == kF32) return quant::run<float>(a, s);
   return cudaErrorInvalidValue;
+}
+
+// x [m, k] (dtype 0 fp32, 1 bf16) -> out fp32 [m], each row's largest |x|.
+// k % 16 == 0.
+int bs_row_absmax(int device, const void* x, float* out, int m, int k,
+                  int dtype, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  quant::SplitArgs a{};
+  a.x = x;
+  a.absmax = out;
+  a.k = k;
+  return quant::split(a, m, dtype, true, static_cast<cudaStream_t>(stream));
+}
+
+// x [m, k] (dtype 0 fp32, 1 bf16), bits int32 [m, k], scales fp32 [m] ->
+// values int8 [m, k], K10's rounding against the given scales. k % 16 == 0.
+int bs_quantize_scaled(int device, const void* x, const int32_t* bits,
+                       const float* scales, int8_t* values, int m, int k,
+                       int dtype, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  quant::SplitArgs a{};
+  a.x = x;
+  a.bits = bits;
+  a.scales = scales;
+  a.values = values;
+  a.k = k;
+  return quant::split(a, m, dtype, false, static_cast<cudaStream_t>(stream));
 }
 
 // K11. x [m, k] and w [n, k] int8, xs [m] and ws [n] fp32 -> out [m, n]

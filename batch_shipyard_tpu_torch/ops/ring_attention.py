@@ -195,4 +195,6 @@ def ring_attention(q, k, v, group, causal: bool = True,
         impl="kernel" if impl == "kernel" else "plain")
     body = (_ring_attention_local if impl == "plain"
             else _ring_attention_local_flash)
-    return body(q, k, v, group, causal, rotate)
+    # K12 rotates contiguous buffers; with fused_norm, v is a strided view
+    # of the [q | k | v] projection (a copy here, nothing otherwise).
+    return body(q, k.contiguous(), v.contiguous(), group, causal, rotate)

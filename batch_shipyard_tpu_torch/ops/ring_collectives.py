@@ -28,9 +28,11 @@ gradient and tensor-parallel collectives. The port has no XLA, so it
 makes them from K13 and K14: ``ring_all_reduce`` is K14 then K13 (each
 element summed once, in ring order, by the member that owns its chunk,
 then copied to every member, so the result is bit-identical on every
-member), which the Megatron operators of models/transformer.py run over
-the tp ring and parallel/train.py over the data ring; with fsdp, the
-gradient bucket's K14 and the parameters' K13 run over the fsdp ring.
+member), which the Megatron operators (``tp_region_input``: f,
+``tp_region_output``: g; models/transformer.py and the vocab-parallel
+loss) run over the tp ring and parallel/train.py over the data ring;
+with fsdp, the gradient bucket's K14 and the parameters' K13 run over
+the fsdp ring.
 
 K12-K14 are plans. ``permute_plan``, ``all_gather_plan`` and
 ``reduce_scatter_plan`` list a call's stream operations in order:
@@ -61,6 +63,7 @@ rank sends over NVLink. The staging slot doubles a rank's own writes
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -87,8 +90,23 @@ plain_calls = dict.fromkeys(launches, 0)
 axis_launches: dict = {}
 # While a list (trace/train_profile sets one), every copy kernel a plan
 # launches appends (kernel, axis): the device's ring kernels in stream
-# order, for the profiler's per-axis times.
+# order, for the profiler's per-axis times. Inside ``call_site(name)`` the
+# axis is logged as "<axis>:<name>" (the vocab-parallel loss's merge, the
+# int8 absmax gathers), so their time reads apart from the layers' calls
+# on the same ring; the launch counts keep the plain axis.
 copy_log = None
+_site = None
+
+
+@contextlib.contextmanager
+def call_site(name: str):
+    """Log the ring copy kernels launched inside under "<axis>:<name>"."""
+    global _site
+    outer, _site = _site, name
+    try:
+        yield
+    finally:
+        _site = outer
 
 
 def _count_axis(call: str, axis: str) -> None:
@@ -295,7 +313,8 @@ def _enqueue(plan: list, group, buf, ends, nbytes: int, unit: int,
                 group.abort, 0, stream.cuda_stream)
             _build.check(rc, kernel.replace("_", " "), lib)
             if copy_log is not None:
-                copy_log.append((kernel, group.axis))
+                copy_log.append((kernel, group.axis if _site is None
+                                 else f"{group.axis}:{_site}"))
 
 
 def _check_cuda(name: str, t: torch.Tensor, group) -> None:
@@ -776,3 +795,49 @@ def ring_permute_pair(k, v, group, impl=None):
     if group.size == 1:
         return k, v
     return _RingPermute.apply(k, v, group, impl)
+
+
+# ------------------ Megatron's f and g over the tp ring -------------------
+
+
+class _TPRegionInput(torch.autograd.Function):
+    """Megatron's "f": identity forward; the backward sums each tp rank's
+    partial cotangent over the tp ring."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_all_reduce(g.contiguous(), ctx.group), None
+
+
+class _TPRegionOutput(torch.autograd.Function):
+    """Megatron's "g": the forward sums the tp ranks' partial outputs over
+    the tp ring; the backward passes the replicated cotangent through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return ring_all_reduce(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_region_input(x, group):
+    """The reference's tp_region_input over a tp RingGroup (None or a
+    ring of one: x)."""
+    if group is None or group.size == 1:
+        return x
+    return _TPRegionInput.apply(x, group)
+
+
+def tp_region_output(x, group):
+    """The reference's tp_region_output over a tp RingGroup (None or a
+    ring of one: x)."""
+    if group is None or group.size == 1:
+        return x
+    return _TPRegionOutput.apply(x, group)

@@ -15,15 +15,22 @@ weight is [out, in], so a flax column split (contiguous heads or ff
 units) is a split of the torch weight's rows, and a flax row split a
 split of its columns.
 
-What the port does differently, for now (ROADMAP queue 1):
-- the embedding stays replicated across tp, and the loss runs over the
-  full vocabulary on every tp rank (no vocab-parallel loss yet);
+What the port does differently:
+- the embedding's rows are split over tp as the reference's spec says,
+  and the loss is vocab-parallel (ops/chunked_loss.py): each tp rank
+  runs it on its own rows;
+- the fused kernels (qkv_kernel [d, 3F] = [q|k|v], gate_up_kernel [d,
+  2 d_ff] = [gate|up]) are regrouped head-wise: tp shard r is the
+  concatenation of r's contiguous 1/tp of each part, [q_r|k_r|v_r] and
+  [gate_r|up_r], so the model's ``.chunk(3)`` / ``.chunk(2)`` give the
+  rank its own heads and ff units (the reference's GSPMD shard is a
+  contiguous block of columns, which it may cut anywhere since XLA
+  keeps the global view). ``take_shard`` and ``join_shards`` are the
+  regroup and its inverse, for every tensor;
 - fsdp does not shard parameters tensor by tensor: parallel/train.py
   holds the fp32 parameters and AdamW state of 1/fsdp of one flat bucket
-  on each rank and gathers the parameters after each update;
-- the fused kernels (qkv_kernel, gate_up_kernel) are [q|k|v] and
-  [gate|up] concatenations, which a contiguous split would cut across q
-  and k, so tp refuses fused_norm (models/transformer.py).
+  on each rank and gathers the parameters after each update (ROADMAP
+  queue 1).
 MoE's rules arrive with MoE.
 
 Checkpoints (the restore side; workloads/checkpoint.py writes and reads
@@ -42,7 +49,8 @@ only the parts of the saved pieces that overlap what it holds
 (restore_plan.range_reads: 1/M of the optimizer state after an fsdp
 resize to M); with another tp it reads every piece of each split
 tensor, builds the global tensor on the host and cuts its new shard
-from it (``assemble``). Global shapes do not depend on the mesh, so a
+from it (``assemble``, through ``join_shards`` and ``take_shard``: a
+fused shard is not a contiguous range of the global tensor). Global shapes do not depend on the mesh, so a
 checkpoint of other shapes is refused.
 """
 
@@ -62,12 +70,13 @@ from batch_shipyard_tpu_torch.parallel import restore_plan
 TRANSFORMER_RULES = (
     (r".*(q_proj|k_proj|v_proj|gate_proj|up_proj)\.weight$",
      ("fsdp", "tp"), 0),
-    (r".*(qkv_kernel|gate_up_kernel)$", ("fsdp", "tp"), None),
+    (r".*(qkv_kernel|gate_up_kernel)$", ("fsdp", "tp"), 1),
     (r".*(o_proj|down_proj)\.weight$", ("tp", "fsdp"), 1),
-    (r".*embed\.embedding$", ("tp", "fsdp"), None),
+    (r".*embed\.embedding$", ("tp", "fsdp"), 0),
     (r".*(scale|bias)$", (), None),
 )
-_FUSED = re.compile(TRANSFORMER_RULES[1][0])
+# The fused kernels' parts along their tp dim: [q|k|v] and [gate|up].
+FUSED_PARTS = {"qkv_kernel": 3, "gate_up_kernel": 2}
 
 
 def tp_dim(name: str) -> Optional[int]:
@@ -79,30 +88,49 @@ def tp_dim(name: str) -> Optional[int]:
     return None
 
 
+def fused_parts(name: str) -> int:
+    """How many concatenated parts tensor ``name`` holds along its tp dim
+    (3 for qkv_kernel, 2 for gate_up_kernel, else 1)."""
+    return FUSED_PARTS.get(name.rsplit(".", 1)[-1], 1)
+
+
+def take_shard(name: str, tensor: torch.Tensor, count: int,
+               index: int) -> torch.Tensor:
+    """Tp shard ``index`` of ``count`` of the global ``tensor`` (a copy):
+    the contiguous 1/count along tp_dim, or for a fused kernel the
+    concatenation of that 1/count of each of its parts."""
+    dim = tp_dim(name)
+    return torch.cat([part.chunk(count, dim)[index] for part in
+                      tensor.chunk(fused_parts(name), dim)], dim)
+
+
+def join_shards(name: str, shards: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The inverse of take_shard: the global tensor from its tp shards in
+    tp order."""
+    dim, parts = tp_dim(name), fused_parts(name)
+    split = [shard.chunk(parts, dim) for shard in shards]
+    return torch.cat([s[p] for p in range(parts) for s in split], dim)
+
+
 def shard_state_dict(state: Mapping[str, torch.Tensor], mesh
                      ) -> dict[str, torch.Tensor]:
     """This rank's tp shard of a full state dict: ``mesh`` (a
     parallel.mesh.RankMesh, or anything with ``sizes`` and ``coords``)
-    gives tp and this rank's tp index; each split tensor keeps its
-    contiguous 1/tp along tp_dim (a copy), the rest pass through."""
+    gives tp and this rank's tp index; each split tensor becomes its
+    take_shard (a copy), the rest pass through."""
     tp, index = mesh.sizes["tp"], mesh.coords["tp"]
     if tp == 1:
         return dict(state)
     out = {}
     for name, tensor in state.items():
-        if _FUSED.match(name):
-            raise NotImplementedError(
-                f"{name}: the fused [q|k|v] / [gate|up] kernels need a "
-                f"head-wise regrouping under tp (ROADMAP queue 1: "
-                f"fused_norm and int8 under tp)")
         dim = tp_dim(name)
         if dim is None:
             out[name] = tensor
             continue
-        if tensor.shape[dim] % tp:
+        if tensor.shape[dim] % (tp * fused_parts(name)):
             raise ValueError(f"{name} {tuple(tensor.shape)}: dim {dim} is "
                              f"not divisible by tp={tp}")
-        out[name] = tensor.chunk(tp, dim=dim)[index].clone()
+        out[name] = take_shard(name, tensor, tp, index)
     return out
 
 
@@ -114,7 +142,7 @@ def gather_state_dict(shards: Sequence[Mapping[str, torch.Tensor]]
     for name, tensor in shards[0].items():
         dim = tp_dim(name)
         full[name] = (tensor if dim is None or len(shards) == 1 else
-                      torch.cat([s[name] for s in shards], dim=dim))
+                      join_shards(name, [s[name] for s in shards]))
     return full
 
 
@@ -322,10 +350,10 @@ def assemble(plan: Mapping, layout: Mapping,
             rec = records[r.shard]
             shards[rec["tp_index"]][rec["lo"] + r.lo:rec["lo"] + r.hi] = \
                 fetch(r.shard, r.lo, r.hi)
-        full = (torch.cat([s.view(part) for s in shards], tp_dim(piece.key))
+        full = (join_shards(piece.key, [s.view(part) for s in shards])
                 if count > 1 else shards[0].view(shape))
         if piece.tp_count > 1:
-            full = full.chunk(piece.tp_count,
-                              tp_dim(piece.key))[piece.tp_index]
+            full = take_shard(piece.key, full, piece.tp_count,
+                              piece.tp_index)
         out[piece] = full.reshape(-1)[piece.lo:piece.hi].clone()
     return out

@@ -31,6 +31,10 @@ sum over the data ranks (every rank with this rank's tp index) is the
 global mean, which every rank reports. The reference leaves the sums to
 XLA; the port's step, after the backward:
 
+0. with fused_norm under tp, sums the norm scales' gradients over the tp
+   ring (one ring_all_reduce of them all concatenated): K9's backward
+   computes dscale = sum(xhat * dn) with dn = g w_r^T over this rank's
+   columns only, so each rank holds a partial sum;
 1. builds one flat fp32 gradient bucket of fsdp rows, each a 1/fsdp
    chunk of the parameters followed by a loss slot that holds this
    rank's loss share (every row: the loss needs a place on every fsdp
@@ -58,9 +62,11 @@ AdamW's per-tensor state when no step has run yet (torch creates it
 lazily). Every ``step`` beats the task's progress file
 (agent/progress.py), as the reference's step wrappers do.
 
-Gradients are never summed over tp: a tp shard's gradient is whole on
-its rank, and a replicated parameter's is the same on every tp rank
-(f's backward sums the activation gradient before it reaches them).
+Apart from step 0, gradients are never summed over tp: a tp shard's
+gradient is whole on its rank (the embedding's rows too: the
+vocab-parallel lookup and loss give each rank its own rows' gradient),
+and a replicated parameter's is the same on every tp rank (f's backward
+sums the activation gradient before it reaches them).
 Every rank holds the whole (tp-sharded) parameters during the step;
 gathering them layer by layer is not ported yet (ROADMAP). Weights are
 drawn once at full shape from the seed (models/convert.init_params) and
@@ -113,6 +119,10 @@ class TrainHarness:
         self.device = model.embed.embedding.device
         self.mesh = mesh if mesh is not None and mesh.world > 1 else None
         self.params = list(model.parameters())
+        # Step 0 of the module doc: the fused norm scales under tp.
+        self.tp_partial = [p for name, p in model.named_parameters()
+                           if name.endswith("norm_scale")] \
+            if model.config.tp > 1 else []
         if self.mesh is None:
             trained = self.params
         else:
@@ -155,7 +165,21 @@ class TrainHarness:
     def loss_fn(self, tokens, targets, positions=None):
         hidden = self.model(tokens, positions=positions, return_hidden=True)
         return tfm.lm_loss_chunked(hidden, self.model.embed.embedding,
-                                   targets, impl=self.loss_impl)
+                                   targets, impl=self.loss_impl,
+                                   tp_group=self.model.config.tp_group)
+
+    def sum_tp_partial_grads(self) -> None:
+        """Step 0 of the module doc: the fused norm scales' gradients
+        summed over the tp ring, in place (nothing without fused_norm or
+        tp)."""
+        grads = [p.grad for p in self.tp_partial]
+        if not grads:
+            return
+        summed = ring_collectives.ring_all_reduce(
+            torch.cat([g.reshape(-1) for g in grads]),
+            self.model.config.tp_group)
+        for g, part in zip(grads, summed.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
     def shard(self, tokens, targets):
         """This rank's block of the global batch: (tokens, targets,
@@ -202,11 +226,12 @@ class TrainHarness:
         return bucket
 
     def sum_grads(self, loss) -> tuple[torch.Tensor, torch.Tensor]:
-        """Steps 1-3 of the module doc: this rank's chunk of the gradients
+        """Steps 0-3 of the module doc: this rank's chunk of the gradients
         and the loss, each summed over the data ranks (the loss a copy: a
         view would keep the whole row alive as long as the caller keeps
         the loss)."""
         groups = self.mesh.groups
+        self.sum_tp_partial_grads()
         row = self._bucket(loss)
         if groups["fsdp"] is not None:
             row = ring_collectives.ring_reduce_scatter(row, groups["fsdp"])

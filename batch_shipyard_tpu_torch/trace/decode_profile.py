@@ -9,8 +9,10 @@ build_bench_engine``: bench.py ``bench_serving``'s vocab 32000, d_model
 512, random weights from a fixed seed), fills every slot with a
 96-token prompt, and then times ``--steps`` pure decode steps (no
 admission, no finished request) twice: on the host clock with a
-synchronise, and under ``torch.profiler``. The steps are replays of the
-decode graph the engine's warm-up captured (``graph`` in the output);
+synchronise, and under ``torch.profiler`` (after PROFILER_WARMUP_STEPS
+steps that the profiler runs but the reading leaves out). The steps are
+replays of the decode graph the engine's warm-up captured (``graph`` in
+the output);
 the profiler still sees each kernel of a replay, so the kernels a step
 launches are counted from the trace (``launches_per_step_by_kernel``),
 not from the wrappers' counters (which count once, at capture). Prints
@@ -33,7 +35,7 @@ import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from batch_shipyard_tpu_torch.models.serving import Request
 from batch_shipyard_tpu_torch.workloads.serve import (
@@ -45,6 +47,26 @@ PROMPT = 96
 ATTENTION_KERNEL = {"paged": "paged_decode_cluster_kernel",
                     "paged_int8": "paged_decode_cluster_kernel",
                     "dense_int8": "dense_decode_cluster_kernel"}
+
+
+# The profiler can lose the first kernels it should see while it starts
+# tracing: on an H100, one window of 16 replayed decode steps in 40 lost
+# the first 504 of its first replay's 910 kernels. So a reading runs
+# PROFILER_WARMUP_STEPS steps under the profiler, synchronises, and
+# counts only the kernels that start inside the WINDOW range after them.
+PROFILER_WARMUP_STEPS = 2
+WINDOW = "profiled_window"
+
+
+def window_kernels(events) -> list:
+    """The device kernels among the profiler's ``events`` that start
+    inside the host's WINDOW range (the range's own device annotation
+    excluded)."""
+    start = next(e.time_range.start for e in events
+                 if e.name == WINDOW and e.device_type == DeviceType.CPU)
+    return [e for e in events
+            if e.device_type == DeviceType.CUDA and e.name != WINDOW and
+            e.time_range.start >= start]
 
 
 def busy_us(intervals: list[tuple[float, float]]) -> float:
@@ -87,13 +109,16 @@ def profile_engine(engine, kv_cache: str, steps: int) -> dict:
     wall_ms = (time.perf_counter() - started) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
+        for _ in range(PROFILER_WARMUP_STEPS):
             engine.step()
         torch.cuda.synchronize()
+        with record_function(WINDOW):
+            for _ in range(steps):
+                engine.step()
+            torch.cuda.synchronize()
     if len(engine.active_request_ids()) < slots:
         raise RuntimeError("a request finished inside the window")
-    kernels = [e for e in prof.events()
-               if e.device_type == DeviceType.CUDA]
+    kernels = window_kernels(prof.events())
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
     by_name: dict[str, float] = collections.defaultdict(float)

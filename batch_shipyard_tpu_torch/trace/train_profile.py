@@ -2,23 +2,26 @@
 
 ``profile_steps(harness, batch, steps)`` times ``steps`` train steps on
 the host clock with a synchronise, then ``steps`` more under
-``torch.profiler``, and returns the step's wall time, the device's busy
-time (union of kernel intervals) and idle share, each hand-written
-kernel's time and share of device time (flash K1, K2; the fused
-cross-entropy K3, the backward's shared pre-pass and dl pass, K4 and
-K5; the fused RMSNorm+matmul K9; the int8 quantize K10 and matmul K11;
-on a sequence-parallel ring the permute K12 and the gradient all-reduce
-K13 + K14), the library GEMMs' time and share
-(cuBLAS's kernels: the int8 step's fp32 backward products, the other
-steps' projections and slab-loss products), and the largest device
-kernels. Over a mesh it also gives each axis's ring kernels' ms a step
-(``ring_ms_per_step_by_axis``: the copy kernels of the sp rotations, the
-tp all-reduces, the data all-reduce and the fsdp scatter and gather,
-told apart by the order in which their calls launched them on the one
-stream), each ring group's wait (the time its calls spent waiting on a
-neighbour: their stream waits, from the group's event pairs) and the
-device kernels each ring call makes (K12: two copies; K13 and K14: ring
-copies, K14's adding). chip_smoke.py runs it on bench.py
+``torch.profiler`` (after WARMUP_STEPS, which the reading leaves out),
+and returns the step's wall time, the device's busy time (union of
+kernel intervals) and idle share, each hand-written kernel's time and
+share of device time (flash K1, K2; the fused cross-entropy K3, the
+backward's shared pre-pass and dl pass, K4 and K5; the fused
+RMSNorm+matmul K9; the int8 quantize K10 and matmul K11, and K10's two
+halves that a row-parallel product runs under tp; on a sequence-parallel
+ring the permute K12 and the gradient all-reduce K13 + K14), the library
+GEMMs' time and share (cuBLAS's kernels: the int8 step's fp32 backward
+products, the other steps' projections and slab-loss products), and the
+largest device kernels. Over a mesh it also gives each axis's ring
+kernels' ms a step (``ring_ms_per_step_by_axis``: the copy kernels of
+the sp rotations, the tp all-reduces, the data all-reduce and the fsdp
+scatter and gather, told apart by the order in which their calls
+launched them on the one stream; the vocab-parallel loss's merge as
+"tp:loss" and the int8 absmax gathers as "tp:absmax",
+ring_collectives.call_site), each ring group's wait (the time its calls
+spent waiting on a neighbour: their stream waits, from the group's event
+pairs) and the device kernels each ring call makes (K12: two copies; K13
+and K14: ring copies, K14's adding). chip_smoke.py runs it on bench.py
 ``bench_transformer``'s model after its counted training steps, and
 ``workloads/train_transformer.py --profile-steps`` on every rank. CUDA
 only.
@@ -30,11 +33,16 @@ import collections
 import time
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from batch_shipyard_tpu_torch.ops import ring_collectives
-from batch_shipyard_tpu_torch.trace.decode_profile import busy_us
+from batch_shipyard_tpu_torch.trace.decode_profile import (
+    WINDOW, busy_us, window_kernels)
+
+# Steps under the profiler before its window (decode_profile's
+# PROFILER_WARMUP_STEPS): one train step lasts hundreds of ms, far past
+# the start of the trace, where the profiler can lose kernels.
+WARMUP_STEPS = 1
 
 # Substrings of the kernels' mangled names: csrc/flash_attention.cu,
 # csrc/chunked_loss.cu, csrc/fused_norm.cu and csrc/quantization.cu.
@@ -56,6 +64,9 @@ RMSNORM_MATMUL = ("rmsnorm_matmul_wgmma_kernel", "rmsnorm_matmul_fma_kernel",
                   "rms_stats_kernel")
 QUANTIZE_INT8 = "quantize_int8_kernel"
 INT8_MATMUL = "int8_matmul_wgmma_kernel"
+# K10's two halves for rows split over tp (the row-parallel products).
+ROW_ABSMAX = "row_absmax_kernel"
+QUANTIZE_SCALED = "quantize_scaled_kernel"
 # csrc/ring_collectives.cu (the virtual_* kernels do not match these).
 RING_PERMUTE = "ring_permute_kernel"
 RING_ALL_GATHER = "ring_all_gather_kernel"
@@ -66,6 +77,7 @@ KERNEL_SYMBOLS = {
     "xent_bwd_h": (XENT_BWD_H,), "xent_bwd_e": (XENT_BWD_E,),
     "rmsnorm_matmul": RMSNORM_MATMUL,
     "quantize_int8": (QUANTIZE_INT8,), "int8_matmul": (INT8_MATMUL,),
+    "row_absmax": (ROW_ABSMAX,), "quantize_scaled": (QUANTIZE_SCALED,),
     "ring_permute": (RING_PERMUTE,), "ring_all_gather": (RING_ALL_GATHER,),
     "ring_reduce_scatter": (RING_REDUCE_SCATTER,),
 }
@@ -85,20 +97,24 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
     wall_ms = (time.perf_counter() - started) * 1e3 / steps
     mesh = getattr(harness, "mesh", None)
     groups = [] if mesh is None else mesh.distinct_groups()
-    waited = [group.wait_ns() for group in groups]
-    ring_collectives.copy_log = log = []
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                harness.step(batch)
-            torch.cuda.synchronize()
-    finally:
-        ring_collectives.copy_log = None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(WARMUP_STEPS):
+            harness.step(batch)
+        torch.cuda.synchronize()
+        waited = [group.wait_ns() for group in groups]
+        ring_collectives.copy_log = log = []
+        try:
+            with record_function(WINDOW):
+                for _ in range(steps):
+                    harness.step(batch)
+                torch.cuda.synchronize()
+        finally:
+            ring_collectives.copy_log = None
     if mesh is not None:
         mesh.check()
         waited = [group.wait_ns() - ns for group, ns in zip(groups, waited)]
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = window_kernels(prof.events())
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
     by_name: dict[str, float] = collections.defaultdict(float)

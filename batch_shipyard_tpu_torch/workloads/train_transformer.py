@@ -3,7 +3,9 @@
 Counterpart of batch_shipyard_tpu/workloads/train_transformer.py for
 the dense path, with its flags and defaults (``--int8``: int8 matmuls for
 every projection, a full-precision backward; ``--sp N``: ring attention
-over N ranks; ``--tp N``: Megatron tensor parallelism; ``--fsdp N``: the
+over N ranks; ``--tp N``: Megatron tensor parallelism with the
+vocab-parallel embedding and loss, composing with ``--fused-norm`` and
+``--int8`` as in the reference; ``--fsdp N``: the
 optimizer state and parameter updates sharded N ways; dp fills the rest
 of the world, as the reference's auto_axis_sizes; the checkpoint flags
 of workloads/checkpoint.py) plus ``--device {cuda,cpu}``, ``--seed``,
@@ -15,6 +17,9 @@ of workloads/checkpoint.py) plus ``--device {cuda,cpu}``, ``--seed``,
     python -m torch.distributed.run --nproc-per-node 8 \
         -m batch_shipyard_tpu_torch.workloads.train_transformer \
         --seq-len 8192 --sp 4 --tp 2 --steps 20
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m batch_shipyard_tpu_torch.workloads.train_transformer \
+        --seq-len 8192 --sp 2 --tp 2 --fused-norm --steps 20
 
 Checkpoints and the pool's hooks, as in the reference's loop: the run
 restores the latest COMMITTED step of ``--checkpoint-dir`` before the
@@ -160,13 +165,11 @@ def check_mesh_sizes(args, world: int) -> None:
             (args.batch, world // inner * args.fsdp, "--batch",
              "dp * fsdp"),
             (args.n_heads, args.tp, "--n-heads", "--tp"),
-            (args.d_ff, args.tp, "--d-ff", "--tp")):
+            (args.d_ff, args.tp, "--d-ff", "--tp"),
+            (args.vocab, args.tp, "--vocab", "--tp")):
         if value % by:
             raise SystemExit(f"{what} {value} is not divisible by {axes} "
                              f"= {by}")
-    if args.tp > 1 and (args.int8 or args.fused_norm):
-        raise SystemExit("--int8 or --fused-norm with --tp is not ported "
-                         "(ROADMAP queue 1: fused_norm and int8 under tp)")
     if args.int8 and args.fused_norm:
         raise SystemExit("--fused-norm composes only with the dense path, "
                          "not --int8")
@@ -174,8 +177,9 @@ def check_mesh_sizes(args, world: int) -> None:
 
 def param_digests(harness) -> dict:
     """sha256 of this rank's replicated parameters (the same on every
-    rank) and of its tp shard (the same on the ranks of its tp index),
-    over their bytes in state-dict order."""
+    rank) and of its tp shard (the same on the ranks of its tp index:
+    the split projections, the regrouped fused kernels and the
+    embedding's rows), over their bytes in state-dict order."""
     digests = {"replicated": hashlib.sha256(),
                "tp_shard": hashlib.sha256()}
     for name, tensor in harness.model.state_dict().items():

@@ -43,7 +43,13 @@ Phases, each fatal on failure:
      ones (M 300, K 128 and 2816, N 48 and 384, fp32 and bf16, a zero
      row; N 50, where the output is stored from registers); each
      planted fault (QUANT_FAULTS) must fail at every training
-     shape. The one-device ring schedules (K15 all-gather, K16
+     shape. K10's two halves for rows split over tp (bs_row_absmax,
+     bs_quantize_scaled) the same way at ragged shapes and at one rank's
+     row-parallel operands of the tp mesh runs (x [16384, 512] and
+     [16384, 1408], w [1024, 512] and [1024, 1408]), together equal to
+     K10 over the same rows bit for bit, each failing on its planted
+     fault there. The fused cross-entropy also at one tp rank's
+     vocab-parallel shard of the recipe (N 16384, V 16000). The one-device ring schedules (K15 all-gather, K16
      reduce-scatter) bit for bit against their plain versions and against
      the definition (the concatenation; the sum over members within the
      reference test's 1e-4 / 1e-6 relative): rings 2, 4 and 8, chunks 16
@@ -64,8 +70,10 @@ Phases, each fatal on failure:
      and its scratch, and again with chunks twice as wide), K9 at M
      32768 K 1024 N 3072 and 5632, K10 and K11 at one layer's seven
      projections (K11's yardstick: torch._int_mm and the two scale
-     multiplies; torch._int_mm alone beside it); K6-K8 also at the serve
-     load's ragged lengths;
+     multiplies; torch._int_mm alone beside it), K10's halves at one
+     layer's row-parallel operands beside K10's one pass over the same
+     rows (bs_row_absmax's yardstick: the inf-norm); K6-K8 also at the
+     serve load's ragged lengths;
   4. train the repo's training benchmark model (bench.py
      bench_transformer: vocab 32000, d_model 1024, 12 layers, 16 heads,
      d_ff 2816, bf16 over fp32 parameters, no remat, batch 16 x 2048,
@@ -110,17 +118,25 @@ Phases, each fatal on failure:
   5b. the training mesh (``train_mesh``), eight ranks on this card
      through the workload under ``torch.distributed.run``: (a) the
      reference recipe ``--seq-len 8192 --sp 4 --tp 2`` at full width and
-     depth (batch 8, remat, the fused loss), (b) ``--sp 2 --fsdp 2``
-     (dp 2) at 2 layers, each 2 + 3 steps and one profiled. Each must
-     give finite falling losses, every rank exactly
-     mesh_launches_per_step(rank) a step by kernel and by ring axis (K12
-     on sp rings; K14 + K13 as tp all-reduces, the data all-reduce and
-     the fsdp scatter and gather) and no plain version, and one digest of
-     the replicated parameters on all eight ranks and of each tp shard on
-     the ranks of its tp index; (a)'s loss at every step within
-     MESH_LOSS_RTOL of the sp phase's on the same weights and batch. Then
-     a rank of a small recipe-shaped mesh kills itself mid-step and every
-     other rank must raise within KILL_RAISE_LIMIT_S;
+     depth (batch 8, remat, the fused loss, vocab-parallel over the tp
+     ring), (b) ``--sp 2 --fsdp 2`` (dp 2) at 2 layers, (c) ``--sp 2 --tp
+     2 --fused-norm`` and (d) ``--sp 2 --tp 2 --int8`` (dp 2) at 2
+     layers, each 2 + 3 steps and one profiled. Each must give finite
+     falling losses, every rank exactly mesh_launches_per_step(rank) a
+     step by kernel and by ring axis (K12 on sp rings; K14 + K13 as tp
+     all-reduces, the data all-reduce and the fsdp scatter and gather;
+     K13 gathers of the loss's (lse, gold) and of (d)'s absmax; K9 in
+     (c); K10, K11 and K10's halves in (d)) and no plain version, and one
+     digest of the replicated parameters on all eight ranks and of each
+     tp shard on the ranks of its tp index; (a)'s loss at every step
+     within MESH_LOSS_RTOL of the sp phase's on the same weights and
+     batch, (c)'s and (d)'s within it of the same flags at ``--sp 2``
+     alone on four ranks (dp 2). Before them every ring call of the
+     paths at their shapes, and (d)'s row-parallel int8 operands
+     against K10 over the whole rows, bit for bit on every rank
+     (mesh_collectives). Then a rank of a small recipe-shaped mesh kills
+     itself mid-step and every other rank must raise within
+     KILL_RAISE_LIMIT_S;
   5c. checkpoints (``checkpoint``; workloads/checkpoint.py, the loop's
      pool hooks), all dirs in a temp dir the phase removes. (a) One card,
      bench_transformer's fused configuration under the marker through the
@@ -168,8 +184,9 @@ Phases, each fatal on failure:
      launched exactly once per layer a step, and it must agree with
      the plain attention in a teacher-forced decode of the same tokens.
 
-All phases run at full depth. The last two stdout lines are the
-{"kernels": [...]} summary (K1-K16) and
+All phases run at full depth but the mesh's (b)-(d) and the checkpoint
+phase's (b). The last two stdout lines are the {"kernels": [...]}
+summary (K1-K16, and K10's two halves) and
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
 no CUDA device is present.
 """
@@ -413,7 +430,25 @@ QUANT_FAULTS = (
      "      const uint32_t accumulate = kt > 0;",
      "      const uint32_t accumulate = kt > 0 && (kt != 1 || tile != 0);",
      ("out",)),
+    # bs_row_absmax: row 0 reports half its largest |x|.
+    ("row_absmax_kernel", "    a.absmax[row] = row_max;",
+     "    a.absmax[row] = row == 0 ? 0.5f * row_max : row_max;",
+     ("absmax",)),
+    # bs_quantize_scaled: row 0 rounds against twice its scale.
+    ("quantize_scaled_kernel",
+     "  const float row_scale = __ldg(a.scales + row);",
+     "  const float row_scale = (row == 0 ? 2.f : 1.f) * __ldg(a.scales + "
+     "row);", ("values",)),
 )
+# K10's two halves on the row-parallel path (o and down under tp 2): one
+# rank's x [rows, in / tp] and weight [out, in / tp] at the mesh runs'
+# rows (batch 8 x 8192 over dp 2 and sp 2), and how many of a layer's
+# calls run at each.
+MESH_RANK_ROWS = 8 * 8192 // 4
+QUANT_SPLIT_SHAPES = {
+    "o": ((MESH_RANK_ROWS, _D_MODEL // 2, _D_MODEL), 1),
+    "down": ((MESH_RANK_ROWS, _D_FF // 2, _D_MODEL), 1),
+}
 # Decode attention (K6-K8). The ragged lengths of check_kernels: at the
 # paged kernel's 4 splits over pages of 64 (the dense kernel's 2 over
 # units of 128), some slots keep every split busy (200, 333, 511, 512 for
@@ -494,8 +529,19 @@ KERNELS = {
     "int8_matmul": dict(
         label="K11", route="cuda", source=QUANT_SOURCE,
         replaces="batch_shipyard_tpu/ops/quantization.py:105"),
+    # K10's halves for rows split over tp: the absmax of this rank's part
+    # of each row, and K10's rounding against the scales of the whole
+    # rows (the reference's K10 sees the global rows under GSPMD).
+    "row_absmax": dict(
+        label="K10", route="cuda", source=QUANT_SOURCE,
+        replaces="batch_shipyard_tpu/ops/quantization.py:41"),
+    "quantize_scaled": dict(
+        label="K10", route="cuda", source=QUANT_SOURCE,
+        replaces="batch_shipyard_tpu/ops/quantization.py:41"),
 }
 LOSS_KERNELS = ("xent_fwd", "xent_bwd_h", "xent_bwd_e")
+# The kernels that only the tp mesh paths launch.
+TP_ONLY_KEYS = ("row_absmax", "quantize_scaled")
 
 
 class SmokeFailure(Exception):
@@ -1441,6 +1487,19 @@ def check_loss(device, fault_lib) -> dict:
             bool(got[k].any()) for k in ("gold",) + LOSS_GRADS):
         failed.append("every target ignored")
 
+    # One tp rank's vocab-parallel loss at the recipe: an sp rank's rows
+    # against half the vocabulary (16000 rows of E: a ragged last tile).
+    shard = dict(rows=MESH_RANK_ROWS, vocab=LOSS_TRAIN_SHAPE["vocab"] // 2,
+                 depth=LOSS_TRAIN_SHAPE["depth"])
+    case = loss_case(gen, shard["rows"], shard["vocab"], shard["depth"],
+                     torch.bfloat16, 0.05, device)
+    err = loss_errors(loss_outputs(*case), loss_outputs(*case, plain=True))
+    del case
+    name = "loss vocab shard N={rows} V={vocab} D={depth} h=bf16".format(
+        **shard)
+    print(f"check {name}: {_fmt(err)}", flush=True)
+    failed += [f"{name} {k}" for k in loss_failures(err, torch.bfloat16)]
+
     shape = LOSS_TRAIN_SHAPE
     case = loss_case(gen, shape["rows"], shape["vocab"], shape["depth"],
                      torch.bfloat16, 0.05, device)
@@ -1922,6 +1981,166 @@ def time_quant(device, readings: dict) -> dict:
                   f"{s['ms'] / s['bound_ms']:.2f}", flush=True)
     return {"quantize_int8": _layer_row(k10, "one layer's 14 calls"),
             "int8_matmul": _layer_row(k11, "one layer's 7 calls")}
+
+
+def absmax_diff(got, want) -> dict:
+    """Differing fp32 absmax values (bitwise), and the largest
+    difference."""
+    torch.cuda.synchronize()
+    require(got.dtype == torch.float32, "row absmax: output dtype")
+    return {"absmax": int((got.view(torch.int32) != want.view(torch.int32))
+                          .sum()),
+            "max_abs_err": float((got - want).abs().max())}
+
+
+def values_diff(got, want) -> dict:
+    torch.cuda.synchronize()
+    require(got.dtype == torch.int8, "quantize with scales: output dtype")
+    return {"values": int((got != want).sum()),
+            "max_abs_err": float((got.int() - want.int()).abs().max())}
+
+
+def _split_scales(absmax):
+    """K10's scale from a row's absmax, as quantize_split_rows writes it."""
+    return torch.clamp(absmax, min=1e-8) * (1.0 / 127.0)
+
+
+def check_quant_split(device, fault_lib) -> dict:
+    """Phase 2e': bs_row_absmax and bs_quantize_scaled against their plain
+    versions on the same inputs and bits, bit for bit: ragged shapes (M
+    300, K 128 and 2816, fp32 and bf16, a zero row), then one rank's
+    row-parallel operands at the mesh runs' shapes
+    (QUANT_SPLIT_SHAPES), where each planted fault must fail; and the
+    two halves over a whole row must give K10's values and scales bit for
+    bit. Every case is read and printed before the first failure is
+    raised. Returns the training-shape readings."""
+    gen = torch.Generator(device=device).manual_seed(12)
+    failed, readings = [], {}
+    cases = [(f"ragged K={k} {str(dtype)[6:]}",
+              quant_case(gen, 300, k, dtype, device, zero_row=True))
+             for k in (128, 2816) for dtype in (torch.float32, torch.bfloat16)]
+    for name, (shape, _) in QUANT_SPLIT_SHAPES.items():
+        rows, k, n = shape
+        cases += [(f"{name} x {rows}x{k}",
+                   quant_case(gen, rows, k, torch.bfloat16, device)),
+                  (f"{name} w {n}x{k}",
+                   quant_case(gen, n, k, torch.bfloat16, device,
+                              weight=True))]
+    for label, (x, bits) in cases:
+        want_max = quant_ops.row_absmax_reference(x)
+        scales = _split_scales(want_max)
+        want_q = quant_ops.quantize_scaled_reference(x, bits, scales)
+        row = {"absmax": absmax_diff(quant_ops.row_absmax_kernel(x),
+                                     want_max),
+               "quantize": values_diff(quant_ops.quantize_scaled_kernel(
+                   x, bits, scales), want_q)}
+        whole = quant_ops.quantize_int8_kernel(x, bits)
+        row["as K10"] = quant_diff(
+            (quant_ops.quantize_scaled_kernel(
+                x, bits, _split_scales(quant_ops.row_absmax_kernel(x))),
+             scales[:, None]), whole)
+        if row["absmax"]["absmax"] or row["quantize"]["values"] or \
+                row["as K10"]["values"] or row["as K10"]["scales"]:
+            failed.append(label)
+        if not label.startswith("ragged"):
+            row["absmax fault"] = absmax_diff(
+                quant_ops.row_absmax_kernel(x, library=fault_lib), want_max)
+            row["quantize fault"] = values_diff(
+                quant_ops.quantize_scaled_kernel(x, bits, scales,
+                                                 library=fault_lib), want_q)
+            if not row["absmax fault"]["absmax"]:
+                failed.append(f"{label}: planted absmax fault passed")
+            if not row["quantize fault"]["values"]:
+                failed.append(f"{label}: planted quantize fault passed")
+            readings[label] = row
+        print(f"check K10 halves {label}: " +
+              "; ".join(f"{key} {json.dumps(v)}" for key, v in row.items()),
+              flush=True)
+        del x, bits, want_max, want_q, whole
+    torch.cuda.empty_cache()
+    require(not failed, f"K10 halves: {failed}")
+    return readings
+
+
+def row_absmax_bound(rows, cols, dtype) -> dict:
+    """bs_row_absmax's least time: x read once, fp32 [rows] written once;
+    two fp32 operations an element (abs, max)."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    return roofline(rows * cols * elt + rows * 4, 2 * rows * cols,
+                    torch.float32)
+
+
+def quantize_scaled_bound(rows, cols, dtype) -> dict:
+    """bs_quantize_scaled's least time: x, the int32 bits and the fp32
+    scales read once, the int8 values written once; ~4 fp32 operations
+    an element (divide, add, floor, clip)."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    return roofline(rows * cols * (elt + 4 + 1) + rows * 4,
+                    4 * rows * cols, torch.float32)
+
+
+def _library_absmax(x):
+    """One PyTorch call for each row's largest |x|: the inf-norm."""
+    return torch.linalg.vector_norm(x, ord=float("inf"), dim=-1,
+                                    dtype=torch.float32)
+
+
+def time_quant_split(device, readings: dict) -> dict:
+    """Phase 3e': bs_row_absmax and bs_quantize_scaled at one layer's
+    row-parallel operands on one rank (QUANT_SPLIT_SHAPES: x and the
+    weight of o and down), beside their plain versions, the inf-norm
+    (bs_row_absmax's one PyTorch call; the scaled quantize has none) and
+    K10's one pass over the same rows. Each row sums one layer's 4 calls
+    of each; ``shapes`` keeps each, with K10's time there."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    layers = train_wl.BENCH_TRANSFORMER_MODEL["n_layers"]
+    absmax, scaled = {}, {}
+    for name, (shape, count) in QUANT_SPLIT_SHAPES.items():
+        rows, k, n = shape
+        for side, dims, copies in (("x", (rows, k), 2), ("w", (n, k), layers)):
+            sets = [quant_case(gen, *dims, torch.bfloat16, device,
+                               weight=side == "w") for _ in range(copies)]
+            label = f"{name} x {rows}x{k}" if side == "x" else \
+                f"{name} w {n}x{k}"
+            err = readings[label]
+            x_sets = [(x,) for x, _ in sets]
+            k10_ms = device_ms(quant_ops.quantize_int8_kernel, sets, 24)
+            absmax[f"{side} {dims[0]}x{dims[1]}"] = dict(
+                count=count,
+                ms=device_ms(quant_ops.row_absmax_kernel, x_sets, 24),
+                plain_ms=device_ms(quant_ops.row_absmax_reference,
+                                   x_sets[:2], 4),
+                library_ms=device_ms(_library_absmax, x_sets, 24),
+                k10_ms=k10_ms, max_abs_err=err["absmax"]["max_abs_err"],
+                **row_absmax_bound(*dims, torch.bfloat16))
+            q_sets = [(x, bits, _split_scales(
+                quant_ops.row_absmax_reference(x))) for x, bits in sets]
+            scaled[f"{side} {dims[0]}x{dims[1]}"] = dict(
+                count=count,
+                ms=device_ms(quant_ops.quantize_scaled_kernel, q_sets, 24),
+                plain_ms=device_ms(quant_ops.quantize_scaled_reference,
+                                   q_sets[:2], 4),
+                library_ms=None, k10_ms=k10_ms,
+                max_abs_err=err["quantize"]["max_abs_err"],
+                **quantize_scaled_bound(*dims, torch.bfloat16))
+            del sets, x_sets, q_sets
+            torch.cuda.empty_cache()
+    for key in absmax:
+        a, q = absmax[key], scaled[key]
+        print(f"time K10 halves {key}: row_absmax {a['ms']:.4f} ms (bound "
+              f"{a['bound_ms']:.4f}, plain {a['plain_ms']:.4f}, inf-norm "
+              f"{a['library_ms']:.4f}); quantize_scaled {q['ms']:.4f} ms "
+              f"(bound {q['bound_ms']:.4f}, plain {q['plain_ms']:.4f}); "
+              f"together {a['ms'] + q['ms']:.4f} ms against K10's one pass "
+              f"{a['k10_ms']:.4f} ms ({(a['ms'] + q['ms']) / a['k10_ms']:.2f}"
+              f"x)", flush=True)
+    per = "one layer's 4 calls on a rank (x and w of o and down, tp 2)"
+    rows = {"row_absmax": _layer_row(absmax, per),
+            "quantize_scaled": _layer_row(scaled, per)}
+    k10 = sum(s["count"] * s["k10_ms"] for s in absmax.values())
+    for row in rows.values():
+        row["k10_same_rows_ms"] = k10
+    return rows
 
 
 # ------------- ring collectives (K12-K14) and their schedules (K15, K16) -------------
@@ -2792,25 +3011,39 @@ SP_NUMERICS_BATCH, SP_NUMERICS_SEQ = 2, 2048
 
 
 def mesh_launches_per_step(rank: int, sizes: dict,
-                           layers: int = _MODEL["n_layers"]) -> dict:
+                           layers: int = _MODEL["n_layers"],
+                           flags=()) -> dict:
     """What rank ``rank`` of a mesh of ``sizes`` (auto_axis_sizes)
     launches each step of the workload (causal, remat on, the fused loss,
-    ``layers`` layers), by kernel and by ring call and axis (the
-    workload's ``launches``). Per layer: sp - 1 ring rotations forward,
-    as many again in remat's recompute and in the backward (K12); the
-    diagonal and sp_index full flash blocks, forward and recompute (K1)
-    and backward (K2); with tp, two all-reduces (g) forward, the same two
-    in the recompute and two (f) in the backward, each one K14 and one
-    K13. Per step: the loss once (K3-K5); with fsdp, the gradient
-    reduce-scatter (K14) and the parameter all-gather (K13) over the
-    fsdp ring; with dp x sp > 1, one all-reduce (K14 + K13) over the data
-    ring. Each K12-K14 launch counts under its ring's label too, and each
-    all-reduce under "ring_all_reduce.<label>"; with dp = 1 the sp ring
-    is the data ring, labelled "sp+data"."""
+    ``layers`` layers, the workload ``flags``: ``--fused-norm`` or
+    ``--int8``), by kernel and by ring call and axis (the workload's
+    ``launches``). Per layer: sp - 1 ring rotations forward, as many
+    again in remat's recompute and in the backward (K12); the diagonal
+    and sp_index full flash blocks, forward and recompute (K1) and
+    backward (K2); with tp, two all-reduces (g) forward, the same two in
+    the recompute and two (f) in the backward, each one K14 and one K13.
+    With --fused-norm, K9 twice forward and twice in the recompute. With
+    --int8, seven projections forward and in the recompute, each K11
+    once; a column-parallel one (all seven without tp) K10 for x and the
+    weight, a row-parallel one (o and down under tp) bs_row_absmax and
+    bs_quantize_scaled for each and one K13 absmax gather over the tp
+    ring. Per step: the loss once (K3-K5, on the vocab shard under tp);
+    with tp, the embedding's all-reduce (g), the loss's (lse, gold)
+    gather and grad_h all-reduce, and with --fused-norm the norm scales'
+    gradient all-reduce; with fsdp, the gradient reduce-scatter (K14)
+    and the parameter all-gather (K13) over the fsdp ring; with dp x sp >
+    1, one all-reduce (K14 + K13) over the data ring. Each K12-K14 launch
+    counts under its ring's label too, and each all-reduce under
+    "ring_all_reduce.<label>"; with dp = 1 the sp ring is the data ring,
+    labelled "sp+data"."""
+    fused, int8 = "--fused-norm" in flags, "--int8" in flags
     coords = mesh_mod.RankMesh(sizes, rank).coords
     blocks = 1 + coords["sp"]
     rotations = 3 * (sizes["sp"] - 1) * layers
-    tp = 6 * layers if sizes["tp"] > 1 else 0
+    split = sizes["tp"] > 1
+    tp = 6 * layers + 2 + int(fused) if split else 0
+    tp_gathers = 1 + (4 * layers if int8 else 0) if split else 0
+    row = 2 if split else 0  # row-parallel products a layer
     data = int(sizes["dp"] * sizes["sp"] > 1)
     fsdp = int(sizes["fsdp"] > 1)
     shared = "sp+data" if sizes["dp"] == 1 else None
@@ -2819,13 +3052,20 @@ def mesh_launches_per_step(rank: int, sizes: dict,
         rotations, "flash_fwd": 2 * blocks * layers,
         "flash_bwd": blocks * layers, "xent_fwd": 1, "xent_bwd_h": 1,
         "xent_bwd_e": 1, "ring_reduce_scatter": tp + data + fsdp,
-        "ring_all_gather": tp + data + fsdp})
+        "ring_all_gather": tp + tp_gathers + data + fsdp,
+        "ring_all_gather.tp": tp_gathers})
     for label, n in (("tp", tp), (shared or "data", data)):
         for call in ("ring_reduce_scatter", "ring_all_gather",
                      "ring_all_reduce"):
             want[f"{call}.{label}"] += n
     want["ring_reduce_scatter.fsdp"] += fsdp
     want["ring_all_gather.fsdp"] += fsdp
+    if fused:
+        want["rmsnorm_matmul"] = 4 * layers
+    if int8:
+        want["int8_matmul"] = 14 * layers
+        want["quantize_int8"] = 4 * (7 - row) * layers
+        want["row_absmax"] = want["quantize_scaled"] = 4 * row * layers
     return {key: n for key, n in want.items() if n}
 
 
@@ -2958,14 +3198,25 @@ def train_sp(device, marker_env: dict) -> dict:
 # The mesh phase: eight ranks on this one card through the workload under
 # torch.distributed.run. (a) the reference workload's recipe in full,
 # --seq-len 8192 --sp 4 --tp 2 (workloads/train_transformer.py:8-10), at
-# bench_transformer's widths and depth, batch 8, remat, the fused loss;
-# (b) dp and fsdp across sp rings, --sp 2 --fsdp 2 (dp 2), the same
-# widths and batch, depth cut to 2 layers.
+# bench_transformer's widths and depth, batch 8, remat, the fused loss
+# (vocab-parallel over the tp ring); (b) dp and fsdp across sp rings,
+# --sp 2 --fsdp 2 (dp 2), the same widths and batch, depth cut to 2
+# layers; (c) and (d) the tp axis with the fused norms and with int8,
+# --sp 2 --tp 2 (dp 2) --fused-norm or --int8 at 2 layers, each against
+# the same flags at --sp 2 alone on ``base`` ranks (dp 2 again, so each
+# rank holds the same rows and, with --int8, draws the same bits).
 MESH_RANKS = 8
 MESH_RUNS = {
     "recipe": dict(tp=2, sp=4, fsdp=1, n_layers=_MODEL["n_layers"]),
     "dp_fsdp": dict(tp=1, sp=2, fsdp=2, n_layers=2),
+    "fused_tp": dict(tp=2, sp=2, fsdp=1, n_layers=2,
+                     flags=["--fused-norm"], base=4),
+    "int8_tp": dict(tp=2, sp=2, fsdp=1, n_layers=2, flags=["--int8"],
+                    base=4),
 }
+# The meshes whose ring calls mesh_collectives holds against their plain
+# versions ((c) has (d)'s axes).
+MESH_CHECKED = ("recipe", "dp_fsdp", "int8_tp")
 MESH_TRAIN_TIMEOUT_S = 600.0
 # (a)'s loss at every step against train_sp's on the same weights and
 # batch: the two differ only in the order of bf16 sums (tp splits the
@@ -3095,11 +3346,17 @@ def rank_check_mesh(name: str, mesh, device) -> dict:
     card tensors at the shapes the path gives it, against the plain
     version on CPU copies of the same inputs over the same group's gloo
     subgroup, bit for bit. The tp all-reduce of an activation [batch /
-    (dp fsdp), seq / sp, d_model] bf16; the fsdp reduce-scatter of the
-    gradient bucket (fsdp rows) and all-gather of the parameter chunk into
-    the flat buffer; the data ring's all-reduce of a bucket row; K12's
-    rotations of the (K, V) shard over the sp ring; and the all-reduce at
-    a ragged size (MESH_RAGGED) over the tp and data rings."""
+    (dp fsdp), seq / sp, d_model] bf16, the vocab-parallel loss's gather
+    of (lse, gold) [2, rows] and all-reduce of grad_h [rows, d_model]
+    fp32; the fsdp reduce-scatter of the gradient bucket (fsdp rows) and
+    all-gather of the parameter chunk into the flat buffer; the data
+    ring's all-reduce of a bucket row; K12's rotations of the (K, V)
+    shard over the sp ring; and the all-reduce at a ragged size
+    (MESH_RAGGED) over the tp and data rings. With --int8, one layer's
+    row-parallel operands (down: x [rows, d_ff / tp], w [d_model, d_ff /
+    tp]) through quantize_split_rows on the card (bs_row_absmax, the K13
+    absmax gather, bs_quantize_scaled), bit for bit against K10 on this
+    rank over the whole rows."""
     cfg = MESH_RUNS[name]
     groups, sizes = mesh.groups, mesh.sizes
     model = tfm.TransformerLM(train_mod.make_transformer_config(
@@ -3122,7 +3379,21 @@ def rank_check_mesh(name: str, mesh, device) -> dict:
         case(f"tp all-reduce {shape} bf16", _against_plain(
             worst, "ring_all_reduce", rc.ring_all_reduce(x, groups["tp"]),
             rc.ring_all_reduce(x.cpu(), groups["tp"])))
-        del x
+        stats = _draw(device, next(seed), mesh.rank, (2, rows * width),
+                      torch.float32)
+        case(f"tp loss gather (2, {rows * width}) fp32", _against_plain(
+            worst, "ring_all_gather", rc.ring_all_gather(stats, groups["tp"]),
+            rc.ring_all_gather(stats.cpu(), groups["tp"])))
+        x = _draw(device, next(seed), mesh.rank,
+                  (rows * width, _MODEL["d_model"]), torch.float32)
+        case(f"tp grad_h all-reduce {tuple(x.shape)} fp32", _against_plain(
+            worst, "ring_all_reduce", rc.ring_all_reduce(x, groups["tp"]),
+            rc.ring_all_reduce(x.cpu(), groups["tp"])))
+        del x, stats
+        if "--int8" in cfg.get("flags", ()):
+            case("int8 row-parallel operands (down) against K10 on the "
+                 "whole rows", rank_check_split_rows(
+                     groups["tp"], rows * width, device))
     if groups["fsdp"] is not None:
         bucket = _draw(device, next(seed), mesh.rank,
                        (sizes["fsdp"] * row,), torch.float32)
@@ -3176,6 +3447,33 @@ def rank_check_mesh(name: str, mesh, device) -> dict:
             "bucket": {"params": n_params, "chunk": chunk, "row": row}}
 
 
+def rank_check_split_rows(group, rows: int, device) -> bool:
+    """One row-parallel product's int8 operands on this tp rank (the down
+    projection: x [rows, d_ff] and w [d_model, d_ff] drawn alike on every
+    rank, each rank's d_ff / tp columns) through
+    quantize_split_rows on the card, against K10 on this rank over the
+    whole rows with the whole bits: x_q, w_q and both scales bit for
+    bit."""
+    k, n = _MODEL["d_ff"], _MODEL["d_model"]
+    x = _draw(device, 70, 0, (rows, k), torch.bfloat16)
+    w = _draw(device, 71, 0, (n, k), torch.bfloat16) / math.sqrt(k)
+    part = k // group.size
+    cols = slice(group.rank * part, (group.rank + 1) * part)
+    xr, wr = x[:, cols].contiguous(), w[:, cols].contiguous()
+    got = quant_ops.quantize_split_rows(
+        xr, quant_ops.shard_bits(0, xr.shape, device, group, 1), wr,
+        quant_ops.shard_bits(1, wr.shape, device, group, 1), group)
+    want_x = quant_ops.quantize_int8_kernel(
+        x, quant_ops.random_bits(0, x.shape, device))
+    want_w = quant_ops.quantize_int8_kernel(
+        w, quant_ops.random_bits(1, w.shape, device))
+    torch.cuda.synchronize()
+    return (torch.equal(got[0], want_x[0][:, cols]) and
+            torch.equal(got[1], want_x[1]) and
+            torch.equal(got[2], want_w[0][:, cols]) and
+            torch.equal(got[3], want_w[1]))
+
+
 def rank_check_mesh_faults(mesh, device) -> dict:
     """The planted-fault build's K12, K13 and K14 on a ring of two (the
     recipe's tp ring, built with that library): each must disagree with
@@ -3199,13 +3497,14 @@ def rank_check_mesh_faults(mesh, device) -> dict:
 
 def mesh_check_main() -> None:
     """One rank of the mesh collectives check (``mesh_collectives``
-    launches MESH_RANKS of them): rank_check_mesh on each MESH_RUNS mesh,
-    then the planted faults on a ring of two. Prints this rank's findings
-    as one JSON line."""
+    launches MESH_RANKS of them): rank_check_mesh on each MESH_CHECKED
+    mesh, then the planted faults on a ring of two. Prints this rank's
+    findings as one JSON line."""
     spec = json.loads(os.environ["CHIP_SMOKE_MESH_CHECK"])
     device = distributed.setup()["device"]
     result = {"rank": torch.distributed.get_rank(), "meshes": {}}
-    for name, cfg in MESH_RUNS.items():
+    for name in MESH_CHECKED:
+        cfg = MESH_RUNS[name]
         mesh = mesh_mod.RankMesh.build(device, tp=cfg["tp"], sp=cfg["sp"],
                                        fsdp=cfg["fsdp"],
                                        timeout_s=RING_TIMEOUT_S)
@@ -3268,25 +3567,42 @@ def mesh_collectives(fault_path) -> dict:
             "seconds": time.perf_counter() - started}
 
 
-def train_mesh_run(name: str, marker_env: dict) -> dict:
+def _loss_ms(profile: dict) -> dict:
+    """A rank's loss ms a step from its profile: K3-K5 on its vocabulary
+    (the backward's pre-pass and dl pass included), and the ring kernels
+    of the vocab-parallel merge (the (lse, gold) gather and the grad_h
+    all-reduce, logged as "tp:loss")."""
+    kernels = sum(profile["kernel_ms_per_step"][key] for key in (
+        "xent_fwd", "xent_bwd_dl", "xent_bwd_h", "xent_bwd_e"))
+    merge = profile.get("ring_ms_per_step_by_axis", {}).get("tp:loss", 0.0)
+    return {"kernels": kernels, "merge": merge, "total": kernels + merge}
+
+
+def train_mesh_run(name: str, marker_env: dict, base: bool = False,
+                   port: Optional[int] = None) -> dict:
     """One MESH_RUNS configuration through the workload's entry point
-    under torch.distributed.run, MESH_RANKS ranks on this card, gated:
-    finite falling losses; every rank's launches exactly
-    mesh_launches_per_step a step, by kernel and by axis, and no plain
-    version; the replicated parameters' digest equal on every rank and
-    each tp shard's on the ranks of its tp index."""
+    under torch.distributed.run, MESH_RANKS ranks on this card (``base``:
+    its comparison, the same flags without tp on its ``base`` ranks, not
+    profiled, its times not read), gated: finite falling losses; every rank's launches
+    exactly mesh_launches_per_step a step, by kernel and by axis, and no
+    plain version; the replicated parameters' digest equal on every rank
+    and each tp shard's on the ranks of its tp index."""
     cfg = MESH_RUNS[name]
-    sizes = mesh_mod.auto_axis_sizes(MESH_RANKS, tp=cfg["tp"], sp=cfg["sp"],
+    flags = cfg.get("flags", [])
+    ranks, tp = (cfg["base"], 1) if base else (MESH_RANKS, cfg["tp"])
+    profile_steps = 0 if base else SP_PROFILE_STEPS
+    sizes = mesh_mod.auto_axis_sizes(ranks, tp=tp, sp=cfg["sp"],
                                      fsdp=cfg["fsdp"])
     cmd = [sys.executable, "-m", "torch.distributed.run",
-           "--nproc-per-node", str(MESH_RANKS), "--master-port",
-           str(distributed.free_port()), "-m",
+           "--nproc-per-node", str(ranks), "--master-port",
+           str(port or distributed.free_port()), "-m",
            "batch_shipyard_tpu_torch.workloads.train_transformer",
-           "--tp", str(cfg["tp"]), "--sp", str(cfg["sp"]), "--fsdp",
+           "--tp", str(tp), "--sp", str(cfg["sp"]), "--fsdp",
            str(cfg["fsdp"]), "--n-layers", str(cfg["n_layers"]),
            "--seq-len", str(SP_SEQ), "--batch", str(SP_BATCH), "--warmup",
            str(SP_WARMUP), "--steps", str(SP_STEPS), "--profile-steps",
-           str(SP_PROFILE_STEPS)]
+           str(profile_steps), *flags]
+    label = f"{name}{' base' if base else ''}"
     started = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=MESH_TRAIN_TIMEOUT_S,
@@ -3294,28 +3610,31 @@ def train_mesh_run(name: str, marker_env: dict) -> dict:
                           cwd=pathlib.Path(__file__).resolve().parent)
     seconds = time.perf_counter() - started
     lines = proc.stdout.strip().splitlines()
+    first = proc.stderr.find("Traceback")
     require(proc.returncode == 0 and len(lines) >= 2,
-            f"train mesh {name}: rc {proc.returncode}: "
-            f"{proc.stderr[-4000:]}")
+            f"train mesh {label}: rc {proc.returncode}: first error "
+            f"{proc.stderr[first:first + 3000] if first >= 0 else ''} ... "
+            f"{proc.stderr[-2000:]}")
     print(lines[-2], flush=True)
     report = json.loads(lines[-1])
-    require(report["mesh"] == sizes, f"train mesh {name}: {report['mesh']}")
+    require(report["mesh"] == sizes, f"train mesh {label}: {report['mesh']}")
     losses = report["losses"]
     require(all(math.isfinite(x) for x in losses),
-            f"train mesh {name}: non-finite loss {losses}")
+            f"train mesh {label}: non-finite loss {losses}")
     require(losses[-1] < losses[0],
-            f"train mesh {name}: loss did not fall {losses}")
+            f"train mesh {label}: loss did not fall {losses}")
     steps = SP_WARMUP + SP_STEPS
     for r in report["per_rank"]:
-        want = mesh_launches_per_step(r["rank"], sizes, cfg["n_layers"])
+        want = mesh_launches_per_step(r["rank"], sizes, cfg["n_layers"],
+                                      flags)
         require(r["launches"] == {k: n * steps for k, n in want.items()},
-                f"train mesh {name} rank {r['rank']}: launches "
+                f"train mesh {label} rank {r['rank']}: launches "
                 f"{r['launches']} in {steps} steps, want {want} a step")
         require(not r["plain_calls"],
-                f"train mesh {name} rank {r['rank']}: plain versions ran "
+                f"train mesh {label} rank {r['rank']}: plain versions ran "
                 f"{r['plain_calls']}")
         require(r["coords"] == mesh_mod.RankMesh(sizes, r["rank"]).coords,
-                f"train mesh {name} rank {r['rank']}: coords {r['coords']}")
+                f"train mesh {label} rank {r['rank']}: coords {r['coords']}")
     digests = {(kind, r["coords"]["tp"] if kind == "tp_shard" else 0):
                set() for r in report["per_rank"]
                for kind in r["params_sha256"]}
@@ -3324,15 +3643,14 @@ def train_mesh_run(name: str, marker_env: dict) -> dict:
             digests[kind, r["coords"]["tp"] if kind == "tp_shard" else 0
                     ].add(digest)
     require(all(len(d) == 1 for d in digests.values()),
-            f"train mesh {name}: parameters that must match differ "
+            f"train mesh {label}: parameters that must match differ "
             f"{digests}")
-    profile = [r["profile"] for r in report["per_rank"]]
-    return {
+    row = {
         "config": (f"bench_transformer widths, {cfg['n_layers']} layers, "
-                   f"--seq-len {SP_SEQ} --tp {cfg['tp']} --sp {cfg['sp']} "
-                   f"--fsdp {cfg['fsdp']} (mesh {sizes}), batch {SP_BATCH}, "
-                   f"remat, fused loss"),
-        "ranks": f"{MESH_RANKS} ranks time-sliced on one card",
+                   f"--seq-len {SP_SEQ} --tp {tp} --sp {cfg['sp']} "
+                   f"--fsdp {cfg['fsdp']} {' '.join(flags)} (mesh {sizes}), "
+                   f"batch {SP_BATCH}, remat, fused loss"),
+        "ranks": f"{ranks} ranks time-sliced on one card",
         "steps": steps, "timed_steps": SP_STEPS,
         "tokens_per_s": report["tokens_per_sec"],
         "ms_per_step": report["ms_per_step"], "losses": losses,
@@ -3341,22 +3659,29 @@ def train_mesh_run(name: str, marker_env: dict) -> dict:
         "launches_per_step": {r["rank"]: r["launches_per_step"]
                               for r in report["per_rank"]},
         "peak_mem_gb": [r["peak_mem_gb"] for r in report["per_rank"]],
-        "ring_ms_per_step_by_axis": [p["ring_ms_per_step_by_axis"]
-                                     for p in profile],
-        "ring_wait_ms_per_step_by_group": [
-            p["ring_wait_ms_per_step_by_group"] for p in profile],
-        "device_idle_share": [p["device_idle_share"] for p in profile],
         "params_sha256": report["per_rank"][0]["params_sha256"],
-        "profile": profile, "phase_s": seconds,
+        "phase_s": seconds,
     }
+    if not base:
+        profile = [r["profile"] for r in report["per_rank"]]
+        row.update({
+            "ring_ms_per_step_by_axis": [p["ring_ms_per_step_by_axis"]
+                                         for p in profile],
+            "ring_wait_ms_per_step_by_group": [
+                p["ring_wait_ms_per_step_by_group"] for p in profile],
+            "device_idle_share": [p["device_idle_share"] for p in profile],
+            "loss_ms_per_step": [_loss_ms(p) for p in profile],
+            "profile": profile})
+    return row
 
 
 def train_mesh(device, marker_env: dict, sp_losses: list,
                fault_path) -> dict:
     """Phase 5b: the mesh paths' ring calls against their plain versions
-    (mesh_collectives), the two MESH_RUNS through the workload, (a)'s
-    losses within MESH_LOSS_RTOL of train_sp's step by step, then the
-    killed-rank check."""
+    (mesh_collectives), the MESH_RUNS through the workload, (a)'s
+    losses within MESH_LOSS_RTOL of train_sp's step by step, (c)'s and
+    (d)'s within it of their tp-less comparisons', then the killed-rank
+    check."""
     started = time.perf_counter()
     rows = {"collectives": mesh_collectives(fault_path)}
     for name in MESH_RUNS:
@@ -3364,11 +3689,39 @@ def train_mesh(device, marker_env: dict, sp_losses: list,
         print(f"train mesh {name} ({row['config']}; {row['ranks']}): "
               f"{row['tokens_per_s']:.0f} tokens/s of the global batch, "
               f"{row['ms_per_step']:.1f} ms/step, peak GB per rank "
-              f"{row['peak_mem_gb']}, ring kernels' ms a step by axis per "
-              f"rank {row['ring_ms_per_step_by_axis']}, ring wait ms a step "
-              f"by group per rank {row['ring_wait_ms_per_step_by_group']}, "
+              f"{row['peak_mem_gb']}, loss ms a step per rank (kernels + "
+              f"merge) {row['loss_ms_per_step']}, ring kernels' ms a step "
+              f"by axis per rank {row['ring_ms_per_step_by_axis']}, ring "
+              f"wait ms a step by group per rank "
+              f"{row['ring_wait_ms_per_step_by_group']}, "
               f"{row['phase_s']:.1f} s", flush=True)
         print(f"train mesh {name} " + json.dumps(row), flush=True)
+    # The tp-less comparisons run side by side (four ranks each): only
+    # their losses and memory are read, not their times.
+    based = [name for name, cfg in MESH_RUNS.items() if "base" in cfg]
+    ports = set()
+    while len(ports) < len(based):
+        ports.add(distributed.free_port())
+    with concurrent.futures.ThreadPoolExecutor(len(based)) as pool:
+        bases = dict(zip(based, pool.map(
+            lambda run: train_mesh_run(run[0], marker_env, base=True,
+                                       port=run[1]),
+            zip(based, sorted(ports)))))
+    for name, base in bases.items():
+        row = rows[name]
+        row["base"] = base
+        off = [abs(a - b) / abs(b)
+               for a, b in zip(row["losses"], base["losses"])]
+        row["loss_rel_vs_base"] = off
+        print(f"check mesh {name} vs {base['config']}: losses "
+              f"{row['losses']} vs {base['losses']}, relative {off} (limit "
+              f"{MESH_LOSS_RTOL}); base peak GB per rank "
+              f"{base['peak_mem_gb']}, {base['phase_s']:.1f} s side by "
+              f"side", flush=True)
+        require(len(off) == len(base["losses"]) and
+                all(x <= MESH_LOSS_RTOL for x in off),
+                f"train mesh {name}: losses {row['losses']} off the tp-less "
+                f"run's {base['losses']} by {off}")
     recipe = rows["recipe"]["losses"]
     off = [abs(a - b) / abs(b) for a, b in zip(recipe, sp_losses)]
     print(f"check mesh recipe vs train sp losses: {recipe} vs {sp_losses}, "
@@ -4055,6 +4408,7 @@ def main() -> int:
     loss_readings = check_loss(device, fault_libs["chunked_loss"])
     norm_readings = check_norm(device, fault_libs["fused_norm"])
     quant_readings = check_quant(device, fault_libs["quantization"])
+    split_readings = check_quant_split(device, fault_libs["quantization"])
     reset_launch_counts()
     virtual_readings = check_virtual(
         device, fault_libs["ring_collectives"],
@@ -4067,6 +4421,7 @@ def main() -> int:
     timing.update(time_loss(device, loss_readings))
     timing.update(time_norm(device, norm_readings))
     timing.update(time_quant(device, quant_readings))
+    timing.update(time_quant_split(device, split_readings))
     for key, usage in resources.items():
         timing[key]["resources"] = usage
 
@@ -4138,6 +4493,13 @@ def main() -> int:
             for name in MESH_RUNS:
                 row[f"launches_mesh_{name}_rank0"] = \
                     meshed[name]["launches_rank0"].get(key, 0)
+        elif key in TP_ONLY_KEYS:
+            # K10's halves run only where a row is split over tp ranks:
+            # rank 0's launches over the int8 tp mesh run's counted steps.
+            run = meshed["int8_tp"]
+            row["launches"] = run["launches_rank0"][key]
+            row["launches_per_train_step"] = run["launches_per_step"][0][key]
+            row["launches_phase"] = "train mesh (d) --sp 2 --tp 2 --int8"
         elif key in virtual_launches:
             # K15/K16 run on no training or serving path: their launches
             # in their own check and timing phase.
@@ -4175,7 +4537,7 @@ def main() -> int:
                                       "bound_nvlink_ms",
                                       "ms_per_rank", "note", "joint",
                                       "max_abs_err_mesh", "tflops",
-                                      "ceiling_ms",
+                                      "ceiling_ms", "k10_same_rows_ms",
                                       "fwd_bwd_ms", "library_fwd_bwd_ms",
                                       "served_lengths", "resources")
                     if k in t})

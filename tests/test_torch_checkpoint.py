@@ -819,8 +819,24 @@ def test_reference_state_carried_across_mid_run():
 @pytest.mark.parametrize("extra,match", [({"tp": 2}, "with --tp"),
                                          ({"int8": True}, "not --int8")])
 def test_fused_norm_flag_refuses_what_the_model_refuses(extra, match):
+    """--fused-norm with --int8 is refused by the workload as by the
+    model; --fused-norm with --tp is taken by both (the head-wise
+    regrouped fused kernels), as in the reference."""
     args = types.SimpleNamespace(**dict(
         dict(tp=1, sp=1, fsdp=1, seq_len=16, batch=2, n_heads=2, d_ff=32,
-             int8=False, fused_norm=True), **extra))
-    with pytest.raises(SystemExit, match=match):
+             vocab=64, int8=False, fused_norm=True), **extra))
+
+    class Ring:
+        size = args.tp
+    config = tfm.TransformerConfig(
+        vocab_size=args.vocab, d_model=32, n_heads=args.n_heads, d_head=16,
+        d_ff=args.d_ff, fused_norm=True, quantize_matmuls=args.int8,
+        tp_group=Ring() if args.tp > 1 else None)
+    if args.int8:
+        with pytest.raises(SystemExit, match=match):
+            train_transformer.check_mesh_sizes(args, args.tp)
+        with pytest.raises(NotImplementedError, match="fused_norm"):
+            tfm.TransformerLM(config, device="meta")
+    else:
         train_transformer.check_mesh_sizes(args, args.tp)
+        tfm.TransformerLM(config, device="meta")

@@ -184,10 +184,15 @@ def test_sharding_rules_are_the_references():
                     if re.match(r[0], name))
         assert rule[1] == spec, (path, rule, spec)
         dim = tsharding.tp_dim(name)
-        if "tp" in spec and dim is not None:
-            # flax [in, out] -> torch [out, in]: the transpose's dim.
-            assert dim == 1 - spec.index("tp"), path
-    assert tsharding.tp_dim("embed.embedding") is None  # replicated here
+        assert (dim is None) == ("tp" not in spec), path
+        if dim is not None:
+            # flax [in, out] -> torch [out, in]: the transpose's dim; the
+            # embedding's [vocab, d] is not transposed.
+            assert dim == (spec.index("tp") if name.endswith("embedding")
+                           else 1 - spec.index("tp")), path
+    assert tsharding.tp_dim("embed.embedding") == 0  # vocab-parallel
+    # The fused kernels keep flax's [in, out] layout: tp splits dim 1.
+    assert tsharding.tp_dim("layer_0.attn.qkv_kernel") == 1
 
 
 # ----------------------------- clear errors --------------------------------
@@ -206,20 +211,46 @@ def test_tp_refuses_indivisible_model(field, value, match):
 
 @pytest.mark.parametrize("flag", ["fused_norm", "quantize_matmuls", "decode"])
 def test_tp_refuses_fused_int8_and_decode(flag):
-    match = "tp_group is a training-path" if flag == "decode" else \
-        "ROADMAP queue 1: fused_norm and int8 under tp"
-    with pytest.raises(NotImplementedError, match=match):
-        ttfm.TransformerLM(ttfm.TransformerConfig(
-            tp_group=_Ring(2), **{flag: True}, **MODEL), device="meta")
+    """Under tp the decode path is refused; fused_norm and
+    quantize_matmuls build, each rank with its local heads, ff units and
+    vocabulary rows (a QuantDense told which side tp splits)."""
+    cfg = ttfm.TransformerConfig(tp_group=_Ring(2), **{flag: True}, **MODEL)
+    if flag == "decode":
+        with pytest.raises(NotImplementedError,
+                           match="tp_group is a training-path"):
+            ttfm.TransformerLM(cfg, device="meta")
+        return
+    model = ttfm.TransformerLM(cfg, device="meta")
+    assert model.embed.embedding.shape == (MODEL["vocab_size"] // 2,
+                                           MODEL["d_model"])
+    block = model.layer_0
+    if flag == "fused_norm":
+        features = MODEL["n_heads"] * MODEL["d_head"] // 2
+        assert block.attn.qkv_kernel.shape == (MODEL["d_model"],
+                                               3 * features)
+        assert block.mlp.gate_up_kernel.shape == (MODEL["d_model"],
+                                                  MODEL["d_ff"])
+    else:
+        assert isinstance(block.attn.q_proj, ttfm.QuantDense)
+        assert (block.attn.q_proj.split, block.attn.o_proj.split,
+                block.mlp.down_proj.split) == ("column", "row", "row")
 
 
 def test_shard_state_dict_refuses_fused_kernels():
+    """A fused state dict shards over tp (the head-wise regroup) and
+    gathers back bit for bit; a fused width tp cannot split per part is
+    refused."""
     cfg = ttfm.TransformerConfig(fused_norm=True, d_model=128, **{
         k: v for k, v in MODEL.items() if k != "d_model"})
     state = convert.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="head-wise regrouping"):
-        tsharding.shard_state_dict(state, tmesh.RankMesh(_sizes({"tp": 2}),
-                                                         0))
+    shards = [tsharding.shard_state_dict(
+        state, tmesh.RankMesh(_sizes({"tp": 2}), r)) for r in range(2)]
+    full = tsharding.gather_state_dict(shards)
+    assert all(torch.equal(full[n], t) for n, t in state.items())
+    odd = dict(state, **{"layer_0.mlp.gate_up_kernel":
+                         torch.zeros(128, 2 * 65)})
+    with pytest.raises(ValueError, match="not divisible by tp=2"):
+        tsharding.shard_state_dict(odd, tmesh.RankMesh(_sizes({"tp": 2}), 0))
 
 
 @pytest.mark.parametrize("flags,world,match", [
@@ -232,11 +263,13 @@ def test_shard_state_dict_refuses_fused_kernels():
      "--n-heads 3 is not divisible by --tp = 2"),
     (["--tp", "4", "--d-ff", "66"], 4, "--d-ff 66 is not divisible by "
                                        "--tp = 4"),
-    (["--tp", "2", "--int8"], 2, "ROADMAP queue 1: fused_norm and int8"),
+    (["--tp", "2", "--vocab", "33"], 2, "--vocab 33 is not divisible by "
+                                        "--tp = 2"),
 ])
 def test_workload_refuses_sizes_it_cannot_split(flags, world, match):
     args = argparse.Namespace(tp=1, sp=1, fsdp=1, seq_len=16, batch=8,
-                              n_heads=4, d_ff=64, int8=False)
+                              n_heads=4, d_ff=64, vocab=64, int8=False,
+                              fused_norm=False)
     it = iter(flags)
     for flag in it:
         setattr(args, flag[2:].replace("-", "_"),
@@ -614,17 +647,20 @@ def test_replicated_weights_stay_bit_identical(mesh_runs, name):
 def test_ring_calls_per_step(mesh_runs, name):
     """Each step's ring calls on every rank (CPU tensors: the plain
     versions; no kernel launches): per layer, two tp all-reduces forward
-    (g) and two backward (f), sp - 1 rotations forward and backward;
-    then the fsdp reduce-scatter and all-gather and the data all-reduce
-    where those rings have more than one rank."""
+    (g) and two backward (f), sp - 1 rotations forward and backward; with
+    tp, the embedding's all-reduce (g), the vocab-parallel loss's gather
+    of (lse, gold) and its all-reduce of grad_h; then the fsdp
+    reduce-scatter and all-gather and the data all-reduce where those
+    rings have more than one rank."""
     sizes = _sizes(MESHES[name])
     layers = MODEL["n_layers"]
-    tp = 4 * layers if sizes["tp"] > 1 else 0
+    tp = 4 * layers + 2 if sizes["tp"] > 1 else 0
+    loss_gather = int(sizes["tp"] > 1)
     data = int(sizes["dp"] * sizes["sp"] > 1)
     fsdp = int(sizes["fsdp"] > 1)
     want = {"ring_permute": 2 * (sizes["sp"] - 1) * layers,
             "ring_reduce_scatter": tp + data + fsdp,
-            "ring_all_gather": tp + data + fsdp,
+            "ring_all_gather": tp + loss_gather + data + fsdp,
             "virtual_all_gather": 0, "virtual_reduce_scatter": 0}
     for rank in mesh_runs["ranks"]:
         assert rank[name]["calls"] == [want] * STEPS
@@ -653,7 +689,9 @@ def test_train_cli_mesh_on_cpu():
     assert lines[-2].startswith(f"[proc 0/8] transformer: mesh={sizes}")
     report = json.loads(lines[-1])
     assert report["mesh"] == sizes and np.isfinite(report["loss"])
-    per_step = 3 * (6 * 2 + 1 + 1)  # 3 steps: tp (remat), data, fsdp
+    # 3 steps: tp (remat; the embedding, the loss's grad_h and gather),
+    # data, fsdp.
+    per_step = 3 * (6 * 2 + 3 + 1 + 1)
     for rank, r in enumerate(report["per_rank"]):
         assert r["coords"] == tmesh.RankMesh(sizes, rank).coords
         assert not r["launches"] and not r["launches_per_step"]

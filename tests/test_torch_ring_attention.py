@@ -183,6 +183,32 @@ def test_masked_rotations_without_cotangents_would_part_the_ranks(
     assert counts[0][1] < counts[3][1], counts  # rank 0 would hang rank 3
 
 
+def test_fused_norm_rotates_contiguous_pairs(monkeypatch):
+    """With fused_norm, v is a strided view of the [q | k | v]
+    projection; K12 takes contiguous buffers only (its wrapper raises on
+    a strided one), so every pair ring attention rotates, forward and
+    backward, must be contiguous."""
+    seen = []
+
+    def permute(k, v, group, shift=1, impl=None):
+        seen.append(k.is_contiguous() and v.is_contiguous())
+        return k.clone(), v.clone()
+    monkeypatch.setattr(trc, "ring_permute", permute)
+    sp, width = 2, 16
+    cfg = ttfm.TransformerConfig(
+        vocab_size=64, d_model=128, n_layers=1, n_heads=2, d_head=64,
+        d_ff=64, dtype=torch.float32, fused_norm=True,
+        attention_fn=functools.partial(tring.ring_attention,
+                                       group=_Ring(1, sp), impl="flash"))
+    model = ttfm.TransformerLM(cfg)
+    model.load_state_dict(convert.init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    model(torch.arange(width)[None] % 64,
+          positions=torch.arange(width, 2 * width),
+          return_hidden=True).sum().backward()
+    assert seen and all(seen), seen
+
+
 # A rank of the four-process check: ring_attention on this rank's
 # shards, for each (tier, causal); outputs and gradients saved.
 WORKER = r"""

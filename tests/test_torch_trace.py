@@ -10,9 +10,10 @@ import pytest
 
 from batch_shipyard_tpu.trace import histogram as jhist
 from batch_shipyard_tpu_torch.trace import (decode_sweep, int8_matmul_sweep,
-                                            serve_compare)
+                                            profiler_window, serve_compare)
 from batch_shipyard_tpu_torch.trace import histogram as thist
-from batch_shipyard_tpu_torch.trace.decode_profile import busy_us
+from batch_shipyard_tpu_torch.trace.decode_profile import (
+    PROFILER_WARMUP_STEPS, WINDOW, busy_us, window_kernels)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -37,9 +38,33 @@ def test_busy_us_is_the_union_of_intervals():
     assert busy_us([(4.0, 5.0), (0.0, 1.0)]) == pytest.approx(2.0)
 
 
+def test_window_kernels_leave_out_the_profilers_warmup():
+    """The profile readings count the device kernels that start inside
+    the host's window range, not the warm-up steps' kernels before it
+    nor the range's own device annotation."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def event(name, device, start):
+        return SimpleNamespace(name=name, device_type=device,
+                               time_range=SimpleNamespace(start=start,
+                                                          end=start + 1))
+
+    events = [event("warmup_kernel", DeviceType.CUDA, 1.0),
+              event(WINDOW, DeviceType.CPU, 10.0),
+              event(WINDOW, DeviceType.CUDA, 10.5),
+              event("aten::mm", DeviceType.CPU, 11.0),
+              event("kernel_a", DeviceType.CUDA, 12.0),
+              event("kernel_b", DeviceType.CUDA, 10.0)]
+    assert [e.name for e in window_kernels(events)] == ["kernel_a",
+                                                       "kernel_b"]
+    assert PROFILER_WARMUP_STEPS >= 1
+
+
 @pytest.mark.parametrize("script, argv", [
     (decode_sweep, []), (decode_sweep, ["--dense-variant", "2x128"]),
-    (int8_matmul_sweep, []), (serve_compare, ["."]),
+    (int8_matmul_sweep, []), (profiler_window, []), (serve_compare, ["."]),
     (serve_compare, ["--phase", "train_int8", "."])])
 def test_card_only_scripts_refuse_without_cuda(monkeypatch, capsys,
                                                script, argv):
