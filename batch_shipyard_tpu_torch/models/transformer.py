@@ -63,6 +63,15 @@ forward again, so every tp rank makes the same ring calls. Under tp:
 Parameters live in ``param_dtype`` and are cast to ``dtype`` at use, as
 flax's Dense/Embed do; ``TransformerLM.cast_dense_weights_`` makes that
 cast once for serving.
+
+Parameters held elsewhere (``forward(params=...)``): under fsdp the
+module's own parameters carry only names and shapes (on ``meta``), and
+parallel/train.py passes a function that gives a unit's parameters
+(``embed``: the embedding and the final norm; ``layer_{i}``) by
+state-dict name, gathered over the fsdp ring. The model runs each part
+on them through ``torch.func.functional_call``; a layer's are asked for
+inside the function that remat recomputes, so the recompute gathers them
+again and no gathered layer is saved for the backward.
 """
 
 from __future__ import annotations
@@ -606,14 +615,16 @@ class TransformerLM(nn.Module):
         return self
 
     def forward(self, tokens, positions=None, cache=None,
-                return_hidden: bool = False):
+                return_hidden: bool = False, params=None):
         """tokens [B, T] int -> logits [B, T, vocab] in ``dtype`` (or the
         final hidden states [B, T, d_model] with return_hidden).
         positions: [T] or [B, T] absolute positions (default 0..T-1).
         Without a cache (and ``decode=False``) this is the training
         forward: causal attention over the whole sequence. In decode
         mode, cache is inference.init_cache's per-layer list, updated
-        in place."""
+        in place. ``params``: a unit name (``embed``, ``layer_{i}``) ->
+        that unit's parameters by state-dict name, in place of the
+        module's own (the training forward; the module doc)."""
         cfg = self.config
         if cfg.decode and cache is None:
             raise ValueError("decode mode needs a cache "
@@ -621,30 +632,54 @@ class TransformerLM(nn.Module):
         if cache is not None and not cfg.decode:
             raise ValueError("a cache needs decode=True "
                              "(inference.decode_config)")
-        x = self.embed(tokens)
+        if params is not None:
+            if cache is not None:
+                raise ValueError("params= is for the training forward")
+            head = params("embed")
+            x = _call(self.embed, "embed.", head, tokens)
+        else:
+            x = self.embed(tokens)
         if positions is None:
             positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                      device=tokens.device)
         if cache is None:
             remat = cfg.remat and torch.is_grad_enabled()
-            for block in self.blocks():
+            for i, block in enumerate(self.blocks()):
+                run = block if params is None else functools.partial(
+                    _gathered_block, block, f"layer_{i}", params)
                 if remat:
                     # Early stop off: the recompute runs the whole block,
                     # so a ring attention_fn rotates as often on every
                     # rank (ops/ring_attention.py), whichever saved
-                    # tensors that rank needs.
+                    # tensors that rank needs, and the block's parameters
+                    # are gathered again.
                     with set_checkpoint_early_stop(False):
-                        x = checkpoint(block, x, positions,
+                        x = checkpoint(run, x, positions,
                                        use_reentrant=False)
                 else:
-                    x = block(x, positions)
+                    x = run(x, positions)
         else:
             for block, layer_cache in zip(self.blocks(), cache):
                 x = block(x, positions, layer_cache)
-        x = self.final_norm(x)
+        x = (self.final_norm(x) if params is None else
+             _call(self.final_norm, "final_norm.", head, x))
         if return_hidden:
             return x
         return self.embed.attend(x.float())
+
+
+def _call(module: nn.Module, prefix: str, params, *args):
+    """``module(*args)`` on ``params`` (tensors by state-dict name) where
+    the names under ``prefix`` replace the module's parameters."""
+    own = {name[len(prefix):]: t for name, t in params.items()
+           if name.startswith(prefix)}
+    return torch.func.functional_call(module, own, args, strict=True)
+
+
+def _gathered_block(block: Block, unit: str, params, x, positions):
+    """One block on its unit's parameters, asked of ``params`` here (so
+    inside remat's recompute as well)."""
+    return _call(block, unit + ".", params(unit), x, positions)
 
 
 def lm_loss(logits, targets, ignore_id: int = -1):

@@ -30,9 +30,10 @@ element summed once, in ring order, by the member that owns its chunk,
 then copied to every member, so the result is bit-identical on every
 member), which the Megatron operators (``tp_region_input``: f,
 ``tp_region_output``: g; models/transformer.py and the vocab-parallel
-loss) run over the tp ring and parallel/train.py over the data ring;
-with fsdp, the gradient bucket's K14 and the parameters' K13 run over
-the fsdp ring.
+loss) run over the tp ring and parallel/train.py over the data ring.
+Over the fsdp ring, ``fsdp_gather`` is the parameter gather of one fsdp
+unit as an autograd Function: K13 of this rank's chunk into the unit's
+flat, and in the backward K14 of the unit's gradient back to the chunk.
 
 K12-K14 are plans. ``permute_plan``, ``all_gather_plan`` and
 ``reduce_scatter_plan`` list a call's stream operations in order:
@@ -572,6 +573,19 @@ def _gather_out(x: torch.Tensor, ring: int, out) -> torch.Tensor:
     return out
 
 
+def _scatter_out(x: torch.Tensor, ring: int, out) -> torch.Tensor:
+    """K14's output: ``out`` (checked) or a new [c, ...]."""
+    shape = (x.shape[0] // ring,) + x.shape[1:]
+    if out is None:
+        return x.new_empty(shape)
+    if (tuple(out.shape) != shape or out.dtype != x.dtype or
+            out.device != x.device or not out.is_contiguous()):
+        raise ValueError(f"reduce-scatter out {tuple(out.shape)} {out.dtype} "
+                         f"on {out.device}: want a contiguous {shape} "
+                         f"{x.dtype} on {x.device}")
+    return out
+
+
 def ring_all_gather_reference(x: torch.Tensor, group,
                               out: torch.Tensor = None) -> torch.Tensor:
     """Plain version of K13: the ring schedule over gloo. Step t forwards
@@ -595,11 +609,12 @@ def ring_all_gather_reference(x: torch.Tensor, group,
     return out
 
 
-def ring_reduce_scatter_reference(x: torch.Tensor, group) -> torch.Tensor:
+def ring_reduce_scatter_reference(x: torch.Tensor, group,
+                                  out: torch.Tensor = None) -> torch.Tensor:
     """Plain version of K14: each step sends the partial to the right and
     adds this rank's part of the chunk rs_chunk_index names to the partial
     that arrived from the left (fp32 sum rounded to x's type, K14's order
-    of additions)."""
+    of additions). ``out``: the [c, ...] tensor to fill."""
     _check_plain("ring_reduce_scatter", x)
     plain_calls["ring_reduce_scatter"] += 1
     ring, me = group.size, group.rank
@@ -617,7 +632,10 @@ def ring_reduce_scatter_reference(x: torch.Tensor, group) -> torch.Tensor:
             req.wait()
         local = part(rs_chunk_index(me, step, ring))
         cur = (arrived.float() + local.float()).to(x.dtype)
-    return cur
+    if out is None:
+        return cur
+    _scatter_out(x, ring, out).copy_(cur)
+    return out
 
 
 def ring_permute_kernel(k: torch.Tensor, v: torch.Tensor, group,
@@ -677,9 +695,10 @@ def ring_all_gather_kernel(x: torch.Tensor, group, library=None,
     return out
 
 
-def ring_reduce_scatter_kernel(x: torch.Tensor, group,
-                               library=None) -> torch.Tensor:
-    """K14 on the card: x [ring * c, ...] (fp32 or bf16) -> [c, ...]."""
+def ring_reduce_scatter_kernel(x: torch.Tensor, group, library=None,
+                               out: torch.Tensor = None) -> torch.Tensor:
+    """K14 on the card: x [ring * c, ...] (fp32 or bf16) -> [c, ...], into
+    ``out`` if given."""
     _check_cuda("x", x, group)
     if x.dtype not in DTYPE_CODES:
         raise ValueError(f"dtype {x.dtype} not in {tuple(DTYPE_CODES)}")
@@ -691,7 +710,7 @@ def ring_reduce_scatter_kernel(x: torch.Tensor, group,
     chunk = x.numel() // ring
     nbytes = chunk * x.element_size()
     buf = group.buffer("reduce_scatter", nbytes)
-    out = x.new_empty((x.shape[0] // ring,) + x.shape[1:])
+    out = _scatter_out(x, ring, out)
     unit = 16 if _vector(chunk, x.dtype, x, out) else x.element_size()
 
     def ends(end, slot):
@@ -731,20 +750,22 @@ def ring_all_gather(x: torch.Tensor, group,
     return ring_all_gather_reference(x, group, out)
 
 
-def ring_reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+def ring_reduce_scatter(x: torch.Tensor, group,
+                        out: torch.Tensor = None) -> torch.Tensor:
     """[ring * c, ...] from every rank -> the sum over ranks of chunk
-    ``group.rank``: K14 for a CUDA tensor, its plain version for a CPU
-    tensor."""
+    ``group.rank`` (into ``out`` if given): K14 for a CUDA tensor, its
+    plain version for a CPU tensor."""
     if x.is_cuda:
-        return ring_reduce_scatter_kernel(x, group)
-    return ring_reduce_scatter_reference(x, group)
+        return ring_reduce_scatter_kernel(x, group, out=out)
+    return ring_reduce_scatter_reference(x, group, out)
 
 
 def all_reduce_lanes(n: int, dtype: torch.dtype, ring: int) -> int:
     """``ring_all_reduce``'s padded length: n elements rounded up to ring
-    chunks of whole 16-byte lanes of ``dtype`` (K14's vector adds)."""
+    chunks of whole 16-byte lanes of ``dtype`` (K14's vector adds), at
+    least one lane a member (so an empty x still makes the call)."""
     lane = 16 // torch.empty((), dtype=dtype).element_size()
-    return _round_up(n, lane * ring)
+    return _round_up(max(n, 1), lane * ring)
 
 
 def ring_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -795,6 +816,41 @@ def ring_permute_pair(k, v, group, impl=None):
     if group.size == 1:
         return k, v
     return _RingPermute.apply(k, v, group, impl)
+
+
+# ------------------ the parameter gather over the fsdp ring ----------------
+
+
+class _FsdpGather(torch.autograd.Function):
+    """Forward: this rank's chunk of an fsdp unit -> the unit's flat over
+    the fsdp ring (K13; a ring of one: the chunk itself). Backward: the
+    unit's gradient reduce-scattered (K14) into ``sink``, this rank's
+    chunk of the gradient buffer, in place of a gradient for the chunk."""
+
+    @staticmethod
+    def forward(ctx, chunk, group, sink):
+        ctx.group, ctx.sink = group, sink
+        if group is None:
+            return chunk.view_as(chunk)
+        return ring_all_gather(chunk.detach(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.group is None:
+            ctx.sink.copy_(grad)
+        else:
+            ring_reduce_scatter(grad.contiguous(), ctx.group, out=ctx.sink)
+        return None, None, None
+
+
+def fsdp_gather(chunk: torch.Tensor, group, sink: torch.Tensor
+                ) -> torch.Tensor:
+    """The flat of an fsdp unit from this rank's ``chunk`` (a leaf that
+    requires grad) over the fsdp ``group`` (None: fsdp = 1), for a
+    forward; the backward writes this rank's chunk of the unit's summed
+    gradient into ``sink`` (the chunk's shape) and gives the chunk no
+    .grad. Every member must gather the same units in the same order."""
+    return _FsdpGather.apply(chunk, group, sink)
 
 
 # ------------------ Megatron's f and g over the tp ring -------------------

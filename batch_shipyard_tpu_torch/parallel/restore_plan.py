@@ -4,8 +4,8 @@ need, and which slice of each?
 Counterpart of batch_shipyard_tpu/parallel/restore_plan.py: the same
 even-split math (``shard_ranges``, ``host_reads``, ``plan``,
 ``read_fraction``), plus ``range_reads`` for the ragged ranges the port
-saves (parallel/sharding.py: an fsdp chunk of the flat parameter bucket
-ends where the bucket does, so the last chunk is shorter). A resized
+saves (parallel/sharding.py: a rank's chunk of an fsdp unit covers
+ranges of the unit's tensors that start and end anywhere). A resized
 gang reads, on each rank, only the parts of the saved pieces that
 overlap the range it holds.
 """

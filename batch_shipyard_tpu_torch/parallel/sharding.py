@@ -27,10 +27,15 @@ What the port does differently:
   contiguous block of columns, which it may cut anywhere since XLA
   keeps the global view). ``take_shard`` and ``join_shards`` are the
   regroup and its inverse, for every tensor;
-- fsdp does not shard parameters tensor by tensor: parallel/train.py
-  holds the fp32 parameters and AdamW state of 1/fsdp of one flat bucket
-  on each rank and gathers the parameters after each update (ROADMAP
-  queue 1).
+- fsdp shards every parameter, as the reference's specs do, but by
+  unit and not tensor by tensor: ``fsdp_units`` groups a model's
+  parameters into units (the embedding and the final norm joined, then
+  each ``layer_{i}``), lays each unit out flat, tensor after tensor at
+  whole 16-byte lanes, and pads it to whole lanes times fsdp, so fsdp
+  rank i holds elements [i c, (i + 1) c) of it (``Unit.span``).
+  parallel/train.py gathers a unit over the fsdp ring (K13) where the
+  reference's XLA gathers its tensors, and reduce-scatters the unit's
+  gradient (K14).
 MoE's rules arrive with MoE.
 
 Checkpoints (the restore side; workloads/checkpoint.py writes and reads
@@ -38,20 +43,23 @@ the files). A rank's share of the global training state is a set of
 ``Piece``s: flat ranges of one tensor's tp shard, recorded against the
 shard and not the global tensor (a flat range of an o/down shard, split
 on dim 1, is strided in the global tensor). A rank holds
-(``held_pieces``) its whole tp shard of every parameter and, of
-``exp_avg`` and ``exp_avg_sq``, the ranges of its fsdp chunk of the
-flat bucket (parallel/train.py). Tensors that tp does not split are
-recorded whole (tp_count 1). ``written_pieces``: only ranks with dp,
-ep and sp index 0 write; the parameters come from fsdp index 0, the
-unsplit tensors from tp index 0, so nothing is written twice. On
-restore (``restore_plan_for``) a rank whose tp matches the save reads
-only the parts of the saved pieces that overlap what it holds
-(restore_plan.range_reads: 1/M of the optimizer state after an fsdp
-resize to M); with another tp it reads every piece of each split
-tensor, builds the global tensor on the host and cuts its new shard
-from it (``assemble``, through ``join_shards`` and ``take_shard``: a
-fused shard is not a contiguous range of the global tensor). Global shapes do not depend on the mesh, so a
-checkpoint of other shapes is refused.
+(``held_pieces``), of the parameters and of AdamW's ``exp_avg`` and
+``exp_avg_sq`` alike, the ranges of every tensor that its fsdp span of
+each unit covers. Tensors that tp does not split are recorded whole
+(tp_count 1). ``written_pieces``: only ranks with dp, ep and sp index 0
+write, every fsdp index its own ranges, the unsplit tensors from tp
+index 0, so nothing is written twice. On restore (``restore_plan_for``)
+a rank whose tp matches the save reads only the parts of the saved
+pieces that overlap what it holds (restore_plan.range_reads: 1/M of the
+state after an fsdp resize to M); with another tp it reads every piece
+of each split tensor, builds the global tensor on the host and cuts its
+new shard from it (``assemble``, through ``join_shards`` and
+``take_shard``: a fused shard is not a contiguous range of the global
+tensor). A save whose pieces are laid out otherwise restores alike, as
+long as they are ranges of tp shards: the earlier layout, whole
+parameters from fsdp index 0 and the moments as ranges of one flat
+bucket of every parameter, among them. Global shapes do not depend on
+the mesh, so a checkpoint of other shapes is refused.
 """
 
 from __future__ import annotations
@@ -191,36 +199,124 @@ def global_shape(name: str, shape: Sequence[int], tp: int) -> tuple:
     return tuple(shape)
 
 
-def fsdp_chunk(n_params: int, fsdp: int) -> int:
-    """The elements of each fsdp chunk of a flat bucket of ``n_params``
-    (whole 16-byte lanes of fp32); the last chunk ends at n_params."""
-    return -(-n_params // (4 * fsdp)) * 4
+# fp32 elements in a 16-byte lane: K13 and K14 move whole lanes.
+LANE = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Unit:
+    """One fsdp unit: ``params``, (state-dict name, tp-shard shape,
+    offset) of each tensor it holds, each at whole lanes; ``length``, its
+    flat length padded to whole lanes times ``fsdp``."""
+
+    name: str
+    params: tuple
+    length: int
+    fsdp: int
+
+    @property
+    def chunk(self) -> int:
+        """The elements each fsdp rank holds."""
+        return self.length // self.fsdp
+
+    def span(self, index: int) -> tuple[int, int]:
+        """[lo, hi) of the unit's flat that fsdp index ``index`` holds."""
+        return index * self.chunk, (index + 1) * self.chunk
+
+    def split_sizes(self) -> list[int]:
+        """The unit's flat cut into its tensors and the gaps after them,
+        in order (the gaps pad to lanes and to ``length``)."""
+        sizes, at = [], 0
+        for _, shape, offset in self.params:
+            sizes += [offset - at, math.prod(shape)]
+            at = offset + math.prod(shape)
+        return sizes + [self.length - at]
+
+    def views(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+        """{name: the tensor} as views of the unit's ``flat``, through one
+        split: its backward is one concatenation of the tensors'
+        gradients into the unit's, zeros in the gaps."""
+        parts = flat.split(self.split_sizes())
+        return {name: parts[2 * i + 1].view(shape)
+                for i, (name, shape, _) in enumerate(self.params)}
+
+    def flatten(self, tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """The unit's flat (zero gaps) from its tensors."""
+        first = tensors[self.params[0][0]]
+        flat = torch.zeros(self.length, dtype=first.dtype,
+                           device=first.device)
+        for name, shape, offset in self.params:
+            flat[offset:offset + math.prod(shape)] = tensors[name].reshape(-1)
+        return flat
+
+
+def fsdp_units(shapes: Mapping[str, Sequence[int]], fsdp: int
+               ) -> list[Unit]:
+    """The fsdp units of a model whose tp-shard ``shapes`` are given in
+    state-dict order: ``embed`` (the embedding, then the final norm,
+    joined: both serve the step's start and end), then each
+    ``layer_{i}`` with its tensors in that order."""
+    members: dict = {}
+    for name, shape in shapes.items():
+        head = name.split(".", 1)[0]
+        unit = head if head.startswith("layer_") else "embed"
+        members.setdefault(unit, []).append((name, tuple(shape)))
+    units = []
+    for unit, tensors in members.items():
+        params, at = [], 0
+        for name, shape in tensors:
+            params.append((name, shape, at))
+            at += -(-math.prod(shape) // LANE) * LANE
+        units.append(Unit(unit, tuple(params),
+                          -(-at // (LANE * fsdp)) * LANE * fsdp, fsdp))
+    return units
+
+
+def join_owned(units: Sequence[Unit], owned: Sequence[torch.Tensor]
+               ) -> dict[str, torch.Tensor]:
+    """Every tensor of ``units`` whole (views), from the owned vectors of
+    every fsdp index in order (each: its chunks of the units, unit after
+    unit, as parallel/train.py lays them out)."""
+    out, at = {}, 0
+    for unit in units:
+        flat = torch.cat([vec[at:at + unit.chunk] for vec in owned])
+        out.update(unit.views(flat))
+        at += unit.chunk
+    return out
+
+
+def _local_shapes(shapes: Mapping[str, Sequence[int]], sizes: Mapping,
+                  coords: Mapping) -> dict:
+    """name -> (tp_count, tp_index, tp-shard shape) on a rank at
+    ``coords``."""
+    tp, local = sizes["tp"], {}
+    for name, shape in shapes.items():
+        count = split_count(name, tp)
+        local[name] = (count, coords["tp"] if count > 1 else 0,
+                       shard_shape(name, shape, count))
+    return local
 
 
 def held_pieces(shapes: Mapping[str, Sequence[int]], sizes: Mapping,
                 coords: Mapping) -> list[Piece]:
     """The pieces of the global state a rank at ``coords`` of a mesh of
-    ``sizes`` holds, for global ``shapes`` in parameter order (the flat
-    bucket's order): its tp shard of each parameter whole, then for each
-    moment the ranges of its fsdp chunk, tensor by tensor."""
-    tp = sizes["tp"]
-    flat, offset = [], 0
-    for name, shape in shapes.items():
-        count = split_count(name, tp)
-        n = math.prod(shard_shape(name, shape, count))
-        flat.append((name, count, coords["tp"] if count > 1 else 0,
-                     offset, n))
-        offset += n
-    chunk = fsdp_chunk(offset, sizes["fsdp"])
-    start = coords["fsdp"] * chunk
-    pieces = [Piece(name, "param", index, count, 0, n)
-              for name, count, index, _, n in flat]
-    for kind in STATE_KINDS[1:]:
-        for name, count, index, at, n in flat:
-            lo, hi = max(at, start), min(at + n, start + chunk)
-            if hi > lo:
-                pieces.append(Piece(name, kind, index, count, lo - at,
-                                    hi - at))
+    ``sizes`` holds, for global ``shapes`` in parameter order: for each
+    kind, unit by unit (``fsdp_units`` of its tp shards), the range of
+    each tensor that its fsdp span of the unit covers."""
+    local = _local_shapes(shapes, sizes, coords)
+    units = fsdp_units({name: shape for name, (_, _, shape) in local.items()},
+                       sizes["fsdp"])
+    pieces = []
+    for kind in STATE_KINDS:
+        for unit in units:
+            lo, hi = unit.span(coords["fsdp"])
+            for name, shape, offset in unit.params:
+                a = max(offset, lo)
+                b = min(offset + math.prod(shape), hi)
+                if b > a:
+                    count, index, _ = local[name]
+                    pieces.append(Piece(name, kind, index, count, a - offset,
+                                        b - offset))
     return pieces
 
 
@@ -235,8 +331,6 @@ def written_pieces(shapes: Mapping[str, Sequence[int]], sizes: Mapping
         if coords["dp"] or coords["ep"] or coords["sp"]:
             continue
         for piece in held_pieces(shapes, sizes, coords):
-            if piece.kind == "param" and coords["fsdp"]:
-                continue
             if piece.tp_count == 1 and coords["tp"]:
                 continue
             out.append((rank, piece))

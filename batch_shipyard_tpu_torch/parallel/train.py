@@ -27,50 +27,66 @@ its sp shard with their global RoPE positions (the reference's batch
 sharding ``P(("dp", "fsdp"), "sp")``), on its tp shard of the model
 (parallel/sharding.py; the Megatron all-reduces in models/transformer).
 Its loss share is its block's target count over the global one, so the
-sum over the data ranks (every rank with this rank's tp index) is the
-global mean, which every rank reports. The reference leaves the sums to
-XLA; the port's step, after the backward:
+sum over the data and fsdp ranks (every rank with this rank's tp index)
+is the global mean, which every rank reports.
 
-0. with fused_norm under tp, sums the norm scales' gradients over the tp
-   ring (one ring_all_reduce of them all concatenated): K9's backward
-   computes dscale = sum(xhat * dn) with dn = g w_r^T over this rank's
-   columns only, so each rank holds a partial sum;
-1. builds one flat fp32 gradient bucket of fsdp rows, each a 1/fsdp
-   chunk of the parameters followed by a loss slot that holds this
-   rank's loss share (every row: the loss needs a place on every fsdp
-   rank);
-2. reduce-scatters it over the fsdp ring (K14), leaving this rank its
-   row summed over fsdp (nothing with fsdp = 1);
-3. all-reduces that row over the data ring, the dp x sp ranks with
-   this rank's fsdp and tp indices (ring_all_reduce: K14 then K13;
-   nothing when the ring has one rank);
-4. runs AdamW on its chunk: this rank holds the AdamW state of its
-   1/fsdp of the parameters only, and its fp32 parameters are a chunk
-   of one flat buffer whose views are the model's parameters;
-5. all-gathers the updated chunks over the fsdp ring (K13) into that
-   flat buffer (nothing with fsdp = 1).
+The parameters are sharded over fsdp, as the reference's specs shard
+every matrix (``P("fsdp", "tp")``, ``P("tp", "fsdp")``), by unit
+(sharding.fsdp_units: ``embed``, the embedding and the final norm, then
+each ``layer_{i}``). A rank holds, in one flat fp32 buffer (``owned``),
+its chunk of every unit, unit after unit, and nothing else of the
+parameters: the model's own nn.Parameters are on ``meta`` and carry only
+names and shapes. AdamW runs on ``owned``, so its state is this rank's
+chunks too. With fsdp = 1 a chunk is the whole unit. The reference
+leaves the gathers and the sums to XLA; the port's step:
+
+1. the forward gathers the ``embed`` unit over the fsdp ring
+   (ring_collectives.fsdp_gather, K13) once, and holds it to the end of
+   the step: the lookup, the final norm and the tied loss read it, and
+   its gradient is reduce-scattered (K14) last in the backward. Each
+   layer gathers its unit (K13) as the block starts, inside the function
+   remat recomputes: the recompute gathers it again, and nothing of it
+   is saved for the backward, so with remat at most one gathered layer
+   is alive at any moment (besides ``embed``). Without remat the
+   block's saved tensors keep each layer's gathered unit alive until
+   that layer's backward;
+2. the backward reduce-scatters each unit's gradient over the fsdp ring
+   (K14, as soon as the unit's gradient is whole) straight into this
+   rank's chunk of the gradient row (``row``: the chunks in ``owned``'s
+   order, a loss slot, zeros to whole lanes of the data ring); with
+   fsdp = 1 it copies the gradient there. No parameter has a .grad;
+3. with fused_norm under tp, sums the norm scales' gradients over the tp
+   ring: K9's backward computes dscale = sum(xhat * dn) with dn = g
+   w_r^T over this rank's columns only, so each rank holds a partial
+   sum. The norm scales sit at the same offsets of every tp rank's row
+   (tp shards have equal shapes), so the ranges of them in this rank's
+   chunks are concatenated and all-reduced (ring_all_reduce) once;
+4. sums the loss share over the fsdp ring (a ring_all_reduce of one
+   element) into the loss slot, then all-reduces the row over the data
+   ring, the dp x sp ranks with this rank's fsdp and tp indices
+   (ring_all_reduce: K14 then K13; nothing when the ring has one rank);
+5. runs AdamW on ``owned`` with the row's chunks as its gradient. No
+   gather follows: the next forward gathers what it needs.
 
 State export and import (workloads/checkpoint.py): ``state_pieces``
 gives this rank's share of the global state as parallel/sharding.py
-``Piece``s keyed by the state-dict names: its tp shard of every fp32
-parameter whole, and of AdamW's ``exp_avg`` and ``exp_avg_sq`` the
-per-tensor flat ranges of its fsdp chunk (views of the optimizer state
-of the chunk; one device: of each parameter's state), with AdamW's step
-count. ``load_state_pieces`` copies such pieces back into the existing
-tensors, so the parameters stay views of the flat buffer, and creates
-AdamW's per-tensor state when no step has run yet (torch creates it
-lazily). Every ``step`` beats the task's progress file
-(agent/progress.py), as the reference's step wrappers do.
+``Piece``s keyed by the state-dict names: of the fp32 parameters and of
+AdamW's ``exp_avg`` and ``exp_avg_sq`` alike, the ranges of its chunks
+(views of ``owned`` and of the optimizer state; one device: of each
+parameter and its state), with AdamW's step count. ``load_state_pieces``
+copies such pieces back into the existing tensors and creates AdamW's
+state when no step has run yet (torch creates it lazily).
+``state_dict`` gathers this rank's tp shard of every parameter whole.
+Every ``step`` beats the task's progress file (agent/progress.py), as
+the reference's step wrappers do.
 
-Apart from step 0, gradients are never summed over tp: a tp shard's
+Apart from step 3, gradients are never summed over tp: a tp shard's
 gradient is whole on its rank (the embedding's rows too: the
 vocab-parallel lookup and loss give each rank its own rows' gradient),
 and a replicated parameter's is the same on every tp rank (f's backward
-sums the activation gradient before it reaches them).
-Every rank holds the whole (tp-sharded) parameters during the step;
-gathering them layer by layer is not ported yet (ROADMAP). Weights are
-drawn once at full shape from the seed (models/convert.init_params) and
-then sharded, so every mesh starts from the same model.
+sums the activation gradient before it reaches them). Weights are drawn
+once at full shape from the seed (models/convert.init_params) and then
+sharded, so every mesh starts from the same model.
 """
 
 from __future__ import annotations
@@ -90,14 +106,12 @@ from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
 from batch_shipyard_tpu_torch.parallel import sharding
 
 
-def bucket_layout(n_params: int, fsdp: int = 1, data: int = 1
-                  ) -> tuple[int, int]:
-    """(chunk, row): each of the fsdp rows of the gradient bucket holds
-    ``chunk`` parameters (1/fsdp of them, in 16-byte lanes) and the loss
-    slot, padded to ``row``, a multiple of 4 * data fp32 elements (K14's
-    lanes over the data ring, so its all-reduce needs no padding)."""
-    chunk = sharding.fsdp_chunk(n_params, fsdp)
-    return chunk, -(-(chunk + 1) // (4 * data)) * (4 * data)
+def row_length(owned: int, data: int = 1) -> int:
+    """The gradient row's length: ``owned`` gradients, the loss slot,
+    zeros to whole 16-byte fp32 lanes of every member of a data ring of
+    ``data`` (K14's lanes, so its all-reduce needs no padding)."""
+    lanes = sharding.LANE * data
+    return -(-(owned + 1) // lanes) * lanes
 
 
 class TrainHarness:
@@ -106,7 +120,9 @@ class TrainHarness:
     and optimizer update on the global batch and returns ``{"loss": 0-d
     tensor}`` (the global mean loss) without waiting for the device
     (``float`` of the loss syncs). A ring timeout raises at the next ring
-    launch, or at ``mesh.check()`` after a synchronise."""
+    launch, or at ``mesh.check()`` after a synchronise. Over a mesh the
+    model's parameters (its tp shard) go into this rank's fsdp chunks
+    and onto ``meta`` (the module doc)."""
 
     def __init__(self, model: tfm.TransformerLM, batch_size: int,
                  seq_len: int, learning_rate: float = 3e-4,
@@ -118,13 +134,9 @@ class TrainHarness:
         self.loss_impl = loss_impl
         self.device = model.embed.embedding.device
         self.mesh = mesh if mesh is not None and mesh.world > 1 else None
-        self.params = list(model.parameters())
-        # Step 0 of the module doc: the fused norm scales under tp.
-        self.tp_partial = [p for name, p in model.named_parameters()
-                           if name.endswith("norm_scale")] \
-            if model.config.tp > 1 else []
+        self.units = None
         if self.mesh is None:
-            trained = self.params
+            trained = list(model.parameters())
         else:
             sizes = self.mesh.sizes
             if seq_len % sizes["sp"]:
@@ -134,52 +146,104 @@ class TrainHarness:
                 raise ValueError(
                     f"batch {batch_size} is not divisible by dp * fsdp = "
                     f"{self.mesh.data_size}")
-            trained = [self._flatten()]
+            trained = [self._shard()]
         self.optimizer = torch.optim.AdamW(
             trained, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=0.01)
 
-    def _flatten(self) -> torch.Tensor:
-        """Move every parameter into one flat fp32 buffer of fsdp chunks
-        (the parameters become views of it); returns this rank's chunk,
-        the tensor AdamW updates."""
-        dtypes = {p.dtype for p in self.params}
+    def _shard(self) -> torch.Tensor:
+        """This rank's chunk of every unit into ``owned`` (returned, the
+        tensor AdamW updates), the gradient row, and per unit a leaf
+        chunk (a view of ``owned``) and a sink (a view of the row); the
+        model's parameters go onto meta."""
+        params = {name: p.detach()
+                  for name, p in self.model.named_parameters()}
+        dtypes = {t.dtype for t in params.values()}
         if dtypes != {torch.float32}:
             raise ValueError(f"the mesh step keeps fp32 parameters, got "
                              f"{dtypes}")
-        fsdp = self.mesh.sizes["fsdp"]
+        fsdp, index = self.mesh.sizes["fsdp"], self.mesh.coords["fsdp"]
+        self.units = sharding.fsdp_units(
+            {name: t.shape for name, t in params.items()}, fsdp)
+        self._unit = {unit.name: unit for unit in self.units}
+        self.owned_length = sum(unit.chunk for unit in self.units)
         data = self.mesh.groups["data"]
-        self.n_params = sum(p.numel() for p in self.params)
-        self.chunk, self.row = bucket_layout(
-            self.n_params, fsdp, 1 if data is None else data.size)
-        self.flat = torch.zeros(fsdp * self.chunk, device=self.device)
-        offset = 0
-        for p in self.params:
-            view = self.flat[offset:offset + p.numel()].view_as(p)
-            view.copy_(p.detach())
-            p.data = view
-            offset += p.numel()
-        start = self.mesh.coords["fsdp"] * self.chunk
-        return self.flat[start:start + self.chunk]
+        owned = torch.empty(self.owned_length, device=self.device)
+        self.row = torch.zeros(row_length(self.owned_length,
+                                          1 if data is None else data.size),
+                               device=self.device)
+        self._chunks, self._sinks, self._owned_at = {}, {}, {}
+        at = 0
+        for unit in self.units:
+            lo, hi = unit.span(index)
+            owned[at:at + unit.chunk] = unit.flatten(params)[lo:hi]
+            self._chunks[unit.name] = \
+                owned[at:at + unit.chunk].detach().requires_grad_()
+            self._sinks[unit.name] = self.row[at:at + unit.chunk]
+            for name, _, offset in unit.params:
+                self._owned_at[name] = at + offset - lo
+            at += unit.chunk
+        self.model.to("meta")
+        # Step 3 of the module doc: this rank's ranges of the fused norm
+        # scales in ``owned`` (the same on every tp rank).
+        self._tp_partial = []
+        if self.model.config.fused_norm:
+            for piece in self.held_pieces():
+                if piece.kind == "param" and \
+                        piece.key.endswith("norm_scale"):
+                    at = self._owned_at[piece.key]
+                    self._tp_partial.append((at + piece.lo, at + piece.hi))
+        return owned
+
+    @property
+    def resident_param_bytes(self) -> int:
+        """The bytes of parameters this rank holds between steps: its
+        chunks (lane padding included), or the whole model on one
+        device."""
+        if self.units is None:
+            return sum(p.numel() * p.element_size()
+                       for p in self.model.parameters())
+        return self.owned_length * 4
+
+    def gather(self, unit: str) -> dict:
+        """Unit ``unit``'s parameters, {state-dict name: tensor}, as views
+        of its flat gathered over the fsdp ring (step 1 of the module
+        doc), differentiable into the gradient row."""
+        flat = ring_collectives.fsdp_gather(
+            self._chunks[unit], self.mesh.groups["fsdp"], self._sinks[unit])
+        return self._unit[unit].views(flat)
 
     def loss_fn(self, tokens, targets, positions=None):
-        hidden = self.model(tokens, positions=positions, return_hidden=True)
-        return tfm.lm_loss_chunked(hidden, self.model.embed.embedding,
-                                   targets, impl=self.loss_impl,
+        if self.units is None:
+            hidden = self.model(tokens, positions=positions,
+                                return_hidden=True)
+            embedding = self.model.embed.embedding
+        else:
+            # Gathered once, for the lookup, the final norm and the loss.
+            head = self.gather("embed")
+            hidden = self.model(
+                tokens, positions=positions, return_hidden=True,
+                params=lambda unit: head if unit == "embed"
+                else self.gather(unit))
+            embedding = head["embed.embedding"]
+        return tfm.lm_loss_chunked(hidden, embedding, targets,
+                                   impl=self.loss_impl,
                                    tp_group=self.model.config.tp_group)
 
     def sum_tp_partial_grads(self) -> None:
-        """Step 0 of the module doc: the fused norm scales' gradients
-        summed over the tp ring, in place (nothing without fused_norm or
-        tp)."""
-        grads = [p.grad for p in self.tp_partial]
-        if not grads:
+        """Step 3 of the module doc: the fused norm scales' gradients in
+        the row summed over the tp ring, in place (nothing without
+        fused_norm or tp). Every rank makes the one call, also where its
+        chunks hold no norm scale."""
+        config = self.model.config
+        if not (config.fused_norm and config.tp > 1):
             return
+        parts = [self.row[lo:hi] for lo, hi in self._tp_partial]
         summed = ring_collectives.ring_all_reduce(
-            torch.cat([g.reshape(-1) for g in grads]),
-            self.model.config.tp_group)
-        for g, part in zip(grads, summed.split([g.numel() for g in grads])):
-            g.copy_(part.view_as(g))
+            torch.cat(parts) if parts else self.row[:0], config.tp_group)
+        for part, total in zip(parts, summed.split(
+                [p.numel() for p in parts])):
+            part.copy_(total)
 
     def shard(self, tokens, targets):
         """This rank's block of the global batch: (tokens, targets,
@@ -197,46 +261,21 @@ class TrainHarness:
                  (targets != -1).sum().clamp(min=1).float())
         return tokens[block], local, positions, share
 
-    def _bucket(self, loss) -> torch.Tensor:
-        """The flat gradient bucket (step 1 of the module doc): fsdp rows
-        of ``chunk`` gradients, each followed by this rank's ``loss`` and
-        zeros to ``row``, in one copy. Drops the parameters' .grad."""
-        fsdp = self.mesh.sizes["fsdp"]
-        tail = torch.cat([loss.detach().reshape(1).float(),
-                          loss.new_zeros(self.row - self.chunk - 1,
-                                         dtype=torch.float32)])
-        pieces, end, offset = [], self.chunk, 0
-        for p in self.params:
-            g = (p.grad if p.grad is not None else
-                 torch.zeros_like(p)).reshape(-1)
-            start = 0
-            while start < g.numel():
-                take = min(g.numel() - start, end - offset)
-                pieces.append(g[start:start + take])
-                start += take
-                offset += take
-                if offset == end:
-                    pieces.append(tail)
-                    end += self.chunk
-        if offset < fsdp * self.chunk:
-            pieces += [tail.new_zeros(fsdp * self.chunk - offset), tail]
-        bucket = torch.cat(pieces)
-        for p in self.params:
-            p.grad = None
-        return bucket
-
     def sum_grads(self, loss) -> tuple[torch.Tensor, torch.Tensor]:
-        """Steps 0-3 of the module doc: this rank's chunk of the gradients
-        and the loss, each summed over the data ranks (the loss a copy: a
-        view would keep the whole row alive as long as the caller keeps
-        the loss)."""
+        """Steps 3-4 of the module doc, after the backward of ``loss``
+        (this rank's share): this rank's owned gradients and the loss,
+        each summed over the fsdp and data ranks (the loss a copy: a view
+        would keep the whole row alive as long as the caller keeps the
+        loss)."""
         groups = self.mesh.groups
         self.sum_tp_partial_grads()
-        row = self._bucket(loss)
+        share = loss.detach().reshape(1).float()
         if groups["fsdp"] is not None:
-            row = ring_collectives.ring_reduce_scatter(row, groups["fsdp"])
-        row = ring_collectives.ring_all_reduce(row, groups["data"])
-        return row[:self.chunk], row[self.chunk].clone()
+            share = ring_collectives.ring_all_reduce(share, groups["fsdp"])
+        n = self.owned_length
+        self.row[n:n + 1] = share
+        row = ring_collectives.ring_all_reduce(self.row, groups["data"])
+        return row[:n], row[n].clone()
 
     def step(self, batch: Mapping) -> dict:
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
@@ -254,17 +293,33 @@ class TrainHarness:
             self.optimizer.step()
             progress.beat()
             return {"loss": loss.detach()}
+        # A unit whose gradient never arrived counts as zeros.
+        self.row[:self.owned_length].zero_()
         tokens, targets, positions, share = self.shard(tokens, targets)
         loss = self.loss_fn(tokens, targets, positions) * share
         loss.backward()
         owned, = self.optimizer.param_groups[0]["params"]
         owned.grad, loss = self.sum_grads(loss)
         self.optimizer.step()
-        fsdp = self.mesh.groups["fsdp"]
-        if fsdp is not None:
-            ring_collectives.ring_all_gather(owned, fsdp, out=self.flat)
         progress.beat()
         return {"loss": loss}
+
+    @torch.no_grad()
+    def state_dict(self) -> dict:
+        """This rank's tp shard of every parameter, whole, in state-dict
+        order (copies). Over a mesh every unit is gathered over the fsdp
+        ring: every rank of the ring must call it."""
+        if self.units is None:
+            return {name: t.clone()
+                    for name, t in self.model.state_dict().items()}
+        group, out = self.mesh.groups["fsdp"], {}
+        for unit in self.units:
+            chunk = self._chunks[unit.name].detach()
+            flat = (chunk if group is None else
+                    ring_collectives.ring_all_gather(chunk, group))
+            out.update({name: t.clone()
+                        for name, t in unit.views(flat).items()})
+        return {name: out[name] for name, _ in self.model.named_parameters()}
 
     # ---------------------------- checkpoints ----------------------------
 
@@ -278,8 +333,8 @@ class TrainHarness:
         return self.mesh.sizes, self.mesh.coords
 
     def state_tensors(self) -> dict[str, tuple[tuple, torch.dtype]]:
-        """Every parameter's global shape and dtype, in parameter order
-        (the flat bucket's)."""
+        """Every parameter's global shape and dtype, in parameter
+        order."""
         tp = self.layout[0]["tp"]
         return {name: (sharding.global_shape(name, p.shape, tp), p.dtype)
                 for name, p in self.model.named_parameters()}
@@ -293,29 +348,21 @@ class TrainHarness:
 
     def _piece_view(self, piece) -> torch.Tensor:
         """The live tensor elements a held piece names (a view)."""
-        param = self._named[piece.key]
-        if piece.kind == "param":
-            return param.detach().view(-1)[piece.lo:piece.hi]
-        if self.mesh is None:
+        if self.units is None:
+            param = self._named[piece.key]
+            if piece.kind == "param":
+                return param.detach().view(-1)[piece.lo:piece.hi]
             state = self.optimizer.state[param]
             return state[piece.kind].view(-1)[piece.lo:piece.hi]
         owned, = self.optimizer.param_groups[0]["params"]
-        at = self._offsets[piece.key] - self.mesh.coords["fsdp"] * self.chunk
-        return self.optimizer.state[owned][piece.kind][
-            at + piece.lo:at + piece.hi]
+        flat = owned if piece.kind == "param" else \
+            self.optimizer.state[owned][piece.kind]
+        at = self._owned_at[piece.key]
+        return flat[at + piece.lo:at + piece.hi]
 
     @functools.cached_property
     def _named(self) -> dict:
         return dict(self.model.named_parameters())
-
-    @functools.cached_property
-    def _offsets(self) -> dict:
-        offsets, at = {}, 0
-        for name, p in self._named.items():
-            offsets[name] = at
-            at += p.numel()
-        return offsets
-
     def held_pieces(self) -> list:
         """The parallel/sharding.py pieces of the global state this rank
         holds."""

@@ -19,18 +19,24 @@ newest step, a staging dir or an unmarked dir.
 
 Format. Not Orbax's (JAX), and not ``torch.distributed.checkpoint``'s:
 DCP reshards DTensor/ShardedTensor layouts, while the port's tp shards
-are plain tensors and its fsdp state is a chunk of one flat bucket
-(parallel/train.py). A step dir holds ``layout.json`` (the mesh sizes,
-every parameter's global shape and dtype in bucket order, the train
-step, AdamW's step count, and every record: a parallel/sharding.py
-``Piece`` with its writer's file and its offset there) and one
+are plain tensors and its fsdp state is a chunk of each fsdp unit
+(parallel/sharding.fsdp_units, parallel/train.py). A step dir holds
+``layout.json`` (the mesh sizes, every parameter's global shape and
+dtype in parameter order, the train step, AdamW's step count, and every
+record: a parallel/sharding.py ``Piece``, a range of one tensor's tp
+shard, with its writer's file and its offset there) and one
 ``rankNNNNN.pt`` per writing rank: ``torch.save`` of {dtype name: one
 flat host tensor} holding the rank's pieces (sharding.written_pieces:
-dp, ep and sp index 0 write; nothing is written twice). ``restore``
+dp, ep and sp index 0 write, each fsdp index the ranges of the
+parameters and moments it holds; nothing is written twice). ``restore``
 plans what this rank reads (sharding.restore_plan_for), reads it from
 the files memory-mapped (``torch.load(mmap=True, weights_only=True)``,
 so a rank touches only the bytes it needs), assembles its pieces on the
-host and copies them into the harness.
+host and copies them into the harness. Any layout whose records are
+ranges of tp shards restores the same way: a save of the earlier
+layout (whole parameters from fsdp index 0, the moments as ranges of
+one flat bucket of every parameter) included. ``restore_params``
+assembles the parameters whole, from every writer, for serving.
 
 Two save paths share the protocol: ``save`` blocks for the device->host
 snapshot and the persist; ``AsyncCheckpointManager`` blocks only for the

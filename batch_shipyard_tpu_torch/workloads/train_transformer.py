@@ -6,7 +6,8 @@ every projection, a full-precision backward; ``--sp N``: ring attention
 over N ranks; ``--tp N``: Megatron tensor parallelism with the
 vocab-parallel embedding and loss, composing with ``--fused-norm`` and
 ``--int8`` as in the reference; ``--fsdp N``: the
-optimizer state and parameter updates sharded N ways; dp fills the rest
+parameters, their gradients and the optimizer state sharded N ways, each
+layer gathered as it runs (parallel/train.py); dp fills the rest
 of the world, as the reference's auto_axis_sizes; the checkpoint flags
 of workloads/checkpoint.py) plus ``--device {cuda,cpu}``, ``--seed``,
 ``--profile-steps`` and ``--fused-norm`` (bench_transformer's
@@ -20,6 +21,9 @@ of workloads/checkpoint.py) plus ``--device {cuda,cpu}``, ``--seed``,
     python -m torch.distributed.run --nproc-per-node 4 \
         -m batch_shipyard_tpu_torch.workloads.train_transformer \
         --seq-len 8192 --sp 2 --tp 2 --fused-norm --steps 20
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m batch_shipyard_tpu_torch.workloads.train_transformer \
+        --batch 16 --seq-len 4096 --fsdp 2 --steps 20
 
 Checkpoints and the pool's hooks, as in the reference's loop: the run
 restores the latest COMMITTED step of ``--checkpoint-dir`` before the
@@ -58,11 +62,13 @@ reference; every rank draws the same global batch and trains its block
 of it (parallel/train.py). Rank 0 prints the reference's summary line
 (with ``mesh=``), then one JSON line with the mesh, tokens/s of the
 global batch, ms/step, MFU (None off a card in parallel/mfu's table),
-peak device memory and, per rank, its mesh coordinates, its kernel
-launches and its ring calls by axis (``ring_all_reduce.tp``,
-``ring_permute.sp``, ...), sha256 digests of its replicated parameters
-and of its tp shard (equal across the ranks that must hold the same
-bits) and, with ``--profile-steps``, trace/train_profile's device
+peak device memory, the parameter bytes a rank holds between steps
+(``resident_param_bytes``: its fsdp chunks) and, per rank, its mesh
+coordinates, its kernel launches and its ring calls by axis
+(``ring_all_reduce.tp``, ``ring_permute.sp``, ...), its peak and
+resident bytes, sha256 digests of its replicated parameters and of its
+tp shard, gathered over fsdp (equal across the ranks that must hold the
+same bits) and, with ``--profile-steps``, trace/train_profile's device
 breakdown, per-axis collective time and ring wait. With a checkpoint dir
 the JSON line and each rank's entry carry ``checkpoint``: the restored
 step, its ms and read fraction, and per save its step, blocking,
@@ -179,10 +185,11 @@ def param_digests(harness) -> dict:
     """sha256 of this rank's replicated parameters (the same on every
     rank) and of its tp shard (the same on the ranks of its tp index:
     the split projections, the regrouped fused kernels and the
-    embedding's rows), over their bytes in state-dict order."""
+    embedding's rows), gathered over fsdp (harness.state_dict: every
+    rank must call it), over their bytes in state-dict order."""
     digests = {"replicated": hashlib.sha256(),
                "tp_shard": hashlib.sha256()}
-    for name, tensor in harness.model.state_dict().items():
+    for name, tensor in harness.state_dict().items():
         kind = ("replicated" if sharding.tp_dim(name) is None
                 or harness.model.config.tp == 1 else "tp_shard")
         digests[kind].update(tensor.detach().cpu().numpy().tobytes())
@@ -215,8 +222,8 @@ def main(argv=None) -> int:
                         help="sequence-parallel ranks (ring attention); "
                              "run under torch.distributed.run")
     parser.add_argument("--fsdp", type=int, default=1,
-                        help="ranks the optimizer state and updates are "
-                             "sharded over")
+                        help="ranks the parameters, gradients and "
+                             "optimizer state are sharded over")
     parser.add_argument("--int8", action="store_true",
                         help="int8 matmuls for projections/MLP "
                              "(QAT straight-through backward)")
@@ -311,6 +318,7 @@ def main(argv=None) -> int:
         "plain_calls": {key: n for key, n in plain_counts().items() if n},
         "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                         if on_card else None),
+        "resident_param_bytes": harness.resident_param_bytes,
         "params_sha256": param_digests(harness),
     }
     if ckpt.enabled:
@@ -349,6 +357,7 @@ def main(argv=None) -> int:
             mfu.transformer_train_flops_per_token(config, args.seq_len),
             peak),
         "peak_mem_gb": ranks[0]["peak_mem_gb"],
+        "resident_param_bytes": ranks[0]["resident_param_bytes"],
         "start_step": start_step, "end_step": end_step,
         "per_rank": ranks,
     }

@@ -115,27 +115,35 @@ Phases, each fatal on failure:
      and the workload's entry point, 2 + 3 steps and one profiled: the
      loss must be finite and fall, and each rank must launch exactly
      sp_launches_per_step(rank) a step and no plain version;
-  5b. the training mesh (``train_mesh``), eight ranks on this card
-     through the workload under ``torch.distributed.run``: (a) the
+  5b. the training mesh (``train_mesh``), ranks on this card through
+     the workload under ``torch.distributed.run``: on eight ranks (a) the
      reference recipe ``--seq-len 8192 --sp 4 --tp 2`` at full width and
      depth (batch 8, remat, the fused loss, vocab-parallel over the tp
      ring), (b) ``--sp 2 --fsdp 2`` (dp 2) at 2 layers, (c) ``--sp 2 --tp
      2 --fused-norm`` and (d) ``--sp 2 --tp 2 --int8`` (dp 2) at 2
-     layers, each 2 + 3 steps and one profiled. Each must give finite
+     layers; on two ranks (e) the MultiSlice-DCN recipe ``--batch 16
+     --seq-len 4096 --fsdp 2`` at full width and depth (remat, the fused
+     loss), each 2 + 3 steps and one profiled. Each must give finite
      falling losses, every rank exactly mesh_launches_per_step(rank) a
      step by kernel and by ring axis (K12 on sp rings; K14 + K13 as tp
-     all-reduces, the data all-reduce and the fsdp scatter and gather;
-     K13 gathers of the loss's (lse, gold) and of (d)'s absmax; K9 in
-     (c); K10, K11 and K10's halves in (d)) and no plain version, and one
-     digest of the replicated parameters on all eight ranks and of each
-     tp shard on the ranks of its tp index; (a)'s loss at every step
-     within MESH_LOSS_RTOL of the sp phase's on the same weights and
-     batch, (c)'s and (d)'s within it of the same flags at ``--sp 2``
-     alone on four ranks (dp 2). Before them every ring call of the
-     paths at their shapes, and (d)'s row-parallel int8 operands
-     against K10 over the whole rows, bit for bit on every rank
-     (mesh_collectives). Then a rank of a small recipe-shaped mesh kills
-     itself mid-step and every other rank must raise within
+     all-reduces, the data all-reduce and the fsdp loss all-reduce; K13
+     gathers of each fsdp unit, forward and in remat's recompute, and
+     K14 scatters of its gradient; K13 gathers of the loss's (lse, gold)
+     and of (d)'s absmax; K9 in (c); K10, K11 and K10's halves in (d))
+     and no plain version, and one digest of the replicated parameters
+     (gathered over fsdp) on every rank and of each tp shard on the
+     ranks of its tp index; (a)'s loss at every step within
+     MESH_LOSS_RTOL of the sp phase's on the same weights and batch,
+     (c)'s and (d)'s within it of the same flags at ``--sp 2`` alone on
+     four ranks (dp 2), (e)'s within it of ``--batch 16 --seq-len 4096``
+     on two ranks (dp 2), whose parameters' digest it must match, with
+     a peak at least FSDP_PEAK_SAVING_GB lower on every rank and at most
+     half its resident parameter bytes (plus a lane a unit). Before them
+     every ring call of the paths at their shapes, each fsdp unit's
+     gather and gradient reduce-scatter included, and (d)'s row-parallel
+     int8 operands against K10 over the whole rows, bit for bit on every
+     rank (mesh_collectives). Then a rank of a small recipe-shaped mesh
+     kills itself mid-step and every other rank must raise within
      KILL_RAISE_LIMIT_S;
   5c. checkpoints (``checkpoint``; workloads/checkpoint.py, the loop's
      pool hooks), all dirs in a temp dir the phase removes. (a) One card,
@@ -157,10 +165,13 @@ Phases, each fatal on failure:
      host link's and the disk's rates, measured here). (b) Four ranks on
      the card through torch.distributed.run, ``--sp 2 --fsdp 2`` at
      --seq-len 8192, batch 8 and 2 layers: 4 uninterrupted steps; 2
-     steps and a save; a resume of 2 steps on the same mesh, whose losses
-     must be the uninterrupted ones bit for bit; a resume of the same
-     step on ``--sp 2 --tp 2``, within MESH_LOSS_RTOL of them. It prints
-     each rank's read fraction and restore ms;
+     steps and a save (every fsdp rank writes its chunks of the
+     parameters and moments); a resume of 2 steps on the same mesh,
+     whose losses must be the uninterrupted ones bit for bit and whose
+     ranks must read half the parameters and moments each; a resume of
+     the same step on ``--sp 2 --tp 2`` (the parameters re-cut), within
+     MESH_LOSS_RTOL of them. It prints each rank's read fraction and
+     restore ms;
   6. the served decode step as a CUDA graph (decode_graph), for each
      bench_serving cache (paged, paged_int8, dense_int8): one request
      schedule (admissions mid-stream, pages growing past the prompts',
@@ -235,6 +246,7 @@ from batch_shipyard_tpu_torch.ops import ring_collectives as rc
 from batch_shipyard_tpu_torch.ops.quantization import quantize_int8_rows
 from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
 from batch_shipyard_tpu_torch.parallel import mfu
+from batch_shipyard_tpu_torch.parallel import sharding
 from batch_shipyard_tpu_torch.parallel import train as train_mod
 from batch_shipyard_tpu_torch.trace import decode_profile, train_profile
 from batch_shipyard_tpu_torch.workloads import distributed
@@ -2217,13 +2229,22 @@ SP_BATCH, SP_SEQ = 8, 8192
 PERMUTE_SHAPE = (SP_BATCH, SP_SEQ // SP, _MODEL["n_heads"], _MODEL["d_head"])
 
 
+def model_units(fsdp: int, **overrides) -> list:
+    """The fsdp units (parallel/sharding.fsdp_units) of bench_transformer's
+    model (``overrides``: its config's, e.g. a mesh's tp_group) at
+    ``fsdp``."""
+    model = tfm.TransformerLM(tfm.TransformerConfig(**dict(_MODEL,
+                                                          **overrides)),
+                              device="meta")
+    return sharding.fsdp_units(
+        {name: p.shape for name, p in model.named_parameters()}, fsdp)
+
+
 def bucket_elems(ring: int = SP) -> int:
-    """The gradient all-reduce bucket of bench_transformer's model on the
-    sp path: every parameter and the loss, padded as parallel/train pads
-    it."""
-    cfg = tfm.TransformerConfig(**_MODEL)
-    return train_mod.bucket_layout(mfu.transformer_param_count(cfg),
-                                   data=ring)[1]
+    """The gradient row of bench_transformer's model on the sp path (fsdp
+    1): every unit whole and the loss slot, padded as parallel/train pads
+    it for a data ring of ``ring``."""
+    return train_mod.row_length(sum(u.chunk for u in model_units(1)), ring)
 
 
 RING_KEYS = ("ring_permute", "ring_all_gather", "ring_reduce_scatter")
@@ -3030,10 +3051,12 @@ def mesh_launches_per_step(rank: int, sizes: dict,
     ring. Per step: the loss once (K3-K5, on the vocab shard under tp);
     with tp, the embedding's all-reduce (g), the loss's (lse, gold)
     gather and grad_h all-reduce, and with --fused-norm the norm scales'
-    gradient all-reduce; with fsdp, the gradient reduce-scatter (K14)
-    and the parameter all-gather (K13) over the fsdp ring; with dp x sp >
-    1, one all-reduce (K14 + K13) over the data ring. Each K12-K14 launch
-    counts under its ring's label too, and each all-reduce under
+    gradient all-reduce; with fsdp, over the fsdp ring, each unit's
+    gather (K13: ``embed`` once, each layer forward and again in remat's
+    recompute) and gradient reduce-scatter (K14: one a unit), and the
+    loss share's all-reduce (K14 + K13); with dp x sp > 1, one all-reduce
+    (K14 + K13) over the data ring. Each K12-K14 launch counts under its
+    ring's label too, and each all-reduce under
     "ring_all_reduce.<label>"; with dp = 1 the sp ring is the data ring,
     labelled "sp+data"."""
     fused, int8 = "--fused-norm" in flags, "--int8" in flags
@@ -3046,20 +3069,23 @@ def mesh_launches_per_step(rank: int, sizes: dict,
     row = 2 if split else 0  # row-parallel products a layer
     data = int(sizes["dp"] * sizes["sp"] > 1)
     fsdp = int(sizes["fsdp"] > 1)
+    unit_gathers = fsdp * (1 + 2 * layers)
+    unit_scatters = fsdp * (1 + layers)
     shared = "sp+data" if sizes["dp"] == 1 else None
     want = collections.Counter({
         "ring_permute": rotations, f"ring_permute.{shared or 'sp'}":
         rotations, "flash_fwd": 2 * blocks * layers,
         "flash_bwd": blocks * layers, "xent_fwd": 1, "xent_bwd_h": 1,
-        "xent_bwd_e": 1, "ring_reduce_scatter": tp + data + fsdp,
-        "ring_all_gather": tp + tp_gathers + data + fsdp,
-        "ring_all_gather.tp": tp_gathers})
-    for label, n in (("tp", tp), (shared or "data", data)):
+        "xent_bwd_e": 1,
+        "ring_reduce_scatter": tp + data + fsdp + unit_scatters,
+        "ring_all_gather": tp + tp_gathers + data + fsdp + unit_gathers,
+        "ring_all_gather.tp": tp_gathers,
+        "ring_all_gather.fsdp": unit_gathers,
+        "ring_reduce_scatter.fsdp": unit_scatters})
+    for label, n in (("tp", tp), (shared or "data", data), ("fsdp", fsdp)):
         for call in ("ring_reduce_scatter", "ring_all_gather",
                      "ring_all_reduce"):
             want[f"{call}.{label}"] += n
-    want["ring_reduce_scatter.fsdp"] += fsdp
-    want["ring_all_gather.fsdp"] += fsdp
     if fused:
         want["rmsnorm_matmul"] = 4 * layers
     if int8:
@@ -3091,7 +3117,10 @@ def rank_numerics(device, out_dir) -> dict:
     loss = harness.loss_fn(tokens, targets, positions) * share
     loss.backward()
     grads, loss = harness.sum_grads(loss)
-    grads = grads[:harness.n_params]
+    # The parameters' order (the single-process models' flat gradients).
+    by_name = sharding.join_owned(harness.units, [grads])
+    grads = torch.cat([by_name[name].reshape(-1)
+                       for name in harness.state_tensors()])
     torch.cuda.synchronize()
     group.check()
     if group.rank == 0:
@@ -3195,7 +3224,7 @@ def train_sp(device, marker_env: dict) -> dict:
 # --------------------- the training mesh (8 ranks) ---------------------
 
 
-# The mesh phase: eight ranks on this one card through the workload under
+# The mesh phase: ranks on this one card through the workload under
 # torch.distributed.run. (a) the reference workload's recipe in full,
 # --seq-len 8192 --sp 4 --tp 2 (workloads/train_transformer.py:8-10), at
 # bench_transformer's widths and depth, batch 8, remat, the fused loss
@@ -3204,16 +3233,28 @@ def train_sp(device, marker_env: dict) -> dict:
 # layers; (c) and (d) the tp axis with the fused norms and with int8,
 # --sp 2 --tp 2 (dp 2) --fused-norm or --int8 at 2 layers, each against
 # the same flags at --sp 2 alone on ``base`` ranks (dp 2 again, so each
-# rank holds the same rows and, with --int8, draws the same bits).
+# rank holds the same rows and, with --int8, draws the same bits), all
+# on eight ranks; (e) the MultiSlice-DCN recipe (recipes/MultiSlice-DCN/
+# config/jobs.yaml: --batch 16 --seq-len 4096 --fsdp 2) at the workload's
+# default widths and depth, remat, the fused loss, on two ranks (dp 1),
+# against --batch 16 --seq-len 4096 on two ranks (dp 2, fsdp 1: the same
+# 8 x 4096 rows a rank). ``base``: the comparison's overrides of the
+# run's ranks and axes.
 MESH_RANKS = 8
 MESH_RUNS = {
     "recipe": dict(tp=2, sp=4, fsdp=1, n_layers=_MODEL["n_layers"]),
     "dp_fsdp": dict(tp=1, sp=2, fsdp=2, n_layers=2),
     "fused_tp": dict(tp=2, sp=2, fsdp=1, n_layers=2,
-                     flags=["--fused-norm"], base=4),
+                     flags=["--fused-norm"], base=dict(ranks=4, tp=1)),
     "int8_tp": dict(tp=2, sp=2, fsdp=1, n_layers=2, flags=["--int8"],
-                    base=4),
+                    base=dict(ranks=4, tp=1)),
+    "fsdp_recipe": dict(tp=1, sp=1, fsdp=2, n_layers=_MODEL["n_layers"],
+                        ranks=2, batch=16, seq=4096,
+                        base=dict(ranks=2, fsdp=1)),
 }
+# (e) against its comparison: a rank's peak memory at least this much
+# lower (PERF.md's reckoning: 1.1-1.9 GB), set before the first run.
+FSDP_PEAK_SAVING_GB = 0.9
 # The meshes whose ring calls mesh_collectives holds against their plain
 # versions ((c) has (d)'s axes).
 MESH_CHECKED = ("recipe", "dp_fsdp", "int8_tp")
@@ -3341,6 +3382,36 @@ def _against_plain(note, key, got, plain) -> bool:
     return got.dtype == plain.dtype and torch.equal(got, plain)
 
 
+# Units of the fsdp checks besides the model's own: a ragged one (37
+# elements: the last lane of a chunk padded) and one smaller than a lane
+# a rank (5 elements: the final norm's case at a wide ring).
+FSDP_RAGGED_UNITS = (37, 5)
+
+
+def rank_check_fsdp_unit(group, unit, draw, note) -> bool:
+    """One fsdp unit's gather (forward: K13 of this rank's chunk into the
+    unit's flat) and gradient reduce-scatter (backward: K14 into the
+    sink) through ring_collectives.fsdp_gather on the card, against the
+    plain all-gather and reduce-scatter on CPU copies, bit for bit. The
+    unit's values are drawn alike on every rank, its gaps zero, as the
+    harness lays it out; the gradient differs a rank."""
+    full = unit.flatten({name: draw(shape, 0) for name, shape, _ in
+                         unit.params})
+    lo, hi = unit.span(group.rank)
+    chunk = full[lo:hi].clone()
+    sink = torch.full_like(chunk, float("nan"))
+    grad = draw((unit.length,), group.rank + 1)
+    flat = rc.fsdp_gather(chunk.requires_grad_(), group, sink)
+    flat.backward(grad)
+    want_flat = rc.ring_all_gather(chunk.detach().cpu(), group)
+    want_sink = rc.ring_reduce_scatter(grad.cpu(), group)
+    return all([_against_plain(note, "ring_all_gather", flat.detach(),
+                               want_flat),
+                _against_plain(note, "ring_reduce_scatter", sink,
+                               want_sink),
+                torch.equal(want_flat, full.cpu()), chunk.grad is None])
+
+
 def rank_check_mesh(name: str, mesh, device) -> dict:
     """On every rank of a MESH_RUNS mesh: each ring call of its path on
     card tensors at the shapes the path gives it, against the plain
@@ -3348,24 +3419,25 @@ def rank_check_mesh(name: str, mesh, device) -> dict:
     subgroup, bit for bit. The tp all-reduce of an activation [batch /
     (dp fsdp), seq / sp, d_model] bf16, the vocab-parallel loss's gather
     of (lse, gold) [2, rows] and all-reduce of grad_h [rows, d_model]
-    fp32; the fsdp reduce-scatter of the gradient bucket (fsdp rows) and
-    all-gather of the parameter chunk into the flat buffer; the data
-    ring's all-reduce of a bucket row; K12's rotations of the (K, V)
-    shard over the sp ring; and the all-reduce at a ragged size
-    (MESH_RAGGED) over the tp and data rings. With --int8, one layer's
-    row-parallel operands (down: x [rows, d_ff / tp], w [d_model, d_ff /
-    tp]) through quantize_split_rows on the card (bs_row_absmax, the K13
-    absmax gather, bs_quantize_scaled), bit for bit against K10 on this
-    rank over the whole rows."""
+    fp32; over the fsdp ring, each unit's gather and gradient
+    reduce-scatter (rank_check_fsdp_unit: ``embed`` and a layer, whose
+    sizes (b) and (e) share, then FSDP_RAGGED_UNITS) and the loss
+    share's all-reduce; the data ring's all-reduce of the gradient row;
+    K12's rotations of the (K, V) shard over the sp ring; and the
+    all-reduce at a ragged size (MESH_RAGGED) over the tp and data rings.
+    With --int8, one layer's row-parallel operands (down: x [rows, d_ff /
+    tp], w [d_model, d_ff / tp]) through quantize_split_rows on the card
+    (bs_row_absmax, the K13 absmax gather, bs_quantize_scaled), bit for
+    bit against K10 on this rank over the whole rows."""
     cfg = MESH_RUNS[name]
     groups, sizes = mesh.groups, mesh.sizes
-    model = tfm.TransformerLM(train_mod.make_transformer_config(
-        mesh=mesh, **dict(_MODEL, n_layers=cfg["n_layers"])), device="meta")
-    n_params = sum(p.numel() for p in model.parameters())
+    units = model_units(sizes["fsdp"], n_layers=cfg["n_layers"],
+                        tp_group=groups["tp"])
+    owned = sum(unit.chunk for unit in units)
     data = groups["data"]
-    chunk, row = train_mod.bucket_layout(n_params, sizes["fsdp"],
-                                         1 if data is None else data.size)
-    rows, width = SP_BATCH // mesh.data_size, SP_SEQ // sizes["sp"]
+    row = train_mod.row_length(owned, 1 if data is None else data.size)
+    rows = cfg.get("batch", SP_BATCH) // mesh.data_size
+    width = cfg.get("seq", SP_SEQ) // sizes["sp"]
     failed, worst, cases = [], {}, []
     seed = itertools.count(100)
 
@@ -3395,26 +3467,21 @@ def rank_check_mesh(name: str, mesh, device) -> dict:
                  "whole rows", rank_check_split_rows(
                      groups["tp"], rows * width, device))
     if groups["fsdp"] is not None:
-        bucket = _draw(device, next(seed), mesh.rank,
-                       (sizes["fsdp"] * row,), torch.float32)
-        case(f"fsdp reduce-scatter ({sizes['fsdp'] * row},) fp32",
-             _against_plain(worst, "ring_reduce_scatter",
-                            rc.ring_reduce_scatter(bucket, groups["fsdp"]),
-                            rc.ring_reduce_scatter(bucket.cpu(),
-                                                   groups["fsdp"])))
-        del bucket
-        flat = torch.zeros(sizes["fsdp"] * chunk, device=device)
-        start = mesh.coords["fsdp"] * chunk
-        flat[start:start + chunk] = _draw(device, next(seed), mesh.rank,
-                                          (chunk,), torch.float32)
-        flat_cpu = flat.cpu()
-        owned = flat[start:start + chunk]
-        rc.ring_all_gather(owned, groups["fsdp"], out=flat)
-        rc.ring_all_gather(flat_cpu[start:start + chunk], groups["fsdp"],
-                           out=flat_cpu)
-        case(f"fsdp all-gather ({chunk},) fp32 into the flat buffer",
-             _against_plain(worst, "ring_all_gather", flat, flat_cpu))
-        del flat, flat_cpu, owned
+        group = groups["fsdp"]
+        ragged = [sharding.fsdp_units({"layer_0.w": (n,)}, group.size)[0]
+                  for n in FSDP_RAGGED_UNITS]
+        for unit in units[:2] + ragged:
+            at = next(seed)
+            case(f"fsdp unit {unit.name} of {unit.length} ({unit.chunk} a "
+                 f"rank) gather and gradient reduce-scatter",
+                 rank_check_fsdp_unit(
+                     group, unit, lambda shape, r, at=at: _draw(
+                         device, at, r, shape, torch.float32), worst))
+        x = _draw(device, next(seed), mesh.rank, (1,), torch.float32)
+        case("fsdp loss all-reduce (1,) fp32",
+             _against_plain(worst, "ring_all_reduce",
+                            rc.ring_all_reduce(x, group),
+                            rc.ring_all_reduce(x.cpu(), group)))
     if data is not None:
         x = _draw(device, next(seed), mesh.rank, (row,), torch.float32)
         case(f"data all-reduce ({row},) fp32 over {data.axis}",
@@ -3444,7 +3511,8 @@ def rank_check_mesh(name: str, mesh, device) -> dict:
     mesh.check()
     torch.cuda.empty_cache()
     return {"failed": failed, "cases": cases, "max_abs_err": worst,
-            "bucket": {"params": n_params, "chunk": chunk, "row": row}}
+            "units": [(u.name, u.length, u.chunk) for u in units],
+            "row": row}
 
 
 def rank_check_split_rows(group, rows: int, device) -> bool:
@@ -3581,15 +3649,17 @@ def _loss_ms(profile: dict) -> dict:
 def train_mesh_run(name: str, marker_env: dict, base: bool = False,
                    port: Optional[int] = None) -> dict:
     """One MESH_RUNS configuration through the workload's entry point
-    under torch.distributed.run, MESH_RANKS ranks on this card (``base``:
-    its comparison, the same flags without tp on its ``base`` ranks, not
-    profiled, its times not read), gated: finite falling losses; every rank's launches
-    exactly mesh_launches_per_step a step, by kernel and by axis, and no
-    plain version; the replicated parameters' digest equal on every rank
-    and each tp shard's on the ranks of its tp index."""
-    cfg = MESH_RUNS[name]
+    under torch.distributed.run, its ranks (MESH_RANKS unless it says)
+    on this card (``base``: its comparison, its ``base`` overrides on the
+    same flags, not profiled, its times not read), gated: finite falling
+    losses; every rank's launches exactly mesh_launches_per_step a step,
+    by kernel and by axis, and no plain version; the replicated
+    parameters' digest (gathered over fsdp) equal on every rank and each
+    tp shard's on the ranks of its tp index."""
+    cfg = dict(MESH_RUNS[name], **(MESH_RUNS[name]["base"] if base else {}))
     flags = cfg.get("flags", [])
-    ranks, tp = (cfg["base"], 1) if base else (MESH_RANKS, cfg["tp"])
+    ranks, tp = cfg.get("ranks", MESH_RANKS), cfg["tp"]
+    batch, seq = cfg.get("batch", SP_BATCH), cfg.get("seq", SP_SEQ)
     profile_steps = 0 if base else SP_PROFILE_STEPS
     sizes = mesh_mod.auto_axis_sizes(ranks, tp=tp, sp=cfg["sp"],
                                      fsdp=cfg["fsdp"])
@@ -3599,7 +3669,7 @@ def train_mesh_run(name: str, marker_env: dict, base: bool = False,
            "batch_shipyard_tpu_torch.workloads.train_transformer",
            "--tp", str(tp), "--sp", str(cfg["sp"]), "--fsdp",
            str(cfg["fsdp"]), "--n-layers", str(cfg["n_layers"]),
-           "--seq-len", str(SP_SEQ), "--batch", str(SP_BATCH), "--warmup",
+           "--seq-len", str(seq), "--batch", str(batch), "--warmup",
            str(SP_WARMUP), "--steps", str(SP_STEPS), "--profile-steps",
            str(profile_steps), *flags]
     label = f"{name}{' base' if base else ''}"
@@ -3647,9 +3717,9 @@ def train_mesh_run(name: str, marker_env: dict, base: bool = False,
             f"{digests}")
     row = {
         "config": (f"bench_transformer widths, {cfg['n_layers']} layers, "
-                   f"--seq-len {SP_SEQ} --tp {tp} --sp {cfg['sp']} "
+                   f"--seq-len {seq} --tp {tp} --sp {cfg['sp']} "
                    f"--fsdp {cfg['fsdp']} {' '.join(flags)} (mesh {sizes}), "
-                   f"batch {SP_BATCH}, remat, fused loss"),
+                   f"batch {batch}, remat, fused loss"),
         "ranks": f"{ranks} ranks time-sliced on one card",
         "steps": steps, "timed_steps": SP_STEPS,
         "tokens_per_s": report["tokens_per_sec"],
@@ -3659,6 +3729,8 @@ def train_mesh_run(name: str, marker_env: dict, base: bool = False,
         "launches_per_step": {r["rank"]: r["launches_per_step"]
                               for r in report["per_rank"]},
         "peak_mem_gb": [r["peak_mem_gb"] for r in report["per_rank"]],
+        "resident_param_bytes": [r["resident_param_bytes"]
+                                 for r in report["per_rank"]],
         "params_sha256": report["per_rank"][0]["params_sha256"],
         "phase_s": seconds,
     }
@@ -3679,9 +3751,10 @@ def train_mesh(device, marker_env: dict, sp_losses: list,
                fault_path) -> dict:
     """Phase 5b: the mesh paths' ring calls against their plain versions
     (mesh_collectives), the MESH_RUNS through the workload, (a)'s
-    losses within MESH_LOSS_RTOL of train_sp's step by step, (c)'s and
-    (d)'s within it of their tp-less comparisons', then the killed-rank
-    check."""
+    losses within MESH_LOSS_RTOL of train_sp's step by step, (c)'s,
+    (d)'s and (e)'s within it of their comparisons' (fsdp_saving: (e)'s
+    memory and parameters against its comparison's), then the
+    killed-rank check."""
     started = time.perf_counter()
     rows = {"collectives": mesh_collectives(fault_path)}
     for name in MESH_RUNS:
@@ -3696,8 +3769,8 @@ def train_mesh(device, marker_env: dict, sp_losses: list,
               f"{row['ring_wait_ms_per_step_by_group']}, "
               f"{row['phase_s']:.1f} s", flush=True)
         print(f"train mesh {name} " + json.dumps(row), flush=True)
-    # The tp-less comparisons run side by side (four ranks each): only
-    # their losses and memory are read, not their times.
+    # The comparisons run side by side: only their losses, memory and
+    # digests are read, not their times.
     based = [name for name, cfg in MESH_RUNS.items() if "base" in cfg]
     ports = set()
     while len(ports) < len(based):
@@ -3720,8 +3793,9 @@ def train_mesh(device, marker_env: dict, sp_losses: list,
               f"side", flush=True)
         require(len(off) == len(base["losses"]) and
                 all(x <= MESH_LOSS_RTOL for x in off),
-                f"train mesh {name}: losses {row['losses']} off the tp-less "
-                f"run's {base['losses']} by {off}")
+                f"train mesh {name}: losses {row['losses']} off the "
+                f"comparison's {base['losses']} by {off}")
+    rows["fsdp_recipe"]["saving"] = fsdp_saving(rows["fsdp_recipe"])
     recipe = rows["recipe"]["losses"]
     off = [abs(a - b) / abs(b) for a, b in zip(recipe, sp_losses)]
     print(f"check mesh recipe vs train sp losses: {recipe} vs {sp_losses}, "
@@ -3735,6 +3809,38 @@ def train_mesh(device, marker_env: dict, sp_losses: list,
     rows["phase_s"] = time.perf_counter() - started
     print(f"train mesh phase: {rows['phase_s']:.1f} s", flush=True)
     return rows
+
+
+def fsdp_saving(row: dict) -> dict:
+    """(e) against its comparison (``row["base"]``, fsdp 1 on the same
+    rows): every rank's peak at least FSDP_PEAK_SAVING_GB lower, its
+    resident parameter bytes at most half the comparison's plus one lane
+    of each unit, and the gathered parameters' digest the comparison's
+    (with two ranks each element's gradient is the same one sum of two
+    in both runs, so the parameters stay bit-identical)."""
+    base = row["base"]
+    units = model_units(MESH_RUNS["fsdp_recipe"]["fsdp"])
+    padding = 4 * sharding.LANE * len(units)
+    saving = [b - a for a, b in zip(row["peak_mem_gb"], base["peak_mem_gb"])]
+    reading = {"peak_saving_gb": saving,
+               "resident_param_bytes": row["resident_param_bytes"],
+               "base_resident_param_bytes": base["resident_param_bytes"],
+               "digest_equal": row["params_sha256"] == base["params_sha256"]}
+    print(f"check mesh fsdp_recipe memory: peak GB per rank "
+          f"{row['peak_mem_gb']} vs {base['peak_mem_gb']} (saving {saving}, "
+          f"limit {FSDP_PEAK_SAVING_GB}); resident parameter bytes "
+          f"{row['resident_param_bytes']} vs "
+          f"{base['resident_param_bytes']}; gathered parameters' digest "
+          f"equal: {reading['digest_equal']}", flush=True)
+    require(all(x >= FSDP_PEAK_SAVING_GB for x in saving),
+            f"train mesh fsdp_recipe: peak saving {saving} GB")
+    require(all(a <= b / 2 + padding for a, b in zip(
+        row["resident_param_bytes"], base["resident_param_bytes"])),
+        f"train mesh fsdp_recipe: resident parameter bytes {reading}")
+    require(reading["digest_equal"],
+            f"train mesh fsdp_recipe: parameters {row['params_sha256']} "
+            f"vs the comparison's {base['params_sha256']}")
+    return reading
 
 
 # ----------------------------- checkpoints -----------------------------
@@ -3999,6 +4105,11 @@ def checkpoint_mesh(workdir: pathlib.Path, marker_env: dict) -> dict:
         require(all(r["checkpoint"]["restored"]["step"] == 2
                     for r in report["per_rank"]),
                 f"checkpoint mesh {name}: not restored at step 2")
+    # The same mesh reads its fsdp chunks: half the params and moments.
+    for r in readings["same"]:
+        fractions = r["read_fraction_by_kind"]
+        require(all(abs(x - 0.5) < 1e-3 for x in fractions.values()),
+                f"checkpoint mesh same: rank {r['rank']} read {fractions}")
     print("checkpoint (b) restores " + json.dumps(readings), flush=True)
     return {"config": f"bench_transformer widths, 2 layers, {CKPT_MESH}, "
                       f"{CKPT_MESH_RANKS} ranks on one card",

@@ -21,7 +21,9 @@ reference's contracts:
 Multi-process runs are in tests/test_torch_resume.py.
 """
 
+import dataclasses
 import json
+import math
 import os
 import types
 
@@ -477,15 +479,14 @@ def test_resize_restores_the_global_state_bit_for_bit(tmp_path, monkeypatch,
         assert info["elements_read"] == plan["elements_read"] == sum(
             hi - lo for _, lo, hi in calls)
         fractions = info["read_fraction_by_kind"]
-        assert fractions["param"] == 1.0
-        if fsdp_only:  # 1/M of the moments: this rank's chunk
+        if fsdp_only:  # 1/M of the params and the moments: its chunks
             n = sum(t.numel() for t in state["param"].values())
-            chunk = sharding.fsdp_chunk(n, sizes["fsdp"])
-            mine = min(n, (coords["fsdp"] + 1) * chunk) - \
-                coords["fsdp"] * chunk
-            assert fractions["exp_avg"] == fractions["exp_avg_sq"] == \
-                mine / n
-            assert abs(fractions["exp_avg"] - 1 / sizes["fsdp"]) < 1e-3
+            mine = sum(p.size for p in h.held_pieces() if p.kind == "param")
+            assert fractions["param"] == fractions["exp_avg"] == \
+                fractions["exp_avg_sq"] == mine / n
+            assert abs(fractions["param"] - 1 / sizes["fsdp"]) < 1e-3
+        else:  # another tp: the split tensors read whole
+            assert fractions["param"] == 1.0
         want = _cut_pieces(state, h.held_pieces())
         got = h.state_pieces()["pieces"]
         assert set(got) == set(want)
@@ -502,6 +503,121 @@ def test_resize_restores_the_global_state_bit_for_bit(tmp_path, monkeypatch,
     checkpoint.restore(str(tmp_path / "b"), one)
     for piece, tensor in one.state_pieces()["pieces"].items():
         assert torch.equal(tensor, state[piece.kind][piece.key].reshape(-1))
+
+
+def _old_layout_pieces(shapes, sizes, coords):
+    """The pieces a rank held in the earlier layout: its tp shard of
+    every parameter whole, and of the moments the ranges of its fsdp
+    chunk of one flat bucket of every parameter (chunks of whole 16-byte
+    lanes, the last one ending with the bucket)."""
+    flat, offset = [], 0
+    for name, shape in shapes.items():
+        count = sharding.split_count(name, sizes["tp"])
+        n = math.prod(sharding.shard_shape(name, shape, count))
+        flat.append((name, count, coords["tp"] if count > 1 else 0, offset,
+                     n))
+        offset += n
+    chunk = -(-offset // (4 * sizes["fsdp"])) * 4
+    start = coords["fsdp"] * chunk
+    pieces = [sharding.Piece(name, "param", index, count, 0, n)
+              for name, count, index, _, n in flat]
+    for kind in sharding.STATE_KINDS[1:]:
+        for name, count, index, at, n in flat:
+            lo, hi = max(at, start), min(at + n, start + chunk)
+            if hi > lo:
+                pieces.append(sharding.Piece(name, kind, index, count,
+                                             lo - at, hi - at))
+    return pieces
+
+
+def _save_old_layout(ckpt_dir, axes, world, state, step, opt_step):
+    """A save of ``state`` as a mesh of ``axes`` wrote it in the earlier
+    layout: the parameters from fsdp index 0 only, the moments from
+    every fsdp index as ranges of the flat bucket."""
+    sizes = tmesh.auto_axis_sizes(world, **axes)
+    shapes = {name: shape for name, (shape, _) in _rank_harness(
+        {}, 1, 0, state["param"]).state_tensors().items()}
+    records, flats = [], {}
+    for rank in range(world):
+        coords = tmesh.RankMesh(sizes, rank).coords
+        if coords["dp"] or coords["ep"] or coords["sp"]:
+            continue
+        parts = []
+        for piece in _old_layout_pieces(shapes, sizes, coords):
+            if piece.kind == "param" and coords["fsdp"] or \
+                    piece.tp_count == 1 and coords["tp"]:
+                continue
+            parts.append(_cut_pieces(state, [piece])[piece])
+            records.append({**dataclasses.asdict(piece),
+                            "file": checkpoint._shard_file(rank),
+                            "dtype": "float32",
+                            "offset": sum(t.numel() for t in parts[:-1])})
+        flats[rank] = torch.cat(parts)
+    staging = checkpoint._staging_path(str(ckpt_dir), step)
+    os.makedirs(staging)
+    for rank, flat in flats.items():
+        torch.save({"float32": flat},
+                   os.path.join(staging, checkpoint._shard_file(rank)))
+    with open(os.path.join(staging, checkpoint.LAYOUT_FILE), "w") as fh:
+        json.dump({"format": checkpoint.FORMAT, "step": step,
+                   "optimizer_step": opt_step, "mesh": sizes,
+                   "tensors": [{"name": name, "shape": list(shape),
+                                "dtype": "float32"}
+                               for name, shape in shapes.items()],
+                   "records": records}, fh)
+    checkpoint.commit(str(ckpt_dir), step, {"mesh_shape": sizes,
+                                            "mesh_devices": world})
+
+
+@pytest.mark.parametrize("axes,world", [({"sp": 2, "fsdp": 2}, 4),
+                                        ({"fsdp": 4}, 4),
+                                        ({"tp": 2, "fsdp": 2}, 4), ({}, 1)],
+                         ids=["same_mesh", "fsdp4", "tp2_fsdp2", "one"])
+def test_flat_bucket_layout_checkpoint_restores_per_unit(tmp_path, axes,
+                                                         world):
+    """A --sp 2 --fsdp 2 checkpoint in the earlier layout (whole
+    parameters from fsdp index 0, the moments as ranges of one flat
+    bucket) restores onto the per-unit layout of the same and other
+    meshes: every rank's pieces are the saved global state's, bit for
+    bit, and restore_params assembles it whole."""
+    state = _global_state(31)
+    _save_old_layout(tmp_path, {"sp": 2, "fsdp": 2}, 4, state, step=4,
+                     opt_step=4)
+    for rank in range(world):
+        h = _rank_harness(axes, world, rank, _global_state(97)["param"])
+        info = checkpoint.restore(str(tmp_path), h)
+        assert info["step"] == 4 and h.optimizer_step == 4
+        want = _cut_pieces(state, h.held_pieces())
+        got = h.state_pieces()["pieces"]
+        assert set(got) == set(want)
+        for piece, tensor in got.items():
+            assert torch.equal(tensor, want[piece]), (rank, piece)
+    params, step = checkpoint.restore_params(str(tmp_path))
+    assert step == 4
+    for key, tensor in params.items():
+        assert torch.equal(tensor, state["param"][key]), key
+
+
+def test_every_fsdp_rank_writes_its_parameters_and_serving_reads_them(
+        tmp_path):
+    """An fsdp 2 save: both fsdp ranks write parameter ranges (each its
+    chunks of every unit, together each element once), and
+    restore_params assembles the parameters whole for serving."""
+    state = _global_state(33)
+    _save_simulated(tmp_path, {"fsdp": 2}, 2, state, step=2, opt_step=2)
+    layout = checkpoint._read_layout(checkpoint._step_path(str(tmp_path),
+                                                           2))
+    params = [r for r in layout["records"] if r["kind"] == "param"]
+    assert {r["file"] for r in params} == {"rank00000.pt", "rank00001.pt"}
+    for name, tensor in state["param"].items():
+        ranges = sorted((r["lo"], r["hi"]) for r in params
+                        if r["key"] == name)
+        assert ranges[0][0] == 0 and ranges[-1][1] == tensor.numel()
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    restored, step = checkpoint.restore_params(str(tmp_path))
+    assert step == 2 and set(restored) == set(state["param"])
+    for key, tensor in restored.items():
+        assert torch.equal(tensor, state["param"][key]), key
 
 
 def test_restore_refuses_another_model_shape(tmp_path):

@@ -282,8 +282,18 @@ def test_all_reduce_pads_to_whole_lanes_of_every_member():
     assert rc.all_reduce_lanes(37, torch.float32, 2) == 40
     assert rc.all_reduce_lanes(40, torch.float32, 2) == 40
     assert rc.all_reduce_lanes(50, torch.bfloat16, 4) == 64
-    assert ttrain.bucket_layout(10, fsdp=2, data=2) == (8, 16)
-    assert ttrain.bucket_layout(16, fsdp=1, data=4) == (16, 32)
+    # The gradient row: the owned gradients and the loss slot, padded to
+    # whole lanes of every data rank; a unit: whole lanes of every fsdp
+    # rank, each tensor from a lane boundary.
+    assert ttrain.row_length(8, data=2) == 16
+    assert ttrain.row_length(16, data=4) == 32
+    unit, = tsharding.fsdp_units({"embed.embedding": (3, 3),
+                                  "final_norm.scale": (5,)}, 2)
+    assert (unit.name, unit.length, unit.chunk) == ("embed", 24, 12)
+    assert unit.params == (("embed.embedding", (3, 3), 0),
+                           ("final_norm.scale", (5,), 12))
+    assert unit.split_sizes() == [0, 9, 3, 5, 7]
+    assert unit.span(1) == (12, 24)
 
 
 class _OnCard(torch.Tensor):
@@ -411,9 +421,17 @@ for name, axes in meshes.items():
                                           "targets": targets})["loss"]))
         calls.append({k: rc.plain_calls[k] - before[k] for k in before})
         if step == 1:
-            res["state"] = {n: t.clone() for n, t in
-                            harness.model.state_dict().items()}
+            res["state"] = harness.state_dict()
     res["losses"], res["calls"] = losses, calls
+    owned, = harness.optimizer.param_groups[0]["params"]
+    res["resident"] = {
+        "bytes": harness.resident_param_bytes,
+        "owned": owned.numel(), "chunks": [u.chunk for u in harness.units],
+        "moments": [t.numel() for t in harness.optimizer.state[owned].values()
+                    if t.dim()],
+        "model_devices": sorted({p.device.type for p in
+                                 harness.model.parameters()}),
+        "optimized": len(harness.optimizer.param_groups[0]["params"])}
     res["launches"] = sum(rc.launches.values())
     mesh.close()
     results[name] = res
@@ -611,13 +629,10 @@ def test_mesh_gradients_match_the_single_rank_model(mesh_runs, name):
     for t in range(sizes["tp"]):
         owners = sorted(_ranks_where(ranks, name, tp=t, dp=0, sp=0),
                         key=lambda r: r[name]["coords"]["fsdp"])
-        flat = torch.cat([r[name]["grads"][0] for r in owners])
-        shard, offset = {}, 0
-        for pname, shape in owners[0][name]["grads"][2]:
-            n = math.prod(shape)
-            shard[pname] = flat[offset:offset + n].view(shape)
-            offset += n
-        shards.append(shard)
+        units = tsharding.fsdp_units(dict(owners[0][name]["grads"][2]),
+                                     sizes["fsdp"])
+        shards.append(tsharding.join_owned(
+            units, [r[name]["grads"][0] for r in owners]))
     got = tsharding.gather_state_dict(shards)
     assert set(got) == set(want)
     for pname, g in want.items():
@@ -646,18 +661,19 @@ def test_replicated_weights_stay_bit_identical(mesh_runs, name):
 @pytest.mark.parametrize("name", list(MESHES))
 def test_ring_calls_per_step(mesh_runs, name):
     """Each step's ring calls on every rank (CPU tensors: the plain
-    versions; no kernel launches): per layer, two tp all-reduces forward
-    (g) and two backward (f), sp - 1 rotations forward and backward; with
-    tp, the embedding's all-reduce (g), the vocab-parallel loss's gather
-    of (lse, gold) and its all-reduce of grad_h; then the fsdp
-    reduce-scatter and all-gather and the data all-reduce where those
-    rings have more than one rank."""
+    versions; no kernel launches; no remat): per layer, two tp
+    all-reduces forward (g) and two backward (f), sp - 1 rotations
+    forward and backward; with tp, the embedding's all-reduce (g), the
+    vocab-parallel loss's gather of (lse, gold) and its all-reduce of
+    grad_h; with fsdp, each unit's gather (embed once, each layer once)
+    and gradient reduce-scatter, and the loss's all-reduce; the data
+    all-reduce where that ring has more than one rank."""
     sizes = _sizes(MESHES[name])
     layers = MODEL["n_layers"]
     tp = 4 * layers + 2 if sizes["tp"] > 1 else 0
     loss_gather = int(sizes["tp"] > 1)
     data = int(sizes["dp"] * sizes["sp"] > 1)
-    fsdp = int(sizes["fsdp"] > 1)
+    fsdp = 1 + layers + 1 if sizes["fsdp"] > 1 else 0
     want = {"ring_permute": 2 * (sizes["sp"] - 1) * layers,
             "ring_reduce_scatter": tp + data + fsdp,
             "ring_all_gather": tp + loss_gather + data + fsdp,
@@ -665,6 +681,217 @@ def test_ring_calls_per_step(mesh_runs, name):
     for rank in mesh_runs["ranks"]:
         assert rank[name]["calls"] == [want] * STEPS
         assert rank[name]["launches"] == 0
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_resident_parameters_are_the_ranks_unit_chunks(mesh_runs, name):
+    """A rank keeps no parameter storage but its chunks of the units: the
+    model's parameters are on meta, AdamW updates one flat tensor of the
+    chunks and keeps moments of its size, and the chunks add up to at
+    most the rank's tp shard over fsdp plus one lane per unit."""
+    sizes = _sizes(MESHES[name])
+    for res in (r[name] for r in mesh_runs["ranks"]):
+        resident = res["resident"]
+        n = sum(math.prod(shape) for _, shape in res["grads"][2])
+        units = len(resident["chunks"])
+        assert resident["model_devices"] == ["meta"]
+        assert resident["optimized"] == 1
+        assert resident["owned"] == sum(resident["chunks"])
+        assert resident["moments"] == [resident["owned"]] * 2
+        assert resident["bytes"] == 4 * resident["owned"]
+        assert resident["owned"] <= n / sizes["fsdp"] + tsharding.LANE * units
+        assert resident["owned"] >= n / sizes["fsdp"]
+
+
+# Four gloo ranks for the fsdp forward and step: fsdp 2 with and without
+# remat (gathers a step, gathered units alive), fsdp 2 x tp 2 with
+# fused_norm and fsdp 2 with quantize_matmuls against the same rows at
+# fsdp 1, and the gather Function on a ring of four at lane-sized chunks.
+FSDP_RANKS = 4
+FSDP_RUNS = {
+    "fsdp2_remat": ({"fsdp": 2}, dict(remat=True)),
+    "fsdp2": ({"fsdp": 2}, {}),
+    "fused_fsdp2_tp2": ({"fsdp": 2, "tp": 2},
+                        dict(remat=True, fused_norm=True)),
+    "fused_tp2": ({"tp": 2}, dict(remat=True, fused_norm=True)),
+    "int8_fsdp2": ({"fsdp": 2}, dict(remat=True, quantize_matmuls=True)),
+    "int8_dp4": ({}, dict(remat=True, quantize_matmuls=True)),
+}
+# (the fsdp run, its fsdp 1 comparison on the same rows)
+FSDP_PAIRS = (("fused_fsdp2_tp2", "fused_tp2"), ("int8_fsdp2", "int8_dp4"))
+# Chunk lengths of the gather Function check: one lane a rank (a unit
+# smaller than that pads up to it) and three lanes.
+GATHER_CHUNKS = (4, 12)
+
+FSDP_WORKER = r"""
+import os, sys, weakref
+import numpy as np, torch
+torch.set_num_threads(1)
+from batch_shipyard_tpu_torch.ops import ring_collectives as rc
+from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
+from batch_shipyard_tpu_torch.parallel import train
+from batch_shipyard_tpu_torch.workloads import distributed
+out, model, runs, chunks = (sys.argv[1], eval(sys.argv[2]),
+                            eval(sys.argv[3]), eval(sys.argv[4]))
+me = distributed.setup("cpu")["process_index"]
+data = np.load(os.path.join(out, "batch.npz"))
+tokens, targets = (torch.from_numpy(data[k]) for k in ("tokens", "targets"))
+results = {}
+# Every gathered unit's flat (a weakref), sampled at every ring call: how
+# many gathered layers are alive.
+gathered, samples, at_gather = [], [], []
+
+def alive_layers():
+    return sum(1 for unit, ref in gathered
+               if unit != "embed" and ref() is not None)
+
+def sampled(call):
+    def run(*args, **kwargs):
+        samples.append(alive_layers())
+        return call(*args, **kwargs)
+    return run
+for call in ("ring_permute", "ring_all_gather", "ring_reduce_scatter"):
+    setattr(rc, call, sampled(getattr(rc, call)))
+for name, (axes, flags) in runs.items():
+    mesh = mesh_mod.RankMesh.build("cpu", **axes)
+    config = train.make_transformer_config(
+        mesh=mesh, dtype=torch.float32, max_seq_len=tokens.shape[1],
+        **flags, **model)
+    harness = train.build_transformer_train(
+        config, batch_size=tokens.shape[0], seq_len=tokens.shape[1],
+        device="cpu", seed=0, mesh=mesh)
+    gather = harness.gather
+
+    def recorded(unit, gather=gather):
+        views = gather(unit)
+        gathered.append((unit, weakref.ref(next(iter(views.values()))._base)))
+        samples.append(alive_layers())
+        at_gather.append(samples[-1])
+        return views
+    harness.gather = recorded
+    res = {"coords": mesh.coords, "losses": [], "steps": []}
+    for _ in range(2):
+        gathered.clear()
+        samples.clear()
+        at_gather.clear()
+        res["losses"].append(float(harness.step(
+            {"tokens": tokens, "targets": targets})["loss"]))
+        res["steps"].append({"units": [u for u, _ in gathered],
+                             "samples": list(samples),
+                             "at_gather": list(at_gather),
+                             "after": alive_layers()})
+    res["state"] = harness.state_dict()
+    mesh.close()
+    results[name] = res
+# The gather Function against the plain all-gather and reduce-scatter.
+mesh = mesh_mod.RankMesh.build("cpu", fsdp=4)
+group = mesh.groups["fsdp"]
+gen = torch.Generator().manual_seed(50 + me)
+checks = []
+for n in chunks:
+    owned = torch.randn(n, generator=gen)
+    chunk = owned.detach().requires_grad_()
+    sink = torch.full((n,), float("nan"))
+    flat = rc.fsdp_gather(chunk, group, sink)
+    grad = torch.randn(4 * n, generator=gen)
+    (flat * grad).sum().backward()
+    checks.append({"flat": flat.detach(), "want_flat":
+                   rc.ring_all_gather(owned.clone(), group),
+                   "sink": sink, "want_sink":
+                   rc.ring_reduce_scatter(grad, group),
+                   "grad": grad, "chunk_grad": chunk.grad})
+mesh.close()
+results["gather_function"] = checks
+torch.save(results, os.path.join(out, f"rank{me}.pt"))
+"""
+
+
+@pytest.fixture(scope="module")
+def fsdp_runs(tmp_path_factory):
+    """FSDP_RUNS and the gather Function check in one launch of four gloo
+    ranks, the weights drawn from seed 0 (every mesh the same model),
+    the batch the other tests': each rank's results."""
+    out = tmp_path_factory.mktemp("fsdp")
+    tokens, targets = _batch()
+    np.savez(out / "batch.npz", tokens=tokens, targets=targets)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    runs = distributed.launch_local(
+        [sys.executable, "-c", FSDP_WORKER, str(out), repr(MODEL),
+         repr(FSDP_RUNS), repr(GATHER_CHUNKS)], FSDP_RANKS, RANKS_TIMEOUT_S,
+        env=env, cwd=REPO)
+    bad = [r for r in runs if r["returncode"] != 0 or r["timed_out"]]
+    assert not bad, [(r["rank"], r["returncode"], r["stderr"][-3000:])
+                     for r in bad]
+    return [torch.load(out / f"rank{r}.pt") for r in range(FSDP_RANKS)]
+
+
+@pytest.mark.parametrize("name,remat", [("fsdp2_remat", True),
+                                        ("fsdp2", False)])
+def test_fsdp_gathers_a_step_and_gathered_layers_alive(fsdp_runs, name,
+                                                       remat):
+    """Each step gathers ``embed`` once, then each layer as it runs and,
+    with remat, again in its recompute (the reverse order). With remat,
+    at most one gathered layer is alive at every ring call of the
+    forward and the backward (besides ``embed``, which holds the final
+    norm); without remat, the module doc's design: each layer's stays
+    alive until its backward, so all are alive as the forward ends. None
+    is alive after the step."""
+    layers = MODEL["n_layers"]
+    order = ["embed"] + [f"layer_{i}" for i in range(layers)]
+    if remat:
+        order += [f"layer_{i}" for i in reversed(range(layers))]
+    for rank in fsdp_runs:
+        for step in rank[name]["steps"]:
+            assert step["units"] == order
+            assert step["after"] == 0
+            if remat:
+                assert max(step["samples"]) == 1
+                assert step["at_gather"] == [0] + [1] * (2 * layers)
+            else:
+                assert max(step["samples"]) == layers
+                assert step["at_gather"] == list(range(layers + 1))
+
+
+@pytest.mark.parametrize("fsdp,base", FSDP_PAIRS)
+def test_fsdp_fused_and_int8_match_fsdp1_on_the_same_rows(fsdp_runs, fsdp,
+                                                          base):
+    """fsdp 2 x tp 2 with fused_norm and fsdp 2 with quantize_matmuls
+    against fsdp 1 on the same rows a rank (dp takes fsdp's place): two
+    AdamW steps' losses within LOSS_RTOL, the gathered parameters within
+    PARAM_ATOL."""
+    for rank in fsdp_runs:
+        np.testing.assert_allclose(rank[fsdp]["losses"], rank[base]["losses"],
+                                   rtol=LOSS_RTOL)
+    for rank in fsdp_runs:
+        twin = next(r for r in fsdp_runs
+                    if r[base]["coords"]["tp"] == rank[fsdp]["coords"]["tp"])
+        assert set(rank[fsdp]["state"]) == set(twin[base]["state"])
+        for pname, tensor in rank[fsdp]["state"].items():
+            np.testing.assert_allclose(tensor.numpy(),
+                                       twin[base]["state"][pname].numpy(),
+                                       atol=PARAM_ATOL, rtol=0, err_msg=pname)
+
+
+def test_fsdp_gather_function_is_the_plain_gather_and_reduce_scatter(
+        fsdp_runs):
+    """The gather Function on a ring of four: forward the plain
+    all-gather of the chunks, bit for bit; backward the plain
+    reduce-scatter of the flat's gradient into the sink, bit for bit,
+    and no .grad on the chunk; at one lane a rank too."""
+    for rank in fsdp_runs:
+        for n, check in zip(GATHER_CHUNKS, rank["gather_function"]):
+            assert check["flat"].shape == (4 * n,)
+            assert torch.equal(check["flat"], check["want_flat"])
+            assert torch.equal(check["sink"], check["want_sink"])
+            assert check["chunk_grad"] is None
+    for c in range(len(GATHER_CHUNKS)):
+        total = sum(r["gather_function"][c]["grad"].double()
+                    for r in fsdp_runs)
+        for me, rank in enumerate(fsdp_runs):
+            n = GATHER_CHUNKS[c]
+            np.testing.assert_allclose(
+                rank["gather_function"][c]["sink"].double().numpy(),
+                total[me * n:(me + 1) * n].numpy(), rtol=1e-5, atol=1e-5)
 
 
 def test_train_cli_mesh_on_cpu():
@@ -690,8 +917,9 @@ def test_train_cli_mesh_on_cpu():
     report = json.loads(lines[-1])
     assert report["mesh"] == sizes and np.isfinite(report["loss"])
     # 3 steps: tp (remat; the embedding, the loss's grad_h and gather),
-    # data, fsdp.
-    per_step = 3 * (6 * 2 + 3 + 1 + 1)
+    # data, fsdp (embed, each layer forward and in the recompute, the
+    # loss's all-reduce).
+    per_step = 3 * (6 * 2 + 3 + 1 + 1 + 2 * 2 + 1)
     for rank, r in enumerate(report["per_rank"]):
         assert r["coords"] == tmesh.RankMesh(sizes, rank).coords
         assert not r["launches"] and not r["launches_per_step"]
@@ -705,6 +933,38 @@ def test_train_cli_mesh_on_cpu():
     assert report["per_rank"][0]["params_sha256"]["tp_shard"] != \
         report["per_rank"][1]["params_sha256"]["tp_shard"]
     assert all(not run["stdout"].strip() for run in runs[1:])
+
+
+@pytest.mark.parametrize("flags,world", [
+    (["--fsdp", "2"], 2), (["--sp", "2", "--fsdp", "2"], 4),
+    (["--tp", "2", "--fsdp", "2", "--fused-norm"], 4)],
+    ids=["fsdp2", "sp2_fsdp2", "tp2_fsdp2_fused"])
+def test_chip_smoke_launch_formula_counts_the_workloads_ring_calls(flags,
+                                                                   world):
+    """chip_smoke.mesh_launches_per_step, which the card's runs are held
+    to, against the workload's ring calls on CPU ranks (plain versions:
+    one call where the card launches one kernel): the all-gathers,
+    reduce-scatters and permutes a step on every rank, remat on."""
+    import chip_smoke
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    runs = distributed.launch_local([
+        sys.executable, "-m",
+        "batch_shipyard_tpu_torch.workloads.train_transformer", *flags,
+        "--device", "cpu", "--d-model", "32", "--n-layers", "2",
+        "--n-heads", "2", "--d-ff", "64", "--vocab", "64", "--seq-len", "32",
+        "--batch", "4", "--steps", "1", "--warmup", "1"],
+        world, RANKS_TIMEOUT_S, env=env, cwd=REPO)
+    bad = [r for r in runs if r["returncode"] != 0 or r["timed_out"]]
+    assert not bad, [(r["rank"], r["stderr"][-2000:]) for r in bad]
+    report = json.loads(runs[0]["stdout"].strip().splitlines()[-1])
+    for r in report["per_rank"]:
+        want = chip_smoke.mesh_launches_per_step(
+            r["rank"], report["mesh"], 2,
+            [f for f in flags if f in ("--fused-norm", "--int8")])
+        for call in ("ring_all_gather", "ring_reduce_scatter",
+                     "ring_permute"):
+            assert r["plain_calls"].get(f"ring_collectives.{call}", 0) == \
+                2 * want.get(call, 0), (r["rank"], call)
 
 
 # ------------------------- a failure across groups -------------------------

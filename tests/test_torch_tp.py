@@ -233,20 +233,14 @@ for name, model, flags, impl, (tokens, targets) in (
     loss = harness.loss_fn(*local[:3]) * local[3]
     loss.backward()
     grads, total = harness.sum_grads(loss)
-    shapes = [(n, tuple(p.shape)) for n, p in
-              harness.model.named_parameters()]
-    grad_dict, at = {}, 0
-    for pname, shape in shapes:
-        size = int(np.prod(shape))
-        grad_dict[pname] = grads[at:at + size].view(shape).clone()
-        at += size
+    grad_dict = {n: g.clone() for n, g in
+                 sharding.join_owned(harness.units, [grads]).items()}
     before = dict(rc.plain_calls), dict(tq.plain_calls)
     losses = [float(harness.step({"tokens": tokens, "targets": targets})
                     ["loss"]) for _ in range(2)]
     res[name] = {"loss": float(total), "grads": grad_dict,
                  "losses": losses,
-                 "state": {n: t.clone() for n, t in
-                           harness.model.state_dict().items()},
+                 "state": harness.state_dict(),
                  "ring_calls": {k: rc.plain_calls[k] - before[0][k]
                                 for k in before[0]},
                  "quant_calls": {k: tq.plain_calls[k] - before[1][k]

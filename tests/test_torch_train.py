@@ -469,7 +469,7 @@ harness = train.build_transformer_train(
 losses = [float(harness.step({"tokens": data["tokens"],
                               "targets": data["targets"]})["loss"])
           for _ in range(2)]
-torch.save({"losses": losses, "state": harness.model.state_dict(),
+torch.save({"losses": losses, "state": harness.state_dict(),
             "plain_calls": dict(ring_collectives.plain_calls)},
            os.path.join(out, f"rank{group.rank}.pt"))
 """
