@@ -40,6 +40,45 @@ def _post_generate(base_url: str, payload: dict, timeout: float) -> dict:
         return json.loads(resp.read())
 
 
+def load_requests(num_requests: int, rate_hz: float = 8.0,
+                  prompt_len: tuple[int, int] = (4, 32),
+                  max_new_tokens: tuple[int, int] = (8, 32),
+                  vocab_size: int = 97, seed: int = 0,
+                  eos_id: Optional[int] = None,
+                  shared_prefix_groups: int = 0,
+                  shared_prefix_len: int = 0,
+                  slo_classes: Optional[dict] = None
+                  ) -> tuple[list, list]:
+    """run_load's requests, drawn from ``random.Random(seed)``: the
+    Poisson gaps between arrivals (seconds) and the /v1/generate payloads
+    in arrival order, so a caller can replay the same prompts."""
+    rng = random.Random(seed)
+    prefixes = [[rng.randrange(vocab_size)
+                 for _ in range(shared_prefix_len)]
+                for _ in range(shared_prefix_groups)]
+    class_names = sorted(slo_classes) if slo_classes else []
+    gaps = [rng.expovariate(rate_hz) for _ in range(num_requests - 1)]
+    payloads = []
+    for k in range(num_requests):
+        plen = rng.randint(*prompt_len)
+        prompt = [rng.randrange(vocab_size) for _ in range(plen)]
+        payload = {
+            "request_id": f"load-{seed}-{k}",
+            "max_new_tokens": rng.randint(*max_new_tokens),
+        }
+        if prefixes:
+            g = rng.randrange(len(prefixes))
+            prompt = prefixes[g] + prompt
+            payload["prefix_key"] = f"load-{seed}-g{g}"
+        payload["prompt"] = prompt
+        if class_names:
+            payload["slo_class"] = class_names[k % len(class_names)]
+        if eos_id is not None:
+            payload["eos_id"] = eos_id
+        payloads.append(payload)
+    return gaps, payloads
+
+
 def run_load(base_url: Union[str, Sequence[str]],
              num_requests: int,
              rate_hz: float = 8.0,
@@ -61,12 +100,10 @@ def run_load(base_url: Union[str, Sequence[str]],
     apart from failures. ``base_url`` may list several replicas;
     requests then round-robin across them."""
     urls = [base_url] if isinstance(base_url, str) else list(base_url)
-    rng = random.Random(seed)
-    prefixes = [[rng.randrange(vocab_size)
-                 for _ in range(shared_prefix_len)]
-                for _ in range(shared_prefix_groups)]
     class_names = sorted(slo_classes) if slo_classes else []
-    gaps = [rng.expovariate(rate_hz) for _ in range(num_requests - 1)]
+    gaps, payloads = load_requests(
+        num_requests, rate_hz, prompt_len, max_new_tokens, vocab_size,
+        seed, eos_id, shared_prefix_groups, shared_prefix_len, slo_classes)
     results: list[Optional[dict]] = [None] * num_requests
     errors: list[Optional[str]] = [None] * num_requests
     sheds: list[Optional[str]] = [None] * num_requests
@@ -90,22 +127,7 @@ def run_load(base_url: Union[str, Sequence[str]],
             errors[k] = str(exc)
 
     started = time.perf_counter()
-    for k in range(num_requests):
-        plen = rng.randint(*prompt_len)
-        prompt = [rng.randrange(vocab_size) for _ in range(plen)]
-        payload = {
-            "request_id": f"load-{seed}-{k}",
-            "max_new_tokens": rng.randint(*max_new_tokens),
-        }
-        if prefixes:
-            g = rng.randrange(len(prefixes))
-            prompt = prefixes[g] + prompt
-            payload["prefix_key"] = f"load-{seed}-g{g}"
-        payload["prompt"] = prompt
-        if class_names:
-            payload["slo_class"] = class_names[k % len(class_names)]
-        if eos_id is not None:
-            payload["eos_id"] = eos_id
+    for k, payload in enumerate(payloads):
         thread = threading.Thread(
             target=one, args=(k, urls[k % len(urls)], payload),
             daemon=True)
@@ -185,7 +207,7 @@ def run_load(base_url: Union[str, Sequence[str]],
             row["ttft_attainment"] = row["ttft_ok"] / n if n else None
             row["tpot_attainment"] = row["tpot_ok"] / n if n else None
         report["slo_attainment"] = per_class
-    if prefixes:
+    if shared_prefix_groups:
         report["shared_prefix_groups"] = shared_prefix_groups
         report["shared_prefix_len"] = shared_prefix_len
     # Digest of every completed request's token ids: equal engines at

@@ -535,6 +535,9 @@ class ServingFrontEnd:
         prefix = self.engine.prefix_stats()
         if prefix is not None:
             out["prefix_cache"] = prefix
+        spec = self.engine.spec_stats()
+        if spec is not None:
+            out["speculative"] = spec
         return out
 
     def prometheus_metrics(self) -> list[str]:
@@ -558,6 +561,14 @@ class ServingFrontEnd:
                                  ("tpot_ms", self._tpot_hist)):
                 lines.extend(hist.prometheus_bucket_lines(
                     f"shipyard_serving_{metric}"))
+        spec = stats.get("speculative")
+        if spec:
+            lines.extend(prometheus_lines("shipyard_serving", {
+                "spec_rounds_total": spec["rounds"],
+                "spec_proposed_tokens_total": spec["proposed"],
+                "spec_accepted_tokens_total": spec["accepted"],
+                "spec_acceptance_rate": spec["acceptance_rate"],
+            }))
         prefix = stats.get("prefix_cache")
         if prefix:
             lines.extend(prometheus_lines("shipyard_serving", {

@@ -25,8 +25,16 @@ eagerly. Prefill stays eager (its bucket lengths vary). The random
 stream for temperature sampling is a torch.Generator seeded with
 ``seed``, registered with the graph so that every replay draws afresh.
 Prompts still pad to the reference's power-of-two buckets
-(``_bucket_length``), so prefill shapes match it. Speculative decoding,
-the goodput warm-up phase and AOT precompile come with later slices.
+(``_bucket_length``), so prefill shapes match it.
+
+Speculative decoding (``speculative=SpeculativeConfig(...)``, the
+reference's engine-integrated draft/verify loop): each step drafts gamma
+tokens a slot with a small dense-cache draft model, verifies every
+slot's [y, d_1..d_gamma] block in ONE target forward and commits a
+ragged 1..gamma+1 tokens a slot (``_speculative_step``); on a CUDA device
+that step is the graph captured and replayed, in place of the decode
+step. The goodput warm-up phase and AOT precompile come with later
+slices.
 """
 
 from __future__ import annotations
@@ -62,6 +70,50 @@ def _decode_step(model, sampling, cache, tokens, positions, active,
     tokens.copy_(next_tok[:, None])
     positions.add_(active.to(positions.dtype))
     return next_tok
+
+
+def _speculative_step(target, draft, gamma, t_cache, d_cache, tokens,
+                      positions, active):
+    """One ragged draft/verify round over the full slot batch, written in
+    place (a captured graph replays it against the same tensors).
+    ``tokens`` [B, 1] is each slot's pending token y (sampled, not yet
+    cached) and ``positions`` [B] its absolute position; both caches hold
+    every committed token EXCEPT y.
+
+    Draft: gamma+1 single-token steps propose d_1..d_gamma (the extra
+    step only inserts d_gamma's K/V, so the draft cache keeps pace on
+    full acceptance). Verify: ONE target forward scores [y, d_1..d_gamma]
+    through the multi-token insert. Accept: each slot's longest validated
+    prefix a_i; the block commits d_1..d_{a_i} plus the target's token at
+    a_i (correction or bonus), both caches rewind by gamma - a_i, and y
+    and the position move on. Inactive slots rewind the full gamma+1 and
+    keep their token and position. Returns [B, gamma+2]: the block
+    [B, gamma+1], then a_i."""
+    token, drafts = tokens, []
+    for step in range(gamma + 1):
+        hidden = draft(token, positions=positions[:, None] + step,
+                       cache=d_cache, return_hidden=True)
+        token = inf._greedy_next(draft, hidden[:, 0])[:, None]
+        drafts.append(token)
+    d_tok = torch.cat(drafts[:gamma], dim=1)                     # [B, g]
+    steps = torch.arange(gamma + 1, dtype=positions.dtype,
+                         device=positions.device)
+    hidden = target(torch.cat([tokens, d_tok], dim=1),
+                    positions=positions[:, None] + steps, cache=t_cache,
+                    return_hidden=True)
+    t_tok = inf._greedy_next(target, hidden)                     # [B, g+1]
+    match = (d_tok == t_tok[:, :gamma]).to(torch.int32)
+    accepted = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)
+    a_slot = torch.where(active, accepted, 0)
+    block = torch.where(steps[None, :] < a_slot[:, None],
+                        torch.nn.functional.pad(d_tok, (0, 1)), t_tok)
+    rewind = torch.where(active, gamma - a_slot, gamma + 1)
+    inf._rewind_cache(t_cache, rewind)
+    inf._rewind_cache(d_cache, rewind)
+    new_tok = block.gather(1, a_slot[:, None].long())
+    tokens.copy_(torch.where(active[:, None], new_tok, tokens))
+    positions.add_(torch.where(active, a_slot + 1, 0))
+    return torch.cat([block, a_slot[:, None]], dim=1)
 
 
 def _dense_prefill(model, prefill_chunk, prompt, prompt_len, small=None,
@@ -107,6 +159,24 @@ class Request:
 
 
 @dataclasses.dataclass
+class SpeculativeConfig:
+    """Draft model for ENGINE-INTEGRATED speculative decoding: each
+    engine step drafts ``gamma`` tokens a slot with the draft model,
+    verifies every slot's [y, d_1..d_gamma] block in one target forward,
+    then commits and rewinds per slot. Greedy-exact: the tokens equal the
+    non-speculative engine's for any draft (only throughput changes),
+    bit for bit in fp32 on the CPU; at reduced precision, or where the
+    card picks other GEMM kernels for the verify block than for a single
+    step, an argmax near-tie can resolve the other way (the reference's
+    caveat, docs/15-serving.md). The draft always uses a dense KV cache
+    (O(1) cursor rewind); the target may be dense or paged.
+    ``draft_params`` is the draft's state dict (models/convert.py)."""
+    draft_config: tfm.TransformerConfig
+    draft_params: dict
+    gamma: int = 4
+
+
+@dataclasses.dataclass
 class _Slot:
     request: Optional[Request] = None
     generated: list[int] = dataclasses.field(default_factory=list)
@@ -149,6 +219,7 @@ class ContinuousBatcher:
                  prefill_chunk: Optional[int] = None,
                  on_token: Optional[
                      Callable[[str, int, int], None]] = None,
+                 speculative: Optional[SpeculativeConfig] = None,
                  prefix_cache: bool = True,
                  slo_shed_grace_ms: Optional[float] = None,
                  tpot_stall_factor: float = 4.0,
@@ -175,7 +246,11 @@ class ContinuousBatcher:
         decodes (a multiple of their tightest TPOT target).
 
         prefill_chunk caps the prefill insert length (the score tensor
-        shrinks to O(chunk * max_decode_len)); use a power of two."""
+        shrinks to O(chunk * max_decode_len)); use a power of two.
+
+        speculative (a SpeculativeConfig) turns every step into a
+        draft/verify round; it needs greedy sampling, gamma >= 1, a
+        dense-cache draft and the target's vocabulary."""
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
@@ -194,6 +269,37 @@ class ContinuousBatcher:
         self.on_shed: Optional[Callable[[str, str], None]] = None
         self.preemptions = 0
         self.decode_steps = 0
+        self.speculative = speculative
+        self.gamma = speculative.gamma if speculative else 0
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        if speculative is not None:
+            if speculative.gamma < 1:
+                raise ValueError(
+                    f"speculative gamma must be >= 1, got "
+                    f"{speculative.gamma}")
+            if sampling.temperature > 0:
+                raise ValueError(
+                    "speculative serving is greedy-exact (draft "
+                    "acceptance compares argmax chains); it requires "
+                    "temperature == 0 sampling")
+            if speculative.draft_config.kv_page_size:
+                raise ValueError(
+                    "the draft model uses a dense KV cache (O(1) "
+                    "index rewind); clear kv_page_size on the draft "
+                    "config")
+            if speculative.draft_config.vocab_size != config.vocab_size:
+                raise ValueError(
+                    "draft/target vocab_size must match (acceptance "
+                    "compares token ids)")
+            # The verify block is a multi-token insert of gamma+1 tokens
+            # from up to max_decode_len - 2: the target's cache takes its
+            # tail writes past max_decode_len (transformer.py
+            # spec_window: table entries on the scratch page, or extra
+            # dense rows).
+            self.config = dataclasses.replace(self.config,
+                                              spec_window=self.gamma)
         if overcommit and not self.paged:
             raise ValueError("overcommit requires the paged KV cache "
                              "(kv_page_size)")
@@ -205,7 +311,8 @@ class ContinuousBatcher:
                 kv_num_pages = num_slots * (
                     max_decode_len // kv_page_size)
             self.page_size = kv_page_size
-            self.max_blocks = max_decode_len // kv_page_size
+            self.max_blocks = -(-(max_decode_len + self.gamma)
+                                // kv_page_size)
             self._free_pages = list(range(kv_num_pages))
             # Reservation budget (see _admit): worst-case pages per
             # request, so lazy growth during decode cannot deadlock.
@@ -280,10 +387,21 @@ class ContinuousBatcher:
         self._positions_host = [0] * num_slots
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
-        # The captured decode step (CUDA only): the graph and its
-        # sampled tokens [B].
+        # The captured step (CUDA only): the graph and its output, the
+        # sampled tokens [B] (decode) or the block and a_i [B, gamma+2]
+        # (speculative).
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._graph_tokens: Optional[torch.Tensor] = None
+        if speculative is not None:
+            # The draft: a dense cache with gamma+1 extra rows, so a draft
+            # block starting at max_decode_len - 2 stays inside it. It
+            # shares nothing with the target.
+            self._draft_model = self._load_model(
+                inf.decode_config(speculative.draft_config,
+                                  max_decode_len + self.gamma + 1),
+                speculative.draft_params)
+            self._draft_cache = inf.init_cache(self._draft_model,
+                                               num_slots)
 
     def _load_model(self, config: tfm.TransformerConfig,
                     params: dict) -> tfm.TransformerLM:
@@ -304,9 +422,10 @@ class ContinuousBatcher:
         before real traffic, so the kernel library is built and loaded
         (and the caching allocator primed) outside any measured
         request; on a CUDA device its first decode step also captures
-        the decode graph that every later step replays. Leaves the
-        prefix index and its counters empty. Returns the prefill bucket
-        warmed."""
+        the step graph that every later step replays (the speculative
+        step's, with a draft model). Leaves the prefix index, its
+        counters and the speculative counters empty. Returns the prefill
+        bucket warmed."""
         length = min(prompt_len, self.max_decode_len - max_new_tokens)
         self.submit(Request(
             request_id=f"__warmup__{uuid.uuid4().hex[:8]}",
@@ -314,6 +433,7 @@ class ContinuousBatcher:
             max_new_tokens=max_new_tokens))
         while self.pending():
             self.step()
+        self.spec_rounds = self.spec_proposed = self.spec_accepted = 0
         if self.prefix_cache:
             self.prefix_cache_clear()
             self.prefix_lookups = 0
@@ -385,8 +505,9 @@ class ContinuousBatcher:
 
     @torch.no_grad()
     def step(self) -> list[tuple[str, list[int]]]:
-        """Admit queued requests into free slots, decode one token for
-        every active slot, and emit finished requests."""
+        """Admit queued requests into free slots, decode for every active
+        slot (one token, or with a draft model a gamma-token draft/verify
+        block a slot), and emit finished requests."""
         self._admit()
         # Slots whose prefill-sampled token already satisfied the
         # request emit without a decode step.
@@ -402,6 +523,8 @@ class ContinuousBatcher:
                 self._free_slot(i)
         if not any(s.request is not None for s in self._slots):
             return emitted
+        if self.speculative is not None:
+            return emitted + self._step_speculative()
         if self.paged:
             self._grow_pages()
         t0 = time.monotonic()
@@ -430,11 +553,74 @@ class ContinuousBatcher:
                 self._free_slot(i)
         return emitted
 
+    def _step_speculative(self) -> list[tuple[str, list[int]]]:
+        """One ragged draft/verify/commit round (``_speculative_step``):
+        slots advance by different amounts, so the host bookkeeping is
+        variable-stride: each slot appends its own 1..gamma+1 committed
+        tokens, with per-token eos/max_new_tokens checks so a slot can
+        stop mid-block (the rest of the block is discarded; its cache
+        rows recycle with the slot). The host reads the block and a_i
+        once, in one copy."""
+        if self.paged:
+            self._grow_pages(span=self.gamma)
+        t0 = time.monotonic()
+        if self._graph is not None:
+            out = self._replay_decode()
+        else:
+            out = self._eager_speculative()
+            if self.device.type == "cuda":
+                self.capture_decode()
+        out_host = out.cpu().tolist()
+        self.decode_steps += 1
+        self._record_step_time(t0)
+        emitted: list[tuple[str, list[int]]] = []
+        n_active = 0
+        for i, slot in enumerate(self._slots):
+            req = slot.request
+            if req is None:
+                continue
+            n_active += 1
+            accepted = out_host[i][-1]
+            self.spec_accepted += accepted
+            self._positions_host[i] += accepted + 1
+            for token in out_host[i][:accepted + 1]:
+                slot.generated.append(token)
+                if self.on_token is not None:
+                    self.on_token(req.request_id, token,
+                                  len(slot.generated) - 1)
+                if (len(slot.generated) >= req.max_new_tokens or
+                        (req.eos_id is not None and
+                         token == req.eos_id)):
+                    emitted.append((req.request_id,
+                                    list(slot.generated)))
+                    self._free_slot(i)
+                    break
+        self.spec_rounds += 1
+        self.spec_proposed += self.gamma * n_active
+        return emitted
+
+    def spec_stats(self) -> Optional[dict]:
+        """Speculative counters, or None without a draft model.
+        acceptance_rate = accepted / proposed; tokens per target forward
+        is 1 + acceptance_rate * gamma."""
+        if self.speculative is None:
+            return None
+        return {
+            "gamma": self.gamma,
+            "rounds": self.spec_rounds,
+            "proposed": self.spec_proposed,
+            "accepted": self.spec_accepted,
+            "acceptance_rate": (
+                self.spec_accepted / self.spec_proposed
+                if self.spec_proposed else 0.0),
+        }
+
     def capture_decode(self) -> None:
-        """Capture one decode step (``_decode_step`` over the engine's
-        model, cache, token, position and active tensors) into a CUDA
-        graph on a side stream; ``step`` replays it from then on. The
-        kernel libraries must be loaded first (one eager step does it).
+        """Capture one step of the engine (``_decode_step``, or with a
+        draft model ``_speculative_step``, over the engine's models,
+        caches, token, position and active tensors) into a CUDA graph on
+        a side stream; ``step`` replays it from then on. The kernel
+        libraries must be loaded first (one eager step does it).
         Capturing records the step without running it, so no state
         moves. The kernel wrappers count their launches here, once: a
         replay relaunches the captured kernels without calling the
@@ -451,18 +637,27 @@ class ContinuousBatcher:
             # draw does.
             graph.register_generator_state(self._generator)
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            tokens = _decode_step(
-                self.model, self.sampling, self.cache, self._tokens,
-                self._positions, self._active, self._generator)
-        self._graph, self._graph_tokens = graph, tokens
+            if self.speculative is not None:
+                out = self._eager_speculative()
+            else:
+                out = _decode_step(
+                    self.model, self.sampling, self.cache, self._tokens,
+                    self._positions, self._active, self._generator)
+        self._graph, self._graph_tokens = graph, out
 
     def _eager_decode(self) -> torch.Tensor:
         return _decode_step(self.model, self.sampling, self.cache,
                             self._tokens, self._positions, self._active,
                             self._generator)
 
+    def _eager_speculative(self) -> torch.Tensor:
+        return _speculative_step(self.model, self._draft_model, self.gamma,
+                                 self.cache, self._draft_cache,
+                                 self._tokens, self._positions,
+                                 self._active)
+
     def _replay_decode(self) -> torch.Tensor:
-        """One decode step through the captured graph."""
+        """One step through the captured graph: its output tensor."""
         self._graph.replay()
         return self._graph_tokens
 
@@ -564,10 +759,16 @@ class ContinuousBatcher:
         self._avail_pages += self._slot_reserved[slot]
         self._slot_reserved[slot] = 0
 
-    def _grow_pages(self) -> None:
+    def _grow_pages(self, span: int = 0) -> None:
         """Allocate pages so every active slot's table covers its next
-        write position; growth appends OWNED pages only. In overcommit
-        mode an empty free list preempts a victim instead of raising."""
+        write positions pos..min(pos + span, total - 1): span 0 is the
+        one-token decode step, span gamma the speculative verify block,
+        which can cross several page boundaries. Capped at the slot's
+        worst-case commit range (tail writes past it land on the scratch
+        page through the table's default), so it never exceeds the
+        admission reservation. Growth appends OWNED pages only. In
+        overcommit mode an empty free list preempts a victim instead of
+        raising."""
         positions = self._positions_host
         changed = False
         for i in range(self.num_slots):
@@ -575,7 +776,8 @@ class ContinuousBatcher:
             if req is None:
                 continue
             total = len(req.prompt) + req.max_new_tokens
-            needed = min(positions[i], total - 1) // self.page_size + 1
+            needed = min(positions[i] + span,
+                         total - 1) // self.page_size + 1
             while (len(self._slot_shared[i]) +
                    len(self._slot_pages[i])) < needed:
                 block = (len(self._slot_shared[i]) +
@@ -792,19 +994,23 @@ class ContinuousBatcher:
                                device=self.device)
 
     def _prefill_dense(self, slot: int, prompt: torch.Tensor,
-                       prompt_len: int) -> torch.Tensor:
+                       prompt_len: int, model=None,
+                       cache=None) -> torch.Tensor:
         """Fill ONE slot's dense cache rows from a padded prompt [1, L]
-        (batch-1 forward, copied into the slot row) and set its index to
-        the true prompt length. Returns the last-token logits."""
-        small, last = _dense_prefill(self._dense_model,
-                                     self.prefill_chunk, prompt,
+        (batch-1 forward, copied into the slot's first rows) and set its
+        index to the true prompt length. Returns the last-token logits.
+        ``model`` and ``cache`` default to the target's prefill model and
+        cache (the draft passes its own)."""
+        if model is None:
+            model, cache = self._dense_model, self.cache
+        small, last = _dense_prefill(model, self.prefill_chunk, prompt,
                                      prompt_len)
-        for big, sm in zip(self.cache, small):
+        for big, sm in zip(cache, small):
             for key, value in sm.items():
                 if key == "index":
                     big["index"][slot] = prompt_len
                 else:
-                    big[key][slot] = value[0]
+                    big[key][slot, :value.shape[1]] = value[0]
         return last
 
     def _scatter_pages(self, small: list[dict], src_start: int,
@@ -961,8 +1167,9 @@ class ContinuousBatcher:
                         [suffix_tokens +
                          [0] * (sbucket - len(suffix_tokens))],
                         dtype=torch.int32, device=self.device)
-                    prefix_ids = np.full((self.max_blocks,),
-                                         self._scratch_page, np.int32)
+                    prefix_ids = np.full(
+                        (self.max_decode_len // self.page_size,),
+                        self._scratch_page, np.int32)
                     prefix_ids[:m] = matched
                     suffix_row = np.full((self.max_blocks,),
                                          self._scratch_page, np.int32)
@@ -981,6 +1188,13 @@ class ContinuousBatcher:
                 if self.on_admit is not None:
                     self.on_admit(req.request_id)
                 last_logits = self._prefill_dense(i, prompt, len(tokens))
+            if self.speculative is not None:
+                # The draft cache must hold the same committed prefix (the
+                # speculative step's invariant); its logits are unused:
+                # the first token comes from the TARGET's prefill.
+                self._prefill_dense(i, prompt, len(tokens),
+                                    model=self._draft_model,
+                                    cache=self._draft_cache)
             first = int(inf._sample(last_logits[None], self._generator,
                                     self.sampling)[0])
             # The prefill-sampled token IS the next generated token.

@@ -30,8 +30,8 @@ every layer's dict holds the same ``block_table`` tensor, so the serving
 engine writes one table for all layers. Single-token decode steps reach
 the CUDA kernels: paged caches through ``ops.paged_attention`` (K6, K7
 for int8 pages), the dense int8 cache through ``ops.decode_attention``
-(K8). Multi-token inserts (prefill) are a plain masked softmax, as in
-the reference.
+(K8). Multi-token inserts (prefill, and the speculative verify block,
+dense or paged) are a plain masked softmax, as in the reference.
 
 Tensor parallelism (``tp_group``, the reference's ``tp_axis``): a
 RingGroup of tp ranks. Each rank builds its local n_heads / tp heads and
@@ -103,8 +103,8 @@ from batch_shipyard_tpu_torch.ops.quantization import (dequantize_int8,
 class TransformerConfig:
     """The reference's field names for what the dense training forward
     and the decode path read (``tp_group`` in place of ``tp_axis``). The
-    fields of paths not ported yet (moe, the speculative ``spec_window``)
-    arrive with the slices that port them."""
+    fields of paths not ported yet (moe) arrive with the slices that port
+    them."""
     vocab_size: int = 32000
     d_model: int = 512
     n_layers: int = 4
@@ -143,6 +143,16 @@ class TransformerConfig:
     # Paged KV cache: page size and pool pages; None = dense cache.
     kv_page_size: Optional[int] = None
     kv_num_pages: int = 0
+    # Speculative-decode write margin (the serving engine sets it to
+    # gamma): a multi-token insert of up to spec_window + 1 tokens may
+    # start at max_decode_len - 2. The paged block table gets
+    # ceil((max_decode_len + spec_window) / page) entries, so the tail
+    # writes of a verify block reach table entries that point at the
+    # scratch page instead of clamping onto a real page; the dense cache
+    # gets spec_window extra rows, masked to every query inside
+    # max_decode_len, which take those writes where the reference drops
+    # them, so the insert keeps one shape (a captured graph holds it).
+    spec_window: int = 0
     # "kernel" | "reference" | None (kernel for CUDA tensors, plain
     # version for CPU tensors): ops/paged_attention, ops/decode_attention.
     paged_attention_impl: Optional[str] = None
@@ -378,14 +388,15 @@ class Attention(nn.Module):
                                 cfg.tp_group)
 
     def _decode_attend(self, q, k, v, cache: dict):
-        """Dense cache [B, L, H, D] with a per-slot write index [B].
-        seq == 1 is the decode step; seq > 1 is the batched prefill /
-        chunked insert, which attends causally over absolute cache
-        positions (query s at idx+s sees keys <= idx+s)."""
+        """Dense cache [B, L, H, D] with a per-slot write index [B]
+        (L = max_decode_len + spec_window rows). seq == 1 is the decode
+        step; seq > 1 is the batched prefill / chunked insert, or the
+        speculative verify block, which attends causally over absolute
+        cache positions (query s at idx+s sees keys <= idx+s)."""
         cfg = self.config
         int8_kv = cfg.kv_cache_dtype == "int8"
         batch, seq = q.shape[0], q.shape[1]
-        length = cfg.max_decode_len
+        length = cache["k"].shape[1]
         idx = cache["index"].clone()
         rows = torch.arange(batch, device=q.device)
         key_pos = torch.arange(length, device=q.device)
@@ -405,15 +416,27 @@ class Attention(nn.Module):
         else:
             cols = idx[:, None].long() + torch.arange(
                 seq, device=q.device)[None, :]             # [B, S]
-            # Inserts running past the cache end drop those rows (the
-            # reference's out-of-bounds scatter semantics).
-            valid = cols < length
-            dst = (rows[:, None].expand_as(cols)[valid], cols[valid])
-
-            def take(t):
-                return t[valid]
             mask = (key_pos[None, None, :] <=
                     cols[:, :, None])[:, None, :, :]       # [B,1,S,T]
+            if cfg.spec_window:
+                # One shape, no host read: a live slot's verify block
+                # (from at most max_decode_len - 2) ends inside the
+                # spec_window rows, so only freed slots, whose rows are
+                # all garbage, run past the end; they clamp onto their
+                # own last row.
+                dst = (rows[:, None].expand_as(cols),
+                       cols.clamp(max=length - 1))
+
+                def take(t):
+                    return t
+            else:
+                # Inserts running past the cache end drop those rows
+                # (the reference's out-of-bounds scatter semantics).
+                valid = cols < length
+                dst = (rows[:, None].expand_as(cols)[valid], cols[valid])
+
+                def take(t):
+                    return t[valid]
         cache["k"][dst] = take(k_in).to(cache["k"].dtype)
         cache["v"][dst] = take(v_in).to(cache["v"].dtype)
         if int8_kv:
@@ -437,25 +460,36 @@ class Attention(nn.Module):
 
     def _decode_attend_paged(self, q, k, v, cache: dict):
         """Paged cache: K/V in a shared pool [P, page, H, D]; each slot
-        writes at its length through its block-table row, then attends
-        over its live pages (K6/K7). Multi-token paged inserts are the
-        speculative verify pass of the reference, not ported yet."""
+        writes its tokens at length + s through its block-table row.
+        seq == 1 attends over the slot's live pages (K6/K7). seq > 1 is
+        the speculative verify block ([y, d_1..d_gamma] at consecutive
+        positions): table entries past the slot's allocation point at
+        the engine's scratch page, which takes the never-committed tail
+        writes (spec_window guarantees a live slot's block stays inside
+        the table), then the slot's whole logical view is gathered (int8
+        pages dequantized with their scales) and attended causally over
+        absolute positions, the reference's XLA path."""
         cfg = self.config
         int8_kv = cfg.kv_cache_dtype == "int8"
-        if q.shape[1] != 1:
+        batch, seq, heads, depth = q.shape
+        if seq > cfg.spec_window + 1:
             raise ValueError(
-                f"paged decode insert of {q.shape[1]} tokens: the paged "
-                f"cache takes one token per call (prefill runs on the "
-                f"dense model and scatters into pages)")
+                f"paged decode insert of {seq} tokens needs "
+                f"spec_window >= {seq - 1} (got {cfg.spec_window}) "
+                f"so tail writes spill onto scratch-backed table "
+                f"entries instead of live pages")
         page = cfg.kv_page_size
         table = cache["block_table"]
+        max_blocks = table.shape[1]
         idx = cache["length"].clone()
+        cols = idx[:, None].long() + torch.arange(
+            seq, device=q.device)[None, :]                 # [B, S]
         # Freed slots step past their table; clamping keeps their
         # writes on the scratch page their rows point at.
-        block = (idx // page).clamp(max=table.shape[1] - 1).long()
-        page_idx = table.gather(1, block[:, None])[:, 0].long()
-        offset = (idx % page).long()
-        k_in, v_in = k[:, 0], v[:, 0]
+        block = (cols // page).clamp(max=max_blocks - 1)
+        page_idx = table.gather(1, block).long()
+        offset = cols % page
+        k_in, v_in = k, v
         if int8_kv:
             k_in, ks = quantize_int8_rows(k_in)
             v_in, vs = quantize_int8_rows(v_in)
@@ -465,13 +499,30 @@ class Attention(nn.Module):
             cache["k_pages"].dtype)
         cache["v_pages"][page_idx, offset] = v_in.to(
             cache["v_pages"].dtype)
-        cache["length"].add_(1)
-        return paged_ops.paged_decode_attention(
-            q, cache["k_pages"], cache["v_pages"], table,
-            cache["length"], impl=cfg.paged_attention_impl,
-            k_scales=cache["k_page_scales"] if int8_kv else None,
-            v_scales=cache["v_page_scales"] if int8_kv else None).to(
-                cfg.dtype)
+        cache["length"].add_(seq)
+        if seq == 1:
+            return paged_ops.paged_decode_attention(
+                q, cache["k_pages"], cache["v_pages"], table,
+                cache["length"], impl=cfg.paged_attention_impl,
+                k_scales=cache["k_page_scales"] if int8_kv else None,
+                v_scales=cache["v_page_scales"] if int8_kv else None).to(
+                    cfg.dtype)
+        # Every key a COMMITTED query sees is prior committed state or
+        # written by this block; scratch-page garbage only reaches draft
+        # positions whose logits are discarded.
+        ids = table.long()
+        rows = max_blocks * page
+        k_all = cache["k_pages"][ids].reshape(batch, rows, heads, depth)
+        v_all = cache["v_pages"][ids].reshape(batch, rows, heads, depth)
+        if int8_kv:
+            ks_all = cache["k_page_scales"][ids].reshape(batch, rows, heads)
+            vs_all = cache["v_page_scales"][ids].reshape(batch, rows, heads)
+            k_all = (k_all.float() * ks_all[..., None]).to(cfg.dtype)
+            v_all = (v_all.float() * vs_all[..., None]).to(cfg.dtype)
+        key_pos = torch.arange(rows, device=q.device)
+        mask = (key_pos[None, None, :] <=
+                cols[:, :, None])[:, None, :, :]           # [B,1,S,T]
+        return paged_ops.masked_attention(q, k_all, v_all, mask)
 
 
 def prefix_rows_from_pages(layer_cache: dict, page_ids,

@@ -50,7 +50,10 @@
 //      least 64, so 63 of 64 rows would be padding). q.k: D/8 lanes a row,
 //      8 values a lane, a shuffle reduction; the block then takes one max
 //      and one sum over its scores; P.V: each warp takes every fourth row,
-//      each lane D/32 output values. The tiles land unswizzled: every read
+//      each lane D/32 output values (at D 16, the draft model's depth, a
+//      half-warp takes a row, each lane one value, and the two halves'
+//      sums meet by one shuffle; an int8 row is then 16 bytes, TMA's
+//      narrowest box). The tiles land unswizzled: every read
 //      is of whole rows by consecutive lanes, so the 8 lanes of a
 //      quarter-warp (or the 32 of a warp, for narrower loads) read one
 //      contiguous span and hit distinct banks without a swizzle.
@@ -222,13 +225,19 @@ __device__ __forceinline__ void decode_cluster(const CUtensorMap* k_map,
   constexpr int kGroups = kPagedThreads / kLanes;
   constexpr int kChunk = 16 / kElt < kVec ? 16 / kElt : kVec;
   constexpr int kChunks = kVec / kChunk;
-  // P.V: warp w takes rows w, w + 4, ...; lane l owns kDims output values,
-  // in chunks of kVChunk starting at (c * 32 + l) * kVChunk.
-  constexpr int kDims = D / 32;
+  // P.V: a row's D values over kVLanes lanes (the warp's 32; at D 16 a
+  // half-warp, so a warp takes kVRows = 2 rows at once): warp w takes rows
+  // w * kVRows + lane / kVLanes, then kPagedWarps * kVRows further on; lane
+  // l of its row owns kDims output values, in chunks of kVChunk starting at
+  // (c * kVLanes + l % kVLanes) * kVChunk. The row groups' sums meet by
+  // shuffle after the loop.
+  constexpr int kVLanes = D < 32 ? D : 32;
+  constexpr int kVRows = 32 / kVLanes;
+  constexpr int kDims = D / kVLanes;
   constexpr int kVChunk = 16 / kElt < kDims ? 16 / kElt : kDims;
   constexpr int kVChunks = kDims / kVChunk;
-  static_assert(kLanes <= 32 && (kLanes & (kLanes - 1)) == 0 && kDims >= 1,
-                "D must be 32, 64, 128 or 256");
+  static_assert(kLanes >= 2 && kLanes <= 32 && (kLanes & (kLanes - 1)) == 0,
+                "D must be 16, 32, 64, 128 or 256");
 
   __shared__ uint64_t bars[kMaxStages];
   __shared__ float s_part[kPagedWarps][D];
@@ -425,12 +434,14 @@ __device__ __forceinline__ void decode_cluster(const CUtensorMap* k_map,
         reinterpret_cast<const TKV*>(ring + stage * a.stage_stride);
     int r0;
     const int valid = tile_span(j - k_tiles, &r0);
-    for (int t = warp; t < valid; t += kPagedWarps) {
+    for (int t = warp * kVRows + lane / kVLanes; t < valid;
+         t += kPagedWarps * kVRows) {
       const float p = s_p[r0 + t];
 #pragma unroll
       for (int c = 0; c < kVChunks; ++c) {
         float vf[kVChunk];
-        load_vec<TKV, kVChunk>(tile + t * D + (c * 32 + lane) * kVChunk, vf);
+        load_vec<TKV, kVChunk>(
+            tile + t * D + (c * kVLanes + lane % kVLanes) * kVChunk, vf);
 #pragma unroll
         for (int e = 0; e < kVChunk; ++e) acc[c * kVChunk + e] += p * vf[e];
       }
@@ -441,10 +452,18 @@ __device__ __forceinline__ void decode_cluster(const CUtensorMap* k_map,
     }
   }
 #pragma unroll
-  for (int c = 0; c < kVChunks; ++c)
+  for (int e = 0; e < kDims; ++e)
 #pragma unroll
-    for (int e = 0; e < kVChunk; ++e)
-      s_part[warp][(c * 32 + lane) * kVChunk + e] = acc[c * kVChunk + e];
+    for (int off = kVLanes; off < 32; off *= 2)
+      acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+  if (lane < kVLanes) {
+#pragma unroll
+    for (int c = 0; c < kVChunks; ++c)
+#pragma unroll
+      for (int e = 0; e < kVChunk; ++e)
+        s_part[warp][(c * kVLanes + lane) * kVChunk + e] =
+            acc[c * kVChunk + e];
+  }
   __syncthreads();
   if (solo) {  // rank 0 holds the whole slot
     TQ* o = static_cast<TQ*>(a.out) + static_cast<size_t>(bh) * D;
@@ -596,6 +615,7 @@ cudaError_t paged_depth(int depth, const void* q, const void* k,
                                out, batch, heads, page, max_blocks,        \
                                num_pages, splits, scale, stream)
   switch (depth) {
+    case 16: return BS_PAGED(16);
     case 32: return BS_PAGED(32);
     case 64: return BS_PAGED(64);
     case 128: return BS_PAGED(128);
@@ -641,6 +661,7 @@ cudaError_t dense_depth(int depth, const void* q, const void* k,
   launch_dense<TQ, DEPTH>(q, k, v, k_scale, v_scale, lengths, out, batch,  \
                           rows, heads, splits, tile_rows, scale, stream)
   switch (depth) {
+    case 16: return BS_DENSE(16);
     case 32: return BS_DENSE(32);
     case 64: return BS_DENSE(64);
     case 128: return BS_DENSE(128);

@@ -36,7 +36,7 @@ from batch_shipyard_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-SUPPORTED_DEPTHS = (32, 64, 128, 256)
+SUPPORTED_DEPTHS = (16, 32, 64, 128, 256)
 
 # Kernel launches by kernel name: each wrapper adds one where it
 # launches, and nowhere else (chip_smoke.py zeroes and reads these).

@@ -2,6 +2,8 @@
 
     python -m batch_shipyard_tpu_torch.trace.decode_profile \
         [--kv-cache paged|paged_int8|dense_int8] [--steps 16]
+    python -m batch_shipyard_tpu_torch.trace.decode_profile --speculative \
+        [--kv-cache dense|paged|paged_int8] [--steps 16]
 
 Builds the serving benchmark engine (``workloads.serve.
 build_bench_engine``: bench.py ``bench_serving``'s vocab 32000, d_model
@@ -21,6 +23,14 @@ kernel intervals) and idle share (of the profiled window, and of the
 unprofiled wall time), the decode-attention kernel's launches and
 share, and the largest device kernels and host operators. Runs on CUDA
 only.
+
+With ``--speculative`` the engine is bench.py
+``bench_serving_speculative``'s (``workloads.serve.
+build_bench_speculative_engine``: the same target with the 256-wide
+2-layer draft, gamma 4) and each step read is a replay of the captured
+draft/verify step; the decode-attention launches then count both
+cluster kernels (on that path only the int8 draft's K8 runs, (gamma + 1)
+x 2 a step).
 """
 
 from __future__ import annotations
@@ -39,7 +49,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from batch_shipyard_tpu_torch.models.serving import Request
 from batch_shipyard_tpu_torch.workloads.serve import (
-    BENCH_SERVING_KV_CACHES, build_bench_engine)
+    BENCH_SERVING_KV_CACHES, BENCH_SPECULATIVE_CACHES, build_bench_engine,
+    build_bench_speculative_engine)
 
 PROMPT = 96
 # The decode-attention kernel of each cache, as its mangled name starts
@@ -47,6 +58,8 @@ PROMPT = 96
 ATTENTION_KERNEL = {"paged": "paged_decode_cluster_kernel",
                     "paged_int8": "paged_decode_cluster_kernel",
                     "dense_int8": "dense_decode_cluster_kernel"}
+# Every decode-attention kernel (K6/K7's and K8's).
+DECODE_ATTENTION_KERNELS = tuple(sorted(set(ATTENTION_KERNEL.values())))
 
 
 # The profiler can lose the first kernels it should see while it starts
@@ -96,9 +109,13 @@ def fill_slots(engine) -> None:
         engine.step()
 
 
-def profile_engine(engine, kv_cache: str, steps: int) -> dict:
+def profile_engine(engine, kv_cache: str, steps: int,
+                   attention: tuple = ()) -> dict:
     """The reading of ``steps`` pure decode steps of a warmed-up engine
-    with every slot free (``kv_cache`` names its cache)."""
+    with every slot free (``kv_cache`` names its cache). The attention
+    share reads the kernels whose names hold one of ``attention``
+    (default: the cache's own kernel)."""
+    attention = attention or (ATTENTION_KERNEL[kv_cache],)
     slots = engine.num_slots
     fill_slots(engine)
     torch.cuda.synchronize()
@@ -135,7 +152,7 @@ def profile_engine(engine, kv_cache: str, steps: int) -> dict:
     window_us = (max(s for _, s in intervals) -
                  min(s for s, _ in intervals))
     attention = [name for name in by_name
-                 if ATTENTION_KERNEL[kv_cache] in name]
+                 if any(kernel in name for kernel in attention)]
     attention_us = sum(by_name[name] for name in attention)
     host_ops = collections.Counter()
     for avg in prof.key_averages():
@@ -150,6 +167,7 @@ def profile_engine(engine, kv_cache: str, steps: int) -> dict:
     return {
         "kv_cache": kv_cache, "card": smi, "steps": steps,
         "graph": engine._graph is not None,
+        "speculative": engine.spec_stats(),
         "wall_ms_per_step": wall_ms,
         "profiled_window_ms_per_step": window_us / 1e3 / steps,
         "device_busy_ms_per_step": busy_ms,
@@ -173,7 +191,12 @@ def profile_engine(engine, kv_cache: str, steps: int) -> dict:
     }
 
 
-def run(kv_cache: str, steps: int) -> dict:
+def run(kv_cache: str, steps: int, speculative: bool = False) -> dict:
+    if speculative:
+        engine = build_bench_speculative_engine(kv_cache, "cuda")
+        engine.warmup()
+        return profile_engine(engine, kv_cache, steps,
+                              DECODE_ATTENTION_KERNELS)
     engine = build_bench_engine(kv_cache, "cuda")
     engine.warmup()
     return profile_engine(engine, kv_cache, steps)
@@ -182,11 +205,21 @@ def run(kv_cache: str, steps: int) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--kv-cache",
-                        choices=sorted(BENCH_SERVING_KV_CACHES),
+                        choices=sorted(set(BENCH_SERVING_KV_CACHES) |
+                                       set(BENCH_SPECULATIVE_CACHES)),
                         default="paged")
+    parser.add_argument("--speculative", action="store_true",
+                        help="profile bench_serving_speculative's engine "
+                        "(caches: dense, paged, paged_int8)")
     parser.add_argument("--steps", type=int, default=16)
     args = parser.parse_args(argv)
-    print(json.dumps(run(args.kv_cache, args.steps)), flush=True)
+    caches = (BENCH_SPECULATIVE_CACHES if args.speculative
+              else BENCH_SERVING_KV_CACHES)
+    if args.kv_cache not in caches:
+        parser.error(f"--kv-cache {args.kv_cache} is not one of "
+                     f"{sorted(caches)}")
+    print(json.dumps(run(args.kv_cache, args.steps, args.speculative)),
+          flush=True)
     return 0
 
 

@@ -21,6 +21,15 @@ models/convert.unfused_params). It prints ``serving checkpoint step N
 from D``. Without --loadgen the server runs until terminated; with it, the benchmark runs
 against the in-process server, writes the JSON report, prints it as
 the last stdout line and exits nonzero if any request failed.
+
+``--speculative`` serves with the engine's draft/verify loop
+(models/serving.SpeculativeConfig, greedy only): a draft of
+``--draft-d-model`` / ``--draft-n-layers`` / ``--draft-d-ff`` (default 3 x
+its d_model) over the target's head count and vocabulary, with the
+target's ``--kv-cache-dtype`` on its dense cache, weights from ``--seed``
++ 7 or restored from ``--draft-checkpoint-dir``; ``--gamma`` tokens
+drafted a slot a step. The report then carries ``speculative`` (gamma,
+proposed, accepted, acceptance_rate).
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from typing import Optional
 
 import torch
 
@@ -53,6 +63,20 @@ BENCH_SERVING_KV_CACHES = {
                                 kv_num_pages=40)),
     "dense_int8": ("int8", {}),
 }
+# bench.py ``bench_serving_speculative``: the same target, gamma 4, and a
+# draft of d_model 256, 2 layers, the target's 16 heads (depth 16) and
+# d_ff 3 x 256, weights from seed + 7, on a dense cache of the target's
+# cache dtype. Its caches: dense (the bench's default), paged page 64
+# (its kv_page_size variant) and paged int8, whose draft is on the dense
+# int8 cache (K8 at depth 16). chip_smoke.py serves these.
+BENCH_DRAFT_MODEL = dict(d_model=256, n_layers=2, n_heads=16, d_head=16,
+                         d_ff=768)
+BENCH_SPEC_GAMMA = 4
+BENCH_SPECULATIVE_CACHES = {
+    "dense": (None, {}),
+    "paged": (None, dict(kv_page_size=64)),
+    "paged_int8": ("int8", dict(kv_page_size=64)),
+}
 
 
 def build_bench_engine(kv_cache: str, device,
@@ -64,12 +88,45 @@ def build_bench_engine(kv_cache: str, device,
     config = tfm.TransformerConfig(
         **BENCH_SERVING_MODEL, max_seq_len=BENCH_SERVING_MAX_LEN,
         dtype=torch.bfloat16, kv_cache_dtype=kv_dtype)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
     return serving.ContinuousBatcher(
-        config, init_params(config, generator),
+        config, bench_params(config, device, seed),
         num_slots=BENCH_SERVING_SLOTS,
         max_decode_len=BENCH_SERVING_MAX_LEN, device=device, **kwargs)
+
+
+def bench_params(config: tfm.TransformerConfig, device, seed: int) -> dict:
+    """``config``'s weights drawn from ``seed`` on ``device``."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    return init_params(config, generator)
+
+
+def build_bench_speculative_engine(
+        kv_cache: str, device, seed: int = 0,
+        dtype: torch.dtype = torch.bfloat16,
+        draft: Optional[tuple] = None) -> serving.ContinuousBatcher:
+    """The bench_serving_speculative engine on the named entry of
+    BENCH_SPECULATIVE_CACHES: the bench_serving target in ``dtype`` with
+    weights from ``seed`` and the bench draft from ``seed`` + 7, or
+    ``draft`` = (config, state dict) in its place."""
+    kv_dtype, kwargs = BENCH_SPECULATIVE_CACHES[kv_cache]
+    device = resolve_device(device)
+    config = tfm.TransformerConfig(
+        **BENCH_SERVING_MODEL, max_seq_len=BENCH_SERVING_MAX_LEN,
+        dtype=dtype, kv_cache_dtype=kv_dtype)
+    if draft is None:
+        draft_config = tfm.TransformerConfig(
+            vocab_size=BENCH_SERVING_MODEL["vocab_size"],
+            **BENCH_DRAFT_MODEL, max_seq_len=BENCH_SERVING_MAX_LEN,
+            dtype=dtype, kv_cache_dtype=kv_dtype)
+        draft = (draft_config, bench_params(draft_config, device, seed + 7))
+    return serving.ContinuousBatcher(
+        config, bench_params(config, device, seed),
+        num_slots=BENCH_SERVING_SLOTS,
+        max_decode_len=BENCH_SERVING_MAX_LEN, device=device,
+        speculative=serving.SpeculativeConfig(*draft,
+                                              gamma=BENCH_SPEC_GAMMA),
+        **kwargs)
 
 
 def build_config(args) -> tfm.TransformerConfig:
@@ -114,9 +171,28 @@ def build_params(args, config: tfm.TransformerConfig, device) -> dict:
     ``--seed``."""
     if args.checkpoint_dir:
         return restored_params(args.checkpoint_dir, config)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(args.seed)
-    return init_params(config, generator)
+    return bench_params(config, device, args.seed)
+
+
+def build_draft(args, device) -> serving.SpeculativeConfig:
+    """The draft for --speculative: a small dense-cache transformer over
+    the target's head count and vocabulary, with the target's cache
+    dtype; weights from --seed + 7, or --draft-checkpoint-dir's (a random
+    draft is the worst case: near-zero acceptance, every round falls back
+    to the target's correction token)."""
+    draft_config = tfm.TransformerConfig(
+        vocab_size=args.vocab, d_model=args.draft_d_model,
+        n_layers=args.draft_n_layers, n_heads=args.n_heads,
+        d_head=args.draft_d_model // args.n_heads,
+        d_ff=args.draft_d_ff or args.draft_d_model * 3,
+        max_seq_len=args.max_decode_len, dtype=torch.bfloat16,
+        kv_cache_dtype=args.kv_cache_dtype)
+    draft_args = argparse.Namespace(**vars(args))
+    draft_args.seed = args.seed + 7
+    draft_args.checkpoint_dir = args.draft_checkpoint_dir
+    return serving.SpeculativeConfig(
+        draft_config, build_params(draft_args, draft_config, device),
+        gamma=args.gamma)
 
 
 def build_engine(args) -> serving.ContinuousBatcher:
@@ -130,7 +206,8 @@ def build_engine(args) -> serving.ContinuousBatcher:
         seed=args.seed, kv_page_size=args.kv_page_size,
         kv_num_pages=args.kv_num_pages, overcommit=args.overcommit,
         prefill_chunk=args.prefill_chunk,
-        prefix_cache=not args.no_prefix_cache, device=device)
+        prefix_cache=not args.no_prefix_cache, device=device,
+        speculative=build_draft(args, device) if args.speculative else None)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -162,6 +239,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--no-prefix-cache", action="store_true",
                         help="Disable cross-request prefix reuse in the "
                         "paged pool")
+    # Speculative decoding inside the engine: a small draft proposes
+    # gamma tokens a slot a step, ONE target forward verifies every
+    # slot's block, commits are ragged a slot. Greedy-exact: needs
+    # --temperature 0.
+    parser.add_argument("--speculative", action="store_true",
+                        help="Enable engine-integrated speculative "
+                        "decoding (draft/verify per engine step; "
+                        "greedy-exact)")
+    parser.add_argument("--gamma", type=int, default=4,
+                        help="Draft tokens proposed per slot per engine "
+                        "step")
+    parser.add_argument("--draft-d-model", type=int, default=256)
+    parser.add_argument("--draft-n-layers", type=int, default=2)
+    parser.add_argument("--draft-d-ff", type=int, default=None,
+                        help="Draft MLP width (default 3x draft-d-model)")
+    parser.add_argument("--draft-checkpoint-dir", default=None,
+                        help="serve the draft's parameters from the latest "
+                        "committed step of a train_transformer checkpoint "
+                        "dir (random from --seed + 7 otherwise)")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8900)
     parser.add_argument("--max-inflight", type=int, default=None,
@@ -220,6 +316,11 @@ def main(argv=None) -> int:
         report["prefix_cache"] = {
             key: prefix[key]
             for key in ("hit_tokens", "total_prompt_tokens", "hit_rate")}
+    spec = engine.spec_stats()
+    if spec is not None:
+        report["speculative"] = {
+            key: spec[key]
+            for key in ("gamma", "proposed", "accepted", "acceptance_rate")}
     report["device"] = str(engine.device)
     with open(args.report, "w", encoding="utf-8") as fh:
         json.dump(report, fh, indent=2)

@@ -15,10 +15,12 @@ Phases, each fatal on failure:
      cluster kernel's 4 splits some slots keep every split busy, some
      leave splits empty, one is 0), random block tables and a
      NaN-poisoned dead table tail or cache tail, fp32 / bf16 / int8
-     pages and the dense int8 cache at D 64 and 128; each planted fault
-     of DECODE_FAULTS (paged and dense alike: one split drops a page or
-     a tile, the merge drops a split's denominator, int8 applies the K
-     scale to V), built alone, must fail it. Flash
+     pages and the dense int8 cache at D 64 and 128, and at D 16 (the
+     speculative draft's depth, its dense cache of 517 rows); each
+     planted fault of DECODE_FAULTS (paged and dense alike: one split
+     drops a page or a tile, the merge drops a split's denominator, int8
+     applies the K scale to V), built alone, must fail it at every
+     depth. Flash
      attention (K1 forward, K2 backward): out,
      lse, dq, dk and dv against an fp32 oracle (mha_reference's
      arithmetic with the lse exposed, differentiated by autograd), bf16
@@ -63,7 +65,8 @@ Phases, each fatal on failure:
   3. time every kernel, its plain version and a library yardstick
      (scaled_dot_product_attention; for K3-K5 and K9 the same products
      alone through torch.matmul at the kernel's precision) at the main
-     path's shapes: decode at 8 slots x 16 heads x 64 dims over 512 keys,
+     path's shapes: decode at 8 slots x 16 heads x 64 dims over 512 keys
+     (K8 also at the draft's 16 dims over 517 rows),
      flash at the training shape B16 T2048 H16 D64, causal, bf16 (with
      TFLOP/s, and K2 run twice must give the same bits), the
      loss at N 32768 D 1024 V 32000 (the joint backward with its passes
@@ -193,7 +196,24 @@ Phases, each fatal on failure:
      the same engine: wall and device-busy ms, idle share, the kernel's
      share) must show its kernel, and no other decode-attention kernel,
      launched exactly once per layer a step, and it must agree with
-     the plain attention in a teacher-forced decode of the same tokens.
+     the plain attention in a teacher-forced decode of the same tokens;
+  8. speculative serving (serve_speculative): bench.py
+     bench_serving_speculative's engine (the same target, a draft of
+     d_model 256, 2 layers, 16 heads of depth 16, d_ff 768, seed 7,
+     gamma 4) under its whole load (32 requests at 16 Hz, prompts and
+     generations of 64-128 tokens, seed 0), every step a replay of the
+     draft/verify graph the warm-up captured: (s1) dense target, (s2)
+     paged page 64, (s3) paged int8 with the draft on the dense int8
+     cache (K8 at D 16, (gamma + 1) x 2 launches a step), (s4) a noisy
+     copy of the target as draft (some proposals accepted, some not).
+     Every request must finish; the wrappers and the trace of replayed
+     steps must show K8 in (s3) alone and no K6/K7; 16 replayed steps
+     must equal 16 eager ones; each stream must equal the
+     non-speculative engine's on the same prompt up to its first
+     near-tie, a token whose top-2 logit margin there is below the
+     largest verify-vs-single-step logit difference on teacher-forced
+     tokens (printed, with the streams that stopped early). Then (s1) in
+     fp32 on 8 of the requests under the same rule.
 
 All phases run at full depth but the mesh's (b)-(d) and the checkpoint
 phase's (b). The last two stdout lines are the {"kernels": [...]}
@@ -223,6 +243,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from typing import Optional
 
 import numpy as np
@@ -230,7 +251,7 @@ import torch
 
 from batch_shipyard_tpu_torch.models import inference as inf
 from batch_shipyard_tpu_torch.models import transformer as tfm
-from batch_shipyard_tpu_torch.models.loadgen import run_load
+from batch_shipyard_tpu_torch.models.loadgen import load_requests, run_load
 from batch_shipyard_tpu_torch.models.server import ServingFrontEnd
 from batch_shipyard_tpu_torch.models.serving import (ContinuousBatcher,
                                                      Request)
@@ -252,9 +273,11 @@ from batch_shipyard_tpu_torch.trace import decode_profile, train_profile
 from batch_shipyard_tpu_torch.workloads import distributed
 from batch_shipyard_tpu_torch.workloads import train_transformer as train_wl
 from batch_shipyard_tpu_torch.workloads.serve import (
-    BENCH_SERVING_KV_CACHES, BENCH_SERVING_MAX_LEN as MAX_LEN,
-    BENCH_SERVING_MODEL as MODEL, BENCH_SERVING_SLOTS as SLOTS,
-    build_bench_engine)
+    BENCH_DRAFT_MODEL, BENCH_SERVING_KV_CACHES,
+    BENCH_SERVING_MAX_LEN as MAX_LEN, BENCH_SERVING_MODEL as MODEL,
+    BENCH_SERVING_SLOTS as SLOTS, BENCH_SPEC_GAMMA,
+    BENCH_SPECULATIVE_CACHES, bench_params, build_bench_engine,
+    build_bench_speculative_engine)
 
 PAGE = BENCH_SERVING_KV_CACHES["paged"][1]["kv_page_size"]
 # Published H100 SXM peaks (NVIDIA data sheet, dense): memory rate and
@@ -468,6 +491,13 @@ QUANT_SPLIT_SHAPES = {
 # 129), and one is empty (0).
 DECODE_SOURCE = "batch_shipyard_tpu_torch/ops/csrc/decode_attention.cu"
 DECODE_LENGTHS = [1, 63, 64, 65, 129, 200, 333, 511, 512, 0]
+# The head depths check_kernels runs: the served model's 64, 128, and
+# the speculative draft's 16 (bench.py bench_serving_speculative: d_model
+# 256 over the target's 16 heads), whose dense cache holds DRAFT_ROWS
+# rows (max_decode_len + gamma + 1).
+DRAFT_DEPTH = BENCH_DRAFT_MODEL["d_head"]
+DRAFT_ROWS = MAX_LEN + BENCH_SPEC_GAMMA + 1
+DECODE_DEPTHS = (DRAFT_DEPTH, 64, 128)
 # Faults planted in copies of decode_attention.cu, one build each, each
 # confined to one split of the cluster (decode_cluster, the body both
 # cluster kernels run; the dense ones to dense_decode_cluster_kernel):
@@ -676,19 +706,27 @@ def fault_err(got, want, lengths) -> float:
 
 def check_kernels(device, fault_libs=()) -> dict:
     """Phase 2a: every kernel against its plain version on ragged cases
-    (DECODE_LENGTHS), at D=64 (the served model) and D=128. Each build
-    of ``fault_libs`` (DECODE_FAULTS, one fault each, in order) runs the
-    cases its fault names and must miss the tolerance on at least one.
-    Returns each fault's worst error over tolerance."""
+    (DECODE_LENGTHS), at D=64 (the served model), D=128 and D=16 (the
+    speculative draft's depth; its dense int8 cache has DRAFT_ROWS rows,
+    whose last unit is ragged, and one slot fills them). Each build of
+    ``fault_libs`` (DECODE_FAULTS, one fault each, in order) runs the
+    cases its fault names and must miss the tolerance on at least one at
+    every depth. Returns each fault's worst error over tolerance, over
+    all depths and at each."""
     rng = np.random.default_rng(0)
-    lengths = DECODE_LENGTHS
     max_blocks = MAX_LEN // PAGE
     worst = [0.0] * len(fault_libs)
+    by_depth = {depth: [0.0] * len(fault_libs) for depth in DECODE_DEPTHS}
 
     def faults_of(case: str):
         return [(i, lib) for i, lib in enumerate(fault_libs)
                 if case in DECODE_FAULTS[i][3]]
-    for depth in (64, 128):
+
+    def fault_seen(i, depth, ratio):
+        worst[i] = max(worst[i], ratio)
+        by_depth[depth][i] = max(by_depth[depth][i], ratio)
+    for depth in DECODE_DEPTHS:
+        lengths = DECODE_LENGTHS
         for q_dtype in (torch.float32, torch.bfloat16):
             for int8 in (False, True):
                 name = (f"paged{'_int8' if int8 else ''} D={depth} "
@@ -710,11 +748,13 @@ def check_kernels(device, fault_libs=()) -> dict:
                     faulty = paged_ops.paged_decode_attention_kernel(
                         *args, table, lens, library=lib, **kw)
                     torch.cuda.synchronize()
-                    worst[i] = max(worst[i], fault_err(faulty, want, lens)
-                                   / TOL[q_dtype])
-            name = f"dense_int8 D={depth} q={str(q_dtype)[6:]}"
+                    fault_seen(i, depth, fault_err(faulty, want, lens)
+                               / TOL[q_dtype])
+            rows = DRAFT_ROWS if depth == DRAFT_DEPTH else MAX_LEN
+            name = f"dense_int8 D={depth} L={rows} q={str(q_dtype)[6:]}"
             q, k, v, ks, vs, ks_p, vs_p, lens = dense_case(
-                rng, lengths, 4, depth, MAX_LEN, q_dtype, device)
+                rng, lengths + ([rows] if rows != MAX_LEN else []), 4,
+                depth, rows, q_dtype, device)
             got = dense_ops.dense_decode_attention_kernel(
                 q, k, v, ks, vs, lens)
             bad = dense_ops.dense_decode_attention_kernel(
@@ -728,13 +768,18 @@ def check_kernels(device, fault_libs=()) -> dict:
                 faulty = dense_ops.dense_decode_attention_kernel(
                     q, k, v, ks, vs, lens, library=lib)
                 torch.cuda.synchronize()
-                worst[i] = max(worst[i], fault_err(faulty, want, lens)
-                               / TOL[q_dtype])
-    for (kernel, line, _, _), ratio in zip(DECODE_FAULTS, worst):
+                fault_seen(i, depth, fault_err(faulty, want, lens)
+                           / TOL[q_dtype])
+    for i, (kernel, line, _, _) in enumerate(DECODE_FAULTS):
+        ratios = {depth: by_depth[depth][i] for depth in DECODE_DEPTHS}
         print(f"check planted decode fault ({line!r}): worst error "
-              f"{ratio:.3g} x the tolerance", flush=True)
-        require(ratio > 1.0, f"decode fault {line!r} passed the check")
-    return {"fault_err_over_tol": worst}
+              f"{worst[i]:.3g} x the tolerance; by depth {ratios}",
+              flush=True)
+        require(min(ratios.values()) > 1.0,
+                f"decode fault {line!r} passed the check at a depth: "
+                f"{ratios}")
+    return {"fault_err_over_tol": worst,
+            "fault_err_over_tol_by_depth": by_depth}
 
 
 # ------------------------------ timing -------------------------------
@@ -862,20 +907,22 @@ def time_paged(rng, lengths, int8, device) -> dict:
         kv_dtype=torch.int8 if int8 else torch.bfloat16, page=PAGE)
 
 
-def time_dense(rng, lengths, device) -> dict:
-    """measure() for the dense kernel at these lengths over n_layers
-    input sets; SDPA reads the cache up to the longest slot, masked past
-    each slot's length where they differ."""
-    heads, depth = MODEL["n_heads"], MODEL["d_head"]
+def time_dense(rng, lengths, device, depth=MODEL["d_head"],
+               rows=MAX_LEN, layers=MODEL["n_layers"]) -> dict:
+    """measure() for the dense kernel at these lengths over ``layers``
+    input sets of a [SLOTS, rows, 16, depth] cache; SDPA reads the cache
+    up to the longest slot, masked past each slot's length where they
+    differ."""
+    heads = MODEL["n_heads"]
     keys = max(lengths)
     mask = None
     if min(lengths) < keys:
         mask = (torch.arange(keys, device=device)[None, :] <
                 torch.tensor(lengths, device=device)[:, None])[:, None, None]
     sets, lib_sets = [], []
-    for _ in range(MODEL["n_layers"]):
+    for _ in range(layers):
         q, k, v, ks, vs, _, _, lens = dense_case(
-            rng, lengths, heads, depth, MAX_LEN, torch.bfloat16, device)
+            rng, lengths, heads, depth, rows, torch.bfloat16, device)
         sets.append((q, k, v, ks, vs, lens))
         lib_sets.append((sdpa_view(q), sdpa_view(k[:, :keys], ks[:, :keys]),
                          sdpa_view(v[:, :keys], vs[:, :keys]), mask))
@@ -906,6 +953,25 @@ def time_kernels(device) -> dict:
             **{k: served[k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "library_ms", "bound_ms",
                                       "bound_by")}}
+    # K8 at the speculative draft's shape: D 16 over DRAFT_ROWS rows, the
+    # draft's two layers' caches (each read (gamma + 1) times a step).
+    draft = {}
+    for label, lengths in (("full", [DRAFT_ROWS] * SLOTS),
+                           ("served_lengths", SERVED_LENGTHS)):
+        reading = time_dense(rng, lengths, device, depth=DRAFT_DEPTH,
+                             rows=DRAFT_ROWS, layers=2)
+        draft[label] = {"lengths": lengths, **{
+            k: reading[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by",
+                                    "bytes")}}
+        print(f"time K8 dense_decode_int8 at D {DRAFT_DEPTH}, "
+              f"{DRAFT_ROWS} rows, {label}: kernel "
+              f"{reading['ms'] * 1e3:.2f} us, plain "
+              f"{reading['plain_ms'] * 1e3:.2f} us, sdpa "
+              f"{reading['library_ms'] * 1e3:.2f} us, bound "
+              f"{reading['bound_ms'] * 1e3:.2f} us ({reading['bound_by']}, "
+              f"{reading['bytes']} B)", flush=True)
+    out["dense_decode_int8"]["draft_d16"] = draft
     for key, row in out.items():
         print(f"time {KERNELS[key]['label']} {key}: kernel "
               f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f}"
@@ -4451,6 +4517,413 @@ def serve(name, kernel, device) -> dict:
     return row
 
 
+# ------------------------- speculative serving --------------------------
+
+# bench.py bench_serving_speculative's load at max_decode_len 512, whole:
+# 32 requests at 16 Hz, prompts of 64-128 tokens, 64-128 new ones, seed 0.
+SPEC_REQUESTS, SPEC_RATE_HZ = 32, 16.0
+SPEC_PROMPT, SPEC_NEW = (MAX_LEN // 8, MAX_LEN // 4), (MAX_LEN // 8,
+                                                     MAX_LEN // 4)
+# The runs: (name, cache of serve.BENCH_SPECULATIVE_CACHES, draft). "bench"
+# is bench.py's random draft (seed 7); "noisy" is the target's own weights
+# plus SPEC_NOISE times each tensor's RMS in Gaussian noise (seed 7), a
+# draft that validates some proposals and not others.
+SPEC_RUNS = (("s1", "dense", "bench"), ("s2", "paged", "bench"),
+             ("s3", "paged_int8", "bench"), ("s4", "dense", "noisy"))
+SPEC_NOISE = 0.05
+# Replayed speculative steps the decode profile reads (each holds 2,000 to
+# 6,000 kernels).
+SPEC_PROFILE_STEPS = 4
+# The fp32 run of (s1): requests of the same load, served offline.
+SPEC_FP32_REQUESTS = 8
+
+
+def spec_payloads(num: int) -> list:
+    """The load's requests (loadgen.load_requests, as run_load draws
+    them)."""
+    return load_requests(num, SPEC_RATE_HZ, SPEC_PROMPT, SPEC_NEW,
+                         MODEL["vocab_size"], seed=0)[1]
+
+
+def noisy_draft(device) -> tuple:
+    """(config, state dict) of the (s4) draft: bench_serving's target
+    config and seed-0 weights, each tensor plus SPEC_NOISE x its RMS x
+    N(0, 1) from a seed-7 generator."""
+    config = tfm.TransformerConfig(**MODEL, max_seq_len=MAX_LEN,
+                                   dtype=torch.bfloat16)
+    params = bench_params(config, device, 0)
+    gen = torch.Generator(device=device).manual_seed(7)
+    noisy = {}
+    for name, t in params.items():
+        rms = t.float().square().mean().sqrt()
+        noise = torch.randn(t.shape, generator=gen, device=device)
+        noisy[name] = (t.float() + SPEC_NOISE * rms * noise).to(t.dtype)
+    return config, noisy
+
+
+def spec_load(engine: ContinuousBatcher) -> tuple[dict, dict]:
+    """The load through ServingFrontEnd + run_load; returns the report
+    and every load request's streamed tokens (recorded as the engine
+    emits them)."""
+    front = ServingFrontEnd(engine, port=0).start()
+    streams = collections.defaultdict(dict)
+    emit = engine.on_token
+
+    def record(request_id, token, index):
+        streams[request_id][index] = token
+        emit(request_id, token, index)
+    engine.on_token = record
+    try:
+        front.generate({"prompt": [1, 2, 3], "max_new_tokens": 2})
+        report = run_load(front.url, SPEC_REQUESTS, rate_hz=SPEC_RATE_HZ,
+                          prompt_len=SPEC_PROMPT, max_new_tokens=SPEC_NEW,
+                          vocab_size=MODEL["vocab_size"], seed=0)
+    finally:
+        front.shutdown()
+        engine.on_token = emit
+    torch.cuda.synchronize()
+    return report, {rid: [tokens[i] for i in range(len(tokens))]
+                    for rid, tokens in streams.items()}
+
+
+def nonspec_twin(engine: ContinuousBatcher,
+                 kv_cache: str) -> ContinuousBatcher:
+    """The non-speculative engine on the speculative engine's target: its
+    weights shared, the cache of ``kv_cache``."""
+    _, kwargs = BENCH_SPECULATIVE_CACHES[kv_cache]
+    config = dataclasses.replace(engine.config, spec_window=0,
+                                 kv_page_size=None, kv_num_pages=0)
+    return ContinuousBatcher(config, engine.model.state_dict(),
+                             num_slots=engine.num_slots,
+                             max_decode_len=engine.max_decode_len,
+                             device=engine.device, **kwargs)
+
+
+def nonspec_reference(twin: ContinuousBatcher,
+                      payloads: list) -> tuple[dict, dict]:
+    """The non-speculative engine ``twin`` (idle) with ``payloads`` all
+    submitted at once, its decode steps replayed from the graph its first
+    one captures, as served. Returns each request's tokens and, for each
+    generated token, the top-2 margin of the logits its decode step
+    sampled it from (index 0, sampled from the prefill, gets inf): the
+    sampler is wrapped while the step runs and is captured, so every
+    replay also writes the margins of its logits."""
+    margins = collections.defaultdict(lambda: {0: math.inf})
+    sample, gaps = inf._sample, {}
+
+    def hook(logits, generator, sampling):
+        if logits.shape[0] == twin.num_slots:
+            top = logits.topk(2, dim=-1).values
+            gaps["step"] = top[:, 0] - top[:, 1]
+        return sample(logits, generator, sampling)
+
+    def noted(step):
+        def run():
+            out = step()
+            gap = gaps["step"].tolist()
+            for i, slot in enumerate(twin._slots):
+                if slot.request is not None:
+                    margins[slot.request.request_id][
+                        len(slot.generated)] = gap[i]
+            return out
+        return run
+    twin._replay_decode = noted(twin._replay_decode)
+    twin._eager_decode = noted(twin._eager_decode)
+    inf._sample = hook
+    try:
+        for p in payloads:
+            twin.submit(Request(p["request_id"], p["prompt"],
+                                p["max_new_tokens"]))
+        streams = {}
+        while twin.pending():
+            for rid, tokens in twin.step():
+                streams[rid] = tokens
+    finally:
+        inf._sample = sample
+    return streams, dict(margins)
+
+
+def verify_vs_single(engine: ContinuousBatcher, twin: ContinuousBatcher,
+                     payloads: list, streams: dict) -> float:
+    """The largest |logit difference| between the speculative engine's
+    verify block and the non-speculative ``twin``'s single-step decode,
+    teacher-forced on the non-speculative streams (each request's prompt
+    and generated tokens, every request a slot of one batch, fresh caches
+    of each engine's target): blocks of gamma + 1 tokens from position 0
+    against the same tokens one step at a time, read at the positions
+    whose logits pick a generated token. Logits as each engine's argmax
+    reads them: the verify's fp32 product with the fp32 embedding, the
+    decode step's logits in the model's dtype (bf16 logits tie where the
+    fp32 ones do not)."""
+    span = engine.gamma + 1
+    seqs = [p["prompt"] + streams[p["request_id"]] for p in payloads]
+    batch = len(seqs)
+    steps = -(-max(map(len, seqs)) // span) * span
+    dev = engine.device
+    padded = np.array([s + [s[-1]] * (steps - len(s)) for s in seqs],
+                      np.int32)
+    tokens = torch.from_numpy(padded).to(dev)
+    # Positions whose logits pick generated tokens 1.. (the decode steps').
+    read = torch.zeros((batch, steps), dtype=torch.bool, device=dev)
+    for b, p in enumerate(payloads):
+        read[b, len(p["prompt"]):len(seqs[b]) - 1] = True
+    caches = []
+    for eng in (engine, twin):
+        cfg = eng.model.config
+        if cfg.kv_page_size:
+            pages = -(-(steps + engine.gamma) // PAGE)
+            cfg = dataclasses.replace(cfg, kv_num_pages=batch * pages + 1)
+        # init_cache reads only the config and the embedding's device.
+        cache = inf.init_cache(types.SimpleNamespace(
+            config=cfg, embed=eng.model.embed), batch)
+        if cfg.kv_page_size:
+            table = np.full((batch, eng.max_blocks), batch * pages, np.int32)
+            table[:, :pages] = np.arange(batch * pages).reshape(batch, pages)
+            cache[0]["block_table"].copy_(torch.from_numpy(table))
+        caches.append(cache)
+    offs = torch.arange(span, dtype=torch.int32, device=dev)
+    worst = torch.zeros((), device=dev)
+    # The single steps: the first eager, then (on the card) replays of it
+    # captured, as the twin's own decode steps are.
+    token = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    position = torch.zeros((1,), dtype=torch.int32, device=dev)
+
+    def single():
+        return twin.model(token, positions=position,
+                          cache=caches[1])[:, 0].float()
+    graph = logits = None
+    with torch.no_grad():
+        for t0 in range(0, steps, span):
+            block = inf.last_token_logits(engine.model, engine.model(
+                tokens[:, t0:t0 + span], positions=t0 + offs,
+                cache=caches[0], return_hidden=True))
+            for s in range(span):
+                t = t0 + s
+                token.copy_(tokens[:, t:t + 1])
+                position.fill_(t)
+                if graph is None:
+                    one = single()
+                else:
+                    graph.replay()
+                    one = logits
+                diff = (block[:, s] - one).abs().amax(dim=-1)
+                worst = torch.maximum(worst, torch.where(
+                    read[:, t], diff, 0.0).amax())
+                if graph is None and dev.type == "cuda":
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph,
+                                          capture_error_mode="thread_local"):
+                        logits = single()
+    worst = float(worst)
+    require(math.isfinite(worst), "verify vs single step: non-finite")
+    return worst
+
+
+def compare_streams(name, got: dict, want: dict, margins: dict,
+                    bound: float) -> dict:
+    """Each speculative stream against the non-speculative one on the
+    same prompt: identical up to its first near-tie, the first token
+    whose non-speculative top-2 margin is below ``bound`` (the largest
+    verify-vs-single-step logit difference). Streams that part there
+    stopped early."""
+    missing = sorted(set(want) - set(got))
+    require(not missing, f"{name}: streams {missing} missing")
+    identical = stopped = tied = 0
+    for rid, ref in want.items():
+        ties = [i for i, m in sorted(margins[rid].items()) if m < bound]
+        tie = ties[0] if ties else None
+        tied += tie is not None
+        spec = got[rid]
+        diff = next((i for i, (a, b) in enumerate(zip(spec, ref)) if a != b),
+                    None if len(spec) == len(ref) else min(len(spec),
+                                                           len(ref)))
+        if diff is None:
+            identical += 1
+            continue
+        require(tie is not None and diff >= tie,
+                f"{name}: {rid} parts from the non-speculative stream at "
+                f"token {diff}, before any near-tie (first {tie}, bound "
+                f"{bound:.4g}, margin there {margins[rid].get(diff)})")
+        stopped += 1
+    return {"streams": len(want), "identical": identical,
+            "stopped_early": stopped, "with_near_tie": tied,
+            "near_tie_bound": bound}
+
+
+def _spec_state(engine: ContinuousBatcher) -> list:
+    """The tensors a speculative step writes: tokens, positions and every
+    tensor of both caches (the block table too, which it only reads)."""
+    tensors = [engine._tokens, engine._positions, engine._active]
+    for cache in (engine.cache, engine._draft_cache):
+        for layer in cache:
+            tensors += [layer[key] for key in sorted(layer)]
+    return tensors
+
+
+def spec_graph_check(name, engine: ContinuousBatcher,
+                     steps: int = GRAPH_STEPS) -> dict:
+    """The captured speculative step against the eager one, from one
+    state (every slot live: the decode profile's requests): ``steps``
+    replays and ``steps`` eager steps must give identical blocks, a_i,
+    tokens, positions, cache cursors and cache rows. Pages are grown
+    first to cover every position the steps can reach, as step() would."""
+    require(engine._graph is not None, f"{name}: warmup captured no graph")
+    require(len(engine.active_request_ids()) == engine.num_slots,
+            f"{name} speculative graph check: not every slot is live")
+    if engine.paged:
+        engine._grow_pages(span=steps * (engine.gamma + 1))
+    start = [t.clone() for t in _spec_state(engine)]
+
+    def run(fn):
+        for t, t0 in zip(_spec_state(engine), start):
+            t.copy_(t0)
+        out = torch.stack([fn().clone() for _ in range(steps)])
+        return out, [t.clone() for t in _spec_state(engine)]
+    replay, eager = run(engine._replay_decode), run(engine._eager_speculative)
+    row = {"steps": steps,
+           "blocks_identical": torch.equal(replay[0], eager[0]),
+           "state_identical": all(torch.equal(a, b) for a, b in
+                                  zip(replay[1], eager[1])),
+           "accepted_in_window": int(replay[0][..., -1].sum())}
+    require(row["blocks_identical"] and row["state_identical"],
+            f"{name} speculative graph vs eager: {row}")
+    return row
+
+
+def _spec_row(report: dict, engine: ContinuousBatcher) -> dict:
+    stats = engine.spec_stats()
+    rate = stats["acceptance_rate"]
+    return {"completed": report["completed"], "failed": report["failed"],
+            "ttft_ms": report["ttft_exact_ms"],
+            "tpot_ms": report["tpot_exact_ms"],
+            "tokens_per_second": report["tokens_per_second"],
+            "spec_step_ms": engine.slo_stats()["step_ms"],
+            "speculative": stats,
+            "tokens_per_target_forward": 1 + rate * engine.gamma}
+
+
+def serve_speculative(device) -> dict:
+    """Phase 8: bench_serving_speculative's engine (the bench_serving
+    target, the 256-wide 2-layer draft at depth 16, gamma 4) under its
+    whole load through ServingFrontEnd + run_load, every step a replay
+    of the draft/verify graph the warm-up captured: (s1) dense target,
+    (s2) paged page 64, (s3) paged int8 with the draft on the dense int8
+    cache (K8 at D 16), (s4) a noisy copy of the target as draft. Each
+    run must finish every request; the wrappers must show K8 launched in
+    (s3) alone and no K6/K7; the trace of replayed steps must show K8
+    exactly (gamma + 1) x 2 times a step in (s3) and no decode-attention
+    kernel elsewhere; 16 replayed steps must equal 16 eager ones; every
+    stream must equal the non-speculative engine's on the same prompt up
+    to its first near-tie (compare_streams). (s4) must accept some
+    proposals and reject others. Then (s1) in fp32 on SPEC_FP32_REQUESTS
+    of the load, offline, under the same stream rule."""
+    gamma = BENCH_SPEC_GAMMA
+    payloads = spec_payloads(SPEC_REQUESTS)
+    rows, refs = {}, {}
+    for name, kv_cache, draft in SPEC_RUNS:
+        started = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        engine = build_bench_speculative_engine(
+            kv_cache, device,
+            draft=noisy_draft(device) if draft == "noisy" else None)
+        engine.warmup()
+        require(engine._graph is not None, f"{name}: no speculative graph")
+        seconds = {"build_and_warmup": time.perf_counter() - started}
+        mark = time.perf_counter()
+
+        def lap(what):
+            nonlocal mark
+            now = time.perf_counter()
+            seconds[what] = now - mark
+            mark = now
+        report, streams = spec_load(engine)
+        lap("load")
+        counts = {k: n for k, n in launch_counts().items() if n}
+        require(report["completed"] == SPEC_REQUESTS and
+                report["failed"] == 0,
+                f"{name}: {report['failed']} failed: {report.get('errors')}")
+        want_k8 = kv_cache == "paged_int8"
+        require(set(counts) == ({"dense_decode_int8"} if want_k8 else set()),
+                f"{name}: kernel launches {counts}")
+        row = {"config": kv_cache, "draft": draft, **_spec_row(report, engine),
+               "launches": counts,
+               "launches_counted": "wrapper calls: the eager warm-up step "
+                                   "and the graph capture"}
+        reading = decode_profile.profile_engine(
+            engine, kv_cache, SPEC_PROFILE_STEPS,
+            decode_profile.DECODE_ATTENTION_KERNELS)
+        require(reading["graph"], f"{name}: the profiled steps not replayed")
+        found = {kernel: n for kernel, n in
+                 reading["launches_per_step_by_kernel"].items()
+                 if any(k in kernel for k in DECODE_KERNEL_NAMES)}
+        per_step = (gamma + 1) * BENCH_DRAFT_MODEL["n_layers"] * want_k8
+        require(reading["attention_launches_per_step"] == per_step and
+                all("dense_decode_cluster_kernel" in k for k in found),
+                f"{name}: decode-attention launches a replayed step {found}")
+        row["decode_profile"] = {k: reading[k] for k in (
+            "steps", "wall_ms_per_step", "device_busy_ms_per_step",
+            "device_idle_share", "device_idle_share_of_wall",
+            "kernel_launches_per_step", "attention_launches_per_step",
+            "attention_ms_per_step", "top_kernels_ms_per_step")}
+        row["decode_profile"]["decode_attention_by_kernel"] = {
+            k[:120]: n for k, n in found.items()}
+        lap("profile")
+        row["graph_check"] = spec_graph_check(name, engine)
+        lap("graph_check")
+        if kv_cache not in refs:
+            twin = nonspec_twin(engine, kv_cache)
+            ref_streams, margins = nonspec_reference(twin, payloads)
+            lap("nonspec_reference")
+            refs[kv_cache] = (ref_streams, margins, verify_vs_single(
+                engine, twin, payloads, ref_streams))
+            lap("near_tie_bound")
+            del twin
+        want_streams, margins, bound = refs[kv_cache]
+        row["streams"] = compare_streams(name, streams, want_streams,
+                                         margins, bound)
+        stats = row["speculative"]
+        if draft == "noisy":
+            require(0 < stats["accepted"] < stats["proposed"],
+                    f"{name}: no ragged acceptance {stats}")
+        row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        row["phase_seconds"] = time.perf_counter() - started
+        row["seconds"] = seconds
+        print(f"serve_speculative {name} " + json.dumps(row), flush=True)
+        rows[name] = row
+        del engine
+        torch.cuda.empty_cache()
+    # (s1) in fp32, offline: no stream may part before a near-tie.
+    started = time.perf_counter()
+    engine = build_bench_speculative_engine("dense", device,
+                                            dtype=torch.float32)
+    engine.warmup()
+    require(engine._graph is not None, "s1 fp32: no speculative graph")
+    few = spec_payloads(SPEC_REQUESTS)[:SPEC_FP32_REQUESTS]
+    for p in few:
+        engine.submit(Request(p["request_id"], p["prompt"],
+                              p["max_new_tokens"]))
+    streams = {}
+    while engine.pending():
+        for rid, tokens in engine.step():
+            streams[rid] = tokens
+    twin = nonspec_twin(engine, "dense")
+    want_streams, margins = nonspec_reference(twin, few)
+    bound = verify_vs_single(engine, twin, few, want_streams)
+    del twin
+    rows["s1_fp32"] = {
+        "config": "dense", "dtype": "float32", "requests": len(few),
+        "speculative": engine.spec_stats(),
+        "streams": compare_streams("s1 fp32", streams, want_streams,
+                                   margins, bound),
+        "phase_seconds": time.perf_counter() - started}
+    print("serve_speculative s1_fp32 " + json.dumps(rows["s1_fp32"]),
+          flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return rows
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4579,6 +5052,7 @@ def main() -> int:
     for name, kernel in SERVED:
         served[kernel] = serve(name, kernel, device)
         served[kernel]["graph_check"] = graphs[name]
+    speculative = serve_speculative(device)
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -4640,6 +5114,12 @@ def main() -> int:
             if key in ("paged_decode", "paged_decode_int8"):
                 row["planted_fault_err_over_tol"] = \
                     decode_faults["fault_err_over_tol"]
+            if key == "dense_decode_int8":
+                # The speculative (s3) run: the int8 draft's steps at D 16.
+                s3 = speculative["s3"]
+                row["launches_speculative_s3"] = s3["launches"][key]
+                row["launches_per_replayed_speculative_step"] = \
+                    s3["decode_profile"]["attention_launches_per_step"]
         row.update({k: t[k] for k in ("max_abs_err", "max_tile_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
                                       "library_ms", "int_mm_ms", "per",
@@ -4650,7 +5130,8 @@ def main() -> int:
                                       "max_abs_err_mesh", "tflops",
                                       "ceiling_ms", "k10_same_rows_ms",
                                       "fwd_bwd_ms", "library_fwd_bwd_ms",
-                                      "served_lengths", "resources")
+                                      "served_lengths", "draft_d16",
+                                      "resources")
                     if k in t})
         kernels.append(row)
     print(smi)

@@ -61,6 +61,29 @@ def test_one_fault_build_plants_only_its_fault(index):
         len(chip_smoke.DECODE_FAULTS[index][1]))
 
 
+def test_decode_faults_reach_every_checked_depth():
+    """check_kernels reads each DECODE_FAULTS build at every depth of
+    DECODE_DEPTHS, the speculative draft's 16 among them (its dense cache
+    of DRAFT_ROWS rows). Every fault sits in decode_cluster, the body both
+    cluster kernels run at each depth the depth switches instantiate, so
+    each is planted in the D 16 kernels too."""
+    from batch_shipyard_tpu_torch.ops import paged_attention
+    text = (_build.CSRC / "decode_attention.cu").read_text()
+    assert chip_smoke.DRAFT_DEPTH == 16 in chip_smoke.DECODE_DEPTHS
+    assert chip_smoke.DRAFT_ROWS == chip_smoke.MAX_LEN + 4 + 1
+    for depth in chip_smoke.DECODE_DEPTHS:
+        assert depth in paged_attention.SUPPORTED_DEPTHS
+        for switch in ("BS_PAGED", "BS_DENSE"):
+            assert f"case {depth}: return {switch}({depth});" in text
+    for kernel, _, _, cases in chip_smoke.DECODE_FAULTS:
+        assert kernel == "decode_cluster"
+        assert set(cases) <= {"paged", "paged_int8", "dense_int8"}
+    for entry, dense in (("paged_decode_cluster_kernel", "false"),
+                         ("dense_decode_cluster_kernel", "true")):
+        start, end = chip_smoke.kernel_body(text, entry)
+        assert f", D, {dense}>(" in text[start:end], entry
+
+
 @pytest.mark.parametrize("index", chip_smoke.VREDUCE_FAULTS)
 def test_each_k16_fault_build_plants_only_its_fault(index):
     """check_virtual reads K16's two faults (a wrong chunk read; two adds

@@ -116,11 +116,34 @@ def test_decode_profile_attention_kernel_names_a_kernel(kv_cache):
      "dense_decode_cluster_kernel<bf16, 64>"),
     ("_ZN12_GLOBAL__N_127dense_decode_cluster_kernelIfLi128EEEv14CUtensorMap"
      "_stS1_NS_11ClusterArgsE", "dense_decode_cluster_kernel<fp32, 128>"),
+    # The speculative draft's depth.
+    ("_ZN12_GLOBAL__N_127dense_decode_cluster_kernelI13__nv_bfloat16Li16EE"
+     "Ev14CUtensorMap_stS2_NS_11ClusterArgsE",
+     "dense_decode_cluster_kernel<bf16, 16>"),
+    ("_ZN12_GLOBAL__N_127paged_decode_cluster_kernelI13__nv_bfloat16aLi16E"
+     "EEv14CUtensorMap_stS1_NS_11ClusterArgsE",
+     "paged_decode_cluster_kernel<bf16, int8, 16>"),
     ("_ZN2mm24int8_matmul_wgmma_kernelE14CUtensorMap_stS0_S0_NS_4ArgsE",
      "int8_matmul_wgmma_kernel"),
 ])
 def test_paged_kernel_name(mangled, short):
     assert chip_smoke.paged_kernel_name(mangled) == short
+
+
+@pytest.mark.parametrize("switch", ["BS_PAGED", "BS_DENSE"])
+def test_decode_depth_switches_instantiate_every_supported_depth(switch):
+    """K6/K7 (BS_PAGED) and K8 (BS_DENSE) are instantiated at exactly the
+    head depths the wrappers accept (ops/paged_attention.SUPPORTED_DEPTHS,
+    which the speculative draft's 16 joined), each case launching its own
+    depth: a depth the wrappers pass with no case would fail every launch
+    with cudaErrorInvalidValue."""
+    from batch_shipyard_tpu_torch.ops import paged_attention
+    text = (_build.CSRC / "decode_attention.cu").read_text()
+    cases = re.findall(rf"case (\d+): return {switch}\((\d+)\);", text)
+    assert all(a == b for a, b in cases), cases
+    assert sorted(int(a) for a, _ in cases) == sorted(
+        paged_attention.SUPPORTED_DEPTHS)
+    assert 16 in paged_attention.SUPPORTED_DEPTHS
 
 
 def test_ring_copy_kernels_keep_the_profile_names():
