@@ -38,6 +38,10 @@ PROGRAM_CHECKPOINT_RESTORE = "checkpoint_restore"
 # windows (workloads/checkpoint.AsyncCheckpointManager).
 PROGRAM_CHECKPOINT_ASYNC = "checkpoint_async"
 PROGRAM_EVAL = "eval"
+# The serving router's mid-stream failover (models/router.py): from
+# finding a dead or draining replica mid-decode to the resumed stream
+# opening on a sibling; attrs carry request_id and resumed_tokens.
+SERVE_RECOVERY = "serve_recovery"
 
 
 def local_events_path() -> Optional[str]:

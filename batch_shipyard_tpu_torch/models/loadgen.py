@@ -1,12 +1,11 @@
 """Load generator for the serving front end.
 
 The port's own copy of batch_shipyard_tpu/models/loadgen.py: Poisson
-arrivals, optional shared-prefix request groups and SLO classes, and
-the same report keys (TTFT/TPOT/latency percentiles from merged
-fixed-bucket histograms, tokens/s, the outputs digest). stdlib only;
-``random.Random(seed)`` makes a run's requests reproducible. The
-diurnal arrival process (the fleet simulator's curve) comes with a
-later slice.
+arrivals or the fleet simulator's diurnal curve (sim/traces.py),
+optional shared-prefix request groups and SLO classes, and the same
+report keys (TTFT/TPOT/latency percentiles from merged fixed-bucket
+histograms, tokens/s, the outputs digest). stdlib only;
+``random.Random(seed)`` makes a run's requests reproducible.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ import urllib.error
 import urllib.request
 from typing import Optional, Sequence, Union
 
+from batch_shipyard_tpu_torch.sim import traces as sim_traces
 from batch_shipyard_tpu_torch.trace.histogram import LatencyHistogram
 
 
@@ -47,17 +47,31 @@ def load_requests(num_requests: int, rate_hz: float = 8.0,
                   eos_id: Optional[int] = None,
                   shared_prefix_groups: int = 0,
                   shared_prefix_len: int = 0,
-                  slo_classes: Optional[dict] = None
+                  slo_classes: Optional[dict] = None,
+                  arrival: str = "poisson", day_seconds: float = 60.0,
+                  trough_rate_hz: Optional[float] = None
                   ) -> tuple[list, list]:
-    """run_load's requests, drawn from ``random.Random(seed)``: the
-    Poisson gaps between arrivals (seconds) and the /v1/generate payloads
-    in arrival order, so a caller can replay the same prompts."""
+    """run_load's requests, drawn from ``random.Random(seed)``: the gaps
+    between arrivals (seconds) and the /v1/generate payloads in arrival
+    order, so a caller can replay the same prompts. ``arrival="poisson"``
+    spaces them at ``rate_hz``; ``"diurnal"`` replays the fleet
+    simulator's curve (peak ``rate_hz``, trough ``trough_rate_hz`` or
+    rate_hz / 4, one virtual day of ``day_seconds``)."""
     rng = random.Random(seed)
     prefixes = [[rng.randrange(vocab_size)
                  for _ in range(shared_prefix_len)]
                 for _ in range(shared_prefix_groups)]
     class_names = sorted(slo_classes) if slo_classes else []
-    gaps = [rng.expovariate(rate_hz) for _ in range(num_requests - 1)]
+    if arrival == "diurnal":
+        trough = (trough_rate_hz if trough_rate_hz is not None
+                  else rate_hz / 4.0)
+        times = sim_traces.diurnal_arrivals(seed, num_requests,
+                                            day_seconds, rate_hz, trough)
+        gaps = [times[k + 1] - times[k] for k in range(num_requests - 1)]
+    elif arrival == "poisson":
+        gaps = [rng.expovariate(rate_hz) for _ in range(num_requests - 1)]
+    else:
+        raise ValueError(f"unknown arrival process: {arrival!r}")
     payloads = []
     for k in range(num_requests):
         plen = rng.randint(*prompt_len)
@@ -88,11 +102,15 @@ def run_load(base_url: Union[str, Sequence[str]],
              seed: int = 0,
              eos_id: Optional[int] = None,
              request_timeout: float = 300.0,
+             arrival: str = "poisson",
+             day_seconds: float = 60.0,
+             trough_rate_hz: Optional[float] = None,
              shared_prefix_groups: int = 0,
              shared_prefix_len: int = 0,
              slo_classes: Optional[dict] = None) -> dict:
-    """Fire ``num_requests`` at Poisson arrivals of ``rate_hz`` and
-    return the latency report. With ``shared_prefix_groups`` > 0 each
+    """Fire ``num_requests`` at the arrivals of ``arrival`` (load_requests:
+    Poisson at ``rate_hz``, or the diurnal curve) and return the latency
+    report. With ``shared_prefix_groups`` > 0 each
     prompt starts with one of that many fixed ``shared_prefix_len``
     prefixes (and carries a matching ``prefix_key``). ``slo_classes``
     (name -> {"ttft_ms", "tpot_ms"}) cycles requests through the
@@ -103,7 +121,8 @@ def run_load(base_url: Union[str, Sequence[str]],
     class_names = sorted(slo_classes) if slo_classes else []
     gaps, payloads = load_requests(
         num_requests, rate_hz, prompt_len, max_new_tokens, vocab_size,
-        seed, eos_id, shared_prefix_groups, shared_prefix_len, slo_classes)
+        seed, eos_id, shared_prefix_groups, shared_prefix_len, slo_classes,
+        arrival, day_seconds, trough_rate_hz)
     results: list[Optional[dict]] = [None] * num_requests
     errors: list[Optional[str]] = [None] * num_requests
     sheds: list[Optional[str]] = [None] * num_requests
@@ -155,7 +174,7 @@ def run_load(base_url: Union[str, Sequence[str]],
         "completed": len(done),
         "failed": len(failed),
         "shed": len(shed),
-        "arrival": "poisson",
+        "arrival": arrival,
         "offered_rate_hz": rate_hz,
         "elapsed_seconds": elapsed,
         "requests_per_second": len(done) / elapsed if elapsed else 0.0,

@@ -1,0 +1,1325 @@
+"""Serving fleet router: one ingress over N replica front ends.
+
+The port's own copy of batch_shipyard_tpu/models/router.py, over the
+port's front ends (models/server.py) or the reference's: the same wire
+API, so models/loadgen.py, the reference's load generator and any
+client point at it unchanged. stdlib only, plus the port's goodput
+recovery records; it touches no device.
+
+  - health: one long-lived prober thread per replica polls /healthz
+    and scrapes /v1/stats; a replica that fails a probe or a dispatch
+    leaves rotation until a probe passes again (failing probes back off
+    exponentially). A draining replica (healthz 503 + "draining") leaves
+    rotation without counting as a fault;
+  - dispatch: the least-loaded healthy replica (the router's own
+    in-flight count plus the replica's scraped engine backlog), with
+    prefix affinity (a client "prefix_key", else the first prompt
+    tokens) to the replica that last served the prefix unless it is
+    more than affinity_load_slack busier;
+  - failover: a refused connection, a drain refusal or a 429 retries a
+    sibling within retry_budget, with capped exponential backoff; a
+    read timeout never re-dispatches (slow is not dead);
+  - mid-stream recovery: a stream whose replica dies (reset, bare EOF)
+    or drains it out from under the client is resumed on a sibling
+    with the tokens relayed so far as ``resume_tokens``; an index
+    dedupe delivers each token once;
+  - sticky cancel and a fleet-wide duplicate-id gate (409-style 400),
+    owner TTL retirement and orphan reconciliation for timed-out runs;
+  - /v1/stats and /metrics merge the replicas' histograms losslessly.
+
+    python -m batch_shipyard_tpu_torch.models.router \
+        http://127.0.0.1:8900 http://127.0.0.1:8901 --port 8800
+"""
+
+from __future__ import annotations
+
+import collections
+import hashlib
+import json
+import logging
+import socket
+import threading
+import time
+import urllib.error
+import urllib.request
+from http.server import ThreadingHTTPServer
+from typing import Optional, Sequence
+
+from batch_shipyard_tpu_torch.goodput import events as gp_events
+from batch_shipyard_tpu_torch.models.server import (JsonRequestHandler,
+                                                    prometheus_lines)
+from batch_shipyard_tpu_torch.trace.histogram import LatencyHistogram
+
+logger = logging.getLogger(__name__)
+
+
+class NoHealthyReplicaError(RuntimeError):
+    pass
+
+
+class DuplicateRequestError(ValueError):
+    """The request_id is already in flight somewhere in the fleet."""
+
+
+class _Replica:
+    __slots__ = ("url", "healthy", "inflight", "backlog",
+                 "last_probe_at", "last_error", "stats",
+                 "dispatched", "completed", "failed",
+                 "consecutive_failures", "draining",
+                 "unhealthy_total")
+
+    def __init__(self, url: str) -> None:
+        self.url = url.rstrip("/")
+        self.healthy = True          # optimistic until first probe
+        self.inflight = 0            # router-tracked
+        self.backlog = 0             # replica-reported engine depth
+        self.last_probe_at = 0.0
+        self.last_error: Optional[str] = None
+        self.stats: dict = {}
+        self.dispatched = 0
+        self.completed = 0
+        self.failed = 0
+        # Prober backoff state: consecutive failed probes (reset on
+        # any success); past the threshold the prober re-probes this
+        # replica on an exponentially backed-off cadence.
+        self.consecutive_failures = 0
+        # Cooperative drain (healthz 503 + draining marker): out of
+        # rotation like unhealthy, but NOT a fault — no probe
+        # backoff, no unhealthy_total increment, and cancel still
+        # reaches it (it may own live decodes finishing out).
+        self.draining = False
+        # healthy->unhealthy transitions (probe or dispatch failure);
+        # exported as shipyard_router_replica_unhealthy_total.
+        self.unhealthy_total = 0
+
+    def load(self) -> int:
+        return self.inflight + self.backlog
+
+    def snapshot(self) -> dict:
+        return {
+            "url": self.url, "healthy": self.healthy,
+            "draining": self.draining,
+            "inflight": self.inflight, "backlog": self.backlog,
+            "dispatched": self.dispatched,
+            "completed": self.completed, "failed": self.failed,
+            "consecutive_failures": self.consecutive_failures,
+            "unhealthy_total": self.unhealthy_total,
+            "last_error": self.last_error,
+        }
+
+
+class ServingRouter:
+    def __init__(self, replica_urls: Sequence[str],
+                 host: str = "127.0.0.1", port: int = 0,
+                 health_interval: float = 2.0,
+                 probe_timeout: float = 5.0,
+                 request_timeout: float = 300.0,
+                 owner_ttl: float = 600.0,
+                 affinity_prefix_tokens: int = 32,
+                 affinity_load_slack: int = 2,
+                 retry_budget: int = 4,
+                 retry_backoff_base: float = 0.05,
+                 retry_backoff_cap: float = 1.0,
+                 probe_failure_threshold: int = 3,
+                 probe_backoff_cap: float = 30.0) -> None:
+        if not replica_urls:
+            raise ValueError("router needs at least one replica URL")
+        self._replicas = [_Replica(u) for u in replica_urls]
+        # Retry storm control: a request fails over at most
+        # retry_budget times, with capped exponential backoff between
+        # attempts — one dead replica must not amplify into a
+        # synchronized hammering of the survivors.
+        self._retry_budget = retry_budget
+        self._retry_backoff_base = retry_backoff_base
+        self._retry_backoff_cap = retry_backoff_cap
+        self._probe_failure_threshold = probe_failure_threshold
+        self._probe_backoff_cap = probe_backoff_cap
+        # Mid-stream recovery bookkeeping: resume attempts begun,
+        # streams completed after >=1 resume, streams given up on,
+        # and a bounded recent-recovery log (the bench's TTFT-delta
+        # source).
+        self.recoveries = 0
+        self.recovered_requests = 0
+        self.lost_streams = 0
+        self.recovery_log: "collections.deque" = collections.deque(
+            maxlen=256)
+        self._lock = threading.Lock()
+        self._owner: dict[str, _Replica] = {}  # request_id -> replica
+        # Last-write stamp per ownership entry: the TTL retirement
+        # sweep (_retire_stale) uses it to find entries that leaked
+        # past their completion path under sustained traffic.
+        self._owner_stamp: dict[str, float] = {}
+        self._owner_ttl = owner_ttl
+        # Prefix-affinity routing: prefix key -> (replica, stamp).
+        # Same-prefix requests steer to the replica whose paged KV
+        # pool already holds the prefix pages (server-side prefix
+        # cache, models/serving.py) — the key is client-supplied
+        # ("prefix_key") or derived from the first N prompt tokens.
+        self._affinity: dict[str, tuple[_Replica, float]] = {}
+        self._affinity_prefix_tokens = affinity_prefix_tokens
+        self._affinity_load_slack = affinity_load_slack
+        self.affinity_routed = 0
+        # Timed-out dispatches whose runs may still be live on their
+        # replica (reconciled by the health loop).
+        self._orphaned: dict[str, _Replica] = {}
+        self._health_interval = health_interval
+        self._probe_timeout = probe_timeout
+        self._request_timeout = request_timeout
+        self._stop = threading.Event()
+        # One long-lived prober thread per replica: each
+        # keeps its own cadence, so a hung replica's probe (connect
+        # timeout, not refuse) cannot stretch fault detection for the
+        # rest of the fleet — and large fleets stop paying
+        # per-interval thread churn. The health thread itself only
+        # reconciles orphans.
+        self._prober_threads = [
+            threading.Thread(target=self._probe_loop, args=(r,),
+                             name=f"router-probe-{k}", daemon=True)
+            for k, r in enumerate(self._replicas)]
+        self._health_thread = threading.Thread(
+            target=self._health_loop, name="router-health",
+            daemon=True)
+        # Live client sockets (handler setup/finish): kill() severs
+        # them to reproduce a router-process crash for the chaos
+        # drill — clients see a dead stream and must cancel-then-
+        # resume against the successor router.
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
+        router = self
+
+        class Handler(JsonRequestHandler):
+            def setup(self):
+                super().setup()
+                with router._conns_lock:
+                    router._conns.add(self.connection)
+
+            def finish(self):
+                try:
+                    super().finish()
+                finally:
+                    with router._conns_lock:
+                        router._conns.discard(self.connection)
+
+            def do_GET(self):  # noqa: N802
+                if self.path == "/healthz":
+                    healthy = router.healthy_count()
+                    self._reply(200 if healthy else 503,
+                                {"ok": healthy > 0,
+                                 "healthy_replicas": healthy})
+                elif self.path == "/metrics":
+                    self._reply_metrics(router.prometheus_metrics())
+                elif self.path == "/v1/stats":
+                    self._reply(200, router.stats())
+                elif self.path == "/v1/replicas":
+                    self._reply(200, {"replicas": router.replicas()})
+                else:
+                    self._reply(404, {"error": "not found"})
+
+            def do_DELETE(self):  # noqa: N802
+                request_id = self._delete_request_id()
+                if request_id is None:
+                    return
+                code, payload = router.cancel(request_id)
+                self._reply(code, payload)
+
+            def do_POST(self):  # noqa: N802
+                if self.path != "/v1/generate":
+                    self._reply(404, {"error": "not found"})
+                    return
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    spec = json.loads(self.rfile.read(length))
+                except (ValueError, OSError) as exc:
+                    self._reply(400, {"error": str(exc)})
+                    return
+                if not isinstance(spec, dict):
+                    self._reply(400,
+                                {"error": "body must be a JSON "
+                                          "object"})
+                    return
+                if spec.get("stream"):
+                    self._stream(spec)
+                    return
+                try:
+                    code, payload = router.dispatch(spec)
+                except NoHealthyReplicaError as exc:
+                    self._reply(503, {"error": str(exc)})
+                    return
+                except DuplicateRequestError as exc:
+                    self._reply(400, {"error": str(exc)})
+                    return
+                self._reply(code, payload)
+
+            def _stream(self, spec: dict) -> None:
+                """Streaming proxy with mid-stream recovery: forward
+                the replica's NDJSON chunk stream, journaling every
+                emitted token. If the replica dies (bare EOF before
+                the final result line, a connection reset) or drains
+                the decode out from under us (a marked error line),
+                the request is resumed on a sibling via
+                resume_tokens — the sibling re-prefills prompt +
+                emitted and continues the greedy stream byte-
+                identically; an index-based dedupe keeps token
+                delivery to the client exactly-once across the
+                failover. Read TIMEOUTS never resume (slow is not
+                dead: the run may still be live — resuming would
+                decode it twice)."""
+                try:
+                    upstream, replica, request_id = \
+                        router.open_stream(spec)
+                except NoHealthyReplicaError as exc:
+                    self._reply(503, {"error": str(exc)})
+                    return
+                except DuplicateRequestError as exc:
+                    self._reply(400, {"error": str(exc)})
+                    return
+                except urllib.error.HTTPError as exc:
+                    self._reply(exc.code,
+                                getattr(exc, "payload", None) or
+                                _json_or_error(exc.read()))
+                    return
+                except (urllib.error.URLError, OSError,
+                        TimeoutError) as exc:
+                    self._reply(504, {"error": f"replica timed "
+                                               f"out: {exc}"})
+                    return
+                import http.client as http_client
+                try:
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "application/x-ndjson")
+                    self.send_header("Transfer-Encoding", "chunked")
+                    self.end_headers()
+                except OSError:
+                    upstream.close()
+                    router.finish(replica, request_id, ok=True)
+                    return
+
+                def _relay(line: bytes) -> bool:
+                    try:
+                        self.wfile.write(
+                            f"{len(line):x}\r\n".encode()
+                            + line + b"\r\n")
+                        self.wfile.flush()
+                        return True
+                    except (BrokenPipeError, ConnectionResetError):
+                        return False
+
+                # Progress journal for this request: greedy tokens
+                # relayed so far (by global index) — exactly what a
+                # sibling needs to resume, and the dedupe source for
+                # exactly-once delivery. Seeded from the client's own
+                # resume_tokens (a cancel-then-resume after a ROUTER
+                # crash): token indexes are global across the whole
+                # request, so the journal must start where the client
+                # already is — a replica replaying the full run then
+                # dedupes to exactly the missing tail, and a second
+                # failover resumes with the full prefix, not just the
+                # tokens this router relayed.
+                emitted: list[int] = [
+                    int(t) for t in
+                    (spec.get("resume_tokens") or [])]
+                resumes = 0
+                timed_out = False
+                saw_final = False
+                failed_urls = {replica.url}
+                # outcome: "final" (result line relayed), "timeout"
+                # (slow-is-not-dead orphan), "client_gone",
+                # "synthesized" / "lost" (recovery path did its own
+                # accounting).
+                outcome = None
+                while outcome is None:  # one pass per replica
+                    client_ok = True
+                    resume_needed = False
+                    # http.client strips the upstream chunked
+                    # framing; re-chunk line-by-line downstream.
+                    # Upstream read failures and downstream write
+                    # failures are distinguished: a replica dying
+                    # mid-stream is a recovery event; a client
+                    # disconnect is not (the replica finishes fine).
+                    while True:
+                        try:
+                            line = upstream.readline()
+                        except (OSError,
+                                http_client.HTTPException) as exc:
+                            timed_out = _is_timeout(exc)
+                            if timed_out:
+                                outcome = "timeout"
+                            else:
+                                router._mark_unhealthy(replica, exc)
+                                resume_needed = True
+                            break
+                        if not line:
+                            if saw_final:
+                                outcome = "final"
+                            else:
+                                # Bare EOF with no final result line:
+                                # the replica was killed mid-decode.
+                                resume_needed = True
+                            break
+                        try:
+                            event = json.loads(line)
+                        except ValueError:
+                            event = None
+                        if isinstance(event, dict) and \
+                                "token" in event and "index" in event:
+                            idx = event["index"]
+                            if idx < len(emitted):
+                                continue  # replayed after a resume
+                            emitted.append(int(event["token"]))
+                            if not _relay(line):
+                                client_ok = False
+                                outcome = "client_gone"
+                                break
+                            continue
+                        if isinstance(event, dict) and \
+                                event.get("error") and \
+                                event.get("draining"):
+                            # Drain-abandoned decode: resume on a
+                            # sibling instead of surfacing the error.
+                            resume_needed = True
+                            break
+                        if isinstance(event, dict) and (
+                                "tokens" in event or
+                                event.get("error")):
+                            # Terminal line (result, or an error the
+                            # replica means: shed/cancel/validation).
+                            saw_final = True
+                        if not _relay(line):
+                            client_ok = False
+                            outcome = "client_gone"
+                            break
+                    upstream.close()
+                    if outcome is not None or not resume_needed:
+                        if outcome is None:
+                            outcome = "final" if saw_final \
+                                else "client_gone"
+                        break
+                    # --- recovery path -------------------------------
+                    detect_at = time.monotonic()
+                    router.finish(replica, request_id, ok=False,
+                                  retrying=True)
+                    max_new = int(spec.get("max_new_tokens", 16) or 16)
+                    eos_id = spec.get("eos_id")
+                    if len(emitted) >= max_new or (
+                            eos_id is not None and emitted and
+                            emitted[-1] == eos_id):
+                        # Everything was already delivered; only the
+                        # final result line was lost — synthesize it.
+                        _relay(json.dumps(
+                            {"request_id": request_id,
+                             "tokens": emitted,
+                             "num_tokens": len(emitted),
+                             "recovered": True,
+                             "resumes": resumes}).encode()
+                            + b"\n")
+                        router._release_claim(request_id)
+                        router._note_recovery(
+                            request_id, replica.url, None,
+                            len(emitted), 0.0, synthesized=True)
+                        outcome = "synthesized"
+                        break
+                    resumes += 1
+                    if resumes > router._retry_budget:
+                        _relay(json.dumps(
+                            {"error": "stream lost: retry budget "
+                                      f"({router._retry_budget}) "
+                                      "exhausted"}).encode() + b"\n")
+                        router._release_claim(request_id)
+                        router._note_lost(request_id)
+                        outcome = "lost"
+                        break
+                    router._retry_wait(resumes - 1)
+                    try:
+                        upstream, to_replica = router.resume_stream(
+                            spec, request_id, emitted,
+                            exclude=failed_urls)
+                    except (NoHealthyReplicaError,
+                            urllib.error.HTTPError,
+                            urllib.error.URLError, OSError,
+                            TimeoutError) as exc:
+                        _relay(json.dumps(
+                            {"error": f"stream lost: resume failed: "
+                                      f"{exc}"}).encode() + b"\n")
+                        router._release_claim(request_id)
+                        router._note_lost(request_id)
+                        outcome = "lost"
+                        break
+                    router._note_recovery(
+                        request_id, replica.url, to_replica.url,
+                        len(emitted),
+                        time.monotonic() - detect_at)
+                    replica = to_replica
+                    failed_urls.add(replica.url)
+                    # loop: relay from the sibling
+                try:
+                    if client_ok:
+                        if outcome == "timeout":
+                            _relay(json.dumps(
+                                {"error": "replica failed "
+                                          "mid-stream"}).encode()
+                                + b"\n")
+                        self.wfile.write(b"0\r\n\r\n")
+                except (BrokenPipeError, ConnectionResetError):
+                    pass
+                if outcome == "timeout":
+                    # The run may still be live on the (slow)
+                    # replica: keep ownership — duplicate gate +
+                    # sticky cancel stay correct — and let orphan
+                    # reconciliation release the id once the
+                    # replica forgets it.
+                    router._orphan_inflight(replica, request_id)
+                elif outcome in ("final", "client_gone"):
+                    # A vanished client doesn't fail the replica —
+                    # its engine finishes the run on its own.
+                    if resumes and outcome == "final":
+                        router._note_recovered(request_id)
+                    router.finish(replica, request_id, ok=True)
+                # "synthesized"/"lost": the recovery path already
+                # released accounting and the claim.
+
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._http_thread = threading.Thread(
+            target=self._httpd.serve_forever, name="router-http",
+            daemon=True)
+
+    # ----------------------------- lifecycle ---------------------------
+
+    @property
+    def url(self) -> str:
+        host, port = self._httpd.server_address[:2]
+        return f"http://{host}:{port}"
+
+    def start(self) -> "ServingRouter":
+        self._probe_all()  # honest health before the first dispatch
+        for t in self._prober_threads:
+            t.start()
+        self._health_thread.start()
+        self._http_thread.start()
+        return self
+
+    def shutdown(self) -> None:
+        self._stop.set()
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._health_thread.join(timeout=5.0)
+        for t in self._prober_threads:
+            # Daemon probers may sit inside a probe_timeout read;
+            # don't block shutdown on them.
+            t.join(timeout=0.5)
+
+    def kill(self) -> None:
+        """The router-process-crash failure shape (chaos drills):
+        stop serving AND sever every live client connection mid-
+        stream — no final lines, no clean terminators. Clients must
+        recover through a successor router with cancel-then-resume;
+        the replicas keep decoding untouched (their duplicate gates
+        are what keeps delivery exactly-once across the handoff)."""
+        self._stop.set()
+        try:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+        except OSError:
+            pass
+        with self._conns_lock:
+            conns, self._conns = list(self._conns), set()
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                conn.close()
+            except OSError:
+                pass
+        self._health_thread.join(timeout=5.0)
+
+    # ------------------------------ health -----------------------------
+
+    def _probe(self, replica: _Replica) -> None:
+        draining = False
+        try:
+            try:
+                with urllib.request.urlopen(
+                        f"{replica.url}/healthz",
+                        timeout=self._probe_timeout) as resp:
+                    ok = resp.status == 200
+            except urllib.error.HTTPError as exc:
+                # A draining replica answers healthz 503 with a
+                # marker: cooperative shutdown, not a fault — keep
+                # scraping its stats (live decodes are finishing out)
+                # but take it out of rotation without probe backoff.
+                payload = _json_or_error(exc.read())
+                if not payload.get("draining"):
+                    raise
+                ok, draining = False, True
+            stats = {}
+            with urllib.request.urlopen(
+                    f"{replica.url}/v1/stats",
+                    timeout=self._probe_timeout) as resp:
+                stats = json.loads(resp.read())
+        except (urllib.error.URLError, OSError, ValueError) as exc:
+            with self._lock:
+                if replica.healthy:
+                    replica.unhealthy_total += 1
+                replica.healthy = False
+                replica.draining = False
+                replica.consecutive_failures += 1
+                replica.last_error = str(exc)
+                replica.last_probe_at = time.time()
+            return
+        with self._lock:
+            if replica.healthy and not ok and not draining:
+                replica.unhealthy_total += 1
+            replica.healthy = ok
+            replica.draining = draining
+            replica.last_error = (None if ok else
+                                  "draining" if draining
+                                  else "healthz != 200")
+            if ok or draining:
+                replica.consecutive_failures = 0
+            else:
+                replica.consecutive_failures += 1
+            replica.backlog = int(stats.get("engine_backlog", 0))
+            replica.stats = stats
+            replica.last_probe_at = time.time()
+
+    def _probe_all(self) -> None:
+        # One-shot concurrent sweep for start(): honest health before
+        # the first dispatch. Steady-state probing runs in the
+        # long-lived per-replica _probe_loop threads.
+        threads = [threading.Thread(target=self._probe, args=(r,),
+                                    daemon=True)
+                   for r in self._replicas]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(self._probe_timeout * 2 + 1)
+
+    def _probe_delay(self, replica: _Replica) -> float:
+        """Probe cadence: the base interval while healthy (or within
+        the failure threshold), then exponential backoff capped at
+        probe_backoff_cap — a flapping or long-dead replica stops
+        being hammered at full cadence, and its first passing probe
+        resets the cadence."""
+        with self._lock:
+            failures = replica.consecutive_failures
+        if failures <= self._probe_failure_threshold:
+            return self._health_interval
+        exp = min(failures - self._probe_failure_threshold, 6)
+        return min(self._probe_backoff_cap,
+                   self._health_interval * (2 ** exp))
+
+    def _probe_loop(self, replica: _Replica) -> None:
+        """Per-replica steady-state prober: this replica's probe may
+        hang for probe_timeout without delaying any other replica's
+        cadence."""
+        while not self._stop.wait(self._probe_delay(replica)):
+            self._probe(replica)
+
+    def _health_loop(self) -> None:
+        while not self._stop.wait(self._health_interval):
+            self._reconcile_orphans()
+            self._retire_stale()
+
+    def _retire_stale(self) -> None:
+        """TTL retirement for the sticky/duplicate-id ownership map
+        and the affinity table: under sustained traffic, entries that
+        leak past their completion path (a client that vanished
+        between claim and finish, a replica that crashed with ids
+        mapped) would otherwise accumulate forever. Retirement keeps
+        the failover-race guarantees: a stale RESERVED claim retires
+        unconditionally (reservations live for one dispatch call),
+        but a stale LIVE mapping drops only after the owning replica
+        demonstrably no longer knows the id (the orphan-reconciliation
+        probe) — a long decode's duplicate gate and sticky cancel
+        survive any TTL. A retired id is immediately safe to
+        resubmit."""
+        now = time.time()
+        live: list = []
+        with self._lock:
+            for key in [k for k, (_r, stamp)
+                        in self._affinity.items()
+                        if now - stamp > self._owner_ttl]:
+                # Routing hints, not correctness state: pure TTL.
+                del self._affinity[key]
+            for rid in list(self._owner_stamp):
+                if rid not in self._owner:
+                    del self._owner_stamp[rid]  # desync backstop
+                    continue
+                if now - self._owner_stamp[rid] <= self._owner_ttl:
+                    continue
+                if rid in self._orphaned:
+                    continue  # orphan reconciliation owns this id
+                owner = self._owner[rid]
+                if owner is None:
+                    self._owner.pop(rid, None)
+                    self._owner_stamp.pop(rid, None)
+                else:
+                    live.append((rid, owner))
+        for rid, owner in live:
+            forgotten = False
+            try:
+                with urllib.request.urlopen(
+                        f"{owner.url}/v1/requests/{rid}",
+                        timeout=self._probe_timeout) as resp:
+                    forgotten = resp.status != 200
+            except urllib.error.HTTPError as exc:
+                forgotten = exc.code == 404
+            except (urllib.error.URLError, OSError):
+                forgotten = True  # replica gone: the run went with it
+            with self._lock:
+                if forgotten:
+                    if self._owner.get(rid) is owner:
+                        self._owner.pop(rid, None)
+                        self._owner_stamp.pop(rid, None)
+                elif rid in self._owner_stamp:
+                    # Alive and still decoding: refresh so the sweep
+                    # doesn't re-probe it every interval.
+                    self._owner_stamp[rid] = time.time()
+
+    def healthy_count(self) -> int:
+        with self._lock:
+            return sum(1 for r in self._replicas if r.healthy)
+
+    def replicas(self) -> list[dict]:
+        with self._lock:
+            return [r.snapshot() for r in self._replicas]
+
+    # ----------------------------- dispatch ----------------------------
+
+    def _affinity_key(self, spec: dict) -> Optional[str]:
+        """Prefix key for affinity routing: client-supplied
+        ("prefix_key" — e.g. a system-prompt/template id) or derived
+        from the first affinity_prefix_tokens prompt tokens. Prompts
+        shorter than the window get no key (nothing worth steering
+        for)."""
+        key = spec.get("prefix_key")
+        if key:
+            return f"client:{key}"
+        prompt = spec.get("prompt")
+        n = self._affinity_prefix_tokens
+        if not isinstance(prompt, list) or len(prompt) < n or n <= 0:
+            return None
+        head = ",".join(str(t) for t in prompt[:n])
+        return hashlib.blake2b(head.encode(),
+                               digest_size=16).hexdigest()
+
+    def _pick(self, exclude: set,
+              affinity_key: Optional[str] = None) -> _Replica:
+        """Least-loaded healthy replica (router inflight + last
+        scraped engine backlog). With an affinity key, prefer the
+        replica that last served this prefix — its paged KV pool
+        holds the prefix pages, so prefill there is a gather instead
+        of a recompute — unless it is unhealthy, excluded, or more
+        than affinity_load_slack ahead of the least-loaded choice
+        (prefix stickiness must not create hot spots)."""
+        with self._lock:
+            candidates = [r for r in self._replicas
+                          if r.healthy and r.url not in exclude]
+            if not candidates:
+                raise NoHealthyReplicaError(
+                    f"no healthy replica "
+                    f"({len(self._replicas)} registered)")
+            best = min(candidates, key=lambda r: (r.load(),
+                                                  r.dispatched))
+            chosen = best
+            if affinity_key is not None:
+                entry = self._affinity.get(affinity_key)
+                if entry is not None:
+                    sticky = entry[0]
+                    if (sticky.healthy and sticky.url not in exclude
+                            and sticky.load() <= best.load() +
+                            self._affinity_load_slack):
+                        if sticky is not best:
+                            chosen = sticky
+                        self.affinity_routed += 1
+                self._affinity[affinity_key] = (chosen, time.time())
+            chosen.inflight += 1
+            chosen.dispatched += 1
+            return chosen
+
+    def finish(self, replica: _Replica, request_id: Optional[str],
+               ok: bool, retrying: bool = False) -> None:
+        """Release one dispatch's accounting. ``retrying=True`` keeps
+        the duplicate-request claim alive by demoting the ownership
+        back to the reserved sentinel instead of popping it — the
+        caller is about to re-dispatch the same id to another replica,
+        and a concurrent same-id POST must NOT pass _claim() in that
+        window (the fleet would decode it twice)."""
+        with self._lock:
+            replica.inflight = max(0, replica.inflight - 1)
+            if ok:
+                replica.completed += 1
+            else:
+                replica.failed += 1
+            # Only the current owner clears the mapping (a failover
+            # retry may have remapped the id to another replica).
+            if request_id is not None and \
+                    self._owner.get(request_id) is replica:
+                if retrying:
+                    self._owner[request_id] = None  # back to reserved
+                    self._owner_stamp[request_id] = time.time()
+                else:
+                    self._owner.pop(request_id, None)
+                    self._owner_stamp.pop(request_id, None)
+
+    def _orphan_inflight(self, replica: _Replica,
+                         request_id: Optional[str]) -> None:
+        """A dispatch (or mid-stream read) timed out while the run may
+        still be live on the replica: release the inflight slot but
+        KEEP ownership, handing the id to orphan reconciliation — the
+        duplicate gate and sticky cancel stay correct until the
+        replica demonstrably forgets the run."""
+        with self._lock:
+            replica.inflight = max(0, replica.inflight - 1)
+            replica.failed += 1
+        self._orphan(request_id, replica)
+
+    def _claim(self, request_id: Optional[str]) -> None:
+        """Router-level duplicate-id gate: the per-replica front end
+        rejects ids IT has in flight (server.py _make_pending), but
+        two replicas can't see each other — without this, a retry of
+        a live id lands on the other replica and decodes twice.
+        Check-and-RESERVE under one lock acquisition (a None owner =
+        claimed, replica not yet picked), so two concurrent claims of
+        the same id cannot both pass."""
+        if not request_id:
+            return
+        with self._lock:
+            if request_id in self._owner:
+                raise DuplicateRequestError(
+                    f"request_id {request_id} in flight")
+            self._owner[request_id] = None  # reserved
+            self._owner_stamp[request_id] = time.time()
+
+    def _release_claim(self, request_id: Optional[str]) -> None:
+        """Drop a reservation that never reached a replica (e.g. no
+        healthy replica after the claim)."""
+        if request_id:
+            with self._lock:
+                if self._owner.get(request_id) is None:
+                    self._owner.pop(request_id, None)
+                    self._owner_stamp.pop(request_id, None)
+
+    def _remember(self, request_id: Optional[str],
+                  replica: _Replica) -> None:
+        if request_id:
+            with self._lock:
+                self._owner[request_id] = replica
+                self._owner_stamp[request_id] = time.time()
+
+    def _orphan(self, request_id: Optional[str],
+                replica: _Replica) -> None:
+        """A dispatch timed out but the run may still be live on the
+        replica: keep the ownership (duplicate gate + sticky cancel
+        stay correct) and let the health loop reconcile — the entry
+        clears once the replica no longer knows the id."""
+        if request_id:
+            with self._lock:
+                self._orphaned[request_id] = replica
+
+    def _reconcile_orphans(self) -> None:
+        with self._lock:
+            orphans = dict(self._orphaned)
+        for request_id, replica in orphans.items():
+            done = False
+            try:
+                with urllib.request.urlopen(
+                        f"{replica.url}/v1/requests/{request_id}",
+                        timeout=self._probe_timeout) as resp:
+                    done = resp.status != 200
+            except urllib.error.HTTPError as exc:
+                done = exc.code == 404
+            except (urllib.error.URLError, OSError):
+                done = True  # replica gone: the run is gone with it
+            if done:
+                with self._lock:
+                    self._orphaned.pop(request_id, None)
+                    if self._owner.get(request_id) is replica:
+                        self._owner.pop(request_id, None)
+                        self._owner_stamp.pop(request_id, None)
+
+    def _mark_unhealthy(self, replica: _Replica, exc: Exception
+                        ) -> None:
+        logger.warning("replica %s failed dispatch: %s", replica.url,
+                       exc)
+        with self._lock:
+            if replica.healthy:
+                replica.unhealthy_total += 1
+            replica.healthy = False
+            replica.consecutive_failures += 1
+            replica.last_error = str(exc)
+
+    def _mark_draining(self, replica: _Replica) -> None:
+        """A dispatch saw the replica's 503+draining answer: converge
+        rotation state ahead of the next probe."""
+        with self._lock:
+            replica.healthy = False
+            replica.draining = True
+            replica.last_error = "draining"
+
+    def _retry_wait(self, attempt: int) -> None:
+        """Capped exponential backoff between failover attempts
+        (retry storm control); interruptible by shutdown."""
+        delay = min(self._retry_backoff_cap,
+                    self._retry_backoff_base * (2 ** attempt))
+        self._stop.wait(delay)
+
+    @staticmethod
+    def _is_backpressure(code: int, payload: dict) -> bool:
+        """Replica answers that mean 'try a sibling', not 'the
+        request failed': drain refusals and 429 concurrency caps.
+        A shed 503 is NOT included — the request's TTFT deadline is
+        already blown fleet-wide; relaying it is honest."""
+        return (code in (503, 429) and isinstance(payload, dict) and
+                bool(payload.get("draining") or
+                     payload.get("backpressure")))
+
+    def dispatch(self, spec: dict) -> tuple[int, dict]:
+        """Route one non-streaming generate; fail over across
+        replicas on connection errors."""
+        request_id = spec.get("request_id")
+        affinity_key = self._affinity_key(spec)
+        self._claim(request_id)
+        tried: set = set()
+        attempts = 0
+        while True:
+            try:
+                replica = self._pick(tried, affinity_key)
+            except NoHealthyReplicaError:
+                self._release_claim(request_id)
+                raise
+            tried.add(replica.url)
+            self._remember(request_id, replica)
+            body = json.dumps(spec).encode()
+            req = urllib.request.Request(
+                f"{replica.url}/v1/generate", data=body,
+                headers={"Content-Type": "application/json"},
+                method="POST")
+            try:
+                with urllib.request.urlopen(
+                        req, timeout=self._request_timeout) as resp:
+                    body = resp.read()
+                    status = resp.status
+                try:
+                    payload = json.loads(body)
+                    if not isinstance(payload, dict):
+                        raise ValueError("non-object JSON")
+                except ValueError:
+                    # A 200 with an unparseable body is a broken
+                    # replica, not a crashed one: release the
+                    # inflight slot and relay the failure.
+                    self.finish(replica, request_id, ok=False)
+                    return 502, {"error": f"replica {replica.url} "
+                                          f"returned non-JSON body"}
+                self.finish(replica, request_id, ok=True)
+                payload["_replica"] = replica.url
+                return status, payload
+            except urllib.error.HTTPError as exc:
+                payload = _json_or_error(exc.read())
+                if self._is_backpressure(exc.code, payload):
+                    # Drain refusal / 429 cap: the request is fine,
+                    # the replica just won't take it — fail over
+                    # within the retry budget instead of relaying.
+                    if exc.code == 503:
+                        self._mark_draining(replica)
+                    self.finish(replica, request_id, ok=False,
+                                retrying=True)
+                    attempts += 1
+                    if attempts > self._retry_budget:
+                        self._release_claim(request_id)
+                        return 503, {
+                            "error": f"request_id {request_id}: "
+                                     f"retry budget "
+                                     f"({self._retry_budget}) "
+                                     f"exhausted", "retryable": True}
+                    self._retry_wait(attempts - 1)
+                    continue
+                # The replica answered (4xx/5xx): not a health event,
+                # relay verbatim.
+                self.finish(replica, request_id, ok=False)
+                return exc.code, payload
+            except (urllib.error.URLError, OSError,
+                    TimeoutError) as exc:
+                if _is_timeout(exc):
+                    # A saturated-but-alive replica: generate is NOT
+                    # idempotent (the run may still complete there),
+                    # so re-dispatching would double the work — and
+                    # slow is not dead, so no health event either.
+                    # Ownership is kept (duplicate gate + cancel stay
+                    # correct) until reconciliation sees the replica
+                    # forget the id; the load signal falls back to
+                    # the scraped engine backlog.
+                    self._orphan_inflight(replica, request_id)
+                    return 504, {"error": f"replica {replica.url} "
+                                          f"timed out: {exc}"}
+                # retrying=True: the claim stays reserved through the
+                # retry loop so a concurrent duplicate POST is still
+                # rejected in the failover window.
+                self.finish(replica, request_id, ok=False,
+                            retrying=True)
+                self._mark_unhealthy(replica, exc)
+                attempts += 1
+                if attempts > self._retry_budget:
+                    self._release_claim(request_id)
+                    return 503, {
+                        "error": f"request_id {request_id}: retry "
+                                 f"budget ({self._retry_budget}) "
+                                 f"exhausted", "retryable": True}
+                self._retry_wait(attempts - 1)
+                # loop: try the next healthy replica
+
+    def open_stream(self, spec: dict):
+        """Dispatch a streaming generate; returns (upstream response,
+        replica, request_id). Failover happens here (before any byte
+        reaches the client)."""
+        request_id = spec.get("request_id")
+        affinity_key = self._affinity_key(spec)
+        self._claim(request_id)
+        tried: set = set()
+        attempts = 0
+        while True:
+            try:
+                replica = self._pick(tried, affinity_key)
+            except NoHealthyReplicaError:
+                self._release_claim(request_id)
+                raise
+            tried.add(replica.url)
+            self._remember(request_id, replica)
+            req = urllib.request.Request(
+                f"{replica.url}/v1/generate",
+                data=json.dumps(spec).encode(),
+                headers={"Content-Type": "application/json"},
+                method="POST")
+            try:
+                upstream = urllib.request.urlopen(
+                    req, timeout=self._request_timeout)
+                return upstream, replica, request_id
+            except urllib.error.HTTPError as exc:
+                payload = _json_or_error(exc.read())
+                if self._is_backpressure(exc.code, payload):
+                    if exc.code == 503:
+                        self._mark_draining(replica)
+                    self.finish(replica, request_id, ok=False,
+                                retrying=True)
+                    attempts += 1
+                    if attempts > self._retry_budget:
+                        self._release_claim(request_id)
+                        raise NoHealthyReplicaError(
+                            f"retry budget ({self._retry_budget}) "
+                            f"exhausted") from exc
+                    self._retry_wait(attempts - 1)
+                    continue
+                self.finish(replica, request_id, ok=False)
+                # The body was consumed above; stash the parsed
+                # payload for the handler's relay.
+                exc.payload = payload
+                raise
+            except (urllib.error.URLError, OSError,
+                    TimeoutError) as exc:
+                if _is_timeout(exc):
+                    self._orphan_inflight(replica, request_id)
+                    raise  # see dispatch(): slow is not dead
+                self.finish(replica, request_id, ok=False,
+                            retrying=True)
+                self._mark_unhealthy(replica, exc)
+                attempts += 1
+                if attempts > self._retry_budget:
+                    self._release_claim(request_id)
+                    raise NoHealthyReplicaError(
+                        f"retry budget ({self._retry_budget}) "
+                        f"exhausted") from exc
+                self._retry_wait(attempts - 1)
+
+    def resume_stream(self, spec: dict, request_id: Optional[str],
+                      emitted: list[int], exclude: set):
+        """Re-dispatch a broken stream on a sibling: same spec plus
+        resume_tokens (the journaled progress) so the sibling's
+        engine re-prefills prompt+emitted in one pass and the greedy
+        decode continues byte-identically. The caller still holds the
+        id's reserved claim (finish(retrying=True)) — no re-claim
+        here; exclude carries the replicas that already failed this
+        request. Returns (upstream response, replica). Raises
+        NoHealthyReplicaError when no sibling can take it."""
+        resume_spec = dict(spec, resume_tokens=list(emitted))
+        affinity_key = self._affinity_key(spec)
+        tried: set = set(exclude)
+        body = json.dumps(resume_spec).encode()
+        while True:
+            replica = self._pick(tried, affinity_key)
+            tried.add(replica.url)
+            self._remember(request_id, replica)
+            req = urllib.request.Request(
+                f"{replica.url}/v1/generate", data=body,
+                headers={"Content-Type": "application/json"},
+                method="POST")
+            try:
+                upstream = urllib.request.urlopen(
+                    req, timeout=self._request_timeout)
+                self.recoveries += 1
+                return upstream, replica
+            except urllib.error.HTTPError as exc:
+                payload = _json_or_error(exc.read())
+                self.finish(replica, request_id, ok=False,
+                            retrying=True)
+                if self._is_backpressure(exc.code, payload):
+                    if exc.code == 503:
+                        self._mark_draining(replica)
+                    continue  # next sibling
+                exc.payload = payload
+                raise
+            except (urllib.error.URLError, OSError,
+                    TimeoutError) as exc:
+                self.finish(replica, request_id, ok=False,
+                            retrying=True)
+                if _is_timeout(exc):
+                    raise  # slow is not dead; do not double-dispatch
+                self._mark_unhealthy(replica, exc)
+
+    def _note_recovery(self, request_id: Optional[str],
+                       from_url: str, to_url: Optional[str],
+                       resumed_tokens: int, recovery_seconds: float,
+                       synthesized: bool = False) -> None:
+        with self._lock:
+            self.recovery_log.append({
+                "request_id": request_id, "from": from_url,
+                "to": to_url, "resumed_tokens": resumed_tokens,
+                "recovery_seconds": recovery_seconds,
+                "synthesized": synthesized, "at": time.time()})
+            if synthesized:
+                self.recovered_requests += 1
+        # Price the re-dispatch as serving-recovery badput when this
+        # router runs inside a pool task (no-op otherwise).
+        gp_events.record(
+            gp_events.SERVE_RECOVERY,
+            time.time() - recovery_seconds, time.time(),
+            request_id=request_id or "",
+            resumed_tokens=resumed_tokens)
+
+    def _note_recovered(self, request_id: Optional[str]) -> None:
+        with self._lock:
+            self.recovered_requests += 1
+
+    def _note_lost(self, request_id: Optional[str]) -> None:
+        logger.warning("stream %s lost: recovery failed", request_id)
+        with self._lock:
+            self.lost_streams += 1
+
+    def cancel(self, request_id: str) -> tuple[int, dict]:
+        """Cancel on the owning replica when known; otherwise
+        broadcast — replicas 404 unknown ids (server.py do_DELETE),
+        so the probe keeps going until the owner answers 202.
+        Draining replicas stay in the broadcast: they may own live
+        decodes finishing out."""
+        with self._lock:
+            replica = self._owner.get(request_id)
+            targets = ([replica] if replica is not None
+                       else [r for r in self._replicas
+                             if r.healthy or r.draining])
+        last: tuple[int, dict] = (404, {"error": f"unknown "
+                                                 f"request_id "
+                                                 f"{request_id}"})
+        for target in targets:
+            req = urllib.request.Request(
+                f"{target.url}/v1/requests/{request_id}",
+                method="DELETE")
+            try:
+                with urllib.request.urlopen(
+                        req, timeout=self._probe_timeout) as resp:
+                    return resp.status, json.loads(resp.read())
+            except urllib.error.HTTPError as exc:
+                last = (exc.code, _json_or_error(exc.read()))
+                if exc.code != 404:
+                    return last  # owner answered with a real error
+            except (urllib.error.URLError, OSError) as exc:
+                self._mark_unhealthy(target, exc)
+                last = (503, {"error": "no replica reachable for "
+                                       "cancel"})
+        return last
+
+    def prometheus_metrics(self) -> list[str]:
+        """Fleet metrics in Prometheus exposition format: aggregate
+        gauges plus per-replica series labeled by replica URL — one
+        scrape target for the whole fleet."""
+        stats = self.stats()
+        lines = prometheus_lines("shipyard_router", {
+            "replicas": stats["replicas"],
+            "healthy_replicas": stats["healthy_replicas"],
+            "inflight": stats["router_inflight"],
+            "dispatched_total": stats["dispatched"],
+            "completed_total": stats["completed"],
+            "failed_total": stats["failed"],
+            "affinity_routed_total": stats["affinity_routed"],
+            "recoveries_total": stats["recoveries"],
+            "recovered_requests_total": stats["recovered_requests"],
+            "lost_streams_total": stats["lost_streams"],
+        })
+        prefix = stats.get("prefix_cache")
+        if prefix:
+            lines.extend(prometheus_lines("shipyard_router", {
+                "prefix_hit_rate": prefix["hit_rate"],
+                "prefix_hit_tokens_total": prefix["hit_tokens"],
+                "prefix_prompt_tokens_total":
+                    prefix["total_prompt_tokens"],
+            }))
+        for snap in stats["per_replica"]:
+            lines.extend(prometheus_lines(
+                "shipyard_router_replica", {
+                    "healthy": 1 if snap["healthy"] else 0,
+                    "inflight": snap["inflight"],
+                    "backlog": snap["backlog"],
+                    "dispatched_total": snap["dispatched"],
+                    "completed_total": snap["completed"],
+                    "failed_total": snap["failed"],
+                    "draining": 1 if snap["draining"] else 0,
+                    "unhealthy_total": snap["unhealthy_total"],
+                }, labels={"replica": snap["url"]}))
+        # Fleet-wide latency: quantile gauges + the merged histogram
+        # in native _bucket exposition (stats() merged the replicas'
+        # fixed-bucket counts losslessly).
+        for metric in ("ttft", "tpot"):
+            for pct, value in stats.get(f"{metric}_ms", {}).items():
+                lines.extend(prometheus_lines(
+                    "shipyard_router", {f"{metric}_ms": value},
+                    labels={"quantile": f"0.{pct}"}))
+            merged = LatencyHistogram.from_dict(
+                stats.get(f"{metric}_hist"))
+            if merged is not None and merged.count:
+                lines.extend(merged.prometheus_bucket_lines(
+                    f"shipyard_router_{metric}_ms"))
+        return lines
+
+    def stats(self) -> dict:
+        """Aggregate + per-replica: the fleet view of
+        ServingFrontEnd.stats()."""
+        with self._lock:
+            snaps = [r.snapshot() for r in self._replicas]
+            stats = {r.url: dict(r.stats) for r in self._replicas}
+        agg = {
+            "replicas": len(snaps),
+            "healthy_replicas": sum(1 for s in snaps if s["healthy"]),
+            "router_inflight": sum(s["inflight"] for s in snaps),
+            "dispatched": sum(s["dispatched"] for s in snaps),
+            "completed": sum(s["completed"] for s in snaps),
+            "failed": sum(s["failed"] for s in snaps),
+            "affinity_routed": self.affinity_routed,
+            # Mid-stream recovery: attempts begun, streams completed
+            # after >=1 resume (or with a synthesized final), streams
+            # given up on, and the recent-recovery detail the bench's
+            # TTFT-delta report reads.
+            "recoveries": self.recoveries,
+            "recovered_requests": self.recovered_requests,
+            "lost_streams": self.lost_streams,
+            "recovery_log": list(self.recovery_log),
+            "completed_requests": sum(
+                s.get("completed_requests", 0)
+                for s in stats.values()),
+            "generated_tokens": sum(
+                s.get("generated_tokens", 0) for s in stats.values()),
+            "per_replica": snaps,
+        }
+        # Fleet-wide latency percentiles from LOSSLESSLY merged
+        # per-replica histograms (trace/histogram.py — every replica
+        # bins into the same fixed edges, so the merge is exact;
+        # averaging per-replica percentiles would be statistically
+        # meaningless). Replicas running pre-histogram code simply
+        # don't contribute.
+        for metric in ("ttft", "tpot"):
+            merged = LatencyHistogram.merged(
+                h for h in (LatencyHistogram.from_dict(
+                    s.get(f"{metric}_hist")) for s in stats.values())
+                if h is not None)
+            if merged.count:
+                pcts = merged.percentiles((50, 90, 99))
+                agg[f"{metric}_ms"] = {p: pcts[f"p{p}"]
+                                       for p in (50, 90, 99)}
+                agg[f"{metric}_hist"] = merged.to_dict()
+        # Fleet-wide speculative-decode acceptance (replicas running
+        # a draft model report per-engine counters in their stats).
+        proposed = sum(
+            s.get("speculative", {}).get("proposed", 0)
+            for s in stats.values())
+        accepted = sum(
+            s.get("speculative", {}).get("accepted", 0)
+            for s in stats.values())
+        if proposed:
+            agg["speculative"] = {
+                "proposed": proposed,
+                "accepted": accepted,
+                "acceptance_rate": accepted / proposed,
+            }
+        # Fleet-wide prefix-cache effectiveness: hit/total token sums
+        # across replicas (token-level hit rate — exactly what each
+        # replica reports, merged losslessly). Replicas with the
+        # cache disabled simply don't contribute.
+        prefix_reports = [s.get("prefix_cache") for s in stats.values()
+                         if s.get("prefix_cache")]
+        if prefix_reports:
+            hit = sum(p.get("hit_tokens", 0) for p in prefix_reports)
+            total = sum(p.get("total_prompt_tokens", 0)
+                        for p in prefix_reports)
+            agg["prefix_cache"] = {
+                "lookups": sum(p.get("lookups", 0)
+                               for p in prefix_reports),
+                "hit_tokens": hit,
+                "total_prompt_tokens": total,
+                "hit_rate": hit / total if total else 0.0,
+                "published_pages": sum(p.get("published_pages", 0)
+                                       for p in prefix_reports),
+                "evictions": sum(p.get("evictions", 0)
+                                 for p in prefix_reports),
+            }
+        return agg
+
+
+def _json_or_error(body: bytes) -> dict:
+    try:
+        return json.loads(body)
+    except ValueError:
+        return {"error": body.decode(errors="replace")[:400]}
+
+
+def _is_timeout(exc: Exception) -> bool:
+    """socket timeouts surface bare (TimeoutError) or wrapped in
+    URLError(reason=timeout) depending on where in the request they
+    strike."""
+    if isinstance(exc, TimeoutError):
+        return True
+    return (isinstance(exc, urllib.error.URLError)
+            and isinstance(exc.reason, TimeoutError))
+
+
+def main(argv=None) -> int:
+    """Standalone fleet router over running front ends; serves until
+    interrupted:
+
+        python -m batch_shipyard_tpu_torch.models.router \\
+            http://node0:8900 http://node1:8900 --port 8800
+    """
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("urls", nargs="+",
+                        help="Replica front end base URL(s)")
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=8800)
+    parser.add_argument("--health-interval", type=float, default=2.0)
+    args = parser.parse_args(argv)
+    router = ServingRouter(args.urls, host=args.host, port=args.port,
+                           health_interval=args.health_interval)
+    router.start()
+    print(f"router listening on {router.url} over "
+          f"{len(args.urls)} replica(s)", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        router.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

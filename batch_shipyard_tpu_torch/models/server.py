@@ -1,29 +1,41 @@
 """HTTP serving front end over the port's continuous-batching engine.
 
 Counterpart of batch_shipyard_tpu/models/server.py (``ServingFrontEnd``)
-with the same wire format, bound to
+with the same wire format and stats keys, bound to
 ``batch_shipyard_tpu_torch.models.serving.ContinuousBatcher``. stdlib
-only: one engine thread owns the engine (drains the submission queue,
-steps while work is active, completes waiters); HTTP handler threads
-parse, validate and wait.
+only: ONE engine thread owns the engine (drains the submission and
+cancel queues, steps while work is active, completes waiters); HTTP
+handler threads parse, validate and wait; the drain watcher only flips
+an event the engine thread acts on.
 
 Endpoints:
   POST /v1/generate   {"prompt": [ids], "max_new_tokens": n,
                        "request_id"?: str, "eos_id"?: int,
                        "priority"?: int, "slo_class"?: str,
                        "ttft_target_ms"?: float, "tpot_target_ms"?: float,
-                       "stream"?: bool}
+                       "resume_tokens"?: [ids], "stream"?: bool}
       -> {"request_id", "tokens", "num_tokens", "ttft_ms", "tpot_ms",
           "latency_ms", "slo_class"}
       With "stream": true the reply is NDJSON over chunked transfer:
       one {"token": t, "index": i} line per token as it decodes, then
-      the final result object.
-  DELETE /v1/requests/<id>   abort (202; 404 for unknown ids)
-  GET  /v1/requests/<id>     phase (queued/prefill/decode) + progress
-  GET  /v1/stats, /metrics (Prometheus), /healthz
-Beyond max_inflight accepted-but-unfinished requests, POST gets 429.
-Drain, mid-stream resume, trace spans and the fleet router come with a
-later slice of the port.
+      the final result object. "resume_tokens" are tokens a failed
+      replica already emitted (models/router.py's mid-stream recovery):
+      the engine re-prefills prompt + them and token indexes continue
+      from there; a resume of a request this replica already finished
+      replays the cached result ("cached": true).
+  DELETE /v1/requests/<id>   abort (202; 404 for ids this front end
+      does not own, which a router's broadcast cancel probes by)
+  GET  /v1/requests/<id>     phase (queued/prefill/decode/draining) and
+      emitted tokens while in flight, else 404
+  GET  /v1/stats, /metrics (Prometheus), /healthz (503 + "draining"
+      while draining)
+Beyond max_inflight accepted-but-unfinished requests, POST gets 429
+(resumes are exempt). While draining (drain(), or a preempt notice
+through arm_preempt_drain) a new request gets 503 + Retry-After with
+"draining"; queued work is evicted the same way, and decodes still
+running at the grace deadline end with the draining marker, which the
+router resumes on a sibling. kill() is the crash shape: every
+connection severed, no markers.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import collections
 import json
 import logging
 import queue
+import socket
 import threading
 import time
 import uuid
@@ -40,68 +53,53 @@ from typing import Optional
 
 from batch_shipyard_tpu_torch.models.serving import (ContinuousBatcher,
                                                      Request)
+from batch_shipyard_tpu_torch.trace import spans as trace_spans
 from batch_shipyard_tpu_torch.trace.histogram import LatencyHistogram
 
 logger = logging.getLogger(__name__)
 
 
 class RequestCancelled(Exception):
-    """The request was aborted via the cancel API (409)."""
+    """The request was aborted via the cancel API."""
 
 
 class RequestShed(Exception):
-    """The engine dropped the request under overload (503, "shed")."""
+    """The engine dropped the request under overload (its TTFT
+    deadline was blown past the shed grace) — surfaced as 503 so
+    clients/routers treat it as back-pressure, not failure."""
+
+
+class RequestDraining(Exception):
+    """This replica is draining (preempt/evict notice): the request
+    was refused, or its decode was abandoned at the grace deadline.
+    Surfaced as 503 + Retry-After with a "draining" marker so the
+    router fails over (and, mid-stream, resumes on a sibling) instead
+    of treating the replica as failed."""
 
 
 class TooManyRequests(Exception):
-    """Front-door concurrency cap exceeded (429 back-pressure)."""
+    """Front-door concurrency cap exceeded — 429 back-pressure; the
+    router backs off and retries a sibling."""
 
 
-def prometheus_lines(prefix: str, values: dict,
-                     labels: Optional[dict] = None) -> list[str]:
-    """Render {name: number} as Prometheus gauges; None values are
-    skipped (absent metric, not zero)."""
-    label_str = ""
-    if labels:
-        inner = ",".join(
-            '{}="{}"'.format(k, str(v).replace("\\", "\\\\")
-                             .replace('"', '\\"').replace("\n", "\\n"))
-            for k, v in sorted(labels.items()))
-        label_str = "{" + inner + "}"
-    return [f"{prefix}_{name}{label_str} {float(value):.17g}"
-            for name, value in values.items() if value is not None]
+class CompletedReplay(Exception):
+    """A resume landed for a request this replica already finished:
+    serve the cached result instead of decoding again (exactly-once
+    across a router failover that raced completion)."""
+
+    def __init__(self, result: dict) -> None:
+        super().__init__(result["request_id"])
+        self.result = result
 
 
-class _Pending:
-    __slots__ = ("request", "event", "submitted_at", "admitted_at",
-                 "first_token_at", "finished_at", "tokens", "error",
-                 "token_queue", "cancelled", "shed", "emitted")
-
-    def __init__(self, request: Request, stream: bool = False) -> None:
-        self.request = request
-        self.event = threading.Event()
-        self.submitted_at = time.perf_counter()
-        self.admitted_at: Optional[float] = None
-        self.first_token_at: Optional[float] = None
-        self.finished_at: Optional[float] = None
-        self.tokens: Optional[list[int]] = None
-        self.error: Optional[str] = None
-        self.cancelled = False
-        self.shed = False
-        self.emitted = 0
-        # Streaming: the engine thread feeds (index, token) pairs here;
-        # None terminates the stream.
-        self.token_queue: Optional["queue.Queue"] = (
-            queue.Queue() if stream else None)
-
-
-class _Handler(BaseHTTPRequestHandler):
-    """HTTP/1.1 (chunked streaming; every other reply carries
-    Content-Length so keep-alive is safe), quiet logging, JSON replies.
-    ``front`` is bound per server by ServingFrontEnd."""
+class JsonRequestHandler(BaseHTTPRequestHandler):
+    """Shared handler base for the serving HTTP surfaces (this front
+    end and models/router.py): HTTP/1.1 (required for chunked
+    streaming; all non-streaming replies carry Content-Length so
+    keep-alive is safe), silenced per-request logging, and the JSON
+    reply helper."""
 
     protocol_version = "HTTP/1.1"
-    front: "ServingFrontEnd"
 
     def log_message(self, fmt, *args):  # noqa: N802
         pass
@@ -117,175 +115,414 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
-    def do_DELETE(self):  # noqa: N802
+    def _delete_request_id(self) -> Optional[str]:
+        """Parse /v1/requests/<id> from a DELETE path; None (and a
+        404 reply) otherwise."""
         prefix = "/v1/requests/"
         if not self.path.startswith(prefix):
             self._reply(404, {"error": "not found"})
-            return
-        request_id = self.path[len(prefix):]
-        if not self.front.knows(request_id):
-            self._reply(404, {"error": f"unknown request_id "
-                                       f"{request_id}"})
-            return
-        self.front.cancel(request_id)
-        self._reply(202, {"request_id": request_id, "cancelling": True})
+            return None
+        return self.path[len(prefix):]
 
-    def do_GET(self):  # noqa: N802
-        front = self.front
-        if self.path == "/healthz":
-            self._reply(200, {"ok": True})
-        elif self.path == "/metrics":
-            body = ("\n".join(front.prometheus_metrics()) + "\n").encode()
-            self.send_response(200)
-            self.send_header("Content-Type", "text/plain; version=0.0.4")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-        elif self.path == "/v1/stats":
-            self._reply(200, front.stats())
-        elif self.path.startswith("/v1/requests/"):
-            request_id = self.path[len("/v1/requests/"):]
-            status = front.request_status(request_id)
-            if status is not None:
-                self._reply(200, status)
-            else:
-                self._reply(404, {"request_id": request_id,
-                                  "in_flight": False})
-        else:
-            self._reply(404, {"error": "not found"})
+    def _reply_metrics(self, lines: list[str]) -> None:
+        """Prometheus text exposition."""
+        body = ("\n".join(lines) + "\n").encode()
+        self.send_response(200)
+        self.send_header("Content-Type",
+                         "text/plain; version=0.0.4")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
 
-    def do_POST(self):  # noqa: N802
-        if self.path != "/v1/generate":
-            self._reply(404, {"error": "not found"})
-            return
-        try:
-            length = int(self.headers.get("Content-Length", 0))
-            spec = json.loads(self.rfile.read(length))
-        except (ValueError, OSError) as exc:
-            self._reply(400, {"error": str(exc)})
-            return
-        if not isinstance(spec, dict):
-            self._reply(400, {"error": "body must be a JSON object"})
-            return
-        if spec.get("stream"):
-            self._stream_generate(spec)
-            return
-        try:
-            result = self.front.generate(spec)
-        except TooManyRequests as exc:
-            self._reply(429, {"error": str(exc), "backpressure": True},
-                        headers={"Retry-After": "1"})
-            return
-        except RequestCancelled as exc:
-            self._reply(409, {"error": str(exc)})
-            return
-        except RequestShed as exc:
-            self._reply(503, {"error": str(exc), "shed": True})
-            return
-        except ValueError as exc:
-            self._reply(400, {"error": str(exc)})
-            return
-        except Exception as exc:  # noqa: BLE001 - keep serving
-            logger.exception("generate failed")
-            self._reply(500, {"error": str(exc)})
-            return
-        self._reply(200, result)
 
-    def _stream_generate(self, spec: dict) -> None:
-        """NDJSON token stream over chunked transfer. Validation errors
-        before the headers are plain replies; errors after them are a
-        final {"error": ...} line and a clean terminating chunk."""
-        try:
-            request_id, stream = self.front.generate_stream(spec)
-        except TooManyRequests as exc:
-            self._reply(429, {"error": str(exc), "backpressure": True},
-                        headers={"Retry-After": "1"})
-            return
-        except ValueError as exc:
-            self._reply(400, {"error": str(exc)})
-            return
-        try:
-            self.send_response(200)
-            self.send_header("Content-Type", "application/x-ndjson")
-            self.send_header("Transfer-Encoding", "chunked")
-            self.end_headers()
-        except OSError:
-            self.front.abandon(request_id)
-            stream.close()
-            return
+def _escape_label(value) -> str:
+    """Prometheus exposition label escaping (\\, \", newline) — one
+    odd replica URL must not invalidate the whole scrape."""
+    return (str(value).replace("\\", "\\\\")
+            .replace('"', '\\"').replace("\n", "\\n"))
 
-        def chunk(obj: dict) -> None:
-            line = json.dumps(obj).encode() + b"\n"
-            self.wfile.write(f"{len(line):x}\r\n".encode() + line +
-                             b"\r\n")
-            self.wfile.flush()
 
-        try:
-            try:
-                for event in stream:
-                    chunk(event)
-            except (BrokenPipeError, ConnectionResetError):
-                raise
-            except RequestShed as exc:
-                chunk({"error": str(exc), "shed": True})
-            except (ValueError, TimeoutError, RequestCancelled) as exc:
-                chunk({"error": str(exc)})
-            except Exception as exc:  # noqa: BLE001 - keep serving
-                logger.exception("stream failed")
-                chunk({"error": str(exc)})
-            self.wfile.write(b"0\r\n\r\n")
-        except (BrokenPipeError, ConnectionResetError):
-            pass  # client went away; the engine finishes the run
-        finally:
-            stream.close()
+def prometheus_lines(prefix: str, values: dict,
+                     labels: Optional[dict] = None) -> list[str]:
+    """Render {name: number} as Prometheus gauges with optional
+    labels; None values are skipped (absent metric, not zero).
+    Values render at full float64 precision — ':g' would quantize
+    counters past 1e6 and break rate()/increase()."""
+    label_str = ""
+    if labels:
+        inner = ",".join(
+            f'{k}="{_escape_label(v)}"'
+            for k, v in sorted(labels.items()))
+        label_str = "{" + inner + "}"
+    out = []
+    for name, value in values.items():
+        if value is None:
+            continue
+        out.append(f"{prefix}_{name}{label_str} "
+                   f"{float(value):.17g}")
+    return out
+
+
+class _Pending:
+    __slots__ = ("request", "event", "submitted_at", "submitted_wall",
+                 "admitted_at", "first_token_at",
+                 "finished_at", "tokens", "error", "token_queue",
+                 "cancelled", "shed", "draining", "resumed",
+                 "emitted")
+
+    def __init__(self, request: Request, stream: bool = False,
+                 resumed: Optional[list[int]] = None) -> None:
+        self.request = request
+        self.event = threading.Event()
+        self.submitted_at = time.perf_counter()
+        # Wall-clock arrival: the anchor the request's trace spans
+        # are placed at (perf_counter deltas give the durations).
+        self.submitted_wall = time.time()
+        # Slot admission (the engine's on_admit hook): the
+        # queued -> prefill boundary.
+        self.admitted_at: Optional[float] = None
+        self.first_token_at: Optional[float] = None
+        self.finished_at: Optional[float] = None
+        self.tokens: Optional[list[int]] = None
+        self.error: Optional[str] = None
+        self.cancelled = False
+        self.shed = False
+        # Drain: the replica abandoned/refused this request while
+        # shutting down — the waiter surfaces RequestDraining and the
+        # router resumes elsewhere.
+        self.draining = False
+        # Router recovery: tokens a prior replica already emitted
+        # (the engine re-prefills them; on_token indexes continue
+        # globally from len(resumed)).
+        self.resumed: Optional[list[int]] = resumed
+        # Highest emitted-token count (global index + 1): the
+        # /v1/requests/<id> phase probe's progress source of truth.
+        self.emitted = len(resumed) if resumed else 0
+        # Streaming mode: the engine thread feeds (index, token)
+        # pairs here as they decode; None terminates the stream.
+        self.token_queue: Optional["queue.Queue"] = (
+            queue.Queue() if stream else None)
+
+
+def _complete(pending: _Pending, error: Optional[str] = None,
+              tokens: Optional[list[int]] = None, **flags) -> None:
+    """Complete a waiter: its tokens or error, its flags, the finish
+    time, the end of its token stream, its event."""
+    pending.tokens = tokens
+    pending.error = error
+    for name, value in flags.items():
+        setattr(pending, name, value)
+    pending.finished_at = time.perf_counter()
+    if pending.token_queue is not None:
+        pending.token_queue.put(None)
+    pending.event.set()
 
 
 class ServingFrontEnd:
-    """Owns the engine thread and the HTTP server around a
+    """Owns the engine thread + HTTP server around a
     ContinuousBatcher."""
 
     def __init__(self, engine: ContinuousBatcher,
                  host: str = "127.0.0.1", port: int = 0,
                  slo_classes: Optional[dict] = None,
                  max_inflight: Optional[int] = None,
-                 io_timeout_s: Optional[float] = None) -> None:
-        """slo_classes maps class name -> {"ttft_ms", "tpot_ms"}
-        targets a request's "slo_class" resolves to (explicit
-        *_target_ms fields override). max_inflight caps
-        accepted-but-unfinished requests (excess -> 429); io_timeout_s
-        is a per-connection socket deadline."""
+                 io_timeout_s: Optional[float] = None,
+                 drain_grace_s: float = 30.0) -> None:
+        """slo_classes maps class name ->
+        {"ttft_ms": float|None, "tpot_ms": float|None}
+        (config/settings.ServingSloSettings.class_targets()). A
+        request's "slo_class" resolves to those targets at admission;
+        explicit "ttft_target_ms"/"tpot_target_ms" in the request
+        body override its class. With no classes configured, class
+        names pass through untargeted.
+
+        Front-door hardening: max_inflight caps accepted-but-
+        unfinished requests (excess gets 429 back-pressure; resumes
+        are exempt — a recovery must not bounce), io_timeout_s sets a
+        per-connection socket read/write deadline so one wedged
+        client cannot pin a handler thread forever, drain_grace_s is
+        the default budget drain() gives in-flight decodes before
+        abandoning them."""
         self.engine = engine
         self.slo_classes = dict(slo_classes or {})
         self.max_inflight = max_inflight
+        self.drain_grace_s = drain_grace_s
+        # Drain ladder state: _draining flips once (preempt/evict
+        # notice or explicit drain()); handlers refuse new work with
+        # 503+Retry-After, healthz reports draining so the router
+        # stops routing here, and the engine thread lets active
+        # decodes run until _drain_deadline.
+        self._draining = threading.Event()
+        self._drain_deadline: Optional[float] = None
+        self._drain_reason = ""
+        self._drain_engine_done = False
+        self.drain_rejections = 0
         engine.on_token = self._on_token
         engine.on_admit = self._on_admit
         engine.on_shed = self._on_shed
         self._submit_q: "queue.Queue[_Pending]" = queue.Queue()
-        self._cancel_q: "queue.Queue[str]" = queue.Queue()
         self._inflight: dict[str, _Pending] = {}
         self._inflight_lock = threading.Lock()
-        # Engine-side ownership: request_id -> the _Pending the engine
-        # is decoding. Written only by the engine thread;
-        # _engine_active mirrors its keys under _inflight_lock so an id
-        # still decoding cannot be reused by a retried request.
+        # Engine-side run ownership: request_id -> the _Pending whose
+        # submission the engine is actually decoding. Written ONLY by
+        # the engine thread; _engine_active mirrors its keys under
+        # _inflight_lock so _make_pending can reject an id that is
+        # still decoding (a client that timed out/disconnected and
+        # retried must not receive the stale run's completion).
         self._active_runs: dict[str, _Pending] = {}
         self._engine_active: set[str] = set()
+        # Cancellations cross onto the engine thread here (the engine
+        # is single-threaded by design; cancel mutates slot state).
+        self._cancel_q: "queue.Queue[str]" = queue.Queue()
         self._stop = threading.Event()
+        # Live client sockets (handler setup/finish): kill() severs
+        # them all to reproduce the SIGKILL failure shape — streams
+        # end in a reset/bare EOF with no drain marker and no final
+        # line, exactly what the router's recovery path must absorb.
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
         self._stats_lock = threading.Lock()
+        # Recent-request detail only (bounded): totals and
+        # percentiles come from the running counters and histograms.
         self._completed: "collections.deque" = collections.deque(
             maxlen=2048)
+        # Finished-result replay cache (bounded), written atomically
+        # with the _inflight pop under _inflight_lock: a resume that
+        # races completion finds the cached result here instead of
+        # being admitted as a fresh (duplicate) decode.
+        self._recent_results: "collections.OrderedDict[str, dict]" = \
+            collections.OrderedDict()
+        self._recent_results_cap = 2048
         self._total_completed = 0
         self._total_tokens = 0
+        # Mergeable fixed-log-bucket latency histograms
+        # (trace/histogram.py): the shape the router can aggregate
+        # fleet-wide and Prometheus can histogram_quantile() over —
+        # exact per-request lists stay only for this replica's own
+        # recent detail.
         self._ttft_hist = LatencyHistogram()
         self._tpot_hist = LatencyHistogram()
+        # Per-SLO-class attainment accounting (under _stats_lock):
+        # class -> {requests, ttft_ok, tpot_ok, shed}.
         self._class_stats: dict[str, dict] = {}
         self._started_at = time.perf_counter()
         self._engine_thread = threading.Thread(
             target=self._engine_loop, name="serving-engine", daemon=True)
-        handler = type("Handler", (_Handler,), {"front": self})
+        front = self
+
+        class Handler(JsonRequestHandler):
+            def setup(self):
+                super().setup()
+                with front._conns_lock:
+                    front._conns.add(self.connection)
+
+            def finish(self):
+                try:
+                    super().finish()
+                finally:
+                    with front._conns_lock:
+                        front._conns.discard(self.connection)
+
+            def do_DELETE(self):  # noqa: N802
+                request_id = self._delete_request_id()
+                if request_id is None:
+                    return
+                # Unknown ids 404 so a fleet router's broadcast
+                # cancel can keep probing replicas for the owner.
+                if not front.knows(request_id):
+                    self._reply(404, {"error": f"unknown request_id "
+                                               f"{request_id}"})
+                    return
+                front.cancel(request_id)
+                self._reply(202, {"request_id": request_id,
+                                  "cancelling": True})
+
+            def do_GET(self):  # noqa: N802
+                if self.path == "/healthz":
+                    # Draining replicas answer 503 so the router's
+                    # status==200 health check pulls them from
+                    # rotation before the kill lands.
+                    if front.draining:
+                        self._reply(503, {"ok": False,
+                                          "draining": True})
+                    else:
+                        self._reply(200, {"ok": True})
+                elif self.path == "/metrics":
+                    self._reply_metrics(front.prometheus_metrics())
+                elif self.path == "/v1/stats":
+                    self._reply(200, front.stats())
+                elif self.path.startswith("/v1/requests/"):
+                    # Liveness + progress of one request id (the
+                    # fleet router's orphan reconciliation AND its
+                    # mid-stream recovery probe this — one source of
+                    # truth): 200 while the run is in flight here,
+                    # 404 once finished or never seen.
+                    request_id = self.path[len("/v1/requests/"):]
+                    status = front.request_status(request_id)
+                    if status is not None:
+                        self._reply(200, status)
+                    else:
+                        self._reply(404, {"request_id": request_id,
+                                          "in_flight": False})
+                else:
+                    self._reply(404, {"error": "not found"})
+
+            def do_POST(self):  # noqa: N802
+                if self.path != "/v1/generate":
+                    self._reply(404, {"error": "not found"})
+                    return
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    spec = json.loads(self.rfile.read(length))
+                except (ValueError, OSError) as exc:
+                    self._reply(400, {"error": str(exc)})
+                    return
+                if not isinstance(spec, dict):
+                    self._reply(400, {"error": "body must be a JSON "
+                                               "object"})
+                    return
+                if spec.get("stream"):
+                    # Owns its response lifecycle end-to-end; nothing
+                    # here may write a second reply after its headers.
+                    self._stream_generate(spec)
+                    return
+                try:
+                    result = front.generate(spec)
+                except CompletedReplay as exc:
+                    # Resume of an already-finished run: exactly-once
+                    # means replaying the cached result, not decoding
+                    # a duplicate.
+                    self._reply(200, dict(exc.result, cached=True))
+                    return
+                except RequestDraining as exc:
+                    self._reply(503, {"error": str(exc),
+                                      "draining": True},
+                                headers={"Retry-After": "1"})
+                    return
+                except TooManyRequests as exc:
+                    self._reply(429, {"error": str(exc),
+                                      "backpressure": True},
+                                headers={"Retry-After": "1"})
+                    return
+                except RequestCancelled as exc:
+                    self._reply(409, {"error": str(exc)})
+                    return
+                except RequestShed as exc:
+                    # Overload back-pressure, not failure: clients
+                    # should retry elsewhere/later.
+                    self._reply(503, {"error": str(exc),
+                                      "shed": True})
+                    return
+                except ValueError as exc:
+                    self._reply(400, {"error": str(exc)})
+                    return
+                except Exception as exc:  # defensive: keep serving
+                    logger.exception("generate failed")
+                    self._reply(500, {"error": str(exc)})
+                    return
+                self._reply(200, result)
+
+            def _stream_generate(self, spec: dict) -> None:
+                """Newline-delimited JSON token stream over chunked
+                transfer: the client sees each token the engine step
+                that produced it, then the final result object.
+                Validation errors before headers -> plain 400; errors
+                AFTER the 200/chunked headers are emitted as a final
+                {"error": ...} NDJSON line + clean terminating chunk
+                (a second HTTP response inside the open stream would
+                corrupt the framing)."""
+                stream = None
+                try:
+                    request_id, stream = front.generate_stream(spec)
+                except CompletedReplay as exc:
+                    # Replay the cached run as a stream: the router's
+                    # index dedupe drops what the client already saw.
+                    result, request_id = exc.result, None
+                except RequestDraining as exc:
+                    self._reply(503, {"error": str(exc),
+                                      "draining": True},
+                                headers={"Retry-After": "1"})
+                    return
+                except TooManyRequests as exc:
+                    self._reply(429, {"error": str(exc),
+                                      "backpressure": True},
+                                headers={"Retry-After": "1"})
+                    return
+                except ValueError as exc:
+                    self._reply(400, {"error": str(exc)})
+                    return
+                except Exception as exc:  # defensive, like do_POST
+                    logger.exception("stream setup failed")
+                    self._reply(500, {"error": str(exc)})
+                    return
+                try:
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "application/x-ndjson")
+                    self.send_header("Transfer-Encoding", "chunked")
+                    self.end_headers()
+                except OSError:
+                    # Client vanished before headers: the iterator
+                    # never runs, so ITS cleanup never runs — drop
+                    # the front-end registration explicitly (the
+                    # engine-side guard still protects the id until
+                    # decode completes).
+                    if request_id is not None:
+                        front.abandon(request_id)
+                    return
+
+                def _chunk(obj: dict) -> None:
+                    line = json.dumps(obj).encode() + b"\n"
+                    self.wfile.write(
+                        f"{len(line):x}\r\n".encode() + line +
+                        b"\r\n")
+                    self.wfile.flush()
+
+                if stream is None:
+                    # CompletedReplay: token lines then the cached
+                    # final result, same framing as a live stream.
+                    try:
+                        for i, token in enumerate(result["tokens"]):
+                            _chunk({"token": token, "index": i})
+                        _chunk(dict(result, cached=True))
+                        self.wfile.write(b"0\r\n\r\n")
+                    except (BrokenPipeError, ConnectionResetError):
+                        pass
+                    return
+                try:
+                    try:
+                        for event in stream:
+                            _chunk(event)
+                    except (BrokenPipeError, ConnectionResetError):
+                        # Client went away mid-relay: not a stream
+                        # failure — the outer handler ignores it and
+                        # the engine finishes the run on its own.
+                        raise
+                    except RequestDraining as exc:
+                        # Mid-stream drain-abandon: the marker tells
+                        # the router to resume on a sibling rather
+                        # than surface a failure.
+                        _chunk({"error": str(exc), "draining": True})
+                    except RequestShed as exc:
+                        _chunk({"error": str(exc), "shed": True})
+                    except (ValueError, TimeoutError,
+                            RequestCancelled) as exc:
+                        _chunk({"error": str(exc)})
+                    except Exception as exc:  # defensive
+                        logger.exception("stream failed")
+                        _chunk({"error": str(exc)})
+                    self.wfile.write(b"0\r\n\r\n")
+                except (BrokenPipeError, ConnectionResetError):
+                    pass  # client went away; engine finishes anyway
+                finally:
+                    stream.close()  # run the iterator's cleanup NOW
+
         if io_timeout_s is not None:
-            handler.timeout = io_timeout_s
-        self._httpd = ThreadingHTTPServer((host, port), handler)
+            # socketserver applies Handler.timeout as the connection
+            # socket timeout (settimeout) — per-request read/write
+            # deadlines so a wedged client can't pin a thread.
+            Handler.timeout = io_timeout_s
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
         self._http_thread = threading.Thread(
             target=self._httpd.serve_forever, name="serving-http",
             daemon=True)
@@ -312,13 +549,98 @@ class ServingFrontEnd:
         self._httpd.server_close()
         self._engine_thread.join(timeout=10.0)
 
+    def kill(self) -> None:
+        """The SIGKILL failure shape (chaos drills): stop the engine,
+        close the listening socket, AND sever every live client
+        connection mid-write — no drain ladder, no draining markers,
+        no final stream lines. Downstream (the fleet router) sees a
+        reset or a bare EOF without a final line, which is exactly
+        the signal its mid-stream recovery keys on."""
+        self._stop.set()
+        try:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+        except OSError:
+            pass
+        with self._conns_lock:
+            conns, self._conns = list(self._conns), set()
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                conn.close()
+            except OSError:
+                pass
+        self._engine_thread.join(timeout=10.0)
+
+    # ------------------------------ draining ---------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
+
+    def drain(self, grace_s: Optional[float] = None,
+              reason: str = "drain requested") -> None:
+        """Flip this replica into the drain ladder: healthz turns
+        503/draining (the router stops routing here), new admissions
+        get 503+Retry-After, the engine stops seating queued work,
+        and in-flight decodes get ``grace_s`` seconds to finish
+        before they are abandoned with a draining marker (the router
+        resumes them on a sibling). Idempotent."""
+        if self._draining.is_set():
+            return
+        grace = self.drain_grace_s if grace_s is None else grace_s
+        self._drain_deadline = time.perf_counter() + max(0.0, grace)
+        self._drain_reason = reason
+        self._draining.set()
+        logger.info("serving front end draining (%s): grace %.1fs",
+                    reason, grace)
+
+    def arm_preempt_drain(self, path: Optional[str] = None,
+                          grace_s: Optional[float] = None,
+                          poll_interval: float = 0.2) -> bool:
+        """Watch the node agent's preempt/evict notice file
+        (agent/preemption.py: $SHIPYARD_PREEMPT_REQUEST_FILE) and
+        drain when it lands — the serving analog of the training
+        checkpoint-on-notice path. Returns False (unarmed) when no
+        notice channel is configured."""
+        from batch_shipyard_tpu_torch.agent.preemption import \
+            PreemptWatcher
+        watcher = PreemptWatcher(path)
+        if not watcher.armed:
+            return False
+
+        def _watch() -> None:
+            while not self._stop.is_set():
+                notice = watcher.poll()
+                if notice:
+                    self.drain(
+                        grace_s,
+                        reason="preempt notice: "
+                        f"{notice.get('reason') or 'unspecified'}")
+                    return
+                time.sleep(poll_interval)
+
+        threading.Thread(target=_watch, name="serving-drain-watch",
+                         daemon=True).start()
+        return True
+
     # ------------------------------ serving ----------------------------
 
-    def _make_pending(self, spec: dict, stream: bool = False) -> _Pending:
+    def _make_pending(self, spec: dict,
+                      stream: bool = False) -> _Pending:
         prompt = spec.get("prompt")
         if not isinstance(prompt, list) or not all(
                 isinstance(t, int) for t in prompt):
             raise ValueError("prompt must be a list of token ids")
+        resume = spec.get("resume_tokens")
+        if resume is not None and (
+                not isinstance(resume, list) or not all(
+                    isinstance(t, int) for t in resume)):
+            raise ValueError(
+                "resume_tokens must be a list of token ids")
         request_id = str(spec.get("request_id") or uuid.uuid4().hex[:12])
         try:
             max_new_tokens = int(spec.get("max_new_tokens", 16))
@@ -334,8 +656,9 @@ class ServingFrontEnd:
                 f"{sorted(self.slo_classes)}")
         targets = self.slo_classes.get(slo_class, {})
 
-        def target(key):
-            value = spec.get(key, targets.get(key.replace("_target", "")))
+        def _target(key):
+            value = spec.get(key, targets.get(
+                key.replace("_target", "")))
             if value is None:
                 return None
             try:
@@ -345,21 +668,44 @@ class ServingFrontEnd:
 
         request = Request(
             request_id=request_id, prompt=prompt,
-            max_new_tokens=max_new_tokens, eos_id=spec.get("eos_id"),
-            priority=priority, ttft_target_ms=target("ttft_target_ms"),
-            tpot_target_ms=target("tpot_target_ms"), slo_class=slo_class)
-        pending = _Pending(request, stream=stream)
+            max_new_tokens=max_new_tokens,
+            eos_id=spec.get("eos_id"),
+            priority=priority,
+            ttft_target_ms=_target("ttft_target_ms"),
+            tpot_target_ms=_target("tpot_target_ms"),
+            slo_class=slo_class)
+        pending = _Pending(request, stream=stream, resumed=resume)
         with self._inflight_lock:
+            if resume is not None and \
+                    request_id in self._recent_results:
+                # The prior replica's run actually finished here (the
+                # failover raced completion): replay, don't re-decode.
+                raise CompletedReplay(
+                    self._recent_results[request_id])
             if (request_id in self._inflight or
                     request_id in self._engine_active):
                 raise ValueError(f"request_id {request_id} in flight")
-            if (self.max_inflight is not None and
+            if self._draining.is_set():
+                self.drain_rejections += 1
+                raise RequestDraining(
+                    f"request {request_id} refused: replica draining"
+                    f" ({self._drain_reason})")
+            if (self.max_inflight is not None and resume is None and
                     len(self._inflight) >= self.max_inflight):
                 raise TooManyRequests(
                     f"request {request_id} refused: "
                     f"{len(self._inflight)} in flight >= cap "
                     f"{self.max_inflight}")
             self._inflight[request_id] = pending
+        if resume and (
+                len(resume) >= request.max_new_tokens or
+                (request.eos_id is not None and
+                 resume[-1] == request.eos_id)):
+            # The resumed progress already satisfies the request:
+            # complete without touching the engine (callers skip
+            # submission when the event is pre-set).
+            _complete(pending, tokens=list(resume))
+            pending.first_token_at = pending.finished_at
         return pending
 
     def _result(self, pending: _Pending) -> dict:
@@ -369,12 +715,13 @@ class ServingFrontEnd:
             pending.submitted_at
         decode = pending.finished_at - (pending.first_token_at or
                                         pending.submitted_at)
+        tpot = decode / max(1, n - 1)
         result = {
             "request_id": request_id,
             "tokens": pending.tokens,
             "num_tokens": n,
             "ttft_ms": ttft * 1e3,
-            "tpot_ms": decode / max(1, n - 1) * 1e3,
+            "tpot_ms": tpot * 1e3,
             "latency_ms": (pending.finished_at -
                            pending.submitted_at) * 1e3,
             "slo_class": pending.request.slo_class,
@@ -383,7 +730,8 @@ class ServingFrontEnd:
         with self._stats_lock:
             cls = self._class_stats.setdefault(
                 req.slo_class,
-                {"requests": 0, "ttft_ok": 0, "tpot_ok": 0, "shed": 0})
+                {"requests": 0, "ttft_ok": 0, "tpot_ok": 0,
+                 "shed": 0})
             cls["requests"] += 1
             if req.ttft_target_ms is None or \
                     result["ttft_ms"] <= req.ttft_target_ms:
@@ -401,33 +749,96 @@ class ServingFrontEnd:
             self._total_tokens += n
             self._ttft_hist.observe(result["ttft_ms"])
             self._tpot_hist.observe(result["tpot_ms"])
+            seq = self._total_completed
+        # Retire the registration and publish the replay-cache entry
+        # under ONE lock hold: a resume landing between "popped from
+        # _inflight" and "result visible" would otherwise be admitted
+        # as a duplicate decode.
         with self._inflight_lock:
+            self._recent_results[request_id] = result
+            while len(self._recent_results) > self._recent_results_cap:
+                self._recent_results.popitem(last=False)
             self._inflight.pop(request_id, None)
+        self._record_request_spans(pending, result, seq)
         return result
 
-    def generate(self, spec: dict, timeout: float = 300.0) -> dict:
-        """Blocking generate: enqueue to the engine thread, wait, return
-        tokens and the latency breakdown."""
-        pending = self._make_pending(spec)
-        self._submit_q.put(pending)
-        try:
-            self._wait_complete(pending, timeout)
-        except BaseException:
-            self.abandon(pending.request.request_id)
-            raise
-        return self._result(pending)
+    # Span head-sampling: the first _SPAN_HEAD requests record full
+    # span chains, then 1-in-_SPAN_SAMPLE_EVERY. The HISTOGRAMS see
+    # every request (percentiles are exact); only the per-request
+    # span detail is sampled — a long-lived replica at high rate must
+    # not grow its JSONL sink and TABLE_TRACE by 4 rows per request
+    # forever (the goodput recorder this mirrors is low-rate by
+    # nature; serving traffic is not).
+    _SPAN_HEAD = 512
+    _SPAN_SAMPLE_EVERY = 16
+
+    def _record_request_spans(self, pending: _Pending,
+                              result: dict, seq: int) -> None:
+        """Per-request trace spans (admit -> queued -> prefill ->
+        decode), recorded through the process-local JSONL recorder —
+        a no-op outside pool tasks (no $SHIPYARD_TRACE_* context), so
+        standalone servers pay nothing."""
+        if trace_spans.local_spans_path() is None:
+            return
+        if seq > self._SPAN_HEAD and seq % self._SPAN_SAMPLE_EVERY:
+            return
+        request_id = pending.request.request_id
+        t0 = pending.submitted_wall
+
+        def wall(perf: Optional[float]) -> float:
+            return (t0 if perf is None
+                    else t0 + perf - pending.submitted_at)
+
+        parent = trace_spans.record(
+            trace_spans.SPAN_SERVE_REQUEST, t0,
+            wall(pending.finished_at), request_id=request_id,
+            num_tokens=result["num_tokens"],
+            ttft_ms=result["ttft_ms"], tpot_ms=result["tpot_ms"])
+        if parent is None:
+            return
+        admitted = wall(pending.admitted_at)
+        trace_spans.record(
+            trace_spans.SPAN_SERVE_QUEUED, t0, admitted,
+            parent_span_id=parent, request_id=request_id)
+        first = wall(pending.first_token_at)
+        trace_spans.record(
+            trace_spans.SPAN_SERVE_PREFILL, admitted, first,
+            parent_span_id=parent, request_id=request_id,
+            prompt_len=len(pending.request.prompt))
+        decode_attrs = {"request_id": request_id,
+                        "num_tokens": result["num_tokens"],
+                        "tpot_ms": result["tpot_ms"]}
+        # Speculative accept/rewind detail rides the decode span
+        # (engine-level counters: acceptance is not tracked per
+        # request, so this is the engine's running view at
+        # completion).
+        spec = self.engine.spec_stats()
+        if spec is not None:
+            decode_attrs["spec_gamma"] = spec["gamma"]
+            decode_attrs["spec_acceptance_rate"] = \
+                spec["acceptance_rate"]
+            decode_attrs["spec_rewinds"] = (
+                spec["proposed"] - spec["accepted"])
+        trace_spans.record(
+            trace_spans.SPAN_SERVE_DECODE, first,
+            wall(pending.finished_at), parent_span_id=parent,
+            **decode_attrs)
 
     def generate_stream(self, spec: dict, timeout: float = 300.0):
-        """Streaming generate: validates now, then returns (request_id,
-        iterator of {"token", "index"} events ending with the result)."""
+        """Streaming generate: yields {"token", "index"} per decoded
+        token, then the final result object (generate()'s payload).
+        Validation happens HERE (before any bytes hit the wire) — the
+        returned iterator only pulls tokens."""
         pending = self._make_pending(spec, stream=True)
-        self._submit_q.put(pending)
+        if not pending.event.is_set():  # pre-satisfied resumes skip
+            self._submit_q.put(pending)
         return (pending.request.request_id,
                 self._stream_tokens(pending, timeout))
 
     def abandon(self, request_id: str) -> None:
-        """Drop the front-end registration of a request (the engine
-        keeps decoding; _engine_active still blocks id reuse)."""
+        """Drop the front-end registration of a request whose client
+        went away before its stream ever started (the engine keeps
+        decoding; _engine_active still blocks id reuse meanwhile)."""
         with self._inflight_lock:
             self._inflight.pop(request_id, None)
 
@@ -447,98 +858,30 @@ class ServingFrontEnd:
                 yield {"token": token, "index": index}
             self._wait_complete(pending, timeout)
         except BaseException:
-            self.abandon(request_id)
+            # Error/cancel/close path retires the registration here;
+            # the success path retires it inside _result, atomically
+            # with the replay-cache publish (racing-resume guard).
+            with self._inflight_lock:
+                self._inflight.pop(request_id, None)
             raise
         yield self._result(pending)
 
-    def _wait_complete(self, pending: _Pending, timeout: float) -> None:
+    def _wait_complete(self, pending: _Pending,
+                       timeout: float) -> None:
+        """Shared completion protocol: wait for the engine to finish
+        the run, surface engine-side errors."""
         if not pending.event.wait(timeout):
             raise TimeoutError(
                 f"request {pending.request.request_id} timed out "
                 f"after {timeout}s")
+        if pending.draining:
+            raise RequestDraining(pending.error)
         if pending.cancelled:
             raise RequestCancelled(pending.error)
         if pending.shed:
             raise RequestShed(pending.error)
         if pending.error is not None:
             raise ValueError(pending.error)
-
-    def knows(self, request_id: str) -> bool:
-        with self._inflight_lock:
-            return (request_id in self._inflight or
-                    request_id in self._engine_active)
-
-    def request_status(self, request_id: str) -> Optional[dict]:
-        """Phase (queued/prefill/decode) and emitted-token count of an
-        in-flight request; None once finished or never seen."""
-        with self._inflight_lock:
-            pending = self._inflight.get(request_id)
-            if pending is None and request_id in self._engine_active:
-                pending = self._active_runs.get(request_id)
-        if pending is None:
-            return None
-        if pending.admitted_at is None:
-            phase = "queued"
-        elif pending.emitted == 0:
-            phase = "prefill"
-        else:
-            phase = "decode"
-        return {"request_id": request_id, "in_flight": True,
-                "phase": phase, "emitted_tokens": int(pending.emitted)}
-
-    def cancel(self, request_id: str) -> None:
-        """Request an abort; the engine thread performs it and the
-        waiter completes with a 'cancelled' error."""
-        self._cancel_q.put(request_id)
-
-    def stats(self) -> dict:
-        with self._stats_lock:
-            completed = self._total_completed
-            tokens = self._total_tokens
-            ttft_hist = self._ttft_hist.to_dict()
-            tpot_hist = self._tpot_hist.to_dict()
-            ttft_pcts = self._ttft_hist.percentiles((50, 90, 99))
-            tpot_pcts = self._tpot_hist.percentiles((50, 90, 99))
-            class_stats = {name: dict(counters) for name, counters
-                           in self._class_stats.items()}
-        elapsed = time.perf_counter() - self._started_at
-        with self._inflight_lock:
-            inflight = len(self._inflight)
-        out = {
-            "completed_requests": completed,
-            "generated_tokens": tokens,
-            "uptime_seconds": elapsed,
-            "tokens_per_second": tokens / elapsed if elapsed else 0.0,
-            "ttft_ms": {p: ttft_pcts[f"p{p}"] for p in (50, 90, 99)},
-            "tpot_ms": {p: tpot_pcts[f"p{p}"] for p in (50, 90, 99)},
-            "ttft_hist": ttft_hist,
-            "tpot_hist": tpot_hist,
-            "inflight": inflight,
-            "engine_backlog": self.engine.pending(),
-            "draining": False,
-            "drain_rejections": 0,
-        }
-        out["slo"] = {
-            "classes": {
-                name: dict(
-                    counters,
-                    targets=self.slo_classes.get(name),
-                    ttft_attainment=(
-                        counters["ttft_ok"] / counters["requests"]
-                        if counters["requests"] else None),
-                    tpot_attainment=(
-                        counters["tpot_ok"] / counters["requests"]
-                        if counters["requests"] else None))
-                for name, counters in class_stats.items()},
-            **self.engine.slo_stats(),
-        }
-        prefix = self.engine.prefix_stats()
-        if prefix is not None:
-            out["prefix_cache"] = prefix
-        spec = self.engine.spec_stats()
-        if spec is not None:
-            out["speculative"] = spec
-        return out
 
     def prometheus_metrics(self) -> list[str]:
         """Serving metrics in Prometheus text exposition format."""
@@ -550,12 +893,17 @@ class ServingFrontEnd:
             "uptime_seconds": stats["uptime_seconds"],
             "inflight": stats["inflight"],
             "engine_backlog": stats["engine_backlog"],
+            "draining": 1.0 if stats["draining"] else 0.0,
+            "drain_rejections_total": stats["drain_rejections"],
         })
         for metric in ("ttft_ms", "tpot_ms"):
             for pct, value in stats[metric].items():
                 lines.extend(prometheus_lines(
                     "shipyard_serving", {metric: value},
                     labels={"quantile": f"0.{pct}"}))
+        # Native histogram exposition (cumulative _bucket/_sum/_count)
+        # so histogram_quantile() works on the scrape and fleet-level
+        # aggregation is sound.
         with self._stats_lock:
             for metric, hist in (("ttft_ms", self._ttft_hist),
                                  ("tpot_ms", self._tpot_hist)):
@@ -581,48 +929,156 @@ class ServingFrontEnd:
                     prefix["published_pages"],
                 "prefix_evictions_total": prefix["evictions"],
             }))
-        slo = stats["slo"]
+        slo = stats.get("slo") or {}
         lines.extend(prometheus_lines("shipyard_serving", {
             "slo_sheds_total": slo.get("sheds"),
             "slo_deferrals_total": slo.get("deferrals"),
         }))
+        for name, counters in (slo.get("classes") or {}).items():
+            lines.extend(prometheus_lines(
+                "shipyard_serving", {
+                    "slo_class_requests_total": counters["requests"],
+                    "slo_class_ttft_ok_total": counters["ttft_ok"],
+                    "slo_class_tpot_ok_total": counters["tpot_ok"],
+                    "slo_class_shed_total": counters["shed"],
+                }, labels={"slo_class": name}))
         return lines
+
+    def knows(self, request_id: str) -> bool:
+        """Whether this front end currently owns the request (in
+        flight or actively decoding)."""
+        with self._inflight_lock:
+            return (request_id in self._inflight or
+                    request_id in self._engine_active)
+
+    def request_status(self, request_id: str) -> Optional[dict]:
+        """Progress of one in-flight request — the shared source of
+        truth for the router's resubmit probe and its mid-stream
+        recovery: phase (queued/prefill/decode/draining) and the
+        emitted-token count. None once finished or never seen (the
+        404 the router's orphan reconciliation keys on)."""
+        with self._inflight_lock:
+            pending = self._inflight.get(request_id)
+            if pending is None and request_id in self._engine_active:
+                # Abandoned stream still decoding: the engine-side
+                # run holds the progress.
+                pending = self._active_runs.get(request_id)
+        if pending is None:
+            return None
+        if self._draining.is_set():
+            phase = "draining"
+        elif pending.admitted_at is None:
+            phase = "queued"
+        elif pending.emitted <= len(pending.resumed or []):
+            phase = "prefill"
+        else:
+            phase = "decode"
+        return {"request_id": request_id, "in_flight": True,
+                "phase": phase,
+                "emitted_tokens": int(pending.emitted)}
+
+    def cancel(self, request_id: str) -> None:
+        """Request an abort; the engine thread performs it and the
+        waiting client completes with a 'cancelled' error."""
+        self._cancel_q.put(request_id)
+
+    def generate(self, spec: dict, timeout: float = 300.0) -> dict:
+        """Blocking generate: enqueue to the engine thread, wait for
+        completion, return tokens + latency breakdown."""
+        pending = self._make_pending(spec)
+        if not pending.event.is_set():  # pre-satisfied resumes skip
+            self._submit_q.put(pending)
+        try:
+            self._wait_complete(pending, timeout)
+        except BaseException:
+            with self._inflight_lock:
+                self._inflight.pop(pending.request.request_id, None)
+            raise
+        return self._result(pending)
+
+    def stats(self) -> dict:
+        with self._stats_lock:
+            completed = self._total_completed
+            tokens = self._total_tokens
+            ttft_hist = self._ttft_hist.to_dict()
+            tpot_hist = self._tpot_hist.to_dict()
+            ttft_pcts = self._ttft_hist.percentiles((50, 90, 99))
+            tpot_pcts = self._tpot_hist.percentiles((50, 90, 99))
+            class_stats = {name: dict(counters) for name, counters
+                           in self._class_stats.items()}
+        elapsed = time.perf_counter() - self._started_at
+        with self._inflight_lock:
+            inflight = len(self._inflight)
+        out = {
+            "completed_requests": completed,
+            "generated_tokens": tokens,
+            "uptime_seconds": elapsed,
+            "tokens_per_second": tokens / elapsed if elapsed else 0.0,
+            # Percentiles come from the fixed-bucket histograms (the
+            # same numbers any fleet-level merge reproduces), keyed
+            # p50/p90/p99; the raw bucket counts ride along so the
+            # router can merge replicas losslessly.
+            "ttft_ms": {p: ttft_pcts[f"p{p}"] for p in (50, 90, 99)},
+            "tpot_ms": {p: tpot_pcts[f"p{p}"] for p in (50, 90, 99)},
+            "ttft_hist": ttft_hist,
+            "tpot_hist": tpot_hist,
+            # Router observability (models/router.py polls these):
+            # requests this front end has accepted but not completed,
+            # and the engine's queued+active total.
+            "inflight": inflight,
+            "engine_backlog": self.engine.pending(),
+            # Drain ladder visibility: the router's probe reads
+            # "draining" to distinguish cooperative shutdown from
+            # failure.
+            "draining": self._draining.is_set(),
+            "drain_rejections": self.drain_rejections,
+        }
+        # Speculative-decode counters when the engine runs a draft
+        # model (the measured acceptance rate is the tuning signal
+        # for gamma and draft sizing; the router aggregates these
+        # fleet-wide).
+        spec = self.engine.spec_stats()
+        if spec is not None:
+            out["speculative"] = spec
+        # Request-level SLO scheduling: per-class attainment plus the
+        # engine's shed/deferral counters and live cost estimates.
+        engine_slo = self.engine.slo_stats()
+        out["slo"] = {
+            "classes": {
+                name: dict(
+                    counters,
+                    targets=self.slo_classes.get(name),
+                    ttft_attainment=(
+                        counters["ttft_ok"] / counters["requests"]
+                        if counters["requests"] else None),
+                    tpot_attainment=(
+                        counters["tpot_ok"] / counters["requests"]
+                        if counters["requests"] else None))
+                for name, counters in class_stats.items()},
+            **engine_slo,
+        }
+        # Prefix-cache effectiveness (None when the engine runs
+        # dense or with the cache disabled); the router aggregates
+        # hit_tokens/total_prompt_tokens fleet-wide.
+        prefix = self.engine.prefix_stats()
+        if prefix is not None:
+            out["prefix_cache"] = prefix
+        return out
 
     # --------------------------- engine thread -------------------------
 
     def _on_admit(self, request_id: str) -> None:
+        # Engine-thread hook (inside engine.step's _admit): stamps
+        # the queued -> prefill boundary of the request's span chain.
         pending = self._active_runs.get(request_id)
         if pending is not None and pending.admitted_at is None:
             pending.admitted_at = time.perf_counter()
 
-    def _on_token(self, request_id: str, token: int, index: int) -> None:
-        pending = self._active_runs.get(request_id)
-        if pending is None:
-            return
-        if pending.first_token_at is None:
-            pending.first_token_at = time.perf_counter()
-        pending.emitted = max(pending.emitted, index + 1)
-        if pending.token_queue is not None:
-            pending.token_queue.put((index, token))
-
-    def _finish(self, request_id: str, error: Optional[str] = None,
-                tokens: Optional[list[int]] = None, **flags) -> None:
-        """Engine thread: retire a run and wake its waiter."""
-        pending = self._active_runs.pop(request_id, None)
-        with self._inflight_lock:
-            self._engine_active.discard(request_id)
-        if pending is None:
-            return
-        pending.tokens = tokens
-        pending.error = error
-        for name, value in flags.items():
-            setattr(pending, name, value)
-        pending.finished_at = time.perf_counter()
-        if pending.token_queue is not None:
-            pending.token_queue.put(None)
-        pending.event.set()
-
     def _on_shed(self, request_id: str, reason: str) -> None:
+        # Engine-thread hook (inside engine.step's _shed_expired):
+        # the engine dropped a queued request under overload —
+        # complete its waiter as shed (503) and count it against its
+        # class's attainment.
         pending = self._active_runs.get(request_id)
         if pending is not None:
             with self._stats_lock:
@@ -634,10 +1090,28 @@ class ServingFrontEnd:
         self._finish(request_id, f"request {request_id} shed: {reason}",
                      shed=True)
 
+    def _on_token(self, request_id: str, token: int, index: int) -> None:
+        # _active_runs is engine-thread-owned and this hook runs on
+        # the engine thread (inside engine.step) — no lock needed,
+        # and completions can never be attributed to a retried
+        # request's NEW pending while the old run still decodes.
+        pending = self._active_runs.get(request_id)
+        if pending is None:
+            return
+        if pending.first_token_at is None:
+            # First token THIS replica produced — for a resumed run
+            # that is the re-prefill completion (index > 0), still
+            # the TTFT that matters here.
+            pending.first_token_at = time.perf_counter()
+        pending.emitted = max(pending.emitted, index + 1)
+        if pending.token_queue is not None:
+            pending.token_queue.put((index, token))
+
     def _engine_loop(self) -> None:
         while not self._stop.is_set():
             # Park only when fully idle; with active slots the loop
-            # steps at full rate.
+            # must spin at full decode rate — a blocking get here
+            # would throttle every active request's TPOT.
             if not self.engine.pending():
                 try:
                     self._submit(self._submit_q.get(timeout=0.2))
@@ -650,13 +1124,11 @@ class ServingFrontEnd:
                     break
             while True:
                 try:
-                    request_id = self._cancel_q.get_nowait()
+                    self._cancel(self._cancel_q.get_nowait())
                 except queue.Empty:
                     break
-                if self.engine.cancel(request_id):
-                    self._finish(request_id,
-                                 f"request {request_id} cancelled",
-                                 cancelled=True)
+            if self._draining.is_set():
+                self._drain_tick()
             if not self.engine.pending():
                 continue
             try:
@@ -668,23 +1140,67 @@ class ServingFrontEnd:
                 logger.exception("engine step failed")
                 for request_id in list(self._active_runs):
                     self.engine.cancel(request_id)
-                    self._finish(request_id,
-                                 f"engine step failed: {exc}")
+                    self._finish(request_id, f"engine step failed: {exc}")
                 continue
             for request_id, tokens in finished:
                 self._finish(request_id, tokens=tokens)
 
-    def _submit(self, pending: _Pending) -> None:
-        request_id = pending.request.request_id
-        try:
-            self.engine.submit(pending.request)
-        except ValueError as exc:
-            pending.error = str(exc)
-            pending.finished_at = time.perf_counter()
-            if pending.token_queue is not None:
-                pending.token_queue.put(None)
-            pending.event.set()
+    def _drain_tick(self) -> None:
+        # Engine-thread side of the drain ladder: evict the queue
+        # once (those waiters fail over immediately — they hold no
+        # pages and no progress), then let active decodes run until
+        # the grace deadline, after which they are abandoned with a
+        # draining marker the router resumes from.
+        if not self._drain_engine_done:
+            for request_id in self.engine.drain():
+                self._finish(request_id,
+                             f"request {request_id} draining: queued "
+                             f"work evicted at drain", draining=True)
+            self._drain_engine_done = True
             return
+        if self._drain_deadline is not None and \
+                time.perf_counter() >= self._drain_deadline:
+            for request_id in self.engine.active_request_ids():
+                self._cancel(request_id, draining=True)
+
+    def _finish(self, request_id: str, error: Optional[str] = None,
+                tokens: Optional[list[int]] = None, **flags) -> None:
+        """Engine thread: retire a run the engine owned and wake its
+        waiter (``flags``: cancelled, shed or draining)."""
+        pending = self._active_runs.pop(request_id, None)
+        with self._inflight_lock:
+            self._engine_active.discard(request_id)
+        if pending is not None:
+            _complete(pending, error, tokens, **flags)
+
+    def _cancel(self, request_id: str,
+                draining: bool = False) -> None:
+        if not self.engine.cancel(request_id):
+            return  # unknown/already finished
+        if draining:
+            self._finish(request_id, f"request {request_id} draining: "
+                         f"grace deadline, decode abandoned",
+                         draining=True)
+        else:
+            self._finish(request_id, f"request {request_id} cancelled",
+                         cancelled=True)
+
+    def _submit(self, pending: _Pending) -> None:
+        if self._draining.is_set() or self.engine.draining:
+            # Drain ladder: requests already queued toward the engine
+            # when the notice landed must not be admitted — complete
+            # their waiters as draining so the router fails over.
+            _complete(pending, f"request {pending.request.request_id} "
+                      f"draining: not admitted, replica shutting down",
+                      draining=True)
+            return
+        try:
+            self.engine.submit(pending.request,
+                               resumed=pending.resumed)
+        except ValueError as exc:
+            _complete(pending, str(exc))
+            return
+        request_id = pending.request.request_id
         self._active_runs[request_id] = pending
         with self._inflight_lock:
             self._engine_active.add(request_id)

@@ -21,11 +21,20 @@ between replays stays in place: the token, position and active
 tensors, the KV cache (its per-layer length / index and the shared
 block table) are only ever updated with ``copy_``, indexed assignment
 or in-place arithmetic, never rebound. On the CPU the step runs
-eagerly. Prefill stays eager (its bucket lengths vary). The random
-stream for temperature sampling is a torch.Generator seeded with
-``seed``, registered with the graph so that every replay draws afresh.
-Prompts still pad to the reference's power-of-two buckets
-(``_bucket_length``), so prefill shapes match it.
+eagerly. The random stream for temperature sampling is a
+torch.Generator seeded with ``seed``, registered with the graph so that
+every replay draws afresh.
+
+Prompts pad to the reference's power-of-two buckets (``_bucket_length``),
+where the reference compiles one program a bucket; here ``warmup()``
+drives every bucket and captures each prefill the engine can run there
+(the target's, the shared-prefix suffix's, the draft's) as a CUDA graph
+of its own, in the decode graph's memory pool. A prefill reads only
+views of one static int32 argument buffer (prompt, suffix, true length,
+prefix length, slot, page ids), which admission fills with one host
+copy, so a replay serves any request of its bucket. A bucket warm-up
+skipped (a tight pool) runs the same prefill eagerly; nothing is
+captured under traffic.
 
 Speculative decoding (``speculative=SpeculativeConfig(...)``, the
 reference's engine-integrated draft/verify loop): each step drafts gamma
@@ -33,8 +42,9 @@ tokens a slot with a small dense-cache draft model, verifies every
 slot's [y, d_1..d_gamma] block in ONE target forward and commits a
 ragged 1..gamma+1 tokens a slot (``_speculative_step``); on a CUDA device
 that step is the graph captured and replayed, in place of the decode
-step. The goodput warm-up phase and AOT precompile come with later
-slices.
+step. ``submit(request, resumed=...)`` continues a request another
+replica began (the front end's ``resume_tokens``). AOT precompile
+(the reference's ``precompile``) is not ported.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ import numpy as np
 import torch
 
 from batch_shipyard_tpu_torch.device import resolve_device
+from batch_shipyard_tpu_torch.goodput import events as goodput_events
 from batch_shipyard_tpu_torch.models import inference as inf
 from batch_shipyard_tpu_torch.models import transformer as tfm
 
@@ -116,29 +127,30 @@ def _speculative_step(target, draft, gamma, t_cache, d_cache, tokens,
     return torch.cat([block, a_slot[:, None]], dim=1)
 
 
-def _dense_prefill(model, prefill_chunk, prompt, prompt_len, small=None,
-                   start: int = 0):
-    """Batch-1 prefill of ``prompt`` [1, L] (bucket-padded) into a dense
-    batch-1 cache, in ceil(L/chunk) multi-token inserts with GLOBAL
-    positions from ``start``. Rows past the true prompt are garbage,
-    masked-on-read and overwritten by decode. Returns (small cache,
-    fp32 logits [vocab] of the token at ``prompt_len - 1`` — counted
-    from the cache start, so a seeded prefix of ``start`` rows counts).
-    """
-    if small is None:
-        small = inf.init_cache(model, 1)
+def _dense_prefill(model, prefill_chunk, prompt, prompt_len, small,
+                   start) -> torch.Tensor:
+    """Batch-1 prefill of ``prompt`` [1, L] (bucket-padded) into the
+    dense batch-1 cache ``small``, whose write index already stands at
+    ``start``: ceil(L/chunk) multi-token inserts with GLOBAL positions
+    from ``start``. Rows past the true prompt are garbage,
+    masked-on-read and overwritten by decode. ``prompt_len`` and
+    ``start`` are int32 [1] tensors on the device (a captured graph
+    replays this with other values in them). Returns the fp32 logits
+    [vocab] of the token at ``prompt_len - 1``, counted from the cache
+    start, so a seeded prefix of ``start`` rows counts."""
     total = prompt.shape[1]
     chunk = min(prefill_chunk or total, total)
     hiddens = []
     for off in range(0, total, chunk):
         seg = prompt[:, off:off + chunk]
-        positions = torch.arange(start + off, start + off + seg.shape[1],
-                                 dtype=torch.int32, device=prompt.device)
+        positions = start + torch.arange(off, off + seg.shape[1],
+                                         dtype=torch.int32,
+                                         device=prompt.device)
         hiddens.append(model(seg, positions=positions, cache=small,
                              return_hidden=True))
     hidden = torch.cat(hiddens, dim=1)
-    last = inf.last_token_logits(model, hidden[0, prompt_len - start - 1])
-    return small, last
+    last = hidden[0].index_select(0, (prompt_len - start - 1).long())
+    return inf.last_token_logits(model, last[0])
 
 
 @dataclasses.dataclass
@@ -402,6 +414,12 @@ class ContinuousBatcher:
                 speculative.draft_params)
             self._draft_cache = inf.init_cache(self._draft_model,
                                                num_slots)
+        # One memory pool for every graph of the engine (the decode
+        # step's and each prefill bucket's): they replay one at a time
+        # on the engine's stream.
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" else None)
+        self._init_prefill()
 
     def _load_model(self, config: tfm.TransformerConfig,
                     params: dict) -> tfm.TransformerLM:
@@ -416,23 +434,69 @@ class ContinuousBatcher:
 
     # ------------------------------ public -----------------------------
 
-    def warmup(self, prompt_len: int = 16,
+    def warmup_buckets(self) -> list[int]:
+        """Every prefill bucket this engine can serve, derived from
+        ``_bucket_length`` (the one source of the bucket rule): each
+        bucket's successor until the cap."""
+        buckets = [self._bucket_length(1)]
+        while buckets[-1] < self.max_decode_len:
+            buckets.append(self._bucket_length(buckets[-1] + 1))
+        return buckets
+
+    def warmup(self, prompt_len: Optional[int] = None,
                max_new_tokens: int = 2) -> list[int]:
-        """Drive one throwaway request through prefill and decode
-        before real traffic, so the kernel library is built and loaded
-        (and the caching allocator primed) outside any measured
-        request; on a CUDA device its first decode step also captures
-        the step graph that every later step replays (the speculative
-        step's, with a draft model). Leaves the prefix index, its
-        counters and the speculative counters empty. Returns the prefill
-        bucket warmed."""
-        length = min(prompt_len, self.max_decode_len - max_new_tokens)
-        self.submit(Request(
-            request_id=f"__warmup__{uuid.uuid4().hex[:8]}",
-            prompt=[(i % 7) + 1 for i in range(length)],
-            max_new_tokens=max_new_tokens))
-        while self.pending():
-            self.step()
+        """Drive throwaway requests through prefill and decode before
+        real traffic, one per prefill bucket (or one of ``prompt_len``
+        tokens), drained one after another, recorded as the goodput
+        warm-up phase. A tight paged pool skips the buckets whose worst
+        case it cannot admit. With the prefix cache, each bucket runs
+        against an empty index, then a second pass runs the
+        shared-prefix suffix buckets. On a CUDA device the first decode
+        step captures the step graph every later step replays, and then
+        every prefill of the warmed buckets (``_prefill_keys``) is
+        captured as a graph of its own; nothing is captured after
+        warm-up. Leaves the prefix index and the prefix and speculative
+        counters empty. Returns the buckets warmed."""
+        if prompt_len is not None:
+            lengths = [prompt_len]
+        else:
+            lengths = [min(bucket, self.max_decode_len - max_new_tokens)
+                       for bucket in self.warmup_buckets()]
+            if self.paged:
+                lengths = [
+                    length for length in lengths
+                    if -(-(length + max_new_tokens)
+                         // self.page_size) <= self._total_pages]
+        warmed: list[int] = []
+
+        def drain(length: int) -> None:
+            self.submit(Request(
+                request_id=f"__warmup__{uuid.uuid4().hex[:8]}",
+                prompt=[(i % 7) + 1 for i in range(length)],
+                max_new_tokens=max_new_tokens))
+            while self.pending():
+                self.step()
+
+        with goodput_events.phase(goodput_events.PROGRAM_WARMUP,
+                                  what="serving_engine",
+                                  buckets=len(lengths)):
+            for length in lengths:
+                if self.prefix_cache:
+                    # The warm-up prompts share prefixes: against an
+                    # empty index every bucket runs its cold prefill.
+                    self.prefix_cache_clear()
+                drain(length)
+                warmed.append(self._bucket_length(length))
+            if self.prefix_cache and len(lengths) > 1:
+                # Each chained prompt now matches the pages the previous
+                # one published, leaving only its suffix to prefill.
+                self.prefix_cache_clear()
+                for length in lengths:
+                    drain(length)
+            if self.device.type == "cuda":
+                for kind, bucket in self._prefill_keys(warmed):
+                    if (kind, bucket) not in self._prefill_graphs:
+                        self._capture_prefill(kind, bucket)
         self.spec_rounds = self.spec_proposed = self.spec_accepted = 0
         if self.prefix_cache:
             self.prefix_cache_clear()
@@ -442,10 +506,15 @@ class ContinuousBatcher:
             self.prefix_total_tokens = 0
             self.prefix_published = 0
             self.prefix_evictions = 0
-        return [self._bucket_length(length)]
+        return warmed
 
-    def submit(self, request: Request) -> None:
-        """Enqueue a request. Refused while draining."""
+    def submit(self, request: Request,
+               resumed: Optional[list[int]] = None) -> None:
+        """Enqueue a request. ``resumed`` carries the tokens a prior
+        (killed or drained) replica already emitted: the entry
+        re-prefills prompt + resumed in one pass and decoding continues
+        from there, so a greedy stream equals an uninterrupted run.
+        Refused while draining."""
         if self.draining:
             raise ValueError(
                 f"{request.request_id}: engine is draining")
@@ -455,6 +524,12 @@ class ContinuousBatcher:
         if not request.prompt:
             raise ValueError(
                 f"{request.request_id}: prompt must be non-empty")
+        resumed = [int(t) for t in (resumed or [])]
+        if len(resumed) >= request.max_new_tokens:
+            raise ValueError(
+                f"{request.request_id}: resumed tokens "
+                f"{len(resumed)} >= max_new_tokens "
+                f"{request.max_new_tokens} — nothing left to decode")
         if self.paged:
             worst = -(-(len(request.prompt) + request.max_new_tokens)
                       // self.page_size)
@@ -469,7 +544,8 @@ class ContinuousBatcher:
                 f"{request.request_id}: prompt+generation "
                 f"{len(request.prompt)}+{request.max_new_tokens} "
                 f"exceeds max_decode_len {self.max_decode_len}")
-        self._enqueue(_QueueEntry(request, submitted_at=time.monotonic()))
+        self._enqueue(_QueueEntry(request, resumed=resumed,
+                                  submitted_at=time.monotonic()))
 
     def pending(self) -> int:
         return len(self._queue) + sum(
@@ -636,7 +712,8 @@ class ContinuousBatcher:
             # Each replay advances the generator's offset, as an eager
             # draw does.
             graph.register_generator_state(self._generator)
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, pool=self._graph_pool,
+                              capture_error_mode="thread_local"):
             if self.speculative is not None:
                 out = self._eager_speculative()
             else:
@@ -989,53 +1066,167 @@ class ContinuousBatcher:
 
     # ------------------------------ prefill ------------------------------
 
-    def _tensor(self, values) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(values, np.int64),
-                               device=self.device)
+    def _init_prefill(self) -> None:
+        """The prefill's static state: batch-1 caches for the target's
+        prefill model and the draft, and ONE int32 argument buffer
+        whose views every prefill reads (``_pf_*``), so that a bucket's
+        captured graph replays against the same addresses with the next
+        request's values. Admission writes the buffer in one host copy
+        (``_push_prefill_args``)."""
+        length = self.max_decode_len
+        sizes = {"tokens": length, "suffix": length, "len": 1,
+                 "start": 1, "slot": 1, "zero": 1}
+        if self.paged:
+            sizes["pages"] = self.max_blocks
+            sizes["prefix"] = length // self.page_size
+        self._pf_layout: dict[str, slice] = {}
+        offset = 0
+        for name, size in sizes.items():
+            self._pf_layout[name] = slice(offset, offset + size)
+            offset += size
+        self._pf_host = np.zeros((offset,), np.int32)
+        self._pf_args = torch.zeros((offset,), dtype=torch.int32,
+                                    device=self.device)
+        for name, where in self._pf_layout.items():
+            setattr(self, f"_pf_{name}", self._pf_args[where])
+        self._pf_small = inf.init_cache(self._dense_model, 1)
+        self._pf_draft_small = (
+            inf.init_cache(self._draft_model, 1)
+            if self.speculative is not None else None)
+        # (kind, bucket) -> (CUDA graph, its logits [vocab]); captured
+        # by warmup() only.
+        self._prefill_graphs: dict[tuple[str, int], tuple] = {}
 
-    def _prefill_dense(self, slot: int, prompt: torch.Tensor,
-                       prompt_len: int, model=None,
-                       cache=None) -> torch.Tensor:
-        """Fill ONE slot's dense cache rows from a padded prompt [1, L]
-        (batch-1 forward, copied into the slot's first rows) and set its
-        index to the true prompt length. Returns the last-token logits.
-        ``model`` and ``cache`` default to the target's prefill model and
-        cache (the draft passes its own)."""
-        if model is None:
-            model, cache = self._dense_model, self.cache
-        small, last = _dense_prefill(model, self.prefill_chunk, prompt,
-                                     prompt_len)
-        for big, sm in zip(cache, small):
-            for key, value in sm.items():
-                if key == "index":
-                    big["index"][slot] = prompt_len
-                else:
-                    big[key][slot, :value.shape[1]] = value[0]
+    def _set_prefill_args(self, **values) -> None:
+        """Write named fields of the host copy of the argument buffer
+        (a token list fills the field's head)."""
+        for name, value in values.items():
+            field = self._pf_host[self._pf_layout[name]]
+            value = np.atleast_1d(np.asarray(value, np.int32))
+            field[:len(value)] = value
+
+    def _push_prefill_args(self) -> None:
+        self._pf_args.copy_(torch.from_numpy(self._pf_host))
+
+    def _prefill(self, kind: str, bucket: int) -> torch.Tensor:
+        """One prefill of ``kind`` at ``bucket`` from the pushed
+        arguments: a replay of its graph where warm-up captured one,
+        else the same work eagerly (the CPU; a bucket a tight pool
+        kept warm-up from). Returns the last-token logits [vocab]."""
+        captured = self._prefill_graphs.get((kind, bucket))
+        if captured is None:
+            return self._prefill_body(kind, bucket)
+        captured[0].replay()
+        return captured[1]
+
+    def _prefill_body(self, kind: str, bucket: int) -> torch.Tensor:
+        """The prefill itself, reading only the ``_pf_*`` buffers and
+        writing only the device (no host read, no host copy: the body a
+        graph captures). ``dense``: the batch-1 prefill copied into slot
+        ``_pf_slot``'s first rows, its index set to ``_pf_len``.
+        ``paged``: the batch-1 prefill scattered page by page into
+        ``_pf_pages``. ``shared``: the batch-1 cache seeded with the
+        prefix pages ``_pf_prefix`` (``_pf_start`` rows), the suffix
+        ``_pf_suffix`` prefilled after them and its rows scattered into
+        ``_pf_pages``. ``draft``: the draft's prefill, copied into its
+        cache as ``dense`` does. The paged kinds leave the block table
+        and length to ``_install_row``."""
+        tokens = self._pf_suffix if kind == "shared" else self._pf_tokens
+        prompt = tokens[:bucket][None]
+        if kind == "draft":
+            model, small, big = (self._draft_model, self._pf_draft_small,
+                                 self._draft_cache)
+        else:
+            model, small, big = self._dense_model, self._pf_small, self.cache
+        if kind == "shared":
+            start = self._pf_start
+            for layer, sm in zip(big, small):
+                rows = tfm.prefix_rows_from_pages(layer, self._pf_prefix,
+                                                  self.page_size)
+                nrows = rows["k"].shape[0]
+                for key in rows:
+                    sm[key][0, :nrows] = rows[key].to(sm[key].dtype)
+                sm["index"].copy_(start)
+        else:
+            # A fresh batch-1 cache each prefill, as init_cache gives.
+            start = self._pf_zero
+            for sm in small:
+                for t in sm.values():
+                    t.zero_()
+        last = _dense_prefill(model, self.prefill_chunk, prompt,
+                              self._pf_len, small, start)
+        if kind in ("paged", "shared"):
+            self._scatter_pages(small, start, -(-bucket // self.page_size))
+        else:
+            slot = self._pf_slot.long()
+            for layer, sm in zip(big, small):
+                for key, value in sm.items():
+                    if key == "index":
+                        layer["index"].index_copy_(0, slot, self._pf_len)
+                    else:
+                        layer[key][:, :value.shape[1]].index_copy_(
+                            0, slot, value)
         return last
 
-    def _scatter_pages(self, small: list[dict], src_start: int,
-                       page_ids: np.ndarray) -> None:
-        """Copy page-sized row blocks of the batch-1 dense cache,
-        starting at row ``src_start`` (clamped so each block stays in
+    def _scatter_pages(self, small: list[dict], start: torch.Tensor,
+                       n_blocks: int) -> None:
+        """Copy ``n_blocks`` page-sized row blocks of the batch-1 dense
+        cache, starting at row ``start`` (each block clamped to stay in
         bounds, like the reference's dynamic slices), into the pool
-        pages ``page_ids`` of every layer. Blocks aimed at the scratch
-        page carry padding garbage."""
+        pages ``_pf_pages[:n_blocks]`` of every layer. Blocks aimed at
+        the scratch page carry padding garbage."""
         page = self.page_size
-        length = self.max_decode_len
-        starts = [min(src_start + b * page, length - page)
-                  for b in range(len(page_ids))]
-        rows = self._tensor([s + r for s in starts for r in range(page)])
-        ids = self._tensor(page_ids)
+        firsts = (start.long() + page * torch.arange(
+            n_blocks, device=self.device)).clamp(
+                max=self.max_decode_len - page)
+        rows = (firsts[:, None] + torch.arange(
+            page, device=self.device)).reshape(-1)
+        ids = self._pf_pages[:n_blocks].long()
         pairs = [("k_pages", "k"), ("v_pages", "v")]
         if "k_page_scales" in self.cache[0]:
             pairs += [("k_page_scales", "k_scale"),
                       ("v_page_scales", "v_scale")]
-        for big, sm in zip(self.cache, small):
+        for layer, sm in zip(self.cache, small):
             for pool_key, row_key in pairs:
-                block = sm[row_key][0, rows]
-                big[pool_key][ids] = block.reshape(
-                    len(page_ids), page, *block.shape[1:]).to(
-                        big[pool_key].dtype)
+                block = sm[row_key][0].index_select(0, rows)
+                layer[pool_key].index_copy_(0, ids, block.reshape(
+                    n_blocks, page, *block.shape[1:]).to(
+                        layer[pool_key].dtype))
+
+    def _prefill_keys(self, buckets: list[int]) -> list[tuple[str, int]]:
+        """The prefills admission can run at ``buckets``: the target's
+        (dense or paged), with the prefix cache the shared-prefix
+        suffix's, with a draft the draft's."""
+        keys = []
+        for bucket in buckets:
+            keys.append(("paged" if self.paged else "dense", bucket))
+            if self.prefix_cache:
+                keys.append(("shared", bucket))
+            if self.speculative is not None:
+                keys.append(("draft", bucket))
+        return keys
+
+    def _capture_prefill(self, kind: str, bucket: int) -> None:
+        """Capture ``_prefill_body(kind, bucket)`` into a CUDA graph in
+        the engine's graph pool, after one eager run of it on arguments
+        that touch nothing live: slot 0 of an idle engine, the scratch
+        page for every page, a one-token prompt (and for ``shared`` a
+        one-page prefix). Capturing records without running."""
+        page = self.page_size if self.paged else 0
+        start = page if kind == "shared" else 0
+        self._set_prefill_args(len=start + 1, start=start, slot=0)
+        if self.paged:
+            self._set_prefill_args(
+                pages=[self._scratch_page] * self.max_blocks,
+                prefix=[self._scratch_page] *
+                (self.max_decode_len // page))
+        self._push_prefill_args()
+        self._prefill_body(kind, bucket)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool,
+                              capture_error_mode="thread_local"):
+            out = self._prefill_body(kind, bucket)
+        self._prefill_graphs[(kind, bucket)] = (graph, out)
 
     def _install_row(self, slot: int, row: np.ndarray,
                      prompt_len: int) -> None:
@@ -1043,46 +1234,6 @@ class ContinuousBatcher:
         self._push_tables()
         for big in self.cache:
             big["length"][slot] = prompt_len
-
-    def _prefill_paged(self, slot: int, prompt: torch.Tensor,
-                       row: np.ndarray, prompt_len: int) -> torch.Tensor:
-        """Paged variant: dense batch-1 prefill, rows scattered page by
-        page into the slot's allocated pages (blocks past the
-        allocation hit the scratch page); the block-table row and the
-        true length are installed."""
-        small, last = _dense_prefill(self._dense_model,
-                                     self.prefill_chunk, prompt,
-                                     prompt_len)
-        n_blocks = -(-prompt.shape[1] // self.page_size)
-        self._scatter_pages(small, 0, row[:n_blocks])
-        self._install_row(slot, row, prompt_len)
-        return last
-
-    def _prefill_paged_shared(self, slot: int, suffix: torch.Tensor,
-                              prefix_ids: np.ndarray, row: np.ndarray,
-                              suffix_row: np.ndarray, prefix_len: int,
-                              prompt_len: int) -> torch.Tensor:
-        """Shared-prefix paged prefill: seed a batch-1 dense cache with
-        the matched prefix rows gathered from the pool
-        (transformer.prefix_rows_from_pages), run only the suffix with
-        global positions from prefix_len, and scatter only the suffix
-        rows into the slot's fresh pages."""
-        small = inf.init_cache(self._dense_model, 1)
-        for big, sm in zip(self.cache, small):
-            rows = tfm.prefix_rows_from_pages(big, prefix_ids,
-                                              self.page_size)
-            nrows = rows["k"].shape[0]
-            for key in rows:
-                sm[key][0, :nrows] = rows[key].to(sm[key].dtype)
-            sm["index"].fill_(prefix_len)
-        small, last = _dense_prefill(self._dense_model,
-                                     self.prefill_chunk, suffix,
-                                     prompt_len, small=small,
-                                     start=prefix_len)
-        n_blocks = -(-suffix.shape[1] // self.page_size)
-        self._scatter_pages(small, prefix_len, suffix_row[:n_blocks])
-        self._install_row(slot, row, prompt_len)
-        return last
 
     def _admit(self) -> None:
         if self.draining:
@@ -1097,13 +1248,13 @@ class ContinuousBatcher:
             if self._should_defer(entry, now):
                 self.slo_deferrals += 1
                 break
-            # Resumed (preempted) requests re-prefill prompt + what
-            # they had already generated, in one pass.
+            # Resumed (preempted or failed-over) requests re-prefill
+            # prompt + what they had already generated, in one pass.
             tokens = req.prompt + entry.resumed
             bucket = self._bucket_length(len(tokens))
-            prompt = torch.tensor(
-                [tokens + [0] * (bucket - len(tokens))],
-                dtype=torch.int32, device=self.device)
+            self._set_prefill_args(
+                tokens=tokens + [0] * (bucket - len(tokens)),
+                len=len(tokens), slot=i)
             t0 = time.monotonic()
             timed_key = ("dense", bucket)
             timed_tokens = bucket
@@ -1163,10 +1314,6 @@ class ContinuousBatcher:
                     sbucket = self._bucket_length(len(suffix_tokens))
                     timed_key = ("shared", sbucket)
                     timed_tokens = sbucket
-                    suffix = torch.tensor(
-                        [suffix_tokens +
-                         [0] * (sbucket - len(suffix_tokens))],
-                        dtype=torch.int32, device=self.device)
                     prefix_ids = np.full(
                         (self.max_decode_len // self.page_size,),
                         self._scratch_page, np.int32)
@@ -1174,27 +1321,32 @@ class ContinuousBatcher:
                     suffix_row = np.full((self.max_blocks,),
                                          self._scratch_page, np.int32)
                     suffix_row[:blocks_needed - m] = fresh
-                    last_logits = self._prefill_paged_shared(
-                        i, suffix, prefix_ids, row, suffix_row,
-                        prefix_len, len(tokens))
+                    self._set_prefill_args(
+                        suffix=suffix_tokens +
+                        [0] * (sbucket - len(suffix_tokens)),
+                        start=prefix_len, prefix=prefix_ids,
+                        pages=suffix_row)
+                    self._push_prefill_args()
+                    last_logits = self._prefill("shared", sbucket)
                 else:
                     timed_key = ("paged", bucket)
-                    last_logits = self._prefill_paged(
-                        i, prompt, row, len(tokens))
+                    self._set_prefill_args(pages=row)
+                    self._push_prefill_args()
+                    last_logits = self._prefill("paged", bucket)
+                self._install_row(i, row, len(tokens))
                 if self.prefix_cache:
                     self._publish_pages(i, keys, m, row, len(tokens))
             else:
                 self._queue.pop(0)
                 if self.on_admit is not None:
                     self.on_admit(req.request_id)
-                last_logits = self._prefill_dense(i, prompt, len(tokens))
+                self._push_prefill_args()
+                last_logits = self._prefill("dense", bucket)
             if self.speculative is not None:
                 # The draft cache must hold the same committed prefix (the
                 # speculative step's invariant); its logits are unused:
                 # the first token comes from the TARGET's prefill.
-                self._prefill_dense(i, prompt, len(tokens),
-                                    model=self._draft_model,
-                                    cache=self._draft_cache)
+                self._prefill("draft", bucket)
             first = int(inf._sample(last_logits[None], self._generator,
                                     self.sampling)[0])
             # The prefill-sampled token IS the next generated token.

@@ -430,18 +430,33 @@ class Attention(nn.Module):
                 def take(t):
                     return t
             else:
-                # Inserts running past the cache end drop those rows
-                # (the reference's out-of-bounds scatter semantics).
-                valid = cols < length
-                dst = (rows[:, None].expand_as(cols)[valid], cols[valid])
-
-                def take(t):
-                    return t[valid]
-        cache["k"][dst] = take(k_in).to(cache["k"].dtype)
-        cache["v"][dst] = take(v_in).to(cache["v"].dtype)
-        if int8_kv:
-            cache["k_scale"][dst] = take(ks)
-            cache["v_scale"][dst] = take(vs)
+                dst = None
+        if dst is not None:
+            cache["k"][dst] = take(k_in).to(cache["k"].dtype)
+            cache["v"][dst] = take(v_in).to(cache["v"].dtype)
+            if int8_kv:
+                cache["k_scale"][dst] = take(ks)
+                cache["v_scale"][dst] = take(vs)
+        else:
+            # Inserts running past the cache end drop those rows (the
+            # reference's out-of-bounds scatter), in one shape and with
+            # no host read (a captured prefill replays this): cache row
+            # j takes block token j - idx where that is a token of the
+            # block and keeps its value elsewhere, so a token past the
+            # end has no row to land in.
+            src = key_pos[None, :] - idx[:, None].long()       # [B, T]
+            inside = (src >= 0) & (src < seq)
+            src = src.clamp(0, seq - 1)
+            pairs = [("k", k_in), ("v", v_in)]
+            if int8_kv:
+                pairs += [("k_scale", ks), ("v_scale", vs)]
+            for name, new in pairs:
+                tail = (1,) * (new.dim() - 2)
+                picked = new.gather(1, src.view(batch, length, *tail).expand(
+                    batch, length, *new.shape[2:]))
+                cache[name].copy_(torch.where(
+                    inside.view(batch, length, *tail),
+                    picked.to(cache[name].dtype), cache[name]))
         cache["index"].add_(seq)
         if int8_kv and seq == 1:
             lengths = (idx + 1).clamp(max=length)

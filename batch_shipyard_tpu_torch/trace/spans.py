@@ -33,10 +33,17 @@ SPAN_CKPT_PERSIST = "checkpoint_persist"     # write-out; attrs carry
                                              # overlapped=True/False
 SPAN_CKPT_RESTORE = "checkpoint_restore"
 SPAN_PROFILE = "profile"                 # trace/profiling.py capture
+# One served request (models/server.py): the parent span and its
+# three phases.
+SPAN_SERVE_REQUEST = "serve_request"     # arrival -> completion
+SPAN_SERVE_QUEUED = "serve_queued"       # arrival -> engine admission
+SPAN_SERVE_PREFILL = "serve_prefill"     # admission -> first token
+SPAN_SERVE_DECODE = "serve_decode"       # first token -> last token
 
 SPAN_KINDS = frozenset({
     SPAN_COMPILE, SPAN_STEP_WINDOW, SPAN_CKPT_SNAPSHOT, SPAN_CKPT_PERSIST,
-    SPAN_CKPT_RESTORE, SPAN_PROFILE,
+    SPAN_CKPT_RESTORE, SPAN_PROFILE, SPAN_SERVE_REQUEST, SPAN_SERVE_QUEUED,
+    SPAN_SERVE_PREFILL, SPAN_SERVE_DECODE,
 })
 
 

@@ -33,6 +33,7 @@ import collections
 import time
 
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from batch_shipyard_tpu_torch.ops import ring_collectives
@@ -43,6 +44,9 @@ from batch_shipyard_tpu_torch.trace.decode_profile import (
 # PROFILER_WARMUP_STEPS): one train step lasts hundreds of ms, far past
 # the start of the trace, where the profiler can lose kernels.
 WARMUP_STEPS = 1
+# Profiled windows taken before a reading with every ring kernel is given
+# up on (ring_us_by_axis then raises).
+PROFILE_ATTEMPTS = 3
 
 # Substrings of the kernels' mangled names: csrc/flash_attention.cu,
 # csrc/chunked_loss.cu, csrc/fused_norm.cu and csrc/quantization.cu.
@@ -97,26 +101,39 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
     wall_ms = (time.perf_counter() - started) * 1e3 / steps
     mesh = getattr(harness, "mesh", None)
     groups = [] if mesh is None else mesh.distinct_groups()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(WARMUP_STEPS):
-            harness.step(batch)
-        torch.cuda.synchronize()
-        waited = [group.wait_ns() for group in groups]
-        ring_collectives.copy_log = log = []
-        try:
-            with record_function(WINDOW):
-                for _ in range(steps):
-                    harness.step(batch)
-                torch.cuda.synchronize()
-        finally:
-            ring_collectives.copy_log = None
-    if mesh is not None:
-        mesh.check()
-        waited = [group.wait_ns() - ns for group, ns in zip(groups, waited)]
-    kernels = window_kernels(prof.events())
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device activity")
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(WARMUP_STEPS):
+                harness.step(batch)
+            torch.cuda.synchronize()
+            waited = [group.wait_ns() for group in groups]
+            ring_collectives.copy_log = log = []
+            try:
+                with record_function(WINDOW):
+                    for _ in range(steps):
+                        harness.step(batch)
+                    torch.cuda.synchronize()
+            finally:
+                ring_collectives.copy_log = None
+        if mesh is not None:
+            mesh.check()
+            waited = [group.wait_ns() - ns
+                      for group, ns in zip(groups, waited)]
+        kernels = window_kernels(prof.events())
+        if not kernels:
+            raise RuntimeError("the profiler recorded no device activity")
+        # A window can still come back a few kernels short (2 and 3 of
+        # 80 ring kernels on two ranks of one run): such a reading is
+        # retaken, by every rank together, since each must issue the
+        # same ring calls.
+        short = bool(groups) and len(_ring_events(kernels)) != len(log)
+        if dist.is_available() and dist.is_initialized():
+            flag = torch.tensor([int(short)])
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            short = bool(flag.item())
+        if not short:
+            break
     by_name: dict[str, float] = collections.defaultdict(float)
     intervals = []
     for e in kernels:
@@ -175,15 +192,20 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
 
 
 
+def _ring_events(kernels) -> list:
+    """The ring copy kernels among ``kernels``, by start time."""
+    return sorted((e for e in kernels
+                   if any(symbol in e.name for key in RING_KERNELS
+                          for symbol in KERNEL_SYMBOLS[key])),
+                  key=lambda e: e.time_range.start)
+
+
 def ring_us_by_axis(kernels, log: list) -> dict:
     """Device µs of the ring copy kernels by the axis of the call that
     launched them: the ring kernels (one stream, so in launch order by
     start time) matched one to one with ``log``, the (kernel, axis) the
     wrappers appended as they launched them."""
-    ring = sorted((e for e in kernels
-                   if any(symbol in e.name for key in RING_KERNELS
-                          for symbol in KERNEL_SYMBOLS[key])),
-                  key=lambda e: e.time_range.start)
+    ring = _ring_events(kernels)
     if len(ring) != len(log):
         raise RuntimeError(f"the profiler saw {len(ring)} ring kernels, the "
                            f"wrappers launched {len(log)}")

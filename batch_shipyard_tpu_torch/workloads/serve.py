@@ -30,17 +30,35 @@ target's ``--kv-cache-dtype`` on its dense cache, weights from ``--seed``
 + 7 or restored from ``--draft-checkpoint-dir``; ``--gamma`` tokens
 drafted a slot a step. The report then carries ``speculative`` (gamma,
 proposed, accepted, acceptance_rate).
+
+``--replicas N`` builds N engines over one parameter set (the tensors
+live once on ``--device``), warms each in turn (every prefill bucket,
+and on the card every graph, before any front end takes traffic),
+starts N front ends on ephemeral loopback ports and the fleet router
+(models/router.py) on ``--host/--port``; the report then carries the
+router's stats, and ``prefix_cache`` and ``speculative`` summed over the
+replicas. ``--slo-config default`` (or a JSON config file with a
+``serving.slo`` section, config/slo.py) gives the front ends their SLO
+classes and the engines their shed grace and stall factor
+(``--shed-grace-ms`` / ``--tpot-stall-factor`` override); the load
+generator then cycles through the classes. ``--arrival diurnal`` replays
+the fleet simulator's day/night curve with ``--rate`` as its peak. A
+preempt notice at ``$SHIPYARD_PREEMPT_REQUEST_FILE`` drains every front
+end: no new admissions, decodes finish within ``--drain-grace-s``, the
+router resumes the rest on a sibling.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 from typing import Optional
 
 import torch
 
+from batch_shipyard_tpu_torch.config.slo import serving_slo_settings
 from batch_shipyard_tpu_torch.device import resolve_device
 from batch_shipyard_tpu_torch.models import inference as inf
 from batch_shipyard_tpu_torch.models import serving
@@ -195,19 +213,58 @@ def build_draft(args, device) -> serving.SpeculativeConfig:
         gamma=args.gamma)
 
 
-def build_engine(args) -> serving.ContinuousBatcher:
+def build_slo(args):
+    """The serving SLO configuration (config/slo.serving_slo_settings):
+    ``--slo-config default`` the built-in classes, ``--slo-config PATH``
+    a JSON config mapping with a serving.slo section, neither None (no
+    SLO scheduling). ``--shed-grace-ms`` / ``--tpot-stall-factor``
+    override the parsed values."""
+    if not args.slo_config:
+        return None
+    if args.slo_config == "default":
+        slo = serving_slo_settings(None)
+    else:
+        with open(args.slo_config, encoding="utf-8") as fh:
+            slo = serving_slo_settings(json.load(fh))
+    if args.shed_grace_ms is not None:
+        slo = dataclasses.replace(slo, shed_grace_ms=args.shed_grace_ms)
+    if args.tpot_stall_factor is not None:
+        slo = dataclasses.replace(slo,
+                                  tpot_stall_factor=args.tpot_stall_factor)
+    return slo
+
+
+def build_engine(args, config=None, params=None, speculative=None,
+                 slo=None) -> serving.ContinuousBatcher:
+    """One engine from the flags; ``config``, ``params`` and
+    ``speculative`` default to the flags' (a fleet passes one set to
+    every replica)."""
     device = resolve_device(args.device)
-    config = build_config(args)
+    if config is None:
+        config = build_config(args)
+    if params is None:
+        params = build_params(args, config, device)
+    if speculative is None and args.speculative:
+        speculative = build_draft(args, device)
     return serving.ContinuousBatcher(
-        config, build_params(args, config, device),
+        config, params,
         num_slots=args.num_slots, max_decode_len=args.max_decode_len,
         sampling=inf.SamplingConfig(temperature=args.temperature,
                                     top_k=args.top_k),
         seed=args.seed, kv_page_size=args.kv_page_size,
         kv_num_pages=args.kv_num_pages, overcommit=args.overcommit,
         prefill_chunk=args.prefill_chunk,
-        prefix_cache=not args.no_prefix_cache, device=device,
-        speculative=build_draft(args, device) if args.speculative else None)
+        prefix_cache=not args.no_prefix_cache,
+        slo_shed_grace_ms=slo.shed_grace_ms if slo else None,
+        tpot_stall_factor=slo.tpot_stall_factor if slo else 4.0,
+        device=device, speculative=speculative)
+
+
+def warm_engine(engine: serving.ContinuousBatcher) -> list[int]:
+    """Warm one engine before its front end takes traffic: every
+    prefill bucket through throwaway requests, and on the card the
+    decode graph and every prefill graph. Returns the buckets."""
+    return engine.warmup()
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -258,17 +315,40 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="serve the draft's parameters from the latest "
                         "committed step of a train_transformer checkpoint "
                         "dir (random from --seed + 7 otherwise)")
+    parser.add_argument("--slo-config", default=None,
+                        help="SLO scheduling: 'default' for the built-in "
+                        "classes, or a JSON config file with a "
+                        "serving.slo section")
+    parser.add_argument("--shed-grace-ms", type=float, default=None,
+                        help="Arm overload shedding: queued requests past "
+                        "their TTFT deadline by this grace get 503 "
+                        "(with --slo-config)")
+    parser.add_argument("--tpot-stall-factor", type=float, default=None,
+                        help="Admission defers prefills that would stall "
+                        "active decodes past this multiple of the "
+                        "tightest TPOT target")
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8900)
     parser.add_argument("--max-inflight", type=int, default=None,
-                        help="Cap accepted-but-unfinished requests; "
-                        "excess gets 429")
+                        help="Cap accepted-but-unfinished requests per "
+                        "replica; excess gets 429 (resumes are exempt)")
     parser.add_argument("--io-timeout-s", type=float, default=None,
                         help="Per-connection socket read/write deadline")
+    parser.add_argument("--drain-grace-s", type=float, default=30.0,
+                        help="On a preempt notice, let in-flight decodes "
+                        "finish for this long before abandoning them to "
+                        "a sibling's resume")
+    parser.add_argument("--replicas", type=int, default=1,
+                        help="Run N replica engines behind the fleet "
+                        "router, which binds --host/--port")
     parser.add_argument("--loadgen", type=int, default=0,
                         help="Run N benchmark requests then exit")
     parser.add_argument("--rate", type=float, default=8.0,
-                        help="Poisson arrival rate (req/s)")
+                        help="Arrival rate (req/s; the diurnal peak)")
+    parser.add_argument("--arrival", choices=("poisson", "diurnal"),
+                        default="poisson",
+                        help="Loadgen arrival process (diurnal replays "
+                        "the fleet simulator's day/night curve)")
     parser.add_argument("--shared-prefix-groups", type=int, default=0,
                         help="Loadgen shared prompt-prefix groups")
     parser.add_argument("--shared-prefix-len", type=int, default=0)
@@ -285,43 +365,93 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    engine = build_engine(args)
-    engine.warmup()
-    front = ServingFrontEnd(engine, host=args.host, port=args.port,
-                            max_inflight=args.max_inflight,
-                            io_timeout_s=args.io_timeout_s).start()
-    print(f"serving on {front.url} ({engine.device})", flush=True)
+    slo = build_slo(args)
+    slo_classes = slo.class_targets() if slo else None
+    device = resolve_device(args.device)
+    router = None
+    if args.replicas > 1:
+        from batch_shipyard_tpu_torch.models.router import ServingRouter
+        # One parameter set on the device (and one draft) for every
+        # replica: the engines share these tensors.
+        config = build_config(args)
+        params = {name: t.to(device) for name, t in
+                  build_params(args, config, device).items()}
+        speculative = build_draft(args, device) if args.speculative \
+            else None
+        engines = [build_engine(args, config, params, speculative, slo)
+                   for _ in range(args.replicas)]
+        # Every capture before any front end's engine thread runs.
+        for engine in engines:
+            warm_engine(engine)
+        fronts = [ServingFrontEnd(engine, port=0, slo_classes=slo_classes,
+                                  max_inflight=args.max_inflight,
+                                  io_timeout_s=args.io_timeout_s,
+                                  drain_grace_s=args.drain_grace_s).start()
+                  for engine in engines]
+        router = ServingRouter([f.url for f in fronts], host=args.host,
+                               port=args.port).start()
+        url = router.url
+        print(f"fleet router on {url} over {len(fronts)} replica(s) "
+              f"({device})", flush=True)
+    else:
+        engine = build_engine(args, slo=slo)
+        warm_engine(engine)
+        fronts = [ServingFrontEnd(engine, host=args.host, port=args.port,
+                                  slo_classes=slo_classes,
+                                  max_inflight=args.max_inflight,
+                                  io_timeout_s=args.io_timeout_s,
+                                  drain_grace_s=args.drain_grace_s).start()]
+        url = fronts[0].url
+        print(f"serving on {url} ({device})", flush=True)
+    for front in fronts:
+        front.arm_preempt_drain(grace_s=args.drain_grace_s)
+
+    def shutdown():
+        if router is not None:
+            router.shutdown()
+        for front in fronts:
+            front.shutdown()
+
     if not args.loadgen:
         try:
-            front._http_thread.join()
+            fronts[0]._http_thread.join()
         except KeyboardInterrupt:
             pass
         finally:
-            front.shutdown()
+            shutdown()
         return 0
     try:
-        # One tiny request warms the HTTP dispatch path itself.
-        front.generate({"prompt": [1, 2, 3], "max_new_tokens": 2})
+        # One tiny request a front end warms the HTTP path itself.
+        for front in fronts:
+            front.generate({"prompt": [1, 2, 3], "max_new_tokens": 2})
         report = run_load(
-            front.url, args.loadgen, rate_hz=args.rate,
+            url, args.loadgen, rate_hz=args.rate,
             prompt_len=tuple(args.prompt_len),
             max_new_tokens=tuple(args.gen_tokens),
-            vocab_size=args.vocab, seed=args.seed,
+            vocab_size=args.vocab, seed=args.seed, arrival=args.arrival,
             shared_prefix_groups=args.shared_prefix_groups,
-            shared_prefix_len=args.shared_prefix_len)
+            shared_prefix_len=args.shared_prefix_len,
+            slo_classes=slo_classes)
+        if router is not None:
+            report["router"] = router.stats()
     finally:
-        front.shutdown()
-    prefix = engine.prefix_stats()
-    if prefix is not None:
+        shutdown()
+    prefix = [f.engine.prefix_stats() for f in fronts]
+    if any(prefix):
+        hits = sum(p["hit_tokens"] for p in prefix if p)
+        total = sum(p["total_prompt_tokens"] for p in prefix if p)
         report["prefix_cache"] = {
-            key: prefix[key]
-            for key in ("hit_tokens", "total_prompt_tokens", "hit_rate")}
-    spec = engine.spec_stats()
-    if spec is not None:
+            "hit_tokens": hits, "total_prompt_tokens": total,
+            "hit_rate": hits / total if total else 0.0}
+    if args.speculative:
+        spec = [f.engine.spec_stats() for f in fronts]
+        proposed = sum(s["proposed"] for s in spec)
+        accepted = sum(s["accepted"] for s in spec)
         report["speculative"] = {
-            key: spec[key]
-            for key in ("gamma", "proposed", "accepted", "acceptance_rate")}
-    report["device"] = str(engine.device)
+            "gamma": args.gamma, "proposed": proposed,
+            "accepted": accepted,
+            "acceptance_rate": accepted / proposed if proposed else 0.0}
+    report["device"] = str(device)
     with open(args.report, "w", encoding="utf-8") as fh:
         json.dump(report, fh, indent=2)
     print(json.dumps(report), flush=True)

@@ -189,9 +189,13 @@ Phases, each fatal on failure:
      the same widths, 8 slots, max_decode_len 512) three times through
      ServingFrontEnd + run_load: paged page 64 (K6), paged int8 with
      overcommit over 40 pages (K7), dense int8 (K8), every decode step a
-     replay of the graph the warm-up captured. Each run must finish
-     every request, its kernel wrappers must have launched its kernel
-     (the warm-up's eager step and the capture) and no other, the
+     replay of the graph the warm-up captured and every prefill a replay
+     of its bucket's graph. Warm-up must warm every bucket (16-512),
+     capture every prefill there and run one decode step eagerly and one
+     capture, so each kernel wrapper must count one launch a layer twice
+     and no more, and traffic must capture nothing and prefill nothing
+     eagerly (``warm``). Each run must finish every request, its kernel
+     wrappers must have launched its kernel exactly so and no other, the
      trace of its replayed steps (trace/decode_profile.py's reading of
      the same engine: wall and device-busy ms, idle share, the kernel's
      share) must show its kernel, and no other decode-attention kernel,
@@ -206,14 +210,39 @@ Phases, each fatal on failure:
      paged page 64, (s3) paged int8 with the draft on the dense int8
      cache (K8 at D 16, (gamma + 1) x 2 launches a step), (s4) a noisy
      copy of the target as draft (some proposals accepted, some not).
-     Every request must finish; the wrappers and the trace of replayed
-     steps must show K8 in (s3) alone and no K6/K7; 16 replayed steps
+     Every request must finish; the wrappers (the warm-up's eager round
+     and its capture: (gamma + 1) x 2 launches each) and the trace of
+     replayed steps must show K8 in (s3) alone and no K6/K7; 16 replayed
+     steps
      must equal 16 eager ones; each stream must equal the
      non-speculative engine's on the same prompt up to its first
      near-tie, a token whose top-2 logit margin there is below the
      largest verify-vs-single-step logit difference on teacher-forced
      tokens (printed, with the streams that stopped early). Then (s1) in
-     fp32 on 8 of the requests under the same rule.
+     fp32 on 8 of the requests under the same rule;
+  9. the serving tier (serving_tier). (p) the prefill graphs: on
+     bench_serving's paged page-64 engine and (s3)'s engine, warm-up
+     must return every bucket 16-512 and capture the paged, the
+     shared-prefix suffix and the draft prefill at each; each replay must
+     equal an eager run of the same prefill bit for bit, in the logits
+     and the cache rows of the prompt; each one's replayed and eager ms
+     (CUDA events) and device kernels are printed; traffic after it
+     captures nothing. (f) bench.py bench_serving_fleet as written: 2
+     replicas of the bench_serving model (bf16, dense cache) sharing one
+     parameter set behind the port's router, 64 requests at 24 Hz of
+     64-128 + 64-128 tokens, seed 0: every request must finish, both
+     replicas serve, 4 requests rerun offline on one replica must stream
+     the same tokens. (r) failover: two fp32 replicas at the same widths
+     on paged page-64 caches (K6), each step slowed by 20 ms, 8 streams;
+     (r1) a preempt notice drains one replica mid-stream, (r2) kill()
+     severs one mid-stream: no stream lost, every token once, every
+     stream the undisturbed fp32 engine's up to its first near-tie (the
+     re-prefill-vs-decode logit bound). (o) bench.py bench_serving_slo
+     as written (fp32, d_model 256, 4 layers, page 16, K6; 24 diurnal
+     requests with 96-token shared prefixes, its three classes), prefix
+     cache on and off: the same tokens (sha256), each class's
+     attainment and each arm's TTFT printed. K6 with fp32 queries is
+     checked at both served shapes in phase 2.
 
 All phases run at full depth but the mesh's (b)-(d) and the checkpoint
 phase's (b). The last two stdout lines are the {"kernels": [...]}
@@ -224,6 +253,7 @@ no CUDA device is present.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import concurrent.futures
 import contextlib
@@ -242,6 +272,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from typing import Optional
@@ -498,6 +529,13 @@ DECODE_LENGTHS = [1, 63, 64, 65, 129, 200, 333, 511, 512, 0]
 DRAFT_DEPTH = BENCH_DRAFT_MODEL["d_head"]
 DRAFT_ROWS = MAX_LEN + BENCH_SPEC_GAMMA + 1
 DECODE_DEPTHS = (DRAFT_DEPTH, 64, 128)
+# The fp32 paged engines the serving tier serves on K6 (heads, page,
+# max_decode_len, ragged lengths): the failover phase's bench_serving
+# widths on pages of 64, and bench_serving_slo's 4 heads on pages of 16.
+SERVED_FP32_PAGED = (
+    (16, 64, 512, DECODE_LENGTHS),
+    (4, 16, 128, [1, 15, 16, 17, 33, 100, 127, 128, 0]),
+)
 # Faults planted in copies of decode_attention.cu, one build each, each
 # confined to one split of the cluster (decode_cluster, the body both
 # cluster kernels run; the dense ones to dense_decode_cluster_kernel):
@@ -770,6 +808,20 @@ def check_kernels(device, fault_libs=()) -> dict:
                 torch.cuda.synchronize()
                 fault_seen(i, depth, fault_err(faulty, want, lens)
                            / TOL[q_dtype])
+    # K6 with fp32 queries at the served fp32 engines' shapes.
+    for heads, page, rows, lengths in SERVED_FP32_PAGED:
+        name = f"paged D=64 q=float32 H={heads} page={page} L={rows}"
+        args, lens, kw, table, poisoned = paged_case(
+            rng, lengths, heads, 64, page, rows // page, torch.float32,
+            False, device)
+        got = paged_ops.paged_decode_attention_kernel(*args, table, lens)
+        bad = paged_ops.paged_decode_attention_kernel(*args, poisoned,
+                                                      lens)
+        want = paged_ops.paged_decode_attention_reference(*args, table,
+                                                          lens)
+        err = check_result(name, got, want, bad, lens, TOL[torch.float32])
+        print(f"check {name}: max_abs_err {err:.3g} "
+              f"(tol {TOL[torch.float32]})")
     for i, (kernel, line, _, _) in enumerate(DECODE_FAULTS):
         ratios = {depth: by_depth[depth][i] for depth in DECODE_DEPTHS}
         print(f"check planted decode fault ({line!r}): worst error "
@@ -4324,18 +4376,22 @@ def _stream_schedule() -> list:
 def stream_check(name, device) -> tuple[dict, ContinuousBatcher]:
     """One request schedule (admissions mid-stream, pages growing past
     the prompts', and for paged_int8 overcommit preemption with
-    re-prefill) through an engine that replays its decode graph and
-    through one held eager (its capture skipped): every request must
+    re-prefill) through an engine that replays its decode graph and its
+    prefill graphs and through one held eager (its captures skipped):
+    every request must
     stream identical greedy tokens, with as many decode steps and
     preemptions. Returns the row and the replaying engine, drained."""
     runs = {}
     for mode in ("replayed", "eager"):
         engine = build_bench_engine(name, device)
         if mode == "eager":
-            engine.capture_decode = lambda: None  # hold this one eager
+            # Hold this one eager: no decode graph, no prefill graph.
+            engine.capture_decode = lambda: None
+            engine._capture_prefill = lambda kind, bucket: None
         engine.warmup()
-        require((engine._graph is not None) == (mode == "replayed"),
-                f"{name} stream check: the {mode} engine's graph")
+        require((engine._graph is not None) == (mode == "replayed") and
+                bool(engine._prefill_graphs) == (mode == "replayed"),
+                f"{name} stream check: the {mode} engine's graphs")
         runs[mode] = (_stream(engine, _stream_schedule()), engine)
     (got, replayed), (want, eager) = runs["replayed"], runs["eager"]
     row = {"requests": len(want), "decode_steps": replayed.decode_steps,
@@ -4445,6 +4501,73 @@ def replayed_step_launches(name, reading: dict) -> dict:
     return found
 
 
+def warm(name, engine: ContinuousBatcher) -> tuple[dict, dict]:
+    """``engine.warmup()`` with its decode steps counted, then the engine
+    watched from the outside. Warm-up must warm every bucket
+    (``warmup_buckets``), capture a prefill graph for every prefill it
+    can run there (``_prefill_keys``) and run exactly one decode step
+    eagerly (its first) and one capture: every later step replays. So a
+    decode kernel's wrapper counts its per-step launches twice in the
+    warm-up and never again. Returns the warm-up's row and a dict that
+    counts, from then on, captures (decode or prefill), eager decode
+    steps and eager prefills (a prefill with no graph): all must stay 0
+    under traffic."""
+    started = time.perf_counter()
+    eager_name = ("_eager_speculative" if engine.speculative is not None
+                  else "_eager_decode")
+    eager, capture = getattr(engine, eager_name), engine.capture_decode
+    calls = {"eager": 0, "captures": 0}
+
+    def counted_eager():
+        calls["eager"] += 1
+        return eager()
+
+    def counted_capture():
+        calls["captures"] += 1
+        setattr(engine, eager_name, eager)  # the capture records the step
+        try:
+            return capture()
+        finally:
+            setattr(engine, eager_name, counted_eager)
+    setattr(engine, eager_name, counted_eager)
+    engine.capture_decode = counted_capture
+    try:
+        buckets = engine.warmup()
+    finally:
+        setattr(engine, eager_name, eager)
+        engine.capture_decode = capture
+    keys = engine._prefill_keys(buckets)
+    row = {"buckets": buckets, "eager_decode_steps": calls["eager"],
+           "decode_captures": calls["captures"],
+           "prefill_graphs": len(engine._prefill_graphs),
+           "seconds": time.perf_counter() - started}
+    require(buckets == engine.warmup_buckets() and
+            sorted(engine._prefill_graphs) == sorted(keys) and
+            engine._graph is not None and calls["eager"] == 1 and
+            calls["captures"] == 1,
+            f"{name} warm-up: {row}, prefill graphs "
+            f"{sorted(engine._prefill_graphs)}")
+    live = {"captures": 0, "eager_decode_steps": 0, "eager_prefills": 0}
+
+    def counting(attr, key):
+        fn = getattr(engine, attr)
+
+        def counted(*args):
+            live[key] += 1
+            return fn(*args)
+        setattr(engine, attr, counted)
+    counting("capture_decode", "captures")
+    counting("_capture_prefill", "captures")
+    counting(eager_name, "eager_decode_steps")
+    counting("_prefill_body", "eager_prefills")
+    return row, live
+
+
+def require_replayed(name, live: dict) -> None:
+    require(not any(live.values()),
+            f"{name}: after warm-up, traffic captured or ran eagerly: {live}")
+
+
 def serve(name, kernel, device) -> dict:
     """Phase 7: one served configuration, end to end, its decode steps
     replayed from the graph the warm-up captured; then
@@ -4453,8 +4576,7 @@ def serve(name, kernel, device) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     engine = build_bench_engine(name, device)
-    engine.warmup()
-    require(engine._graph is not None, f"{name}: no decode graph")
+    warmed, live = warm(name, engine)
     front = ServingFrontEnd(engine, port=0).start()
     try:
         front.generate({"prompt": [1, 2, 3], "max_new_tokens": 2})
@@ -4465,13 +4587,19 @@ def serve(name, kernel, device) -> dict:
     finally:
         front.shutdown()
     torch.cuda.synchronize()
-    # The wrappers count where they launch: the warm-up's eager decode
-    # step and the capture. Replays relaunch the captured kernels
+    require_replayed(name, live)
+    # The wrappers count where they launch: one launch a layer in the
+    # warm-up's one eager decode step and one in its capture (prefill
+    # runs no decode kernel). Replays relaunch the captured kernels
     # without the wrappers; the trace below counts those.
     counts = launch_counts()
+    expected = MODEL["n_layers"] * (warmed["eager_decode_steps"] +
+                                    warmed["decode_captures"])
     require(report["completed"] == 8 and report["failed"] == 0,
             f"{name}: {report['failed']} failed: {report.get('errors')}")
-    require(counts[kernel] > 0, f"{name}: {kernel} never launched")
+    require(counts[kernel] == expected,
+            f"{name}: {kernel} launched {counts[kernel]} times through "
+            f"its wrapper, not {expected}")
     others = {k: n for k, n in counts.items() if k != kernel and n}
     require(not others, f"{name}: unexpected launches {others}")
     steps = engine.decode_steps
@@ -4492,6 +4620,7 @@ def serve(name, kernel, device) -> dict:
         "config": name, "kernel": kernel, "launches": counts[kernel],
         "launches_counted": "wrapper calls: the eager warm-up step and "
                             "the graph capture",
+        "warmup": warmed,
         "decode_steps": steps,
         "launches_per_replayed_step": next(iter(found.values())),
         "replayed_kernel": next(iter(found))[:120],
@@ -4827,8 +4956,7 @@ def serve_speculative(device) -> dict:
         engine = build_bench_speculative_engine(
             kv_cache, device,
             draft=noisy_draft(device) if draft == "noisy" else None)
-        engine.warmup()
-        require(engine._graph is not None, f"{name}: no speculative graph")
+        warmed, live = warm(name, engine)
         seconds = {"build_and_warmup": time.perf_counter() - started}
         mark = time.perf_counter()
 
@@ -4839,15 +4967,23 @@ def serve_speculative(device) -> dict:
             mark = now
         report, streams = spec_load(engine)
         lap("load")
+        require_replayed(name, live)
         counts = {k: n for k, n in launch_counts().items() if n}
         require(report["completed"] == SPEC_REQUESTS and
                 report["failed"] == 0,
                 f"{name}: {report['failed']} failed: {report.get('errors')}")
         want_k8 = kv_cache == "paged_int8"
-        require(set(counts) == ({"dense_decode_int8"} if want_k8 else set()),
-                f"{name}: kernel launches {counts}")
+        # (s3): the int8 draft's K8, one launch a layer in each of a
+        # round's gamma + 1 draft steps, in the eager warm-up round and
+        # its capture; the verify and the prefills run no decode kernel.
+        expected = ({"dense_decode_int8": (gamma + 1) *
+                     BENCH_DRAFT_MODEL["n_layers"] *
+                     (warmed["eager_decode_steps"] +
+                      warmed["decode_captures"])} if want_k8 else {})
+        require(counts == expected,
+                f"{name}: kernel launches {counts}, not {expected}")
         row = {"config": kv_cache, "draft": draft, **_spec_row(report, engine),
-               "launches": counts,
+               "warmup": warmed, "launches": counts,
                "launches_counted": "wrapper calls: the eager warm-up step "
                                    "and the graph capture"}
         reading = decode_profile.profile_engine(
@@ -4921,6 +5057,630 @@ def serve_speculative(device) -> dict:
           flush=True)
     del engine
     torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------- the serving tier ----------------------------
+
+# The prefill buckets of a max_decode_len-512 engine.
+ALL_BUCKETS = [16, 32, 64, 128, 256, 512]
+PREFILL_TIMED_CALLS = 5
+
+
+def _profile_windows(calls: list) -> dict:
+    """The device kernels each of ``calls`` ([(name, fn)]) launches, from
+    one torch.profiler trace: every call runs once untraced-by-count
+    first (the profiler can lose the first kernels it sees), then once in
+    a window of its own, synchronised, so each kernel belongs to the last
+    window that began before it."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _, fn in calls[:1]:
+            fn()
+        torch.cuda.synchronize()
+        for name, fn in calls:
+            with torch.profiler.record_function(f"window:{name}"):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    starts = sorted((e.time_range.start, e.name[len("window:"):])
+                    for e in events if e.name.startswith("window:") and
+                    e.device_type == torch.autograd.DeviceType.CPU)
+    counts = {name: 0 for name, _ in calls}
+    for e in events:
+        if (e.device_type != torch.autograd.DeviceType.CUDA or
+                e.name.startswith("window:")):
+            continue
+        k = bisect.bisect_right(starts, (e.time_range.start, "\uffff"))
+        if k:
+            counts[starts[k - 1][1]] += 1
+    return counts
+
+
+def _events_ms(fn, calls: int = PREFILL_TIMED_CALLS) -> float:
+    """ms a call from CUDA events around ``calls`` calls, host enqueue
+    included (an eager prefill's launches are host-bound)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _prefill_case(engine: ContinuousBatcher, kind: str, bucket: int,
+                  rng) -> tuple:
+    """Arguments for one real prefill of ``kind`` at ``bucket`` on an
+    idle engine, pushed; returns (state tensors the prefill writes, the
+    active part of each as a boolean row mask, or None for the whole
+    tensor). paged: a prompt of bucket - 3 tokens into pages 1..;
+    shared: page 0 first filled by a paged prefill of 64 tokens, then a
+    suffix after that one-page prefix into pages 1..; draft: slot 0 of
+    the draft cache."""
+    page, length = engine.page_size, engine.max_decode_len
+    scratch, vocab = engine._scratch_page, engine.config.vocab_size
+    body = type(engine)._prefill_body  # not the counting wrapper
+    if kind == "shared":
+        engine._set_prefill_args(
+            tokens=rng.integers(0, vocab, page).tolist(), len=page,
+            pages=[0] + [scratch] * (engine.max_blocks - 1))
+        engine._push_prefill_args()
+        body(engine, "paged", engine._bucket_length(page))
+        n = min(bucket - 3, length - 1 - page)
+        engine._set_prefill_args(
+            suffix=rng.integers(0, vocab, bucket).tolist(), start=page,
+            len=page + n, prefix=[0] + [scratch] * (length // page - 1))
+    else:
+        n = bucket - 3
+        engine._set_prefill_args(
+            tokens=rng.integers(0, vocab, bucket).tolist(), len=n, slot=0)
+    blocks = -(-n // page)
+    engine._set_prefill_args(pages=list(range(1, blocks + 1)) +
+                             [scratch] * (engine.max_blocks - blocks))
+    engine._push_prefill_args()
+    written = []
+    if kind == "draft":
+        for layer in engine._draft_cache:
+            for key, t in layer.items():
+                written.append((t[0] if key != "index" else t, n))
+        return written
+    for layer in engine.cache:
+        for key in ("k_pages", "v_pages", "k_page_scales", "v_page_scales"):
+            if key in layer:
+                rows = layer[key][1:blocks + 1].flatten(0, 1)
+                written.append((rows, n))
+    return written
+
+
+def prefill_check(name, engine: ContinuousBatcher) -> dict:
+    """Phase (p) on one warmed engine: for every captured prefill, a
+    replay against an eager run of the same prefill on the same pushed
+    arguments, bit for bit in the logits and in the cache rows it writes
+    (the live ones: rows of the prompt, not the padding); then each one's
+    ms a call, replayed and eager (CUDA events), and the device kernels
+    each launches (its argument push, one copy, included in both)."""
+    rng = np.random.default_rng(6)
+    rows, calls = {}, []
+    for kind, bucket in sorted(engine._prefill_graphs,
+                               key=lambda k: (k[1], k[0])):
+        graph, out = engine._prefill_graphs[(kind, bucket)]
+        written = _prefill_case(engine, kind, bucket, rng)
+
+        def snap():
+            return [t[:n].clone() for t, n in written]
+        graph.replay()
+        replayed, replayed_state = out.clone(), snap()
+        eager = type(engine)._prefill_body(engine, kind, bucket).clone()
+        eager_state = snap()
+        same = (torch.equal(replayed, eager) and
+                all(torch.equal(a, b) for a, b in
+                    zip(replayed_state, eager_state)))
+        require(same and bool(torch.isfinite(eager).all()),
+                f"{name} prefill {kind} {bucket}: replay differs from eager")
+        key = f"{kind}_{bucket}"
+        eager_call = functools.partial(type(engine)._prefill_body, engine,
+                                       kind, bucket)
+        rows[key] = {"replay_ms": _events_ms(graph.replay),
+                     "eager_ms": _events_ms(eager_call),
+                     "bit_identical": True}
+        args = engine._pf_host.copy()
+
+        def with_args(fn, args=args):
+            # This case's arguments (the buffer holds the last case's).
+            def call():
+                engine._pf_host[:] = args
+                engine._push_prefill_args()
+                fn()
+            return call
+        calls += [(f"{key}:replay", with_args(graph.replay)),
+                  (f"{key}:eager", with_args(eager_call))]
+    kernels = _profile_windows(calls)
+    for key, row in rows.items():
+        row["replay_kernels"] = kernels[f"{key}:replay"]
+        row["eager_kernels"] = kernels[f"{key}:eager"]
+        require(row["replay_kernels"] > 0,
+                f"{name} prefill {key}: the replay launched nothing")
+    return rows
+
+
+def prefill_graphs(device) -> dict:
+    """Phase (p): bench_serving's paged page-64 engine and (s3)'s
+    speculative engine (paged int8 target, int8 dense draft) must warm
+    every bucket from 16 to 512 and hold a captured prefill for each
+    (the paged prefill, the shared-prefix suffix prefill, the draft's),
+    each replay equal to eager bit for bit (prefill_check); then traffic
+    through each engine captures nothing and runs no prefill eagerly."""
+    out = {}
+    for name, build in (
+            ("paged", lambda: build_bench_engine("paged", device)),
+            ("s3", lambda: build_bench_speculative_engine("paged_int8",
+                                                          device))):
+        started = time.perf_counter()
+        engine = build()
+        warmed, live = warm(f"prefill {name}", engine)
+        require(warmed["buckets"] == ALL_BUCKETS,
+                f"prefill {name}: buckets {warmed['buckets']}")
+        row = {"warmup": warmed,
+               "graphs": prefill_check(f"prefill {name}", engine)}
+        live["eager_prefills"] = 0  # the check's eager runs are its own
+        # Traffic after the checks: every admission a replay.
+        payloads = load_requests(8, 16.0, (16, 300), (4, 8),
+                                 MODEL["vocab_size"], seed=5)[1]
+        for p in payloads:
+            engine.submit(Request(p["request_id"], p["prompt"],
+                                  p["max_new_tokens"]))
+        done = 0
+        while engine.pending():
+            done += len(engine.step())
+        require(done == len(payloads), f"prefill {name}: {done} finished")
+        require_replayed(f"prefill {name}", live)
+        row["seconds"] = time.perf_counter() - started
+        print(f"prefill_graphs {name} " + json.dumps(row), flush=True)
+        out[name] = row
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+# bench.py bench_serving_fleet, whole: 2 replicas sharing one parameter
+# set behind the router, the bench_serving model in bf16 on a dense cache,
+# 64 requests at 24 Hz, prompts and generations of 64-128 tokens, seed 0.
+FLEET_REPLICAS, FLEET_REQUESTS, FLEET_RATE_HZ = 2, 64, 24.0
+FLEET_RECHECKED = 4
+
+
+def _recorded(engines) -> dict:
+    """Every token the engines emit, by request id and index (each
+    engine's on_token wrapped; the front end's hook still runs)."""
+    streams = collections.defaultdict(dict)
+    for engine in engines:
+        emit = engine.on_token
+
+        def record(request_id, token, index, emit=emit):
+            streams[request_id][index] = token
+            emit(request_id, token, index)
+        engine.on_token = record
+    return streams
+
+
+def _fleet_up(engines, router_kwargs=None, front_kwargs=None):
+    from batch_shipyard_tpu_torch.models.router import ServingRouter
+    fronts = [ServingFrontEnd(engine, port=0, **(front_kwargs or {}))
+              for engine in engines]
+    streams = _recorded(engines)
+    for front in fronts:
+        front.start()
+    router = ServingRouter([f.url for f in fronts],
+                           **(router_kwargs or {})).start()
+    return fronts, router, streams
+
+
+def _fleet_down(fronts, router) -> None:
+    router.shutdown()
+    for front in fronts:
+        try:
+            front.shutdown()
+        except OSError:
+            pass
+
+
+def fleet(device) -> dict:
+    """Phase (f): bench_serving_fleet as written through the port's
+    router. Every request must finish, both replicas must be dispatched
+    to, traffic must capture nothing and prefill nothing eagerly, and
+    FLEET_RECHECKED of the requests run again offline on one replica
+    must stream the tokens the fleet streamed."""
+    started = time.perf_counter()
+    config = tfm.TransformerConfig(**MODEL, max_seq_len=MAX_LEN,
+                                   dtype=torch.bfloat16)
+    params = bench_params(config, device, 0)
+    engines, watched = [], []
+    for i in range(FLEET_REPLICAS):
+        engine = ContinuousBatcher(config, params, num_slots=SLOTS,
+                                   max_decode_len=MAX_LEN, device=device)
+        warmed, live = warm(f"fleet replica {i}", engine)
+        engines.append(engine)
+        watched.append(live)
+    warm_s = time.perf_counter() - started
+    fronts, router, streams = _fleet_up(
+        engines, router_kwargs=dict(health_interval=1.0))
+    try:
+        for front in fronts:
+            front.generate({"prompt": [1, 2, 3], "max_new_tokens": 2})
+        report = run_load(router.url, FLEET_REQUESTS, rate_hz=FLEET_RATE_HZ,
+                          prompt_len=(MAX_LEN // 8, MAX_LEN // 4),
+                          max_new_tokens=(MAX_LEN // 8, MAX_LEN // 4),
+                          vocab_size=MODEL["vocab_size"], seed=0)
+        stats = router.stats()
+    finally:
+        _fleet_down(fronts, router)
+    torch.cuda.synchronize()
+    for i, live in enumerate(watched):
+        require_replayed(f"fleet replica {i}", live)
+    dispatched = [s["dispatched"] for s in stats["per_replica"]]
+    require(report["completed"] == FLEET_REQUESTS and report["failed"] == 0,
+            f"fleet: {report['failed']} failed: {report.get('errors')}")
+    require(all(n > 0 for n in dispatched),
+            f"fleet: a replica got no request: {dispatched}")
+    payloads = load_requests(FLEET_REQUESTS, FLEET_RATE_HZ,
+                             (MAX_LEN // 8, MAX_LEN // 4),
+                             (MAX_LEN // 8, MAX_LEN // 4),
+                             MODEL["vocab_size"], seed=0)[1]
+    again = payloads[:FLEET_RECHECKED]
+    for p in again:
+        engines[0].submit(Request(p["request_id"], p["prompt"],
+                                  p["max_new_tokens"]))
+    offline = {}
+    while engines[0].pending():
+        for rid, tokens in engines[0].step():
+            offline[rid] = tokens
+    for p in again:
+        rid = p["request_id"]
+        fleet_tokens = [streams[rid][i] for i in range(len(streams[rid]))]
+        require(offline[rid] == fleet_tokens,
+                f"fleet: {rid} streamed other tokens offline")
+    row = {"replicas": FLEET_REPLICAS, "completed": report["completed"],
+           "failed": report["failed"],
+           "ttft_ms": report["ttft_exact_ms"],
+           "tpot_ms": report["tpot_exact_ms"],
+           "tokens_per_second": report["tokens_per_second"],
+           "generated_tokens": report["generated_tokens"],
+           "elapsed_seconds": report["elapsed_seconds"],
+           "rechecked_offline": len(again),
+           "router": {k: stats[k] for k in (
+               "dispatched", "completed", "failed", "affinity_routed",
+               "recoveries", "lost_streams", "ttft_ms", "tpot_ms")},
+           "dispatched_by_replica": dispatched,
+           "warmup_seconds": warm_s,
+           "seconds": time.perf_counter() - started}
+    print("fleet " + json.dumps(row), flush=True)
+    del engines, fronts, router
+    torch.cuda.empty_cache()
+    return row
+
+
+# Phase (r): two fp32 replicas of the bench_serving widths on paged
+# page-64 caches (K6) behind the router, each engine step slowed by
+# FAILOVER_STEP_DELAY_S (the serving drill's throttle) so that the faults
+# land mid-stream; FAILOVER_REQUESTS streams of 64-128 + 64-128 tokens.
+FAILOVER_REQUESTS, FAILOVER_STEP_DELAY_S = 8, 0.02
+FAILOVER_GRACE_S = 0.3
+
+
+class _StreamClient(collections.namedtuple("_StreamClient",
+                                           "thread tokens indexes final")):
+    """One streaming client of the router: token and index lines as they
+    arrive, then the final object."""
+
+
+def _stream_client(url: str, payload: dict) -> _StreamClient:
+    import urllib.request
+    tokens, indexes, final = [], [], []
+
+    def run():
+        req = urllib.request.Request(
+            f"{url}/v1/generate",
+            data=json.dumps(dict(payload, stream=True)).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            for line in resp:
+                event = json.loads(line)
+                if "index" in event:
+                    tokens.append(event["token"])
+                    indexes.append(event["index"])
+                else:
+                    final.append(event)
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return _StreamClient(thread, tokens, indexes, final)
+
+
+def _throttle(engine: ContinuousBatcher, delay: float) -> None:
+    step = engine.step
+
+    def slow_step():
+        time.sleep(delay)
+        return step()
+    engine.step = slow_step
+
+
+def reprefill_vs_decode(engine: ContinuousBatcher, payloads: list,
+                        streams: dict) -> float:
+    """The largest |logit difference| between a token's logits through
+    the prefill path (one batch-1 insert of its whole context, as a
+    resume re-prefills prompt + emitted tokens) and through decode steps
+    (K6 over a paged cache filled one token a step), teacher-forced on
+    the undisturbed streams, at the positions whose logits pick a
+    generated token: the near-tie bound of a resumed stream."""
+    dev = engine.device
+    seqs = [p["prompt"] + streams[p["request_id"]] for p in payloads]
+    batch, steps = len(seqs), max(map(len, seqs))
+    model, dense = engine.model, engine._dense_model
+    vocab = engine.config.vocab_size
+    prefill = torch.zeros((batch, steps, vocab), device=dev)
+    read = torch.zeros((batch, steps), dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        for b, seq in enumerate(seqs):
+            small = inf.init_cache(dense, 1)
+            hidden = dense(torch.tensor([seq], dtype=torch.int32,
+                                        device=dev),
+                           positions=torch.arange(len(seq), device=dev,
+                                                  dtype=torch.int32),
+                           cache=small, return_hidden=True)
+            prefill[b, :len(seq)] = inf.last_token_logits(dense, hidden[0])
+            read[b, len(payloads[b]["prompt"]) - 1:len(seq) - 1] = True
+        pages = -(-steps // PAGE)
+        cfg = dataclasses.replace(model.config,
+                                  kv_num_pages=batch * pages + 1)
+        cache = inf.init_cache(types.SimpleNamespace(
+            config=cfg, embed=model.embed), batch)
+        table = np.full((batch, engine.max_blocks), batch * pages, np.int32)
+        table[:, :pages] = np.arange(batch * pages).reshape(batch, pages)
+        cache[0]["block_table"].copy_(torch.from_numpy(table))
+        padded = torch.tensor([s + [s[-1]] * (steps - len(s)) for s in seqs],
+                              dtype=torch.int32, device=dev)
+        worst = torch.zeros((), device=dev)
+        for t in range(steps):
+            logits = model(padded[:, t:t + 1], positions=torch.full(
+                (batch, 1), t, dtype=torch.int32, device=dev),
+                cache=cache)[:, 0].float()
+            diff = (logits - prefill[:, t]).abs().amax(dim=-1)
+            worst = torch.maximum(worst, torch.where(read[:, t], diff,
+                                                     0.0).amax())
+    worst = float(worst)
+    require(math.isfinite(worst), "re-prefill vs decode: non-finite")
+    return worst
+
+
+def failover(device) -> dict:
+    """Phase (r): (r1) a preempt notice to one replica mid-stream (its
+    drain abandons the streams at FAILOVER_GRACE_S and the router resumes
+    them on the sibling), (r2) kill() of one replica mid-stream. Each
+    must lose no stream and deliver every token once, each assembled
+    stream must equal the undisturbed fp32 engine's or part from it only
+    at a near-tie (compare_streams, with reprefill_vs_decode's bound),
+    and K6's wrapper must count the replicas' warm-up launches alone."""
+    from batch_shipyard_tpu_torch.agent import preemption
+    started = time.perf_counter()
+    config = tfm.TransformerConfig(**MODEL, max_seq_len=MAX_LEN,
+                                   dtype=torch.float32)
+    params = bench_params(config, device, 0)
+
+    def engine():
+        return ContinuousBatcher(config, params, num_slots=SLOTS,
+                                 max_decode_len=MAX_LEN, device=device,
+                                 kv_page_size=PAGE)
+    payloads = load_requests(FAILOVER_REQUESTS, 16.0,
+                             (MAX_LEN // 8, MAX_LEN // 4),
+                             (MAX_LEN // 8, MAX_LEN // 4),
+                             MODEL["vocab_size"], seed=2)[1]
+    reference = engine()
+    want, margins = nonspec_reference(reference, payloads)
+    bound = reprefill_vs_decode(reference, payloads, want)
+    del reference
+    rows = {"near_tie_bound": bound,
+            "reference_seconds": time.perf_counter() - started}
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        for fault in ("r1_preempt", "r2_kill"):
+            mark = time.perf_counter()
+            reset_launch_counts()
+            engines, watched = [], []
+            for i in range(2):
+                e = engine()
+                warmed, live = warm(f"{fault} replica {i}", e)
+                engines.append(e)
+                watched.append(live)
+            warm_launches = launch_counts()["paged_decode"]
+            for e in engines:
+                _throttle(e, FAILOVER_STEP_DELAY_S)
+            fronts, router, _ = _fleet_up(
+                engines, router_kwargs=dict(health_interval=0.5),
+                front_kwargs=dict(drain_grace_s=FAILOVER_GRACE_S))
+            notices = [str(pathlib.Path(tmp.name) / f"{fault}-{i}.json")
+                       for i in range(2)]
+            for front, notice in zip(fronts, notices):
+                require(front.arm_preempt_drain(path=notice,
+                                                poll_interval=0.05),
+                        f"{fault}: preempt drain not armed")
+            try:
+                clients = {p["request_id"]: _stream_client(router.url, p)
+                           for p in payloads}
+                victim = fronts[0].url
+                deadline = time.monotonic() + 120
+                while not any(
+                        len(c.tokens) >= 2 and
+                        getattr(router._owner.get(rid), "url", None) ==
+                        victim for rid, c in clients.items()):
+                    require(time.monotonic() < deadline,
+                            f"{fault}: no stream live on the victim")
+                    time.sleep(0.01)
+                live_on_victim = [
+                    rid for rid, c in clients.items()
+                    if getattr(router._owner.get(rid), "url", None) ==
+                    victim and 0 < len(c.tokens) < len(want[rid])]
+                if fault == "r1_preempt":
+                    preemption.write_request(notices[0],
+                                             reason="chip smoke")
+                else:
+                    fronts[0].kill()
+                for c in clients.values():
+                    c.thread.join(300)
+                stats = router.stats()
+            finally:
+                _fleet_down(fronts, router)
+            torch.cuda.synchronize()
+            for i, live in enumerate(watched):
+                require_replayed(f"{fault} replica {i}", live)
+            got = {}
+            for rid, c in clients.items():
+                final = c.final[0] if c.final else {}
+                require(not c.thread.is_alive() and "tokens" in final and
+                        "error" not in final,
+                        f"{fault}: {rid} lost: {final}")
+                require(c.indexes == list(range(len(c.tokens))) and
+                        c.tokens == final["tokens"],
+                        f"{fault}: {rid} delivered a token twice or not "
+                        f"at all: {c.indexes}")
+                got[rid] = c.tokens
+            streams = compare_streams(fault, got, want, margins, bound)
+            require(stats["lost_streams"] == 0 and stats["recoveries"] >= 1,
+                    f"{fault}: router {stats['recoveries']} recoveries, "
+                    f"{stats['lost_streams']} lost")
+            launches = launch_counts()["paged_decode"]
+            expected = 2 * MODEL["n_layers"] * (
+                warmed["eager_decode_steps"] + warmed["decode_captures"])
+            require(launches == warm_launches == expected,
+                    f"{fault}: K6 wrapper launches {launches}, at warm-up "
+                    f"{warm_launches}, not {expected}")
+            rows[fault] = {
+                "streams": streams,
+                "streamed_on_victim_at_fault": len(live_on_victim),
+                "recoveries": stats["recoveries"],
+                "recovered_requests": stats["recovered_requests"],
+                "lost_streams": stats["lost_streams"],
+                "recovery_seconds": [r["recovery_seconds"]
+                                     for r in stats["recovery_log"]],
+                "paged_decode_launches": launches,
+                "seconds": time.perf_counter() - mark}
+            print(f"failover {fault} " + json.dumps(rows[fault]),
+                  flush=True)
+            del engines, fronts, router
+            torch.cuda.empty_cache()
+    finally:
+        tmp.cleanup()
+    rows["seconds"] = time.perf_counter() - started
+    return rows
+
+
+# bench.py bench_serving_slo, whole: fp32, vocab 4096, d_model 256, 4
+# layers of 4 heads of 64, d_ff 1024, 4 slots, max_decode_len 128, page 16
+# (K6) over 4 x 8 + 2 x 6 + 4 pages; 24 requests at a diurnal 16 Hz peak
+# (one virtual day of 20 s) with 2 shared 96-token prefixes, prompts of
+# 9-16 tokens after them, 4-12 new; its three classes; both arms.
+SLO_MODEL = dict(vocab_size=4096, d_model=256, n_layers=4, n_heads=4,
+                 d_head=64, d_ff=1024)
+SLO_SLOTS, SLO_MAX_LEN, SLO_PAGE, SLO_PREFIX = 4, 128, 16, 96
+SLO_PAGES = SLO_SLOTS * (SLO_MAX_LEN // SLO_PAGE) + \
+    2 * (SLO_PREFIX // SLO_PAGE) + 4
+SLO_REQUESTS, SLO_RATE_HZ, SLO_DAY_S = 24, 16.0, 20.0
+SLO_CLASSES = {"interactive": {"ttft_ms": 5000.0, "tpot_ms": 500.0},
+               "standard": {"ttft_ms": 20000.0, "tpot_ms": 2000.0},
+               "batch": {"ttft_ms": None, "tpot_ms": None}}
+
+
+def slo_load(device) -> dict:
+    """Phase (o): the same diurnal shared-prefix load through two
+    engines that differ only in the prefix cache. Every request must
+    finish, both arms must stream the same tokens (the sha256 over every
+    request's tokens), the cache arm must hit, traffic must capture
+    nothing and prefill nothing eagerly, and K6's wrapper must count the
+    warm-up's launches alone."""
+    started = time.perf_counter()
+    config = tfm.TransformerConfig(**SLO_MODEL, max_seq_len=SLO_MAX_LEN,
+                                   dtype=torch.float32)
+    params = bench_params(config, device, 0)
+    arms = {}
+    for arm, prefix_cache in (("prefix_cache_on", True),
+                              ("prefix_cache_off", False)):
+        reset_launch_counts()
+        engine = ContinuousBatcher(config, params, num_slots=SLO_SLOTS,
+                                   max_decode_len=SLO_MAX_LEN,
+                                   kv_page_size=SLO_PAGE,
+                                   kv_num_pages=SLO_PAGES,
+                                   prefix_cache=prefix_cache,
+                                   device=device)
+        warmed, live = warm(f"slo {arm}", engine)
+        front = ServingFrontEnd(engine, port=0,
+                                slo_classes=SLO_CLASSES).start()
+        try:
+            front.generate({"prompt": [1, 2, 3], "max_new_tokens": 2})
+            report = run_load(
+                front.url, SLO_REQUESTS, rate_hz=SLO_RATE_HZ,
+                prompt_len=(9, 16), max_new_tokens=(4, 12),
+                vocab_size=SLO_MODEL["vocab_size"], seed=0,
+                arrival="diurnal", day_seconds=SLO_DAY_S,
+                shared_prefix_groups=2, shared_prefix_len=SLO_PREFIX,
+                slo_classes=SLO_CLASSES)
+        finally:
+            front.shutdown()
+        torch.cuda.synchronize()
+        require_replayed(f"slo {arm}", live)
+        launches = launch_counts()["paged_decode"]
+        expected = SLO_MODEL["n_layers"] * (warmed["eager_decode_steps"] +
+                                            warmed["decode_captures"])
+        require(report["completed"] == SLO_REQUESTS and
+                report["failed"] == 0,
+                f"slo {arm}: {report['failed']} failed: "
+                f"{report.get('errors')}")
+        require(launches == expected,
+                f"slo {arm}: K6 wrapper launches {launches}, not {expected}")
+        arms[arm] = {
+            "completed": report["completed"], "shed": report["shed"],
+            "outputs_sha256": report["outputs_sha256"],
+            "ttft_mean_ms": report["ttft_mean_ms"],
+            "ttft_exact_ms": report["ttft_exact_ms"],
+            "tpot_mean_ms": report["tpot_mean_ms"],
+            "attainment": {
+                name: {k: c[k] for k in ("requests", "ttft_attainment",
+                                         "tpot_attainment")}
+                for name, c in report["slo_attainment"].items()},
+            "prefix_cache": engine.prefix_stats(),
+            "paged_decode_launches": launches,
+            "warmup_buckets": warmed["buckets"]}
+        del engine
+    on, off = arms["prefix_cache_on"], arms["prefix_cache_off"]
+    require(on["outputs_sha256"] == off["outputs_sha256"],
+            "slo: the prefix-cache arms streamed different tokens")
+    require(on["prefix_cache"]["hit_tokens"] > 0,
+            f"slo: no prefix hit {on['prefix_cache']}")
+    row = {**arms, "outputs_identical": True,
+           "ttft_mean_delta_ms": on["ttft_mean_ms"] - off["ttft_mean_ms"],
+           "ttft_p99_delta_ms": (on["ttft_exact_ms"]["p99"] -
+                                 off["ttft_exact_ms"]["p99"]),
+           "seconds": time.perf_counter() - started}
+    print("slo_load " + json.dumps(row), flush=True)
+    torch.cuda.empty_cache()
+    return row
+
+
+def serving_tier(device) -> dict:
+    """Phases (p), (f), (r) and (o), with their seconds."""
+    rows = {}
+    for name, phase in (("prefill_graphs", prefill_graphs),
+                        ("fleet", fleet), ("failover", failover),
+                        ("slo_load", slo_load)):
+        started = time.perf_counter()
+        rows[name] = phase(device)
+        rows[f"{name}_seconds"] = time.perf_counter() - started
+    print("serving_tier seconds " + json.dumps(
+        {k: v for k, v in rows.items() if k.endswith("_seconds")}),
+        flush=True)
     return rows
 
 
@@ -5053,6 +5813,7 @@ def main() -> int:
         served[kernel] = serve(name, kernel, device)
         served[kernel]["graph_check"] = graphs[name]
     speculative = serve_speculative(device)
+    tier = serving_tier(device)
 
     kernels = []
     for key, meta in KERNELS.items():
@@ -5114,6 +5875,13 @@ def main() -> int:
             if key in ("paged_decode", "paged_decode_int8"):
                 row["planted_fault_err_over_tol"] = \
                     decode_faults["fault_err_over_tol"]
+            if key == "paged_decode":
+                # The serving tier's fp32 engines: both failover
+                # replicas' warm-up, and one SLO arm's.
+                row["launches_failover_r1"] = tier["failover"][
+                    "r1_preempt"]["paged_decode_launches"]
+                row["launches_slo_arm"] = tier["slo_load"][
+                    "prefix_cache_on"]["paged_decode_launches"]
             if key == "dense_decode_int8":
                 # The speculative (s3) run: the int8 draft's steps at D 16.
                 s3 = speculative["s3"]

@@ -27,6 +27,11 @@ HOOK_MODULES = (
     "batch_shipyard_tpu_torch.trace.profiling",
     "batch_shipyard_tpu_torch.parallel.restore_plan",
     "batch_shipyard_tpu_torch.workloads.checkpoint",
+    # The serving tier's: the fleet router, the SLO settings, the
+    # diurnal curve.
+    "batch_shipyard_tpu_torch.models.router",
+    "batch_shipyard_tpu_torch.config.slo",
+    "batch_shipyard_tpu_torch.sim.traces",
 )
 
 

@@ -85,3 +85,70 @@ def test_int8_matmul_sweep_shapes_are_a_layers_projections():
     assert shapes["down"] == ((2816, 1024), 1)
     assert int8_matmul_sweep.bound_ms(1024, 1024) == pytest.approx(
         0.050434598, rel=1e-6)
+
+
+class _Range:
+    def __init__(self, start):
+        self.start, self.end = start, start + 1.0
+
+
+class _Event:
+    def __init__(self, name, start):
+        self.name, self.time_range = name, _Range(start)
+
+
+@pytest.mark.parametrize("short_windows", [0, 1, 2, 3])
+def test_train_profile_retakes_a_window_short_of_ring_kernels(
+        monkeypatch, short_windows):
+    """profile_steps retakes a window whose ring kernels fall short of
+    the wrappers' launches (the profiler dropped some), up to
+    PROFILE_ATTEMPTS windows; past them ring_us_by_axis refuses it."""
+    import contextlib
+
+    import torch
+
+    from batch_shipyard_tpu_torch.ops import ring_collectives
+    from batch_shipyard_tpu_torch.trace import train_profile
+    symbol = train_profile.KERNEL_SYMBOLS["ring_permute"][0]
+    windows = []
+
+    class Group:
+        axis = "sp"
+
+        def wait_ns(self):
+            return 0
+
+    class Mesh:
+        def distinct_groups(self):
+            return [Group()]
+
+        def check(self):
+            pass
+
+    class Harness:
+        mesh = Mesh()
+
+        def step(self, batch):
+            if ring_collectives.copy_log is not None:
+                ring_collectives.copy_log += [("ring_permute", "sp")] * 2
+
+    def kernels(events):
+        windows.append(None)
+        n = 3 if len(windows) <= short_windows else 4
+        return [_Event(f"{symbol}<float>", float(i)) for i in range(n)]
+    monkeypatch.setattr(train_profile, "profile",
+                        lambda **kw: contextlib.nullcontext(
+                            type("P", (), {"events": lambda self: []})()))
+    monkeypatch.setattr(train_profile, "record_function",
+                        lambda name: contextlib.nullcontext())
+    monkeypatch.setattr(train_profile, "window_kernels", kernels)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    if short_windows >= train_profile.PROFILE_ATTEMPTS:
+        with pytest.raises(RuntimeError, match="profiler saw 3 ring"):
+            train_profile.profile_steps(Harness(), {}, 2)
+    else:
+        out = train_profile.profile_steps(Harness(), {}, 2)
+        assert out["ring_kernel_calls_per_step"]["ring_permute"] == 2
+        assert out["ring_ms_per_step_by_axis"] == {"sp": 4 / 1e3 / 2}
+    assert len(windows) == min(short_windows + 1,
+                               train_profile.PROFILE_ATTEMPTS)
