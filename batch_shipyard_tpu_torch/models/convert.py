@@ -12,6 +12,16 @@ under the same names and transposes, so a run can continue the
 reference's training mid-run, optimizer included. ``unfused_params``
 re-lays a fused_norm state dict out as the per-projection one the
 decode model takes (the same weights).
+
+The vision models (models/resnet.py, vit.py, diffusion.py) keep flax's
+paths too, so ``params_from_flax`` loads them: a Conv ``kernel [kh, kw,
+in, out]`` becomes ``weight [out, in, kh, kw]``, a Dense ``kernel [in,
+out]`` ``weight [out, in]``, an Embed ``embedding`` stays as it is.
+Trees shaped like the params convert the same way: ResNet's
+``batch_stats`` into its running ``mean`` / ``var`` buffers, and
+optax.sgd's momentum ``trace`` into torch SGD's ``momentum_buffer`` (the
+same recursion with dampening 0, the first step included: torch's first
+buffer is the gradient, optax's 0.9 * 0 + g).
 """
 
 from __future__ import annotations
@@ -28,9 +38,10 @@ from batch_shipyard_tpu_torch.models.transformer import (
 def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     """flax params (``model.init(...)["params"]`` mapped to numpy) ->
     the port's state dict. Dense (and QuantDense) ``kernel [in, out]``
-    becomes ``weight [out, in]``; ``embed/embedding`` (shared with the
-    tied logits) and RMSNorm ``scale`` carry across under the same
-    path."""
+    becomes ``weight [out, in]``, Conv ``kernel [kh, kw, in, out]``
+    ``weight [out, in, kh, kw]``; ``embed/embedding`` (shared with the
+    tied logits), norm ``scale`` / ``bias`` and Dense ``bias`` carry
+    across under the same path."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, path: tuple) -> None:
@@ -40,8 +51,9 @@ def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
                 continue
             array = np.asarray(value)
             if key == "kernel":
+                order = (3, 2, 0, 1) if array.ndim == 4 else None
                 out[".".join(path + ("weight",))] = torch.from_numpy(
-                    np.ascontiguousarray(array.T))
+                    np.ascontiguousarray(np.transpose(array, order)))
             else:
                 out[".".join(path + (key,))] = torch.from_numpy(
                     array.copy())

@@ -1,9 +1,11 @@
 """Model-FLOPs utilization for the port's training path.
 
-The port's own copy of batch_shipyard_tpu/parallel/mfu.py's transformer
-accounting (the port imports nothing of the JAX package):
+The port's own copy of batch_shipyard_tpu/parallel/mfu.py's ResNet-50
+and transformer accounting (the port imports nothing of the JAX package):
 
 - one multiply-accumulate = 2 FLOPs; a training step = 3x forward;
+- ResNet-50: torchvision's 4.09 GMACs a forward image at 224x224,
+  scaled with the image's area;
 - PaLM-appendix FLOPs per trained token: 6*N for the parameter matmuls
   (N includes the tied embedding, whose output projection is a
   per-token matmul) plus the attention term 12*L*T*d_model, halved for
@@ -35,6 +37,18 @@ def peak_bf16_tflops(device_name: Optional[str] = None) -> Optional[float]:
             return None
         device_name = torch.cuda.get_device_name(0)
     return PEAK_BF16_TFLOPS.get(device_name)
+
+
+# torchvision-standard ResNet-50 forward cost at 224x224: 4.09 GMACs.
+_RESNET50_FWD_MACS_224 = 4.09e9
+
+
+def resnet50_train_flops_per_image(image_size: int = 224) -> float:
+    """Analytic ResNet-50 training FLOPs per image. Conv cost scales with
+    spatial area, so other sizes scale quadratically (exact for all but
+    the fixed-cost final FC, < 0.1%)."""
+    fwd = 2.0 * _RESNET50_FWD_MACS_224 * (image_size / 224.0) ** 2
+    return 3.0 * fwd
 
 
 def transformer_param_count(config: Any) -> int:

@@ -159,6 +159,9 @@ def gather_state_dict(shards: Sequence[Mapping[str, torch.Tensor]]
 # The training state a checkpoint holds per parameter: the fp32 value and
 # AdamW's two moments (torch.optim.AdamW's state names).
 STATE_KINDS = ("param", "exp_avg", "exp_avg_sq")
+# SGD with momentum (the ResNet harness, parallel/train.py): the parameter
+# and its momentum buffer, optax's ``trace``.
+SGD_STATE_KINDS = ("param", "momentum_buffer")
 
 
 @dataclasses.dataclass(frozen=True, order=True)
@@ -298,16 +301,17 @@ def _local_shapes(shapes: Mapping[str, Sequence[int]], sizes: Mapping,
 
 
 def held_pieces(shapes: Mapping[str, Sequence[int]], sizes: Mapping,
-                coords: Mapping) -> list[Piece]:
+                coords: Mapping,
+                kinds: Sequence[str] = STATE_KINDS) -> list[Piece]:
     """The pieces of the global state a rank at ``coords`` of a mesh of
     ``sizes`` holds, for global ``shapes`` in parameter order: for each
-    kind, unit by unit (``fsdp_units`` of its tp shards), the range of
+    of ``kinds``, unit by unit (``fsdp_units`` of its tp shards), the range of
     each tensor that its fsdp span of the unit covers."""
     local = _local_shapes(shapes, sizes, coords)
     units = fsdp_units({name: shape for name, (_, _, shape) in local.items()},
                        sizes["fsdp"])
     pieces = []
-    for kind in STATE_KINDS:
+    for kind in kinds:
         for unit in units:
             lo, hi = unit.span(coords["fsdp"])
             for name, shape, offset in unit.params:
@@ -320,17 +324,18 @@ def held_pieces(shapes: Mapping[str, Sequence[int]], sizes: Mapping,
     return pieces
 
 
-def written_pieces(shapes: Mapping[str, Sequence[int]], sizes: Mapping
+def written_pieces(shapes: Mapping[str, Sequence[int]], sizes: Mapping,
+                   kinds: Sequence[str] = STATE_KINDS
                    ) -> list[tuple[int, Piece]]:
-    """(writer rank, piece) for every piece a checkpoint of a mesh of
-    ``sizes`` holds, each once, writers in rank order."""
+    """(writer rank, piece) for every piece of ``kinds`` a checkpoint of a
+    mesh of ``sizes`` holds, each once, writers in rank order."""
     from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
     out = []
     for rank in range(math.prod(sizes.values())):
         coords = mesh_mod.RankMesh(sizes, rank).coords
         if coords["dp"] or coords["ep"] or coords["sp"]:
             continue
-        for piece in held_pieces(shapes, sizes, coords):
+        for piece in held_pieces(shapes, sizes, coords, kinds):
             if piece.tp_count == 1 and coords["tp"]:
                 continue
             out.append((rank, piece))
@@ -382,9 +387,7 @@ def restore_plan_for(mesh, layout: Mapping,
     needs, read, total = [], {}, {}
     for rec in records:
         total[rec["kind"]] = total.get(rec["kind"], 0) + rec["hi"] - rec["lo"]
-    for piece in held_pieces(shapes, mesh.sizes, mesh.coords):
-        if piece.kind not in kinds:
-            continue
+    for piece in held_pieces(shapes, mesh.sizes, mesh.coords, kinds):
         saved = by_tensor.get((piece.key, piece.kind), [])
         if saved and records[saved[0]]["tp_count"] == piece.tp_count:
             mine = [i for i in saved

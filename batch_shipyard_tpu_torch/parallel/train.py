@@ -1,5 +1,7 @@
 """Transformer training: model + AdamW -> a train step, on one card or
-over a mesh of ranks.
+over a mesh of ranks; and the vision families' steps (``VisionHarness``,
+``build_resnet_train``, ``build_vit_train``, ``build_diffusion_train``,
+at the end: data parallel over every rank, the reference's optimizers).
 
 Counterpart of batch_shipyard_tpu/parallel/train.py's
 ``build_transformer_train``. The reference jit-compiles a global-view
@@ -114,7 +116,94 @@ def row_length(owned: int, data: int = 1) -> int:
     return -(-(owned + 1) // lanes) * lanes
 
 
-class TrainHarness:
+class HeldState:
+    """The checkpoint interface (workloads/checkpoint.py) of a harness
+    with ``model``, ``optimizer``, ``mesh`` (None on one device) and
+    ``state_kinds`` (sharding.STATE_KINDS for AdamW, SGD_STATE_KINDS):
+    ``layout``, ``state_tensors``, ``held_pieces``, ``state_pieces`` and
+    ``load_state_pieces`` over the pieces ``_piece_view`` names, by
+    default whole parameters and their optimizer state."""
+
+    @property
+    def layout(self) -> tuple[dict, dict]:
+        """(sizes, coords) of this rank's place on the mesh; one device
+        is the mesh of one rank."""
+        if self.mesh is None:
+            sizes = mesh_mod.auto_axis_sizes(1)
+            return sizes, mesh_mod.RankMesh(sizes, 0).coords
+        return self.mesh.sizes, self.mesh.coords
+
+    def state_tensors(self) -> dict[str, tuple[tuple, torch.dtype]]:
+        """Every parameter's global shape and dtype, in parameter
+        order."""
+        tp = self.layout[0]["tp"]
+        return {name: (sharding.global_shape(name, p.shape, tp), p.dtype)
+                for name, p in self.model.named_parameters()}
+
+    @functools.cached_property
+    def _named(self) -> dict:
+        return dict(self.model.named_parameters())
+
+    def _piece_view(self, piece) -> torch.Tensor:
+        """The live tensor elements a held piece names (a view)."""
+        param = self._named[piece.key]
+        flat = (param.detach() if piece.kind == "param"
+                else self.optimizer.state[param][piece.kind])
+        return flat.view(-1)[piece.lo:piece.hi]
+
+    def held_pieces(self) -> list:
+        """The parallel/sharding.py pieces of the global state this rank
+        holds."""
+        sizes, coords = self.layout
+        shapes = {name: shape
+                  for name, (shape, _) in self.state_tensors().items()}
+        return sharding.held_pieces(shapes, sizes, coords, self.state_kinds)
+
+    def state_pieces(self) -> dict:
+        """{"step": the optimizer's step count, "pieces": {Piece: a view
+        of the live tensor}} for every piece this rank holds; the
+        optimizer's state is zeros before the first update."""
+        self._ensure_state()
+        return {"step": self.optimizer_step,
+                "pieces": {piece: self._piece_view(piece)
+                           for piece in self.held_pieces()}}
+
+    def _ensure_state(self) -> None:
+        """The optimizer's state as torch creates it at the first update:
+        zero moments (AdamW, with a 0-d step count on the host) or a zero
+        momentum buffer (SGD, whose first update from it is torch's first
+        one: the gradient)."""
+        group = self.optimizer.param_groups[0]
+        for p in group["params"]:
+            state = self.optimizer.state[p]
+            if state:
+                continue
+            if "exp_avg" in self.state_kinds:
+                state["step"] = torch.tensor(0.0)
+            for kind in self.state_kinds[1:]:
+                state[kind] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+
+    @torch.no_grad()
+    def load_state_pieces(self, pieces: Mapping, step: int) -> None:
+        """Copy every held piece (``pieces``: Piece -> tensor, anywhere)
+        into the live parameters and optimizer state, and set AdamW's
+        step count. Raises unless ``pieces`` holds exactly this rank's
+        pieces."""
+        held = self.held_pieces()
+        if set(pieces) != set(held):
+            missing = sorted(set(held) - set(pieces))[:3]
+            raise ValueError(f"state pieces do not match this rank's: "
+                             f"missing {missing}")
+        self._ensure_state()
+        for piece in held:
+            self._piece_view(piece).copy_(pieces[piece])
+        for state in self.optimizer.state.values():
+            if "step" in state:
+                state["step"].fill_(float(step))
+
+
+class TrainHarness(HeldState):
     """A model and its AdamW state on one device, or this rank's share
     of them over a ``mesh``. ``step(batch)`` runs one forward, backward
     and optimizer update on the global batch and returns ``{"loss": 0-d
@@ -123,6 +212,8 @@ class TrainHarness:
     launch, or at ``mesh.check()`` after a synchronise. Over a mesh the
     model's parameters (its tp shard) go into this rank's fsdp chunks
     and onto ``meta`` (the module doc)."""
+
+    state_kinds = sharding.STATE_KINDS
 
     def __init__(self, model: tfm.TransformerLM, batch_size: int,
                  seq_len: int, learning_rate: float = 3e-4,
@@ -324,22 +415,6 @@ class TrainHarness:
     # ---------------------------- checkpoints ----------------------------
 
     @property
-    def layout(self) -> tuple[dict, dict]:
-        """(sizes, coords) of this rank's place on the mesh; one device
-        is the mesh of one rank."""
-        if self.mesh is None:
-            sizes = mesh_mod.auto_axis_sizes(1)
-            return sizes, mesh_mod.RankMesh(sizes, 0).coords
-        return self.mesh.sizes, self.mesh.coords
-
-    def state_tensors(self) -> dict[str, tuple[tuple, torch.dtype]]:
-        """Every parameter's global shape and dtype, in parameter
-        order."""
-        tp = self.layout[0]["tp"]
-        return {name: (sharding.global_shape(name, p.shape, tp), p.dtype)
-                for name, p in self.model.named_parameters()}
-
-    @property
     def optimizer_step(self) -> int:
         """AdamW's step count (0 before the first update)."""
         for state in self.optimizer.state.values():
@@ -347,68 +422,13 @@ class TrainHarness:
         return 0
 
     def _piece_view(self, piece) -> torch.Tensor:
-        """The live tensor elements a held piece names (a view)."""
         if self.units is None:
-            param = self._named[piece.key]
-            if piece.kind == "param":
-                return param.detach().view(-1)[piece.lo:piece.hi]
-            state = self.optimizer.state[param]
-            return state[piece.kind].view(-1)[piece.lo:piece.hi]
+            return super()._piece_view(piece)
         owned, = self.optimizer.param_groups[0]["params"]
         flat = owned if piece.kind == "param" else \
             self.optimizer.state[owned][piece.kind]
         at = self._owned_at[piece.key]
         return flat[at + piece.lo:at + piece.hi]
-
-    @functools.cached_property
-    def _named(self) -> dict:
-        return dict(self.model.named_parameters())
-    def held_pieces(self) -> list:
-        """The parallel/sharding.py pieces of the global state this rank
-        holds."""
-        sizes, coords = self.layout
-        shapes = {name: shape
-                  for name, (shape, _) in self.state_tensors().items()}
-        return sharding.held_pieces(shapes, sizes, coords)
-
-    def state_pieces(self) -> dict:
-        """{"step": AdamW's step count, "pieces": {Piece: a view of the
-        live tensor}} for every piece this rank holds; the moments are
-        zeros before the first update."""
-        self._ensure_state()
-        return {"step": self.optimizer_step,
-                "pieces": {piece: self._piece_view(piece)
-                           for piece in self.held_pieces()}}
-
-    def _ensure_state(self) -> None:
-        """AdamW's state as torch creates it at the first update: zero
-        moments and a 0-d step count on the host."""
-        group = self.optimizer.param_groups[0]
-        for p in group["params"]:
-            state = self.optimizer.state[p]
-            if not state:
-                state["step"] = torch.tensor(0.0)
-                state["exp_avg"] = torch.zeros_like(
-                    p, memory_format=torch.preserve_format)
-                state["exp_avg_sq"] = torch.zeros_like(
-                    p, memory_format=torch.preserve_format)
-
-    @torch.no_grad()
-    def load_state_pieces(self, pieces: Mapping, step: int) -> None:
-        """Copy every held piece (``pieces``: Piece -> tensor, anywhere)
-        into the live parameters and AdamW state, and set AdamW's step
-        count. Raises unless ``pieces`` holds exactly this rank's
-        pieces."""
-        held = self.held_pieces()
-        if set(pieces) != set(held):
-            missing = sorted(set(held) - set(pieces))[:3]
-            raise ValueError(f"state pieces do not match this rank's: "
-                             f"missing {missing}")
-        self._ensure_state()
-        for piece in held:
-            self._piece_view(piece).copy_(pieces[piece])
-        for state in self.optimizer.state.values():
-            state["step"].fill_(float(step))
 
 
 def sequence_parallel_group(sp: int, device, world: Optional[int] = None
@@ -485,3 +505,220 @@ def build_transformer_train(config: tfm.TransformerConfig,
     return TrainHarness(model.train(), batch_size, seq_len, learning_rate,
                         loss_impl, mesh)
 
+
+# ------------------------------ vision ------------------------------
+
+
+class VisionHarness(HeldState):
+    """A vision model and its optimizer on one device, or one replica over
+    the data ring of a dp ``mesh`` (every rank holds the whole model and
+    optimizer state; build_resnet_train / build_vit_train /
+    build_diffusion_train). ``step(batch)`` takes this rank's rows of the
+    global batch (``local_batch`` of ``batch_size``), runs the forward
+    and backward of its share of the global mean loss, all-reduces the
+    gradients and the loss over the data ring (one ring_all_reduce of one
+    fp32 row: K14 then K13 on the card) and runs the optimizer; it
+    returns ``{"loss": 0-d tensor}``, the global mean, without waiting
+    for the device. A dp run on N ranks equals a one-rank run on the same
+    global batch (each sum over ranks is one ring all-reduce, which every
+    member gets bit for bit, so the replicas stay equal). ``loss_fn(self,
+    batch)`` gives this rank's share. The checkpoint interface is
+    HeldState's, over the optimizer's state kinds (``state_kinds``)."""
+
+    def __init__(self, model: torch.nn.Module, optimizer, loss_fn,
+                 batch_size: int, state_kinds,
+                 mesh: Optional[mesh_mod.RankMesh] = None) -> None:
+        self.model = model
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
+        self.batch_size = batch_size
+        self.state_kinds = state_kinds
+        self.device = next(model.parameters()).device
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.group = None if self.mesh is None else self.mesh.groups["data"]
+        world = 1 if self.mesh is None else self.mesh.world
+        if batch_size % world:
+            raise ValueError(f"batch {batch_size} is not divisible by dp = "
+                             f"{world}")
+        self.local_batch = batch_size // world
+        # The data index's rows of the global batch.
+        self.row0 = (0 if self.mesh is None else
+                     self.mesh.data_index * self.local_batch)
+        self.steps = 0
+        self.grad_all_reduces = 0
+
+    def step(self, batch: Mapping) -> dict:
+        rows = len(next(iter(batch.values())))
+        if rows != self.local_batch:
+            raise ValueError(f"a batch of {rows} rows; this rank trains "
+                             f"{self.local_batch} of {self.batch_size}")
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss_fn(self, batch)
+        loss.backward()
+        loss = loss.detach()
+        if self.group is not None:
+            loss = self._sum_grads(loss)
+        self.optimizer.step()
+        self.steps += 1
+        progress.beat()
+        return {"loss": loss}
+
+    def _sum_grads(self, loss: torch.Tensor) -> torch.Tensor:
+        """Every parameter's gradient and the loss share, summed over the
+        data ring in one row; the gradients become views of the sum."""
+        params = list(self.model.parameters())
+        row = torch.cat([(p.grad if p.grad is not None
+                          else torch.zeros_like(p)).reshape(-1)
+                         for p in params] + [loss.float().reshape(1)])
+        row = ring_collectives.ring_all_reduce(row, self.group)
+        self.grad_all_reduces += 1
+        parts = row.split([p.numel() for p in params] + [1])
+        for p, g in zip(params, parts):
+            p.grad = g.view(p.shape)
+        return parts[-1].reshape(()).clone()
+
+    @torch.no_grad()
+    def state_dict(self) -> dict:
+        """Parameters and buffers (ResNet's running statistics), copies."""
+        return {name: t.clone() for name, t in self.model.state_dict().items()}
+
+    # ---------------------------- checkpoints ----------------------------
+
+    @property
+    def optimizer_step(self) -> int:
+        """The optimizer's step count (SGD keeps none of its own)."""
+        return self.steps
+
+    def load_state_pieces(self, pieces: Mapping, step: int) -> None:
+        super().load_state_pieces(pieces, step)
+        self.steps = int(step)
+
+
+def _vision_model(model: torch.nn.Module, init, seed: int, device,
+                  params: Optional[Mapping]) -> torch.nn.Module:
+    """``model`` (built on ``device``) with ``params`` (a state dict,
+    e.g. models.convert.params_from_flax, buffers optional) or weights
+    drawn by ``init`` from a generator seeded with ``seed`` (the same on
+    every rank)."""
+    if params is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(seed)
+        init(model, generator)
+        return model
+    missing, unexpected = model.load_state_dict(
+        {name: torch.as_tensor(t) for name, t in params.items()},
+        strict=False)
+    buffers = {name for name, _ in model.named_buffers()}
+    if unexpected or set(missing) - buffers:
+        raise ValueError(f"params do not fit the model: missing "
+                         f"{sorted(set(missing) - buffers)[:4]}, unexpected "
+                         f"{sorted(unexpected)[:4]}")
+    return model
+
+
+def local_rows(harness: VisionHarness, tensor: torch.Tensor
+                ) -> torch.Tensor:
+    """This rank's rows of a tensor drawn for the global batch."""
+    return tensor[harness.row0:harness.row0 + harness.local_batch]
+
+
+def build_resnet_train(config=None, batch_size: int = 256,
+                       learning_rate: float = 0.1, seed: int = 0,
+                       device=None, params: Optional[Mapping] = None,
+                       mesh: Optional[mesh_mod.RankMesh] = None
+                       ) -> VisionHarness:
+    """Data-parallel ResNet-50 training (the baseline workload):
+    ``optax.sgd(0.1, momentum=0.9, nesterov=True)`` as torch's
+    ``SGD(nesterov=True)`` (dampening 0: the same first and later steps),
+    the running statistics as model buffers updated by every training
+    forward (the reference carries its ``batch_stats`` beside the step;
+    here they are harness state, outside the checkpoint, as in the
+    reference). Over a dp ``mesh`` the batch norms sync their statistics
+    over the data ring (models/resnet.py). Batch: {"images": [B, H, W, 3],
+    "labels": [B]} of this rank's rows."""
+    from batch_shipyard_tpu_torch.models import resnet as resnet_mod
+    config = config or resnet_mod.ResNetConfig()
+    device = resolve_device(device)
+    model = _vision_model(resnet_mod.ResNet(config, device=device),
+                          resnet_mod.init_params, seed, device, params)
+    mesh = mesh if mesh is not None and mesh.world > 1 else None
+    model.set_sync_group(None if mesh is None else mesh.groups["data"])
+    optimizer = torch.optim.SGD(model.parameters(), lr=learning_rate,
+                                momentum=0.9, nesterov=True)
+
+    def loss_fn(harness, batch):
+        logits = harness.model(batch["images"], train=True)
+        return resnet_mod.cross_entropy_loss(logits, batch["labels"],
+                                             harness.batch_size)
+    return VisionHarness(model.train(), optimizer, loss_fn, batch_size,
+                         sharding.SGD_STATE_KINDS, mesh)
+
+
+def build_vit_train(config=None, batch_size: int = 256,
+                    learning_rate: float = 1e-3, seed: int = 0,
+                    device=None, params: Optional[Mapping] = None,
+                    mesh: Optional[mesh_mod.RankMesh] = None
+                    ) -> VisionHarness:
+    """ViT image-classification training, data parallel:
+    ``optax.adamw(1e-3, weight_decay=0.05)`` on every parameter, fp32
+    parameters, bf16 compute. Batch as build_resnet_train's."""
+    from batch_shipyard_tpu_torch.models import vit as vit_mod
+    config = config or vit_mod.ViTConfig()
+    device = resolve_device(device)
+    model = _vision_model(vit_mod.ViT(config, device=device),
+                          vit_mod.init_params, seed, device, params)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=learning_rate,
+                                  betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=0.05)
+
+    def loss_fn(harness, batch):
+        return vit_mod.cross_entropy_loss(harness.model(batch["images"]),
+                                          batch["labels"],
+                                          harness.batch_size)
+    return VisionHarness(model.train(), optimizer, loss_fn, batch_size,
+                         sharding.STATE_KINDS, mesh)
+
+
+def diffusion_step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of step ``step``'s timesteps and noise: seeded from
+    ``seed + 1`` and the step counter (the reference folds its counter
+    into PRNGKey(seed + 1))."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(((seed + 1) << 32) + step)
+    return generator
+
+
+def build_diffusion_train(config=None, batch_size: int = 256,
+                          learning_rate: float = 1e-4, seed: int = 0,
+                          device=None, params: Optional[Mapping] = None,
+                          mesh: Optional[mesh_mod.RankMesh] = None
+                          ) -> VisionHarness:
+    """DiT denoising-diffusion training, data parallel:
+    ``optax.adamw(1e-4, weight_decay=0.0)``. Each step draws the global
+    batch's timesteps and noise from diffusion_step_generator(seed,
+    counter) and trains this rank's rows of them; the counter starts at
+    0 in each process, as the reference's does (a resumed run draws its
+    first step's noise anew). Batch: {"images": [B, H, W, C] in [-1, 1],
+    optional "labels": [B]} of this rank's rows."""
+    from batch_shipyard_tpu_torch.models import diffusion as dif_mod
+    config = config or dif_mod.DiTConfig()
+    device = resolve_device(device)
+    model = _vision_model(dif_mod.DiT(config, device=device),
+                          dif_mod.init_params, seed, device, params)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=learning_rate,
+                                  betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=0.0)
+    counter = {"step": 0}
+
+    def loss_fn(harness, batch):
+        images = batch["images"]
+        generator = diffusion_step_generator(seed, counter["step"], device)
+        counter["step"] += 1
+        t, noise = dif_mod.draw_loss_noise(
+            config, (harness.batch_size, *images.shape[1:]), generator)
+        return dif_mod.diffusion_loss(
+            harness.model, images, labels=batch.get("labels"),
+            t=local_rows(harness, t), noise=local_rows(harness, noise),
+            denominator=harness.batch_size)
+    return VisionHarness(model.train(), optimizer, loss_fn, batch_size,
+                         sharding.STATE_KINDS, mesh)

@@ -160,7 +160,8 @@ def state_layout(harness, step: int) -> dict:
     tensors = harness.state_tensors()
     shapes = {name: shape for name, (shape, _) in tensors.items()}
     records, ends = [], {}
-    for rank, piece in sharding.written_pieces(shapes, sizes):
+    for rank, piece in sharding.written_pieces(shapes, sizes,
+                                               harness.state_kinds):
         dtype = _dtype_name(tensors[piece.key][1])
         offset = ends.get((rank, dtype), 0)
         ends[rank, dtype] = offset + piece.size
@@ -444,7 +445,7 @@ def restore(checkpoint_dir: str, harness) -> Optional[dict]:
                               resharded=resharded):
         pieces, plan = _read_pieces(
             path, layout, types.SimpleNamespace(sizes=sizes, coords=coords),
-            sharding.STATE_KINDS)
+            harness.state_kinds)
         harness.load_state_pieces(pieces, layout["optimizer_step"])
         if harness.device.type == "cuda":
             torch.cuda.synchronize(harness.device)

@@ -25,7 +25,8 @@ of workloads/checkpoint.py) plus ``--device {cuda,cpu}``, ``--seed``,
         -m batch_shipyard_tpu_torch.workloads.train_transformer \
         --batch 16 --seq-len 4096 --fsdp 2 --steps 20
 
-Checkpoints and the pool's hooks, as in the reference's loop: the run
+Checkpoints and the pool's hooks, as in the reference's loop (the port's is
+workloads/train_loop.py, which the vision payloads share): the run
 restores the latest COMMITTED step of ``--checkpoint-dir`` before the
 warm-up (``resumed from step N``; on another mesh the state is
 resharded), saves every ``--checkpoint-every`` steps (blocking, or
@@ -84,21 +85,17 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
-import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
-from batch_shipyard_tpu_torch.agent import preemption
-from batch_shipyard_tpu_torch.goodput import events as goodput_events
 from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
 from batch_shipyard_tpu_torch.parallel import mfu
 from batch_shipyard_tpu_torch.parallel import sharding
 from batch_shipyard_tpu_torch.parallel import train as train_mod
-from batch_shipyard_tpu_torch.trace.profiling import StepProfiler
 from batch_shipyard_tpu_torch.workloads import checkpoint
 from batch_shipyard_tpu_torch.workloads import distributed
+from batch_shipyard_tpu_torch.workloads import train_loop
 
 # bench.py ``bench_transformer``'s model and batch (the repo's training
 # benchmark): bf16 compute over fp32 parameters, no layer remat.
@@ -245,7 +242,6 @@ def main(argv=None) -> int:
     check_mesh_sizes(args, ctx["process_count"])
     mesh = mesh_mod.RankMesh.build(device, tp=args.tp, sp=args.sp,
                                    fsdp=args.fsdp)
-    multi = mesh.world > 1
     config = train_mod.make_transformer_config(
         mesh=mesh, vocab_size=args.vocab, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads,
@@ -259,88 +255,30 @@ def main(argv=None) -> int:
     batch = random_batch(args.vocab, args.batch, args.seq_len, args.seed,
                          device)
     on_card = device.type == "cuda"
-    ckpt = checkpoint.TrainCheckpointer.from_args(args)
-    start_step = ckpt.restore(harness)
-    if start_step:
-        distributed.log(ctx, f"resumed from step {start_step}")
-    if on_card:
-        torch.cuda.reset_peak_memory_stats(device)
-    if multi:
-        dist.barrier()
-    with goodput_events.phase(goodput_events.PROGRAM_COMPILE,
-                              what="warmup", steps=args.warmup):
-        losses = [harness.step(batch)["loss"] for _ in range(args.warmup)]
-        if losses:
-            float(losses[-1])  # hard sync
-    mesh.check()
-    counts = launch_counts()
-    start = time.perf_counter()
-    # Step windows are flushed at every save and at exit, so a preempted
-    # attempt's finished steps survive; a save's time lies outside them.
-    window = {"step": start_step, "time": time.time()}
-
-    def flush_window(end_step: int) -> None:
-        if end_step > window["step"]:
-            goodput_events.record(
-                goodput_events.PROGRAM_STEP_WINDOW, window["time"],
-                time.time(), step_start=window["step"], step_end=end_step,
-                tokens=args.batch * args.seq_len * (end_step -
-                                                    window["step"]))
-        window["step"], window["time"] = end_step, time.time()
-
-    profiler = StepProfiler()
-    end_step, preempted = start_step + args.steps, False
-    for step_num in range(start_step, start_step + args.steps):
-        profiler.tick(step_num)
-        losses.append(harness.step(batch)["loss"])
-        if ckpt.maybe_preempt(step_num + 1, harness):
-            end_step, preempted = step_num + 1, True
-            break
-        if ckpt.due(step_num + 1):
-            flush_window(step_num + 1)
-            ckpt.step_save(step_num + 1, harness)
-            window["time"] = time.time()  # the save is not steps
-    steps = end_step - start_step
-    loss = float(losses[-1])  # hard sync
-    profiler.close()
-    flush_window(end_step)
-    elapsed = time.perf_counter() - start
-    mesh.check()  # a ring timeout in the last step
-    if not preempted:
-        ckpt.finalize(end_step, harness)
+    tokens = args.batch * args.seq_len
+    result = train_loop.run(ctx, args, harness, lambda: batch,
+                            {"tokens": tokens}, mesh,
+                            counters={"launches": launch_counts})
     rank = {
         "rank": ctx["process_index"], "coords": mesh.coords,
         "launches": {key: n for key, n in launch_counts().items() if n},
-        "launches_per_step": {
-            key: (n - counts.get(key, 0)) / steps
-            for key, n in launch_counts().items()
-            if n - counts.get(key, 0)},
+        "launches_per_step": {key: n for key, n in
+                              result.per_step["launches"].items() if n},
         "plain_calls": {key: n for key, n in plain_counts().items() if n},
         "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                         if on_card else None),
         "resident_param_bytes": harness.resident_param_bytes,
         "params_sha256": param_digests(harness),
     }
-    if ckpt.enabled:
-        rank["checkpoint"] = {"restored": ckpt.restored,
-                              "saves": ckpt.saves}
-    if args.profile_steps:
-        from batch_shipyard_tpu_torch.trace import train_profile
-        rank["profile"] = train_profile.profile_steps(
-            harness, batch, args.profile_steps)
-    ranks = [rank]
-    if multi:
-        ranks = [None] * mesh.world
-        dist.all_gather_object(ranks, rank)
-    mesh.close()
-    status = preemption.EXIT_PREEMPTED if preempted else 0
+    ranks = train_loop.gather_ranks(ctx, args, result, harness, rank,
+                                    lambda: batch, mesh)
     if ctx["process_index"] != 0:
-        return status
-    tokens_per_sec = args.batch * args.seq_len * steps / elapsed
-    ms_per_step = elapsed / steps * 1000
+        return result.status
+    tokens_per_sec = tokens * result.steps / result.elapsed
+    ms_per_step = result.elapsed / result.steps * 1000
     distributed.log(ctx, (
         f"transformer: mesh={mesh.sizes} device={device} "
-        f"{tokens_per_sec:.0f} tok/s, loss={loss:.4f}, "
+        f"{tokens_per_sec:.0f} tok/s, loss={result.loss:.4f}, "
         f"{ms_per_step:.1f} ms/step"))
     peak = mfu.peak_bf16_tflops(torch.cuda.get_device_name(device)
                                 if on_card else "cpu")
@@ -351,29 +289,20 @@ def main(argv=None) -> int:
             mesh.world // max(torch.cuda.device_count(), 1) if on_card
             else None),
         "tokens_per_sec": tokens_per_sec, "ms_per_step": ms_per_step,
-        "loss": loss, "losses": [float(x) for x in losses],
+        "loss": result.loss, "losses": result.losses,
         "mfu_pct": mfu.mfu_pct(
             tokens_per_sec,
             mfu.transformer_train_flops_per_token(config, args.seq_len),
             peak),
         "peak_mem_gb": ranks[0]["peak_mem_gb"],
         "resident_param_bytes": ranks[0]["resident_param_bytes"],
-        "start_step": start_step, "end_step": end_step,
         "per_rank": ranks,
+        **train_loop.report_fields(args, result),
     }
-    if ckpt.enabled:
-        restored = ckpt.restored or {}
-        report["checkpoint"] = {
-            "dir": args.checkpoint_dir,
-            "restored_step": restored.get("step"),
-            "restore_ms": restored.get("restore_ms"),
-            "read_fraction": restored.get("read_fraction"),
-            "saves": ckpt.saves}
-        report["read_fraction"] = restored.get("read_fraction")
-    if preempted:
-        report["exit"] = "preempted"
+    if "checkpoint" in report:
+        report["read_fraction"] = report["checkpoint"]["read_fraction"]
     print(json.dumps(report), flush=True)
-    return status
+    return result.status
 
 
 if __name__ == "__main__":

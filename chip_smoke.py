@@ -25,7 +25,8 @@ Phases, each fatal on failure:
      lse, dq, dk and dv against an fp32 oracle (mha_reference's
      arithmetic with the lse exposed, differentiated by autograd), bf16
      and fp32, causal and full, D 64 and 128, T 128 / 2048 / a ragged
-     1000, with and without an lse cotangent, on strided q/k/v views.
+     1000, and the vision models' full-mode bf16 D 64 at T 64, 196 and
+     256, with and without an lse cotangent, on strided q/k/v views.
      The flash check reads each output tile by tile, and at the training
      shape it must fail on a copy of the source with faults planted in
      single tiles (FLASH_FAULTS), built beside the kernels. The fused
@@ -76,7 +77,9 @@ Phases, each fatal on failure:
      multiplies; torch._int_mm alone beside it), K10's halves at one
      layer's row-parallel operands beside K10's one pass over the same
      rows (bs_row_absmax's yardstick: the inf-norm); K6-K8 also at the
-     serve load's ragged lengths;
+     serve load's ragged lengths; K1 and K2 also in full mode at the
+     vision shapes (B128 H12 T196 and B64 H8 T64, D 64), each beside its
+     plain version, SDPA and flash_bound(causal=False);
   4. train the repo's training benchmark model (bench.py
      bench_transformer: vocab 32000, d_model 1024, 12 layers, 16 heads,
      d_ff 2816, bf16 over fp32 parameters, no remat, batch 16 x 2048,
@@ -175,6 +178,26 @@ Phases, each fatal on failure:
      the same step on ``--sp 2 --tp 2`` (the parameters re-cut), within
      MESH_LOSS_RTOL of them. It prints each rank's read fraction and
      restore ms;
+  5d. the vision families (``vision``), after the training phases.
+     (v1) bench.py bench_resnet's shape through train_resnet: ResNet-50
+     at B256, 224x224, bf16, 3 + 10 steps (img/s a card, ms/step, MFU,
+     peak GB; a finite, falling loss), then one fp32 step at batch 8 on
+     the card, with its CUDA convolutions (RESNET_FP32_RTOL) and with
+     cuDNN's (RESNET_CUDNN_RTOL), against the same step on the CPU.
+     (v2) train_resnet over dp 2, both ranks on this card, B32 a rank,
+     2 + 2 steps, against one rank on the same 64 images: every loss
+     within 2^-8, equal parameter and running-statistic digests on the
+     ranks, 53 + 53 + 1 data-ring all-reduces a step (the batch norms'
+     statistics and gradient sums, the gradients; K13 and K14 107 a
+     step). (v3) ViT-B/16 at 224 (T 196) and 256 (T 256), B128, and the
+     DiT at its defaults (d 512, 8 layers, 32/4: T 64), B64, each 2 + 5
+     steps through its workload, then 4 DDIM samples of 50 steps:
+     exactly 12 K1 and 12 K2 launches a ViT step and 8 and 8 a DiT step
+     (8 K1 a sampling step); one step's gradients within TRAIN_SLACK of
+     the plain bf16 model's distance from fp32 (train_numerics' rule).
+     (v1) and (v3) then profile a step (train_profile: device busy ms,
+     idle share, flash and library GEMM ms, the top kernels). The
+     phase's seconds and the run's total are printed;
   6. the served decode step as a CUDA graph (decode_graph), for each
      bench_serving cache (paged, paged_int8, dense_int8): one request
      schedule (admissions mid-stream, pages growing past the prompts',
@@ -253,6 +276,10 @@ no CUDA device is present.
 
 from __future__ import annotations
 
+import time
+
+STARTED = time.perf_counter()
+
 import bisect
 import collections
 import concurrent.futures
@@ -273,7 +300,6 @@ import subprocess
 import sys
 import tempfile
 import threading
-import time
 import types
 from typing import Optional
 
@@ -392,6 +418,16 @@ FLASH_TRAIN_SHAPE = dict(batch=train_wl.BENCH_TRANSFORMER_BATCH,
                          heads=train_wl.BENCH_TRANSFORMER_MODEL["n_heads"],
                          depth=train_wl.BENCH_TRANSFORMER_MODEL["d_head"])
 FLASH_SOURCE = "batch_shipyard_tpu_torch/ops/csrc/flash_attention.cu"
+# The vision models' attention, full mode at head depth 64: the checked
+# lengths (DiT 32/4, ViT-B/16 at 224 and at 256), the timed shapes
+# (batch, heads, length) of the main path's runs (ViT-B/16 at 224 and at
+# 256, B128; the DiT, B64) and, checked only, the DiT's sampling
+# forward (B4).
+VISION_FLASH_SEQS = (64, 196, 256)
+VISION_FLASH_TIMED = {"vit_b128_t196": (128, 12, 196),
+                      "vit_b128_t256": (128, 12, 256),
+                      "dit_b64_t64": (64, 8, 64)}
+VISION_FLASH_CHECKED = {"dit_sample_b4_t64": (4, 8, 64)}
 
 # Fused cross-entropy (K3-K5) against its plain versions (fp32 products).
 # The kernels run their products in TF32: E (and dl) round to 10
@@ -1094,51 +1130,50 @@ def check_flash(device) -> None:
     rng = np.random.default_rng(3)
     batch, heads = 2, 2
     failed = []
-    for dtype in (torch.bfloat16, torch.float32):
-        for depth in (64, 128):
-            for seq in (128, 2048, 1000):
-                for causal in (True, False):
-                    def randn(*shape):
-                        return torch.from_numpy(rng.standard_normal(
-                            shape, dtype=np.float32)).to(device)
-                    fused = randn(batch, seq, 3, heads, depth).to(dtype)
-                    q, k, v = (fused[:, :, i].detach().requires_grad_()
-                               for i in range(3))
-                    g = randn(batch, seq, heads, depth).to(dtype)
-                    g_lse = randn(batch * heads, seq, 1)
-                    worst, worst_lse = 0.0, 0.0
-                    for with_lse in (True, False):
-                        cot = g_lse if with_lse else torch.zeros_like(g_lse)
-                        want_out, want_lse, want_grads = flash_oracle(
-                            q, k, v, g, cot, causal)
-                        if with_lse:
-                            out, lse = attn_ops.flash_attention_with_lse(
-                                q, k, v, causal)
-                            grads = torch.autograd.grad(
-                                (out, lse), (q, k, v), (g, g_lse))
-                            require(lse.dtype == torch.float32,
-                                    "flash: lse dtype")
-                            worst_lse = float(
-                                (lse.detach() - want_lse).abs().max())
-                        else:
-                            out = attn_ops.flash_attention(q, k, v, causal)
-                            grads = torch.autograd.grad(out, (q, k, v), g)
-                        torch.cuda.synchronize()
-                        require(all(t.dtype == dtype for t in (out, *grads)),
-                                "flash: output dtype")
-                        for got, want in [(out, want_out),
-                                          *zip(grads, want_grads)]:
-                            require(bool(torch.isfinite(got).all()),
-                                    "flash: non-finite output")
-                            worst = max(worst, tile_err(got, want))
-                    name = (f"flash {str(dtype)[6:]} D={depth} T={seq} "
-                            f"{'causal' if causal else 'full'}")
-                    print(f"check {name}: max tile err (out, dq, dk, dv; "
-                          f"with and without g_lse) {worst:.3g} (tol "
-                          f"{FLASH_TOL[dtype]}), lse max abs err "
-                          f"{worst_lse:.3g} (tol {LSE_TOL})", flush=True)
-                    if worst > FLASH_TOL[dtype] or worst_lse > LSE_TOL:
-                        failed.append(name)
+    cases = [(dtype, depth, seq, causal)
+             for dtype in (torch.bfloat16, torch.float32)
+             for depth in (64, 128) for seq in (128, 2048, 1000)
+             for causal in (True, False)]
+    # The vision models' full-mode shapes (D 64; ragged kv tiles at 196
+    # and 64 keys).
+    cases += [(torch.bfloat16, 64, seq, False) for seq in VISION_FLASH_SEQS]
+    for dtype, depth, seq, causal in cases:
+        def randn(*shape):
+            return torch.from_numpy(rng.standard_normal(
+                shape, dtype=np.float32)).to(device)
+        fused = randn(batch, seq, 3, heads, depth).to(dtype)
+        q, k, v = (fused[:, :, i].detach().requires_grad_()
+                   for i in range(3))
+        g = randn(batch, seq, heads, depth).to(dtype)
+        g_lse = randn(batch * heads, seq, 1)
+        worst, worst_lse = 0.0, 0.0
+        for with_lse in (True, False):
+            cot = g_lse if with_lse else torch.zeros_like(g_lse)
+            want_out, want_lse, want_grads = flash_oracle(
+                q, k, v, g, cot, causal)
+            if with_lse:
+                out, lse = attn_ops.flash_attention_with_lse(q, k, v, causal)
+                grads = torch.autograd.grad((out, lse), (q, k, v),
+                                            (g, g_lse))
+                require(lse.dtype == torch.float32, "flash: lse dtype")
+                worst_lse = float((lse.detach() - want_lse).abs().max())
+            else:
+                out = attn_ops.flash_attention(q, k, v, causal)
+                grads = torch.autograd.grad(out, (q, k, v), g)
+            torch.cuda.synchronize()
+            require(all(t.dtype == dtype for t in (out, *grads)),
+                    "flash: output dtype")
+            for got, want in [(out, want_out), *zip(grads, want_grads)]:
+                require(bool(torch.isfinite(got).all()),
+                        "flash: non-finite output")
+                worst = max(worst, tile_err(got, want))
+        name = (f"flash {str(dtype)[6:]} D={depth} T={seq} "
+                f"{'causal' if causal else 'full'}")
+        print(f"check {name}: max tile err (out, dq, dk, dv; with and "
+              f"without g_lse) {worst:.3g} (tol {FLASH_TOL[dtype]}), lse "
+              f"max abs err {worst_lse:.3g} (tol {LSE_TOL})", flush=True)
+        if worst > FLASH_TOL[dtype] or worst_lse > LSE_TOL:
+            failed.append(name)
     require(not failed, f"flash: outside tolerance: {failed}")
 
 
@@ -1498,6 +1533,85 @@ def time_flash(device, fault_lib) -> dict:
     del graph_out, leaves
     torch.cuda.empty_cache()
     return rows
+
+
+def time_flash_vision(device) -> dict:
+    """Phase 3b': K1 and K2 in full mode at the vision models' shapes,
+    each held against its plain version (out, lse, dq, dk, dv) at
+    VISION_FLASH_TIMED's and VISION_FLASH_CHECKED's; at the timed ones
+    also both timed beside the SDPA yardstick (forward; backward alone
+    from a retained graph) and flash_bound(causal=False). Returns {shape:
+    {"flash_fwd": row, "flash_bwd": row}} of the timed shapes."""
+    gen = torch.Generator(device=device).manual_seed(9)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out_rows = {}
+    for name, (batch, heads, seq) in {**VISION_FLASH_TIMED,
+                                      **VISION_FLASH_CHECKED}.items():
+        depth = 64
+
+        def randn():
+            return torch.randn(batch, seq, heads, depth, generator=gen,
+                               device=device, dtype=torch.bfloat16)
+        q, k, v, dout = randn(), randn(), randn(), randn()
+        out, lse = attn_ops.flash_forward_kernel(q, k, v, False)
+        want_out, want_lse = attn_ops.flash_forward_reference(q, k, v,
+                                                              False)
+        delta = attn_ops.flash_delta(out, dout)
+        bwd_args = (q, k, v, lse, dout, delta, False)
+        got = attn_ops.flash_backward_kernel(*bwd_args)
+        want = attn_ops.flash_backward_reference(*bwd_args)
+        fwd_err = float((out.float() - want_out.float()).abs().max())
+        bwd_err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, want))
+        tile = {"flash_fwd": tile_err(out, want_out),
+                "flash_bwd": max(tile_err(a, b) for a, b in zip(got, want))}
+        lse_err = float((lse - want_lse).abs().max())
+        require(lse_err <= LSE_TOL and tile["flash_fwd"] <= FLASH_TOL[
+            torch.bfloat16] and tile["flash_bwd"] <= FLASH_TOL[
+            torch.bfloat16], f"K1/K2 at {name}: tile errs {tile}, lse "
+            f"{lse_err}")
+        del want_out, want_lse, got, want
+        if name not in VISION_FLASH_TIMED:
+            print(f"check K1/K2 flash {name}: max tile err fwd "
+                  f"{tile['flash_fwd']:.3g}, bwd {tile['flash_bwd']:.3g}, "
+                  f"lse {lse_err:.3g}", flush=True)
+            continue
+        qs, ks, vs, gs = (x.transpose(1, 2).contiguous()
+                          for x in (q, k, v, dout))
+        leaves = [x.requires_grad_() for x in (qs, ks, vs)]
+        graph_out = sdpa(*leaves)
+        rows = {
+            "flash_fwd": dict(
+                max_abs_err=fwd_err, max_tile_err=tile["flash_fwd"],
+                ms=device_ms(attn_ops.flash_forward_kernel,
+                             [(q, k, v, False)], 48),
+                plain_ms=device_ms(attn_ops.flash_forward_reference,
+                                   [(q, k, v, False)], 4),
+                library_ms=device_ms(sdpa, [tuple(x.detach() for x in
+                                                  leaves)], 48),
+                **flash_bound(batch, seq, heads, depth, False, False)),
+            "flash_bwd": dict(
+                max_abs_err=bwd_err, max_tile_err=tile["flash_bwd"],
+                ms=device_ms(attn_ops.flash_backward_kernel, [bwd_args], 24),
+                plain_ms=device_ms(attn_ops.flash_backward_reference,
+                                   [bwd_args], 4),
+                library_ms=device_ms(
+                    lambda: torch.autograd.grad(graph_out, leaves, gs,
+                                                retain_graph=True), [()], 24),
+                **flash_bound(batch, seq, heads, depth, False, True)),
+        }
+        for key, row in rows.items():
+            row["shape"] = dict(batch=batch, heads=heads, seq=seq,
+                                depth=depth, causal=False)
+            print(f"time {KERNELS[key]['label']} {key} {name}: kernel "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                  f"sdpa {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), max tile "
+                  f"err {row['max_tile_err']:.3g}", flush=True)
+        out_rows[name] = rows
+        del graph_out, leaves
+        torch.cuda.empty_cache()
+    return out_rows
 
 
 # ------------------- fused cross-entropy (K3-K5) ---------------------
@@ -3978,16 +4092,17 @@ CKPT_MESH_RANKS = 4
 CKPT_PROBE_BYTES = 1 << 30
 
 
-def run_workload(argv, env=None) -> tuple[int, dict, list]:
-    """train_transformer.main in this process (launch counts reset just
-    before): (exit code, its JSON line, its stdout lines)."""
+def run_workload(argv, env=None, main=None) -> tuple[int, dict, list]:
+    """A workload's main (train_transformer's by default) in this process
+    (launch counts reset just before): (exit code, its JSON line, its
+    stdout lines)."""
     reset_launch_counts()
     out = io.StringIO()
     saved = {key: os.environ.get(key) for key in (env or {})}
     os.environ.update(env or {})
     try:
         with contextlib.redirect_stdout(out):
-            rc = train_wl.main(argv)
+            rc = (main or train_wl.main)(argv)
     finally:
         for key, value in saved.items():
             if value is None:
@@ -5684,6 +5799,394 @@ def serving_tier(device) -> dict:
     return rows
 
 
+# ------------------------- vision (v1)-(v3) ---------------------------
+
+
+# (v1) bench_resnet's shape (bench.py:54-101): ResNet-50 at batch 256,
+# 224x224, bf16, through train_resnet; (v2) dp 2 on this card; (v3) ViT-B/16
+# at 224 and 256 and the DiT at its defaults.
+RESNET_WARMUP, RESNET_STEPS = 3, 10
+RESNET_FP32_BATCH = 8
+# One fp32 step on the card against the same step on the CPU, from the
+# same weights and batch: the loss, the parameters' updates (new - old,
+# all tensors as one vector) and the running statistics after the step,
+# each relative (L2). With the card's own CUDA convolutions (cuDNN off)
+# the step is held to RESNET_FP32_RTOL: the rest is the port's arithmetic,
+# fp32 in a different order. cuDNN's fp32 convolutions (the bf16 path's
+# library, here in fp32) round the update at about 1e-3 of its norm on
+# the H100 with TF32 off (printed beside it): held to RESNET_CUDNN_RTOL.
+# A per-element reading is not stable: sum(dy * xhat) of a late bn3's
+# scale nearly cancels.
+RESNET_FP32_RTOL = 1e-4
+RESNET_CUDNN_RTOL = 3e-3
+RESNET_DP, RESNET_DP_BATCH, RESNET_DP_WARMUP, RESNET_DP_STEPS = 2, 32, 2, 2
+RESNET_DP_TIMEOUT_S = 300.0
+# dp 2 against one rank on the same 64 images: every loss within 2^-8
+# relative (bf16 rounds each rank's rows and the one rank's alike, but
+# the statistics' sums and cuDNN's algorithms differ).
+RESNET_DP_LOSS_RTOL = 2.0 ** -8
+VIT_RUNS = {"vit224": 224, "vit256": 256}
+VIT_BATCH, DIT_BATCH = 128, 64
+VISION_WARMUP, VISION_STEPS = 2, 5
+DIT_SAMPLES, DIT_SAMPLE_STEPS = 4, 50
+VIT_LAYERS, DIT_LAYERS = 12, 8
+# One step's gradients of the kernel model against the plain bf16 model
+# (blockwise attention in K1/K2's place) and an fp32 plain model with
+# the same weights, at batch 2: TRAIN_SLACK times the plain model's
+# distance, as train_numerics (TRAIN_FLOOR_MAX bounds that floor).
+VISION_NUMERICS_BATCH = 2
+# Steps each (v1)/(v3) run profiles after its timed ones (the workloads'
+# --profile-steps: train_profile runs them timed, then WARMUP_STEPS and
+# them again under the profiler), and the flash launches those add.
+VISION_PROFILE_STEPS = 1
+VISION_PROFILE_RUNS = 2 * VISION_PROFILE_STEPS + train_profile.WARMUP_STEPS
+
+
+def _profile_line(name: str, report: dict) -> dict:
+    """Print and return the profiled steps' breakdown (rank 0's)."""
+    prof = report["per_rank"][0]["profile"]
+    row = {k: prof[k] for k in ("wall_ms_per_step", "device_busy_ms_per_step",
+                                "device_idle_share",
+                                "kernel_launches_per_step",
+                                "library_gemm_ms_per_step",
+                                "top_kernels_ms_per_step")}
+    row["flash_ms_per_step"] = {k: prof["kernel_ms_per_step"][k]
+                                for k in ("flash_fwd", "flash_bwd")}
+    print(f"vision {name} profile " + json.dumps(row), flush=True)
+    return row
+
+
+def _bench_line(name: str, report: dict, smi: str) -> None:
+    mfu_pct = report["mfu_pct"]
+    mfu_text = ("none (no FLOPs model)" if mfu_pct is None
+                else f"{mfu_pct:.2f} %")
+    print(f"vision {name}: {report['images_per_sec_per_card']:.1f} img/s "
+          f"a card ({report['images_per_sec']:.1f} total, "
+          f"{report['ranks']} rank(s) on {report['cards']} card(s)), "
+          f"{report['ms_per_step']:.2f} ms/step, MFU {mfu_text}, peak "
+          f"{report['peak_mem_gb']:.2f} GB, on {smi}", flush=True)
+
+
+def _falling(name: str, losses: list) -> None:
+    require(all(math.isfinite(x) for x in losses),
+            f"{name}: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"{name}: loss did not fall {losses}")
+
+
+def resnet_bench(smi: str) -> dict:
+    """(v1) train_resnet at bench_resnet's shape: img/s a card, ms/step,
+    MFU, peak memory; a finite, falling loss."""
+    from batch_shipyard_tpu_torch.workloads import train_resnet
+    argv = ["--batch-per-device", str(train_resnet.BENCH_RESNET_BATCH),
+            "--image-size", str(train_resnet.BENCH_RESNET_IMAGE),
+            "--warmup", str(RESNET_WARMUP), "--steps", str(RESNET_STEPS),
+            "--profile-steps", str(VISION_PROFILE_STEPS)]
+    rc, report, lines = run_workload(argv, main=train_resnet.main)
+    require(rc == 0, f"train_resnet: rc {rc}")
+    print(lines[-2], flush=True)
+    _falling("resnet50", report["losses"])
+    require(report["mfu_pct"] is not None, "resnet50: no MFU on the card")
+    _bench_line("v1 resnet50 b256", report, smi)
+    report["profile"] = _profile_line("v1 resnet50 b256", report)
+    return report
+
+
+def resnet_fp32_check(device) -> dict:
+    """(v1') One fp32 step of ResNet-50 at batch 8, 224x224, on the card
+    (TF32 off, as main() sets it), with the card's CUDA convolutions and
+    with cuDNN's, each against the same step on the CPU."""
+    from batch_shipyard_tpu_torch.models import resnet as resnet_mod
+    from batch_shipyard_tpu_torch.workloads import train_resnet
+    config = resnet_mod.ResNetConfig(dtype=torch.float32)
+    require(not torch.backends.cudnn.allow_tf32, "resnet fp32: TF32 on")
+    cpu = train_mod.build_resnet_train(config, RESNET_FP32_BATCH,
+                                       device="cpu")
+    before = cpu.state_dict()
+    batch = train_resnet.synthetic_batch(RESNET_FP32_BATCH, 224, 1000, 1)
+    batch["images"] = batch["images"].float()
+    loss_cpu = float(cpu.step(batch)["loss"])
+    want = cpu.state_dict()
+    names = [n for n, _ in cpu.model.named_parameters()]
+    buffers = [n for n in want if n not in names]
+
+    def flat(state, keys, minus=None):
+        return torch.cat([(state[n].cpu() - (0 if minus is None
+                                             else minus[n])).reshape(-1)
+                          for n in keys])
+
+    def rel(a, b):
+        return _rel(a, b, torch.linalg.vector_norm)
+    row = {"loss_cpu": loss_cpu,
+           "tol": {"cuda": RESNET_FP32_RTOL, "cudnn": RESNET_CUDNN_RTOL}}
+    saved = torch.backends.cudnn.enabled
+    try:
+        for name, cudnn in (("cuda", False), ("cudnn", True)):
+            torch.backends.cudnn.enabled = cudnn
+            card = train_mod.build_resnet_train(
+                config, RESNET_FP32_BATCH, device=device, params=before)
+            loss = float(card.step({k: t.to(device) for k, t in
+                                    batch.items()})["loss"])
+            got = card.state_dict()
+            row[name] = {
+                "loss_card": loss,
+                "loss_rel": abs(loss - loss_cpu) / abs(loss_cpu),
+                "update_rel_l2": rel(flat(got, names, before),
+                                     flat(want, names, before)),
+                "stats_rel_l2": rel(flat(got, buffers),
+                                    flat(want, buffers))}
+            del card, got
+    finally:
+        torch.backends.cudnn.enabled = saved
+    print("vision v1 resnet50 fp32 card vs cpu " + json.dumps(row),
+          flush=True)
+    for name in ("cuda", "cudnn"):
+        require(max(row[name]["loss_rel"], row[name]["update_rel_l2"],
+                    row[name]["stats_rel_l2"]) <= row["tol"][name],
+                f"resnet50 fp32 ({name} convolutions): the card's step "
+                f"is not the CPU's: {row}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def resnet_dp(smi: str) -> dict:
+    """(v2) train_resnet over dp 2 (two ranks with torch.distributed.run's
+    env, distributed.launch_local), both time-sliced on this card,
+    against one rank on the same 64 images:
+    losses within 2^-8, the parameters and the running statistics equal
+    across the ranks; the ring calls a step by label."""
+    from batch_shipyard_tpu_torch.models import resnet as resnet_mod
+    from batch_shipyard_tpu_torch.workloads import train_resnet
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    flags = ["--warmup", str(RESNET_DP_WARMUP), "--steps",
+             str(RESNET_DP_STEPS)]
+    runs = distributed.launch_local(
+        [sys.executable, "-m",
+         "batch_shipyard_tpu_torch.workloads.train_resnet",
+         "--batch-per-device", str(RESNET_DP_BATCH), *flags],
+        RESNET_DP, RESNET_DP_TIMEOUT_S,
+        cwd=pathlib.Path(__file__).resolve().parent)
+    for run in runs:
+        require(run["returncode"] == 0 and not run["timed_out"],
+                f"train_resnet dp {RESNET_DP}: rank {run['rank']} rc "
+                f"{run['returncode']}: {run['stderr'][-4000:]}")
+    lines = runs[0]["stdout"].strip().splitlines()
+    require(len(lines) >= 2, f"train_resnet dp: rank 0 printed {lines}")
+    print(lines[-2], flush=True)
+    dp = json.loads(lines[-1])
+    rc1, one, _ = run_workload(
+        ["--batch-per-device", str(RESNET_DP * RESNET_DP_BATCH), *flags],
+        main=train_resnet.main)
+    require(rc1 == 0, f"train_resnet one rank: rc {rc1}")
+    _falling("resnet50 dp", dp["losses"])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(dp["losses"],
+                                                  one["losses"]))
+    n_bn = len(resnet_mod.resnet50().batch_norms())
+    per_step = dp["ring_calls_per_step"]
+    row = {"losses_dp": dp["losses"], "losses_one_rank": one["losses"],
+           "max_loss_rel": rel, "tol": RESNET_DP_LOSS_RTOL,
+           "ring_calls_per_step": per_step,
+           "launches_per_step_by_rank": [r["launches_per_step"]
+                                         for r in dp["per_rank"]],
+           "params_sha256": [r["params_sha256"] for r in dp["per_rank"]],
+           "buffers_sha256": [r["buffers_sha256"] for r in dp["per_rank"]],
+           "images_per_sec_per_card": dp["images_per_sec_per_card"],
+           "ms_per_step": dp["ms_per_step"],
+           "peak_mem_gb": dp["peak_mem_gb"], "mfu_pct": dp["mfu_pct"]}
+    print("vision v2 resnet50 dp2 " + json.dumps(row), flush=True)
+    _bench_line("v2 resnet50 dp2 b32x2", dp, smi)
+    require(rel <= RESNET_DP_LOSS_RTOL,
+            f"resnet dp: losses off the one-rank run's: {row}")
+    require(len(set(row["params_sha256"])) == 1 and
+            len(set(row["buffers_sha256"])) == 1,
+            f"resnet dp: ranks hold different parameters or statistics")
+    require(per_step == {"bn_stats": n_bn, "bn_grads": n_bn, "grads": 1},
+            f"resnet dp: ring calls a step {per_step}")
+    for launches in row["launches_per_step_by_rank"]:
+        for key in ("ring_all_gather", "ring_reduce_scatter"):
+            require(launches.get(key) == 2 * n_bn + 1,
+                    f"resnet dp: {key} launches a step {launches}")
+    return row
+
+
+def _vision_grads(model, loss_fn) -> tuple[float, torch.Tensor]:
+    params = list(model.parameters())
+    loss = loss_fn(model)
+    grads = torch.autograd.grad(loss, params)
+    return float(loss.detach()), torch.cat([g.float().reshape(-1)
+                                            for g in grads])
+
+
+def vision_numerics(kind: str, config, state: dict, inputs: dict,
+                    device) -> dict:
+    """One step's gradients of the kernel model (K1/K2) against the plain
+    bf16 model (blockwise attention in their place) and an fp32 plain
+    model, on the same weights and inputs: the rule of train_numerics."""
+    from batch_shipyard_tpu_torch.models import diffusion as dif_mod
+    from batch_shipyard_tpu_torch.models import vit as vit_mod
+    build = vit_mod.ViT if kind == "vit" else dif_mod.DiT
+
+    def loss_fn(model):
+        if kind == "vit":
+            return vit_mod.cross_entropy_loss(model(inputs["images"]),
+                                              inputs["labels"])
+        return dif_mod.diffusion_loss(model, inputs["images"],
+                                      t=inputs["t"], noise=inputs["noise"])
+    results = {}
+    kernel_attention = attn_ops.attention
+    for name, dtype, impl in (("kernel", torch.bfloat16, None),
+                              ("plain", torch.bfloat16, "blockwise"),
+                              ("fp32", torch.float32, "blockwise")):
+        model = build(dataclasses.replace(config, dtype=dtype),
+                      device=device)
+        model.load_state_dict(state)
+        before = dict(attn_ops.launches)
+        # The plain models: the blockwise softmax in the kernels' place.
+        attn_ops.attention = (kernel_attention if impl is None else
+                              functools.partial(kernel_attention, impl=impl))
+        try:
+            results[name] = _vision_grads(model, loss_fn)
+        finally:
+            attn_ops.attention = kernel_attention
+        ran = attn_ops.launches["flash_fwd"] - before["flash_fwd"]
+        require(ran == (config.n_layers if impl is None else 0),
+                f"{kind} numerics: {ran} K1 launches in the {name} model")
+        del model
+    (loss_k, grad_k), (loss_p, grad_p), (loss_f, grad_f) = (
+        results[n] for n in ("kernel", "plain", "fp32"))
+
+    def rel(a, b):
+        return _rel(a, b, torch.linalg.vector_norm)
+    floor = rel(grad_p, grad_f)
+    row = {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_fp32": loss_f,
+           "grad_kernel_vs_fp32": rel(grad_k, grad_f),
+           "grad_kernel_vs_plain": rel(grad_k, grad_p),
+           "grad_plain_vs_fp32": floor}
+    require(all(math.isfinite(x) for x in row.values()),
+            f"{kind} numerics: non-finite {row}")
+    require(floor <= TRAIN_FLOOR_MAX,
+            f"{kind} numerics: plain bf16 vs fp32 gradients {row}")
+    require(row["grad_kernel_vs_fp32"] <= TRAIN_SLACK * floor,
+            f"{kind} numerics: kernel gradients off by more than bf16 "
+            f"rounding: {row}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def vit_run(name: str, image_size: int, device, smi: str) -> dict:
+    """(v3) ViT-B/16 at ``image_size`` through train_vit, B128: exactly
+    VIT_LAYERS K1 and K2 launches a step; the numerics rule at batch 2."""
+    from batch_shipyard_tpu_torch.models import vit as vit_mod
+    from batch_shipyard_tpu_torch.workloads import train_vit
+    config = vit_mod.ViTConfig(image_size=image_size)
+    steps = VISION_WARMUP + VISION_STEPS + VISION_PROFILE_RUNS
+    rc, report, lines = run_workload(
+        ["--batch-per-device", str(VIT_BATCH), "--image-size",
+         str(image_size), "--warmup", str(VISION_WARMUP), "--steps",
+         str(VISION_STEPS), "--seed", "0", "--profile-steps",
+         str(VISION_PROFILE_STEPS)], main=train_vit.main)
+    require(rc == 0, f"train_vit {name}: rc {rc}")
+    print(lines[-2], flush=True)
+    launches = dict(attn_ops.launches)
+    _falling(name, report["losses"])
+    require(launches == {"flash_fwd": VIT_LAYERS * steps,
+                         "flash_bwd": VIT_LAYERS * steps},
+            f"{name}: {launches} flash launches in {steps} steps")
+    report["launches_run"] = launches
+    model = vit_mod.ViT(config, device=device)
+    vit_mod.init_params(model, torch.Generator(device=device).manual_seed(0))
+    gen = torch.Generator(device=device).manual_seed(5)
+    inputs = {"images": torch.randn(VISION_NUMERICS_BATCH, image_size,
+                                    image_size, 3, generator=gen,
+                                    device=device),
+              "labels": torch.randint(0, 1000, (VISION_NUMERICS_BATCH,),
+                                      generator=gen, device=device)}
+    report["numerics"] = vision_numerics("vit", config, model.state_dict(),
+                                         inputs, device)
+    print(f"vision v3 {name} numerics " + json.dumps(report["numerics"]),
+          flush=True)
+    _bench_line(f"v3 {name} b{VIT_BATCH} t{config.num_patches}", report,
+                smi)
+    report["profile"] = _profile_line(name, report)
+    del model
+    return report
+
+
+def dit_run(device, smi: str) -> dict:
+    """(v3) the DiT at its defaults through train_diffusion, B64, then
+    DDIM sampling: exactly DIT_LAYERS K1 and K2 launches a step (and K1
+    DIT_LAYERS times a sampling step); finite samples; the numerics
+    rule at batch 2."""
+    from batch_shipyard_tpu_torch.models import diffusion as dif_mod
+    from batch_shipyard_tpu_torch.workloads import train_diffusion
+    config = dif_mod.DiTConfig()
+    steps = VISION_WARMUP + VISION_STEPS + VISION_PROFILE_RUNS
+    rc, report, lines = run_workload(
+        ["--batch-per-device", str(DIT_BATCH), "--warmup",
+         str(VISION_WARMUP), "--steps", str(VISION_STEPS), "--sample",
+         str(DIT_SAMPLES), "--sample-steps", str(DIT_SAMPLE_STEPS),
+         "--profile-steps", str(VISION_PROFILE_STEPS)],
+        main=train_diffusion.main)
+    require(rc == 0, f"train_diffusion: rc {rc}")
+    print("\n".join(lines[-3:-1]), flush=True)
+    launches = dict(attn_ops.launches)
+    require(all(math.isfinite(x) for x in report["losses"]),
+            f"dit: non-finite loss {report['losses']}")
+    require(launches == {
+        "flash_fwd": DIT_LAYERS * (steps + DIT_SAMPLE_STEPS),
+        "flash_bwd": DIT_LAYERS * steps},
+        f"dit: {launches} flash launches in {steps} steps and "
+        f"{DIT_SAMPLE_STEPS} sampling steps")
+    samples = report["samples"]
+    require(samples["finite"] and samples["shape"] == [DIT_SAMPLES, 32, 32,
+                                                       3],
+            f"dit: samples {samples}")
+    report["launches_run"] = launches
+    model = dif_mod.DiT(config, device=device)
+    dif_mod.init_params(model, torch.Generator(device=device).manual_seed(0))
+    gen = torch.Generator(device=device).manual_seed(6)
+    with torch.no_grad():  # adaLN-Zero: give the gates and head weight
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen, device=device))
+    shape = (VISION_NUMERICS_BATCH, 32, 32, 3)
+    inputs = {"images": torch.tanh(torch.randn(shape, generator=gen,
+                                               device=device)),
+              "t": torch.randint(0, config.timesteps,
+                                 (VISION_NUMERICS_BATCH,), generator=gen,
+                                 device=device),
+              "noise": torch.randn(shape, generator=gen, device=device)}
+    report["numerics"] = vision_numerics("dit", config, model.state_dict(),
+                                         inputs, device)
+    print("vision v3 dit numerics " + json.dumps(report["numerics"]),
+          flush=True)
+    _bench_line(f"v3 dit b{DIT_BATCH} t64", report, smi)
+    report["profile"] = _profile_line("dit", report)
+    del model
+    return report
+
+
+def vision(device, smi: str) -> dict:
+    """Phase 6: the vision families, (v1)-(v3), and the phase's time."""
+    started = time.perf_counter()
+    torch.cuda.empty_cache()
+    parts = {"resnet": lambda: resnet_bench(smi),
+             "resnet_fp32": lambda: resnet_fp32_check(device),
+             "resnet_dp": lambda: resnet_dp(smi),
+             **{name: functools.partial(vit_run, name, size, device, smi)
+                for name, size in VIT_RUNS.items()},
+             "dit": lambda: dit_run(device, smi)}
+    out, seconds = {}, {}
+    for name, run in parts.items():
+        t0 = time.perf_counter()
+        out[name] = run()
+        seconds[name] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - started
+    out["seconds"] = seconds
+    print(f"vision phase: {out['phase_s']:.1f} s " + json.dumps(seconds),
+          flush=True)
+    return out
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5762,6 +6265,9 @@ def main() -> int:
                         ("virtual_all_gather", "virtual_reduce_scatter")}
     timing.update(time_kernels(device))
     timing.update(time_flash(device, fault_libs["flash_attention"]))
+    for shape, rows in time_flash_vision(device).items():
+        for key, row in rows.items():
+            timing[key].setdefault("vision", {})[shape] = row
     timing.update(time_loss(device, loss_readings))
     timing.update(time_norm(device, norm_readings))
     timing.update(time_quant(device, quant_readings))
@@ -5807,6 +6313,7 @@ def main() -> int:
     finally:
         os.environ.pop(kernel_select.MARKER_ENV)
         workdir.cleanup()
+    seen = vision(device, smi)
     graphs = {name: decode_graph(name, device) for name, _ in SERVED}
     served = {}
     for name, kernel in SERVED:
@@ -5888,6 +6395,17 @@ def main() -> int:
                 row["launches_speculative_s3"] = s3["launches"][key]
                 row["launches_per_replayed_speculative_step"] = \
                     s3["decode_profile"]["attention_launches_per_step"]
+        if key in ("flash_fwd", "flash_bwd"):
+            # The vision runs (v3): VISION_WARMUP + VISION_STEPS steps
+            # and the profile's VISION_PROFILE_RUNS each, the DiT's K1
+            # also DIT_LAYERS a DDIM step.
+            row["launches_vision"] = {
+                name: seen[name]["launches_run"][key]
+                for name in (*VIT_RUNS, "dit")}
+        if key in ("ring_all_gather", "ring_reduce_scatter"):
+            row["launches_per_step_resnet_dp"] = [
+                r.get(key, 0) for r in
+                seen["resnet_dp"]["launches_per_step_by_rank"]]
         row.update({k: t[k] for k in ("max_abs_err", "max_tile_err", "ms",
                                       "plain_ms", "bound_ms", "bound_by",
                                       "library_ms", "int_mm_ms", "per",
@@ -5899,9 +6417,11 @@ def main() -> int:
                                       "ceiling_ms", "k10_same_rows_ms",
                                       "fwd_bwd_ms", "library_fwd_bwd_ms",
                                       "served_lengths", "draft_d16",
-                                      "resources")
+                                      "resources", "vision")
                     if k in t})
         kernels.append(row)
+    print(f"chip_smoke total: {time.perf_counter() - STARTED:.1f} s "
+          f"(vision phase {seen['phase_s']:.1f} s)", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
