@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from batch_shipyard_tpu_torch.models.transformer import (
-    TransformerConfig, embedding_normal_, lecun_normal_)
+    TransformerConfig, embedding_normal_, expert_fan_in, lecun_normal_,
+    uses_moe)
 
 
 def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
@@ -107,7 +108,11 @@ def init_params(config: TransformerConfig,
     variance_scaling(1, fan_in, normal) over [vocab, d_model]), RMSNorm
     scales one. With ``fused_norm``, ``qkv_kernel [d, 3F]`` and
     ``gate_up_kernel [d, 2*d_ff]`` are lecun-normal over fan-in d in the
-    reference's [in, out] layout, and their ``norm_scale`` one."""
+    reference's [in, out] layout, and their ``norm_scale`` one. A MoE
+    block's ``moe.router.weight [E, d]`` is lecun-normal over fan-in d and
+    its experts ``w_gate``/``w_up [E, d, d_ff]`` and ``w_down [E, d_ff,
+    d]`` lecun-normal over flax's fan-in of a 3-D kernel (E times the in
+    dim)."""
     device = generator.device
     dtype = config.param_dtype
     state: dict[str, torch.Tensor] = {}
@@ -136,6 +141,17 @@ def init_params(config: TransformerConfig,
             for proj in ("q_proj", "k_proj", "v_proj"):
                 dense(f"{layer}.attn.{proj}", config.d_model, features)
         dense(f"{layer}.attn.o_proj", features, config.d_model)
+        if uses_moe(config, i):
+            for norm in ("attn_norm", "mlp_norm"):
+                state[f"{layer}.{norm}.scale"] = ones()
+            moe, d = config.moe, config.d_model
+            dense(f"{layer}.moe.router", d, moe.num_experts)
+            for name, shape in (("w_gate", (moe.num_experts, d, moe.d_ff)),
+                                ("w_up", (moe.num_experts, d, moe.d_ff)),
+                                ("w_down", (moe.num_experts, moe.d_ff, d))):
+                state[f"{layer}.moe.{name}"] = lecun(shape,
+                                                     expert_fan_in(shape))
+            continue
         if config.fused_norm:
             state[f"{layer}.mlp.norm_scale"] = ones()
             state[f"{layer}.mlp.gate_up_kernel"] = lecun(

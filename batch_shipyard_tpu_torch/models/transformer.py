@@ -60,6 +60,18 @@ forward again, so every tp rank makes the same ring calls. Under tp:
   (o/down), whose rows of x and w span the ranks, take their absmax over
   the ring first (ops/quantization.quantized_linear's ``tp_group``).
 
+Mixture of experts (``moe``, a models/moe.MoEConfig): every
+``moe_every``-th block (``idx % moe_every == moe_every - 1``, the
+reference's rule) holds a ``moe`` MoEMLP in place of its ``mlp``, over the
+config's ``ep_group`` and ``token_ranks`` (the expert and token rings of
+the mesh; models/moe.py). A training block returns ``(x, aux)``, aux being
+its MoE layer's aux-loss share or None, so the aux comes out of the
+function remat recomputes (a list appended inside the block would be
+appended again by the recompute); ``forward(return_aux=True)`` returns
+the sum over the layers beside the output. MoE layers stay unquantized
+under ``quantize_matmuls`` (the reference's MoEMLP has no QuantDense) and
+refuse ``fused_norm`` and decode.
+
 Parameters live in ``param_dtype`` and are cast to ``dtype`` at use, as
 flax's Dense/Embed do; ``TransformerLM.cast_dense_weights_`` makes that
 cast once for serving.
@@ -86,6 +98,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
+from batch_shipyard_tpu_torch.models import moe as moe_mod
 from batch_shipyard_tpu_torch.ops import attention as attn_ops
 from batch_shipyard_tpu_torch.ops import chunked_loss
 from batch_shipyard_tpu_torch.ops import decode_attention as dense_ops
@@ -101,10 +114,10 @@ from batch_shipyard_tpu_torch.ops.quantization import (dequantize_int8,
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The reference's field names for what the dense training forward
-    and the decode path read (``tp_group`` in place of ``tp_axis``). The
-    fields of paths not ported yet (moe) arrive with the slices that port
-    them."""
+    """The reference's field names for what the training forward and the
+    decode path read (``tp_group`` in place of ``tp_axis``; ``ep_group``
+    and ``token_ranks`` for the mesh axes the reference's GSPMD
+    implies)."""
     vocab_size: int = 32000
     d_model: int = 512
     n_layers: int = 4
@@ -161,6 +174,17 @@ class TransformerConfig:
     # local heads and ff units, f and g around attention and the MLP.
     # None: the whole model on this rank. Training only.
     tp_group: Optional[object] = None
+    # Mixture of experts: a models/moe.MoEConfig in place of the MLP of
+    # every moe_every-th block; the loss adds moe_aux_weight * the aux.
+    moe: Optional[moe_mod.MoEConfig] = None
+    moe_every: int = 2
+    moe_aux_weight: float = 0.01
+    # The experts split over this RingGroup (Megatron's pair around the
+    # expert region), and the ranks of the global batch's other tokens
+    # (models/moe.TokenRanks: one routing over the global batch). None:
+    # all experts here, these tokens the whole batch.
+    ep_group: Optional[object] = None
+    token_ranks: Optional[moe_mod.TokenRanks] = None
 
     @property
     def tp(self) -> int:
@@ -311,6 +335,12 @@ def lecun_normal_(weight, fan_in: int, generator: torch.Generator):
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
     return nn.init.trunc_normal_(weight, std=std, a=-2.0 * std,
                                  b=2.0 * std, generator=generator)
+
+
+def expert_fan_in(shape) -> int:
+    """flax's lecun_normal fan-in of an expert weight [E, in, out]: the
+    in dim times the leading (receptive-field) dims, E."""
+    return shape[0] * shape[1]
 
 
 def embedding_normal_(weight, generator: torch.Generator):
@@ -592,13 +622,25 @@ class MLP(nn.Module):
                                 cfg.tp_group)
 
 
+def uses_moe(cfg: TransformerConfig, idx: int) -> bool:
+    """Whether block ``idx`` holds a MoE layer (the reference's rule)."""
+    every = max(cfg.moe_every, 1)
+    return cfg.moe is not None and idx % every == every - 1
+
+
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None) -> None:
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 use_moe: bool = False) -> None:
         super().__init__()
-        if cfg.fused_norm and (cfg.decode or cfg.quantize_matmuls):
+        if cfg.fused_norm and (cfg.decode or cfg.quantize_matmuls or
+                               use_moe):
             raise NotImplementedError(
                 "fused_norm composes only with the dense training path "
-                "(no decode / quantize_matmuls), as in the reference")
+                "(no decode / quantize_matmuls / moe), as in the reference")
+        if use_moe and cfg.decode:
+            raise NotImplementedError(
+                "moe is a training-path feature: the decode path has no "
+                "routing over a cache")
         if cfg.tp > 1 and cfg.decode:
             raise NotImplementedError(
                 "tp_group is a training-path feature; the decode path "
@@ -608,16 +650,25 @@ class Block(nn.Module):
             self.attn_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
             self.mlp_norm = RMSNorm(cfg.d_model, cfg.dtype, device=device)
         self.attn = Attention(cfg, device)
-        self.mlp = MLP(cfg, device)
+        if use_moe:
+            self.moe = moe_mod.MoEMLP(cfg.moe, cfg.ep_group, cfg.tp_group,
+                                      cfg.token_ranks, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
     def forward(self, x, positions, cache: Optional[dict] = None):
+        """-> (x, the MoE layer's aux share, or None for a dense block)."""
         if self.fused_norm:
             # The norms live inside Attention and MLP: pass the raw
             # residual stream.
             x = x + self.attn(x, positions, cache)
-            return x + self.mlp(x)
+            return x + self.mlp(x), None
         x = x + self.attn(self.attn_norm(x), positions, cache)
-        return x + self.mlp(self.mlp_norm(x))
+        normed = self.mlp_norm(x)
+        if hasattr(self, "moe"):
+            out, aux = self.moe(normed)
+            return x + out, aux
+        return x + self.mlp(normed), None
 
 
 class TransformerLM(nn.Module):
@@ -628,7 +679,8 @@ class TransformerLM(nn.Module):
     ``fused_norm``, ``layer_{i}.attn.{norm_scale,qkv_kernel}`` and
     ``layer_{i}.mlp.{norm_scale,gate_up_kernel}`` in place of the norms
     and the q/k/v and gate/up projections (models/convert.py maps the
-    flax tree onto them)."""
+    flax tree onto them); a MoE block holds ``layer_{i}.moe.router.weight``
+    and ``layer_{i}.moe.{w_gate,w_up,w_down}`` in place of its ``mlp``."""
 
     def __init__(self, config: TransformerConfig, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
@@ -644,7 +696,8 @@ class TransformerLM(nn.Module):
         self.config = config
         self.embed = Embed(config, device)
         for i in range(config.n_layers):
-            self.add_module(f"layer_{i}", Block(config, device))
+            self.add_module(f"layer_{i}", Block(config, device,
+                                                uses_moe(config, i)))
         self.final_norm = RMSNorm(config.d_model, config.dtype,
                                   device=device)
         if self.embed.embedding.device.type != "meta":
@@ -664,6 +717,12 @@ class TransformerLM(nn.Module):
                 for kernel in (block.attn.qkv_kernel,
                                block.mlp.gate_up_kernel):
                     lecun_normal_(kernel, self.config.d_model, generator)
+        for block in self.blocks():
+            if hasattr(block, "moe"):
+                for weight in (block.moe.w_gate, block.moe.w_up,
+                               block.moe.w_down):
+                    lecun_normal_(weight, expert_fan_in(weight.shape),
+                                  generator)
 
     def blocks(self) -> list[Block]:
         return [getattr(self, f"layer_{i}")
@@ -681,7 +740,8 @@ class TransformerLM(nn.Module):
         return self
 
     def forward(self, tokens, positions=None, cache=None,
-                return_hidden: bool = False, params=None):
+                return_hidden: bool = False, params=None,
+                return_aux: bool = False):
         """tokens [B, T] int -> logits [B, T, vocab] in ``dtype`` (or the
         final hidden states [B, T, d_model] with return_hidden).
         positions: [T] or [B, T] absolute positions (default 0..T-1).
@@ -690,7 +750,9 @@ class TransformerLM(nn.Module):
         mode, cache is inference.init_cache's per-layer list, updated
         in place. ``params``: a unit name (``embed``, ``layer_{i}``) ->
         that unit's parameters by state-dict name, in place of the
-        module's own (the training forward; the module doc)."""
+        module's own (the training forward; the module doc).
+        ``return_aux``: return (output, the sum of the MoE layers' aux
+        shares, None without MoE layers)."""
         cfg = self.config
         if cfg.decode and cache is None:
             raise ValueError("decode mode needs a cache "
@@ -708,6 +770,7 @@ class TransformerLM(nn.Module):
         if positions is None:
             positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                      device=tokens.device)
+        aux_total = None
         if cache is None:
             remat = cfg.remat and torch.is_grad_enabled()
             for i, block in enumerate(self.blocks()):
@@ -720,18 +783,19 @@ class TransformerLM(nn.Module):
                     # tensors that rank needs, and the block's parameters
                     # are gathered again.
                     with set_checkpoint_early_stop(False):
-                        x = checkpoint(run, x, positions,
-                                       use_reentrant=False)
+                        x, aux = checkpoint(run, x, positions,
+                                            use_reentrant=False)
                 else:
-                    x = run(x, positions)
+                    x, aux = run(x, positions)
+                if aux is not None:
+                    aux_total = aux if aux_total is None else aux_total + aux
         else:
             for block, layer_cache in zip(self.blocks(), cache):
-                x = block(x, positions, layer_cache)
+                x, _ = block(x, positions, layer_cache)
         x = (self.final_norm(x) if params is None else
              _call(self.final_norm, "final_norm.", head, x))
-        if return_hidden:
-            return x
-        return self.embed.attend(x.float())
+        out = x if return_hidden else self.embed.attend(x.float())
+        return (out, aux_total) if return_aux else out
 
 
 def _call(module: nn.Module, prefix: str, params, *args):

@@ -19,9 +19,17 @@ and builds this rank's groups:
   models/transformer.py);
 - ``fsdp``: only in their fsdp index (the gradient reduce-scatter and
   the parameter all-gather of parallel/train.py);
-- ``data``: the dp x sp ranks that share this rank's fsdp and tp
+- ``data``: the dp x sp ranks that share this rank's fsdp, ep and tp
   indices (the gradient all-reduce). With dp = 1 it has the sp ring's
-  ranks, and the sp group serves both.
+  ranks, and the sp group serves both;
+- ``ep``: only in their ep index (Megatron's pair around the MoE layers'
+  expert region, models/moe.py);
+- ``tokens`` (a MoE model's mesh only, ``roles=MOE_ROLES``): the dp x
+  fsdp x sp ranks that share this rank's ep and tp indices, the ranks
+  that hold distinct tokens of the global batch (the MoE layers' one
+  global routing gathers its probabilities over it). Where another group
+  has its ranks, that group serves both (the data ring with fsdp 1:
+  "data+tokens").
 
 Every rank creates every gloo subgroup of every axis, in one fixed order
 (``dist.new_group`` is collective over the world), including the groups
@@ -454,7 +462,10 @@ class RingGroup:
 # The mesh's groups, in the order every rank creates them, with the axes
 # each one's members differ in.
 GROUP_AXES = {"sp": ("sp",), "tp": ("tp",), "fsdp": ("fsdp",),
-              "data": ("dp", "sp")}
+              "data": ("dp", "sp"), "ep": ("ep",)}
+# A MoE model's mesh builds one more (``roles=MOE_ROLES``).
+MOE_GROUP_AXES = {**GROUP_AXES, "tokens": ("dp", "fsdp", "sp")}
+MOE_ROLES = tuple(MOE_GROUP_AXES)
 _mesh_ids = itertools.count()
 
 
@@ -475,8 +486,9 @@ def axis_groups(sizes: dict, axes) -> list[list[int]]:
 class RankMesh:
     """The world's ranks on AXES: ``sizes`` (auto_axis_sizes), this
     rank's ``rank`` and ``coords`` (its index on each axis), and
-    ``groups``: a RingGroup for each of GROUP_AXES this rank shares with
-    another rank, None where the axis has one rank; a ring that plays two
+    ``groups``: a RingGroup for each of MOE_GROUP_AXES this rank shares
+    with another rank, None where the axis has one rank or the role was
+    not built; a ring that plays two
     roles (the data ring is the sp ring when dp = 1) is one group under
     both, labelled "sp+data". Made with ``sizes`` and ``rank`` alone it
     is the layout only (no groups); ``build`` makes the groups,
@@ -492,20 +504,21 @@ class RankMesh:
         self.rank = rank
         index = np.unravel_index(rank, [self.sizes[a] for a in AXES])
         self.coords = {a: int(i) for a, i in zip(AXES, index)}
-        self.groups = dict.fromkeys(GROUP_AXES) if groups is None else groups
+        self.groups = (dict.fromkeys(MOE_GROUP_AXES) if groups is None else
+                       groups)
 
     @classmethod
     def build(cls, device="cpu", tp: int = 1, sp: int = 1, fsdp: int = 1,
-              world: Optional[int] = None,
+              ep: int = 1, world: Optional[int] = None,
               timeout_s: float = DEFAULT_TIMEOUT_S,
               library=None, roles=tuple(GROUP_AXES)) -> "RankMesh":
         """This rank's mesh over the default process group (``world``:
         its size, which it must be). Every rank must call it, with the
         same sizes and ``roles``: it creates every subgroup of each role
-        (GROUP_AXES keys; the others stay None) in GROUP_AXES order."""
+        (MOE_GROUP_AXES keys; the others stay None) in that order."""
         if world is None:
             world = dist.get_world_size() if dist.is_initialized() else 1
-        sizes = auto_axis_sizes(world, tp=tp, sp=sp, fsdp=fsdp)
+        sizes = auto_axis_sizes(world, tp=tp, sp=sp, fsdp=fsdp, ep=ep)
         if world == 1:
             return cls(sizes, 0)
         if not dist.is_initialized() or dist.get_world_size() != world:
@@ -518,7 +531,7 @@ class RankMesh:
             abort = (distributed_c10d._get_default_store(),
                      f"ring_abort/mesh{next(_mesh_ids)}")
         groups, made = {}, {}
-        for name, axes in GROUP_AXES.items():
+        for name, axes in MOE_GROUP_AXES.items():
             groups[name] = None
             if name not in roles:
                 continue
@@ -539,7 +552,7 @@ class RankMesh:
                                              axis=name, abort=abort)
                 else:
                     groups[name] = groups[owner]
-                    groups[name].axis = f"{owner}+{name}"
+                    groups[name].axis += f"+{name}"
         return cls(sizes, me, groups)
 
     @classmethod
@@ -554,7 +567,7 @@ class RankMesh:
                 f"(RankMesh.build) instead of the ring")
         group.axis = "sp+data"
         sizes = auto_axis_sizes(group.size, sp=group.size)
-        return cls(sizes, group.rank, dict(dict.fromkeys(GROUP_AXES),
+        return cls(sizes, group.rank, dict(dict.fromkeys(MOE_GROUP_AXES),
                                            sp=group, data=group))
 
     @property
@@ -568,7 +581,7 @@ class RankMesh:
         return self.sizes["dp"] * self.sizes["fsdp"]
 
     def distinct_groups(self) -> list:
-        """This rank's RingGroups, each once, in GROUP_AXES order."""
+        """This rank's RingGroups, each once, in MOE_GROUP_AXES order."""
         seen = []
         for group in self.groups.values():
             if group is not None and all(group is not g for g in seen):

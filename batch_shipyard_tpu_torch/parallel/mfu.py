@@ -9,7 +9,14 @@ and transformer accounting (the port imports nothing of the JAX package):
 - PaLM-appendix FLOPs per trained token: 6*N for the parameter matmuls
   (N includes the tied embedding, whose output projection is a
   per-token matmul) plus the attention term 12*L*T*d_model, halved for
-  causal masking.
+  causal masking;
+- a MoE layer (every moe_every-th block, counted from moe_every - 1)
+  counts the matmul work each token causes, not its parameters: the
+  router (d_model * E) and the experts' SwiGLU on all their E * C buffer
+  rows, over the batch's B * T tokens (3 * d_model * d_ff * E * C /
+  (B * T)). The rows count whether a token fills them or not, so the
+  capacity's padding (a capacity factor of 1.25: a fifth of the rows at
+  least) counts as model work.
 
 The peak comes from a table keyed on ``torch.cuda.get_device_name()``:
 the published dense bf16 rate of that card, or None for a card not in
@@ -53,9 +60,9 @@ def resnet50_train_flops_per_image(image_size: int = 224) -> float:
 
 def transformer_param_count(config: Any) -> int:
     """Parameters of models/transformer.TransformerLM from its config:
-    embedding, per block q/k/v/o and SwiGLU gate/up/down plus two
-    RMSNorm scales, and the final norm (the output projection is the
-    tied embedding)."""
+    embedding, per block q/k/v/o and SwiGLU gate/up/down (a MoE block:
+    its router and its experts') plus two RMSNorm scales, and the final
+    norm (the output projection is the tied embedding)."""
     d, v = config.d_model, config.vocab_size
     h, dh, ff = config.n_heads, config.d_head, config.d_ff
     per_block = (
@@ -64,14 +71,39 @@ def transformer_param_count(config: Any) -> int:
         + 3 * d * ff          # SwiGLU gate, up, down
         + 2 * d               # two RMSNorm scales
     )
-    return v * d + config.n_layers * per_block + d  # + final norm
+    total = v * d + config.n_layers * per_block + d  # + final norm
+    moe = config.moe
+    if moe is not None:
+        total += _moe_layers(config) * (
+            d * moe.num_experts + 3 * d * moe.d_ff * moe.num_experts -
+            3 * d * ff)
+    return total
+
+
+def _moe_layers(config: Any) -> int:
+    """Blocks idx with idx % moe_every == moe_every - 1."""
+    return config.n_layers // max(config.moe_every, 1)
 
 
 def transformer_train_flops_per_token(config: Any, seq_len: int,
-                                      causal: bool = True) -> float:
+                                      causal: bool = True,
+                                      batch_size: Optional[int] = None
+                                      ) -> float:
     """6*N for the parameter matmuls (forward 2N, backward 4N) plus
-    attention 12*L*T*d (6*L*T*d causal)."""
+    attention 12*L*T*d (6*L*T*d causal). A MoE config needs the global
+    ``batch_size``, which sets its experts' buffers: its experts count
+    their E * C buffer rows a batch in place of their parameters."""
     n = transformer_param_count(config)
+    moe = config.moe
+    if moe is not None:
+        if batch_size is None:
+            raise ValueError("a MoE model's FLOPs a token depend on the "
+                             "batch: pass batch_size")
+        groups = batch_size * seq_len
+        capacity = max(1, int(moe.capacity_factor * groups /
+                              moe.num_experts))
+        experts = 3 * config.d_model * moe.d_ff * moe.num_experts
+        n += _moe_layers(config) * experts * (capacity / groups - 1)
     attn = 12.0 * config.n_layers * seq_len * config.d_model
     if causal:
         attn *= 0.5

@@ -8,7 +8,9 @@ this rank's tensor-parallel shard itself:
   - q/k/v/gate/up projections: columns over tp  -> P("fsdp", "tp")
   - o/down projections:        rows over tp     -> P("tp", "fsdp")
   - embedding:                 vocab over tp    -> P("tp", "fsdp")
-  - norms/scales: replicated
+  - MoE experts w_gate/w_up [E, D, F]: experts over ep, F over tp
+    -> P("ep", "fsdp", "tp"); w_down [E, F, D] -> P("ep", "tp", "fsdp")
+  - norms/scales and the MoE router: replicated
 
 A flax kernel is [in, out] and the port's Dense an nn.Linear whose
 weight is [out, in], so a flax column split (contiguous heads or ff
@@ -35,8 +37,11 @@ What the port does differently:
   rank i holds elements [i c, (i + 1) c) of it (``Unit.span``).
   parallel/train.py gathers a unit over the fsdp ring (K13) where the
   reference's XLA gathers its tensors, and reduce-scatters the unit's
-  gradient (K14).
-MoE's rules arrive with MoE.
+  gradient (K14). The units are cut from this rank's tp and ep shards,
+  so each ep rank's layer units hold its own experts;
+- an expert tensor's shard is the pair (ep shard, tp shard): the ep
+  rank's contiguous E/ep experts (``take_ep_shard``; the experts keep
+  the reference's layout, so no transpose), and of those the tp shard.
 
 Checkpoints (the restore side; workloads/checkpoint.py writes and reads
 the files). A rank's share of the global training state is a set of
@@ -46,20 +51,22 @@ on dim 1, is strided in the global tensor). A rank holds
 (``held_pieces``), of the parameters and of AdamW's ``exp_avg`` and
 ``exp_avg_sq`` alike, the ranges of every tensor that its fsdp span of
 each unit covers. Tensors that tp does not split are recorded whole
-(tp_count 1). ``written_pieces``: only ranks with dp, ep and sp index 0
-write, every fsdp index its own ranges, the unsplit tensors from tp
-index 0, so nothing is written twice. On restore (``restore_plan_for``)
-a rank whose tp matches the save reads only the parts of the saved
-pieces that overlap what it holds (restore_plan.range_reads: 1/M of the
-state after an fsdp resize to M); with another tp it reads every piece
-of each split tensor, builds the global tensor on the host and cuts its
-new shard from it (``assemble``, through ``join_shards`` and
-``take_shard``: a fused shard is not a contiguous range of the global
-tensor). A save whose pieces are laid out otherwise restores alike, as
-long as they are ranges of tp shards: the earlier layout, whole
-parameters from fsdp index 0 and the moments as ranges of one flat
-bucket of every parameter, among them. Global shapes do not depend on
-the mesh, so a checkpoint of other shapes is refused.
+(tp_count 1), and tensors that ep does not split likewise (ep_count 1).
+``written_pieces``: only ranks with dp and sp index 0 write, every fsdp
+index its own ranges, the unsplit tensors from tp index 0 and ep index
+0, each ep rank its own experts, so every piece is written once. On
+restore (``restore_plan_for``) a rank whose tp and ep split of a tensor
+match the save's reads only the parts of the saved pieces that overlap
+what it holds (restore_plan.range_reads: 1/M of the state after an fsdp
+resize to M); with another split it reads every piece of the tensor,
+builds the global tensor on the host and cuts its new shard from it
+(``assemble``, through ``join_shards`` and ``take_shard``: a fused shard
+is not a contiguous range of the global tensor). A save whose pieces are
+laid out otherwise restores alike, as long as they are ranges of tp
+shards: the earlier layout, whole parameters from fsdp index 0 and the
+moments as ranges of one flat bucket of every parameter, among them.
+Global shapes do not depend on the mesh, so a checkpoint of other shapes
+is refused.
 """
 
 from __future__ import annotations
@@ -81,6 +88,9 @@ TRANSFORMER_RULES = (
     (r".*(qkv_kernel|gate_up_kernel)$", ("fsdp", "tp"), 1),
     (r".*(o_proj|down_proj)\.weight$", ("tp", "fsdp"), 1),
     (r".*embed\.embedding$", ("tp", "fsdp"), 0),
+    (r".*moe\.router\.weight$", (), None),
+    (r".*moe\.(w_gate|w_up)$", ("ep", "fsdp", "tp"), 2),
+    (r".*moe\.w_down$", ("ep", "tp", "fsdp"), 1),
     (r".*(scale|bias)$", (), None),
 )
 # The fused kernels' parts along their tp dim: [q|k|v] and [gate|up].
@@ -93,6 +103,14 @@ def tp_dim(name: str) -> Optional[int]:
     for pattern, _, dim in TRANSFORMER_RULES:
         if re.match(pattern, name):
             return dim
+    return None
+
+
+def ep_dim(name: str) -> Optional[int]:
+    """The dim ep splits (an expert tensor's leading E), or None."""
+    for pattern, spec, _ in TRANSFORMER_RULES:
+        if re.match(pattern, name):
+            return spec.index("ep") if "ep" in spec else None
     return None
 
 
@@ -120,19 +138,32 @@ def join_shards(name: str, shards: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([s[p] for p in range(parts) for s in split], dim)
 
 
+def take_ep_shard(name: str, tensor: torch.Tensor, count: int,
+                  index: int) -> torch.Tensor:
+    """Ep shard ``index`` of ``count`` of an expert tensor: its
+    contiguous 1/count of the experts (a view)."""
+    return tensor.chunk(count, ep_dim(name))[index]
+
+
 def shard_state_dict(state: Mapping[str, torch.Tensor], mesh
                      ) -> dict[str, torch.Tensor]:
-    """This rank's tp shard of a full state dict: ``mesh`` (a
+    """This rank's shard of a full state dict: ``mesh`` (a
     parallel.mesh.RankMesh, or anything with ``sizes`` and ``coords``)
-    gives tp and this rank's tp index; each split tensor becomes its
-    take_shard (a copy), the rest pass through."""
+    gives tp, ep and this rank's indices; each expert tensor becomes its
+    take_ep_shard, each tp-split tensor its take_shard (a copy), the rest
+    pass through."""
     tp, index = mesh.sizes["tp"], mesh.coords["tp"]
-    if tp == 1:
-        return dict(state)
+    ep = mesh.sizes["ep"]
     out = {}
     for name, tensor in state.items():
+        if ep > 1 and ep_dim(name) is not None:
+            if tensor.shape[ep_dim(name)] % ep:
+                raise ValueError(f"{name} {tuple(tensor.shape)}: "
+                                 f"{tensor.shape[ep_dim(name)]} experts are "
+                                 f"not divisible by ep={ep}")
+            tensor = take_ep_shard(name, tensor, ep, mesh.coords["ep"])
         dim = tp_dim(name)
-        if dim is None:
+        if dim is None or tp == 1:
             out[name] = tensor
             continue
         if tensor.shape[dim] % (tp * fused_parts(name)):
@@ -167,7 +198,8 @@ SGD_STATE_KINDS = ("param", "momentum_buffer")
 @dataclasses.dataclass(frozen=True, order=True)
 class Piece:
     """Elements [lo, hi) of the flattened tp shard ``tp_index`` of
-    ``tp_count`` of tensor ``key``'s ``kind`` (STATE_KINDS)."""
+    ``tp_count`` of ep shard ``ep_index`` of ``ep_count`` of tensor
+    ``key``'s ``kind`` (STATE_KINDS)."""
 
     key: str
     kind: str
@@ -175,6 +207,8 @@ class Piece:
     tp_count: int
     lo: int
     hi: int
+    ep_index: int = 0
+    ep_count: int = 1
 
     @property
     def size(self) -> int:
@@ -186,19 +220,31 @@ def split_count(name: str, tp: int) -> int:
     return tp if tp > 1 and tp_dim(name) is not None else 1
 
 
-def shard_shape(name: str, shape: Sequence[int], count: int) -> tuple:
-    """The shape of one of ``count`` tp shards of global ``shape``."""
+def ep_split_count(name: str, ep: int) -> int:
+    """How many ep shards the port cuts tensor ``name`` into."""
+    return ep if ep > 1 and ep_dim(name) is not None else 1
+
+
+def shard_shape(name: str, shape: Sequence[int], count: int,
+                ep_count: int = 1) -> tuple:
+    """The shape of one of ``count`` tp shards of one of ``ep_count`` ep
+    shards of global ``shape``."""
     shape = list(shape)
     if count > 1:
         shape[tp_dim(name)] //= count
+    if ep_count > 1:
+        shape[ep_dim(name)] //= ep_count
     return tuple(shape)
 
 
-def global_shape(name: str, shape: Sequence[int], tp: int) -> tuple:
-    """The global shape of a tensor whose tp shard is ``shape``."""
+def global_shape(name: str, shape: Sequence[int], tp: int,
+                 ep: int = 1) -> tuple:
+    """The global shape of a tensor whose tp and ep shard is ``shape``."""
     shape = list(shape)
     if split_count(name, tp) > 1:
         shape[tp_dim(name)] *= tp
+    if ep_split_count(name, ep) > 1:
+        shape[ep_dim(name)] *= ep
     return tuple(shape)
 
 
@@ -290,13 +336,14 @@ def join_owned(units: Sequence[Unit], owned: Sequence[torch.Tensor]
 
 def _local_shapes(shapes: Mapping[str, Sequence[int]], sizes: Mapping,
                   coords: Mapping) -> dict:
-    """name -> (tp_count, tp_index, tp-shard shape) on a rank at
-    ``coords``."""
-    tp, local = sizes["tp"], {}
+    """name -> (tp_count, tp_index, ep_count, ep_index, shard shape) on a
+    rank at ``coords``."""
+    tp, ep, local = sizes["tp"], sizes["ep"], {}
     for name, shape in shapes.items():
-        count = split_count(name, tp)
-        local[name] = (count, coords["tp"] if count > 1 else 0,
-                       shard_shape(name, shape, count))
+        count, eps = split_count(name, tp), ep_split_count(name, ep)
+        local[name] = (count, coords["tp"] if count > 1 else 0, eps,
+                       coords["ep"] if eps > 1 else 0,
+                       shard_shape(name, shape, count, eps))
     return local
 
 
@@ -308,7 +355,7 @@ def held_pieces(shapes: Mapping[str, Sequence[int]], sizes: Mapping,
     of ``kinds``, unit by unit (``fsdp_units`` of its tp shards), the range of
     each tensor that its fsdp span of the unit covers."""
     local = _local_shapes(shapes, sizes, coords)
-    units = fsdp_units({name: shape for name, (_, _, shape) in local.items()},
+    units = fsdp_units({name: entry[-1] for name, entry in local.items()},
                        sizes["fsdp"])
     pieces = []
     for kind in kinds:
@@ -318,9 +365,9 @@ def held_pieces(shapes: Mapping[str, Sequence[int]], sizes: Mapping,
                 a = max(offset, lo)
                 b = min(offset + math.prod(shape), hi)
                 if b > a:
-                    count, index, _ = local[name]
+                    count, index, eps, ep_index, _ = local[name]
                     pieces.append(Piece(name, kind, index, count, a - offset,
-                                        b - offset))
+                                        b - offset, ep_index, eps))
     return pieces
 
 
@@ -333,10 +380,11 @@ def written_pieces(shapes: Mapping[str, Sequence[int]], sizes: Mapping,
     out = []
     for rank in range(math.prod(sizes.values())):
         coords = mesh_mod.RankMesh(sizes, rank).coords
-        if coords["dp"] or coords["ep"] or coords["sp"]:
+        if coords["dp"] or coords["sp"]:
             continue
         for piece in held_pieces(shapes, sizes, coords, kinds):
-            if piece.tp_count == 1 and coords["tp"]:
+            if (piece.tp_count == 1 and coords["tp"]) or \
+                    (piece.ep_count == 1 and coords["ep"]):
                 continue
             out.append((rank, piece))
     return out
@@ -361,6 +409,12 @@ def check_shapes(saved: Mapping[str, Sequence[int]],
                 f"checkpoint belongs to a different model config")
 
 
+def record_split(record: Mapping) -> dict:
+    """A layout record with its ep split (a save from before ep had none:
+    ep shard 0 of 1)."""
+    return {"ep_index": 0, "ep_count": 1, **record}
+
+
 @dataclasses.dataclass
 class Need:
     """One held piece and the reads that fill it: record-local ranges of
@@ -380,7 +434,7 @@ def restore_plan_for(mesh, layout: Mapping,
     "read_fraction" (of every element the checkpoint holds, as the
     reference's host_restore_plan weighs it), "read_fraction_by_kind"}."""
     shapes = {t["name"]: t["shape"] for t in layout["tensors"]}
-    records = layout["records"]
+    records = [record_split(rec) for rec in layout["records"]]
     by_tensor: dict = {}
     for i, rec in enumerate(records):
         by_tensor.setdefault((rec["key"], rec["kind"]), []).append(i)
@@ -389,9 +443,12 @@ def restore_plan_for(mesh, layout: Mapping,
         total[rec["kind"]] = total.get(rec["kind"], 0) + rec["hi"] - rec["lo"]
     for piece in held_pieces(shapes, mesh.sizes, mesh.coords, kinds):
         saved = by_tensor.get((piece.key, piece.kind), [])
-        if saved and records[saved[0]]["tp_count"] == piece.tp_count:
+        if saved and (records[saved[0]]["tp_count"],
+                      records[saved[0]]["ep_count"]) == (piece.tp_count,
+                                                         piece.ep_count):
             mine = [i for i in saved
-                    if records[i]["tp_index"] == piece.tp_index]
+                    if (records[i]["tp_index"], records[i]["ep_index"]) ==
+                    (piece.tp_index, piece.ep_index)]
             reads = [restore_plan.ShardRead(mine[r.shard], r.lo, r.hi,
                                             r.dst_lo)
                      for r in restore_plan.range_reads(
@@ -426,7 +483,7 @@ def assemble(plan: Mapping, layout: Mapping,
     the global tensor from its saved tp shards and cutting this rank's
     shard and range from it."""
     shapes = {t["name"]: tuple(t["shape"]) for t in layout["tensors"]}
-    records = layout["records"]
+    records = [record_split(rec) for rec in layout["records"]]
     out = {}
     for need in plan["needs"]:
         piece = need.piece
@@ -439,16 +496,23 @@ def assemble(plan: Mapping, layout: Mapping,
             out[piece] = buf
             continue
         shape = shapes[piece.key]
-        count = records[need.reads[0].shard]["tp_count"]
-        part = shard_shape(piece.key, shape, count)
-        shards = [torch.empty(math.prod(part), dtype=dtype)
-                  for _ in range(count)]
+        first = records[need.reads[0].shard]
+        count, eps = first["tp_count"], first["ep_count"]
+        part = shard_shape(piece.key, shape, count, eps)
+        shards = [[torch.empty(math.prod(part), dtype=dtype)
+                   for _ in range(count)] for _ in range(eps)]
         for r in need.reads:
             rec = records[r.shard]
-            shards[rec["tp_index"]][rec["lo"] + r.lo:rec["lo"] + r.hi] = \
-                fetch(r.shard, r.lo, r.hi)
-        full = (join_shards(piece.key, [s.view(part) for s in shards])
-                if count > 1 else shards[0].view(shape))
+            shards[rec["ep_index"]][rec["tp_index"]][
+                rec["lo"] + r.lo:rec["lo"] + r.hi] = fetch(r.shard, r.lo,
+                                                           r.hi)
+        experts = [join_shards(piece.key, [s.view(part) for s in row])
+                   if count > 1 else row[0].view(part) for row in shards]
+        full = (torch.cat(experts, ep_dim(piece.key)) if eps > 1
+                else experts[0])
+        if piece.ep_count > 1:
+            full = take_ep_shard(piece.key, full, piece.ep_count,
+                                 piece.ep_index)
         if piece.tp_count > 1:
             full = take_shard(piece.key, full, piece.tp_count,
                               piece.tp_index)

@@ -82,6 +82,23 @@ state when no step has run yet (torch creates it lazily).
 Every ``step`` beats the task's progress file (agent/progress.py), as
 the reference's step wrappers do.
 
+Mixture of experts (``config.moe``; models/moe.py): the loss adds
+``moe_aux_weight`` times the sum over the MoE layers of their aux, as the
+reference's loss does. Each rank's aux is its tokens' share of the global
+aux (the global density times its own tokens' probability sums over the
+global token count), added to its loss share whole: the fsdp and data
+rings' sums of the gradients and of the loss slot then give the
+reference's aux gradient and value, the sum of the shares, neither the
+share of one rank nor that sum times the ring's size. The ep ranks of a
+data ring's member hold the same tokens and compute the same aux; they
+are never summed with each other (the data ring has one ep index), so
+the aux is not counted once per ep rank either. Expert weights are cut
+over the ep ring (rank r holds experts [r E/ep, (r + 1) E/ep)) before the
+fsdp units are laid out, so each ep rank's units, gradient row and AdamW
+state hold its own experts; a replicated parameter's gradient is the same
+on every ep rank, as on every tp rank (Megatron's f sums it over the ep
+ring before it reaches them).
+
 Apart from step 3, gradients are never summed over tp: a tp shard's
 gradient is whole on its rank (the embedding's rows too: the
 vocab-parallel lookup and loss give each rank its own rows' gradient),
@@ -101,6 +118,7 @@ import torch
 from batch_shipyard_tpu_torch.agent import progress
 from batch_shipyard_tpu_torch.device import resolve_device
 from batch_shipyard_tpu_torch.models import convert
+from batch_shipyard_tpu_torch.models import moe as moe_mod
 from batch_shipyard_tpu_torch.models import transformer as tfm
 from batch_shipyard_tpu_torch.ops import ring_attention as ring
 from batch_shipyard_tpu_torch.ops import ring_collectives
@@ -136,8 +154,9 @@ class HeldState:
     def state_tensors(self) -> dict[str, tuple[tuple, torch.dtype]]:
         """Every parameter's global shape and dtype, in parameter
         order."""
-        tp = self.layout[0]["tp"]
-        return {name: (sharding.global_shape(name, p.shape, tp), p.dtype)
+        sizes = self.layout[0]
+        return {name: (sharding.global_shape(name, p.shape, sizes["tp"],
+                                             sizes["ep"]), p.dtype)
                 for name, p in self.model.named_parameters()}
 
     @functools.cached_property
@@ -304,22 +323,31 @@ class TrainHarness(HeldState):
             self._chunks[unit], self.mesh.groups["fsdp"], self._sinks[unit])
         return self._unit[unit].views(flat)
 
-    def loss_fn(self, tokens, targets, positions=None):
+    def loss_fn(self, tokens, targets, positions=None, share=None):
+        """The mean loss of these tokens' targets, times ``share`` when
+        given, plus moe_aux_weight times the MoE layers' aux shares (the
+        module doc)."""
+        config = self.model.config
         if self.units is None:
-            hidden = self.model(tokens, positions=positions,
-                                return_hidden=True)
+            hidden, aux = self.model(tokens, positions=positions,
+                                     return_hidden=True, return_aux=True)
             embedding = self.model.embed.embedding
         else:
             # Gathered once, for the lookup, the final norm and the loss.
             head = self.gather("embed")
-            hidden = self.model(
+            hidden, aux = self.model(
                 tokens, positions=positions, return_hidden=True,
-                params=lambda unit: head if unit == "embed"
-                else self.gather(unit))
+                return_aux=True, params=lambda unit: head
+                if unit == "embed" else self.gather(unit))
             embedding = head["embed.embedding"]
-        return tfm.lm_loss_chunked(hidden, embedding, targets,
+        loss = tfm.lm_loss_chunked(hidden, embedding, targets,
                                    impl=self.loss_impl,
-                                   tp_group=self.model.config.tp_group)
+                                   tp_group=config.tp_group)
+        if share is not None:
+            loss = loss * share
+        if aux is not None:
+            loss = loss + config.moe_aux_weight * aux
+        return loss
 
     def sum_tp_partial_grads(self) -> None:
         """Step 3 of the module doc: the fused norm scales' gradients in
@@ -387,7 +415,7 @@ class TrainHarness(HeldState):
         # A unit whose gradient never arrived counts as zeros.
         self.row[:self.owned_length].zero_()
         tokens, targets, positions, share = self.shard(tokens, targets)
-        loss = self.loss_fn(tokens, targets, positions) * share
+        loss = self.loss_fn(tokens, targets, positions, share)
         loss.backward()
         owned, = self.optimizer.param_groups[0]["params"]
         owned.grad, loss = self.sum_grads(loss)
@@ -451,17 +479,34 @@ def make_transformer_config(sp: int = 1,
     the mesh: with ``sp > 1``, ring attention (ops/ring_attention, its
     ``auto`` tier) over ``group`` (a RingGroup of sp ranks, by default
     the mesh's sp ring); with the mesh's tp > 1, Megatron tp over its tp
-    ring. ``overrides`` (``fused_norm`` and ``quantize_matmuls`` among
-    them) pass through."""
+    ring; with ``moe``, the MoE layers' experts over its ep ring and their
+    routing over its tokens ring (a mesh built with mesh.MOE_ROLES), or
+    over ``group`` where that spans the world. ``overrides``
+    (``fused_norm``, ``quantize_matmuls`` and ``moe`` among them) pass
+    through."""
     attention_fn = overrides.pop("attention_fn", None)
+    moe = overrides.get("moe") is not None
     if mesh is not None:
         sp = mesh.sizes["sp"]
         group = group or mesh.groups["sp"]
         overrides.setdefault("tp_group", mesh.groups["tp"])
+        overrides.setdefault("ep_group", mesh.groups["ep"])
+        tokens = mesh.groups.get("tokens")
+        if moe and mesh.world > 1 and tokens is None and \
+                mesh.data_size * sp > 1:
+            raise ValueError("a MoE model's mesh needs its tokens ring "
+                             "(RankMesh.build(roles=MOE_ROLES))")
+        if moe and tokens is not None:
+            overrides.setdefault("token_ranks",
+                                 moe_mod.TokenRanks(tokens, sp))
     if sp > 1:
         if group is None or group.size != sp:
             raise ValueError(f"sp={sp} needs a RingGroup of {sp} ranks "
                              f"(sequence_parallel_group)")
+        if moe and mesh is None:
+            # An sp ring over the world: its ranks hold the tokens.
+            overrides.setdefault("token_ranks",
+                                 moe_mod.TokenRanks(group, sp))
         if attention_fn is None:
             attention_fn = functools.partial(ring.ring_attention,
                                              group=group)
@@ -495,9 +540,10 @@ def build_transformer_train(config: tfm.TransformerConfig,
         generator.manual_seed(seed)
         params = convert.init_params(config, generator)
     if mesh is not None:
-        if mesh.groups["tp"] is not config.tp_group:
-            raise ValueError("the config's tp_group is not the mesh's tp "
-                             "ring (make_transformer_config(mesh=...))")
+        if mesh.groups["tp"] is not config.tp_group or \
+                mesh.groups["ep"] is not config.ep_group:
+            raise ValueError("the config's tp_group or ep_group is not the "
+                             "mesh's ring (make_transformer_config(mesh=...))")
         params = sharding.shard_state_dict(params, mesh)
     model = tfm.TransformerLM(config, device="meta")
     model.load_state_dict({name: t.to(device, copy=True)

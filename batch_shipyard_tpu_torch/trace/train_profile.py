@@ -34,6 +34,7 @@ import time
 
 import torch
 import torch.distributed as dist
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from batch_shipyard_tpu_torch.ops import ring_collectives
@@ -88,6 +89,12 @@ KERNEL_SYMBOLS = {
 RING_KERNELS = ("ring_permute", "ring_all_gather", "ring_reduce_scatter")
 # cuBLAS's GEMM kernels: cutlass / xmma "...gemm..." and its JIT "nvjet_".
 LIBRARY_GEMM = ("gemm", "nvjet")
+# Host ops kept in op_ms_per_step, by device time.
+TOP_OPS = 24
+# Host events that are not ops but carry the device time of kernels their
+# ops also carry (the CUDA runtime's wait on a full launch queue: on the
+# card its "self" time exceeded the step's busy time).
+RUNTIME_MARKERS = ("Command Buffer Full",)
 
 
 def profile_steps(harness, batch: dict, steps: int) -> dict:
@@ -134,6 +141,7 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
             short = bool(flag.item())
         if not short:
             break
+    ops = op_us(prof.events())
     by_name: dict[str, float] = collections.defaultdict(float)
     intervals = []
     for e in kernels:
@@ -188,7 +196,29 @@ def profile_steps(harness, batch: dict, steps: int) -> dict:
             name[:80]: us / 1e3 / steps
             for name, us in sorted(by_name.items(),
                                    key=lambda kv: -kv[1])[:10]},
+        "op_ms_per_step": {
+            name: us / 1e3 / steps
+            for name, us in sorted(ops.items(),
+                                   key=lambda kv: -kv[1])[:TOP_OPS]},
     }
+
+
+def op_us(events) -> dict:
+    """Device µs of the host ops inside the WINDOW range by op name, each
+    kernel under the innermost op that launched it (its self time); none
+    without the range."""
+    start = next((e.time_range.start for e in events
+                  if e.name == WINDOW and e.device_type == DeviceType.CPU),
+                 None)
+    by_op: dict = collections.defaultdict(float)
+    if start is None:
+        return {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and \
+                e.name not in (WINDOW, *RUNTIME_MARKERS) and \
+                e.time_range.start >= start and e.self_device_time_total:
+            by_op[e.name] += e.self_device_time_total
+    return dict(by_op)
 
 
 

@@ -24,11 +24,13 @@ are plain tensors and its fsdp state is a chunk of each fsdp unit
 ``layout.json`` (the mesh sizes, every parameter's global shape and
 dtype in parameter order, the train step, AdamW's step count, and every
 record: a parallel/sharding.py ``Piece``, a range of one tensor's tp
-shard, with its writer's file and its offset there) and one
+shard (of its ep shard: an ep rank's experts), with its writer's file and
+its offset there) and one
 ``rankNNNNN.pt`` per writing rank: ``torch.save`` of {dtype name: one
 flat host tensor} holding the rank's pieces (sharding.written_pieces:
-dp, ep and sp index 0 write, each fsdp index the ranges of the
-parameters and moments it holds; nothing is written twice). ``restore``
+dp and sp index 0 write, each fsdp index the ranges of the parameters and
+moments it holds, each ep index its own experts; nothing is written
+twice). ``restore``
 plans what this rank reads (sharding.restore_plan_for), reads it from
 the files memory-mapped (``torch.load(mmap=True, weights_only=True)``,
 so a rank touches only the bytes it needs), assembles its pieces on the
@@ -177,6 +179,7 @@ def state_layout(harness, step: int) -> dict:
 
 
 def _piece(record: dict) -> sharding.Piece:
+    record = sharding.record_split(record)
     return sharding.Piece(**{f.name: record[f.name]
                              for f in dataclasses.fields(sharding.Piece)})
 

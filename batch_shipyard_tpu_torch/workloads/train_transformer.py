@@ -7,7 +7,11 @@ over N ranks; ``--tp N``: Megatron tensor parallelism with the
 vocab-parallel embedding and loss, composing with ``--fused-norm`` and
 ``--int8`` as in the reference; ``--fsdp N``: the
 parameters, their gradients and the optimizer state sharded N ways, each
-layer gathered as it runs (parallel/train.py); dp fills the rest
+layer gathered as it runs (parallel/train.py); ``--moe-experts N`` (0:
+dense) and ``--moe-every K``: every K-th block's MLP becomes N routed
+top-1 SwiGLU experts (models/moe.py), with one routing over the global
+batch; ``--ep N``: the experts split over N ranks, the tokens replicated
+over them (N must divide the experts); dp fills the rest
 of the world, as the reference's auto_axis_sizes; the checkpoint flags
 of workloads/checkpoint.py) plus ``--device {cuda,cpu}``, ``--seed``,
 ``--profile-steps`` and ``--fused-norm`` (bench_transformer's
@@ -24,6 +28,9 @@ of workloads/checkpoint.py) plus ``--device {cuda,cpu}``, ``--seed``,
     python -m torch.distributed.run --nproc-per-node 2 \
         -m batch_shipyard_tpu_torch.workloads.train_transformer \
         --batch 16 --seq-len 4096 --fsdp 2 --steps 20
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m batch_shipyard_tpu_torch.workloads.train_transformer \
+        --moe-experts 8 --ep 4 --batch 8 --seq-len 4096 --steps 20
 
 Checkpoints and the pool's hooks, as in the reference's loop (the port's is
 workloads/train_loop.py, which the vision payloads share): the run
@@ -66,18 +73,19 @@ global batch, ms/step, MFU (None off a card in parallel/mfu's table),
 peak device memory, the parameter bytes a rank holds between steps
 (``resident_param_bytes``: its fsdp chunks) and, per rank, its mesh
 coordinates, its kernel launches and its ring calls by axis
-(``ring_all_reduce.tp``, ``ring_permute.sp``, ...), its peak and
-resident bytes, sha256 digests of its replicated parameters and of its
-tp shard, gathered over fsdp (equal across the ranks that must hold the
-same bits) and, with ``--profile-steps``, trace/train_profile's device
+(``ring_all_reduce.tp``, ``ring_all_reduce.ep``, ``ring_permute.sp``,
+``ring_all_gather.data+tokens``, ...), its peak and resident bytes, sha256
+digests of its replicated parameters, of its tp shard and of its experts
+(its ep shard), gathered over fsdp (equal across the ranks that must hold
+the same bits), with MoE the dropped-token share of each MoE layer in
+the last step and, with ``--profile-steps``, trace/train_profile's device
 breakdown, per-axis collective time and ring wait. With a checkpoint dir
 the JSON line and each rank's entry carry ``checkpoint``: the restored
 step, its ms and read fraction, and per save its step, blocking,
 snapshot and persist ms and the bytes this rank wrote; a preempted run
 adds ``"exit": "preempted"``.
 
-Not offered yet (ROADMAP): --ep, --moe-experts and the compile-cache
-flags.
+Not offered yet (ROADMAP): the compile-cache flags.
 """
 
 from __future__ import annotations
@@ -85,10 +93,12 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+from typing import Optional
 
 import numpy as np
 import torch
 
+from batch_shipyard_tpu_torch.models import moe as moe_mod
 from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
 from batch_shipyard_tpu_torch.parallel import mfu
 from batch_shipyard_tpu_torch.parallel import sharding
@@ -110,22 +120,49 @@ def build_bench_harness(device, seed: int = 0,
                         seq_len: int = BENCH_TRANSFORMER_SEQ,
                         fused_norm: bool = False, quantize: bool = False,
                         group=None, remat: bool = False, mesh=None,
-                        n_layers: int = None) -> train_mod.TrainHarness:
+                        n_layers: int = None, moe_experts: int = 0,
+                        moe_every: int = 2) -> train_mod.TrainHarness:
     """bench_transformer's model with weights drawn from ``seed``;
     ``fused_norm`` and ``quantize`` as bench_transformer(fused_norm=...,
     quantize=...); ``group``: a sequence-parallel RingGroup (ring
     attention over its ranks), or ``mesh``: a RankMesh; ``remat`` as the
-    workload's default; ``n_layers``: a cut depth."""
+    workload's default; ``n_layers``: a cut depth; ``moe_experts`` and
+    ``moe_every`` as the workload's flags."""
     model = dict(BENCH_TRANSFORMER_MODEL)
     if n_layers is not None:
         model["n_layers"] = n_layers
     config = train_mod.make_transformer_config(
         sp=group.size if group is not None else 1, group=group, mesh=mesh,
         **model, max_seq_len=seq_len, dtype=torch.bfloat16, remat=remat,
-        fused_norm=fused_norm, quantize_matmuls=quantize)
+        fused_norm=fused_norm, quantize_matmuls=quantize,
+        moe=moe_config(moe_experts, model["d_model"], model["d_ff"]),
+        moe_every=moe_every)
     return train_mod.build_transformer_train(
         config, batch_size=batch_size, seq_len=seq_len, seed=seed,
         device=device, group=group, mesh=mesh)
+
+
+def moe_config(experts: int, d_model: int, d_ff: int
+               ) -> Optional[moe_mod.MoEConfig]:
+    """The workload's MoEConfig (the reference's: top-1 token routing,
+    capacity factor 1.25, bf16 compute over fp32 parameters), or None for
+    0 experts."""
+    if not experts:
+        return None
+    return moe_mod.MoEConfig(num_experts=experts, d_model=d_model,
+                             d_ff=d_ff, dtype=torch.bfloat16)
+
+
+def dropped_shares(model) -> dict:
+    """The share of (token, choice) pairs each MoE layer dropped in its
+    last forward on this rank (0.0 to 1.0), by layer name."""
+    shares = {}
+    for i, block in enumerate(model.blocks()):
+        routing = getattr(block, "moe", None) and block.moe.last_routing
+        if routing is not None:
+            shares[f"layer_{i}"] = float(
+                (routing.position < 0).float().mean())
+    return shares
 
 
 def random_batch(vocab: int, batch: int, seq_len: int, seed: int,
@@ -159,10 +196,16 @@ def launch_counts() -> dict:
 def check_mesh_sizes(args, world: int) -> None:
     """Exit with a clear message when the world, the sequence, the batch
     or the model cannot be split the way the flags ask."""
-    inner = args.tp * args.sp * args.fsdp
+    inner = args.tp * args.sp * args.fsdp * args.ep
     if inner < 1 or world % inner:
-        raise SystemExit(f"{world} ranks are not divisible by tp * sp * "
-                         f"fsdp = {inner}")
+        axes = "tp * sp * fsdp" + (" * ep" if args.ep > 1 else "")
+        raise SystemExit(f"{world} ranks are not divisible by {axes} = "
+                         f"{inner}")
+    if args.ep > 1 and not args.moe_experts:
+        raise SystemExit("--ep splits the experts: it needs --moe-experts")
+    if args.moe_experts % args.ep:
+        raise SystemExit(f"--moe-experts {args.moe_experts} is not "
+                         f"divisible by --ep {args.ep}")
     for value, by, what, axes in (
             (args.seq_len, args.sp, "--seq-len", "--sp"),
             (args.batch, world // inner * args.fsdp, "--batch",
@@ -173,24 +216,35 @@ def check_mesh_sizes(args, world: int) -> None:
         if value % by:
             raise SystemExit(f"{what} {value} is not divisible by {axes} "
                              f"= {by}")
-    if args.int8 and args.fused_norm:
+    if args.fused_norm and (args.int8 or args.moe_experts):
         raise SystemExit("--fused-norm composes only with the dense path, "
-                         "not --int8")
+                         "not --int8 or --moe-experts")
 
 
 def param_digests(harness) -> dict:
     """sha256 of this rank's replicated parameters (the same on every
-    rank) and of its tp shard (the same on the ranks of its tp index:
-    the split projections, the regrouped fused kernels and the
-    embedding's rows), gathered over fsdp (harness.state_dict: every
-    rank must call it), over their bytes in state-dict order."""
-    digests = {"replicated": hashlib.sha256(),
-               "tp_shard": hashlib.sha256()}
+    rank), of its tp shard (the same on the ranks of its tp index: the
+    split projections, the regrouped fused kernels and the embedding's
+    rows) and, with MoE, of its experts (the same on the ranks of its ep
+    and tp indices), gathered over fsdp (harness.state_dict: every rank
+    must call it), over their bytes in state-dict order."""
+    config = harness.model.config
+    kinds = ("replicated", "tp_shard") + (
+        ("ep_shard",) if config.moe is not None else ())
+    digests = {kind: hashlib.sha256() for kind in kinds}
     for name, tensor in harness.state_dict().items():
-        kind = ("replicated" if sharding.tp_dim(name) is None
-                or harness.model.config.tp == 1 else "tp_shard")
-        digests[kind].update(tensor.detach().cpu().numpy().tobytes())
+        digests[digest_kind(name, config.tp)].update(
+            tensor.detach().cpu().numpy().tobytes())
     return {kind: d.hexdigest() for kind, d in digests.items()}
+
+
+def digest_kind(name: str, tp: int) -> str:
+    """Which of param_digests' digests parameter ``name`` goes into."""
+    if sharding.ep_dim(name) is not None:
+        return "ep_shard"
+    if sharding.tp_dim(name) is None or tp == 1:
+        return "replicated"
+    return "tp_shard"
 
 
 def plain_counts() -> dict:
@@ -221,6 +275,13 @@ def main(argv=None) -> int:
     parser.add_argument("--fsdp", type=int, default=1,
                         help="ranks the parameters, gradients and "
                              "optimizer state are sharded over")
+    parser.add_argument("--ep", type=int, default=1,
+                        help="expert-parallel axis (requires --moe-"
+                             "experts divisible by ep)")
+    parser.add_argument("--moe-experts", type=int, default=0,
+                        help="replace every moe-every'th MLP with N "
+                             "routed experts (0 = dense)")
+    parser.add_argument("--moe-every", type=int, default=2)
     parser.add_argument("--int8", action="store_true",
                         help="int8 matmuls for projections/MLP "
                              "(QAT straight-through backward)")
@@ -240,15 +301,18 @@ def main(argv=None) -> int:
     ctx = distributed.setup(args.device)
     device = ctx["device"]
     check_mesh_sizes(args, ctx["process_count"])
-    mesh = mesh_mod.RankMesh.build(device, tp=args.tp, sp=args.sp,
-                                   fsdp=args.fsdp)
+    mesh = mesh_mod.RankMesh.build(
+        device, tp=args.tp, sp=args.sp, fsdp=args.fsdp, ep=args.ep,
+        roles=mesh_mod.MOE_ROLES if args.moe_experts else
+        tuple(mesh_mod.GROUP_AXES))
     config = train_mod.make_transformer_config(
         mesh=mesh, vocab_size=args.vocab, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads,
         d_head=args.d_model // args.n_heads, d_ff=args.d_ff,
         max_seq_len=args.seq_len, dtype=torch.bfloat16,
         quantize_matmuls=args.int8, fused_norm=args.fused_norm,
-        remat=not args.no_remat)
+        moe=moe_config(args.moe_experts, args.d_model, args.d_ff),
+        moe_every=args.moe_every, remat=not args.no_remat)
     harness = train_mod.build_transformer_train(
         config, batch_size=args.batch, seq_len=args.seq_len,
         seed=args.seed, device=device, mesh=mesh)
@@ -270,6 +334,8 @@ def main(argv=None) -> int:
         "resident_param_bytes": harness.resident_param_bytes,
         "params_sha256": param_digests(harness),
     }
+    if config.moe is not None:
+        rank["moe_dropped_share"] = dropped_shares(harness.model)
     ranks = train_loop.gather_ranks(ctx, args, result, harness, rank,
                                     lambda: batch, mesh)
     if ctx["process_index"] != 0:
@@ -292,7 +358,8 @@ def main(argv=None) -> int:
         "loss": result.loss, "losses": result.losses,
         "mfu_pct": mfu.mfu_pct(
             tokens_per_sec,
-            mfu.transformer_train_flops_per_token(config, args.seq_len),
+            mfu.transformer_train_flops_per_token(
+                config, args.seq_len, batch_size=args.batch),
             peak),
         "peak_mem_gb": ranks[0]["peak_mem_gb"],
         "resident_param_bytes": ranks[0]["resident_param_bytes"],

@@ -129,9 +129,11 @@ Phases, each fatal on failure:
      2 --fused-norm`` and (d) ``--sp 2 --tp 2 --int8`` (dp 2) at 2
      layers; on two ranks (e) the MultiSlice-DCN recipe ``--batch 16
      --seq-len 4096 --fsdp 2`` at full width and depth (remat, the fused
-     loss), each 2 + 3 steps and one profiled. Each must give finite
-     falling losses, every rank exactly mesh_launches_per_step(rank) a
-     step by kernel and by ring axis (K12 on sp rings; K14 + K13 as tp
+     loss), each 2 + 3 steps and one profiled; (a) runs alone, then
+     (b)-(e), their comparisons and the ring checks below run side by
+     side in MESH_ROUNDS (their times are those of shared ranks). Each
+     must give finite falling losses, every rank exactly
+     mesh_launches_per_step(rank) a step by kernel and by ring axis (K12 on sp rings; K14 + K13 as tp
      all-reduces, the data all-reduce and the fsdp loss all-reduce; K13
      gathers of each fsdp unit, forward and in remat's recompute, and
      K14 scatters of its gradient; K13 gathers of the loss's (lse, gold)
@@ -176,9 +178,38 @@ Phases, each fatal on failure:
      whose losses must be the uninterrupted ones bit for bit and whose
      ranks must read half the parameters and moments each; a resume of
      the same step on ``--sp 2 --tp 2`` (the parameters re-cut), within
-     MESH_LOSS_RTOL of them. It prints each rank's read fraction and
-     restore ms;
-  5d. the vision families (``vision``), after the training phases.
+     MESH_LOSS_RTOL of them; the first two side by side, then the two
+     resumes. It prints each rank's read fraction and restore ms;
+  5d. mixture of experts (``moe_phase``, under the marker): (m1)
+     bench_transformer's model and batch with ``--moe-experts 8
+     --moe-every 2`` (top-1 routing, capacity factor 1.25: 6 MoE layers
+     of 8 SwiGLU experts, C 5120), no remat, the fused loss, 2 + 3 steps
+     and one profiled: a finite falling loss, exactly K1 and K2 once a
+     layer and K3-K5 once a step and no plain version, and a MoE layer's
+     forward and backward at the step's shape under
+     ``torch.cuda.set_sync_debug_mode("error")``; ms/step, tokens/s,
+     MFU (the router and all the experts' E x C buffer rows counted,
+     the capacity's padding too), peak
+     GB, each MoE layer's dropped-token share and the device ms a step
+     by op (the expert products are aten::bmm, the gathers
+     aten::index_select). Four ranks on the card (``moe_mesh``): (m2) the
+     MoE-Distributed recipe ``--moe-experts 8 --ep 4 --batch 8 --seq-len
+     4096`` at the workload's defaults (12 layers, remat, dp 1) and one
+     profiled step (ring kernels' ms by axis), (m3) ``--ep 2`` (dp 2) at 2
+     layers, each 2 + 3 steps: every rank finite falling losses, exactly
+     moe_launches_per_step a step, as counted (K13/K14 all-reduces on
+     the ep ring; in (m3) the routing's probabilities gathered by K13 on
+     the data ring, which is the tokens ring too) and no plain version;
+     against one rank of the same flags at ep 1 with the same weights and
+     batch, the same 2 + 3 steps (moe_base): every step's loss, and the
+     state after the first step and after the last (every MoE layer's
+     router, layer 1's expert shard, against one rank's update), within
+     MOE_LIMITS, and layer 1's routing (the first MoE layer, after a dense one) equal
+     index for index, and equal to models/moe.route of the ranks' own
+     router logits gathered in batch order. (m3) runs again with a
+     planted fault, every MoE layer's aux gradient doubled
+     (MOE_FAULT_RUNS), which those checks must catch on every rank;
+  5e. the vision families (``vision``), after the training phases.
      (v1) bench.py bench_resnet's shape through train_resnet: ResNet-50
      at B256, 224x224, bf16, 3 + 10 steps (img/s a card, ms/step, MFU,
      peak GB; a finite, falling loss), then one fp32 step at batch 8 on
@@ -267,11 +298,12 @@ Phases, each fatal on failure:
      attainment and each arm's TTFT printed. K6 with fp32 queries is
      checked at both served shapes in phase 2.
 
-All phases run at full depth but the mesh's (b)-(d) and the checkpoint
-phase's (b). The last two stdout lines are the {"kernels": [...]}
-summary (K1-K16, and K10's two halves) and
-{"ok": true, "device": {...}}. Exits nonzero, printing no result, when
-no CUDA device is present.
+All phases run at full depth but the mesh's (b)-(d), the checkpoint
+phase's (b) and the MoE phase's (m3). The last two stdout lines are the
+{"kernels": [...]} summary (K1-K16, and K10's two halves) and
+{"ok": true, "device": {...}}; before them, a "chip_smoke at <s> s:
+<phase>" line as each phase starts. Exits nonzero, printing no result,
+when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -279,6 +311,22 @@ from __future__ import annotations
 import time
 
 STARTED = time.perf_counter()
+
+import os
+import sys
+
+if __name__ == "__main__" and sys.pycache_prefix is None:
+    # An interpreter told to write no bytecode (PYTHONDONTWRITEBYTECODE)
+    # over an installation that ships none compiles torch's sources anew
+    # in every process (~10 s of an 8-core H100 host's CPU each), and the
+    # script starts some hundred ranks and launchers. It keeps one
+    # bytecode cache in the checkout's build/ for itself and, through the
+    # environment, for every process it starts.
+    sys.pycache_prefix = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "pycache")
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
 
 import bisect
 import collections
@@ -293,11 +341,9 @@ import io
 import itertools
 import json
 import math
-import os
 import pathlib
 import re
 import subprocess
-import sys
 import tempfile
 import threading
 import types
@@ -307,6 +353,7 @@ import numpy as np
 import torch
 
 from batch_shipyard_tpu_torch.models import inference as inf
+from batch_shipyard_tpu_torch.models import moe as moe_mod
 from batch_shipyard_tpu_torch.models import transformer as tfm
 from batch_shipyard_tpu_torch.models.loadgen import load_requests, run_load
 from batch_shipyard_tpu_torch.models.server import ServingFrontEnd
@@ -2450,7 +2497,7 @@ SP = 4
 RING_TIMEOUT_S = 60.0
 SKIP_TIMEOUT_S = 3.0
 SKIP_RAISE_LIMIT_S = 4 * SKIP_TIMEOUT_S + 6.0
-SP_RANKS_TIMEOUT_S = 420.0
+SP_RANKS_TIMEOUT_S = 300.0
 # K16 against a plain sum over members (another order of fp32 adds): the
 # reference test's limits (tests/test_ring_collectives.py:86-90).
 RS_ATOL, RS_REL = 1e-4, 1e-6
@@ -3257,7 +3304,7 @@ def train(device, fused: bool = False, quantize: bool = False) -> dict:
 # (workloads/train_transformer.py:8-10, --seq-len 8192 --sp 4; its --tp 2
 # is not ported) at bench_transformer's widths, batch 8, remat on.
 SP_WARMUP, SP_STEPS, SP_PROFILE_STEPS = 2, 3, 1
-SP_TRAIN_TIMEOUT_S = 600.0
+SP_TRAIN_TIMEOUT_S = 300.0
 # One step's numerics at batch 2, T 2048 (where the fp32 plain model
 # fits): the sp kernel path against single-process plain models.
 SP_NUMERICS_BATCH, SP_NUMERICS_SEQ = 2, 2048
@@ -3490,7 +3537,7 @@ FSDP_PEAK_SAVING_GB = 0.9
 # The meshes whose ring calls mesh_collectives holds against their plain
 # versions ((c) has (d)'s axes).
 MESH_CHECKED = ("recipe", "dp_fsdp", "int8_tp")
-MESH_TRAIN_TIMEOUT_S = 600.0
+MESH_TRAIN_TIMEOUT_S = 300.0
 # (a)'s loss at every step against train_sp's on the same weights and
 # batch: the two differ only in the order of bf16 sums (tp splits the
 # o/down products and adds the halves in bf16, K14's ring order), so each
@@ -3979,19 +4026,70 @@ def train_mesh_run(name: str, marker_env: dict, base: bool = False,
     return row
 
 
+def side_by_side(jobs: dict) -> dict:
+    """Each job (name -> a callable of no arguments) in a thread of its
+    own, all started together: their results by name. Jobs whose times
+    are read do not go here: the ranks of jobs run side by side share
+    the card and the host's cores."""
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(job) for name, job in jobs.items()}
+        return {name: future.result() for name, future in futures.items()}
+
+
+def free_ports(n: int) -> list:
+    """``n`` distinct free localhost ports."""
+    ports = set()
+    while len(ports) < n:
+        ports.add(distributed.free_port())
+    return sorted(ports)
+
+
+# The mesh phase's rounds after (a), which runs alone (its times are the
+# ones PERF.md reads): each round's jobs run side by side (side_by_side),
+# "<name> base" being a run's comparison and "collectives" the mesh ring
+# checks. A launch costs ~30-40 s whatever its ranks (2 ranks of (e) took
+# 37.5 s, 8 of (b) 42.3 s), so rounds, not ranks, set the phase's time;
+# each round stays under ~20 ranks and ~50 GB of the card's memory. The
+# killed-rank check runs alone last: it reads its raise times. Peaks
+# by rank (PR 21's run, GB): (b) 1.66, (c) 1.71, (d) 1.86, (e) 4.84,
+# the bases of (c) 2.53, (d) 2.85, (e) 6.15.
+MESH_ROUNDS = (("dp_fsdp", "fused_tp", "fsdp_recipe"),
+               ("int8_tp", "fused_tp base", "int8_tp base"),
+               ("collectives", "fsdp_recipe base"))
+
+
 def train_mesh(device, marker_env: dict, sp_losses: list,
                fault_path) -> dict:
-    """Phase 5b: the mesh paths' ring calls against their plain versions
-    (mesh_collectives), the MESH_RUNS through the workload, (a)'s
-    losses within MESH_LOSS_RTOL of train_sp's step by step, (c)'s,
-    (d)'s and (e)'s within it of their comparisons' (fsdp_saving: (e)'s
-    memory and parameters against its comparison's), then the
-    killed-rank check."""
+    """Phase 5b: the MESH_RUNS through the workload, (a) alone and the
+    rest in MESH_ROUNDS with the mesh paths' ring calls against their
+    plain versions (mesh_collectives), (a)'s losses within
+    MESH_LOSS_RTOL of train_sp's step by step, (c)'s, (d)'s and (e)'s
+    within it of their comparisons' (fsdp_saving: (e)'s memory and
+    parameters against its comparison's), then the killed-rank check."""
     started = time.perf_counter()
-    rows = {"collectives": mesh_collectives(fault_path)}
+    rows = {"recipe": train_mesh_run("recipe", marker_env)}
+    bases = {}
+    for round_ in MESH_ROUNDS:
+        ports = iter(free_ports(len(round_)))
+        jobs = {}
+        for job in round_:
+            name, _, base = job.partition(" ")
+            if name == "collectives":
+                jobs[job] = functools.partial(mesh_collectives, fault_path)
+            else:
+                jobs[job] = functools.partial(
+                    train_mesh_run, name, marker_env, base=bool(base),
+                    port=next(ports))
+        t0 = time.perf_counter()
+        for job, row in side_by_side(jobs).items():
+            name, _, base = job.partition(" ")
+            (bases if base else rows)[name] = row
+        print(f"train mesh round {list(round_)}: "
+              f"{time.perf_counter() - t0:.1f} s side by side", flush=True)
     for name in MESH_RUNS:
-        rows[name] = row = train_mesh_run(name, marker_env)
-        print(f"train mesh {name} ({row['config']}; {row['ranks']}): "
+        row = rows[name]
+        print(f"train mesh {name} ({row['config']}; {row['ranks']}"
+              f"{'' if name == 'recipe' else ', side by side'}): "
               f"{row['tokens_per_s']:.0f} tokens/s of the global batch, "
               f"{row['ms_per_step']:.1f} ms/step, peak GB per rank "
               f"{row['peak_mem_gb']}, loss ms a step per rank (kernels + "
@@ -4001,17 +4099,8 @@ def train_mesh(device, marker_env: dict, sp_losses: list,
               f"{row['ring_wait_ms_per_step_by_group']}, "
               f"{row['phase_s']:.1f} s", flush=True)
         print(f"train mesh {name} " + json.dumps(row), flush=True)
-    # The comparisons run side by side: only their losses, memory and
-    # digests are read, not their times.
-    based = [name for name, cfg in MESH_RUNS.items() if "base" in cfg]
-    ports = set()
-    while len(ports) < len(based):
-        ports.add(distributed.free_port())
-    with concurrent.futures.ThreadPoolExecutor(len(based)) as pool:
-        bases = dict(zip(based, pool.map(
-            lambda run: train_mesh_run(run[0], marker_env, base=True,
-                                       port=run[1]),
-            zip(based, sorted(ports)))))
+    # Only the comparisons' losses, memory and digests are read, not
+    # their times.
     for name, base in bases.items():
         row = rows[name]
         row["base"] = base
@@ -4276,13 +4365,13 @@ def checkpoint_one_card(device, workdir: pathlib.Path) -> dict:
     return row
 
 
-def _mesh_workload(axes: list, steps: int, flags=(), marker_env=None
-                   ) -> dict:
+def _mesh_workload(axes: list, steps: int, flags=(), marker_env=None,
+                   port: Optional[int] = None) -> dict:
     """The workload under torch.distributed.run, CKPT_MESH_RANKS ranks on
     this card: its JSON line."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
            str(CKPT_MESH_RANKS), "--master-port",
-           str(distributed.free_port()), "-m",
+           str(port or distributed.free_port()), "-m",
            "batch_shipyard_tpu_torch.workloads.train_transformer", *axes,
            *CKPT_MESH, "--steps", str(steps), *flags]
     proc = subprocess.run(cmd, capture_output=True, text=True,
@@ -4306,16 +4395,30 @@ def _mesh_workload(axes: list, steps: int, flags=(), marker_env=None
 
 
 def checkpoint_mesh(workdir: pathlib.Path, marker_env: dict) -> dict:
-    """(b) of the checkpoint phase (the module doc's 5c)."""
+    """(b) of the checkpoint phase (the module doc's 5c): the
+    uninterrupted run beside the saving one, then the two resumes side
+    by side (their times are not read)."""
     import shutil
     a, b = ["--sp", "2", "--fsdp", "2"], ["--sp", "2", "--tp", "2"]
     same, resized = str(workdir / "mesh"), str(workdir / "mesh_resized")
-    whole = _mesh_workload(a, 4, marker_env=marker_env)
-    _mesh_workload(a, 2, ["--checkpoint-dir", same, "--checkpoint-every",
-                          "2"], marker_env)
+    ports = free_ports(2)
+    whole = side_by_side({
+        "whole": functools.partial(_mesh_workload, a, 4,
+                                   marker_env=marker_env, port=ports[0]),
+        "save": functools.partial(
+            _mesh_workload, a, 2, ["--checkpoint-dir", same,
+                                   "--checkpoint-every", "2"], marker_env,
+            port=ports[1])})["whole"]
     shutil.copytree(same, resized)
-    back = _mesh_workload(a, 2, ["--checkpoint-dir", same], marker_env)
-    moved = _mesh_workload(b, 2, ["--checkpoint-dir", resized], marker_env)
+    ports = free_ports(2)
+    resumed = side_by_side({
+        "back": functools.partial(_mesh_workload, a, 2,
+                                  ["--checkpoint-dir", same], marker_env,
+                                  port=ports[0]),
+        "moved": functools.partial(_mesh_workload, b, 2,
+                                   ["--checkpoint-dir", resized],
+                                   marker_env, port=ports[1])})
+    back, moved = resumed["back"], resumed["moved"]
     want = whole["losses"][2:]
     off = [abs(x - y) / abs(y) for x, y in zip(moved["losses"], want)]
     print(f"check checkpoint mesh: uninterrupted {whole['losses']}, same "
@@ -4365,6 +4468,514 @@ def checkpoint_phase(device, marker_env: dict) -> dict:
     print(f"checkpoint phase: {row['phase_s']:.1f} s", flush=True)
     print("checkpoint " + json.dumps(row), flush=True)
     return row
+
+
+# ------------------------- mixture of experts -------------------------
+
+
+# Phase 5d: (m1) bench_transformer's model with --moe-experts 8
+# --moe-every 2 on this card (no remat, the fused loss under the marker);
+# (m2) the MoE-Distributed recipe (recipes/MoE-Distributed-TPU/config/
+# jobs.yaml: --moe-experts 8 --ep 4 --batch 8 --seq-len 4096, at the
+# workload's defaults: bench_transformer's widths, 12 layers, remat) on
+# four ranks of this card (dp 1); (m3) --ep 2 on four ranks (dp 2) at 2
+# layers, batch 8 x 4096. (m2) and (m3) are held against one rank with
+# the same weights and batch (``moe_base``).
+MOE_EXPERTS, MOE_EVERY = 8, 2
+MOE_WARMUP, MOE_STEPS, MOE_PROFILE_STEPS = 2, 3, 1
+MOE_RANKS = 4
+MOE_RUNS = {
+    "m2": dict(ep=4, n_layers=_MODEL["n_layers"], batch=8, seq=4096,
+               profile=True),
+    "m3": dict(ep=2, n_layers=2, batch=8, seq=4096, profile=False),
+}
+# (m3) again with a planted fault: every MoE layer's aux gradient doubled,
+# its value unchanged, as an aux counted once per ep rank or once per data
+# rank would be (both rings have two ranks in m3). The checks against one
+# rank must catch it on every rank.
+MOE_FAULT_RUNS = {"m3_aux_x2": "m3"}
+MOE_RANKS_TIMEOUT_S = 300.0
+# The first MoE layer (moe_every 2), after a dense layer ep does not
+# touch: its routing must equal one rank's index for index.
+MOE_LAYER = 1
+# Every rank against one rank on the same weights and batch
+# (_moe_readings): every step's loss, relative, and each tensor of its
+# state (every MoE layer's router, layer MOE_LAYER's expert shard) after
+# the first step and after the last, as ||rank's - one rank's|| / ||one
+# rank's update||. With dp 1 (m2) they are equal bit for bit. With dp 2
+# (m3) the data ring adds two fp32 halves of each gradient where one rank
+# adds the whole batch, and AdamW's first, sign-like updates carry that
+# rounding on: 1.22e-5 in the losses, 7.8e-6 in the router after the
+# first step, 0.0087 in the experts, 0.052 after the last step. The
+# planted fault (MOE_FAULT_RUNS) moves the router after the first step by
+# 0.478, the losses by 7.3e-5, the state after the last step by 0.222.
+# The limits were set between the two from those readings (NVIDIA H100
+# 80GB HBM3, 700 W; the readings repeat bit for bit from run to run).
+MOE_LOSS_RTOL = 4e-5
+MOE_ROUTER_RTOL = 1e-3
+MOE_STATE_RTOL = 0.15
+MOE_LIMITS = {"loss": MOE_LOSS_RTOL,
+              "routers after the first step": MOE_ROUTER_RTOL,
+              "other state": MOE_STATE_RTOL}
+
+
+def moe_launches_per_step(sizes: dict, layers: int, remat: bool) -> dict:
+    """A MoE training rank's wrapper launches a step (moe_every 2, the
+    fused loss, tp, sp and fsdp 1): K1 once a layer (twice with remat's
+    recompute), K2 once, K3-K5 once; over the ep ring, per MoE layer,
+    Megatron's g forward (again in the recompute) and f backward on the
+    tokens and on the gates, each an all-reduce (K14 then K13); with dp >
+    1, the routing's probabilities gathered over the tokens ring (K13,
+    forward and recompute) and the gradient all-reduce over the data
+    ring, one ring of the same ranks labelled "data+tokens"."""
+    passes = 2 if remat else 1
+    moe_layers = layers // MOE_EVERY
+    want = collections.Counter({"flash_fwd": passes * layers,
+                                "flash_bwd": layers,
+                                **{key: 1 for key in LOSS_KERNELS}})
+    ep = (passes + 2) * moe_layers if sizes["ep"] > 1 else 0
+    data = int(sizes["dp"] > 1)
+    tokens = passes * moe_layers if sizes["dp"] > 1 else 0
+    for label, n in (("ep", ep), ("data+tokens", data)):
+        for call in ("ring_reduce_scatter", "ring_all_gather",
+                     "ring_all_reduce"):
+            want[f"{call}.{label}"] += n
+        want["ring_reduce_scatter"] += n
+        want["ring_all_gather"] += n
+    want["ring_all_gather"] += tokens
+    want["ring_all_gather.data+tokens"] += tokens
+    return {key: n for key, n in want.items() if n}
+
+
+def _capture_logits(model) -> tuple[dict, object]:
+    """Layer MOE_LAYER's router logits of the next forward, computed as
+    MoEMLP.forward computes them (a pre-hook; remove the handle)."""
+    stash = {}
+
+    def hook(module, args):
+        x = args[0]
+        stash["logits"] = torch.nn.functional.linear(
+            x.reshape(-1, x.shape[-1]).float(),
+            module.router.weight.float()).detach().cpu()
+    moe = getattr(model, f"layer_{MOE_LAYER}").moe
+    return stash, moe.register_forward_pre_hook(hook)
+
+
+def _routing(model) -> dict:
+    """Layer MOE_LAYER's last routing (experts and slots) on the host."""
+    routing = getattr(model, f"layer_{MOE_LAYER}").moe.last_routing
+    return {"expert": routing.expert.cpu(), "position": routing.position.cpu()}
+
+
+def _moe_state(harness) -> dict:
+    """Every MoE layer's router and layer MOE_LAYER's experts (this rank's
+    shard) from the harness's state_dict, on the host."""
+    experts = f"layer_{MOE_LAYER}.moe.w_"
+    return {key: t.to("cpu", copy=True)
+            for key, t in harness.state_dict().items()
+            if key.endswith(".moe.router.weight") or key.startswith(experts)}
+
+
+def _state_rel(got: dict, base: dict, first: int, after: str) -> dict:
+    """Each of got's tensors' ||got - one rank's|| / ||one rank's
+    update|| (``base``: moe_base's, its state ``after`` the first step or
+    the last; an expert tensor at the rank's experts [first, first + its
+    count))."""
+    rel = {}
+    for key, value in got.items():
+        rows = (slice(first, first + value.shape[0]) if ".w_" in key else
+                slice(None))
+        want = base[after][key][rows]
+        update = (want - base["init"][key][rows]).norm()
+        rel[key] = float((value - want).norm() / update)
+    return rel
+
+
+def _plant_aux_x2(model) -> None:
+    """MOE_FAULT_RUNS' fault: every MoE layer's aux gradient doubled, its
+    value unchanged."""
+    for block in model.blocks():
+        if getattr(block, "moe", None) is not None:
+            block.moe.register_forward_hook(
+                lambda module, args, out: (out[0],
+                                           2 * out[1] - out[1].detach()))
+
+
+def moe_layer_syncs_nothing(harness, batch_size: int, seq: int) -> None:
+    """One forward and backward of layer MOE_LAYER's MoE layer at the
+    step's shape under torch.cuda.set_sync_debug_mode("error"): any op
+    that reads the device from the host raises (the routing, dispatch and
+    combine must not)."""
+    moe = getattr(harness.model, f"layer_{MOE_LAYER}").moe
+    gen = torch.Generator(device=harness.device).manual_seed(0)
+    x = torch.randn(batch_size, seq, moe.config.d_model, generator=gen,
+                    device=harness.device, dtype=moe.config.dtype,
+                    requires_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = moe(x)
+        (out.float().sum() + aux).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    harness.optimizer.zero_grad(set_to_none=True)
+
+
+def train_moe(device) -> dict:
+    """(m1): bench_transformer's model and batch with --moe-experts 8
+    --moe-every 2, 2 + 3 steps and one profiled. The loss must be finite
+    and fall; every step must launch K1 and K2 once a layer and K3-K5
+    once, no other wrapper and no plain version; a MoE layer's forward and
+    backward must not read the device from the host
+    (moe_layer_syncs_nothing)."""
+    model = train_wl.BENCH_TRANSFORMER_MODEL
+    batch_size = train_wl.BENCH_TRANSFORMER_BATCH
+    seq = train_wl.BENCH_TRANSFORMER_SEQ
+    per_step = moe_launches_per_step({"ep": 1, "dp": 1}, model["n_layers"],
+                                     remat=False)
+    started = time.perf_counter()
+    harness = train_wl.build_bench_harness(
+        device, seed=0, batch_size=batch_size, seq_len=seq,
+        moe_experts=MOE_EXPERTS, moe_every=MOE_EVERY)
+    batch = train_wl.random_batch(model["vocab_size"], batch_size, seq, 0,
+                                  device)
+    moe_layer_syncs_nothing(harness, batch_size, seq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses = [harness.step(batch)["loss"] for _ in range(MOE_WARMUP)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [harness.step(batch)["loss"] for _ in range(MOE_STEPS)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    steps = MOE_WARMUP + MOE_STEPS
+    counts = {k: n for k, n in launch_counts().items() if n}
+    plain = {k: n for k, n in plain_counts().items() if n}
+    losses = [float(x) for x in losses]
+    require(all(math.isfinite(x) for x in losses),
+            f"train moe (m1): non-finite loss {losses}")
+    require(losses[-1] < losses[0],
+            f"train moe (m1): loss did not fall {losses}")
+    require(counts == {k: n * steps for k, n in per_step.items()},
+            f"train moe (m1): launches {counts} in {steps} steps, want "
+            f"{per_step} a step")
+    require(not plain, f"train moe (m1): plain versions ran {plain}")
+    tokens_per_s = batch_size * seq * MOE_STEPS / elapsed
+    flops = mfu.transformer_train_flops_per_token(
+        harness.model.config, seq, batch_size=batch_size)
+    measured = {k: n / steps for k, n in counts.items()}
+    row = {
+        "config": "bench_transformer --moe-experts 8 --moe-every 2, batch "
+                  "16 x 2048, no remat, fused loss",
+        "steps": steps, "timed_steps": MOE_STEPS,
+        "launches": counts, "launches_per_step": measured,
+        "ms_per_step": elapsed / MOE_STEPS * 1e3,
+        "tokens_per_s": tokens_per_s,
+        "tflop_per_step": flops * batch_size * seq / 1e12,
+        "mfu_pct": mfu.mfu_pct(tokens_per_s, flops, mfu.peak_bf16_tflops()),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses,
+        "dropped_share": train_wl.dropped_shares(harness.model),
+        "profile": train_profile.profile_steps(harness, batch,
+                                               MOE_PROFILE_STEPS),
+        "phase_s": time.perf_counter() - started,
+    }
+    print(f"train moe (m1) ({row['config']}): {row['ms_per_step']:.1f} "
+          f"ms/step, {tokens_per_s:.0f} tokens/s, MFU {row['mfu_pct']} "
+          f"(every expert buffer row counted, the capacity's padding too), "
+          f"peak {row['peak_mem_gb']:.2f} GB, launches a step {measured}, "
+          f"dropped share by layer {row['dropped_share']}, device ms a step "
+          f"by op {row['profile']['op_ms_per_step']}", flush=True)
+    print("train moe m1 " + json.dumps(row), flush=True)
+    del harness, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def _moe_harness(device, cfg: dict, mesh=None):
+    return train_wl.build_bench_harness(
+        device, seed=0, batch_size=cfg["batch"], seq_len=cfg["seq"],
+        mesh=mesh, remat=True, n_layers=cfg["n_layers"],
+        moe_experts=MOE_EXPERTS, moe_every=MOE_EVERY)
+
+
+def moe_rank_run(name: str, device, out_dir: pathlib.Path) -> dict:
+    """One MOE_RUNS or MOE_FAULT_RUNS configuration on this rank:
+    MOE_WARMUP + MOE_STEPS steps (and a profiled one where it says); the
+    first step's layer MOE_LAYER routing and router logits and the state
+    after the steps (_moe_state) saved for the parent."""
+    cfg = MOE_RUNS[MOE_FAULT_RUNS.get(name, name)]
+    mesh = mesh_mod.RankMesh.build(device, ep=cfg["ep"],
+                                   timeout_s=RING_TIMEOUT_S,
+                                   roles=mesh_mod.MOE_ROLES)
+    harness = _moe_harness(device, cfg, mesh)
+    if name in MOE_FAULT_RUNS:
+        _plant_aux_x2(harness.model)
+    batch = train_wl.random_batch(_MODEL["vocab_size"], cfg["batch"],
+                                  cfg["seq"], 0, device)
+    stash, handle = _capture_logits(harness.model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses = [harness.step(batch)["loss"]]
+    handle.remove()
+    routing = _routing(harness.model)
+    first_state = _moe_state(harness)
+    losses += [harness.step(batch)["loss"] for _ in range(MOE_WARMUP - 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [harness.step(batch)["loss"] for _ in range(MOE_STEPS)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    mesh.check()
+    counts = {k: n for k, n in launch_counts().items() if n}
+    plain = {k: n for k, n in plain_counts().items() if n}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moe = getattr(harness.model, f"layer_{MOE_LAYER}").moe
+    torch.save({"routing": routing, "logits": stash["logits"],
+                "first": first_state, "last": _moe_state(harness),
+                "first_expert": moe.first_expert},
+               out_dir / f"{name}_rank{mesh.rank}.pt")
+    profile = (train_profile.profile_steps(harness, batch, MOE_PROFILE_STEPS)
+               if cfg["profile"] else None)
+    row = {"rank": mesh.rank, "coords": mesh.coords,
+           "losses": [float(x) for x in losses],
+           "ms_per_step": elapsed / MOE_STEPS * 1e3, "peak_mem_gb": peak,
+           "launches": counts, "plain_calls": plain,
+           "dropped_share": train_wl.dropped_shares(harness.model),
+           "profile": profile}
+    del harness, batch
+    mesh.close()
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_rank_main() -> None:
+    """One of the MOE_RANKS ranks (``moe_mesh`` launches them on the one
+    card): every MOE_RUNS and MOE_FAULT_RUNS configuration in turn.
+    Prints its findings as one JSON line."""
+    spec = json.loads(os.environ["CHIP_SMOKE_MOE"])
+    ctx = distributed.setup()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    result = {name: moe_rank_run(name, ctx["device"],
+                                 pathlib.Path(spec["dir"]))
+              for name in (*MOE_RUNS, *MOE_FAULT_RUNS)}
+    print("MOE_RANK " + json.dumps(result), flush=True)
+
+
+def moe_base(device, name: str) -> dict:
+    """One rank's MOE_WARMUP + MOE_STEPS steps of a MOE_RUNS configuration
+    (ep 1): its losses, layer MOE_LAYER's first routing, and its state
+    (_moe_state) before and after the steps."""
+    cfg = MOE_RUNS[name]
+    harness = _moe_harness(device, cfg)
+    batch = train_wl.random_batch(_MODEL["vocab_size"], cfg["batch"],
+                                  cfg["seq"], 0, device)
+    init = _moe_state(harness)
+    losses = [float(harness.step(batch)["loss"])]
+    routing = _routing(harness.model)
+    first = _moe_state(harness)
+    losses += [float(harness.step(batch)["loss"])
+               for _ in range(MOE_WARMUP + MOE_STEPS - 1)]
+    last = _moe_state(harness)
+    del harness, batch
+    torch.cuda.empty_cache()
+    return {"losses": losses, "routing": routing, "init": init,
+            "first": first, "last": last}
+
+
+def _routing_diff(got: dict, want: dict) -> int:
+    """Entries of two routings (experts, slots) that differ."""
+    return int(sum((got[k] != want[k]).sum() for k in ("expert",
+                                                        "position")))
+
+
+def _moe_readings(res: dict, saved: dict, base: dict) -> dict:
+    """A rank's run against one rank's (moe_base): the worst relative
+    loss over the steps, the first step's, and the worst _state_rel after
+    the first step and after the last (each tensor's too)."""
+    rel = [abs(got - want) / abs(want)
+           for got, want in zip(res["losses"], base["losses"])]
+    out = {"loss_rel": max(rel), "first_loss_rel": rel[0]}
+    for after in ("first", "last"):
+        by_tensor = _state_rel(saved[after], base, saved["first_expert"],
+                               after)
+        out[f"{after}_state_rel"] = max(by_tensor.values())
+        out[f"{after}_state_rel_by_tensor"] = by_tensor
+    return out
+
+
+def _moe_over(readings: dict) -> list:
+    """The _moe_readings over their MOE_LIMITS."""
+    over = ["loss"] if readings["loss_rel"] > MOE_LOSS_RTOL else []
+    for after in ("first", "last"):
+        for key, rel in readings[f"{after}_state_rel_by_tensor"].items():
+            router = after == "first" and key.endswith(".router.weight")
+            if rel > (MOE_ROUTER_RTOL if router else MOE_STATE_RTOL):
+                over.append(f"{key} after the {after} step")
+    return over
+
+
+def moe_mesh(device, out_dir: pathlib.Path) -> dict:
+    """(m2) and (m3): MOE_RANKS ranks on this card (launch_local of
+    moe_rank_main), then one rank of each configuration. Every rank must
+    give finite falling losses, exactly moe_launches_per_step a step and
+    no plain version; its losses and state within MOE_LIMITS of one
+    rank's (_moe_readings, _moe_over); layer
+    MOE_LAYER's routing equal to one rank's at its rows, index for index,
+    and to the global routing (models/moe.route) of the ranks' own router
+    logits gathered in batch order. Every rank of a MOE_FAULT_RUNS run
+    must exceed a limit. The readings print before any check fails."""
+    env = dict(os.environ, CHIP_SMOKE_MOE=json.dumps({"dir": str(out_dir)}))
+    started = time.perf_counter()
+    runs = distributed.launch_local(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.moe_rank_main()"],
+        MOE_RANKS, MOE_RANKS_TIMEOUT_S, env=env,
+        cwd=pathlib.Path(__file__).resolve().parent)
+    ranks = []
+    for run in runs:
+        line = next((ln for ln in run["stdout"].splitlines()[::-1]
+                     if ln.startswith("MOE_RANK ")), None)
+        first = run["stderr"].find("Traceback")
+        require(run["returncode"] == 0 and line is not None,
+                f"moe rank {run['rank']}: rc {run['returncode']} (timed "
+                f"out: {run['timed_out']}): first error "
+                f"{run['stderr'][first:first + 3000] if first >= 0 else ''}"
+                f" ... {run['stderr'][-2000:]}")
+        ranks.append(json.loads(line[len("MOE_RANK "):]))
+    rows = {"ranks_s": time.perf_counter() - started}
+    steps = MOE_WARMUP + MOE_STEPS
+    failures, bases = [], {}
+    for name, cfg in MOE_RUNS.items():
+        sizes = mesh_mod.auto_axis_sizes(MOE_RANKS, ep=cfg["ep"])
+        base = bases[name] = moe_base(device, name)
+        want = moe_launches_per_step(sizes, cfg["n_layers"], remat=True)
+        rows_per_rank = cfg["batch"] // sizes["dp"]
+        saved = [torch.load(out_dir / f"{name}_rank{r}.pt")
+                 for r in range(MOE_RANKS)]
+        # The global routing of the ranks' own logits: one rank of each
+        # data block (ep index 0), in batch order.
+        logits = torch.cat([saved[r]["logits"] for r in range(MOE_RANKS)
+                            if ranks[r][name]["coords"]["ep"] == 0]).view(
+            cfg["batch"], cfg["seq"], MOE_EXPERTS)
+        moe_cfg = train_wl.moe_config(MOE_EXPERTS, _MODEL["d_model"],
+                                      _MODEL["d_ff"])
+        glob = moe_mod.route(logits.to(device), moe_mod.capacity_for(
+            moe_cfg.capacity_factor, cfg["batch"] * cfg["seq"], MOE_EXPERTS),
+            moe_cfg)
+        glob = {"expert": glob.expert.cpu(), "position": glob.position.cpu()}
+        checked = []
+        for r, res in enumerate(rank[name] for rank in ranks):
+            losses = res["losses"]
+            if not (all(math.isfinite(x) for x in losses) and
+                    losses[-1] < losses[0]):
+                failures.append(f"moe {name} rank {r}: losses {losses}")
+            if res["launches"] != {k: n * steps for k, n in want.items()}:
+                failures.append(f"moe {name} rank {r}: launches "
+                                f"{res['launches']} in {steps} steps, want "
+                                f"{want} a step")
+            if res["plain_calls"]:
+                failures.append(f"moe {name} rank {r}: plain versions ran "
+                                f"{res['plain_calls']}")
+            lo = res["coords"]["dp"] * rows_per_rank * cfg["seq"]
+            hi = lo + rows_per_rank * cfg["seq"]
+            mine = {k: v[lo:hi] for k, v in base["routing"].items()}
+            off_base = _routing_diff(saved[r]["routing"], mine)
+            off_global = _routing_diff(saved[r]["routing"], {
+                k: v[lo:hi] for k, v in glob.items()})
+            readings = _moe_readings(res, saved[r], base)
+            checked.append({"rank": r, "routing_entries_off_one_rank":
+                            off_base, "routing_entries_off_global":
+                            off_global, **readings})
+            if off_base or off_global:
+                failures.append(
+                    f"moe {name} rank {r}: layer {MOE_LAYER}'s routing "
+                    f"differs from one rank's in {off_base} entries and "
+                    f"from the global routing of the ranks' logits in "
+                    f"{off_global}")
+            if _moe_over(readings):
+                failures.append(
+                    f"moe {name} rank {r}: {_moe_over(readings)} over "
+                    f"{MOE_LIMITS}: losses {losses} vs one rank's "
+                    f"{base['losses']}, {readings}")
+        del saved
+        dropped = float((base["routing"]["position"] < 0).float().mean())
+        # Rank 0's launches a step, as counted (every rank's are checked
+        # against moe_launches_per_step above).
+        measured = {k: n / steps
+                    for k, n in ranks[0][name]["launches"].items()}
+        rows[name] = row = {
+            "config": (f"--moe-experts {MOE_EXPERTS} --ep {cfg['ep']} "
+                       f"--batch {cfg['batch']} --seq-len {cfg['seq']}, "
+                       f"bench_transformer widths, {cfg['n_layers']} "
+                       f"layers, remat, fused loss (mesh {sizes})"),
+            "ranks": f"{MOE_RANKS} ranks time-sliced on one card",
+            "one_rank_losses": base["losses"],
+            "layer1_dropped_share": dropped, "checked": checked,
+            "launches_per_step_rank0": measured,
+            "launches_rank0": ranks[0][name]["launches"],
+            "losses_rank0": ranks[0][name]["losses"],
+            "ms_per_step": [r[name]["ms_per_step"] for r in ranks],
+            "peak_mem_gb": [r[name]["peak_mem_gb"] for r in ranks],
+            "dropped_share_rank0": ranks[0][name]["dropped_share"]}
+        if cfg["profile"]:
+            profile = [r[name]["profile"] for r in ranks]
+            row.update({
+                "ring_ms_per_step_by_axis": [
+                    p["ring_ms_per_step_by_axis"] for p in profile],
+                "device_idle_share": [p["device_idle_share"]
+                                      for p in profile],
+                "op_ms_per_step_rank0": profile[0]["op_ms_per_step"],
+                "profile": profile})
+        worst = {key: max(c[key] for c in checked)
+                 for key in ("loss_rel", "first_loss_rel", "first_state_rel",
+                             "last_state_rel")}
+        print(f"train moe ({name}) ({row['config']}; {row['ranks']}): "
+              f"losses (rank 0) {row['losses_rank0']} vs one rank's "
+              f"{base['losses']}, worst over the ranks {worst} (limits "
+              f"{MOE_LIMITS}), by tensor (rank 0) after the first step "
+              f"{checked[0]['first_state_rel_by_tensor']} and the last "
+              f"{checked[0]['last_state_rel_by_tensor']}, layer {MOE_LAYER} "
+              f"routing entries off one rank's "
+              f"{[c['routing_entries_off_one_rank'] for c in checked]}, "
+              f"dropped share {dropped:.4f}, launches a step as counted "
+              f"(rank 0; K13/K14 on the ep ring: "
+              f"{measured.get('ring_all_reduce.ep', 0)} all-reduces) "
+              f"{measured}, ms/step per rank {row['ms_per_step']}, peak GB "
+              f"per rank {row['peak_mem_gb']}" +
+              (f", ring kernels' ms a step by axis (rank 0) "
+               f"{row['ring_ms_per_step_by_axis'][0]}, device ms a step "
+               f"by op (rank 0) {row['op_ms_per_step_rank0']}"
+               if cfg["profile"] else ""), flush=True)
+        print(f"train moe {name} " + json.dumps(row), flush=True)
+    for name, of in MOE_FAULT_RUNS.items():
+        readings = []
+        for r, rank in enumerate(ranks):
+            saved = torch.load(out_dir / f"{name}_rank{r}.pt")
+            readings.append(_moe_readings(rank[name], saved, bases[of]))
+            if not _moe_over(readings[-1]):
+                failures.append(f"moe planted fault {name} rank {r}: not "
+                                f"caught, {readings[-1]}")
+        rows[name] = {"of": of, "readings": readings}
+        print(f"train moe planted fault {name} (every MoE layer's aux "
+              f"gradient doubled, in {of}): readings per rank {readings} "
+              f"(limits {MOE_LIMITS})", flush=True)
+    require(not failures, "; ".join(failures))
+    return rows
+
+
+def moe_phase(device) -> dict:
+    """Phase 5d: (m1), then (m2) and (m3), under the loss marker."""
+    started = time.perf_counter()
+    rows = {"m1": train_moe(device)}
+    with tempfile.TemporaryDirectory() as tmp:
+        rows.update(moe_mesh(device, pathlib.Path(tmp)))
+    rows["phase_s"] = time.perf_counter() - started
+    print(f"moe phase: {rows['phase_s']:.1f} s", flush=True)
+    return rows
 
 
 # ------------------------------ serving ------------------------------
@@ -6187,6 +6798,13 @@ def vision(device, smi: str) -> dict:
     return out
 
 
+def mark(phase: str) -> None:
+    """A line with the seconds since the script started, as a phase
+    starts: where a run's time went."""
+    print(f"chip_smoke at {time.perf_counter() - STARTED:.1f} s: {phase}",
+          flush=True)
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6248,6 +6866,7 @@ def main() -> int:
             ".log").read_text()))
     resources["int8_matmul"] = quant_resources(reports["quantization"])
 
+    mark("kernel checks")
     decode_faults = check_kernels(device, [
         fault_libs[("decode_attention", i)]
         for i in range(len(DECODE_FAULTS))])
@@ -6260,6 +6879,7 @@ def main() -> int:
     virtual_readings = check_virtual(
         device, fault_libs["ring_collectives"],
         [fault_libs[("ring_collectives", i)] for i in VREDUCE_FAULTS])
+    mark("kernel timings")
     timing = time_virtual(device, virtual_readings)
     virtual_launches = {key: rc.launches[key] for key in
                         ("virtual_all_gather", "virtual_reduce_scatter")}
@@ -6279,6 +6899,7 @@ def main() -> int:
     # slab path); the fused and int8 phases read one that records the
     # K3-K5 check, as one bench run resolves ``auto`` alike for each.
     os.environ[kernel_select.MARKER_ENV] = str(tmp / "no_marker.json")
+    mark("train")
     trained = train(device)
     marker = tmp / "KERNEL_VALIDATION.json"
     marker.write_text(json.dumps({loss_ops.VALIDATION_NAME: {
@@ -6289,15 +6910,20 @@ def main() -> int:
         int8 = train(device, quantize=True)
         # The sp ranks: the ring checks and timings, one numerics step,
         # then --sp 4 training, all under the same marker.
+        mark("sp")
         sp_checks = sp_collectives(device, faulty["ring_collectives"][0],
                                    numerics_dir=tmp)
         timing.update(sp_checks["timing"])
         sp_numerics(device, tmp)
         sp_trained = train_sp(device, {kernel_select.MARKER_ENV: str(marker)})
+        mark("train mesh")
         meshed = train_mesh(device, {kernel_select.MARKER_ENV: str(marker)},
                             sp_trained["losses"],
                             faulty["ring_collectives"][0])
+        mark("checkpoint")
         checkpoint_phase(device, {kernel_select.MARKER_ENV: str(marker)})
+        mark("moe")
+        moe = moe_phase(device)
         # K12-K14's worst error over the sp ring's checks and the mesh's
         # (the all-reduce's under both K13 and K14).
         mesh_err = meshed["collectives"]["max_abs_err"]
@@ -6313,13 +6939,17 @@ def main() -> int:
     finally:
         os.environ.pop(kernel_select.MARKER_ENV)
         workdir.cleanup()
+    mark("vision")
     seen = vision(device, smi)
+    mark("serve")
     graphs = {name: decode_graph(name, device) for name, _ in SERVED}
     served = {}
     for name, kernel in SERVED:
         served[kernel] = serve(name, kernel, device)
         served[kernel]["graph_check"] = graphs[name]
+    mark("serve speculative")
     speculative = serve_speculative(device)
+    mark("serving tier")
     tier = serving_tier(device)
 
     kernels = []
@@ -6346,6 +6976,15 @@ def main() -> int:
             for name in MESH_RUNS:
                 row[f"launches_mesh_{name}_rank0"] = \
                     meshed[name]["launches_rank0"].get(key, 0)
+            # The MoE ranks' (m2, m3): K13/K14 on the ep ring (and the
+            # tokens and data rings in m3).
+            for name in MOE_RUNS:
+                row[f"launches_moe_{name}_rank0"] = \
+                    moe[name]["launches_rank0"].get(key, 0)
+                row[f"launches_moe_{name}_per_step_by_axis"] = {
+                    k: n for k, n in
+                    moe[name]["launches_per_step_rank0"].items()
+                    if k.startswith(key + ".")}
         elif key in TP_ONLY_KEYS:
             # K10's halves run only where a row is split over tp ranks:
             # rank 0's launches over the int8 tp mesh run's counted steps.
@@ -6368,6 +7007,11 @@ def main() -> int:
             if key in sp_trained["launches_rank0"]:
                 row["launches_sp_train_rank0"] = \
                     sp_trained["launches_rank0"][key]
+            if key in moe["m1"]["launches"]:
+                row["launches_moe_m1"] = moe["m1"]["launches"][key]
+                for name in MOE_RUNS:
+                    row[f"launches_moe_{name}_rank0"] = \
+                        moe[name]["launches_rank0"][key]
             for name in MESH_RUNS:
                 if key in meshed[name]["launches_rank0"]:
                     row[f"launches_mesh_{name}_rank0"] = \

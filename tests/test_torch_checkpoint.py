@@ -939,8 +939,9 @@ def test_fused_norm_flag_refuses_what_the_model_refuses(extra, match):
     model; --fused-norm with --tp is taken by both (the head-wise
     regrouped fused kernels), as in the reference."""
     args = types.SimpleNamespace(**dict(
-        dict(tp=1, sp=1, fsdp=1, seq_len=16, batch=2, n_heads=2, d_ff=32,
-             vocab=64, int8=False, fused_norm=True), **extra))
+        dict(tp=1, sp=1, fsdp=1, ep=1, moe_experts=0, seq_len=16, batch=2,
+             n_heads=2, d_ff=32, vocab=64, int8=False, fused_norm=True),
+        **extra))
 
     class Ring:
         size = args.tp

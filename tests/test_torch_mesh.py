@@ -267,9 +267,9 @@ def test_shard_state_dict_refuses_fused_kernels():
                                         "--tp = 2"),
 ])
 def test_workload_refuses_sizes_it_cannot_split(flags, world, match):
-    args = argparse.Namespace(tp=1, sp=1, fsdp=1, seq_len=16, batch=8,
-                              n_heads=4, d_ff=64, vocab=64, int8=False,
-                              fused_norm=False)
+    args = argparse.Namespace(tp=1, sp=1, fsdp=1, ep=1, moe_experts=0,
+                              seq_len=16, batch=8, n_heads=4, d_ff=64,
+                              vocab=64, int8=False, fused_norm=False)
     it = iter(flags)
     for flag in it:
         setattr(args, flag[2:].replace("-", "_"),

@@ -97,6 +97,28 @@ class _Event:
         self.name, self.time_range = name, _Range(start)
 
 
+def test_train_profile_op_times_are_the_windows_ops():
+    """op_us sums each host op's self device time inside the window, and
+    leaves out the window itself, the events before it and the runtime's
+    markers."""
+    from torch.autograd import DeviceType
+
+    from batch_shipyard_tpu_torch.trace import train_profile
+
+    def event(name, start, us, device=DeviceType.CPU):
+        e = _Event(name, start)
+        e.device_type, e.self_device_time_total = device, us
+        return e
+    events = [event("aten::bmm", 0.0, 5.0),
+              event(train_profile.WINDOW, 1.0, 0.0),
+              event("aten::bmm", 2.0, 3.0), event("aten::bmm", 3.0, 4.0),
+              event("aten::mm", 4.0, 2.0), event("aten::cat", 5.0, 0.0),
+              event("Command Buffer Full", 6.0, 99.0),
+              event("kernel", 7.0, 0.0, DeviceType.CUDA)]
+    assert train_profile.op_us(events) == {"aten::bmm": 7.0, "aten::mm": 2.0}
+    assert train_profile.op_us(events[:1]) == {}
+
+
 @pytest.mark.parametrize("short_windows", [0, 1, 2, 3])
 def test_train_profile_retakes_a_window_short_of_ring_kernels(
         monkeypatch, short_windows):
