@@ -1,7 +1,8 @@
 """Cooperative preemption: the process-side contract.
 
-Counterpart of batch_shipyard_tpu/agent/preemption.py, the half a task
-runs. The pool's agent asks a task to stop by dropping a JSON request
+Counterpart of batch_shipyard_tpu/agent/preemption.py: the half a task
+runs, and the helpers a drill waits with (``preempt_requested``,
+``wait_for_request``). The pool's agent asks a task to stop by dropping a JSON request
 file at ``$SHIPYARD_PREEMPT_REQUEST_FILE``; the training loop polls it
 once per step (one ``os.path.exists`` while nothing is pending, through
 ``PreemptWatcher``, usually via
@@ -17,6 +18,7 @@ import datetime
 import json
 import logging
 import os
+import time
 from typing import Optional
 
 logger = logging.getLogger(__name__)
@@ -98,3 +100,21 @@ class PreemptWatcher:
                        "next step boundary",
                        request.get("reason") or "no reason given")
         return request
+
+
+def preempt_requested() -> bool:
+    """One-shot check for simple loops (no latch)."""
+    path = request_path()
+    return bool(path and os.path.exists(path))
+
+
+def wait_for_request(path: str, timeout: float,
+                     poll_interval: float = 0.05) -> Optional[dict]:
+    """Block until a request file appears at ``path`` (or ``timeout``
+    seconds pass: None); returns it parsed."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if os.path.exists(path):
+            return read_request(path)
+        time.sleep(poll_interval)
+    return None

@@ -1,7 +1,8 @@
 """Task progress beats and scheduling hints.
 
-Counterpart of batch_shipyard_tpu/agent/progress.py, the half a task
-runs. The agent exports ``$SHIPYARD_PROGRESS_FILE`` into every task; the
+Counterpart of batch_shipyard_tpu/agent/progress.py: the half a task
+runs, and ``last_beat``, which the agent's watchdog reads. The agent
+exports ``$SHIPYARD_PROGRESS_FILE`` into every task; the
 training step (parallel/train.TrainHarness.step) bumps its mtime on
 every step, and the agent's wedge watchdog kills a task whose file goes
 stale past its ``progress_deadline_seconds``, so a process that is alive
@@ -71,6 +72,16 @@ def seed(path: str) -> None:
             pass
     except OSError:
         pass
+
+
+def last_beat(path: str) -> Optional[float]:
+    """Wall-clock time of the task's most recent beat (the file's
+    mtime), or None when the file does not exist. The agent's watchdog
+    reads it."""
+    try:
+        return os.stat(path).st_mtime
+    except OSError:
+        return None
 
 
 SCHED_HINTS_FILE_ENV = "SHIPYARD_SCHED_HINTS_FILE"

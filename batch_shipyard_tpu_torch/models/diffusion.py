@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from batch_shipyard_tpu_torch.ops import attention as attn_ops
 from batch_shipyard_tpu_torch.models.vit import (  # noqa: F401
     Dense, Embed, LayerNorm, init_params, patchify, self_attention,
     sincos_2d_positions, unpatchify)
@@ -120,6 +121,10 @@ class DiT(nn.Module):
                                  zero_init=True, device=device)
         self.head = Dense(d, p * p * cfg.channels, torch.float32,
                           cfg.param_dtype, zero_init=True, device=device)
+
+    def kernel_libraries(self) -> tuple[str, ...]:
+        """The kernel libraries a step launches: its attention's."""
+        return attn_ops.libraries(self.pos.device)
 
     def forward(self, x_noisy: torch.Tensor, t: torch.Tensor,
                 labels: Optional[torch.Tensor] = None) -> torch.Tensor:

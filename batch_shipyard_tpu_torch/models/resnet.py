@@ -210,6 +210,11 @@ class ResNet(nn.Module):
         self.classifier = nn.Linear(features, cfg.num_classes,
                                     device=device)
 
+    def kernel_libraries(self) -> tuple[str, ...]:
+        """The kernel libraries a step launches: none (cuDNN's
+        convolutions)."""
+        return ()
+
     def batch_norms(self) -> list:
         return [m for m in self.modules() if isinstance(m, BatchNorm)]
 

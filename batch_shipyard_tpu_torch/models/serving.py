@@ -43,8 +43,17 @@ slot's [y, d_1..d_gamma] block in ONE target forward and commits a
 ragged 1..gamma+1 tokens a slot (``_speculative_step``); on a CUDA device
 that step is the graph captured and replayed, in place of the decode
 step. ``submit(request, resumed=...)`` continues a request another
-replica began (the front end's ``resume_tokens``). AOT precompile
-(the reference's ``precompile``) is not ported.
+replica began (the front end's ``resume_tokens``).
+
+``precompile()`` is the reference's AOT warm start from shapes: with no
+throwaway request it builds (or finds in the compile cache,
+compilecache/manager.py) and loads the decode kernel's library and, on a
+CUDA device, captures the decode (or speculative) step's graph and every
+prefill graph ``warmup()`` captures, from the engine's static buffers.
+Where the reference's AOT executables are kept for their persistent
+compile-cache entries, a CUDA graph lives only in its process: what
+``precompile`` buys is no burned request and no polluted prefix index,
+and, over a seeded cache, no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -59,10 +68,12 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
+from batch_shipyard_tpu_torch.compilecache import manager as cc_manager
 from batch_shipyard_tpu_torch.device import resolve_device
 from batch_shipyard_tpu_torch.goodput import events as goodput_events
 from batch_shipyard_tpu_torch.models import inference as inf
 from batch_shipyard_tpu_torch.models import transformer as tfm
+from batch_shipyard_tpu_torch.ops import _build
 
 
 def _decode_step(model, sampling, cache, tokens, positions, active,
@@ -457,16 +468,7 @@ class ContinuousBatcher:
         captured as a graph of its own; nothing is captured after
         warm-up. Leaves the prefix index and the prefix and speculative
         counters empty. Returns the buckets warmed."""
-        if prompt_len is not None:
-            lengths = [prompt_len]
-        else:
-            lengths = [min(bucket, self.max_decode_len - max_new_tokens)
-                       for bucket in self.warmup_buckets()]
-            if self.paged:
-                lengths = [
-                    length for length in lengths
-                    if -(-(length + max_new_tokens)
-                         // self.page_size) <= self._total_pages]
+        lengths = self._warm_lengths(prompt_len, max_new_tokens)
         warmed: list[int] = []
 
         def drain(length: int) -> None:
@@ -507,6 +509,88 @@ class ContinuousBatcher:
             self.prefix_published = 0
             self.prefix_evictions = 0
         return warmed
+
+    def _warm_lengths(self, prompt_len: Optional[int],
+                      max_new_tokens: int) -> list[int]:
+        """warmup()'s prompt lengths: ``prompt_len``, or one a bucket,
+        less the buckets whose worst case a tight paged pool cannot
+        admit."""
+        if prompt_len is not None:
+            return [prompt_len]
+        lengths = [min(bucket, self.max_decode_len - max_new_tokens)
+                   for bucket in self.warmup_buckets()]
+        if self.paged:
+            lengths = [length for length in lengths
+                       if -(-(length + max_new_tokens)
+                            // self.page_size) <= self._total_pages]
+        return lengths
+
+    @torch.no_grad()
+    def precompile(self) -> int:
+        """The reference's AOT warm start from shapes, on an idle engine,
+        with no request: build and load the decode kernel's library
+        (CUDA); run the prefill of every (kind, bucket) ``warmup()``
+        captures (``_prefill_keys`` of the buckets it warms) on parked
+        arguments and, on a CUDA device, capture its graph; run one
+        decode (or speculative) step with every slot inactive and, on a
+        CUDA device, capture the step graph from the engine's static
+        buffers. The runs write only free rows, slot 0's cache (free on
+        an idle engine) and the scratch page; the cache lengths, the
+        block table, the token, position and active tensors and the
+        random generator are restored after them, and no slot, page,
+        prefix-index entry or counter changes. Recorded as the goodput
+        warm-up phase (``what="serving_aot"``) under
+        ``tracked(attrs, "serving_precompile")``. Returns the
+        reference's count: 1 + the buckets, + the buckets again with a
+        draft."""
+        if self._queue or any(s.request is not None for s in self._slots):
+            raise RuntimeError("precompile needs an idle engine (no queued "
+                               "or active request)")
+        buckets = [self._bucket_length(length)
+                   for length in self._warm_lengths(None, 2)]
+        on_card = self.device.type == "cuda"
+        with goodput_events.phase(goodput_events.PROGRAM_WARMUP,
+                                  what="serving_aot",
+                                  buckets=len(buckets)) as attrs, \
+                cc_manager.tracked(attrs, "serving_precompile"):
+            if on_card:
+                _build.library("decode_attention")
+            kept = self._snapshot_bookkeeping()
+            for kind, bucket in self._prefill_keys(buckets):
+                if (kind, bucket) not in self._prefill_graphs:
+                    self._capture_prefill(kind, bucket, capture=on_card)
+            decode = self._graph is None
+            if decode:
+                if self.speculative is not None:
+                    self._eager_speculative()
+                else:
+                    self._eager_decode()
+            # Captures record without running: restoring before the decode
+            # capture leaves the engine as it was.
+            self._restore_bookkeeping(kept)
+            if decode and on_card:
+                self.capture_decode()
+        return 1 + len(buckets) * (2 if self.speculative is not None else 1)
+
+    def _snapshot_bookkeeping(self) -> dict:
+        """Copies of what a run on parked arguments or inactive slots
+        moves besides free rows: every layer's length or index and the
+        block table (target and draft caches), the token, position and
+        active tensors, and the generator's state."""
+        caches = [self.cache] + ([self._draft_cache]
+                                 if self.speculative is not None else [])
+        tensors = [(t, t.clone()) for cache in caches for layer in cache
+                   for key, t in layer.items()
+                   if key in ("index", "length", "block_table")]
+        tensors += [(t, t.clone()) for t in (self._tokens, self._positions,
+                                             self._active)]
+        return {"tensors": tensors,
+                "generator": self._generator.get_state()}
+
+    def _restore_bookkeeping(self, kept: dict) -> None:
+        for live, copy in kept["tensors"]:
+            live.copy_(copy)
+        self._generator.set_state(kept["generator"])
 
     def submit(self, request: Request,
                resumed: Optional[list[int]] = None) -> None:
@@ -1206,12 +1290,15 @@ class ContinuousBatcher:
                 keys.append(("draft", bucket))
         return keys
 
-    def _capture_prefill(self, kind: str, bucket: int) -> None:
+    def _capture_prefill(self, kind: str, bucket: int,
+                         capture: bool = True) -> None:
         """Capture ``_prefill_body(kind, bucket)`` into a CUDA graph in
         the engine's graph pool, after one eager run of it on arguments
         that touch nothing live: slot 0 of an idle engine, the scratch
         page for every page, a one-token prompt (and for ``shared`` a
-        one-page prefix). Capturing records without running."""
+        one-page prefix). Capturing records without running.
+        ``capture=False``: the eager run alone (a CPU engine's
+        precompile)."""
         page = self.page_size if self.paged else 0
         start = page if kind == "shared" else 0
         self._set_prefill_args(len=start + 1, start=start, slot=0)
@@ -1222,6 +1309,8 @@ class ContinuousBatcher:
                 (self.max_decode_len // page))
         self._push_prefill_args()
         self._prefill_body(kind, bucket)
+        if not capture:
+            return
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._graph_pool,
                               capture_error_mode="thread_local"):

@@ -206,6 +206,10 @@ class ViT(nn.Module):
         self.head = Dense(cfg.d_model, cfg.num_classes, torch.float32,
                           cfg.param_dtype, device=device)
 
+    def kernel_libraries(self) -> tuple[str, ...]:
+        """The kernel libraries a step launches: its attention's."""
+        return attn_ops.libraries(self.pos.device)
+
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """images [B, H, W, 3] -> fp32 logits [B, num_classes]."""
         cfg = self.config

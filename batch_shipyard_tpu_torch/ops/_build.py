@@ -3,12 +3,18 @@ shared headers ``ops/csrc/*.cuh``).
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes`` — no PyTorch
-headers, so a build takes seconds, not minutes. Libraries land under
-``build/torch_kernels/`` at the repository root, named by a digest of
-the source and the flags, and are built at first use: importing this
-module compiles nothing, so the CPU tests (no ``nvcc``) import it
-freely. A built library is reused by later processes until the source
-changes.
+headers, so a build takes seconds, not minutes. Libraries are named by a
+digest of the source, the headers and the flags, and are built at first
+use: importing this module compiles nothing, so the CPU tests (no
+``nvcc``) import it freely. They land in the enabled compile cache's
+identity dir (compilecache/manager.py: ``--compile-cache-dir``, which
+pool-wide seeding carries between nodes), else under
+``build/torch_kernels/`` at the repository root. Either way a built
+library is reused by later processes until the source changes, and a
+process that finds its library builds nothing and never looks for
+``nvcc``. The compiler's output sits in a ``logs/`` subdirectory, so the
+directory's top-level files are the libraries alone (the cache's
+entries).
 """
 
 from __future__ import annotations
@@ -23,9 +29,12 @@ import threading
 import time
 from typing import Optional
 
+from batch_shipyard_tpu_torch.compilecache import manager as cc_manager
+
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[2]
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = REPO_ROOT / "build" / "torch_kernels"
+LOG_DIR = "logs"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -105,6 +114,10 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# Seconds of each nvcc build() ran in this process, by source name: the
+# cold builds a warm start saves (a process that found its libraries
+# has none).
+built: dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -119,20 +132,33 @@ def nvcc_path() -> str:
                        "port's CUDA kernels are built on the GPU host")
 
 
+def build_dir() -> pathlib.Path:
+    """Where libraries are built and loaded: the enabled compile cache's
+    identity dir, else BUILD_DIR."""
+    mgr = cc_manager.current()
+    return pathlib.Path(mgr.cache_dir) if mgr is not None else BUILD_DIR
+
+
 def library_path(name: str) -> pathlib.Path:
     source = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(source.read_bytes() + headers +
                             " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    return build_dir() / f"lib{name}-{digest[:16]}.so"
+
+
+def log_path(target: pathlib.Path) -> pathlib.Path:
+    """The compiler's output for the library ``target``: ``logs/`` beside
+    it."""
+    return target.parent / LOG_DIR / f"{target.stem}.log"
 
 
 def compile_source(source: pathlib.Path, target: pathlib.Path) -> float:
     """nvcc ``source`` into the shared library ``target``. Returns the
     seconds spent. The compiler's output (including ``-Xptxas -v``
-    register and shared-memory reports) is kept beside the library as
-    ``.log``."""
-    target.parent.mkdir(parents=True, exist_ok=True)
+    register and shared-memory reports) is kept at ``log_path(target)``."""
+    log = log_path(target)
+    log.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
            str(source)]
@@ -140,7 +166,7 @@ def compile_source(source: pathlib.Path, target: pathlib.Path) -> float:
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           check=False)
     seconds = time.perf_counter() - started
-    target.with_suffix(".log").write_text(
+    log.write_text(
         " ".join(cmd) + "\n" + proc.stdout + proc.stderr,
         encoding="utf-8")
     if proc.returncode != 0:
@@ -158,7 +184,9 @@ def build(name: str, force: bool = False) -> tuple[pathlib.Path, float]:
     target = library_path(name)
     if target.exists() and not force:
         return target, 0.0
-    return target, compile_source(CSRC / f"{name}.cu", target)
+    seconds = compile_source(CSRC / f"{name}.cu", target)
+    built[name] = seconds
+    return target, seconds
 
 
 def load(path: pathlib.Path, name: str) -> ctypes.CDLL:

@@ -38,6 +38,9 @@ from torch.utils.checkpoint import checkpoint
 from batch_shipyard_tpu_torch.ops import _build
 from batch_shipyard_tpu_torch.ops.paged_attention import stream_handle
 
+# The kernel library (ops/_build.py) this module's wrappers launch.
+LIBRARY = "flash_attention"
+
 _NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SUPPORTED_DEPTHS = (64, 128)
@@ -252,7 +255,7 @@ def flash_forward_kernel(q, k, v, causal: bool, library=None):
     from (default: the one ``_build`` makes from the checkout)."""
     batch, t_len, heads, depth = _check_inputs(q, k, v)
     dev = q.device
-    lib = library or _build.library("flash_attention")
+    lib = library or _build.library(LIBRARY)
     out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     lse = torch.empty((batch * heads, t_len, 1), dtype=torch.float32,
                       device=dev)
@@ -275,7 +278,7 @@ def flash_backward_kernel(q, k, v, lse, dout, delta, causal: bool,
     _row_vector("lse", lse, q, batch * heads, t_len)
     _row_vector("delta", delta, q, batch * heads, t_len)
     dev = q.device
-    lib = library or _build.library("flash_attention")
+    lib = library or _build.library(LIBRARY)
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
     dk = torch.empty(q.shape, dtype=q.dtype, device=dev)
     dv = torch.empty(q.shape, dtype=q.dtype, device=dev)
@@ -392,13 +395,25 @@ def masked_attention_block(q):
                        dtype=torch.float32, device=q.device))
 
 
+def default_impl(device) -> str:
+    """attention()'s impl when none is named: flash for a CUDA device,
+    blockwise for the CPU."""
+    return "flash" if torch.device(device).type == "cuda" else "blockwise"
+
+
+def libraries(device) -> tuple[str, ...]:
+    """The kernel libraries attention() launches on ``device`` by
+    default (a training step's precompile list)."""
+    return (LIBRARY,) if default_impl(device) == "flash" else ()
+
+
 def attention(q, k, v, causal: bool = True, impl: Optional[str] = None,
               block_size: int = 512):
     """Dispatch: 'flash' (K1/K2), 'blockwise' or 'reference'. Default:
-    flash for CUDA tensors, blockwise for CPU tensors. There is no
-    fallback on CUDA: a shape the kernel does not take raises."""
+    ``default_impl(q.device)``. There is no fallback on CUDA: a shape the
+    kernel does not take raises."""
     if impl is None:
-        impl = "flash" if q.is_cuda else "blockwise"
+        impl = default_impl(q.device)
     if impl == "flash":
         return flash_attention(q, k, v, causal)
     if impl == "blockwise":

@@ -59,6 +59,9 @@ from batch_shipyard_tpu_torch.ops import _build, kernel_select
 from batch_shipyard_tpu_torch.ops import ring_collectives
 from batch_shipyard_tpu_torch.ops.paged_attention import stream_handle
 
+# The kernel library (ops/_build.py) this module's wrappers launch.
+LIBRARY = "chunked_loss"
+
 VALIDATION_NAME = "chunked_cross_entropy"
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_DEPTHS = (128, 256, 512, 1024)
@@ -274,7 +277,7 @@ def xent_forward_kernel(h, e, tgt, ignore_id: int = -1, library=None):
     ``_build`` makes from the checkout)."""
     n, d, v = _check_inputs(h, e, tgt)
     dev = h.device
-    lib = library or _build.library("chunked_loss")
+    lib = library or _build.library(LIBRARY)
     lse = torch.empty(n, dtype=torch.float32, device=dev)
     gold = torch.empty(n, dtype=torch.float32, device=dev)
     # The kernel's operands: h and e rounded to TF32 in fp32 (its pre-pass).
@@ -325,7 +328,7 @@ def xent_backward_kernel(h, e, tgt, lse, ds, ignore_id: int = -1,
     dev = h.device
     _row_vector("lse", lse, n, dev)
     _row_vector("ds", ds, n, dev)
-    lib = library or _build.library("chunked_loss")
+    lib = library or _build.library(LIBRARY)
 
     def empty(shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -419,6 +422,27 @@ class _FusedXent(torch.autograd.Function):
         return gh, ge, None, None, None
 
 
+def resolve_impl(impl: str, device, width: int) -> str:
+    """'kernel' (K3-K5) or 'plain' for ``impl`` on ``device`` at hidden
+    width ``width``: 'auto' is the validated kernel on a CUDA device
+    (ops/kernel_select.py); a width that is not a multiple of 128 takes
+    the plain version (the reference's own rule)."""
+    if impl == "auto":
+        impl = kernel_select.resolve_auto(VALIDATION_NAME, device)
+    if impl == "kernel":
+        return "kernel" if width % 128 == 0 else "plain"
+    if impl != "plain":
+        raise ValueError(f"unknown impl {impl!r}")
+    return impl
+
+
+def libraries(impl: str, device, width: int) -> tuple[str, ...]:
+    """The kernel libraries the loss launches (a training step's
+    precompile list)."""
+    return (LIBRARY,) if resolve_impl(impl, device, width) == "kernel" \
+        else ()
+
+
 def chunked_softmax_xent(hidden, embedding, targets, ignore_id: int = -1,
                          impl: str = "auto", chunk_size: int = 128,
                          tp_group=None):
@@ -435,14 +459,9 @@ def chunked_softmax_xent(hidden, embedding, targets, ignore_id: int = -1,
     if hidden.dim() == 3:
         hidden = hidden.reshape(-1, hidden.shape[-1])
         targets = targets.reshape(-1)
-    if impl == "auto":
-        impl = kernel_select.resolve_auto(VALIDATION_NAME, hidden.device)
+    impl = resolve_impl(impl, hidden.device, hidden.shape[1])
     if impl == "kernel":
-        if hidden.shape[1] % 128 == 0:
-            return _FusedXent.apply(hidden, embedding, targets, ignore_id,
-                                    tp_group)
-        impl = "plain"  # lane-misaligned width: the reference's own rule
-    if impl != "plain":
-        raise ValueError(f"unknown impl {impl!r}")
+        return _FusedXent.apply(hidden, embedding, targets, ignore_id,
+                                tp_group)
     return _xent_plain(hidden, embedding, targets, ignore_id, chunk_size,
                        tp_group)

@@ -33,6 +33,9 @@ import torch
 from batch_shipyard_tpu_torch.ops import _build
 from batch_shipyard_tpu_torch.ops.paged_attention import stream_handle
 
+# The kernel library (ops/_build.py) this module's wrappers launch.
+LIBRARY = "fused_norm"
+
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches and calls of the plain forward; chip_smoke.py zeroes
@@ -81,7 +84,7 @@ def rmsnorm_matmul_kernel(x, scale, w, eps: float = 1e-6, library=None):
             raise ValueError(f"{name} must be contiguous, 16-byte aligned "
                              f"and on {x.device}")
     dev = x.device
-    lib = library or _build.library("fused_norm")
+    lib = library or _build.library(LIBRARY)
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     rstd = torch.empty(m, dtype=torch.float32, device=dev)  # per-row 1/rms
     rc = lib.bs_rmsnorm_matmul(dev.index or 0, x.data_ptr(),
@@ -93,10 +96,21 @@ def rmsnorm_matmul_kernel(x, scale, w, eps: float = 1e-6, library=None):
     return out
 
 
-def _forward(x, scale, w, eps: float, impl: Optional[str]):
+def uses_kernel(impl: Optional[str], device) -> bool:
+    """True when rmsnorm_matmul at ``impl`` launches K9 on ``device``."""
     if impl not in (None, "kernel", "plain"):
         raise ValueError(f"unknown rmsnorm_matmul impl {impl!r}")
-    if impl != "plain" and x.is_cuda:
+    return impl != "plain" and torch.device(device).type == "cuda"
+
+
+def libraries(impl: Optional[str], device) -> tuple[str, ...]:
+    """The kernel libraries rmsnorm_matmul launches (a training step's
+    precompile list)."""
+    return (LIBRARY,) if uses_kernel(impl, device) else ()
+
+
+def _forward(x, scale, w, eps: float, impl: Optional[str]):
+    if uses_kernel(impl, x.device):
         return rmsnorm_matmul_kernel(x, scale, w, eps)
     return rmsnorm_matmul_reference(x, scale, w, eps)
 

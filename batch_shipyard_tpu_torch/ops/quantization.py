@@ -68,6 +68,9 @@ import torch
 from batch_shipyard_tpu_torch.ops import _build, ring_collectives
 from batch_shipyard_tpu_torch.ops.paged_attention import stream_handle
 
+# The kernel library (ops/_build.py) this module's wrappers launch.
+LIBRARY = "quantization"
+
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # K10 holds a row in registers: 128 threads x 8 vectors of 16 bytes.
 QUANTIZE_MAX_K = {torch.float32: 4096, torch.bfloat16: 8192}
@@ -168,7 +171,7 @@ def quantize_int8_kernel(x, bits, library=None):
                          f"got K {k}")
     dev = x.device
     _check_cuda("bits", bits, dev, (torch.int32,), (m, k))
-    lib = library or _build.library("quantization")
+    lib = library or _build.library(LIBRARY)
     values = torch.empty((m, k), dtype=torch.int8, device=dev)
     scales = torch.empty((m, 1), dtype=torch.float32, device=dev)
     rc = lib.bs_quantize_int8(dev.index or 0, x.data_ptr(), bits.data_ptr(),
@@ -179,11 +182,23 @@ def quantize_int8_kernel(x, bits, library=None):
     return values, scales
 
 
-def _dispatch(impl: Optional[str], t) -> bool:
-    """True when the kernel takes this call."""
+def uses_kernel(impl: Optional[str], device) -> bool:
+    """True when the int8 path at ``impl`` launches K10/K11 on
+    ``device``."""
     if impl not in (None, "kernel", "plain"):
         raise ValueError(f"unknown quantization impl {impl!r}")
-    return impl != "plain" and t.is_cuda
+    return impl != "plain" and torch.device(device).type == "cuda"
+
+
+def libraries(impl: Optional[str], device) -> tuple[str, ...]:
+    """The kernel libraries the int8 path launches (a training step's
+    precompile list)."""
+    return (LIBRARY,) if uses_kernel(impl, device) else ()
+
+
+def _dispatch(impl: Optional[str], t) -> bool:
+    """True when the kernel takes this call."""
+    return uses_kernel(impl, t.device)
 
 
 def quantize_int8(x, bits, impl: Optional[str] = None):
@@ -218,7 +233,7 @@ def row_absmax_kernel(x, library=None):
     fp32 [M]."""
     m, k = _check_rows(x)
     dev = x.device
-    lib = library or _build.library("quantization")
+    lib = library or _build.library(LIBRARY)
     out = torch.empty(m, dtype=torch.float32, device=dev)
     rc = lib.bs_row_absmax(dev.index or 0, x.data_ptr(), out.data_ptr(), m,
                            k, DTYPE_CODES[x.dtype], stream_handle(dev))
@@ -238,7 +253,7 @@ def quantize_scaled_kernel(x, bits, scales, library=None):
         raise ValueError(f"scales: want a contiguous fp32 [{m}] on {dev}, "
                          f"got {tuple(scales.shape)} {scales.dtype} on "
                          f"{scales.device}")
-    lib = library or _build.library("quantization")
+    lib = library or _build.library(LIBRARY)
     values = torch.empty((m, k), dtype=torch.int8, device=dev)
     rc = lib.bs_quantize_scaled(dev.index or 0, x.data_ptr(),
                                 bits.data_ptr(), scales.data_ptr(),
@@ -309,7 +324,7 @@ def int8_matmul_kernel(x_q, x_scales, w_q, w_scales, library=None):
     _check_cuda("w_q", w_q, dev, (torch.int8,), (n, k))
     _check_cuda("x_scales", x_scales, dev, (torch.float32,), (m, 1))
     _check_cuda("w_scales", w_scales, dev, (torch.float32,), (n, 1))
-    lib = library or _build.library("quantization")
+    lib = library or _build.library(LIBRARY)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     rc = lib.bs_int8_matmul(dev.index or 0, x_q.data_ptr(),
                             x_scales.data_ptr(), w_q.data_ptr(),

@@ -81,6 +81,17 @@ def resolve_ring_impl(impl: str = "auto", device=None) -> str:
     return "kernel" if cuda else "plain"
 
 
+def libraries(device, impl: str = "auto") -> tuple[str, ...]:
+    """The kernel libraries ring_attention launches on ``device`` at
+    ``impl``: the flash kernels, and K12's for the kernel tier."""
+    tier = resolve_ring_impl(impl, device)
+    if tier == "kernel":
+        return (attn_ops.LIBRARY, ring_collectives.LIBRARY)
+    if tier == "flash" and torch.device(device).type == "cuda":
+        return (attn_ops.LIBRARY,)
+    return ()
+
+
 class _MaskedRotation(torch.autograd.Function):
     """A rotation whose keys all lie after this shard's queries: the
     empty partial (masked_attention_block), with k and v kept in the

@@ -75,6 +75,9 @@ from batch_shipyard_tpu_torch.ops import _build
 from batch_shipyard_tpu_torch.ops.paged_attention import stream_handle
 from batch_shipyard_tpu_torch.parallel.mesh import SLOT_ALIGN, _round_up
 
+# The kernel library (ops/_build.py) this module's wrappers launch.
+LIBRARY = "ring_collectives"
+
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches (one per wrapper call; K12-K14 launch a copy kernel per
@@ -154,7 +157,7 @@ def _vector(chunk_elems: int, dtype: torch.dtype, *tensors) -> int:
 
 
 def _lib(library):
-    return library or _build.library("ring_collectives")
+    return library or _build.library(LIBRARY)
 
 
 # ------------------------- K12 and K13 as plans ---------------------------

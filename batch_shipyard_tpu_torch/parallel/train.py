@@ -120,6 +120,11 @@ from batch_shipyard_tpu_torch.device import resolve_device
 from batch_shipyard_tpu_torch.models import convert
 from batch_shipyard_tpu_torch.models import moe as moe_mod
 from batch_shipyard_tpu_torch.models import transformer as tfm
+from batch_shipyard_tpu_torch.ops import _build
+from batch_shipyard_tpu_torch.ops import attention as attn_ops
+from batch_shipyard_tpu_torch.ops import chunked_loss as loss_ops
+from batch_shipyard_tpu_torch.ops import fused_norm as norm_ops
+from batch_shipyard_tpu_torch.ops import quantization as quant_ops
 from batch_shipyard_tpu_torch.ops import ring_attention as ring
 from batch_shipyard_tpu_torch.ops import ring_collectives
 from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
@@ -140,7 +145,26 @@ class HeldState:
     ``state_kinds`` (sharding.STATE_KINDS for AdamW, SGD_STATE_KINDS):
     ``layout``, ``state_tensors``, ``held_pieces``, ``state_pieces`` and
     ``load_state_pieces`` over the pieces ``_piece_view`` names, by
-    default whole parameters and their optimizer state."""
+    default whole parameters and their optimizer state. Also the warm
+    start: ``precompile`` builds and loads the kernel libraries the
+    harness's ``kernel_libraries()`` names."""
+
+    def precompile(self) -> list[str]:
+        """Build (or find in the compile cache, compilecache/manager.py)
+        and load every kernel library the step launches, so the first
+        step launches without building; compilecache/aot.py runs it on a
+        thread. Returns the library names."""
+        names = self.kernel_libraries()
+        for name in names:
+            _build.library(name)
+        return names
+
+    def _ring_libraries(self) -> tuple[str, ...]:
+        """The ring collectives' library wherever a mesh's rings run
+        kernels (a CUDA mesh of more than one rank)."""
+        if self.mesh is None or self.device.type != "cuda":
+            return ()
+        return (ring_collectives.LIBRARY,)
 
     @property
     def layout(self) -> tuple[dict, dict]:
@@ -348,6 +372,28 @@ class TrainHarness(HeldState):
         if aux is not None:
             loss = loss + config.moe_aux_weight * aux
         return loss
+
+    def kernel_libraries(self) -> list[str]:
+        """The kernel libraries this harness's step launches, from the
+        selections the step makes: the attention's (the flash kernels,
+        or ring attention's tier with sp > 1; none for a custom
+        ``attention_fn``), the loss's ``loss_impl``, K9's with
+        ``fused_norm``, K10/K11's with ``quantize_matmuls`` and the ring
+        collectives' on a mesh. Empty on the CPU."""
+        config, device = self.model.config, self.device
+        sp = self.mesh.sizes["sp"] if self.mesh is not None else 1
+        names = set(self._ring_libraries())
+        if sp > 1:
+            names.update(ring.libraries(device))
+        elif config.attention_fn is None:
+            names.update(attn_ops.libraries(device))
+        names.update(loss_ops.libraries(self.loss_impl, device,
+                                        config.d_model))
+        if config.fused_norm:
+            names.update(norm_ops.libraries(config.fused_norm_impl, device))
+        if config.quantize_matmuls:
+            names.update(quant_ops.libraries(config.quantize_impl, device))
+        return sorted(names)
 
     def sum_tp_partial_grads(self) -> None:
         """Step 3 of the module doc: the fused norm scales' gradients in
@@ -608,6 +654,13 @@ class VisionHarness(HeldState):
         self.steps += 1
         progress.beat()
         return {"loss": loss}
+
+    def kernel_libraries(self) -> list[str]:
+        """The kernel libraries this harness's step launches: the
+        model's (``kernel_libraries()``: ViT's and DiT's attention,
+        none for ResNet) and the data ring's on a mesh."""
+        return sorted(set(self.model.kernel_libraries()) |
+                      set(self._ring_libraries()))
 
     def _sum_grads(self, loss: torch.Tensor) -> torch.Tensor:
         """Every parameter's gradient and the loss share, summed over the

@@ -46,7 +46,10 @@ def setup(device=None) -> dict:
     (RANK/WORLD_SIZE, else SHIPYARD_TASK_INSTANCE/INSTANCES) and pick this
     rank's device: ``cuda:(LOCAL_RANK % device_count)`` unless ``device``
     names the CPU (``resolve_device``: no CUDA and no "cpu" raises).
-    Returns the rank and topology as a dict."""
+    Returns the rank and topology as a dict, with ``started``: the
+    ``time.perf_counter()`` at the call, from which a workload counts its
+    time to the first step."""
+    started = time.perf_counter()
     instances = _env_int("SHIPYARD_TASK_INSTANCES", default=1)
     instance = _env_int("SHIPYARD_TASK_INSTANCE", default=0)
     world = _env_int("WORLD_SIZE", default=instances)
@@ -70,7 +73,7 @@ def setup(device=None) -> dict:
             timeout=datetime.timedelta(seconds=PROCESS_GROUP_TIMEOUT_S))
     return {"instances": instances, "instance": instance,
             "process_index": rank, "process_count": world,
-            "local_rank": local_rank, "device": dev}
+            "local_rank": local_rank, "device": dev, "started": started}
 
 
 def log(ctx: dict, message: str) -> None:

@@ -46,6 +46,15 @@ the fleet simulator's day/night curve with ``--rate`` as its peak. A
 preempt notice at ``$SHIPYARD_PREEMPT_REQUEST_FILE`` drains every front
 end: no new admissions, decodes finish within ``--drain-grace-s``, the
 router resumes the rest on a sibling.
+
+The warm start (compilecache/): ``--compile-cache-dir D`` (default
+``$SHIPYARD_COMPILE_CACHE_DIR``; ``--no-compile-cache`` opts out) keeps
+the kernel libraries in ``D/ident-<identity>/``, the identity keyed to
+the model config. Each engine is warmed before its front end takes
+traffic by the reference's rule (``warm_engine``): with
+``--aot-precompile`` and a cache enabled, ``precompile()`` (its library
+and every graph from shapes, no request), else ``warmup()`` (a
+throwaway request a bucket).
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from typing import Optional
 
 import torch
 
+from batch_shipyard_tpu_torch.compilecache import manager as cc_manager
 from batch_shipyard_tpu_torch.config.slo import serving_slo_settings
 from batch_shipyard_tpu_torch.device import resolve_device
 from batch_shipyard_tpu_torch.models import inference as inf
@@ -260,11 +270,20 @@ def build_engine(args, config=None, params=None, speculative=None,
         device=device, speculative=speculative)
 
 
-def warm_engine(engine: serving.ContinuousBatcher) -> list[int]:
-    """Warm one engine before its front end takes traffic: every
-    prefill bucket through throwaway requests, and on the card the
-    decode graph and every prefill graph. Returns the buckets."""
-    return engine.warmup()
+def warm_engine(args, engine: serving.ContinuousBatcher) -> None:
+    """Warm one engine before its front end takes traffic, by the
+    reference's rule: with ``--aot-precompile`` and a compile cache
+    enabled, ``precompile()`` (the decode kernel's library, and on the
+    card the decode graph and every prefill graph, from shapes: no
+    request is burned and the prefix index stays empty); otherwise
+    ``warmup()`` (a throwaway request a prefill bucket, capturing the
+    same graphs). The reference reserves precompile for an enabled
+    cache because its AOT executables are kept only there; the rule is
+    kept so that one flag set means one thing in both packages."""
+    if args.aot_precompile and cc_manager.current() is not None:
+        engine.precompile()
+    else:
+        engine.warmup()
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -360,6 +379,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--checkpoint-dir", default=None,
                         help="serve the parameters of the latest committed "
                         "step of a train_transformer checkpoint dir")
+    cc_manager.add_compile_cache_args(parser)
     return parser.parse_args(argv)
 
 
@@ -368,6 +388,10 @@ def main(argv=None) -> int:
     slo = build_slo(args)
     slo_classes = slo.class_targets() if slo else None
     device = resolve_device(args.device)
+    # Before any engine exists: the engines' libraries load from the
+    # cache.
+    cc_manager.enable_from_args(
+        args, model_digest=cc_manager.config_digest(build_config(args)))
     router = None
     if args.replicas > 1:
         from batch_shipyard_tpu_torch.models.router import ServingRouter
@@ -382,7 +406,7 @@ def main(argv=None) -> int:
                    for _ in range(args.replicas)]
         # Every capture before any front end's engine thread runs.
         for engine in engines:
-            warm_engine(engine)
+            warm_engine(args, engine)
         fronts = [ServingFrontEnd(engine, port=0, slo_classes=slo_classes,
                                   max_inflight=args.max_inflight,
                                   io_timeout_s=args.io_timeout_s,
@@ -395,7 +419,7 @@ def main(argv=None) -> int:
               f"({device})", flush=True)
     else:
         engine = build_engine(args, slo=slo)
-        warm_engine(engine)
+        warm_engine(args, engine)
         fronts = [ServingFrontEnd(engine, host=args.host, port=args.port,
                                   slo_classes=slo_classes,
                                   max_inflight=args.max_inflight,

@@ -5,7 +5,7 @@ Counterpart of batch_shipyard_tpu/workloads/train_diffusion.py, with its
 flags and defaults (``--batch-per-device 64 --image-size 32
 --patch-size 4 --d-model 512 --layers 8 --heads 8 --num-classes None
 --steps 50 --warmup 3 --sample N --sample-steps 50``, d_ff 4 x d_model,
-and the checkpoint flags) plus ``--device {cuda,cpu}`` and ``--seed``:
+the checkpoint and the compile-cache flags) plus ``--device {cuda,cpu}`` and ``--seed``:
 
     python -m batch_shipyard_tpu_torch.workloads.train_diffusion \\
         --batch-per-device 64 --steps 50 --sample 4
@@ -38,6 +38,7 @@ from batch_shipyard_tpu_torch.models import diffusion as dif_mod
 from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
 from batch_shipyard_tpu_torch.parallel import train as train_mod
 from batch_shipyard_tpu_torch.workloads import distributed
+from batch_shipyard_tpu_torch.workloads import train_loop
 from batch_shipyard_tpu_torch.workloads import vision
 
 
@@ -58,16 +59,18 @@ def main(argv=None) -> int:
     ctx = distributed.setup(args.device)
     device = ctx["device"]
     world = ctx["process_count"]
-    mesh = mesh_mod.RankMesh.build(device)
     batch_size = args.batch_per_device * world
     config = dif_mod.DiTConfig(
         image_size=args.image_size, patch_size=args.patch_size,
         d_model=args.d_model, n_layers=args.layers, n_heads=args.heads,
         d_ff=4 * args.d_model, num_classes=args.num_classes,
         dtype=torch.bfloat16)
+    vision.enable_cache(args, world, config)
+    mesh = mesh_mod.RankMesh.build(device)
     harness = train_mod.build_diffusion_train(
         config, batch_size=batch_size, seed=args.seed, device=device,
         mesh=mesh)
+    join_aot = train_loop.start_precompile(args, harness)
     rng = np.random.RandomState(args.seed)
     batch = {"images": np.tanh(rng.randn(
         batch_size, args.image_size, args.image_size, 3)).astype(np.float32)}
@@ -80,7 +83,8 @@ def main(argv=None) -> int:
     def summary(r):
         return (f"dit: mesh={r['mesh']} {r['images_per_sec']:.1f} img/s "
                 f"total, loss={r['loss']:.4f}")
-    status, report = vision.run(ctx, args, harness, lambda: mine, summary)
+    status, report = vision.run(ctx, args, harness, lambda: mine, summary,
+                                "diffusion", join_aot=join_aot)
     if status == 0 and args.sample and world > 1:
         distributed.log(ctx, "ddim sampling skipped on multi-process runs; "
                              "sample from a restored checkpoint")

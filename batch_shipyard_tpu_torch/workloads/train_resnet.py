@@ -3,8 +3,9 @@ metric, "ResNet-50 images/sec/chip"), on one card or data parallel.
 
 Counterpart of batch_shipyard_tpu/workloads/train_resnet.py, with its
 flags and defaults (``--batch-per-device 128 --image-size 224 --steps 50
---warmup 3 --num-classes 1000 --data-dir --prefetch 2`` and the
-checkpoint flags) plus ``--device {cuda,cpu}`` and ``--seed``:
+--warmup 3 --num-classes 1000 --data-dir --prefetch 2``, the
+checkpoint flags and the compile-cache flags ``--compile-cache-dir``,
+``--no-compile-cache`` and ``--aot-precompile``) plus ``--device {cuda,cpu}`` and ``--seed``:
 
     python -m batch_shipyard_tpu_torch.workloads.train_resnet \\
         --batch-per-device 128 --steps 50
@@ -50,6 +51,7 @@ from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
 from batch_shipyard_tpu_torch.parallel import mfu
 from batch_shipyard_tpu_torch.parallel import train as train_mod
 from batch_shipyard_tpu_torch.workloads import distributed
+from batch_shipyard_tpu_torch.workloads import train_loop
 from batch_shipyard_tpu_torch.workloads import vision
 
 # bench.py bench_resnet's shape: ResNet-50 at batch 256, 224x224, bf16.
@@ -81,13 +83,15 @@ def main(argv=None) -> int:
     ctx = distributed.setup(args.device)
     device = ctx["device"]
     world = ctx["process_count"]
-    mesh = mesh_mod.RankMesh.build(device)
     batch_size = args.batch_per_device * world
     config = resnet_mod.ResNetConfig(num_classes=args.num_classes,
                                      dtype=torch.bfloat16)
+    vision.enable_cache(args, world, config)
+    mesh = mesh_mod.RankMesh.build(device)
     harness = train_mod.build_resnet_train(config, batch_size=batch_size,
                                            seed=args.seed, device=device,
                                            mesh=mesh)
+    join_aot = train_loop.start_precompile(args, harness)
     if args.data_dir:
         dataset = loader.ShardedDataset(args.data_dir, harness.local_batch,
                                         ctx["process_index"], world)
@@ -112,8 +116,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.benchmark = device.type == "cuda" or benchmark
     try:
         status, report = vision.run(
-            ctx, args, harness, lambda: next(batches), summary,
-            mfu.resnet50_train_flops_per_image(args.image_size))
+            ctx, args, harness, lambda: next(batches), summary, "resnet",
+            mfu.resnet50_train_flops_per_image(args.image_size),
+            join_aot=join_aot)
     finally:
         torch.backends.cudnn.benchmark = benchmark
     vision.emit(ctx, {"model": "resnet50", **report})

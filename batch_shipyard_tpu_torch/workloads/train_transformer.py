@@ -63,6 +63,19 @@ As in the reference, the warm-up steps run after the restore and update
 the state without being counted as steps: compare a resumed run with an
 uninterrupted one at ``--warmup 0``.
 
+The warm start (compilecache/): ``--compile-cache-dir D`` (default
+``$SHIPYARD_COMPILE_CACHE_DIR``, which the pool's agent exports;
+``--no-compile-cache`` opts out) builds the kernel libraries into, and
+loads them from, ``D/ident-<identity>/``, the identity keyed to the
+torch and CUDA versions, the card, the world size, the mesh axes and a
+digest of the model config, so a seeded node or a restart builds
+nothing; ``--aot-precompile`` builds and loads the step's libraries on a
+thread while the batch and the restore are set up. The warm-up's
+goodput ``compile`` event carries ``cache_hit`` and ``saved_seconds``:
+
+    python -m batch_shipyard_tpu_torch.workloads.train_transformer \
+        --compile-cache-dir /shipyard/compilecache --aot-precompile
+
 Weights are drawn from ``--seed`` (models/convert.init_params) at full
 shape and sharded; one random batch of tokens and targets from
 ``np.random.RandomState(seed)`` is repeated every step, as in the
@@ -84,8 +97,6 @@ the JSON line and each rank's entry carry ``checkpoint``: the restored
 step, its ms and read fraction, and per save its step, blocking,
 snapshot and persist ms and the bytes this rank wrote; a preempted run
 adds ``"exit": "preempted"``.
-
-Not offered yet (ROADMAP): the compile-cache flags.
 """
 
 from __future__ import annotations
@@ -98,7 +109,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from batch_shipyard_tpu_torch.compilecache import manager as cc_manager
 from batch_shipyard_tpu_torch.models import moe as moe_mod
+from batch_shipyard_tpu_torch.models import transformer as tfm
 from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
 from batch_shipyard_tpu_torch.parallel import mfu
 from batch_shipyard_tpu_torch.parallel import sharding
@@ -296,33 +309,47 @@ def main(argv=None) -> int:
                         help="then profile this many steps on the card "
                              "(trace/train_profile)")
     checkpoint.add_checkpoint_args(parser)
+    cc_manager.add_compile_cache_args(parser)
     args = parser.parse_args(argv)
 
     ctx = distributed.setup(args.device)
     device = ctx["device"]
-    check_mesh_sizes(args, ctx["process_count"])
-    mesh = mesh_mod.RankMesh.build(
-        device, tp=args.tp, sp=args.sp, fsdp=args.fsdp, ep=args.ep,
-        roles=mesh_mod.MOE_ROLES if args.moe_experts else
-        tuple(mesh_mod.GROUP_AXES))
-    config = train_mod.make_transformer_config(
-        mesh=mesh, vocab_size=args.vocab, d_model=args.d_model,
+    world = ctx["process_count"]
+    check_mesh_sizes(args, world)
+    model = dict(
+        vocab_size=args.vocab, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads,
         d_head=args.d_model // args.n_heads, d_ff=args.d_ff,
         max_seq_len=args.seq_len, dtype=torch.bfloat16,
         quantize_matmuls=args.int8, fused_norm=args.fused_norm,
         moe=moe_config(args.moe_experts, args.d_model, args.d_ff),
         moe_every=args.moe_every, remat=not args.no_remat)
+    # The cache before the mesh, whose rings load the ring collectives'
+    # library on the card. Its identity takes the mesh's axes and the
+    # one-device config of the model (the mesh's rings are not part of
+    # it).
+    cc_manager.enable_from_args(
+        args, mesh_shape=mesh_mod.auto_axis_sizes(
+            world, tp=args.tp, sp=args.sp, fsdp=args.fsdp, ep=args.ep),
+        model_digest=cc_manager.config_digest(tfm.TransformerConfig(
+            **model)))
+    mesh = mesh_mod.RankMesh.build(
+        device, tp=args.tp, sp=args.sp, fsdp=args.fsdp, ep=args.ep,
+        roles=mesh_mod.MOE_ROLES if args.moe_experts else
+        tuple(mesh_mod.GROUP_AXES))
+    config = train_mod.make_transformer_config(mesh=mesh, **model)
     harness = train_mod.build_transformer_train(
         config, batch_size=args.batch, seq_len=args.seq_len,
         seed=args.seed, device=device, mesh=mesh)
+    join_aot = train_loop.start_precompile(args, harness)
     batch = random_batch(args.vocab, args.batch, args.seq_len, args.seed,
                          device)
     on_card = device.type == "cuda"
     tokens = args.batch * args.seq_len
     result = train_loop.run(ctx, args, harness, lambda: batch,
-                            {"tokens": tokens}, mesh,
-                            counters={"launches": launch_counts})
+                            {"tokens": tokens}, "transformer", mesh,
+                            counters={"launches": launch_counts},
+                            join_aot=join_aot)
     rank = {
         "rank": ctx["process_index"], "coords": mesh.coords,
         "launches": {key: n for key, n in launch_counts().items() if n},

@@ -4,8 +4,8 @@ parallel.
 Counterpart of batch_shipyard_tpu/workloads/train_vit.py, with its flags
 and defaults (ViT-B/16 at 224: ``--batch-per-device 128 --image-size
 224 --patch-size 16 --d-model 768 --layers 12 --heads 12 --num-classes
-1000 --steps 50 --warmup 3``, d_ff 4 x d_model, and the checkpoint
-flags) plus ``--device {cuda,cpu}`` and ``--seed``:
+1000 --steps 50 --warmup 3``, d_ff 4 x d_model, the checkpoint and
+the compile-cache flags) plus ``--device {cuda,cpu}`` and ``--seed``:
 
     python -m batch_shipyard_tpu_torch.workloads.train_vit \\
         --batch-per-device 128 --steps 50
@@ -34,6 +34,7 @@ from batch_shipyard_tpu_torch.models import vit as vit_mod
 from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
 from batch_shipyard_tpu_torch.parallel import train as train_mod
 from batch_shipyard_tpu_torch.workloads import distributed
+from batch_shipyard_tpu_torch.workloads import train_loop
 from batch_shipyard_tpu_torch.workloads import vision
 
 
@@ -50,16 +51,18 @@ def main(argv=None) -> int:
 
     ctx = distributed.setup(args.device)
     device = ctx["device"]
-    mesh = mesh_mod.RankMesh.build(device)
     batch_size = args.batch_per_device * ctx["process_count"]
     config = vit_mod.ViTConfig(
         image_size=args.image_size, patch_size=args.patch_size,
         num_classes=args.num_classes, d_model=args.d_model,
         n_layers=args.layers, n_heads=args.heads, d_ff=4 * args.d_model,
         dtype=torch.bfloat16)
+    vision.enable_cache(args, ctx["process_count"], config)
+    mesh = mesh_mod.RankMesh.build(device)
     harness = train_mod.build_vit_train(config, batch_size=batch_size,
                                         seed=args.seed, device=device,
                                         mesh=mesh)
+    join_aot = train_loop.start_precompile(args, harness)
     rng = np.random.RandomState(args.seed)
     batch = {
         "images": np.asarray(rng.randn(batch_size, args.image_size,
@@ -73,7 +76,8 @@ def main(argv=None) -> int:
         return (f"vit: mesh={r['mesh']} {r['images_per_sec']:.1f} img/s "
                 f"total, {r['images_per_sec_per_rank']:.1f} img/s/chip, "
                 f"loss={r['loss']:.4f}")
-    status, report = vision.run(ctx, args, harness, lambda: mine, summary)
+    status, report = vision.run(ctx, args, harness, lambda: mine, summary,
+                                "vit", join_aot=join_aot)
     vision.emit(ctx, {"model": "vit", "seq_len": config.num_patches,
                       **report})
     return status

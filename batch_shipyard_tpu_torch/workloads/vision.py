@@ -1,6 +1,8 @@
 """What the vision workloads share (train_resnet.py, train_vit.py,
-train_diffusion.py): their flags, and ``run``: the training loop of
-workloads/train_loop.py, counted in images, and its report.
+train_diffusion.py): their flags (the compile-cache flags among them),
+``enable_cache`` (before the mesh and the harness are built), and
+``run``: the training loop of workloads/train_loop.py, counted in
+images, and its report.
 
 Rank 0 prints the reference's summary line and then one JSON line:
 images/s of the global batch, per card in use and per rank, ms/step,
@@ -22,6 +24,8 @@ from typing import Callable, Optional
 
 import torch
 
+from batch_shipyard_tpu_torch.compilecache import manager as cc_manager
+from batch_shipyard_tpu_torch.parallel import mesh as mesh_mod
 from batch_shipyard_tpu_torch.parallel import mfu
 from batch_shipyard_tpu_torch.workloads import checkpoint
 from batch_shipyard_tpu_torch.workloads import distributed
@@ -31,8 +35,8 @@ from batch_shipyard_tpu_torch.workloads import train_loop
 def add_args(parser, batch_per_device: int, steps: int = 50,
              warmup: int = 3) -> None:
     """The flags every vision workload takes: the reference's batch,
-    step and warm-up counts and checkpoint flags, and the port's
-    ``--device`` and ``--seed``."""
+    step and warm-up counts, checkpoint and compile-cache flags, and the
+    port's ``--device`` and ``--seed``."""
     parser.add_argument("--batch-per-device", type=int,
                         default=batch_per_device)
     parser.add_argument("--steps", type=int, default=steps)
@@ -45,6 +49,16 @@ def add_args(parser, batch_per_device: int, steps: int = 50,
                         help="then profile this many steps on the card "
                              "(trace/train_profile)")
     checkpoint.add_checkpoint_args(parser)
+    cc_manager.add_compile_cache_args(parser)
+
+
+def enable_cache(args, world: int, config) -> None:
+    """The compile cache (``--compile-cache-dir``) for this dp mesh of
+    ``world`` ranks and model ``config``. Call it before the mesh is
+    built: on the card its rings load the ring collectives' library."""
+    cc_manager.enable_from_args(
+        args, mesh_shape=mesh_mod.auto_axis_sizes(world),
+        model_digest=cc_manager.config_digest(config))
 
 
 def ring_calls() -> dict:
@@ -71,21 +85,25 @@ def digest(tensors) -> str:
 
 
 def run(ctx: dict, args, harness, next_batch: Callable[[], dict],
-        summary: Callable[[dict], str],
-        flops_per_image: Optional[float] = None) -> tuple[int, dict]:
+        summary: Callable[[dict], str], family: str,
+        flops_per_image: Optional[float] = None,
+        join_aot: Optional[Callable[[], None]] = None) -> tuple[int, dict]:
     """train_loop.run over ``harness`` (parallel/train.VisionHarness) fed
-    by ``next_batch()``; ``summary(report)`` is the reference's line.
-    Returns (exit status, the JSON report, also on ranks other than 0,
-    which print nothing)."""
+    by ``next_batch()``; ``summary(report)`` is the reference's line;
+    ``family`` and ``join_aot`` as train_loop.run's. Returns (exit
+    status, the JSON report, also on ranks other than 0, which print
+    nothing)."""
     device = harness.device
     on_card = device.type == "cuda"
     world = ctx["process_count"]
     images = harness.batch_size
     result = train_loop.run(
-        ctx, args, harness, next_batch, {"images": images}, harness.mesh,
+        ctx, args, harness, next_batch, {"images": images}, family,
+        harness.mesh,
         counters={"ring": lambda: {**ring_calls(),
                                    "grads": harness.grad_all_reduces},
-                  "launches": launch_counts})
+                  "launches": launch_counts},
+        join_aot=join_aot)
     params = dict(harness.model.named_parameters())
     buffers = [t for name, t in harness.model.state_dict().items()
                if name not in params]

@@ -6,7 +6,11 @@ NVIDIA card.
 
 Phases, each fatal on failure:
   1. build the kernels from ops/csrc with nvcc (sm_90a), one nvcc per
-     source, all started together, and print each kernel's registers a
+     source, all started together, through the compile cache
+     (compilecache/manager.py) into a fresh cache dir: every library a
+     new entry, each one's cold nvcc seconds printed (the libraries are
+     then copied into build/torch_kernels/, where the ranks and workloads
+     the script starts load them); and print each kernel's registers a
      thread, static shared memory and spills (the -Xptxas -v report)
      and K1/K2's dynamic shared memory a block (K6-K8's cluster kernels:
      their plans' dynamic shared memory, cluster size and stages);
@@ -100,6 +104,20 @@ Phases, each fatal on failure:
      random bits once per K10 call; its numerics check runs the plain and
      fp32 models on the plain quantize and int8 matmul. All three
      training phases run at full depth;
+  4b. (w) the warm start (``warm_start``), as bench.py
+     bench_compile_warm measures it: two fresh processes of
+     train_transformer at that bench's child widths (WARM_ARGS: vocab
+     512, d 128, 2 layers, d_ff 256, B2 x T128, no remat; 2 heads of 64,
+     where the bench has 4 of 32: K1/K2 take depths 64 and 128), the
+     fused loss under the marker, sharing one new --compile-cache-dir.
+     Run 1 starts empty and builds the libraries its step needs; run 2
+     adds --aot-precompile and runs with no nvcc it could reach (PATH
+     without the toolkit's bin, $CUDA_HOME an empty dir). Run 2 must
+     build nothing (0 new entries, its warm-up a cache hit) and give run
+     1's losses bit for bit. Printed: each run's time to the first step
+     (from distributed.setup) and the speedup, its first step against
+     its steady step, the entries each added and each library's cold
+     nvcc seconds;
   5. four sequence-parallel ranks on this one card (``sp_collectives``:
      SP local processes, gloo, the ring kernels' buffers mapped by CUDA
      IPC): K12 (+1 and -1 shifts and its backward through autograd), K13
@@ -115,7 +133,8 @@ Phases, each fatal on failure:
      close to a single-process fp32 model as train_numerics requires;
      and when rank 3 skips one K12 call of a step shaped like a train
      step's ring calls (four K12, then K14, then K13) every rank must
-     raise within SKIP_RAISE_LIMIT_S. Then ``--seq-len 8192 --sp 4``
+     raise within SKIP_RAISE_LIMIT_S. Then (at the start of 5b, side by
+     side with its (a)) ``--seq-len 8192 --sp 4``
      training at bench_transformer's widths (batch 8, remat, the fused
      loss under the marker) through ``python -m torch.distributed.run``
      and the workload's entry point, 2 + 3 steps and one profiled: the
@@ -129,9 +148,10 @@ Phases, each fatal on failure:
      2 --fused-norm`` and (d) ``--sp 2 --tp 2 --int8`` (dp 2) at 2
      layers; on two ranks (e) the MultiSlice-DCN recipe ``--batch 16
      --seq-len 4096 --fsdp 2`` at full width and depth (remat, the fused
-     loss), each 2 + 3 steps and one profiled; (a) runs alone, then
-     (b)-(e), their comparisons and the ring checks below run side by
-     side in MESH_ROUNDS (their times are those of shared ranks). Each
+     loss), each 2 + 3 steps and one profiled; (a) runs beside the sp
+     training above, then (b)-(e), their comparisons and the ring checks
+     below run side by side in MESH_ROUNDS (all these times are those of
+     shared ranks). Each
      must give finite falling losses, every rank exactly
      mesh_launches_per_step(rank) a step by kernel and by ring axis (K12 on sp rings; K14 + K13 as tp
      all-reduces, the data all-reduce and the fsdp loss all-reduce; K13
@@ -150,9 +170,9 @@ Phases, each fatal on failure:
      every ring call of the paths at their shapes, each fsdp unit's
      gather and gradient reduce-scatter included, and (d)'s row-parallel
      int8 operands against K10 over the whole rows, bit for bit on every
-     rank (mesh_collectives). Then a rank of a small recipe-shaped mesh
-     kills itself mid-step and every other rank must raise within
-     KILL_RAISE_LIMIT_S;
+     rank (mesh_collectives). In the last round a rank of a small
+     recipe-shaped mesh kills itself mid-step and every other rank must
+     raise within KILL_RAISE_LIMIT_S;
   5c. checkpoints (``checkpoint``; workloads/checkpoint.py, the loop's
      pool hooks), all dirs in a temp dir the phase removes. (a) One card,
      bench_transformer's fused configuration under the marker through the
@@ -277,11 +297,15 @@ Phases, each fatal on failure:
   9. the serving tier (serving_tier). (p) the prefill graphs: on
      bench_serving's paged page-64 engine and (s3)'s engine, warm-up
      must return every bucket 16-512 and capture the paged, the
-     shared-prefix suffix and the draft prefill at each; each replay must
-     equal an eager run of the same prefill bit for bit, in the logits
-     and the cache rows of the prompt; each one's replayed and eager ms
-     (CUDA events) and device kernels are printed; traffic after it
-     captures nothing. (f) bench.py bench_serving_fleet as written: 2
+     shared-prefix suffix and the draft prefill at each; a third paged
+     engine warmed by ``precompile()`` instead (from shapes) must hold
+     the same (kind, bucket) graphs and a decode graph, return the
+     reference's count, and have burned no request (no decode step,
+     page, slot, prefix-index entry, counter or cache length moved);
+     on each engine every replay must equal an eager run of the same
+     prefill bit for bit, in the logits and the cache rows of the
+     prompt; each one's replayed and eager ms (CUDA events) and device
+     kernels are printed; traffic after it captures nothing. (f) bench.py bench_serving_fleet as written: 2
      replicas of the bench_serving model (bf16, dense cache) sharing one
      parameter set behind the port's router, 64 requests at 24 Hz of
      64-128 + 64-128 tokens, seed 0: every request must finish, both
@@ -343,6 +367,7 @@ import json
 import math
 import pathlib
 import re
+import shutil
 import subprocess
 import tempfile
 import threading
@@ -352,6 +377,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from batch_shipyard_tpu_torch.compilecache import manager as cc_manager
 from batch_shipyard_tpu_torch.models import inference as inf
 from batch_shipyard_tpu_torch.models import moe as moe_mod
 from batch_shipyard_tpu_torch.models import transformer as tfm
@@ -3429,17 +3455,17 @@ def sp_numerics(device, out_dir) -> dict:
     return row
 
 
-def train_sp(device, marker_env: dict) -> dict:
+def train_sp(device, marker_env: dict, port: Optional[int] = None) -> dict:
     """Phase 5: ``--sp 4`` training at full width through the workload's
     entry point under ``python -m torch.distributed.run``, four ranks on
-    this one card. The loss must be finite and fall; every rank must
-    launch exactly sp_launches_per_step(rank) a step and no plain
-    version."""
+    this one card (rendezvous on ``port``, a free one by default). The
+    loss must be finite and fall; every rank must launch exactly
+    sp_launches_per_step(rank) a step and no plain version."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     cmd = [sys.executable, "-m", "torch.distributed.run",
            "--nproc-per-node", str(SP), "--master-port",
-           str(distributed.free_port()), "-m",
+           str(port or distributed.free_port()), "-m",
            "batch_shipyard_tpu_torch.workloads.train_transformer",
            "--sp", str(SP), "--seq-len", str(SP_SEQ), "--batch",
            str(SP_BATCH), "--warmup", str(SP_WARMUP), "--steps",
@@ -4044,30 +4070,34 @@ def free_ports(n: int) -> list:
     return sorted(ports)
 
 
-# The mesh phase's rounds after (a), which runs alone (its times are the
-# ones PERF.md reads): each round's jobs run side by side (side_by_side),
+# The mesh phase's rounds after (a), which runs beside train_sp: each
+# round's jobs run side by side (side_by_side),
 # "<name> base" being a run's comparison and "collectives" the mesh ring
 # checks. A launch costs ~30-40 s whatever its ranks (2 ranks of (e) took
 # 37.5 s, 8 of (b) 42.3 s), so rounds, not ranks, set the phase's time;
-# each round stays under ~20 ranks and ~50 GB of the card's memory. The
-# killed-rank check runs alone last: it reads its raise times. Peaks
-# by rank (PR 21's run, GB): (b) 1.66, (c) 1.71, (d) 1.86, (e) 4.84,
-# the bases of (c) 2.53, (d) 2.85, (e) 6.15.
+# each round stays under ~20 ranks and ~50 GB of the card's memory (the
+# peaks below are torch's; the rings' mapped buffers come on top: (e)'s
+# comparison beside the first round ran the card out of memory). "kill"
+# is the killed-rank check (a small mesh), in the lightest round: the
+# times it reads run from the kill to each rank's raise, against twice
+# the ring timeout. Peaks by rank (PR 21's run, GB): (b) 1.66, (c) 1.71,
+# (d) 1.86, (e) 4.84, the bases of (c) 2.53, (d) 2.85, (e) 6.15.
 MESH_ROUNDS = (("dp_fsdp", "fused_tp", "fsdp_recipe"),
                ("int8_tp", "fused_tp base", "int8_tp base"),
-               ("collectives", "fsdp_recipe base"))
+               ("collectives", "fsdp_recipe base", "kill"))
 
 
 def train_mesh(device, marker_env: dict, sp_losses: list,
-               fault_path) -> dict:
-    """Phase 5b: the MESH_RUNS through the workload, (a) alone and the
-    rest in MESH_ROUNDS with the mesh paths' ring calls against their
-    plain versions (mesh_collectives), (a)'s losses within
-    MESH_LOSS_RTOL of train_sp's step by step, (c)'s, (d)'s and (e)'s
-    within it of their comparisons' (fsdp_saving: (e)'s memory and
-    parameters against its comparison's), then the killed-rank check."""
+               fault_path, recipe: Optional[dict] = None) -> dict:
+    """Phase 5b: the MESH_RUNS through the workload, (a) (``recipe``: its
+    row where the caller ran it, else run here alone) and the rest in
+    MESH_ROUNDS with the mesh paths' ring calls against their plain
+    versions (mesh_collectives), (a)'s losses within MESH_LOSS_RTOL of
+    train_sp's step by step, (c)'s, (d)'s and (e)'s within it of their
+    comparisons' (fsdp_saving: (e)'s memory and parameters against its
+    comparison's), and the killed-rank check (in the last round)."""
     started = time.perf_counter()
-    rows = {"recipe": train_mesh_run("recipe", marker_env)}
+    rows = {"recipe": recipe or train_mesh_run("recipe", marker_env)}
     bases = {}
     for round_ in MESH_ROUNDS:
         ports = iter(free_ports(len(round_)))
@@ -4076,6 +4106,8 @@ def train_mesh(device, marker_env: dict, sp_losses: list,
             name, _, base = job.partition(" ")
             if name == "collectives":
                 jobs[job] = functools.partial(mesh_collectives, fault_path)
+            elif name == "kill":
+                jobs[job] = functools.partial(mesh_kill, device)
             else:
                 jobs[job] = functools.partial(
                     train_mesh_run, name, marker_env, base=bool(base),
@@ -4126,7 +4158,6 @@ def train_mesh(device, marker_env: dict, sp_losses: list,
             f"train mesh recipe: losses {recipe} off train_sp's "
             f"{sp_losses} by {off}")
     rows["loss_rel_vs_sp"] = off
-    rows["kill"] = mesh_kill(device)
     rows["phase_s"] = time.perf_counter() - started
     print(f"train mesh phase: {rows['phase_s']:.1f} s", flush=True)
     return rows
@@ -5227,18 +5258,11 @@ def replayed_step_launches(name, reading: dict) -> dict:
     return found
 
 
-def warm(name, engine: ContinuousBatcher) -> tuple[dict, dict]:
-    """``engine.warmup()`` with its decode steps counted, then the engine
-    watched from the outside. Warm-up must warm every bucket
-    (``warmup_buckets``), capture a prefill graph for every prefill it
-    can run there (``_prefill_keys``) and run exactly one decode step
-    eagerly (its first) and one capture: every later step replays. So a
-    decode kernel's wrapper counts its per-step launches twice in the
-    warm-up and never again. Returns the warm-up's row and a dict that
-    counts, from then on, captures (decode or prefill), eager decode
-    steps and eager prefills (a prefill with no graph): all must stay 0
-    under traffic."""
-    started = time.perf_counter()
+@contextlib.contextmanager
+def counted_decode(engine: ContinuousBatcher):
+    """Counts, inside the block, the engine's eager decode (or
+    speculative) steps and its decode captures; the step a capture
+    records is not counted."""
     eager_name = ("_eager_speculative" if engine.speculative is not None
                   else "_eager_decode")
     eager, capture = getattr(engine, eager_name), engine.capture_decode
@@ -5258,10 +5282,26 @@ def warm(name, engine: ContinuousBatcher) -> tuple[dict, dict]:
     setattr(engine, eager_name, counted_eager)
     engine.capture_decode = counted_capture
     try:
-        buckets = engine.warmup()
+        yield calls
     finally:
         setattr(engine, eager_name, eager)
         engine.capture_decode = capture
+
+
+def warm(name, engine: ContinuousBatcher) -> tuple[dict, dict]:
+    """``engine.warmup()`` with its decode steps counted, then the engine
+    watched from the outside. Warm-up must warm every bucket
+    (``warmup_buckets``), capture a prefill graph for every prefill it
+    can run there (``_prefill_keys``) and run exactly one decode step
+    eagerly (its first) and one capture: every later step replays. So a
+    decode kernel's wrapper counts its per-step launches twice in the
+    warm-up and never again. Returns the warm-up's row and a dict that
+    counts, from then on, captures (decode or prefill), eager decode
+    steps and eager prefills (a prefill with no graph): all must stay 0
+    under traffic."""
+    started = time.perf_counter()
+    with counted_decode(engine) as calls:
+        buckets = engine.warmup()
     keys = engine._prefill_keys(buckets)
     row = {"buckets": buckets, "eager_decode_steps": calls["eager"],
            "decode_captures": calls["captures"],
@@ -5273,20 +5313,83 @@ def warm(name, engine: ContinuousBatcher) -> tuple[dict, dict]:
             calls["captures"] == 1,
             f"{name} warm-up: {row}, prefill graphs "
             f"{sorted(engine._prefill_graphs)}")
+    return row, watch(engine)
+
+
+def watch(engine: ContinuousBatcher) -> dict:
+    """A dict that counts, from now on, the engine's captures (decode or
+    prefill), eager decode steps and eager prefills (a prefill with no
+    graph)."""
+    eager_name = ("_eager_speculative" if engine.speculative is not None
+                  else "_eager_decode")
     live = {"captures": 0, "eager_decode_steps": 0, "eager_prefills": 0}
 
     def counting(attr, key):
         fn = getattr(engine, attr)
 
-        def counted(*args):
+        def counted(*args, **kwargs):
             live[key] += 1
-            return fn(*args)
+            return fn(*args, **kwargs)
         setattr(engine, attr, counted)
     counting("capture_decode", "captures")
     counting("_capture_prefill", "captures")
     counting(eager_name, "eager_decode_steps")
     counting("_prefill_body", "eager_prefills")
-    return row, live
+    return live
+
+
+def _idle_state(engine: ContinuousBatcher) -> dict:
+    """What a burned request or a polluted engine would move: the decode
+    steps, the slots, the queue, the page lists and reservations, the
+    prefix index and counters, the timing samples, the block table and
+    every cache length, the token, position and active tensors."""
+    torch.cuda.synchronize()
+    return {
+        "decode_steps": engine.decode_steps,
+        "slots": [s.request for s in engine._slots],
+        "queue": len(engine._queue),
+        "free_pages": sorted(engine._free_pages),
+        "avail_pages": engine._avail_pages,
+        "reserved": list(engine._slot_reserved),
+        "prefix_index": len(engine._prefix_index), "lru": len(engine._lru),
+        "prefix": engine.prefix_stats(), "slo": engine.slo_stats(),
+        "timed_buckets": sorted(engine._timed_buckets),
+        "table": engine._table.tolist(),
+        "lengths": [layer["length"].tolist() for layer in engine.cache],
+        "device_table": engine.cache[0]["block_table"].tolist(),
+        "tokens": engine._tokens.tolist(),
+        "positions": engine._positions.tolist(),
+        "active": engine._active.tolist()}
+
+
+def warm_from_shapes(name, engine: ContinuousBatcher,
+                     want_keys: list) -> tuple[dict, dict]:
+    """``engine.precompile()`` on an idle engine: it must capture the
+    decode graph and exactly the (kind, bucket) prefill graphs
+    ``want_keys`` (a warmup()-warmed engine's), return the reference's
+    count, run one decode step eagerly (every slot inactive) and one
+    capture, and leave _idle_state as it was. Returns its row and the
+    engine watched from then on (watch)."""
+    started = time.perf_counter()
+    before = _idle_state(engine)
+    with counted_decode(engine) as calls:
+        count = engine.precompile()
+    after = _idle_state(engine)
+    moved = {key: (before[key], after[key]) for key in before
+             if before[key] != after[key]}
+    row = {"count": count, "eager_decode_steps": calls["eager"],
+           "decode_captures": calls["captures"],
+           "prefill_graphs": len(engine._prefill_graphs),
+           "burned": sorted(moved),
+           "seconds": time.perf_counter() - started}
+    require(sorted(engine._prefill_graphs) == want_keys and
+            engine._graph is not None and
+            count == 1 + len(engine.warmup_buckets()) and
+            calls["eager"] == 1 and calls["captures"] == 1,
+            f"{name} precompile: {row}, prefill graphs "
+            f"{sorted(engine._prefill_graphs)} vs warmup()'s {want_keys}")
+    require(not moved, f"{name} precompile moved {moved}")
+    return row, watch(engine)
 
 
 def require_replayed(name, live: dict) -> None:
@@ -5883,13 +5986,15 @@ def _prefill_case(engine: ContinuousBatcher, kind: str, bucket: int,
     return written
 
 
-def prefill_check(name, engine: ContinuousBatcher) -> dict:
+def prefill_check(name, engine: ContinuousBatcher,
+                  timed: bool = True) -> dict:
     """Phase (p) on one warmed engine: for every captured prefill, a
     replay against an eager run of the same prefill on the same pushed
     arguments, bit for bit in the logits and in the cache rows it writes
-    (the live ones: rows of the prompt, not the padding); then each one's
-    ms a call, replayed and eager (CUDA events), and the device kernels
-    each launches (its argument push, one copy, included in both)."""
+    (the live ones: rows of the prompt, not the padding); then, when
+    ``timed``, each one's ms a call, replayed and eager (CUDA events),
+    and the device kernels each launches (its argument push, one copy,
+    included in both)."""
     rng = np.random.default_rng(6)
     rows, calls = {}, []
     for kind, bucket in sorted(engine._prefill_graphs,
@@ -5909,6 +6014,9 @@ def prefill_check(name, engine: ContinuousBatcher) -> dict:
         require(same and bool(torch.isfinite(eager).all()),
                 f"{name} prefill {kind} {bucket}: replay differs from eager")
         key = f"{kind}_{bucket}"
+        if not timed:
+            rows[key] = {"bit_identical": True}
+            continue
         eager_call = functools.partial(type(engine)._prefill_body, engine,
                                        kind, bucket)
         rows[key] = {"replay_ms": _events_ms(graph.replay),
@@ -5925,6 +6033,8 @@ def prefill_check(name, engine: ContinuousBatcher) -> dict:
             return call
         calls += [(f"{key}:replay", with_args(graph.replay)),
                   (f"{key}:eager", with_args(eager_call))]
+    if not timed:
+        return rows
     kernels = _profile_windows(calls)
     for key, row in rows.items():
         row["replay_kernels"] = kernels[f"{key}:replay"]
@@ -5938,21 +6048,33 @@ def prefill_graphs(device) -> dict:
     """Phase (p): bench_serving's paged page-64 engine and (s3)'s
     speculative engine (paged int8 target, int8 dense draft) must warm
     every bucket from 16 to 512 and hold a captured prefill for each
-    (the paged prefill, the shared-prefix suffix prefill, the draft's),
-    each replay equal to eager bit for bit (prefill_check); then traffic
+    (the paged prefill, the shared-prefix suffix prefill, the draft's);
+    a second paged engine warmed by precompile() must hold the first
+    one's graphs and have burned no request (warm_from_shapes); each
+    replay equal to eager bit for bit (prefill_check); then traffic
     through each engine captures nothing and runs no prefill eagerly."""
-    out = {}
+    out, keys = {}, {}
     for name, build in (
             ("paged", lambda: build_bench_engine("paged", device)),
             ("s3", lambda: build_bench_speculative_engine("paged_int8",
-                                                          device))):
+                                                          device)),
+            ("paged_aot", lambda: build_bench_engine("paged", device))):
         started = time.perf_counter()
         engine = build()
-        warmed, live = warm(f"prefill {name}", engine)
-        require(warmed["buckets"] == ALL_BUCKETS,
-                f"prefill {name}: buckets {warmed['buckets']}")
-        row = {"warmup": warmed,
-               "graphs": prefill_check(f"prefill {name}", engine)}
+        if name == "paged_aot":
+            warmed, live = warm_from_shapes(f"prefill {name}", engine,
+                                            keys["paged"])
+            row = {"precompile": warmed}
+        else:
+            warmed, live = warm(f"prefill {name}", engine)
+            require(warmed["buckets"] == ALL_BUCKETS,
+                    f"prefill {name}: buckets {warmed['buckets']}")
+            row = {"warmup": warmed}
+        keys[name] = sorted(engine._prefill_graphs)
+        # The precompiled engine's graphs are the paged one's: held bit
+        # for bit, not timed again.
+        row["graphs"] = prefill_check(f"prefill {name}", engine,
+                                      timed=name != "paged_aot")
         live["eager_prefills"] = 0  # the check's eager runs are its own
         # Traffic after the checks: every admission a replay.
         payloads = load_requests(8, 16.0, (16, 300), (4, 8),
@@ -6798,6 +6920,136 @@ def vision(device, smi: str) -> dict:
     return out
 
 
+# Phase 1's compile cache root, made afresh each run (build/ is ignored).
+SMOKE_CACHE = _build.REPO_ROOT / "build" / "smoke_cache"
+
+
+def install_library(path: pathlib.Path) -> None:
+    """A library phase 1 built into the compile cache, copied into
+    build/torch_kernels/ (atomically), where the ranks and workloads the
+    script starts, which enable no cache, look for it under the same
+    name; its log beside it."""
+    for src, dst in ((path, _build.BUILD_DIR / path.name),
+                     (_build.log_path(path),
+                      _build.log_path(_build.BUILD_DIR / path.name))):
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        tmp = dst.with_name(f"{dst.name}.{os.getpid()}.tmp")
+        shutil.copy2(src, tmp)
+        os.replace(tmp, dst)
+
+
+# (w): bench.py bench_compile_warm's child model (bench.py:520-523: vocab
+# 512, d 128, 2 layers, d_ff 256, B2 x T128, no remat) through the port's
+# workload, at 2 heads of 64 where the bench has 4 of 32 (K1/K2 take
+# depths 64 and 128), with its 5 steady steps after 1 warm-up step.
+WARM_ARGS = ["--vocab", "512", "--d-model", "128", "--n-layers", "2",
+             "--n-heads", "2", "--d-ff", "256", "--seq-len", "128",
+             "--batch", "2", "--warmup", "1", "--steps", "5", "--no-remat"]
+WARM_TIMEOUT_S = 300.0
+
+
+def _without_nvcc(env: dict, empty: pathlib.Path) -> dict:
+    """``env`` with no nvcc to reach: PATH without any dir holding one,
+    $CUDA_HOME an empty dir (ops/_build.nvcc_path looks in both)."""
+    path = [d for d in env.get("PATH", "").split(os.pathsep)
+            if d and not os.path.exists(os.path.join(d, "nvcc"))]
+    env = dict(env, PATH=os.pathsep.join(path), CUDA_HOME=str(empty))
+    require(shutil.which("nvcc", path=env["PATH"]) is None and
+            not (empty / "bin" / "nvcc").exists(),
+            "warm start: nvcc still reachable for run 2")
+    return env
+
+
+def _warm_run(root: pathlib.Path, name: str, env: dict,
+              extra=()) -> dict:
+    """One fresh process of train_transformer at WARM_ARGS over the cache
+    root ``root``: its JSON line, the goodput events it wrote and the
+    cache entries it added."""
+    ident = cc_manager.list_identity_dirs(str(root))
+    before = {i: cc_manager.snapshot(d) for i, d in ident.items()}
+    events = root.parent / f"{name}_goodput.jsonl"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "batch_shipyard_tpu_torch.workloads.train_transformer",
+         *WARM_ARGS, "--compile-cache-dir", str(root), *extra],
+        env=dict(env, SHIPYARD_GOODPUT_FILE=str(events)),
+        cwd=str(_build.REPO_ROOT), capture_output=True, text=True,
+        timeout=WARM_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"warm start {name}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    after = {i: cc_manager.snapshot(d) for i, d in
+             cc_manager.list_identity_dirs(str(root)).items()}
+    added = sorted(entry for i, entries in after.items()
+                   for entry in entries if entry not in before.get(i, {}))
+    lines = events.read_text().splitlines() if events.exists() else []
+    compile_events = [e["attrs"] for e in map(json.loads, lines)
+                      if e["kind"] == "compile"]
+    return {"report": report, "added": added, "identities": sorted(after),
+            "compile_events": compile_events, "wall_s": wall}
+
+
+def warm_start(marker_env: dict) -> dict:
+    """Phase 4b, (w): run 1 cold into an empty cache, run 2 with
+    --aot-precompile and no nvcc over it (module doc)."""
+    with tempfile.TemporaryDirectory() as work:
+        work = pathlib.Path(work)
+        root, empty = work / "cache", work / "no_cuda_home"
+        empty.mkdir()
+        env = dict(os.environ, **marker_env)
+        env.pop(cc_manager.CACHE_DIR_ENV, None)
+        cold = _warm_run(root, "cold", env)
+        warm = _warm_run(root, "warm", _without_nvcc(env, empty),
+                         ["--aot-precompile"])
+    rows = {}
+    for name, run in (("cold", cold), ("warm", warm)):
+        report = run["report"]
+        start = report["warm_start"]
+        rows[name] = {
+            "time_to_first_step_s": start["time_to_first_step_s"],
+            "first_step_ms": start["first_step_ms"],
+            "steady_step_ms": report["ms_per_step"],
+            "entries_added": run["added"], "built": start["built"],
+            "cache": start["compile_cache"],
+            "compile_events": run["compile_events"],
+            "losses": report["losses"], "process_wall_s": run["wall_s"]}
+    cold_s = rows["cold"]["time_to_first_step_s"]
+    warm_s = rows["warm"]["time_to_first_step_s"]
+    rows["speedup"] = cold_s / warm_s
+    warmup = [e for e in warm["compile_events"] if e.get("what") == "warmup"]
+    require(len(cold["identities"]) == 1 and
+            warm["identities"] == cold["identities"] and
+            sorted(rows["cold"]["built"]) == sorted(
+                attn_ops.libraries("cuda") +
+                loss_ops.libraries("kernel", "cuda", 128)) and
+            len(cold["added"]) == len(rows["cold"]["built"]),
+            f"warm start: run 1 built {rows['cold']['built']}, added "
+            f"{cold['added']} in {cold['identities']}")
+    require(not warm["added"] and not rows["warm"]["built"] and
+            len(warmup) == 1 and warmup[0].get("cache_hit") is True and
+            rows["warm"]["cache"]["hits"] >= 1,
+            f"warm start: run 2 added {warm['added']}, built "
+            f"{rows['warm']['built']}, compile events "
+            f"{warm['compile_events']}, cache {rows['warm']['cache']}")
+    require(rows["cold"]["losses"] == rows["warm"]["losses"],
+            f"warm start: losses {rows['cold']['losses']} (cold) vs "
+            f"{rows['warm']['losses']} (warm)")
+    print(f"warm start (w): time to first step cold {cold_s:.3f} s, warm "
+          f"(--aot-precompile, no nvcc) {warm_s:.3f} s, speedup "
+          f"{rows['speedup']:.2f}x; first step vs steady step: cold "
+          f"{rows['cold']['first_step_ms']:.1f} vs "
+          f"{rows['cold']['steady_step_ms']:.2f} ms, warm "
+          f"{rows['warm']['first_step_ms']:.1f} vs "
+          f"{rows['warm']['steady_step_ms']:.2f} ms; entries added "
+          f"{len(cold['added'])} / {len(warm['added'])}; cold nvcc seconds "
+          f"by library {json.dumps(rows['cold']['built'])}; losses equal "
+          f"bit for bit", flush=True)
+    print("warm start " + json.dumps(rows), flush=True)
+    return rows
+
+
 def mark(phase: str) -> None:
     """A line with the seconds since the script started, as a phase
     starts: where a run's time went."""
@@ -6835,15 +7087,32 @@ def main() -> int:
                     len(FAULTS[name])]
     fault_builds += [(name, i) for name, indices in FAULTS_ONE_BY_ONE.items()
                      for i in indices]
+    # Phase 1 builds through the compile cache, into a fresh dir: every
+    # library a cold build, a new entry.
+    shutil.rmtree(SMOKE_CACHE, ignore_errors=True)
+    cache = cc_manager.enable(str(SMOKE_CACHE), model_digest="chip_smoke")
     with concurrent.futures.ThreadPoolExecutor(
-            len(sources) + len(fault_builds)) as pool:
-        started = [pool.submit(_build.build, name, force=True)
-                   for name in sources]
+            len(sources) + len(fault_builds)) as pool, \
+            cache.track("chip_smoke_build") as tracked:
+        started = [pool.submit(_build.build, name) for name in sources]
         faulty = {name if i is None else (name, i):
                   pool.submit(build_fault_library, tmp, name, i)
                   for name, i in fault_builds}
         builds = [f.result() for f in started]
         faulty = {key: f.result() for key, f in faulty.items()}
+    require(tracked["new_entries"] == len(sources) and
+            not tracked["cache_hit"] and
+            all(seconds > 0 for _, seconds in builds),
+            f"phase 1's builds into the fresh cache {cache.cache_dir}: "
+            f"{tracked}, {[s for _, s in builds]} s")
+    nvcc_seconds = {name: seconds
+                    for name, (_, seconds) in zip(sources, builds)}
+    print(f"compile cache {cache.cache_dir}: {tracked['new_entries']} "
+          f"libraries built cold in {tracked['elapsed_seconds']:.1f} s; "
+          f"cold nvcc seconds by library (side by side with the fault "
+          f"builds) {json.dumps(nvcc_seconds)}", flush=True)
+    for path, _ in builds:
+        install_library(path)
     fault_libs = {}
     for key, (path, seconds) in faulty.items():
         fault_libs[key] = _build.load(
@@ -6853,7 +7122,7 @@ def main() -> int:
     reports = {}
     for name, (path, seconds) in zip(sources, builds):
         print(f"build {path.name}: {seconds:.1f} s", flush=True)
-        reports[name] = ptxas_report(path.with_suffix(".log").read_text())
+        reports[name] = ptxas_report(_build.log_path(path).read_text())
         for kernel, usage in reports[name].items():
             print(f"ptxas {name} {kernel}: {usage.get('registers')} "
                   f"registers a thread, {usage.get('smem', 0)} bytes static "
@@ -6861,9 +7130,8 @@ def main() -> int:
                   f"{usage.get('spill_stores', 0)}/"
                   f"{usage.get('spill_loads', 0)} bytes")
     resources = flash_resources(reports["flash_attention"])
-    resources.update(decode_resources(
-        builds[sources.index("decode_attention")][0].with_suffix(
-            ".log").read_text()))
+    resources.update(decode_resources(_build.log_path(
+        builds[sources.index("decode_attention")][0]).read_text()))
     resources["int8_matmul"] = quant_resources(reports["quantization"])
 
     mark("kernel checks")
@@ -6908,6 +7176,8 @@ def main() -> int:
     try:
         fused = train(device, fused=True)
         int8 = train(device, quantize=True)
+        mark("warm start")
+        warm = warm_start({kernel_select.MARKER_ENV: str(marker)})
         # The sp ranks: the ring checks and timings, one numerics step,
         # then --sp 4 training, all under the same marker.
         mark("sp")
@@ -6915,11 +7185,20 @@ def main() -> int:
                                    numerics_dir=tmp)
         timing.update(sp_checks["timing"])
         sp_numerics(device, tmp)
-        sp_trained = train_sp(device, {kernel_select.MARKER_ENV: str(marker)})
         mark("train mesh")
-        meshed = train_mesh(device, {kernel_select.MARKER_ENV: str(marker)},
-                            sp_trained["losses"],
-                            faulty["ring_collectives"][0])
+        # --sp 4 and the mesh's (a) side by side: their ranks' launches,
+        # not their steps, set the time (their times are shared).
+        marker_env = {kernel_select.MARKER_ENV: str(marker)}
+        ports = free_ports(2)
+        first = side_by_side({
+            "sp": functools.partial(train_sp, device, marker_env,
+                                    port=ports[0]),
+            "recipe": functools.partial(train_mesh_run, "recipe",
+                                        marker_env, port=ports[1])})
+        sp_trained = first["sp"]
+        meshed = train_mesh(device, marker_env, sp_trained["losses"],
+                            faulty["ring_collectives"][0],
+                            recipe=first["recipe"])
         mark("checkpoint")
         checkpoint_phase(device, {kernel_select.MARKER_ENV: str(marker)})
         mark("moe")
@@ -6956,7 +7235,14 @@ def main() -> int:
     for key, meta in KERNELS.items():
         t = timing[key]
         row = {"name": f"{meta['label']} {key}", "route": meta["route"],
-               "source": meta["source"], "replaces": meta["replaces"]}
+               "source": meta["source"], "replaces": meta["replaces"],
+               # Phase 1's cold build of the kernel's source, side by
+               # side with the others and the fault builds.
+               "nvcc_s": nvcc_seconds[pathlib.Path(meta["source"]).stem]}
+        if pathlib.Path(meta["source"]).stem in warm["cold"]["built"]:
+            # (w) run 1's build of it, alone, inside the first step.
+            row["nvcc_alone_s"] = warm["cold"]["built"][
+                pathlib.Path(meta["source"]).stem]
         main_run = next((run for run in (trained, fused, int8)
                          if key in run["launches"]), None)
         if key in RING_KEYS:

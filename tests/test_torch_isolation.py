@@ -32,6 +32,14 @@ HOOK_MODULES = (
     "batch_shipyard_tpu_torch.models.router",
     "batch_shipyard_tpu_torch.config.slo",
     "batch_shipyard_tpu_torch.sim.traces",
+    # The warm start and the store under the hooks' store-backed halves.
+    "batch_shipyard_tpu_torch.compilecache.manager",
+    "batch_shipyard_tpu_torch.compilecache.aot",
+    "batch_shipyard_tpu_torch.compilecache.seeding",
+    "batch_shipyard_tpu_torch.state.base",
+    "batch_shipyard_tpu_torch.state.memory",
+    "batch_shipyard_tpu_torch.state.names",
+    "batch_shipyard_tpu_torch.trace.export",
 )
 
 

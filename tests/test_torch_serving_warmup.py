@@ -184,3 +184,110 @@ def test_prefill_graph_dispatch_streams_like_eager(params, monkeypatch):
     got = _drain(teng, tserving.Request, requests)
     assert got == _drain(jeng, jserving.Request, requests)
     assert {kind for kind, _ in replays} == {"paged", "shared", "draft"}
+
+
+# precompile() settings: name -> (kv_cache_dtype, engine kwargs, draft).
+PRECOMPILE = {
+    "dense": (None, dict(num_slots=2), False),
+    "dense_int8": ("int8", dict(num_slots=2), False),
+    "paged": (None, dict(num_slots=2, kv_page_size=8, prefix_cache=False),
+              False),
+    "paged_int8_prefix": ("int8", dict(num_slots=2, kv_page_size=8), False),
+    "speculative": (None, dict(num_slots=2, kv_page_size=8), True),
+}
+DRAFT = dict(vocab_size=97, d_model=16, n_layers=1, n_heads=2, d_head=8,
+             d_ff=32, max_seq_len=64)
+
+
+@pytest.fixture(scope="module")
+def draft_params():
+    cfg = jtfm.TransformerConfig(dtype=jnp.float32, **DRAFT)
+    flax = jtfm.TransformerLM(cfg).init(
+        jax.random.PRNGKey(3), jnp.zeros((1, 8), jnp.int32))["params"]
+    flax = jax.tree_util.tree_map(np.asarray, flax)
+    return flax, convert.params_from_flax(flax)
+
+
+def _precompile_engines(params, draft_params, setting, n=1):
+    """The JAX engine and ``n`` port engines of a PRECOMPILE setting."""
+    flax, state = params
+    kv_dtype, kwargs, with_draft = PRECOMPILE[setting]
+    jspec = tspec = None
+    if with_draft:
+        jspec = jserving.SpeculativeConfig(
+            jtfm.TransformerConfig(dtype=jnp.float32, **DRAFT),
+            draft_params[0], gamma=2)
+        tspec = tserving.SpeculativeConfig(
+            ttfm.TransformerConfig(dtype=torch.float32, **DRAFT),
+            draft_params[1], gamma=2)
+    jeng = jserving.ContinuousBatcher(
+        dataclasses.replace(JCFG, kv_cache_dtype=kv_dtype), flax,
+        max_decode_len=MAX_LEN, speculative=jspec, **kwargs)
+    tengs = [tserving.ContinuousBatcher(
+        dataclasses.replace(TCFG, kv_cache_dtype=kv_dtype), state,
+        max_decode_len=MAX_LEN, device="cpu", speculative=tspec, **kwargs)
+        for _ in range(n)]
+    return jeng, tengs
+
+
+def _engine_state(engine):
+    """Everything a burned request or a parked run could move: the
+    counters, slots, queue, pages and prefix index, the host table, every
+    cache's lengths, indices and block table (the draft's too), the
+    token, position and active tensors and the generator."""
+    caches = [engine.cache] + ([engine._draft_cache]
+                               if engine.speculative is not None else [])
+    state = {
+        "decode_steps": engine.decode_steps,
+        "preemptions": engine.preemptions,
+        "prefix": engine.prefix_stats(), "spec": engine.spec_stats(),
+        "slo": engine.slo_stats(), "pending": engine.pending(),
+        "slots": [s.request for s in engine._slots],
+        "timed": sorted(engine._timed_buckets),
+        "bookkeeping": [{key: t.tolist() for key, t in layer.items()
+                         if key in ("index", "length", "block_table")}
+                        for cache in caches for layer in cache],
+        "tokens": engine._tokens.tolist(),
+        "positions": engine._positions.tolist(),
+        "active": engine._active.tolist(),
+        "generator": engine._generator.get_state().tolist(),
+    }
+    if engine.paged:
+        state.update(free=sorted(engine._free_pages),
+                     avail=engine._avail_pages,
+                     table=engine._table.tolist(),
+                     index=dict(engine._prefix_index),
+                     lru=list(engine._lru))
+    return state
+
+
+@pytest.mark.parametrize("setting", sorted(PRECOMPILE))
+def test_precompile_counts_like_jax_and_streams_unchanged(
+        params, draft_params, setting):
+    """precompile() on a CPU engine (its prefill and decode bodies run on
+    parked arguments, nothing captured) returns the JAX engine's count,
+    moves no counter, page, index or cache length, and the greedy streams
+    after it, after warmup() and with neither are the same tokens, the
+    JAX engine's after its own precompile()."""
+    jeng, (aot, warmed, cold) = _precompile_engines(params, draft_params,
+                                                    setting, n=3)
+    before = _engine_state(aot)
+    assert aot.precompile() == jeng.precompile()
+    assert _engine_state(aot) == before
+    assert not aot._prefill_graphs and aot._graph is None
+    warmed.warmup()
+    base = _requests(5, [20, 5], 6)
+    requests = base + [(f"s{i}", prompt + [i + 1], new)
+                       for i, (_, prompt, new) in enumerate(base)]
+    streams = [_drain(engine, tserving.Request, requests)
+               for engine in (aot, warmed, cold)]
+    assert streams[0] == streams[1] == streams[2]
+    if not PRECOMPILE[setting][2]:
+        assert streams[0] == _drain(jeng, jserving.Request, requests)
+
+
+def test_precompile_needs_an_idle_engine(params, draft_params):
+    _, (teng,) = _precompile_engines(params, draft_params, "paged")
+    teng.submit(tserving.Request("r0", [1, 2, 3], 4))
+    with pytest.raises(RuntimeError, match="idle engine"):
+        teng.precompile()

@@ -3,12 +3,37 @@ histogram against the reference's (same edges, percentiles, wire shape
 and Prometheus lines on the same samples), the interval union the
 decode profile uses for device busy time, the card-only measuring
 scripts refusing a machine without a card, and the int8 matmul sweep's
-shapes and bound (the int8 training path's projections)."""
+shapes and bound (the int8 training path's projections). Then the
+store-backed halves of the pool hooks against the reference's on the
+same JSONL and calls: goodput events and spans emitted, queried, pruned
+and ingested (the same rows but their random row keys), one trace
+exported to Chrome trace JSON, the trace context's constructors, the
+progress beat and the preempt-request helpers."""
+
+import json
+import os
+import pathlib
+import threading
+import time
 
 import numpy as np
 import pytest
 
+from batch_shipyard_tpu.agent import preemption as ref_preemption
+from batch_shipyard_tpu.agent import progress as ref_progress
+from batch_shipyard_tpu.goodput import events as ref_events
+from batch_shipyard_tpu.state.memory import MemoryStateStore as RefStore
+from batch_shipyard_tpu.trace import context as ref_context
+from batch_shipyard_tpu.trace import export as ref_export
 from batch_shipyard_tpu.trace import histogram as jhist
+from batch_shipyard_tpu.trace import spans as ref_spans
+from batch_shipyard_tpu_torch.agent import preemption
+from batch_shipyard_tpu_torch.agent import progress
+from batch_shipyard_tpu_torch.goodput import events
+from batch_shipyard_tpu_torch.state.memory import MemoryStateStore
+from batch_shipyard_tpu_torch.trace import context
+from batch_shipyard_tpu_torch.trace import export
+from batch_shipyard_tpu_torch.trace import spans
 from batch_shipyard_tpu_torch.trace import (decode_sweep, int8_matmul_sweep,
                                             profiler_window, serve_compare)
 from batch_shipyard_tpu_torch.trace import histogram as thist
@@ -174,3 +199,191 @@ def test_train_profile_retakes_a_window_short_of_ring_kernels(
         assert out["ring_ms_per_step_by_axis"] == {"sp": 4 / 1e3 / 2}
     assert len(windows) == min(short_windows + 1,
                                train_profile.PROFILE_ATTEMPTS)
+
+
+# ------------------- the store halves of the pool hooks ------------------
+
+NOW = time.time()
+GOODPUT_LINES = [
+    {"kind": "compile", "start": NOW - 9.0, "end": NOW - 8.0,
+     "attrs": {"what": "warmup", "cache_hit": True, "saved_seconds": 2.5},
+     "trace_id": "a" * 16, "span_id": "b" * 8},
+    {"kind": "step_window", "start": NOW - 8.0, "end": NOW - 2.0,
+     "attrs": {"step_start": 0, "step_end": 5, "tokens": 640},
+     "trace_id": "a" * 16, "span_id": "b" * 8},
+    {"kind": "checkpoint_save", "start": NOW - 2.0, "end": NOW - 1.0,
+     "attrs": {}},
+    {"kind": "not_a_kind", "start": NOW, "end": NOW, "attrs": {}},
+    {"kind": "compile", "start": "junk", "attrs": {}},
+]
+SPAN_LINES = [
+    {"kind": "compile", "trace_id": "a" * 16, "span_id": "c" * 8,
+     "parent_span_id": "b" * 8, "start": NOW - 9.0, "end": NOW - 8.0,
+     "attrs": {"what": "aot_precompile", "label": "train_step_aot"}},
+    {"kind": "train_step_window", "trace_id": "a" * 16,
+     "span_id": "d" * 8, "parent_span_id": "b" * 8, "start": NOW - 8.0,
+     "end": NOW - 2.0, "attrs": {}},
+    {"kind": "serve_request", "trace_id": "a" * 16, "span_id": "e" * 8,
+     "parent_span_id": "zz", "start": NOW - 1.5, "end": NOW - 1.0,
+     "attrs": {"request_id": "r1"}},
+    {"kind": "compile", "trace_id": "", "span_id": "f" * 8, "start": 1.0},
+    {"kind": "nope", "trace_id": "a" * 16, "span_id": "9" * 8,
+     "start": 1.0},
+]
+
+
+def _write(path, lines):
+    with open(path, "w", encoding="utf-8") as fh:
+        for line in lines:
+            fh.write(json.dumps(line) + "\n")
+        fh.write("not json\n\n")
+
+
+def _rows(rows):
+    """Rows without their random keys (row key, etag)."""
+    return [{k: v for k, v in row.items() if k not in ("_rk", "_etag")}
+            for row in rows]
+
+
+def _ingested(tmp_path, who):
+    """A store of ``who``'s ("port" or "ref") package after ingesting the
+    same two files and emitting the same store-side events and spans."""
+    ev, sp, st = ((events, spans, MemoryStateStore()) if who == "port"
+                  else (ref_events, ref_spans, RefStore()))
+    ctx_mod = context if who == "port" else ref_context
+    gfile, sfile = tmp_path / f"{who}_g.jsonl", tmp_path / f"{who}_s.jsonl"
+    _write(gfile, GOODPUT_LINES)
+    _write(sfile, SPAN_LINES)
+    counts = (ev.ingest_local_events(st, "pool1", str(gfile), job_id="j1",
+                                     task_id="t0", node_id="n0"),
+              sp.ingest_local_spans(st, "pool1", str(sfile), job_id="j1",
+                                    task_id="t0", node_id="n0"))
+    assert not gfile.exists() and not sfile.exists()
+    root = ctx_mod.TraceContext("a" * 16, "b" * 8)
+    ev.emit(st, "pool1", "queued", job_id="j1", task_id="t0",
+            start=NOW - 20.0, end=NOW - 10.0, trace_id="a" * 16,
+            span_id="b" * 8)
+    ev.emit(st, "pool1", "bogus_kind", start=NOW)
+    ev.emit(st, "pool1", "idle", node_id="n0", start=NOW - 3600.0,
+            end=NOW - 3000.0)
+    sp.emit(st, "pool1", "task_run", root, job_id="j1", task_id="t0",
+            node_id="n0", start=NOW - 10.0, end=NOW, self_span=True)
+    sp.emit(st, "pool1", "task_run", None)
+    return st, counts, ev, sp
+
+
+def test_store_hooks_give_the_references_rows(tmp_path):
+    port, port_counts, _, _ = _ingested(tmp_path, "port")
+    ref, ref_counts, _, _ = _ingested(tmp_path, "ref")
+    assert port_counts == ref_counts == (3, 3)
+    for kwargs in ({}, {"job_id": "j1"}, {"trace_id": "a" * 16},
+                   {"task_id": "t0"}):
+        assert _rows(events.query(port, "pool1", **kwargs)) == \
+            _rows(ref_events.query(ref, "pool1", **kwargs))
+    for kwargs in ({}, {"trace_id": "a" * 16}, {"job_id": "j1"}):
+        assert _rows(spans.query(port, "pool1", **kwargs)) == \
+            _rows(ref_spans.query(ref, "pool1", **kwargs))
+    # The Chrome trace of one trace, and its parent-link check.
+    rows = export.trace_rows(port, "pool1", "a" * 16)
+    ref_rows = ref_export.trace_rows(ref, "pool1", "a" * 16)
+    chrome = export.to_chrome_trace(rows, "a" * 16)
+    assert chrome == ref_export.to_chrome_trace(rows, "a" * 16)
+    assert chrome == ref_export.to_chrome_trace(ref_rows, "a" * 16)
+    assert export.export_trace(port, "pool1", "a" * 16) == chrome
+    assert export.validate_parent_links(chrome) == \
+        ref_export.validate_parent_links(chrome)
+    assert any("zz" in p for p in export.validate_parent_links(chrome))
+    assert export.render_tree(rows) == ref_export.render_tree(rows)
+    out = tmp_path / "trace.json"
+    assert json.loads(pathlib.Path(export.write_chrome_trace(
+        chrome, str(out))).read_text()) == chrome
+    # Retention: the same rows go.
+    assert events.prune(port, "pool1", 1800.0) == \
+        ref_events.prune(ref, "pool1", 1800.0) == 1
+    assert spans.prune(port, "pool1", 5.0) == \
+        ref_spans.prune(ref, "pool1", 5.0)
+    assert _rows(events.query(port, "pool1")) == \
+        _rows(ref_events.query(ref, "pool1"))
+    assert _rows(spans.query(port, "pool1")) == \
+        _rows(ref_spans.query(ref, "pool1"))
+
+
+def test_store_spans_and_events_time_a_block():
+    store, ref = MemoryStateStore(), RefStore()
+    ctx = context.TraceContext.new()
+    for ev, sp, st, c in ((events, spans, store, ctx),
+                          (ref_events, ref_spans, ref,
+                           ref_context.TraceContext(ctx.trace_id,
+                                                    ctx.span_id))):
+        with ev.span(st, "pool1", "image_pull", job_id="j",
+                     trace_id=c.trace_id) as attrs:
+            attrs["bytes"] = 7
+        with sp.span(st, "pool1", "image_pull", c, job_id="j") as attrs:
+            attrs["bytes"] = 7
+    got = _rows(events.query(store, "pool1"))
+    want = _rows(ref_events.query(ref, "pool1"))
+    assert [r["attrs"] for r in got] == [r["attrs"] for r in want] == [
+        {"bytes": 7}]
+    assert [(r["kind"], r["trace_id"]) for r in got] == \
+        [(r["kind"], r["trace_id"]) for r in want]
+    got = spans.query(store, "pool1")
+    want = ref_spans.query(ref, "pool1")
+    assert [(r["parent_span_id"], r["attrs"]) for r in got] == \
+        [(r["parent_span_id"], r["attrs"]) for r in want] == \
+        [(ctx.span_id, {"bytes": 7})]
+
+
+def test_trace_context_constructors_are_the_references():
+    ctx = context.TraceContext.new()
+    assert len(ctx.trace_id) == 16 and len(ctx.span_id) == 8
+    assert ctx.parent_span_id is None
+    child = ctx.child()
+    assert (child.trace_id, child.parent_span_id) == (ctx.trace_id,
+                                                      ctx.span_id)
+    assert child.span_id != ctx.span_id
+    assert len(context.new_trace_id()) == len(ref_context.new_trace_id())
+    for entity in ({"trace_id": "t1", "trace_span_id": "s1",
+                    "trace_parent_span_id": "p1"},
+                   {"trace_id": "t1", "trace_span_id": "s1"},
+                   {"trace_id": "t1"}, {}):
+        got = context.TraceContext.from_entity(entity)
+        want = ref_context.TraceContext.from_entity(entity)
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert (got.trace_id, got.span_id, got.parent_span_id) == \
+                (want.trace_id, want.span_id, want.parent_span_id)
+
+
+def test_iso_to_epoch_is_the_references():
+    for value in ("2026-10-18T14:15:24.123456Z", "2026-10-18T14:15:24Z",
+                  "2026-10-18T14:15:24+02:00", "junk", "", None):
+        assert events.iso_to_epoch(value) == ref_events.iso_to_epoch(value)
+
+
+def test_last_beat_and_preempt_helpers_are_the_references(monkeypatch,
+                                                          tmp_path):
+    beat = tmp_path / "beat"
+    assert progress.last_beat(str(beat)) is None is \
+        ref_progress.last_beat(str(beat))
+    progress.seed(str(beat))
+    os.utime(beat, (1000.0, 1234.5))
+    assert progress.last_beat(str(beat)) == \
+        ref_progress.last_beat(str(beat)) == 1234.5
+    request = tmp_path / "preempt.json"
+    monkeypatch.delenv(preemption.PREEMPT_REQUEST_FILE_ENV, raising=False)
+    assert preemption.preempt_requested() is False is \
+        ref_preemption.preempt_requested()
+    monkeypatch.setenv(preemption.PREEMPT_REQUEST_FILE_ENV, str(request))
+    assert preemption.preempt_requested() is False is \
+        ref_preemption.preempt_requested()
+    assert preemption.wait_for_request(str(request), 0.1) is None is \
+        ref_preemption.wait_for_request(str(request), 0.1)
+    timer = threading.Timer(0.2, preemption.write_request,
+                            (str(request), "drill"))
+    timer.start()
+    got = preemption.wait_for_request(str(request), 5.0)
+    timer.join()
+    assert got["reason"] == "drill"
+    assert got == ref_preemption.wait_for_request(str(request), 1.0)
+    assert preemption.preempt_requested() is True is \
+        ref_preemption.preempt_requested()
