@@ -71,6 +71,14 @@ class TraceContext:
         return cls(trace_id=str(trace_id), span_id=str(span_id),
                    parent_span_id=str(parent) if parent else None)
 
+    def entity_columns(self) -> dict[str, str]:
+        """The columns a task or job row stores for this context."""
+        out = {COL_TRACE_ID: self.trace_id,
+               COL_TRACE_SPAN: self.span_id}
+        if self.parent_span_id:
+            out[COL_TRACE_PARENT] = self.parent_span_id
+        return out
+
     @classmethod
     def from_env(cls) -> Optional["TraceContext"]:
         """The context exported into THIS process, or None outside pool
@@ -80,3 +88,8 @@ class TraceContext:
         if not trace_id or not span_id:
             return None
         return cls(trace_id=trace_id, span_id=span_id)
+
+    def env(self) -> dict[str, str]:
+        """The env block the pool's agent exports into a task process."""
+        return {TRACE_ID_ENV: self.trace_id,
+                TRACE_SPAN_ENV: self.span_id}

@@ -25,8 +25,6 @@ import os
 import time
 from typing import Optional
 
-import torch
-
 from batch_shipyard_tpu_torch.agent.preemption import utcnow_iso
 from batch_shipyard_tpu_torch.trace import spans as trace_spans
 
@@ -34,6 +32,11 @@ logger = logging.getLogger(__name__)
 
 PROFILE_REQUEST_FILE_ENV = "SHIPYARD_PROFILE_REQUEST_FILE"
 PROFILE_DIR_ENV = "SHIPYARD_PROFILE_DIR"
+
+# Job-row column the request is stamped on, which the pool's agent
+# polls; task-row column the agent stamps after uploading the capture.
+COL_PROFILE_REQUEST = "profile_request"
+COL_PROFILE_ARTIFACT = "profile_artifact"
 
 
 def read_request(path: Optional[str]) -> Optional[dict]:
@@ -59,6 +62,7 @@ def write_request(path: str, steps: int,
 
 
 def _activities() -> list:
+    import torch  # the pool's agent imports this module without torch
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -115,6 +119,7 @@ class StepProfiler:
     def _start(self, step: int, steps: int) -> None:
         try:
             os.makedirs(self.profile_dir, exist_ok=True)
+            import torch
             profiler = torch.profiler.profile(activities=_activities())
             profiler.start()
         except Exception:  # noqa: BLE001 - never fail the step loop
@@ -136,6 +141,7 @@ class StepProfiler:
         path = os.path.join(self.profile_dir,
                             f"trace_steps_{self._start_step}_{end_step}.json")
         try:
+            import torch
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
             profiler.stop()

@@ -104,20 +104,36 @@ Phases, each fatal on failure:
      random bits once per K10 call; its numerics check runs the plain and
      fp32 models on the plain quantize and int8 matmul. All three
      training phases run at full depth;
-  4b. (w) the warm start (``warm_start``), as bench.py
-     bench_compile_warm measures it: two fresh processes of
-     train_transformer at that bench's child widths (WARM_ARGS: vocab
-     512, d 128, 2 layers, d_ff 256, B2 x T128, no remat; 2 heads of 64,
-     where the bench has 4 of 32: K1/K2 take depths 64 and 128), the
-     fused loss under the marker, sharing one new --compile-cache-dir.
-     Run 1 starts empty and builds the libraries its step needs; run 2
-     adds --aot-precompile and runs with no nvcc it could reach (PATH
-     without the toolkit's bin, $CUDA_HOME an empty dir). Run 2 must
-     build nothing (0 new entries, its warm-up a cache hit) and give run
-     1's losses bit for bit. Printed: each run's time to the first step
-     (from distributed.setup) and the speedup, its first step against
-     its steady step, the entries each added and each library's cold
-     nvcc seconds;
+  4b. (n) the node side (``node_side``): (w), the warm start as bench.py
+     bench_compile_warm measures it, run as tasks of the port's own pool.
+     A localhost pool (each node a ``python -m
+     batch_shipyard_tpu_torch.agent`` process, node prep on) of
+     a3-highgpu-1g nodes over a localfs store, in a temp dir. (n1) pool
+     add of one node: its node-prep events must be start, ``gpus:<n>``
+     with n this host's /dev/nvidia<N>, ``torch_cuda_ready:True``, end.
+     (n2) job 1, (w)'s run 1: train_transformer at that bench's child
+     widths (WARM_ARGS: vocab 512, d 128, 2 layers, d_ff 256, B2 x T128,
+     no remat; 2 heads of 64, where the bench has 4 of 32: K1/K2 take
+     depths 64 and 128), the fused loss under the marker, cold into the
+     node's cache ($SHIPYARD_COMPILE_CACHE_DIR), building the libraries
+     its step needs; the agent's export must then publish
+     compilecache/<pool>/latest.json. (n3) pool del, pool add of the same
+     pool with two nodes on a new work root; job 2, (w)'s run 2, adds
+     --aot-precompile and runs with no nvcc it could reach (its command
+     sets PATH without the toolkit's bin and $CUDA_HOME an empty dir): the
+     node that claims it must seed from the store first, build nothing
+     (0 new entries, its warm-up a cache hit) and give job 1's losses bit
+     for bit. (n4) job 3, a gang of 2 instances (jax_distributed on a free
+     coordinator port, so the launcher's torch.distributed env), one a
+     node, train_transformer at WARM_ARGS over dp 2 on phase 1's
+     libraries: both ranks in a group of 2, exactly K1 and K2 once a
+     layer, K3-K5 once and the data all-reduce (K14, K13) once a step and
+     no plain version, equal parameters, losses within MESH_LOSS_RTOL of
+     job 1's. Printed: (w)'s lines (each run's time to the first step and
+     the speedup, its first step against its steady step, the entries
+     each added and each library's cold nvcc seconds), each node's
+     node-prep seconds, each job's submit -> task start and submit ->
+     complete seconds and the gang's ms a step;
   5. four sequence-parallel ranks on this one card (``sp_collectives``:
      SP local processes, gloo, the ring kernels' buffers mapped by CUDA
      IPC): K12 (+1 and -1 shifts and its backward through autograd), K13
@@ -135,20 +151,21 @@ Phases, each fatal on failure:
      step's ring calls (four K12, then K14, then K13) every rank must
      raise within SKIP_RAISE_LIMIT_S. Then (at the start of 5b, side by
      side with its (a)) ``--seq-len 8192 --sp 4``
-     training at bench_transformer's widths (batch 8, remat, the fused
-     loss under the marker) through ``python -m torch.distributed.run``
-     and the workload's entry point, 2 + 3 steps and one profiled: the
+     training at bench_transformer's widths and SP_LAYERS (4) of its 12
+     layers (batch 8, remat, the fused loss under the marker) through
+     ``python -m torch.distributed.run`` and the workload's entry point,
+     1 + 3 steps and one profiled: the
      loss must be finite and fall, and each rank must launch exactly
      sp_launches_per_step(rank) a step and no plain version;
   5b. the training mesh (``train_mesh``), ranks on this card through
      the workload under ``torch.distributed.run``: on eight ranks (a) the
      reference recipe ``--seq-len 8192 --sp 4 --tp 2`` at full width and
-     depth (batch 8, remat, the fused loss, vocab-parallel over the tp
+     SP_LAYERS (4) layers (batch 8, remat, the fused loss, vocab-parallel over the tp
      ring), (b) ``--sp 2 --fsdp 2`` (dp 2) at 2 layers, (c) ``--sp 2 --tp
      2 --fused-norm`` and (d) ``--sp 2 --tp 2 --int8`` (dp 2) at 2
      layers; on two ranks (e) the MultiSlice-DCN recipe ``--batch 16
      --seq-len 4096 --fsdp 2`` at full width and depth (remat, the fused
-     loss), each 2 + 3 steps and one profiled; (a) runs beside the sp
+     loss), each 1 + 3 steps and one profiled; (a) runs beside the sp
      training above, then (b)-(e), their comparisons and the ring checks
      below run side by side in MESH_ROUNDS (all these times are those of
      shared ranks). Each
@@ -322,8 +339,8 @@ Phases, each fatal on failure:
      attainment and each arm's TTFT printed. K6 with fp32 queries is
      checked at both served shapes in phase 2.
 
-All phases run at full depth but the mesh's (b)-(d), the checkpoint
-phase's (b) and the MoE phase's (m3). The last two stdout lines are the
+All phases run at full depth but the sp run and the mesh's (a)-(d), the
+checkpoint phase's (b) and the MoE phase's (m3). The last two stdout lines are the
 {"kernels": [...]} summary (K1-K16, and K10's two halves) and
 {"ok": true, "device": {...}}; before them, a "chip_smoke at <s> s:
 <phase>" line as each phase starts. Exits nonzero, printing no result,
@@ -367,6 +384,7 @@ import json
 import math
 import pathlib
 import re
+import shlex
 import shutil
 import subprocess
 import tempfile
@@ -3328,8 +3346,12 @@ def train(device, fused: bool = False, quantize: bool = False) -> dict:
 
 # The sp phase: the reference workload's long-context recipe
 # (workloads/train_transformer.py:8-10, --seq-len 8192 --sp 4; its --tp 2
-# is not ported) at bench_transformer's widths, batch 8, remat on.
-SP_WARMUP, SP_STEPS, SP_PROFILE_STEPS = 2, 3, 1
+# is not ported) at bench_transformer's widths, batch 8, remat on, at
+# SP_LAYERS of its 12 layers (the script's time: its per-step work on the
+# host's cores and the card sets the first mesh round). Every run of the
+# sp and mesh phases takes SP_WARMUP + SP_STEPS steps.
+SP_WARMUP, SP_STEPS, SP_PROFILE_STEPS = 1, 3, 1
+SP_LAYERS = 4
 SP_TRAIN_TIMEOUT_S = 300.0
 # One step's numerics at batch 2, T 2048 (where the fp32 plain model
 # fits): the sp kernel path against single-process plain models.
@@ -3404,7 +3426,8 @@ def sp_launches_per_step(rank: int) -> dict:
     """What rank ``rank`` of the sp path (--sp 4 on four ranks) launches
     each step: mesh_launches_per_step of the sp-only mesh, whose data
     ring is the sp ring (one all-reduce, K14 + K13)."""
-    return mesh_launches_per_step(rank, mesh_mod.auto_axis_sizes(SP, sp=SP))
+    return mesh_launches_per_step(rank, mesh_mod.auto_axis_sizes(SP, sp=SP),
+                                  SP_LAYERS)
 
 
 def rank_numerics(device, out_dir) -> dict:
@@ -3467,8 +3490,9 @@ def train_sp(device, marker_env: dict, port: Optional[int] = None) -> dict:
            "--nproc-per-node", str(SP), "--master-port",
            str(port or distributed.free_port()), "-m",
            "batch_shipyard_tpu_torch.workloads.train_transformer",
-           "--sp", str(SP), "--seq-len", str(SP_SEQ), "--batch",
-           str(SP_BATCH), "--warmup", str(SP_WARMUP), "--steps",
+           "--sp", str(SP), "--n-layers", str(SP_LAYERS), "--seq-len",
+           str(SP_SEQ), "--batch", str(SP_BATCH), "--warmup",
+           str(SP_WARMUP), "--steps",
            str(SP_STEPS), "--profile-steps", str(SP_PROFILE_STEPS)]
     started = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True,
@@ -3497,8 +3521,9 @@ def train_sp(device, marker_env: dict, port: Optional[int] = None) -> dict:
                 f"{r['plain_calls']}")
     profile = [r["profile"] for r in report["per_rank"]]
     row = {
-        "config": f"bench_transformer widths, --seq-len {SP_SEQ} --sp {SP}, "
-                  f"batch {SP_BATCH}, remat, fused loss",
+        "config": f"bench_transformer widths, {SP_LAYERS} layers, "
+                  f"--seq-len {SP_SEQ} --sp {SP}, batch {SP_BATCH}, remat, "
+                  f"fused loss",
         "ranks": f"{SP} ranks time-sliced on one card",
         "steps": steps, "timed_steps": SP_STEPS,
         "tokens_per_s": report["tokens_per_sec"],
@@ -3530,10 +3555,11 @@ def train_sp(device, marker_env: dict, port: Optional[int] = None) -> dict:
 
 
 # The mesh phase: ranks on this one card through the workload under
-# torch.distributed.run. (a) the reference workload's recipe in full,
+# torch.distributed.run. (a) the reference workload's recipe,
 # --seq-len 8192 --sp 4 --tp 2 (workloads/train_transformer.py:8-10), at
-# bench_transformer's widths and depth, batch 8, remat, the fused loss
-# (vocab-parallel over the tp ring); (b) dp and fsdp across sp rings,
+# bench_transformer's widths and SP_LAYERS layers (the --sp 4 run it is
+# held against has them), batch 8, remat, the fused loss (vocab-parallel
+# over the tp ring); (b) dp and fsdp across sp rings,
 # --sp 2 --fsdp 2 (dp 2), the same widths and batch, depth cut to 2
 # layers; (c) and (d) the tp axis with the fused norms and with int8,
 # --sp 2 --tp 2 (dp 2) --fused-norm or --int8 at 2 layers, each against
@@ -3547,7 +3573,7 @@ def train_sp(device, marker_env: dict, port: Optional[int] = None) -> dict:
 # run's ranks and axes.
 MESH_RANKS = 8
 MESH_RUNS = {
-    "recipe": dict(tp=2, sp=4, fsdp=1, n_layers=_MODEL["n_layers"]),
+    "recipe": dict(tp=2, sp=4, fsdp=1, n_layers=SP_LAYERS),
     "dp_fsdp": dict(tp=1, sp=2, fsdp=2, n_layers=2),
     "fused_tp": dict(tp=2, sp=2, fsdp=1, n_layers=2,
                      flags=["--fused-norm"], base=dict(ranks=4, tp=1)),
@@ -6945,7 +6971,6 @@ def install_library(path: pathlib.Path) -> None:
 WARM_ARGS = ["--vocab", "512", "--d-model", "128", "--n-layers", "2",
              "--n-heads", "2", "--d-ff", "256", "--seq-len", "128",
              "--batch", "2", "--warmup", "1", "--steps", "5", "--no-remat"]
-WARM_TIMEOUT_S = 300.0
 
 
 def _without_nvcc(env: dict, empty: pathlib.Path) -> dict:
@@ -6960,49 +6985,244 @@ def _without_nvcc(env: dict, empty: pathlib.Path) -> dict:
     return env
 
 
-def _warm_run(root: pathlib.Path, name: str, env: dict,
-              extra=()) -> dict:
-    """One fresh process of train_transformer at WARM_ARGS over the cache
-    root ``root``: its JSON line, the goodput events it wrote and the
-    cache entries it added."""
-    ident = cc_manager.list_identity_dirs(str(root))
-    before = {i: cc_manager.snapshot(d) for i, d in ident.items()}
-    events = root.parent / f"{name}_goodput.jsonl"
+# (n): (w)'s two runs, and a gang, as tasks of the port's own pool: a
+# localhost pool (each node a ``python -m batch_shipyard_tpu_torch.agent``
+# process, node prep on) of NODE_VM_SIZE nodes over a localfs store, all
+# in a temp dir. The node agents' caches live in their work dirs
+# (<work_dir>/compilecache, exported to tasks as
+# $SHIPYARD_COMPILE_CACHE_DIR); the store carries the seed between them.
+NODE_POOL_ID = "chipsmoke"
+NODE_VM_SIZE = "a3-highgpu-1g"
+NODE_TIMEOUT_S = 300.0
+NODE_EXPORT_TIMEOUT_S = 60.0
+GANG_INSTANCES = 2
+
+
+def _node_pool(store, creds, work_root: pathlib.Path, nodes: int) -> dict:
+    """``pool add`` of NODE_POOL_ID with ``nodes`` nodes on a fresh work
+    root; it returns once every node is ready (node prep done). Checks
+    each node's node-prep events: start, ``gpus:<n>`` with n this host's
+    /dev/nvidia<N> count, ``torch_cuda_ready:True``, end."""
+    from batch_shipyard_tpu_torch.agent import nodeprep, perf
+    from batch_shipyard_tpu_torch.config import settings as settings_mod
+    from batch_shipyard_tpu_torch.pool import manager as pool_mgr
+    from batch_shipyard_tpu_torch.substrate.localhost import (
+        LocalhostSubstrate)
+    conf = {"pool_specification": {
+        "id": NODE_POOL_ID, "substrate": "localhost",
+        "vm_configuration": {"vm_size": NODE_VM_SIZE,
+                             "vm_count": {"dedicated": nodes}},
+        "inter_node_communication_enabled": True,
+        "max_wait_time_seconds": NODE_TIMEOUT_S}}
+    pool = settings_mod.pool_settings(conf)
+    substrate = LocalhostSubstrate(store, creds, work_root=str(work_root),
+                                   pool_config=conf, run_nodeprep=True)
+    since = time.time()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m",
-         "batch_shipyard_tpu_torch.workloads.train_transformer",
-         *WARM_ARGS, "--compile-cache-dir", str(root), *extra],
-        env=dict(env, SHIPYARD_GOODPUT_FILE=str(events)),
-        cwd=str(_build.REPO_ROOT), capture_output=True, text=True,
-        timeout=WARM_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    require(proc.returncode == 0,
-            f"warm start {name}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
-    report = json.loads(proc.stdout.strip().splitlines()[-1])
-    after = {i: cc_manager.snapshot(d) for i, d in
-             cc_manager.list_identity_dirs(str(root)).items()}
+    ready = pool_mgr.create_pool(store, substrate, pool,
+                                 settings_mod.global_settings({}), conf)
+    add_s = time.perf_counter() - t0
+    gpus = nodeprep.detect_gpus()
+    events = collections.defaultdict(list)
+    for row in perf.query(store, NODE_POOL_ID):
+        if row["source"] == "nodeprep" and row["timestamp"] >= since:
+            events[row["node_id"]].append(row)
+    prep = {}
+    for node in ready:
+        rows = events[node.node_id]
+        seq = [row["event"] for row in rows]
+        require(len(seq) >= 4 and seq[0] == "start" and seq[-1] == "end"
+                and seq[1] == f"gpus:{gpus}" and gpus >= 1 and
+                "torch_cuda_ready:True" in seq,
+                f"node side: {node.node_id}'s node prep events {seq} "
+                f"({[row.get('message') for row in rows]}); this host "
+                f"has {gpus} /dev/nvidia<N>")
+        prep[node.node_id] = {"events": seq, "seconds":
+                              rows[-1]["timestamp"] - rows[0]["timestamp"]}
+    require(len(prep) == nodes, f"node side: {len(ready)} nodes ready")
+    return {"pool": pool, "substrate": substrate, "conf": conf,
+            "work_root": work_root, "add_s": add_s, "node_prep": prep,
+            "gpus": gpus}
+
+
+def _node_job(store, node_pool: dict, job_id: str, command: str,
+              env: dict, multi_instance: Optional[dict] = None) -> dict:
+    """``jobs add`` of one task running ``command`` with ``env``, waited
+    for; it must complete with exit code 0. Its row, the stdout of each
+    instance, the seconds from the submit to the task's start and to its
+    completion (the task row's clock), and its goodput events."""
+    from batch_shipyard_tpu_torch.config import settings as settings_mod
+    from batch_shipyard_tpu_torch.goodput import events as gp_events
+    from batch_shipyard_tpu_torch.jobs import manager as jobs_mgr
+    task = {"id": "run", "command": command, "environment_variables": env}
+    if multi_instance is not None:
+        task["multi_instance"] = multi_instance
+    jobs = settings_mod.job_settings_list(
+        {"job_specifications": [{"id": job_id, "tasks": [task]}]})
+    pool_id = node_pool["pool"].id
+    jobs_mgr.add_jobs(store, node_pool["pool"], jobs)
+    rows = jobs_mgr.wait_for_tasks(store, pool_id, job_id,
+                                   timeout=NODE_TIMEOUT_S)
+    row = rows[0]
+    instances = [None] if multi_instance is None else list(
+        range(multi_instance["num_instances"]))
+
+    def output(name, k):
+        try:
+            return jobs_mgr.get_task_output(store, pool_id, job_id, "run",
+                                            name, instance=k).decode()
+        except Exception as exc:  # noqa: BLE001 - reported below
+            return f"<{name}: {exc}>"
+
+    require(row.get("state") == "completed" and row.get("exit_code") == 0,
+            f"node side: job {job_id}: {row.get('state')} exit "
+            f"{row.get('exit_code')} {row.get('error', '')}\n" + "\n".join(
+                output("stderr.txt", k)[-3000:] for k in instances))
+    submitted = gp_events.iso_to_epoch(row["submitted_at"])
+    return {"row": row, "stdout": [output("stdout.txt", k)
+                                   for k in instances],
+            "submit_to_start_s":
+                gp_events.iso_to_epoch(row["started_at"]) - submitted,
+            "submit_to_complete_s":
+                gp_events.iso_to_epoch(row["completed_at"]) - submitted,
+            "events": gp_events.query(store, pool_id, job_id=job_id)}
+
+
+def _node_cache(node_pool: dict, node_id: str) -> dict:
+    """A node's cache entries by identity (name -> size)."""
+    root = node_pool["work_root"] / NODE_POOL_ID / node_id / "compilecache"
+    return {ident: cc_manager.snapshot(d) for ident, d in
+            cc_manager.list_identity_dirs(str(root)).items()}
+
+
+def _node_warm_run(store, node_pool: dict, job_id: str, command: str,
+                   env: dict, before: dict) -> dict:
+    """One of (w)'s runs as a task: its JSON line, the compile events it
+    wrote (ingested by the agent), the cache entries it added on the node
+    that ran it over ``before`` (identity -> entries) and its times."""
+    job = _node_job(store, node_pool, job_id, command, env)
+    node_id = job["row"]["node_id"]
+    after = _node_cache(node_pool, node_id)
     added = sorted(entry for i, entries in after.items()
                    for entry in entries if entry not in before.get(i, {}))
-    lines = events.read_text().splitlines() if events.exists() else []
-    compile_events = [e["attrs"] for e in map(json.loads, lines)
-                      if e["kind"] == "compile"]
-    return {"report": report, "added": added, "identities": sorted(after),
-            "compile_events": compile_events, "wall_s": wall}
+    return {"report": json.loads(job["stdout"][0].strip().splitlines()[-1]),
+            "added": added, "identities": sorted(after), "entries": after,
+            "compile_events": [e.get("attrs", {}) for e in job["events"]
+                               if e["kind"] == "compile"],
+            "node_id": node_id,
+            "submit_to_start_s": job["submit_to_start_s"],
+            "submit_to_complete_s": job["submit_to_complete_s"]}
 
 
-def warm_start(marker_env: dict) -> dict:
-    """Phase 4b, (w): run 1 cold into an empty cache, run 2 with
-    --aot-precompile and no nvcc over it (module doc)."""
+def _gang_launches(layers: int) -> dict:
+    """What each rank of a dp-2 gang of train_transformer at WARM_ARGS
+    (no remat, the fused loss) launches a step: K1 and K2 once a layer,
+    K3-K5 once, and the data all-reduce (K14 then K13, over the data
+    ring)."""
+    want = {"flash_fwd": layers, "flash_bwd": layers, "xent_fwd": 1,
+            "xent_bwd_h": 1, "xent_bwd_e": 1}
+    for call in ("ring_reduce_scatter", "ring_all_gather"):
+        want[call] = want[f"{call}.data"] = 1
+    want["ring_all_reduce.data"] = 1
+    return want
+
+
+# A gang member's command: train_transformer at WARM_ARGS, then one line
+# with the process group this instance joined (every rank prints it; rank
+# 0's report comes before it). ``--no-compile-cache``: the ranks load
+# phase 1's libraries from build/torch_kernels/ (a dp-2 identity would
+# otherwise build its libraries on each node).
+GANG_COMMAND = (
+    "{python} -c 'import json, sys; import torch.distributed as dist; "
+    "from batch_shipyard_tpu_torch.workloads import train_transformer; "
+    "rc = train_transformer.main(sys.argv[1:]); print(json.dumps("
+    "{{\"rank\": dist.get_rank(), \"process_count\": "
+    "dist.get_world_size()}}), flush=True); sys.exit(rc)' {args} "
+    "--no-compile-cache")
+
+
+def node_side(marker_env: dict) -> dict:
+    """Phase 4b, (n): node prep, (w)'s cold run as job 1, its seeded warm
+    run as job 2 on a fresh pool, and a 2-instance gang as job 3 (module
+    doc). Returns (w)'s rows and the node side's."""
+    from batch_shipyard_tpu_torch.compilecache import seeding
+    from batch_shipyard_tpu_torch.config import settings as settings_mod
+    from batch_shipyard_tpu_torch.pool import manager as pool_mgr
+    from batch_shipyard_tpu_torch.state.localfs import LocalFSStateStore
+    from batch_shipyard_tpu_torch.trace import spans as trace_spans
+    started = time.perf_counter()
+    node = {}
     with tempfile.TemporaryDirectory() as work:
         work = pathlib.Path(work)
-        root, empty = work / "cache", work / "no_cuda_home"
+        empty = work / "no_cuda_home"
         empty.mkdir()
+        store = LocalFSStateStore(str(work / "store"))
+        creds = settings_mod.credentials_settings({"credentials": {
+            "storage": {"backend": "localfs", "root": str(work / "store")}}})
         env = dict(os.environ, **marker_env)
         env.pop(cc_manager.CACHE_DIR_ENV, None)
-        cold = _warm_run(root, "cold", env)
-        warm = _warm_run(root, "warm", _without_nvcc(env, empty),
-                         ["--aot-precompile"])
+        bare = _without_nvcc(env, empty)
+        python = shlex.quote(sys.executable)
+        workload = (f"{python} -m "
+                    f"batch_shipyard_tpu_torch.workloads.train_transformer "
+                    f"{' '.join(WARM_ARGS)}")
+        pools = []
+        try:
+            # (n1) node prep, (n2) the cold run on it and the export.
+            first = _node_pool(store, creds, work / "nodes1", 1)
+            pools.append(first)
+            cold = _node_warm_run(store, first, "cold", workload,
+                                  marker_env, {})
+            deadline = time.monotonic() + NODE_EXPORT_TIMEOUT_S
+            latest = None
+            while time.monotonic() < deadline:
+                latest = seeding.latest_info(store, NODE_POOL_ID)
+                if latest and set(cold["identities"]) <= set(
+                        latest.get("identities", {})):
+                    break
+                time.sleep(0.2)
+            require(latest is not None and set(cold["identities"]) <= set(
+                latest.get("identities", {})),
+                f"node side: no export of {cold['identities']} in "
+                f"compilecache/{NODE_POOL_ID}/latest.json: {latest}")
+            t0 = time.perf_counter()
+            pool_mgr.delete_pool(store, first["substrate"], NODE_POOL_ID)
+            pools.remove(first)
+            node["pool_del_s"] = time.perf_counter() - t0
+            # (n3) two fresh nodes, (w)'s warm run seeded from the store.
+            second = _node_pool(store, creds, work / "nodes2", 2)
+            pools.append(second)
+            warm = _node_warm_run(
+                store, second, "warm",
+                f"env PATH={shlex.quote(bare['PATH'])} "
+                f"CUDA_HOME={shlex.quote(bare['CUDA_HOME'])} {workload} "
+                f"--aot-precompile", marker_env, cold["entries"])
+            seeds = [s for s in trace_spans.query(store, NODE_POOL_ID,
+                                                  job_id="warm")
+                     if s["kind"] == trace_spans.SPAN_CACHE_SEED]
+            require(len(seeds) == 1 and
+                    seeds[0].get("node_id") == warm["node_id"] and
+                    warm["entries"] == cold["entries"],
+                    f"node side: job 2's node {warm['node_id']} holds "
+                    f"{warm['entries']} after seed spans {seeds}; job 1 "
+                    f"left {cold['entries']}")
+            node["seed_ms"] = (seeds[0]["end"] - seeds[0]["start"]) * 1000
+            # (n4) a 2-instance gang, one instance a node.
+            gang = _node_job(
+                store, second, "gang",
+                GANG_COMMAND.format(python=python,
+                                    args=" ".join(WARM_ARGS)),
+                marker_env, {"num_instances": GANG_INSTANCES,
+                             "jax_distributed": {
+                                 "enabled": True,
+                                 "coordinator_port": free_ports(1)[0]}})
+        finally:
+            for each in pools:
+                try:
+                    pool_mgr.delete_pool(store, each["substrate"],
+                                         NODE_POOL_ID)
+                except Exception:  # noqa: BLE001 - the phase's error wins
+                    each["substrate"].deallocate_pool(NODE_POOL_ID)
     rows = {}
     for name, run in (("cold", cold), ("warm", warm)):
         report = run["report"]
@@ -7014,7 +7234,9 @@ def warm_start(marker_env: dict) -> dict:
             "entries_added": run["added"], "built": start["built"],
             "cache": start["compile_cache"],
             "compile_events": run["compile_events"],
-            "losses": report["losses"], "process_wall_s": run["wall_s"]}
+            "losses": report["losses"], "node_id": run["node_id"],
+            "submit_to_start_s": run["submit_to_start_s"],
+            "submit_to_complete_s": run["submit_to_complete_s"]}
     cold_s = rows["cold"]["time_to_first_step_s"]
     warm_s = rows["warm"]["time_to_first_step_s"]
     rows["speedup"] = cold_s / warm_s
@@ -7036,6 +7258,49 @@ def warm_start(marker_env: dict) -> dict:
     require(rows["cold"]["losses"] == rows["warm"]["losses"],
             f"warm start: losses {rows['cold']['losses']} (cold) vs "
             f"{rows['warm']['losses']} (warm)")
+    # The gang: every instance in a group of GANG_INSTANCES, rank 0's
+    # report over both ranks, the losses within the dp tolerance of job
+    # 1's (one rank on the same global batch).
+    members = [json.loads(out.strip().splitlines()[-1])
+               for out in gang["stdout"]]
+    report = json.loads(gang["stdout"][0].strip().splitlines()[-2])
+    layers = int(WARM_ARGS[WARM_ARGS.index("--n-layers") + 1])
+    want = _gang_launches(layers)
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(report["losses"], rows["cold"]["losses"]))
+    node["gang"] = {
+        "members": members, "mesh": report["mesh"],
+        "losses": report["losses"], "max_loss_rel": rel,
+        "tol": MESH_LOSS_RTOL, "ms_per_step": report["ms_per_step"],
+        "launches_per_step_by_rank": [r["launches_per_step"]
+                                      for r in report["per_rank"]],
+        "submit_to_start_s": gang["submit_to_start_s"],
+        "submit_to_complete_s": gang["submit_to_complete_s"]}
+    require(sorted(m["rank"] for m in members) ==
+            list(range(GANG_INSTANCES)) and
+            all(m["process_count"] == GANG_INSTANCES for m in members) and
+            len(report["per_rank"]) == GANG_INSTANCES,
+            f"node side: gang members {members}, "
+            f"{len(report['per_rank'])} ranks reported")
+    require(len(report["losses"]) == len(rows["cold"]["losses"]) and
+            rel <= MESH_LOSS_RTOL,
+            f"node side: the gang's losses off job 1's: {node['gang']}")
+    for entry in report["per_rank"]:
+        require(entry["launches_per_step"] == want and
+                not entry["plain_calls"],
+                f"node side: gang rank {entry['rank']} launched "
+                f"{entry['launches_per_step']} a step (want {want}), plain "
+                f"{entry['plain_calls']}")
+    require(len({str(r["params_sha256"]) for r in report["per_rank"]}) == 1,
+            "node side: the gang's ranks hold different parameters")
+    node.update({"node_prep_s": {
+        **{f"pool1:{k}": v["seconds"]
+           for k, v in first["node_prep"].items()},
+        **{f"pool2:{k}": v["seconds"]
+           for k, v in second["node_prep"].items()}},
+        "pool_add_s": [first["add_s"], second["add_s"]],
+        "gpus": first["gpus"], "phase_s": time.perf_counter() - started})
+    rows["node"] = node
     print(f"warm start (w): time to first step cold {cold_s:.3f} s, warm "
           f"(--aot-precompile, no nvcc) {warm_s:.3f} s, speedup "
           f"{rows['speedup']:.2f}x; first step vs steady step: cold "
@@ -7047,6 +7312,21 @@ def warm_start(marker_env: dict) -> dict:
           f"by library {json.dumps(rows['cold']['built'])}; losses equal "
           f"bit for bit", flush=True)
     print("warm start " + json.dumps(rows), flush=True)
+    print(f"node side (n): node prep {json.dumps(node['node_prep_s'])} s "
+          f"({node['gpus']} GPUs, torch_cuda_ready:True); pool add "
+          f"{node['pool_add_s'][0]:.2f} / {node['pool_add_s'][1]:.2f} s; "
+          f"submit -> task start / complete: cold "
+          f"{rows['cold']['submit_to_start_s']:.2f} / "
+          f"{rows['cold']['submit_to_complete_s']:.2f} s, warm (seeded "
+          f"in {node['seed_ms']:.1f} ms) "
+          f"{rows['warm']['submit_to_start_s']:.2f} / "
+          f"{rows['warm']['submit_to_complete_s']:.2f} s, gang "
+          f"{node['gang']['submit_to_start_s']:.2f} / "
+          f"{node['gang']['submit_to_complete_s']:.2f} s; gang "
+          f"{node['gang']['ms_per_step']:.2f} ms a step over "
+          f"{GANG_INSTANCES} ranks, losses within "
+          f"{node['gang']['max_loss_rel']:.3g} of job 1's; phase "
+          f"{node['phase_s']:.1f} s", flush=True)
     return rows
 
 
@@ -7176,8 +7456,8 @@ def main() -> int:
     try:
         fused = train(device, fused=True)
         int8 = train(device, quantize=True)
-        mark("warm start")
-        warm = warm_start({kernel_select.MARKER_ENV: str(marker)})
+        mark("node side")
+        warm = node_side({kernel_select.MARKER_ENV: str(marker)})
         # The sp ranks: the ring checks and timings, one numerics step,
         # then --sp 4 training, all under the same marker.
         mark("sp")

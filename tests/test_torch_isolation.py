@@ -40,6 +40,30 @@ HOOK_MODULES = (
     "batch_shipyard_tpu_torch.state.memory",
     "batch_shipyard_tpu_torch.state.names",
     "batch_shipyard_tpu_torch.trace.export",
+    # The node side: pool add -> jobs add -> a node agent runs the task.
+    "batch_shipyard_tpu_torch.utils.util",
+    "batch_shipyard_tpu_torch.utils.secrets",
+    "batch_shipyard_tpu_torch.config.settings",
+    "batch_shipyard_tpu_torch.parallel.topology",
+    "batch_shipyard_tpu_torch.state.leases",
+    "batch_shipyard_tpu_torch.state.localfs",
+    "batch_shipyard_tpu_torch.state.factory",
+    "batch_shipyard_tpu_torch.sched.policy",
+    "batch_shipyard_tpu_torch.agent.perf",
+    "batch_shipyard_tpu_torch.agent.cascade",
+    "batch_shipyard_tpu_torch.agent.nodeprep",
+    "batch_shipyard_tpu_torch.agent.task_runner",
+    "batch_shipyard_tpu_torch.agent.node_agent",
+    "batch_shipyard_tpu_torch.agent.__main__",
+    "batch_shipyard_tpu_torch.data.movement",
+    "batch_shipyard_tpu_torch.jobs.launcher",
+    "batch_shipyard_tpu_torch.jobs.task_factory",
+    "batch_shipyard_tpu_torch.jobs.expansion",
+    "batch_shipyard_tpu_torch.jobs.manager",
+    "batch_shipyard_tpu_torch.substrate.base",
+    "batch_shipyard_tpu_torch.substrate.fakepod",
+    "batch_shipyard_tpu_torch.substrate.localhost",
+    "batch_shipyard_tpu_torch.pool.manager",
 )
 
 
