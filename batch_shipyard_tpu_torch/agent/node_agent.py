@@ -27,10 +27,11 @@ the node's GPUs and a torch/CUDA probe), the task runner's passthrough
 torch.distributed's). The compile-cache hooks seed the node's cache
 (``<work_dir>/compilecache``, exported to tasks as
 $SHIPYARD_COMPILE_CACHE_DIR) from the pool's artifact before a task and
-export it after (compilecache/seeding.py). Not here yet: the store-outage
-ride-through wrapper (the reference's state/resilient.py) and the
-pool-resident schedule and autoscale services (config/settings.py
-refuses a pool that asks for them).
+export it after (compilecache/seeding.py). Node 0 runs the pool-resident
+schedule and autoscale services when pool_services asks for them
+(jobs/schedules.py, pool/autoscale.py; autoscale needs the substrate
+handle, which only the fake substrate passes). Not here yet: the
+store-outage ride-through wrapper (the reference's state/resilient.py).
 """
 
 from __future__ import annotations
@@ -127,6 +128,7 @@ class NodeAgent:
                  image_provisioner: Optional[
                      Callable[["NodeAgent", list[str]], None]] = None,
                  output_upload_cap_bytes: Optional[int] = None,
+                 substrate=None,
                  scratch_mount_runner: Optional[
                      Callable[[str, str], int]] = None,
                  scratch_export_runner: Optional[
@@ -157,6 +159,9 @@ class NodeAgent:
         self.node_stale_seconds = node_stale_seconds
         self._nodeprep = nodeprep
         self._image_provisioner = image_provisioner
+        # Substrate handle for pool-resident services that act on the
+        # pool (autoscale resize); None disables those services.
+        self._substrate = substrate
         # None = upload task outputs in full (streamed). A configured
         # cap keeps head+tail around an explicit truncation marker.
         self.output_upload_cap_bytes = output_upload_cap_bytes
@@ -495,6 +500,47 @@ class NodeAgent:
                                 daemon=True)
         ctrl.start()
         self._threads.append(ctrl)
+        self._start_pool_services()
+
+    def _start_pool_services(self) -> None:
+        """Pool-resident daemons on node 0 (reference: the recurrent
+        job manager runs as a job-manager task ON the pool,
+        cargo/recurrent_job_manager.py:187 — schedules keep firing
+        with no operator terminal alive). Gated by
+        pool_specification.pool_services."""
+        services = getattr(self.pool, "pool_services", None)
+        if services is None or self.identity.node_index != 0:
+            return
+        if services.schedules:
+            from batch_shipyard_tpu_torch.jobs import schedules
+            thread = threading.Thread(
+                target=schedules.run_pool_schedule_service,
+                args=(self.store, self.pool),
+                kwargs={"stop_event": self.stop_event,
+                        "poll_interval":
+                            services.poll_interval_seconds},
+                name=f"svc-sched-{self.identity.node_id}", daemon=True)
+            thread.start()
+            self._threads.append(thread)
+            logger.info("pool schedule service running on %s",
+                        self.identity.node_id)
+        if services.autoscale:
+            if self._substrate is None:
+                logger.warning(
+                    "pool_services.autoscale enabled but this agent "
+                    "has no substrate handle; service not started")
+                return
+            from batch_shipyard_tpu_torch.pool import autoscale as as_mod
+            thread = threading.Thread(
+                target=as_mod.run_daemon,
+                args=(self.store, self._substrate, self.pool),
+                kwargs={"stop_event": self.stop_event,
+                        "interval": services.poll_interval_seconds},
+                name=f"svc-as-{self.identity.node_id}", daemon=True)
+            thread.start()
+            self._threads.append(thread)
+            logger.info("pool autoscale service running on %s",
+                        self.identity.node_id)
 
     def stop(self) -> None:
         self.stop_event.set()

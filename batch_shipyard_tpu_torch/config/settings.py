@@ -367,11 +367,6 @@ def pool_settings(config: dict) -> PoolSettings:
             "pool, which this package does not run; name a GPU machine "
             "type in vm_configuration.vm_size (one of "
             f"{', '.join(topo.machine_types())}) instead")
-    for service in ("schedules", "autoscale"):
-        if _get(spec, "pool_services", service, default=False):
-            raise ValueError(
-                f"pool {spec.get('id')!r}: pool_services.{service} is "
-                "not ported to this package yet")
     vm_size = _get(spec, "vm_configuration", "vm_size")
     scenario = None
     if _get(spec, "autoscale", "scenario") is not None:

@@ -128,6 +128,16 @@ class StateStore(abc.ABC):
         except NotFoundError:
             return False
 
+    def generate_signed_url(self, key: str, method: str = "GET",
+                            expires_seconds: float = 3600.0) -> str:
+        """Time-limited signed URL for one object (the CLI's `storage
+        sas`). Only cloud backends can mint these; the local and memory
+        stores raise a clear error instead of minting a URL nobody
+        outside this process could dereference."""
+        raise NotImplementedError(
+            f"{type(self).__name__} cannot mint signed URLs — "
+            f"signed access requires the gcs backend")
+
     # ------------------------------ leases -----------------------------
 
     @abc.abstractmethod

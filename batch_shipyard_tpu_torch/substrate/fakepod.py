@@ -96,7 +96,7 @@ class FakePodSubstrate(base.ComputeSubstrate):
             "poll_interval": 0.05, "gang_timeout": 60.0,
             "job_state_ttl": 0.2,
             "node_stale_seconds": self.node_stale_seconds,
-            "nodeprep": self._nodeprep,
+            "nodeprep": self._nodeprep, "substrate": self,
         }
         # agent_kwargs may override ANY default (tests shrink
         # gang_timeout/claim_visibility; drills tighten backoff).
@@ -342,7 +342,7 @@ class FakePodSubstrate(base.ComputeSubstrate):
             "heartbeat_interval": self.heartbeat_interval,
             "poll_interval": 0.05, "gang_timeout": 60.0,
             "job_state_ttl": 0.2, "node_stale_seconds": 3.0,
-            "nodeprep": None,
+            "nodeprep": None, "substrate": self,
         }
         kwargs.update(self.agent_kwargs)
         revived = NodeAgent(

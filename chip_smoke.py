@@ -129,11 +129,28 @@ Phases, each fatal on failure:
      libraries: both ranks in a group of 2, exactly K1 and K2 once a
      layer, K3-K5 once and the data all-reduce (K14, K13) once a step and
      no plain version, equal parameters, losses within MESH_LOSS_RTOL of
-     job 1's. Printed: (w)'s lines (each run's time to the first step and
-     the speedup, its first step against its steady step, the entries
-     each added and each library's cold nvcc seconds), each node's
-     node-prep seconds, each job's submit -> task start and submit ->
-     complete seconds and the gang's ms a step;
+     job 1's. (n5) the CLI leg (``cli_leg``): a configdir in the same
+     temp dir (the localfs store, a localhost pool of one node, job 4 =
+     job 2's command) and, each a process of its own, ``python -m
+     batch_shipyard_tpu_torch.cli.main --configdir D`` pool add, --raw
+     pool list, jobs add --tail stdout.txt, jobs wait --goodput-report,
+     --raw jobs tasks list, --raw pool cache stats, --raw goodput job,
+     --raw diag perf and pool del --yes: every command exits 0, job 4
+     completes with its JSON line in the tail, seeds from the store and
+     builds nothing, gives job 1's losses bit for bit and launches K1/K2
+     once a layer and K3-K5 once a step with no plain version, its
+     goodput report's productive plus badput seconds equal its wall
+     within 1%, and diag perf holds the pool's create.end; the agents
+     the pool add process spawned are then given CLI_AGENT_EXIT_S to exit
+     after the fresh process's pool del, and any still running are
+     stopped by the leg. Printed: (w)'s lines (each run's time to the
+     first step and the speedup, its first step against its steady step,
+     the entries each added and each library's cold nvcc seconds), each
+     node's node-prep seconds, each job's submit -> task start and
+     submit -> complete seconds and the gang's ms a step; (n5)'s wall
+     seconds by command (--version: the CLI's start-up, which loads no
+     torch), pool add -> task complete, the goodput waterfall and how
+     many agents the leg had to stop;
   5. four sequence-parallel ranks on this one card (``sp_collectives``:
      SP local processes, gloo, the ring kernels' buffers mapped by CUDA
      IPC): K12 (+1 and -1 shifts and its backward through autograd), K13
@@ -386,6 +403,7 @@ import pathlib
 import re
 import shlex
 import shutil
+import signal
 import subprocess
 import tempfile
 import threading
@@ -7141,6 +7159,230 @@ GANG_COMMAND = (
     "--no-compile-cache")
 
 
+# (n5): the CLI leg. The port's operator entry point, one process per
+# command, on a configdir in (n)'s temp dir: a localhost pool of one
+# NODE_VM_SIZE node (the reference's localhost defaults: a temp work
+# root, under the commands' $TMPDIR here, and no node prep) and job 4,
+# (w)'s warm run with no nvcc reachable.
+CLI = [sys.executable, "-m", "batch_shipyard_tpu_torch.cli.main"]
+CLI_TIMEOUT_S = 300.0
+# How long a pool del from a fresh process is given for the agents the
+# pool add process spawned to exit on their own.
+CLI_AGENT_EXIT_S = 5.0
+AGENT_STOP_S = 15.0
+
+
+def _cli(configdir: pathlib.Path, env: dict, *argv: str) -> tuple:
+    """One CLI command in its own process: (wall seconds, stdout); it
+    must exit 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(CLI + ["--configdir", str(configdir), *argv],
+                          cwd=str(_build.REPO_ROOT), env=env,
+                          capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"(n5) {' '.join(argv)}: exit {proc.returncode}\n"
+            f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return seconds, proc.stdout
+
+
+def _agent_pids(root: pathlib.Path) -> list:
+    """Live node agent processes whose bootstrap lies under ``root``
+    (zombies left to a parent that does not reap them count as gone)."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/cmdline", "rb") as fh:
+                argv = fh.read().split(b"\0")
+            with open(f"/proc/{entry}/stat", "rb") as fh:
+                state = fh.read().rsplit(b")", 1)[1].split()[0]
+        except OSError:
+            continue
+        if (b"batch_shipyard_tpu_torch.agent" in argv and state != b"Z"
+                and any(str(root).encode() in arg for arg in argv)):
+            pids.append(int(entry))
+    return pids
+
+
+def _await_agents_gone(root: pathlib.Path, seconds: float) -> list:
+    deadline = time.monotonic() + seconds
+    while (pids := _agent_pids(root)) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    return pids
+
+
+def _stop_agents(root: pathlib.Path) -> int:
+    """Terminate the agents under ``root`` (SIGKILL after AGENT_STOP_S);
+    how many there were."""
+    pids = _agent_pids(root)
+    for signum in (signal.SIGTERM, signal.SIGKILL):
+        for pid in pids:
+            try:
+                os.kill(pid, signum)
+            except ProcessLookupError:
+                pass
+        if not _await_agents_gone(root, AGENT_STOP_S):
+            break
+    require(not _agent_pids(root), f"(n5) agents {pids} did not stop")
+    return len(pids)
+
+
+def cli_leg(work: pathlib.Path, env: dict, marker_env: dict, command: str,
+            cold: dict) -> dict:
+    """(n5): pool add -> jobs add --tail -> jobs wait --goodput-report ->
+    the reports -> pool del through ``python -m
+    batch_shipyard_tpu_torch.cli.main --configdir``, each command a
+    process of its own. Job 4 is ``command`` (job 2's: (w)'s warm run,
+    --aot-precompile, no nvcc reachable) on a fresh one-node pool of
+    NODE_POOL_ID: its node seeds from the store and builds nothing, its
+    losses are job 1's (``cold``) bit for bit and its launches job 1's;
+    its goodput report sums to its wall within 1%; ``diag perf`` holds
+    this pool add's create.end. Then whether the agents the pool add
+    process spawned exit after a pool del from a fresh process (the
+    localhost substrate stops only agents its own process spawned); the
+    leg stops any still running and says so."""
+    import yaml
+
+    from batch_shipyard_tpu_torch.goodput import events as gp_events
+    from batch_shipyard_tpu_torch.jobs import manager as jobs_mgr
+    from batch_shipyard_tpu_torch.state.localfs import LocalFSStateStore
+    from batch_shipyard_tpu_torch.trace import spans as trace_spans
+    configdir = work / "configdir"
+    tmp = work / "cli_tmp"
+    configdir.mkdir()
+    tmp.mkdir()
+    confs = {
+        "credentials": {"credentials": {"storage": {
+            "backend": "localfs", "root": str(work / "store")}}},
+        "config": None,
+        "pool": {"pool_specification": {
+            "id": NODE_POOL_ID, "substrate": "localhost",
+            "vm_configuration": {"vm_size": NODE_VM_SIZE,
+                                 "vm_count": {"dedicated": 1}},
+            "max_wait_time_seconds": int(NODE_TIMEOUT_S)}},
+        "jobs": {"job_specifications": [{"id": "job4", "tasks": [{
+            "id": "run", "command": command,
+            "environment_variables": marker_env}]}]}}
+    for name, data in confs.items():
+        (configdir / f"{name}.yaml").write_text(
+            "" if data is None else yaml.safe_dump(data))
+    env = dict(env, TMPDIR=str(tmp))
+    store = LocalFSStateStore(str(work / "store"))
+    seconds = {}
+    out = {}
+
+    def run(name, *argv):
+        seconds[name], out[name] = _cli(configdir, env, *argv)
+        return out[name]
+
+    try:
+        run("--version", "--version")
+        added_at = time.time()
+        run("pool add", "pool", "add")
+        pools = json.loads(run("--raw pool list", "--raw", "pool",
+                               "list"))["pools"]
+        require([p["state"] for p in pools if p["id"] == NODE_POOL_ID]
+                == ["ready"], f"(n5) pool list: {pools}")
+        tail = run("jobs add --tail", "jobs", "add", "--tail",
+                   "stdout.txt")
+        report = json.loads(tail.strip().splitlines()[-1])
+        waited = run("jobs wait --goodput-report", "jobs", "wait",
+                     "--job-id", "job4", "--timeout", str(CLI_TIMEOUT_S),
+                     "--goodput-report")
+        tasks = json.loads(run("--raw jobs tasks list", "--raw", "jobs",
+                               "tasks", "list", "job4"))["tasks"]
+        require([(t["state"], t["exit_code"]) for t in tasks] ==
+                [("completed", 0)], f"(n5) job 4's tasks: {tasks}")
+        cache_stats = json.loads(run("--raw pool cache stats", "--raw",
+                                     "pool", "cache", "stats"))
+        goodput = json.loads(run("--raw goodput job", "--raw", "goodput",
+                                 "job", "job4"))
+        perf_events = json.loads(run("--raw diag perf", "--raw", "diag",
+                                     "perf"))["events"]
+        row, = jobs_mgr.list_tasks(store, NODE_POOL_ID, "job4")
+        node_dirs = sorted(tmp.glob(f"localnode-*/{NODE_POOL_ID}/*"))
+        entries = {ident: cc_manager.snapshot(d) for node in node_dirs
+                   for ident, d in cc_manager.list_identity_dirs(
+                       str(node / "compilecache")).items()}
+        run("pool del --yes", "pool", "del", "--yes")
+        left = _await_agents_gone(tmp, CLI_AGENT_EXIT_S)
+    finally:
+        stopped = _stop_agents(tmp)
+    layers = int(WARM_ARGS[WARM_ARGS.index("--n-layers") + 1])
+    want = {"flash_fwd": layers, "flash_bwd": layers, "xent_fwd": 1,
+            "xent_bwd_h": 1, "xent_bwd_e": 1}
+    rank, = report["per_rank"]
+    cold_rank, = cold["report"]["per_rank"]
+    require(rank["launches_per_step"] == want ==
+            cold_rank["launches_per_step"] and not rank["plain_calls"],
+            f"(n5) job 4 launched {rank['launches_per_step']} a step, "
+            f"plain {rank['plain_calls']}; job 1 "
+            f"{cold_rank['launches_per_step']} (want {want})")
+    require(report["losses"] == cold["report"]["losses"],
+            f"(n5) losses {report['losses']} (job 4) vs "
+            f"{cold['report']['losses']} (job 1)")
+    compile_events = [e.get("attrs", {}) for e in gp_events.query(
+        store, NODE_POOL_ID, job_id="job4") if e["kind"] == "compile"]
+    warmup = [e for e in compile_events if e.get("what") == "warmup"]
+    seeds = [s for s in trace_spans.query(store, NODE_POOL_ID,
+                                          job_id="job4")
+             if s["kind"] == trace_spans.SPAN_CACHE_SEED]
+    start = report["warm_start"]
+    require(len(node_dirs) == 1 and len(seeds) == 1 and
+            entries == cold["entries"] and not start["built"] and
+            len(warmup) == 1 and warmup[0].get("cache_hit") is True,
+            f"(n5) job 4's node {node_dirs} holds {entries} after seed "
+            f"spans {seeds}; job 1 left {cold['entries']}; built "
+            f"{start['built']}, compile events {compile_events}")
+    total = goodput["productive_seconds"] + sum(
+        goodput["badput_seconds"].values())
+    require(goodput["wall_seconds"] > 0 and
+            abs(total - goodput["wall_seconds"]) <=
+            0.01 * goodput["wall_seconds"],
+            f"(n5) goodput job: productive + badput {total} s, wall "
+            f"{goodput['wall_seconds']} s")
+    require(any(e["event"] == "create.end" and e["t"] >= added_at
+                for e in perf_events),
+            f"(n5) diag perf: no create.end since pool add {perf_events}")
+    waterfall = {}
+    for line in waited.splitlines():
+        parts = line.split()
+        if len(parts) == 3 and parts[0] in goodput["badput_seconds"]:
+            waterfall[parts[0]] = float(parts[1])
+        elif len(parts) == 3 and parts[0] in ("productive", "wall"):
+            waterfall[parts[0]] = float(parts[1])
+    require(set(goodput["badput_seconds"]) <= set(waterfall),
+            f"(n5) jobs wait --goodput-report printed no waterfall:\n"
+            f"{waited}")
+    leg = {"seconds": seconds,
+           "pool_add_to_task_complete_s":
+               gp_events.iso_to_epoch(row["completed_at"]) - added_at,
+           "waterfall_s": waterfall,
+           "goodput_ratio": goodput["goodput_ratio"],
+           "cache_stats": cache_stats, "seed_ms":
+               (seeds[0]["end"] - seeds[0]["start"]) * 1000,
+           "agents_left_after_pool_del": len(left),
+           "agents_stopped_by_script": stopped}
+    print(f"node side (n5) CLI: wall seconds by command "
+          f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})}; "
+          f"pool add -> task complete "
+          f"{leg['pool_add_to_task_complete_s']:.2f} s; job 4 seeded in "
+          f"{leg['seed_ms']:.1f} ms, built nothing, losses equal job 1's "
+          f"bit for bit", flush=True)
+    print(f"node side (n5) goodput waterfall (jobs wait --goodput-report) "
+          f"{json.dumps(waterfall)}; goodput_ratio "
+          f"{goodput['goodput_ratio']:.4f}", flush=True)
+    print(f"node side (n5) pool del from a fresh process: "
+          f"{len(left)} agent(s) still running {CLI_AGENT_EXIT_S:.0f} s "
+          f"after it" + (f"; the script stopped {stopped}" if stopped
+                         else ", none for the script to stop"),
+          flush=True)
+    return leg
+
+
 def node_side(marker_env: dict) -> dict:
     """Phase 4b, (n): node prep, (w)'s cold run as job 1, its seeded warm
     run as job 2 on a fresh pool, and a 2-instance gang as job 3 (module
@@ -7166,6 +7408,9 @@ def node_side(marker_env: dict) -> dict:
         workload = (f"{python} -m "
                     f"batch_shipyard_tpu_torch.workloads.train_transformer "
                     f"{' '.join(WARM_ARGS)}")
+        warm_command = (f"env PATH={shlex.quote(bare['PATH'])} "
+                        f"CUDA_HOME={shlex.quote(bare['CUDA_HOME'])} "
+                        f"{workload} --aot-precompile")
         pools = []
         try:
             # (n1) node prep, (n2) the cold run on it and the export.
@@ -7192,11 +7437,8 @@ def node_side(marker_env: dict) -> dict:
             # (n3) two fresh nodes, (w)'s warm run seeded from the store.
             second = _node_pool(store, creds, work / "nodes2", 2)
             pools.append(second)
-            warm = _node_warm_run(
-                store, second, "warm",
-                f"env PATH={shlex.quote(bare['PATH'])} "
-                f"CUDA_HOME={shlex.quote(bare['CUDA_HOME'])} {workload} "
-                f"--aot-precompile", marker_env, cold["entries"])
+            warm = _node_warm_run(store, second, "warm", warm_command,
+                                  marker_env, cold["entries"])
             seeds = [s for s in trace_spans.query(store, NODE_POOL_ID,
                                                   job_id="warm")
                      if s["kind"] == trace_spans.SPAN_CACHE_SEED]
@@ -7223,6 +7465,8 @@ def node_side(marker_env: dict) -> dict:
                                          NODE_POOL_ID)
                 except Exception:  # noqa: BLE001 - the phase's error wins
                     each["substrate"].deallocate_pool(NODE_POOL_ID)
+        # (n5) job 4 through the CLI, on the store (n1)-(n4) left.
+        node["cli"] = cli_leg(work, env, marker_env, warm_command, cold)
     rows = {}
     for name, run in (("cold", cold), ("warm", warm)):
         report = run["report"]

@@ -7,13 +7,14 @@ two cold processes at once leave one library and a readable meta),
 pool-wide seeding over the port's state store (the reference's cases),
 seeds carried between the two packages both ways, precompile_async's
 goodput event and span, and the workload's compile events priced by the
-reference's accounting."""
+reference's accounting and the port's alike."""
 
 import io
 import json
 import logging
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import tarfile
@@ -28,6 +29,8 @@ from batch_shipyard_tpu.goodput import accounting as ref_accounting
 from batch_shipyard_tpu.goodput import events as ref_events
 from batch_shipyard_tpu.state.memory import MemoryStateStore as RefStore
 from batch_shipyard_tpu_torch.compilecache import aot, manager, seeding
+from batch_shipyard_tpu_torch.goodput import accounting as port_accounting
+from batch_shipyard_tpu_torch.goodput import events as port_events
 from batch_shipyard_tpu_torch.ops import _build
 from batch_shipyard_tpu_torch.state import names
 from batch_shipyard_tpu_torch.state.memory import MemoryStateStore
@@ -584,10 +587,20 @@ _WORKLOAD = ["--device", "cpu", "--d-model", "32", "--n-layers", "1",
 
 
 def _job_report(goodput, job):
+    """The job's report from the reference's accounting, after checking
+    the port's prices the same lines alike (each ingest consumes the
+    file, so the port's reads a copy)."""
+    copy = goodput.with_name(goodput.name + ".port")
+    shutil.copy(goodput, copy)
     store = RefStore()
     assert ref_events.ingest_local_events(store, "pool1", str(goodput),
                                           job_id=job, task_id="t0") > 0
-    return ref_accounting.job_report(store, "pool1", job)
+    report = ref_accounting.job_report(store, "pool1", job)
+    port_store = MemoryStateStore()
+    assert port_events.ingest_local_events(port_store, "pool1", str(copy),
+                                           job_id=job, task_id="t0") > 0
+    assert port_accounting.job_report(port_store, "pool1", job) == report
+    return report
 
 
 def test_workload_cache_misses_then_hits_in_the_references_report(

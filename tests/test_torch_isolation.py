@@ -64,6 +64,18 @@ HOOK_MODULES = (
     "batch_shipyard_tpu_torch.substrate.fakepod",
     "batch_shipyard_tpu_torch.substrate.localhost",
     "batch_shipyard_tpu_torch.pool.manager",
+    # The front door: the CLI, the fleet layer and what they call.
+    "batch_shipyard_tpu_torch.version",
+    "batch_shipyard_tpu_torch.config.validator",
+    "batch_shipyard_tpu_torch.utils.auth",
+    "batch_shipyard_tpu_torch.utils.crypto",
+    "batch_shipyard_tpu_torch.goodput.accounting",
+    "batch_shipyard_tpu_torch.graph.perf_graph",
+    "batch_shipyard_tpu_torch.jobs.schedules",
+    "batch_shipyard_tpu_torch.pool.autoscale",
+    "batch_shipyard_tpu_torch.fleet",
+    "batch_shipyard_tpu_torch.cli.main",
+    "batch_shipyard_tpu_torch.cli.docsgen",
 )
 
 
