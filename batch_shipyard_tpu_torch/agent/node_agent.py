@@ -30,8 +30,10 @@ $SHIPYARD_COMPILE_CACHE_DIR) from the pool's artifact before a task and
 export it after (compilecache/seeding.py). Node 0 runs the pool-resident
 schedule and autoscale services when pool_services asks for them
 (jobs/schedules.py, pool/autoscale.py; autoscale needs the substrate
-handle, which only the fake substrate passes). Not here yet: the
-store-outage ride-through wrapper (the reference's state/resilient.py).
+handle, which only the fake substrate passes). With ``resilience`` set
+(every agent process sets it, agent/__main__.py), the agent's store is
+the store-outage ride-through wrapper (state/resilient.py) over
+``<work_dir>/store_wal.jsonl``.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from batch_shipyard_tpu_torch.goodput import events as goodput_events
 from batch_shipyard_tpu_torch.jobs import launcher
 from batch_shipyard_tpu_torch.sched import policy as sched_policy
 from batch_shipyard_tpu_torch.state import leases as state_leases
+from batch_shipyard_tpu_torch.state import resilient as state_resilient
 from batch_shipyard_tpu_torch.state import names
 from batch_shipyard_tpu_torch.state.base import (
     EntityExistsError, EtagMismatchError, NotFoundError, StateStore)
@@ -148,7 +151,25 @@ class NodeAgent:
                  preempt_sweep_interval: float = 30.0,
                  preempt_grace_seconds: float = 20.0,
                  leader_lease_seconds: Optional[float] = None,
+                 resilience: Optional[dict] = None,
                  ) -> None:
+        # Store-outage ride-through (state/resilient.py): when
+        # configured, every store op this agent issues goes through
+        # the resilient wrapper — critical ops retry through outages,
+        # advisory ops (goodput/trace/heartbeat) ride the per-node
+        # local WAL and replay in order on recovery. The agent process
+        # (agent/__main__.py) enables it by default; in-process agents
+        # opt in via the kwarg.
+        if resilience is not None:
+            journal = os.path.join(work_dir, "store_wal.jsonl")
+            store = state_resilient.ResilientStore(
+                store, journal_path=journal,
+                pool_id=identity.pool_id,
+                node_id=identity.node_id,
+                stop_check=lambda: self.stop_event.is_set(),
+                **resilience)
+            logger.info("store-outage ride-through on; journal %s",
+                        journal)
         self.store = store
         self.identity = identity
         self.pool = pool
@@ -590,6 +611,10 @@ class NodeAgent:
                     self._forward_preempt_requests()
                     self._ingest_live_trace_spans()
                     self._sync_sched_hints()
+            except state_resilient.StoreOutageError:
+                logger.warning(
+                    "store outage: coordination sweeps skipped "
+                    "this beat")
             except Exception:
                 logger.exception("heartbeat iteration failed; "
                                  "continuing")

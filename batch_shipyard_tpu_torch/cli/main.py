@@ -15,12 +15,12 @@ so a Batch Shipyard user finds the same verbs:
   shipyard-tpu-torch trace  show | export | prune
   shipyard-tpu-torch data   stream | files | ingress
   shipyard-tpu-torch diag   perf | logs | gantt
-  shipyard-tpu-torch account info
+  shipyard-tpu-torch account info | quota
   shipyard-tpu-torch secrets / storage
 
 Not here yet, so click answers "No such command": lint, chaos, sim,
-monitor, fed, slurm, fs, misc and ``account quota`` (their modules are
-not ported). Importing this module loads no torch.
+monitor, fed, slurm, fs and misc (their modules are not ported).
+Importing this module loads no torch.
 """
 
 from __future__ import annotations
@@ -831,6 +831,28 @@ def account():
 def account_info(click_ctx):
     fleet.action_account_info(_ctx(click_ctx),
                               raw=click_ctx.obj["raw"])
+
+
+@account.command("quota")
+@click.option("--zone", default=None,
+              help="Zone to inspect (default: credentials gcp.zone)")
+@click.pass_context
+def account_quota(click_ctx, zone):
+    """GPU capacity/quota for a zone: the GPU types it offers and the
+    region's GPU quotas (reference `account quota`, its cli/main.py;
+    the same --raw keys)."""
+    from batch_shipyard_tpu_torch.substrate import quota as quota_mod
+    ctx = _ctx(click_ctx)
+    if ctx.credentials.gcp is None:
+        raise click.ClickException(
+            "account quota requires credentials.gcp")
+    zone = zone or ctx.credentials.gcp.zone
+    if not zone:
+        raise click.ClickException(
+            "no zone: pass --zone or set credentials gcp.zone")
+    client = quota_mod.GpuQuotaClient(ctx.credentials.gcp.project)
+    fleet._emit(quota_mod.quota_report(client, zone),
+                click_ctx.obj["raw"])
 
 
 # ------------------------------ secrets --------------------------------

@@ -300,7 +300,7 @@ def serving_slo_settings(config: dict | None) -> ServingSloSettings:
 @dataclasses.dataclass(frozen=True)
 class PoolSettings:
     id: str
-    substrate: str  # fake | localhost
+    substrate: str  # tpu_vm (the cloud VM substrate) | fake | localhost
     # GCP zone override for this pool (falls back to credentials
     # gcp.zone). Federation's `location` hard constraint matches
     # against it (reference PoolConstraints.location,
@@ -338,6 +338,13 @@ class PoolSettings:
     cadvisor: PrometheusExporterSettings
     pool_services: "PoolServicesSettings" = None  # set by parser
     sched_policy: Optional["SchedPolicySettings"] = None
+    # The cloud substrate's boot image (vm_configuration.image: an
+    # image name, or a projects/P/global/images[/family]/N path) and
+    # the pre-existing network and subnet its VMs join
+    # (virtual_network: name, subnet_name).
+    image: Optional[str] = None
+    network: Optional[str] = None
+    subnetwork: Optional[str] = None
 
     @property
     def is_gpu_pool(self) -> bool:
@@ -490,6 +497,9 @@ def pool_settings(config: dict) -> PoolSettings:
                 default=5.0),
         ),
         sched_policy=sched_policy,
+        image=_get(spec, "vm_configuration", "image"),
+        network=_get(spec, "virtual_network", "name"),
+        subnetwork=_get(spec, "virtual_network", "subnet_name"),
     )
 
 

@@ -172,11 +172,12 @@ def _emit(payload: Any, raw: bool = False) -> None:
 
 # ------------------------------ pool actions ---------------------------
 
-def action_pool_add(ctx: Context, wait: bool = True) -> list:
+def action_pool_add(ctx: Context, wait: bool = True,
+                    quota_client=None) -> list:
     """pool add (fleet.py:3390 analog), preceded by the advisory
     quota/capacity preflight (``_quota_preflight``)."""
     pool = ctx.pool
-    for warning in _quota_preflight(ctx):
+    for warning in _quota_preflight(ctx, quota_client):
         logger.warning("pool add preflight: %s", warning)
     nodes = pool_mgr.create_pool(
         ctx.store, ctx.substrate(), pool, ctx.global_settings,
@@ -185,13 +186,28 @@ def action_pool_add(ctx: Context, wait: bool = True) -> list:
     return nodes
 
 
-def _quota_preflight(ctx: Context) -> list[str]:
-    """Advisory quota warnings before allocation. The reference checks
-    only real-cloud (``tpu_vm``) pools and returns [] for every other;
-    every pool this package can create is fake or localhost, so there
-    is nothing to check until the H100 VM substrate and its quota
-    client are ported."""
-    return []
+def _quota_preflight(ctx: Context, quota_client=None) -> list[str]:
+    """Advisory quota warnings before a cloud (``tpu_vm``) pool's
+    allocation, from the GPU quota client (substrate/quota.py); [] for
+    every other substrate. Never raises, never blocks."""
+    pool = ctx.pool
+    if pool.substrate != "tpu_vm":
+        return []
+    try:
+        from batch_shipyard_tpu_torch.substrate import quota as quota_mod
+        if quota_client is None:
+            import shutil as shutil_mod
+            if shutil_mod.which("gcloud") is None or \
+                    ctx.credentials.gcp is None:
+                return []
+            quota_client = quota_mod.GpuQuotaClient(
+                ctx.credentials.gcp.project)
+        zone = pool.zone or (ctx.credentials.gcp.zone
+                             if ctx.credentials.gcp else None)
+        return quota_mod.preflight_pool(pool, quota_client, zone=zone)
+    except Exception as exc:  # noqa: BLE001 - advisory only
+        logger.debug("quota preflight skipped: %s", exc)
+        return []
 
 
 def action_pool_list(ctx: Context, raw: bool = False) -> None:

@@ -1,7 +1,8 @@
 """State store factory: resolve credentials settings -> a StateStore.
 
-The port's copy of batch_shipyard_tpu/state/factory.py: ``memory`` and
-``localfs``. The ``gcs`` store is not ported yet."""
+The port's copy of batch_shipyard_tpu/state/factory.py: ``memory`` (one
+store per prefix and process), ``localfs`` (a root directory) and
+``gcs`` (a bucket, state/gcs.py)."""
 
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ def create_statestore(storage: StorageCredentialsSettings) -> StateStore:
         from batch_shipyard_tpu_torch.state.localfs import LocalFSStateStore
         return LocalFSStateStore(storage.root)
     if storage.backend == "gcs":
-        raise ValueError("storage backend 'gcs' is not ported to this "
-                         "package yet (use 'localfs' or 'memory')")
+        if not storage.bucket:
+            raise ValueError("storage.bucket is required for gcs backend")
+        from batch_shipyard_tpu_torch.state.gcs import GCSStateStore
+        return GCSStateStore(storage.bucket, prefix=storage.prefix)
     raise ValueError(f"unknown storage backend {storage.backend!r}")

@@ -3,16 +3,18 @@
 The port's copy of batch_shipyard_tpu/substrate/base.py. The reference's
 L0 is Azure Batch pool allocation (create_pool batch.py:921 -> service
 allocates VMs -> start task runs nodeprep). The port's substrates
-simulate nodes in-process (fake — the test substrate SURVEY.md section
-4 calls for) or run agents as local processes (localhost — used to
-drive the host's GPUs end-to-end); the H100 VM substrate is not ported
-yet.
+provision cloud H100 VMs (``tpu_vm``, the schema's value for the cloud
+substrate: one GCE A3 VM a node, substrate/gcp_gpu.py), simulate nodes
+in-process (fake — the test substrate SURVEY.md section 4 calls for) or
+run agents as local processes (localhost — used to drive the host's GPUs
+end-to-end).
 
 Pool semantics note (SURVEY.md section 7 hard parts): in the reference a
 TPU pod slice is allocated atomically with N workers, so the substrate
 interface exposes slice-granular operations and the pool manager maps
 node-granular recovery requests onto them. The port keeps that
-interface; a GPU pool is one slice of N nodes.
+interface: a local GPU pool is one slice of N nodes, and a cloud GPU
+pool's VM is a slice of its own (each VM is its unit of recovery).
 """
 
 from __future__ import annotations
@@ -108,8 +110,7 @@ def create_substrate(kind: str, store: StateStore,
             LocalhostSubstrate)
         return LocalhostSubstrate(store, credentials, **kwargs)
     if kind == "tpu_vm":
-        raise ValueError(
-            "substrate 'tpu_vm' allocates TPU slices, which this package "
-            "does not run; the H100 VM substrate is not ported yet (use "
-            "'fake' or 'localhost')")
+        from batch_shipyard_tpu_torch.substrate.gcp_gpu import (
+            GcpGpuSubstrate)
+        return GcpGpuSubstrate(store, credentials, **kwargs)
     raise ValueError(f"unknown substrate {kind!r}")

@@ -130,27 +130,44 @@ Phases, each fatal on failure:
      layer, K3-K5 once and the data all-reduce (K14, K13) once a step and
      no plain version, equal parameters, losses within MESH_LOSS_RTOL of
      job 1's. (n5) the CLI leg (``cli_leg``): a configdir in the same
-     temp dir (the localfs store, a localhost pool of one node, job 4 =
-     job 2's command) and, each a process of its own, ``python -m
-     batch_shipyard_tpu_torch.cli.main --configdir D`` pool add, --raw
-     pool list, jobs add --tail stdout.txt, jobs wait --goodput-report,
-     --raw jobs tasks list, --raw pool cache stats, --raw goodput job,
-     --raw diag perf and pool del --yes: every command exits 0, job 4
-     completes with its JSON line in the tail, seeds from the store and
-     builds nothing, gives job 1's losses bit for bit and launches K1/K2
-     once a layer and K3-K5 once a step with no plain version, its
-     goodput report's productive plus badput seconds equal its wall
-     within 1%, and diag perf holds the pool's create.end; the agents
-     the pool add process spawned are then given CLI_AGENT_EXIT_S to exit
-     after the fresh process's pool del, and any still running are
-     stopped by the leg. Printed: (w)'s lines (each run's time to the
-     first step and the speedup, its first step against its steady step,
-     the entries each added and each library's cold nvcc seconds), each
-     node's node-prep seconds, each job's submit -> task start and
-     submit -> complete seconds and the gang's ms a step; (n5)'s wall
-     seconds by command (--version: the CLI's start-up, which loads no
-     torch), pool add -> task complete, the goodput waterfall and how
-     many agents the leg had to stop;
+     temp dir (the localfs store, credentials.gcp, a cloud pool --
+     ``substrate: tpu_vm``, the A3 VM substrate -- of one node, job 4 =
+     job 2's command) and, each a process of its own with a stand-in
+     gcloud first on PATH (``write_gcloud_standin``: test scaffolding of
+     this script; its ``instances create`` decodes the boot template of
+     the VM's startup script and starts the port's agent from it on this
+     host, as the VM's boot would), ``python -m
+     batch_shipyard_tpu_torch.cli.main --configdir D`` --raw account
+     quota, pool add, --raw pool list, jobs add --tail stdout.txt, jobs
+     wait --goodput-report, --raw jobs tasks list, --raw pool cache stats,
+     --raw goodput job, --raw diag perf and pool del --yes: every command
+     exits 0, account quota prints the stand-in's canned GPU types and
+     limits, the create argv names a3-highgpu-1g,
+     --maintenance-policy=TERMINATE and a startup script, the node row
+     carries the stand-in's IP, the VM's node prep reports the card, the
+     agent rides on the store-outage wrapper and exits with a journal
+     backlog of 0, job 4 completes with its JSON line in the tail, seeds
+     from the store and builds nothing, gives job 1's losses bit for bit
+     and launches K1/K2 once a layer and K3-K5 once a step with no plain
+     version, its goodput report's productive plus badput seconds equal
+     its wall within 1%, diag perf holds the pool's create.end, and the
+     fresh process's pool del deletes the VM and leaves no agent running.
+     (n6) a store outage (``outage_leg``): the port's agent built in this
+     process as its process builds it (the ride-through on) over the
+     localfs store behind a switch runs job 2's command as a task;
+     OUTAGE_AFTER_S into the task every store op fails for OUTAGE_S: the
+     task must complete once, unretried, with job 1's losses bit for bit,
+     one store_outage goodput row must cover the window and the journal
+     must be replayed with backlog 0. Printed: (w)'s lines (each run's
+     time to the first step and the speedup, its first step against its
+     steady step, the entries each added and each library's cold nvcc
+     seconds), each node's node-prep seconds, each job's submit -> task
+     start and submit -> complete seconds and the gang's ms a step;
+     (n5)'s wall seconds by command (--version: the CLI's start-up,
+     which loads no torch), pool add -> task complete, the goodput
+     waterfall, the gcloud calls and the leg's seconds; (n6)'s outage
+     seconds switched and priced, submit -> complete and the leg's
+     seconds;
   5. four sequence-parallel ranks on this one card (``sp_collectives``:
      SP local processes, gloo, the ring kernels' buffers mapped by CUDA
      IPC): K12 (+1 and -1 shifts and its backward through autograd), K13
@@ -7160,16 +7177,172 @@ GANG_COMMAND = (
 
 
 # (n5): the CLI leg. The port's operator entry point, one process per
-# command, on a configdir in (n)'s temp dir: a localhost pool of one
-# NODE_VM_SIZE node (the reference's localhost defaults: a temp work
-# root, under the commands' $TMPDIR here, and no node prep) and job 4,
-# (w)'s warm run with no nvcc reachable.
+# command, on a configdir in (n)'s temp dir: a cloud pool (``substrate:
+# tpu_vm``) of one NODE_VM_SIZE node, whose gcloud is the stand-in below,
+# and job 4, (w)'s warm run with no nvcc reachable.
 CLI = [sys.executable, "-m", "batch_shipyard_tpu_torch.cli.main"]
 CLI_TIMEOUT_S = 300.0
 # How long a pool del from a fresh process is given for the agents the
-# pool add process spawned to exit on their own.
+# pool add process started to exit.
 CLI_AGENT_EXIT_S = 5.0
 AGENT_STOP_S = 15.0
+CLOUD_PROJECT = "chipsmoke-project"
+CLOUD_ZONE = "us-central1-a"
+# The stand-in's canned answers: Compute Engine's GPU types in the zone
+# and the region's quotas, in the shapes gcloud prints them
+# (``accelerator-types list --format=json``, ``regions describe
+# --format=json``).
+CLOUD_ACCELERATOR_TYPES = [
+    {"name": "nvidia-h100-80gb", "description": "NVIDIA H100 80GB",
+     "maximumCardsPerInstance": 8,
+     "zone": f"https://www.googleapis.com/compute/v1/projects/"
+             f"{CLOUD_PROJECT}/zones/{CLOUD_ZONE}"},
+    {"name": "nvidia-h100-mega-80gb", "description": "NVIDIA H100 Mega 80GB",
+     "maximumCardsPerInstance": 8,
+     "zone": f"https://www.googleapis.com/compute/v1/projects/"
+             f"{CLOUD_PROJECT}/zones/{CLOUD_ZONE}"}]
+CLOUD_REGION = {"name": "us-central1", "quotas": [
+    {"metric": "CPUS", "limit": 2400.0, "usage": 0.0},
+    {"metric": "NVIDIA_H100_GPUS", "limit": 16.0, "usage": 0.0},
+    {"metric": "PREEMPTIBLE_NVIDIA_H100_GPUS", "limit": 64.0, "usage": 0.0},
+    {"metric": "NVIDIA_H100_MEGA_GPUS", "limit": 8.0, "usage": 0.0}]}
+
+# A stand-in for the gcloud CLI, test scaffolding of this script (no part
+# of the package): ``compute instances create`` records its argv, decodes
+# the boot template from the startup script, points its work_dir at the
+# stand-in's state dir and starts the port's agent from it on this host,
+# as the VM's boot would; ``describe`` answers RUNNING at 127.0.0.1;
+# ``delete`` stops that agent; ``accelerator-types list`` and ``regions
+# describe`` answer the canned JSON. Every call is appended to
+# calls.jsonl in the state dir.
+GCLOUD_STANDIN = r"""#!{python}
+import base64, json, os, re, signal, subprocess, sys, time
+
+STATE = {state!r}
+REPO = {repo!r}
+RUN_NODEPREP = {run_nodeprep!r}
+ACCELERATOR_TYPES = {accelerator_types!r}
+REGION = {region!r}
+
+
+def flag(argv, name):
+    for arg in argv:
+        if arg.startswith(name + "="):
+            return arg.split("=", 1)[1]
+    return None
+
+
+def alive(pid):
+    try:
+        with open(f"/proc/{{pid}}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def missing(verb, name):
+    sys.stderr.write(
+        f"ERROR: (gcloud.compute.instances.{{verb}}) Could not fetch "
+        f"resource:\n - The resource 'projects/p/zones/z/instances/"
+        f"{{name}}' was not found\n")
+    return 1
+
+
+def main(argv):
+    with open(os.path.join(STATE, "calls.jsonl"), "a") as fh:
+        fh.write(json.dumps(argv) + "\n")
+    verb = argv[:3]
+    if verb == ["compute", "instances", "create"]:
+        name = argv[3]
+        script_path = flag(argv, "--metadata-from-file").split("=", 1)[1]
+        with open(script_path) as fh:
+            script = fh.read()
+        with open(os.path.join(STATE, name + ".startup.sh"), "w") as fh:
+            fh.write(script)
+        b64 = re.search(r"echo (\S+) \| base64 -d", script).group(1)
+        boot = json.loads(base64.b64decode(b64))
+        work = os.path.join(STATE, name)
+        os.makedirs(work, exist_ok=True)
+        boot["work_dir"] = work
+        boot["identity"].update(hostname=name, internal_ip="127.0.0.1")
+        boot["run_nodeprep"] = RUN_NODEPREP
+        path = os.path.join(work, "boot.json")
+        with open(path, "w") as fh:
+            json.dump(boot, fh)
+        log = open(os.path.join(work, "agent.log"), "ab")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "batch_shipyard_tpu_torch.agent", path],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            stdin=subprocess.DEVNULL, stdout=log, stderr=log,
+            start_new_session=True)
+        with open(os.path.join(STATE, name + ".pid"), "w") as fh:
+            fh.write(str(proc.pid))
+        return 0
+    if verb in (["compute", "instances", "describe"],
+                ["compute", "instances", "delete"]):
+        name = argv[3]
+        pidfile = os.path.join(STATE, name + ".pid")
+        if not os.path.exists(pidfile):
+            return missing(verb[2], name)
+        if verb[2] == "describe":
+            desc = {{"name": name, "status": "RUNNING",
+                    "networkInterfaces": [{{
+                        "networkIP": "127.0.0.1",
+                        "accessConfigs": [{{"natIP": "127.0.0.1"}}]}}]}}
+            fmt = flag(argv, "--format")
+            print(json.dumps(desc) if fmt == "json" else
+                  desc["status"] if fmt == "value(status)" else
+                  "127.0.0.1")
+            return 0
+        with open(pidfile) as fh:
+            pid = int(fh.read())
+        for signum in (signal.SIGTERM, signal.SIGKILL):
+            try:
+                os.kill(pid, signum)
+            except ProcessLookupError:
+                pass
+            deadline = time.monotonic() + 15.0
+            while alive(pid) and time.monotonic() < deadline:
+                time.sleep(0.1)
+            if not alive(pid):
+                break
+        os.remove(pidfile)
+        return 0
+    if verb == ["compute", "accelerator-types", "list"]:
+        print(ACCELERATOR_TYPES)
+        return 0
+    if verb == ["compute", "regions", "describe"]:
+        print(REGION)
+        return 0
+    sys.stderr.write(f"stand-in gcloud: unsupported {{argv}}\n")
+    return 2
+
+
+sys.exit(main(sys.argv[1:]))
+"""
+
+
+def write_gcloud_standin(bin_dir: pathlib.Path, state: pathlib.Path,
+                         run_nodeprep: bool = True) -> pathlib.Path:
+    """The stand-in ``gcloud`` in ``bin_dir`` (put it first on PATH),
+    keeping its VMs' work dirs, pid files and calls.jsonl in ``state``."""
+    bin_dir.mkdir(parents=True, exist_ok=True)
+    state.mkdir(parents=True, exist_ok=True)
+    path = bin_dir / "gcloud"
+    path.write_text(GCLOUD_STANDIN.format(
+        python=sys.executable, state=str(state),
+        repo=str(_build.REPO_ROOT), run_nodeprep=run_nodeprep,
+        accelerator_types=json.dumps(CLOUD_ACCELERATOR_TYPES),
+        region=json.dumps(CLOUD_REGION)))
+    path.chmod(0o755)
+    return path
+
+
+def gcloud_calls(state: pathlib.Path) -> list:
+    path = state / "calls.jsonl"
+    if not path.exists():
+        return []
+    return [json.loads(line) for line in path.read_text().splitlines()]
 
 
 def _cli(configdir: pathlib.Path, env: dict, *argv: str) -> tuple:
@@ -7232,34 +7405,46 @@ def _stop_agents(root: pathlib.Path) -> int:
 
 def cli_leg(work: pathlib.Path, env: dict, marker_env: dict, command: str,
             cold: dict) -> dict:
-    """(n5): pool add -> jobs add --tail -> jobs wait --goodput-report ->
-    the reports -> pool del through ``python -m
+    """(n5): account quota -> pool add -> jobs add --tail -> jobs wait
+    --goodput-report -> the reports -> pool del through ``python -m
     batch_shipyard_tpu_torch.cli.main --configdir``, each command a
-    process of its own. Job 4 is ``command`` (job 2's: (w)'s warm run,
+    process of its own, on a cloud pool (``substrate: tpu_vm``) whose
+    gcloud is the stand-in (``write_gcloud_standin``), first on the
+    commands' PATH. Job 4 is ``command`` (job 2's: (w)'s warm run,
     --aot-precompile, no nvcc reachable) on a fresh one-node pool of
     NODE_POOL_ID: its node seeds from the store and builds nothing, its
     losses are job 1's (``cold``) bit for bit and its launches job 1's;
     its goodput report sums to its wall within 1%; ``diag perf`` holds
-    this pool add's create.end. Then whether the agents the pool add
-    process spawned exit after a pool del from a fresh process (the
-    localhost substrate stops only agents its own process spawned); the
-    leg stops any still running and says so."""
+    this pool add's create.end. The VM's create argv names NODE_VM_SIZE,
+    ``--maintenance-policy=TERMINATE`` and a startup script; the node's
+    row carries the stand-in's IP and its node prep reports the card; its
+    agent rides store outages (its log: the wrapper on over
+    ``<work_dir>/store_wal.jsonl``, a journal backlog of 0 at its exit);
+    ``--raw account quota`` prints the canned limits; and a pool del from
+    a fresh process deletes the VM and leaves no agent."""
     import yaml
 
+    from batch_shipyard_tpu_torch.agent import nodeprep, perf
     from batch_shipyard_tpu_torch.goodput import events as gp_events
     from batch_shipyard_tpu_torch.jobs import manager as jobs_mgr
+    from batch_shipyard_tpu_torch.state import names as state_names
     from batch_shipyard_tpu_torch.state.localfs import LocalFSStateStore
+    from batch_shipyard_tpu_torch.substrate import gcp_gpu
     from batch_shipyard_tpu_torch.trace import spans as trace_spans
+    started = time.perf_counter()
     configdir = work / "configdir"
     tmp = work / "cli_tmp"
+    vms = work / "gcloud_vms"
     configdir.mkdir()
     tmp.mkdir()
+    write_gcloud_standin(work / "gcloud_bin", vms)
     confs = {
-        "credentials": {"credentials": {"storage": {
-            "backend": "localfs", "root": str(work / "store")}}},
+        "credentials": {"credentials": {
+            "gcp": {"project": CLOUD_PROJECT, "zone": CLOUD_ZONE},
+            "storage": {"backend": "localfs", "root": str(work / "store")}}},
         "config": None,
         "pool": {"pool_specification": {
-            "id": NODE_POOL_ID, "substrate": "localhost",
+            "id": NODE_POOL_ID, "substrate": "tpu_vm",
             "vm_configuration": {"vm_size": NODE_VM_SIZE,
                                  "vm_count": {"dedicated": 1}},
             "max_wait_time_seconds": int(NODE_TIMEOUT_S)}},
@@ -7269,10 +7454,12 @@ def cli_leg(work: pathlib.Path, env: dict, marker_env: dict, command: str,
     for name, data in confs.items():
         (configdir / f"{name}.yaml").write_text(
             "" if data is None else yaml.safe_dump(data))
-    env = dict(env, TMPDIR=str(tmp))
+    env = dict(env, TMPDIR=str(tmp), PATH=os.pathsep.join(
+        [str(work / "gcloud_bin"), env.get("PATH", "")]))
     store = LocalFSStateStore(str(work / "store"))
     seconds = {}
     out = {}
+    vm = gcp_gpu.vm_name(NODE_POOL_ID, 0)
 
     def run(name, *argv):
         seconds[name], out[name] = _cli(configdir, env, *argv)
@@ -7280,6 +7467,17 @@ def cli_leg(work: pathlib.Path, env: dict, marker_env: dict, command: str,
 
     try:
         run("--version", "--version")
+        quota = json.loads(run("--raw account quota", "--raw", "account",
+                               "quota"))
+        want_limits = [{"metric": q["metric"], "unit": "GPUs",
+                        "region": CLOUD_REGION["name"],
+                        "limit": int(q["limit"]), "usage": int(q["usage"])}
+                       for q in CLOUD_REGION["quotas"] if "GPU" in q["metric"]]
+        require(quota == {"project": CLOUD_PROJECT, "zone": CLOUD_ZONE,
+                          "accelerator_types": sorted(
+                              t["name"] for t in CLOUD_ACCELERATOR_TYPES),
+                          "quota_limits": want_limits},
+                f"(n5) --raw account quota: {quota}")
         added_at = time.time()
         run("pool add", "pool", "add")
         pools = json.loads(run("--raw pool list", "--raw", "pool",
@@ -7303,14 +7501,51 @@ def cli_leg(work: pathlib.Path, env: dict, marker_env: dict, command: str,
         perf_events = json.loads(run("--raw diag perf", "--raw", "diag",
                                      "perf"))["events"]
         row, = jobs_mgr.list_tasks(store, NODE_POOL_ID, "job4")
-        node_dirs = sorted(tmp.glob(f"localnode-*/{NODE_POOL_ID}/*"))
+        node_row, = store.query_entities(state_names.TABLE_NODES,
+                                         partition_key=NODE_POOL_ID)
+        node_dirs = sorted(p.parent for p in vms.glob("*/boot.json"))
         entries = {ident: cc_manager.snapshot(d) for node in node_dirs
                    for ident, d in cc_manager.list_identity_dirs(
                        str(node / "compilecache")).items()}
+        running_before_del = _agent_pids(vms)
         run("pool del --yes", "pool", "del", "--yes")
-        left = _await_agents_gone(tmp, CLI_AGENT_EXIT_S)
+        left = _await_agents_gone(vms, CLI_AGENT_EXIT_S)
     finally:
-        stopped = _stop_agents(tmp)
+        stopped = _stop_agents(vms)
+    agent_log = (vms / vm / "agent.log").read_text(errors="replace")
+    calls = gcloud_calls(vms)
+    creates = [c for c in calls if c[:3] == ["compute", "instances",
+                                             "create"]]
+    deletes = [c for c in calls if c[:3] == ["compute", "instances",
+                                             "delete"]]
+    require(len(creates) == 1 and creates[0][3] == vm and
+            f"--machine-type={NODE_VM_SIZE}" in creates[0] and
+            "--maintenance-policy=TERMINATE" in creates[0] and
+            any(a.startswith("--metadata-from-file=startup-script=")
+                for a in creates[0]) and
+            f"--project={CLOUD_PROJECT}" in creates[0] and
+            f"--zone={CLOUD_ZONE}" in creates[0],
+            f"(n5) gcloud create calls {creates}")
+    require([c[3] for c in deletes] == [vm],
+            f"(n5) gcloud delete calls {deletes}")
+    require(node_row.get("internal_ip") == "127.0.0.1" and
+            node_row.get("hostname") == vm,
+            f"(n5) the node's row {node_row}")
+    require(f"store-outage ride-through on; journal "
+            f"{vms / vm / 'store_wal.jsonl'}" in agent_log and
+            "journal backlog 0 at exit" in agent_log,
+            f"(n5) the agent did not ride on the wrapper or left a "
+            f"backlog; its log:\n{agent_log[-3000:]}")
+    gpus = nodeprep.detect_gpus()
+    prep = [e["event"] for e in perf.query(store, NODE_POOL_ID)
+            if e["source"] == "nodeprep" and e["timestamp"] >= added_at]
+    require(len(prep) >= 4 and prep[0] == "start" and prep[-1] == "end"
+            and f"gpus:{gpus}" in prep and "torch_cuda_ready:True" in prep,
+            f"(n5) the VM's node prep events {prep} ({gpus} GPUs here)")
+    require(len(running_before_del) == 1 and not left and not stopped,
+            f"(n5) agents {running_before_del} before pool del, {left} "
+            f"left {CLI_AGENT_EXIT_S:.0f} s after it, {stopped} stopped "
+            f"by the script")
     layers = int(WARM_ARGS[WARM_ARGS.index("--n-layers") + 1])
     want = {"flash_fwd": layers, "flash_bwd": layers, "xent_fwd": 1,
             "xent_bwd_h": 1, "xent_bwd_e": 1}
@@ -7364,22 +7599,229 @@ def cli_leg(work: pathlib.Path, env: dict, marker_env: dict, command: str,
            "goodput_ratio": goodput["goodput_ratio"],
            "cache_stats": cache_stats, "seed_ms":
                (seeds[0]["end"] - seeds[0]["start"]) * 1000,
+           "gcloud_calls": [c[:3] for c in calls],
            "agents_left_after_pool_del": len(left),
-           "agents_stopped_by_script": stopped}
-    print(f"node side (n5) CLI: wall seconds by command "
+           "leg_s": time.perf_counter() - started}
+    print(f"node side (n5) CLI on the cloud substrate (stand-in gcloud): "
+          f"wall seconds by command "
           f"{json.dumps({k: round(v, 3) for k, v in seconds.items()})}; "
           f"pool add -> task complete "
           f"{leg['pool_add_to_task_complete_s']:.2f} s; job 4 seeded in "
           f"{leg['seed_ms']:.1f} ms, built nothing, losses equal job 1's "
-          f"bit for bit", flush=True)
+          f"bit for bit; gcloud calls "
+          f"{json.dumps([' '.join(c) for c in leg['gcloud_calls']])}",
+          flush=True)
     print(f"node side (n5) goodput waterfall (jobs wait --goodput-report) "
           f"{json.dumps(waterfall)}; goodput_ratio "
           f"{goodput['goodput_ratio']:.4f}", flush=True)
-    print(f"node side (n5) pool del from a fresh process: "
-          f"{len(left)} agent(s) still running {CLI_AGENT_EXIT_S:.0f} s "
-          f"after it" + (f"; the script stopped {stopped}" if stopped
-                         else ", none for the script to stop"),
-          flush=True)
+    print(f"node side (n5) pool del from a fresh process deleted {vm}; 0 "
+          f"agents running {CLI_AGENT_EXIT_S:.0f} s after it; leg "
+          f"{leg['leg_s']:.1f} s", flush=True)
+    return leg
+
+
+# (n6): a store outage on the card. The port's agent, built in this
+# process as its process builds it (agent/__main__.build_agent: the
+# ride-through on), over the leg's localfs store behind a switch, runs
+# job 2's warm command as a task; OUTAGE_AFTER_S into the task every store
+# op fails with a transport error for OUTAGE_S.
+OUTAGE_AFTER_S = 2.0
+OUTAGE_S = 5.0
+OUTAGE_NODE = f"{NODE_POOL_ID}-outage-n0"
+OUTAGE_HEARTBEAT_S = 0.5
+
+
+class SwitchedStore:
+    """A store behind a switch: while ``off`` every op raises a transport
+    error (ConnectionError), as a store a node cannot reach does."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.off = False
+
+    def __getattr__(self, name):
+        attr = getattr(self.inner, name)
+        if not callable(attr):
+            return attr
+
+        def call(*args, **kwargs):
+            if self.off:
+                raise ConnectionError(f"store switched off ({name})")
+            return attr(*args, **kwargs)
+        return call
+
+
+class InProcessNode:
+    """A one-node substrate whose agent runs in this process, built by
+    ``agent/__main__.build_agent`` from a bootstrap without a resilience
+    block, over ``store``."""
+
+    def __init__(self, store, work: pathlib.Path):
+        self.store = store
+        self.work = work
+        self.agent = None
+
+    def allocate_pool(self, pool) -> None:
+        from batch_shipyard_tpu_torch.agent import __main__ as agent_main
+        from batch_shipyard_tpu_torch.state import names as state_names
+        self.store.inner.upsert_entity(
+            state_names.TABLE_NODES, pool.id, OUTAGE_NODE, {
+                "state": "creating", "hostname": OUTAGE_NODE,
+                "internal_ip": "127.0.0.1", "node_index": 0,
+                "slice_index": 0, "worker_index": 0,
+                "registered_at": time.time()})
+        boot = {
+            "pool_config": {"pool_specification": {
+                "id": pool.id, "substrate": "localhost",
+                "vm_configuration": {"vm_size": pool.vm_size,
+                                     "vm_count": {"dedicated": 1}}}},
+            "identity": {"pool_id": pool.id, "node_id": OUTAGE_NODE,
+                         "node_index": 0, "hostname": OUTAGE_NODE,
+                         "internal_ip": "127.0.0.1"},
+            "work_dir": str(self.work / OUTAGE_NODE),
+            "heartbeat_interval": OUTAGE_HEARTBEAT_S,
+            "poll_interval": 0.2, "node_stale_seconds": 10.0,
+            "run_nodeprep": False}
+        self.agent = agent_main.build_agent(boot, store=self.store)
+        self.agent.start()
+
+    def deallocate_pool(self, pool_id: str) -> None:
+        from batch_shipyard_tpu_torch.state import names as state_names
+        if self.agent is not None:
+            self.agent.stop()
+            self.agent.join(60.0)
+        for row in list(self.store.inner.query_entities(
+                state_names.TABLE_NODES, partition_key=pool_id)):
+            self.store.inner.delete_entity(state_names.TABLE_NODES,
+                                           pool_id, row["_rk"])
+
+    def recreate_slice(self, pool, slice_index: int) -> None:
+        raise RuntimeError("(n6) the in-process node cannot be recreated")
+
+
+def outage_leg(work: pathlib.Path, marker_env: dict, command: str,
+               cold: dict) -> dict:
+    """(n6): the task must complete on the card once, unretried, with job
+    1's losses bit for bit; exactly one ``store_outage`` goodput row must
+    cover the switched-off window; the journal must have held the
+    advisory writes of the window and be replayed (each journaled goodput
+    row in the store, the node's heartbeat the newest journaled one or
+    later) with backlog 0."""
+    from batch_shipyard_tpu_torch.config import settings as settings_mod
+    from batch_shipyard_tpu_torch.goodput import events as gp_events
+    from batch_shipyard_tpu_torch.jobs import manager as jobs_mgr
+    from batch_shipyard_tpu_torch.pool import manager as pool_mgr
+    from batch_shipyard_tpu_torch.state import names as state_names
+    from batch_shipyard_tpu_torch.state import resilient
+    from batch_shipyard_tpu_torch.state.localfs import LocalFSStateStore
+    started = time.perf_counter()
+    store = LocalFSStateStore(str(work / "store"))
+    switch = SwitchedStore(store)
+    node = InProcessNode(switch, work / "outage")
+    conf = {"pool_specification": {
+        "id": NODE_POOL_ID, "substrate": "localhost",
+        "vm_configuration": {"vm_size": NODE_VM_SIZE,
+                             "vm_count": {"dedicated": 1}},
+        "max_wait_time_seconds": int(NODE_TIMEOUT_S)}}
+    pool = settings_mod.pool_settings(conf)
+    pool_mgr.create_pool(store, node, pool, settings_mod.global_settings({}),
+                         conf)
+    try:
+        agent = node.agent
+        require(isinstance(agent.store, resilient.ResilientStore),
+                f"(n6) the agent's store is {type(agent.store).__name__}")
+        wal = pathlib.Path(agent.work_dir) / "store_wal.jsonl"
+        # The agent runs in this process, so its tasks get this
+        # process's environment: the repo on PYTHONPATH as a node's.
+        jobs_mgr.add_jobs(store, pool, settings_mod.job_settings_list(
+            {"job_specifications": [{"id": "outage", "tasks": [{
+                "id": "run", "command": command,
+                "environment_variables": dict(
+                    marker_env, PYTHONPATH=str(_build.REPO_ROOT))}]}]}))
+        deadline = time.monotonic() + NODE_TIMEOUT_S
+        while time.monotonic() < deadline and jobs_mgr.list_tasks(
+                store, NODE_POOL_ID, "outage")[0].get("state") not in (
+                "running", "completed", "failed"):
+            time.sleep(0.05)
+        state = jobs_mgr.list_tasks(store, NODE_POOL_ID,
+                                    "outage")[0].get("state")
+        require(state == "running", f"(n6) the task is {state}")
+        time.sleep(OUTAGE_AFTER_S)
+        off = time.time()
+        switch.off = True
+        time.sleep(OUTAGE_S)
+        journaled = [json.loads(line) for line in wal.read_text().splitlines()
+                     if line.strip()] if wal.exists() else []
+        on = time.time()
+        switch.off = False
+        row, = jobs_mgr.wait_for_tasks(store, NODE_POOL_ID, "outage",
+                                       timeout=NODE_TIMEOUT_S)
+        deadline = time.monotonic() + 60.0
+
+        def outages():
+            return [e for e in gp_events.query(store, NODE_POOL_ID)
+                    if e["kind"] == gp_events.STORE_OUTAGE]
+
+        while time.monotonic() < deadline and (
+                agent.store.journal_backlog() or not outages()):
+            time.sleep(0.1)
+        stdout = jobs_mgr.get_task_output(store, NODE_POOL_ID, "outage",
+                                          "run", "stdout.txt").decode()
+        node_row = store.get_entity(state_names.TABLE_NODES, NODE_POOL_ID,
+                                    OUTAGE_NODE)
+        rows = outages()
+        backlog = agent.store.journal_backlog()
+        running = [e for e in gp_events.query(store, NODE_POOL_ID,
+                                              job_id="outage")
+                   if e["kind"] == gp_events.TASK_RUNNING]
+    finally:
+        switch.off = False
+        pool_mgr.delete_pool(store, node, NODE_POOL_ID)
+    require(row.get("state") == "completed" and row.get("exit_code") == 0
+            and not row.get("retries") and len(running) == 1,
+            f"(n6) the task {row.get('state')} exit {row.get('exit_code')} "
+            f"retries {row.get('retries')}, {len(running)} running "
+            f"interval(s): {row.get('error', '')}")
+    report = json.loads(stdout.strip().splitlines()[-1])
+    require(report["losses"] == cold["report"]["losses"],
+            f"(n6) losses {report['losses']} vs job 1's "
+            f"{cold['report']['losses']}")
+    require(len(rows) == 1 and off <= rows[0]["start"] <= off + 1.0 and
+            rows[0]["end"] >= on and rows[0]["node_id"] == OUTAGE_NODE,
+            f"(n6) store_outage rows {rows} for the window [{off}, {on}]")
+    inserted = [e for e in journaled if e["op"] == "insert_entity"]
+    beats = [e["args"][3]["heartbeat_at"] for e in journaled
+             if e["op"] == "merge_entity" and
+             e["args"][0] == state_names.TABLE_NODES and
+             "heartbeat_at" in e["args"][3]]
+    missing = []
+    for entry in inserted:
+        table, pk, rk = entry["args"][:3]
+        try:
+            store.get_entity(table, pk, rk)
+        except KeyError:
+            missing.append((table, rk))
+    require(beats and backlog == 0 and not missing and not wal.exists() and
+            node_row["heartbeat_at"] >= max(beats),
+            f"(n6) journal: {len(journaled)} entries ({len(beats)} beats) "
+            f"at the window's end, backlog {backlog} after, rows never "
+            f"replayed {missing}, node heartbeat {node_row['heartbeat_at']}")
+    submitted = gp_events.iso_to_epoch(row["submitted_at"])
+    leg = {"outage_switched_s": on - off,
+           "outage_priced_s": rows[0]["end"] - rows[0]["start"],
+           "journaled_entries": len(journaled),
+           "replayed": rows[0].get("attrs", {}).get("replayed"),
+           "submit_to_complete_s":
+               gp_events.iso_to_epoch(row["completed_at"]) - submitted,
+           "leg_s": time.perf_counter() - started}
+    print(f"node side (n6) store outage: switched off {leg['outage_switched_s']:.3f} "
+          f"s from {OUTAGE_AFTER_S:.0f} s into the task, priced "
+          f"{leg['outage_priced_s']:.3f} s as one store_outage row; "
+          f"{leg['journaled_entries']} journal entries at the window's "
+          f"end, replayed in order, backlog 0; the task completed once, "
+          f"unretried, losses equal job 1's bit for bit; submit -> "
+          f"complete {leg['submit_to_complete_s']:.2f} s; leg "
+          f"{leg['leg_s']:.1f} s", flush=True)
     return leg
 
 
@@ -7465,8 +7907,10 @@ def node_side(marker_env: dict) -> dict:
                                          NODE_POOL_ID)
                 except Exception:  # noqa: BLE001 - the phase's error wins
                     each["substrate"].deallocate_pool(NODE_POOL_ID)
-        # (n5) job 4 through the CLI, on the store (n1)-(n4) left.
+        # (n5) job 4 through the CLI on the cloud substrate, on the store
+        # (n1)-(n4) left; (n6) job 2's command through a store outage.
         node["cli"] = cli_leg(work, env, marker_env, warm_command, cold)
+        node["outage"] = outage_leg(work, marker_env, warm_command, cold)
     rows = {}
     for name, run in (("cold", cold), ("warm", warm)):
         report = run["report"]

@@ -76,6 +76,14 @@ HOOK_MODULES = (
     "batch_shipyard_tpu_torch.fleet",
     "batch_shipyard_tpu_torch.cli.main",
     "batch_shipyard_tpu_torch.cli.docsgen",
+    # The cloud pool: the ride-through, the GCS store, the A3 VM
+    # substrate and what it stands on.
+    "batch_shipyard_tpu_torch.state.resilient",
+    "batch_shipyard_tpu_torch.state.gcs",
+    "batch_shipyard_tpu_torch.substrate.gcloud_errors",
+    "batch_shipyard_tpu_torch.substrate.gce_vm",
+    "batch_shipyard_tpu_torch.substrate.quota",
+    "batch_shipyard_tpu_torch.substrate.gcp_gpu",
 )
 
 

@@ -108,7 +108,7 @@ def test_pool_schema_bad_key():
 
 
 def test_substrate_enum_is_the_references():
-    """tpu_vm still passes the schema (create_substrate refuses it)."""
+    """tpu_vm passes the schema (the cloud substrate: A3 VMs)."""
     for kind in ("tpu_vm", "fake", "localhost"):
         assert _both_config("pool", {"pool_specification": {
             "id": "p", "substrate": kind}}) == []
