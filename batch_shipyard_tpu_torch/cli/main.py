@@ -13,14 +13,16 @@ so a Batch Shipyard user finds the same verbs:
                             tasks list
   shipyard-tpu-torch goodput job | pool | fleet
   shipyard-tpu-torch trace  show | export | prune
+  shipyard-tpu-torch chaos  plan | drill
   shipyard-tpu-torch data   stream | files | ingress
   shipyard-tpu-torch diag   perf | logs | gantt
   shipyard-tpu-torch account info | quota
   shipyard-tpu-torch secrets / storage
 
-Not here yet, so click answers "No such command": lint, chaos, sim,
-monitor, fed, slurm, fs and misc (their modules are not ported).
-Importing this module loads no torch.
+Not here yet, so click answers "No such command": lint, sim, monitor,
+fed, slurm, fs and misc (their modules are not ported); `chaos drill`
+has no --migrate (the migration drill needs fed), and takes --device for
+its serving drills. Importing this module loads no torch.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import sys
 import click
 
 from batch_shipyard_tpu_torch import fleet
+from batch_shipyard_tpu_torch.chaos import plan as chaos_plan_mod
 from batch_shipyard_tpu_torch.version import __version__
 
 
@@ -701,6 +704,145 @@ def trace_prune(click_ctx, older_than_hours):
     removed = trace_spans_mod.prune(ctx.store, ctx.pool.id,
                                     older_than_hours * 3600.0)
     click.echo(f"pruned {removed} spans from pool {ctx.pool.id}")
+
+
+# ------------------------------- chaos ---------------------------------
+
+@cli.group()
+def chaos():
+    """Deterministic chaos engineering (chaos/): seeded fault
+    schedules replayed against a self-contained fakepod pool, with
+    the self-healing invariants asserted (every task completes
+    exactly once, no orphaned coordination state, goodput partition
+    exact)."""
+
+
+def _parse_kinds(kinds: str):
+    return tuple(k.strip() for k in kinds.split(",") if k.strip()) \
+        or None
+
+
+@chaos.command("plan")
+@click.option("--seed", type=int, default=0,
+              help="Schedule seed (same seed, same injections)")
+@click.option("--duration", type=float, default=4.0,
+              help="Drill window in seconds (must match the drill's "
+                   "for fingerprint parity)")
+@click.option("--num-nodes", type=int, default=4,
+              help="Logical node count targets are drawn from")
+@click.option("--kinds", default="",
+              help="Comma-separated injection kinds, default all: "
+                   + ",".join(chaos_plan_mod.INJECTION_KINDS))
+@click.option("--injections-per-kind", type=int, default=1)
+@click.pass_context
+def chaos_plan(click_ctx, seed, duration, num_nodes, kinds,
+               injections_per_kind):
+    """Render the deterministic fault schedule for a seed (no pool,
+    no execution — review what a drill would inject)."""
+    fleet.action_chaos_plan(
+        None, seed, duration=duration, num_nodes=num_nodes,
+        kinds=_parse_kinds(kinds),
+        injections_per_kind=injections_per_kind,
+        raw=click_ctx.obj["raw"])
+
+
+@chaos.command("drill")
+@click.option("--seed", type=int, default=0,
+              help="Schedule seed (same seed, same injections)")
+@click.option("--tasks", type=int, default=16,
+              help="Tasks submitted to the drill pool")
+@click.option("--duration", type=float, default=4.0,
+              help="Injection window in seconds")
+@click.option("--kinds", default="",
+              help="Comma-separated injection kinds, default all: "
+                   + ",".join(chaos_plan_mod.INJECTION_KINDS))
+@click.option("--injections-per-kind", type=int, default=1)
+@click.option("--preempt", is_flag=True, default=False,
+              help="Run the preemption drill instead: a seeded "
+                   "node_preempt_notice schedule against a running "
+                   "4-node gang — cooperative drain, forced "
+                   "COMMITTED checkpoint, zero lost steps, retry "
+                   "budget and node health untouched")
+@click.option("--victim", is_flag=True, default=False,
+              help="Run the victim-selection drill: two eligible "
+                   "victims (warm never-committer vs per-step "
+                   "committer) under a higher-priority starver — "
+                   "the sweep's goodput-cost ordering must elect "
+                   "the CHEAP victim against the id tie-break")
+@click.option("--evict", is_flag=True, default=False,
+              help="Run the forcible-eviction drill: a seeded "
+                   "victim_ignore_notice schedule against an "
+                   "--ignore-notice probe — hard kill after the "
+                   "grace window, exit classified evicted (full "
+                   "budget, neutral health), resume from the "
+                   "pre-notice COMMITTED barrier, eviction leg "
+                   "priced")
+@click.option("--resize", is_flag=True, default=False,
+              help="Run the multi-host resize drill: a seeded "
+                   "host_loss_resize schedule permanently crashes "
+                   "one host of a 2-host sharded gang — elastic "
+                   "re-form at 1 host, per-host reshard-on-restore "
+                   "plan followed exactly, bit-exact state, "
+                   "loss-trajectory oracle")
+@click.option("--outage", is_flag=True, default=False,
+              help="Run the store-outage drill: a seeded "
+                   "store_outage schedule takes the state store "
+                   "DOWN for a sustained window — resilient-store "
+                   "agents ride it out with zero retries, zero "
+                   "lost advisory events (WAL replay), drained "
+                   "journals, and the store_outage leg priced with "
+                   "the exact window")
+@click.option("--partition", is_flag=True, default=False,
+              help="Run the leader-partition drill: a seeded "
+                   "leader_partition schedule stalls the preempt-"
+                   "sweep leader's heartbeats/lease renewals while "
+                   "its sweep keeps running — exactly one "
+                   "preemption stamp fires, carrying the successor "
+                   "term's fencing epoch, with exactly one live "
+                   "lease epoch at the end")
+@click.option("--restart", is_flag=True, default=False,
+              help="Run the agent crash-restart drill: a seeded "
+                   "agent_restart schedule kills the agent process "
+                   "under a running task — the revived agent "
+                   "re-adopts it from the slot ledger (one start, "
+                   "retries==0, adoption leg priced)")
+@click.option("--serve-kill", is_flag=True, default=False,
+              help="Run the serving replica-kill drill: a replica "
+                   "dies SIGKILL-style under live token streams — "
+                   "the router resumes every stream on the sibling, "
+                   "exactly-once and byte-identical to a clean "
+                   "greedy decode, serving_recovery leg priced")
+@click.option("--serve-drain", is_flag=True, default=False,
+              help="Run the serving replica-drain drill: a preempt "
+                   "notice drains a replica through the full ladder "
+                   "(healthz 503+marker, 503+Retry-After admissions, "
+                   "cooperative-not-fault rotation, grace-deadline "
+                   "abandons resumed on the sibling)")
+@click.option("--serve-router", is_flag=True, default=False,
+              help="Run the serving router-restart drill: the "
+                   "router crashes mid-stream and clients cancel-"
+                   "then-resume through a successor — the replicas' "
+                   "duplicate gates keep delivery exactly-once")
+@click.option("--device", type=click.Choice(["cuda", "cpu"]),
+              default=None,
+              help="Where the serving drills' replicas run: the card "
+                   "(default) or, explicitly, the CPU")
+@click.pass_context
+def chaos_drill(click_ctx, seed, tasks, duration, kinds,
+                injections_per_kind, preempt, victim, evict, resize,
+                outage, partition, restart, serve_kill, serve_drain,
+                serve_router, device):
+    """Run the seeded drill on a local fakepod pool and assert the
+    recovery invariants (nonzero exit = a self-healing regression)."""
+    fleet.action_chaos_drill(
+        None, seed, tasks=tasks, duration=duration,
+        kinds=_parse_kinds(kinds),
+        injections_per_kind=injections_per_kind,
+        preempt=preempt, victim=victim, evict=evict, resize=resize,
+        outage=outage, partition=partition, restart=restart,
+        serve_kill=serve_kill, serve_drain=serve_drain,
+        serve_router=serve_router, device=device,
+        raw=click_ctx.obj["raw"])
 
 
 # ------------------------------- data ----------------------------------

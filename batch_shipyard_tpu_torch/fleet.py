@@ -7,11 +7,13 @@ owns config loading/validation, wiring (state store + substrate), and
 the cross-service flows.
 
 The port's copy of batch_shipyard_tpu/fleet.py: the same actions over the
-port's pool and jobs managers, store and substrates (fake, localhost), so
-a configdir either package's CLI reads gives the same output from the
-other's. Not here yet: the chaos, sim and lint actions (their modules are
-not ported), and the quota preflight, which comes with the H100 VM
-substrate.
+port's pool and jobs managers, store and substrates (fake, localhost and
+the A3 VM substrate behind ``substrate: tpu_vm``, with its GPU quota
+preflight), so a configdir either package's CLI reads gives the same
+output from the other's. The chaos actions run the port's drills; the
+serving drills run on the card unless given ``device="cpu"``, and the
+cross-pool migration drill is not here (it needs the federation). Not
+here yet: the sim and lint actions (their modules are not ported).
 """
 
 from __future__ import annotations
@@ -736,6 +738,122 @@ def action_goodput(ctx: Context, scope: str,
                     f"\n== job {jid} ==\n"
                     + accounting.waterfall_table(
                         report["jobs"][jid]) + "\n")
+    return report
+
+
+# -------------------------------- chaos --------------------------------
+
+def action_chaos_plan(ctx_or_none, seed: int, duration: float = 4.0,
+                      num_nodes: int = 4,
+                      kinds: Optional[tuple[str, ...]] = None,
+                      injections_per_kind: int = 1,
+                      raw: bool = False) -> dict:
+    """Render a deterministic fault schedule (chaos/plan.py) without
+    running it — same seed, same injection sequence, so operators can
+    review exactly what a drill will do (and name a scenario by its
+    seed + fingerprint). Needs no live pool or config context."""
+    from batch_shipyard_tpu_torch.chaos.plan import ChaosPlan
+    plan = ChaosPlan.generate(
+        seed, duration=duration, num_nodes=num_nodes, kinds=kinds,
+        injections_per_kind=injections_per_kind)
+    payload = plan.to_dict()
+    _emit(payload, raw)
+    return payload
+
+
+def action_chaos_drill(ctx_or_none, seed: int, tasks: int = 16,
+                       duration: float = 4.0,
+                       kinds: Optional[tuple[str, ...]] = None,
+                       injections_per_kind: int = 1,
+                       preempt: bool = False,
+                       victim: bool = False,
+                       evict: bool = False,
+                       resize: bool = False,
+                       outage: bool = False,
+                       partition: bool = False,
+                       restart: bool = False,
+                       serve_kill: bool = False,
+                       serve_drain: bool = False,
+                       serve_router: bool = False,
+                       device: Optional[str] = None,
+                       raw: bool = False) -> dict:
+    """Run a seeded chaos drill against a self-contained fakepod pool
+    (chaos/drill.py) and report the recovery invariants: every task
+    completed exactly once, no orphaned gang rows or queue messages,
+    goodput partition exact. Raises on any violated invariant, so a
+    nonzero exit IS the regression signal.
+
+    One flag picks another drill: ``preempt`` (a node_preempt_notice
+    schedule against a running 4-node gang: cooperative drain, forced
+    COMMITTED checkpoint, zero lost steps), ``victim`` (the sweep's
+    goodput-cost ordering elects the cheap victim), ``evict`` (an
+    --ignore-notice victim hard-killed after its grace, classified
+    evicted, resumed from the pre-notice barrier), ``resize`` (a
+    2-host sharded gang loses a host and restores bit-exactly at 1
+    through the per-host reshard plan), ``outage`` (the store down for
+    a window, ridden out by the resilient store), ``partition`` (the
+    preempt-sweep leader partitioned: exactly one stamp, the
+    successor's epoch), ``restart`` (the agent process dies under a
+    running task and re-adopts it). The serving drills
+    (chaos/serving_drill.py) — ``serve_kill``, ``serve_drain``,
+    ``serve_router`` — stand up two replicas and a router on
+    ``device`` (None: the card, raising without one; "cpu" only when
+    asked), the only drills that read it; the fakepod drills load no
+    torch. The reference's cross-pool migration drill is not here: it
+    needs the federation."""
+    from batch_shipyard_tpu_torch.chaos import drill
+    picked = [flag for flag, on in (("preempt", preempt),
+                                    ("victim", victim),
+                                    ("evict", evict),
+                                    ("resize", resize),
+                                    ("outage", outage),
+                                    ("partition", partition),
+                                    ("restart", restart),
+                                    ("serve-kill", serve_kill),
+                                    ("serve-drain", serve_drain),
+                                    ("serve-router", serve_router),
+                                    ) if on]
+    if len(picked) > 1:
+        raise ValueError(
+            f"pick at most one drill flag, got {picked}")
+    if preempt:
+        report = drill.run_preemption_drill(seed=seed,
+                                            duration=duration)
+    elif victim:
+        report = drill.run_victim_selection_drill(seed=seed)
+    elif evict:
+        report = drill.run_eviction_drill(seed=seed,
+                                          duration=duration)
+    elif resize:
+        report = drill.run_host_resize_drill(seed=seed,
+                                             duration=duration)
+    elif outage:
+        report = drill.run_store_outage_drill(seed=seed)
+    elif partition:
+        report = drill.run_leader_partition_drill(seed=seed)
+    elif restart:
+        report = drill.run_agent_restart_drill(seed=seed)
+    elif serve_kill or serve_drain or serve_router:
+        from batch_shipyard_tpu_torch.chaos import serving_drill
+        if serve_kill:
+            run = serving_drill.run_replica_kill_drill
+        elif serve_drain:
+            run = serving_drill.run_replica_drain_drill
+        else:
+            run = serving_drill.run_router_restart_drill
+        report = run(seed=seed, device=device)
+    else:
+        report = drill.run_drill(
+            seed=seed, tasks=tasks, duration=duration, kinds=kinds,
+            injections_per_kind=injections_per_kind)
+    out = {"seed": report["seed"],
+           "fingerprint": report["fingerprint"],
+           "invariants": report["invariants"],
+           "applied": report["applied"],
+           "goodput": report.get("goodput", {})}
+    if "device" in report:
+        out["device"] = report["device"]
+    _emit(out, raw)
     return report
 
 

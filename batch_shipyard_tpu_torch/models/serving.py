@@ -54,13 +54,28 @@ Where the reference's AOT executables are kept for their persistent
 compile-cache entries, a CUDA graph lives only in its process: what
 ``precompile`` buys is no burned request and no polluted prefix index,
 and, over a seeded cache, no ``nvcc``.
+
+A capture must have the card to itself: while one stream captures, a
+device-wide synchronisation from any thread of the process (as
+``torch.cuda.graph`` itself makes before it begins) fails with
+"operation not permitted when stream is capturing" and voids the
+capture, and two captures at once collide on the default CUDA
+generator's registration. So every CUDA engine of a process
+passes one gate (``_DEVICE_GATE``): its steps share it, and a capture
+(``capture_decode``, a cold engine's first steps, ``warmup``,
+``precompile``) holds it alone, waiting for the other engines' steps to
+end and holding back new ones until it is done. Engines that several
+front ends serve in one process may so start cold; warming them first
+only keeps the captures out of the traffic.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import hashlib
+import threading
 import time
 import uuid
 from typing import Callable, Optional, Union
@@ -74,6 +89,67 @@ from batch_shipyard_tpu_torch.goodput import events as goodput_events
 from batch_shipyard_tpu_torch.models import inference as inf
 from batch_shipyard_tpu_torch.models import transformer as tfm
 from batch_shipyard_tpu_torch.ops import _build
+
+
+class _DeviceGate:
+    """Shared device work against captures that need the card alone,
+    across the threads of one process. ``shared()``: any number of
+    holders at once. ``exclusive()``: one holder and no shared one; a
+    waiting exclusive holds back new shared holders, so captures are not
+    starved. Both re-enter within a thread (a capture inside warm-up's
+    steps); asking for ``exclusive()`` while this thread holds
+    ``shared()`` would wait on itself and raises."""
+
+    def __init__(self) -> None:
+        self._cond = threading.Condition()
+        self._shared = 0
+        self._waiting = 0
+        self._owner: Optional[int] = None
+        self._local = threading.local()
+
+    @contextlib.contextmanager
+    def shared(self):
+        if (getattr(self._local, "shared", False) or
+                self._owner == threading.get_ident()):
+            yield
+            return
+        with self._cond:
+            while self._owner is not None or self._waiting:
+                self._cond.wait()
+            self._shared += 1
+        self._local.shared = True
+        try:
+            yield
+        finally:
+            self._local.shared = False
+            with self._cond:
+                self._shared -= 1
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        me = threading.get_ident()
+        if self._owner == me:
+            yield
+            return
+        if getattr(self._local, "shared", False):
+            raise RuntimeError("exclusive device work asked for inside "
+                               "this thread's shared device work")
+        with self._cond:
+            self._waiting += 1
+            while self._owner is not None or self._shared:
+                self._cond.wait()
+            self._waiting -= 1
+            self._owner = me
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._owner = None
+                self._cond.notify_all()
+
+
+_DEVICE_GATE = _DeviceGate()
 
 
 def _decode_step(model, sampling, cache, tokens, positions, active,
@@ -468,6 +544,11 @@ class ContinuousBatcher:
         captured as a graph of its own; nothing is captured after
         warm-up. Leaves the prefix index and the prefix and speculative
         counters empty. Returns the buckets warmed."""
+        with self._device_work(exclusive=True):
+            return self._warmup(prompt_len, max_new_tokens)
+
+    def _warmup(self, prompt_len: Optional[int],
+                max_new_tokens: int) -> list[int]:
         lengths = self._warm_lengths(prompt_len, max_new_tokens)
         warmed: list[int] = []
 
@@ -555,22 +636,27 @@ class ContinuousBatcher:
                 cc_manager.tracked(attrs, "serving_precompile"):
             if on_card:
                 _build.library("decode_attention")
-            kept = self._snapshot_bookkeeping()
-            for kind, bucket in self._prefill_keys(buckets):
-                if (kind, bucket) not in self._prefill_graphs:
-                    self._capture_prefill(kind, bucket, capture=on_card)
-            decode = self._graph is None
-            if decode:
-                if self.speculative is not None:
-                    self._eager_speculative()
-                else:
-                    self._eager_decode()
-            # Captures record without running: restoring before the decode
-            # capture leaves the engine as it was.
-            self._restore_bookkeeping(kept)
-            if decode and on_card:
-                self.capture_decode()
+            with self._device_work(exclusive=True):
+                self._precompile_runs(buckets, on_card)
         return 1 + len(buckets) * (2 if self.speculative is not None else 1)
+
+    def _precompile_runs(self, buckets: list[int], on_card: bool) -> None:
+        """precompile's runs and captures, once the library is built."""
+        kept = self._snapshot_bookkeeping()
+        for kind, bucket in self._prefill_keys(buckets):
+            if (kind, bucket) not in self._prefill_graphs:
+                self._capture_prefill(kind, bucket, capture=on_card)
+        decode = self._graph is None
+        if decode:
+            if self.speculative is not None:
+                self._eager_speculative()
+            else:
+                self._eager_decode()
+        # Captures record without running: restoring before the decode
+        # capture leaves the engine as it was.
+        self._restore_bookkeeping(kept)
+        if decode and on_card:
+            self.capture_decode()
 
     def _snapshot_bookkeeping(self) -> dict:
         """Copies of what a run on parked arguments or inactive slots
@@ -663,11 +749,25 @@ class ContinuousBatcher:
                 return True
         return False
 
+    def _device_work(self, exclusive: bool):
+        """The process's device gate (``_DeviceGate``) for this engine's
+        work: a CUDA engine's steps share it, its captures hold it
+        alone. A CPU engine captures nothing and passes freely."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        return (_DEVICE_GATE.exclusive() if exclusive
+                else _DEVICE_GATE.shared())
+
     @torch.no_grad()
     def step(self) -> list[tuple[str, list[int]]]:
         """Admit queued requests into free slots, decode for every active
         slot (one token, or with a draft model a gamma-token draft/verify
-        block a slot), and emit finished requests."""
+        block a slot), and emit finished requests. Until its decode graph
+        is captured, a CUDA engine's step holds the device gate alone."""
+        with self._device_work(exclusive=self._graph is None):
+            return self._step()
+
+    def _step(self) -> list[tuple[str, list[int]]]:
         self._admit()
         # Slots whose prefill-sampled token already satisfied the
         # request emit without a decode step.
@@ -796,8 +896,9 @@ class ContinuousBatcher:
             # Each replay advances the generator's offset, as an eager
             # draw does.
             graph.register_generator_state(self._generator)
-        with torch.cuda.graph(graph, pool=self._graph_pool,
-                              capture_error_mode="thread_local"):
+        with self._device_work(exclusive=True), \
+                torch.cuda.graph(graph, pool=self._graph_pool,
+                                 capture_error_mode="thread_local"):
             if self.speculative is not None:
                 out = self._eager_speculative()
             else:
@@ -1312,8 +1413,9 @@ class ContinuousBatcher:
         if not capture:
             return
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool,
-                              capture_error_mode="thread_local"):
+        with self._device_work(exclusive=True), \
+                torch.cuda.graph(graph, pool=self._graph_pool,
+                                 capture_error_mode="thread_local"):
             out = self._prefill_body(kind, bucket)
         self._prefill_graphs[(kind, bucket)] = (graph, out)
 

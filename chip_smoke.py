@@ -301,7 +301,9 @@ Phases, each fatal on failure:
      idle share, flash and library GEMM ms, the top kernels). The
      phase's seconds and the run's total are printed;
   6. the served decode step as a CUDA graph (decode_graph), for each
-     bench_serving cache (paged, paged_int8, dense_int8): one request
+     bench_serving cache (paged, paged_int8, dense_int8), on its engine
+     at GRAPH_LAYERS (2) of its 12 layers (each row says its
+     ``layers``): one request
      schedule (admissions mid-stream, pages growing past the prompts',
      overcommit preemption with re-prefill on paged_int8) through an
      engine replaying its graph and one held eager must stream
@@ -371,10 +373,30 @@ Phases, each fatal on failure:
      requests with 96-token shared prefixes, its three classes), prefix
      cache on and off: the same tokens (sha256), each class's
      attainment and each arm's TTFT printed. K6 with fp32 queries is
-     checked at both served shapes in phase 2.
+     checked at both served shapes in phase 2;
+  10. (x) chaos (``chaos_leg``): the port's serving drills
+     (chaos/serving_drill.py, their own model: vocab 97, d 32, 2 layers,
+     fp32, 2 slots, the dense cache, which runs no kernel; two replicas
+     behind the port's router, 4 streaming clients, seed 1) on the card:
+     (x1) ``python -m batch_shipyard_tpu_torch.cli.main --raw chaos drill
+     --serve-kill --seed 1`` as a process of its own, started first and
+     running beside (x2) the replica drain and (x3) the router restart
+     through fleet.action_chaos_drill in this process. Each must hold
+     its drill's invariants (every stream exactly once and equal to a
+     clean replica's greedy decode) and, read back from its --raw
+     output, lose no stream, recover at least once, complete exactly its
+     requests across the fleet, price the serving_recovery goodput leg
+     and have its engines' weights on cuda:0. Then (x4) four of the
+     drills' engines, none warmed, stepped side by side by four threads
+     (``cold_engines``: their decode-graph captures meet each other's
+     eager steps, which the serving engine's device gate orders), each
+     stream equal to a warmed engine's. Printed: each drill's seconds
+     and window, (x1)'s process start and fleet build (to its own exit),
+     (x4)'s seconds, the leg's seconds, with the card's name and power
+     limit.
 
 All phases run at full depth but the sp run and the mesh's (a)-(d), the
-checkpoint phase's (b) and the MoE phase's (m3). The last two stdout lines are the
+checkpoint phase's (b), the MoE phase's (m3) and phase 6's graph checks. The last two stdout lines are the
 {"kernels": [...]} summary (K1-K16, and K10's two halves) and
 {"ok": true, "device": {...}}; before them, a "chip_smoke at <s> s:
 <phase>" line as each phase starts. Exits nonzero, printing no result,
@@ -5152,6 +5174,23 @@ GRAPH_STEPS, GRAPH_PROMPT, GRAPH_SEED = 16, 96, 5
 # slot, so the 40-page paged_int8 cache must preempt).
 STREAM_REQUESTS, STREAM_FIRST, STREAM_GAP = 12, 4, 12
 STREAM_PROMPT, STREAM_NEW = (100, 300), (100, 200)
+# decode_graph's engines: bench_serving's caches and widths at
+# GRAPH_LAYERS of its 12 layers. They check the captured graphs against
+# eager runs, not the model, and their eager runs are host-bound, a
+# layer's launches at a time: the cut (12 -> 2, since (x) joined the
+# script) pays for the chaos leg. The timed serve runs keep full depth.
+GRAPH_LAYERS = 2
+
+
+def graph_engine(name, device) -> ContinuousBatcher:
+    """build_bench_engine's engine for cache ``name`` at GRAPH_LAYERS."""
+    kv_dtype, kwargs = BENCH_SERVING_KV_CACHES[name]
+    config = tfm.TransformerConfig(
+        **dict(MODEL, n_layers=GRAPH_LAYERS), max_seq_len=MAX_LEN,
+        dtype=torch.bfloat16, kv_cache_dtype=kv_dtype)
+    return ContinuousBatcher(config, bench_params(config, device, 0),
+                             num_slots=SLOTS, max_decode_len=MAX_LEN,
+                             device=device, **kwargs)
 
 
 def _decode_state(engine: ContinuousBatcher) -> list:
@@ -5201,7 +5240,7 @@ def stream_check(name, device) -> tuple[dict, ContinuousBatcher]:
     preemptions. Returns the row and the replaying engine, drained."""
     runs = {}
     for mode in ("replayed", "eager"):
-        engine = build_bench_engine(name, device)
+        engine = graph_engine(name, device)
         if mode == "eager":
             # Hold this one eager: no decode graph, no prefill graph.
             engine.capture_decode = lambda: None
@@ -5293,7 +5332,8 @@ def decode_graph(name, device) -> dict:
     """Phase 6 for one cache: stream_check, then graph_check on the
     drained replaying engine."""
     stream, engine = stream_check(name, device)
-    rows = {"stream": stream, **graph_check(name, engine)}
+    rows = {"layers": GRAPH_LAYERS, "stream": stream,
+            **graph_check(name, engine)}
     print(f"graph {name} " + json.dumps(rows), flush=True)
     del engine
     torch.cuda.empty_cache()
@@ -6590,6 +6630,194 @@ def serving_tier(device) -> dict:
     print("serving_tier seconds " + json.dumps(
         {k: v for k, v in rows.items() if k.endswith("_seconds")}),
         flush=True)
+    return rows
+
+
+# ------------------------------ (x) chaos -------------------------------
+
+# The serving drills (chaos/serving_drill.py) on the card, at the seed of
+# the reference's serving_resilience tests: (x1) the replica kill through
+# the CLI as a process of its own, (x2) the drain and (x3) the router
+# restart in this process through the fleet layer. Each drill's own
+# model (vocab 97, d 32, 2 layers, fp32, dense cache: no kernel) and
+# invariants; the leg reads them back and adds its own.
+CHAOS_SEED = 1
+CHAOS_CLI_TIMEOUT_S = 300.0
+# (flag, request count the fleet must complete: the drain drill's probe
+# request is one more).
+CHAOS_DRILLS = {"kill": ("serve_kill", 4), "drain": ("serve_drain", 5),
+                "router": ("serve_router", 4)}
+
+
+def _raw_json(text: str) -> dict:
+    """The JSON object --raw printed (its first line at column 0)."""
+    lines = text.splitlines()
+    start = next(i for i, line in enumerate(lines) if line == "{")
+    return json.loads("\n".join(lines[start:]))
+
+
+def check_drill(name: str, payload: dict) -> dict:
+    """Every invariant of one serving drill's report, and where its
+    replicas ran: ok, no lost stream, at least one recovery, the fleet's
+    completions equal to its requests, the serving_recovery leg priced,
+    and the engines' weights read back on the card."""
+    inv = payload["invariants"]
+    recoveries = inv.get("recoveries", inv.get("resumed_clients"))
+    leg = payload["goodput"]["badput_seconds"]["serving_recovery"]
+    require(inv.get("ok") is True, f"(x) {name}: invariants {inv}")
+    require(inv.get("lost_streams") == 0,
+            f"(x) {name}: lost streams {inv.get('lost_streams')}")
+    require(recoveries is not None and recoveries >= 1,
+            f"(x) {name}: recoveries {recoveries}")
+    require(inv.get("fleet_completed_requests") == CHAOS_DRILLS[name][1],
+            f"(x) {name}: fleet completed "
+            f"{inv.get('fleet_completed_requests')} of "
+            f"{CHAOS_DRILLS[name][1]} requests")
+    require(leg > 0, f"(x) {name}: serving_recovery not priced: {leg}")
+    require(payload.get("device") == ["cuda:0"],
+            f"(x) {name}: replicas on {payload.get('device')}, not the card")
+    return {"recoveries": recoveries, "serving_recovery_s": leg,
+            "completed": inv["fleet_completed_requests"],
+            "device": payload["device"],
+            "drill_window_s": inv["goodput_wall_seconds"]}
+
+
+# (x4): COLD_ENGINES of the drills' engines in this process, none warmed,
+# each stepped by a thread of its own from one barrier through
+# COLD_ROUNDS rounds of two requests: each engine's first steps capture
+# its decode graph while the others prefill eagerly, which the serving
+# engine's device gate (models/serving.py ``_DeviceGate``) orders. Every
+# stream must equal a warmed engine's.
+COLD_ENGINES, COLD_ROUNDS, COLD_NEW_TOKENS = 4, 3, 12
+COLD_TIMEOUT_S = 120.0
+
+
+def _cold_streams(engine, specs) -> dict:
+    """Each request of ``specs``, two at a time, stepped to its end."""
+    out = {}
+    for first in range(0, len(specs), 2):
+        for spec in specs[first:first + 2]:
+            engine.submit(Request(request_id=spec["request_id"],
+                                  prompt=spec["prompt"],
+                                  max_new_tokens=spec["max_new_tokens"]))
+        while engine.pending():
+            out.update(engine.step())
+    return out
+
+
+def cold_engines(device) -> dict:
+    """(x4): cold engines stepped side by side, each held to a warmed
+    engine's streams."""
+    from batch_shipyard_tpu_torch.chaos import serving_drill
+    cfg = serving_drill.drill_config()
+    params = serving_drill.drill_params(cfg, device)
+    specs = serving_drill._drill_requests(CHAOS_SEED, 2 * COLD_ROUNDS,
+                                          COLD_NEW_TOKENS)
+
+    def engine():
+        return ContinuousBatcher(cfg, params, num_slots=2,
+                                 max_decode_len=64, device=device)
+
+    started = time.perf_counter()
+    warm = engine()
+    warm.warmup()
+    expected = _cold_streams(warm, specs)
+    barrier = threading.Barrier(COLD_ENGINES)
+    streams, errors = [None] * COLD_ENGINES, []
+
+    def run(k):
+        try:
+            cold = engine()
+            barrier.wait(COLD_TIMEOUT_S)
+            streams[k] = _cold_streams(cold, specs)
+            require(cold._graph is not None,
+                    f"(x4) engine {k}: no decode graph captured")
+        except BaseException as exc:  # noqa: BLE001 (reported below)
+            errors.append(f"engine {k}: {exc!r}")
+
+    threads = [threading.Thread(target=run, args=(k,), daemon=True)
+               for k in range(COLD_ENGINES)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(COLD_TIMEOUT_S)
+    require(not any(t.is_alive() for t in threads),
+            "(x4) cold engines: a stepping thread did not end")
+    require(not errors, f"(x4) cold engines: {errors}")
+    differ = [k for k, got in enumerate(streams) if got != expected]
+    require(not differ and len(expected) == len(specs),
+            f"(x4) cold engines {differ}: streams differ from a warmed "
+            f"engine's")
+    return {"engines": COLD_ENGINES, "requests": len(specs),
+            "tokens": sum(len(t) for t in expected), "identical": True,
+            "seconds": time.perf_counter() - started}
+
+
+def chaos_leg(smi: str) -> dict:
+    """(x): the three serving drills on the card, each held to
+    check_drill. (x1) ``shipyard-tpu-torch --raw chaos drill --serve-kill``
+    as a process, started first: its start (torch's import is ~8 s of a
+    host's core) runs beside (x2) and (x3), which go through
+    ``fleet.action_chaos_drill`` here, their --raw output read back, and
+    (x4) ``cold_engines``. The drills' times are shared; none is a
+    bound."""
+    from batch_shipyard_tpu_torch import fleet as fleet_mod
+    rows = {}
+    started = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as out_x1, \
+            tempfile.TemporaryFile("w+") as err_x1:
+        proc = subprocess.Popen(
+            CLI + ["--raw", "chaos", "drill", "--serve-kill", "--seed",
+                   str(CHAOS_SEED)],
+            cwd=str(_build.REPO_ROOT), env=dict(os.environ),
+            stdout=out_x1, stderr=err_x1, text=True)
+        # (x1)'s own wall: the moment its process exits, not the moment
+        # (x2) and (x3) let this thread look.
+        exited = []
+        waiter = threading.Thread(
+            target=lambda: exited.append((proc.wait(),
+                                          time.perf_counter())),
+            daemon=True)
+        waiter.start()
+        try:
+            for name in ("drain", "router"):
+                t0 = time.perf_counter()
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    report = fleet_mod.action_chaos_drill(
+                        None, CHAOS_SEED, raw=True,
+                        **{CHAOS_DRILLS[name][0]: True})
+                seconds = time.perf_counter() - t0
+                payload = _raw_json(out.getvalue())
+                require(payload["invariants"] == json.loads(json.dumps(
+                    report["invariants"], default=str)),
+                    f"(x) {name}: --raw output differs from the report")
+                rows[name] = check_drill(name, payload)
+                rows[name]["seconds"] = seconds
+            rows["cold"] = cold_engines(torch.device("cuda"))
+            waiter.join(max(0.0, CHAOS_CLI_TIMEOUT_S -
+                            (time.perf_counter() - started)))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            waiter.join()
+        returncode, ended = exited[0]
+        seconds = ended - started
+        out_x1.seek(0)
+        err_x1.seek(0)
+        stdout, stderr = out_x1.read(), err_x1.read()
+    require(returncode == 0,
+            f"(x1) chaos drill --serve-kill: exit {returncode}\n"
+            f"{stdout[-2000:]}\n{stderr[-3000:]}")
+    rows["kill"] = check_drill("kill", _raw_json(stdout))
+    rows["kill"]["seconds"] = seconds
+    # The process's start (torch, the card) and fleet build: its wall
+    # less the drill's own window.
+    rows["kill"]["start_and_build_s"] = \
+        seconds - rows["kill"]["drill_window_s"]
+    rows["leg_s"] = time.perf_counter() - started
+    print(f"(x) chaos on {smi}: " + json.dumps(rows), flush=True)
     return rows
 
 
@@ -8198,6 +8426,8 @@ def main() -> int:
     speculative = serve_speculative(device)
     mark("serving tier")
     tier = serving_tier(device)
+    mark("chaos")
+    chaos_leg(smi)
 
     kernels = []
     for key, meta in KERNELS.items():

@@ -38,7 +38,7 @@ RECIPES = REPO / "recipes"
 CLIS = {"ref": ref_cli, "port": port_cli}
 # The reference's groups this package leaves out (their modules are not
 # ported): click answers "No such command".
-ABSENT = {"lint", "chaos", "sim", "monitor", "fed", "slurm", "fs", "misc"}
+ABSENT = {"lint", "sim", "monitor", "fed", "slurm", "fs", "misc"}
 
 
 def _pool(pool_id, nodes=2):
@@ -130,7 +130,7 @@ def test_help_lists_the_references_groups_less_the_absent_ones():
 
 
 @pytest.mark.parametrize("group", [
-    "pool", "jobs", "goodput", "trace", "data", "diag", "account",
+    "pool", "jobs", "goodput", "trace", "chaos", "data", "diag", "account",
     "secrets", "storage", ("pool", "nodes"), ("pool", "cache"),
     ("pool", "user"), ("pool", "images"), ("pool", "autoscale"),
     ("jobs", "tasks"), ("data", "files"), ("diag", "logs")])
@@ -141,6 +141,35 @@ def test_each_ported_group_has_the_references_commands(group):
     port = CliRunner().invoke(port_cli, argv + ["--help"])
     assert ref.exit_code == port.exit_code == 0
     assert _groups(port.output) == _groups(ref.output)
+
+
+def _options(help_text):
+    return {word.rstrip(",") for line in help_text.splitlines()
+            for word in line.split() if word.startswith("--")}
+
+
+def test_chaos_plan_matches_the_reference():
+    argv = ["--raw", "chaos", "plan", "--seed", "5", "--kinds",
+            "task_wedge,task_kill,node_preempt,heartbeat_blackout"]
+    ref = CliRunner().invoke(ref_cli, argv)
+    port = CliRunner().invoke(port_cli, argv)
+    assert ref.exit_code == port.exit_code == 0
+    assert port.output == ref.output
+    assert json.loads(port.output)["fingerprint"]
+
+
+def test_chaos_drill_has_the_references_options_less_migrate():
+    """No migration drill (it needs fed): click refuses --migrate before
+    any drill starts. --device is the port's, for the serving drills."""
+    ref = CliRunner().invoke(ref_cli, ["chaos", "drill", "--help"])
+    port = CliRunner().invoke(port_cli, ["chaos", "drill", "--help"])
+    assert ref.exit_code == port.exit_code == 0
+    assert _options(port.output) == (
+        _options(ref.output) - {"--migrate"}) | {"--device"}
+    refused = CliRunner().invoke(port_cli, ["chaos", "drill", "--migrate"])
+    assert refused.exit_code == 2
+    assert "No such option" in refused.output and "--migrate" in \
+        refused.output
 
 
 def test_version():

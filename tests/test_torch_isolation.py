@@ -84,6 +84,25 @@ HOOK_MODULES = (
     "batch_shipyard_tpu_torch.substrate.gce_vm",
     "batch_shipyard_tpu_torch.substrate.quota",
     "batch_shipyard_tpu_torch.substrate.gcp_gpu",
+    # Chaos: the plans, injectors and drills, the two probes the drills
+    # launch, and the serving drills.
+    "batch_shipyard_tpu_torch.chaos",
+    "batch_shipyard_tpu_torch.chaos.plan",
+    "batch_shipyard_tpu_torch.chaos.injectors",
+    "batch_shipyard_tpu_torch.chaos.drill",
+    "batch_shipyard_tpu_torch.chaos.serving_drill",
+    "batch_shipyard_tpu_torch.workloads.preempt_probe",
+    "batch_shipyard_tpu_torch.workloads.reshard_probe",
+)
+# Modules that must load no torch: the CLI's front door, the fakepod
+# drills (stdlib pools and probes) and the probes a gang task runs.
+TORCH_FREE = (
+    "batch_shipyard_tpu_torch.cli.main",
+    "batch_shipyard_tpu_torch.chaos",
+    "batch_shipyard_tpu_torch.chaos.drill",
+    "batch_shipyard_tpu_torch.chaos.serving_drill",
+    "batch_shipyard_tpu_torch.workloads.preempt_probe",
+    "batch_shipyard_tpu_torch.workloads.reshard_probe",
 )
 
 
@@ -198,3 +217,27 @@ def test_train_cli_refuses_without_cuda():
         env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert proc.returncode != 0
     assert "device='cpu'" in proc.stderr
+
+
+@pytest.mark.parametrize("module", TORCH_FREE)
+def test_torch_free_modules_load_no_torch(module):
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import sys, {module}; print('torch' in sys.modules)"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "False"
+
+
+def test_chaos_serving_drill_cli_refuses_without_cuda():
+    """`chaos drill --serve-kill` with no card visible and no --device
+    exits nonzero with the device error; the fakepod drills need none."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "batch_shipyard_tpu_torch.cli.main",
+         "chaos", "drill", "--serve-kill"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO),
+                 CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr + proc.stdout
